@@ -9,7 +9,11 @@ JAX-side conftest:
 Tolerances, as chip_smoke.py holds them: f32 kernels against f32 plain
 versions with TF32 off differ only in the order of sums, 1e-4 of the
 output scale; bf16 outputs may differ by one bf16 rounding step of the
-output (2^-8 relative), 2e-2 of the scale; the movers are bit-exact.
+output (2^-8 relative), 2e-2 of the scale; the movers are bit-exact. The
+backward kernels (K1b, K2b) are held to the plain backward with the same
+tolerances, each gradient relative to its own scale: their parameter
+gradients are sums over every row, reduced with f32 atomics in an order
+that varies from run to run. The movers' adjoints are bit-exact.
 """
 
 import numpy as np
@@ -60,17 +64,21 @@ def _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype, seed=0):
     return (r(2 * nw, n, c).to(dtype), 1 + r(c, k=0.1), r(c, k=0.1),
             r(3 * c, c, k=ws), r(3 * c, k=0.1), r(heads, n, n), ids,
             r(c, c, k=ws), r(c, k=0.1),
-            torch.tensor([0.7, 1.3], device=dev), (c // heads) ** -0.5, heads)
+            torch.tensor([0.7, 1.3], device=dev),
+            torch.tensor([0.4, 1.1], device=dev), (c // heads) ** -0.5, heads)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", [
+ATTN_SHAPES = [  # the four Swin-T stage kinds, and a head dim of 8
     ((12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96, "shifted"),
     ((12, 14, 12), (6, 7, 6), (0, 0, 0), 3, 96, None),
     ((9, 11, 9), (6, 7, 6), (3, 3, 3), 12, 384, "padded"),
     ((5, 6, 5), (5, 6, 5), (0, 0, 0), 24, 768, None),
-    ((4, 6, 4), (2, 3, 2), (1, 1, 1), 2, 16, "shifted"),   # head dim 8
-])
+    ((4, 6, 4), (2, 3, 2), (1, 1, 1), 2, 16, "shifted"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", ATTN_SHAPES)
 def test_attn_half_matches_plain(dev, dtype, dims, window, shift, heads, c,
                                  ids_kind):
     args = _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
@@ -93,16 +101,26 @@ def test_attn_half_saturated_logits_and_no_bias(dev):
            torch.float32)
 
 
+def _mlp_args(dev, rows, c, dtype, lam=0.9):
+    g = torch.Generator().manual_seed(1)
+    r = lambda *s, k=1.0: (torch.randn(*s, generator=g) * k).to(dev)
+    hid = 4 * c
+    return (r(rows, c).to(dtype), 1 + r(c, k=0.1), r(c, k=0.1),
+            r(hid, c, k=c ** -0.5), r(hid, k=0.1), r(c, hid, k=hid ** -0.5),
+            r(c, k=0.1), torch.tensor([0.7, 1.3], device=dev),
+            torch.tensor([0.4, 1.1], device=dev), lam)
+
+
+MLP_SHAPES = [(2 * 2016, 384), (2 * 150, 768), (2 * 37, 24)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c", [(2 * 2016, 384), (2 * 150, 768),
-                                    (2 * 37, 24)])
+@pytest.mark.parametrize("rows,c", MLP_SHAPES)
 def test_ln_mlp_matches_plain(dev, dtype, rows, c):
     g = torch.Generator().manual_seed(1)
     r = lambda *s, k=1.0: (torch.randn(*s, generator=g) * k).to(dev)
     hid = 4 * c
-    args = (r(rows, c).to(dtype), 1 + r(c, k=0.1), r(c, k=0.1),
-            r(hid, c, k=0.1), r(hid, k=0.1), r(c, hid, k=0.1), r(c, k=0.1),
-            torch.tensor([0.7, 1.3], device=dev), 0.9)
+    args = _mlp_args(dev, rows, c, dtype)
     before = _build.launches["ln_mlp"]
     got = sbk.ln_mlp(*args)
     torch.cuda.synchronize()
@@ -147,3 +165,100 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         wr.spatial_to_windows(torch.zeros(1, 5, 6, 5, 4, device=dev),
                               (2, 3, 2))
     assert np.isfinite(sbk.attn_half(*args).float().cpu().numpy()).all()
+
+
+def _grads(fn, args, dout, diff):
+    """Gradients of sum(fn(*args) * dout) w.r.t. the args at ``diff``."""
+    args = list(args)
+    for i in diff:
+        args[i] = args[i].detach().clone().requires_grad_()
+    out = fn(*args)
+    assert out.grad_fn is not None
+    return torch.autograd.grad(out, [args[i] for i in diff], dout)
+
+
+def _close_grads(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        assert err <= TOL[dtype] * scale, (err, scale)
+
+
+ATTN_DIFF = (0, 1, 2, 3, 4, 5, 7, 8)    # x, LN, qkv w/b, bias, proj w/b
+MLP_DIFF = (0, 1, 2, 3, 4, 5, 6)
+
+
+@pytest.mark.parametrize("lam", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", ATTN_SHAPES)
+def test_attn_half_bwd_matches_plain(dev, dtype, dims, window, shift, heads,
+                                     c, ids_kind, lam):
+    args = _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
+    args = (*args, lam)
+    dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        2)).to(dev, dtype)
+    before = _build.launches["attn_half_bwd"]
+    got = _grads(sbk.attn_half, args, dout, ATTN_DIFF)
+    torch.cuda.synchronize()
+    assert _build.launches["attn_half_bwd"] == before + 1
+    _close_grads(got, _grads(sbk.attn_half_reference, args, dout, ATTN_DIFF),
+                 dtype)
+
+
+@pytest.mark.parametrize("logit", [45.0, 200.0])
+def test_attn_half_bwd_at_saturated_logits(dev, logit):
+    args = list(_attn_args(dev, (4, 4, 4), (2, 2, 2), (1, 1, 1), 2, 64,
+                           "shifted", torch.float32))
+    args[5] = args[5] * 8 + logit
+    dout = torch.randn(args[0].shape, device=dev)
+    got = _grads(sbk.attn_half, args, dout, ATTN_DIFF)
+    assert all(torch.isfinite(g).all() for g in got)
+    _close_grads(got, _grads(sbk.attn_half_reference, args, dout, ATTN_DIFF),
+                 torch.float32)
+
+
+@pytest.mark.parametrize("lam", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", MLP_SHAPES)
+def test_ln_mlp_bwd_matches_plain(dev, dtype, rows, c, lam):
+    args = _mlp_args(dev, rows, c, dtype, lam)
+    dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        3)).to(dev, dtype)
+    before = _build.launches["ln_mlp_bwd"]
+    got = _grads(sbk.ln_mlp, args, dout, MLP_DIFF)
+    torch.cuda.synchronize()
+    assert _build.launches["ln_mlp_bwd"] == before + 1
+    _close_grads(got, _grads(sbk.ln_mlp_reference, args, dout, MLP_DIFF),
+                 dtype)
+
+
+MOVER_GEOMETRY = [  # Swin-T stage 1 and 2 grids, unshifted and shifted
+    ((36, 42, 36), (0, 0, 0)), ((36, 42, 36), (3, 3, 3)),
+    ((18, 21, 18), (0, 0, 0)), ((18, 21, 18), (33, 39, 33)),
+]
+
+
+@pytest.mark.parametrize("dims,roll", MOVER_GEOMETRY)
+def test_mover_adjoints_are_bit_exact(dev, dims, roll):
+    """A training forward through a mover keeps its graph (grad_fn), and
+    the adjoint kernel equals autograd through the plain form bit for
+    bit."""
+    window = (6, 7, 6)
+    x = torch.randn(2, *dims, 8, device=dev).bfloat16()
+    wins = wr.spatial_to_windows_reference(x, window)
+    cases = (("spatial_to_windows", x, (window, roll)),
+             ("windows_to_windows", wins, (window, dims, roll)),
+             ("windows_to_spatial", wins, (window, dims, roll)))
+    for name, src, rest in cases:
+        fn, ref = getattr(wr, name), getattr(wr, name + "_reference")
+        before = _build.launches[name + "_adjoint"]
+        a = src.detach().clone().requires_grad_()
+        out = fn(a, *rest)
+        assert out.grad_fn is not None, name
+        g = torch.randn(out.shape, device=dev).bfloat16()
+        (got,) = torch.autograd.grad(out, a, g)
+        assert _build.launches[name + "_adjoint"] == before + 1
+        b = src.detach().clone().requires_grad_()
+        (want,) = torch.autograd.grad(ref(b, *rest), b, g)
+        assert torch.equal(got, want), name

@@ -123,10 +123,17 @@ def test_converter_maps_every_leaf_and_key(jax_variables):
 
 
 def test_training_forward_and_unported_options_raise():
-    model = build_model(load_config(TINY))
+    """Training runs the kernels' VJPs; training with dropout (the K4
+    path) and the unported options raise."""
     x = torch.zeros(1, 12, 18, 12, 1)
-    with pytest.raises(NotImplementedError):
-        model.train()(x)
+    model = build_model(load_config(TINY)).train()
+    model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
+    with pytest.raises(ValueError):
+        model(x)   # stochastic depth draws need a generator or draws
+    for key in ("DROPOUT", "ATTENTION_DROPOUT"):
+        model = build_model(load_config(dict(TINY, **{key: 0.1}))).train()
+        with pytest.raises(NotImplementedError):
+            model(x, generator=torch.Generator())
     for key in ("POST_NORM", "LAYER_SCALE", "ENABLE_STABLE"):
         with pytest.raises(NotImplementedError):
             build_model(load_config(dict(TINY, **{key: True})))
@@ -183,6 +190,6 @@ def test_eval_residual_gains_match_jax(rate, shakedrop):
              for _ in range(2))
     np.testing.assert_allclose(
         gated_residual(torch.from_numpy(x), torch.from_numpy(br), got[0],
-                       0.5).numpy(),
+                       got[1], 0.5).detach().numpy(),
         np.asarray(jgated(x, br, want[0], want[1], 0.5)), rtol=1e-6,
         atol=1e-6)

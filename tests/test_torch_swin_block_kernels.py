@@ -55,7 +55,8 @@ def _run_attn(p, ids, gains, lam, use_bias=True):
     got = port.attn_half(
         t(p["x"]), t(p["lng"]), t(p["lnb"]), t(p["wqkv"].T), t(p["bqkv"]),
         None if bias is None else t(bias), None if ids is None else t(ids),
-        t(p["wproj"].T), t(p["bproj"]), t(gains), scale, HEADS, lam)
+        t(p["wproj"].T), t(p["bproj"]), t(gains), t(gains), scale, HEADS,
+        lam)
     return got.numpy(), np.asarray(want)
 
 
@@ -130,7 +131,7 @@ def test_ln_mlp_matches_jax(lam, gains):
                         48, lam)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     got = port.ln_mlp(t(x), t(lng), t(lnb), t(w1.T), t(b1), t(w2.T), t(b2),
-                      t(g), lam)
+                      t(g), t(g), lam)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
 
@@ -143,7 +144,7 @@ def test_bf16_plain_versions_round_operands_like_the_kernel():
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     args = [t(p["lng"]), t(p["lnb"]), t(p["wqkv"].T), t(p["bqkv"]),
             t(p["bias"]), None, t(p["wproj"].T), t(p["bproj"]),
-            torch.ones(2), HD ** -0.5, HEADS]
+            torch.ones(2), torch.ones(2), HD ** -0.5, HEADS]
     x = t(p["x"])
     ref = port.attn_half(x, *args)
     out = port.attn_half(x.bfloat16(), *args)

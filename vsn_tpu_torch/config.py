@@ -39,6 +39,34 @@ DEFAULTS = {
     "DISEASES": ["CN", "AD", "PNFA", "BV", "SD"],
     "EVAL_BATCH_SIZE": 64,
     "BATCH_SIZE": 8,
+    # training step (vsn_tpu/train/step.py)
+    "EFFECTIVE_BATCH_SIZE": 128,
+    "STEPS": 2500,
+    "SEED": 42,
+    "LR_BASE": 0.0003,
+    "LR_FINAL": 1e-05,
+    "LR_WARMUP": 50,
+    "WD_BASE": 0.05,
+    "WD_FINAL": 0.0001,
+    "WD_WARMUP": 50,
+    "GRADIENT_CLIP": False,
+    "LABEL_SMOOTHING": False,
+    "USE_SAM": False,
+    "SAM_RHO": 0.05,
+    "SAM_ADAPTIVE": False,
+    "USE_EMA": False,
+    "EMA_DECAY": 0.999,
+    "EMA_N_MODELS": 3,
+    "USE_MIXUP": False,
+    "MIXUP_ALPHA": 0.3,
+    "MIXUP_PROB": 0.5,
+    "USE_CUTMIX": False,
+    "CUTMIX_ALPHA": 1.0,
+    "CUTMIX_PROB": 0.5,
+    "USE_EXTENDED_DATA_AUGMENTATION": False,
+    "WATCH_GRADIENTS": False,
+    "USE_CHECKPOINT": False,
+    "PRELOAD_DEVICE": False,
 }
 
 
@@ -58,6 +86,18 @@ class Config(dict):
     @property
     def num_classes(self) -> int:
         return len(self["DISEASES"])
+
+    def gradient_accumulation_steps(self, world_size: int = 1) -> int:
+        """ceil(EFFECTIVE_BATCH_SIZE / (BATCH_SIZE * world_size))
+        (vsn_tpu/config.py:113-128)."""
+        per_step = self["BATCH_SIZE"] * world_size
+        if per_step <= 0:
+            raise ValueError("BATCH_SIZE * world_size must be positive")
+        if self["EFFECTIVE_BATCH_SIZE"] < per_step:
+            raise ValueError(
+                f"EFFECTIVE_BATCH_SIZE={self['EFFECTIVE_BATCH_SIZE']} smaller "
+                f"than BATCH_SIZE*world={per_step}")
+        return -(-self["EFFECTIVE_BATCH_SIZE"] // per_step)
 
     @property
     def input_size(self) -> tuple[int, int, int]:

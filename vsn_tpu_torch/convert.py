@@ -1,11 +1,14 @@
-"""JAX parameter tree -> the port's state_dict.
+"""JAX parameter tree <-> the port's state_dict.
 
-The inverse of scripts/golden_parity.py ``port_swin``, with the same
-transposes: a Dense kernel [in, out] becomes a Linear weight [out, in]; a
-Conv kernel [kd, kh, kw, I, O] becomes a Conv3d weight [O, I, kd, kh, kw];
-LayerNorm scale/bias become weight/bias. Every leaf must match a rule
-(KeyError otherwise); load the result with ``load_state_dict(strict=True)``
-so that any model key left without a leaf errors too.
+``state_dict_from_jax`` is the inverse of scripts/golden_parity.py
+``port_swin``, with the same transposes: a Dense kernel [in, out] becomes a
+Linear weight [out, in]; a Conv kernel [kd, kh, kw, I, O] becomes a Conv3d
+weight [O, I, kd, kh, kw]; LayerNorm scale/bias become weight/bias. Every
+leaf must match a rule (KeyError otherwise); load the result with
+``load_state_dict(strict=True)`` so that any model key left without a leaf
+errors too. The maps are linear, so they carry gradients and optimizer
+moments as well as parameters. ``jax_params_from_state_dict`` is the
+reverse map.
 """
 
 from __future__ import annotations
@@ -27,6 +30,13 @@ def _dense(a):
 
 def _conv(a):
     return a.transpose(4, 3, 0, 1, 2)
+
+
+def _conv_inverse(a):
+    return a.transpose(2, 3, 4, 1, 0)
+
+
+_INVERSE = {_same: _same, _dense: _dense, _conv: _conv_inverse}
 
 
 _LN = {"scale": "weight", "bias": "bias"}
@@ -97,3 +107,39 @@ def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
         arr = np.array(fn(np.asarray(leaf, np.float32)), order="C")
         out[key] = torch.from_numpy(arr)
     return out
+
+
+def _template_regex(template: str) -> str:
+    out = re.escape(template)
+    out = re.sub(r"\\\{ln\\\}", "(weight|bias)", out)
+    return re.sub(r"\\\{\d+\\\}", r"(\\w+)", out)
+
+
+def _reverse(key: str):
+    """torch key -> ('/'-joined JAX path, inverse transform)."""
+    for pattern, template, fn in _RULES:
+        m = re.fullmatch(_template_regex(template), key)
+        if m:
+            values = [{"weight": "scale"}.get(v, v) if i == len(m.groups()) - 1
+                      and "{ln}" in template else v
+                      for i, v in enumerate(m.groups())]
+            it = iter(values)
+            path = re.sub(r"\([^)]*\)", lambda _: next(it), pattern)
+            return path, _INVERSE[fn]
+    raise KeyError(f"no JAX mapping for port key {key!r}")
+
+
+def jax_params_from_state_dict(state_dict: Mapping) -> dict:
+    """The port's Swin state_dict (tensors or arrays) -> ``{"params": tree}``
+    with numpy f32 leaves, the inverse of ``state_dict_from_jax``."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        path, fn = _reverse(key)
+        arr = value.detach().cpu().numpy() if isinstance(
+            value, torch.Tensor) else np.asarray(value)
+        node = tree
+        *parents, leaf = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(fn(arr.astype(np.float32)), order="C")
+    return {"params": tree}

@@ -1,4 +1,5 @@
-"""Eval transform (port of vsn_tpu/data/augment.py, minimal stack).
+"""Eval and train transforms (port of vsn_tpu/data/augment.py, minimal
+stack: resize + z-score).
 
 Batches are [B, D, H, W, C] tensors on any device.
 """
@@ -34,6 +35,23 @@ def build_eval_transform(cfg) -> Callable[[torch.Tensor], torch.Tensor]:
     target = cfg.input_size
 
     def fn(x):
+        return zscore(resize_batch(x, target))
+
+    return fn
+
+
+def build_train_augment(cfg) -> Callable[[torch.Tensor, object], torch.Tensor]:
+    """Training stack: the minimal one (resize + z-score, as validation),
+    fn(x, generator). The extended and dung stacks are not ported yet."""
+    if cfg.get("IS_DUNG_TRANSFORMS", False) or cfg.get(
+            "USE_EXTENDED_DATA_AUGMENTATION", False):
+        raise NotImplementedError(
+            "the extended and dung augmentation stacks are not ported yet "
+            "(ROADMAP Queue 1, item 12)")
+    target = cfg.input_size
+
+    def fn(x, generator=None):
+        del generator
         return zscore(resize_batch(x, target))
 
     return fn

@@ -1,4 +1,4 @@
-"""3D Swin Transformer, inference path (port of vsn_tpu/models/swin3d.py).
+"""3D Swin Transformer (port of vsn_tpu/models/swin3d.py).
 
 Channels-last [B, D, H, W, C] end to end, as the JAX package. Every block
 runs the two hand-written block kernels (``ops/swin_block_kernels.py``):
@@ -20,8 +20,17 @@ blocks.{j}.attn.qkv``, ``.mlp.0``, ``.mlp.3``, ...; ``convert.py`` maps a
 JAX parameter tree onto them). They stay f32; with FP16 the activations are
 bf16 (``dtype``).
 
-Eval only: a training-mode forward, POST_NORM, LAYER_SCALE, ENABLE_STABLE
-and non-LayerNorm NORM_LAYER raise NotImplementedError (ROADMAP).
+The training forward (``model.train()``) runs the same kernels, which
+carry their own VJPs (K1b, K2b, the movers' adjoints); the residual gains
+of every block are drawn from a ``torch.Generator`` passed in, or injected
+(ShakeDrop / DropPath, vsn_tpu/models/swin3d.py:864-891). Everything else
+on the path (patch embed, patch merging, the padded stage's pad and slice,
+the bias-table gather, final norm, pool, head) is plain PyTorch, which
+autograd differentiates.
+
+POST_NORM, LAYER_SCALE, ENABLE_STABLE and non-LayerNorm NORM_LAYER raise
+NotImplementedError, and so does training with DROPOUT or
+ATTENTION_DROPOUT > 0 (ROADMAP).
 """
 
 from __future__ import annotations
@@ -225,55 +234,54 @@ class WindowAttention3D(nn.Module):
 
 class SwinBlock3D(nn.Module):
     """One (shifted-)window block as two kernel calls: K1 on the window
-    tokens, K2 on the flat token rows. ``gain`` is the eval branch gain of
-    both residuals (residual_branch_gains)."""
+    tokens, K2 on the flat token rows. ``gains`` is (gf1, gb1, gf2, gb2),
+    the per-sample branch gains of its two residuals (SwinTransformer3D.
+    residual_gains)."""
 
     def __init__(self, dim: int, num_heads: int, window, shift,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 dropout: float = 0.0, gain: float = 1.0):
+                 dropout: float = 0.0, drop_path_rate: float = 0.0):
         super().__init__()
         self.window, self.shift = tuple(window), tuple(shift)
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
-        self.gain = gain
+        self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention3D(dim, num_heads, window, qkv_bias)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout)
 
-    def _gains(self, b, device):
-        return torch.full((b,), self.gain, dtype=torch.float32, device=device)
-
-    def attn_half(self, windows, ids, gains):
+    def attn_half(self, windows, ids, gf, gb):
         return attn_half(windows, self.norm1.weight, self.norm1.bias,
                          self.attn.qkv.weight, self.attn.qkv.bias,
                          self.attn.bias(), ids, self.attn.proj.weight,
-                         self.attn.proj.bias, gains, self.scale,
+                         self.attn.proj.bias, gf, gb, self.scale,
                          self.num_heads)
 
-    def mlp_half(self, rows, gains):
+    def mlp_half(self, rows, gf, gb):
         fc1, fc2 = self.mlp[0], self.mlp[3]
         return ln_mlp(rows, self.norm2.weight, self.norm2.bias, fc1.weight,
-                      fc1.bias, fc2.weight, fc2.bias, gains)
+                      fc1.bias, fc2.weight, fc2.bias, gf, gb)
 
-    def forward_windows(self, x, ids, batch: int):
+    def forward_windows(self, x, ids, gains):
         """Window-resident IO: x is [B*nW, N, C] in this block's (rolled)
         layout and is returned in it; the MLP half is token-pointwise."""
-        gains = self._gains(batch, x.device)
-        x = self.attn_half(x, ids, gains)
+        gf1, gb1, gf2, gb2 = gains
+        x = self.attn_half(x, ids, gf1, gb1)
         bw, n, c = x.shape
-        return self.mlp_half(x.reshape(bw * n, c), gains).reshape(bw, n, c)
+        return self.mlp_half(x.reshape(bw * n, c), gf2, gb2).reshape(bw, n, c)
 
-    def forward(self, x, ids):
+    def forward(self, x, ids, gains):
         """Spatial IO: x is [B, D, H, W, C] with dims divisible by the window.
         The residual commutes with the roll and the partition (both
         permutations), so K1 adds its own rolled, partitioned input."""
         b, d, h, w, c = x.shape
-        gains = self._gains(b, x.device)
+        gf1, gb1, gf2, gb2 = gains
         h_in = roll3d(x, tuple(-s for s in self.shift))
-        out = self.attn_half(window_partition(h_in, self.window), ids, gains)
+        out = self.attn_half(window_partition(h_in, self.window), ids, gf1,
+                             gb1)
         x = roll3d(window_reverse(out, self.window, (d, h, w)), self.shift)
-        return self.mlp_half(x.reshape(-1, c), gains).reshape(b, d, h, w, c)
+        return self.mlp_half(x.reshape(-1, c), gf2, gb2).reshape(b, d, h, w, c)
 
 
 # Reference part order for the 8-neighbour concat: x0..x7 as (dz, dy, dx).
@@ -315,7 +323,7 @@ class BasicLayer3D(nn.Module):
     construction (the bias-table size follows the clamped window)."""
 
     def __init__(self, dim: int, dims, depth: int, num_heads: int, window,
-                 gains: Sequence[float], downsample: bool,
+                 rates: Sequence[float], downsample: bool,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  dropout: float = 0.0):
         super().__init__()
@@ -327,7 +335,7 @@ class BasicLayer3D(nn.Module):
         self.blocks = nn.ModuleList(
             SwinBlock3D(dim, num_heads, self.window,
                         (0, 0, 0) if i % 2 == 0 else self.shift, mlp_ratio,
-                        qkv_bias, dropout, gains[i])
+                        qkv_bias, dropout, rates[i])
             for i in range(depth))
         self.downsample = PatchMerging3D(dim) if downsample else None
         shifted = any(self.shift)
@@ -350,24 +358,25 @@ class BasicLayer3D(nn.Module):
     def _ids(self, i):
         return self.ids_noshift if i % 2 == 0 else self.ids_shift
 
-    def forward(self, x):
+    def forward(self, x, gains):
+        """x [B, D, H, W, C]; ``gains`` holds one (gf1, gb1, gf2, gb2) per
+        block."""
         b, d, h, w, c = x.shape
         if (d, h, w) != self.dims:
             raise ValueError(f"stage built for grid {self.dims}, got {(d, h, w)}")
         if any(self.pad):
             x = F.pad(x, (0, 0, 0, self.pad[2], 0, self.pad[1], 0, self.pad[0]))
             for i, blk in enumerate(self.blocks):
-                x = blk(x, self._ids(i))
+                x = blk(x, self._ids(i), gains[i])
             x = x[:, :d, :h, :w, :]
         else:
-            x = self._window_resident(x)
+            x = self._window_resident(x, gains)
         if self.downsample is not None:
             x = self.downsample(x)
         return x
 
-    def _window_resident(self, x):
+    def _window_resident(self, x, gains):
         """Partition once, glue at shifted junctions, reverse once."""
-        b = x.shape[0]
         dims, window = self.dims, self.window
         x = spatial_to_windows(x.contiguous(), window, (0, 0, 0))
         cur = (0, 0, 0)
@@ -380,7 +389,7 @@ class BasicLayer3D(nn.Module):
                           for ns, cs, dim in zip(blk.shift, cur, dims))
                 x = windows_to_windows(x, window, dims, tuple(-v for v in t))
                 cur = blk.shift
-            x = blk.forward_windows(x, self._ids(i), b)
+            x = blk.forward_windows(x, self._ids(i), gains[i])
         if any(cur):
             return windows_to_spatial(x, window, dims, cur)
         return window_reverse(x, window, dims)
@@ -423,7 +432,7 @@ class SwinBackbone3D(nn.Module):
 
     def __init__(self, img_size, patch_size, in_channels, embed_dim, depths,
                  num_heads, window_size, mlp_ratio, qkv_bias, dropout,
-                 patch_norm, gains):
+                 patch_norm, rates):
         super().__init__()
         self.patch_embed = PatchEmbed3D(patch_size, in_channels, embed_dim,
                                         patch_norm)
@@ -434,45 +443,96 @@ class SwinBackbone3D(nn.Module):
             off = sum(depths[:i])
             self.layers.append(BasicLayer3D(
                 embed_dim * 2 ** i, grids[i], depths[i], num_heads[i],
-                tuple(window_size), gains[off:off + depths[i]],
+                tuple(window_size), rates[off:off + depths[i]],
                 downsample=i < n - 1, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                 dropout=dropout))
         self.num_features = embed_dim * 2 ** (n - 1)
         self.norm = LayerNorm(self.num_features)
 
-    def forward(self, x):
+    def forward(self, x, gains):
+        """``gains``: one (gf1, gb1, gf2, gb2) per block, in stage order."""
         x = self.patch_embed(x)
+        off = 0
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, gains[off:off + len(layer.blocks)])
+            off += len(layer.blocks)
         return self.norm(x).mean(dim=(1, 2, 3))  # AdaptiveAvgPool3d(1)
 
 
 class SwinTransformer3D(nn.Module):
-    """Swin-3D classifier, inference path. Input [B, D, H, W, C_in] of the
-    size it was built for; output f32 logits [B, num_classes]."""
+    """Swin-3D classifier. Input [B, D, H, W, C_in] of the size it was built
+    for; output f32 logits [B, num_classes]."""
 
     def __init__(self, img_size, patch_size, num_classes: int, embed_dim: int,
                  depths, num_heads, window_size, in_channels: int = 1,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 dropout: float = 0.0, stochastic_depth_prob: float = 0.1,
+                 dropout: float = 0.0, attention_dropout: float = 0.0,
+                 stochastic_depth_prob: float = 0.1,
                  patch_norm: bool = True, use_shakedrop: bool = False,
+                 shakedrop_alpha_range=(-1.0, 1.0),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        # eval gains per block: ones for DropPath, 1 - p for ShakeDrop
-        gains = [float(residual_branch_gains(1, p, use_shakedrop)[0])
-                 for p in stochastic_depth_rates(stochastic_depth_prob, depths)]
+        self.dropout, self.attention_dropout = dropout, attention_dropout
+        self.use_shakedrop = use_shakedrop
+        self.alpha_range = tuple(shakedrop_alpha_range)
+        rates = stochastic_depth_rates(stochastic_depth_prob, depths)
         self.backbone = SwinBackbone3D(
             img_size, patch_size, in_channels, embed_dim, depths, num_heads,
-            window_size, mlp_ratio, qkv_bias, dropout, patch_norm, gains)
+            window_size, mlp_ratio, qkv_bias, dropout, patch_norm, rates)
         self.head = nn.Linear(self.backbone.num_features, num_classes)
 
-    def forward(self, x):
-        if self.training:
+    def blocks(self):
+        return [blk for layer in self.backbone.layers for blk in layer.blocks]
+
+    def num_draws(self) -> int:
+        """Residuals that draw their gains in training (rate > 0)."""
+        return 2 * sum(blk.drop_path_rate > 0.0 for blk in self.blocks())
+
+    def residual_gains(self, b: int, device, generator=None, draws=None):
+        """(gf1, gb1, gf2, gb2) of every block, in stage order.
+
+        Eval: the deterministic gains. Training: a block with rate > 0 draws
+        res1 then res2 (vsn_tpu/models/swin3d.py _residual_gains order) from
+        ``generator``, or takes them from ``draws``, a list of ``num_draws()``
+        (gf, gb) pairs in that order; a block with rate 0 draws nothing."""
+        training = self.training
+        if training and draws is not None and len(draws) != self.num_draws():
+            raise ValueError(f"{len(draws)} injected (gf, gb) pairs, the "
+                             f"model draws {self.num_draws()}")
+        if (training and draws is None and generator is None
+                and self.num_draws()):
+            raise ValueError("a training forward with stochastic depth needs "
+                             "a generator or injected draws")
+        taken = iter(draws or ())
+        out = []
+        for blk in self.blocks():
+            gains = []
+            for _ in range(2):
+                if training and blk.drop_path_rate > 0.0:
+                    pair = next(taken) if draws is not None else (
+                        residual_branch_gains(
+                            b, blk.drop_path_rate, self.use_shakedrop,
+                            self.alpha_range, False, generator, device))
+                else:
+                    pair = residual_branch_gains(b, blk.drop_path_rate,
+                                                 self.use_shakedrop,
+                                                 device=device)
+                gains.extend(pair)
+            out.append(tuple(gains))
+        return out
+
+    def forward(self, x, generator=None, draws=None):
+        """Logits of x. In training mode (``self.training``) the residual
+        gains are drawn from ``generator`` or taken from ``draws``
+        (``residual_gains``)."""
+        if self.training and (self.dropout > 0 or self.attention_dropout > 0):
             raise NotImplementedError(
-                "the port runs the eval forward only (call .eval()); the "
-                "training forward comes with the training slice")
-        feats = self.backbone(x.to(self.dtype))
+                "training with DROPOUT or ATTENTION_DROPOUT > 0 takes the "
+                "unfused attention path of the K4 kernel, not ported yet "
+                "(ROADMAP Queue 2.2)")
+        gains = self.residual_gains(x.shape[0], x.device, generator, draws)
+        feats = self.backbone(x.to(self.dtype), gains)
         return self.head(feats.float())
 
 
@@ -517,8 +577,10 @@ def swin_from_config(cfg, dtype=torch.float32) -> SwinTransformer3D:
         mlp_ratio=float(cfg.MLP_RATIO),
         qkv_bias=bool(cfg.QKV_BIAS),
         dropout=float(cfg.DROPOUT),
+        attention_dropout=float(cfg.ATTENTION_DROPOUT),
         stochastic_depth_prob=float(cfg.STOCHASTIC_DEPTH_PROB),
         patch_norm=bool(cfg.PATCH_NORM),
         use_shakedrop=bool(cfg.USE_SHAKEDROP),
+        shakedrop_alpha_range=tuple(cfg.SHAKEDROP_ALPHA_RANGE),
         dtype=dtype,
     )

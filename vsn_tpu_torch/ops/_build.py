@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, which ``ctypes`` loads. Nothing
-here includes PyTorch's headers, so the build takes seconds, not minutes.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, which ``ctypes`` loads. Nothing here includes
+PyTorch's headers, so the build takes seconds, not minutes.
 The library goes under ``build/`` at the repository root, named by a hash
 of the sources and flags, and is built at first use: the first CUDA call
 of any kernel wrapper (or ``library()`` itself) builds it from the
@@ -26,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-shared",)
 
 launches: collections.Counter = collections.Counter()
 
@@ -38,6 +40,9 @@ _SIGNATURES = {
                        _L, _F, _P],
     "vsn_window_relayout": [_P, _P, _L, _I, _I, _I, _L, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P],
+    "vsn_attn_half_bwd": [_I, *[_P] * 8, _I, *[_P] * 18, _L, _I, _I, _I, _L,
+                          _F, _F, _P],
+    "vsn_ln_mlp_bwd": [_I, *[_P] * 20, _L, _I, _I, _L, _F, _P],
 }
 
 _lib = None
@@ -57,7 +62,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -65,18 +70,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for them already exists."""
+    """Compile the sources unless the library for them already exists: one
+    nvcc process per source, run in parallel, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return so
 
 

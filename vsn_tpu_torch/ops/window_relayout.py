@@ -8,6 +8,14 @@ All three launch one CUDA gather kernel (``csrc/window_relayout.cu``) with
 different source and destination layouts, for a tensor on a CUDA device;
 for a tensor on the CPU they run the plain reshape/permute/roll forms from
 ``models/swin3d.py``. Any dtype; the move is bit-exact.
+
+On the CUDA route each mover is a ``torch.autograd.Function`` whose
+backward is the JAX adjoint (vsn_tpu/ops/window_relayout.py:141-153,
+176-178), launched through the same gather kernel: the adjoint of
+spatial_to_windows is windows_to_spatial with the roll negated, and the
+other way round; the adjoint of windows_to_windows is itself with the roll
+negated. An adjoint launch counts under ``<mover>_adjoint``. The plain
+forms are differentiable through autograd as they are.
 """
 
 from __future__ import annotations
@@ -69,17 +77,76 @@ def windows_to_spatial_reference(wins, window, dims, roll=(0, 0, 0)):
     return roll3d(window_reverse(wins, window, dims), roll)
 
 
-def spatial_to_windows(x, window, roll=(0, 0, 0)):
-    """[B, D, H, W, C] -> [B*nW, wd*wh*ww, C] of roll3d(x, roll)."""
-    if x.device.type == "cpu":
-        return spatial_to_windows_reference(x, window, roll)
+def _s2w_launch(x, window, roll, name="spatial_to_windows"):
     b, d, h, w, c = x.shape
     nw = _grid((d, h, w), window)
     out = torch.empty((b * nw[0] * nw[1] * nw[2],
                        window[0] * window[1] * window[2], c),
                       dtype=x.dtype, device=x.device)
-    return _launch("spatial_to_windows", x, out, b, (d, h, w), window, roll,
-                   False, True)
+    return _launch(name, x, out, b, (d, h, w), window, roll, False, True)
+
+
+def _w2w_launch(wins, window, dims, roll, name="windows_to_windows"):
+    b = _windows_batch(wins, window, dims)
+    return _launch(name, wins, torch.empty_like(wins), b, dims, window, roll,
+                   True, True)
+
+
+def _w2s_launch(wins, window, dims, roll, name="windows_to_spatial"):
+    b = _windows_batch(wins, window, dims)
+    out = torch.empty((b, *dims, wins.shape[-1]), dtype=wins.dtype,
+                      device=wins.device)
+    return _launch(name, wins, out, b, dims, window, roll, True, False)
+
+
+def _negated(roll):
+    return tuple(-int(r) for r in roll)
+
+
+class _SpatialToWindows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, window, roll):
+        ctx.window, ctx.roll, ctx.dims = window, roll, tuple(x.shape[1:4])
+        return _s2w_launch(x, window, roll)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_w2s_launch(g.contiguous(), ctx.window, ctx.dims,
+                            _negated(ctx.roll), "spatial_to_windows_adjoint"),
+                None, None)
+
+
+class _WindowsToWindows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wins, window, dims, roll):
+        ctx.window, ctx.dims, ctx.roll = window, dims, roll
+        return _w2w_launch(wins, window, dims, roll)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_w2w_launch(g.contiguous(), ctx.window, ctx.dims,
+                            _negated(ctx.roll), "windows_to_windows_adjoint"),
+                None, None, None)
+
+
+class _WindowsToSpatial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wins, window, dims, roll):
+        ctx.window, ctx.roll = window, roll
+        return _w2s_launch(wins, window, dims, roll)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_s2w_launch(g.contiguous(), ctx.window, _negated(ctx.roll),
+                            "windows_to_spatial_adjoint"),
+                None, None, None)
+
+
+def spatial_to_windows(x, window, roll=(0, 0, 0)):
+    """[B, D, H, W, C] -> [B*nW, wd*wh*ww, C] of roll3d(x, roll)."""
+    if x.device.type == "cpu":
+        return spatial_to_windows_reference(x, window, roll)
+    return _SpatialToWindows.apply(x, tuple(window), tuple(roll))
 
 
 def windows_to_windows(wins, window, dims, roll):
@@ -87,17 +154,13 @@ def windows_to_windows(wins, window, dims, roll):
     ``window_glue(wins, window, dims, -roll)`` in one pass."""
     if wins.device.type == "cpu":
         return windows_to_windows_reference(wins, window, dims, roll)
-    b = _windows_batch(wins, window, dims)
-    return _launch("windows_to_windows", wins, torch.empty_like(wins), b,
-                   dims, window, roll, True, True)
+    return _WindowsToWindows.apply(wins, tuple(window), tuple(dims),
+                                   tuple(roll))
 
 
 def windows_to_spatial(wins, window, dims, roll=(0, 0, 0)):
     """[B*nW, N, C] -> roll3d([B, D, H, W, C], roll)."""
     if wins.device.type == "cpu":
         return windows_to_spatial_reference(wins, window, dims, roll)
-    b = _windows_batch(wins, window, dims)
-    out = torch.empty((b, *dims, wins.shape[-1]), dtype=wins.dtype,
-                      device=wins.device)
-    return _launch("windows_to_spatial", wins, out, b, dims, window, roll,
-                   True, False)
+    return _WindowsToSpatial.apply(wins, tuple(window), tuple(dims),
+                                   tuple(roll))

@@ -1,11 +1,253 @@
-"""Eval step (port of vsn_tpu/train/step.py make_eval_step).
+"""Train and eval steps (port of vsn_tpu/train/step.py).
 
-The train step comes with the training slice.
+One ``train_step`` call consumes the A micro-batches of a step and makes one
+optimizer update, as the JAX step does:
+
+  * gradient accumulation is a loop over the micro-batches; every gradient
+    lands in one flat f32 buffer (``FlatParams.grad``), whose views are the
+    parameters' ``.grad``, and is averaged over A;
+  * the NaN/Inf guard skips the whole update (parameters, optimizer, EMA)
+    when the loss or a gradient is not finite, decided on the device
+    (``torch.where`` on a flag, as ``lax.cond``), and counts ``skipped``;
+  * SAM is a second accumulation over the same micro-batches at
+    params + e(w), whose gradients update the original params; the data
+    transform is the same in both passes, the residual-gain draws are not
+    (a generator per (seed, step, micro-batch, pass), as JAX folds
+    ``idx * 2 + pass_idx``);
+  * optional global-norm clipping before each pass's update;
+  * the EMA of the last N snapshots after a successful update;
+  * LR/WD from the precomputed tables, indexed by the host's step count.
+
+Parameters stay f32 in one flat buffer (the model's parameters are views of
+it); images are cast to bf16 when FP16 is set. USE_CHECKPOINT,
+WATCH_GRADIENTS and PRELOAD_DEVICE are trainer features not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
 import torch
+
+from vsn_tpu_torch.train import optim
+from vsn_tpu_torch.train.ema import EMAState, ema_init, ema_update
+from vsn_tpu_torch.train.losses import label_smoothing_loss, smoothing_from_config
+
+
+class FlatParams:
+    """A model's parameters as views of one flat f32 buffer ``flat``, their
+    ``.grad`` as views of another, ``grad``. Built once per model: the
+    model's parameters are re-pointed at the buffer."""
+
+    def __init__(self, model: torch.nn.Module):
+        named = list(model.named_parameters())
+        self.names = [name for name, _ in named]
+        self.shapes = [tuple(p.shape) for _, p in named]
+        self.flat = torch.cat([p.detach().float().reshape(-1)
+                               for _, p in named])
+        self.grad = torch.zeros_like(self.flat)
+        for (_, p), v, g in zip(named, self.views(self.flat),
+                                self.views(self.grad)):
+            p.data = v
+            p.grad = g
+        mask = optim.wd_mask(dict(zip(self.names, self.shapes)))
+        self.decay_mask = torch.cat([
+            torch.full((int(np.prod(s)),), mask[n], dtype=torch.bool,
+                       device=self.flat.device)
+            for n, s in zip(self.names, self.shapes)])
+
+    def views(self, flat: torch.Tensor) -> list[torch.Tensor]:
+        out, off = [], 0
+        for shape in self.shapes:
+            size = int(np.prod(shape))
+            out.append(flat[off:off + size].view(shape))
+            off += size
+        return out
+
+    def tree(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """name -> view of ``flat`` (e.g. the EMA weights as a state dict)."""
+        return dict(zip(self.names, self.views(flat)))
+
+
+@dataclass
+class TrainState:
+    params: FlatParams
+    opt: optim.AdamWState
+    step: int                    # optimizer steps taken (host)
+    skipped: torch.Tensor        # NaN-skipped steps, int32 on the device
+    ema: Optional[EMAState]      # EMA of the flat params; None if off
+
+
+def init_train_state(cfg, model: torch.nn.Module) -> TrainState:
+    """State for training ``model`` (its parameters become views of the
+    state's flat buffer)."""
+    params = FlatParams(model)
+    ema = (ema_init(params.flat, int(cfg.EMA_N_MODELS)) if cfg.USE_EMA
+           else None)
+    return TrainState(params=params, opt=optim.adamw_init(params.flat),
+                      step=0,
+                      skipped=torch.zeros((), dtype=torch.int32,
+                                          device=params.flat.device),
+                      ema=ema)
+
+
+def eval_params(state: TrainState, use_ema: bool) -> dict[str, torch.Tensor]:
+    """Parameters for validation/eval, name -> tensor: the EMA weights when
+    EMA is on (vsn_tpu/train/step.py:82-88)."""
+    if use_ema and state.ema is not None:
+        return state.params.tree(state.ema.ema)
+    return state.params.tree(state.params.flat)
+
+
+def make_batch_transform(cfg):
+    """Per-micro-batch device transform: MixUp/CutMix, then augmentation
+    (the reference applies the MONAI transform after mixing)."""
+    from vsn_tpu_torch.data.augment import build_train_augment
+    from vsn_tpu_torch.data.mixers import build_mix_fn
+
+    mix_fn = build_mix_fn(cfg)
+    aug_fn = build_train_augment(cfg)
+
+    def transform(micro: dict, generator=None):
+        if mix_fn is not None:
+            images, labels = mix_fn(micro)
+        else:
+            images, labels = micro["image"], micro["label"]
+        return aug_fn(images, generator), labels
+
+    return transform
+
+
+def draw_seed(seed: int, step: int, micro: int, pass_idx: int) -> int:
+    """The residual-gain generator's seed of one (step, micro-batch, pass)."""
+    return int(np.random.SeedSequence(
+        [int(seed), step, micro, pass_idx]).generate_state(1)[0])
+
+
+_NOT_PORTED = {
+    "USE_CHECKPOINT": "activation checkpointing",
+    "WATCH_GRADIENTS": "gradient watching and the attn_logit_max probe",
+    "PRELOAD_DEVICE": "the device-resident volume store",
+}
+
+
+def _check_ported(cfg):
+    for key, what in _NOT_PORTED.items():
+        if cfg.get(key, False):
+            raise NotImplementedError(f"{key}: {what} is not ported yet "
+                                      "(ROADMAP Queue 1, item 7)")
+
+
+def make_grad_fn(model, cfg, batch_transform=None,
+                 draws: Optional[Callable] = None):
+    """``accumulate(state, batch, pass_idx) -> mean loss``: the gradient
+    accumulation of one pass over the micro-batches of ``batch``, at the
+    parameters as they stand; their mean gradient is left in
+    ``state.params.grad`` (arguments as ``make_train_step``)."""
+    _check_ported(cfg)
+    if batch_transform is None:
+        batch_transform = lambda micro, gen: (micro["image"], micro["label"])
+    smoothing = smoothing_from_config(cfg)
+    seed = int(cfg.get("SEED") or 0)
+    compute_dtype = torch.bfloat16 if cfg.get("FP16", True) else torch.float32
+
+    def accumulate(state, batch, pass_idx):
+        model.train()
+        grad = state.params.grad
+        grad.zero_()
+        a = batch["label"].shape[0]
+        total = torch.zeros((), dtype=torch.float32, device=grad.device)
+        for idx in range(a):
+            micro = {k: v[idx] for k, v in batch.items()}
+            images, labels = batch_transform(micro, None)
+            images = images.to(compute_dtype)
+            if draws is not None:
+                logits = model(images, draws=draws(state.step, idx, pass_idx))
+            else:
+                gen = torch.Generator(device=grad.device)
+                gen.manual_seed(draw_seed(seed, state.step, idx, pass_idx))
+                logits = model(images, generator=gen)
+            loss = label_smoothing_loss(logits, labels, smoothing)
+            loss.backward()
+            total = total + loss.detach()
+        inv = 1.0 / a
+        grad.mul_(inv)
+        return total * inv
+
+    return accumulate
+
+
+def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
+                    draws: Optional[Callable] = None):
+    """Build ``train_step(state, batch) -> metrics`` for ``model`` (whose
+    parameters are the views of ``state.params``).
+
+    ``batch`` is a dict of device tensors with a leading micro-batch axis
+    A: ``image`` [A, B, D, H, W, C] and ``label`` [A, B, K], plus image2,
+    label2, mix_lam, mix_apply and mix_bounds when MixUp/CutMix is on.
+    ``batch_transform(micro, generator)`` maps one micro-batch to (images,
+    labels) (``make_batch_transform``); None passes (image, label) through.
+    ``draws(step, micro, pass_idx)``, if given, returns the residual gains
+    to inject (a list of (gf, gb) pairs, SwinTransformer3D.residual_gains);
+    else they are drawn from a generator seeded by ``draw_seed``.
+
+    Metrics (device tensors, or floats for lr/wd): loss, grad_norm, lr, wd,
+    skipped. The state is updated in place.
+    """
+    accumulate = make_grad_fn(model, cfg, batch_transform, draws)
+    use_sam, sam_rho = bool(cfg.USE_SAM), float(cfg.SAM_RHO)
+    sam_adaptive = bool(cfg.SAM_ADAPTIVE)
+    clip = cfg.get("GRADIENT_CLIP", False)
+    clip = float(clip) if clip else None
+    use_ema, ema_decay = bool(cfg.USE_EMA), float(cfg.EMA_DECAY)
+    ema_n = int(cfg.EMA_N_MODELS)
+    lr_table = np.asarray(lr_table, np.float32)
+    wd_table = np.asarray(wd_table, np.float32)
+
+    def train_step(state: TrainState, batch) -> dict:
+        flat = state.params.flat
+        lr = float(lr_table[min(state.step, len(lr_table) - 1)])
+        wd = float(wd_table[min(state.step, len(wd_table) - 1)])
+        loss = accumulate(state, batch, 0)
+        grads = state.params.grad
+        finite = optim.all_finite(grads) & torch.isfinite(loss)
+        if clip is not None:
+            grads, grad_norm = optim.clip_by_global_norm(grads, clip)
+        else:
+            grad_norm = optim.global_norm(grads)
+        if use_sam:
+            e_w, _ = optim.sam_perturbation(flat, grads, sam_rho,
+                                            sam_adaptive)
+            original = flat.clone()
+            with torch.no_grad():
+                flat.add_(e_w)
+            loss2 = accumulate(state, batch, 1)
+            with torch.no_grad():
+                flat.copy_(original)
+            grads = state.params.grad
+            finite = finite & optim.all_finite(grads) & torch.isfinite(loss2)
+            if clip is not None:
+                grads, _ = optim.clip_by_global_norm(grads, clip)
+        with torch.no_grad():
+            new_params, opt = optim.adamw_update(
+                grads, state.opt, flat, lr, wd, state.params.decay_mask)
+            if use_ema:
+                ema = ema_update(state.ema, new_params, ema_decay, ema_n)
+                state.ema = EMAState(*(torch.where(finite, new, old)
+                                       for new, old in zip(ema, state.ema)))
+            state.opt = optim.AdamWState(*(torch.where(finite, new, old)
+                                           for new, old in zip(opt,
+                                                               state.opt)))
+            flat.copy_(torch.where(finite, new_params, flat))
+        was_skipped = (~finite).to(torch.int32)
+        state.skipped = state.skipped + was_skipped
+        state.step += 1
+        return {"loss": loss, "grad_norm": grad_norm, "lr": lr, "wd": wd,
+                "skipped": was_skipped}
+
+    return train_step
 
 
 def make_eval_step(model):
