@@ -1,10 +1,12 @@
-"""Drive the port's Swin-3D training step and inference path on one NVIDIA GPU.
+"""Drive the port's Swin-3D and ResNet-3D training steps and inference paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Needs a CUDA device, nvcc (on PATH or under CUDA_HOME) and the checkout;
 it imports torch and the port (``vsn_tpu_torch``), never JAX. It runs on
-one card (CUDA_VISIBLE_DEVICES defaults to 0). Phases:
+one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
+(``build_model``). Phases:
 
 1. build the hand-written kernels from ``vsn_tpu_torch/csrc`` (one nvcc per
    source, in parallel, into build/);
@@ -27,30 +29,55 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Phases:
    also at saturated logits (bias 8 z + 45 and 8 z + 200, f32, as
    tests/test_swin_block_kernels.py saturates them): finite and within
    tolerance; the movers' adjoints bit-exact;
-5. the eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
+5. K5 parity: the stem conv K5f and its weight gradient K5w against their
+   plain versions (the f32 conv of dtype-rounded operands, and its VJP) in
+   f32 (1e-4 of scale, TF32 off) and bf16 (2e-2) at batch 2 on the
+   geometries of tests/test_stem_im2col.py (ResNet and MedViT stems,
+   stride 1, the odd 9x11x13 extent) and the ResNet stem at 16x18x16 x 64,
+   then in bf16 at the slice's shape, x [12, 144, 168, 144, 1] (2e-2);
+   their times beside the plain versions' and the library calls' (cuDNN
+   conv3d in bf16, channels-last, and conv3d_weight);
+6. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
    gains, ``Evaluator`` over 8 seeded float16 144x168x144 volumes in
    batches of 4, launch counters 0 before and exactly 12 (K1) / 12 (K2) /
-   7 (K3) per forward after; probs finite, rows summing to 1, within 1e-2
-   of the plain path; eval ms per batch and vol/s of both paths;
-6. the training path (the slice's main path): ``init_train_state`` ->
-   ``make_train_step`` for Swin-T 5c in bf16 with the flagship recipe (SAM,
-   EMA of 3, MixUp p = 0.5, ShakeDrop, label smoothing 0.1), micro-batch 8,
-   two micro-batches per step, on 16 seeded float16 volumes and their MixUp
-   partners laid out as bench.py lays them out. After one backward every
-   parameter has a finite, non-zero gradient. Then one warm-up step and 3
-   timed steps on the kernel route with every launch counter at 0 before
-   and exact after (per micro-batch and SAM pass: 12 K1f, 12 K1b, 12 K2f,
-   12 K2b, 7 movers and 7 adjoints); losses and grad norms finite, nothing
-   skipped, parameters finite and moved by the second step (lr is 0 at step
-   0 under LR_WARMUP 50), EMA weights apart from the live ones; the EMA
-   weights through ``Evaluator``; then the same initial state, batches and
-   injected draws for 2 steps on the plain route: per-step loss within 2e-2
-   and grad norm within 5e-2 (relative) of the kernel route;
-7. timings on the card: each kernel's time per micro-batch at the training
-   shapes beside its plain version's (the eval phase times the forwards at
-   batch 4);
-8. torch.profiler over one eval pass and one kernel-route train step:
-   device time by kernel and the device's idle share (traces in build/).
+   7 (K3) per forward after, none of K5; probs finite, rows summing to 1,
+   within 1e-2 of the plain path, argmax agreeing wherever the plain top
+   two are further apart than twice that difference; ms per batch and vol/s
+   of both paths;
+7. the Swin training path: ``init_train_state`` -> ``make_train_step`` for
+   Swin-T 5c in bf16 with the flagship recipe (SAM, EMA of 3, MixUp p = 0.5,
+   ShakeDrop, label smoothing 0.1), micro-batch 8, two micro-batches per
+   step, on 16 seeded float16 volumes and their MixUp partners laid out as
+   bench.py lays them out. After one backward every parameter has a finite,
+   non-zero gradient. Then one warm-up step and 3 timed steps on the kernel
+   route with every launch counter at 0 before and exact after (per
+   micro-batch and SAM pass: 12 K1f, 12 K1b, 12 K2f, 12 K2b, 7 movers and 7
+   adjoints); losses and grad norms finite, nothing skipped, parameters
+   finite and moved by the second step (lr is 0 at step 0 under LR_WARMUP
+   50), EMA weights apart from the live ones; the EMA weights through
+   ``Evaluator``; then the same initial state, batches and injected draws
+   for 2 steps on the plain route: per-step loss within 2e-2 and grad norm
+   within 5e-2 (relative) of the kernel route;
+8. each Swin kernel's time per micro-batch at the training shapes beside
+   its plain version's (the eval phase times the forwards at batch 4);
+9. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
+   dropout 0.1, bf16), seeded weights whose BatchNorm statistics are
+   re-estimated by ``make_bn_refresh_step`` over 8 volumes, ``Evaluator``
+   over the 8 volumes in batches of 4: exactly 1 K5f and no other launch
+   per forward; probs as in phase 6 against the plain stem;
+10. the ResNet training path (the slice's main path): the same recipe
+   without ShakeDrop (the ResNet has no residual gains), micro-batch 12 x
+   2, injected head-dropout masks: every parameter reached by one
+   backward; 1 + 3 steps with exactly 1 K5f and 1 K5w per micro-batch and
+   SAM pass and no other launch; parameters and EMA as in phase 7; the
+   BatchNorm statistics moved and the EMA's apart from the live ones; the
+   EMA weights and statistics through ``Evaluator``; 2 plain-stem steps
+   from the same state within 2e-2 / 5e-2;
+11. each kernel's time beside its bound: the larger of the bytes its calls
+   move (inputs read once, outputs written once) over 3.35 TB/s and the
+   products they compute over 989 TFLOP/s (bf16), from this run's shapes.
+torch.profiler runs over one Swin eval pass, one Swin and one ResNet train
+step: device time by kernel and the device's idle share (traces in build/).
 
 Every failure raises (exit code 1). The last lines are one JSON object of
 per-kernel results and then {"ok": true, "device": {...}}.
@@ -97,7 +124,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                                    "vsn_tpu/ops/window_relayout.py:176"),
     "windows_to_spatial_adjoint": ("vsn_tpu_torch/csrc/window_relayout.cu",
                                    "vsn_tpu/ops/window_relayout.py:151"),
+    "stem_im2col": ("vsn_tpu_torch/csrc/stem_im2col.cu",
+                    "vsn_tpu/ops/stem_im2col.py:249"),
+    "stem_im2col_dw": ("vsn_tpu_torch/csrc/stem_im2col.cu",
+                       "vsn_tpu/ops/stem_im2col.py:291"),
 }
+STEM = ("stem_im2col", "stem_im2col_dw")
 BLOCK_KERNELS = ("attn_half", "ln_mlp")
 MOVERS = ("spatial_to_windows", "windows_to_windows", "windows_to_spatial")
 # Launches per Swin-T forward: 12 blocks (depths 2+2+6+2), one K1 and one K2
@@ -112,6 +144,29 @@ PER_FORWARD = {"attn_half": 12, "ln_mlp": 12, "spatial_to_windows": 3,
 # backward's mirror (K1b, K2b, one adjoint per mover call)
 PER_PASS = {**PER_FORWARD, "attn_half_bwd": 12, "ln_mlp_bwd": 12,
             **{f"{m}_adjoint": PER_FORWARD[m] for m in MOVERS}}
+# ResNet-18 launches per forward (the 7^3 stem conv) and per micro-batch and
+# SAM pass of training (the stem and its weight gradient; dx is not taken)
+RESNET_PER_FORWARD = {"stem_im2col": 1}
+RESNET_PER_PASS = {"stem_im2col": 1, "stem_im2col_dw": 1}
+RESNET_PRESET, RESNET_MICRO = "resnet-5c-no_seed-baseline", 12
+# K5 parity geometries, (shape DHW, kernel, strides, C_out): those of
+# tests/test_stem_im2col.py (the ResNet and MedViT stems, stride 1, odd
+# extents) and the ResNet stem at 16x18x16 with 64 channels; then the
+# slice's own stem call at micro-batch 12
+STEM_GEOMS = [((12, 14, 12), (7, 7, 7), (1, 2, 2), 16),
+              ((12, 14, 12), (3, 3, 3), (2, 2, 2), 16),
+              ((8, 10, 8), (3, 3, 3), (1, 1, 1), 16),
+              ((9, 11, 13), (3, 5, 3), (2, 2, 1), 16),
+              ((16, 18, 16), (7, 7, 7), (1, 2, 2), 64)]
+RESNET_STEM = ((144, 168, 144), (7, 7, 7), (1, 2, 2), 64)
+# H100 SXM datasheet peaks: HBM bytes/s and dense FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the forward call whose arguments set a kernel's work (bound_ms)
+FORWARD_OF = {"attn_half_bwd": "attn_half", "ln_mlp_bwd": "ln_mlp",
+              "stem_im2col_dw": "stem_im2col", "attention": "attn_half",
+              "attention_bwd": "attn_half", "copy": "attn_half",
+              **{f"{m}_adjoint": m for m in MOVERS}}
 # attn_half cases the parity sets must cover at the flagship geometry
 ATTN_CASES = {"shifted ids", "padded ids", "no mask", "N=150"}
 # differentiable arguments of the block kernels: (index, gradient name)
@@ -453,8 +508,9 @@ def train_batch(cfg, device, seed):
 
 
 class Draws:
-    """The residual-gain draws of each (step, micro-batch, pass), drawn once
-    from a generator seeded by ``draw_seed`` and handed to every route."""
+    """The random draws of each (step, micro-batch, pass), drawn once from a
+    generator seeded by ``draw_seed`` and handed to every route: Swin's
+    residual gains, the ResNet's head-dropout mask (``model.draw``)."""
 
     def __init__(self, model, micro, device, seed):
         self.model, self.micro, self.device, self.seed = (model, micro,
@@ -469,10 +525,7 @@ class Draws:
         if key not in self.table:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(draw_seed(self.seed, *key))
-            gains = self.model.residual_gains(self.micro, self.device, gen)
-            self.table[key] = [
-                pair for blk, g in zip(self.model.blocks(), gains)
-                if blk.drop_path_rate > 0.0 for pair in (g[:2], g[2:])]
+            self.table[key] = self.model.draw(self.micro, self.device, gen)
         return self.table[key]
 
 
@@ -506,6 +559,121 @@ def first_backward_grads(model, cfg, state, batch, draws):
                                                                0)
     return [name for name, g in state.params.tree(state.params.grad).items()
             if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+
+
+@contextmanager
+def plain_stem():
+    """Route the ResNet stem (ops/conv_unfold.py's call) through the plain
+    conv, whose backward is autograd's conv VJP."""
+    from vsn_tpu_torch.ops import conv_unfold, stem_im2col
+
+    with mock.patch.object(conv_unfold, "stem_conv_im2col",
+                           stem_im2col.stem_conv_reference):
+        yield
+
+
+def check_probs(probs, n, k):
+    """[n, k] finite probabilities whose rows sum to 1."""
+    if probs.shape != (n, k):
+        raise AssertionError(f"probs shape {probs.shape}")
+    if not np.isfinite(probs).all():
+        raise AssertionError("non-finite probs")
+    row_err = np.abs(probs.sum(1) - 1).max()
+    if row_err > 1e-3:
+        raise AssertionError(f"prob rows sum off by {row_err}")
+
+
+def compare_probs(label, probs, plain):
+    """The kernel path's probs within 1e-2 of the plain path's, and the
+    same argmax for every volume whose top two plain probs are further
+    apart than twice the largest difference (elsewhere the order is within
+    rounding)."""
+    d = float(np.abs(probs - plain).max())
+    top2 = np.sort(plain, axis=1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * d
+    agree = probs.argmax(1) == plain.argmax(1)
+    log(f"{label} vs plain path: max|d probs| {d:.3e} (<= 1e-2), argmax "
+        f"agrees on {int(agree.sum())}/{len(probs)} ({int(decided.sum())} "
+        f"decided), probs range [{probs.min():.4f}, {probs.max():.4f}]")
+    if d > 1e-2 or not agree[decided].all():
+        raise AssertionError(f"{label}: kernel path probs differ from the "
+                             f"plain path's by {d}, argmax {agree}")
+
+
+def eval_rates(evaluator, images, plain, n_batches, label, card):
+    """Eval vol/s of the kernel and the plain route (``plain()`` a context
+    manager), in the order kernel, plain, plain, kernel."""
+    import torch
+
+    def timed():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        evaluator.predict(images)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    runs = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        if which == "plain":
+            with plain():
+                runs[which].append(timed())
+        else:
+            runs[which].append(timed())
+    for which, secs in runs.items():
+        mean = sum(secs) / len(secs)
+        log(f"[{card}] {label} {which} path: {1e3 * mean / n_batches:.1f} ms "
+            f"per batch of {evaluator.batch_size} (transfer + z-score + "
+            f"forward + softmax), {len(images) / mean:.2f} vol/s")
+
+
+def reach_every_parameter(model, cfg, state, batch, draws, label):
+    """After one backward every parameter has a finite, non-zero
+    gradient."""
+    missing = first_backward_grads(model, cfg, state, batch, draws)
+    n_params = len(state.params.names)
+    log(f"{label} path: first backward reached {n_params - len(missing)} of "
+        f"{n_params} parameters (non-zero, finite)")
+    if missing:
+        raise AssertionError(f"{label}: no gradient reached {missing}")
+
+
+def params_moved(state, initial, after0, label):
+    """Finite parameters that step 0 (lr 0 under LR_WARMUP) left alone and
+    step 1 moved, and EMA weights apart from the live ones."""
+    import torch
+
+    flat = state.params.flat
+    if not bool(torch.isfinite(flat).all()):
+        raise AssertionError(f"{label}: non-finite parameters")
+    if not torch.equal(after0, initial):
+        raise AssertionError(f"{label}: step 0 (lr 0 under LR_WARMUP) moved "
+                             "the parameters")
+    moved = (flat - after0).abs().max().item()
+    ema_gap = (state.ema.ema[:flat.numel()] - flat).abs().max().item()
+    log(f"{label} path: parameters moved by {moved:.3e} after step 1, EMA "
+        f"{ema_gap:.3e} from the live weights, skipped {int(state.skipped)}")
+    if not moved > 0 or not ema_gap > 0:
+        raise AssertionError(f"{label}: parameters did not move or the EMA "
+                             "equals them")
+
+
+def report_routes(label, kernel, plain, kernel_secs, plain_secs, vols,
+                  recipe, card):
+    """Check the plain route's steps against the kernel route's and log
+    both routes' rates."""
+    rel = check_train_metrics(kernel, plain)
+    for i, (k, p) in enumerate(zip(kernel, plain)):
+        log(f"{label} step {i}: loss {k['loss']:.5f} / plain {p['loss']:.5f}, "
+            f"grad_norm {k['grad_norm']:.5f} / plain {p['grad_norm']:.5f}, "
+            f"lr {k['lr']:.3e}")
+    log(f"{label} path vs plain route: worst rel loss {rel['loss']:.3e} "
+        f"(<= {TRAIN_RTOL['loss']}), grad_norm {rel['grad_norm']:.3e} "
+        f"(<= {TRAIN_RTOL['grad_norm']})")
+    for which, s in (("kernel", kernel_secs), ("plain", plain_secs)):
+        mean = sum(s) / len(s)
+        log(f"[{card}] {label} {which} route: {1e3 * mean:.1f} ms per step "
+            f"of {vols} volumes ({recipe}), {vols / mean:.2f} vol/s (steps "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in s)} ms)")
 
 
 def check_train_metrics(kernel, plain):
@@ -638,6 +806,232 @@ def profile_phase(fn, label, per, n_units, card):
             f"{per} {100 * us / busy:5.1f}% of busy  {name}")
 
 
+def stem_table():
+    """name -> (K5 wrapper, plain version), with the signatures
+    (x, kernel, strides, padding, dtype) and (x, g, kernel_shape, strides,
+    padding, dtype)."""
+    from vsn_tpu_torch.ops import stem_im2col as stem
+
+    return {"stem_im2col": (stem.stem_conv_im2col, stem.stem_conv_reference),
+            "stem_im2col_dw": (stem.stem_conv_dw, stem.stem_dw_reference)}
+
+
+def stem_case(geom, batch, dtype, device, gen):
+    """Seeded arguments of one stem call, (x, kernel, strides, padding, g):
+    x [B, D, H, W, 1] in ``dtype``, an f32 kernel of O(1) outputs, and a
+    cotangent g of the output's shape."""
+    import torch
+    from vsn_tpu_torch.ops.stem_im2col import output_shape
+
+    shape, ks, strides, c_out = geom
+    pad = tuple(k // 2 for k in ks)
+    r = lambda *sh: torch.randn(*sh, generator=gen, device=device)
+    taps = ks[0] * ks[1] * ks[2]
+    x = r(batch, *shape, 1).to(dtype)
+    kernel = r(*ks, 1, c_out) * taps ** -0.5
+    g = r(batch, *output_shape(shape, ks, strides, pad), c_out).to(dtype)
+    return x, kernel, strides, pad, g
+
+
+def stem_calls(x, kernel, strides, pad, g, table):
+    """{name: (kernel result, plain result)} of K5f and K5w on one case."""
+    import torch
+
+    dt = x.dtype
+    out = {}
+    with torch.no_grad():
+        for name, args in (("stem_im2col", (x, kernel, strides, pad, dt)),
+                           ("stem_im2col_dw", (x, g, tuple(kernel.shape[:3]),
+                                               strides, pad, dt))):
+            kernel_fn, plain = table[name]
+            out[name] = (kernel_fn(*args), plain(*args))
+    return out
+
+
+def stem_parity_phase(cases, table):
+    """Hold K5f and K5w against their plain versions on every case
+    ({label: stem_case(...)}), each to TOL of the plain result's scale (f32
+    with TF32 off, or bf16). Logs one line per case and kernel; raises
+    naming every failure. Returns {name: worst max|d|}."""
+    import torch
+
+    worst = collections.defaultdict(float)
+    failed = []
+    for label, case in cases.items():
+        for name, (got, want) in stem_calls(*case, table).items():
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{label} {name}: {got.dtype} "
+                                     f"{tuple(got.shape)} vs {want.dtype} "
+                                     f"{tuple(want.shape)}")
+            dtype = str(case[0].dtype).removeprefix("torch.")
+            err = (got.float() - want.float()).abs().max().item()
+            limit = TOL[dtype] * want.float().abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= limit
+            log(f"parity stem {label} {name}: max|d| {err:.3e} "
+                f"({err / limit:.3f} of the limit) {'ok' if ok else 'FAIL'}")
+            worst[name] = max(worst[name], err)
+            if not ok:
+                failed.append(f"{label} {name}")
+    if failed:
+        raise AssertionError("stem kernels disagree with their plain "
+                             "versions: " + "; ".join(failed))
+    return dict(worst)
+
+
+def stem_times(x, kernel, strides, pad, g, table):
+    """{name: (ms, plain ms, library ms)} of K5f and K5w on one case; the
+    library calls (cuDNN conv3d in bf16, channels-last, and its weight
+    gradient) are yardsticks the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    xc = x[..., 0][:, None].contiguous(memory_format=torch.channels_last_3d)
+    wc = kernel.to(dt).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    gc = g.permute(0, 4, 1, 2, 3)
+    library = {
+        "stem_im2col": lambda: F.conv3d(xc, wc, stride=strides,
+                                        padding=pad),
+        "stem_im2col_dw": lambda: torch.nn.grad.conv3d_weight(
+            xc, wc.shape, gc, stride=strides, padding=pad),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, args in (("stem_im2col", (x, kernel, strides, pad, dt)),
+                           ("stem_im2col_dw", (x, g, tuple(kernel.shape[:3]),
+                                               strides, pad, dt))):
+            kernel_fn, plain = table[name]
+            out[name] = (cuda_ms(lambda: kernel_fn(*args)),
+                         cuda_ms(lambda: plain(*args), reps=1),
+                         cuda_ms(library[name]))
+    return out
+
+
+def _nbytes(*tensors):
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def call_work(name, args):
+    """(FLOP, bytes) of one call of kernel ``name`` on the forward
+    arguments ``args`` (a backward kernel: on its forward call's arguments,
+    with a cotangent and a data gradient the size of the output). Bytes
+    count each input read once and each output written once; FLOP count
+    the products the kernel computes from those inputs (the backward
+    kernels recompute the forward's products they need)."""
+    x = args[0]
+    if name in ("attention", "attention_bwd", "copy"):
+        # kernels not ported yet, at an attn_half call's shapes: K4f/V1f/V3f
+        # (softmax(q k^T s + bias + mask) v from packed qkv: q k^T and p v),
+        # K4b/V1b/V3b (s, dp, dv, dq, dk; dqkv and dbias out), and the copy
+        # probe of perf_probe_attn_ablate2.py (x in, x out)
+        bw, n, c = x.shape
+        rows, bias = bw * n, args[5]
+        if name == "copy":
+            return 0, 2 * _nbytes(x)
+        if name == "attention":
+            return 4 * rows * n * c, 4 * _nbytes(x) + _nbytes(bias)
+        return 10 * rows * n * c, 8 * _nbytes(x) + 2 * _nbytes(bias)
+    if name in ("attn_half", "attn_half_bwd"):
+        bw, n, c = x.shape
+        rows = bw * n
+        params = _nbytes(*args[1:9])
+        if name == "attn_half":  # qkv, proj; q k^T and p v
+            return 8 * rows * c * c + 4 * rows * n * c, 2 * _nbytes(x) + \
+                params + _nbytes(*args[9:11])
+        # recomputed qkv, dWproj, dao, dWqkv, dy; s, ao, dp, dv, dq, dk
+        return 22 * rows * c * c + 12 * rows * n * c, 3 * _nbytes(x) + \
+            2 * params + _nbytes(args[10])
+    if name in ("ln_mlp", "ln_mlp_bwd"):
+        rows, c = x.shape
+        hid = args[3].shape[0]
+        params = _nbytes(*args[1:7])
+        if name == "ln_mlp":  # fc1, fc2
+            return 4 * rows * c * hid, 2 * _nbytes(x) + params + \
+                _nbytes(*args[7:9])
+        # recomputed fc1, dW2, dh, dW1, dy
+        return 10 * rows * c * hid, 3 * _nbytes(x) + 2 * params + \
+            _nbytes(args[8])
+    if name in STEM:  # args: (x, kernel, strides, padding, g)
+        kernel, g = args[1], args[4]
+        taps = kernel.shape[0] * kernel.shape[1] * kernel.shape[2]
+        tokens = g.numel() // g.shape[-1]
+        flops = 2 * taps * g.shape[-1] * tokens
+        out = g if name == "stem_im2col" else kernel  # y like g, dW like W
+        return flops, _nbytes(x, kernel if name == "stem_im2col" else g, out)
+    return 0, 2 * _nbytes(x)  # a mover or its adjoint: read and write
+
+
+def bound_ms(name, calls, dtype="bfloat16"):
+    """(least ms, "bytes" or "operations") of kernel ``name`` over
+    ``calls`` [(forward name, args)] on this card: the larger of the bytes
+    over the HBM rate and the FLOP over the peak rate for ``dtype``."""
+    base = FORWARD_OF.get(name, name)
+    flops = nbytes = 0
+    for cname, args in calls:
+        if cname == base:
+            f, b = call_work(name, args)
+            flops, nbytes = flops + f, nbytes + b
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_counts(counts, expected, units, what):
+    """Every kernel's launches in ``counts`` equal ``expected[name] *
+    units`` (0 for a kernel the path must not launch)."""
+    for name in KERNELS:
+        want = expected.get(name, 0) * units
+        if counts.get(name, 0) != want:
+            raise AssertionError(f"{what} {name}: {counts.get(name, 0)} "
+                                 f"launches, expected {want} "
+                                 f"({expected.get(name, 0)} x {units})")
+
+
+def refresh_statistics(model, cfg, images, micro):
+    """Re-estimate the BatchNorm statistics of ``model``'s weights over
+    ``images`` (float16, [N, D, H, W, 1], z-scored as for eval) in
+    micro-batches of ``micro`` (make_bn_refresh_step) and load them into
+    the model."""
+    import torch
+    from vsn_tpu_torch.data.augment import build_eval_transform
+    from vsn_tpu_torch.train.step import make_bn_refresh_step
+
+    device = next(model.parameters()).device
+    x = torch.from_numpy(images).to(device)
+    x = x.reshape(-1, micro, *x.shape[1:])
+    batch = {"image": x, "label": torch.zeros(x.shape[0], micro,
+                                              cfg.num_classes, device=device)}
+    transform = build_eval_transform(cfg)
+    variables = model.state_dict()
+    stats = make_bn_refresh_step(
+        model, cfg, lambda m, gen: (transform(m["image"]), m["label"]))(
+        variables, batch)
+    model.load_state_dict({**variables, **stats}, strict=True)
+    return stats
+
+
+def statistics_checks(state, initial_stats):
+    """The BatchNorm statistics moved from ``initial_stats``, are finite,
+    and the EMA's statistics differ from the live ones. Returns (moved,
+    EMA gap) as max |d|."""
+    import torch
+
+    stats = state.model_state.flat
+    ema = state.ema.ema[state.params.flat.numel():]
+    if not bool(torch.isfinite(stats).all()):
+        raise AssertionError("non-finite BatchNorm statistics")
+    moved = (stats - initial_stats).abs().max().item()
+    gap = (ema - stats).abs().max().item()
+    if not moved > 0 or not gap > 0:
+        raise AssertionError(f"BatchNorm statistics moved by {moved}, EMA "
+                             f"statistics {gap} from the live ones")
+    return moved, gap
+
+
 def main() -> int:
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
@@ -684,10 +1078,10 @@ def main() -> int:
     models = {}
     for dtype_name, fp16 in (("float32", False), ("bfloat16", True)):
         m = build_model(cfg.replace(FP16=fp16))
-        init_weights(m, torch.Generator().manual_seed(SEED))
-        models[dtype_name] = m.to(device)
+        models[dtype_name] = init_weights(m,
+                                          torch.Generator().manual_seed(SEED))
     model = models["bfloat16"]
-    evaluator = Evaluator(cfg, model, batch_size=BATCH, device=device)
+    evaluator = Evaluator(cfg, model, batch_size=BATCH)
     table = kernel_table()
     sets = {}
     for dtype_name, m in models.items():
@@ -701,7 +1095,7 @@ def main() -> int:
         if not ATTN_CASES <= by_name["attn_half"]:
             raise AssertionError(f"parity set {label} lacks attn_half cases "
                                  f"{ATTN_CASES - by_name['attn_half']}")
-    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 5
+    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 6
     del sets
 
     # 4. backward parity on training forwards -----------------------------
@@ -733,10 +1127,26 @@ def main() -> int:
             raise AssertionError(f"backward set {label} lacks attn_half cases "
                                  f"{ATTN_CASES - by_name['attn_half_bwd']}")
     saturation_phase(gsets["float32 B=2"], table, gen)
-    train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 7
+    train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 8
     del gsets, models, x, images8
 
-    # 5. the eval path ----------------------------------------------------
+    # 5. K5f / K5w parity and timings -------------------------------------
+    stable = stem_table()
+    sgen = torch.Generator(device).manual_seed(SEED + 9)
+    cases = {f"{dt} {geom[0]} k{geom[1]} s{geom[2]} C{geom[3]}":
+             stem_case(geom, 2, getattr(torch, dt), device, sgen)
+             for dt in ("float32", "bfloat16") for geom in STEM_GEOMS}
+    full = f"bfloat16 micro {RESNET_MICRO} (the ResNet stem)"
+    cases[full] = stem_case(RESNET_STEM, RESNET_MICRO, torch.bfloat16,
+                            device, sgen)
+    worst.update(stem_parity_phase(cases, stable))
+    stem_call = [("stem_im2col", cases[full])]
+    stem_ms = stem_times(*cases[full], stable)
+    stem_bound = {name: bound_ms(name, stem_call) for name in STEM}
+    del cases, stem_call
+    torch.cuda.empty_cache()
+
+    # 6. the Swin eval path -----------------------------------------------
     images = volumes(N_VOLUMES, seed=SEED)
     n_batches = -(-N_VOLUMES // BATCH)
     _build.launches.clear()
@@ -747,47 +1157,14 @@ def main() -> int:
     counts = {name: _build.launches[name] for name in KERNELS}
     log(f"eval path: {N_VOLUMES} volumes in {n_batches} batches of {BATCH}, "
         f"first run {first_s:.2f} s, launches {counts}")
-    for name in KERNELS:
-        if counts[name] != PER_FORWARD.get(name, 0) * n_batches:
-            raise AssertionError(f"eval {name}: {counts[name]} launches, "
-                                 f"expected {PER_FORWARD.get(name, 0)} per "
-                                 f"forward x {n_batches}")
-    if probs.shape != (N_VOLUMES, cfg.num_classes):
-        raise AssertionError(f"probs shape {probs.shape}")
-    if not np.isfinite(probs).all():
-        raise AssertionError("non-finite probs")
-    row_err = np.abs(probs.sum(1) - 1).max()
-    if row_err > 1e-3:
-        raise AssertionError(f"prob rows sum off by {row_err}")
+    check_counts(counts, PER_FORWARD, n_batches, "eval")
+    check_probs(probs, N_VOLUMES, cfg.num_classes)
     with patched_model_ops(lambda name, kernel, plain: plain):
         probs_plain = evaluator.predict(images)
-    d = np.abs(probs - probs_plain).max()
-    agree = int((probs.argmax(1) == probs_plain.argmax(1)).sum())
-    log(f"eval path vs plain path: max|d probs| {d:.3e} (<= 1e-2), argmax "
-        f"agrees on {agree}/{N_VOLUMES}, probs range "
-        f"[{probs.min():.4f}, {probs.max():.4f}]")
-    if d > 1e-2:
-        raise AssertionError(f"kernel path probs differ from plain by {d}")
-
-    def timed(fn):
-        sync()
-        t = time.perf_counter()
-        fn()
-        sync()
-        return time.perf_counter() - t
-
-    runs = {"kernel": [], "plain": []}
-    for which in ("kernel", "plain", "plain", "kernel"):
-        if which == "plain":
-            with patched_model_ops(lambda name, kernel, p: p):
-                runs[which].append(timed(lambda: evaluator.predict(images)))
-        else:
-            runs[which].append(timed(lambda: evaluator.predict(images)))
-    for which, secs in runs.items():
-        s = sum(secs) / len(secs)
-        log(f"[{card}] eval {which} path: {1e3 * s / n_batches:.1f} ms per "
-            f"batch of {BATCH} (transfer + z-score + forward + softmax), "
-            f"{N_VOLUMES / s:.2f} vol/s")
+    compare_probs("eval path", probs, probs_plain)
+    eval_rates(evaluator, images,
+               lambda: patched_model_ops(lambda name, kernel, p: p),
+               n_batches, "eval", card)
     ems, eplain = kernel_times(eval_calls, backward=False)
     for name in PER_FORWARD:
         log(f"[{card}] eval {name}: {ems[name]:.3f} ms per forward at batch "
@@ -796,19 +1173,13 @@ def main() -> int:
                   n_batches, card)
     del evaluator, model, eval_calls
 
-    # 6. the training path ------------------------------------------------
-    model = build_model(train_cfg)
-    init_weights(model, torch.Generator().manual_seed(SEED))
-    model.to(device)
+    # 7. the Swin training path -------------------------------------------
+    model = init_weights(build_model(train_cfg),
+                         torch.Generator().manual_seed(SEED))
     state = init_train_state(train_cfg, model)
     initial = state.params.flat.clone()
     draws = Draws(model, TRAIN_MICRO, device, SEED)
-    missing = first_backward_grads(model, train_cfg, state, batch, draws)
-    n_params = len(state.params.names)
-    log(f"train path: first backward reached {n_params - len(missing)} of "
-        f"{n_params} parameters (non-zero, finite)")
-    if missing:
-        raise AssertionError(f"no gradient reached {missing}")
+    reach_every_parameter(model, train_cfg, state, batch, draws, "train")
     _build.launches.clear()
     kernel_metrics, secs = train_route(model, train_cfg, state, batch, draws,
                                        1, sync)
@@ -821,32 +1192,14 @@ def main() -> int:
     passes = steps * TRAIN_ACCUM * (2 if train_cfg.USE_SAM else 1)
     log(f"train path: {steps} steps of {TRAIN_ACCUM} x {TRAIN_MICRO} volumes "
         f"(SAM: 2 passes), launches {counts}")
-    for name, per in PER_PASS.items():
-        if counts[name] != per * passes:
-            raise AssertionError(f"train {name}: {counts[name]} launches, "
-                                 f"expected {per} per micro-batch and pass "
-                                 f"x {passes}")
-    flat = state.params.flat
-    if not bool(torch.isfinite(flat).all()):
-        raise AssertionError("non-finite parameters after training")
-    if not torch.equal(after0, initial):
-        raise AssertionError("step 0 (lr 0 under LR_WARMUP) moved the "
-                             "parameters")
-    moved = (flat - after0).abs().max().item()
-    ema_gap = (state.ema.ema - flat).abs().max().item()
-    log(f"train path: parameters moved by {moved:.3e} after step 1, EMA "
-        f"{ema_gap:.3e} from the live weights, skipped {int(state.skipped)}")
-    if not moved > 0 or not ema_gap > 0:
-        raise AssertionError("parameters did not move or EMA equals them")
-    ema_model = build_model(train_cfg).to(device)
-    ema_model.load_state_dict(eval_params(state, use_ema=True), strict=True)
-    ema_probs = Evaluator(train_cfg, ema_model, batch_size=BATCH,
-                          device=device).predict(images[:BATCH])
-    if not np.isfinite(ema_probs).all():
-        raise AssertionError("non-finite probs from the EMA weights")
+    check_counts(counts, PER_PASS, passes, "train")
+    path_counts = dict(counts)
+    params_moved(state, initial, after0, "train")
+    ema_probs = Evaluator(train_cfg, model, batch_size=BATCH).predict(
+        images[:BATCH], eval_params(state, use_ema=True))
+    check_probs(ema_probs, BATCH, train_cfg.num_classes)
     log(f"train path: EMA weights through Evaluator, probs range "
         f"[{ema_probs.min():.4f}, {ema_probs.max():.4f}]")
-    del ema_model
     profile_phase(lambda: train_route(model, train_cfg, state, batch, draws,
                                       1, sync), "train", "step", 1, card)
     with torch.no_grad():
@@ -857,36 +1210,135 @@ def main() -> int:
         plain_metrics, plain_secs = train_route(model, train_cfg, pstate,
                                                 batch, draws, PLAIN_STEPS,
                                                 sync)
-    rel = check_train_metrics(kernel_metrics, plain_metrics)
-    for i, (k, p) in enumerate(zip(kernel_metrics, plain_metrics)):
-        log(f"train step {i}: loss {k['loss']:.5f} / plain {p['loss']:.5f}, "
-            f"grad_norm {k['grad_norm']:.5f} / plain {p['grad_norm']:.5f}, "
-            f"lr {k['lr']:.3e}")
-    log(f"train path vs plain route: worst rel loss {rel['loss']:.3e} "
-        f"(<= {TRAIN_RTOL['loss']}), grad_norm {rel['grad_norm']:.3e} "
-        f"(<= {TRAIN_RTOL['grad_norm']})")
-    vols = TRAIN_ACCUM * TRAIN_MICRO
-    for which, s in (("kernel", more_secs), ("plain", plain_secs)):
-        mean = sum(s) / len(s)
-        log(f"[{card}] train {which} route: {1e3 * mean:.1f} ms per step of "
-            f"{vols} volumes (SAM + EMA + MixUp + ShakeDrop, micro "
-            f"{TRAIN_MICRO} x {TRAIN_ACCUM}), {vols / mean:.2f} vol/s "
-            f"(steps {', '.join(f'{1e3 * t:.1f}' for t in s)} ms)")
+    report_routes("train", kernel_metrics, plain_metrics, more_secs,
+                  plain_secs, TRAIN_ACCUM * TRAIN_MICRO,
+                  f"SAM + EMA + MixUp + ShakeDrop, micro {TRAIN_MICRO} x "
+                  f"{TRAIN_ACCUM}", card)
     log(f"[{card}] train kernel route warm-up step {1e3 * secs[0]:.1f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del pstate, batch
+    del pstate, batch, model, draws
 
-    # 7. kernel timings at the training shapes ----------------------------
+    # 8. Swin kernel timings at the training shapes -----------------------
     ms, plain_ms = kernel_times(train_calls)
+    bounds = {name: bound_ms(name, train_calls) for name in KERNELS
+              if name not in STEM}
+    stage1 = [next(c for c in train_calls if c[0] == "attn_half")]
+    for what, name, calls in (
+            ("K4f / V1f / V3f, attention from packed qkv", "attention",
+             train_calls),
+            ("K4b / V1b / V3b, its VJP", "attention_bwd", train_calls),
+            ("P1, K1f variants at one stage-1 call", "attn_half", stage1),
+            ("P2-P5 copy probe at one stage-1 call", "copy", stage1)):
+        t, by = bound_ms(name, calls)
+        log(f"[{card}] not ported: {what}: bound {t:.3f} ms by {by} at the "
+            f"attn_half calls of a micro-batch of {TRAIN_MICRO}")
+    del train_calls, stage1
+    torch.cuda.empty_cache()
+
+    # 9. the ResNet eval path ---------------------------------------------
+    from vsn_tpu_torch.models.resnet3d import init_weights as resnet_init
+
+    rcfg = load_config(preset=RESNET_PRESET)
+    rmodel = resnet_init(build_model(rcfg), torch.Generator().manual_seed(SEED))
+    refresh_statistics(rmodel, rcfg, volumes(2 * BATCH, seed=SEED + 7), BATCH)
+    revaluator = Evaluator(rcfg, rmodel, batch_size=BATCH)
+    _build.launches.clear()
+    rprobs = revaluator.predict(images)
+    sync()
+    counts = {name: _build.launches[name] for name in KERNELS}
+    log(f"resnet eval path: {N_VOLUMES} volumes in {n_batches} batches of "
+        f"{BATCH}, launches {counts}")
+    check_counts(counts, RESNET_PER_FORWARD, n_batches, "resnet eval")
+    check_probs(rprobs, N_VOLUMES, rcfg.num_classes)
+    with plain_stem():
+        rprobs_plain = revaluator.predict(images)
+    compare_probs("resnet eval path", rprobs, rprobs_plain)
+    eval_rates(revaluator, images, plain_stem, n_batches, "resnet eval",
+               card)
+    del revaluator, rmodel
+
+    # 10. the ResNet training path ----------------------------------------
+    rtrain_cfg = load_config(dict(
+        USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
+        LABEL_SMOOTHING=0.1, SEED=SEED, BATCH_SIZE=RESNET_MICRO,
+        EFFECTIVE_BATCH_SIZE=RESNET_MICRO * TRAIN_ACCUM), preset=RESNET_PRESET)
+    if rtrain_cfg.gradient_accumulation_steps() != TRAIN_ACCUM:
+        raise AssertionError("the ResNet training config must accumulate "
+                             f"{TRAIN_ACCUM} micro-batches")
+    model = resnet_init(build_model(rtrain_cfg),
+                        torch.Generator().manual_seed(SEED))
+    state = init_train_state(rtrain_cfg, model)
+    initial = state.params.flat.clone()
+    initial_stats = state.model_state.flat.clone()
+    rbatch = train_batch(rtrain_cfg, device, SEED + 8)
+    draws = Draws(model, RESNET_MICRO, device, SEED)
+    reach_every_parameter(model, rtrain_cfg, state, rbatch, draws,
+                          "resnet train")
+    with torch.no_grad():  # that pass moved the statistics
+        state.model_state.flat.copy_(initial_stats)
+    _build.launches.clear()
+    kernel_metrics, secs = train_route(model, rtrain_cfg, state, rbatch,
+                                       draws, 1, sync)
+    after0 = state.params.flat.clone()
+    more, more_secs = train_route(model, rtrain_cfg, state, rbatch, draws,
+                                  TIMED_STEPS, sync)
+    counts = {name: _build.launches[name] for name in KERNELS}
+    kernel_metrics += more
+    log(f"resnet train path: {steps} steps of {TRAIN_ACCUM} x {RESNET_MICRO} "
+        f"volumes (SAM: 2 passes), launches {counts}")
+    check_counts(counts, RESNET_PER_PASS, passes, "resnet train")
+    path_counts.update({name: counts[name] for name in STEM})
+    params_moved(state, initial, after0, "resnet train")
+    moved, gap = statistics_checks(state, initial_stats)
+    log(f"resnet train path: BatchNorm statistics moved by {moved:.3e}, EMA "
+        f"statistics {gap:.3e} from the live ones")
+    ema_probs = Evaluator(rtrain_cfg, model, batch_size=BATCH).predict(
+        images[:BATCH], eval_params(state, use_ema=True))
+    check_probs(ema_probs, BATCH, rtrain_cfg.num_classes)
+    log(f"resnet train path: EMA weights and statistics through Evaluator, "
+        f"probs range [{ema_probs.min():.4f}, {ema_probs.max():.4f}]")
+    profile_phase(lambda: train_route(model, rtrain_cfg, state, rbatch, draws,
+                                      1, sync), "resnet_train", "step", 1,
+                  card)
+    with torch.no_grad():
+        state.params.flat.copy_(initial)
+        state.model_state.flat.copy_(initial_stats)
+    del state
+    pstate = init_train_state(rtrain_cfg, model)
+    with plain_stem():
+        plain_metrics, plain_secs = train_route(model, rtrain_cfg, pstate,
+                                                rbatch, draws, PLAIN_STEPS,
+                                                sync)
+    report_routes("resnet train", kernel_metrics, plain_metrics, more_secs,
+                  plain_secs, TRAIN_ACCUM * RESNET_MICRO,
+                  f"SAM + EMA + MixUp + head dropout, micro {RESNET_MICRO} x "
+                  f"{TRAIN_ACCUM}", card)
+    log(f"[{card}] resnet train kernel route warm-up step "
+        f"{1e3 * secs[0]:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del pstate, rbatch, model, draws
+
+    # 11. per-kernel times beside their bounds ----------------------------
+    library_ms = dict.fromkeys(KERNELS)
+    for name in STEM:
+        ms[name], plain_ms[name], library_ms[name] = stem_ms[name]
+        bounds[name] = stem_bound[name]
     for name in KERNELS:
-        log(f"[{card}] {name}: {ms[name]:.3f} ms per micro-batch of "
-            f"{TRAIN_MICRO} (plain {plain_ms[name]:.3f} ms)")
+        per = (f"micro-batch of {RESNET_MICRO}" if name in STEM
+               else f"micro-batch of {TRAIN_MICRO}")
+        lib = ("no single call" if library_ms[name] is None
+               else f"{library_ms[name]:.3f} ms")
+        log(f"[{card}] {name}: {ms[name]:.3f} ms per {per} (plain "
+            f"{plain_ms[name]:.3f} ms, library {lib}, bound "
+            f"{bounds[name][0]:.3f} ms by {bounds[name][1]})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     result = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": worst[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
+         "launches": path_counts[name], "max_abs_err": worst[name],
+         "ms": ms[name], "plain_ms": plain_ms[name],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library_ms[name]}
         for name, (src, rep) in KERNELS.items()]}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@ an eval forward for the forward phase, a training forward (ShakeDrop
 draws) for the backward phase.
 """
 
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -63,7 +68,8 @@ def _mutant(plain, changes):
 
 
 def _record(dtype, train):
-    model = build_model(load_config(dict(TINY, FP16=dtype == "bfloat16")))
+    model = build_model(load_config(dict(TINY, FP16=dtype == "bfloat16")),
+                        device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     x = np.random.default_rng(0).standard_normal((2, 12, 18, 12, 1))
     x = zscore(torch.from_numpy(x.astype(np.float32)))
@@ -214,7 +220,7 @@ def test_training_phase_rehearsal_on_cpu():
                            USE_MIXUP=True, LABEL_SMOOTHING=0.1, SEED=0,
                            BATCH_SIZE=2, EFFECTIVE_BATCH_SIZE=4,
                            LR_WARMUP=0, WD_WARMUP=0, STEPS=10))
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     state = init_train_state(cfg, model)
     initial = state.params.flat.clone()
@@ -239,3 +245,205 @@ def test_training_phase_rehearsal_on_cpu():
     with pytest.raises(AssertionError):
         chip_smoke.check_train_metrics(
             kernel, [dict(m, loss=m["loss"] * 1.1) for m in plain])
+
+
+# ---------------------------------------------------------------------------
+# The ResNet slice: K5 parity, bounds, and the ResNet phases at a tiny size
+# ---------------------------------------------------------------------------
+
+def _stem_cases():
+    gen = torch.Generator().manual_seed(9)
+    return {f"{dt} {geom}": chip_smoke.stem_case(geom, 2, getattr(torch, dt),
+                                                torch.device("cpu"), gen)
+            for dt in ("float32", "bfloat16") for geom in chip_smoke.STEM_GEOMS}
+
+
+def _roll_taps(kernel):
+    """The kernel's taps shifted by one (tap t reads tap t - 1's weights)."""
+    return kernel.reshape(-1, kernel.shape[-1]).roll(1, 0).reshape(
+        kernel.shape)
+
+
+STEM_MUTANTS = {  # name -> (wrapper, mutant of its plain version)
+    "tap order shifted by one (K5f)": (
+        "stem_im2col", lambda plain: lambda x, k, s, p, dt: plain(
+            x, _roll_taps(k), s, p, dt)),
+    "tap order shifted by one (K5w)": (
+        "stem_im2col_dw", lambda plain: lambda x, g, ks, s, p, dt:
+        _roll_taps(plain(x, g, ks, s, p, dt))),
+    "stride-2 offset off by one (K5f)": (
+        "stem_im2col", lambda plain: lambda x, k, s, p, dt: plain(
+            x.roll(1, dims=2), k, s, p, dt)),
+    "stride-2 offset off by one (K5w)": (
+        "stem_im2col_dw", lambda plain: lambda x, g, ks, s, p, dt: plain(
+            x.roll(1, dims=2), g, ks, s, p, dt)),
+    "split-K reduction over one slice only (K5w)": (
+        "stem_im2col_dw", lambda plain: lambda x, g, ks, s, p, dt: plain(
+            x[:1], g[:1], ks, s, p, dt)),
+}
+
+
+def test_stem_plain_versions_pass_every_case():
+    worst = chip_smoke.stem_parity_phase(_stem_cases(),
+                                         chip_smoke.stem_table())
+    assert set(worst) == set(chip_smoke.STEM)
+    assert all(err == 0.0 for err in worst.values())
+
+
+@pytest.mark.parametrize("mutant", sorted(STEM_MUTANTS))
+def test_a_stem_kernel_with_a_wrong_index_fails(mutant):
+    name, make = STEM_MUTANTS[mutant]
+    table = chip_smoke.stem_table()
+    table[name] = (make(table[name][1]), table[name][1])
+    with pytest.raises(AssertionError, match=name):
+        chip_smoke.stem_parity_phase(_stem_cases(), table)
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def test_bounds_follow_the_shapes():
+    """K5f at micro 12 (the ResNet stem): 2 * 343 * 64 FLOP for each of the
+    12 * 144 * 84 * 72 output tokens, 458.8 GFLOP, 0.464 ms at 989 TFLOP/s
+    against 1.42 GB, 0.425 ms at 3.35 TB/s; K5w the same FLOP; a mover only
+    bytes."""
+    x = _meta(12, 144, 168, 144, 1)
+    kernel = _meta(7, 7, 7, 1, 64, dtype=torch.float32)
+    g = _meta(12, 144, 84, 72, 64)
+    calls = [("stem_im2col", (x, kernel, (1, 2, 2), (3, 3, 3), g))]
+    flops, _ = chip_smoke.call_work("stem_im2col", calls[0][1])
+    assert flops == 2 * 343 * 64 * 12 * 144 * 84 * 72
+    for name in chip_smoke.STEM:
+        ms, by = chip_smoke.bound_ms(name, calls)
+        assert by == "operations" and ms == pytest.approx(0.4639, abs=1e-3)
+    mover = [("spatial_to_windows", (_meta(8, 36, 42, 36, 96),))]
+    ms, by = chip_smoke.bound_ms("spatial_to_windows_adjoint", mover)
+    assert by == "bytes" and ms == pytest.approx(
+        2 * 8 * 36 * 42 * 36 * 96 * 2 / 3.35e12 * 1e3)
+    assert chip_smoke.bound_ms("attn_half", mover) == (0.0, "operations")
+
+
+def test_swin_bounds_cover_every_recorded_call(calls):
+    dtype = str(calls[0][1][0].dtype).removeprefix("torch.")
+    names = [n for n in chip_smoke.KERNELS if n not in chip_smoke.STEM]
+    for name in names + ["attention", "attention_bwd", "copy"]:
+        ms, by = chip_smoke.bound_ms(name, calls, dtype)
+        assert ms > 0 and by in ("bytes", "operations"), name
+    # a backward does more work than its forward; the copy probe only moves
+    for fwd in ("attn_half", "ln_mlp", "attention"):
+        assert (chip_smoke.bound_ms(fwd + "_bwd", calls, dtype)[0]
+                > chip_smoke.bound_ms(fwd, calls, dtype)[0])
+    assert chip_smoke.bound_ms("copy", calls, dtype)[1] == "bytes"
+
+
+RESNET_TINY = dict(RESNET_VARIANT="resnet10", IMG_SIZE=[16, 18, 16],
+                   BATCH_SIZE=2, EFFECTIVE_BATCH_SIZE=4, USE_SAM=True,
+                   USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
+                   LABEL_SMOOTHING=0.1, SEED=0)
+
+
+def test_resnet_phases_rehearsal_on_cpu():
+    """The ResNet eval and training phases' pieces at a tiny size: refreshed
+    statistics, Evaluator with the model's and with substituted weights,
+    head-dropout draws, every parameter reached, the statistics moved and
+    the EMA's apart, and the plain-stem route equal to the kernel route
+    (both are the plain versions here)."""
+    from vsn_tpu_torch.eval.evaluate import Evaluator
+    from vsn_tpu_torch.models.resnet3d import init_weights as resnet_init
+    from vsn_tpu_torch.train.step import eval_params
+
+    cpu = torch.device("cpu")
+    cfg = load_config(RESNET_TINY, preset=chip_smoke.RESNET_PRESET)
+    assert cfg.DROPOUT == 0.1 and cfg.gradient_accumulation_steps() == 2
+    model = resnet_init(build_model(cfg, device="cpu"),
+                        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    images = (rng.standard_normal((4, 16, 18, 16, 1)) * 50 + 100).astype(
+        np.float16)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    stats = chip_smoke.refresh_statistics(model, cfg, images, 2)
+    assert all(not torch.equal(v, before[k]) for k, v in stats.items())
+    evaluator = Evaluator(cfg, model, batch_size=2)
+    probs = evaluator.predict(images)
+    chip_smoke.check_probs(probs, 4, 5)
+    with chip_smoke.plain_stem():
+        chip_smoke.compare_probs("tiny", probs, evaluator.predict(images))
+    with pytest.raises(AssertionError):
+        chip_smoke.compare_probs("tiny", probs, probs[:, ::-1].copy())
+
+    state = init_train_state(cfg, model)
+    initial = state.params.flat.clone()
+    initial_stats = state.model_state.flat.clone()
+    batch = chip_smoke.train_batch(cfg, cpu, 5)
+    draws = chip_smoke.Draws(model, 2, cpu, 0)
+    assert draws(0, 0, 0).shape == (2, 512)
+    chip_smoke.reach_every_parameter(model, cfg, state, batch, draws, "tiny")
+    with torch.no_grad():
+        state.model_state.flat.copy_(initial_stats)
+    sync = lambda: None
+    kernel, _ = chip_smoke.train_route(model, cfg, state, batch, draws, 1,
+                                       sync)
+    after0 = state.params.flat.clone()
+    more, _ = chip_smoke.train_route(model, cfg, state, batch, draws, 1, sync)
+    chip_smoke.params_moved(state, initial, after0, "tiny")
+    chip_smoke.statistics_checks(state, initial_stats)
+    ema_probs = evaluator.predict(images[:2], eval_params(state, use_ema=True))
+    chip_smoke.check_probs(ema_probs, 2, 5)
+    with torch.no_grad():
+        state.params.flat.copy_(initial)
+        state.model_state.flat.copy_(initial_stats)
+    pstate = init_train_state(cfg, model)
+    with chip_smoke.plain_stem():
+        plain, _ = chip_smoke.train_route(model, cfg, pstate, batch, draws, 2,
+                                          sync)
+    # the plain stem's weight gradient comes from autograd's conv VJP, the
+    # kernel route's from stem_dw_reference: sums in another order
+    rel = chip_smoke.check_train_metrics(kernel + more, plain)
+    assert max(rel.values()) < 1e-5
+
+
+# One-line edits of csrc/stem_im2col.cu that chip_smoke.py must reject on the
+# card (exit 1, in its K5 parity phase): name -> (line, its mutant)
+SOURCE_MUTANTS = {
+    "tap order shifted by one (K5f weights)": (
+        "w_s[i] = round_to<T>(wt[i]);",
+        "w_s[i] = round_to<T>(wt[(i + g.c) % (taps * g.c)]);"),
+    "stride-2 offset off by one (the halo's rows)": (
+        "const int y = yo0 * g.sy - g.py + r;",
+        "const int y = yo0 * g.sy - g.py + r + (g.sy == 2);"),
+    "split-K reduction over one slice only (K5w)": (
+        "if (!active) return;",
+        "if (!active || blockIdx.x != 0) return;"),
+}
+ROOT = Path(__file__).resolve().parent.parent
+STEM_SOURCE = ROOT / "vsn_tpu_torch" / "csrc" / "stem_im2col.cu"
+
+
+@pytest.mark.parametrize("mutant", sorted(SOURCE_MUTANTS))
+def test_source_mutants_name_one_line_of_the_source(mutant):
+    line, new = SOURCE_MUTANTS[mutant]
+    assert STEM_SOURCE.read_text().count(line) == 1 and new != line
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant", sorted(SOURCE_MUTANTS))
+def test_a_mutated_stem_source_makes_chip_smoke_fail(mutant, tmp_path):
+    """chip_smoke.py run from a copy of the port (the script and its
+    package) whose stem kernel has one line mutated exits 1, failing the K5
+    parity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    line, new = SOURCE_MUTANTS[mutant]
+    copy = tmp_path / "checkout"
+    copy.mkdir()
+    shutil.copy(ROOT / "chip_smoke.py", copy)
+    shutil.copytree(ROOT / "vsn_tpu_torch", copy / "vsn_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = copy / STEM_SOURCE.relative_to(ROOT)
+    src.write_text(src.read_text().replace(line, new))
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=copy,
+                         capture_output=True, text=True, timeout=900)
+    print(res.stdout[-3000:], res.stderr[-3000:])
+    assert res.returncode == 1
+    assert "stem kernels disagree with their plain versions" in res.stderr

@@ -262,3 +262,54 @@ def test_mover_adjoints_are_bit_exact(dev, dims, roll):
         b = src.detach().clone().requires_grad_()
         (want,) = torch.autograd.grad(ref(b, *rest), b, g)
         assert torch.equal(got, want), name
+
+
+STEM_GEOMETRY = [  # (shape DHW, kernel, strides, C_out), as chip_smoke.py
+    ((12, 14, 12), (7, 7, 7), (1, 2, 2), 16),
+    ((12, 14, 12), (3, 3, 3), (2, 2, 2), 16),
+    ((8, 10, 8), (3, 3, 3), (1, 1, 1), 16),
+    ((9, 11, 13), (3, 5, 3), (2, 2, 1), 16),
+    ((16, 18, 16), (7, 7, 7), (1, 2, 2), 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,ks,strides,c_out", STEM_GEOMETRY)
+def test_stem_kernels_match_plain(dev, shape, ks, strides, c_out, dtype):
+    """K5f and K5w against their plain versions (TF32 off for the f32 plain
+    conv); dW is a sum over every token, reduced with f32 atomics."""
+    from vsn_tpu_torch.ops import stem_im2col as stem
+
+    torch.backends.cudnn.allow_tf32 = False
+    pad = tuple(k // 2 for k in ks)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, *shape, 1, generator=g).to(dev, dtype)
+    kernel = (torch.randn(*ks, 1, c_out, generator=g) * 0.1).to(dev)
+    y = stem.stem_conv_im2col(x, kernel, strides, pad, dtype)
+    _close(y, stem.stem_conv_reference(x, kernel, strides, pad, dtype), dtype)
+    gy = torch.randn(y.shape, generator=g).to(dev, dtype)
+    dw = stem.stem_conv_dw(x, gy, ks, strides, pad, dtype)
+    want = stem.stem_dw_reference(x, gy, ks, strides, pad, dtype)
+    assert dw.dtype == want.dtype == torch.float32
+    err = (dw - want).abs().max().item()
+    assert err <= TOL[dtype] * want.abs().max().item(), err
+
+
+def test_stem_autograd_launches_k5f_and_k5w(dev):
+    """On the card the stem's forward is K5f and its weight gradient K5w,
+    one launch each; dx is taken only when x asks for it."""
+    from vsn_tpu_torch.ops import stem_im2col as stem
+
+    x = torch.randn(2, 16, 18, 16, 1, device=dev).bfloat16()
+    kernel = (torch.randn(7, 7, 7, 1, 64, device=dev) * 0.05).requires_grad_()
+    before = dict(_build.launches)
+    y = stem.stem_conv_im2col(x, kernel, (1, 2, 2), (3, 3, 3))
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    for name in ("stem_im2col", "stem_im2col_dw"):
+        assert _build.launches[name] == before.get(name, 0) + 1, name
+    assert kernel.grad is not None and x.grad is None
+    xg = x.detach().float().requires_grad_()
+    stem.stem_conv_im2col(xg, kernel.detach(), (1, 2, 2), (3, 3, 3),
+                          torch.bfloat16).float().sum().backward()
+    assert xg.grad is not None and xg.grad.shape == xg.shape

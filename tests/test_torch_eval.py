@@ -72,7 +72,7 @@ def test_evaluator_probs_match_jax_eval_step():
     want = np.asarray(jax.jit(lambda v, im: step(v, tfm(im)))(
         variables, jnp.asarray(images)))
 
-    model = build_model(load_config(TINY))
+    model = build_model(load_config(TINY), device="cpu")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     # batch 2: three batches, the last padded with one row and trimmed
     got = Evaluator(load_config(TINY), model, batch_size=2).predict(images)

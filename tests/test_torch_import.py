@@ -9,6 +9,7 @@ from pathlib import Path
 import torch
 
 from vsn_tpu_torch.ops import _build
+from vsn_tpu_torch.ops import stem_im2col as stem
 from vsn_tpu_torch.ops import swin_block_kernels as sbk
 from vsn_tpu_torch.ops import window_relayout as wr
 
@@ -31,9 +32,10 @@ def test_port_imports_no_jax_flax_or_triton():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert len(modules) >= 22
+    assert len(modules) >= 25
     for name in ("train.losses", "train.schedules", "train.optim",
-                 "train.ema", "train.step", "data.mixers"):
+                 "train.ema", "train.step", "data.mixers", "ops.stem_im2col",
+                 "ops.conv_unfold", "models.resnet3d"):
         assert f"vsn_tpu_torch.{name}" in modules
 
 
@@ -64,6 +66,14 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                        wr.spatial_to_windows_reference(v, (2, 3, 2), (1, 1, 1)))
     wr.windows_to_windows(wins, (2, 3, 2), (4, 6, 4), (1, 1, 1))
     wr.windows_to_spatial(wins, (2, 3, 2), (4, 6, 4), (-1, -1, -1))
+    xs = torch.randn(1, 6, 8, 6, 1)
+    kern = torch.randn(7, 7, 7, 1, 8, requires_grad=True)
+    y = stem.stem_conv_im2col(xs, kern, (1, 2, 2), (3, 3, 3))
+    assert torch.equal(y, stem.stem_conv_reference(xs, kern, (1, 2, 2),
+                                                   (3, 3, 3)))
+    y.sum().backward()
+    assert torch.equal(stem.stem_conv_dw(xs, torch.ones_like(y), (7, 7, 7),
+                                         (1, 2, 2), (3, 3, 3)), kern.grad)
     assert sum(_build.launches.values()) == 0
 
 
@@ -72,5 +82,5 @@ def test_library_is_named_by_its_sources_and_builds_under_build():
     assert so.parent == ROOT / "build"
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert names == {"attn_half.cu", "attn_half_bwd.cu", "ln_mlp.cu",
-                     "ln_mlp_bwd.cu", "window_relayout.cu"}
+                     "ln_mlp_bwd.cu", "stem_im2col.cu", "window_relayout.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -87,7 +87,7 @@ def test_logits_match_jax(jax_variables, shakedrop):
     want = np.asarray(jax.jit(lambda v, xx: jmodel.apply(v, xx, True))(
         jax_variables, x))
 
-    model = build_model(load_config(over))
+    model = build_model(load_config(over), device="cpu")
     model.load_state_dict(state_dict_from_jax(jax_variables), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
@@ -100,7 +100,8 @@ def test_shakedrop_changes_eval_gains(jax_variables):
     x = torch.from_numpy(_volumes(seed=1))
     outs = []
     for shakedrop in (False, True):
-        model = build_model(load_config(dict(TINY, USE_SHAKEDROP=shakedrop)))
+        model = build_model(load_config(dict(TINY, USE_SHAKEDROP=shakedrop)),
+                            device="cpu")
         model.load_state_dict(state_dict_from_jax(jax_variables))
         with torch.no_grad():
             outs.append(model(x))
@@ -109,7 +110,7 @@ def test_shakedrop_changes_eval_gains(jax_variables):
 
 def test_converter_maps_every_leaf_and_key(jax_variables):
     sd = state_dict_from_jax(jax_variables)
-    model = build_model(load_config(TINY))
+    model = build_model(load_config(TINY), device="cpu")
     assert set(sd) == set(model.state_dict())
     bogus = {"params": dict(jax_variables["params"], extra={"kernel": 0})}
     with pytest.raises(KeyError):
@@ -119,28 +120,30 @@ def test_converter_maps_every_leaf_and_key(jax_variables):
     with pytest.raises(RuntimeError):
         model.load_state_dict(missing, strict=True)
     with pytest.raises(KeyError):
-        state_dict_from_jax(dict(jax_variables, batch_stats={}))
+        state_dict_from_jax(dict(jax_variables, intermediates={}))
 
 
 def test_training_forward_and_unported_options_raise():
     """Training runs the kernels' VJPs; training with dropout (the K4
     path) and the unported options raise."""
     x = torch.zeros(1, 12, 18, 12, 1)
-    model = build_model(load_config(TINY)).train()
+    model = build_model(load_config(TINY), device="cpu").train()
     model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
     with pytest.raises(ValueError):
         model(x)   # stochastic depth draws need a generator or draws
     for key in ("DROPOUT", "ATTENTION_DROPOUT"):
-        model = build_model(load_config(dict(TINY, **{key: 0.1}))).train()
+        model = build_model(load_config(dict(TINY, **{key: 0.1})),
+                            device="cpu").train()
         with pytest.raises(NotImplementedError):
             model(x, generator=torch.Generator())
     for key in ("POST_NORM", "LAYER_SCALE", "ENABLE_STABLE"):
         with pytest.raises(NotImplementedError):
-            build_model(load_config(dict(TINY, **{key: True})))
+            build_model(load_config(dict(TINY, **{key: True})), device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model(load_config(dict(TINY, NORM_LAYER="RMSNorm")))
+        build_model(load_config(dict(TINY, NORM_LAYER="RMSNorm")),
+                    device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model(load_config(dict(TINY, ARCHITECTURE="ViT")))
+        build_model(load_config(dict(TINY, ARCHITECTURE="ViT")), device="cpu")
 
 
 GEOMETRY = [  # (dims, window, shift): divisible, padded, clamped-like
@@ -193,3 +196,16 @@ def test_eval_residual_gains_match_jax(rate, shakedrop):
                        got[1], 0.5).detach().numpy(),
         np.asarray(jgated(x, br, want[0], want[1], 0.5)), rtol=1e-6,
         atol=1e-6)
+
+
+def test_draw_gives_the_training_gains_in_draw_order():
+    """``draw`` hands forward(draws=) the pairs a training forward would
+    draw from the same generator, in the same order."""
+    model = build_model(load_config(TINY), device="cpu").train()
+    gains = model.residual_gains(2, "cpu", torch.Generator().manual_seed(3))
+    want = [pair for blk, g in zip(model.blocks(), gains)
+            if blk.drop_path_rate > 0.0 for pair in (g[:2], g[2:])]
+    got = model.draw(2, "cpu", torch.Generator().manual_seed(3))
+    assert len(got) == len(want) == model.num_draws() > 0
+    for (gf, gb), (wf, wb) in zip(got, want):
+        assert torch.equal(gf, wf) and torch.equal(gb, wb)

@@ -113,7 +113,7 @@ def runs():
 
     # the port
     cfg = load_config(OVER)
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     tstate = init_train_state(cfg, model)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -188,7 +188,7 @@ def test_reverse_map_round_trips(runs):
 
 def test_nan_guard_skips_the_whole_update():
     cfg = load_config(OVER)
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     state = init_train_state(cfg, model)
     lr, wd = lr_wd_schedules(cfg)
     step = make_train_step(model, cfg, lr, wd, make_batch_transform(cfg))
@@ -208,4 +208,5 @@ def test_unported_trainer_options_raise():
     for key in ("USE_CHECKPOINT", "WATCH_GRADIENTS", "PRELOAD_DEVICE"):
         cfg = load_config(dict(OVER, **{key: True}))
         with pytest.raises(NotImplementedError):
-            make_train_step(build_model(cfg), cfg, [0.0], [0.0])
+            make_train_step(build_model(cfg, device="cpu"), cfg, [0.0],
+                            [0.0])

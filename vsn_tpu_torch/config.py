@@ -1,10 +1,12 @@
 """Config keys of the port's slice (port of vsn_tpu/config.py).
 
 The port must run where only torch is installed, without importing the JAX
-package, so the defaults its slice reads are carried here as a dict. They
+package, so the defaults its slices read are carried here as a dict. They
 equal vsn_tpu/configs/config-defaults.yaml key for key (a CPU test holds
-them to ``vsn_tpu.config.load_config()``). Same access style as the JAX
-Config: ``cfg.EMBED_DIM`` and ``cfg["EMBED_DIM"]``.
+them to ``vsn_tpu.config.load_config()``), and the experiment YAMLs the
+port runs are carried as ``PRESETS`` (held to ``load_config`` of those
+files). Same access style as the JAX Config: ``cfg.EMBED_DIM`` and
+``cfg["EMBED_DIM"]``.
 """
 
 from __future__ import annotations
@@ -69,6 +71,35 @@ DEFAULTS = {
     "PRELOAD_DEVICE": False,
 }
 
+# Keys the JAX package reads as ``cfg.get(key, default)`` and that
+# config-defaults.yaml does not list (vsn_tpu/models/resnet3d.py:188, 191).
+READ_DEFAULTS = {
+    "RESNET_VARIANT": "resnet18",
+    "IN_CHANNELS": 1,
+}
+
+# vsn_tpu/configs/<name>.yaml, applied over DEFAULTS as the JAX load_config
+# applies them (SEED false is normalized to None there).
+PRESETS = {
+    "resnet-5c-no_seed-baseline": {
+        "ARCHITECTURE": "ResNet",
+        "PATCH_SHAPE": [8, 8, 8],
+        "DROPOUT": 0.1,
+        "SEED": None,
+        "BATCH_SIZE": 12,
+        "PRELOAD_DATA": False,
+    },
+    "resnet-3c-no_seed-baseline": {
+        "ARCHITECTURE": "ResNet",
+        "PATCH_SHAPE": [8, 8, 8],
+        "DROPOUT": 0.1,
+        "SEED": None,
+        "BATCH_SIZE": 12,
+        "PRELOAD_DATA": False,
+        "DISEASES": ["CN", "AD", "FTD"],
+    },
+}
+
 
 class Config(dict):
     """Config mapping with attribute access and the derived keys the slice
@@ -106,6 +137,10 @@ class Config(dict):
         return tuple(int(v) for v in (rs if rs else self["IMG_SIZE"]))
 
 
-def load_config(extra_overrides: Mapping[str, Any] | None = None) -> Config:
-    """The slice's defaults with ``extra_overrides`` applied on top."""
-    return Config({**DEFAULTS, **(extra_overrides or {})})
+def load_config(extra_overrides: Mapping[str, Any] | None = None,
+                preset: str | None = None) -> Config:
+    """The slice's defaults, then the named preset (a key of ``PRESETS``),
+    then ``extra_overrides``."""
+    return Config({**DEFAULTS, **READ_DEFAULTS,
+                   **(PRESETS[preset] if preset else {}),
+                   **(extra_overrides or {})})

@@ -1,5 +1,8 @@
 """Batched inference (port of vsn_tpu/eval/evaluate.py Evaluator, no TTA).
 
+The model runs on its own device (``build_model`` puts it on the card unless
+asked for the CPU).
+
 TTA, the checkpoint loop and the prediction CSVs come with later slices.
 """
 
@@ -27,8 +30,11 @@ class Evaluator:
         self.transform = build_eval_transform(cfg)
         self.eval_step = make_eval_step(model)
 
-    def predict(self, images: np.ndarray) -> np.ndarray:
-        """images [N, D, H, W, C] (e.g. the float16 cache) -> probs [N, K]."""
+    def predict(self, images: np.ndarray, variables=None) -> np.ndarray:
+        """images [N, D, H, W, C] (e.g. the float16 cache) -> probs [N, K],
+        in eval mode (BatchNorm on its running statistics). ``variables``,
+        a state dict such as ``eval_params(state, use_ema=True)``, replaces
+        the model's parameters and statistics (the EMA's, when asked)."""
         n = len(images)
         bs = max(1, min(self.batch_size, n))  # no pad rows past the cohort
         probs = []
@@ -36,6 +42,6 @@ class Evaluator:
             idx = np.arange(start, min(start + bs, n))
             pad = np.concatenate([idx, np.zeros(bs - len(idx), np.int64)])
             x = torch.from_numpy(images[pad]).to(self.device)
-            p = self.eval_step(self.transform(x))
+            p = self.eval_step(self.transform(x), variables)
             probs.append(p[: len(idx)].cpu().numpy())
         return np.concatenate(probs)

@@ -1,4 +1,4 @@
-"""Model zoo of the port (torch.nn): the Swin-3D inference path so far.
+"""Model zoo of the port (torch.nn): Swin-3D and ResNet-3D so far.
 
 ``build_model(cfg)`` maps the public ARCHITECTURE config key to a model.
 """

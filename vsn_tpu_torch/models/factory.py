@@ -9,7 +9,6 @@ MODEL_PRESETS = ("Swin", "SwinDPL", "MedViT", "ViT", "ResNet")
 # ROADMAP Queue 1 items that port the other backbones
 _NOT_PORTED = {
     "ViT": "models/vit3d.py (ROADMAP Queue 1, item 9)",
-    "ResNet": "models/resnet3d.py (ROADMAP Queue 1, item 10)",
     "MedViT": "models/medvit3d.py (ROADMAP Queue 1, item 11)",
 }
 
@@ -23,19 +22,37 @@ def model_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.get("FP16", True) else torch.float32
 
 
-def build_model(cfg):
-    """The model for ``cfg`` in eval mode, with parameters on the CPU."""
+def _device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device; pass device='cpu' to "
+                           "build the model on the CPU")
+    return torch.device("cuda")
+
+
+def build_model(cfg, device=None):
+    """The model for ``cfg`` in eval mode, with its parameters on ``device``:
+    the CUDA card unless the caller names another device (``device="cpu"``).
+    Without a card and without a device it raises."""
+    device = _device(device)
     arch = cfg.ARCHITECTURE
     if arch == "Swin":
         from vsn_tpu_torch.models.swin3d import swin_from_config
 
-        return swin_from_config(cfg, dtype=model_dtype(cfg)).eval()
-    if arch in _NOT_PORTED:
+        model = swin_from_config(cfg, dtype=model_dtype(cfg))
+    elif arch == "ResNet":
+        from vsn_tpu_torch.models.resnet3d import resnet_from_config
+
+        model = resnet_from_config(cfg, dtype=model_dtype(cfg))
+    elif arch in _NOT_PORTED:
         raise NotImplementedError(f"ARCHITECTURE={arch!r} is not ported yet: "
                                   f"{_NOT_PORTED[arch]}")
-    if arch == "SwinDPL":
+    elif arch == "SwinDPL":
         raise NotImplementedError(
             "SwinDPL (Deformable Patch Location) is a private architecture; "
             "the public interface is a stub in the reference as well.")
-    raise ValueError(f"Unknown ARCHITECTURE {arch!r}; expected one of "
-                     f"{MODEL_PRESETS}")
+    else:
+        raise ValueError(f"Unknown ARCHITECTURE {arch!r}; expected one of "
+                         f"{MODEL_PRESETS}")
+    return model.to(device).eval()

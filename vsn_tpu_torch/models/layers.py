@@ -133,6 +133,9 @@ def stochastic_depth_rates(total_rate: float,
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
     """Truncated normal at +-2 std, as jax.nn.initializers.truncated_normal
-    (no variance correction)."""
-    return nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
-                                 generator=generator)
+    (no variance correction). Drawn on the CPU from ``generator`` and copied
+    into ``t``, so the values do not depend on t's device."""
+    draw = nn.init.trunc_normal_(torch.empty(t.shape), std=std, a=-2.0 * std,
+                                 b=2.0 * std, generator=generator)
+    with torch.no_grad():
+        return t.copy_(draw)

@@ -489,6 +489,17 @@ class SwinTransformer3D(nn.Module):
         """Residuals that draw their gains in training (rate > 0)."""
         return 2 * sum(blk.drop_path_rate > 0.0 for blk in self.blocks())
 
+    def draw(self, b: int, device, generator):
+        """The random draws of one training forward, in the form
+        ``forward(draws=)`` takes: the (gf, gb) pair of every residual that
+        draws, in the order ``residual_gains`` draws them from
+        ``generator``."""
+        return [residual_branch_gains(b, blk.drop_path_rate,
+                                      self.use_shakedrop, self.alpha_range,
+                                      False, generator, device)
+                for blk in self.blocks() if blk.drop_path_rate > 0.0
+                for _ in range(2)]
+
     def residual_gains(self, b: int, device, generator=None, draws=None):
         """(gf1, gb1, gf2, gb2) of every block, in stage order.
 

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "vsn_attn_half_bwd": [_I, *[_P] * 8, _I, *[_P] * 18, _L, _I, _I, _I, _L,
                           _F, _F, _P],
     "vsn_ln_mlp_bwd": [_I, *[_P] * 20, _L, _I, _I, _L, _F, _P],
+    "vsn_stem_conv_fwd": [_I, _P, _P, _P, *[_I] * 17, _P],
+    "vsn_stem_conv_dw": [_I, _P, _P, _P, *[_I] * 17, _P],
 }
 
 _lib = None

@@ -8,8 +8,10 @@ heaviest:
     w_i = decay^age_i / sum_j decay^age_j  (age 0 = newest, live slots only)
     ema = sum_i w_i * queue_i
 
-Here a snapshot is the flat parameter buffer of the train step, so the
-queue is one [n_models, P] tensor. The EMA is its own buffer, never an
+Here a snapshot is the train step's flat parameter buffer followed by its
+flat model state (BatchNorm running statistics, when the model has any), as
+the JAX EMA covers params and model_state; the queue is one [n_models, P]
+tensor. The EMA is its own buffer, never an
 alias of the live parameters.
 """
 

@@ -21,6 +21,15 @@ optimizer update, as the JAX step does:
 Parameters stay f32 in one flat buffer (the model's parameters are views of
 it); images are cast to bf16 when FP16 is set. USE_CHECKPOINT,
 WATCH_GRADIENTS and PRELOAD_DEVICE are trainer features not ported yet.
+
+The model state (the JAX package's ``batch_stats``: BatchNorm running
+statistics, the model's persistent buffers) is a second flat f32 buffer,
+``FlatStats``, whose views are the model's buffers. A training forward
+updates them in place, so they follow the JAX step: micro-batch after
+micro-batch (vsn_tpu/train/step.py:200-230); SAM's second pass starts from
+the first pass's statistics and the step keeps those after the second pass
+(:240-257); the NaN guard restores the statistics the step started from
+(:277-284); the EMA covers parameters and statistics (:66-68, 270-274).
 """
 
 from __future__ import annotations
@@ -30,33 +39,18 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from vsn_tpu_torch.train import optim
 from vsn_tpu_torch.train.ema import EMAState, ema_init, ema_update
 from vsn_tpu_torch.train.losses import label_smoothing_loss, smoothing_from_config
 
 
-class FlatParams:
-    """A model's parameters as views of one flat f32 buffer ``flat``, their
-    ``.grad`` as views of another, ``grad``. Built once per model: the
-    model's parameters are re-pointed at the buffer."""
+class _Flat:
+    """Named tensors of fixed shapes laid end to end in one flat buffer."""
 
-    def __init__(self, model: torch.nn.Module):
-        named = list(model.named_parameters())
-        self.names = [name for name, _ in named]
-        self.shapes = [tuple(p.shape) for _, p in named]
-        self.flat = torch.cat([p.detach().float().reshape(-1)
-                               for _, p in named])
-        self.grad = torch.zeros_like(self.flat)
-        for (_, p), v, g in zip(named, self.views(self.flat),
-                                self.views(self.grad)):
-            p.data = v
-            p.grad = g
-        mask = optim.wd_mask(dict(zip(self.names, self.shapes)))
-        self.decay_mask = torch.cat([
-            torch.full((int(np.prod(s)),), mask[n], dtype=torch.bool,
-                       device=self.flat.device)
-            for n, s in zip(self.names, self.shapes)])
+    names: list[str]
+    shapes: list[tuple]
 
     def views(self, flat: torch.Tensor) -> list[torch.Tensor]:
         out, off = [], 0
@@ -71,34 +65,98 @@ class FlatParams:
         return dict(zip(self.names, self.views(flat)))
 
 
+class FlatParams(_Flat):
+    """A model's parameters as views of one flat buffer ``flat`` (f32, the
+    parameters' type; f64 where a test runs the model in f64), their
+    ``.grad`` as views of another, ``grad``. Built once per model: the
+    model's parameters are re-pointed at the buffer."""
+
+    def __init__(self, model: torch.nn.Module):
+        named = list(model.named_parameters())
+        self.names = [name for name, _ in named]
+        self.shapes = [tuple(p.shape) for _, p in named]
+        self.flat = torch.cat([p.detach().reshape(-1) for _, p in named])
+        self.grad = torch.zeros_like(self.flat)
+        for (_, p), v, g in zip(named, self.views(self.flat),
+                                self.views(self.grad)):
+            p.data = v
+            p.grad = g
+        mask = optim.wd_mask(dict(zip(self.names, self.shapes)))
+        self.decay_mask = torch.cat([
+            torch.full((int(np.prod(s)),), mask[n], dtype=torch.bool,
+                       device=self.flat.device)
+            for n, s in zip(self.names, self.shapes)])
+
+
+def persistent_buffers(model: torch.nn.Module):
+    """(name, module, attribute) of every persistent floating-point buffer of
+    ``model``: its model state (BatchNorm running statistics)."""
+    out = []
+    for prefix, module in model.named_modules():
+        for attr, buf in module._buffers.items():
+            if (buf is not None and buf.is_floating_point()
+                    and attr not in module._non_persistent_buffers_set):
+                out.append((f"{prefix}.{attr}" if prefix else attr, module,
+                            attr))
+    return out
+
+
+class FlatStats(_Flat):
+    """A model's persistent buffers as views of one flat buffer ``flat`` of
+    their type, f32 (empty for a model without any). Built once per model:
+    the buffers are re-pointed at it, so the model's in-place updates land
+    there."""
+
+    def __init__(self, model: torch.nn.Module):
+        found = persistent_buffers(model)
+        self.names = [name for name, _, _ in found]
+        self.shapes = [tuple(getattr(m, a).shape) for _, m, a in found]
+        device = next(model.parameters()).device
+        self.flat = torch.cat(
+            [getattr(m, a).detach().reshape(-1) for _, m, a in found]
+            or [torch.zeros(0, device=device)])
+        for (_, module, attr), v in zip(found, self.views(self.flat)):
+            setattr(module, attr, v)
+
+
 @dataclass
 class TrainState:
     params: FlatParams
     opt: optim.AdamWState
     step: int                    # optimizer steps taken (host)
     skipped: torch.Tensor        # NaN-skipped steps, int32 on the device
-    ema: Optional[EMAState]      # EMA of the flat params; None if off
+    ema: Optional[EMAState]      # EMA of [params | model_state]; None if off
+    model_state: FlatStats       # BatchNorm running statistics (may be empty)
+
+
+def _ema_vector(params: torch.Tensor, stats: FlatStats) -> torch.Tensor:
+    """One EMA snapshot: the flat parameters, then the flat statistics."""
+    return torch.cat([params, stats.flat]) if stats.flat.numel() else params
 
 
 def init_train_state(cfg, model: torch.nn.Module) -> TrainState:
-    """State for training ``model`` (its parameters become views of the
-    state's flat buffer)."""
+    """State for training ``model`` (its parameters and persistent buffers
+    become views of the state's flat buffers)."""
     params = FlatParams(model)
-    ema = (ema_init(params.flat, int(cfg.EMA_N_MODELS)) if cfg.USE_EMA
-           else None)
+    stats = FlatStats(model)
+    ema = (ema_init(_ema_vector(params.flat, stats), int(cfg.EMA_N_MODELS))
+           if cfg.USE_EMA else None)
     return TrainState(params=params, opt=optim.adamw_init(params.flat),
                       step=0,
                       skipped=torch.zeros((), dtype=torch.int32,
                                           device=params.flat.device),
-                      ema=ema)
+                      ema=ema, model_state=stats)
 
 
 def eval_params(state: TrainState, use_ema: bool) -> dict[str, torch.Tensor]:
-    """Parameters for validation/eval, name -> tensor: the EMA weights when
-    EMA is on (vsn_tpu/train/step.py:82-88)."""
+    """Parameters and statistics for validation/eval, name -> tensor (a
+    state dict): the EMA's when EMA is on (vsn_tpu/train/step.py:82-88)."""
+    stats = state.model_state
     if use_ema and state.ema is not None:
-        return state.params.tree(state.ema.ema)
-    return state.params.tree(state.params.flat)
+        p = state.params.flat.numel()
+        return {**state.params.tree(state.ema.ema[:p]),
+                **stats.tree(state.ema.ema[p:])}
+    return {**state.params.tree(state.params.flat), **stats.tree(stats.flat)}
 
 
 def make_batch_transform(cfg):
@@ -207,7 +265,8 @@ def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
     wd_table = np.asarray(wd_table, np.float32)
 
     def train_step(state: TrainState, batch) -> dict:
-        flat = state.params.flat
+        flat, stats = state.params.flat, state.model_state.flat
+        start_stats = stats.clone()
         lr = float(lr_table[min(state.step, len(lr_table) - 1)])
         wd = float(wd_table[min(state.step, len(wd_table) - 1)])
         loss = accumulate(state, batch, 0)
@@ -234,13 +293,16 @@ def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
             new_params, opt = optim.adamw_update(
                 grads, state.opt, flat, lr, wd, state.params.decay_mask)
             if use_ema:
-                ema = ema_update(state.ema, new_params, ema_decay, ema_n)
+                ema = ema_update(state.ema,
+                                 _ema_vector(new_params, state.model_state),
+                                 ema_decay, ema_n)
                 state.ema = EMAState(*(torch.where(finite, new, old)
                                        for new, old in zip(ema, state.ema)))
             state.opt = optim.AdamWState(*(torch.where(finite, new, old)
                                            for new, old in zip(opt,
                                                                state.opt)))
             flat.copy_(torch.where(finite, new_params, flat))
+            stats.copy_(torch.where(finite, stats, start_stats))
         was_skipped = (~finite).to(torch.int32)
         state.skipped = state.skipped + was_skipped
         state.step += 1
@@ -251,11 +313,51 @@ def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
 
 
 def make_eval_step(model):
-    """images -> probs [B, K]: eval-mode forward, then softmax in f32."""
+    """(images, variables=None) -> probs [B, K]: eval-mode forward, then
+    softmax in f32. ``variables`` (a state dict such as ``eval_params(state,
+    use_ema=True)``) replaces the model's parameters and buffers for the
+    call; the model keeps its own."""
 
-    def eval_step(images: torch.Tensor) -> torch.Tensor:
+    def eval_step(images: torch.Tensor, variables=None) -> torch.Tensor:
+        model.eval()
         with torch.inference_mode():
-            logits = model(images)
+            logits = (model(images) if variables is None
+                      else functional_call(model, variables, (images,)))
             return torch.softmax(logits.float(), dim=-1)
 
     return eval_step
+
+
+def make_bn_refresh_step(model, cfg, batch_transform=None):
+    """``refresh(variables, batch) -> statistics``: re-estimate the BatchNorm
+    running statistics of the weights in ``variables`` (a state dict such as
+    ``eval_params(state, use_ema=True)``) by train-mode forwards over the
+    micro-batches of ``batch`` that only update the statistics, one after
+    another (vsn_tpu/train/step.py:358-387, reference EMAModel.
+    update_bn_stats). Returns name -> new statistic; the model and
+    ``variables`` are left as they were. Head dropout, which follows the
+    last BatchNorm, draws from a generator seeded per micro-batch."""
+    if batch_transform is None:
+        batch_transform = lambda micro, gen: (micro["image"], micro["label"])
+    seed = int(cfg.get("SEED") or 0)
+    names = [name for name, _, _ in persistent_buffers(model)]
+
+    def refresh(variables, batch):
+        stats = {name: variables[name].clone() for name in names}
+        merged = {**variables, **stats}
+        was_training = model.training
+        model.train()
+        try:
+            with torch.no_grad():
+                for idx in range(batch["label"].shape[0]):
+                    micro = {k: v[idx] for k, v in batch.items()}
+                    images, _ = batch_transform(micro, None)
+                    gen = torch.Generator(device=images.device)
+                    gen.manual_seed(draw_seed(seed, 0, idx, 0))
+                    functional_call(model, merged, (images,),
+                                    {"generator": gen})
+        finally:
+            model.train(was_training)
+        return stats
+
+    return refresh
