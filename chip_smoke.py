@@ -11,7 +11,16 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 1. build the hand-written kernels from ``vsn_tpu_torch/csrc`` (one nvcc per
    source, in parallel, into build/);
 2. print the card's name and power limit (nvidia-smi);
-3. forward parity: every K1/K2/K3 call of a Swin-T eval forward at batch 2
+3. K4 parity: every K4 call (window attention on packed qkv) of a
+   DynamicTanh Swin-T eval forward at batch 2 in f32 and in bf16, and of
+   its DROPOUT 0.1 training forward at micro-batch 8 in bf16, the unfused
+   blocks' attention at every stage shape (shifted, unshifted, padded with
+   -1 pad ids, clamped N = 150). qkv is replaced by a seeded unit normal
+   (O(1) logits) and the bias by z. K4f against its plain forward and K4b's
+   dqkv and dbias against the plain backward for one seeded cotangent, to
+   TOL of each output's scale; then K4b at saturated logits (bias 8 z + 45
+   and 8 z + 200, f32);
+4. forward parity: every K1/K2/K3 call of a Swin-T eval forward at batch 2
    in f32 and in bf16, and at the eval path's batch 4 in bf16 (all four
    stages: shifted, unshifted, padded with -1 pad ids, clamped N = 150).
    K1/K2 parameters are replaced by seeded non-trivial ones (LayerNorm scale
@@ -20,7 +29,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    backward gains (gf != gb). Each K1/K2 call is checked with lam = 0 (the
    gained branch alone) and lam = 1 (the residual); f32 max|d| <= 1e-4 of
    the output scale (TF32 off), bf16 <= 2e-2; the movers bit-exact;
-4. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
+5. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
    draws), f32 and bf16 at batch 2 and the training path's bf16 calls at
    micro-batch 8, with the same seeded parameters and gains, lam 0 and 1.
    Every gradient of K1b (dx, LN w/b, qkv w/b, bias, proj w/b) and K2b (dx,
@@ -29,7 +38,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    also at saturated logits (bias 8 z + 45 and 8 z + 200, f32, as
    tests/test_swin_block_kernels.py saturates them): finite and within
    tolerance; the movers' adjoints bit-exact;
-5. K5 parity: the stem conv K5f and its weight gradient K5w against their
+6. K5 parity: the stem conv K5f and its weight gradient K5w against their
    plain versions (the f32 conv of dtype-rounded operands, and its VJP) in
    f32 (1e-4 of scale, TF32 off) and bf16 (2e-2) at batch 2 on the
    geometries of tests/test_stem_im2col.py (ResNet and MedViT stems,
@@ -37,14 +46,15 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    then in bf16 at the slice's shape, x [12, 144, 168, 144, 1] (2e-2);
    their times beside the plain versions' and the library calls' (cuDNN
    conv3d in bf16, channels-last, and conv3d_weight);
-6. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
+7. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
    gains, ``Evaluator`` over 8 seeded float16 144x168x144 volumes in
    batches of 4, launch counters 0 before and exactly 12 (K1) / 12 (K2) /
    7 (K3) per forward after, none of K5; probs finite, rows summing to 1,
    within 1e-2 of the plain path, argmax agreeing wherever the plain top
-   two are further apart than twice that difference; ms per batch and vol/s
+   two are further apart than twice that difference; one batch's logits
+   within 2e-2 of the plain path's largest |logit|; ms per batch and vol/s
    of both paths;
-7. the Swin training path: ``init_train_state`` -> ``make_train_step`` for
+8. the Swin training path: ``init_train_state`` -> ``make_train_step`` for
    Swin-T 5c in bf16 with the flagship recipe (SAM, EMA of 3, MixUp p = 0.5,
    ShakeDrop, label smoothing 0.1), micro-batch 8, two micro-batches per
    step, on 16 seeded float16 volumes and their MixUp partners laid out as
@@ -58,26 +68,38 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    ``Evaluator``; then the same initial state, batches and injected draws
    for 2 steps on the plain route: per-step loss within 2e-2 and grad norm
    within 5e-2 (relative) of the kernel route;
-8. each Swin kernel's time per micro-batch at the training shapes beside
-   its plain version's (the eval phase times the forwards at batch 4);
-9. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
+9. the DynamicTanh eval path: phase 7 for Swin-T 5c with NORM_LAYER
+   DynamicTanh, whose blocks all run unfused: exactly 12 K4f launches per
+   forward and none of K1/K2/K3/K5;
+10. the DynamicTanh training path: phase 8 for that model with DROPOUT 0.1
+   (keep masks after the patch embed, proj, GELU and fc2, injected with the
+   ShakeDrop gains): exactly 12 K4f and 12 K4b per micro-batch and SAM
+   pass and no other launch; every parameter, DyT's 0-d alpha included,
+   reached by one backward; the plain route's 2 steps within TRAIN_RTOL;
+11. each Swin kernel's time per micro-batch at the training shapes beside
+   its plain version's (the eval phase times the forwards at batch 4), and
+   for K4f / K4b the library's: one ``F.scaled_dot_product_attention`` call
+   per K4 call on the split heads with the additive float mask bias[h] +
+   mask(ids), and that call's backward;
+12. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
    dropout 0.1, bf16), seeded weights whose BatchNorm statistics are
    re-estimated by ``make_bn_refresh_step`` over 8 volumes, ``Evaluator``
    over the 8 volumes in batches of 4: exactly 1 K5f and no other launch
-   per forward; probs as in phase 6 against the plain stem;
-10. the ResNet training path (the slice's main path): the same recipe
+   per forward; probs as in phase 7 against the plain stem;
+13. the ResNet training path: the same recipe
    without ShakeDrop (the ResNet has no residual gains), micro-batch 12 x
    2, injected head-dropout masks: every parameter reached by one
    backward; 1 + 3 steps with exactly 1 K5f and 1 K5w per micro-batch and
-   SAM pass and no other launch; parameters and EMA as in phase 7; the
+   SAM pass and no other launch; parameters and EMA as in phase 8; the
    BatchNorm statistics moved and the EMA's apart from the live ones; the
    EMA weights and statistics through ``Evaluator``; 2 plain-stem steps
    from the same state within 2e-2 / 5e-2;
-11. each kernel's time beside its bound: the larger of the bytes its calls
+14. each kernel's time beside its bound: the larger of the bytes its calls
    move (inputs read once, outputs written once) over 3.35 TB/s and the
    products they compute over 989 TFLOP/s (bf16), from this run's shapes.
-torch.profiler runs over one Swin eval pass, one Swin and one ResNet train
-step: device time by kernel and the device's idle share (traces in build/).
+torch.profiler runs over one eval pass and one train step of each Swin
+path and one ResNet train step: device time by kernel and the device's
+idle share (traces in build/).
 
 Every failure raises (exit code 1). The last lines are one JSON object of
 per-kernel results and then {"ok": true, "device": {...}}.
@@ -128,9 +150,17 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                     "vsn_tpu/ops/stem_im2col.py:249"),
     "stem_im2col_dw": ("vsn_tpu_torch/csrc/stem_im2col.cu",
                        "vsn_tpu/ops/stem_im2col.py:291"),
+    "attention": ("vsn_tpu_torch/csrc/window_attention_qkv.cu",
+                  "vsn_tpu/ops/window_attention.py:244"),
+    "attention_bwd": ("vsn_tpu_torch/csrc/window_attention_qkv.cu",
+                      "vsn_tpu/ops/window_attention.py:315"),
 }
 STEM = ("stem_im2col", "stem_im2col_dw")
 BLOCK_KERNELS = ("attn_half", "ln_mlp")
+# kernels held to a tolerance (the rest, the movers, are bit-exact)
+TOLERANT = (*BLOCK_KERNELS, "attention")
+# kernel name -> the name models/swin3d.py calls it by, where they differ
+MODEL_NAME = {"attention": "window_attention_qkv"}
 MOVERS = ("spatial_to_windows", "windows_to_windows", "windows_to_spatial")
 # Launches per Swin-T forward: 12 blocks (depths 2+2+6+2), one K1 and one K2
 # each; the window-resident stages 1, 2 and 4 enter through
@@ -148,6 +178,12 @@ PER_PASS = {**PER_FORWARD, "attn_half_bwd": 12, "ln_mlp_bwd": 12,
 # SAM pass of training (the stem and its weight gradient; dx is not taken)
 RESNET_PER_FORWARD = {"stem_im2col": 1}
 RESNET_PER_PASS = {"stem_im2col": 1, "stem_im2col_dw": 1}
+# DynamicTanh Swin-T: every block unfused, one K4 call each (and one K4b in
+# training); no K1/K2 and no mover
+DYT = dict(NORM_LAYER="DynamicTanh")
+DYT_PER_FORWARD = {"attention": 12}
+DYT_PER_PASS = {"attention": 12, "attention_bwd": 12}
+DYT_DROPOUT = 0.1
 RESNET_PRESET, RESNET_MICRO = "resnet-5c-no_seed-baseline", 12
 # K5 parity geometries, (shape DHW, kernel, strides, C_out): those of
 # tests/test_stem_im2col.py (the ResNet and MedViT stems, stride 1, odd
@@ -164,9 +200,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # the forward call whose arguments set a kernel's work (bound_ms)
 FORWARD_OF = {"attn_half_bwd": "attn_half", "ln_mlp_bwd": "ln_mlp",
-              "stem_im2col_dw": "stem_im2col", "attention": "attn_half",
-              "attention_bwd": "attn_half", "copy": "attn_half",
-              **{f"{m}_adjoint": m for m in MOVERS}}
+              "stem_im2col_dw": "stem_im2col", "attention_bwd": "attention",
+              "copy": "attn_half", **{f"{m}_adjoint": m for m in MOVERS}}
 # attn_half cases the parity sets must cover at the flagship geometry
 ATTN_CASES = {"shifted ids", "padded ids", "no mask", "N=150"}
 # differentiable arguments of the block kernels: (index, gradient name)
@@ -176,6 +211,7 @@ DIFF = {
                   (8, "dproj_b")),
     "ln_mlp": ((0, "dx"), (1, "dnorm_w"), (2, "dnorm_b"), (3, "dfc1_w"),
                (4, "dfc1_b"), (5, "dfc2_w"), (6, "dfc2_b")),
+    "attention": ((0, "dqkv"), (1, "dbias")),
 }
 
 
@@ -210,14 +246,24 @@ def kernel_table():
     }
 
 
+def attention_table():
+    """name -> (kernel wrapper, plain version) of K4, the unfused blocks'
+    attention; the plain version carries the plain backward."""
+    from vsn_tpu_torch.ops import window_attention as wa
+
+    return {"attention": (wa.window_attention_qkv,
+                          wa.window_attention_qkv_reference)}
+
+
 @contextmanager
 def patched_model_ops(replace):
     """Route the model's kernel calls (models/swin3d.py names) through
     ``replace(name, kernel, plain)``."""
     from vsn_tpu_torch.models import swin3d
 
-    table = kernel_table()
-    new = {name: replace(name, *fns) for name, fns in table.items()}
+    table = {**kernel_table(), **attention_table()}
+    new = {MODEL_NAME.get(name, name): replace(name, *fns)
+           for name, fns in table.items()}
     with mock.patch.multiple(swin3d, **new):
         yield
 
@@ -260,10 +306,12 @@ def seeded_params(name, args, gen):
     0.1 z, projections are fan_in^-0.5 z (O(1) activations and logits at
     every width) and the relative-position bias is z: each term moves the
     output by far more than the tolerance. Activations and ids stay as the
-    forward gave them; the movers' calls are returned as they are."""
+    forward gave them; the movers' calls are returned as they are. A K4
+    call gets qkv = z in its dtype (O(1) logits at a head dim of 32) and
+    bias = z."""
     import torch
 
-    if name not in BLOCK_KERNELS:
+    if name not in TOLERANT:
         return args
     x = args[0]
     c = x.shape[-1]
@@ -271,6 +319,9 @@ def seeded_params(name, args, gen):
     def r(*shape, k=1.0):
         return (torch.randn(*shape, generator=gen) * k).to(x.device)
 
+    if name == "attention":
+        qkv, bias, ids, scale, heads = args
+        return r(*qkv.shape).to(qkv.dtype), r(*bias.shape), ids, scale, heads
     if name == "attn_half":
         (x, _, _, _, qkv_b, bias, ids, _, _, gf, _, scale, heads) = args
         return (x, 1 + r(c, k=0.1), r(c, k=0.1), r(3 * c, c, k=c ** -0.5),
@@ -293,6 +344,12 @@ def case_kind(name, args):
                  "padded ids" if bool((ids < 0).any()) else "shifted ids",
                  f"N={args[0].shape[1]}"}
         return kinds if args[5] is not None else kinds | {"no bias"}
+    if name == "attention":  # an unshifted block passes one row of zeros
+        ids = args[2]
+        kind = ("padded ids" if bool((ids < 0).any()) else
+                "no mask" if ids.shape[0] == 1 and not bool(ids.any()) else
+                "shifted ids")
+        return {kind, f"N={args[0].shape[1]}"}
     if name == "ln_mlp":
         return {f"C={args[0].shape[-1]}"}
     return {f"roll={tuple(args[-1])}"}
@@ -310,7 +367,7 @@ def compare(name, kernel, plain, args, lam=None):
         raise AssertionError(f"{name}: {tuple(got.shape)}/{got.dtype} vs "
                              f"{tuple(want.shape)}/{want.dtype}")
     err = (got.float() - want.float()).abs().max().item()
-    if name not in BLOCK_KERNELS:
+    if name not in TOLERANT:
         return err, 0.0, bool(torch.equal(got, want))
     dtype = str(want.dtype).removeprefix("torch.")
     limit = TOL[dtype] * max(1.0, want.float().abs().max().item())
@@ -344,6 +401,8 @@ def grad_compare(name, kernel, plain, args, lam, gen):
     if name in MOVERS:
         with torch.no_grad():
             shape = plain(*args).shape
+    elif name == "attention":   # [BW, N, 3C] -> [BW, N, C]
+        shape = (*x.shape[:2], x.shape[2] // 3)
     else:
         shape = x.shape   # K1 and K2 keep their input's shape
     dout = torch.randn(shape, generator=gen).to(x.device, x.dtype)
@@ -411,7 +470,8 @@ def parity_phase(sets, table, gen):
             args = seeded_params(name, args, gen)
             kinds[label][name] |= case_kind(name, args)
             checks = ((("branch", 0.0), ("residual", PATH_LAM))
-                      if name in BLOCK_KERNELS else (("exact", None),))
+                      if name in BLOCK_KERNELS else
+                      (("out" if name in TOLERANT else "exact", None),))
             for check, lam in checks:
                 err, limit, ok = compare(name, kernel, plain, args, lam)
                 _group(groups, (name, check), err, limit, ok)
@@ -424,7 +484,7 @@ def parity_phase(sets, table, gen):
 
 
 def backward_name(name):
-    return f"{name}_bwd" if name in BLOCK_KERNELS else f"{name}_adjoint"
+    return f"{name}_bwd" if name in TOLERANT else f"{name}_adjoint"
 
 
 def grad_parity_phase(sets, table, gen):
@@ -457,25 +517,31 @@ def grad_parity_phase(sets, table, gen):
     return dict(worst), all_kinds
 
 
-def saturation_phase(calls, table, gen, logits=(45.0, 200.0)):
-    """K1b at saturated logits: a shifted, masked K1 call of ``calls`` (f32)
-    with its bias set to 8 z + logit (z the seeded bias), so the logits sit
-    near ``logit``; every gradient finite and within tolerance of the plain
-    backward."""
-    kernel, plain = table["attn_half"]
-    name, args = next((n, a) for n, a in calls if n == "attn_half"
-                      and a[6] is not None and a[5] is not None)
+def saturation_phase(calls, table, gen, name="attn_half",
+                     logits=(45.0, 200.0)):
+    """K1b (or K4b, ``name`` "attention") at saturated logits: a shifted,
+    masked call of ``calls`` (f32) with its bias set to 8 z + logit (z the
+    seeded bias), so the logits sit near ``logit``; every gradient finite
+    and within tolerance of the plain backward."""
+    kernel, plain = table[name]
+    at = {"attn_half": 5, "attention": 1}[name]   # the bias argument
+    lam = PATH_LAM if name in BLOCK_KERNELS else None
+    args = next(a for n, a in calls if n == name
+                and "shifted ids" in case_kind(n, a)
+                and "no bias" not in case_kind(n, a))
     args = list(seeded_params(name, args, gen))
-    bias = args[5]
+    bias = args[at]
     for logit in logits:
-        args[5] = bias * 8 + logit
-        rows = grad_compare(name, kernel, plain, args, PATH_LAM, gen)
+        args[at] = bias * 8 + logit
+        rows = grad_compare(name, kernel, plain, args, lam, gen)
         ratio = max(err / limit for _, err, limit, _ in rows)
         bad = [g for g, _, _, ok in rows if not ok]
-        log(f"parity saturated logits {logit:g}: K1b {len(rows)} grads, "
-            f"worst {ratio:.3f} of the limit {'ok' if not bad else 'FAIL'}")
+        log(f"parity saturated logits {logit:g}: {backward_name(name)} "
+            f"{len(rows)} grads, worst {ratio:.3f} of the limit "
+            f"{'ok' if not bad else 'FAIL'}")
         if bad:
-            raise AssertionError(f"K1b at logits {logit:g}: {bad}")
+            raise AssertionError(f"{backward_name(name)} at logits "
+                                 f"{logit:g}: {bad}")
 
 
 def volumes(n, seed):
@@ -508,25 +574,22 @@ def train_batch(cfg, device, seed):
 
 
 class Draws:
-    """The random draws of each (step, micro-batch, pass), drawn once from a
-    generator seeded by ``draw_seed`` and handed to every route: Swin's
-    residual gains, the ResNet's head-dropout mask (``model.draw``)."""
+    """The random draws of each (step, micro-batch, pass) (``model.draw``:
+    Swin's residual gains and dropout keep masks, the ResNet's head-dropout
+    mask), drawn at each call from a generator seeded by ``draw_seed``, so
+    every route gets the same ones without holding them all."""
 
     def __init__(self, model, micro, device, seed):
         self.model, self.micro, self.device, self.seed = (model, micro,
                                                           device, seed)
-        self.table = {}
 
     def __call__(self, step, idx, pass_idx):
         import torch
         from vsn_tpu_torch.train.step import draw_seed
 
-        key = (step, idx, pass_idx)
-        if key not in self.table:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(draw_seed(self.seed, *key))
-            self.table[key] = self.model.draw(self.micro, self.device, gen)
-        return self.table[key]
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(draw_seed(self.seed, step, idx, pass_idx))
+        return self.model.draw(self.micro, self.device, gen)
 
 
 def train_route(model, cfg, state, batch, draws, steps, sync):
@@ -714,14 +777,15 @@ def cuda_ms(fn, reps=3):
 
 def kernel_times(calls, backward=True):
     """Per-kernel (ms, plain ms) summed over one forward's calls and (with
-    ``backward``) their backward: the forward wrappers and K1b/K2b on the
-    recorded arguments with one cotangent, the movers' adjoints as the
+    ``backward``) their backward: the forward wrappers and K1b/K2b/K4b on
+    the recorded arguments with one cotangent, the movers' adjoints as the
     opposite move."""
     import torch
     from vsn_tpu_torch.ops import swin_block_kernels as sbk
+    from vsn_tpu_torch.ops import window_attention as wa
     from vsn_tpu_torch.ops import window_relayout as wr
 
-    table = kernel_table()
+    table = {**kernel_table(), **attention_table()}
     ms = collections.defaultdict(float)
     plain_ms = collections.defaultdict(float)
     neg = lambda roll: tuple(-r for r in roll)
@@ -760,11 +824,50 @@ def kernel_times(calls, backward=True):
                 ms[bname] += cuda_ms(lambda: sbk.ln_mlp_backward(*b_args))
                 plain_ms[bname] += cuda_ms(
                     lambda: sbk.ln_mlp_backward_reference(*b_args))
+            elif name == "attention":
+                b_args = (*args[:3], g, *args[3:])
+                ms[bname] += cuda_ms(
+                    lambda: wa.window_attention_qkv_backward(*b_args))
+                plain_ms[bname] += cuda_ms(
+                    lambda: wa.window_attention_qkv_backward_reference(
+                        *b_args))
             else:
                 adj, plain_adj = adjoints[name]
                 ms[bname] += cuda_ms(lambda: adj(g, args))
                 plain_ms[bname] += cuda_ms(lambda: plain_adj(g, args))
     return ms, plain_ms
+
+
+def sdpa_times(calls):
+    """(forward ms, backward ms) of the library's attention on K4's work,
+    summed over the K4 calls of ``calls``: one
+    ``F.scaled_dot_product_attention`` call per K4 call on its split heads
+    [BW, H, N, d] with the additive float mask bias[h] + mask(ids) [BW, H,
+    N, N] in qkv's dtype (made outside the timing), and that call's
+    backward to q, k, v and the mask. A yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from vsn_tpu_torch.ops.window_attention import mask_from_ids
+
+    fwd = bwd = 0.0
+    for name, (qkv, bias, ids, scale, heads) in calls:
+        if name != "attention":
+            continue
+        bw, n, c3 = qkv.shape
+        q, k, v = (t.contiguous() for t in
+                   qkv.reshape(bw, n, 3, heads, -1).permute(2, 0, 3, 1, 4))
+        rows = torch.arange(bw, device=qkv.device) % ids.shape[0]
+        mask = (bias[None] + mask_from_ids(ids)[rows][:, None]).to(qkv.dtype)
+        fwd += cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, mask)]
+        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3],
+                                             scale=scale)
+        g = torch.randn_like(out)
+        bwd += cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                   retain_graph=True))
+        del q, k, v, mask, leaves, out, g
+    return fwd, bwd
 
 
 def profile_phase(fn, label, per, n_units, card):
@@ -923,18 +1026,18 @@ def call_work(name, args):
     the products the kernel computes from those inputs (the backward
     kernels recompute the forward's products they need)."""
     x = args[0]
-    if name in ("attention", "attention_bwd", "copy"):
-        # kernels not ported yet, at an attn_half call's shapes: K4f/V1f/V3f
-        # (softmax(q k^T s + bias + mask) v from packed qkv: q k^T and p v),
-        # K4b/V1b/V3b (s, dp, dv, dq, dk; dqkv and dbias out), and the copy
-        # probe of perf_probe_attn_ablate2.py (x in, x out)
-        bw, n, c = x.shape
-        rows, bias = bw * n, args[5]
-        if name == "copy":
-            return 0, 2 * _nbytes(x)
+    if name == "copy":  # perf_probe_attn_ablate2.py's copy probe at an
+        return 0, 2 * _nbytes(x)  # attn_half call: x in, x out
+    if name in ("attention", "attention_bwd"):
+        # K4f: q k^T and p v from packed qkv (qkv, bias, ids in; out);
+        # K4b: s, dp, dv, dq, dk (qkv, bias, ids, dout in; dqkv, dbias out)
+        qkv, bias, ids = args[:3]
+        bw, n, c3 = qkv.shape
+        work = bw * n * n * (c3 // 3)
+        out = _nbytes(qkv) // 3
         if name == "attention":
-            return 4 * rows * n * c, 4 * _nbytes(x) + _nbytes(bias)
-        return 10 * rows * n * c, 8 * _nbytes(x) + 2 * _nbytes(bias)
+            return 4 * work, _nbytes(qkv, bias, ids) + out
+        return 10 * work, 2 * _nbytes(qkv, bias) + _nbytes(ids) + out
     if name in ("attn_half", "attn_half_bwd"):
         bw, n, c = x.shape
         rows = bw * n
@@ -1032,6 +1135,120 @@ def statistics_checks(state, initial_stats):
     return moved, gap
 
 
+def compare_logits(label, model, x, plain):
+    """The kernel route's logits of one batch ``x`` within TOL of the
+    largest |logit| of the plain route's (``plain()`` a context manager).
+    Probs alone can hide a wrong kernel when every logit is near 0, as with
+    DynamicTanh at its init (probs 0.2000)."""
+    import torch
+
+    with torch.inference_mode():
+        got = model(x).float()
+        with plain():
+            want = model(x).float()
+    dtype = str(model.dtype).removeprefix("torch.")
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    log(f"{label} logits vs plain path: max|d| {err:.3e} of max|logit| "
+        f"{scale:.3e} (<= {TOL[dtype]} of it)")
+    if not err <= TOL[dtype] * scale:
+        raise AssertionError(f"{label}: kernel path logits differ from the "
+                             f"plain path's by {err} (max|logit| {scale})")
+
+
+def swin_eval_path(cfg, model, images, per_forward, label, card):
+    """One Swin eval path through ``Evaluator`` at batch BATCH: every launch
+    counter at 0 before and exactly ``per_forward`` per batch after (0 for
+    every other kernel); probs checked and held to the plain route's
+    (``compare_probs``), and one batch's logits (``compare_logits``); the
+    rates of both routes; a profile pass."""
+    import torch
+    from vsn_tpu_torch.eval.evaluate import Evaluator
+    from vsn_tpu_torch.ops import _build
+
+    evaluator = Evaluator(cfg, model, batch_size=BATCH)
+    n_batches = -(-len(images) // evaluator.batch_size)
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    probs = evaluator.predict(images)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {name: _build.launches[name] for name in KERNELS}
+    log(f"{label} path: {len(images)} volumes in {n_batches} batches of "
+        f"{evaluator.batch_size}, first run {first_s:.2f} s, launches "
+        f"{counts}")
+    check_counts(counts, per_forward, n_batches, label)
+    check_probs(probs, len(images), cfg.num_classes)
+    plain = lambda: patched_model_ops(lambda name, kernel, p: p)
+    with plain():
+        probs_plain = evaluator.predict(images)
+    compare_probs(f"{label} path", probs, probs_plain)
+    x = torch.from_numpy(images[:BATCH]).to(evaluator.device)
+    compare_logits(f"{label} path", model, evaluator.transform(x), plain)
+    eval_rates(evaluator, images, plain, n_batches, label, card)
+    profile_phase(lambda: evaluator.predict(images), label, "forward",
+                  n_batches, card)
+
+
+def swin_train_path(cfg, batch, images, per_pass, passes, label, recipe,
+                    card):
+    """One Swin training path: ``init_train_state`` -> ``make_train_step``
+    for a model of ``cfg`` with seeded weights, on ``batch`` with draws
+    injected from ``Draws``. Every parameter reached by one backward; 1 +
+    TIMED_STEPS steps with every launch counter at 0 before and exactly
+    ``per_pass`` times ``passes`` after; the parameters and EMA
+    (``params_moved``), the EMA weights through ``Evaluator``; a profile
+    pass; then PLAIN_STEPS plain-route steps from the same initial state on
+    the same draws, within TRAIN_RTOL (``report_routes``). Returns the
+    launch counts."""
+    import torch
+    from vsn_tpu_torch.eval.evaluate import Evaluator
+    from vsn_tpu_torch.models import build_model
+    from vsn_tpu_torch.models.swin3d import init_weights
+    from vsn_tpu_torch.ops import _build
+    from vsn_tpu_torch.train.step import eval_params, init_train_state
+
+    sync = torch.cuda.synchronize
+    torch.cuda.reset_peak_memory_stats()
+    micro = cfg.BATCH_SIZE
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(SEED))
+    state = init_train_state(cfg, model)
+    initial = state.params.flat.clone()
+    draws = Draws(model, micro, batch["image"].device, SEED)
+    reach_every_parameter(model, cfg, state, batch, draws, label)
+    _build.launches.clear()
+    kernel_metrics, secs = train_route(model, cfg, state, batch, draws, 1,
+                                       sync)
+    after0 = state.params.flat.clone()
+    more, more_secs = train_route(model, cfg, state, batch, draws,
+                                  TIMED_STEPS, sync)
+    counts = {name: _build.launches[name] for name in KERNELS}
+    kernel_metrics += more
+    log(f"{label} path: {1 + TIMED_STEPS} steps of {TRAIN_ACCUM} x {micro} "
+        f"volumes (SAM: 2 passes), launches {counts}")
+    check_counts(counts, per_pass, passes, label)
+    params_moved(state, initial, after0, label)
+    ema_probs = Evaluator(cfg, model, batch_size=BATCH).predict(
+        images[:BATCH], eval_params(state, use_ema=True))
+    check_probs(ema_probs, BATCH, cfg.num_classes)
+    log(f"{label} path: EMA weights through Evaluator, probs range "
+        f"[{ema_probs.min():.4f}, {ema_probs.max():.4f}]")
+    profile_phase(lambda: train_route(model, cfg, state, batch, draws, 1,
+                                      sync), label, "step", 1, card)
+    with torch.no_grad():
+        state.params.flat.copy_(initial)
+    del state
+    pstate = init_train_state(cfg, model)
+    with patched_model_ops(lambda name, kernel, plain: plain):
+        plain_metrics, plain_secs = train_route(model, cfg, pstate, batch,
+                                                draws, PLAIN_STEPS, sync)
+    report_routes(label, kernel_metrics, plain_metrics, more_secs,
+                  plain_secs, TRAIN_ACCUM * micro, recipe, card)
+    log(f"[{card}] {label} kernel route warm-up step {1e3 * secs[0]:.1f} "
+        f"ms; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB")
+    return counts
+
+
 def main() -> int:
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
@@ -1073,8 +1290,46 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # 3. forward parity at every stage shape ------------------------------
+    # 3. K4 parity on the DynamicTanh model's calls ------------------------
     cfg = load_config(dict(USE_SHAKEDROP=True))  # flagship: bf16, ShakeDrop
+    train_cfg = load_config(dict(
+        USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
+        USE_SHAKEDROP=True, LABEL_SMOOTHING=0.1, SEED=SEED,
+        BATCH_SIZE=TRAIN_MICRO, EFFECTIVE_BATCH_SIZE=TRAIN_MICRO * TRAIN_ACCUM))
+    if train_cfg.gradient_accumulation_steps() != TRAIN_ACCUM:
+        raise AssertionError("the training config must accumulate "
+                             f"{TRAIN_ACCUM} micro-batches")
+    dyt_train_cfg = train_cfg.replace(DROPOUT=DYT_DROPOUT, **DYT)
+    batch = train_batch(train_cfg, device, SEED + 5)
+    micro0 = {k: v[0] for k, v in batch.items()}
+    images8 = make_batch_transform(train_cfg)(micro0)[0].to(torch.bfloat16)
+    k4sets = {}
+    for dtype_name, fp16 in (("float32", False), ("bfloat16", True)):
+        m = init_weights(build_model(cfg.replace(FP16=fp16, **DYT)),
+                         torch.Generator().manual_seed(SEED))
+        x = zscore(torch.from_numpy(volumes(2, seed=SEED + 10)).to(device))
+        k4sets[f"DyT {dtype_name} B=2"] = record_calls(m, x)
+    m = init_weights(build_model(dyt_train_cfg),
+                     torch.Generator().manual_seed(SEED))
+    k4sets[f"DyT bfloat16 B={TRAIN_MICRO} train"] = record_calls(
+        m.train(), images8, generator=torch.Generator(device).manual_seed(3))
+    atable = attention_table()
+    kgen = torch.Generator().manual_seed(SEED + 11)
+    worst, kinds = parity_phase(k4sets, atable, kgen)
+    bworst, bkinds = grad_parity_phase(k4sets, atable, kgen)
+    worst.update(bworst)
+    for label in k4sets:
+        for name, found in (("attention", kinds[label]["attention"]),
+                            ("attention_bwd", bkinds[label]["attention_bwd"])):
+            if not ATTN_CASES <= found:
+                raise AssertionError(f"K4 set {label} lacks {name} cases "
+                                     f"{ATTN_CASES - found}")
+    saturation_phase(k4sets["DyT float32 B=2"], atable, kgen, "attention")
+    k4_calls = k4sets.pop(f"DyT bfloat16 B={TRAIN_MICRO} train")  # phase 11
+    del k4sets, m, x
+    torch.cuda.empty_cache()
+
+    # 4. forward parity at every stage shape ------------------------------
     models = {}
     for dtype_name, fp16 in (("float32", False), ("bfloat16", True)):
         m = build_model(cfg.replace(FP16=fp16))
@@ -1089,33 +1344,24 @@ def main() -> int:
         sets[f"{dtype_name} B=2"] = record_calls(m, x)
     x = torch.from_numpy(volumes(BATCH, seed=SEED + 2)).to(device)
     sets[f"bfloat16 B={BATCH}"] = record_calls(model, evaluator.transform(x))
-    worst, kinds = parity_phase(sets, table,
-                                torch.Generator().manual_seed(SEED + 3))
+    fworst, kinds = parity_phase(sets, table,
+                                 torch.Generator().manual_seed(SEED + 3))
+    worst.update(fworst)
     for label, by_name in kinds.items():
         if not ATTN_CASES <= by_name["attn_half"]:
             raise AssertionError(f"parity set {label} lacks attn_half cases "
                                  f"{ATTN_CASES - by_name['attn_half']}")
-    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 6
+    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 7
     del sets
 
-    # 4. backward parity on training forwards -----------------------------
-    train_cfg = load_config(dict(
-        USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
-        USE_SHAKEDROP=True, LABEL_SMOOTHING=0.1, SEED=SEED,
-        BATCH_SIZE=TRAIN_MICRO, EFFECTIVE_BATCH_SIZE=TRAIN_MICRO * TRAIN_ACCUM))
-    if train_cfg.gradient_accumulation_steps() != TRAIN_ACCUM:
-        raise AssertionError("the training config must accumulate "
-                             f"{TRAIN_ACCUM} micro-batches")
+    # 5. backward parity on training forwards -----------------------------
     gsets = {}
     for dtype_name, m in models.items():
         x = zscore(torch.from_numpy(volumes(2, seed=SEED + 4)).to(device))
         gsets[f"{dtype_name} B=2"] = record_calls(
             m.train(), x, generator=torch.Generator(device).manual_seed(1))
-    batch = train_batch(train_cfg, device, SEED + 5)
-    micro0 = {k: v[0] for k, v in batch.items()}
-    images8, _ = make_batch_transform(train_cfg)(micro0)
     gsets[f"bfloat16 B={TRAIN_MICRO}"] = record_calls(
-        model.train(), images8.to(torch.bfloat16),
+        model.train(), images8,
         generator=torch.Generator(device).manual_seed(2))
     for m in models.values():
         m.eval()
@@ -1130,7 +1376,7 @@ def main() -> int:
     train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 8
     del gsets, models, x, images8
 
-    # 5. K5f / K5w parity and timings -------------------------------------
+    # 6. K5f / K5w parity and timings -------------------------------------
     stable = stem_table()
     sgen = torch.Generator(device).manual_seed(SEED + 9)
     cases = {f"{dt} {geom[0]} k{geom[1]} s{geom[2]} C{geom[3]}":
@@ -1146,96 +1392,62 @@ def main() -> int:
     del cases, stem_call
     torch.cuda.empty_cache()
 
-    # 6. the Swin eval path -----------------------------------------------
+    # 7. the Swin eval path -----------------------------------------------
     images = volumes(N_VOLUMES, seed=SEED)
     n_batches = -(-N_VOLUMES // BATCH)
-    _build.launches.clear()
-    t0 = time.perf_counter()
-    probs = evaluator.predict(images)
-    sync()
-    first_s = time.perf_counter() - t0
-    counts = {name: _build.launches[name] for name in KERNELS}
-    log(f"eval path: {N_VOLUMES} volumes in {n_batches} batches of {BATCH}, "
-        f"first run {first_s:.2f} s, launches {counts}")
-    check_counts(counts, PER_FORWARD, n_batches, "eval")
-    check_probs(probs, N_VOLUMES, cfg.num_classes)
-    with patched_model_ops(lambda name, kernel, plain: plain):
-        probs_plain = evaluator.predict(images)
-    compare_probs("eval path", probs, probs_plain)
-    eval_rates(evaluator, images,
-               lambda: patched_model_ops(lambda name, kernel, p: p),
-               n_batches, "eval", card)
+    swin_eval_path(cfg, model, images, PER_FORWARD, "eval", card)
     ems, eplain = kernel_times(eval_calls, backward=False)
     for name in PER_FORWARD:
         log(f"[{card}] eval {name}: {ems[name]:.3f} ms per forward at batch "
             f"{BATCH} (plain {eplain[name]:.3f} ms)")
-    profile_phase(lambda: evaluator.predict(images), "eval", "forward",
-                  n_batches, card)
     del evaluator, model, eval_calls
 
-    # 7. the Swin training path -------------------------------------------
-    model = init_weights(build_model(train_cfg),
-                         torch.Generator().manual_seed(SEED))
-    state = init_train_state(train_cfg, model)
-    initial = state.params.flat.clone()
-    draws = Draws(model, TRAIN_MICRO, device, SEED)
-    reach_every_parameter(model, train_cfg, state, batch, draws, "train")
-    _build.launches.clear()
-    kernel_metrics, secs = train_route(model, train_cfg, state, batch, draws,
-                                       1, sync)
-    after0 = state.params.flat.clone()
-    more, more_secs = train_route(model, train_cfg, state, batch, draws,
-                                  TIMED_STEPS, sync)
-    counts = {name: _build.launches[name] for name in KERNELS}
-    kernel_metrics += more
+    # 8. the Swin training path -------------------------------------------
     steps = 1 + TIMED_STEPS
     passes = steps * TRAIN_ACCUM * (2 if train_cfg.USE_SAM else 1)
-    log(f"train path: {steps} steps of {TRAIN_ACCUM} x {TRAIN_MICRO} volumes "
-        f"(SAM: 2 passes), launches {counts}")
-    check_counts(counts, PER_PASS, passes, "train")
-    path_counts = dict(counts)
-    params_moved(state, initial, after0, "train")
-    ema_probs = Evaluator(train_cfg, model, batch_size=BATCH).predict(
-        images[:BATCH], eval_params(state, use_ema=True))
-    check_probs(ema_probs, BATCH, train_cfg.num_classes)
-    log(f"train path: EMA weights through Evaluator, probs range "
-        f"[{ema_probs.min():.4f}, {ema_probs.max():.4f}]")
-    profile_phase(lambda: train_route(model, train_cfg, state, batch, draws,
-                                      1, sync), "train", "step", 1, card)
-    with torch.no_grad():
-        state.params.flat.copy_(initial)
-    del state
-    pstate = init_train_state(train_cfg, model)
-    with patched_model_ops(lambda name, kernel, plain: plain):
-        plain_metrics, plain_secs = train_route(model, train_cfg, pstate,
-                                                batch, draws, PLAIN_STEPS,
-                                                sync)
-    report_routes("train", kernel_metrics, plain_metrics, more_secs,
-                  plain_secs, TRAIN_ACCUM * TRAIN_MICRO,
-                  f"SAM + EMA + MixUp + ShakeDrop, micro {TRAIN_MICRO} x "
-                  f"{TRAIN_ACCUM}", card)
-    log(f"[{card}] train kernel route warm-up step {1e3 * secs[0]:.1f} ms; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del pstate, batch, model, draws
+    recipe = (f"SAM + EMA + MixUp + ShakeDrop, micro {TRAIN_MICRO} x "
+              f"{TRAIN_ACCUM}")
+    path_counts = swin_train_path(train_cfg, batch, images, PER_PASS, passes,
+                                  "train", recipe, card)
 
-    # 8. Swin kernel timings at the training shapes -----------------------
-    ms, plain_ms = kernel_times(train_calls)
-    bounds = {name: bound_ms(name, train_calls) for name in KERNELS
+    # 9. the DynamicTanh eval path ----------------------------------------
+    dyt_cfg = cfg.replace(**DYT)
+    model = init_weights(build_model(dyt_cfg),
+                         torch.Generator().manual_seed(SEED))
+    swin_eval_path(dyt_cfg, model, images, DYT_PER_FORWARD, "dyt_eval", card)
+    del model
+
+    # 10. the DynamicTanh training path, DROPOUT 0.1 ----------------------
+    counts = swin_train_path(dyt_train_cfg, batch, images, DYT_PER_PASS,
+                             passes, "dyt_train",
+                             f"{recipe}, DynamicTanh, DROPOUT {DYT_DROPOUT}",
+                             card)
+    path_counts.update({name: counts[name] for name in DYT_PER_PASS})
+    del batch
+
+    # 11. Swin kernel timings at the training shapes ----------------------
+    ms, plain_ms = kernel_times(train_calls + k4_calls)
+    bounds = {name: bound_ms(name, train_calls + k4_calls) for name in KERNELS
               if name not in STEM}
+    library_ms = dict.fromkeys(KERNELS)
+    library_ms["attention"], library_ms["attention_bwd"] = sdpa_times(
+        k4_calls)
     stage1 = [next(c for c in train_calls if c[0] == "attn_half")]
-    for what, name, calls in (
-            ("K4f / V1f / V3f, attention from packed qkv", "attention",
-             train_calls),
-            ("K4b / V1b / V3b, its VJP", "attention_bwd", train_calls),
-            ("P1, K1f variants at one stage-1 call", "attn_half", stage1),
-            ("P2-P5 copy probe at one stage-1 call", "copy", stage1)):
+    for what, name, calls, at in (
+            ("V1f / V3f, K4f's attention on split q, k, v and on the "
+             "unpartitioned grid", "attention", k4_calls, "K4"),
+            ("V1b / V3b, their VJPs", "attention_bwd", k4_calls, "K4"),
+            ("P1, K1f variants at one stage-1 call", "attn_half", stage1,
+             "attn_half"),
+            ("P2-P5 copy probe at one stage-1 call", "copy", stage1,
+             "attn_half")):
         t, by = bound_ms(name, calls)
         log(f"[{card}] not ported: {what}: bound {t:.3f} ms by {by} at the "
-            f"attn_half calls of a micro-batch of {TRAIN_MICRO}")
-    del train_calls, stage1
+            f"{at} calls of a micro-batch of {TRAIN_MICRO}")
+    del train_calls, k4_calls, stage1
     torch.cuda.empty_cache()
 
-    # 9. the ResNet eval path ---------------------------------------------
+    # 12. the ResNet eval path --------------------------------------------
     from vsn_tpu_torch.models.resnet3d import init_weights as resnet_init
 
     rcfg = load_config(preset=RESNET_PRESET)
@@ -1257,7 +1469,7 @@ def main() -> int:
                card)
     del revaluator, rmodel
 
-    # 10. the ResNet training path ----------------------------------------
+    # 13. the ResNet training path ----------------------------------------
     rtrain_cfg = load_config(dict(
         USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
         LABEL_SMOOTHING=0.1, SEED=SEED, BATCH_SIZE=RESNET_MICRO,
@@ -1265,6 +1477,7 @@ def main() -> int:
     if rtrain_cfg.gradient_accumulation_steps() != TRAIN_ACCUM:
         raise AssertionError("the ResNet training config must accumulate "
                              f"{TRAIN_ACCUM} micro-batches")
+    torch.cuda.reset_peak_memory_stats()
     model = resnet_init(build_model(rtrain_cfg),
                         torch.Generator().manual_seed(SEED))
     state = init_train_state(rtrain_cfg, model)
@@ -1318,8 +1531,7 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del pstate, rbatch, model, draws
 
-    # 11. per-kernel times beside their bounds ----------------------------
-    library_ms = dict.fromkeys(KERNELS)
+    # 14. per-kernel times beside their bounds ----------------------------
     for name in STEM:
         ms[name], plain_ms[name], library_ms[name] = stem_ms[name]
         bounds[name] = stem_bound[name]

@@ -67,8 +67,8 @@ def _mutant(plain, changes):
     return kernel
 
 
-def _record(dtype, train):
-    model = build_model(load_config(dict(TINY, FP16=dtype == "bfloat16")),
+def _record(dtype, train, over=TINY):
+    model = build_model(load_config(dict(over, FP16=dtype == "bfloat16")),
                         device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     x = np.random.default_rng(0).standard_normal((2, 12, 18, 12, 1))
@@ -325,9 +325,13 @@ def test_bounds_follow_the_shapes():
 
 
 def test_swin_bounds_cover_every_recorded_call(calls):
+    """Every Swin kernel's bound from the calls of its own path: K1/K2/K3
+    and the copy probe from the LayerNorm model's, K4 from the DynamicTanh
+    model's."""
     dtype = str(calls[0][1][0].dtype).removeprefix("torch.")
+    calls = calls + _record(dtype, False, DYT_TINY)
     names = [n for n in chip_smoke.KERNELS if n not in chip_smoke.STEM]
-    for name in names + ["attention", "attention_bwd", "copy"]:
+    for name in names + ["copy"]:
         ms, by = chip_smoke.bound_ms(name, calls, dtype)
         assert ms > 0 and by in ("bytes", "operations"), name
     # a backward does more work than its forward; the copy probe only moves
@@ -335,6 +339,29 @@ def test_swin_bounds_cover_every_recorded_call(calls):
         assert (chip_smoke.bound_ms(fwd + "_bwd", calls, dtype)[0]
                 > chip_smoke.bound_ms(fwd, calls, dtype)[0])
     assert chip_smoke.bound_ms("copy", calls, dtype)[1] == "bytes"
+
+
+def test_k4_bounds_follow_the_shapes():
+    """K4f at Swin-T stage 1, micro 8 (qkv [1728, 252, 288] bf16, bias [3,
+    252, 252], ids [216, 252]): 4 * 1728 * 252^2 * 96 FLOP (0.043 ms at 989
+    TFLOP/s) against qkv, bias and ids read and out written (0.100 ms at
+    3.35 TB/s): bound by bytes; K4b does 10 / 4 of the FLOP and moves
+    qkv, bias twice, dout once."""
+    qkv = _meta(1728, 252, 288)
+    bias = _meta(3, 252, 252, dtype=torch.float32)
+    ids = _meta(216, 252, dtype=torch.int32)
+    calls = [("attention", (qkv, bias, ids, 32 ** -0.5, 3))]
+    work = 1728 * 252 * 252 * 96
+    out = 1728 * 252 * 96 * 2
+    qkv_b, bias_b, ids_b = 3 * out, 3 * 252 * 252 * 4, 216 * 252 * 4
+    assert chip_smoke.call_work("attention", calls[0][1]) == (
+        4 * work, qkv_b + bias_b + ids_b + out)
+    assert chip_smoke.call_work("attention_bwd", calls[0][1]) == (
+        10 * work, 2 * (qkv_b + bias_b) + ids_b + out)
+    ms, by = chip_smoke.bound_ms("attention", calls)
+    assert by == "bytes" and ms == pytest.approx(
+        (qkv_b + bias_b + ids_b + out) / 3.35e12 * 1e3)
+    assert chip_smoke.bound_ms("attention_bwd", calls)[0] > ms
 
 
 RESNET_TINY = dict(RESNET_VARIANT="resnet10", IMG_SIZE=[16, 18, 16],
@@ -432,18 +459,226 @@ def test_a_mutated_stem_source_makes_chip_smoke_fail(mutant, tmp_path):
     """chip_smoke.py run from a copy of the port (the script and its
     package) whose stem kernel has one line mutated exits 1, failing the K5
     parity."""
+    res = _run_mutated_chip_smoke(STEM_SOURCE, *SOURCE_MUTANTS[mutant],
+                                  tmp_path)
+    assert res.returncode == 1
+    assert "stem kernels disagree with their plain versions" in res.stderr
+
+
+def _run_mutated_chip_smoke(source, line, new, tmp_path):
+    """Run chip_smoke.py from a copy of the script and the port package
+    whose ``source`` has ``line`` replaced by ``new``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    line, new = SOURCE_MUTANTS[mutant]
     copy = tmp_path / "checkout"
     copy.mkdir()
     shutil.copy(ROOT / "chip_smoke.py", copy)
     shutil.copytree(ROOT / "vsn_tpu_torch", copy / "vsn_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    src = copy / STEM_SOURCE.relative_to(ROOT)
+    src = copy / source.relative_to(ROOT)
     src.write_text(src.read_text().replace(line, new))
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=copy,
                          capture_output=True, text=True, timeout=900)
     print(res.stdout[-3000:], res.stderr[-3000:])
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The unfused-block slice: K4 parity, its mutants, the DynamicTanh phases
+# ---------------------------------------------------------------------------
+
+DYT_TINY = dict(TINY, NORM_LAYER="DynamicTanh", DROPOUT=0.2)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def k4_calls(request):
+    """The K4 calls of a tiny DynamicTanh Swin's eval forward."""
+    return _record(request.param, False, DYT_TINY)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def k4_train_calls(request):
+    """The K4 calls of its training forward (dropout and ShakeDrop draws)."""
+    return _record(request.param, True, DYT_TINY)
+
+
+def test_k4_plain_versions_pass_and_every_case_is_covered(k4_calls,
+                                                          k4_train_calls):
+    table = chip_smoke.attention_table()
+    gen = torch.Generator().manual_seed(3)
+    for calls in (k4_calls, k4_train_calls):
+        assert {name for name, _ in calls} == {"attention"}
+        assert len(calls) == 6   # one per block: every block is unfused
+        worst, kinds = chip_smoke.parity_phase({"tiny": calls}, table, gen)
+        bworst, bkinds = chip_smoke.grad_parity_phase({"tiny": calls}, table,
+                                                      gen)
+        assert worst == {"attention": 0.0}
+        assert bworst == {"attention_bwd": 0.0}
+        cases = {"shifted ids", "padded ids", "no mask"}
+        assert cases <= kinds["tiny"]["attention"]
+        assert cases <= bkinds["tiny"]["attention_bwd"]
+    chip_smoke.saturation_phase(k4_calls, table, gen, "attention")
+
+
+def _ids_row_bw(a):
+    """Window bw reads ids row bw (the last row past the end), not bw % W."""
+    ids, bw = a[2], a[0].shape[0]
+    return ids[torch.arange(bw).clamp(max=ids.shape[0] - 1)]
+
+
+K4_MUTANTS = {  # name -> [(argument index, new value from args)]
+    "ids row bw instead of bw % W": [(2, _ids_row_bw)],
+    "head 0's bias for every head": [
+        (1, lambda a: a[1][:1].expand_as(a[1]).contiguous())],
+}
+
+
+@pytest.mark.parametrize("mutant", sorted(K4_MUTANTS))
+def test_a_k4_with_a_wrong_index_fails(k4_calls, mutant):
+    table = chip_smoke.attention_table()
+    table["attention"] = (_mutant(table["attention"][1], K4_MUTANTS[mutant]),
+                          table["attention"][1])
+    with pytest.raises(AssertionError, match="attention"):
+        chip_smoke.parity_phase({"tiny": k4_calls}, table,
+                                torch.Generator().manual_seed(3))
+
+
+class _GradSliceScale(torch.autograd.Function):
+    """Identity forward; the backward scales channels [lo, hi) of the last
+    axis of the gradient by ``k``."""
+
+    @staticmethod
+    def forward(ctx, t, lo, hi, k):
+        ctx.span = lo, hi, k
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi, k = ctx.span
+        g = g.clone()
+        g[..., lo:hi] *= k
+        return g, None, None, None
+
+
+def _dk_without_scale(plain):
+    def kernel(qkv, bias, ids, scale, heads):
+        c = qkv.shape[-1] // 3
+        return plain(_GradSliceScale.apply(qkv, c, 2 * c, 1 / scale), bias,
+                     ids, scale, heads)
+    return kernel
+
+
+class _DbiasFromOneWindow(torch.autograd.Function):
+    """K4 whose dbias is window 0's alone, not the sum over every window."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, ids, scale, heads):
+        from vsn_tpu_torch.ops import window_attention as wa
+
+        ctx.save_for_backward(qkv, bias, ids)
+        ctx.static = scale, heads
+        return wa.window_attention_qkv_math(qkv, bias, ids, scale, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        from vsn_tpu_torch.ops import window_attention as wa
+
+        qkv, bias, ids = ctx.saved_tensors
+        dqkv, _ = wa.window_attention_qkv_backward_reference(
+            qkv, bias, ids, g, *ctx.static)
+        _, dbias = wa.window_attention_qkv_backward_reference(
+            qkv[:1], bias, ids[:1], g[:1], *ctx.static)
+        return dqkv, dbias, None, None, None
+
+
+K4_BACKWARD_MUTANTS = {  # name -> mutant of the plain version
+    "dk without scale": _dk_without_scale,
+    "dbias from one window": lambda plain: _DbiasFromOneWindow.apply,
+}
+
+
+@pytest.mark.parametrize("mutant", sorted(K4_BACKWARD_MUTANTS))
+def test_a_k4_backward_missing_a_term_fails(k4_train_calls, mutant):
+    table = chip_smoke.attention_table()
+    plain = table["attention"][1]
+    table["attention"] = (K4_BACKWARD_MUTANTS[mutant](plain), plain)
+    # the forward is the plain one: only the backward phase can catch it
+    chip_smoke.parity_phase({"tiny": k4_train_calls}, table,
+                            torch.Generator().manual_seed(3))
+    with pytest.raises(AssertionError, match="attention_bwd"):
+        chip_smoke.grad_parity_phase({"tiny": k4_train_calls}, table,
+                                     torch.Generator().manual_seed(3))
+
+
+def test_dyt_training_phase_rehearsal_on_cpu():
+    """The DynamicTanh + DROPOUT training phase's pieces at a tiny size:
+    keep masks among the draws, drawn alike at every call; every parameter,
+    each DyT alpha included, reached; the plain route equal to the kernel
+    route (both are the plain versions here)."""
+    cfg = load_config(dict(DYT_TINY, FP16=True, USE_SAM=True, USE_EMA=True,
+                           USE_MIXUP=True, LABEL_SMOOTHING=0.1, SEED=0,
+                           BATCH_SIZE=2, EFFECTIVE_BATCH_SIZE=4,
+                           LR_WARMUP=0, WD_WARMUP=0, STEPS=10))
+    model = build_model(cfg, device="cpu")
+    init_weights(model, torch.Generator().manual_seed(0))
+    assert not model.train().fused()
+    state = init_train_state(cfg, model)
+    alphas = [n for n in state.params.names if n.endswith(".alpha")]
+    assert len(alphas) == 2 * 6 + 2 + 1 + 1   # blocks, mergings, embed, final
+    initial = state.params.flat.clone()
+    batch = chip_smoke.train_batch(cfg, torch.device("cpu"), 5)
+    draws = chip_smoke.Draws(model, 2, torch.device("cpu"), 0)
+    masks, again = ([d for d in draws(0, 1, 1) if isinstance(d, torch.Tensor)]
+                    for _ in range(2))
+    assert len(masks) == 1 + 3 * 6 and all(m.dtype == torch.bool
+                                           for m in masks)
+    assert all(torch.equal(a, b) for a, b in zip(masks, again))
+    chip_smoke.reach_every_parameter(model, cfg, state, batch, draws, "tiny")
+    sync = lambda: None
+    kernel, _ = chip_smoke.train_route(model, cfg, state, batch, draws, 2,
+                                       sync)
+    assert not torch.equal(state.params.flat, initial)
+    with torch.no_grad():
+        state.params.flat.copy_(initial)
+    pstate = init_train_state(cfg, model)
+    with chip_smoke.patched_model_ops(lambda name, kernel, plain: plain):
+        plain, _ = chip_smoke.train_route(model, cfg, pstate, batch, draws, 2,
+                                          sync)
+    assert chip_smoke.check_train_metrics(kernel, plain) == {
+        "loss": 0.0, "grad_norm": 0.0}
+
+
+# One-line edits of csrc/window_attention_qkv.cu that chip_smoke.py must
+# reject on the card (exit 1, in its K4 parity phase): name -> (line, mutant)
+K4_SOURCE = ROOT / "vsn_tpu_torch" / "csrc" / "window_attention_qkv.cu"
+K4_SOURCE_MUTANTS = {
+    "ids row (bw + 1) % W (K4f and K4b)": (
+        "const int* row = p.ids + (bw % p.ids_rows) * p.n;",
+        "const int* row = p.ids + ((bw + 1) % p.ids_rows) * p.n;"),
+    "head 0's bias for every head (K4f)": (
+        "const float* bias_h = p.bias + (long long)h * n * n;",
+        "const float* bias_h = p.bias;"),
+    "dk without scale (K4b)": (
+        "p.dk[in0 + j * p.in.row + lane] = from_f32<T>(ak * p.scale);",
+        "p.dk[in0 + j * p.in.row + lane] = from_f32<T>(ak);"),
+    "dbias from one window (K4b)": (
+        "atomicAdd(&dbias_h[(long long)i * n + j], ds);",
+        "if (bw == 0) atomicAdd(&dbias_h[(long long)i * n + j], ds);"),
+}
+
+
+@pytest.mark.parametrize("mutant", sorted(K4_SOURCE_MUTANTS))
+def test_k4_source_mutants_name_one_line_of_the_source(mutant):
+    line, new = K4_SOURCE_MUTANTS[mutant]
+    assert K4_SOURCE.read_text().count(line) == 1 and new != line
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant", sorted(K4_SOURCE_MUTANTS))
+def test_a_mutated_k4_source_makes_chip_smoke_fail(mutant, tmp_path):
+    """chip_smoke.py run from a copy whose K4 source has one line mutated
+    exits 1, failing the K4 parity (forward or backward)."""
+    res = _run_mutated_chip_smoke(K4_SOURCE, *K4_SOURCE_MUTANTS[mutant],
+                                  tmp_path)
     assert res.returncode == 1
-    assert "stem kernels disagree with their plain versions" in res.stderr
+    assert "kernels disagree with their plain versions: DyT" in res.stderr

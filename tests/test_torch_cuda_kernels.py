@@ -10,10 +10,11 @@ Tolerances, as chip_smoke.py holds them: f32 kernels against f32 plain
 versions with TF32 off differ only in the order of sums, 1e-4 of the
 output scale; bf16 outputs may differ by one bf16 rounding step of the
 output (2^-8 relative), 2e-2 of the scale; the movers are bit-exact. The
-backward kernels (K1b, K2b) are held to the plain backward with the same
-tolerances, each gradient relative to its own scale: their parameter
-gradients are sums over every row, reduced with f32 atomics in an order
-that varies from run to run. The movers' adjoints are bit-exact.
+backward kernels (K1b, K2b, K4b) are held to the plain backward with the
+same tolerances, each gradient relative to its own scale: their parameter
+gradients (K4b's dbias) are sums over every row or window, reduced with
+f32 atomics in an order that varies from run to run. The movers' adjoints
+are bit-exact.
 """
 
 import numpy as np
@@ -26,6 +27,7 @@ from vsn_tpu_torch.models.swin3d import (
 )
 from vsn_tpu_torch.ops import _build
 from vsn_tpu_torch.ops import swin_block_kernels as sbk
+from vsn_tpu_torch.ops import window_attention as wa
 from vsn_tpu_torch.ops import window_relayout as wr
 
 pytestmark = pytest.mark.cuda
@@ -313,3 +315,65 @@ def test_stem_autograd_launches_k5f_and_k5w(dev):
     stem.stem_conv_im2col(xg, kernel.detach(), (1, 2, 2), (3, 3, 3),
                           torch.bfloat16).float().sum().backward()
     assert xg.grad is not None and xg.grad.shape == xg.shape
+
+
+def _k4_args(dev, dims, window, shift, heads, c, ids_kind, dtype, seed=0):
+    """(qkv, bias, ids, scale, heads) of one K4 call at B = 2: unit-normal
+    qkv (O(1) logits at a head dim of 32), an O(1) bias, and the stage's
+    region ids (one row of zeros when unshifted and unpadded)."""
+    g = torch.Generator().manual_seed(seed)
+    args = _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype,
+                      seed)
+    n = args[0].shape[1]
+    ids = args[6]
+    if ids is None:
+        ids = torch.zeros((1, n), dtype=torch.int32, device=dev)
+    qkv = torch.randn(args[0].shape[0], n, 3 * c, generator=g).to(dev, dtype)
+    return qkv, args[5], ids, (c // heads) ** -0.5, heads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", ATTN_SHAPES)
+def test_window_attention_qkv_matches_plain(dev, dtype, dims, window, shift,
+                                            heads, c, ids_kind):
+    """K4f against the plain forward, and K4b's dqkv and dbias against the
+    plain backward, at the Swin-T stage kinds (shifted, unshifted, padded
+    with -1 pad ids, clamped N = 150) and a head dim of 8."""
+    args = _k4_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
+    before = dict(_build.launches)
+    _close(wa.window_attention_qkv(*args),
+           wa.window_attention_qkv_reference(*args), dtype)
+    dout = torch.randn(args[0].shape[:2] + (c,),
+                       generator=torch.Generator().manual_seed(4)).to(dev, dtype)
+    got = _grads(wa.window_attention_qkv, args, dout, (0, 1))
+    torch.cuda.synchronize()
+    for name in ("attention", "attention_bwd"):
+        want = before.get(name, 0) + (2 if name == "attention" else 1)
+        assert _build.launches[name] == want, name
+    _close_grads(got, _grads(wa.window_attention_qkv_reference, args, dout,
+                             (0, 1)), dtype)
+
+
+@pytest.mark.parametrize("logit", [45.0, 200.0])
+def test_window_attention_qkv_at_saturated_logits(dev, logit):
+    args = list(_k4_args(dev, (12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96,
+                         "shifted", torch.float32))
+    args[1] = args[1] * 8 + logit
+    _close(wa.window_attention_qkv(*args),
+           wa.window_attention_qkv_reference(*args), torch.float32)
+    dout = torch.randn(args[0].shape[:2] + (96,), device=dev)
+    got = _grads(wa.window_attention_qkv, args, dout, (0, 1))
+    assert all(torch.isfinite(g).all() for g in got)
+    _close_grads(got, _grads(wa.window_attention_qkv_reference, args, dout,
+                             (0, 1)), torch.float32)
+
+
+def test_window_attention_qkv_rejects_what_the_kernels_do_not_take(dev):
+    args = list(_k4_args(dev, (4, 6, 4), (2, 3, 2), (1, 1, 1), 2, 16,
+                         "shifted", torch.float32))
+    for i, bad in ((0, args[0].half()), (1, args[1].cpu()),
+                   (2, args[2][:3].contiguous()), (2, args[2].long())):
+        new = list(args)
+        new[i] = bad
+        with pytest.raises((TypeError, ValueError)):
+            wa.window_attention_qkv(*new)

@@ -11,6 +11,7 @@ import torch
 from vsn_tpu_torch.ops import _build
 from vsn_tpu_torch.ops import stem_im2col as stem
 from vsn_tpu_torch.ops import swin_block_kernels as sbk
+from vsn_tpu_torch.ops import window_attention as wa
 from vsn_tpu_torch.ops import window_relayout as wr
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -35,7 +36,7 @@ def test_port_imports_no_jax_flax_or_triton():
     assert len(modules) >= 25
     for name in ("train.losses", "train.schedules", "train.optim",
                  "train.ema", "train.step", "data.mixers", "ops.stem_im2col",
-                 "ops.conv_unfold", "models.resnet3d"):
+                 "ops.conv_unfold", "models.resnet3d", "ops.window_attention"):
         assert f"vsn_tpu_torch.{name}" in modules
 
 
@@ -74,6 +75,13 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     y.sum().backward()
     assert torch.equal(stem.stem_conv_dw(xs, torch.ones_like(y), (7, 7, 7),
                                          (1, 2, 2), (3, 3, 3)), kern.grad)
+    qkv = torch.randn(4, 6, 24, requires_grad=True)
+    k4 = (qkv, torch.randn(2, 6, 6), torch.zeros(2, 6, dtype=torch.int32), 0.5,
+          2)
+    out = wa.window_attention_qkv(*k4)
+    assert torch.equal(out, wa.window_attention_qkv_reference(*k4))
+    out.sum().backward()
+    assert qkv.grad is not None
     assert sum(_build.launches.values()) == 0
 
 
@@ -82,5 +90,6 @@ def test_library_is_named_by_its_sources_and_builds_under_build():
     assert so.parent == ROOT / "build"
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert names == {"attn_half.cu", "attn_half_bwd.cu", "ln_mlp.cu",
-                     "ln_mlp_bwd.cu", "stem_im2col.cu", "window_relayout.cu"}
+                     "ln_mlp_bwd.cu", "stem_im2col.cu", "window_relayout.cu",
+                     "window_attention_qkv.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

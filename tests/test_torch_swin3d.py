@@ -124,23 +124,26 @@ def test_converter_maps_every_leaf_and_key(jax_variables):
 
 
 def test_training_forward_and_unported_options_raise():
-    """Training runs the kernels' VJPs; training with dropout (the K4
-    path) and the unported options raise."""
+    """Training runs the kernels' VJPs, with dropout the unfused blocks'
+    (K4); training with attention dropout (the JAX XLA attention, no
+    kernel) and the unported options raise."""
     x = torch.zeros(1, 12, 18, 12, 1)
     model = build_model(load_config(TINY), device="cpu").train()
     model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
     with pytest.raises(ValueError):
         model(x)   # stochastic depth draws need a generator or draws
-    for key in ("DROPOUT", "ATTENTION_DROPOUT"):
-        model = build_model(load_config(dict(TINY, **{key: 0.1})),
-                            device="cpu").train()
-        with pytest.raises(NotImplementedError):
-            model(x, generator=torch.Generator())
+    model = build_model(load_config(dict(TINY, DROPOUT=0.1)),
+                        device="cpu").train()
+    model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
+    model = build_model(load_config(dict(TINY, ATTENTION_DROPOUT=0.1)),
+                        device="cpu").train()
+    with pytest.raises(NotImplementedError):
+        model(x, generator=torch.Generator())
     for key in ("POST_NORM", "LAYER_SCALE", "ENABLE_STABLE"):
         with pytest.raises(NotImplementedError):
             build_model(load_config(dict(TINY, **{key: True})), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(load_config(dict(TINY, NORM_LAYER="RMSNorm")),
+    with pytest.raises(ValueError):
+        build_model(load_config(dict(TINY, NORM_LAYER="GroupNorm")),
                     device="cpu")
     with pytest.raises(NotImplementedError):
         build_model(load_config(dict(TINY, ARCHITECTURE="ViT")), device="cpu")

@@ -6,7 +6,9 @@ Config: f32 (FP16 off), SAM + EMA + MixUp + label smoothing + global-norm
 clipping, two micro-batches per step, no stochastic depth (so no random
 draws: JAX's threefry streams cannot be reproduced) and no warmup (the
 first step moves the parameters). The model has the three stage kinds of
-tests/test_torch_swin3d.py: divisible and shifted, padded, clamped.
+tests/test_torch_swin3d.py: divisible and shifted, padded, clamped. It
+runs with LayerNorm (the fused blocks, K1/K2) and with DynamicTanh (the
+unfused blocks, K4), the ``runs`` fixture's two parameters.
 
 On the CPU the JAX model takes its unfused XLA path (mask -100, plain
 rowmax softmax) and the port the plain versions of its kernels; the
@@ -50,9 +52,10 @@ OVER = dict(IMG_SIZE=[12, 18, 12], PATCH_SHAPE=[2, 2, 2],
             LR_BASE=3e-3, SEED=0)
 STEPS = 2
 TOL = 1e-4
-# peaked attention and O(1) logits, as tests/test_torch_swin3d.py scales them
+# peaked attention and O(1) logits, as tests/test_torch_swin3d.py scales them;
+# DynamicTanh's alpha from 0.5 to 1.5, so its tanh is not near-linear
 WEIGHT_SCALE = {"qkv": 8.0, "relative_position_bias_table": 50.0,
-                "head": 50.0}
+                "head": 50.0, "alpha": 3.0}
 
 
 def _scale(path, leaf):
@@ -79,9 +82,10 @@ def _batch():
     }
 
 
-@pytest.fixture(scope="module")
-def runs():
-    jcfg = jax_load_config(extra_overrides=OVER)
+@pytest.fixture(scope="module", params=["nn.LayerNorm", "DynamicTanh"])
+def runs(request):
+    over = dict(OVER, NORM_LAYER=request.param)
+    jcfg = jax_load_config(extra_overrides=over)
     jmodel = jax_build_model(jcfg)
     x0 = np.zeros((1, 12, 18, 12, 1), np.float32)
     variables = jax.jit(lambda k, x: jmodel.init(k, x, True))(
@@ -112,7 +116,7 @@ def runs():
         jmetrics.append({k: float(v) for k, v in m.items()})
 
     # the port
-    cfg = load_config(OVER)
+    cfg = load_config(over)
     model = build_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     tstate = init_train_state(cfg, model)

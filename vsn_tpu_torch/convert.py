@@ -3,8 +3,9 @@
 ``state_dict_from_jax`` is the inverse of scripts/golden_parity.py
 ``port_swin`` and ``port_resnet``, with the same transposes: a Dense kernel
 [in, out] becomes a Linear weight [out, in]; a Conv kernel [kd, kh, kw, I, O]
-becomes a Conv3d weight [O, I, kd, kh, kw]; LayerNorm and BatchNorm
-scale/bias become weight/bias; BatchNorm ``batch_stats`` mean/var become the
+becomes a Conv3d weight [O, I, kd, kh, kw]; LayerNorm, RMSNorm and
+BatchNorm scale/bias become weight/bias; DynamicTanh keeps alpha (0-d),
+gamma and beta; BatchNorm ``batch_stats`` mean/var become the
 running_mean/running_var buffers. Every leaf must match a rule (KeyError
 otherwise); load the result with ``load_state_dict(strict=True)`` so that
 any model key left without a leaf errors too. The maps are linear, so they
@@ -42,10 +43,12 @@ _INVERSE = {_same: _same, _dense: _dense, _conv: _conv_inverse}
 # The last group of a rule's pattern names the leaf; {leaf} in the torch key
 # is its torch name.
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-         "var": "running_var"}
+         "var": "running_var", "alpha": "alpha", "gamma": "gamma",
+         "beta": "beta"}
 _LEAF_INVERSE = {v: k for k, v in _LEAF.items()}
 
 _SWIN = "backbone.layers.{0}.blocks.{1}"
+_NORM = "(scale|bias|alpha|gamma|beta)"  # LayerNorm, RMSNorm, DynamicTanh
 _RES = "resnet.layer{0}.{1}"
 
 # (collection, regex over the '/'-joined path, torch key template,
@@ -55,9 +58,9 @@ _RULES = (
     ("params", r"patch_embed/kernel", "backbone.patch_embed.proj.weight",
      _conv),
     ("params", r"patch_embed/bias", "backbone.patch_embed.proj.bias", _same),
-    ("params", r"patch_embed_norm/(scale|bias)",
+    ("params", r"patch_embed_norm/" + _NORM,
      "backbone.patch_embed.norm.{leaf}", _same),
-    ("params", r"layer(\d+)/block(\d+)/(norm1|norm2)/(scale|bias)",
+    ("params", r"layer(\d+)/block(\d+)/(norm1|norm2)/" + _NORM,
      _SWIN + ".{2}.{leaf}", _same),
     ("params", r"layer(\d+)/block(\d+)/attn/(qkv|proj)/kernel",
      _SWIN + ".attn.{2}.weight", _dense),
@@ -73,11 +76,11 @@ _RULES = (
      _dense),
     ("params", r"layer(\d+)/block(\d+)/mlp/fc2/bias", _SWIN + ".mlp.3.bias",
      _same),
-    ("params", r"layer(\d+)/downsample/norm/(scale|bias)",
+    ("params", r"layer(\d+)/downsample/norm/" + _NORM,
      "backbone.layers.{0}.downsample.norm.{leaf}", _same),
     ("params", r"layer(\d+)/downsample/reduction/kernel",
      "backbone.layers.{0}.downsample.reduction.weight", _dense),
-    ("params", r"norm/(scale|bias)", "backbone.norm.{leaf}", _same),
+    ("params", r"norm/" + _NORM, "backbone.norm.{leaf}", _same),
     ("params", r"head/kernel", "head.weight", _dense),
     ("params", r"head/bias", "head.bias", _same),
     # ResNet-3D

@@ -1,7 +1,9 @@
 """Shared building blocks (port of vsn_tpu/models/layers.py).
 
-LayerNorm with f32 statistics, the residual branch gains (eval, and the
-training draws of DropPath and ShakeDrop), the gated residual and the MLP.
+The norms (LayerNorm, RMSNorm, DynamicTanh, all with f32 statistics), the
+residual branch gains (eval, and the training draws of DropPath and
+ShakeDrop), the gated residual, dropout on an explicit keep mask and the
+MLP.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ import torch.nn.functional as F
 from torch import nn
 
 LN_NAMES = (None, False, "nn.LayerNorm", "LayerNorm")
-NORMS_NOT_PORTED = ("RMSNorm", "DynamicTanh")
 
 
 class LayerNorm(nn.LayerNorm):
@@ -29,14 +30,46 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+class RMSNorm(nn.Module):
+    """Root-mean-square norm (layers.py:27-40): x * rsqrt(mean(x^2) + 1e-6)
+    in f32, times ``weight`` (the JAX ``scale``), cast to x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        x32 = x.float()
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+        return (x32 * torch.rsqrt(var + self.eps) * self.weight).to(x.dtype)
+
+
+class DynamicTanh(nn.Module):
+    """DyT(x) = gamma * tanh(alpha * x) + beta (layers.py:43-60), the
+    normalization-free option of NORM_LAYER: tanh in f32, cast to x's
+    dtype; ``alpha`` is one scalar (a 0-d parameter) initialized to 0.5."""
+
+    def __init__(self, dim: int, alpha_init: float = 0.5):
+        super().__init__()
+        self.alpha_init = alpha_init
+        self.alpha = nn.Parameter(torch.tensor(alpha_init))
+        self.gamma = nn.Parameter(torch.ones(dim))
+        self.beta = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        y = torch.tanh(self.alpha * x.float())
+        return (self.gamma * y + self.beta).to(x.dtype)
+
+
 def make_norm(norm_name, dim: int) -> nn.Module:
     """Map the NORM_LAYER config string to a norm module."""
     if norm_name in LN_NAMES:
         return LayerNorm(dim)
-    if norm_name in NORMS_NOT_PORTED:
-        raise NotImplementedError(
-            f"NORM_LAYER={norm_name!r} is not ported yet (ROADMAP: non-LN "
-            "norms)")
+    if norm_name == "RMSNorm":
+        return RMSNorm(dim)
+    if norm_name == "DynamicTanh":
+        return DynamicTanh(dim)
     raise ValueError(f"Unknown NORM_LAYER: {norm_name!r}")
 
 
@@ -112,14 +145,51 @@ def gated_residual(x, branch, gf, gb, lam: float = 1.0):
     return _GatedResidual.apply(x, branch, gf, gb, lam)
 
 
+def dropout_mask(shape, rate: float, generator: torch.Generator, device):
+    """A keep mask (bool) of ``shape``: each element kept with p = 1 - rate,
+    drawn from ``generator`` on ``device``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def dropout(x, rate: float, mask):
+    """flax nn.Dropout on an explicit keep mask: where(mask, x / (1 - rate),
+    0) in x's dtype (layers.py:302, 306). ``mask`` None is the identity
+    (eval, or rate 0)."""
+    if mask is None:
+        return x
+    return torch.where(mask, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """``dropout`` as a module: the mask is passed in with x, never drawn
+    from torch's global generator."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, mask=None):
+        return dropout(x, self.rate, mask)
+
+
 class Mlp(nn.Sequential):
-    """Linear -> exact-erf GELU -> Dropout -> Linear -> Dropout; children
-    0 and 3 are the reference state_dict's ``mlp.0`` / ``mlp.3``."""
+    """Linear -> exact-erf GELU -> Dropout -> Linear -> Dropout
+    (layers.py:282-307); children 0 and 3 are the reference state_dict's
+    ``mlp.0`` / ``mlp.3``. The products run in x's dtype; ``masks`` are the
+    two dropouts' keep masks (None: no dropout)."""
 
     def __init__(self, dim: int, hidden: int, dropout: float = 0.0):
-        super().__init__(nn.Linear(dim, hidden), nn.GELU(),
-                         nn.Dropout(dropout), nn.Linear(hidden, dim),
-                         nn.Dropout(dropout))
+        super().__init__(nn.Linear(dim, hidden), nn.GELU(), Dropout(dropout),
+                         nn.Linear(hidden, dim), Dropout(dropout))
+
+    def forward(self, x, masks=(None, None)):
+        fc1, act, drop1, fc2, drop2 = self
+        dt = x.dtype
+        x = drop1(act(F.linear(x, fc1.weight.to(dt), fc1.bias.to(dt))),
+                  masks[0])
+        return drop2(F.linear(x, fc2.weight.to(dt), fc2.bias.to(dt)),
+                     masks[1])
 
 
 def stochastic_depth_rates(total_rate: float,

@@ -1,36 +1,48 @@
 """3D Swin Transformer (port of vsn_tpu/models/swin3d.py).
 
 Channels-last [B, D, H, W, C] end to end, as the JAX package. Every block
-runs the two hand-written block kernels (``ops/swin_block_kernels.py``):
-K1 ``attn_half`` (LN1 + qkv + window attention + proj + residual) and K2
-``ln_mlp`` (LN2 + MLP + residual), the forward of the TPU's fused path
-(vsn_tpu/models/swin3d.py SwinBlock3D._fused_call).
+takes one of the JAX package's two block paths, chosen per forward by
+``fused_block_gate`` (the card's version of the JAX gate):
 
-Stages whose token grid divides by the window keep a window-resident
-residual stream, as BasicLayer3D does on the TPU: partition once at entry,
-one window-to-window permutation per shifted junction, reverse once at exit,
-all through the K3 movers (``ops/window_relayout.py``) exactly where the JAX
-package calls its movers. A stage whose grid does not divide (Swin-T stage
-3) is zero-padded to window multiples, with the pad tokens masked out of
+* fused, with LayerNorm in eval, and in training without dropout: the two
+  hand-written block kernels (``ops/swin_block_kernels.py``) K1
+  ``attn_half`` (LN1 + qkv + window attention + proj + residual) and K2
+  ``ln_mlp`` (LN2 + MLP + residual), the TPU's fused path
+  (vsn_tpu/models/swin3d.py SwinBlock3D._fused_call). Stages whose token
+  grid divides by the window keep a window-resident residual stream, as
+  BasicLayer3D does on the TPU: partition once at entry, one
+  window-to-window permutation per shifted junction, reverse once at exit,
+  all through the K3 movers (``ops/window_relayout.py``);
+* unfused, with a RMSNorm or DynamicTanh NORM_LAYER, or in training with
+  DROPOUT > 0: norm1 -> roll -> window partition -> qkv Linear -> K4
+  ``window_attention_qkv`` (``ops/window_attention.py``) -> proj ->
+  dropout -> window reverse -> unroll -> gated residual -> norm2 -> Mlp
+  (dropout after GELU and after fc2) -> gated residual
+  (vsn_tpu/models/swin3d.py:788-849). Roll, partition and reverse are
+  plain PyTorch here, as they are plain XLA there.
+
+A stage whose grid does not divide by the window (Swin-T stage 3) is
+zero-padded to window multiples, with the pad tokens masked out of
 attention in every block through ``padded_window_region_ids`` (DEVIATIONS
 #1); the TPU's packed layout of such stages is a later optional layout.
 
 Parameters carry the reference state_dict's names (``backbone.layers.{i}.
 blocks.{j}.attn.qkv``, ``.mlp.0``, ``.mlp.3``, ...; ``convert.py`` maps a
-JAX parameter tree onto them). They stay f32; with FP16 the activations are
-bf16 (``dtype``).
+JAX parameter tree onto them); both block paths hold the same ones. They
+stay f32; with FP16 the activations are bf16 (``dtype``).
 
-The training forward (``model.train()``) runs the same kernels, which
-carry their own VJPs (K1b, K2b, the movers' adjoints); the residual gains
-of every block are drawn from a ``torch.Generator`` passed in, or injected
-(ShakeDrop / DropPath, vsn_tpu/models/swin3d.py:864-891). Everything else
-on the path (patch embed, patch merging, the padded stage's pad and slice,
-the bias-table gather, final norm, pool, head) is plain PyTorch, which
+The training forward (``model.train()``) runs the same kernels, which carry
+their own VJPs (K1b, K2b, K4b, the movers' adjoints). Its random draws, the
+residual gains of every block (ShakeDrop / DropPath) and the dropout keep
+masks, come from a ``torch.Generator`` passed in, or are injected
+(``SwinTransformer3D.draw``). Everything else on the path (patch embed,
+norms, Linears of the unfused block, patch merging, the padded stage's pad
+and slice, the bias-table gather, pool, head) is plain PyTorch, which
 autograd differentiates.
 
-POST_NORM, LAYER_SCALE, ENABLE_STABLE and non-LayerNorm NORM_LAYER raise
-NotImplementedError, and so does training with DROPOUT or
-ATTENTION_DROPOUT > 0 (ROADMAP).
+POST_NORM, LAYER_SCALE and ENABLE_STABLE raise NotImplementedError, and so
+does training with ATTENTION_DROPOUT > 0: it takes the JAX package's XLA
+attention with dropout on the probabilities, which has no kernel (ROADMAP).
 """
 
 from __future__ import annotations
@@ -45,14 +57,19 @@ from torch import nn
 
 from vsn_tpu_torch.models.layers import (
     LN_NAMES,
-    LayerNorm,
+    DynamicTanh,
     Mlp,
+    RMSNorm,
+    dropout,
+    dropout_mask,
+    gated_residual,
     make_norm,
     residual_branch_gains,
     stochastic_depth_rates,
     trunc_normal_,
 )
 from vsn_tpu_torch.ops.swin_block_kernels import attn_half, ln_mlp
+from vsn_tpu_torch.ops.window_attention import window_attention_qkv
 from vsn_tpu_torch.ops.window_relayout import (
     spatial_to_windows,
     windows_to_spatial,
@@ -211,13 +228,31 @@ def expand_bias_table(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-class WindowAttention3D(nn.Module):
-    """Attention parameters of one block: qkv, proj and the relative-position
-    bias table. The block's K1 call computes the attention itself."""
+def fused_block_gate(norm_layer, dropout_rate: float, attention_dropout: float,
+                     training: bool) -> bool:
+    """Whether the blocks run the fused kernels K1/K2 (else the unfused
+    block with K4): LayerNorm, and no dropout unless in eval. The card's
+    version of vsn_tpu/models/swin3d.py fused_block_gate (:726-749), whose
+    VMEM budget and platform clauses are the TPU's."""
+    return norm_layer in LN_NAMES and (
+        not training or (dropout_rate == 0.0 and attention_dropout == 0.0))
 
-    def __init__(self, dim: int, num_heads: int, window, qkv_bias: bool = True):
+
+class WindowAttention3D(nn.Module):
+    """Attention of one block: qkv, proj and the relative-position bias
+    table. On the fused path the block's K1 call reads these parameters;
+    ``forward`` is the unfused path's attention: qkv Linear -> K4 -> proj ->
+    dropout (vsn_tpu/models/swin3d.py:625-723). The TPU gates K4 on a 10 MB
+    VMEM budget for bias and dbias (:656-665); the card runs K4 in every
+    block, whatever the heads and window."""
+
+    def __init__(self, dim: int, num_heads: int, window, qkv_bias: bool = True,
+                 proj_drop: float = 0.0):
         super().__init__()
         table = (2 * window[0] - 1) * (2 * window[1] - 1) * (2 * window[2] - 1)
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.proj_drop = proj_drop
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -231,25 +266,40 @@ class WindowAttention3D(nn.Module):
         return expand_bias_table(self.relative_position_bias_table,
                                  self.relative_position_index)
 
+    def forward(self, windows, ids, mask=None):
+        """windows [BW, N, C] -> [BW, N, C] in their dtype; ``ids`` [W, N]
+        region ids (one row of zeros for no mask), ``mask`` the proj
+        dropout's keep mask."""
+        dt = windows.dtype
+        qkv_b = None if self.qkv.bias is None else self.qkv.bias.to(dt)
+        qkv = F.linear(windows, self.qkv.weight.to(dt), qkv_b)
+        out = window_attention_qkv(qkv, self.bias(), ids, self.scale,
+                                   self.num_heads)
+        out = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt))
+        return dropout(out, self.proj_drop, mask)
+
 
 class SwinBlock3D(nn.Module):
-    """One (shifted-)window block as two kernel calls: K1 on the window
-    tokens, K2 on the flat token rows. ``gains`` is (gf1, gb1, gf2, gb2),
-    the per-sample branch gains of its two residuals (SwinTransformer3D.
+    """One (shifted-)window block. Fused: two kernel calls, K1 on the window
+    tokens and K2 on the flat token rows (``forward``, ``forward_windows``).
+    Unfused: ``forward_unfused``. ``gains`` is (gf1, gb1, gf2, gb2), the
+    per-sample branch gains of its two residuals (SwinTransformer3D.
     residual_gains)."""
 
     def __init__(self, dim: int, num_heads: int, window, shift,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 dropout: float = 0.0, drop_path_rate: float = 0.0):
+                 dropout_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 norm_layer=None):
         super().__init__()
         self.window, self.shift = tuple(window), tuple(shift)
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.drop_path_rate = drop_path_rate
-        self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention3D(dim, num_heads, window, qkv_bias)
-        self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout)
+        self.norm1 = make_norm(norm_layer, dim)
+        self.attn = WindowAttention3D(dim, num_heads, window, qkv_bias,
+                                      dropout_rate)
+        self.norm2 = make_norm(norm_layer, dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout_rate)
 
     def attn_half(self, windows, ids, gf, gb):
         return attn_half(windows, self.norm1.weight, self.norm1.bias,
@@ -283,6 +333,20 @@ class SwinBlock3D(nn.Module):
         x = roll3d(window_reverse(out, self.window, (d, h, w)), self.shift)
         return self.mlp_half(x.reshape(-1, c), gf2, gb2).reshape(b, d, h, w, c)
 
+    def forward_unfused(self, x, ids, gains, masks):
+        """The unfused block on spatial x [B, D, H, W, C] (dims divisible by
+        the window): ``ids`` [W, N] (a row of zeros for no mask), ``masks``
+        the keep masks (proj, fc1, fc2) of its dropouts, or Nones."""
+        b, d, h, w, c = x.shape
+        gf1, gb1, gf2, gb2 = gains
+        proj_mask, fc1_mask, fc2_mask = masks
+        h_in = roll3d(self.norm1(x), tuple(-s for s in self.shift))
+        out = self.attn(window_partition(h_in, self.window), ids, proj_mask)
+        out = roll3d(window_reverse(out, self.window, (d, h, w)), self.shift)
+        x = gated_residual(x, out, gf1, gb1)
+        out = self.mlp(self.norm2(x), (fc1_mask, fc2_mask))
+        return gated_residual(x, out, gf2, gb2)
+
 
 # Reference part order for the 8-neighbour concat: x0..x7 as (dz, dy, dx).
 _MERGE_PARTS = (
@@ -302,11 +366,12 @@ def merge_concat(x: torch.Tensor) -> torch.Tensor:
 
 
 class PatchMerging3D(nn.Module):
-    """Odd-dim zero pad -> 8-neighbour concat -> LN(8C) -> Linear(8C -> 2C)."""
+    """Odd-dim zero pad -> 8-neighbour concat -> norm(8C) -> Linear(8C ->
+    2C)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, norm_layer=None):
         super().__init__()
-        self.norm = LayerNorm(8 * dim)
+        self.norm = make_norm(norm_layer, 8 * dim)
         self.reduction = nn.Linear(8 * dim, 2 * dim, bias=False)
 
     def forward(self, x):
@@ -325,19 +390,25 @@ class BasicLayer3D(nn.Module):
     def __init__(self, dim: int, dims, depth: int, num_heads: int, window,
                  rates: Sequence[float], downsample: bool,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 dropout: float = 0.0):
+                 dropout_rate: float = 0.0, norm_layer=None):
         super().__init__()
+        self.dim, self.hidden = dim, int(dim * mlp_ratio)
         self.dims = tuple(dims)
         self.window, self.shift = clamp_window(
             self.dims, window, tuple(ws // 2 for ws in window))
         self.pad = tuple((ws - d % ws) % ws
                          for d, ws in zip(self.dims, self.window))
+        self.padded_dims = tuple(d + p for d, p in zip(self.dims, self.pad))
+        self.n_tokens = int(np.prod(self.window))
+        self.n_windows = int(np.prod([d // ws for d, ws in
+                                      zip(self.padded_dims, self.window)]))
         self.blocks = nn.ModuleList(
             SwinBlock3D(dim, num_heads, self.window,
                         (0, 0, 0) if i % 2 == 0 else self.shift, mlp_ratio,
-                        qkv_bias, dropout, rates[i])
+                        qkv_bias, dropout_rate, rates[i], norm_layer)
             for i in range(depth))
-        self.downsample = PatchMerging3D(dim) if downsample else None
+        self.downsample = (PatchMerging3D(dim, norm_layer) if downsample
+                           else None)
         shifted = any(self.shift)
         ids_noshift = ids_shift = None
         if any(self.pad):
@@ -350,7 +421,8 @@ class BasicLayer3D(nn.Module):
             ids_shift = shifted_window_region_ids(self.dims, self.window,
                                                   self.shift)
         for name, ids in (("ids_noshift", ids_noshift),
-                          ("ids_shift", ids_shift)):
+                          ("ids_shift", ids_shift),
+                          ("ids_none", np.zeros((1, self.n_tokens), np.int32))):
             self.register_buffer(
                 name, None if ids is None else torch.from_numpy(ids),
                 persistent=False)
@@ -358,19 +430,28 @@ class BasicLayer3D(nn.Module):
     def _ids(self, i):
         return self.ids_noshift if i % 2 == 0 else self.ids_shift
 
-    def forward(self, x, gains):
+    def forward(self, x, gains, masks=None, fused=True):
         """x [B, D, H, W, C]; ``gains`` holds one (gf1, gb1, gf2, gb2) per
-        block."""
+        block, ``masks`` one (proj, fc1, fc2) keep-mask triple per block
+        (unfused path); ``fused`` picks the block path."""
         b, d, h, w, c = x.shape
         if (d, h, w) != self.dims:
             raise ValueError(f"stage built for grid {self.dims}, got {(d, h, w)}")
-        if any(self.pad):
-            x = F.pad(x, (0, 0, 0, self.pad[2], 0, self.pad[1], 0, self.pad[0]))
-            for i, blk in enumerate(self.blocks):
-                x = blk(x, self._ids(i), gains[i])
-            x = x[:, :d, :h, :w, :]
-        else:
+        if fused and not any(self.pad):
             x = self._window_resident(x, gains)
+        else:
+            if any(self.pad):
+                x = F.pad(x, (0, 0, 0, self.pad[2], 0, self.pad[1], 0,
+                              self.pad[0]))
+            for i, blk in enumerate(self.blocks):
+                if fused:
+                    x = blk(x, self._ids(i), gains[i])
+                else:
+                    ids = self._ids(i)
+                    x = blk.forward_unfused(
+                        x, self.ids_none if ids is None else ids, gains[i],
+                        masks[i] if masks else (None, None, None))
+            x = x[:, :d, :h, :w, :]
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -396,16 +477,16 @@ class BasicLayer3D(nn.Module):
 
 
 class PatchEmbed3D(nn.Module):
-    """Conv3d(kernel = stride = patch) plus optional LayerNorm, channels-last.
+    """Conv3d(kernel = stride = patch) plus optional norm, channels-last.
     The convolution is PyTorch's, as the JAX package leaves it to XLA."""
 
     def __init__(self, patch_size, in_channels: int, embed_dim: int,
-                 patch_norm: bool = True):
+                 patch_norm: bool = True, norm_layer=None):
         super().__init__()
         self.patch_size = tuple(patch_size)
         self.proj = nn.Conv3d(in_channels, embed_dim, self.patch_size,
                               self.patch_size)
-        self.norm = LayerNorm(embed_dim) if patch_norm else None
+        self.norm = make_norm(norm_layer, embed_dim) if patch_norm else None
 
     def forward(self, x):
         pad = [(p - s % p) % p for s, p in zip(x.shape[1:4], self.patch_size)]
@@ -428,14 +509,16 @@ def stage_dims(img_size, patch_size, n_stages: int):
 
 
 class SwinBackbone3D(nn.Module):
-    """patch_embed -> stages -> final norm -> mean-pool: [B, C_last]."""
+    """patch_embed -> dropout -> stages -> final norm -> mean-pool:
+    [B, C_last]."""
 
     def __init__(self, img_size, patch_size, in_channels, embed_dim, depths,
-                 num_heads, window_size, mlp_ratio, qkv_bias, dropout,
-                 patch_norm, rates):
+                 num_heads, window_size, mlp_ratio, qkv_bias, dropout_rate,
+                 patch_norm, rates, norm_layer=None):
         super().__init__()
+        self.dropout = dropout_rate
         self.patch_embed = PatchEmbed3D(patch_size, in_channels, embed_dim,
-                                        patch_norm)
+                                        patch_norm, norm_layer)
         n = len(depths)
         grids = stage_dims(img_size, patch_size, n)
         self.layers = nn.ModuleList()
@@ -445,17 +528,21 @@ class SwinBackbone3D(nn.Module):
                 embed_dim * 2 ** i, grids[i], depths[i], num_heads[i],
                 tuple(window_size), rates[off:off + depths[i]],
                 downsample=i < n - 1, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                dropout=dropout))
+                dropout_rate=dropout_rate, norm_layer=norm_layer))
         self.num_features = embed_dim * 2 ** (n - 1)
-        self.norm = LayerNorm(self.num_features)
+        self.norm = make_norm(norm_layer, self.num_features)
 
-    def forward(self, x, gains):
-        """``gains``: one (gf1, gb1, gf2, gb2) per block, in stage order."""
-        x = self.patch_embed(x)
+    def forward(self, x, gains, masks=None, embed_mask=None, fused=True):
+        """``gains``: one (gf1, gb1, gf2, gb2) per block, in stage order;
+        ``masks``: one (proj, fc1, fc2) keep-mask triple per block and
+        ``embed_mask`` the patch-embed dropout's (unfused path)."""
+        x = dropout(self.patch_embed(x), self.dropout, embed_mask)
         off = 0
         for layer in self.layers:
-            x = layer(x, gains[off:off + len(layer.blocks)])
-            off += len(layer.blocks)
+            k = len(layer.blocks)
+            x = layer(x, gains[off:off + k],
+                      masks[off:off + k] if masks else None, fused)
+            off += k
         return self.norm(x).mean(dim=(1, 2, 3))  # AdaptiveAvgPool3d(1)
 
 
@@ -469,63 +556,128 @@ class SwinTransformer3D(nn.Module):
                  dropout: float = 0.0, attention_dropout: float = 0.0,
                  stochastic_depth_prob: float = 0.1,
                  patch_norm: bool = True, use_shakedrop: bool = False,
-                 shakedrop_alpha_range=(-1.0, 1.0),
+                 shakedrop_alpha_range=(-1.0, 1.0), norm_layer=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.dropout, self.attention_dropout = dropout, attention_dropout
+        self.norm_layer = norm_layer
         self.use_shakedrop = use_shakedrop
         self.alpha_range = tuple(shakedrop_alpha_range)
         rates = stochastic_depth_rates(stochastic_depth_prob, depths)
         self.backbone = SwinBackbone3D(
             img_size, patch_size, in_channels, embed_dim, depths, num_heads,
-            window_size, mlp_ratio, qkv_bias, dropout, patch_norm, rates)
+            window_size, mlp_ratio, qkv_bias, dropout, patch_norm, rates,
+            norm_layer)
         self.head = nn.Linear(self.backbone.num_features, num_classes)
 
     def blocks(self):
         return [blk for layer in self.backbone.layers for blk in layer.blocks]
 
+    def fused(self) -> bool:
+        """The block path of a forward in the current mode
+        (``fused_block_gate``)."""
+        return fused_block_gate(self.norm_layer, self.dropout,
+                                self.attention_dropout, self.training)
+
+    def draw_plan(self, b: int):
+        """The random draws of one training forward at batch ``b``, in draw
+        order: [(key, shape)]. First the patch-embed dropout's keep mask
+        (key "embed"), then for each block i in stage order, as the block
+        runs them: (i, "proj") the proj dropout's keep mask [B*nW, N, C],
+        (i, "res1") the first residual's (gf, gb), (i, "fc1") and (i, "fc2")
+        the Mlp dropouts' keep masks [B, D, H, W, hidden] and [B, D, H, W, C]
+        on the stage's padded grid, (i, "res2"). Masks exist with DROPOUT >
+        0, gains for a block with stochastic-depth rate > 0; a gain pair's
+        shape is None."""
+        plan = []
+        drop = self.dropout > 0.0
+        first = self.backbone.layers[0]
+        if drop:
+            plan.append(("embed", (b, *first.dims, first.dim)))
+        i = 0
+        for layer in self.backbone.layers:
+            grid = (b, *layer.padded_dims)
+            for blk in layer.blocks:
+                gains = blk.drop_path_rate > 0.0
+                if drop:
+                    plan.append(((i, "proj"), (b * layer.n_windows,
+                                               layer.n_tokens, layer.dim)))
+                if gains:
+                    plan.append(((i, "res1"), None))
+                if drop:
+                    plan += [((i, "fc1"), (*grid, layer.hidden)),
+                             ((i, "fc2"), (*grid, layer.dim))]
+                if gains:
+                    plan.append(((i, "res2"), None))
+                i += 1
+        return plan
+
     def num_draws(self) -> int:
-        """Residuals that draw their gains in training (rate > 0)."""
-        return 2 * sum(blk.drop_path_rate > 0.0 for blk in self.blocks())
+        """Entries of ``draw()``: keep masks and residual gain pairs."""
+        return len(self.draw_plan(1))
 
     def draw(self, b: int, device, generator):
         """The random draws of one training forward, in the form
-        ``forward(draws=)`` takes: the (gf, gb) pair of every residual that
-        draws, in the order ``residual_gains`` draws them from
-        ``generator``."""
-        return [residual_branch_gains(b, blk.drop_path_rate,
-                                      self.use_shakedrop, self.alpha_range,
-                                      False, generator, device)
-                for blk in self.blocks() if blk.drop_path_rate > 0.0
-                for _ in range(2)]
+        ``forward(draws=)`` takes and in ``draw_plan`` order, drawn from
+        ``generator`` on ``device``: bool keep masks (each element kept with
+        p = 1 - DROPOUT) and the (gf, gb) pair of every residual that draws
+        (``residual_branch_gains``)."""
+        blocks = self.blocks()
+        out = []
+        for key, shape in self.draw_plan(b):
+            if shape is None:
+                out.append(residual_branch_gains(
+                    b, blocks[key[0]].drop_path_rate, self.use_shakedrop,
+                    self.alpha_range, False, generator, device))
+            else:
+                out.append(dropout_mask(shape, self.dropout, generator,
+                                        device))
+        return out
 
-    def residual_gains(self, b: int, device, generator=None, draws=None):
+    def taken_draws(self, b: int, device, generator=None, draws=None):
+        """key -> draw of one forward: nothing in eval; in training the
+        ``draws`` given (a list in ``draw_plan`` order), else drawn from
+        ``generator``."""
+        if not self.training:
+            return {}
+        plan = self.draw_plan(b)
+        if draws is None:
+            if plan and generator is None:
+                raise ValueError("a training forward with stochastic depth or "
+                                 "dropout needs a generator or injected draws")
+            draws = self.draw(b, device, generator)
+        if len(draws) != len(plan):
+            raise ValueError(f"{len(draws)} injected draws, the model draws "
+                             f"{len(plan)}")
+        for (key, shape), got in zip(plan, draws):
+            if shape is None:
+                ok, want = isinstance(got, (tuple, list)) and len(got) == 2, \
+                    "a (gf, gb) pair"
+            else:
+                ok = (isinstance(got, torch.Tensor) and got.dtype == torch.bool
+                      and tuple(got.shape) == shape)
+                want = f"a bool keep mask {shape}"
+            if not ok:
+                raise ValueError(f"draw {key}: expected {want}")
+        return {key: got for (key, _), got in zip(plan, draws)}
+
+    def residual_gains(self, b: int, device, generator=None, draws=None,
+                       taken=None):
         """(gf1, gb1, gf2, gb2) of every block, in stage order.
 
-        Eval: the deterministic gains. Training: a block with rate > 0 draws
-        res1 then res2 (vsn_tpu/models/swin3d.py _residual_gains order) from
-        ``generator``, or takes them from ``draws``, a list of ``num_draws()``
-        (gf, gb) pairs in that order; a block with rate 0 draws nothing."""
-        training = self.training
-        if training and draws is not None and len(draws) != self.num_draws():
-            raise ValueError(f"{len(draws)} injected (gf, gb) pairs, the "
-                             f"model draws {self.num_draws()}")
-        if (training and draws is None and generator is None
-                and self.num_draws()):
-            raise ValueError("a training forward with stochastic depth needs "
-                             "a generator or injected draws")
-        taken = iter(draws or ())
+        Eval: the deterministic gains. Training: a block with rate > 0 takes
+        res1 and res2 from ``taken`` (``taken_draws``), or from ``draws`` or
+        ``generator`` as ``taken_draws`` gives them; a block with rate 0
+        draws nothing."""
+        if taken is None:
+            taken = self.taken_draws(b, device, generator, draws)
         out = []
-        for blk in self.blocks():
+        for i, blk in enumerate(self.blocks()):
             gains = []
-            for _ in range(2):
-                if training and blk.drop_path_rate > 0.0:
-                    pair = next(taken) if draws is not None else (
-                        residual_branch_gains(
-                            b, blk.drop_path_rate, self.use_shakedrop,
-                            self.alpha_range, False, generator, device))
-                else:
+            for res in ("res1", "res2"):
+                pair = taken.get((i, res))
+                if pair is None:
                     pair = residual_branch_gains(b, blk.drop_path_rate,
                                                  self.use_shakedrop,
                                                  device=device)
@@ -535,22 +687,28 @@ class SwinTransformer3D(nn.Module):
 
     def forward(self, x, generator=None, draws=None):
         """Logits of x. In training mode (``self.training``) the residual
-        gains are drawn from ``generator`` or taken from ``draws``
-        (``residual_gains``)."""
-        if self.training and (self.dropout > 0 or self.attention_dropout > 0):
+        gains and dropout keep masks are drawn from ``generator`` or taken
+        from ``draws`` (``draw``)."""
+        if self.training and self.attention_dropout > 0:
             raise NotImplementedError(
-                "training with DROPOUT or ATTENTION_DROPOUT > 0 takes the "
-                "unfused attention path of the K4 kernel, not ported yet "
-                "(ROADMAP Queue 2.2)")
-        gains = self.residual_gains(x.shape[0], x.device, generator, draws)
-        feats = self.backbone(x.to(self.dtype), gains)
+                "training with ATTENTION_DROPOUT > 0 takes the JAX package's "
+                "XLA attention with dropout on the probabilities, which has "
+                "no kernel; not ported (ROADMAP)")
+        b = x.shape[0]
+        taken = self.taken_draws(b, x.device, generator, draws)
+        gains = self.residual_gains(b, x.device, taken=taken)
+        masks = [tuple(taken.get((i, k)) for k in ("proj", "fc1", "fc2"))
+                 for i in range(len(gains))]
+        feats = self.backbone(x.to(self.dtype), gains, masks,
+                              taken.get("embed"), self.fused())
         return self.head(feats.float())
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialize as the JAX package's initializers do: trunc-normal(0.02)
     for every Linear/Conv kernel and relative-position bias table, zero
-    biases, LayerNorm scale 1 and shift 0."""
+    biases, LayerNorm and RMSNorm scale 1 and LayerNorm shift 0,
+    DynamicTanh alpha 0.5, gamma 1, beta 0."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Linear, nn.Conv3d)):
@@ -560,6 +718,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
+            elif isinstance(m, DynamicTanh):
+                m.alpha.fill_(m.alpha_init)
+                m.gamma.fill_(1.0)
+                m.beta.zero_()
             elif isinstance(m, WindowAttention3D):
                 trunc_normal_(m.relative_position_bias_table, 0.02, generator)
     return model
@@ -574,8 +738,6 @@ def swin_from_config(cfg, dtype=torch.float32) -> SwinTransformer3D:
         if cfg.get(key, False):
             raise NotImplementedError(f"{key}: {why} are not ported yet "
                                       "(ROADMAP)")
-    if cfg.NORM_LAYER not in LN_NAMES:
-        make_norm(cfg.NORM_LAYER, 1)  # raises, naming the norm
     return SwinTransformer3D(
         img_size=cfg.input_size,
         patch_size=tuple(cfg.PATCH_SHAPE),
@@ -593,5 +755,6 @@ def swin_from_config(cfg, dtype=torch.float32) -> SwinTransformer3D:
         patch_norm=bool(cfg.PATCH_NORM),
         use_shakedrop=bool(cfg.USE_SHAKEDROP),
         shakedrop_alpha_range=tuple(cfg.SHAKEDROP_ALPHA_RANGE),
+        norm_layer=cfg.NORM_LAYER,
         dtype=dtype,
     )

@@ -45,6 +45,10 @@ _SIGNATURES = {
     "vsn_ln_mlp_bwd": [_I, *[_P] * 20, _L, _I, _I, _L, _F, _P],
     "vsn_stem_conv_fwd": [_I, _P, _P, _P, *[_I] * 17, _P],
     "vsn_stem_conv_dw": [_I, _P, _P, _P, *[_I] * 17, _P],
+    "vsn_window_attention_qkv_fwd": [_I, _P, _P, _P, _I, _P, _L, _I, _I, _I,
+                                     _F, _P],
+    "vsn_window_attention_qkv_bwd": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _L,
+                                     _I, _I, _I, _F, _P],
 }
 
 _lib = None

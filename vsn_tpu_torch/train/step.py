@@ -11,9 +11,9 @@ optimizer update, as the JAX step does:
     (``torch.where`` on a flag, as ``lax.cond``), and counts ``skipped``;
   * SAM is a second accumulation over the same micro-batches at
     params + e(w), whose gradients update the original params; the data
-    transform is the same in both passes, the residual-gain draws are not
-    (a generator per (seed, step, micro-batch, pass), as JAX folds
-    ``idx * 2 + pass_idx``);
+    transform is the same in both passes, the random draws (residual
+    gains, dropout keep masks) are not (a generator per (seed, step,
+    micro-batch, pass), as JAX folds ``idx * 2 + pass_idx``);
   * optional global-norm clipping before each pass's update;
   * the EMA of the last N snapshots after a successful update;
   * LR/WD from the precomputed tables, indexed by the host's step count.
@@ -179,7 +179,7 @@ def make_batch_transform(cfg):
 
 
 def draw_seed(seed: int, step: int, micro: int, pass_idx: int) -> int:
-    """The residual-gain generator's seed of one (step, micro-batch, pass)."""
+    """The draw generator's seed of one (step, micro-batch, pass)."""
     return int(np.random.SeedSequence(
         [int(seed), step, micro, pass_idx]).generate_state(1)[0])
 
@@ -247,9 +247,10 @@ def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
     label2, mix_lam, mix_apply and mix_bounds when MixUp/CutMix is on.
     ``batch_transform(micro, generator)`` maps one micro-batch to (images,
     labels) (``make_batch_transform``); None passes (image, label) through.
-    ``draws(step, micro, pass_idx)``, if given, returns the residual gains
-    to inject (a list of (gf, gb) pairs, SwinTransformer3D.residual_gains);
-    else they are drawn from a generator seeded by ``draw_seed``.
+    ``draws(step, micro, pass_idx)``, if given, returns the random draws
+    to inject (the list ``model.draw`` makes: Swin's residual gain pairs
+    and dropout keep masks, the ResNet's head-dropout mask); else the
+    model draws them from a generator seeded by ``draw_seed``.
 
     Metrics (device tensors, or floats for lr/wd): loss, grad_norm, lr, wd,
     skipped. The state is updated in place.
