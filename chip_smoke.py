@@ -20,7 +20,21 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    dqkv and dbias against the plain backward for one seeded cotangent, to
    TOL of each output's scale; then K4b at saturated logits (bias 8 z + 45
    and 8 z + 200, f32);
-4. forward parity: every K1/K2/K3 call of a Swin-T eval forward at batch 2
+4. V1 and V3 on the same K4 calls, each with qkv = z and bias = z: V1
+   (``window_attention``) on the split heads [BW, H, N, d] at the call's N
+   and once more per set at N padded to 256 (zero q/k/v rows, pad ids -1,
+   zero bias columns); V3 (``window_attention_windows``) on the block's
+   rolled, padded map [B, D, H, W, 3C] (the call's window_reverse), and one
+   synthetic call per set whose 3 id rows do not divide its 8 windows per
+   sample. V1f/V3f against their plain versions, V1b's dq, dk, dv, dbias
+   and V3b's dqkv, dbias against the plain backward, to TOL of each
+   output's scale; V1b/V3b at saturated logits (f32). Then the V path:
+   the 12 calls of the training forward through both entry points, forward
+   and backward, with every launch counter at 0 before and exactly one
+   launch of each V kernel per call after; V1f's and V3f's largest
+   difference from K4f on the same calls (logged); their times beside the
+   plain versions', and V3's beside partition + K4 + reverse;
+5. forward parity: every K1/K2/K3 call of a Swin-T eval forward at batch 2
    in f32 and in bf16, and at the eval path's batch 4 in bf16 (all four
    stages: shifted, unshifted, padded with -1 pad ids, clamped N = 150).
    K1/K2 parameters are replaced by seeded non-trivial ones (LayerNorm scale
@@ -29,7 +43,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    backward gains (gf != gb). Each K1/K2 call is checked with lam = 0 (the
    gained branch alone) and lam = 1 (the residual); f32 max|d| <= 1e-4 of
    the output scale (TF32 off), bf16 <= 2e-2; the movers bit-exact;
-5. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
+6. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
    draws), f32 and bf16 at batch 2 and the training path's bf16 calls at
    micro-batch 8, with the same seeded parameters and gains, lam 0 and 1.
    Every gradient of K1b (dx, LN w/b, qkv w/b, bias, proj w/b) and K2b (dx,
@@ -38,7 +52,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    also at saturated logits (bias 8 z + 45 and 8 z + 200, f32, as
    tests/test_swin_block_kernels.py saturates them): finite and within
    tolerance; the movers' adjoints bit-exact;
-6. K5 parity: the stem conv K5f and its weight gradient K5w against their
+7. K5 parity: the stem conv K5f and its weight gradient K5w against their
    plain versions (the f32 conv of dtype-rounded operands, and its VJP) in
    f32 (1e-4 of scale, TF32 off) and bf16 (2e-2) at batch 2 on the
    geometries of tests/test_stem_im2col.py (ResNet and MedViT stems,
@@ -46,7 +60,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    then in bf16 at the slice's shape, x [12, 144, 168, 144, 1] (2e-2);
    their times beside the plain versions' and the library calls' (cuDNN
    conv3d in bf16, channels-last, and conv3d_weight);
-7. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
+8. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
    gains, ``Evaluator`` over 8 seeded float16 144x168x144 volumes in
    batches of 4, launch counters 0 before and exactly 12 (K1) / 12 (K2) /
    7 (K3) per forward after, none of K5; probs finite, rows summing to 1,
@@ -54,7 +68,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    two are further apart than twice that difference; one batch's logits
    within 2e-2 of the plain path's largest |logit|; ms per batch and vol/s
    of both paths;
-8. the Swin training path: ``init_train_state`` -> ``make_train_step`` for
+9. the Swin training path: ``init_train_state`` -> ``make_train_step`` for
    Swin-T 5c in bf16 with the flagship recipe (SAM, EMA of 3, MixUp p = 0.5,
    ShakeDrop, label smoothing 0.1), micro-batch 8, two micro-batches per
    step, on 16 seeded float16 volumes and their MixUp partners laid out as
@@ -68,33 +82,34 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    ``Evaluator``; then the same initial state, batches and injected draws
    for 2 steps on the plain route: per-step loss within 2e-2 and grad norm
    within 5e-2 (relative) of the kernel route;
-9. the DynamicTanh eval path: phase 7 for Swin-T 5c with NORM_LAYER
+10. the DynamicTanh eval path: phase 8 for Swin-T 5c with NORM_LAYER
    DynamicTanh, whose blocks all run unfused: exactly 12 K4f launches per
    forward and none of K1/K2/K3/K5;
-10. the DynamicTanh training path: phase 8 for that model with DROPOUT 0.1
+11. the DynamicTanh training path: phase 9 for that model with DROPOUT 0.1
    (keep masks after the patch embed, proj, GELU and fc2, injected with the
    ShakeDrop gains): exactly 12 K4f and 12 K4b per micro-batch and SAM
    pass and no other launch; every parameter, DyT's 0-d alpha included,
    reached by one backward; the plain route's 2 steps within TRAIN_RTOL;
-11. each Swin kernel's time per micro-batch at the training shapes beside
+12. each Swin kernel's time per micro-batch at the training shapes beside
    its plain version's (the eval phase times the forwards at batch 4), and
    for K4f / K4b the library's: one ``F.scaled_dot_product_attention`` call
    per K4 call on the split heads with the additive float mask bias[h] +
-   mask(ids), and that call's backward;
-12. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
+   mask(ids), and that call's backward (also V1f / V1b's yardstick: the
+   same function on the same split heads; V3 has no single call);
+13. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
    dropout 0.1, bf16), seeded weights whose BatchNorm statistics are
    re-estimated by ``make_bn_refresh_step`` over 8 volumes, ``Evaluator``
    over the 8 volumes in batches of 4: exactly 1 K5f and no other launch
-   per forward; probs as in phase 7 against the plain stem;
-13. the ResNet training path: the same recipe
+   per forward; probs as in phase 8 against the plain stem;
+14. the ResNet training path: the same recipe
    without ShakeDrop (the ResNet has no residual gains), micro-batch 12 x
    2, injected head-dropout masks: every parameter reached by one
    backward; 1 + 3 steps with exactly 1 K5f and 1 K5w per micro-batch and
-   SAM pass and no other launch; parameters and EMA as in phase 8; the
+   SAM pass and no other launch; parameters and EMA as in phase 9; the
    BatchNorm statistics moved and the EMA's apart from the live ones; the
    EMA weights and statistics through ``Evaluator``; 2 plain-stem steps
    from the same state within 2e-2 / 5e-2;
-14. each kernel's time beside its bound: the larger of the bytes its calls
+15. each kernel's time beside its bound: the larger of the bytes its calls
    move (inputs read once, outputs written once) over 3.35 TB/s and the
    products they compute over 989 TFLOP/s (bf16), from this run's shapes.
 torch.profiler runs over one eval pass and one train step of each Swin
@@ -109,6 +124,7 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -154,11 +170,23 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                   "vsn_tpu/ops/window_attention.py:244"),
     "attention_bwd": ("vsn_tpu_torch/csrc/window_attention_qkv.cu",
                       "vsn_tpu/ops/window_attention.py:315"),
+    "attention_split": ("vsn_tpu_torch/csrc/window_attention_qkv.cu",
+                        "vsn_tpu/ops/window_attention.py:79"),
+    "attention_split_bwd": ("vsn_tpu_torch/csrc/window_attention_qkv.cu",
+                            "vsn_tpu/ops/window_attention.py:153"),
+    "attention_windows": ("vsn_tpu_torch/csrc/window_attention_qkv.cu",
+                          "vsn_tpu/ops/window_attention.py:422"),
+    "attention_windows_bwd": ("vsn_tpu_torch/csrc/window_attention_qkv.cu",
+                              "vsn_tpu/ops/window_attention.py:528"),
 }
 STEM = ("stem_im2col", "stem_im2col_dw")
 BLOCK_KERNELS = ("attn_half", "ln_mlp")
+# V1 (split q, k, v) and V3 (the unpartitioned map): K4's function on other
+# layouts, driven through their entry points on the K4 calls (no model
+# calls them)
+V_KERNELS = ("attention_split", "attention_windows")
 # kernels held to a tolerance (the rest, the movers, are bit-exact)
-TOLERANT = (*BLOCK_KERNELS, "attention")
+TOLERANT = (*BLOCK_KERNELS, "attention", *V_KERNELS)
 # kernel name -> the name models/swin3d.py calls it by, where they differ
 MODEL_NAME = {"attention": "window_attention_qkv"}
 MOVERS = ("spatial_to_windows", "windows_to_windows", "windows_to_spatial")
@@ -184,6 +212,13 @@ DYT = dict(NORM_LAYER="DynamicTanh")
 DYT_PER_FORWARD = {"attention": 12}
 DYT_PER_PASS = {"attention": 12, "attention_bwd": 12}
 DYT_DROPOUT = 0.1
+# the V path: one launch of each V kernel per K4 call, forward and backward
+V_PER_CALL = {name: 1 for v in V_KERNELS for name in (v, f"{v}_bwd")}
+# V1's padded layout (fused_window_attention's callers pad N to 256), and
+# the synthetic V3 call whose 3 id rows do not divide its 8 windows per
+# sample: (batch, map dims, window, C, heads, id rows)
+PAD_N = 256
+W_NOT_DIVIDING = (2, (12, 14, 12), (6, 7, 6), 96, 3, 3)
 RESNET_PRESET, RESNET_MICRO = "resnet-5c-no_seed-baseline", 12
 # K5 parity geometries, (shape DHW, kernel, strides, C_out): those of
 # tests/test_stem_im2col.py (the ResNet and MedViT stems, stride 1, odd
@@ -201,9 +236,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # the forward call whose arguments set a kernel's work (bound_ms)
 FORWARD_OF = {"attn_half_bwd": "attn_half", "ln_mlp_bwd": "ln_mlp",
               "stem_im2col_dw": "stem_im2col", "attention_bwd": "attention",
-              "copy": "attn_half", **{f"{m}_adjoint": m for m in MOVERS}}
+              "copy": "attn_half", **{f"{m}_adjoint": m for m in MOVERS},
+              **{f"{v}_bwd": v for v in V_KERNELS}}
 # attn_half cases the parity sets must cover at the flagship geometry
 ATTN_CASES = {"shifted ids", "padded ids", "no mask", "N=150"}
+# and the V sets besides: V1 at the padded N, V3 with W not dividing nW
+V_CASES = {"attention_split": ATTN_CASES | {f"N={PAD_N}"},
+           "attention_windows": ATTN_CASES | {"W not dividing nW"}}
 # differentiable arguments of the block kernels: (index, gradient name)
 DIFF = {
     "attn_half": ((0, "dx"), (1, "dnorm_w"), (2, "dnorm_b"), (3, "dqkv_w"),
@@ -212,6 +251,8 @@ DIFF = {
     "ln_mlp": ((0, "dx"), (1, "dnorm_w"), (2, "dnorm_b"), (3, "dfc1_w"),
                (4, "dfc1_b"), (5, "dfc2_w"), (6, "dfc2_b")),
     "attention": ((0, "dqkv"), (1, "dbias")),
+    "attention_split": ((0, "dq"), (1, "dk"), (2, "dv"), (3, "dbias")),
+    "attention_windows": ((0, "dqkv"), (1, "dbias")),
 }
 
 
@@ -255,6 +296,18 @@ def attention_table():
                           wa.window_attention_qkv_reference)}
 
 
+def v_table():
+    """name -> (kernel wrapper, plain version) of V1 and V3, the window
+    attention entry points on split heads and on the unpartitioned map; the
+    plain versions carry the plain backward."""
+    from vsn_tpu_torch.ops import window_attention as wa
+
+    return {"attention_split": (wa.window_attention,
+                                wa.window_attention_split_reference),
+            "attention_windows": (wa.window_attention_windows,
+                                  wa.window_attention_windows_reference)}
+
+
 @contextmanager
 def patched_model_ops(replace):
     """Route the model's kernel calls (models/swin3d.py names) through
@@ -268,11 +321,14 @@ def patched_model_ops(replace):
         yield
 
 
-def record_calls(model, images, **kwargs):
+def record_calls(model, images, blocks=None, **kwargs):
     """Every kernel call of one forward, run through the plain versions:
     [(name, args)]. No graph is kept, and the tensors are ordinary ones, so
-    the backward phase can differentiate through them."""
+    the backward phase can differentiate through them. ``blocks``, a list,
+    receives the (window, padded grid dims) of every unfused block in call
+    order, one per K4 call (models/swin3d.py SwinBlock3D.forward_unfused)."""
     import torch
+    from vsn_tpu_torch.models import swin3d
 
     calls = []
 
@@ -282,7 +338,15 @@ def record_calls(model, images, **kwargs):
             return plain(*args)
         return fn
 
-    with torch.no_grad(), patched_model_ops(recorder):
+    unfused = swin3d.SwinBlock3D.forward_unfused
+
+    def block(blk, x, *args):
+        blocks.append((blk.window, tuple(x.shape[1:4])))
+        return unfused(blk, x, *args)
+
+    with torch.no_grad(), patched_model_ops(recorder), mock.patch.object(
+            swin3d.SwinBlock3D, "forward_unfused",
+            unfused if blocks is None else block):
         model(images, **kwargs)
     return calls
 
@@ -308,10 +372,11 @@ def seeded_params(name, args, gen):
     output by far more than the tolerance. Activations and ids stay as the
     forward gave them; the movers' calls are returned as they are. A K4
     call gets qkv = z in its dtype (O(1) logits at a head dim of 32) and
-    bias = z."""
+    bias = z; the V calls are made from seeded K4 calls (``v_calls``) and
+    are returned as they are."""
     import torch
 
-    if name not in TOLERANT:
+    if name not in TOLERANT or name in V_KERNELS:
         return args
     x = args[0]
     c = x.shape[-1]
@@ -344,12 +409,17 @@ def case_kind(name, args):
                  "padded ids" if bool((ids < 0).any()) else "shifted ids",
                  f"N={args[0].shape[1]}"}
         return kinds if args[5] is not None else kinds | {"no bias"}
-    if name == "attention":  # an unshifted block passes one row of zeros
-        ids = args[2]
+    if name in ("attention", *V_KERNELS):
+        # an unshifted block passes one row of zeros
+        ids = args[4] if name == "attention_split" else args[2]
         kind = ("padded ids" if bool((ids < 0).any()) else
                 "no mask" if ids.shape[0] == 1 and not bool(ids.any()) else
                 "shifted ids")
-        return {kind, f"N={args[0].shape[1]}"}
+        kinds = {kind, f"N={ids.shape[1]}"}
+        if name == "attention_windows" and windows_per_sample(
+                args[0], args[5]) % ids.shape[0]:
+            kinds.add("W not dividing nW")
+        return kinds
     if name == "ln_mlp":
         return {f"C={args[0].shape[-1]}"}
     return {f"roll={tuple(args[-1])}"}
@@ -391,6 +461,18 @@ def _grads(fn, args, lam, dout, index):
     return out, dict(zip(leaves, grads))
 
 
+def cotangent(name, args, gen):
+    """A seeded cotangent for the output of one call of the tolerant
+    kernel ``name`` (K4 and V3 take qkv's 3C channels to C; K1, K2 and V1
+    keep their input's shape), in the input's dtype."""
+    import torch
+
+    x = args[0]
+    shape = ((*x.shape[:-1], x.shape[-1] // 3)
+             if name in ("attention", "attention_windows") else x.shape)
+    return torch.randn(shape, generator=gen).to(x.device, x.dtype)
+
+
 def grad_compare(name, kernel, plain, args, lam, gen):
     """[(grad name, max|d|, limit, ok)] of the VJP of one call of ``kernel``
     against ``plain``'s for one seeded cotangent: block kernels to TOL of
@@ -401,11 +483,9 @@ def grad_compare(name, kernel, plain, args, lam, gen):
     if name in MOVERS:
         with torch.no_grad():
             shape = plain(*args).shape
-    elif name == "attention":   # [BW, N, 3C] -> [BW, N, C]
-        shape = (*x.shape[:2], x.shape[2] // 3)
+        dout = torch.randn(shape, generator=gen).to(x.device, x.dtype)
     else:
-        shape = x.shape   # K1 and K2 keep their input's shape
-    dout = torch.randn(shape, generator=gen).to(x.device, x.dtype)
+        dout = cotangent(name, args, gen)
     if name in MOVERS:
         out, got = _grads(kernel, args, None, dout, (0,))
         ref, want = _grads(plain, args, None, dout, (0,))
@@ -519,12 +599,14 @@ def grad_parity_phase(sets, table, gen):
 
 def saturation_phase(calls, table, gen, name="attn_half",
                      logits=(45.0, 200.0)):
-    """K1b (or K4b, ``name`` "attention") at saturated logits: a shifted,
-    masked call of ``calls`` (f32) with its bias set to 8 z + logit (z the
-    seeded bias), so the logits sit near ``logit``; every gradient finite
-    and within tolerance of the plain backward."""
+    """K1b (or K4b, V1b, V3b: ``name`` "attention", "attention_split",
+    "attention_windows") at saturated logits: a shifted, masked call of
+    ``calls`` (f32) with its bias set to 8 z + logit (z the seeded bias), so
+    the logits sit near ``logit``; every gradient finite and within
+    tolerance of the plain backward."""
     kernel, plain = table[name]
-    at = {"attn_half": 5, "attention": 1}[name]   # the bias argument
+    at = {"attn_half": 5, "attention": 1, "attention_split": 3,
+          "attention_windows": 1}[name]   # the bias argument
     lam = PATH_LAM if name in BLOCK_KERNELS else None
     args = next(a for n, a in calls if n == name
                 and "shifted ids" in case_kind(n, a)
@@ -542,6 +624,191 @@ def saturation_phase(calls, table, gen, name="attn_half",
         if bad:
             raise AssertionError(f"{backward_name(name)} at logits "
                                  f"{logit:g}: {bad}")
+
+
+def windows_per_sample(qkv, window):
+    """Windows per sample of a V3 map qkv [B, D, H, W, 3C]."""
+    return math.prod(m // w for m, w in zip(qkv.shape[1:4], window))
+
+
+def split_call(args):
+    """A K4 call (qkv [BW, N, 3C], bias, ids, scale, heads) as a V1 call
+    on contiguous split heads: (q, k, v [BW, H, N, d], bias, ids, scale)."""
+    qkv, bias, ids, scale, heads = args
+    bw, n, c3 = qkv.shape
+    q, k, v = (t.contiguous() for t in qkv.reshape(
+        bw, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4))
+    return q, k, v, bias, ids, scale
+
+
+def padded_split_call(args, n_to=PAD_N):
+    """A V1 call with N padded to ``n_to``, the layout
+    fused_window_attention documents: zero q, k, v rows, pad ids -1, zero
+    bias rows and columns."""
+    import torch.nn.functional as F
+
+    q, k, v, bias, ids, scale = args
+    pad = n_to - q.shape[2]
+    rows = lambda t: F.pad(t, (0, 0, 0, pad))
+    return (rows(q), rows(k), rows(v), F.pad(bias, (0, pad, 0, pad)),
+            F.pad(ids, (0, pad), value=-1), scale)
+
+
+def windows_call(args, window, dims):
+    """A K4 call of an unfused block (its window and padded grid dims) as
+    a V3 call on the block's rolled, padded map: (qkv [B, D, H, W, 3C],
+    bias, ids, scale, heads, window)."""
+    from vsn_tpu_torch.models.swin3d import window_reverse
+
+    qkv, bias, ids, scale, heads = args
+    return (window_reverse(qkv, window, dims).contiguous(), bias, ids, scale,
+            heads, tuple(window))
+
+
+def synthetic_windows_call(dtype, device, gen):
+    """The V3 call no model makes (W_NOT_DIVIDING): 3 id rows over 8
+    windows per sample at B = 2, so a window's ids row (its flat index
+    within its sample mod W) differs from the global bw % W in the second
+    sample; qkv = z, bias = z, region ids drawn from {0, 1, 2}."""
+    import torch
+
+    b, dims, window, c, heads, rows = W_NOT_DIVIDING
+    n = math.prod(window)
+    ids = torch.randint(0, 3, (rows, n), generator=gen, dtype=torch.int32)
+    return (torch.randn(b, *dims, 3 * c, generator=gen).to(device, dtype),
+            torch.randn(heads, n, n, generator=gen).to(device),
+            ids.to(device), (c // heads) ** -0.5, heads, window)
+
+
+def v_calls(calls, blocks, gen):
+    """The K4 calls of one recorded forward (``blocks``: record_calls'
+    windows and grid dims), each seeded (``seeded_params``) and taken to
+    V1 and V3: [(K4 args, V1 args, V3 args)]."""
+    k4 = [args for name, args in calls if name == "attention"]
+    if len(k4) != len(blocks):
+        raise AssertionError(f"{len(k4)} K4 calls from {len(blocks)} blocks")
+    out = []
+    for args, (window, dims) in zip(k4, blocks):
+        args = seeded_params("attention", args, gen)
+        out.append((args, split_call(args), windows_call(args, window, dims)))
+    return out
+
+
+def v_main_calls(triples):
+    """[(name, args)]: the V1 calls, then the V3 calls, of ``triples``."""
+    return ([("attention_split", v1) for _, v1, _ in triples]
+            + [("attention_windows", v3) for _, _, v3 in triples])
+
+
+def v_sets(triples, gen):
+    """{label: [(name, args)]}: each set's V1 and V3 calls, one more V1
+    call at N padded to PAD_N (the set's first call's, N = 252 at Swin-T
+    stage 1) and the synthetic V3 call in the set's dtype."""
+    sets = {}
+    for label, t in triples.items():
+        first = t[0][1]
+        sets[label] = v_main_calls(t) + [
+            ("attention_split", padded_split_call(first)),
+            ("attention_windows", synthetic_windows_call(
+                first[0].dtype, first[0].device, gen))]
+    return sets
+
+
+def v_parity_phase(sets, table, gen, required=V_CASES):
+    """Hold V1f/V3f and V1b/V3b on every call of ``sets`` against their
+    plain versions (``parity_phase``, ``grad_parity_phase``), check that
+    every set covers the ``required`` cases, and V1b/V3b at saturated
+    logits on an f32 set. Returns {kernel name: worst max|d|}."""
+    import torch
+
+    worst, kinds = parity_phase(sets, table, gen)
+    bworst, bkinds = grad_parity_phase(sets, table, gen)
+    worst.update(bworst)
+    for label in sets:
+        for name, cases in required.items():
+            bname = backward_name(name)
+            for kname, found in ((name, kinds[label][name]),
+                                 (bname, bkinds[label][bname])):
+                if not cases <= found:
+                    raise AssertionError(f"V set {label} lacks {kname} cases "
+                                         f"{cases - found}")
+    f32 = [calls for calls in sets.values()
+           if calls[0][1][0].dtype == torch.float32]
+    if not f32:
+        raise AssertionError("no f32 V set for the saturated logits")
+    for name in V_KERNELS:
+        saturation_phase(f32[0], table, gen, name)
+    return worst
+
+
+def v_path(calls, gen):
+    """The V path: every call of ``calls`` [(name, args)] through V1's or
+    V3's entry point, forward and backward for one seeded cotangent, with
+    every launch counter at 0 before; outputs and gradients finite.
+    Returns the launch counts after."""
+    import torch
+    from vsn_tpu_torch.ops import _build
+
+    table = v_table()
+    _build.launches.clear()
+    for name, args in calls:
+        out, grads = _grads(table[name][0], args, None,
+                            cotangent(name, args, gen),
+                            [i for i, _ in DIFF[name]])
+        if not all(bool(torch.isfinite(t).all())
+                   for t in (out, *grads.values())):
+            raise AssertionError(f"V path {name}: non-finite values")
+    torch.cuda.synchronize()
+    return {name: _build.launches[name] for name in KERNELS}
+
+
+def k4_agreement(triples):
+    """(largest |V1f - K4f|, largest |V3f - K4f|) over the calls, V1's heads
+    merged and V3's map partitioned: one kernel body and one order of sums,
+    so 0 is expected (a log line, not a gate)."""
+    import torch
+    from vsn_tpu_torch.models.swin3d import window_partition
+    from vsn_tpu_torch.ops import window_attention as wa
+
+    d1 = d3 = 0.0
+    with torch.no_grad():
+        for k4, v1, v3 in triples:
+            ref = wa.window_attention_qkv(*k4).float()
+            out = wa.window_attention(*v1)
+            bw, heads, n, d = out.shape
+            merged = out.transpose(1, 2).reshape(bw, n, heads * d).float()
+            d1 = max(d1, (merged - ref).abs().max().item())
+            out = window_partition(wa.window_attention_windows(*v3), v3[5])
+            d3 = max(d3, (out.float() - ref).abs().max().item())
+    return d1, d3
+
+
+def composite_times(calls):
+    """(forward ms, backward ms) of what V3 replaces, summed over the V3
+    calls of ``calls``: window_partition -> K4f -> window_reverse, and the
+    cotangent's partition -> K4b -> dqkv's reverse."""
+    import torch
+    from vsn_tpu_torch.models.swin3d import window_partition, window_reverse
+    from vsn_tpu_torch.ops import window_attention as wa
+
+    fwd = bwd = 0.0
+    with torch.no_grad():
+        for name, (qkv, bias, ids, scale, heads, window) in calls:
+            if name != "attention_windows":
+                continue
+            dims = qkv.shape[1:4]
+            rows = wa.window_ids(ids, windows_per_sample(qkv, window))
+            fwd += cuda_ms(lambda: window_reverse(wa.window_attention_qkv(
+                window_partition(qkv, window), bias, rows, scale, heads),
+                window, dims))
+            g = torch.randn(*qkv.shape[:4], qkv.shape[4] // 3,
+                            device=qkv.device).to(qkv.dtype)
+            bwd += cuda_ms(lambda: window_reverse(
+                wa.window_attention_qkv_backward(
+                    window_partition(qkv, window), bias, rows,
+                    window_partition(g, window), scale, heads)[0],
+                window, dims))
+    return fwd, bwd
 
 
 def volumes(n, seed):
@@ -785,7 +1052,7 @@ def kernel_times(calls, backward=True):
     from vsn_tpu_torch.ops import window_attention as wa
     from vsn_tpu_torch.ops import window_relayout as wr
 
-    table = {**kernel_table(), **attention_table()}
+    table = {**kernel_table(), **attention_table(), **v_table()}
     ms = collections.defaultdict(float)
     plain_ms = collections.defaultdict(float)
     neg = lambda roll: tuple(-r for r in roll)
@@ -830,6 +1097,19 @@ def kernel_times(calls, backward=True):
                     lambda: wa.window_attention_qkv_backward(*b_args))
                 plain_ms[bname] += cuda_ms(
                     lambda: wa.window_attention_qkv_backward_reference(
+                        *b_args))
+            elif name == "attention_split":
+                b_args = (*args[:5], g, args[5])
+                ms[bname] += cuda_ms(
+                    lambda: wa.window_attention_backward(*b_args))
+                plain_ms[bname] += cuda_ms(
+                    lambda: wa.window_attention_backward_reference(*b_args))
+            elif name == "attention_windows":
+                b_args = (*args[:3], g, *args[3:])
+                ms[bname] += cuda_ms(
+                    lambda: wa.window_attention_windows_backward(*b_args))
+                plain_ms[bname] += cuda_ms(
+                    lambda: wa.window_attention_windows_backward_reference(
                         *b_args))
             else:
                 adj, plain_adj = adjoints[name]
@@ -1036,6 +1316,21 @@ def call_work(name, args):
         work = bw * n * n * (c3 // 3)
         out = _nbytes(qkv) // 3
         if name == "attention":
+            return 4 * work, _nbytes(qkv, bias, ids) + out
+        return 10 * work, 2 * _nbytes(qkv, bias) + _nbytes(ids) + out
+    if name in ("attention_split", "attention_split_bwd"):
+        # V1f / V1b: K4's products on split q, k, v [BW, H, N, d]
+        q, k, v, bias, ids = args[:5]
+        work = q.numel() * q.shape[2]
+        if name == "attention_split":
+            return 4 * work, _nbytes(q, k, v, bias, ids) + _nbytes(q)
+        return 10 * work, 2 * _nbytes(q, k, v, bias) + _nbytes(ids, q)
+    if name in ("attention_windows", "attention_windows_bwd"):
+        # V3f / V3b: K4's products read from the map [B, D, H, W, 3C]
+        qkv, bias, ids = args[:3]
+        work = qkv.numel() // 3 * math.prod(args[5])
+        out = _nbytes(qkv) // 3
+        if name == "attention_windows":
             return 4 * work, _nbytes(qkv, bias, ids) + out
         return 10 * work, 2 * _nbytes(qkv, bias) + _nbytes(ids) + out
     if name in ("attn_half", "attn_half_bwd"):
@@ -1303,16 +1598,19 @@ def main() -> int:
     batch = train_batch(train_cfg, device, SEED + 5)
     micro0 = {k: v[0] for k, v in batch.items()}
     images8 = make_batch_transform(train_cfg)(micro0)[0].to(torch.bfloat16)
-    k4sets = {}
+    k4sets, blocks = {}, collections.defaultdict(list)
     for dtype_name, fp16 in (("float32", False), ("bfloat16", True)):
         m = init_weights(build_model(cfg.replace(FP16=fp16, **DYT)),
                          torch.Generator().manual_seed(SEED))
         x = zscore(torch.from_numpy(volumes(2, seed=SEED + 10)).to(device))
-        k4sets[f"DyT {dtype_name} B=2"] = record_calls(m, x)
+        label = f"DyT {dtype_name} B=2"
+        k4sets[label] = record_calls(m, x, blocks[label])
     m = init_weights(build_model(dyt_train_cfg),
                      torch.Generator().manual_seed(SEED))
-    k4sets[f"DyT bfloat16 B={TRAIN_MICRO} train"] = record_calls(
-        m.train(), images8, generator=torch.Generator(device).manual_seed(3))
+    train_label = f"DyT bfloat16 B={TRAIN_MICRO} train"
+    k4sets[train_label] = record_calls(
+        m.train(), images8, blocks[train_label],
+        generator=torch.Generator(device).manual_seed(3))
     atable = attention_table()
     kgen = torch.Generator().manual_seed(SEED + 11)
     worst, kinds = parity_phase(k4sets, atable, kgen)
@@ -1325,11 +1623,37 @@ def main() -> int:
                 raise AssertionError(f"K4 set {label} lacks {name} cases "
                                      f"{ATTN_CASES - found}")
     saturation_phase(k4sets["DyT float32 B=2"], atable, kgen, "attention")
-    k4_calls = k4sets.pop(f"DyT bfloat16 B={TRAIN_MICRO} train")  # phase 11
-    del k4sets, m, x
+
+    # 4. V1 and V3 on the K4 calls ----------------------------------------
+    vgen = torch.Generator().manual_seed(SEED + 12)
+    triples = {label: v_calls(calls, blocks[label], vgen)
+               for label, calls in k4sets.items()}
+    worst.update(v_parity_phase(v_sets(triples, vgen), v_table(), vgen))
+    v_main = v_main_calls(triples[train_label])
+    v_counts = v_path(v_main, vgen)
+    launched = {name: n for name, n in v_counts.items() if n}
+    log(f"V path: {len(triples[train_label])} K4 calls of a micro-batch of "
+        f"{TRAIN_MICRO} through window_attention and "
+        f"window_attention_windows, forward and backward, launches "
+        f"{launched}")
+    check_counts(v_counts, V_PER_CALL, len(triples[train_label]), "V path")
+    for label, t in triples.items():
+        d1, d3 = k4_agreement(t)
+        log(f"V vs K4 {label}: max|V1f - K4f| {d1:.3e}, max|V3f - K4f| "
+            f"{d3:.3e} over {len(t)} calls (same body: 0 expected)")
+    vms, vplain = kernel_times(v_main)
+    vbounds = {name: bound_ms(name, v_main) for name in V_PER_CALL}
+    composite = composite_times(v_main)
+    for what, t, name in (("forward", composite[0], "attention_windows"),
+                          ("backward", composite[1],
+                           "attention_windows_bwd")):
+        log(f"[{card}] V3 {what}: {vms[name]:.3f} ms per micro-batch of "
+            f"{TRAIN_MICRO} against partition + K4 + reverse {t:.3f} ms")
+    k4_calls = k4sets.pop(train_label)  # phase 12
+    del k4sets, triples, v_main, m, x
     torch.cuda.empty_cache()
 
-    # 4. forward parity at every stage shape ------------------------------
+    # 5. forward parity at every stage shape ------------------------------
     models = {}
     for dtype_name, fp16 in (("float32", False), ("bfloat16", True)):
         m = build_model(cfg.replace(FP16=fp16))
@@ -1351,10 +1675,10 @@ def main() -> int:
         if not ATTN_CASES <= by_name["attn_half"]:
             raise AssertionError(f"parity set {label} lacks attn_half cases "
                                  f"{ATTN_CASES - by_name['attn_half']}")
-    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 7
+    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 8
     del sets
 
-    # 5. backward parity on training forwards -----------------------------
+    # 6. backward parity on training forwards -----------------------------
     gsets = {}
     for dtype_name, m in models.items():
         x = zscore(torch.from_numpy(volumes(2, seed=SEED + 4)).to(device))
@@ -1373,10 +1697,10 @@ def main() -> int:
             raise AssertionError(f"backward set {label} lacks attn_half cases "
                                  f"{ATTN_CASES - by_name['attn_half_bwd']}")
     saturation_phase(gsets["float32 B=2"], table, gen)
-    train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 8
+    train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 9
     del gsets, models, x, images8
 
-    # 6. K5f / K5w parity and timings -------------------------------------
+    # 7. K5f / K5w parity and timings -------------------------------------
     stable = stem_table()
     sgen = torch.Generator(device).manual_seed(SEED + 9)
     cases = {f"{dt} {geom[0]} k{geom[1]} s{geom[2]} C{geom[3]}":
@@ -1392,7 +1716,7 @@ def main() -> int:
     del cases, stem_call
     torch.cuda.empty_cache()
 
-    # 7. the Swin eval path -----------------------------------------------
+    # 8. the Swin eval path -----------------------------------------------
     images = volumes(N_VOLUMES, seed=SEED)
     n_batches = -(-N_VOLUMES // BATCH)
     swin_eval_path(cfg, model, images, PER_FORWARD, "eval", card)
@@ -1402,7 +1726,7 @@ def main() -> int:
             f"{BATCH} (plain {eplain[name]:.3f} ms)")
     del evaluator, model, eval_calls
 
-    # 8. the Swin training path -------------------------------------------
+    # 9. the Swin training path -------------------------------------------
     steps = 1 + TIMED_STEPS
     passes = steps * TRAIN_ACCUM * (2 if train_cfg.USE_SAM else 1)
     recipe = (f"SAM + EMA + MixUp + ShakeDrop, micro {TRAIN_MICRO} x "
@@ -1410,14 +1734,14 @@ def main() -> int:
     path_counts = swin_train_path(train_cfg, batch, images, PER_PASS, passes,
                                   "train", recipe, card)
 
-    # 9. the DynamicTanh eval path ----------------------------------------
+    # 10. the DynamicTanh eval path ---------------------------------------
     dyt_cfg = cfg.replace(**DYT)
     model = init_weights(build_model(dyt_cfg),
                          torch.Generator().manual_seed(SEED))
     swin_eval_path(dyt_cfg, model, images, DYT_PER_FORWARD, "dyt_eval", card)
     del model
 
-    # 10. the DynamicTanh training path, DROPOUT 0.1 ----------------------
+    # 11. the DynamicTanh training path, DROPOUT 0.1 ----------------------
     counts = swin_train_path(dyt_train_cfg, batch, images, DYT_PER_PASS,
                              passes, "dyt_train",
                              f"{recipe}, DynamicTanh, DROPOUT {DYT_DROPOUT}",
@@ -1425,29 +1749,30 @@ def main() -> int:
     path_counts.update({name: counts[name] for name in DYT_PER_PASS})
     del batch
 
-    # 11. Swin kernel timings at the training shapes ----------------------
+    # 12. Swin kernel timings at the training shapes ----------------------
     ms, plain_ms = kernel_times(train_calls + k4_calls)
     bounds = {name: bound_ms(name, train_calls + k4_calls) for name in KERNELS
-              if name not in STEM}
+              if name not in STEM and name not in V_PER_CALL}
+    ms.update(vms)
+    plain_ms.update(vplain)
+    bounds.update(vbounds)
     library_ms = dict.fromkeys(KERNELS)
     library_ms["attention"], library_ms["attention_bwd"] = sdpa_times(
         k4_calls)
+    # V1 computes K4's function on the split heads that the SDPA call takes
+    library_ms["attention_split"] = library_ms["attention"]
+    library_ms["attention_split_bwd"] = library_ms["attention_bwd"]
     stage1 = [next(c for c in train_calls if c[0] == "attn_half")]
-    for what, name, calls, at in (
-            ("V1f / V3f, K4f's attention on split q, k, v and on the "
-             "unpartitioned grid", "attention", k4_calls, "K4"),
-            ("V1b / V3b, their VJPs", "attention_bwd", k4_calls, "K4"),
-            ("P1, K1f variants at one stage-1 call", "attn_half", stage1,
-             "attn_half"),
-            ("P2-P5 copy probe at one stage-1 call", "copy", stage1,
-             "attn_half")):
-        t, by = bound_ms(name, calls)
-        log(f"[{card}] not ported: {what}: bound {t:.3f} ms by {by} at the "
-            f"{at} calls of a micro-batch of {TRAIN_MICRO}")
+    for what, name in (("P1, K1f variants", "attn_half"),
+                       ("P2-P5 copy probe", "copy")):
+        t, by = bound_ms(name, stage1)
+        log(f"[{card}] not ported: {what} at one stage-1 call: bound "
+            f"{t:.3f} ms by {by} at the attn_half calls of a micro-batch of "
+            f"{TRAIN_MICRO}")
     del train_calls, k4_calls, stage1
     torch.cuda.empty_cache()
 
-    # 12. the ResNet eval path --------------------------------------------
+    # 13. the ResNet eval path --------------------------------------------
     from vsn_tpu_torch.models.resnet3d import init_weights as resnet_init
 
     rcfg = load_config(preset=RESNET_PRESET)
@@ -1469,7 +1794,7 @@ def main() -> int:
                card)
     del revaluator, rmodel
 
-    # 13. the ResNet training path ----------------------------------------
+    # 14. the ResNet training path ----------------------------------------
     rtrain_cfg = load_config(dict(
         USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
         LABEL_SMOOTHING=0.1, SEED=SEED, BATCH_SIZE=RESNET_MICRO,
@@ -1531,10 +1856,11 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del pstate, rbatch, model, draws
 
-    # 14. per-kernel times beside their bounds ----------------------------
+    # 15. per-kernel times beside their bounds ----------------------------
     for name in STEM:
         ms[name], plain_ms[name], library_ms[name] = stem_ms[name]
         bounds[name] = stem_bound[name]
+    path_counts.update({name: v_counts[name] for name in V_PER_CALL})
     for name in KERNELS:
         per = (f"micro-batch of {RESNET_MICRO}" if name in STEM
                else f"micro-batch of {TRAIN_MICRO}")

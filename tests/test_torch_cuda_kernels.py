@@ -377,3 +377,155 @@ def test_window_attention_qkv_rejects_what_the_kernels_do_not_take(dev):
         new[i] = bad
         with pytest.raises((TypeError, ValueError)):
             wa.window_attention_qkv(*new)
+
+
+def _v1_args(dev, dims, window, shift, heads, c, ids_kind, dtype):
+    """A K4 call's values as V1's (q, k, v [BW, H, N, d], bias, ids,
+    scale)."""
+    qkv, bias, ids, scale, _ = _k4_args(dev, dims, window, shift, heads, c,
+                                        ids_kind, dtype)
+    bw, n, _ = qkv.shape
+    q, k, v = (t.contiguous() for t in qkv.reshape(
+        bw, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4))
+    return q, k, v, bias, ids, scale
+
+
+def _v3_args(dev, dims, window, shift, heads, c, ids_kind, dtype):
+    """A K4 call's values as V3's (qkv [2, D, H, W, 3C] on the padded grid,
+    bias, ids, scale, heads, window)."""
+    from vsn_tpu_torch.models.swin3d import window_reverse
+
+    qkv, bias, ids, scale, _ = _k4_args(dev, dims, window, shift, heads, c,
+                                        ids_kind, dtype)
+    grid = tuple(-(-d // w) * w for d, w in zip(dims, window))
+    return (window_reverse(qkv, window, grid).contiguous(), bias, ids, scale,
+            heads, window)
+
+
+def _v_check(fn, ref, args, diff, dout, dtype, names):
+    """One forward and one backward of ``fn`` (one launch each of
+    ``names``) against ``ref``'s."""
+    before = dict(_build.launches)
+    _close(fn(*args), ref(*args), dtype)
+    got = _grads(fn, args, dout, diff)
+    torch.cuda.synchronize()
+    for name, extra in zip(names, (2, 1)):
+        assert _build.launches[name] == before.get(name, 0) + extra, name
+    _close_grads(got, _grads(ref, args, dout, diff), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", ATTN_SHAPES)
+def test_window_attention_split_matches_plain(dev, dtype, dims, window, shift,
+                                              heads, c, ids_kind):
+    """V1f against the plain forward and V1b's dq, dk, dv, dbias against the
+    plain backward at the Swin-T stage kinds and a head dim of 8."""
+    args = _v1_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
+    dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        5)).to(dev, dtype)
+    _v_check(wa.window_attention, wa.window_attention_split_reference, args,
+             (0, 1, 2, 3), dout, dtype,
+             ("attention_split", "attention_split_bwd"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_split_at_n_256(dev, dtype):
+    """V1 at Swin-T stage 1 with N padded to 256 (zero rows, pad ids -1):
+    the backward's 172 KB of shared memory."""
+    import chip_smoke
+
+    args = chip_smoke.padded_split_call(_v1_args(
+        dev, (12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96, "shifted", dtype))
+    assert args[0].shape[2] == 256 and (args[4][:, 252:] == -1).all()
+    dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        6)).to(dev, dtype)
+    _v_check(wa.window_attention, wa.window_attention_split_reference, args,
+             (0, 1, 2, 3), dout, dtype,
+             ("attention_split", "attention_split_bwd"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", ATTN_SHAPES)
+def test_window_attention_windows_matches_plain(dev, dtype, dims, window,
+                                                shift, heads, c, ids_kind):
+    """V3f against the plain forward and V3b's dqkv and dbias against the
+    plain backward on the stage kinds' padded maps."""
+    args = _v3_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
+    x = args[0]
+    dout = torch.randn((*x.shape[:4], c), generator=torch.Generator()
+                       .manual_seed(7)).to(dev, dtype)
+    _v_check(wa.window_attention_windows,
+             wa.window_attention_windows_reference, args, (0, 1), dout, dtype,
+             ("attention_windows", "attention_windows_bwd"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_windows_ids_row_within_the_sample(dev, dtype):
+    """3 id rows over 8 windows per sample at B = 2: window r of each sample
+    on row r % 3, not the global bw % 3."""
+    import chip_smoke
+
+    args = chip_smoke.synthetic_windows_call(
+        dtype, dev, torch.Generator().manual_seed(8))
+    x = args[0]
+    dout = torch.randn((*x.shape[:4], x.shape[4] // 3), generator=torch
+                       .Generator().manual_seed(9)).to(dev, dtype)
+    _v_check(wa.window_attention_windows,
+             wa.window_attention_windows_reference, args, (0, 1), dout, dtype,
+             ("attention_windows", "attention_windows_bwd"))
+
+
+@pytest.mark.parametrize("logit", [45.0, 200.0])
+def test_v1_and_v3_at_saturated_logits(dev, logit):
+    shape = ((12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96, "shifted",
+             torch.float32)
+    for fn, ref, args, bias_at, diff in (
+            (wa.window_attention, wa.window_attention_split_reference,
+             list(_v1_args(dev, *shape)), 3, (0, 1, 2, 3)),
+            (wa.window_attention_windows,
+             wa.window_attention_windows_reference,
+             list(_v3_args(dev, *shape)), 1, (0, 1))):
+        args[bias_at] = args[bias_at] * 8 + logit
+        out = ref(*args)
+        _close(fn(*args), out, torch.float32)
+        dout = torch.randn(out.shape, device=dev)
+        got = _grads(fn, args, dout, diff)
+        assert all(torch.isfinite(g).all() for g in got)
+        _close_grads(got, _grads(ref, args, dout, diff), torch.float32)
+
+
+def test_v1_and_v3_equal_k4_on_the_same_values(dev):
+    """One kernel body on three layouts: V1f and V3f give K4f's output bit
+    for bit (heads merged, windows partitioned)."""
+    from vsn_tpu_torch.models.swin3d import window_partition
+
+    shape = ((12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96, "shifted",
+             torch.bfloat16)
+    k4 = _k4_args(dev, *shape)
+    ref = wa.window_attention_qkv(*k4)
+    out = wa.window_attention(*_v1_args(dev, *shape))
+    bw, heads, n, d = out.shape
+    assert torch.equal(out.transpose(1, 2).reshape(bw, n, heads * d), ref)
+    v3 = _v3_args(dev, *shape)
+    assert torch.equal(window_partition(wa.window_attention_windows(*v3),
+                                        v3[5]), ref)
+
+
+def test_v1_and_v3_reject_what_the_kernels_do_not_take(dev):
+    q, k, v, bias, ids, scale = _v1_args(dev, (4, 6, 4), (2, 3, 2),
+                                         (1, 1, 1), 2, 16, "shifted",
+                                         torch.float32)
+    for i, bad in ((0, q.half()), (1, k.cpu()), (3, bias[:1].contiguous()),
+                   (4, ids[:3].contiguous())):
+        new = [q, k, v, bias, ids, scale]
+        new[i] = bad
+        with pytest.raises((TypeError, ValueError)):
+            wa.window_attention(*new)
+    qkv, bias, ids, scale, heads, window = _v3_args(
+        dev, (4, 6, 4), (2, 3, 2), (1, 1, 1), 2, 16, "shifted", torch.float32)
+    for i, bad in ((0, qkv[:, :3].contiguous()), (0, qkv.half()),
+                   (2, ids.long()), (5, (2, 2, 2))):
+        new = [qkv, bias, ids, scale, heads, window]
+        new[i] = bad
+        with pytest.raises((TypeError, ValueError)):
+            wa.window_attention_windows(*new)

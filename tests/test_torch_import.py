@@ -82,6 +82,20 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert torch.equal(out, wa.window_attention_qkv_reference(*k4))
     out.sum().backward()
     assert qkv.grad is not None
+    q, k, v = (torch.randn(4, 2, 6, 3, requires_grad=True) for _ in range(3))
+    v1 = (q, k, v, torch.randn(2, 6, 6), torch.zeros(2, 6, dtype=torch.int32),
+          0.5)
+    out = wa.window_attention(*v1)
+    assert torch.equal(out, wa.window_attention_split_reference(*v1))
+    out.sum().backward()
+    assert q.grad is not None and v.grad is not None
+    qkv = torch.randn(2, 4, 6, 4, 24, requires_grad=True)
+    v3 = (qkv, torch.randn(2, 12, 12), torch.zeros(3, 12, dtype=torch.int32),
+          0.5, 2, (2, 3, 2))
+    out = wa.window_attention_windows(*v3)
+    assert torch.equal(out, wa.window_attention_windows_reference(*v3))
+    out.sum().backward()
+    assert qkv.grad is not None
     assert sum(_build.launches.values()) == 0
 
 

@@ -1,77 +1,139 @@
-// K4f / K4b: multi-head window attention on the packed qkv projection,
-// forward and backward.
+// K4f / K4b, V1f / V1b and V3f / V3b: multi-head window attention, forward
+// and backward, on three operand layouts.
 //
-//   out[bw, i, h] = sum_j p[i, j] v[bw, j, h]
-//   p = softmax_j(q[bw, i, h] . k[bw, j, h] * scale + bias[h, i, j]
-//                 + (ids[bw % W][i] != ids[bw % W][j] ? -1e9 : 0))
+//   out[bw, t, h] = sum_j p[t, j] v[bw, j, h]
+//   p = softmax_j(q[bw, t, h] . k[bw, j, h] * scale + bias[h, t, j]
+//                 + (ids[r][t] != ids[r][j] ? -1e9 : 0)),  r = ids row of bw
 //
-// Replaces vsn_tpu/ops/window_attention.py _fwd_qkv (Pallas kernel
-// _fwd_qkv_kernel, one window with all its heads per program) and
-// _bwd_qkv_vjp (_bwd_qkv_kernel, which also adds every window's ds into one
-// dbias block revisited on its sequential grid). It is the attention core
-// of an unfused Swin block (non-LayerNorm norms, or dropout in training),
-// between the qkv and proj Linears, which stay PyTorch matmuls.
+// Replaces, in vsn_tpu/ops/window_attention.py:
+// - _fwd_qkv and _bwd_qkv_vjp (K4, fused_window_attention_qkv): q, k, v
+//   packed in the qkv projection [BW, N, 3C], out merged-head [BW, N, C],
+//   window bw on ids row bw % W. It is the attention core of an unfused
+//   Swin block, between the qkv and proj Linears (PyTorch matmuls);
+// - _fwd and _bwd (V1, fused_window_attention): q, k, v and out split
+//   [BW, H, N, d], window bw on ids row bw % W;
+// - _fwd_win and _bwd_win_vjp (V3, fused_window_attention_windows): qkv
+//   [B, D, H, W, 3C] and out [B, D, H, W, C] on the unpartitioned (rolled,
+//   padded) map, windows of (wd, wh, ww) voxels in row-major (i, j, kw)
+//   order within each sample; window (i, j, kw) on ids row flat(i, j, kw)
+//   % W, its index within its sample (not bw % W: the two agree only when
+//   W divides the windows per sample).
+// The Pallas bodies (_fwd_kernel, _fwd_qkv_kernel, _fwd_win_kernel and
+// their backward) agree op for op and differ only in where an operand
+// lies, so here one kernel body serves all three, templated on an
+// addressing policy: Strided (K4, V1) or WindowRows (V3) maps (window,
+// head, token) to an element offset and a window to its ids row. Each
+// (TPU kernel, layout) pair is its own instantiation and C entry point.
 //
-// Numerics are the TPU kernel's, not K1's: q, k, v are read from the stored
-// type into f32 and every product is an f32 FMA; the softmax subtracts the
-// plain row max and divides each term by the f32 row sum before p . v; the
-// output and dqkv are cast to the activation type T once. The mask is
-// additive -1e9 where the region ids of query and key differ (pad slots
-// carry -1, an unshifted block passes W = 1 row of zeros).
+// Numerics are the TPU kernels', not K1's: q, k, v are read from the
+// stored type into f32 and every product is an f32 FMA; the softmax
+// subtracts the plain row max and divides each term by the f32 row sum
+// before p . v; the output and the gradients are cast to the activation
+// type T once. The mask is additive -1e9 where the region ids of query and
+// key differ (pad slots carry -1, an unshifted block passes W = 1 row of
+// zeros).
 //
 // What bounds it here: the FMA arithmetic of the products (4 N^2 d per
 // window and head forward, 10 N^2 d backward; no tensor cores yet), while
-// the bytes it must move are small (qkv once, the output once). One
+// the bytes it must move are small (q, k, v once, the output once). One
 // window's [N, N] f32 scores (254 KB at N = 252) do not fit in the 227 KB a
 // block may hold, so no [N, N] matrix is ever stored: as in K1f
 // (attn_half.cu) and K1b (attn_half_bwd.cu), one block takes one (window,
 // head), keeps that head's operands in shared memory as f32 and gives each
 // warp one query row at a time, whose N scores sit in a row buffer.
 //
-// K4b runs in the two phases of K1b. Phase A takes query rows: scores, row
-// max and sum, p, dp = dO V^T, ds = p (dp - rowsum(p dp)), dq = scale ds K,
-// and adds ds into dbias with f32 atomics (the TPU's revisited block is a
-// reduction over every window here; the order of the adds varies, so dbias
-// matches a plain sum to rounding). Phase B takes key rows and recomputes
-// p and ds column by column from phase A's row statistics for
-// dk = scale ds^T Q and dv = p^T dO, so no dk/dv sum needs atomics. Both
-// phases form the score, p and ds with the same round-to-nearest operations
-// (no contraction into FMA), so phase B's p and ds equal phase A's bit for
-// bit.
-//
-// Operands are addressed through strides (HeadStrides), not through the
-// packed layout: the split [BW, H, N, d] layout of the v1 kernel
-// (fused_window_attention) is another setting of the same strides.
+// The backward runs in the two phases of K1b. Phase A takes query rows:
+// scores, row max and sum, p, dp = dO V^T, ds = p (dp - rowsum(p dp)),
+// dq = scale ds K, and adds ds into dbias with f32 atomics (the TPU's
+// revisited block is a reduction over every window here; the order of the
+// adds varies, so dbias matches a plain sum to rounding). Phase B takes key
+// rows and recomputes p and ds column by column from phase A's row
+// statistics for dk = scale ds^T Q and dv = p^T dO, so no dk/dv sum needs
+// atomics. Both phases form the score, p and ds with the same
+// round-to-nearest operations (no contraction into FMA), so phase B's p
+// and ds equal phase A's bit for bit.
 
 #include "common.cuh"
 
 namespace {
 
-// Element (window bw, head h, token i, channel c) of an operand lies at
-// bw * win + h * head + i * row + c from its base pointer.
+// Element (window bw, head h, token t, channel c) of a strided operand
+// lies at bw * win + h * head + t * row + c from its base pointer.
 struct HeadStrides {
   long long win, head, row;
-  __device__ __forceinline__ long long at(long long bw, int h) const {
-    return bw * win + (long long)h * head;
+};
+
+// Addressing policy of K4 (packed qkv, merged-head out) and V1 (split
+// q, k, v and out): every operand in strides; window bw on ids row bw % W.
+struct Strided {
+  HeadStrides in, out;  // q, k, v (and dq, dk, dv); out (and dout)
+  // One (window, head): token t at in(t) in q, k, v and at out(t) in out.
+  struct At {
+    long long in0, out0, in_row, out_row;
+    __device__ __forceinline__ long long in(int t) const { return in0 + t * in_row; }
+    __device__ __forceinline__ long long out(int t) const { return out0 + t * out_row; }
+  };
+  __device__ __forceinline__ At at(long long bw, int h) const {
+    return {bw * in.win + h * in.head, bw * out.win + h * out.head, in.row, out.row};
+  }
+  __device__ __forceinline__ long long ids_row(long long bw, int rows) const {
+    return bw % rows;
+  }
+};
+
+// Addressing policy of V3: the unpartitioned map [B, md, mh, mw, ch] (ch
+// = 3C channels for qkv, C for out; q, k, v at channel 0, C, 2C; head h
+// at h * d). Window bw = (b, i, j, kw) and token t = (td, th, tw) sit at
+// voxel ((b md + i wd + td) mh + j wh + th) mw + kw ww + tw, in 64 bits.
+struct WindowRows {
+  int md, mh, mw;             // the map's D, H, W (multiples of the window)
+  int wd, wh, ww;             // the window
+  int d;                      // head dim
+  long long in_row, out_row;  // channels per voxel of qkv (3C) and out (C)
+  struct At {
+    long long in0, out0, in_row, out_row;
+    int mh, mw, wh, ww;
+    // token t's voxel, counted from the window's first voxel
+    __device__ __forceinline__ long long voxel(int t) const {
+      const int td = t / (wh * ww), th = (t / ww) % wh, tw = t % ww;
+      return ((long long)td * mh + th) * mw + tw;
+    }
+    __device__ __forceinline__ long long in(int t) const { return in0 + voxel(t) * in_row; }
+    __device__ __forceinline__ long long out(int t) const { return out0 + voxel(t) * out_row; }
+  };
+  __device__ __forceinline__ long long windows() const {
+    return (long long)(md / wd) * (mh / wh) * (mw / ww);
+  }
+  // the first voxel of window bw
+  __device__ __forceinline__ long long voxel0(long long bw) const {
+    const int nwh = mh / wh, nww = mw / ww;
+    const long long b = bw / windows(), r = bw % windows();
+    const long long i = r / (nwh * nww), j = (r / nww) % nwh, kw = r % nww;
+    return ((b * md + i * wd) * mh + j * wh) * mw + kw * ww;
+  }
+  __device__ __forceinline__ At at(long long bw, int h) const {
+    const long long v0 = voxel0(bw);
+    return {v0 * in_row + h * d, v0 * out_row + h * d, in_row, out_row, mh, mw, wh, ww};
+  }
+  __device__ __forceinline__ long long ids_row(long long bw, int rows) const {
+    return (bw % windows()) % rows;
   }
 };
 
 template <typename T>
 struct AttnParams {
-  const T* q;            // q, k, v (and dq, dk, dv) in ``in`` strides
+  const T* q;            // q, k, v (and dq, dk, dv): the policy's in(t)
   const T* k;
   const T* v;
-  HeadStrides in;
-  T* out;                // out (K4f) and dout (K4b) in ``outs`` strides
+  T* out;                // out (forward) and dout (backward): its out(t)
   const T* dout;
-  HeadStrides outs;
-  T* dq;                 // K4b
+  T* dq;                 // backward
   T* dk;
   T* dv;
   const float* bias;     // [H, N, N]
-  const float* bias_t;   // [H, N, N], each head transposed (K4b)
-  float* dbias;          // [H, N, N], zeroed by the caller (K4b adds)
-  const int* ids;        // [W, N]: window bw uses row bw % W
+  const float* bias_t;   // [H, N, N], each head transposed (backward)
+  float* dbias;          // [H, N, N], zeroed by the caller (backward adds)
+  const int* ids;        // [W, N]: window bw uses the policy's ids_row
   int ids_rows;
   int n, d, heads;
   float scale;
@@ -90,29 +152,27 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b, int d) 
   return s;
 }
 
-// Copies one (window, head) operand [N, d] of ``src`` into shared memory
-// as f32 rows of ``ld`` floats.
-template <typename T>
+// Copies one (window, head) operand [N, d] of ``src``, token t at
+// offset(t), into shared memory as f32 rows of ``ld`` floats.
+template <typename T, typename Offset>
 __device__ __forceinline__ void stage_head(float* dst, int ld, const T* src,
-                                           long long base, long long row, int n,
-                                           int d) {
+                                           Offset offset, int n, int d) {
   for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
     const int j = e / d, c = e % d;
-    dst[j * ld + c] = to_f32(src[base + j * row + c]);
+    dst[j * ld + c] = to_f32(src[offset(j) + c]);
   }
 }
 
-// Copies the region ids of window bw (row bw % W) into shared memory.
-template <typename T>
-__device__ __forceinline__ void stage_ids(int* dst, const AttnParams<T>& p, long long bw) {
-  const int* row = p.ids + (bw % p.ids_rows) * p.n;
-  for (int j = threadIdx.x; j < p.n; j += blockDim.x) dst[j] = row[j];
+// Copies ids row ``row`` into shared memory.
+__device__ __forceinline__ void stage_ids(int* dst, const int* ids, long long row, int n) {
+  const int* src = ids + row * n;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = src[j];
 }
 
 constexpr int kFwdWarps = 8;
 
-template <typename T>
-__global__ void __launch_bounds__(kFwdWarps * 32) attention_qkv_fwd_kernel(AttnParams<T> p) {
+template <typename T, typename L>
+__global__ void __launch_bounds__(kFwdWarps * 32) attention_fwd_kernel(AttnParams<T> p, L lay) {
   extern __shared__ float smem[];
   const int n = p.n, d = p.d, dp1 = d + 1;
   float* ks = smem;                      // [n][d + 1]  (padded: no bank conflicts)
@@ -124,18 +184,19 @@ __global__ void __launch_bounds__(kFwdWarps * 32) attention_qkv_fwd_kernel(AttnP
   const long long bw = blockIdx.x / p.heads;
   const int h = blockIdx.x % p.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long in0 = p.in.at(bw, h), out0 = p.outs.at(bw, h);
+  const typename L::At at = lay.at(bw, h);
+  const auto in = [&](int t) { return at.in(t); };
 
-  stage_head(ks, dp1, p.k, in0, p.in.row, n, d);
-  stage_head(vs, d, p.v, in0, p.in.row, n, d);
-  stage_ids(ids_s, p, bw);
+  stage_head(ks, dp1, p.k, in, n, d);
+  stage_head(vs, d, p.v, in, n, d);
+  stage_ids(ids_s, p.ids, lay.ids_row(bw, p.ids_rows), n);
   __syncthreads();
 
   float* q = qs + warp * 32;
   float* u = us + warp * n;
   const float* bias_h = p.bias + (long long)h * n * n;
   for (int i = warp; i < n; i += kFwdWarps) {
-    if (lane < d) q[lane] = to_f32(p.q[in0 + i * p.in.row + lane]);
+    if (lane < d) q[lane] = to_f32(p.q[at.in(i) + lane]);
     __syncwarp();
     const int id_i = ids_s[i];
     float mx = -INFINITY;
@@ -158,7 +219,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32) attention_qkv_fwd_kernel(AttnP
     if (lane < d) {
       float o = 0.f;
       for (int j = 0; j < n; ++j) o = fmaf(u[j], vs[j * d + lane], o);
-      p.out[out0 + i * p.outs.row + lane] = from_f32<T>(o);
+      p.out[at.out(i) + lane] = from_f32<T>(o);
     }
     __syncwarp();
   }
@@ -172,8 +233,8 @@ size_t fwd_smem_bytes(int n, int d) {
 
 constexpr int kBwdWarps = 16;
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdWarps * 32) attention_qkv_bwd_kernel(AttnParams<T> p) {
+template <typename T, typename L>
+__global__ void __launch_bounds__(kBwdWarps * 32) attention_bwd_kernel(AttnParams<T> p, L lay) {
   extern __shared__ float smem[];
   const int n = p.n, d = p.d, dp1 = d + 1;
   float* qs = smem;                  // [n][d + 1]
@@ -189,13 +250,15 @@ __global__ void __launch_bounds__(kBwdWarps * 32) attention_qkv_bwd_kernel(AttnP
   const long long bw = blockIdx.x / p.heads;
   const int h = blockIdx.x % p.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long in0 = p.in.at(bw, h), out0 = p.outs.at(bw, h);
+  const typename L::At at = lay.at(bw, h);
+  const auto in = [&](int t) { return at.in(t); };
+  const auto out = [&](int t) { return at.out(t); };
 
-  stage_head(qs, dp1, p.q, in0, p.in.row, n, d);
-  stage_head(ks, dp1, p.k, in0, p.in.row, n, d);
-  stage_head(vs, dp1, p.v, in0, p.in.row, n, d);
-  stage_head(dos, dp1, p.dout, out0, p.outs.row, n, d);
-  stage_ids(ids_s, p, bw);
+  stage_head(qs, dp1, p.q, in, n, d);
+  stage_head(ks, dp1, p.k, in, n, d);
+  stage_head(vs, dp1, p.v, in, n, d);
+  stage_head(dos, dp1, p.dout, out, n, d);
+  stage_ids(ids_s, p.ids, lay.ids_row(bw, p.ids_rows), n);
   __syncthreads();
 
   float* u = bufs + warp * 2 * n;  // phase A: scores, exp, then p; phase B: p column
@@ -243,7 +306,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32) attention_qkv_bwd_kernel(AttnP
     if (lane < d) {
       float a = 0.f;
       for (int j = 0; j < n; ++j) a = fmaf(w[j], ks[j * dp1 + lane], a);
-      p.dq[in0 + i * p.in.row + lane] = from_f32<T>(a * p.scale);
+      p.dq[at.in(i) + lane] = from_f32<T>(a * p.scale);
     }
     if (lane == 0) {
       mx_s[i] = mx;
@@ -274,8 +337,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32) attention_qkv_bwd_kernel(AttnP
         av = fmaf(u[i], dos[i * dp1 + lane], av);
         ak = fmaf(w[i], qs[i * dp1 + lane], ak);
       }
-      p.dk[in0 + j * p.in.row + lane] = from_f32<T>(ak * p.scale);
-      p.dv[in0 + j * p.in.row + lane] = from_f32<T>(av);
+      p.dk[at.in(j) + lane] = from_f32<T>(ak * p.scale);
+      p.dv[at.in(j) + lane] = from_f32<T>(av);
     }
     __syncwarp();
   }
@@ -287,18 +350,14 @@ size_t bwd_smem_bytes(int n, int d) {
          sizeof(int) * (size_t)n;
 }
 
-// The strides of the packed layout: qkv [BW, N, 3C] (q at channel 0, k at
-// C, v at 2C; head h at h * d) and the merged-head out / dout [BW, N, C].
 template <typename T>
-AttnParams<T> packed(const T* qkv, const float* bias, const int* ids, int ids_rows,
-                     int n, int c, int heads, float scale) {
+AttnParams<T> params(const T* q, const T* k, const T* v, const float* bias,
+                     const int* ids, int ids_rows, int n, int d, int heads,
+                     float scale) {
   AttnParams<T> p = {};
-  const int d = c / heads;
-  p.q = qkv;
-  p.k = qkv + c;
-  p.v = qkv + 2 * c;
-  p.in = {(long long)n * 3 * c, d, 3LL * c};
-  p.outs = {(long long)n * c, d, (long long)c};
+  p.q = q;
+  p.k = k;
+  p.v = v;
   p.bias = bias;
   p.ids = ids;
   p.ids_rows = ids_rows;
@@ -309,19 +368,54 @@ AttnParams<T> packed(const T* qkv, const float* bias, const int* ids, int ids_ro
   return p;
 }
 
+template <typename T, typename L>
+int launch_fwd(const AttnParams<T>& p, const L& lay, long long bw, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes(p.n, p.d);
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, L>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_fwd_kernel<T, L><<<(unsigned)(bw * p.heads), kFwdWarps * 32, smem, stream>>>(p, lay);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename L>
+int launch_bwd(const AttnParams<T>& p, const L& lay, long long bw, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(p.n, p.d);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<T, L>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_kernel<T, L><<<(unsigned)(bw * p.heads), kBwdWarps * 32, smem, stream>>>(p, lay);
+  return (int)cudaGetLastError();
+}
+
+// K4: qkv [BW, N, 3C] (q at channel 0, k at C, v at 2C; head h at h * d)
+// and the merged-head out / dout [BW, N, C].
+Strided packed(int n, int c, int heads) {
+  const int d = c / heads;
+  return {{(long long)n * 3 * c, d, 3LL * c}, {(long long)n * c, d, (long long)c}};
+}
+
+// V1: q, k, v, out and their gradients [BW, H, N, d].
+Strided split(int n, int d, int heads) {
+  const HeadStrides s = {(long long)heads * n * d, (long long)n * d, d};
+  return {s, s};
+}
+
+// V3: qkv [B, md, mh, mw, 3C] and out / dout [B, md, mh, mw, C].
+WindowRows grid(int md, int mh, int mw, int wd, int wh, int ww, int c, int heads) {
+  return {md, mh, mw, wd, wh, ww, c / heads, 3LL * c, (long long)c};
+}
+
 template <typename T>
 int attention_qkv_fwd(const T* qkv, const float* bias, const int* ids, int ids_rows,
                       T* out, long long bw, int n, int c, int heads, float scale,
                       cudaStream_t stream) {
-  AttnParams<T> p = packed(qkv, bias, ids, ids_rows, n, c, heads, scale);
+  AttnParams<T> p = params(qkv, qkv + c, qkv + 2 * c, bias, ids, ids_rows, n,
+                           c / heads, heads, scale);
   p.out = out;
-  const size_t smem = fwd_smem_bytes(n, p.d);
-  cudaError_t err = cudaFuncSetAttribute(attention_qkv_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_qkv_fwd_kernel<T><<<(unsigned)(bw * heads), kFwdWarps * 32, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_fwd(p, packed(n, c, heads), bw, stream);
 }
 
 template <typename T>
@@ -329,28 +423,82 @@ int attention_qkv_bwd(const T* qkv, const float* bias, const float* bias_t,
                       const int* ids, int ids_rows, const T* dout, T* dqkv,
                       float* dbias, long long bw, int n, int c, int heads,
                       float scale, cudaStream_t stream) {
-  AttnParams<T> p = packed(qkv, bias, ids, ids_rows, n, c, heads, scale);
+  AttnParams<T> p = params(qkv, qkv + c, qkv + 2 * c, bias, ids, ids_rows, n,
+                           c / heads, heads, scale);
   p.dout = dout;
   p.dq = dqkv;
   p.dk = dqkv + c;
   p.dv = dqkv + 2 * c;
   p.bias_t = bias_t;
   p.dbias = dbias;
-  const size_t smem = bwd_smem_bytes(n, p.d);
-  cudaError_t err = cudaFuncSetAttribute(attention_qkv_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_qkv_bwd_kernel<T><<<(unsigned)(bw * heads), kBwdWarps * 32, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_bwd(p, packed(n, c, heads), bw, stream);
+}
+
+template <typename T>
+int attention_split_fwd(const T* q, const T* k, const T* v, const float* bias,
+                        const int* ids, int ids_rows, T* out, long long bw, int n,
+                        int d, int heads, float scale, cudaStream_t stream) {
+  AttnParams<T> p = params(q, k, v, bias, ids, ids_rows, n, d, heads, scale);
+  p.out = out;
+  return launch_fwd(p, split(n, d, heads), bw, stream);
+}
+
+template <typename T>
+int attention_split_bwd(const T* q, const T* k, const T* v, const float* bias,
+                        const float* bias_t, const int* ids, int ids_rows,
+                        const T* dout, T* dq, T* dk, T* dv, float* dbias,
+                        long long bw, int n, int d, int heads, float scale,
+                        cudaStream_t stream) {
+  AttnParams<T> p = params(q, k, v, bias, ids, ids_rows, n, d, heads, scale);
+  p.dout = dout;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.bias_t = bias_t;
+  p.dbias = dbias;
+  return launch_bwd(p, split(n, d, heads), bw, stream);
+}
+
+template <typename T>
+int attention_windows_fwd(const T* qkv, const float* bias, const int* ids, int ids_rows,
+                          T* out, int b, int md, int mh, int mw, int wd, int wh,
+                          int ww, int c, int heads, float scale, cudaStream_t stream) {
+  const WindowRows lay = grid(md, mh, mw, wd, wh, ww, c, heads);
+  const long long bw = (long long)b * (md / wd) * (mh / wh) * (mw / ww);
+  AttnParams<T> p = params(qkv, qkv + c, qkv + 2 * c, bias, ids, ids_rows,
+                           wd * wh * ww, c / heads, heads, scale);
+  p.out = out;
+  return launch_fwd(p, lay, bw, stream);
+}
+
+template <typename T>
+int attention_windows_bwd(const T* qkv, const float* bias, const float* bias_t,
+                          const int* ids, int ids_rows, const T* dout, T* dqkv,
+                          float* dbias, int b, int md, int mh, int mw, int wd,
+                          int wh, int ww, int c, int heads, float scale,
+                          cudaStream_t stream) {
+  const WindowRows lay = grid(md, mh, mw, wd, wh, ww, c, heads);
+  const long long bw = (long long)b * (md / wd) * (mh / wh) * (mw / ww);
+  AttnParams<T> p = params(qkv, qkv + c, qkv + 2 * c, bias, ids, ids_rows,
+                           wd * wh * ww, c / heads, heads, scale);
+  p.dout = dout;
+  p.dq = dqkv;
+  p.dk = dqkv + c;
+  p.dv = dqkv + 2 * c;
+  p.bias_t = bias_t;
+  p.dbias = dbias;
+  return launch_bwd(p, lay, bw, stream);
 }
 
 }  // namespace
 
-// Both return cudaGetLastError() of the launch (or of setting its shared
-// memory size), else 0. is_bf16 selects bf16 activations (qkv, out, dout,
-// dqkv), else f32; bias, bias_t (bias with each head transposed) and dbias
-// are f32, ids int32. dbias must be zeroed by the caller: K4b adds into it.
+// Every entry returns cudaGetLastError() of the launch (or of setting its
+// shared memory size), else 0. is_bf16 selects bf16 activations (q, k, v
+// or qkv, out, dout and their gradients), else f32; bias, bias_t (bias
+// with each head transposed) and dbias are f32, ids int32. dbias must be
+// zeroed by the caller: the backward adds into it.
+
+// K4 on packed qkv [BW, N, 3C] (c = C).
 extern "C" int vsn_window_attention_qkv_fwd(int is_bf16, const void* qkv,
                                             const float* bias, const int* ids,
                                             int ids_rows, void* out, long long bw,
@@ -383,4 +531,85 @@ extern "C" int vsn_window_attention_qkv_bwd(int is_bf16, const void* qkv,
                                   ids_rows, static_cast<const float*>(dout),
                                   static_cast<float*>(dqkv), dbias, bw, n, c, heads,
                                   scale, s);
+}
+
+// V1 on split q, k, v [BW, H, N, d].
+extern "C" int vsn_window_attention_fwd(int is_bf16, const void* q, const void* k,
+                                        const void* v, const float* bias,
+                                        const int* ids, int ids_rows, void* out,
+                                        long long bw, int n, int d, int heads,
+                                        float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using B = __nv_bfloat16;
+    return attention_split_fwd<B>(static_cast<const B*>(q), static_cast<const B*>(k),
+                                  static_cast<const B*>(v), bias, ids, ids_rows,
+                                  static_cast<B*>(out), bw, n, d, heads, scale, s);
+  }
+  return attention_split_fwd<float>(static_cast<const float*>(q),
+                                    static_cast<const float*>(k),
+                                    static_cast<const float*>(v), bias, ids, ids_rows,
+                                    static_cast<float*>(out), bw, n, d, heads, scale, s);
+}
+
+extern "C" int vsn_window_attention_bwd(int is_bf16, const void* q, const void* k,
+                                        const void* v, const float* bias,
+                                        const float* bias_t, const int* ids,
+                                        int ids_rows, const void* dout, void* dq,
+                                        void* dk, void* dv, float* dbias,
+                                        long long bw, int n, int d, int heads,
+                                        float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using B = __nv_bfloat16;
+    return attention_split_bwd<B>(
+        static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
+        bias, bias_t, ids, ids_rows, static_cast<const B*>(dout), static_cast<B*>(dq),
+        static_cast<B*>(dk), static_cast<B*>(dv), dbias, bw, n, d, heads, scale, s);
+  }
+  return attention_split_bwd<float>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, bias_t, ids, ids_rows,
+      static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), dbias, bw, n, d, heads, scale, s);
+}
+
+// V3 on the map qkv [b, md, mh, mw, 3C] (c = C), windows (wd, wh, ww).
+extern "C" int vsn_window_attention_windows_fwd(int is_bf16, const void* qkv,
+                                                const float* bias, const int* ids,
+                                                int ids_rows, void* out, int b, int md,
+                                                int mh, int mw, int wd, int wh, int ww,
+                                                int c, int heads, float scale,
+                                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using B = __nv_bfloat16;
+    return attention_windows_fwd<B>(static_cast<const B*>(qkv), bias, ids, ids_rows,
+                                    static_cast<B*>(out), b, md, mh, mw, wd, wh, ww, c,
+                                    heads, scale, s);
+  }
+  return attention_windows_fwd<float>(static_cast<const float*>(qkv), bias, ids,
+                                      ids_rows, static_cast<float*>(out), b, md, mh, mw,
+                                      wd, wh, ww, c, heads, scale, s);
+}
+
+extern "C" int vsn_window_attention_windows_bwd(int is_bf16, const void* qkv,
+                                                const float* bias, const float* bias_t,
+                                                const int* ids, int ids_rows,
+                                                const void* dout, void* dqkv,
+                                                float* dbias, int b, int md, int mh,
+                                                int mw, int wd, int wh, int ww, int c,
+                                                int heads, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using B = __nv_bfloat16;
+    return attention_windows_bwd<B>(static_cast<const B*>(qkv), bias, bias_t, ids,
+                                    ids_rows, static_cast<const B*>(dout),
+                                    static_cast<B*>(dqkv), dbias, b, md, mh, mw, wd, wh,
+                                    ww, c, heads, scale, s);
+  }
+  return attention_windows_bwd<float>(static_cast<const float*>(qkv), bias, bias_t, ids,
+                                      ids_rows, static_cast<const float*>(dout),
+                                      static_cast<float*>(dqkv), dbias, b, md, mh, mw,
+                                      wd, wh, ww, c, heads, scale, s);
 }

@@ -49,6 +49,14 @@ _SIGNATURES = {
                                      _F, _P],
     "vsn_window_attention_qkv_bwd": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _L,
                                      _I, _I, _I, _F, _P],
+    "vsn_window_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _P, _L, _I, _I,
+                                 _I, _F, _P],
+    "vsn_window_attention_bwd": [_I, *[_P] * 6, _I, *[_P] * 5, _L, _I, _I,
+                                 _I, _F, _P],
+    "vsn_window_attention_windows_fwd": [_I, _P, _P, _P, _I, _P, *[_I] * 9,
+                                         _F, _P],
+    "vsn_window_attention_windows_bwd": [_I, _P, _P, _P, _P, _I, _P, _P, _P,
+                                         *[_I] * 9, _F, _P],
 }
 
 _lib = None

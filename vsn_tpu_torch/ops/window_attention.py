@@ -1,33 +1,46 @@
-"""Window attention on packed qkv: K4 (port of vsn_tpu/ops/window_attention.py).
+"""Window attention: K4, V1 and V3 (port of vsn_tpu/ops/window_attention.py).
 
-``window_attention_qkv`` is the port of ``fused_window_attention_qkv``: the
-attention core of an unfused Swin block, between its qkv and proj Linears,
+Three entry points compute one function on three operand layouts,
 
     out[bw, i, h] = sum_j p[bw, h, i, j] v[bw, j, h],
     p = softmax_j(q[bw, i, h] . k[bw, j, h] * scale + bias[h, i, j]
-                  + mask(ids[bw % W])[i, j]),
+                  + mask(ids[row(bw)])[i, j]):
 
-read from the qkv Linear's output [BW, N, 3C] (channels [q_h0..q_hH |
-k_h0..k_hH | v_h0..v_hH], head dim C/H) and written merged-head [BW, N, C].
-It is a ``torch.autograd.Function``: for a tensor on a CUDA device it
-launches K4f (``csrc/window_attention_qkv.cu``) forward and K4b backward;
-for a tensor on the CPU it runs the plain forward and the explicit plain
-backward. It never falls back from one to the other.
+- ``window_attention_qkv`` (K4, the port of ``fused_window_attention_qkv``):
+  the attention core of an unfused Swin block, between its qkv and proj
+  Linears, read from the qkv Linear's output [BW, N, 3C] (channels [q_h0..
+  q_hH | k_h0..k_hH | v_h0..v_hH], head dim C/H) and written merged-head
+  [BW, N, C]; row(bw) = bw % W;
+- ``window_attention`` (V1, ``fused_window_attention``): split q, k, v and
+  out [BW, H, N, d]; row(bw) = bw % W;
+- ``window_attention_windows`` (V3, ``fused_window_attention_windows``):
+  qkv read from the unpartitioned (rolled, padded) map [B, D, H, W, 3C]
+  and out written to [B, D, H, W, C]; window (i, j, k) of each sample on
+  row flat(i, j, k) % W.
 
-Numerics are the TPU kernel's, not K1's: q, k, v are read from their
+Each is a ``torch.autograd.Function``: for a tensor on a CUDA device it
+launches its kernels (``csrc/window_attention_qkv.cu``, one body on three
+addressing policies) forward and backward; for a tensor on the CPU it runs
+the plain forward and the explicit plain backward. It never falls back from
+one to the other.
+
+Numerics are the TPU kernels', not K1's: q, k, v are read from their
 stored dtype into f32; the softmax subtracts the plain row max and divides
 by the row sum in f32; p . v uses f32 p and f32 v; the output is cast to
-qkv's dtype once. The mask is additive -1e9 where region ids differ; pad
-slots carry id -1. The backward gives dqkv in qkv's dtype and dbias summed
-over every window in f32; ids and the static arguments get no gradient.
+the input's dtype once. The mask is additive -1e9 where region ids differ;
+pad slots carry id -1. The backward gives the input gradients in the
+input's dtype and dbias summed over every window in f32; ids and the
+static arguments get no gradient.
 
-``window_attention_qkv_reference`` is the plain version on any device (the
-plain forward, and ``window_attention_qkv_backward_reference`` as its
-backward); ``mask_from_ids`` and ``window_attention_reference`` (split
-heads) are the plain helpers the other kernels' plain versions share.
+``*_reference`` are the plain versions on any device (the plain forward,
+and ``*_backward_reference`` as its backward); ``mask_from_ids`` and
+``window_attention_reference`` (V1's plain forward) are the plain helpers
+the other kernels' plain versions share.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -210,3 +223,293 @@ def window_attention_qkv_reference(qkv, bias, ids, scale, n_heads):
     forward, and ``window_attention_qkv_backward_reference`` as its
     backward."""
     return _WindowAttentionQKV.apply(True, qkv, bias, ids, scale, n_heads)
+
+
+# ---------------------------------------------------------------------------
+# V1: split q, k, v [BW, H, N, d]
+# ---------------------------------------------------------------------------
+
+
+def window_attention_backward_reference(q, k, v, bias, ids, dout, scale):
+    """Plain VJP of ``window_attention``, mirroring _bwd_kernel: recompute
+    p, then dv = p^T do, dp = do v^T, ds = p (dp - rowsum(p dp)), dq = ds k
+    scale, dk = ds^T q scale. Returns (dq, dk, dv in q's dtype, dbias [H,
+    N, N] f32 summed over every window)."""
+    qf, kf = q.float(), k.float()
+    p = _probs(qf, kf, bias, ids, scale)
+    do = dout.float()
+    dv = p.transpose(-1, -2) @ do
+    dp = do @ v.float().transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds.sum(0)
+
+
+def _check_split(q, k, v, bias, ids):
+    """Validate V1's arguments; returns the number of id rows W."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"window_attention: q dtype {q.dtype} (f32 or bf16)")
+    if q.dim() != 4 or q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"window_attention: q {tuple(q.shape)} must be [BW, "
+                         f"H, N, d] with d <= {MAX_HEAD_DIM}")
+    bw, heads, n, _ = q.shape
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        expect(t, name, q.shape, q.dtype, dev)
+    expect(bias, "bias", (heads, n, n), torch.float32, dev)
+    w = ids.shape[0]
+    expect(ids, "ids", (w, n), torch.int32, dev)
+    if w == 0 or bw % w:
+        raise ValueError(f"window_attention: {w} id rows for {bw} windows")
+    return w
+
+
+def _split_forward_kernel(q, k, v, bias, ids, scale):
+    """V1f: launch ``csrc/window_attention_qkv.cu`` on the split layout."""
+    w = _check_split(q, k, v, bias, ids)
+    bw, heads, n, d = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = library().vsn_window_attention_fwd(
+            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), bias.data_ptr(), ids.data_ptr(), w, out.data_ptr(),
+            bw, n, d, heads, float(scale), stream_of(q))
+    check(err, "window_attention")
+    launches["attention_split"] += 1
+    return out
+
+
+def window_attention_backward(q, k, v, bias, ids, dout, scale):
+    """VJP of ``window_attention``: V1b for a CUDA tensor,
+    ``window_attention_backward_reference`` for a CPU one; same returns."""
+    if q.device.type == "cpu":
+        return window_attention_backward_reference(q, k, v, bias, ids, dout,
+                                                   scale)
+    w = _check_split(q, k, v, bias, ids)
+    bw, heads, n, d = q.shape
+    expect(dout, "dout", q.shape, q.dtype, q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = torch.zeros((heads, n, n), dtype=torch.float32,
+                        device=q.device)  # V1b adds into it
+    bias_t = bias.transpose(1, 2).contiguous()
+    with torch.cuda.device(q.device):
+        err = library().vsn_window_attention_bwd(
+            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), bias.data_ptr(), bias_t.data_ptr(), ids.data_ptr(),
+            w, dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dbias.data_ptr(), bw, n, d, heads, float(scale), stream_of(q))
+    check(err, "window_attention_bwd")
+    launches["attention_split_bwd"] += 1
+    return dq, dk, dv, dbias
+
+
+class _WindowAttention(torch.autograd.Function):
+    """V1 with its VJP; ``plain`` selects the plain forward and backward."""
+
+    @staticmethod
+    def forward(ctx, plain, q, k, v, bias, ids, scale):
+        fwd = window_attention_reference if plain else _split_forward_kernel
+        ctx.plain, ctx.scale = plain, scale
+        ctx.save_for_backward(q, k, v, bias, ids)
+        return fwd(q, k, v, bias, ids, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        bwd = (window_attention_backward_reference if ctx.plain
+               else window_attention_backward)
+        q, k, v, bias, ids = ctx.saved_tensors
+        dq, dk, dv, dbias = bwd(q, k, v, bias, ids, dout.contiguous(),
+                                ctx.scale)
+        return None, dq, dk, dv, dbias, None, None
+
+
+def window_attention(q, k, v, bias, ids, scale):
+    """Multi-head window attention on split heads.
+
+    Args:
+        q, k, v: [BW, H, N, d], one dtype (f32 or bf16), d <= 32. Any N:
+            padding N (to 256, as the JAX caller does) is the caller's
+            choice; pad slots then carry id -1.
+        bias: [H, N, N] f32 relative-position bias.
+        ids: [W, N] int32 region ids, W dividing BW (window bw uses row bw
+            % W; ids that differ are masked with -1e9).
+        scale: attention scale.
+    Returns: [BW, H, N, d] in q's dtype. Differentiable in q, k, v and bias
+    (V1b on a CUDA device).
+    """
+    return _WindowAttention.apply(q.device.type == "cpu", q, k, v, bias, ids,
+                                  scale)
+
+
+def window_attention_split_reference(q, k, v, bias, ids, scale):
+    """Plain version of ``window_attention`` on any device: the plain
+    forward (``window_attention_reference``), and
+    ``window_attention_backward_reference`` as its backward."""
+    return _WindowAttention.apply(True, q, k, v, bias, ids, scale)
+
+
+# ---------------------------------------------------------------------------
+# V3: the unpartitioned map [B, D, H, W, 3C]
+# ---------------------------------------------------------------------------
+
+
+def window_ids(ids, n_windows):
+    """[W, N] region ids -> [nW, N]: window r of a sample on row r % W, the
+    ids-row rule of ``window_attention_windows``."""
+    rows = torch.arange(n_windows, device=ids.device) % ids.shape[0]
+    return ids[rows]
+
+
+def _partitioned(qkv, ids, window):
+    """(partition of qkv, ids expanded to one row per window of a sample)
+    for the plain versions of V3."""
+    from vsn_tpu_torch.models.swin3d import window_partition
+
+    n_windows = math.prod(m // w for m, w in zip(qkv.shape[1:4], window))
+    return window_partition(qkv, window), window_ids(ids, n_windows)
+
+
+def window_attention_windows_math(qkv, bias, ids, scale, n_heads, window):
+    """The forward of ``window_attention_windows`` in plain PyTorch ops:
+    partition, K4's plain forward, reverse."""
+    from vsn_tpu_torch.models.swin3d import window_reverse
+
+    wins, rows = _partitioned(qkv, ids, window)
+    out = window_attention_qkv_math(wins, bias, rows, scale, n_heads)
+    return window_reverse(out, window, qkv.shape[1:4])
+
+
+def window_attention_windows_backward_reference(qkv, bias, ids, dout, scale,
+                                                n_heads, window):
+    """Plain VJP of ``window_attention_windows``: partition qkv and dout,
+    K4's plain backward, reverse dqkv. Returns (dqkv [B, D, H, W, 3C] in
+    qkv's dtype, dbias [H, N, N] f32)."""
+    from vsn_tpu_torch.models.swin3d import window_partition, window_reverse
+
+    wins, rows = _partitioned(qkv, ids, window)
+    dwins, dbias = window_attention_qkv_backward_reference(
+        wins, bias, rows, window_partition(dout, window), scale, n_heads)
+    return window_reverse(dwins, window, qkv.shape[1:4]), dbias
+
+
+def _check_windows(qkv, bias, ids, n_heads, window):
+    """Validate V3's arguments; returns the number of id rows W."""
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"window_attention_windows: qkv dtype {qkv.dtype} "
+                        "(f32 or bf16)")
+    if qkv.dim() != 5 or len(window) != 3:
+        raise ValueError("window_attention_windows: qkv must be [B, D, H, W, "
+                         "3C] and the window 3-D")
+    dims, c3 = qkv.shape[1:4], qkv.shape[4]
+    if any(w <= 0 or m % w for m, w in zip(dims, window)):
+        raise ValueError(f"window_attention_windows: map {tuple(dims)} is not "
+                         f"a multiple of the window {tuple(window)}")
+    if c3 % (3 * n_heads) or c3 // (3 * n_heads) > MAX_HEAD_DIM:
+        raise ValueError(f"window_attention_windows: 3C={c3} over {n_heads} "
+                         f"heads needs a head dim <= {MAX_HEAD_DIM}")
+    n = math.prod(window)
+    dev = qkv.device
+    expect(qkv, "qkv", qkv.shape, qkv.dtype, dev)
+    expect(bias, "bias", (n_heads, n, n), torch.float32, dev)
+    w = ids.shape[0]
+    expect(ids, "ids", (w, n), torch.int32, dev)
+    if w == 0:
+        raise ValueError("window_attention_windows: no id rows")
+    return w
+
+
+def _geometry(qkv, window):
+    """(B, D, H, W, wd, wh, ww, C) as the C entry points take them."""
+    return (*qkv.shape[:4], *window, qkv.shape[4] // 3)
+
+
+def _windows_forward_kernel(qkv, bias, ids, scale, n_heads, window):
+    """V3f: launch ``csrc/window_attention_qkv.cu`` on the map."""
+    w = _check_windows(qkv, bias, ids, n_heads, window)
+    out = torch.empty((*qkv.shape[:4], qkv.shape[4] // 3), dtype=qkv.dtype,
+                      device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = library().vsn_window_attention_windows_fwd(
+            int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), bias.data_ptr(),
+            ids.data_ptr(), w, out.data_ptr(), *_geometry(qkv, window),
+            n_heads, float(scale), stream_of(qkv))
+    check(err, "window_attention_windows")
+    launches["attention_windows"] += 1
+    return out
+
+
+def window_attention_windows_backward(qkv, bias, ids, dout, scale, n_heads,
+                                      window):
+    """VJP of ``window_attention_windows``: V3b for a CUDA tensor,
+    ``window_attention_windows_backward_reference`` for a CPU one; same
+    returns."""
+    if qkv.device.type == "cpu":
+        return window_attention_windows_backward_reference(
+            qkv, bias, ids, dout, scale, n_heads, window)
+    w = _check_windows(qkv, bias, ids, n_heads, window)
+    expect(dout, "dout", (*qkv.shape[:4], qkv.shape[4] // 3), qkv.dtype,
+           qkv.device)
+    dqkv = torch.empty_like(qkv)
+    n = math.prod(window)
+    dbias = torch.zeros((n_heads, n, n), dtype=torch.float32,
+                        device=qkv.device)  # V3b adds into it
+    bias_t = bias.transpose(1, 2).contiguous()
+    with torch.cuda.device(qkv.device):
+        err = library().vsn_window_attention_windows_bwd(
+            int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), bias.data_ptr(),
+            bias_t.data_ptr(), ids.data_ptr(), w, dout.data_ptr(),
+            dqkv.data_ptr(), dbias.data_ptr(), *_geometry(qkv, window),
+            n_heads, float(scale), stream_of(qkv))
+    check(err, "window_attention_windows_bwd")
+    launches["attention_windows_bwd"] += 1
+    return dqkv, dbias
+
+
+class _WindowAttentionWindows(torch.autograd.Function):
+    """V3 with its VJP; ``plain`` selects the plain forward and backward."""
+
+    @staticmethod
+    def forward(ctx, plain, qkv, bias, ids, scale, n_heads, window):
+        fwd = window_attention_windows_math if plain else _windows_forward_kernel
+        ctx.plain, ctx.static = plain, (scale, n_heads, tuple(window))
+        ctx.save_for_backward(qkv, bias, ids)
+        return fwd(qkv, bias, ids, scale, n_heads, tuple(window))
+
+    @staticmethod
+    def backward(ctx, dout):
+        bwd = (window_attention_windows_backward_reference if ctx.plain
+               else window_attention_windows_backward)
+        qkv, bias, ids = ctx.saved_tensors
+        dqkv, dbias = bwd(qkv, bias, ids, dout.contiguous(), *ctx.static)
+        return None, dqkv, dbias, None, None, None, None
+
+
+def window_attention_windows(qkv, bias, ids, scale, n_heads, window):
+    """Multi-head window attention over the unpartitioned qkv map.
+
+    Args:
+        qkv: [B, D, H, W, 3C] (the qkv Linear's output on the rolled, padded
+            feature map), f32 or bf16, contiguous; D, H, W multiples of
+            ``window``; channels [q heads | k heads | v heads], head dim C /
+            n_heads <= 32.
+        bias: [H, N, N] f32 relative-position bias, N = prod(window).
+        ids: [W, N] int32 region ids; window (i, j, k) of each sample, in
+            row-major order, uses row flat(i, j, k) % W (any W). An
+            unshifted block passes one row of zeros.
+        scale, n_heads, window: attention scale, heads and window.
+    Returns: [B, D, H, W, C] merged-head output in qkv's dtype, with no
+    partition or reverse copy. Differentiable in qkv and bias (V3b on a
+    CUDA device).
+    """
+    return _WindowAttentionWindows.apply(qkv.device.type == "cpu", qkv, bias,
+                                         ids, scale, n_heads, tuple(window))
+
+
+def window_attention_windows_reference(qkv, bias, ids, scale, n_heads,
+                                       window):
+    """Plain version of ``window_attention_windows`` on any device: the
+    plain forward (partition, K4's plain forward, reverse), and
+    ``window_attention_windows_backward_reference`` as its backward."""
+    return _WindowAttentionWindows.apply(True, qkv, bias, ids, scale, n_heads,
+                                         tuple(window))
