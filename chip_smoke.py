@@ -52,7 +52,20 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    also at saturated logits (bias 8 z + 45 and 8 z + 200, f32, as
    tests/test_swin_block_kernels.py saturates them): finite and within
    tolerance; the movers' adjoints bit-exact;
-7. K5 parity: the stem conv K5f and its weight gradient K5w against their
+7. the attention probes P1-P5 (``ops/attn_probe.py``, the ports of
+   scripts/perf_probe_attn_ablate{,2}.py) at one stage-1 K1 call: every P1
+   variant, P5 run and copy against its plain version at the scripts'
+   inputs (x [1728, 252, 96] bf16 from default_rng(0); copies bit-exact,
+   bf16 out to 2e-2 of its scale), and every P1 variant and P5 run with f32
+   x and out at seeded inputs where each ablated piece matters (x = 3 z + 1
+   + a per-row offset, weights fan_in^-0.5 z, bias z), on the branch out -
+   x: max within 8e-3 of its largest value and RMS within 1e-3 of its RMS;
+   the probe path (``python -m vsn_tpu_torch.probes.attn_ablate[2]``'s
+   ``main``) with every launch counter at 0 before and exactly 3 launches
+   per call of a whole half-block, 2 of ``linear_only`` / ``attn_only`` /
+   ``lin``, 1 of a copy after; each run's time beside its plain version's,
+   its bound, ``Tensor.copy_``'s for the copies, and K1f's on the same x;
+8. K5 parity: the stem conv K5f and its weight gradient K5w against their
    plain versions (the f32 conv of dtype-rounded operands, and its VJP) in
    f32 (1e-4 of scale, TF32 off) and bf16 (2e-2) at batch 2 on the
    geometries of tests/test_stem_im2col.py (ResNet and MedViT stems,
@@ -60,7 +73,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    then in bf16 at the slice's shape, x [12, 144, 168, 144, 1] (2e-2);
    their times beside the plain versions' and the library calls' (cuDNN
    conv3d in bf16, channels-last, and conv3d_weight);
-8. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
+9. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
    gains, ``Evaluator`` over 8 seeded float16 144x168x144 volumes in
    batches of 4, launch counters 0 before and exactly 12 (K1) / 12 (K2) /
    7 (K3) per forward after, none of K5; probs finite, rows summing to 1,
@@ -68,7 +81,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    two are further apart than twice that difference; one batch's logits
    within 2e-2 of the plain path's largest |logit|; ms per batch and vol/s
    of both paths;
-9. the Swin training path: ``init_train_state`` -> ``make_train_step`` for
+10. the Swin training path: ``init_train_state`` -> ``make_train_step`` for
    Swin-T 5c in bf16 with the flagship recipe (SAM, EMA of 3, MixUp p = 0.5,
    ShakeDrop, label smoothing 0.1), micro-batch 8, two micro-batches per
    step, on 16 seeded float16 volumes and their MixUp partners laid out as
@@ -82,26 +95,26 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    ``Evaluator``; then the same initial state, batches and injected draws
    for 2 steps on the plain route: per-step loss within 2e-2 and grad norm
    within 5e-2 (relative) of the kernel route;
-10. the DynamicTanh eval path: phase 8 for Swin-T 5c with NORM_LAYER
+11. the DynamicTanh eval path: phase 8 for Swin-T 5c with NORM_LAYER
    DynamicTanh, whose blocks all run unfused: exactly 12 K4f launches per
    forward and none of K1/K2/K3/K5;
-11. the DynamicTanh training path: phase 9 for that model with DROPOUT 0.1
+12. the DynamicTanh training path: phase 9 for that model with DROPOUT 0.1
    (keep masks after the patch embed, proj, GELU and fc2, injected with the
    ShakeDrop gains): exactly 12 K4f and 12 K4b per micro-batch and SAM
    pass and no other launch; every parameter, DyT's 0-d alpha included,
    reached by one backward; the plain route's 2 steps within TRAIN_RTOL;
-12. each Swin kernel's time per micro-batch at the training shapes beside
+13. each Swin kernel's time per micro-batch at the training shapes beside
    its plain version's (the eval phase times the forwards at batch 4), and
    for K4f / K4b the library's: one ``F.scaled_dot_product_attention`` call
    per K4 call on the split heads with the additive float mask bias[h] +
    mask(ids), and that call's backward (also V1f / V1b's yardstick: the
    same function on the same split heads; V3 has no single call);
-13. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
+14. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
    dropout 0.1, bf16), seeded weights whose BatchNorm statistics are
    re-estimated by ``make_bn_refresh_step`` over 8 volumes, ``Evaluator``
    over the 8 volumes in batches of 4: exactly 1 K5f and no other launch
    per forward; probs as in phase 8 against the plain stem;
-14. the ResNet training path: the same recipe
+15. the ResNet training path: the same recipe
    without ShakeDrop (the ResNet has no residual gains), micro-batch 12 x
    2, injected head-dropout masks: every parameter reached by one
    backward; 1 + 3 steps with exactly 1 K5f and 1 K5w per micro-batch and
@@ -109,7 +122,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    BatchNorm statistics moved and the EMA's apart from the live ones; the
    EMA weights and statistics through ``Evaluator``; 2 plain-stem steps
    from the same state within 2e-2 / 5e-2;
-15. each kernel's time beside its bound: the larger of the bytes its calls
+16. each kernel's time beside its bound: the larger of the bytes its calls
    move (inputs read once, outputs written once) over 3.35 TB/s and the
    products they compute over 989 TFLOP/s (bf16), from this run's shapes.
 torch.profiler runs over one eval pass and one train step of each Swin
@@ -179,6 +192,37 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "attention_windows_bwd": ("vsn_tpu_torch/csrc/window_attention_qkv.cu",
                               "vsn_tpu/ops/window_attention.py:528"),
 }
+# The attention probes, one entry per run of the two scripts: launch key
+# (ops/attn_probe.py launch_key) -> (the script's run name, source, TPU
+# kernel it replaces). P1 and P5 are variants of K1f's body.
+_P1 = "scripts/perf_probe_attn_ablate.py"
+_P2 = "scripts/perf_probe_attn_ablate2.py"
+_K1_SRC, _COPY_SRC = ("vsn_tpu_torch/csrc/attn_half.cu",
+                      "vsn_tpu_torch/csrc/probe_copy.cu")
+PROBES = {
+    **{f"attn_ablate.{v}": (v, _K1_SRC, f"{_P1}:106")
+       for v in ("full2d", "noln", "nosm", "nobias", "linear_only",
+                 "attn_only")},
+    "copy_windows.wb1": ("copy_only", _COPY_SRC, f"{_P2}:128"),
+    "copy_windows.wb1.ops": ("copy_ops", _COPY_SRC, f"{_P2}:135"),
+    "copy_windows.wb8": ("copy_only_wb8", _COPY_SRC, f"{_P2}:145"),
+    "attn_slot.lin.wb8": ("lin2d_wb8", _K1_SRC, f"{_P2}:152"),
+    "attn_slot.full.wb8": ("full2d_wb8", _K1_SRC, f"{_P2}:152"),
+    "attn_slot.full.wb8.f32": ("full2d_wb8_f32", _K1_SRC, f"{_P2}:152"),
+    "attn_slot.full.wb1": ("full2d_wb1", _K1_SRC, f"{_P2}:152"),
+}
+KERNELS.update({key: (src, rep) for key, (_, src, rep) in PROBES.items()})
+# The probes' f32-out check, on the branch out - x: its largest difference
+# within P_MAX_TOL of the branch's largest value, and its RMS difference
+# within P_RMS_TOL of the branch's RMS. Both sides round q, k, v, p, y and
+# ao to bf16 at the same points, so they differ by a bf16 step of one of
+# those wherever an f32 difference of a few ulps (exp, the order of sums)
+# crosses a rounding boundary: attn_only's branch is p v with v = bf16(y),
+# so one flipped y moves it by up to two steps (2^-7) of its largest value
+# (1.08 of a 4e-3 limit on the H100). The RMS sees the systematic errors
+# that such a max hides: a kernel that rounds p before normalizing it
+# moves every p by up to a step (RMS ~2.7e-3 of the branch's on the CPU).
+P_MAX_TOL, P_RMS_TOL = 8e-3, 1e-3
 STEM = ("stem_im2col", "stem_im2col_dw")
 BLOCK_KERNELS = ("attn_half", "ln_mlp")
 # V1 (split q, k, v) and V3 (the unpartitioned map): K4's function on other
@@ -236,7 +280,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # the forward call whose arguments set a kernel's work (bound_ms)
 FORWARD_OF = {"attn_half_bwd": "attn_half", "ln_mlp_bwd": "ln_mlp",
               "stem_im2col_dw": "stem_im2col", "attention_bwd": "attention",
-              "copy": "attn_half", **{f"{m}_adjoint": m for m in MOVERS},
+              **{f"{m}_adjoint": m for m in MOVERS},
               **{f"{v}_bwd": v for v in V_KERNELS}}
 # attn_half cases the parity sets must cover at the flagship geometry
 ATTN_CASES = {"shifted ids", "padded ids", "no mask", "N=150"}
@@ -1306,8 +1350,8 @@ def call_work(name, args):
     the products the kernel computes from those inputs (the backward
     kernels recompute the forward's products they need)."""
     x = args[0]
-    if name == "copy":  # perf_probe_attn_ablate2.py's copy probe at an
-        return 0, 2 * _nbytes(x)  # attn_half call: x in, x out
+    if name in PROBES:
+        return probe_work(name, *args)
     if name in ("attention", "attention_bwd"):
         # K4f: q k^T and p v from packed qkv (qkv, bias, ids in; out);
         # K4b: s, dp, dv, dq, dk (qkv, bias, ids, dout in; dqkv, dbias out)
@@ -1544,6 +1588,235 @@ def swin_train_path(cfg, batch, images, per_pass, passes, label, recipe,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The attention probes P1-P5 (ops/attn_probe.py, vsn_tpu_torch/probes)
+# ---------------------------------------------------------------------------
+
+def probe_runs():
+    """The runs of both probe scripts, in their order
+    (``vsn_tpu_torch.probes``' ``Run``)."""
+    from vsn_tpu_torch.probes import attn_ablate, attn_ablate2
+
+    return attn_ablate.RUNS + attn_ablate2.RUNS
+
+
+def probe_table(runs):
+    """launch key -> (kernel, plain version) of each run, both taking (x,
+    wqkv, bias, wproj)."""
+    return {run.key: (run.kernel, run.plain) for run in runs}
+
+
+def _probe_variant(name):
+    """The P1 variant a probe run computes (P5's "full" / "lin" are P1's
+    full2d / linear_only), or None for a copy."""
+    from vsn_tpu_torch.ops.attn_probe import SLOT_VARIANTS
+
+    run = {r.key: r for r in probe_runs()}[name]
+    if run.kind == "copy_windows":
+        return None
+    return SLOT_VARIANTS.get(run.variant, run.variant)
+
+
+def probe_work(name, x, wqkv, bias, wproj):
+    """(FLOP, bytes) of one probe call: x read and out written once, the
+    weights the variant reads (a copy reads none: P3's are declared, not
+    read); the qkv and proj products (8 rows C^2) unless ``attn_only``,
+    q k^T and p v (4 rows N C) unless ``linear_only``."""
+    variant = _probe_variant(name)
+    if variant is None:
+        return 0, 2 * _nbytes(x)
+    bw, n, c = x.shape
+    rows = bw * n
+    gemms = variant != "attn_only"
+    attention = variant != "linear_only"
+    flops = 8 * rows * c * c * gemms + 4 * rows * n * c * attention
+    weights = _nbytes(wqkv, wproj) * gemms + _nbytes(bias) * (
+        attention and variant != "nobias")
+    return flops, 2 * _nbytes(x) + weights
+
+
+def probe_inputs(shape, device, gen):
+    """Seeded f32 inputs under which every ablated piece moves the branch:
+    x = 3 z + 1 + a per-row offset 2 z (LayerNorm removes both), weights
+    fan_in^-0.5 z (O(1) activations and logits), bias z. The scripts' own
+    (x a unit normal, weights 0.05 z, bias 0.1 z) make the branch ~0.01 of
+    a bf16 x, below one bf16 step of it."""
+    import torch
+
+    bw, n, c = shape
+    z = lambda *s: torch.randn(*s, generator=gen, device=device)
+    x = 3 * z(bw, n, c) + 1 + 2 * z(bw, n, 1)
+    return x, z(c, 3 * c) * c ** -0.5, z(3, n, n), z(c, c) * c ** -0.5
+
+
+def probe_compare(name, x, got, want):
+    """(max|d|, [ratio to each limit], ok) of one probe call: a copy
+    bit-exact (no ratio); an f32 out on the branch out - x, [max over
+    P_MAX_TOL of the branch's largest value, RMS over P_RMS_TOL of its
+    RMS]; a bf16 out, [max over TOL of its scale]."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)}/{got.dtype} vs "
+                             f"{tuple(want.shape)}/{want.dtype}")
+    d = got.float() - want.float()
+    err = d.abs().max().item()
+    if _probe_variant(name) is None:
+        return err, [], bool(torch.equal(got, want))
+    if want.dtype == torch.float32:
+        branch = want - x
+        d = (got - x) - branch
+        err = d.abs().max().item()
+        ratios = [err / (P_MAX_TOL * branch.abs().max().item()),
+                  d.pow(2).mean().sqrt().item()
+                  / (P_RMS_TOL * branch.pow(2).mean().sqrt().item())]
+    else:
+        ratios = [err / (TOL["bfloat16"] * max(1.0, want.float().abs().max()
+                                                .item()))]
+    return err, ratios, bool(torch.isfinite(got).all()) and max(ratios) <= 1
+
+
+def probe_parity_phase(sets, table, runs):
+    """Hold every probe run's kernel against its plain version on each set
+    of ``sets`` {label: (x bf16, wqkv, bias, wproj)}: a set whose x is bf16
+    runs every run at its own dtype (the scripts' inputs: copies bit-exact,
+    ``out`` to TOL), an f32 set every P1 and P5 run with f32 x and out
+    (``probe_compare``'s branch check). Logs one line per (set, run);
+    raises naming every failure. Returns {launch key: worst max|d|}."""
+    import torch
+
+    worst = collections.defaultdict(float)
+    failed = []
+    for label, (xs, *weights) in sets.items():
+        for run in runs:
+            if xs.dtype == torch.float32:
+                if run.kind == "copy_windows":
+                    continue
+                x = xs
+            else:
+                x = run.x(xs)
+            kernel, plain = table[run.key]
+            with torch.inference_mode():
+                got, want = kernel(x, *weights), plain(x, *weights)
+            err, ratios, ok = probe_compare(run.key, x, got, want)
+            worst[run.key] = max(worst[run.key], err)
+            limit = ("max " + " / RMS ".join(f"{r:.3f}" for r in ratios)
+                     + " of the limit" if ratios else "bit-exact")
+            log(f"parity probes {label} {run.name} ({run.key}, "
+                f"{str(x.dtype).removeprefix('torch.')}): max|d| {err:.3e} "
+                f"({limit}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{label} {run.key}")
+            del got, want
+    if failed:
+        raise AssertionError("probe kernels disagree with their plain "
+                             "versions: " + "; ".join(failed))
+    return dict(worst)
+
+
+def probe_path(runs):
+    """The probes' main path: both entry points
+    (``python -m vsn_tpu_torch.probes.attn_ablate[2]``) with every launch
+    counter at 0 before; each run's launches exactly its launches per call
+    times the warm-up and timed calls after. Returns (counts, {launch key:
+    ms per call measured by the entry point})."""
+    import torch
+    from vsn_tpu_torch.ops import _build
+    from vsn_tpu_torch.probes import REPS, WARMUP, attn_ablate, attn_ablate2
+
+    _build.launches.clear()
+    ms = attn_ablate.main()
+    ms.update(attn_ablate2.main())
+    torch.cuda.synchronize()
+    counts = {name: _build.launches[name] for name in KERNELS}
+    log(f"probe path: {len(runs)} runs x {WARMUP + REPS} calls, launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    check_counts(counts, {run.key: run.launches for run in runs},
+                 WARMUP + REPS, "probe path")
+    return counts, {run.key: ms[run.name] for run in runs}
+
+
+def k1f_stage1_args(xw, wqkv, bias, wproj, samples):
+    """K1f's arguments for the probes' call: LayerNorm scale 1 and shift 0,
+    zero qkv and proj biases, the weights in the torch Linear layout, no
+    ids, gains 1 for the ``samples`` samples: K1f's function with the
+    probes' parameters (the softmax shift and the output scale stay
+    K1f's)."""
+    import torch
+
+    c, heads = xw.shape[-1], bias.shape[0]
+    dev = xw.device
+    ones = torch.ones(samples, device=dev)
+    zeros = lambda k: torch.zeros(k, device=dev)
+    return (xw, torch.ones(c, device=dev), zeros(c), wqkv.t().contiguous(),
+            zeros(3 * c), bias, None, wproj.t().contiguous(), zeros(c), ones,
+            ones, (c // heads) ** -0.5, heads)
+
+
+def probe_times(runs, inputs, samples, card):
+    """({key: plain ms}, {key: library ms or None}, K1f's ms) at the
+    scripts' inputs: each run's plain version; for a copy the library's
+    ``Tensor.copy_`` into a preallocated tensor (a yardstick the port never
+    calls); K1f on the same x with the probes' parameters
+    (``k1f_stage1_args``)."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    xw, *weights = inputs
+    plain_ms, library_ms = {}, {}
+    with torch.no_grad():
+        for run in runs:
+            x = run.x(xw)
+            plain_ms[run.key] = cuda_ms(lambda: run.plain(x, *weights),
+                                        reps=1)
+            library_ms[run.key] = None
+            if run.kind == "copy_windows":
+                out = torch.empty_like(x)
+                library_ms[run.key] = cuda_ms(lambda: out.copy_(x))
+            del x
+        k1 = k1f_stage1_args(xw, *weights, samples)
+        k1f = cuda_ms(lambda: sbk.attn_half(*k1))
+    log(f"[{card}] K1f at the probes' stage-1 call (x {tuple(xw.shape)} "
+        f"bf16, LN 1/0, zero biases, gains 1, no ids): {k1f:.3f} ms")
+    return plain_ms, library_ms, k1f
+
+
+def probe_phase(device, card):
+    """The probes P1-P5 (phase 7): parity at the scripts' inputs and at
+    ``probe_inputs``' f32 ones, the probe path (``probe_path``), plain and
+    library times and K1f beside them, bounds. Returns {launch key:
+    (launches, max|d|, ms, plain ms, (bound ms, by), library ms)}."""
+    import torch
+    from vsn_tpu_torch.probes import MICRO, script_inputs
+
+    runs = probe_runs()
+    if {run.key for run in runs} != set(PROBES) or any(
+            PROBES[run.key][0] != run.name for run in runs):
+        raise AssertionError("PROBES does not list the probe runs")
+    inputs = script_inputs(device)
+    gen = torch.Generator(device).manual_seed(SEED + 13)
+    sets = {"scripts' inputs": inputs,
+            "f32 sensitive": probe_inputs(inputs[0].shape, device, gen)}
+    worst = probe_parity_phase(sets, probe_table(runs), runs)
+    del sets
+    torch.cuda.empty_cache()
+    counts, ms = probe_path(runs)
+    plain_ms, library_ms, k1f = probe_times(runs, inputs, MICRO, card)
+    out = {}
+    for run in runs:
+        bound = bound_ms(run.key, [(run.key, (run.x(inputs[0]),
+                                              *inputs[1:]))])
+        lib = ("" if library_ms[run.key] is None
+               else f", copy_ {library_ms[run.key]:.3f} ms")
+        log(f"[{card}] probe {run.probe} {run.name}: {ms[run.key]:.3f} ms "
+            f"({ms[run.key] / k1f:.3f} of K1f's {k1f:.3f}; plain "
+            f"{plain_ms[run.key]:.3f} ms{lib}, bound {bound[0]:.3f} ms by "
+            f"{bound[1]})")
+        out[run.key] = (counts[run.key], worst[run.key], ms[run.key],
+                        plain_ms[run.key], bound, library_ms[run.key])
+    return out
+
+
 def main() -> int:
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
@@ -1649,7 +1922,7 @@ def main() -> int:
                            "attention_windows_bwd")):
         log(f"[{card}] V3 {what}: {vms[name]:.3f} ms per micro-batch of "
             f"{TRAIN_MICRO} against partition + K4 + reverse {t:.3f} ms")
-    k4_calls = k4sets.pop(train_label)  # phase 12
+    k4_calls = k4sets.pop(train_label)  # phase 13
     del k4sets, triples, v_main, m, x
     torch.cuda.empty_cache()
 
@@ -1675,7 +1948,7 @@ def main() -> int:
         if not ATTN_CASES <= by_name["attn_half"]:
             raise AssertionError(f"parity set {label} lacks attn_half cases "
                                  f"{ATTN_CASES - by_name['attn_half']}")
-    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 8
+    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 9
     del sets
 
     # 6. backward parity on training forwards -----------------------------
@@ -1697,10 +1970,15 @@ def main() -> int:
             raise AssertionError(f"backward set {label} lacks attn_half cases "
                                  f"{ATTN_CASES - by_name['attn_half_bwd']}")
     saturation_phase(gsets["float32 B=2"], table, gen)
-    train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 9
+    train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 13
     del gsets, models, x, images8
+    torch.cuda.empty_cache()
 
-    # 7. K5f / K5w parity and timings -------------------------------------
+    # 7. the attention probes P1-P5 at one stage-1 call -------------------
+    probes = probe_phase(device, card)
+    torch.cuda.empty_cache()
+
+    # 8. K5f / K5w parity and timings -------------------------------------
     stable = stem_table()
     sgen = torch.Generator(device).manual_seed(SEED + 9)
     cases = {f"{dt} {geom[0]} k{geom[1]} s{geom[2]} C{geom[3]}":
@@ -1716,7 +1994,7 @@ def main() -> int:
     del cases, stem_call
     torch.cuda.empty_cache()
 
-    # 8. the Swin eval path -----------------------------------------------
+    # 9. the Swin eval path -----------------------------------------------
     images = volumes(N_VOLUMES, seed=SEED)
     n_batches = -(-N_VOLUMES // BATCH)
     swin_eval_path(cfg, model, images, PER_FORWARD, "eval", card)
@@ -1726,7 +2004,7 @@ def main() -> int:
             f"{BATCH} (plain {eplain[name]:.3f} ms)")
     del evaluator, model, eval_calls
 
-    # 9. the Swin training path -------------------------------------------
+    # 10. the Swin training path -------------------------------------------
     steps = 1 + TIMED_STEPS
     passes = steps * TRAIN_ACCUM * (2 if train_cfg.USE_SAM else 1)
     recipe = (f"SAM + EMA + MixUp + ShakeDrop, micro {TRAIN_MICRO} x "
@@ -1734,14 +2012,14 @@ def main() -> int:
     path_counts = swin_train_path(train_cfg, batch, images, PER_PASS, passes,
                                   "train", recipe, card)
 
-    # 10. the DynamicTanh eval path ---------------------------------------
+    # 11. the DynamicTanh eval path ---------------------------------------
     dyt_cfg = cfg.replace(**DYT)
     model = init_weights(build_model(dyt_cfg),
                          torch.Generator().manual_seed(SEED))
     swin_eval_path(dyt_cfg, model, images, DYT_PER_FORWARD, "dyt_eval", card)
     del model
 
-    # 11. the DynamicTanh training path, DROPOUT 0.1 ----------------------
+    # 12. the DynamicTanh training path, DROPOUT 0.1 ----------------------
     counts = swin_train_path(dyt_train_cfg, batch, images, DYT_PER_PASS,
                              passes, "dyt_train",
                              f"{recipe}, DynamicTanh, DROPOUT {DYT_DROPOUT}",
@@ -1749,10 +2027,11 @@ def main() -> int:
     path_counts.update({name: counts[name] for name in DYT_PER_PASS})
     del batch
 
-    # 12. Swin kernel timings at the training shapes ----------------------
+    # 13. Swin kernel timings at the training shapes ----------------------
     ms, plain_ms = kernel_times(train_calls + k4_calls)
     bounds = {name: bound_ms(name, train_calls + k4_calls) for name in KERNELS
-              if name not in STEM and name not in V_PER_CALL}
+              if name not in STEM and name not in V_PER_CALL
+              and name not in PROBES}
     ms.update(vms)
     plain_ms.update(vplain)
     bounds.update(vbounds)
@@ -1762,17 +2041,10 @@ def main() -> int:
     # V1 computes K4's function on the split heads that the SDPA call takes
     library_ms["attention_split"] = library_ms["attention"]
     library_ms["attention_split_bwd"] = library_ms["attention_bwd"]
-    stage1 = [next(c for c in train_calls if c[0] == "attn_half")]
-    for what, name in (("P1, K1f variants", "attn_half"),
-                       ("P2-P5 copy probe", "copy")):
-        t, by = bound_ms(name, stage1)
-        log(f"[{card}] not ported: {what} at one stage-1 call: bound "
-            f"{t:.3f} ms by {by} at the attn_half calls of a micro-batch of "
-            f"{TRAIN_MICRO}")
-    del train_calls, k4_calls, stage1
+    del train_calls, k4_calls
     torch.cuda.empty_cache()
 
-    # 13. the ResNet eval path --------------------------------------------
+    # 14. the ResNet eval path --------------------------------------------
     from vsn_tpu_torch.models.resnet3d import init_weights as resnet_init
 
     rcfg = load_config(preset=RESNET_PRESET)
@@ -1794,7 +2066,7 @@ def main() -> int:
                card)
     del revaluator, rmodel
 
-    # 14. the ResNet training path ----------------------------------------
+    # 15. the ResNet training path ----------------------------------------
     rtrain_cfg = load_config(dict(
         USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
         LABEL_SMOOTHING=0.1, SEED=SEED, BATCH_SIZE=RESNET_MICRO,
@@ -1856,14 +2128,18 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del pstate, rbatch, model, draws
 
-    # 15. per-kernel times beside their bounds ----------------------------
+    # 16. per-kernel times beside their bounds ----------------------------
     for name in STEM:
         ms[name], plain_ms[name], library_ms[name] = stem_ms[name]
         bounds[name] = stem_bound[name]
     path_counts.update({name: v_counts[name] for name in V_PER_CALL})
+    for key, (n, err, t, plain_t, bound, lib) in probes.items():
+        path_counts[key], worst[key], ms[key] = n, err, t
+        plain_ms[key], bounds[key], library_ms[key] = plain_t, bound, lib
     for name in KERNELS:
         per = (f"micro-batch of {RESNET_MICRO}" if name in STEM
-               else f"micro-batch of {TRAIN_MICRO}")
+               else f"stage-1 call (micro-batch of {TRAIN_MICRO})"
+               if name in PROBES else f"micro-batch of {TRAIN_MICRO}")
         lib = ("no single call" if library_ms[name] is None
                else f"{library_ms[name]:.3f} ms")
         log(f"[{card}] {name}: {ms[name]:.3f} ms per {per} (plain "

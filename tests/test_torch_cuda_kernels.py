@@ -21,11 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vsn_tpu_torch.models.swin3d import (
     padded_window_region_ids,
     shifted_window_region_ids,
 )
 from vsn_tpu_torch.ops import _build
+from vsn_tpu_torch.ops import attn_probe as ap
 from vsn_tpu_torch.ops import swin_block_kernels as sbk
 from vsn_tpu_torch.ops import window_attention as wa
 from vsn_tpu_torch.ops import window_relayout as wr
@@ -529,3 +531,79 @@ def test_v1_and_v3_reject_what_the_kernels_do_not_take(dev):
         new[i] = bad
         with pytest.raises((TypeError, ValueError)):
             wa.window_attention_windows(*new)
+
+
+# ---------------------------------------------------------------------------
+# The attention probes P1-P5 (ops/attn_probe.py) against their plain versions
+# ---------------------------------------------------------------------------
+
+PROBE_CASES = ([(key, "script") for key in chip_smoke.PROBES]
+               + [(key, "sensitive") for key in chip_smoke.PROBES
+                  if not key.startswith("copy_windows")])
+
+
+@pytest.fixture(scope="module")
+def probe_sets():
+    """16 windows of the scripts' inputs and of chip_smoke.py's f32
+    sensitive ones, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vsn_tpu_torch.probes import script_inputs
+
+    dev = torch.device("cuda", 0)
+    xw, *w = script_inputs(dev, micro=1)
+    gen = torch.Generator(dev).manual_seed(13)
+    return {"script": (xw[:16].contiguous(), *w),
+            "sensitive": chip_smoke.probe_inputs((16, 252, 96), dev, gen)}
+
+
+@pytest.mark.parametrize("key,which", PROBE_CASES)
+def test_probe_matches_plain(dev, probe_sets, key, which):
+    """Every probe run at the scripts' inputs (copies bit-exact, bf16 out to
+    2e-2) and every P1 / P5 run with f32 x at the sensitive inputs (the
+    branch's max and RMS, chip_smoke.probe_compare); one call adds the
+    run's launches per call to its counter."""
+    run = {r.key: r for r in chip_smoke.probe_runs()}[key]
+    xs, *w = probe_sets[which]
+    x = xs if which == "sensitive" else run.x(xs)
+    counter = ap.launch_key(run.kind, run.variant, run.wb,
+                            x.dtype == torch.float32)
+    before = _build.launches[counter]
+    got = run.kernel(x, *w)
+    torch.cuda.synchronize()
+    assert _build.launches[counter] == before + run.launches
+    err, ratios, ok = chip_smoke.probe_compare(key, x, got, run.plain(x, *w))
+    assert ok, (err, ratios)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ap.ABLATIONS)
+def test_probe_at_another_geometry(dev, variant, dtype):
+    """N = 12, C = 16, 2 heads (head dim 8), 4 windows: P1 and P5 at wb 2
+    beside it."""
+    g = torch.Generator().manual_seed(2)
+    z = lambda *s: torch.randn(*s, generator=g).to(dev)
+    x = (3 * z(4, 12, 16) + 1 + 2 * z(4, 12, 1)).to(dtype)
+    w = (z(16, 48) * 0.25, z(2, 12, 12), z(16, 16) * 0.25)
+    err, ratios, ok = chip_smoke.probe_compare(
+        f"attn_ablate.{variant}", x, ap.attn_ablate(variant, x, *w),
+        ap.attn_ablate_reference(variant, x, *w))
+    assert ok, (err, ratios)
+    if variant in ap.SLOT_VARIANTS.values():
+        slot = {v: k for k, v in ap.SLOT_VARIANTS.items()}[variant]
+        got = ap.attn_slot(2, slot, x, *w)
+        assert torch.equal(got, ap.attn_ablate(variant, x, *w))
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(4, 12, 16, device=dev, dtype=torch.bfloat16)
+    w = [torch.zeros(16, 48, device=dev), torch.zeros(2, 12, 12, device=dev),
+         torch.zeros(16, 16, device=dev)]
+    with pytest.raises(ValueError, match="blocks of 3"):
+        ap.attn_slot(3, "full", x, *w)
+    with pytest.raises(ValueError, match="wqkv"):
+        ap.attn_ablate("full2d", x, w[0].cpu(), *w[1:])
+    misaligned = torch.zeros(4 * 12 * 16 + 1, device=dev,
+                             dtype=torch.bfloat16)[1:].view(4, 12, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ap.copy_windows(misaligned)

@@ -36,7 +36,9 @@ def test_port_imports_no_jax_flax_or_triton():
     assert len(modules) >= 25
     for name in ("train.losses", "train.schedules", "train.optim",
                  "train.ema", "train.step", "data.mixers", "ops.stem_im2col",
-                 "ops.conv_unfold", "models.resnet3d", "ops.window_attention"):
+                 "ops.conv_unfold", "models.resnet3d", "ops.window_attention",
+                 "ops.attn_probe", "probes.__init__", "probes.attn_ablate",
+                 "probes.attn_ablate2"):
         assert f"vsn_tpu_torch.{name}" in modules
 
 
@@ -105,5 +107,5 @@ def test_library_is_named_by_its_sources_and_builds_under_build():
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert names == {"attn_half.cu", "attn_half_bwd.cu", "ln_mlp.cu",
                      "ln_mlp_bwd.cu", "stem_im2col.cu", "window_relayout.cu",
-                     "window_attention_qkv.cu"}
+                     "window_attention_qkv.cu", "probe_copy.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

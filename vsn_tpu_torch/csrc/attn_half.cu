@@ -36,6 +36,12 @@
 //
 // Indexing: ids row = bw % W (W = 1 means one row for every window); the
 // residual gain of window bw is gains[bw / nW] (windows are sample-major).
+//
+// The attention-ablation probes (scripts/perf_probe_attn_ablate.py ``build``
+// and perf_probe_attn_ablate2.py ``build_slot``, P1 and P5) run this file's
+// three launches as compile-time variants, so that their times split K1f's
+// own: ``vsn_probe_attn_half`` below. K1f is the default instantiation
+// (SM_K1, packed qkv, one window per block).
 
 #include "common.cuh"
 
@@ -43,12 +49,25 @@ namespace {
 
 constexpr int kAttnWarps = 8;
 
-template <typename T>
-__global__ void __launch_bounds__(kAttnWarps * 32) window_attention_kernel(
+// Softmax of one score row u[0..n) (held per warp in shared memory):
+//   SM_K1     e = exp(s - max(rowmax, 0)), p = round(e); the output is
+//             scaled by 1 / (sum e + 1e-30) after the PV product (K1f);
+//   SM_PLAIN  p = round(exp(s - rowmax) / sum): normalized before the
+//             rounding, no output scale (the probes' softmax);
+//   SM_SCALE  p = round(0.001 s): no exp, no sum (the ``nosm`` probe).
+enum Softmax { SM_K1 = 0, SM_PLAIN = 1, SM_SCALE = 2 };
+
+// One (window, head) of the attention launch: K and V of the head staged in
+// shared memory, query rows taken by warp. T is qkv's and ao's element type
+// and the type every product operand is rounded to. ATTN_ONLY reads q = k =
+// v from one [rows, C] buffer (no projections) and writes out = x + ao in
+// f32, cast once to TX, instead of ao.
+template <typename T, int SM, bool ATTN_ONLY, typename TX>
+__device__ __forceinline__ void window_head_attention(
     const T* __restrict__ qkv, const float* __restrict__ bias,
     const int* __restrict__ ids, int ids_rows, T* __restrict__ ao, int n,
-    int c, int heads, float scale) {
-  extern __shared__ float smem[];
+    int c, int heads, float scale, long long bw, int h,
+    const TX* __restrict__ x, TX* __restrict__ out, float* smem) {
   const int d = c / heads;
   float* ks = smem;                      // [n][d + 1]  (padded: no bank conflicts)
   float* vs = ks + n * (d + 1);          // [n][d]
@@ -56,17 +75,17 @@ __global__ void __launch_bounds__(kAttnWarps * 32) window_attention_kernel(
   float* us = qs + kAttnWarps * 32;      // [warps][n]  one row of scores
   int* ids_s = reinterpret_cast<int*>(us + kAttnWarps * n);  // [n]
 
-  const long long bw = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long base = bw * n;
-  const int c3 = 3 * c;
+  const int c3 = ATTN_ONLY ? c : 3 * c;  // qkv's row stride
+  const int ko = ATTN_ONLY ? 0 : c;      // k's and v's column offsets
+  const int vo = ATTN_ONLY ? 0 : 2 * c;
 
   for (int e = tid; e < n * d; e += blockDim.x) {
     const int j = e / d, cc = e % d;
     const T* row = qkv + (base + j) * c3 + h * d + cc;
-    ks[j * (d + 1) + cc] = to_f32(row[c]);
-    vs[j * d + cc] = to_f32(row[2 * c]);
+    ks[j * (d + 1) + cc] = to_f32(row[ko]);
+    vs[j * d + cc] = to_f32(row[vo]);
   }
   if (ids) {
     const int* id_row = ids + (bw % ids_rows) * n;
@@ -92,21 +111,58 @@ __global__ void __launch_bounds__(kAttnWarps * 32) window_attention_kernel(
       u[j] = s;
       mx = fmaxf(mx, s);
     }
-    mx = fmaxf(warp_max(mx), 0.f);
+    if (SM == SM_SCALE)
+      for (int j = lane; j < n; j += 32) u[j] = round_to<T>(0.001f * u[j]);
+    else
+      mx = SM == SM_K1 ? fmaxf(warp_max(mx), 0.f) : warp_max(mx);
     float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = expf(u[j] - mx);
-      sum += e;
-      u[j] = round_to<T>(e);  // u.astype(cdt) before the PV product
+    if (SM != SM_SCALE) {
+      for (int j = lane; j < n; j += 32) {
+        const float e = expf(u[j] - mx);
+        sum += e;
+        u[j] = SM == SM_K1 ? round_to<T>(e) : e;  // u.astype(cdt) before PV
+      }
+      sum = warp_sum(sum);
+      if (SM == SM_PLAIN)
+        for (int j = lane; j < n; j += 32) u[j] = round_to<T>(u[j] / sum);
     }
-    sum = warp_sum(sum);
     __syncwarp();
     if (lane < d) {
       float o = 0.f;
       for (int j = 0; j < n; ++j) o = fmaf(u[j], vs[j * d + lane], o);
-      ao[(base + i) * c + h * d + lane] = from_f32<T>(o * (1.f / (sum + 1e-30f)));
+      const long long at = (base + i) * c + h * d + lane;
+      if (ATTN_ONLY)
+        out[at] = from_f32<TX>(to_f32(x[at]) + o);
+      else
+        ao[at] = from_f32<T>(SM == SM_K1 ? o * (1.f / (sum + 1e-30f)) : o);
     }
     __syncwarp();
+  }
+}
+
+// One block per (group of wb windows, head), taking the group's windows in
+// turn. K1f (SM_K1) keeps one window per block and calls the body once: a
+// window loop whose bound the compiler cannot see changed K1f's registers
+// (40 -> 61) and its code.
+template <typename T, int SM = SM_K1, bool ATTN_ONLY = false, typename TX = T>
+__global__ void __launch_bounds__(kAttnWarps * 32) window_attention_kernel(
+    const T* __restrict__ qkv, const float* __restrict__ bias,
+    const int* __restrict__ ids, int ids_rows, T* __restrict__ ao, int n,
+    int c, int heads, float scale, int wb, const TX* __restrict__ x,
+    TX* __restrict__ out) {
+  extern __shared__ float smem[];
+  const long long group = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  if (SM == SM_K1) {
+    window_head_attention<T, SM, ATTN_ONLY, TX>(qkv, bias, ids, ids_rows, ao, n, c,
+                                                heads, scale, group, h, x, out, smem);
+    return;
+  }
+  for (int slot = 0; slot < wb; ++slot) {
+    const long long bw = group * wb + slot;
+    if (slot) __syncthreads();  // every warp is done with the last window's K, V
+    window_head_attention<T, SM, ATTN_ONLY, TX>(qkv, bias, ids, ids_rows, ao, n, c,
+                                                heads, scale, bw, h, x, out, smem);
   }
 }
 
@@ -114,6 +170,21 @@ size_t attention_smem_bytes(int n, int d) {
   return sizeof(float) * ((size_t)n * (d + 1) + (size_t)n * d + kAttnWarps * 32 +
                           (size_t)kAttnWarps * n) +
          sizeof(int) * (size_t)n;
+}
+
+template <typename T, int SM, bool ATTN_ONLY, typename TX>
+cudaError_t launch_attention(const T* qkv, const float* bias, const int* ids,
+                             int ids_rows, T* ao, long long bw, int n, int c,
+                             int heads, float scale, int wb, const TX* x, TX* out,
+                             cudaStream_t stream) {
+  auto kernel = window_attention_kernel<T, SM, ATTN_ONLY, TX>;
+  const size_t smem = attention_smem_bytes(n, c / heads);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(bw / wb * heads), kAttnWarps * 32, smem, stream>>>(
+      qkv, bias, ids, ids_rows, ao, n, c, heads, scale, wb, x, out);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -139,13 +210,9 @@ int attn_half_fwd(const T* x, const float* ln_w, const float* ln_b,
   cudaError_t err = launch_gemm<T, EPI_BIAS>(g1, stream);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem = attention_smem_bytes(n, c / heads);
-  err = cudaFuncSetAttribute(window_attention_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  window_attention_kernel<T><<<(unsigned)(bw * heads), kAttnWarps * 32, smem, stream>>>(
-      qkv_buf, bias, ids, ids_rows, ao_buf, n, c, heads, scale);
-  err = cudaGetLastError();
+  err = launch_attention<T, SM_K1, false, T>(qkv_buf, bias, ids, ids_rows, ao_buf, bw,
+                                            n, c, heads, scale, 1, nullptr, nullptr,
+                                            stream);
   if (err != cudaSuccess) return (int)err;
 
   GemmParams<T> g3 = {};
@@ -161,6 +228,81 @@ int attn_half_fwd(const T* x, const float* ln_w, const float* ln_b,
   g3.n = c;
   g3.k = c;
   return (int)launch_gemm<T, EPI_RESIDUAL>(g3, stream);
+}
+
+// The probes' variants (perf_probe_attn_ablate.py ``kernel``: ``variant``;
+// perf_probe_attn_ablate2.py ``slot_kernel``: "full" is PROBE_FULL, "lin"
+// PROBE_LINEAR_ONLY).
+enum Probe {
+  PROBE_FULL = 0,         // LN -> qkv -> attention -> proj -> x + branch
+  PROBE_NOLN = 1,         // y = x
+  PROBE_NOSM = 2,         // p = 0.001 s
+  PROBE_NOBIAS = 3,       // no bias add
+  PROBE_LINEAR_ONLY = 4,  // ao = q slice of qkv: no attention launch
+  PROBE_ATTN_ONLY = 5,    // q = k = v = LN(x), branch = ao in f32: no GEMMs
+};
+
+// The probes' function: LayerNorm without affine (w = 1, b = 0 in f32 is
+// exact), no linear biases, no ids, no gains (gains = 1 and lam = 1 make
+// EPI_RESIDUAL's lam * x + gains * branch exactly x + branch), weights in
+// the (in, out) layout (W_KN), every product operand rounded to bf16 for
+// either activation type TX. qkv, ao (and attn_only's y) are bf16 buffers:
+// the probes round them to bf16 before their every use.
+template <typename TX>
+int probe_attn_half(int variant, int wb, const TX* x, const float* wqkv,
+                    const float* bias, const float* wproj, const float* unit,
+                    __nv_bfloat16* qkv_buf, __nv_bfloat16* ao_buf, float* stats,
+                    TX* out, long long bw, int n, int c, int heads, float scale,
+                    cudaStream_t stream) {
+  using B = __nv_bfloat16;
+  const long long rows = bw * n;
+  const float* ones = unit;      // [c] of 1: LayerNorm scale, gains
+  const float* zeros = unit + c;  // [c] of 0: LayerNorm shift
+  cudaError_t err;
+  if (variant == PROBE_ATTN_ONLY) {
+    err = launch_ln_rows<TX, B>(x, ones, zeros, ao_buf, stats, rows, c, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_attention<B, SM_PLAIN, true, TX>(ao_buf, bias, nullptr, 1,
+                                                        nullptr, bw, n, c, heads,
+                                                        scale, wb, x, out, stream);
+  }
+  GemmParams<B, TX> g1 = {};
+  g1.a = x;
+  g1.ln_w = variant == PROBE_NOLN ? nullptr : ones;
+  g1.ln_b = zeros;
+  g1.w = wqkv;
+  g1.out = qkv_buf;
+  g1.m = rows;
+  g1.n = 3 * c;
+  g1.k = c;
+  err = launch_gemm<B, EPI_BIAS, true>(g1, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  if (variant != PROBE_LINEAR_ONLY) {
+    const float* b = variant == PROBE_NOBIAS ? nullptr : bias;
+    err = variant == PROBE_NOSM
+              ? launch_attention<B, SM_SCALE, false, B>(qkv_buf, b, nullptr, 1, ao_buf,
+                                                        bw, n, c, heads, scale, wb,
+                                                        nullptr, nullptr, stream)
+              : launch_attention<B, SM_PLAIN, false, B>(qkv_buf, b, nullptr, 1, ao_buf,
+                                                        bw, n, c, heads, scale, wb,
+                                                        nullptr, nullptr, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  GemmParams<B, B, TX> g3 = {};
+  g3.a = variant == PROBE_LINEAR_ONLY ? qkv_buf : ao_buf;
+  g3.lda = variant == PROBE_LINEAR_ONLY ? 3 * c : 0;
+  g3.w = wproj;
+  g3.resid = x;
+  g3.gains = ones;
+  g3.rows_per_sample = rows;
+  g3.lam = 1.f;
+  g3.out = out;
+  g3.m = rows;
+  g3.n = c;
+  g3.k = c;
+  return (int)launch_gemm<B, EPI_RESIDUAL, true>(g3, stream);
 }
 
 }  // namespace
@@ -189,4 +331,27 @@ extern "C" int vsn_attn_half_fwd(int is_bf16, const void* x, const float* ln_w,
                               static_cast<float*>(qkv_buf), static_cast<float*>(ao_buf),
                               static_cast<float*>(out), bw, n, c, heads,
                               rows_per_sample, scale, lam, s);
+}
+
+// The attention probes P1 / P5 (``probe_attn_half``). is_bf16 selects bf16 x
+// and out (else f32); wqkv [C, 3C], bias [H, N, N], wproj [C, C] and unit
+// ([1] * C + [0] * C) are f32. qkv_buf is bf16 [BW*N, 3C], ao_buf bf16
+// [BW*N, C], stats f32 [BW*N, 2] (used by attn_only). wb windows per block
+// of the attention launch (BW divisible by wb).
+extern "C" int vsn_probe_attn_half(int variant, int wb, int is_bf16, const void* x,
+                                   const float* wqkv, const float* bias,
+                                   const float* wproj, const float* unit,
+                                   void* qkv_buf, void* ao_buf, float* stats,
+                                   void* out, long long bw, int n, int c, int heads,
+                                   float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* qb = static_cast<__nv_bfloat16*>(qkv_buf);
+  auto* ab = static_cast<__nv_bfloat16*>(ao_buf);
+  if (is_bf16)
+    return probe_attn_half<__nv_bfloat16>(
+        variant, wb, static_cast<const __nv_bfloat16*>(x), wqkv, bias, wproj, unit,
+        qb, ab, stats, static_cast<__nv_bfloat16*>(out), bw, n, c, heads, scale, s);
+  return probe_attn_half<float>(variant, wb, static_cast<const float*>(x), wqkv, bias,
+                                wproj, unit, qb, ab, stats, static_cast<float*>(out),
+                                bw, n, c, heads, scale, s);
 }

@@ -78,6 +78,12 @@ __device__ __forceinline__ float warp_max(float v) {
 // TPU kernels. The residual is formed in f32 and cast once
 // (swin_block_kernels.py:288-289, :880-881).
 //
+// T is the operand type (every product operand is rounded to it); TA is A's
+// element type and TO that of ``resid`` and ``out``, both T unless given.
+// The attention probes round their operands to bf16 under f32 activations
+// (TO = float), and read A at a row stride ``lda`` wider than K (the q
+// slice of a packed qkv buffer); lda = 0 means K.
+//
 // Tiles: 64 x 64 outputs per block of 256 threads, 4 x 4 per thread, K in
 // steps of 16 through shared memory. Ragged M, N and K edges are masked with
 // zeros, so they add exactly 0 to the sums.
@@ -104,29 +110,30 @@ __device__ __forceinline__ float gelu_erf_grad(float v) {
   return 0.5f * (1.f + erff(v * kInvSqrt2)) + v * kInvSqrt2Pi * expf(-0.5f * v * v);
 }
 
-template <typename T, typename TA = T>
+template <typename T, typename TA = T, typename TO = T>
 struct GemmParams {
-  const TA* a;                // [M, K]
+  const TA* a;                // [M, K], row stride lda
   const float* a_gain;        // [M / rows_per_sample] or null
   const float* ln_w;          // [K] or null (no LayerNorm prologue)
   const float* ln_b;          // [K]
   const float* w;             // [N, K], or [K, N] with W_KN
   const float* bias;          // [N] or null
-  const T* resid;             // [M, N] (EPI_RESIDUAL)
+  const TO* resid;            // [M, N] (EPI_RESIDUAL)
   const float* gains;         // [M / rows_per_sample] (EPI_RESIDUAL)
   long long rows_per_sample;  // (EPI_RESIDUAL, a_gain)
   float lam;                  // (EPI_RESIDUAL)
-  T* out;                     // [M, N]
+  TO* out;                    // [M, N]
   float* out32;               // [M, N] (EPI_GELU_GRAD, EPI_F32, EPI_MUL_F32)
   long long m;
   int n;
   int k;
+  long long lda;              // A's row stride; 0 means k
 };
 
 constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
 
-template <typename T, int EPI, typename TA, bool W_KN>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA> p) {
+template <typename T, int EPI, typename TA, bool W_KN, typename TO>
+__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA, TO> p) {
   __shared__ __align__(16) float As[kBK][kBM];
   __shared__ __align__(16) float Bs[kBK][kBN];
   __shared__ float mu_s[kBM], rstd_s[kBM];
@@ -135,6 +142,7 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA> p)
   const long long m0 = (long long)blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   const bool ln = p.ln_w != nullptr;
+  const long long lda = p.lda ? p.lda : p.k;
 
   if (ln) {  // two-pass row statistics, as _ln_fwd
     const int warp = tid >> 5, lane = tid & 31;
@@ -142,7 +150,7 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA> p)
       const long long m = m0 + r;
       float mu = 0.f, rstd = 0.f;
       if (m < p.m) {
-        const TA* row = p.a + m * p.k;
+        const TA* row = p.a + m * lda;
         float s = 0.f;
         for (int k = lane; k < p.k; k += 32) s += to_f32(row[k]);
         mu = warp_sum(s) / p.k;
@@ -174,7 +182,7 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA> p)
       const int k = k0 + lk + e;
       float v = 0.f;
       if (am < p.m && k < p.k) {
-        v = to_f32(p.a[am * p.k + k]);
+        v = to_f32(p.a[am * lda + k]);
         if (ln)
           v = round_to<T>((v - mu_s[lr]) * rstd_s[lr] * p.ln_w[k] + p.ln_b[k]);
         else if (p.a_gain)
@@ -230,15 +238,15 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA> p)
       if (EPI == EPI_GELU || EPI == EPI_GELU_GRAD) v = gelu_erf(v);
       if (EPI == EPI_RESIDUAL)
         v = p.lam * to_f32(p.resid[o]) + p.gains[m / p.rows_per_sample] * v;
-      p.out[o] = from_f32<T>(v);
+      p.out[o] = from_f32<TO>(v);
     }
   }
 }
 
-template <typename T, int EPI, bool W_KN = false, typename TA>
-cudaError_t launch_gemm(const GemmParams<T, TA>& p, cudaStream_t stream) {
+template <typename T, int EPI, bool W_KN = false, typename TA, typename TO>
+cudaError_t launch_gemm(const GemmParams<T, TA, TO>& p, cudaStream_t stream) {
   const dim3 grid((unsigned)((p.m + kBM - 1) / kBM), (unsigned)((p.n + kBN - 1) / kBN));
-  gemm_kernel<T, EPI, TA, W_KN><<<grid, kGemmThreads, 0, stream>>>(p);
+  gemm_kernel<T, EPI, TA, W_KN, TO><<<grid, kGemmThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -267,13 +275,13 @@ inline long long rows_per_split(long long m, long long blocks_per_split,
   return (rows + 15) / 16 * 16;
 }
 
-// y = round_T(LN(x)) and the row statistics (mean, 1/std) [M, 2], one warp
+// y = round_TY(LN(x)) and the row statistics (mean, 1/std) [M, 2], one warp
 // per row, computed as the forward GEMM's LayerNorm prologue computes them.
-template <typename T>
+template <typename T, typename TY = T>
 __global__ void __launch_bounds__(256) ln_rows_kernel(const T* __restrict__ x,
                                                       const float* __restrict__ w,
                                                       const float* __restrict__ b,
-                                                      T* __restrict__ y,
+                                                      TY* __restrict__ y,
                                                       float* __restrict__ stats,
                                                       long long m, int k) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -290,17 +298,17 @@ __global__ void __launch_bounds__(256) ln_rows_kernel(const T* __restrict__ x,
   }
   const float rstd = 1.f / sqrtf(warp_sum(v) / k + kLnEps);
   for (int c = lane; c < k; c += 32)
-    y[row * k + c] = from_f32<T>((to_f32(xr[c]) - mu) * rstd * w[c] + b[c]);
+    y[row * k + c] = from_f32<TY>((to_f32(xr[c]) - mu) * rstd * w[c] + b[c]);
   if (lane == 0) {
     stats[2 * row] = mu;
     stats[2 * row + 1] = rstd;
   }
 }
 
-template <typename T>
-cudaError_t launch_ln_rows(const T* x, const float* w, const float* b, T* y,
+template <typename T, typename TY = T>
+cudaError_t launch_ln_rows(const T* x, const float* w, const float* b, TY* y,
                            float* stats, long long m, int k, cudaStream_t stream) {
-  ln_rows_kernel<T><<<(unsigned)((m + 7) / 8), 256, 0, stream>>>(x, w, b, y, stats, m, k);
+  ln_rows_kernel<T, TY><<<(unsigned)((m + 7) / 8), 256, 0, stream>>>(x, w, b, y, stats, m, k);
   return cudaGetLastError();
 }
 

@@ -11,7 +11,11 @@ checkout.
 
 ``launches`` counts, per kernel wrapper, the calls that launched the CUDA
 kernel. A wrapper adds one per call, however many launches the call makes;
-the CPU path, which runs the plain PyTorch version, adds nothing.
+the CPU path, which runs the plain PyTorch version, adds nothing. The
+attention probes (``ops/attn_probe.py``) count per run instead, under the
+run's key, and add the number of CUDA launches the call made (3 for a
+whole half-block, 2 without the attention or without the GEMMs, 1 for a
+copy), so that a run shows which pieces it launched.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ _SIGNATURES = {
                                          _F, _P],
     "vsn_window_attention_windows_bwd": [_I, _P, _P, _P, _P, _I, _P, _P, _P,
                                          *[_I] * 9, _F, _P],
+    "vsn_probe_attn_half": [_I, _I, _I, *[_P] * 9, _L, _I, _I, _I, _F, _P],
+    "vsn_probe_copy": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None
