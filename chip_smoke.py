@@ -1,5 +1,5 @@
-"""Drive the port's Swin-3D and ResNet-3D training steps and inference paths
-on one NVIDIA GPU.
+"""Drive the port's Swin-3D, ViT-3D and ResNet-3D training steps and
+inference paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,7 +11,19 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 1. build the hand-written kernels from ``vsn_tpu_torch/csrc`` (one nvcc per
    source, in parallel, into build/);
 2. print the card's name and power limit (nvidia-smi);
-3. K4 parity: every K4 call (window attention on packed qkv) of a
+3. K1's key-tiled attention body, and K2, on ViT-S's calls
+   (vit-5c-no_seed-baseline: N = 811 tokens, 6 heads of 64, no bias, no
+   region ids): every K1/K2 call of an eval forward at batch 2 in f32 and in
+   bf16 (seeded 144x168x144 volumes, resized to 144x160x144 on the card)
+   and of the flagship training forward at micro-batch 24 in bf16, with
+   seeded parameters and gains as in phase 6; forward at lam 0 and 1 and
+   every gradient (lam 0 and 1) against the plain versions, to TOL; then K1
+   and K1b on an f32 call at saturated logits: bias 8 z + 45, + 200 and
+   - 200 with the keys of the last, ragged key tile (768-810) 12 higher, so
+   each row's running max grows at its last tile (at -200 every exp
+   underflows under the max(rowmax, 0) shift and the attention output is
+   0), forward and every gradient;
+4. K4 parity: every K4 call (window attention on packed qkv) of a
    DynamicTanh Swin-T eval forward at batch 2 in f32 and in bf16, and of
    its DROPOUT 0.1 training forward at micro-batch 8 in bf16, the unfused
    blocks' attention at every stage shape (shifted, unshifted, padded with
@@ -20,7 +32,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    dqkv and dbias against the plain backward for one seeded cotangent, to
    TOL of each output's scale; then K4b at saturated logits (bias 8 z + 45
    and 8 z + 200, f32);
-4. V1 and V3 on the same K4 calls, each with qkv = z and bias = z: V1
+5. V1 and V3 on the same K4 calls, each with qkv = z and bias = z: V1
    (``window_attention``) on the split heads [BW, H, N, d] at the call's N
    and once more per set at N padded to 256 (zero q/k/v rows, pad ids -1,
    zero bias columns); V3 (``window_attention_windows``) on the block's
@@ -34,7 +46,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    launch of each V kernel per call after; V1f's and V3f's largest
    difference from K4f on the same calls (logged); their times beside the
    plain versions', and V3's beside partition + K4 + reverse;
-5. forward parity: every K1/K2/K3 call of a Swin-T eval forward at batch 2
+6. forward parity: every K1/K2/K3 call of a Swin-T eval forward at batch 2
    in f32 and in bf16, and at the eval path's batch 4 in bf16 (all four
    stages: shifted, unshifted, padded with -1 pad ids, clamped N = 150).
    K1/K2 parameters are replaced by seeded non-trivial ones (LayerNorm scale
@@ -43,7 +55,12 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    backward gains (gf != gb). Each K1/K2 call is checked with lam = 0 (the
    gained branch alone) and lam = 1 (the residual); f32 max|d| <= 1e-4 of
    the output scale (TF32 off), bf16 <= 2e-2; the movers bit-exact;
-6. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
+7. the key-tiled body forced (``attn_half(..., _force_tiled=True)``) onto
+   a recorded Swin stage-1 K1 call with bias and region ids (f32 at batch
+   2, bf16 at batch 4; d = 32, N = 252, the whole-window body's shape) and
+   onto each call cut to its first 37 tokens (N below one key tile):
+   forward and backward against the plain versions, only tiled launches;
+8. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
    draws), f32 and bf16 at batch 2 and the training path's bf16 calls at
    micro-batch 8, with the same seeded parameters and gains, lam 0 and 1.
    Every gradient of K1b (dx, LN w/b, qkv w/b, bias, proj w/b) and K2b (dx,
@@ -52,7 +69,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    also at saturated logits (bias 8 z + 45 and 8 z + 200, f32, as
    tests/test_swin_block_kernels.py saturates them): finite and within
    tolerance; the movers' adjoints bit-exact;
-7. the attention probes P1-P5 (``ops/attn_probe.py``, the ports of
+9. the attention probes P1-P5 (``ops/attn_probe.py``, the ports of
    scripts/perf_probe_attn_ablate{,2}.py) at one stage-1 K1 call: every P1
    variant, P5 run and copy against its plain version at the scripts'
    inputs (x [1728, 252, 96] bf16 from default_rng(0); copies bit-exact,
@@ -65,7 +82,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    per call of a whole half-block, 2 of ``linear_only`` / ``attn_only`` /
    ``lin``, 1 of a copy after; each run's time beside its plain version's,
    its bound, ``Tensor.copy_``'s for the copies, and K1f's on the same x;
-8. K5 parity: the stem conv K5f and its weight gradient K5w against their
+10. K5 parity: the stem conv K5f and its weight gradient K5w against their
    plain versions (the f32 conv of dtype-rounded operands, and its VJP) in
    f32 (1e-4 of scale, TF32 off) and bf16 (2e-2) at batch 2 on the
    geometries of tests/test_stem_im2col.py (ResNet and MedViT stems,
@@ -73,7 +90,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    then in bf16 at the slice's shape, x [12, 144, 168, 144, 1] (2e-2);
    their times beside the plain versions' and the library calls' (cuDNN
    conv3d in bf16, channels-last, and conv3d_weight);
-9. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
+11. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
    gains, ``Evaluator`` over 8 seeded float16 144x168x144 volumes in
    batches of 4, launch counters 0 before and exactly 12 (K1) / 12 (K2) /
    7 (K3) per forward after, none of K5; probs finite, rows summing to 1,
@@ -81,7 +98,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    two are further apart than twice that difference; one batch's logits
    within 2e-2 of the plain path's largest |logit|; ms per batch and vol/s
    of both paths;
-10. the Swin training path: ``init_train_state`` -> ``make_train_step`` for
+12. the Swin training path: ``init_train_state`` -> ``make_train_step`` for
    Swin-T 5c in bf16 with the flagship recipe (SAM, EMA of 3, MixUp p = 0.5,
    ShakeDrop, label smoothing 0.1), micro-batch 8, two micro-batches per
    step, on 16 seeded float16 volumes and their MixUp partners laid out as
@@ -95,38 +112,51 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    ``Evaluator``; then the same initial state, batches and injected draws
    for 2 steps on the plain route: per-step loss within 2e-2 and grad norm
    within 5e-2 (relative) of the kernel route;
-11. the DynamicTanh eval path: phase 8 for Swin-T 5c with NORM_LAYER
+13. the DynamicTanh eval path: phase 11 for Swin-T 5c with NORM_LAYER
    DynamicTanh, whose blocks all run unfused: exactly 12 K4f launches per
    forward and none of K1/K2/K3/K5;
-12. the DynamicTanh training path: phase 9 for that model with DROPOUT 0.1
+14. the DynamicTanh training path: phase 12 for that model with DROPOUT 0.1
    (keep masks after the patch embed, proj, GELU and fc2, injected with the
    ShakeDrop gains): exactly 12 K4f and 12 K4b per micro-batch and SAM
    pass and no other launch; every parameter, DyT's 0-d alpha included,
    reached by one backward; the plain route's 2 steps within TRAIN_RTOL;
-13. each Swin kernel's time per micro-batch at the training shapes beside
+15. the ViT eval path: phase 11 for ViT-S 5c (vit-5c-no_seed-baseline,
+   bf16, random weights from its ``init_weights``): the 144x168x144 volumes
+   resized to 144x160x144 on the card by the eval transform; exactly 12
+   tiled K1f and 12 K2f launches per forward and no other launch;
+16. the ViT training path: phase 12 for ViT-S 5c with the flagship recipe
+   (SAM, EMA of 3, MixUp p = 0.5, USE_SHAKEDROP, which ViT reads as
+   DropPath 0.15, label smoothing 0.1) at the preset's micro-batch 24 x 2:
+   exactly 12 tiled K1f, 12 tiled K1b, 12 K2f and 12 K2b per micro-batch
+   and SAM pass, none of the whole-window K1; then the times per
+   micro-batch of 24 of K1f/K1b (tiled), K2f and K2b at ViT's calls beside
+   their plain versions and bounds, and the tiled attention launches alone
+   (profiler) beside ``F.scaled_dot_product_attention`` on the same q, k, v
+   [24, 6, 811, 64] in bf16 and its backward (a yardstick);
+17. each Swin kernel's time per micro-batch at the training shapes beside
    its plain version's (the eval phase times the forwards at batch 4), and
    for K4f / K4b the library's: one ``F.scaled_dot_product_attention`` call
    per K4 call on the split heads with the additive float mask bias[h] +
    mask(ids), and that call's backward (also V1f / V1b's yardstick: the
    same function on the same split heads; V3 has no single call);
-14. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
+18. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
    dropout 0.1, bf16), seeded weights whose BatchNorm statistics are
    re-estimated by ``make_bn_refresh_step`` over 8 volumes, ``Evaluator``
    over the 8 volumes in batches of 4: exactly 1 K5f and no other launch
-   per forward; probs as in phase 8 against the plain stem;
-15. the ResNet training path: the same recipe
+   per forward; probs as in phase 11 against the plain stem;
+19. the ResNet training path: the same recipe
    without ShakeDrop (the ResNet has no residual gains), micro-batch 12 x
    2, injected head-dropout masks: every parameter reached by one
    backward; 1 + 3 steps with exactly 1 K5f and 1 K5w per micro-batch and
-   SAM pass and no other launch; parameters and EMA as in phase 9; the
+   SAM pass and no other launch; parameters and EMA as in phase 12; the
    BatchNorm statistics moved and the EMA's apart from the live ones; the
    EMA weights and statistics through ``Evaluator``; 2 plain-stem steps
    from the same state within 2e-2 / 5e-2;
-16. each kernel's time beside its bound: the larger of the bytes its calls
+20. each kernel's time beside its bound: the larger of the bytes its calls
    move (inputs read once, outputs written once) over 3.35 TB/s and the
    products they compute over 989 TFLOP/s (bf16), from this run's shapes.
 torch.profiler runs over one eval pass and one train step of each Swin
-path and one ResNet train step: device time by kernel and the device's
+and ViT path and one ResNet train step: device time by kernel and the device's
 idle share (traces in build/).
 
 Every failure raises (exit code 1). The last lines are one JSON object of
@@ -159,6 +189,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                   "vsn_tpu/ops/swin_block_kernels.py:525"),
     "attn_half_bwd": ("vsn_tpu_torch/csrc/attn_half_bwd.cu",
                       "vsn_tpu/ops/swin_block_kernels.py:560"),
+    # K1's key-tiled attention body (ViT's calls: d = 64, N = 811)
+    "attn_half_tiled": ("vsn_tpu_torch/csrc/attn_half.cu",
+                        "vsn_tpu/ops/swin_block_kernels.py:525"),
+    "attn_half_bwd_tiled": ("vsn_tpu_torch/csrc/attn_half_bwd.cu",
+                            "vsn_tpu/ops/swin_block_kernels.py:560"),
     "ln_mlp": ("vsn_tpu_torch/csrc/ln_mlp.cu",
                "vsn_tpu/ops/swin_block_kernels.py:1025"),
     "ln_mlp_bwd": ("vsn_tpu_torch/csrc/ln_mlp_bwd.cu",
@@ -264,6 +299,22 @@ V_PER_CALL = {name: 1 for v in V_KERNELS for name in (v, f"{v}_bwd")}
 PAD_N = 256
 W_NOT_DIVIDING = (2, (12, 14, 12), (6, 7, 6), 96, 3, 3)
 RESNET_PRESET, RESNET_MICRO = "resnet-5c-no_seed-baseline", 12
+# ViT-S 5c (vit-5c-no_seed-baseline: 144x160x144 / 16^3 + CLS = 811 tokens,
+# 12 blocks of 384, 6 heads of 64): one K1 (its key-tiled body) and one K2
+# a block; the eval volumes (144x168x144) are resized on the card
+VIT_PRESET, VIT_MICRO = "vit-5c-no_seed-baseline", 24
+VIT_PER_FORWARD = {"attn_half_tiled": 12, "ln_mlp": 12}
+VIT_PER_PASS = {**VIT_PER_FORWARD, "attn_half_bwd_tiled": 12,
+                "ln_mlp_bwd": 12}
+VIT_CASES = {"no mask", "no bias", "N=811"}
+# K1's names for ViT's calls: the tiled body's launch counters
+TILED_NAME = {"attn_half": "attn_half_tiled",
+              "attn_half_bwd": "attn_half_bwd_tiled"}
+KEY_TILE = 64   # keys per shared-memory tile of the tiled body (kTileK)
+# logits of the tiled saturation phase: 45 and 200 (exp exact under the
+# row-max shift), -200 (every exp underflows under the max(rowmax, 0)
+# shift: the clamp decides the output)
+TILED_LOGITS = (45.0, 200.0, -200.0)
 # K5 parity geometries, (shape DHW, kernel, strides, C_out): those of
 # tests/test_stem_im2col.py (the ResNet and MedViT stems, stride 1, odd
 # extents) and the ResNet stem at 16x18x16 with 64 channels; then the
@@ -279,6 +330,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # the forward call whose arguments set a kernel's work (bound_ms)
 FORWARD_OF = {"attn_half_bwd": "attn_half", "ln_mlp_bwd": "ln_mlp",
+              "attn_half_tiled": "attn_half",
+              "attn_half_bwd_tiled": "attn_half",
               "stem_im2col_dw": "stem_im2col", "attention_bwd": "attention",
               **{f"{m}_adjoint": m for m in MOVERS},
               **{f"{v}_bwd": v for v in V_KERNELS}}
@@ -354,14 +407,15 @@ def v_table():
 
 @contextmanager
 def patched_model_ops(replace):
-    """Route the model's kernel calls (models/swin3d.py names) through
-    ``replace(name, kernel, plain)``."""
-    from vsn_tpu_torch.models import swin3d
+    """Route the models' kernel calls (models/swin3d.py and models/vit3d.py
+    names) through ``replace(name, kernel, plain)``."""
+    from vsn_tpu_torch.models import swin3d, vit3d
 
     table = {**kernel_table(), **attention_table()}
     new = {MODEL_NAME.get(name, name): replace(name, *fns)
            for name, fns in table.items()}
-    with mock.patch.multiple(swin3d, **new):
+    with mock.patch.multiple(swin3d, **new), mock.patch.multiple(
+            vit3d, **{k: new[k] for k in BLOCK_KERNELS}):
         yield
 
 
@@ -1013,7 +1067,8 @@ def reach_every_parameter(model, cfg, state, batch, draws, label):
 
 def params_moved(state, initial, after0, label):
     """Finite parameters that step 0 (lr 0 under LR_WARMUP) left alone and
-    step 1 moved, and EMA weights apart from the live ones."""
+    the later steps moved, every parameter tensor, and EMA weights apart
+    from the live ones."""
     import torch
 
     flat = state.params.flat
@@ -1023,12 +1078,16 @@ def params_moved(state, initial, after0, label):
         raise AssertionError(f"{label}: step 0 (lr 0 under LR_WARMUP) moved "
                              "the parameters")
     moved = (flat - after0).abs().max().item()
+    still = [name for name, d in state.params.tree(flat - after0).items()
+             if not bool((d != 0).any())]
     ema_gap = (state.ema.ema[:flat.numel()] - flat).abs().max().item()
-    log(f"{label} path: parameters moved by {moved:.3e} after step 1, EMA "
-        f"{ema_gap:.3e} from the live weights, skipped {int(state.skipped)}")
-    if not moved > 0 or not ema_gap > 0:
-        raise AssertionError(f"{label}: parameters did not move or the EMA "
-                             "equals them")
+    log(f"{label} path: parameters moved by {moved:.3e} after step 1 "
+        f"({len(state.params.names) - len(still)} of "
+        f"{len(state.params.names)} tensors), EMA {ema_gap:.3e} from the "
+        f"live weights, skipped {int(state.skipped)}")
+    if not moved > 0 or not ema_gap > 0 or still:
+        raise AssertionError(f"{label}: parameters did not move ({still}) or "
+                             "the EMA equals them")
 
 
 def report_routes(label, kernel, plain, kernel_secs, plain_secs, vols,
@@ -1348,8 +1407,10 @@ def call_work(name, args):
     with a cotangent and a data gradient the size of the output). Bytes
     count each input read once and each output written once; FLOP count
     the products the kernel computes from those inputs (the backward
-    kernels recompute the forward's products they need)."""
+    kernels recompute the forward's products they need); K1's tiled body
+    does K1's work."""
     x = args[0]
+    name = {v: k for k, v in TILED_NAME.items()}.get(name, name)
     if name in PROBES:
         return probe_work(name, *args)
     if name in ("attention", "attention_bwd"):
@@ -1494,8 +1555,8 @@ def compare_logits(label, model, x, plain):
                              f"plain path's by {err} (max|logit| {scale})")
 
 
-def swin_eval_path(cfg, model, images, per_forward, label, card):
-    """One Swin eval path through ``Evaluator`` at batch BATCH: every launch
+def model_eval_path(cfg, model, images, per_forward, label, card):
+    """One eval path through ``Evaluator`` at batch BATCH: every launch
     counter at 0 before and exactly ``per_forward`` per batch after (0 for
     every other kernel); probs checked and held to the plain route's
     (``compare_probs``), and one batch's logits (``compare_logits``); the
@@ -1528,10 +1589,11 @@ def swin_eval_path(cfg, model, images, per_forward, label, card):
                   n_batches, card)
 
 
-def swin_train_path(cfg, batch, images, per_pass, passes, label, recipe,
-                    card):
-    """One Swin training path: ``init_train_state`` -> ``make_train_step``
-    for a model of ``cfg`` with seeded weights, on ``batch`` with draws
+def model_train_path(cfg, batch, images, per_pass, passes, label, recipe,
+                     card):
+    """One training path: ``init_train_state`` -> ``make_train_step``
+    for a model of ``cfg`` with seeded weights (``seeded_model``), on
+    ``batch`` with draws
     injected from ``Draws``. Every parameter reached by one backward; 1 +
     TIMED_STEPS steps with every launch counter at 0 before and exactly
     ``per_pass`` times ``passes`` after; the parameters and EMA
@@ -1541,15 +1603,13 @@ def swin_train_path(cfg, batch, images, per_pass, passes, label, recipe,
     launch counts."""
     import torch
     from vsn_tpu_torch.eval.evaluate import Evaluator
-    from vsn_tpu_torch.models import build_model
-    from vsn_tpu_torch.models.swin3d import init_weights
     from vsn_tpu_torch.ops import _build
     from vsn_tpu_torch.train.step import eval_params, init_train_state
 
     sync = torch.cuda.synchronize
     torch.cuda.reset_peak_memory_stats()
     micro = cfg.BATCH_SIZE
-    model = init_weights(build_model(cfg), torch.Generator().manual_seed(SEED))
+    model = seeded_model(cfg)
     state = init_train_state(cfg, model)
     initial = state.params.flat.clone()
     draws = Draws(model, micro, batch["image"].device, SEED)
@@ -1586,6 +1646,198 @@ def swin_train_path(cfg, batch, images, per_pass, passes, label, recipe,
         f"ms; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB")
     return counts
+
+
+def seeded_model(cfg, device=None):
+    """``build_model(cfg, device)`` (the card by default) with weights from
+    its architecture's ``init_weights`` at seed SEED."""
+    import torch
+    from vsn_tpu_torch.models import build_model
+    from vsn_tpu_torch.models.swin3d import init_weights as swin_init
+    from vsn_tpu_torch.models.vit3d import init_weights as vit_init
+
+    init = vit_init if cfg.ARCHITECTURE == "ViT" else swin_init
+    return init(build_model(cfg, device), torch.Generator().manual_seed(SEED))
+
+
+# ---------------------------------------------------------------------------
+# K1's key-tiled body and the ViT paths
+# ---------------------------------------------------------------------------
+
+def tiled_names(worst):
+    """A {kernel: value} of ViT's K1 calls under the tiled body's names."""
+    return {TILED_NAME.get(name, name): v for name, v in worst.items()}
+
+
+def vit_parity_phase(sets, gen, table=None, cases=VIT_CASES):
+    """K1 (its tiled body) and K2 on every recorded ViT call of ``sets``:
+    forward at lam 0 and 1, every gradient at lam 0 and 1, against the
+    plain versions (``parity_phase``, ``grad_parity_phase``; ``table``
+    defaults to ``kernel_table()``); each set covers ``cases``. Returns
+    {kernel: worst max|d|} under the tiled body's names."""
+    table = table or kernel_table()
+    worst, kinds = parity_phase(sets, table, gen)
+    bworst, bkinds = grad_parity_phase(sets, table, gen)
+    for label in sets:
+        for name, found in (("attn_half", kinds[label]["attn_half"]),
+                            ("attn_half_bwd",
+                             bkinds[label]["attn_half_bwd"])):
+            if not cases <= found:
+                raise AssertionError(f"ViT set {label} lacks {name} cases "
+                                     f"{cases - found}")
+    return tiled_names({**worst, **bworst})
+
+
+def _ratio(err, limit):
+    return err / limit if limit else (0.0 if err == 0 else math.inf)
+
+
+def tiled_saturation_phase(calls, gen, table=None, logits=TILED_LOGITS):
+    """K1 and K1b (tiled body) at saturated logits on the first ViT call of
+    ``calls`` (f32, seeded parameters), its bias set to 8 z + logit with
+    the keys of the last, ragged key tile 12 higher, so the top logits of
+    every row lie there and its running max grows at its last tile: the
+    forward at lam 0 and 1 and every gradient finite and within tolerance
+    of the plain versions. Returns the worst max|d| of the forward and the
+    backward (``table`` as in ``vit_parity_phase``)."""
+    import torch
+
+    kernel, plain = (table or kernel_table())["attn_half"]
+    args = list(seeded_params("attn_half", next(
+        a for n, a in calls if n == "attn_half"), gen))
+    x, heads = args[0], args[12]
+    n = x.shape[1]
+    last = (n - 1) // KEY_TILE * KEY_TILE   # first key of the last tile
+    if n % KEY_TILE == 0:
+        raise AssertionError(f"N = {n}: no ragged key tile")
+    z = torch.randn(heads, n, n, generator=gen).to(x.device)
+    worst = [0.0, 0.0]
+    for logit in logits:
+        bias = z * 8 + logit
+        bias[:, :, last:] += 12.0
+        args[5] = bias
+        rows = [("out" if lam else "branch", *compare("attn_half", kernel,
+                                                       plain, args, lam))
+                for lam in (0.0, PATH_LAM)]
+        grads = grad_compare("attn_half", kernel, plain, args, PATH_LAM, gen)
+        for i, group in enumerate((rows, grads)):
+            worst[i] = max([worst[i]] + [err for _, err, _, _ in group])
+        ratio = max(_ratio(err, limit) for _, err, limit, _ in rows + grads)
+        bad = [g for g, _, _, ok in rows + grads if not ok]
+        log(f"parity tiled saturated logits {logit:g} (top in keys "
+            f"{last}-{n - 1}): attn_half_tiled and attn_half_bwd_tiled "
+            f"{len(rows) + len(grads)} outputs, worst {ratio:.3f} of the "
+            f"limit {'ok' if not bad else 'FAIL'}")
+        if bad:
+            raise AssertionError(f"tiled K1 at logits {logit:g}: {bad}")
+    return worst
+
+
+def forced_tiled_calls(calls, n_small=37):
+    """A recorded Swin stage-1 K1 call with region ids and bias (N = 252,
+    d = 32: the whole-window body's shape), and the same call cut to its
+    first ``n_small`` tokens (N below one key tile)."""
+    call = next(a for n, a in calls if n == "attn_half"
+                and "shifted ids" in case_kind(n, a)
+                and "no bias" not in case_kind(n, a))
+    x, bias, ids = call[0], call[5], call[6]
+    small = list(call)
+    small[0] = x[:, :n_small].contiguous()
+    small[5] = bias[:, :n_small, :n_small].contiguous()
+    small[6] = ids[:, :n_small].contiguous()
+    return [("attn_half", call), ("attn_half", tuple(small))]
+
+
+def forced_tiled_phase(sets, gen):
+    """The tiled body forced (``_force_tiled``) onto Swin's calls of
+    ``sets`` (``forced_tiled_calls``): forward and backward against the
+    plain versions; only tiled launches. Returns {tiled kernel: worst
+    max|d|}."""
+    import functools
+
+    from vsn_tpu_torch.ops import _build
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    forced = functools.partial(sbk.attn_half, _force_tiled=True)
+    table = {"attn_half": (forced, sbk.attn_half_reference)}
+    _build.launches.clear()
+    worst, _ = parity_phase(sets, table, gen)
+    bworst, _ = grad_parity_phase(sets, table, gen)
+    counts = {name: _build.launches[name] for name in KERNELS
+              if _build.launches[name]}
+    n_calls = sum(len(calls) for calls in sets.values())
+    # per call: 2 forwards (lam 0 and 1) and 2 forward-and-backward pairs
+    want = {"attn_half_tiled": 4 * n_calls, "attn_half_bwd_tiled": 2 * n_calls}
+    log(f"forced tiled: {n_calls} Swin calls, launches {counts}")
+    if counts != want:
+        raise AssertionError(f"forced tiled launches {counts}, expected "
+                             f"{want}")
+    return tiled_names({**worst, **bworst})
+
+
+def device_kernel_ms(fn, label, reps=3):
+    """{kernel name: device ms per call of ``fn``} from a torch.profiler
+    trace of ``reps`` calls after a warm-up (trace in build/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    trace = Path(__file__).resolve().parent / "build" / f"{label}_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    out = collections.Counter()
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            out[e["name"]] += e["dur"] / 1e3 / reps
+    return out
+
+
+def tiled_launch_times(calls, card):
+    """Device ms per micro-batch of the tiled attention launches alone
+    (K1f's launch 2, K1b's phases A and B) over ViT's K1 calls, from the
+    profiler, beside ``F.scaled_dot_product_attention`` on the calls' q, k,
+    v [B, H, N, d] in bf16 (forward, and its backward to q, k, v): the
+    same attention at ordinary logits, a yardstick the port never calls.
+    Returns (forward ms, phase A + B ms, SDPA ms, SDPA backward ms)."""
+    import torch
+    import torch.nn.functional as F
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    k1 = [args for name, args in calls if name == "attn_half"]
+    b_args = [(*a[:8], a[10], torch.randn(a[0].shape, device=a[0].device).to(
+        a[0].dtype), *a[11:13]) for a in k1]
+    with torch.no_grad():
+        fwd_k = device_kernel_ms(lambda: [sbk.attn_half(*a) for a in k1],
+                                 "vit_k1f")
+        bwd_k = device_kernel_ms(
+            lambda: [sbk.attn_half_backward(*a) for a in b_args], "vit_k1b")
+    fwd = sum(v for n, v in fwd_k.items() if "attention_tiled" in n)
+    phase_a = sum(v for n, v in bwd_k.items() if "attention_bwd_rows" in n)
+    phase_b = sum(v for n, v in bwd_k.items() if "attention_bwd_keys" in n)
+    lib = lib_bwd = 0.0
+    for a in k1:
+        parts = sbk._attention_parts(*a[:7], a[11], a[12])
+        q, k, v = (t.to(torch.bfloat16).contiguous() for t in parts[3:6])
+        shape = tuple(q.shape)
+        lib += cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=a[11]))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=a[11])
+        g = torch.randn_like(out)
+        lib_bwd += cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                       retain_graph=True))
+        del parts, q, k, v, leaves, out, g
+    log(f"[{card}] vit attention launches alone, per micro-batch of "
+        f"{VIT_MICRO} ({len(k1)} calls): tiled forward {fwd:.3f} ms, tiled "
+        f"backward {phase_a + phase_b:.3f} ms (phase A {phase_a:.3f}, phase "
+        f"B {phase_b:.3f}); F.scaled_dot_product_attention on the same q, "
+        f"k, v {shape} bf16 {lib:.3f} ms, its backward {lib_bwd:.3f} ms")
+    return fwd, phase_a + phase_b, lib, lib_bwd
 
 
 # ---------------------------------------------------------------------------
@@ -1828,7 +2080,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: runs on one card; set "
                          "CUDA_VISIBLE_DEVICES to one device")
     from vsn_tpu_torch.config import load_config
-    from vsn_tpu_torch.data.augment import zscore
+    from vsn_tpu_torch.data.augment import resize_batch, zscore
     from vsn_tpu_torch.eval.evaluate import Evaluator
     from vsn_tpu_torch.models import build_model
     from vsn_tpu_torch.models.swin3d import init_weights
@@ -1858,7 +2110,40 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # 3. K4 parity on the DynamicTanh model's calls ------------------------
+    # 3. K1's tiled body and K2 on ViT-S's calls ------------------------
+    vit_cfg = load_config(preset=VIT_PRESET)
+    vit_train_cfg = load_config(dict(
+        USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
+        USE_SHAKEDROP=True, LABEL_SMOOTHING=0.1, SEED=SEED,
+        BATCH_SIZE=VIT_MICRO, EFFECTIVE_BATCH_SIZE=VIT_MICRO * TRAIN_ACCUM),
+        preset=VIT_PRESET)
+    if vit_train_cfg.gradient_accumulation_steps() != TRAIN_ACCUM:
+        raise AssertionError("the ViT training config must accumulate "
+                             f"{TRAIN_ACCUM} micro-batches")
+    vit_batch = train_batch(vit_train_cfg, device, SEED + 14)
+    vit_sets = {}
+    for dtype_name, fp16 in (("float32", False), ("bfloat16", True)):
+        m = seeded_model(vit_cfg.replace(FP16=fp16))
+        x = torch.from_numpy(volumes(2, seed=SEED + 15)).to(device)
+        x = zscore(resize_batch(x, vit_cfg.input_size))  # the eval transform
+        vit_sets[f"ViT {dtype_name} B=2"] = record_calls(m, x)
+    vit_micro0 = {k: v[0] for k, v in vit_batch.items()}
+    vit_images = make_batch_transform(vit_train_cfg)(vit_micro0)[0].to(
+        torch.bfloat16)
+    vit_label = f"ViT bfloat16 B={VIT_MICRO} train"
+    vit_sets[vit_label] = record_calls(
+        seeded_model(vit_train_cfg).train(), vit_images,
+        generator=torch.Generator(device).manual_seed(4))
+    vgen = torch.Generator().manual_seed(SEED + 16)
+    vit_worst = vit_parity_phase(vit_sets, vgen)   # merged in phase 20
+    sat = tiled_saturation_phase(vit_sets["ViT float32 B=2"], vgen)
+    for name, err in zip(TILED_NAME.values(), sat):
+        vit_worst[name] = max(vit_worst[name], err)
+    vit_calls = vit_sets.pop(vit_label)  # timed in phase 16
+    del vit_sets, vit_micro0, vit_images, m, x
+    torch.cuda.empty_cache()
+
+    # 4. K4 parity on the DynamicTanh model's calls ------------------------
     cfg = load_config(dict(USE_SHAKEDROP=True))  # flagship: bf16, ShakeDrop
     train_cfg = load_config(dict(
         USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
@@ -1897,7 +2182,7 @@ def main() -> int:
                                      f"{ATTN_CASES - found}")
     saturation_phase(k4sets["DyT float32 B=2"], atable, kgen, "attention")
 
-    # 4. V1 and V3 on the K4 calls ----------------------------------------
+    # 5. V1 and V3 on the K4 calls ----------------------------------------
     vgen = torch.Generator().manual_seed(SEED + 12)
     triples = {label: v_calls(calls, blocks[label], vgen)
                for label, calls in k4sets.items()}
@@ -1922,11 +2207,11 @@ def main() -> int:
                            "attention_windows_bwd")):
         log(f"[{card}] V3 {what}: {vms[name]:.3f} ms per micro-batch of "
             f"{TRAIN_MICRO} against partition + K4 + reverse {t:.3f} ms")
-    k4_calls = k4sets.pop(train_label)  # phase 13
+    k4_calls = k4sets.pop(train_label)  # phase 17
     del k4sets, triples, v_main, m, x
     torch.cuda.empty_cache()
 
-    # 5. forward parity at every stage shape ------------------------------
+    # 6. forward parity at every stage shape ------------------------------
     models = {}
     for dtype_name, fp16 in (("float32", False), ("bfloat16", True)):
         m = build_model(cfg.replace(FP16=fp16))
@@ -1948,10 +2233,19 @@ def main() -> int:
         if not ATTN_CASES <= by_name["attn_half"]:
             raise AssertionError(f"parity set {label} lacks attn_half cases "
                                  f"{ATTN_CASES - by_name['attn_half']}")
-    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 9
+    eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 11
+
+    # 7. the tiled body forced onto Swin's calls ---------------------------
+    fworst = forced_tiled_phase(
+        {f"forced tiled, Swin {label}": forced_tiled_calls(calls)
+         for label, calls in (("float32 B=2", sets["float32 B=2"]),
+                              (f"bfloat16 B={BATCH}", eval_calls))},
+        torch.Generator().manual_seed(SEED + 17))
+    for name, err in fworst.items():
+        vit_worst[name] = max(vit_worst[name], err)
     del sets
 
-    # 6. backward parity on training forwards -----------------------------
+    # 8. backward parity on training forwards -----------------------------
     gsets = {}
     for dtype_name, m in models.items():
         x = zscore(torch.from_numpy(volumes(2, seed=SEED + 4)).to(device))
@@ -1970,15 +2264,15 @@ def main() -> int:
             raise AssertionError(f"backward set {label} lacks attn_half cases "
                                  f"{ATTN_CASES - by_name['attn_half_bwd']}")
     saturation_phase(gsets["float32 B=2"], table, gen)
-    train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 13
+    train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 17
     del gsets, models, x, images8
     torch.cuda.empty_cache()
 
-    # 7. the attention probes P1-P5 at one stage-1 call -------------------
+    # 9. the attention probes P1-P5 at one stage-1 call -------------------
     probes = probe_phase(device, card)
     torch.cuda.empty_cache()
 
-    # 8. K5f / K5w parity and timings -------------------------------------
+    # 10. K5f / K5w parity and timings -------------------------------------
     stable = stem_table()
     sgen = torch.Generator(device).manual_seed(SEED + 9)
     cases = {f"{dt} {geom[0]} k{geom[1]} s{geom[2]} C{geom[3]}":
@@ -1994,40 +2288,66 @@ def main() -> int:
     del cases, stem_call
     torch.cuda.empty_cache()
 
-    # 9. the Swin eval path -----------------------------------------------
+    # 11. the Swin eval path -----------------------------------------------
     images = volumes(N_VOLUMES, seed=SEED)
     n_batches = -(-N_VOLUMES // BATCH)
-    swin_eval_path(cfg, model, images, PER_FORWARD, "eval", card)
+    model_eval_path(cfg, model, images, PER_FORWARD, "eval", card)
     ems, eplain = kernel_times(eval_calls, backward=False)
     for name in PER_FORWARD:
         log(f"[{card}] eval {name}: {ems[name]:.3f} ms per forward at batch "
             f"{BATCH} (plain {eplain[name]:.3f} ms)")
     del evaluator, model, eval_calls
 
-    # 10. the Swin training path -------------------------------------------
+    # 12. the Swin training path -------------------------------------------
     steps = 1 + TIMED_STEPS
     passes = steps * TRAIN_ACCUM * (2 if train_cfg.USE_SAM else 1)
     recipe = (f"SAM + EMA + MixUp + ShakeDrop, micro {TRAIN_MICRO} x "
               f"{TRAIN_ACCUM}")
-    path_counts = swin_train_path(train_cfg, batch, images, PER_PASS, passes,
-                                  "train", recipe, card)
+    path_counts = model_train_path(train_cfg, batch, images, PER_PASS,
+                                   passes, "train", recipe, card)
 
-    # 11. the DynamicTanh eval path ---------------------------------------
+    # 13. the DynamicTanh eval path ---------------------------------------
     dyt_cfg = cfg.replace(**DYT)
     model = init_weights(build_model(dyt_cfg),
                          torch.Generator().manual_seed(SEED))
-    swin_eval_path(dyt_cfg, model, images, DYT_PER_FORWARD, "dyt_eval", card)
+    model_eval_path(dyt_cfg, model, images, DYT_PER_FORWARD, "dyt_eval", card)
     del model
 
-    # 12. the DynamicTanh training path, DROPOUT 0.1 ----------------------
-    counts = swin_train_path(dyt_train_cfg, batch, images, DYT_PER_PASS,
-                             passes, "dyt_train",
-                             f"{recipe}, DynamicTanh, DROPOUT {DYT_DROPOUT}",
-                             card)
+    # 14. the DynamicTanh training path, DROPOUT 0.1 ----------------------
+    counts = model_train_path(dyt_train_cfg, batch, images, DYT_PER_PASS,
+                              passes, "dyt_train",
+                              f"{recipe}, DynamicTanh, DROPOUT {DYT_DROPOUT}",
+                              card)
     path_counts.update({name: counts[name] for name in DYT_PER_PASS})
     del batch
+    torch.cuda.empty_cache()
 
-    # 13. Swin kernel timings at the training shapes ----------------------
+    # 15. the ViT eval path: 144x168x144 volumes resized on the card ------
+    model = seeded_model(vit_cfg)
+    model_eval_path(vit_cfg, model, images, VIT_PER_FORWARD, "vit_eval", card)
+    del model
+
+    # 16. the ViT training path, micro 24 x 2 ----------------------------
+    counts = model_train_path(
+        vit_train_cfg, vit_batch, images, VIT_PER_PASS, passes, "vit_train",
+        f"SAM + EMA + MixUp + DropPath (USE_SHAKEDROP, which ViT reads as "
+        f"DropPath), micro {VIT_MICRO} x {TRAIN_ACCUM}", card)
+    path_counts.update({name: counts[name] for name in TILED_NAME.values()})
+    del vit_batch
+    torch.cuda.empty_cache()
+    vms_vit, vplain_vit = kernel_times(vit_calls)
+    vit_bounds = {name: bound_ms(name, vit_calls)
+                  for name in ("ln_mlp", "ln_mlp_bwd", *TILED_NAME.values())}
+    for name in ("attn_half", "attn_half_bwd", "ln_mlp", "ln_mlp_bwd"):
+        tname = TILED_NAME.get(name, name)
+        log(f"[{card}] vit {tname}: {vms_vit[name]:.3f} ms per micro-batch "
+            f"of {VIT_MICRO} (plain {vplain_vit[name]:.3f} ms, bound "
+            f"{vit_bounds[tname][0]:.3f} ms by {vit_bounds[tname][1]})")
+    tiled_launch_times(vit_calls, card)
+    del vit_calls
+    torch.cuda.empty_cache()
+
+    # 17. Swin kernel timings at the training shapes ----------------------
     ms, plain_ms = kernel_times(train_calls + k4_calls)
     bounds = {name: bound_ms(name, train_calls + k4_calls) for name in KERNELS
               if name not in STEM and name not in V_PER_CALL
@@ -2041,10 +2361,14 @@ def main() -> int:
     # V1 computes K4's function on the split heads that the SDPA call takes
     library_ms["attention_split"] = library_ms["attention"]
     library_ms["attention_split_bwd"] = library_ms["attention_bwd"]
+    for name in TILED_NAME:  # K1's tiled body: ViT's calls
+        tname = TILED_NAME[name]
+        ms[tname], plain_ms[tname] = vms_vit[name], vplain_vit[name]
+        bounds[tname] = vit_bounds[tname]
     del train_calls, k4_calls
     torch.cuda.empty_cache()
 
-    # 14. the ResNet eval path --------------------------------------------
+    # 18. the ResNet eval path --------------------------------------------
     from vsn_tpu_torch.models.resnet3d import init_weights as resnet_init
 
     rcfg = load_config(preset=RESNET_PRESET)
@@ -2066,7 +2390,7 @@ def main() -> int:
                card)
     del revaluator, rmodel
 
-    # 15. the ResNet training path ----------------------------------------
+    # 19. the ResNet training path ----------------------------------------
     rtrain_cfg = load_config(dict(
         USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
         LABEL_SMOOTHING=0.1, SEED=SEED, BATCH_SIZE=RESNET_MICRO,
@@ -2128,7 +2452,7 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del pstate, rbatch, model, draws
 
-    # 16. per-kernel times beside their bounds ----------------------------
+    # 20. per-kernel times beside their bounds ----------------------------
     for name in STEM:
         ms[name], plain_ms[name], library_ms[name] = stem_ms[name]
         bounds[name] = stem_bound[name]
@@ -2136,10 +2460,14 @@ def main() -> int:
     for key, (n, err, t, plain_t, bound, lib) in probes.items():
         path_counts[key], worst[key], ms[key] = n, err, t
         plain_ms[key], bounds[key], library_ms[key] = plain_t, bound, lib
+    for name, err in vit_worst.items():   # K1's tiled body; K2 on ViT's calls
+        worst[name] = max(worst.get(name, 0.0), err)
     for name in KERNELS:
         per = (f"micro-batch of {RESNET_MICRO}" if name in STEM
                else f"stage-1 call (micro-batch of {TRAIN_MICRO})"
-               if name in PROBES else f"micro-batch of {TRAIN_MICRO}")
+               if name in PROBES else f"micro-batch of {VIT_MICRO} (ViT)"
+               if name in TILED_NAME.values()
+               else f"micro-batch of {TRAIN_MICRO}")
         lib = ("no single call" if library_ms[name] is None
                else f"{library_ms[name]:.3f} ms")
         log(f"[{card}] {name}: {ms[name]:.3f} ms per {per} (plain "

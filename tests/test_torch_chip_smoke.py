@@ -938,7 +938,7 @@ def test_probes_table_lists_every_run():
     for key, (_, src, rep) in chip_smoke.PROBES.items():
         assert chip_smoke.KERNELS[key] == (src, rep)
         assert (ROOT / src).exists() and (ROOT / rep.split(":")[0]).exists()
-    assert len(chip_smoke.KERNELS) == 18 + 13
+    assert len(chip_smoke.KERNELS) == 18 + 2 + 13   # K1's tiled body: 2
 
 
 def test_probe_plain_versions_pass(probe_sets):

@@ -17,6 +17,8 @@ f32 atomics in an order that varies from run to run. The movers' adjoints
 are bit-exact.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -220,6 +222,95 @@ def test_attn_half_bwd_at_saturated_logits(dev, logit):
     assert all(torch.isfinite(g).all() for g in got)
     _close_grads(got, _grads(sbk.attn_half_reference, args, dout, ATTN_DIFF),
                  torch.float32)
+
+
+def _vit_args(dev, b, n, heads, dtype, bias=None, seed=0):
+    """A K1 call as ViT makes it: [B, N, 64 * heads] x, no qkv bias, no
+    region mask, ``bias`` as given (None for ViT), distinct per-sample
+    gains gf != gb, unit-variance projections."""
+    c = 64 * heads
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, k=1.0: (torch.randn(*s, generator=g) * k).to(dev)
+    return (r(b, n, c).to(dtype), 1 + r(c, k=0.1), r(c, k=0.1),
+            r(3 * c, c, k=c ** -0.5), None, bias, None,
+            r(c, c, k=c ** -0.5), r(c, k=0.1),
+            torch.linspace(0.6, 1.4, b, device=dev),
+            torch.linspace(1.25, 0.35, b, device=dev), 64 ** -0.5, heads)
+
+
+def _tiled_case(fn, args, lam, dout, diff):
+    """(output, gradients) of one K1 call with lam."""
+    return fn(*args, lam=lam), _grads(lambda *a: fn(*a, lam=lam), args, dout,
+                                      diff)
+
+
+# (B, N, heads): ViT-S's call at two samples; N below one tile, one tile and
+# a ragged one past it, a head count of 4
+TILED_SHAPES = [(2, 811, 6), (2, 13, 2), (3, 37, 2), (2, 64, 2), (2, 65, 4)]
+VIT_DIFF = (0, 1, 2, 3, 7, 8)           # x, LN, qkv w, proj w/b
+
+
+@pytest.mark.parametrize("lam", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,heads", TILED_SHAPES)
+def test_attn_half_tiled_matches_plain(dev, dtype, b, n, heads, lam):
+    """d = 64: the key-tiled K1f and K1b (phases A and B), one launch of
+    each per call, none of the whole-window body."""
+    args = _vit_args(dev, b, n, heads, dtype)
+    assert sbk.attention_tiled(n, 64)
+    dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        2)).to(dev, dtype)
+    before = dict(_build.launches)
+    out, got = _tiled_case(sbk.attn_half, args, lam, dout, VIT_DIFF)
+    torch.cuda.synchronize()
+    for name, k in (("attn_half_tiled", 2), ("attn_half_bwd_tiled", 1),
+                    ("attn_half", 0), ("attn_half_bwd", 0)):
+        assert _build.launches[name] == before.get(name, 0) + k, name
+    want_out, want = _tiled_case(sbk.attn_half_reference, args, lam, dout,
+                                 VIT_DIFF)
+    _close(out, want_out, dtype)
+    _close_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", ATTN_SHAPES)
+def test_attn_half_forced_tiled_on_swin_calls(dev, dtype, dims, window,
+                                              shift, heads, c, ids_kind):
+    """The tiled body forced onto Swin's calls (relative-position bias,
+    shifted and padded region ids, qkv bias, head dims 32 and 8)."""
+    args = _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
+    dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        2)).to(dev, dtype)
+    tiled = lambda *a, lam=1.0: sbk.attn_half(*a, lam=lam, _force_tiled=True)
+    before = _build.launches["attn_half_bwd_tiled"]
+    out, got = _tiled_case(tiled, args, 1.0, dout, ATTN_DIFF)
+    torch.cuda.synchronize()
+    assert _build.launches["attn_half_bwd_tiled"] == before + 1
+    want_out, want = _tiled_case(sbk.attn_half_reference, args, 1.0, dout,
+                                 ATTN_DIFF)
+    _close(out, want_out, dtype)
+    _close_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("logit", [45.0, 200.0, -200.0])
+def test_attn_half_tiled_top_logit_in_the_ragged_tile(dev, logit):
+    """Logits near ``logit`` (bias 8 z + logit) with the top ones in the
+    last, ragged key tile (keys 768-810, 12 above the rest), so each row's
+    running max grows at the last tile; at -200 every exp underflows under
+    the max(rowmax, 0) shift and the attention output is 0."""
+    g = torch.Generator().manual_seed(4)
+    bias = torch.randn(2, 811, 811, generator=g) * 8 + logit
+    bias[:, :, 768:] += 12.0
+    args = _vit_args(dev, 2, 811, 2, torch.float32, bias=bias.to(dev))
+    dout = torch.randn(args[0].shape, generator=g).to(dev)
+    diff = VIT_DIFF + (5,)
+    out, got = _tiled_case(sbk.attn_half, args, 1.0, dout, diff)
+    assert torch.isfinite(out).all()
+    assert all(torch.isfinite(t).all() for t in got)
+    want_out, want = _tiled_case(sbk.attn_half_reference, args, 1.0, dout,
+                                 diff)
+    _close(out, want_out, torch.float32)
+    _close_grads(got, want, torch.float32)
 
 
 @pytest.mark.parametrize("lam", [0.0, 1.0])
@@ -607,3 +698,49 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
                              dtype=torch.bfloat16)[1:].view(4, 12, 16)
     with pytest.raises(ValueError, match="16-byte"):
         ap.copy_windows(misaligned)
+
+
+# One-line edits of K1's key-tiled body that chip_smoke.py must reject on
+# the card (exit 1, in its phase 3: parity on ViT's calls or the saturation
+# with the top logits in the ragged last key tile): name -> (source, line,
+# its mutant)
+_CSRC = Path(__file__).resolve().parent.parent / "vsn_tpu_torch" / "csrc"
+TILED_SOURCE_MUTANTS = {
+    "K1f: the ragged last key tile left out": (
+        "attn_half.cu", "const int nk = min(kTileK, n - k0);",
+        "const int nk = n - k0 < kTileK ? 0 : kTileK;"),
+    "K1f: the max(rowmax, 0) clamp dropped": (
+        "attn_half.cu", "m[r] = 0.f;", "m[r] = -INFINITY;"),
+    "K1f: no rescale when the running max grows": (
+        "attn_half.cu",
+        "for (int ch = 0; ch < CH; ++ch) o[r][ch] *= alpha;",
+        "for (int ch = 0; ch < CH; ++ch) o[r][ch] *= 1.f;"),
+    "K1b phase A: the running sum not rescaled": (
+        "attn_half_bwd.cu",
+        "rinv[r] = rinv[r] * expf(shift[r] - mn) + warp_sum(part);",
+        "rinv[r] = rinv[r] + warp_sum(part);"),
+    "K1b phase B: rowsum(p * dp) dropped from ds": (
+        "attn_half_bwd.cu",
+        "dsv = __fsub_rn(__fmul_rn(p, dp), __fmul_rn(st[2], p));",
+        "dsv = __fmul_rn(p, dp);"),
+}
+TILED_FAILURES = ("kernels disagree with their plain versions",
+                  "tiled K1 at logits")
+
+
+@pytest.mark.parametrize("mutant", sorted(TILED_SOURCE_MUTANTS))
+def test_tiled_source_mutants_name_one_line_of_the_source(mutant):
+    src, line, new = TILED_SOURCE_MUTANTS[mutant]
+    assert (_CSRC / src).read_text().count(line) == 1 and new != line
+
+
+@pytest.mark.parametrize("mutant", sorted(TILED_SOURCE_MUTANTS))
+def test_a_mutated_tiled_source_makes_chip_smoke_fail(dev, mutant, tmp_path):
+    """chip_smoke.py run from a copy of the port whose tiled K1 kernels
+    have one line mutated exits 1 in its ViT parity phase."""
+    from test_torch_chip_smoke import _run_mutated_chip_smoke
+
+    src, line, new = TILED_SOURCE_MUTANTS[mutant]
+    res = _run_mutated_chip_smoke(_CSRC / src, line, new, tmp_path)
+    assert res.returncode == 1
+    assert any(f in res.stderr for f in TILED_FAILURES), res.stderr[-2000:]

@@ -48,10 +48,15 @@ def test_zscore_matches_jax():
 
 
 def test_resize_is_identity_or_raises():
+    """The identity returns x itself; a real resize (once a
+    NotImplementedError) is jax.image.resize's antialiased linear one,
+    which keeps a constant volume constant (tests/test_torch_resize.py
+    holds it to JAX)."""
     x = torch.zeros(1, 4, 5, 6, 1)
     assert resize_batch(x, (4, 5, 6)) is x
-    with pytest.raises(NotImplementedError):
-        resize_batch(x, (8, 8, 8))
+    out = resize_batch(x + 3.0, (8, 8, 8))
+    assert tuple(out.shape) == (1, 8, 8, 8, 1) and out.dtype == torch.float32
+    torch.testing.assert_close(out, torch.full_like(out, 3.0))
 
 
 def test_evaluator_probs_match_jax_eval_step():

@@ -109,3 +109,22 @@ def test_library_is_named_by_its_sources_and_builds_under_build():
                      "ln_mlp_bwd.cu", "stem_im2col.cu", "window_relayout.cu",
                      "window_attention_qkv.cu", "probe_copy.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_ptxas_report_parses_registers_and_spills():
+    """probes/ptxas.py (registers and spills per kernel, from nvcc
+    -Xptxas -v): a kernel with spills and one without."""
+    from vsn_tpu_torch.probes.ptxas import parse
+
+    text = (
+        "ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1av\n"
+        "    208 bytes stack frame, 196 bytes spill stores, 296 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 208 bytes "
+        "cumulative stack size\n"
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1bv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers\n")
+    assert parse(text) == [("_Z1av", 128, 196, 296), ("_Z1bv", 40, 0, 0)]

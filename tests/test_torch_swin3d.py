@@ -145,8 +145,9 @@ def test_training_forward_and_unported_options_raise():
     with pytest.raises(ValueError):
         build_model(load_config(dict(TINY, NORM_LAYER="GroupNorm")),
                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(load_config(dict(TINY, ARCHITECTURE="ViT")), device="cpu")
+    with pytest.raises(NotImplementedError):   # ViT is ported, MedViT not
+        build_model(load_config(dict(TINY, ARCHITECTURE="MedViT")),
+                    device="cpu")
 
 
 GEOMETRY = [  # (dims, window, shift): divisible, padded, clamped-like

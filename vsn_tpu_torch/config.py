@@ -72,10 +72,23 @@ DEFAULTS = {
 }
 
 # Keys the JAX package reads as ``cfg.get(key, default)`` and that
-# config-defaults.yaml does not list (vsn_tpu/models/resnet3d.py:188, 191).
+# config-defaults.yaml does not list (vsn_tpu/models/resnet3d.py:188, 191;
+# vsn_tpu/models/vit3d.py:535).
 READ_DEFAULTS = {
     "RESNET_VARIANT": "resnet18",
     "IN_CHANNELS": 1,
+    "USE_PALLAS_ATTENTION": True,
+}
+
+_VIT = {
+    "ARCHITECTURE": "ViT",
+    "RESHAPE_SIZE": [144, 160, 144],
+    "PATCH_SHAPE": [16, 16, 16],
+    "EMBED_DIM": 384,
+    "DEPTH": 12,
+    "HEADS": 6,
+    "SEED": None,
+    "BATCH_SIZE": 24,
 }
 
 # vsn_tpu/configs/<name>.yaml, applied over DEFAULTS as the JAX load_config
@@ -98,6 +111,8 @@ PRESETS = {
         "PRELOAD_DATA": False,
         "DISEASES": ["CN", "AD", "FTD"],
     },
+    "vit-5c-no_seed-baseline": dict(_VIT),
+    "vit-3c-no_seed-baseline": dict(_VIT, DISEASES=["CN", "AD", "FTD"]),
 }
 
 

@@ -1,12 +1,14 @@
-"""JAX variables <-> the port's state_dict (Swin-3D and ResNet-3D).
+"""JAX variables <-> the port's state_dict (Swin-3D, ViT-3D and ResNet-3D).
 
 ``state_dict_from_jax`` is the inverse of scripts/golden_parity.py
-``port_swin`` and ``port_resnet``, with the same transposes: a Dense kernel
+``port_swin``, ``port_vit`` and ``port_resnet``, with the same transposes: a Dense kernel
 [in, out] becomes a Linear weight [out, in]; a Conv kernel [kd, kh, kw, I, O]
 becomes a Conv3d weight [O, I, kd, kh, kw]; LayerNorm, RMSNorm and
 BatchNorm scale/bias become weight/bias; DynamicTanh keeps alpha (0-d),
 gamma and beta; BatchNorm ``batch_stats`` mean/var become the
-running_mean/running_var buffers. Every leaf must match a rule (KeyError
+running_mean/running_var buffers; ViT's ``cls_token`` and
+``pos_embedding`` keep their names and shapes. A JAX ``head`` is Swin's
+``head`` or, in a tree that holds ``cls_token``, ViT's ``mlp_head.1``. Every leaf must match a rule (KeyError
 otherwise); load the result with ``load_state_dict(strict=True)`` so that
 any model key left without a leaf errors too. The maps are linear, so they
 carry gradients and optimizer moments as well as parameters.
@@ -103,6 +105,38 @@ _RULES = (
     ("params", r"fc/bias", "resnet.fc.bias", _same),
 )
 
+_VIT = "transformer.layers.{0}"
+# ViT-3D (JAX fused and unfused paths declare one tree, with no qkv bias)
+_VIT_RULES = (
+    ("params", r"patch_norm1/" + _NORM, "to_patch_embedding.1.{leaf}",
+     _same),
+    ("params", r"patch_proj/kernel", "to_patch_embedding.2.weight", _dense),
+    ("params", r"patch_proj/bias", "to_patch_embedding.2.bias", _same),
+    ("params", r"patch_norm2/" + _NORM, "to_patch_embedding.3.{leaf}",
+     _same),
+    ("params", r"(pos_embedding)", "{0}", _same),
+    ("params", r"(cls_token)", "{0}", _same),
+    ("params", r"block(\d+)/attn/norm/" + _NORM, _VIT + ".0.norm.{leaf}",
+     _same),
+    ("params", r"block(\d+)/attn/qkv/kernel", _VIT + ".0.to_qkv.weight",
+     _dense),
+    ("params", r"block(\d+)/attn/proj/kernel", _VIT + ".0.to_out.0.weight",
+     _dense),
+    ("params", r"block(\d+)/attn/proj/bias", _VIT + ".0.to_out.0.bias",
+     _same),
+    ("params", r"block(\d+)/ff_prenorm/" + _NORM, _VIT + ".1.net.0.{leaf}",
+     _same),
+    ("params", r"block(\d+)/mlp/fc1/kernel", _VIT + ".1.net.1.weight",
+     _dense),
+    ("params", r"block(\d+)/mlp/fc1/bias", _VIT + ".1.net.1.bias", _same),
+    ("params", r"block(\d+)/mlp/fc2/kernel", _VIT + ".1.net.4.weight",
+     _dense),
+    ("params", r"block(\d+)/mlp/fc2/bias", _VIT + ".1.net.4.bias", _same),
+    ("params", r"head_norm/" + _NORM, "mlp_head.0.{leaf}", _same),
+    ("params", r"head/kernel", "mlp_head.1.weight", _dense),
+    ("params", r"head/bias", "mlp_head.1.bias", _same),
+)
+
 
 def _flatten(tree: Mapping, prefix: str = ""):
     for k, v in tree.items():
@@ -113,8 +147,8 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield path, v
 
 
-def _translate(collection: str, path: str):
-    for coll, pattern, template, fn in _RULES:
+def _translate(collection: str, path: str, rules=_RULES):
+    for coll, pattern, template, fn in rules:
         m = re.fullmatch(pattern, path) if coll == collection else None
         if m:
             groups = m.groups()
@@ -131,10 +165,12 @@ def state_dict_from_jax(variables: Mapping,
     extra = set(variables) - {"params", "batch_stats"}
     if extra:
         raise KeyError(f"unexpected variable collections: {sorted(extra)}")
+    rules = _VIT_RULES if "cls_token" in variables.get("params", {}) \
+        else _RULES
     out = {}
     for collection, tree in variables.items():
         for path, leaf in _flatten(tree):
-            key, fn = _translate(collection, path)
+            key, fn = _translate(collection, path, rules)
             if key in out:
                 raise KeyError(f"two JAX leaves map to {key!r}")
             arr = np.array(fn(np.asarray(leaf, dtype)), order="C")
@@ -154,7 +190,7 @@ def _template_regex(template: str, pattern: str) -> str:
 
 def _reverse(key: str):
     """torch key -> (collection, '/'-joined JAX path, inverse transform)."""
-    for coll, pattern, template, fn in _RULES:
+    for coll, pattern, template, fn in _RULES + _VIT_RULES:
         m = re.fullmatch(_template_regex(template, pattern), key)
         if not m:
             continue

@@ -8,8 +8,7 @@ MODEL_PRESETS = ("Swin", "SwinDPL", "MedViT", "ViT", "ResNet")
 
 # ROADMAP Queue 1 items that port the other backbones
 _NOT_PORTED = {
-    "ViT": "models/vit3d.py (ROADMAP Queue 1, item 9)",
-    "MedViT": "models/medvit3d.py (ROADMAP Queue 1, item 11)",
+    "MedViT": "models/medvit3d.py (ROADMAP Queue 1, item 2)",
 }
 
 
@@ -41,6 +40,10 @@ def build_model(cfg, device=None):
         from vsn_tpu_torch.models.swin3d import swin_from_config
 
         model = swin_from_config(cfg, dtype=model_dtype(cfg))
+    elif arch == "ViT":
+        from vsn_tpu_torch.models.vit3d import vit_from_config
+
+        model = vit_from_config(cfg, dtype=model_dtype(cfg))
     elif arch == "ResNet":
         from vsn_tpu_torch.models.resnet3d import resnet_from_config
 

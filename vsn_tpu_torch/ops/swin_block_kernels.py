@@ -26,9 +26,17 @@ kernels do. ``attn_half_math`` / ``ln_mlp_math`` are the bare forward math,
 for autograd to differentiate as an independent check (in f32; in bf16
 autograd rounds at other points).
 
+K1's attention has two hand-written bodies, chosen by shape
+(``attention_tiled``): Swin's whole-window body, where the head dim is at
+most 32 and K and V of a window (in K1b also Q and dO) fit in shared
+memory, and a key-tiled body everywhere else (ViT: one window of N = 811
+tokens per sample at d = 64). The launch counters name the body:
+``attn_half`` / ``attn_half_bwd`` and ``attn_half_tiled`` /
+``attn_half_bwd_tiled``. A head dim above 128 raises.
+
 Weights use the torch Linear layout ([out, in], f32), as the port's modules
 hold them. LayerScale and post-norm, which the TPU kernels carry in band,
-are not ported (ROADMAP).
+are not ported (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -48,7 +56,29 @@ from vsn_tpu_torch.ops._build import (
 from vsn_tpu_torch.ops.window_attention import mask_from_ids
 
 LN_EPS = 1e-5
-MAX_HEAD_DIM = 32  # one warp lane per head channel in the attention kernels
+MAX_HEAD_DIM = 128     # the key-tiled body: up to 4 channels a warp lane
+UNTILED_HEAD_DIM = 32  # the whole-window body: one warp lane a channel
+SMEM_PER_BLOCK = 232448  # shared memory a block may use on sm_90 (227 KB)
+
+
+def _untiled_smem_bytes(n: int, d: int, backward: bool) -> int:
+    """Shared memory of the whole-window attention body at N = n, head dim
+    d: csrc/attn_half.cu ``attention_smem_bytes`` (K, V, 8 warps' score
+    rows) and csrc/attn_half_bwd.cu ``attention_bwd_smem_bytes`` (Q, K, V,
+    dO, the row statistics, 16 warps' two row buffers)."""
+    if backward:
+        return 4 * (4 * n * (d + 1) + 3 * n + 2 * 16 * n) + 4 * n
+    return 4 * (n * (d + 1) + n * d + 8 * 32 + 8 * n) + 4 * n
+
+
+def attention_tiled(n: int, d: int, backward: bool = False) -> bool:
+    """Whether K1 (``backward``: K1b) runs the key-tiled attention body at N
+    = n and head dim d: where the head dim is above 32, or the whole-window
+    body's shared memory would exceed what a block may use. Swin-T's calls
+    (d = 32, N <= 252) take the whole-window body, ViT's (d = 64, N = 811)
+    the tiled one."""
+    return (d > UNTILED_HEAD_DIM
+            or _untiled_smem_bytes(n, d, backward) > SMEM_PER_BLOCK)
 
 
 def _compute_dtype(x):
@@ -196,8 +226,8 @@ def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
         raise TypeError(f"attn_half: x dtype {x.dtype} (f32 or bf16)")
     bw, n, c = x.shape
     if c % num_heads or c // num_heads > MAX_HEAD_DIM:
-        raise ValueError(f"attn_half: C={c} over {num_heads} heads needs a "
-                         f"head dim <= {MAX_HEAD_DIM}")
+        raise ValueError(f"attn_half: C={c} over {num_heads} heads: the "
+                         f"kernels take head dims up to {MAX_HEAD_DIM}")
     dev, f32 = x.device, torch.float32
     expect(x, "x", (bw, n, c), x.dtype, dev)
     for t, name, shape in ((norm_w, "norm_w", (c,)), (norm_b, "norm_b", (c,)),
@@ -218,31 +248,37 @@ def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
 
 
 def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
-                      proj_b, gf, gb, scale, num_heads, lam):
-    """K1f: launch ``csrc/attn_half.cu``."""
+                      proj_b, gf, gb, scale, num_heads, lam, force_tiled=False):
+    """K1f: launch ``csrc/attn_half.cu``, with the key-tiled attention body
+    where ``attention_tiled`` says so or ``force_tiled``."""
     ids_rows, nsamp = _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
                                   proj_w, proj_b, gf, gb, num_heads)
     bw, n, c = x.shape
+    tiled = force_tiled or attention_tiled(n, c // num_heads)
     out = torch.empty_like(x)
     qkv_buf = torch.empty((bw * n, 3 * c), dtype=x.dtype, device=x.device)
     ao_buf = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = library().vsn_attn_half_fwd(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(),
-            norm_b.data_ptr(), qkv_w.data_ptr(), ptr(qkv_b), ptr(bias),
-            ptr(ids), ids_rows, proj_w.data_ptr(), proj_b.data_ptr(),
-            gf.data_ptr(), qkv_buf.data_ptr(), ao_buf.data_ptr(),
-            out.data_ptr(), bw, n, c, num_heads, (bw // nsamp) * n,
+            int(tiled), int(x.dtype == torch.bfloat16), x.data_ptr(),
+            norm_w.data_ptr(), norm_b.data_ptr(), qkv_w.data_ptr(),
+            ptr(qkv_b), ptr(bias), ptr(ids), ids_rows, proj_w.data_ptr(),
+            proj_b.data_ptr(), gf.data_ptr(), qkv_buf.data_ptr(),
+            ao_buf.data_ptr(), out.data_ptr(), bw, n, c, num_heads,
+            (bw // nsamp) * n,
             float(scale), float(lam), stream_of(x))
     check(err, "attn_half")
-    launches["attn_half"] += 1
+    launches["attn_half_tiled" if tiled else "attn_half"] += 1
     return out
 
 
 def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
-                       gb, dout, scale, num_heads, lam=1.0):
+                       gb, dout, scale, num_heads, lam=1.0,
+                       _force_tiled=False):
     """VJP of ``attn_half``: K1b (``csrc/attn_half_bwd.cu``) for a CUDA
-    tensor, ``attn_half_backward_reference`` for a CPU one; same returns."""
+    tensor, with the key-tiled attention backward where ``attention_tiled``
+    says so or ``_force_tiled``; ``attn_half_backward_reference`` for a CPU
+    one; same returns."""
     if x.device.type == "cpu":
         return attn_half_backward_reference(x, norm_w, norm_b, qkv_w, qkv_b,
                                             bias, ids, proj_w, gb, dout,
@@ -251,6 +287,7 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                                   proj_w, None, gb, gb, num_heads)
     expect(dout, "dout", tuple(x.shape), x.dtype, x.device)
     bw, n, c = x.shape
+    tiled = _force_tiled or attention_tiled(n, c // num_heads, backward=True)
     rows, dev, dt = bw * n, x.device, x.dtype
     # the f32 gradients the kernels add into, zeroed in one buffer
     sizes = (c, c, 3 * c * c, 3 * c, num_heads * n * n if bias is not None
@@ -266,20 +303,24 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
     dqkv = torch.empty((rows, 3 * c), dtype=dt, device=dev)
     dy = torch.empty((rows, c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
+    row_stats = (torch.empty((bw, num_heads, n, 3), dtype=torch.float32,
+                             device=dev) if tiled else None)
     with torch.cuda.device(dev):
         err = library().vsn_attn_half_bwd(
-            int(dt == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(),
-            norm_b.data_ptr(), qkv_w.data_ptr(), ptr(qkv_b), ptr(bias),
-            ptr(bias_t), ptr(ids), ids_rows, proj_w.data_ptr(), gb.data_ptr(),
+            int(tiled), int(dt == torch.bfloat16), x.data_ptr(),
+            norm_w.data_ptr(), norm_b.data_ptr(), qkv_w.data_ptr(),
+            ptr(qkv_b), ptr(bias), ptr(bias_t), ptr(ids), ids_rows,
+            proj_w.data_ptr(), gb.data_ptr(),
             dout.data_ptr(), y.data_ptr(), stats.data_ptr(), qkv.data_ptr(),
             dao.data_ptr(), ao.data_ptr(), dqkv.data_ptr(), dy.data_ptr(),
             dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
             dqkv_w.data_ptr(), dqkv_b.data_ptr(),
             dbias.data_ptr() if bias is not None else None,
-            dproj_w.data_ptr(), dproj_b.data_ptr(), bw, n, c, num_heads,
-            (bw // nsamp) * n, float(scale), float(lam), stream_of(x))
+            dproj_w.data_ptr(), dproj_b.data_ptr(), ptr(row_stats), bw, n, c,
+            num_heads, (bw // nsamp) * n, float(scale), float(lam),
+            stream_of(x))
     check(err, "attn_half_bwd")
-    launches["attn_half_bwd"] += 1
+    launches["attn_half_bwd_tiled" if tiled else "attn_half_bwd"] += 1
     return (dx, dln_w, dln_b, dqkv_w.view(3 * c, c),
             dqkv_b if qkv_b is not None else None,
             dbias.view(num_heads, n, n) if bias is not None else None,
@@ -287,33 +328,40 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
 
 
 class _AttnHalf(torch.autograd.Function):
-    """K1 with its VJP; ``plain`` selects the plain forward and backward."""
+    """K1 with its VJP; ``plain`` selects the plain forward and backward,
+    ``force_tiled`` the key-tiled attention body on any shape."""
 
     @staticmethod
-    def forward(ctx, plain, x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
-                proj_w, proj_b, gf, gb, scale, num_heads, lam):
-        fwd = attn_half_math if plain else _attn_half_kernel
+    def forward(ctx, plain, force_tiled, x, norm_w, norm_b, qkv_w, qkv_b,
+                bias, ids, proj_w, proj_b, gf, gb, scale, num_heads, lam):
+        args = (x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
+                gf, gb, scale, num_heads, lam)
         ctx.plain, ctx.static = plain, (scale, num_heads, lam)
+        ctx.force_tiled = force_tiled
         ctx.save_for_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
                               proj_w, gb)
-        return fwd(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
-                   proj_b, gf, gb, scale, num_heads, lam)
+        if plain:
+            return attn_half_math(*args)
+        return _attn_half_kernel(*args, force_tiled=force_tiled)
 
     @staticmethod
     def backward(ctx, dout):
-        bwd = (attn_half_backward_reference if ctx.plain
-               else attn_half_backward)
         x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, gb = (
             ctx.saved_tensors)
+        args = (x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, gb,
+                dout.contiguous(), *ctx.static)
+        if ctx.plain:
+            grads = attn_half_backward_reference(*args)
+        else:
+            grads = attn_half_backward(*args, _force_tiled=ctx.force_tiled)
         (dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias, dproj_w,
-         dproj_b) = bwd(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
-                        gb, dout.contiguous(), *ctx.static)
-        return (None, dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias, None,
-                dproj_w, dproj_b, None, None, None, None, None)
+         dproj_b) = grads
+        return (None, None, dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias,
+                None, dproj_w, dproj_b, None, None, None, None, None)
 
 
 def attn_half(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
-              gf, gb, scale, num_heads, lam=1.0):
+              gf, gb, scale, num_heads, lam=1.0, _force_tiled=False):
     """lam * x + gf[s] * proj(window_attention(qkv(LN(x)))), per window.
 
     Args:
@@ -326,22 +374,25 @@ def attn_half(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
             differ are masked with -1e9), or None for no mask.
         proj_w: [C, C] f32; proj_b: [C] f32.
         gf, gb: [B] f32 per-sample branch gains, forward and backward.
-        scale, num_heads, lam: attention scale, heads (C / heads <= 32),
+        scale, num_heads, lam: attention scale, heads (C / heads <= 128),
             residual x-gain.
+        _force_tiled: run the key-tiled attention body (forward and
+            backward) whatever the shape; for the card's checks only.
     Returns: [BW, N, C] in x's dtype. Differentiable in x and the
     parameters (K1b on a CUDA device).
     """
-    return _AttnHalf.apply(x.device.type == "cpu", x, norm_w, norm_b, qkv_w,
-                           qkv_b, bias, ids, proj_w, proj_b, gf, gb, scale,
-                           num_heads, lam)
+    return _AttnHalf.apply(x.device.type == "cpu", _force_tiled, x, norm_w,
+                           norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
+                           gf, gb, scale, num_heads, lam)
 
 
 def attn_half_reference(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                         proj_b, gf, gb, scale, num_heads, lam=1.0):
     """Plain version of ``attn_half`` on any device: the plain forward, and
     ``attn_half_backward_reference`` as its backward."""
-    return _AttnHalf.apply(True, x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
-                           proj_w, proj_b, gf, gb, scale, num_heads, lam)
+    return _AttnHalf.apply(True, False, x, norm_w, norm_b, qkv_w, qkv_b,
+                           bias, ids, proj_w, proj_b, gf, gb, scale,
+                           num_heads, lam)
 
 
 # ---------------------------------------------------------------------------

@@ -195,7 +195,7 @@ def _check_ported(cfg):
     for key, what in _NOT_PORTED.items():
         if cfg.get(key, False):
             raise NotImplementedError(f"{key}: {what} is not ported yet "
-                                      "(ROADMAP Queue 1, item 7)")
+                                      "(ROADMAP Queue 1, item 4)")
 
 
 def make_grad_fn(model, cfg, batch_transform=None,
@@ -249,7 +249,8 @@ def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
     labels) (``make_batch_transform``); None passes (image, label) through.
     ``draws(step, micro, pass_idx)``, if given, returns the random draws
     to inject (the list ``model.draw`` makes: Swin's residual gain pairs
-    and dropout keep masks, the ResNet's head-dropout mask); else the
+    and dropout keep masks, ViT's DropPath gain pairs, the ResNet's
+    head-dropout mask); else the
     model draws them from a generator seeded by ``draw_seed``.
 
     Metrics (device tensors, or floats for lr/wd): loss, grad_norm, lr, wd,
