@@ -23,6 +23,12 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    each row's running max grows at its last tile (at -200 every exp
    underflows under the max(rowmax, 0) shift and the attention output is
    0), forward and every gradient;
+3a. the same ViT calls in K1/K2's residual modes (``residual_parity_phase``):
+   in-band LayerScale (gamma = 0.5 + 0.1 z), post-norm, and both, with the
+   seeded parameters of phase 6; the forward at lam 0, 0.9129 (DeepScaleLM's
+   lambda at depth 12) and 1, every gradient, dgamma included, at lam 0 and
+   0.9129, against the plain versions to TOL; then K1b in every mode at
+   saturated logits (bias 8 z + 45 and + 200, f32);
 4. K4 parity: every K4 call (window attention on packed qkv) of a
    DynamicTanh Swin-T eval forward at batch 2 in f32 and in bf16, and of
    its DROPOUT 0.1 training forward at micro-batch 8 in bf16, the unfused
@@ -69,6 +75,9 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    also at saturated logits (bias 8 z + 45 and 8 z + 200, f32, as
    tests/test_swin_block_kernels.py saturates them): finite and within
    tolerance; the movers' adjoints bit-exact;
+8a. phase 3a on the Swin calls: the eval calls of phase 6 at batch 2 (f32
+   and bf16) and the training calls at micro-batch 8 (bf16), and K1b's
+   saturated logits on a shifted, masked f32 call;
 9. the attention probes P1-P5 (``ops/attn_probe.py``, the ports of
    scripts/perf_probe_attn_ablate{,2}.py) at one stage-1 K1 call: every P1
    variant, P5 run and copy against its plain version at the scripts'
@@ -120,6 +129,13 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    ShakeDrop gains): exactly 12 K4f and 12 K4b per micro-batch and SAM
    pass and no other launch; every parameter, DyT's 0-d alpha included,
    reached by one backward; the plain route's 2 steps within TRAIN_RTOL;
+14a. the Swin stabilizer paths, the convergence run's arms on the flagship
+   recipe: LAYER_SCALE (phases 11 and 12, with 12 K1f / K1b / K2f / K2b in
+   the "_ls" mode per forward or micro-batch and SAM pass and none in the
+   default one; gamma among the parameters every backward reaches),
+   ENABLE_STABLE (phase 12: lam = 0.9129, beta folded into the gains, the
+   default mode) and POST_NORM + LAYER_SCALE (phases 11 and 12 in the
+   "_post_ls" mode);
 15. the ViT eval path: phase 11 for ViT-S 5c (vit-5c-no_seed-baseline,
    bf16, random weights from its ``init_weights``): the 144x168x144 volumes
    resized to 144x160x144 on the card by the eval transform; exactly 12
@@ -132,13 +148,18 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    micro-batch of 24 of K1f/K1b (tiled), K2f and K2b at ViT's calls beside
    their plain versions and bounds, and the tiled attention launches alone
    (profiler) beside ``F.scaled_dot_product_attention`` on the same q, k, v
-   [24, 6, 811, 64] in bf16 and its backward (a yardstick);
+   [24, 6, 811, 64] in bf16 and its backward (a yardstick); then ViT's
+   K1/K2 in the "_post_ls" mode beside their plain versions and bounds;
+16a. the ViT stabilizer path: phases 15 and 16 for ViT-S with POST_NORM,
+   LAYER_SCALE and ENABLE_STABLE (12 tiled K1f / K1b and 12 K2f / K2b in
+   the "_post_ls" mode per forward or micro-batch and SAM pass);
 17. each Swin kernel's time per micro-batch at the training shapes beside
    its plain version's (the eval phase times the forwards at batch 4), and
    for K4f / K4b the library's: one ``F.scaled_dot_product_attention`` call
    per K4 call on the split heads with the additive float mask bias[h] +
    mask(ids), and that call's backward (also V1f / V1b's yardstick: the
-   same function on the same split heads; V3 has no single call);
+   same function on the same split heads; V3 has no single call), and
+   K1/K2 in the "_ls" and "_post_ls" modes beside their plain versions;
 18. the ResNet eval path: ResNet-18 5c (resnet-5c-no_seed-baseline: head
    dropout 0.1, bf16), seeded weights whose BatchNorm statistics are
    re-estimated by ``make_bn_refresh_step`` over 8 volumes, ``Evaluator``
@@ -247,6 +268,39 @@ PROBES = {
     "attn_slot.full.wb1": ("full2d_wb1", _K1_SRC, f"{_P2}:152"),
 }
 KERNELS.update({key: (src, rep) for key, (_, src, rep) in PROBES.items()})
+# K1/K2 in their residual modes (swin_block_kernels.mode_key names), as the
+# stabilizer paths launch them: Swin's LayerScale arm (pre-norm + gamma,
+# "_ls") and post-norm + LayerScale ("_post_ls") on the whole-window body,
+# ViT with all three options on the key-tiled body. name -> base kernel.
+RESIDUAL_KERNELS = {
+    **{f"{base}{mode}": base for mode in ("_ls", "_post_ls")
+       for base in ("attn_half", "attn_half_bwd", "ln_mlp", "ln_mlp_bwd")},
+    **{f"{base}_post_ls": base for base in ("attn_half_tiled",
+                                            "attn_half_bwd_tiled")},
+}
+KERNELS.update({name: KERNELS[base]
+                for name, base in RESIDUAL_KERNELS.items()})
+# the stabilizer path (STABILIZER_PATHS key) whose launch count the result
+# line gives each RESIDUAL_KERNELS entry: the Swin arm of its mode, ViT's
+# for the tiled ones (ln_mlp(_bwd)_post_ls, which both launch, takes Swin's)
+RESIDUAL_PATH = {name: "vit_all" if "tiled" in name
+                 else name.removeprefix(base + "_")
+                 for name, base in RESIDUAL_KERNELS.items()}
+# the modes the residual parity phase holds to the plain versions:
+# suffix -> (LayerScale gamma, post-norm)
+RESIDUAL_MODES = {"_ls": (True, False), "_post": (False, True),
+                  "_post_ls": (True, True)}
+# DeepScaleLM's lambda at Swin-T's total depth 12: sqrt(1 - 2 / 12)
+STABLE_LAM = 0.9129
+MODE_LAMS = (0.0, STABLE_LAM, 1.0)   # forward; the gradients at the first two
+# the stabilizer paths: (label, config overrides, the mode their K1/K2 run)
+STABILIZER_PATHS = {
+    "ls": (dict(LAYER_SCALE=True), "_ls"),
+    "stable": (dict(ENABLE_STABLE=True), ""),
+    "post_ls": (dict(POST_NORM=True, LAYER_SCALE=True), "_post_ls"),
+    "vit_all": (dict(POST_NORM=True, LAYER_SCALE=True, ENABLE_STABLE=True),
+                "_post_ls"),
+}
 # The probes' f32-out check, on the branch out - x: its largest difference
 # within P_MAX_TOL of the branch's largest value, and its RMS difference
 # within P_RMS_TOL of the branch's RMS. Both sides round q, k, v, p, y and
@@ -334,7 +388,9 @@ FORWARD_OF = {"attn_half_bwd": "attn_half", "ln_mlp_bwd": "ln_mlp",
               "attn_half_bwd_tiled": "attn_half",
               "stem_im2col_dw": "stem_im2col", "attention_bwd": "attention",
               **{f"{m}_adjoint": m for m in MOVERS},
-              **{f"{v}_bwd": v for v in V_KERNELS}}
+              **{f"{v}_bwd": v for v in V_KERNELS},
+              **{name: "ln_mlp" if base.startswith("ln_mlp") else "attn_half"
+                 for name, base in RESIDUAL_KERNELS.items()}}
 # attn_half cases the parity sets must cover at the flagship geometry
 ATTN_CASES = {"shifted ids", "padded ids", "no mask", "N=150"}
 # and the V sets besides: V1 at the padded N, V3 with W not dividing nW
@@ -421,7 +477,8 @@ def patched_model_ops(replace):
 
 def record_calls(model, images, blocks=None, **kwargs):
     """Every kernel call of one forward, run through the plain versions:
-    [(name, args)]. No graph is kept, and the tensors are ordinary ones, so
+    [(name, args)], the positional arguments (a block's lam, gamma and
+    post_norm keywords are left out). No graph is kept, and the tensors are ordinary ones, so
     the backward phase can differentiate through them. ``blocks``, a list,
     receives the (window, padded grid dims) of every unfused block in call
     order, one per K4 call (models/swin3d.py SwinBlock3D.forward_unfused)."""
@@ -431,9 +488,9 @@ def record_calls(model, images, blocks=None, **kwargs):
     calls = []
 
     def recorder(name, kernel, plain):
-        def fn(*args):
+        def fn(*args, **kw):
             calls.append((name, args))
-            return plain(*args)
+            return plain(*args, **kw)
         return fn
 
     unfused = swin3d.SwinBlock3D.forward_unfused
@@ -523,12 +580,12 @@ def case_kind(name, args):
     return {f"roll={tuple(args[-1])}"}
 
 
-def compare(name, kernel, plain, args, lam=None):
+def compare(name, kernel, plain, args, lam=None, **mode):
     """(max|d|, limit, ok) of one forward call of ``kernel`` against
-    ``plain``."""
+    ``plain`` (``mode``: a block kernel's gamma and post_norm)."""
     import torch
 
-    kw = {} if lam is None else {"lam": lam}
+    kw = ({} if lam is None else {"lam": lam}) | mode
     with torch.inference_mode():
         got, want = kernel(*args, **kw), plain(*args, **kw)
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -542,9 +599,10 @@ def compare(name, kernel, plain, args, lam=None):
     return err, limit, err <= limit
 
 
-def _grads(fn, args, lam, dout, index):
+def _grads(fn, args, lam, dout, index, gamma=None, post_norm=False):
     """Gradients of <fn(*args, lam), dout> w.r.t. the arguments at ``index``
-    that are not None: {index: grad}."""
+    that are not None: {index: grad}; with a block kernel's ``gamma`` (and
+    ``post_norm``) also {"gamma": dgamma}."""
     import torch
 
     args = list(args)
@@ -552,10 +610,17 @@ def _grads(fn, args, lam, dout, index):
     for i in leaves:
         args[i] = args[i].detach().clone().requires_grad_()
     kw = {} if lam is None else {"lam": lam}
+    tensors = [args[i] for i in leaves]
+    if gamma is not None or post_norm:
+        kw["post_norm"] = post_norm
+    if gamma is not None:
+        kw["gamma"] = gamma.detach().clone().requires_grad_()
+        tensors.append(kw["gamma"])
+        leaves = [*leaves, "gamma"]
     out = fn(*args, **kw)
     if out.grad_fn is None:
         raise AssertionError("the output carries no graph")
-    grads = torch.autograd.grad(out, [args[i] for i in leaves], dout)
+    grads = torch.autograd.grad(out, tensors, dout)
     return out, dict(zip(leaves, grads))
 
 
@@ -571,10 +636,13 @@ def cotangent(name, args, gen):
     return torch.randn(shape, generator=gen).to(x.device, x.dtype)
 
 
-def grad_compare(name, kernel, plain, args, lam, gen):
+def grad_compare(name, kernel, plain, args, lam, gen, gamma=None,
+                 post_norm=False):
     """[(grad name, max|d|, limit, ok)] of the VJP of one call of ``kernel``
     against ``plain``'s for one seeded cotangent: block kernels to TOL of
-    each gradient's own scale (and finite), movers bit-exact."""
+    each gradient's own scale (and finite), dgamma too in a LayerScale mode
+    (``gamma``, ``post_norm``: a block kernel's residual mode), movers
+    bit-exact."""
     import torch
 
     x = args[0]
@@ -591,11 +659,11 @@ def grad_compare(name, kernel, plain, args, lam, gen):
         err = (got[0].float() - want[0].float()).abs().max().item()
         return [("adjoint", err, 0.0, bool(ok))]
     index = [i for i, _ in DIFF[name]]
-    _, got = _grads(kernel, args, lam, dout, index)
-    _, want = _grads(plain, args, lam, dout, index)
+    _, got = _grads(kernel, args, lam, dout, index, gamma, post_norm)
+    _, want = _grads(plain, args, lam, dout, index, gamma, post_norm)
     dtype = str(x.dtype).removeprefix("torch.")
     rows = []
-    for i, gname in DIFF[name]:
+    for i, gname in (*DIFF[name], ("gamma", "dgamma")):
         if i not in want:
             continue
         g, w = got[i].float(), want[i].float()
@@ -1408,8 +1476,13 @@ def call_work(name, args):
     count each input read once and each output written once; FLOP count
     the products the kernel computes from those inputs (the backward
     kernels recompute the forward's products they need); K1's tiled body
-    does K1's work."""
+    does K1's work; a residual mode does its kernel's, and reads gamma (and
+    writes dgamma) besides."""
     x = args[0]
+    if name in RESIDUAL_KERNELS:
+        base = RESIDUAL_KERNELS[name]
+        flops, nbytes = call_work(base, args)
+        return flops, nbytes + 4 * x.shape[-1] * (2 if "_bwd" in base else 1)
     name = {v: k for k, v in TILED_NAME.items()}.get(name, name)
     if name in PROBES:
         return probe_work(name, *args)
@@ -1483,10 +1556,20 @@ def bound_ms(name, calls, dtype="bfloat16"):
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def launch_counts():
+    """The launch counters of every kernel in KERNELS, and of any other key
+    a wrapper counted (a residual mode no path should launch)."""
+    from vsn_tpu_torch.ops import _build
+
+    others = sorted(set(_build.launches) - set(KERNELS))
+    return {name: _build.launches[name] for name in [*KERNELS, *others]}
+
+
 def check_counts(counts, expected, units, what):
     """Every kernel's launches in ``counts`` equal ``expected[name] *
-    units`` (0 for a kernel the path must not launch)."""
-    for name in KERNELS:
+    units`` (0 for a kernel the path must not launch, and for any key
+    outside KERNELS)."""
+    for name in [*KERNELS, *sorted(set(counts) - set(KERNELS))]:
         want = expected.get(name, 0) * units
         if counts.get(name, 0) != want:
             raise AssertionError(f"{what} {name}: {counts.get(name, 0)} "
@@ -1572,7 +1655,7 @@ def model_eval_path(cfg, model, images, per_forward, label, card):
     probs = evaluator.predict(images)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = {name: _build.launches[name] for name in KERNELS}
+    counts = launch_counts()
     log(f"{label} path: {len(images)} volumes in {n_batches} batches of "
         f"{evaluator.batch_size}, first run {first_s:.2f} s, launches "
         f"{counts}")
@@ -1620,7 +1703,7 @@ def model_train_path(cfg, batch, images, per_pass, passes, label, recipe,
     after0 = state.params.flat.clone()
     more, more_secs = train_route(model, cfg, state, batch, draws,
                                   TIMED_STEPS, sync)
-    counts = {name: _build.launches[name] for name in KERNELS}
+    counts = launch_counts()
     kernel_metrics += more
     log(f"{label} path: {1 + TIMED_STEPS} steps of {TRAIN_ACCUM} x {micro} "
         f"volumes (SAM: 2 passes), launches {counts}")
@@ -1841,6 +1924,178 @@ def tiled_launch_times(calls, card):
 
 
 # ---------------------------------------------------------------------------
+# The residual modes of K1/K2: in-band LayerScale and post-norm
+# ---------------------------------------------------------------------------
+
+def seeded_gamma(x, gen):
+    """A LayerScale gamma [C] f32 of 0.5 + 0.1 z: a constant one would hide
+    an index transposed between rows and columns."""
+    import torch
+
+    c = x.shape[-1]
+    return (0.5 + 0.1 * torch.randn(c, generator=gen)).to(x.device)
+
+
+def mode_name(name, args, mode):
+    """The launch counter of block kernel ``name`` (or its backward, with
+    ``_bwd`` in ``name``) on ``args`` in residual ``mode`` (a suffix of
+    RESIDUAL_MODES): its attention body, then the mode."""
+    from vsn_tpu_torch.ops.swin_block_kernels import attention_tiled
+
+    if name.startswith("attn_half"):
+        x, heads = args[0], args[12]
+        bwd = name.endswith("_bwd")
+        if attention_tiled(x.shape[1], x.shape[-1] // heads, backward=bwd):
+            name = TILED_NAME[name]
+    return name + mode
+
+
+def residual_parity_phase(sets, gen, table=None, logits=(45.0, 200.0)):
+    """K1/K2 in every residual mode (RESIDUAL_MODES: pre-norm + gamma,
+    post-norm, post-norm + gamma) on every recorded K1/K2 call of ``sets``,
+    with the seeded parameters of ``seeded_params`` and gamma = 0.5 + 0.1 z:
+    the forward at lam 0, STABLE_LAM and 1, every gradient (dgamma
+    included) at lam 0 and STABLE_LAM, against the plain versions to TOL of
+    each output's scale; then K1b in every mode at saturated logits (bias
+    8 z + ``logits``) on the first f32 set's first shifted, masked K1 call
+    (else its first K1 call, given that bias). Logs one
+    line per (set, kernel in its mode, check) and raises AssertionError
+    naming every group that failed. Returns {mode kernel: worst max|d|}."""
+    import torch
+
+    table = table or kernel_table()
+    worst = collections.defaultdict(float)
+    failed = []
+    for label, calls in sets.items():
+        groups, kinds = {}, collections.defaultdict(set)
+        for name, args in calls:
+            if name not in BLOCK_KERNELS:
+                continue
+            kernel, plain = table[name]
+            args = seeded_params(name, args, gen)
+            gamma = seeded_gamma(args[0], gen)
+            for mode, (ls, post) in RESIDUAL_MODES.items():
+                kw = dict(gamma=gamma if ls else None, post_norm=post)
+                fname = mode_name(name, args, mode)
+                bname = mode_name(f"{name}_bwd", args, mode)
+                kinds[fname] |= case_kind(name, args)
+                kinds[bname] |= case_kind(name, args)
+                for lam in MODE_LAMS:
+                    err, limit, ok = compare(name, kernel, plain, args, lam,
+                                             **kw)
+                    _group(groups, (fname, f"lam={lam:g}"), err, limit, ok)
+                    worst[fname] = max(worst[fname], err)
+                for lam in MODE_LAMS[:2]:
+                    for gname, err, limit, ok in grad_compare(
+                            name, kernel, plain, args, lam, gen, **kw):
+                        _group(groups, (bname, f"{gname} lam={lam:g}"), err,
+                               limit, ok)
+                        worst[bname] = max(worst[bname], err)
+        _report(label, groups, kinds, failed)
+    if failed:
+        raise AssertionError("residual modes disagree with their plain "
+                             "versions: " + "; ".join(failed))
+    f32 = next(calls for calls in sets.values()
+               if calls[0][1][0].dtype.is_floating_point
+               and calls[0][1][0].element_size() == 4)
+    kernel, plain = table["attn_half"]
+    k1 = [a for n, a in f32 if n == "attn_half"]
+    args = next((a for a in k1 if "shifted ids" in case_kind("attn_half", a)),
+                k1[0])
+    args = list(seeded_params("attn_half", args, gen))
+    x, heads = args[0], args[12]
+    z = torch.randn(heads, x.shape[1], x.shape[1], generator=gen).to(x.device)
+    gamma = seeded_gamma(x, gen)
+    for logit in logits:
+        args[5] = z * 8 + logit
+        for mode, (ls, post) in RESIDUAL_MODES.items():
+            rows = grad_compare("attn_half", kernel, plain, args, STABLE_LAM,
+                                gen, gamma=gamma if ls else None,
+                                post_norm=post)
+            bname = mode_name("attn_half_bwd", args, mode)
+            ratio = max(_ratio(err, limit) for _, err, limit, _ in rows)
+            bad = [g for g, _, _, ok in rows if not ok]
+            log(f"parity saturated logits {logit:g}: {bname} {len(rows)} "
+                f"grads, worst {ratio:.3f} of the limit "
+                f"{'ok' if not bad else 'FAIL'}")
+            if bad:
+                raise AssertionError(f"{bname} at logits {logit:g}: {bad}")
+            worst[bname] = max([worst[bname]] + [e for _, e, _, _ in rows])
+    return dict(worst)
+
+
+def mode_times(calls, mode):
+    """Per-kernel (ms, plain ms) in residual ``mode`` summed over the K1/K2
+    calls of ``calls`` (one micro-batch's) and their backward, on the
+    recorded arguments with gamma = 0.5 (the timing does not read its
+    values) and one cotangent, under the mode's launch counters. K1b's
+    post-norm backward reads K1f's ao of the call, made before the timing
+    (the plain backward recomputes it, as the TPU kernel does)."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    ls, post = RESIDUAL_MODES[mode]
+    table = kernel_table()
+    ms = collections.defaultdict(float)
+    plain_ms = collections.defaultdict(float)
+    with torch.no_grad():
+        for name, args in calls:
+            if name not in BLOCK_KERNELS:
+                continue
+            x = args[0]
+            gamma = (torch.full((x.shape[-1],), 0.5, device=x.device)
+                     if ls else None)
+            kw = dict(gamma=gamma, post_norm=post)
+            kernel, plain = table[name]
+            fname = mode_name(name, args, mode)
+            bname = mode_name(f"{name}_bwd", args, mode)
+            ms[fname] += cuda_ms(lambda: kernel(*args, **kw))
+            plain_ms[fname] += cuda_ms(lambda: plain(*args, **kw))
+            g = torch.randn(x.shape, device=x.device).to(x.dtype)
+            if name == "attn_half":
+                b_args = (*args[:8], args[10], g, *args[11:13])
+                bkw = dict(kw, proj_b=args[8])
+                kbkw = dict(bkw)
+                if post and x.is_cuda:  # K1b reads K1f's ao of the call
+                    kbkw["ao"] = sbk._attn_half_kernel(*args, 1.0, **kw)[1]
+                bwd, plain_bwd = (sbk.attn_half_backward,
+                                  sbk.attn_half_backward_reference)
+            else:
+                b_args = (*args[:6], args[8], g)
+                bkw = kbkw = dict(kw, fc2_b=args[6])
+                bwd, plain_bwd = (sbk.ln_mlp_backward,
+                                  sbk.ln_mlp_backward_reference)
+            ms[bname] += cuda_ms(lambda: bwd(*b_args, **kbkw))
+            plain_ms[bname] += cuda_ms(lambda: plain_bwd(*b_args, **bkw))
+    return ms, plain_ms
+
+
+def key_label(over):
+    """The config overrides of a stabilizer path, for its log lines."""
+    return " + ".join(k for k, v in over.items() if v)
+
+
+def residual_launches(path_counts):
+    """The result line's launches of every RESIDUAL_KERNELS entry: the
+    count that its path in RESIDUAL_PATH measured ({STABILIZER_PATHS key:
+    launch counts}). Raises AssertionError for an entry whose path launched
+    it no time."""
+    launches = {name: path_counts[RESIDUAL_PATH[name]].get(name, 0)
+                for name in RESIDUAL_KERNELS}
+    idle = [name for name, n in launches.items() if not n]
+    if idle:
+        raise AssertionError(f"residual modes no path launched: {idle}")
+    return launches
+
+
+def in_mode(expected, mode):
+    """Launch counts ``expected`` with K1/K2 (and their backward) renamed to
+    residual ``mode``'s counters."""
+    return {(name + mode if name.startswith(("attn_half", "ln_mlp"))
+             else name): n for name, n in expected.items()}
+
+
+# ---------------------------------------------------------------------------
 # The attention probes P1-P5 (ops/attn_probe.py, vsn_tpu_torch/probes)
 # ---------------------------------------------------------------------------
 
@@ -1980,7 +2235,7 @@ def probe_path(runs):
     ms = attn_ablate.main()
     ms.update(attn_ablate2.main())
     torch.cuda.synchronize()
-    counts = {name: _build.launches[name] for name in KERNELS}
+    counts = launch_counts()
     log(f"probe path: {len(runs)} runs x {WARMUP + REPS} calls, launches "
         f"{ {k: n for k, n in counts.items() if n} }")
     check_counts(counts, {run.key: run.launches for run in runs},
@@ -2139,6 +2394,8 @@ def main() -> int:
     sat = tiled_saturation_phase(vit_sets["ViT float32 B=2"], vgen)
     for name, err in zip(TILED_NAME.values(), sat):
         vit_worst[name] = max(vit_worst[name], err)
+    # 3a. the same calls in K1/K2's residual modes -------------------------
+    mode_worst = residual_parity_phase(vit_sets, vgen)   # merged in phase 20
     vit_calls = vit_sets.pop(vit_label)  # timed in phase 16
     del vit_sets, vit_micro0, vit_images, m, x
     torch.cuda.empty_cache()
@@ -2243,7 +2500,6 @@ def main() -> int:
         torch.Generator().manual_seed(SEED + 17))
     for name, err in fworst.items():
         vit_worst[name] = max(vit_worst[name], err)
-    del sets
 
     # 8. backward parity on training forwards -----------------------------
     gsets = {}
@@ -2265,7 +2521,13 @@ def main() -> int:
                                  f"{ATTN_CASES - by_name['attn_half_bwd']}")
     saturation_phase(gsets["float32 B=2"], table, gen)
     train_calls = gsets.pop(f"bfloat16 B={TRAIN_MICRO}")  # timed in phase 17
-    del gsets, models, x, images8
+
+    # 8a. the Swin calls in K1/K2's residual modes -------------------------
+    for name, err in residual_parity_phase(
+            {**sets, f"bfloat16 B={TRAIN_MICRO} train": train_calls},
+            torch.Generator().manual_seed(SEED + 18)).items():
+        mode_worst[name] = max(mode_worst.get(name, 0.0), err)
+    del sets, gsets, models, x, images8
     torch.cuda.empty_cache()
 
     # 9. the attention probes P1-P5 at one stage-1 call -------------------
@@ -2319,6 +2581,20 @@ def main() -> int:
                               f"{recipe}, DynamicTanh, DROPOUT {DYT_DROPOUT}",
                               card)
     path_counts.update({name: counts[name] for name in DYT_PER_PASS})
+
+    # 14a. the Swin stabilizer paths: LayerScale, DeepScaleLM, post-norm --
+    stabilizer_counts = {}
+    for key in ("ls", "stable", "post_ls"):
+        over, mode = STABILIZER_PATHS[key]
+        if key != "stable":
+            scfg = cfg.replace(**over)
+            model = seeded_model(scfg)
+            model_eval_path(scfg, model, images, in_mode(PER_FORWARD, mode),
+                            f"{key}_eval", card)
+            del model
+        stabilizer_counts[key] = model_train_path(
+            train_cfg.replace(**over), batch, images, in_mode(PER_PASS, mode),
+            passes, f"{key}_train", f"{recipe}, {key_label(over)}", card)
     del batch
     torch.cuda.empty_cache()
 
@@ -2333,6 +2609,20 @@ def main() -> int:
         f"SAM + EMA + MixUp + DropPath (USE_SHAKEDROP, which ViT reads as "
         f"DropPath), micro {VIT_MICRO} x {TRAIN_ACCUM}", card)
     path_counts.update({name: counts[name] for name in TILED_NAME.values()})
+
+    # 16a. the ViT stabilizer path: post-norm + LayerScale + DeepScaleLM --
+    over, mode = STABILIZER_PATHS["vit_all"]
+    scfg = vit_cfg.replace(**over)
+    model = seeded_model(scfg)
+    model_eval_path(scfg, model, images, in_mode(VIT_PER_FORWARD, mode),
+                    "vit_all_eval", card)
+    del model
+    stabilizer_counts["vit_all"] = model_train_path(
+        vit_train_cfg.replace(**over), vit_batch, images,
+        in_mode(VIT_PER_PASS, mode), passes, "vit_all_train",
+        f"SAM + EMA + MixUp + DropPath, micro {VIT_MICRO} x {TRAIN_ACCUM}, "
+        f"{key_label(over)}", card)
+    path_counts.update(residual_launches(stabilizer_counts))
     del vit_batch
     torch.cuda.empty_cache()
     vms_vit, vplain_vit = kernel_times(vit_calls)
@@ -2344,6 +2634,14 @@ def main() -> int:
             f"of {VIT_MICRO} (plain {vplain_vit[name]:.3f} ms, bound "
             f"{vit_bounds[tname][0]:.3f} ms by {vit_bounds[tname][1]})")
     tiled_launch_times(vit_calls, card)
+    vms_mode, vplain_mode = mode_times(vit_calls, "_post_ls")
+    for name in sorted(vms_mode):
+        bound = bound_ms(name, vit_calls)
+        log(f"[{card}] vit {name}: {vms_mode[name]:.3f} ms per micro-batch "
+            f"of {VIT_MICRO} (plain {vplain_mode[name]:.3f} ms, bound "
+            f"{bound[0]:.3f} ms by {bound[1]})")
+        if "tiled" in name:
+            vit_bounds[name] = bound
     del vit_calls
     torch.cuda.empty_cache()
 
@@ -2365,6 +2663,16 @@ def main() -> int:
         tname = TILED_NAME[name]
         ms[tname], plain_ms[tname] = vms_vit[name], vplain_vit[name]
         bounds[tname] = vit_bounds[tname]
+    for mode in ("_ls", "_post_ls"):   # the Swin stabilizer paths' modes
+        mms, mplain = mode_times(train_calls, mode)
+        ms.update(mms)
+        plain_ms.update(mplain)
+    for name in RESIDUAL_KERNELS:      # the tiled ones: ViT's calls
+        if "tiled" in name:
+            ms[name], plain_ms[name] = vms_mode[name], vplain_mode[name]
+            bounds[name] = vit_bounds[name]
+        else:
+            bounds[name] = bound_ms(name, train_calls)
     del train_calls, k4_calls
     torch.cuda.empty_cache()
 
@@ -2378,7 +2686,7 @@ def main() -> int:
     _build.launches.clear()
     rprobs = revaluator.predict(images)
     sync()
-    counts = {name: _build.launches[name] for name in KERNELS}
+    counts = launch_counts()
     log(f"resnet eval path: {N_VOLUMES} volumes in {n_batches} batches of "
         f"{BATCH}, launches {counts}")
     check_counts(counts, RESNET_PER_FORWARD, n_batches, "resnet eval")
@@ -2416,7 +2724,7 @@ def main() -> int:
     after0 = state.params.flat.clone()
     more, more_secs = train_route(model, rtrain_cfg, state, rbatch, draws,
                                   TIMED_STEPS, sync)
-    counts = {name: _build.launches[name] for name in KERNELS}
+    counts = launch_counts()
     kernel_metrics += more
     log(f"resnet train path: {steps} steps of {TRAIN_ACCUM} x {RESNET_MICRO} "
         f"volumes (SAM: 2 passes), launches {counts}")
@@ -2462,11 +2770,13 @@ def main() -> int:
         plain_ms[key], bounds[key], library_ms[key] = plain_t, bound, lib
     for name, err in vit_worst.items():   # K1's tiled body; K2 on ViT's calls
         worst[name] = max(worst.get(name, 0.0), err)
+    for name, err in mode_worst.items():  # the residual modes (3a, 8a)
+        worst[name] = max(worst.get(name, 0.0), err)
     for name in KERNELS:
         per = (f"micro-batch of {RESNET_MICRO}" if name in STEM
                else f"stage-1 call (micro-batch of {TRAIN_MICRO})"
                if name in PROBES else f"micro-batch of {VIT_MICRO} (ViT)"
-               if name in TILED_NAME.values()
+               if "tiled" in name
                else f"micro-batch of {TRAIN_MICRO}")
         lib = ("no single call" if library_ms[name] is None
                else f"{library_ms[name]:.3f} ms")
@@ -2475,6 +2785,9 @@ def main() -> int:
             f"{bounds[name][0]:.3f} ms by {bounds[name][1]})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
+    idle = [name for name in KERNELS if not path_counts[name]]
+    if idle:
+        raise AssertionError(f"kernels that no path launched: {idle}")
     result = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_counts[name], "max_abs_err": worst[name],

@@ -126,7 +126,8 @@ def test_converter_maps_every_leaf_and_key(jax_variables):
 def test_training_forward_and_unported_options_raise():
     """Training runs the kernels' VJPs, with dropout the unfused blocks'
     (K4); training with attention dropout (the JAX XLA attention, no
-    kernel) and the unported options raise."""
+    kernel) and the unported options raise; the stabilizer options build
+    and train."""
     x = torch.zeros(1, 12, 18, 12, 1)
     model = build_model(load_config(TINY), device="cpu").train()
     model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
@@ -140,8 +141,11 @@ def test_training_forward_and_unported_options_raise():
     with pytest.raises(NotImplementedError):
         model(x, generator=torch.Generator())
     for key in ("POST_NORM", "LAYER_SCALE", "ENABLE_STABLE"):
-        with pytest.raises(NotImplementedError):
-            build_model(load_config(dict(TINY, **{key: True})), device="cpu")
+        model = build_model(load_config(dict(TINY, **{key: True})),
+                            device="cpu").train()
+        out = model(x, generator=torch.Generator().manual_seed(0))
+        assert out.shape == (1, 5) and bool(torch.isfinite(out).all())
+        out.sum().backward()
     with pytest.raises(ValueError):
         build_model(load_config(dict(TINY, NORM_LAYER="GroupNorm")),
                     device="cpu")

@@ -283,14 +283,28 @@ def test_init_weights_follow_the_jax_initializers():
 
 @pytest.mark.parametrize("over, match", [
     (dict(NORM_LAYER="DynamicTanh"), "NORM_LAYER"),
-    (dict(POST_NORM=True), "POST_NORM"),
-    (dict(LAYER_SCALE=True), "LAYER_SCALE"),
-    (dict(ENABLE_STABLE=True), "ENABLE_STABLE"),
     (dict(HEADS=3), "dim_head"),
 ])
 def test_unported_options_raise(over, match):
     with pytest.raises(NotImplementedError, match=match):
         build_model(load_config(dict(TINY, **over)), device="cpu")
+
+
+@pytest.mark.parametrize("key", ["POST_NORM", "LAYER_SCALE",
+                                 "ENABLE_STABLE"])
+def test_stabilizer_options_build_and_run(key):
+    """Each stabilizer option builds and runs an eval and a training
+    forward and backward on the CPU (tests/test_torch_stabilizers_vit.py
+    holds them to JAX)."""
+    model = build_model(load_config(dict(TINY, **{key: True})), device="cpu")
+    x = torch.randn(2, 16, 16, 16, 1, generator=torch.Generator()
+                    .manual_seed(0))
+    with torch.no_grad():
+        out = model(x)
+    assert out.shape == (2, 5) and bool(torch.isfinite(out).all())
+    model.train()
+    model(x, generator=torch.Generator().manual_seed(1)).sum().backward()
+    assert all(p.grad is not None for p in model.parameters())
 
 
 @pytest.mark.parametrize("key", ["DROPOUT", "ATTENTION_DROPOUT"])

@@ -7,7 +7,10 @@ becomes a Conv3d weight [O, I, kd, kh, kw]; LayerNorm, RMSNorm and
 BatchNorm scale/bias become weight/bias; DynamicTanh keeps alpha (0-d),
 gamma and beta; BatchNorm ``batch_stats`` mean/var become the
 running_mean/running_var buffers; ViT's ``cls_token`` and
-``pos_embedding`` keep their names and shapes. A JAX ``head`` is Swin's
+``pos_embedding`` keep their names and shapes. A LayerScale gamma
+(``res1/LayerScale_0/gamma``, ``res2/...``) becomes the block's
+``res1.gamma`` / ``res2.gamma``, and ViT's post-norm LayerNorms
+(``attn_norm``, ``ff_norm``) keep their names under the block. A JAX ``head`` is Swin's
 ``head`` or, in a tree that holds ``cls_token``, ViT's ``mlp_head.1``. Every leaf must match a rule (KeyError
 otherwise); load the result with ``load_state_dict(strict=True)`` so that
 any model key left without a leaf errors too. The maps are linear, so they
@@ -78,6 +81,8 @@ _RULES = (
      _dense),
     ("params", r"layer(\d+)/block(\d+)/mlp/fc2/bias", _SWIN + ".mlp.3.bias",
      _same),
+    ("params", r"layer(\d+)/block(\d+)/(res1|res2)/LayerScale_0/gamma",
+     _SWIN + ".{2}.gamma", _same),
     ("params", r"layer(\d+)/downsample/norm/" + _NORM,
      "backbone.layers.{0}.downsample.norm.{leaf}", _same),
     ("params", r"layer(\d+)/downsample/reduction/kernel",
@@ -132,6 +137,10 @@ _VIT_RULES = (
     ("params", r"block(\d+)/mlp/fc2/kernel", _VIT + ".1.net.4.weight",
      _dense),
     ("params", r"block(\d+)/mlp/fc2/bias", _VIT + ".1.net.4.bias", _same),
+    ("params", r"block(\d+)/(attn_norm|ff_norm)/" + _NORM,
+     _VIT + ".{1}.{leaf}", _same),
+    ("params", r"block(\d+)/(res1|res2)/LayerScale_0/gamma",
+     _VIT + ".{1}.gamma", _same),
     ("params", r"head_norm/" + _NORM, "mlp_head.0.{leaf}", _same),
     ("params", r"head/kernel", "mlp_head.1.weight", _dense),
     ("params", r"head/bias", "mlp_head.1.bias", _same),

@@ -30,6 +30,15 @@
 // head, query tile) with K and V streamed through shared memory and an online
 // row max and sum (``window_attention_tiled_kernel`` below).
 //
+// The residual modes (_attn_fwd_kernel :271-288) touch launches 1 and 3
+// only: with gamma (in-band LayerScale) launch 3's epilogue is ``lam * x +
+// gains[s] * ((acc + bproj) * gamma)`` (common.cuh LS_EPI); with post_norm
+// launch 1 reads raw x (no LayerNorm prologue), launch 3 writes the f32
+// branch proj(ao) + bproj, and a fourth launch, the post-norm row kernel
+// (common.cuh), forms ``lam * x + gains[s] * (LN1(branch) [* gamma])`` over
+// whole rows. The attention launch is the same in every mode; under
+// post_norm K1b's backward reads the ao it leaves in ao_buf.
+//
 // Arithmetic is FMA with f32 accumulation on operands rounded to the
 // activation type. The qkv and ao intermediates round-trip through device
 // memory; fusing them away (and moving the products onto wgmma) is later
@@ -392,15 +401,15 @@ template <typename T>
 int attn_half_fwd(int tiled, const T* x, const float* ln_w, const float* ln_b,
                   const float* qkv_w, const float* qkv_b, const float* bias,
                   const int* ids, int ids_rows, const float* proj_w,
-                  const float* proj_b, const float* gains, T* qkv_buf, T* ao_buf,
-                  T* out, long long bw, int n, int c, int heads,
-                  long long rows_per_sample, float scale, float lam,
-                  cudaStream_t stream) {
+                  const float* proj_b, const float* gains, const float* gamma,
+                  int post_norm, T* qkv_buf, T* ao_buf, float* branch32, T* out,
+                  long long bw, int n, int c, int heads, long long rows_per_sample,
+                  float scale, float lam, cudaStream_t stream) {
   const long long rows = bw * n;
 
   GemmParams<T> g1 = {};
   g1.a = x;
-  g1.ln_w = ln_w;
+  g1.ln_w = post_norm ? nullptr : ln_w;
   g1.ln_b = ln_b;
   g1.w = qkv_w;
   g1.bias = qkv_b;
@@ -426,10 +435,19 @@ int attn_half_fwd(int tiled, const T* x, const float* ln_w, const float* ln_b,
   g3.gains = gains;
   g3.rows_per_sample = rows_per_sample;
   g3.lam = lam;
+  g3.gamma = gamma;
   g3.out = out;
+  g3.out32 = branch32;
   g3.m = rows;
   g3.n = c;
   g3.k = c;
+  if (post_norm) {
+    err = launch_gemm<T, EPI_F32>(g3, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_postnorm_fwd<T>(branch32, x, ln_w, ln_b, gamma, gains,
+                                       rows_per_sample, lam, out, rows, c, stream);
+  }
+  if (gamma) return (int)launch_gemm<T, EPI_RESIDUAL, false, LS_EPI>(g3, stream);
   return (int)launch_gemm<T, EPI_RESIDUAL>(g3, stream);
 }
 
@@ -515,13 +533,16 @@ int probe_attn_half(int variant, int wb, const TX* x, const float* wqkv,
 // bias and ids may be null (no relative-position bias / no region mask).
 // tiled selects the key-tiled attention launch (head dims up to 128, any N)
 // over the whole-window one (head dims up to 32, K and V of a window in
-// shared memory); the caller chooses by shape.
+// shared memory); the caller chooses by shape. gamma [C] (in-band
+// LayerScale) may be null; post_norm moves LN1 onto the branch and needs
+// branch32, an f32 [BW*N, C] scratch (else null).
 extern "C" int vsn_attn_half_fwd(int tiled, int is_bf16, const void* x, const float* ln_w,
                                  const float* ln_b, const float* qkv_w,
                                  const float* qkv_b, const float* bias,
                                  const int* ids, int ids_rows,
                                  const float* proj_w, const float* proj_b,
-                                 const float* gains, void* qkv_buf, void* ao_buf,
+                                 const float* gains, const float* gamma, int post_norm,
+                                 void* qkv_buf, void* ao_buf, float* branch32,
                                  void* out, long long bw, int n, int c, int heads,
                                  long long rows_per_sample, float scale,
                                  float lam, void* stream) {
@@ -529,13 +550,14 @@ extern "C" int vsn_attn_half_fwd(int tiled, int is_bf16, const void* x, const fl
   if (is_bf16)
     return attn_half_fwd<__nv_bfloat16>(
         tiled, static_cast<const __nv_bfloat16*>(x), ln_w, ln_b, qkv_w, qkv_b, bias, ids,
-        ids_rows, proj_w, proj_b, gains, static_cast<__nv_bfloat16*>(qkv_buf),
-        static_cast<__nv_bfloat16*>(ao_buf), static_cast<__nv_bfloat16*>(out), bw,
-        n, c, heads, rows_per_sample, scale, lam, s);
+        ids_rows, proj_w, proj_b, gains, gamma, post_norm,
+        static_cast<__nv_bfloat16*>(qkv_buf), static_cast<__nv_bfloat16*>(ao_buf),
+        branch32, static_cast<__nv_bfloat16*>(out), bw, n, c, heads, rows_per_sample,
+        scale, lam, s);
   return attn_half_fwd<float>(tiled, static_cast<const float*>(x), ln_w, ln_b, qkv_w, qkv_b,
-                              bias, ids, ids_rows, proj_w, proj_b, gains,
+                              bias, ids, ids_rows, proj_w, proj_b, gains, gamma, post_norm,
                               static_cast<float*>(qkv_buf), static_cast<float*>(ao_buf),
-                              static_cast<float*>(out), bw, n, c, heads,
+                              branch32, static_cast<float*>(out), bw, n, c, heads,
                               rows_per_sample, scale, lam, s);
 }
 

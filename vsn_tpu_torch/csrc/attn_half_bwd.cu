@@ -23,6 +23,25 @@
 //   7. dWqkv = dqkv^T @ y (split-K), 8. dy = dqkv @ Wqkv (GEMM, f32 out);
 //   9. LN1 backward + residual: dx = T(lam * do_res + LN_bwd(dy)), dLN1.
 //
+// The residual modes (_attn_bwd_kernel :369-442):
+//
+//   in-band LayerScale (gamma, pre-norm): launch 3's prologue reads do =
+//   (gb * do_res) * gamma (common.cuh LS_PRO); launches 5 and 6 take dWproj
+//   and dbproj unscaled (M and s), and a tenth launch, after them on the
+//   stream, forms dgamma = rowsum(Wproj * M) + bproj * s and only then
+//   scales dWproj and dbproj by gamma (common.cuh layerscale_grads_kernel);
+//   post-norm: the LayerNorm sits on the branch, so do must pass LN1's
+//   backward before dao, and dao needs ao before the attention backward
+//   could recompute it: the caller passes K1f's own ao of the call (kept
+//   from the forward) in the ao argument. Launch 1 is skipped (qkv reads
+//   raw x, y is x); after launch 2, a GEMM recomputes the f32 branch
+//   proj(ao) + bproj (into the dy buffer) and the post-norm row kernel
+//   turns it into dbranch with LN1's gradients (and dgamma); launches 3, 5
+//   and 6 take dbranch for do (the attention backward writes its own ao
+//   into the unused y buffer, and dWproj reads the forward's); launch 8
+//   forms dx = T(lam * do_res + dqkv @ Wqkv) in its epilogue
+//   (EPI_ADD_RESID), with no LN backward.
+//
 // What bounds it here: the attention backward's FMA arithmetic (8 N^2 d per
 // window and head) and, at stage 1, the bytes of the [rows, 3C] qkv and dqkv
 // round trips. What the design does: the attention block keeps Q, K, V and
@@ -629,21 +648,47 @@ cudaError_t launch_attention_bwd_tiled(const T* qkv, const T* dao, const float* 
 }
 
 template <typename T>
+cudaError_t attention_bwd_launch(int tiled, const T* qkv, const T* dao, const float* bias,
+                                 const float* bias_t, const int* ids, int ids_rows, T* ao,
+                                 T* dqkv, float* dbias, float* dqkv_b, float* row_stats,
+                                 long long bw, int n, int c, int heads, float scale,
+                                 cudaStream_t stream) {
+  if (tiled)
+    return launch_attention_bwd_tiled<T>(qkv, dao, bias, bias_t, ids, ids_rows, ao, dqkv,
+                                         dbias, dqkv_b, row_stats, bw, n, c, heads, scale,
+                                         stream);
+  const size_t smem = attention_bwd_smem_bytes(n, c / heads);
+  cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  window_attention_bwd_kernel<T><<<(unsigned)(bw * heads), kBwdWarps * 32, smem, stream>>>(
+      qkv, dao, bias, bias_t, ids, ids_rows, ao, dqkv, dbias, dqkv_b, n, c, heads, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
 int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, const float* qkv_w,
                   const float* qkv_b, const float* bias, const float* bias_t,
-                  const int* ids, int ids_rows, const float* proj_w, const float* gb,
+                  const int* ids, int ids_rows, const float* proj_w, const float* proj_b,
+                  const float* gamma, int post_norm, const float* gb,
                   const T* dout, T* y, float* stats, T* qkv, T* dao, T* ao, T* dqkv,
                   float* dy, T* dx, float* dln_w, float* dln_b, float* dqkv_w,
                   float* dqkv_b, float* dbias, float* dproj_w, float* dproj_b,
-                  float* row_stats, long long bw, int n, int c, int heads,
+                  float* dgamma, float* row_stats, long long bw, int n, int c, int heads,
                   long long rows_per_sample, float scale, float lam,
                   cudaStream_t stream) {
   const long long rows = bw * n;
-  cudaError_t err = launch_ln_rows<T>(x, ln_w, ln_b, y, stats, rows, c, stream);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
+  const T* yin = x;  // post-norm: qkv reads raw x
+  if (!post_norm) {
+    err = launch_ln_rows<T>(x, ln_w, ln_b, y, stats, rows, c, stream);
+    if (err != cudaSuccess) return (int)err;
+    yin = y;
+  }
 
   GemmParams<T> g_qkv = {};
-  g_qkv.a = y;
+  g_qkv.a = yin;
   g_qkv.w = qkv_w;
   g_qkv.bias = qkv_b;
   g_qkv.out = qkv;
@@ -653,50 +698,86 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
   err = launch_gemm<T, EPI_BIAS>(g_qkv, stream);
   if (err != cudaSuccess) return (int)err;
 
-  GemmParams<T> g_dao = {};  // dao[m, i] = sum_o do[m, o] Wproj[o, i]
-  g_dao.a = dout;
-  g_dao.a_gain = gb;
-  g_dao.rows_per_sample = rows_per_sample;
-  g_dao.w = proj_w;
-  g_dao.out = dao;
-  g_dao.m = rows;
-  g_dao.n = c;
-  g_dao.k = c;
-  err = launch_gemm<T, EPI_BIAS, true>(g_dao, stream);
-  if (err != cudaSuccess) return (int)err;
-
-  if (tiled) {
-    err = launch_attention_bwd_tiled<T>(qkv, dao, bias, bias_t, ids, ids_rows, ao, dqkv,
-                                        dbias, dqkv_b, row_stats, bw, n, c, heads, scale,
-                                        stream);
-  } else {
-    const size_t smem = attention_bwd_smem_bytes(n, c / heads);
-    err = cudaFuncSetAttribute(window_attention_bwd_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (post_norm) {  // ao: K1f's, from the caller
+    GemmParams<T> g_br = {};  // the f32 branch proj(ao) + bproj, in dy
+    g_br.a = ao;
+    g_br.w = proj_w;
+    g_br.bias = proj_b;
+    g_br.out32 = dy;
+    g_br.m = rows;
+    g_br.n = c;
+    g_br.k = c;
+    err = launch_gemm<T, EPI_F32>(g_br, stream);
     if (err != cudaSuccess) return (int)err;
-    window_attention_bwd_kernel<T><<<(unsigned)(bw * heads), kBwdWarps * 32, smem, stream>>>(
-        qkv, dao, bias, bias_t, ids, ids_rows, ao, dqkv, dbias, dqkv_b, n, c, heads, scale);
-    err = cudaGetLastError();
-  }
-  if (err != cudaSuccess) return (int)err;
+    err = launch_postnorm_bwd<T>(dy, dout, gb, rows_per_sample, ln_w, ln_b, gamma, dln_w,
+                                 dln_b, dgamma, rows, c, stream);
+    if (err != cudaSuccess) return (int)err;
 
-  WgradParams<T, T> w_proj = {};  // dWproj[o, i] = sum_m do[m, o] ao[m, i]
-  w_proj.a = dout;
-  w_proj.a_gain = gb;
-  w_proj.rows_per_sample = rows_per_sample;
-  w_proj.b = ao;
-  w_proj.out = dproj_w;
-  w_proj.m = rows;
-  w_proj.n1 = c;
-  w_proj.n2 = c;
-  err = launch_wgrad(w_proj, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_colsum<T>(dout, gb, rows_per_sample, dproj_b, rows, c, stream);
-  if (err != cudaSuccess) return (int)err;
+    GemmParams<T, float> g_dao = {};  // dao[m, i] = sum_o dbranch[m, o] Wproj[o, i]
+    g_dao.a = dy;
+    g_dao.w = proj_w;
+    g_dao.out = dao;
+    g_dao.m = rows;
+    g_dao.n = c;
+    g_dao.k = c;
+    err = launch_gemm<T, EPI_BIAS, true>(g_dao, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = attention_bwd_launch<T>(tiled, qkv, dao, bias, bias_t, ids, ids_rows, y, dqkv,
+                                  dbias, dqkv_b, row_stats, bw, n, c, heads, scale, stream);
+    if (err != cudaSuccess) return (int)err;
+
+    WgradParams<T, float> w_proj = {};  // dWproj[o, i] = sum_m dbranch[m, o] ao[m, i]
+    w_proj.a = dy;
+    w_proj.b = ao;
+    w_proj.out = dproj_w;
+    w_proj.m = rows;
+    w_proj.n1 = c;
+    w_proj.n2 = c;
+    err = launch_wgrad(w_proj, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_colsum<float>(dy, nullptr, 1, dproj_b, rows, c, stream);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    GemmParams<T> g_dao = {};  // dao[m, i] = sum_o do[m, o] Wproj[o, i]
+    g_dao.a = dout;
+    g_dao.a_gain = gb;
+    g_dao.rows_per_sample = rows_per_sample;
+    g_dao.w = proj_w;
+    g_dao.gamma = gamma;
+    g_dao.out = dao;
+    g_dao.m = rows;
+    g_dao.n = c;
+    g_dao.k = c;
+    err = gamma ? launch_gemm<T, EPI_BIAS, true, LS_PRO>(g_dao, stream)
+                : launch_gemm<T, EPI_BIAS, true>(g_dao, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = attention_bwd_launch<T>(tiled, qkv, dao, bias, bias_t, ids, ids_rows, ao, dqkv,
+                                  dbias, dqkv_b, row_stats, bw, n, c, heads, scale, stream);
+    if (err != cudaSuccess) return (int)err;
+
+    WgradParams<T, T> w_proj = {};  // dWproj[o, i] = sum_m do[m, o] ao[m, i]
+    w_proj.a = dout;
+    w_proj.a_gain = gb;
+    w_proj.rows_per_sample = rows_per_sample;
+    w_proj.b = ao;
+    w_proj.out = dproj_w;
+    w_proj.m = rows;
+    w_proj.n1 = c;
+    w_proj.n2 = c;
+    err = launch_wgrad(w_proj, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_colsum<T>(dout, gb, rows_per_sample, dproj_b, rows, c, stream);
+    if (err != cudaSuccess) return (int)err;
+    if (gamma) {
+      err = launch_layerscale_grads<float>(proj_w, proj_b, gamma, dproj_w, dproj_b, dgamma,
+                                           c, c, stream);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
 
   WgradParams<T, T> w_qkv = {};  // dWqkv[o, i] = sum_m dqkv[m, o] y[m, i]
   w_qkv.a = dqkv;
-  w_qkv.b = y;
+  w_qkv.b = yin;
   w_qkv.out = dqkv_w;
   w_qkv.m = rows;
   w_qkv.n1 = 3 * c;
@@ -711,6 +792,12 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
   g_dy.m = rows;
   g_dy.n = c;
   g_dy.k = 3 * c;
+  if (post_norm) {  // dx = T(lam * do_res + dy): no LN backward
+    g_dy.resid = dout;
+    g_dy.lam = lam;
+    g_dy.out = dx;
+    return (int)launch_gemm<T, EPI_ADD_RESID, true>(g_dy, stream);
+  }
   err = launch_gemm<T, EPI_F32, true>(g_dy, stream);
   if (err != cudaSuccess) return (int)err;
 
@@ -724,36 +811,40 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
 // is_bf16 selects bf16 activations (else f32); parameters and their
 // gradients are f32. bias/bias_t (the bias and its [H, N^T, N] transpose)
 // and ids may be null; dbias is then not written. The f32 gradient outputs
-// (dln_w .. dproj_b, dbias) must be zeroed by the caller: the kernels add
-// into them. y, stats, qkv, dao, ao, dqkv and dy are scratch. tiled selects
-// the key-tiled attention backward (phases A and B, head dims up to 128, any
-// N; row_stats [BW, H, N, 3] f32 scratch) over the whole-window one (head
-// dims up to 32, row_stats unused and may be null); the caller chooses by
-// shape.
+// (dln_w .. dproj_b, dbias, dgamma) must be zeroed by the caller: the
+// kernels add into them. y, stats, qkv, dao, ao, dqkv and dy are scratch,
+// but for ao under post_norm: the input K1f's attention output [BW*N, C]
+// of this call (vsn_attn_half_fwd's ao_buf), read only.
+// tiled selects the key-tiled attention backward (phases A and B, head dims
+// up to 128, any N; row_stats [BW, H, N, 3] f32 scratch) over the
+// whole-window one (head dims up to 32, row_stats unused and may be null);
+// the caller chooses by shape. gamma [C] (in-band LayerScale, with dgamma)
+// may be null; post_norm selects the post-norm backward (stats unused).
 extern "C" int vsn_attn_half_bwd(
     int tiled, int is_bf16, const void* x, const float* ln_w, const float* ln_b,
     const float* qkv_w, const float* qkv_b, const float* bias, const float* bias_t,
-    const int* ids, int ids_rows, const float* proj_w, const float* gb,
-    const void* dout, void* y, float* stats, void* qkv, void* dao, void* ao, void* dqkv,
-    float* dy, void* dx, float* dln_w, float* dln_b, float* dqkv_w, float* dqkv_b,
-    float* dbias, float* dproj_w, float* dproj_b, float* row_stats, long long bw, int n,
+    const int* ids, int ids_rows, const float* proj_w, const float* proj_b,
+    const float* gamma, int post_norm, const float* gb, const void* dout, void* y,
+    float* stats, void* qkv, void* dao, void* ao, void* dqkv, float* dy, void* dx,
+    float* dln_w, float* dln_b, float* dqkv_w, float* dqkv_b, float* dbias,
+    float* dproj_w, float* dproj_b, float* dgamma, float* row_stats, long long bw, int n,
     int c, int heads, long long rows_per_sample, float scale, float lam, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using B = __nv_bfloat16;
     return attn_half_bwd<B>(
         tiled, static_cast<const B*>(x), ln_w, ln_b, qkv_w, qkv_b, bias, bias_t, ids, ids_rows,
-        proj_w, gb, static_cast<const B*>(dout), static_cast<B*>(y), stats,
-        static_cast<B*>(qkv), static_cast<B*>(dao), static_cast<B*>(ao),
-        static_cast<B*>(dqkv), dy, static_cast<B*>(dx), dln_w, dln_b, dqkv_w, dqkv_b,
-        dbias, dproj_w, dproj_b, row_stats, bw, n, c, heads, rows_per_sample, scale, lam,
-        s);
+        proj_w, proj_b, gamma, post_norm, gb, static_cast<const B*>(dout),
+        static_cast<B*>(y), stats, static_cast<B*>(qkv), static_cast<B*>(dao),
+        static_cast<B*>(ao), static_cast<B*>(dqkv), dy, static_cast<B*>(dx), dln_w, dln_b,
+        dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma, row_stats, bw, n, c, heads,
+        rows_per_sample, scale, lam, s);
   }
   return attn_half_bwd<float>(
       tiled, static_cast<const float*>(x), ln_w, ln_b, qkv_w, qkv_b, bias, bias_t, ids, ids_rows,
-      proj_w, gb, static_cast<const float*>(dout), static_cast<float*>(y), stats,
-      static_cast<float*>(qkv), static_cast<float*>(dao), static_cast<float*>(ao),
-      static_cast<float*>(dqkv), dy, static_cast<float*>(dx), dln_w, dln_b, dqkv_w, dqkv_b,
-      dbias, dproj_w, dproj_b, row_stats, bw, n, c, heads, rows_per_sample, scale, lam,
-      s);
+      proj_w, proj_b, gamma, post_norm, gb, static_cast<const float*>(dout),
+      static_cast<float*>(y), stats, static_cast<float*>(qkv), static_cast<float*>(dao),
+      static_cast<float*>(ao), static_cast<float*>(dqkv), dy, static_cast<float*>(dx), dln_w,
+      dln_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma, row_stats, bw, n, c, heads,
+      rows_per_sample, scale, lam, s);
 }

@@ -60,6 +60,9 @@ __device__ __forceinline__ float warp_max(float v) {
 //   A' = round_T(LN(A))              when ln_w is given (forward prologue)
 //      = round_T(a_gain[m / rps] * A) when a_gain is given (the gated
 //                                      cotangent do = gb[s] * do_res)
+//      = round_T((a_gain[m / rps] * A) * gamma[k])
+//                                     with a_gain and LS_PRO (the gated
+//                                      cotangent through LayerScale)
 //      = round_T(A)                   otherwise (A may be an f32 buffer)
 //   W' = round_T(W^T) for a torch Linear weight W [N, K] (forward, W_KN
 //        false), or round_T(W) for W read as [K, N] (W_KN true: the data
@@ -69,10 +72,19 @@ __device__ __forceinline__ float warp_max(float v) {
 //   EPI_GELU       out   = T(gelu_erf(acc + bias))             (fc1)
 //   EPI_RESIDUAL   out   = T(lam * resid + gains[m / rps] * (acc + bias))
 //                                                              (proj, fc2)
+//                  with LS_EPI: lam * resid + gains[m / rps] * ((acc + bias)
+//                  * gamma[n]), in-band LayerScale in the TPU's order
+//                  (swin_block_kernels.py:283-288)
 //   EPI_GELU_GRAD  out   = T(gelu_erf(acc + bias)),
 //                  out32 = gelu_erf'(acc + bias)               (fc1, in K2b)
 //   EPI_F32        out32 = acc + bias                          (dy in K1b/K2b)
 //   EPI_MUL_F32    out32 = out32 * (acc + bias)                (dh1 = dh * GELU')
+//   EPI_ADD_RESID  out   = T(lam * resid + acc)   (dx = lam * do_res + dy, the
+//                                                  post-norm backward's dx)
+//
+// LS is a compile-time set of LayerScale flags (LS_EPI, LS_PRO): gamma is
+// read only where a flag asks for it, so an instantiation without them is
+// the GEMM the default modes have always launched.
 //
 // W is f32 and rounded to T as it is loaded, like ``w.astype(cdt)`` in the
 // TPU kernels. The residual is formed in f32 and cast once
@@ -96,7 +108,10 @@ enum Epilogue {
   EPI_GELU_GRAD = 3,
   EPI_F32 = 4,
   EPI_MUL_F32 = 5,
+  EPI_ADD_RESID = 6,
 };
+
+enum LayerScaleFlags { LS_EPI = 1, LS_PRO = 2 };
 
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.39894228040143268f;
@@ -128,11 +143,12 @@ struct GemmParams {
   int n;
   int k;
   long long lda;              // A's row stride; 0 means k
+  const float* gamma;         // [N] (LS_EPI) or [K] (LS_PRO) LayerScale
 };
 
 constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
 
-template <typename T, int EPI, typename TA, bool W_KN, typename TO>
+template <typename T, int EPI, typename TA, bool W_KN, typename TO, int LS>
 __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA, TO> p) {
   __shared__ __align__(16) float As[kBK][kBM];
   __shared__ __align__(16) float Bs[kBK][kBN];
@@ -186,7 +202,7 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA, TO
         if (ln)
           v = round_to<T>((v - mu_s[lr]) * rstd_s[lr] * p.ln_w[k] + p.ln_b[k]);
         else if (p.a_gain)
-          v = round_to<T>(a_scale * v);
+          v = round_to<T>((LS & LS_PRO) ? (a_scale * v) * p.gamma[k] : a_scale * v);
         else if (!std::is_same<TA, T>::value)
           v = round_to<T>(v);
       }
@@ -237,16 +253,18 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA, TO
       if (EPI == EPI_GELU_GRAD) p.out32[o] = gelu_erf_grad(v);
       if (EPI == EPI_GELU || EPI == EPI_GELU_GRAD) v = gelu_erf(v);
       if (EPI == EPI_RESIDUAL)
-        v = p.lam * to_f32(p.resid[o]) + p.gains[m / p.rows_per_sample] * v;
+        v = p.lam * to_f32(p.resid[o]) +
+            p.gains[m / p.rows_per_sample] * ((LS & LS_EPI) ? v * p.gamma[n] : v);
+      if (EPI == EPI_ADD_RESID) v = p.lam * to_f32(p.resid[o]) + v;
       p.out[o] = from_f32<TO>(v);
     }
   }
 }
 
-template <typename T, int EPI, bool W_KN = false, typename TA, typename TO>
+template <typename T, int EPI, bool W_KN = false, int LS = 0, typename TA, typename TO>
 cudaError_t launch_gemm(const GemmParams<T, TA, TO>& p, cudaStream_t stream) {
   const dim3 grid((unsigned)((p.m + kBM - 1) / kBM), (unsigned)((p.n + kBN - 1) / kBN));
-  gemm_kernel<T, EPI, TA, W_KN, TO><<<grid, kGemmThreads, 0, stream>>>(p);
+  gemm_kernel<T, EPI, TA, W_KN, TO, LS><<<grid, kGemmThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -488,6 +506,175 @@ cudaError_t launch_wgrad(WgradParams<T, TA> p, cudaStream_t stream) {
   p.rows = rows_per_split(p.m, (long long)gx * gy, 256);
   const dim3 grid(gx, gy, (unsigned)((p.m + p.rows - 1) / p.rows));
   wgrad_kernel<T, TA><<<grid, kGemmThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The residual modes of K1 and K2 (swin_block_kernels.py _attn_fwd_kernel
+// :271-288, _attn_bwd_kernel :388-415, _mlp_fwd_kernel :862-878,
+// _mlp_bwd_kernel :904-950): in-band LayerScale (gamma scales the branch
+// before the gains) and post-norm (the LayerNorm moves from the block input
+// to the branch output). Post-norm needs LayerNorm statistics over a whole
+// row of the proj / fc2 output, which a 64 x 64 GEMM tile does not see: the
+// last GEMM writes the f32 branch (EPI_F32) and a row kernel below finishes.
+// ---------------------------------------------------------------------------
+
+// Post-norm forward: out = T(lam * x + gains[row / rps] * (LN(branch) [*
+// gamma])), the LayerNorm statistics of the f32 branch in f32 (two passes,
+// as the forward GEMM's prologue), one warp per row. gamma may be null.
+template <typename T>
+__global__ void __launch_bounds__(256) postnorm_fwd_kernel(
+    const float* __restrict__ branch, const T* __restrict__ x,
+    const float* __restrict__ w, const float* __restrict__ b,
+    const float* __restrict__ gamma, const float* __restrict__ gains,
+    long long rps, float lam, T* __restrict__ out, long long m, int k) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * 8 + warp;
+  if (row >= m) return;
+  const float* br = branch + row * k;
+  float s = 0.f;
+  for (int c = lane; c < k; c += 32) s += br[c];
+  const float mu = warp_sum(s) / k;
+  float v = 0.f;
+  for (int c = lane; c < k; c += 32) {
+    const float d = br[c] - mu;
+    v += d * d;
+  }
+  const float rstd = 1.f / sqrtf(warp_sum(v) / k + kLnEps);
+  const float g = gains[row / rps];
+  for (int c = lane; c < k; c += 32) {
+    float bn = (br[c] - mu) * rstd * w[c] + b[c];
+    if (gamma) bn *= gamma[c];
+    out[row * k + c] = from_f32<T>(lam * to_f32(x[row * k + c]) + g * bn);
+  }
+}
+
+template <typename T>
+cudaError_t launch_postnorm_fwd(const float* branch, const T* x, const float* w,
+                                const float* b, const float* gamma, const float* gains,
+                                long long rps, float lam, T* out, long long m, int k,
+                                cudaStream_t stream) {
+  postnorm_fwd_kernel<T><<<(unsigned)((m + 7) / 8), 256, 0, stream>>>(
+      branch, x, w, b, gamma, gains, rps, lam, out, m, k);
+  return cudaGetLastError();
+}
+
+// Post-norm backward, on the recomputed f32 branch, which it overwrites
+// with dbranch:
+//
+//   xhat = (branch - mu) * rstd, bn = xhat * w + b, do = gb[s] * do_res
+//   dgamma += sum_rows do * bn, then do *= gamma            (gamma not null)
+//   dbranch = rstd * (do w - mean(do w) - xhat * mean(do w xhat))
+//   dw += sum_rows do * xhat,  db += sum_rows do
+//
+// One warp per row; each block sums its rows' dw / db / dgamma in shared
+// memory and adds them to the zeroed outputs once (f32 atomics).
+template <typename T>
+__global__ void __launch_bounds__(256) postnorm_bwd_kernel(
+    float* __restrict__ branch, const T* __restrict__ do_res,
+    const float* __restrict__ gb, long long rps, const float* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ gamma,
+    float* __restrict__ dw, float* __restrict__ db, float* __restrict__ dgamma,
+    long long m, int k) {
+  extern __shared__ float part[];  // [3k]: dw, db, dgamma partials
+  for (int c = threadIdx.x; c < 3 * k; c += blockDim.x) part[c] = 0.f;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r0 = (long long)blockIdx.x * kLnBwdRows;
+  for (int rr = warp; rr < kLnBwdRows; rr += 8) {
+    const long long row = r0 + rr;
+    if (row >= m) break;
+    float* br = branch + row * k;
+    const T* dr = do_res + row * k;
+    const float g = gb[row / rps];
+    float s = 0.f;
+    for (int c = lane; c < k; c += 32) s += br[c];
+    const float mu = warp_sum(s) / k;
+    float v = 0.f;
+    for (int c = lane; c < k; c += 32) {
+      const float d = br[c] - mu;
+      v += d * d;
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(v) / k + kLnEps);
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < k; c += 32) {
+      const float xhat = (br[c] - mu) * rstd;
+      float d = g * to_f32(dr[c]);
+      if (gamma) {
+        atomicAdd(&part[2 * k + c], d * (xhat * w[c] + b[c]));
+        d *= gamma[c];
+      }
+      const float dxhat = d * w[c];
+      s1 += dxhat;
+      s2 += dxhat * xhat;
+      atomicAdd(&part[c], d * xhat);
+      atomicAdd(&part[k + c], d);
+    }
+    const float m1 = warp_sum(s1) / k, m2 = warp_sum(s2) / k;
+    for (int c = lane; c < k; c += 32) {
+      const float xhat = (br[c] - mu) * rstd;
+      float d = g * to_f32(dr[c]);
+      if (gamma) d *= gamma[c];
+      br[c] = rstd * (d * w[c] - m1 - xhat * m2);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < k; c += blockDim.x) {
+    atomicAdd(&dw[c], part[c]);
+    atomicAdd(&db[c], part[k + c]);
+    if (gamma) atomicAdd(&dgamma[c], part[2 * k + c]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_postnorm_bwd(float* branch, const T* do_res, const float* gb, long long rps,
+                                const float* w, const float* b, const float* gamma, float* dw,
+                                float* db, float* dgamma, long long m, int k,
+                                cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 3 * (size_t)k;
+  postnorm_bwd_kernel<T><<<(unsigned)((m + kLnBwdRows - 1) / kLnBwdRows), 256, smem, stream>>>(
+      branch, do_res, gb, rps, w, b, gamma, dw, db, dgamma, m, k);
+  return cudaGetLastError();
+}
+
+// Pre-norm LayerScale gradients of the last product out = gamma * (a @ W^T +
+// bias), from its unscaled weight and bias gradients M = do^T @ a [N, K] and
+// s = sum_rows do [N] (the split-K and column-sum launches, finished on the
+// stream before this one):
+//
+//   dgamma[o] += sum_i W[o, i] M[o, i] + bias[o] s[o]
+//   M[o, :] *= gamma[o],  s[o] *= gamma[o]
+//
+// as the TPU kernels take it (swin_block_kernels.py:404-415, :936-950):
+// dgamma from the unscaled sums, dW and db scaled after. One warp per o.
+// TW is the parameters' and their gradients' type (f32); as a template the
+// kernel is compiled only into the sources that launch it.
+template <typename TW>
+__global__ void __launch_bounds__(256) layerscale_grads_kernel(
+    const TW* __restrict__ w, const TW* __restrict__ bias,
+    const TW* __restrict__ gamma, TW* __restrict__ dw, TW* __restrict__ db,
+    TW* __restrict__ dgamma, int n, int k) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int o = blockIdx.x * 8 + warp;
+  if (o >= n) return;
+  TW* mrow = dw + (long long)o * k;
+  const TW* wrow = w + (long long)o * k;
+  float acc = 0.f;
+  for (int i = lane; i < k; i += 32) acc += wrow[i] * mrow[i];
+  acc = warp_sum(acc);
+  const float g = gamma[o];
+  for (int i = lane; i < k; i += 32) mrow[i] *= g;
+  if (lane == 0) {
+    dgamma[o] += acc + bias[o] * db[o];
+    db[o] *= g;
+  }
+}
+
+template <typename TW>
+cudaError_t launch_layerscale_grads(const TW* w, const TW* bias, const TW* gamma, TW* dw,
+                                   TW* db, TW* dgamma, int n, int k, cudaStream_t stream) {
+  layerscale_grads_kernel<TW><<<(unsigned)((n + 7) / 8), 256, 0, stream>>>(w, bias, gamma, dw,
+                                                                           db, dgamma, n, k);
   return cudaGetLastError();
 }
 

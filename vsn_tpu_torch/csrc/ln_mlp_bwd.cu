@@ -17,6 +17,19 @@
 //   7. dW1 = round(dh1)^T @ y (split-K), 8. dy = round(dh1) @ W1 (f32 out);
 //   9. LN2 backward + residual: dx = T(lam * do_res + LN_bwd(dy)), dLN2.
 //
+// The residual modes (_mlp_bwd_kernel :904-968):
+//
+//   in-band LayerScale (gamma, pre-norm): launch 3's prologue reads do =
+//   (gb * do_res) * gamma (common.cuh LS_PRO); launches 4 and 5 take dW2 and
+//   db2 unscaled (M and s), and a tenth launch, after them on the stream,
+//   forms dgamma = rowsum(W2 * M) + b2 * s and only then scales dW2 and db2
+//   by gamma (common.cuh layerscale_grads_kernel);
+//   post-norm: fc1 reads raw x (launch 1 is skipped: y is x), the fc2
+//   output is recomputed into f32 (EPI_F32 into the dy buffer), and the
+//   post-norm row kernel turns it into dbranch with LN2's gradients (and
+//   dgamma); launches 3-5 take dbranch for do; launch 8 forms dx = T(lam *
+//   do_res + dh1 @ W1) in its epilogue (EPI_ADD_RESID), with no LN backward.
+//
 // What bounds it here: the four products of 8 C^2 operations per row each
 // (two recomputed or data-gradient GEMMs, two weight gradients); and the
 // [rows, 4C] hidden activations, which do not fit on chip (a 64-row tile is
@@ -29,16 +42,22 @@ namespace {
 
 template <typename T>
 int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc1_w,
-               const float* fc1_b, const float* fc2_w, const float* gb, const T* dout,
-               T* y, float* stats, T* h, float* dh1, float* dy, T* dx, float* dln_w,
+               const float* fc1_b, const float* fc2_w, const float* fc2_b,
+               const float* gamma, int post_norm, const float* gb, const T* dout, T* y,
+               float* stats, T* h, float* dh1, float* dy, T* dx, float* dln_w,
                float* dln_b, float* dfc1_w, float* dfc1_b, float* dfc2_w, float* dfc2_b,
-               long long rows, int c, int hid, long long rows_per_sample, float lam,
-               cudaStream_t stream) {
-  cudaError_t err = launch_ln_rows<T>(x, ln_w, ln_b, y, stats, rows, c, stream);
-  if (err != cudaSuccess) return (int)err;
+               float* dgamma, long long rows, int c, int hid, long long rows_per_sample,
+               float lam, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  const T* yin = x;  // post-norm: fc1 reads raw x
+  if (!post_norm) {
+    err = launch_ln_rows<T>(x, ln_w, ln_b, y, stats, rows, c, stream);
+    if (err != cudaSuccess) return (int)err;
+    yin = y;
+  }
 
   GemmParams<T> g1 = {};  // h = gelu(h1), dh1 <- GELU'(h1)
-  g1.a = y;
+  g1.a = yin;
   g1.w = fc1_w;
   g1.bias = fc1_b;
   g1.out = h;
@@ -49,37 +68,84 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
   err = launch_gemm<T, EPI_GELU_GRAD>(g1, stream);
   if (err != cudaSuccess) return (int)err;
 
-  GemmParams<T> g2 = {};  // dh1[m, k] = GELU'(h1)[m, k] * sum_o do[m, o] W2[o, k]
-  g2.a = dout;
-  g2.a_gain = gb;
-  g2.rows_per_sample = rows_per_sample;
-  g2.w = fc2_w;
-  g2.out32 = dh1;
-  g2.m = rows;
-  g2.n = hid;
-  g2.k = c;
-  err = launch_gemm<T, EPI_MUL_F32, true>(g2, stream);
-  if (err != cudaSuccess) return (int)err;
+  if (post_norm) {
+    // dbranch (f32, in the dy buffer): recompute fc2 + b2, then LN2's
+    // backward through gamma and the gains
+    GemmParams<T> gb2 = {};
+    gb2.a = h;
+    gb2.w = fc2_w;
+    gb2.bias = fc2_b;
+    gb2.out32 = dy;
+    gb2.m = rows;
+    gb2.n = c;
+    gb2.k = hid;
+    err = launch_gemm<T, EPI_F32>(gb2, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_postnorm_bwd<T>(dy, dout, gb, rows_per_sample, ln_w, ln_b, gamma, dln_w,
+                                 dln_b, dgamma, rows, c, stream);
+    if (err != cudaSuccess) return (int)err;
 
-  WgradParams<T, T> w2 = {};  // dW2[o, k] = sum_m do[m, o] h[m, k]
-  w2.a = dout;
-  w2.a_gain = gb;
-  w2.rows_per_sample = rows_per_sample;
-  w2.b = h;
-  w2.out = dfc2_w;
-  w2.m = rows;
-  w2.n1 = c;
-  w2.n2 = hid;
-  err = launch_wgrad(w2, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_colsum<T>(dout, gb, rows_per_sample, dfc2_b, rows, c, stream);
-  if (err != cudaSuccess) return (int)err;
+    GemmParams<T, float> g2 = {};  // dh1 = (dbranch @ W2) * GELU'(h1)
+    g2.a = dy;
+    g2.w = fc2_w;
+    g2.out32 = dh1;
+    g2.m = rows;
+    g2.n = hid;
+    g2.k = c;
+    err = launch_gemm<T, EPI_MUL_F32, true>(g2, stream);
+    if (err != cudaSuccess) return (int)err;
+
+    WgradParams<T, float> w2 = {};  // dW2[o, k] = sum_m dbranch[m, o] h[m, k]
+    w2.a = dy;
+    w2.b = h;
+    w2.out = dfc2_w;
+    w2.m = rows;
+    w2.n1 = c;
+    w2.n2 = hid;
+    err = launch_wgrad(w2, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_colsum<float>(dy, nullptr, 1, dfc2_b, rows, c, stream);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    GemmParams<T> g2 = {};  // dh1[m, k] = GELU'(h1)[m, k] * sum_o do[m, o] W2[o, k]
+    g2.a = dout;
+    g2.a_gain = gb;
+    g2.rows_per_sample = rows_per_sample;
+    g2.w = fc2_w;
+    g2.gamma = gamma;
+    g2.out32 = dh1;
+    g2.m = rows;
+    g2.n = hid;
+    g2.k = c;
+    err = gamma ? launch_gemm<T, EPI_MUL_F32, true, LS_PRO>(g2, stream)
+                : launch_gemm<T, EPI_MUL_F32, true>(g2, stream);
+    if (err != cudaSuccess) return (int)err;
+
+    WgradParams<T, T> w2 = {};  // dW2[o, k] = sum_m do[m, o] h[m, k]
+    w2.a = dout;
+    w2.a_gain = gb;
+    w2.rows_per_sample = rows_per_sample;
+    w2.b = h;
+    w2.out = dfc2_w;
+    w2.m = rows;
+    w2.n1 = c;
+    w2.n2 = hid;
+    err = launch_wgrad(w2, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_colsum<T>(dout, gb, rows_per_sample, dfc2_b, rows, c, stream);
+    if (err != cudaSuccess) return (int)err;
+    if (gamma) {
+      err = launch_layerscale_grads<float>(fc2_w, fc2_b, gamma, dfc2_w, dfc2_b, dgamma, c,
+                                           hid, stream);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
   err = launch_colsum<float>(dh1, nullptr, 1, dfc1_b, rows, hid, stream);
   if (err != cudaSuccess) return (int)err;
 
   WgradParams<T, float> w1 = {};  // dW1[k, i] = sum_m dh1[m, k] y[m, i]
   w1.a = dh1;
-  w1.b = y;
+  w1.b = yin;
   w1.out = dfc1_w;
   w1.m = rows;
   w1.n1 = hid;
@@ -94,6 +160,12 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
   g3.m = rows;
   g3.n = c;
   g3.k = hid;
+  if (post_norm) {  // dx = T(lam * do_res + dy): no LN backward
+    g3.resid = dout;
+    g3.lam = lam;
+    g3.out = dx;
+    return (int)launch_gemm<T, EPI_ADD_RESID, true>(g3, stream);
+  }
   err = launch_gemm<T, EPI_F32, true>(g3, stream);
   if (err != cudaSuccess) return (int)err;
 
@@ -105,29 +177,31 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
 
 // Returns cudaGetLastError() of the first launch that failed, else 0.
 // is_bf16 selects bf16 activations (else f32); parameters and their
-// gradients are f32. The f32 gradient outputs (dln_w .. dfc2_b) must be
-// zeroed by the caller: the kernels add into them. y, stats, h, dh1 and dy
-// are scratch.
+// gradients are f32. The f32 gradient outputs (dln_w .. dfc2_b, dgamma) must
+// be zeroed by the caller: the kernels add into them. y, stats, h, dh1 and dy
+// are scratch. gamma [C] (in-band LayerScale, with dgamma) may be null;
+// post_norm selects the post-norm backward (y and stats are then unused).
 extern "C" int vsn_ln_mlp_bwd(int is_bf16, const void* x, const float* ln_w,
                               const float* ln_b, const float* fc1_w, const float* fc1_b,
-                              const float* fc2_w, const float* gb, const void* dout,
-                              void* y, float* stats, void* h, float* dh1, float* dy,
-                              void* dx, float* dln_w, float* dln_b, float* dfc1_w,
-                              float* dfc1_b, float* dfc2_w, float* dfc2_b, long long rows,
+                              const float* fc2_w, const float* fc2_b, const float* gamma,
+                              int post_norm, const float* gb, const void* dout, void* y,
+                              float* stats, void* h, float* dh1, float* dy, void* dx,
+                              float* dln_w, float* dln_b, float* dfc1_w, float* dfc1_b,
+                              float* dfc2_w, float* dfc2_b, float* dgamma, long long rows,
                               int c, int hid, long long rows_per_sample, float lam,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using B = __nv_bfloat16;
-    return ln_mlp_bwd<B>(static_cast<const B*>(x), ln_w, ln_b, fc1_w, fc1_b, fc2_w, gb,
-                         static_cast<const B*>(dout), static_cast<B*>(y), stats,
-                         static_cast<B*>(h), dh1, dy, static_cast<B*>(dx), dln_w, dln_b,
-                         dfc1_w, dfc1_b, dfc2_w, dfc2_b, rows, c, hid, rows_per_sample,
-                         lam, s);
+    return ln_mlp_bwd<B>(static_cast<const B*>(x), ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
+                         gamma, post_norm, gb, static_cast<const B*>(dout),
+                         static_cast<B*>(y), stats, static_cast<B*>(h), dh1, dy,
+                         static_cast<B*>(dx), dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w,
+                         dfc2_b, dgamma, rows, c, hid, rows_per_sample, lam, s);
   }
   return ln_mlp_bwd<float>(static_cast<const float*>(x), ln_w, ln_b, fc1_w, fc1_b, fc2_w,
-                           gb, static_cast<const float*>(dout), static_cast<float*>(y),
-                           stats, static_cast<float*>(h), dh1, dy,
+                           fc2_b, gamma, post_norm, gb, static_cast<const float*>(dout),
+                           static_cast<float*>(y), stats, static_cast<float*>(h), dh1, dy,
                            static_cast<float*>(dx), dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w,
-                           dfc2_b, rows, c, hid, rows_per_sample, lam, s);
+                           dfc2_b, dgamma, rows, c, hid, rows_per_sample, lam, s);
 }

@@ -1,9 +1,16 @@
 """Shared building blocks (port of vsn_tpu/models/layers.py).
 
-The norms (LayerNorm, RMSNorm, DynamicTanh, all with f32 statistics), the
-residual branch gains (eval, and the training draws of DropPath and
-ShakeDrop), the gated residual, dropout on an explicit keep mask and the
-MLP.
+The norms (LayerNorm, RMSNorm, DynamicTanh, all with f32 statistics),
+LayerScale, the residual branch gains (eval, and the training draws of
+DropPath and ShakeDrop), the gated residual, dropout on an explicit keep
+mask and the MLP.
+
+A residual branch takes its decorations in the JAX ``ResidualBranch``
+order (layers.py:237-275): branch -> [post-norm] -> LayerScale -> the gains
+of ShakeDrop / DropPath -> ``lam * x + beta * branch`` with DeepScaleLM's
+stable residuals (else ``x + branch``). The models fold beta into the
+per-sample gains (gf, gb) and pass lam to ``gated_residual``, as the JAX
+fused path does (vsn_tpu/models/swin3d.py:864-891).
 """
 
 from __future__ import annotations
@@ -71,6 +78,21 @@ def make_norm(norm_name, dim: int) -> nn.Module:
     if norm_name == "DynamicTanh":
         return DynamicTanh(dim)
     raise ValueError(f"Unknown NORM_LAYER: {norm_name!r}")
+
+
+class LayerScale(nn.Module):
+    """Learnable per-channel scale of a residual branch (CaiT; layers.py:
+    78-95): ``gamma`` [C] f32, initialized to ``init_value``; the branch is
+    scaled in f32 and cast back to its dtype. The fused blocks pass
+    ``gamma`` to their kernels, which scale in band."""
+
+    def __init__(self, dim: int, init_value: float = 1e-5):
+        super().__init__()
+        self.init_value = init_value
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_value)))
+
+    def forward(self, x):
+        return (x.float() * self.gamma).to(x.dtype)
 
 
 def shakedrop_gains(gate, alpha, beta):

@@ -40,9 +40,17 @@ norms, Linears of the unfused block, patch merging, the padded stage's pad
 and slice, the bias-table gather, pool, head) is plain PyTorch, which
 autograd differentiates.
 
-POST_NORM, LAYER_SCALE and ENABLE_STABLE raise NotImplementedError, and so
-does training with ATTENTION_DROPOUT > 0: it takes the JAX package's XLA
-attention with dropout on the probabilities, which has no kernel (ROADMAP).
+The residual options ride both block paths, as in the JAX package:
+POST_NORM moves norm1 / norm2 from the block input to the branch output,
+LAYER_SCALE scales each branch by a learned per-channel gamma (``res1`` /
+``res2``, named after the JAX tree's ``res*/LayerScale_0``), and
+ENABLE_STABLE (DeepScaleLM) gives every residual lam * x + beta * branch
+with (lam, beta) from the total depth and the stable inits. The fused path
+passes gamma and post-norm to K1/K2, which carry them in band, and lam, with
+beta folded into the gains; the unfused path applies them in plain
+PyTorch. Training with ATTENTION_DROPOUT > 0 raises NotImplementedError: it
+takes the JAX package's XLA attention with dropout on the probabilities,
+which has no kernel (ROADMAP).
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from torch import nn
 from vsn_tpu_torch.models.layers import (
     LN_NAMES,
     DynamicTanh,
+    LayerScale,
     Mlp,
     RMSNorm,
     dropout,
@@ -67,6 +76,13 @@ from vsn_tpu_torch.models.layers import (
     residual_branch_gains,
     stochastic_depth_rates,
     trunc_normal_,
+)
+from vsn_tpu_torch.ops.stable_init import (
+    compute_residual_gains,
+    normal_,
+    stable_embedding_std,
+    stable_qkv_init_,
+    stable_vproj_std,
 )
 from vsn_tpu_torch.ops.swin_block_kernels import attn_half, ln_mlp
 from vsn_tpu_torch.ops.window_attention import window_attention_qkv
@@ -284,34 +300,56 @@ class SwinBlock3D(nn.Module):
     tokens and K2 on the flat token rows (``forward``, ``forward_windows``).
     Unfused: ``forward_unfused``. ``gains`` is (gf1, gb1, gf2, gb2), the
     per-sample branch gains of its two residuals (SwinTransformer3D.
-    residual_gains)."""
+    residual_gains, DeepScaleLM's beta folded in). ``post_norm`` moves
+    norm1 / norm2 onto the branch outputs; ``layer_scale`` adds a gamma per
+    residual (``res1``, ``res2``); ``lam`` is the residual x-gain."""
 
     def __init__(self, dim: int, num_heads: int, window, shift,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  dropout_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 norm_layer=None):
+                 norm_layer=None, post_norm: bool = False,
+                 layer_scale: bool = False,
+                 layer_scale_init_value: float = 1e-5, lam: float = 1.0):
         super().__init__()
         self.window, self.shift = tuple(window), tuple(shift)
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.drop_path_rate = drop_path_rate
+        self.post_norm, self.lam = post_norm, lam
         self.norm1 = make_norm(norm_layer, dim)
         self.attn = WindowAttention3D(dim, num_heads, window, qkv_bias,
                                       dropout_rate)
         self.norm2 = make_norm(norm_layer, dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout_rate)
+        self.res1 = self.res2 = None
+        if layer_scale:
+            self.res1 = LayerScale(dim, layer_scale_init_value)
+            self.res2 = LayerScale(dim, layer_scale_init_value)
 
     def attn_half(self, windows, ids, gf, gb):
         return attn_half(windows, self.norm1.weight, self.norm1.bias,
                          self.attn.qkv.weight, self.attn.qkv.bias,
                          self.attn.bias(), ids, self.attn.proj.weight,
                          self.attn.proj.bias, gf, gb, self.scale,
-                         self.num_heads)
+                         self.num_heads, lam=self.lam,
+                         gamma=None if self.res1 is None else self.res1.gamma,
+                         post_norm=self.post_norm)
 
     def mlp_half(self, rows, gf, gb):
         fc1, fc2 = self.mlp[0], self.mlp[3]
         return ln_mlp(rows, self.norm2.weight, self.norm2.bias, fc1.weight,
-                      fc1.bias, fc2.weight, fc2.bias, gf, gb)
+                      fc1.bias, fc2.weight, fc2.bias, gf, gb, lam=self.lam,
+                      gamma=None if self.res2 is None else self.res2.gamma,
+                      post_norm=self.post_norm)
+
+    def _residual(self, x, branch, norm, scale, gf, gb):
+        """The unfused residual: branch -> [post-norm] -> [LayerScale] ->
+        lam * x + gains * branch (layers.py ResidualBranch order)."""
+        if self.post_norm:
+            branch = norm(branch)
+        if scale is not None:
+            branch = scale(branch)
+        return gated_residual(x, branch, gf, gb, self.lam)
 
     def forward_windows(self, x, ids, gains):
         """Window-resident IO: x is [B*nW, N, C] in this block's (rolled)
@@ -340,12 +378,14 @@ class SwinBlock3D(nn.Module):
         b, d, h, w, c = x.shape
         gf1, gb1, gf2, gb2 = gains
         proj_mask, fc1_mask, fc2_mask = masks
-        h_in = roll3d(self.norm1(x), tuple(-s for s in self.shift))
+        h_in = x if self.post_norm else self.norm1(x)
+        h_in = roll3d(h_in, tuple(-s for s in self.shift))
         out = self.attn(window_partition(h_in, self.window), ids, proj_mask)
         out = roll3d(window_reverse(out, self.window, (d, h, w)), self.shift)
-        x = gated_residual(x, out, gf1, gb1)
-        out = self.mlp(self.norm2(x), (fc1_mask, fc2_mask))
-        return gated_residual(x, out, gf2, gb2)
+        x = self._residual(x, out, self.norm1, self.res1, gf1, gb1)
+        out = self.mlp(x if self.post_norm else self.norm2(x),
+                       (fc1_mask, fc2_mask))
+        return self._residual(x, out, self.norm2, self.res2, gf2, gb2)
 
 
 # Reference part order for the 8-neighbour concat: x0..x7 as (dz, dy, dx).
@@ -390,7 +430,7 @@ class BasicLayer3D(nn.Module):
     def __init__(self, dim: int, dims, depth: int, num_heads: int, window,
                  rates: Sequence[float], downsample: bool,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 dropout_rate: float = 0.0, norm_layer=None):
+                 dropout_rate: float = 0.0, norm_layer=None, **residual):
         super().__init__()
         self.dim, self.hidden = dim, int(dim * mlp_ratio)
         self.dims = tuple(dims)
@@ -405,7 +445,8 @@ class BasicLayer3D(nn.Module):
         self.blocks = nn.ModuleList(
             SwinBlock3D(dim, num_heads, self.window,
                         (0, 0, 0) if i % 2 == 0 else self.shift, mlp_ratio,
-                        qkv_bias, dropout_rate, rates[i], norm_layer)
+                        qkv_bias, dropout_rate, rates[i], norm_layer,
+                        **residual)
             for i in range(depth))
         self.downsample = (PatchMerging3D(dim, norm_layer) if downsample
                            else None)
@@ -514,7 +555,9 @@ class SwinBackbone3D(nn.Module):
 
     def __init__(self, img_size, patch_size, in_channels, embed_dim, depths,
                  num_heads, window_size, mlp_ratio, qkv_bias, dropout_rate,
-                 patch_norm, rates, norm_layer=None):
+                 patch_norm, rates, norm_layer=None, **residual):
+        """``residual``: the blocks' post_norm, layer_scale,
+        layer_scale_init_value and lam (SwinBlock3D)."""
         super().__init__()
         self.dropout = dropout_rate
         self.patch_embed = PatchEmbed3D(patch_size, in_channels, embed_dim,
@@ -528,7 +571,8 @@ class SwinBackbone3D(nn.Module):
                 embed_dim * 2 ** i, grids[i], depths[i], num_heads[i],
                 tuple(window_size), rates[off:off + depths[i]],
                 downsample=i < n - 1, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                dropout_rate=dropout_rate, norm_layer=norm_layer))
+                dropout_rate=dropout_rate, norm_layer=norm_layer,
+                **residual))
         self.num_features = embed_dim * 2 ** (n - 1)
         self.norm = make_norm(norm_layer, self.num_features)
 
@@ -557,6 +601,10 @@ class SwinTransformer3D(nn.Module):
                  stochastic_depth_prob: float = 0.1,
                  patch_norm: bool = True, use_shakedrop: bool = False,
                  shakedrop_alpha_range=(-1.0, 1.0), norm_layer=None,
+                 post_norm: bool = False, layer_scale: bool = False,
+                 layer_scale_init_value: float = 1e-5,
+                 enable_stable: bool = False, stable_k: float = 2.0,
+                 stable_alpha: float = 1.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -564,11 +612,19 @@ class SwinTransformer3D(nn.Module):
         self.norm_layer = norm_layer
         self.use_shakedrop = use_shakedrop
         self.alpha_range = tuple(shakedrop_alpha_range)
+        self.in_channels, self.patch_size = in_channels, tuple(patch_size)
+        # DeepScaleLM (vsn_tpu/models/swin3d.py:1505-1511): (lam, beta) from
+        # the total depth; beta scales the gains (``residual_gains``)
+        self.enable_stable = enable_stable
+        self.lam, self.beta = (compute_residual_gains(
+            sum(depths), stable_k, stable_alpha) if enable_stable
+            else (1.0, 1.0))
         rates = stochastic_depth_rates(stochastic_depth_prob, depths)
         self.backbone = SwinBackbone3D(
             img_size, patch_size, in_channels, embed_dim, depths, num_heads,
             window_size, mlp_ratio, qkv_bias, dropout, patch_norm, rates,
-            norm_layer)
+            norm_layer, post_norm=post_norm, layer_scale=layer_scale,
+            layer_scale_init_value=layer_scale_init_value, lam=self.lam)
         self.head = nn.Linear(self.backbone.num_features, num_classes)
 
     def blocks(self):
@@ -664,7 +720,8 @@ class SwinTransformer3D(nn.Module):
 
     def residual_gains(self, b: int, device, generator=None, draws=None,
                        taken=None):
-        """(gf1, gb1, gf2, gb2) of every block, in stage order.
+        """(gf1, gb1, gf2, gb2) of every block, in stage order, each times
+        DeepScaleLM's beta under ENABLE_STABLE.
 
         Eval: the deterministic gains. Training: a block with rate > 0 takes
         res1 and res2 from ``taken`` (``taken_draws``), or from ``draws`` or
@@ -681,7 +738,8 @@ class SwinTransformer3D(nn.Module):
                     pair = residual_branch_gains(b, blk.drop_path_rate,
                                                  self.use_shakedrop,
                                                  device=device)
-                gains.extend(pair)
+                gains.extend(g * self.beta if self.enable_stable else g
+                             for g in pair)
             out.append(tuple(gains))
         return out
 
@@ -708,7 +766,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialize as the JAX package's initializers do: trunc-normal(0.02)
     for every Linear/Conv kernel and relative-position bias table, zero
     biases, LayerNorm and RMSNorm scale 1 and LayerNorm shift 0,
-    DynamicTanh alpha 0.5, gamma 1, beta 0."""
+    DynamicTanh alpha 0.5, gamma 1, beta 0, LayerScale gamma at its init
+    value. Under ENABLE_STABLE (DeepScaleLM, vsn_tpu/models/swin3d.py
+    :565-577, :835, :1453-1457) the patch embed, qkv, proj and MLP kernels
+    are normal instead: the embed at ``stable_embedding_std``, qkv column-
+    wise (``stable_qkv_init_``), proj and both MLP layers at
+    ``stable_vproj_std`` of the block width."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Linear, nn.Conv3d)):
@@ -724,20 +787,31 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.alpha.fill_(m.alpha_init)
                 m.gamma.fill_(1.0)
                 m.beta.zero_()
+            elif isinstance(m, LayerScale):
+                m.gamma.fill_(m.init_value)
             elif isinstance(m, WindowAttention3D):
                 trunc_normal_(m.relative_position_bias_table, 0.02, generator)
+        if getattr(model, "enable_stable", False):
+            _stable_init(model, generator)
     return model
 
 
+def _stable_init(model: SwinTransformer3D, generator: torch.Generator):
+    """The DeepScaleLM kernels of ``init_weights`` (biases stay zero)."""
+    fan_in = model.in_channels * int(np.prod(model.patch_size))
+    normal_(model.backbone.patch_embed.proj.weight,
+            stable_embedding_std(fan_in, model.dropout), generator)
+    for blk in model.blocks():
+        c = blk.attn.proj.weight.shape[0]
+        stable_qkv_init_(blk.attn.qkv.weight, c, model.attention_dropout,
+                         generator)
+        std = stable_vproj_std(c, model.dropout)
+        for layer in (blk.attn.proj, blk.mlp[0], blk.mlp[3]):
+            normal_(layer.weight, std, generator)
+
+
 def swin_from_config(cfg, dtype=torch.float32) -> SwinTransformer3D:
-    """Build from the public config keys; refuses what the slice does not
-    carry yet."""
-    for key, why in (("POST_NORM", "post-norm blocks"),
-                     ("LAYER_SCALE", "LayerScale"),
-                     ("ENABLE_STABLE", "DeepScaleLM stable residuals")):
-        if cfg.get(key, False):
-            raise NotImplementedError(f"{key}: {why} are not ported yet "
-                                      "(ROADMAP)")
+    """Build from the public config keys."""
     return SwinTransformer3D(
         img_size=cfg.input_size,
         patch_size=tuple(cfg.PATCH_SHAPE),
@@ -756,5 +830,11 @@ def swin_from_config(cfg, dtype=torch.float32) -> SwinTransformer3D:
         use_shakedrop=bool(cfg.USE_SHAKEDROP),
         shakedrop_alpha_range=tuple(cfg.SHAKEDROP_ALPHA_RANGE),
         norm_layer=cfg.NORM_LAYER,
+        post_norm=bool(cfg.POST_NORM),
+        layer_scale=bool(cfg.LAYER_SCALE),
+        layer_scale_init_value=float(cfg.LAYER_SCALE_INIT_VALUE),
+        enable_stable=bool(cfg.ENABLE_STABLE),
+        stable_k=float(cfg.STABLE_K),
+        stable_alpha=float(cfg.STABLE_ALPHA),
         dtype=dtype,
     )

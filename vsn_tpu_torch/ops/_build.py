@@ -14,7 +14,9 @@ kernel. A wrapper adds one per call, however many launches the call makes;
 the CPU path, which runs the plain PyTorch version, adds nothing. K1 and
 K1b count their two attention bodies apart: ``attn_half`` /
 ``attn_half_bwd`` for Swin's whole-window body, ``attn_half_tiled`` /
-``attn_half_bwd_tiled`` for the key-tiled one. The
+``attn_half_bwd_tiled`` for the key-tiled one; K1 and K2 also count their
+residual modes apart (``swin_block_kernels.mode_key``: ``..._post``,
+``..._ls``, ``..._post_ls``). The
 attention probes (``ops/attn_probe.py``) count per run instead, under the
 run's key, and add the number of CUDA launches the call made (3 for a
 whole half-block, 2 without the attention or without the GEMMs, 1 for a
@@ -41,15 +43,16 @@ launches: collections.Counter = collections.Counter()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "vsn_attn_half_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                          _P, _P, _P, _L, _I, _I, _I, _L, _F, _F, _P],
-    "vsn_ln_mlp_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
-                       _L, _F, _P],
+    "vsn_attn_half_fwd": [_I, _I, *[_P] * 7, _I, *[_P] * 4, _I, *[_P] * 4,
+                          _L, _I, _I, _I, _L, _F, _F, _P],
+    "vsn_ln_mlp_fwd": [_I, *[_P] * 9, _I, _P, _P, _P, _L, _I, _I, _L, _F,
+                       _P],
     "vsn_window_relayout": [_P, _P, _L, _I, _I, _I, _L, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P],
-    "vsn_attn_half_bwd": [_I, _I, *[_P] * 8, _I, *[_P] * 19, _L, _I, _I, _I,
-                          _L, _F, _F, _P],
-    "vsn_ln_mlp_bwd": [_I, *[_P] * 20, _L, _I, _I, _L, _F, _P],
+    "vsn_attn_half_bwd": [_I, _I, *[_P] * 8, _I, *[_P] * 3, _I, *[_P] * 19,
+                          _L, _I, _I, _I, _L, _F, _F, _P],
+    "vsn_ln_mlp_bwd": [_I, *[_P] * 8, _I, *[_P] * 15, _L, _I, _I, _L, _F,
+                       _P],
     "vsn_stem_conv_fwd": [_I, _P, _P, _P, *[_I] * 17, _P],
     "vsn_stem_conv_dw": [_I, _P, _P, _P, *[_I] * 17, _P],
     "vsn_window_attention_qkv_fwd": [_I, _P, _P, _P, _I, _P, _L, _I, _I, _I,

@@ -34,9 +34,16 @@ tokens per sample at d = 64). The launch counters name the body:
 ``attn_half`` / ``attn_half_bwd`` and ``attn_half_tiled`` /
 ``attn_half_bwd_tiled``. A head dim above 128 raises.
 
+Both kernels take the TPU kernels' two residual modes in band: ``gamma``
+(LayerScale: a [C] f32 scale of the branch before the gains, with its
+gradient dgamma) and ``post_norm`` (the LayerNorm moves from the block input
+to the branch output: qkv / fc1 read raw x and ``norm_w`` / ``norm_b`` are
+the post-norm's). The launch counters name the mode after the body:
+``..._post`` for post-norm, ``..._ls`` with gamma (e.g.
+``attn_half_tiled_post_ls``, ``ln_mlp_bwd_ls``).
+
 Weights use the torch Linear layout ([out, in], f32), as the port's modules
-hold them. LayerScale and post-norm, which the TPU kernels carry in band,
-are not ported (ROADMAP Queue 2).
+hold them.
 """
 
 from __future__ import annotations
@@ -124,6 +131,53 @@ def _residual(x, branch, gf, gb, lam):
                           lam).reshape(x.shape)
 
 
+def mode_key(base, gamma, post_norm):
+    """The launch counter of a K1/K2 call: ``base`` (the kernel and its
+    attention body), then ``_post`` under post-norm and ``_ls`` with a
+    LayerScale gamma."""
+    return base + ("_post" if post_norm else "") + (
+        "_ls" if gamma is not None else "")
+
+
+def _branch_out(branch, norm_w, norm_b, gamma, post_norm):
+    """The branch as the gains see it: [LN(branch)] [* gamma], in f32
+    (swin_block_kernels.py:284-287, :874-877)."""
+    if post_norm:
+        branch = _ln_parts(branch, norm_w, norm_b)[0]
+    return branch if gamma is None else branch * gamma
+
+
+def _out_backward(do, a, w, b, norm_w, norm_b, gamma, post_norm, cdt):
+    """Backward of the last product and the residual mode, branch = a @
+    w.T + b -> [post-norm] -> [* gamma], as the TPU kernels take it
+    (swin_block_kernels.py:388-415, :917-950). ``do`` is the gated
+    cotangent gb * do_res. Returns (the cotangent of the product's output,
+    dw, db, dgamma or None, (dnorm_w, dnorm_b) of the post-norm or None).
+
+    Pre-norm: M = round(do)^T round(a) and s = sum do; dgamma =
+    rowsum(w * M) + b * s from the unscaled M and s, then dw = M * gamma,
+    db = s * gamma and do * gamma. Post-norm: the f32 branch recomputed,
+    its LayerNorm statistics, dgamma = sum do * LN(branch) and do * gamma,
+    then LN's backward into dbranch and the norm's gradients; dw and db are
+    taken on dbranch."""
+    dgamma = None
+    if post_norm:
+        branch = _mm(a, w, cdt) + b
+        bn, bxhat, brstd = _ln_parts(branch, norm_w, norm_b)
+        if gamma is not None:
+            dgamma = (do * bn).sum(0)
+            do = do * gamma
+        dbranch, dnw, dnb = _ln_backward(do, norm_w, bxhat, brstd)
+        return (dbranch, _r(dbranch, cdt).t() @ _r(a, cdt), dbranch.sum(0),
+                dgamma, (dnw, dnb))
+    m = _r(do, cdt).t() @ _r(a, cdt)
+    s = do.sum(0)
+    if gamma is None:
+        return do, m, s, None, None
+    dgamma = (w * m).sum(1) + b * s
+    return do * gamma, m * gamma[:, None], s * gamma, dgamma, None
+
+
 def _check_gains(name, gf, gb, units, dev):
     nsamp = gf.shape[0]
     expect(gf, "gf", (nsamp,), torch.float32, dev)
@@ -150,12 +204,17 @@ def _scores(q, k, bias, ids, scale):
 
 
 def _attention_parts(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, scale,
-                     num_heads):
+                     num_heads, post_norm=False):
     """The forward up to the head-merged attention output, as K1 rounds it:
-    returns (y, xhat, rstd, q, k, v, u, r, ao)."""
+    returns (y, xhat, rstd, q, k, v, u, r, ao); under post-norm y is x (f32)
+    and xhat, rstd are None."""
     bw, n, c = x.shape
     cdt = _compute_dtype(x)
-    y, xhat, rstd = _ln_parts(x.float().reshape(bw * n, c), norm_w, norm_b)
+    x32 = x.float().reshape(bw * n, c)
+    if post_norm:
+        y, xhat, rstd = x32, None, None
+    else:
+        y, xhat, rstd = _ln_parts(x32, norm_w, norm_b)
     qkv = _mm(y, qkv_w, cdt)
     if qkv_b is not None:
         qkv = qkv + qkv_b
@@ -170,32 +229,37 @@ def _attention_parts(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, scale,
 
 
 def attn_half_math(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
-                   gf, gb, scale, num_heads, lam=1.0):
+                   gf, gb, scale, num_heads, lam=1.0, gamma=None,
+                   post_norm=False):
     """The forward of ``attn_half`` in plain PyTorch ops (differentiable by
     autograd; the residual's backward uses gb)."""
     cdt = _compute_dtype(x)
     ao = _attention_parts(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, scale,
-                          num_heads)[-1]
-    branch = _mm(ao, proj_w, cdt) + proj_b
+                          num_heads, post_norm)[-1]
+    branch = _branch_out(_mm(ao, proj_w, cdt) + proj_b, norm_w, norm_b, gamma,
+                         post_norm)
     return _residual(x, branch, gf, gb, lam)
 
 
 def attn_half_backward_reference(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
                                  proj_w, gb, dout, scale, num_heads,
-                                 lam=1.0):
+                                 lam=1.0, proj_b=None, gamma=None,
+                                 post_norm=False):
     """Plain VJP of ``attn_half``, mirroring _attn_bwd_kernel: recompute,
     then the p-basis attention backward. Returns (dx, dnorm_w, dnorm_b,
-    dqkv_w, dqkv_b, dbias, dproj_w, dproj_b); dqkv_b / dbias are None when
-    qkv_b / bias are."""
+    dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma); dqkv_b / dbias /
+    dgamma are None when qkv_b / bias / gamma are. ``proj_b`` is needed
+    with gamma or post-norm."""
     bw, n, c = x.shape
     rows, hd = bw * n, c // num_heads
     cdt = _compute_dtype(x)
     y, xhat, rstd, q, k, v, u, r, ao = _attention_parts(
-        x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, scale, num_heads)
+        x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, scale, num_heads,
+        post_norm)
     do_res = dout.float().reshape(rows, c)
-    do = _row_gains(gb, rows) * do_res
-    dproj_w = _r(do, cdt).t() @ _r(ao, cdt)
-    dproj_b = do.sum(0)
+    do, dproj_w, dproj_b, dgamma, post = _out_backward(
+        _row_gains(gb, rows) * do_res, ao, proj_w, proj_b, norm_w, norm_b,
+        gamma, post_norm, cdt)
     dao = _r(do, cdt) @ _r(proj_w, cdt)
     daoh = _r(dao, cdt).reshape(bw, n, num_heads, hd).transpose(1, 2)
     p = u * r                                               # [BW, H, N, N]
@@ -213,15 +277,19 @@ def attn_half_backward_reference(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
     dqkv_b = dqkv.sum(0) if qkv_b is not None else None
     dqkv_w = _r(dqkv, cdt).t() @ _r(y, cdt)
     dy = _r(dqkv, cdt) @ _r(qkv_w, cdt)
-    dxn, dnorm_w, dnorm_b = _ln_backward(dy, norm_w, xhat, rstd)
+    if post_norm:
+        dxn, (dnorm_w, dnorm_b) = dy, post
+    else:
+        dxn, dnorm_w, dnorm_b = _ln_backward(dy, norm_w, xhat, rstd)
     dx = (lam * do_res + dxn).to(x.dtype).reshape(x.shape)
-    return dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b
+    return (dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b,
+            dgamma)
 
 
 def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
-                gf, gb, num_heads):
-    """Validate K1's arguments (qkv_b, bias, ids and proj_b may be None);
-    returns (ids_rows, nsamp)."""
+                gf, gb, num_heads, gamma=None):
+    """Validate K1's arguments (qkv_b, bias, ids, proj_b and gamma may be
+    None); returns (ids_rows, nsamp)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attn_half: x dtype {x.dtype} (f32 or bf16)")
     bw, n, c = x.shape
@@ -235,7 +303,8 @@ def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
                            (qkv_b, "qkv_b", (3 * c,)),
                            (bias, "bias", (num_heads, n, n)),
                            (proj_w, "proj_w", (c, c)),
-                           (proj_b, "proj_b", (c,))):
+                           (proj_b, "proj_b", (c,)),
+                           (gamma, "gamma", (c,))):
         if t is not None:
             expect(t, name, shape, f32, dev)
     ids_rows = 1
@@ -248,58 +317,75 @@ def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
 
 
 def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
-                      proj_b, gf, gb, scale, num_heads, lam, force_tiled=False):
+                      proj_b, gf, gb, scale, num_heads, lam, gamma=None,
+                      post_norm=False, force_tiled=False):
     """K1f: launch ``csrc/attn_half.cu``, with the key-tiled attention body
-    where ``attention_tiled`` says so or ``force_tiled``."""
+    where ``attention_tiled`` says so or ``force_tiled``. Returns (out, the
+    attention output ao [BW, N, C]: K1b's input under post-norm)."""
     ids_rows, nsamp = _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
-                                  proj_w, proj_b, gf, gb, num_heads)
+                                  proj_w, proj_b, gf, gb, num_heads, gamma)
     bw, n, c = x.shape
     tiled = force_tiled or attention_tiled(n, c // num_heads)
     out = torch.empty_like(x)
     qkv_buf = torch.empty((bw * n, 3 * c), dtype=x.dtype, device=x.device)
     ao_buf = torch.empty_like(x)
+    branch = (torch.empty((bw * n, c), dtype=torch.float32, device=x.device)
+              if post_norm else None)
     with torch.cuda.device(x.device):
         err = library().vsn_attn_half_fwd(
             int(tiled), int(x.dtype == torch.bfloat16), x.data_ptr(),
             norm_w.data_ptr(), norm_b.data_ptr(), qkv_w.data_ptr(),
             ptr(qkv_b), ptr(bias), ptr(ids), ids_rows, proj_w.data_ptr(),
-            proj_b.data_ptr(), gf.data_ptr(), qkv_buf.data_ptr(),
-            ao_buf.data_ptr(), out.data_ptr(), bw, n, c, num_heads,
-            (bw // nsamp) * n,
+            proj_b.data_ptr(), gf.data_ptr(), ptr(gamma), int(post_norm),
+            qkv_buf.data_ptr(), ao_buf.data_ptr(), ptr(branch),
+            out.data_ptr(), bw, n, c, num_heads, (bw // nsamp) * n,
             float(scale), float(lam), stream_of(x))
     check(err, "attn_half")
-    launches["attn_half_tiled" if tiled else "attn_half"] += 1
-    return out
+    launches[mode_key("attn_half_tiled" if tiled else "attn_half", gamma,
+                      post_norm)] += 1
+    return out, ao_buf
 
 
 def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                        gb, dout, scale, num_heads, lam=1.0,
-                       _force_tiled=False):
+                       _force_tiled=False, proj_b=None, gamma=None,
+                       post_norm=False, ao=None):
     """VJP of ``attn_half``: K1b (``csrc/attn_half_bwd.cu``) for a CUDA
     tensor, with the key-tiled attention backward where ``attention_tiled``
     says so or ``_force_tiled``; ``attn_half_backward_reference`` for a CPU
-    one; same returns."""
+    one (which recomputes ao); same returns. Under post-norm K1b reads
+    ``ao``, K1f's attention output of this call (``_attn_half_kernel``'s
+    second return), where the TPU kernel recomputes it."""
     if x.device.type == "cpu":
         return attn_half_backward_reference(x, norm_w, norm_b, qkv_w, qkv_b,
                                             bias, ids, proj_w, gb, dout,
-                                            scale, num_heads, lam)
+                                            scale, num_heads, lam, proj_b,
+                                            gamma, post_norm)
+    if (gamma is not None or post_norm) and proj_b is None:
+        raise ValueError("attn_half_backward: LayerScale and post-norm need "
+                         "proj_b")
+    if post_norm:
+        if ao is None:
+            raise ValueError("attn_half_backward: post-norm needs K1f's ao")
+        expect(ao, "ao", tuple(x.shape), x.dtype, x.device)
     ids_rows, nsamp = _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
-                                  proj_w, None, gb, gb, num_heads)
+                                  proj_w, proj_b, gb, gb, num_heads, gamma)
     expect(dout, "dout", tuple(x.shape), x.dtype, x.device)
     bw, n, c = x.shape
     tiled = _force_tiled or attention_tiled(n, c // num_heads, backward=True)
     rows, dev, dt = bw * n, x.device, x.dtype
     # the f32 gradients the kernels add into, zeroed in one buffer
     sizes = (c, c, 3 * c * c, 3 * c, num_heads * n * n if bias is not None
-             else 0, c * c, c)
+             else 0, c * c, c, c if gamma is not None else 0)
     grads = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-    dln_w, dln_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b = grads.split(sizes)
+    (dln_w, dln_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b,
+     dgamma) = grads.split(sizes)
     bias_t = None if bias is None else bias.transpose(1, 2).contiguous()
     y = torch.empty((rows, c), dtype=dt, device=dev)
     stats = torch.empty((rows, 2), dtype=torch.float32, device=dev)
     qkv = torch.empty((rows, 3 * c), dtype=dt, device=dev)
     dao = torch.empty((rows, c), dtype=dt, device=dev)
-    ao = torch.empty((rows, c), dtype=dt, device=dev)
+    ao = ao if post_norm else torch.empty((rows, c), dtype=dt, device=dev)
     dqkv = torch.empty((rows, 3 * c), dtype=dt, device=dev)
     dy = torch.empty((rows, c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
@@ -310,21 +396,24 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
             int(tiled), int(dt == torch.bfloat16), x.data_ptr(),
             norm_w.data_ptr(), norm_b.data_ptr(), qkv_w.data_ptr(),
             ptr(qkv_b), ptr(bias), ptr(bias_t), ptr(ids), ids_rows,
-            proj_w.data_ptr(), gb.data_ptr(),
-            dout.data_ptr(), y.data_ptr(), stats.data_ptr(), qkv.data_ptr(),
-            dao.data_ptr(), ao.data_ptr(), dqkv.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
+            proj_w.data_ptr(), ptr(proj_b), ptr(gamma), int(post_norm),
+            gb.data_ptr(), dout.data_ptr(), y.data_ptr(), stats.data_ptr(),
+            qkv.data_ptr(), dao.data_ptr(), ao.data_ptr(), dqkv.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
             dqkv_w.data_ptr(), dqkv_b.data_ptr(),
             dbias.data_ptr() if bias is not None else None,
-            dproj_w.data_ptr(), dproj_b.data_ptr(), ptr(row_stats), bw, n, c,
-            num_heads, (bw // nsamp) * n, float(scale), float(lam),
-            stream_of(x))
+            dproj_w.data_ptr(), dproj_b.data_ptr(),
+            dgamma.data_ptr() if gamma is not None else None,
+            ptr(row_stats), bw, n, c, num_heads, (bw // nsamp) * n,
+            float(scale), float(lam), stream_of(x))
     check(err, "attn_half_bwd")
-    launches["attn_half_bwd_tiled" if tiled else "attn_half_bwd"] += 1
+    launches[mode_key("attn_half_bwd_tiled" if tiled else "attn_half_bwd",
+                      gamma, post_norm)] += 1
     return (dx, dln_w, dln_b, dqkv_w.view(3 * c, c),
             dqkv_b if qkv_b is not None else None,
             dbias.view(num_heads, n, n) if bias is not None else None,
-            dproj_w.view(c, c), dproj_b)
+            dproj_w.view(c, c), dproj_b,
+            dgamma if gamma is not None else None)
 
 
 class _AttnHalf(torch.autograd.Function):
@@ -333,39 +422,49 @@ class _AttnHalf(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, plain, force_tiled, x, norm_w, norm_b, qkv_w, qkv_b,
-                bias, ids, proj_w, proj_b, gf, gb, scale, num_heads, lam):
+                bias, ids, proj_w, proj_b, gf, gb, scale, num_heads, lam,
+                gamma, post_norm):
         args = (x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
-                gf, gb, scale, num_heads, lam)
+                gf, gb, scale, num_heads, lam, gamma, post_norm)
         ctx.plain, ctx.static = plain, (scale, num_heads, lam)
-        ctx.force_tiled = force_tiled
-        ctx.save_for_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
-                              proj_w, gb)
+        ctx.force_tiled, ctx.post_norm = force_tiled, post_norm
         if plain:
-            return attn_half_math(*args)
-        return _attn_half_kernel(*args, force_tiled=force_tiled)
+            out, ao = attn_half_math(*args), None
+        else:
+            out, ao = _attn_half_kernel(*args, force_tiled=force_tiled)
+        ctx.save_for_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
+                              proj_w, gb, proj_b, gamma,
+                              ao if post_norm else None)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, gb = (
-            ctx.saved_tensors)
+        (x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, gb, proj_b,
+         gamma, ao) = ctx.saved_tensors
         args = (x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, gb,
                 dout.contiguous(), *ctx.static)
+        mode = dict(proj_b=proj_b, gamma=gamma, post_norm=ctx.post_norm)
         if ctx.plain:
-            grads = attn_half_backward_reference(*args)
+            grads = attn_half_backward_reference(*args, **mode)
         else:
-            grads = attn_half_backward(*args, _force_tiled=ctx.force_tiled)
-        (dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias, dproj_w,
-         dproj_b) = grads
+            grads = attn_half_backward(*args, _force_tiled=ctx.force_tiled,
+                                       ao=ao, **mode)
+        (dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b,
+         dgamma) = grads
         return (None, None, dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias,
-                None, dproj_w, dproj_b, None, None, None, None, None)
+                None, dproj_w, dproj_b, None, None, None, None, None, dgamma,
+                None)
 
 
 def attn_half(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
-              gf, gb, scale, num_heads, lam=1.0, _force_tiled=False):
-    """lam * x + gf[s] * proj(window_attention(qkv(LN(x)))), per window.
+              gf, gb, scale, num_heads, lam=1.0, gamma=None, post_norm=False,
+              _force_tiled=False):
+    """lam * x + gf[s] * (gamma *) [LN](proj(window_attention(qkv([LN](x)))))
+    per window: the LayerNorm on the input (pre-norm) or on the branch
+    (``post_norm``).
 
     Args:
-        x: [BW, N, C] raw (pre-norm) window tokens, f32 or bf16; windows are
+        x: [BW, N, C] raw window tokens, f32 or bf16; windows are
             sample-major (window bw belongs to sample bw // (BW // B)).
         norm_w, norm_b: [C] f32 LayerNorm scale/shift (eps 1e-5).
         qkv_w: [3C, C] f32; qkv_b: [3C] f32 or None.
@@ -376,23 +475,26 @@ def attn_half(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
         gf, gb: [B] f32 per-sample branch gains, forward and backward.
         scale, num_heads, lam: attention scale, heads (C / heads <= 128),
             residual x-gain.
+        gamma: [C] f32 LayerScale of the branch (before the gains), or None.
+        post_norm: the LayerNorm applies to the proj output, not to x.
         _force_tiled: run the key-tiled attention body (forward and
             backward) whatever the shape; for the card's checks only.
     Returns: [BW, N, C] in x's dtype. Differentiable in x and the
-    parameters (K1b on a CUDA device).
+    parameters, gamma included (K1b on a CUDA device).
     """
     return _AttnHalf.apply(x.device.type == "cpu", _force_tiled, x, norm_w,
                            norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
-                           gf, gb, scale, num_heads, lam)
+                           gf, gb, scale, num_heads, lam, gamma, post_norm)
 
 
 def attn_half_reference(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
-                        proj_b, gf, gb, scale, num_heads, lam=1.0):
+                        proj_b, gf, gb, scale, num_heads, lam=1.0, gamma=None,
+                        post_norm=False):
     """Plain version of ``attn_half`` on any device: the plain forward, and
     ``attn_half_backward_reference`` as its backward."""
     return _AttnHalf.apply(True, False, x, norm_w, norm_b, qkv_w, qkv_b,
                            bias, ids, proj_w, proj_b, gf, gb, scale,
-                           num_heads, lam)
+                           num_heads, lam, gamma, post_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -400,13 +502,15 @@ def attn_half_reference(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
 # ---------------------------------------------------------------------------
 
 def ln_mlp_math(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb,
-                lam=1.0):
+                lam=1.0, gamma=None, post_norm=False):
     """The forward of ``ln_mlp`` in plain PyTorch ops (differentiable by
     autograd; the residual's backward uses gb)."""
     cdt = _compute_dtype(x)
-    h = F.gelu(_mm(_ln_parts(x.float(), norm_w, norm_b)[0], fc1_w, cdt)
-               + fc1_b)
-    return _residual(x, _mm(h, fc2_w, cdt) + fc2_b, gf, gb, lam)
+    y = x.float() if post_norm else _ln_parts(x.float(), norm_w, norm_b)[0]
+    h = F.gelu(_mm(y, fc1_w, cdt) + fc1_b)
+    branch = _branch_out(_mm(h, fc2_w, cdt) + fc2_b, norm_w, norm_b, gamma,
+                         post_norm)
+    return _residual(x, branch, gf, gb, lam)
 
 
 def _gelu_grad(h1):
@@ -416,28 +520,38 @@ def _gelu_grad(h1):
 
 
 def ln_mlp_backward_reference(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb,
-                              dout, lam=1.0):
+                              dout, lam=1.0, fc2_b=None, gamma=None,
+                              post_norm=False):
     """Plain VJP of ``ln_mlp``, mirroring _mlp_bwd_kernel. Returns (dx,
-    dnorm_w, dnorm_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b)."""
+    dnorm_w, dnorm_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b, dgamma); dgamma is
+    None without gamma. ``fc2_b`` is needed with gamma or post-norm."""
     rows = x.shape[0]
     cdt = _compute_dtype(x)
-    y, xhat, rstd = _ln_parts(x.float(), norm_w, norm_b)
+    if post_norm:
+        y, xhat, rstd = x.float(), None, None
+    else:
+        y, xhat, rstd = _ln_parts(x.float(), norm_w, norm_b)
     h1 = _mm(y, fc1_w, cdt) + fc1_b
     do_res = dout.float()
-    do = _row_gains(gb, rows) * do_res
-    dfc2_w = _r(do, cdt).t() @ _r(F.gelu(h1), cdt)
-    dfc2_b = do.sum(0)
+    do, dfc2_w, dfc2_b, dgamma, post = _out_backward(
+        _row_gains(gb, rows) * do_res, F.gelu(h1), fc2_w, fc2_b, norm_w,
+        norm_b, gamma, post_norm, cdt)
     dh1 = (_r(do, cdt) @ _r(fc2_w, cdt)) * _gelu_grad(h1)
     dfc1_w = _r(dh1, cdt).t() @ _r(y, cdt)
     dfc1_b = dh1.sum(0)
     dy = _r(dh1, cdt) @ _r(fc1_w, cdt)
-    dxn, dnorm_w, dnorm_b = _ln_backward(dy, norm_w, xhat, rstd)
+    if post_norm:
+        dxn, (dnorm_w, dnorm_b) = dy, post
+    else:
+        dxn, dnorm_w, dnorm_b = _ln_backward(dy, norm_w, xhat, rstd)
     dx = (lam * do_res + dxn).to(x.dtype)
-    return dx, dnorm_w, dnorm_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b
+    return dx, dnorm_w, dnorm_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b, dgamma
 
 
-def _check_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb):
-    """Validate K2's arguments (fc2_b may be None); returns nsamp."""
+def _check_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb,
+               gamma=None):
+    """Validate K2's arguments (fc2_b and gamma may be None); returns
+    nsamp."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ln_mlp: x dtype {x.dtype} (f32 or bf16)")
     rows, c = x.shape
@@ -448,47 +562,56 @@ def _check_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb):
                            (fc1_w, "fc1_w", (hid, c)),
                            (fc1_b, "fc1_b", (hid,)),
                            (fc2_w, "fc2_w", (c, hid)),
-                           (fc2_b, "fc2_b", (c,))):
+                           (fc2_b, "fc2_b", (c,)),
+                           (gamma, "gamma", (c,))):
         if t is not None:
             expect(t, name, shape, f32, dev)
     return _check_gains("ln_mlp", gf, gb, rows, dev)
 
 
 def _ln_mlp_kernel(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb,
-                   lam):
+                   lam, gamma=None, post_norm=False):
     """K2f: launch ``csrc/ln_mlp.cu``."""
-    nsamp = _check_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb)
+    nsamp = _check_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb,
+                       gamma)
     rows, c = x.shape
     hid = fc1_w.shape[0]
     out = torch.empty_like(x)
     hidden = torch.empty((rows, hid), dtype=x.dtype, device=x.device)
+    branch = (torch.empty((rows, c), dtype=torch.float32, device=x.device)
+              if post_norm else None)
     with torch.cuda.device(x.device):
         err = library().vsn_ln_mlp_fwd(
             int(x.dtype == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(),
             norm_b.data_ptr(), fc1_w.data_ptr(), fc1_b.data_ptr(),
-            fc2_w.data_ptr(), fc2_b.data_ptr(), gf.data_ptr(),
-            hidden.data_ptr(), out.data_ptr(), rows, c, hid, rows // nsamp,
-            float(lam), stream_of(x))
+            fc2_w.data_ptr(), fc2_b.data_ptr(), gf.data_ptr(), ptr(gamma),
+            int(post_norm), hidden.data_ptr(), ptr(branch), out.data_ptr(),
+            rows, c, hid, rows // nsamp, float(lam), stream_of(x))
     check(err, "ln_mlp")
-    launches["ln_mlp"] += 1
+    launches[mode_key("ln_mlp", gamma, post_norm)] += 1
     return out
 
 
 def ln_mlp_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb, dout,
-                    lam=1.0):
+                    lam=1.0, fc2_b=None, gamma=None, post_norm=False):
     """VJP of ``ln_mlp``: K2b (``csrc/ln_mlp_bwd.cu``) for a CUDA tensor,
     ``ln_mlp_backward_reference`` for a CPU one; same returns."""
     if x.device.type == "cpu":
         return ln_mlp_backward_reference(x, norm_w, norm_b, fc1_w, fc1_b,
-                                         fc2_w, gb, dout, lam)
-    nsamp = _check_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, None, gb, gb)
+                                         fc2_w, gb, dout, lam, fc2_b, gamma,
+                                         post_norm)
+    if (gamma is not None or post_norm) and fc2_b is None:
+        raise ValueError("ln_mlp_backward: LayerScale and post-norm need "
+                         "fc2_b")
+    nsamp = _check_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gb, gb,
+                       gamma)
     expect(dout, "dout", tuple(x.shape), x.dtype, x.device)
     rows, c = x.shape
     hid = fc1_w.shape[0]
     dev, dt = x.device, x.dtype
-    sizes = (c, c, hid * c, hid, c * hid, c)
+    sizes = (c, c, hid * c, hid, c * hid, c, c if gamma is not None else 0)
     grads = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-    dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b = grads.split(sizes)
+    dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b, dgamma = grads.split(sizes)
     y = torch.empty((rows, c), dtype=dt, device=dev)
     stats = torch.empty((rows, 2), dtype=torch.float32, device=dev)
     h = torch.empty((rows, hid), dtype=dt, device=dev)
@@ -499,16 +622,18 @@ def ln_mlp_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb, dout,
         err = library().vsn_ln_mlp_bwd(
             int(dt == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(),
             norm_b.data_ptr(), fc1_w.data_ptr(), fc1_b.data_ptr(),
-            fc2_w.data_ptr(), gb.data_ptr(), dout.data_ptr(), y.data_ptr(),
-            stats.data_ptr(), h.data_ptr(), dh1.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
-            dfc1_w.data_ptr(), dfc1_b.data_ptr(), dfc2_w.data_ptr(),
-            dfc2_b.data_ptr(), rows, c, hid, rows // nsamp, float(lam),
-            stream_of(x))
+            fc2_w.data_ptr(), ptr(fc2_b), ptr(gamma), int(post_norm),
+            gb.data_ptr(), dout.data_ptr(), y.data_ptr(), stats.data_ptr(),
+            h.data_ptr(), dh1.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dln_w.data_ptr(), dln_b.data_ptr(), dfc1_w.data_ptr(),
+            dfc1_b.data_ptr(), dfc2_w.data_ptr(), dfc2_b.data_ptr(),
+            dgamma.data_ptr() if gamma is not None else None, rows, c, hid,
+            rows // nsamp, float(lam), stream_of(x))
     check(err, "ln_mlp_bwd")
-    launches["ln_mlp_bwd"] += 1
+    launches[mode_key("ln_mlp_bwd", gamma, post_norm)] += 1
     return (dx, dln_w, dln_b, dfc1_w.view(hid, c), dfc1_b,
-            dfc2_w.view(c, hid), dfc2_b)
+            dfc2_w.view(c, hid), dfc2_b,
+            dgamma if gamma is not None else None)
 
 
 class _LnMlp(torch.autograd.Function):
@@ -516,22 +641,30 @@ class _LnMlp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, plain, x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b,
-                gf, gb, lam):
+                gf, gb, lam, gamma, post_norm):
         fwd = ln_mlp_math if plain else _ln_mlp_kernel
-        ctx.plain, ctx.lam = plain, lam
-        ctx.save_for_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb)
+        ctx.plain, ctx.lam, ctx.post_norm = plain, lam, post_norm
+        ctx.save_for_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb,
+                              fc2_b, gamma)
         return fwd(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb,
-                   lam)
+                   lam, gamma, post_norm)
 
     @staticmethod
     def backward(ctx, dout):
         bwd = ln_mlp_backward_reference if ctx.plain else ln_mlp_backward
-        grads = bwd(*ctx.saved_tensors, dout.contiguous(), ctx.lam)
-        return (None, *grads, None, None, None)
+        *args, fc2_b, gamma = ctx.saved_tensors
+        (dx, dnorm_w, dnorm_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b,
+         dgamma) = bwd(*args, dout.contiguous(), ctx.lam, fc2_b, gamma,
+                       ctx.post_norm)
+        return (None, dx, dnorm_w, dnorm_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b,
+                None, None, None, dgamma, None)
 
 
-def ln_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb, lam=1.0):
-    """lam * x + gf[row // (T // B)] * fc2(gelu_erf(fc1(LN(x)))).
+def ln_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb, lam=1.0,
+           gamma=None, post_norm=False):
+    """lam * x + gf[row // (T // B)] * (gamma *) [LN](fc2(gelu_erf(fc1(
+    [LN](x))))): the LayerNorm on the input (pre-norm) or on the branch
+    (``post_norm``).
 
     Args:
         x: [T, C] tokens, f32 or bf16, sample-major (T divisible by B).
@@ -539,16 +672,18 @@ def ln_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb, lam=1.0):
         fc2_w: [C, HID]; fc2_b: [C] (f32).
         gf, gb: [B] f32 per-sample branch gains, forward and backward.
         lam: residual x-gain.
-    Returns: [T, C] in x's dtype. Differentiable in x and the parameters
-    (K2b on a CUDA device).
+        gamma: [C] f32 LayerScale of the branch (before the gains), or None.
+        post_norm: the LayerNorm applies to the fc2 output, not to x.
+    Returns: [T, C] in x's dtype. Differentiable in x and the parameters,
+    gamma included (K2b on a CUDA device).
     """
     return _LnMlp.apply(x.device.type == "cpu", x, norm_w, norm_b, fc1_w,
-                        fc1_b, fc2_w, fc2_b, gf, gb, lam)
+                        fc1_b, fc2_w, fc2_b, gf, gb, lam, gamma, post_norm)
 
 
 def ln_mlp_reference(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb,
-                     lam=1.0):
+                     lam=1.0, gamma=None, post_norm=False):
     """Plain version of ``ln_mlp`` on any device: the plain forward, and
     ``ln_mlp_backward_reference`` as its backward."""
     return _LnMlp.apply(True, x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b,
-                        gf, gb, lam)
+                        gf, gb, lam, gamma, post_norm)
