@@ -22,7 +22,13 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    - 200 with the keys of the last, ragged key tile (768-810) 12 higher, so
    each row's running max grows at its last tile (at -200 every exp
    underflows under the max(rowmax, 0) shift and the attention output is
-   0), forward and every gradient;
+   0), forward and every gradient; then the tiled body's launches alone
+   (``attention_tiled_launch``: qkv -> ao, the row statistics and f32 o;
+   ``attention_tiled_backward_launch``: qkv, dao, o, statistics -> dqkv,
+   dbqkv) against their plain versions (``attention_tiled_reference`` and
+   its backward) on every K1 call of those sets and at the three saturated
+   logits: ao, o, dq, dk, dv and dbqkv to TOL of their scale, the
+   statistics elementwise;
 3a. the same ViT calls in K1/K2's residual modes (``residual_parity_phase``):
    in-band LayerScale (gamma = 0.5 + 0.1 z), post-norm, and both, with the
    seeded parameters of phase 6; the forward at lam 0, 0.9129 (DeepScaleLM's
@@ -66,6 +72,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    2, bf16 at batch 4; d = 32, N = 252, the whole-window body's shape) and
    onto each call cut to its first 37 tokens (N below one key tile):
    forward and backward against the plain versions, only tiled launches;
+   and the tiled launches alone on those calls, dbias included;
 8. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
    draws), f32 and bf16 at batch 2 and the training path's bf16 calls at
    micro-batch 8, with the same seeded parameters and gains, lam 0 and 1.
@@ -147,14 +154,19 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    and SAM pass, none of the whole-window K1; then the times per
    micro-batch of 24 of K1f/K1b (tiled), K2f and K2b at ViT's calls beside
    their plain versions and bounds, and the tiled attention launches alone
-   (profiler) beside ``F.scaled_dot_product_attention`` on the same q, k, v
-   [24, 6, 811, 64] in bf16 and its backward (a yardstick); then ViT's
+   (profiler; K1b's phases A and B) beside ``F.scaled_dot_product_attention``
+   on the same q, k, v [24, 6, 811, 64] in bf16 and its backward (a
+   yardstick) and beside their bound (4 N^2 d per window and head forward,
+   10 N^2 d backward, at 989 TFLOP/s); then ViT's
    K1/K2 in the "_post_ls" mode beside their plain versions and bounds;
 16a. the ViT stabilizer path: phases 15 and 16 for ViT-S with POST_NORM,
    LAYER_SCALE and ENABLE_STABLE (12 tiled K1f / K1b and 12 K2f / K2b in
    the "_post_ls" mode per forward or micro-batch and SAM pass);
-17. each Swin kernel's time per micro-batch at the training shapes beside
-   its plain version's (the eval phase times the forwards at batch 4), and
+17. K1f / K1b and their attention launches on Swin's stage-1 training
+   calls with the key-tiled body forced, beside the whole-window body they
+   take (a finding for routing; the route stays); each Swin kernel's time
+   per micro-batch at the training shapes beside its plain version's (the
+   eval phase times the forwards at batch 4), and
    for K4f / K4b the library's: one ``F.scaled_dot_product_attention`` call
    per K4 call on the split heads with the additive float mask bias[h] +
    mask(ids), and that call's backward (also V1f / V1b's yardstick: the
@@ -1254,7 +1266,9 @@ def kernel_times(calls, backward=True):
             bname = backward_name(name)
             if name == "attn_half":
                 b_args = (*args[:8], args[10], g, *args[11:13])
-                ms[bname] += cuda_ms(lambda: sbk.attn_half_backward(*b_args))
+                kept = k1_kept(args)
+                ms[bname] += cuda_ms(lambda: sbk.attn_half_backward(*b_args,
+                                                                    **kept))
                 plain_ms[bname] += cuda_ms(
                     lambda: sbk.attn_half_backward_reference(*b_args))
             elif name == "ln_mlp":
@@ -1476,13 +1490,21 @@ def call_work(name, args):
     count each input read once and each output written once; FLOP count
     the products the kernel computes from those inputs (the backward
     kernels recompute the forward's products they need); K1's tiled body
-    does K1's work; a residual mode does its kernel's, and reads gamma (and
-    writes dgamma) besides."""
+    does K1's work, but its backward reads K1f's ao, row statistics and
+    (bf16) f32 o instead of recomputing ao (five attention products, not
+    six); a residual mode does its kernel's, and reads gamma (and writes
+    dgamma) besides."""
     x = args[0]
     if name in RESIDUAL_KERNELS:
         base = RESIDUAL_KERNELS[name]
         flops, nbytes = call_work(base, args)
         return flops, nbytes + 4 * x.shape[-1] * (2 if "_bwd" in base else 1)
+    kept_bytes = 0
+    if name == TILED_NAME["attn_half_bwd"]:   # ao, o, stats from K1f
+        bw, n, c = x.shape
+        heads = args[12]
+        kept_bytes = _nbytes(x) + (4 * x.numel() if x.element_size() == 2
+                                   else 0) + 8 * bw * heads * n
     name = {v: k for k, v in TILED_NAME.items()}.get(name, name)
     if name in PROBES:
         return probe_work(name, *args)
@@ -1518,9 +1540,11 @@ def call_work(name, args):
         if name == "attn_half":  # qkv, proj; q k^T and p v
             return 8 * rows * c * c + 4 * rows * n * c, 2 * _nbytes(x) + \
                 params + _nbytes(*args[9:11])
-        # recomputed qkv, dWproj, dao, dWqkv, dy; s, ao, dp, dv, dq, dk
-        return 22 * rows * c * c + 12 * rows * n * c, 3 * _nbytes(x) + \
-            2 * params + _nbytes(args[10])
+        # recomputed qkv, dWproj, dao, dWqkv, dy; s, ao (whole-window only),
+        # dp, dv, dq, dk
+        attn = 10 if kept_bytes else 12
+        return 22 * rows * c * c + attn * rows * n * c, 3 * _nbytes(x) + \
+            2 * params + _nbytes(args[10]) + kept_bytes
     if name in ("ln_mlp", "ln_mlp_bwd"):
         rows, c = x.shape
         hid = args[3].shape[0]
@@ -1752,6 +1776,119 @@ def tiled_names(worst):
     return {TILED_NAME.get(name, name): v for name, v in worst.items()}
 
 
+def k1_kept(args, **mode):
+    """What K1b reads of K1f's call on the card, for a direct
+    ``attn_half_backward`` call on the recorded arguments ``args``: ao and
+    the tiled body's row statistics and f32 o, from one K1f launch ({} on
+    the CPU, where the plain backward recomputes them)."""
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    if not args[0].is_cuda:
+        return {}
+    _, ao, stats, o32 = sbk._attn_half_kernel(*args, 1.0, **mode)
+    return dict(ao=ao, stats=stats, o32=o32)
+
+
+def tiled_launch_inputs(args, gen):
+    """(qkv [BW, N, 3C], dao [BW, N, C]) of one K1 call as the tiled
+    attention launches see them: qkv from the call's x and parameters as
+    K1's launch 1 rounds it, dao seeded, both in x's dtype."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    x = args[0]
+    bw, n, c = x.shape
+    with torch.no_grad():
+        qkv = sbk._qkv_parts(*args[:5])[3].reshape(bw, n, 3 * c).to(x.dtype)
+    dao = torch.randn(x.shape, generator=gen).to(x.device, x.dtype)
+    return qkv, dao
+
+
+def tiled_launch_compare(args, qkv, dao):
+    """[(output, max|d|, limit, ok)] of K1's tiled attention launches alone
+    (``attention_tiled_launch`` and its backward) against their plain
+    versions on one call's bias, ids, scale and heads: ao and o to TOL of
+    their scale, the row statistics elementwise to TOL relative; the
+    backward from the plain o and statistics, dq, dk, dv, dbqkv and dbias
+    each to TOL of its own scale."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    bias, ids, scale, heads = args[5], args[6], args[11], args[12]
+    tol = TOL[str(qkv.dtype).removeprefix("torch.")]
+    c = qkv.shape[-1] // 3
+    with torch.no_grad():
+        got = sbk.attention_tiled_launch(qkv, bias, ids, scale, heads)
+        want = sbk.attention_tiled_reference(qkv, bias, ids, scale, heads)
+        bgot = sbk.attention_tiled_backward_launch(
+            qkv, dao, want[2], want[1], bias, ids, scale, heads)
+        bwant = sbk.attention_tiled_backward_reference(
+            qkv, dao, want[2], want[1], bias, ids, scale, heads)
+    rows = []
+
+    def add(label, g, w, limit):
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        rows.append((label, err, limit,
+                     bool(torch.isfinite(g).all()) and err <= limit))
+
+    for label, i in (("ao", 0), ("o", 2)):
+        add(label, got[i], want[i], tol * max(1.0, want[i].float().abs().max()
+                                              .item()))
+    st = (got[1] - want[1]).abs() / want[1].abs().clamp_min(1.0)
+    rows.append(("stats", st.max().item(), tol,
+                 bool(torch.isfinite(got[1]).all()) and st.max() <= tol))
+    for label, i, part in (("dq", 0, 0), ("dk", 0, 1), ("dv", 0, 2),
+                           ("dbqkv", 2, None), ("dbias", 1, None)):
+        if bwant[i] is None:
+            continue
+        g, w = bgot[i], bwant[i]
+        if part is not None:
+            g, w = g[..., part * c:(part + 1) * c], w[..., part * c:(part + 1)
+                                                       * c]
+        add(label, g, w, tol * w.float().abs().max().item())
+    return rows
+
+
+def tiled_launch_parity_phase(sets, gen, logits=()):
+    """K1's tiled attention launches alone against their plain versions
+    (``tiled_launch_compare``) on every K1 call of ``sets`` (seeded
+    parameters), and at each of ``logits`` on the first call of the first
+    set (bias 8 z + logit, the keys of the last, ragged key tile 12 higher,
+    as ``tiled_saturation_phase``). Logs one line per set; raises on any
+    output beyond its limit. Returns the worst ratio to the limit."""
+    import torch
+
+    worst, failed = 0.0, []
+    for label, calls in sets.items():
+        cases = [seeded_params("attn_half", a, gen) for n, a in calls
+                 if n == "attn_half"]
+        if logits and label == next(iter(sets)):
+            args = list(cases[0])
+            n = args[0].shape[1]
+            z = torch.randn(args[12], n, n, generator=gen).to(args[0].device)
+            for logit in logits:
+                bias = z * 8 + logit
+                bias[:, :, (n - 1) // KEY_TILE * KEY_TILE:] += 12.0
+                cases.append(tuple(args[:5] + [bias] + args[6:]))
+        ratio, bad, outputs = 0.0, 0, set()
+        for args in cases:
+            rows = tiled_launch_compare(args, *tiled_launch_inputs(args, gen))
+            ratio = max([ratio] + [_ratio(e, lim) for _, e, lim, _ in rows])
+            bad += sum(not ok for *_, ok in rows)
+            outputs |= {name for name, *_ in rows}
+        log(f"parity tiled launches {label}: {len(cases)} calls, "
+            f"{'/'.join(sorted(outputs))} worst {ratio:.3f} of the limit "
+            f"{'ok' if not bad else 'FAIL in %d' % bad}")
+        worst = max(worst, ratio)
+        if bad:
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"the tiled attention launches on {failed}")
+    return worst
+
+
 def vit_parity_phase(sets, gen, table=None, cases=VIT_CASES):
     """K1 (its tiled body) and K2 on every recorded ViT call of ``sets``:
     forward at lam 0 and 1, every gradient at lam 0 and 1, against the
@@ -1895,10 +2032,13 @@ def tiled_launch_times(calls, card):
     b_args = [(*a[:8], a[10], torch.randn(a[0].shape, device=a[0].device).to(
         a[0].dtype), *a[11:13]) for a in k1]
     with torch.no_grad():
+        kept = [k1_kept(a) for a in k1]
         fwd_k = device_kernel_ms(lambda: [sbk.attn_half(*a) for a in k1],
                                  "vit_k1f")
         bwd_k = device_kernel_ms(
-            lambda: [sbk.attn_half_backward(*a) for a in b_args], "vit_k1b")
+            lambda: [sbk.attn_half_backward(*a, **kk)
+                     for a, kk in zip(b_args, kept)], "vit_k1b")
+    del kept
     fwd = sum(v for n, v in fwd_k.items() if "attention_tiled" in n)
     phase_a = sum(v for n, v in bwd_k.items() if "attention_bwd_rows" in n)
     phase_b = sum(v for n, v in bwd_k.items() if "attention_bwd_keys" in n)
@@ -1915,12 +2055,68 @@ def tiled_launch_times(calls, card):
         lib_bwd += cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
                                                        retain_graph=True))
         del parts, q, k, v, leaves, out, g
+    # the attention alone: 4 N^2 d per (window, head) forward, five
+    # products (s, dp, dv, dq, dk) backward, over the bf16 peak
+    work = sum(a[0].shape[0] * a[0].shape[1] ** 2 * a[0].shape[2] for a in k1)
+    bound_f, bound_b = (k * work / PEAK_FLOPS["bfloat16"] * 1e3
+                        for k in (4, 10))
     log(f"[{card}] vit attention launches alone, per micro-batch of "
         f"{VIT_MICRO} ({len(k1)} calls): tiled forward {fwd:.3f} ms, tiled "
         f"backward {phase_a + phase_b:.3f} ms (phase A {phase_a:.3f}, phase "
         f"B {phase_b:.3f}); F.scaled_dot_product_attention on the same q, "
-        f"k, v {shape} bf16 {lib:.3f} ms, its backward {lib_bwd:.3f} ms")
+        f"k, v {shape} bf16 {lib:.3f} ms, its backward {lib_bwd:.3f} ms; "
+        f"bound (the attention alone at {PEAK_FLOPS['bfloat16'] / 1e12:g} "
+        f"TFLOP/s) forward {bound_f:.3f} ms, backward {bound_b:.3f} ms; "
+        f"tiled / SDPA forward {fwd / lib:.2f}x, backward "
+        f"{(phase_a + phase_b) / lib_bwd:.2f}x")
     return fwd, phase_a + phase_b, lib, lib_bwd
+
+
+def forced_tiled_times(calls, card):
+    """K1f and K1b, whole and their attention launches alone (profiler),
+    on Swin's stage-1 K1 calls of ``calls`` (the calls with the most
+    windows: N = 252, d = 32, bias and region ids), with the key-tiled body
+    forced beside the whole-window body that they take: a finding for
+    K1's routing, which this does not change. Logs one line; returns
+    {label: ms per micro-batch}."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    k1 = [a for name, a in calls if name == "attn_half"]
+    most = max(a[0].shape[0] for a in k1)
+    k1 = [a for a in k1 if a[0].shape[0] == most]
+    b_args = [(*a[:8], a[10], torch.randn(a[0].shape, device=a[0].device).to(
+        a[0].dtype), *a[11:13]) for a in k1]
+    out = collections.Counter()
+    with torch.no_grad():
+        for forced in (False, True):
+            key = "tiled" if forced else "whole-window"
+            kept = [{} if not forced else
+                    k1_kept(a, force_tiled=True) for a in k1]
+            fwd = lambda: [sbk.attn_half(*a, _force_tiled=forced) for a in k1]
+            bwd = lambda: [sbk.attn_half_backward(*a, _force_tiled=forced,
+                                                  **kk)
+                           for a, kk in zip(b_args, kept)]
+            out[f"K1f {key}"] = cuda_ms(fwd)
+            out[f"K1b {key}"] = cuda_ms(bwd)
+            for label, fn, names in (
+                    ("forward", fwd, ("attention_tiled",) if forced
+                     else ("window_attention_kernel",)),
+                    ("backward", bwd, ("attention_bwd_rows",
+                                       "attention_bwd_keys") if forced
+                     else ("window_attention_bwd_kernel",))):
+                ms = device_kernel_ms(fn, f"swin_stage1_{key}_{label}")
+                out[f"{label} attention {key}"] = sum(
+                    v for n, v in ms.items() if any(s in n for s in names))
+            del kept
+    log(f"[{card}] swin stage-1 K1 calls ({len(k1)} of x "
+        f"{tuple(k1[0][0].shape)} {k1[0][0].dtype}), ms per micro-batch, "
+        f"whole-window / key-tiled forced: " + ", ".join(
+            f"{what} {out[what + ' whole-window']:.3f} / "
+            f"{out[what + ' tiled']:.3f}"
+            for what in ("K1f", "K1b", "forward attention",
+                         "backward attention")))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1939,13 +2135,13 @@ def seeded_gamma(x, gen):
 def mode_name(name, args, mode):
     """The launch counter of block kernel ``name`` (or its backward, with
     ``_bwd`` in ``name``) on ``args`` in residual ``mode`` (a suffix of
-    RESIDUAL_MODES): its attention body, then the mode."""
+    RESIDUAL_MODES): its attention body (the same in both directions of a
+    call: the tiled one wherever K1b takes it), then the mode."""
     from vsn_tpu_torch.ops.swin_block_kernels import attention_tiled
 
     if name.startswith("attn_half"):
         x, heads = args[0], args[12]
-        bwd = name.endswith("_bwd")
-        if attention_tiled(x.shape[1], x.shape[-1] // heads, backward=bwd):
+        if attention_tiled(x.shape[1], x.shape[-1] // heads, backward=True):
             name = TILED_NAME[name]
     return name + mode
 
@@ -2028,9 +2224,9 @@ def mode_times(calls, mode):
     """Per-kernel (ms, plain ms) in residual ``mode`` summed over the K1/K2
     calls of ``calls`` (one micro-batch's) and their backward, on the
     recorded arguments with gamma = 0.5 (the timing does not read its
-    values) and one cotangent, under the mode's launch counters. K1b's
-    post-norm backward reads K1f's ao of the call, made before the timing
-    (the plain backward recomputes it, as the TPU kernel does)."""
+    values) and one cotangent, under the mode's launch counters. K1b reads
+    what K1f kept of the call (``k1_kept``), made before the timing (the
+    plain backward recomputes it, as the TPU kernel does)."""
     import torch
     from vsn_tpu_torch.ops import swin_block_kernels as sbk
 
@@ -2055,9 +2251,7 @@ def mode_times(calls, mode):
             if name == "attn_half":
                 b_args = (*args[:8], args[10], g, *args[11:13])
                 bkw = dict(kw, proj_b=args[8])
-                kbkw = dict(bkw)
-                if post and x.is_cuda:  # K1b reads K1f's ao of the call
-                    kbkw["ao"] = sbk._attn_half_kernel(*args, 1.0, **kw)[1]
+                kbkw = dict(bkw, **k1_kept(args, **kw))
                 bwd, plain_bwd = (sbk.attn_half_backward,
                                   sbk.attn_half_backward_reference)
             else:
@@ -2394,6 +2588,8 @@ def main() -> int:
     sat = tiled_saturation_phase(vit_sets["ViT float32 B=2"], vgen)
     for name, err in zip(TILED_NAME.values(), sat):
         vit_worst[name] = max(vit_worst[name], err)
+    tiled_launch_parity_phase(vit_sets, torch.Generator().manual_seed(
+        SEED + 20), TILED_LOGITS)
     # 3a. the same calls in K1/K2's residual modes -------------------------
     mode_worst = residual_parity_phase(vit_sets, vgen)   # merged in phase 20
     vit_calls = vit_sets.pop(vit_label)  # timed in phase 16
@@ -2493,11 +2689,14 @@ def main() -> int:
     eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 11
 
     # 7. the tiled body forced onto Swin's calls ---------------------------
-    fworst = forced_tiled_phase(
-        {f"forced tiled, Swin {label}": forced_tiled_calls(calls)
-         for label, calls in (("float32 B=2", sets["float32 B=2"]),
-                              (f"bfloat16 B={BATCH}", eval_calls))},
-        torch.Generator().manual_seed(SEED + 17))
+    forced_sets = {f"forced tiled, Swin {label}": forced_tiled_calls(calls)
+                   for label, calls in (("float32 B=2", sets["float32 B=2"]),
+                                        (f"bfloat16 B={BATCH}", eval_calls))}
+    fworst = forced_tiled_phase(forced_sets,
+                                torch.Generator().manual_seed(SEED + 17))
+    tiled_launch_parity_phase(forced_sets,
+                              torch.Generator().manual_seed(SEED + 19))
+    del forced_sets
     for name, err in fworst.items():
         vit_worst[name] = max(vit_worst[name], err)
 
@@ -2646,6 +2845,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 17. Swin kernel timings at the training shapes ----------------------
+    forced_tiled_times(train_calls, card)
     ms, plain_ms = kernel_times(train_calls + k4_calls)
     bounds = {name: bound_ms(name, train_calls + k4_calls) for name in KERNELS
               if name not in STEM and name not in V_PER_CALL

@@ -269,3 +269,76 @@ def test_tiled_launch_times_plumbing_on_cpu(vit_sets, monkeypatch):
     got = chip_smoke.tiled_launch_times(vit_sets["bfloat16 B=2"], "cpu")
     assert got == (1.0, 5.0, 1.0, 1.0)   # 2 K1 calls of 0.5 ms each
     assert seen == ["vit_k1f", "vit_k1b"]
+
+
+def _unclamped_statistics(qkv, bias, ids, scale, heads):
+    """The tiled forward launch whose row statistics take the plain row max
+    for the shift, not max(rowmax, 0)."""
+    ao, _, o = sbk.attention_tiled_reference(qkv, bias, ids, scale, heads)
+    bw, n, _ = qkv.shape
+    q, k, _ = qkv.float().reshape(bw, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    s = sbk._scores(q, k, bias, ids, scale)
+    m = s.amax(-1, keepdim=True)
+    r = 1.0 / (torch.exp(s - m).sum(-1, keepdim=True) + 1e-30)
+    return ao, torch.cat([m, r], -1), o
+
+
+def _s1_dropped(qkv, dao, o, stats, bias, ids, scale, heads):
+    """The tiled backward launch with s1 = dO . o taken as 0."""
+    return sbk.attention_tiled_backward_reference(
+        qkv, dao, torch.zeros_like(o), stats, bias, ids, scale, heads)
+
+
+def test_tiled_launch_parity_phase_on_cpu(vit_sets, monkeypatch):
+    """The launch-level phase on the CPU, where the launches run their
+    plain versions: every output of every call, and of the saturated
+    logits added to the first set, within its limit; a launch whose
+    statistics drop the clamp at 0 (seen at logits -200) or whose backward
+    drops s1 fails it."""
+    sets = {k: vit_sets[k] for k in ("float32 B=2", "bfloat16 B=2")}
+    gen = lambda: torch.Generator().manual_seed(6)
+    assert chip_smoke.tiled_launch_parity_phase(
+        sets, gen(), chip_smoke.TILED_LOGITS) == 0.0
+    for name, mutant in (("attention_tiled_launch", _unclamped_statistics),
+                         ("attention_tiled_backward_launch", _s1_dropped)):
+        with monkeypatch.context() as m:
+            m.setattr(sbk, name, mutant)
+            with pytest.raises(AssertionError, match="tiled attention"):
+                chip_smoke.tiled_launch_parity_phase(sets, gen(),
+                                                     chip_smoke.TILED_LOGITS)
+
+
+def test_forced_tiled_times_plumbing_on_cpu(monkeypatch):
+    """The forced-tiled timing on Swin's stage-1 calls on the CPU, clocks
+    replaced: both bodies' K1f and K1b run on the calls with the most
+    windows, the attention kernels are picked out of the profiler's names,
+    and K1b gets nothing kept from K1f here (the plain backward)."""
+    import collections
+
+    from tests.test_torch_chip_smoke import _record
+
+    calls = _record("float32", False)
+    seen = []
+
+    def kernels_ms(fn, label, reps=3):
+        fn()
+        seen.append(label)
+        return collections.Counter({
+            "window_attention_kernel<float>": 1.0,
+            "window_attention_bwd_kernel<float>": 2.0,
+            "attention_tiled_mma_kernel<float, 32>": 3.0,
+            "attention_bwd_rows_mma_kernel<float, 32>": 4.0,
+            "attention_bwd_keys_mma_kernel<float, 32>": 5.0,
+            "gemm_kernel": 9.0})
+
+    monkeypatch.setattr(chip_smoke, "device_kernel_ms", kernels_ms)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=3: (
+        fn(), 0.5)[1])
+    out = chip_smoke.forced_tiled_times(calls, "cpu")
+    assert out["forward attention whole-window"] == 1.0
+    assert out["backward attention whole-window"] == 2.0
+    assert out["forward attention tiled"] == 3.0
+    assert out["backward attention tiled"] == 9.0
+    assert out["K1f tiled"] == out["K1b whole-window"] == 0.5
+    assert len(seen) == 4
+    assert chip_smoke.k1_kept(calls[0][1]) == {}

@@ -277,11 +277,16 @@ def test_attn_half_tiled_matches_plain(dev, dtype, b, n, heads, lam):
 def test_attn_half_forced_tiled_on_swin_calls(dev, dtype, dims, window,
                                               shift, heads, c, ids_kind):
     """The tiled body forced onto Swin's calls (relative-position bias,
-    shifted and padded region ids, qkv bias, head dims 32 and 8)."""
+    shifted and padded region ids, qkv bias, head dim 32); a head dim of 8
+    (not a multiple of the body's 16) raises."""
     args = _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
     dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
         2)).to(dev, dtype)
     tiled = lambda *a, lam=1.0: sbk.attn_half(*a, lam=lam, _force_tiled=True)
+    if (c // heads) % 16:
+        with pytest.raises(ValueError, match="multiples of 16"):
+            tiled(*args)
+        return
     before = _build.launches["attn_half_bwd_tiled"]
     out, got = _tiled_case(tiled, args, 1.0, dout, ATTN_DIFF)
     torch.cuda.synchronize()
@@ -290,6 +295,46 @@ def test_attn_half_forced_tiled_on_swin_calls(dev, dtype, dims, window,
                                  ATTN_DIFF)
     _close(out, want_out, dtype)
     _close_grads(got, want, dtype)
+
+
+# (BW, N, heads, head dim, bias, ids): ViT's call; a ragged tile, bias and
+# ids at Swin's head dim; the other head dims the body takes (48: channels
+# past d staged as zeros; 128)
+LAUNCH_SHAPES = [(2, 811, 6, 64, False, False), (4, 252, 3, 32, True, True),
+                 (4, 37, 3, 32, True, True), (2, 150, 2, 128, True, False),
+                 (2, 100, 2, 48, False, False), (2, 100, 2, 16, False, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bw,n,heads,hd,bias,ids", LAUNCH_SHAPES)
+def test_tiled_launches_match_plain(dev, dtype, bw, n, heads, hd, bias, ids):
+    """K1's tiled attention launches alone against their plain versions
+    (chip_smoke.tiled_launch_compare): ao, o, the row statistics, dq, dk,
+    dv, dbqkv and dbias; one count of each launch."""
+    g = torch.Generator().manual_seed(n)
+    c = heads * hd
+    x = torch.randn(bw, n, c, generator=g).to(dev, dtype)
+    args = [x, None, None, None, None,
+            torch.randn(heads, n, n, generator=g).to(dev) if bias else None,
+            torch.randint(0, 3, (2, n), generator=g, dtype=torch.int32).to(
+                dev) if ids else None,
+            None, None, None, None, hd ** -0.5, heads]
+    qkv = torch.randn(bw, n, 3 * c, generator=g).to(dev, dtype)
+    dao = torch.randn(bw, n, c, generator=g).to(dev, dtype)
+    before = dict(_build.launches)
+    rows = chip_smoke.tiled_launch_compare(args, qkv, dao)
+    torch.cuda.synchronize()
+    assert all(ok for *_, ok in rows), rows
+    assert {r[0] for r in rows} >= {"ao", "o", "stats", "dq", "dk", "dv",
+                                    "dbqkv"} | ({"dbias"} if bias else set())
+    for name in ("attention_tiled_launch", "attention_tiled_bwd_launch"):
+        assert _build.launches[name] == before.get(name, 0) + 1, name
+
+
+def test_tiled_launch_rejects_head_dims_off_the_mma_depth(dev):
+    qkv = torch.zeros(2, 16, 3 * 2 * 24, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        sbk.attention_tiled_launch(qkv, None, None, 0.2, 2)
 
 
 @pytest.mark.parametrize("logit", [45.0, 200.0, -200.0])
@@ -706,23 +751,24 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
 # its mutant)
 _CSRC = Path(__file__).resolve().parent.parent / "vsn_tpu_torch" / "csrc"
 TILED_SOURCE_MUTANTS = {
-    "K1f: the ragged last key tile left out": (
-        "attn_half.cu", "const int nk = min(kTileK, n - k0);",
-        "const int nk = n - k0 < kTileK ? 0 : kTileK;"),
+    "K1f: the ragged tile's missing keys scored 0, not -inf": (
+        "attn_tiled.cuh", "s[nt][e] = s[nt][2 + e] = -INFINITY;",
+        "s[nt][e] = s[nt][2 + e] = 0.f;"),
     "K1f: the max(rowmax, 0) clamp dropped": (
-        "attn_half.cu", "m[r] = 0.f;", "m[r] = -INFINITY;"),
-    "K1f: no rescale when the running max grows": (
-        "attn_half.cu",
-        "for (int ch = 0; ch < CH; ++ch) o[r][ch] *= alpha;",
-        "for (int ch = 0; ch < CH; ++ch) o[r][ch] *= 1.f;"),
-    "K1b phase A: the running sum not rescaled": (
-        "attn_half_bwd.cu",
-        "rinv[r] = rinv[r] * expf(shift[r] - mn) + warp_sum(part);",
-        "rinv[r] = rinv[r] + warp_sum(part);"),
-    "K1b phase B: rowsum(p * dp) dropped from ds": (
-        "attn_half_bwd.cu",
-        "dsv = __fsub_rn(__fmul_rn(p, dp), __fmul_rn(st[2], p));",
-        "dsv = __fmul_rn(p, dp);"),
+        "attn_tiled.cuh", "float m0 = 0.f, m1 = 0.f;",
+        "float m0 = -INFINITY, m1 = -INFINITY;"),
+    "K1f: no rescale of l and O when the running max grows": (
+        "attn_tiled.cuh",
+        "const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);",
+        "const float alpha0 = 1.f, alpha1 = 1.f;"),
+    "K1f: the running sum not rescaled": (
+        "attn_tiled.cuh", "l0 = l0 * alpha0 + part0;", "l0 = l0 + part0;"),
+    "K1b: s1 = rowsum(p * dp) dropped from ds": (
+        "attn_tiled.cuh",
+        "return __fsub_rn(__fmul_rn(p, dp), __fmul_rn(s1, p));",
+        "return __fmul_rn(p, dp);"),
+    "K1b phase B: p not scaled by the kept 1 / sum": (
+        "attn_tiled.cuh", "sti[0], sti[1]);", "sti[0], 1.f);"),
 }
 TILED_FAILURES = ("kernels disagree with their plain versions",
                   "tiled K1 at logits")

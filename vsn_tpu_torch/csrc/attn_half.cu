@@ -26,9 +26,9 @@
 // Launch 2 has two bodies, chosen by shape in the caller: the one above
 // (Swin: d <= 32, K and V of a window fit in shared memory), and a key-tiled
 // one for everything else (ViT, vsn_tpu/models/vit3d.py _fused_attn_half:
-// one window of N = 811 tokens per sample at d = 64), one block per (window,
-// head, query tile) with K and V streamed through shared memory and an online
-// row max and sum (``window_attention_tiled_kernel`` below).
+// one window of N = 811 tokens per sample at d = 64): the FlashAttention-2
+// form on bf16 mma.sync in attn_tiled.cuh, which also writes each row's
+// softmax statistics and (bf16) an f32 copy of the attention output for K1b.
 //
 // The residual modes (_attn_fwd_kernel :271-288) touch launches 1 and 3
 // only: with gamma (in-band LayerScale) launch 3's epilogue is ``lam * x +
@@ -39,10 +39,10 @@
 // whole rows. The attention launch is the same in every mode; under
 // post_norm K1b's backward reads the ao it leaves in ao_buf.
 //
-// Arithmetic is FMA with f32 accumulation on operands rounded to the
-// activation type. The qkv and ao intermediates round-trip through device
-// memory; fusing them away (and moving the products onto wgmma) is later
-// performance work.
+// Arithmetic outside the key-tiled body is FMA with f32 accumulation on
+// operands rounded to the activation type. The qkv and ao intermediates
+// round-trip through device memory; fusing them away (and moving the GEMMs
+// onto the tensor cores) is later performance work.
 //
 // Softmax semantics (swin_block_kernels.py:210-221): the shift is
 // max(rowmax, 0), not the plain rowmax; the row sum gets +1e-30, so a fully
@@ -59,6 +59,7 @@
 // own: ``vsn_probe_attn_half`` below. K1f is the default instantiation
 // (SM_K1, packed qkv, one window per block).
 
+#include "attn_tiled.cuh"
 #include "common.cuh"
 
 namespace {
@@ -203,207 +204,13 @@ cudaError_t launch_attention(const T* qkv, const float* bias, const int* ids,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// The key-tiled attention launch: launch 2 for a head dim above 32 or a
-// window whose K and V do not fit in shared memory whole (ViT: one window of
-// N = 811 tokens per sample at d = 64, 418 KB of K and V as f32).
-//
-// One block per (window, head, tile of kTileQ query rows): the grid has
-// ceil(N / kTileQ) times the blocks of the untiled launch (ViT at micro-batch
-// 24: 24 x 6 x 13 = 1872 blocks for 132 SMs). K and V stream through shared
-// memory in tiles of kTileK keys as f32; each warp takes kTileQ / kTiledWarps
-// query rows and keeps, per row, a running shift m, a running sum l and the
-// unnormalized output (CH channels a lane, d <= 32 * CH) in registers:
-//
-//   m' = max(m, max_j s_j)   (m starts at 0: the shift is max(rowmax, 0))
-//   e_j = exp(s_j - m'),  l = l * exp(m - m') + sum_j e_j,
-//   o = o * exp(m - m') + sum_j round_T(e_j) v_j
-//
-// and ao = o / (l + 1e-30) after the last tile. The last tile is ragged
-// (811 = 12 x 64 + 43): its missing keys stage as zeros and are left out of
-// the max, the sum and the product.
-//
-// Rounding: e_j is rounded to T against the running shift, not the row's
-// final one, so a tile whose max is later overtaken contributes
-// round(exp(s - m)) exp(m - m_final) where the TPU kernel forms
-// round(exp(s - m_final)): the same value up to one rounding of e in T
-// (2^-9 relative in bf16; f32 rounding alone in f32). The scores (one key
-// a lane, kTileK / 32 keys a lane) and the product (one output channel a
-// lane) are plain FMA loops over shared memory, each a separate step over
-// the staged tiles, where a later redesign puts bf16 mma.sync.
-// ---------------------------------------------------------------------------
-
-constexpr int kTileQ = 64;
-constexpr int kTileK = 64;
-constexpr int kTiledWarps = 8;
-constexpr int kRowsPerWarp = kTileQ / kTiledWarps;
-constexpr int kKeysPerLane = kTileK / 32;
-
-template <typename T, int CH>
-__global__ void __launch_bounds__(kTiledWarps * 32) window_attention_tiled_kernel(
-    const T* __restrict__ qkv, const float* __restrict__ bias,
-    const int* __restrict__ ids, int ids_rows, T* __restrict__ ao, int n, int c,
-    int heads, float scale) {
-  extern __shared__ float smem[];
-  const int d = c / heads, dp1 = d + 1;
-  float* qs = smem;                  // [kTileQ][d]      the block's queries
-  float* ks = qs + kTileQ * d;       // [kTileK][d + 1]  (padded: no bank conflicts)
-  float* vs = ks + kTileK * dp1;     // [kTileK][d]
-  float* us = vs + kTileK * d;       // [warps][kTileK]  one row's rounded e
-  int* idq = reinterpret_cast<int*>(us + kTiledWarps * kTileK);  // [kTileQ]
-  int* idk = idq + kTileQ;                                        // [kTileK]
-
-  const int qtiles = (n + kTileQ - 1) / kTileQ;
-  const int q0 = (blockIdx.x % qtiles) * kTileQ;
-  const int h = (blockIdx.x / qtiles) % heads;
-  const long long bw = blockIdx.x / qtiles / heads;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long base = bw * n;
-  const int c3 = 3 * c;
-  const int* id_row = ids ? ids + (bw % ids_rows) * n : nullptr;
-  const float* bias_h = bias ? bias + (long long)h * n * n : nullptr;
-
-  for (int e = tid; e < kTileQ * d; e += blockDim.x) {
-    const int i = q0 + e / d;
-    qs[e] = i < n ? to_f32(qkv[(base + i) * c3 + h * d + e % d]) : 0.f;
-  }
-  if (ids)
-    for (int i = tid; i < kTileQ; i += blockDim.x) idq[i] = q0 + i < n ? id_row[q0 + i] : 0;
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], o[kRowsPerWarp][CH];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = 0.f;
-    l[r] = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) o[r][ch] = 0.f;
-  }
-  float* u = us + warp * kTileK;
-
-  for (int k0 = 0; k0 < n; k0 += kTileK) {
-    const int nk = min(kTileK, n - k0);
-    __syncthreads();  // every warp is done with the last tile (and qs is staged)
-    for (int e = tid; e < kTileK * d; e += blockDim.x) {
-      const int j = e / d, cc = e % d;
-      const T* row = qkv + (base + k0 + j) * c3 + h * d + cc;
-      ks[j * dp1 + cc] = j < nk ? to_f32(row[c]) : 0.f;
-      vs[j * d + cc] = j < nk ? to_f32(row[2 * c]) : 0.f;
-    }
-    if (ids)
-      for (int j = tid; j < nk; j += blockDim.x) idk[j] = id_row[k0 + j];
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int il = warp + r * kTiledWarps;
-      const int i = q0 + il;
-      if (i >= n) continue;  // the same for the whole warp
-      const float* q = qs + il * d;
-      const int id_i = ids ? idq[il] : 0;
-      float s[kKeysPerLane];
-      float dot[kKeysPerLane];
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t) dot[t] = 0.f;
-      for (int cc = 0; cc < d; ++cc) {
-        const float qc = q[cc];
-#pragma unroll
-        for (int t = 0; t < kKeysPerLane; ++t)
-          dot[t] = fmaf(qc, ks[(lane + 32 * t) * dp1 + cc], dot[t]);
-      }
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t) {
-        const int j = lane + 32 * t;
-        s[t] = dot[t] * scale;
-        if (j >= nk) continue;  // the ragged tile's missing keys
-        if (ids) s[t] += (idk[j] != id_i) ? kNegInf : 0.f;
-        if (bias_h) s[t] += bias_h[(long long)i * n + k0 + j];
-        tmax = fmaxf(tmax, s[t]);
-      }
-      const float mn = fmaxf(m[r], warp_max(tmax));
-      const float alpha = expf(m[r] - mn);  // 1 exactly while the max holds
-      m[r] = mn;
-      float part = 0.f;
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t) {
-        const int j = lane + 32 * t;
-        const float e = j < nk ? expf(s[t] - mn) : 0.f;
-        part += e;
-        u[j] = round_to<T>(e);  // u.astype(cdt) before PV
-      }
-      l[r] = l[r] * alpha + warp_sum(part);
-      __syncwarp();
-#pragma unroll
-      for (int ch = 0; ch < CH; ++ch) o[r][ch] *= alpha;
-      for (int j = 0; j < nk; ++j) {
-        const float uj = u[j];
-#pragma unroll
-        for (int ch = 0; ch < CH; ++ch)
-          if (lane + 32 * ch < d) o[r][ch] = fmaf(uj, vs[j * d + lane + 32 * ch], o[r][ch]);
-      }
-      __syncwarp();
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = q0 + warp + r * kTiledWarps;
-    if (i >= n) continue;
-    const float rinv = 1.f / (l[r] + 1e-30f);
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int cc = lane + 32 * ch;
-      if (cc < d) ao[(base + i) * c + h * d + cc] = from_f32<T>(o[r][ch] * rinv);
-    }
-  }
-}
-
-size_t attention_tiled_smem_bytes(int d) {
-  return sizeof(float) * ((size_t)kTileQ * d + (size_t)kTileK * (d + 1) +
-                          (size_t)kTileK * d + (size_t)kTiledWarps * kTileK) +
-         sizeof(int) * (size_t)(kTileQ + kTileK);
-}
-
-template <typename T, int CH>
-cudaError_t launch_attention_tiled_ch(const T* qkv, const float* bias, const int* ids,
-                                      int ids_rows, T* ao, long long bw, int n, int c,
-                                      int heads, float scale, cudaStream_t stream) {
-  auto kernel = window_attention_tiled_kernel<T, CH>;
-  const size_t smem = attention_tiled_smem_bytes(c / heads);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = bw * heads * ((n + kTileQ - 1) / kTileQ);
-  kernel<<<(unsigned)blocks, kTiledWarps * 32, smem, stream>>>(qkv, bias, ids, ids_rows,
-                                                               ao, n, c, heads, scale);
-  return cudaGetLastError();
-}
-
-// Head dims up to 32 * CH, CH in {1, 2, 4}: d <= 128.
-template <typename T>
-cudaError_t launch_attention_tiled(const T* qkv, const float* bias, const int* ids,
-                                   int ids_rows, T* ao, long long bw, int n, int c,
-                                   int heads, float scale, cudaStream_t stream) {
-  const int d = c / heads;
-  if (d <= 32)
-    return launch_attention_tiled_ch<T, 1>(qkv, bias, ids, ids_rows, ao, bw, n, c, heads,
-                                           scale, stream);
-  if (d <= 64)
-    return launch_attention_tiled_ch<T, 2>(qkv, bias, ids, ids_rows, ao, bw, n, c, heads,
-                                           scale, stream);
-  if (d <= 128)
-    return launch_attention_tiled_ch<T, 4>(qkv, bias, ids, ids_rows, ao, bw, n, c, heads,
-                                           scale, stream);
-  return cudaErrorInvalidValue;
-}
-
 template <typename T>
 int attn_half_fwd(int tiled, const T* x, const float* ln_w, const float* ln_b,
                   const float* qkv_w, const float* qkv_b, const float* bias,
                   const int* ids, int ids_rows, const float* proj_w,
                   const float* proj_b, const float* gains, const float* gamma,
-                  int post_norm, T* qkv_buf, T* ao_buf, float* branch32, T* out,
-                  long long bw, int n, int c, int heads, long long rows_per_sample,
+                  int post_norm, T* qkv_buf, T* ao_buf, float* o32, float* row_stats,
+                  float* branch32, T* out, long long bw, int n, int c, int heads, long long rows_per_sample,
                   float scale, float lam, cudaStream_t stream) {
   const long long rows = bw * n;
 
@@ -420,8 +227,8 @@ int attn_half_fwd(int tiled, const T* x, const float* ln_w, const float* ln_b,
   cudaError_t err = launch_gemm<T, EPI_BIAS>(g1, stream);
   if (err != cudaSuccess) return (int)err;
 
-  err = tiled ? launch_attention_tiled<T>(qkv_buf, bias, ids, ids_rows, ao_buf, bw, n, c,
-                                          heads, scale, stream)
+  err = tiled ? launch_attention_tiled<T>(qkv_buf, bias, ids, ids_rows, ao_buf, o32,
+                                          row_stats, bw, n, c, heads, scale, stream)
               : launch_attention<T, SM_K1, false, T>(qkv_buf, bias, ids, ids_rows, ao_buf,
                                                      bw, n, c, heads, scale, 1, nullptr,
                                                      nullptr, stream);
@@ -531,9 +338,13 @@ int probe_attn_half(int variant, int wb, const TX* x, const float* wqkv,
 // Returns cudaGetLastError() of the first launch that failed, else 0.
 // is_bf16 selects bf16 activations (else f32); parameters are f32.
 // bias and ids may be null (no relative-position bias / no region mask).
-// tiled selects the key-tiled attention launch (head dims up to 128, any N)
-// over the whole-window one (head dims up to 32, K and V of a window in
-// shared memory); the caller chooses by shape. gamma [C] (in-band
+// tiled selects the key-tiled attention launch (head dims that are
+// multiples of 16 up to 128, any N) over the whole-window one (head dims up
+// to 32, K and V of a window in shared memory); the caller chooses by shape.
+// The tiled launch also writes row_stats [BW, H, N, 2] f32 (each row's
+// softmax shift and 1 / (sum + 1e-30)) and, with bf16 activations, o32
+// [BW*N, C], the attention output in f32 (null for f32 activations, whose
+// ao_buf is f32): K1b's inputs beside ao_buf. gamma [C] (in-band
 // LayerScale) may be null; post_norm moves LN1 onto the branch and needs
 // branch32, an f32 [BW*N, C] scratch (else null).
 extern "C" int vsn_attn_half_fwd(int tiled, int is_bf16, const void* x, const float* ln_w,
@@ -542,23 +353,39 @@ extern "C" int vsn_attn_half_fwd(int tiled, int is_bf16, const void* x, const fl
                                  const int* ids, int ids_rows,
                                  const float* proj_w, const float* proj_b,
                                  const float* gains, const float* gamma, int post_norm,
-                                 void* qkv_buf, void* ao_buf, float* branch32,
-                                 void* out, long long bw, int n, int c, int heads,
-                                 long long rows_per_sample, float scale,
+                                 void* qkv_buf, void* ao_buf, float* o32, float* row_stats,
+                                 float* branch32, void* out, long long bw, int n, int c,
+                                 int heads, long long rows_per_sample, float scale,
                                  float lam, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return attn_half_fwd<__nv_bfloat16>(
         tiled, static_cast<const __nv_bfloat16*>(x), ln_w, ln_b, qkv_w, qkv_b, bias, ids,
         ids_rows, proj_w, proj_b, gains, gamma, post_norm,
-        static_cast<__nv_bfloat16*>(qkv_buf), static_cast<__nv_bfloat16*>(ao_buf),
-        branch32, static_cast<__nv_bfloat16*>(out), bw, n, c, heads, rows_per_sample,
-        scale, lam, s);
+        static_cast<__nv_bfloat16*>(qkv_buf), static_cast<__nv_bfloat16*>(ao_buf), o32,
+        row_stats, branch32, static_cast<__nv_bfloat16*>(out), bw, n, c, heads,
+        rows_per_sample, scale, lam, s);
   return attn_half_fwd<float>(tiled, static_cast<const float*>(x), ln_w, ln_b, qkv_w, qkv_b,
                               bias, ids, ids_rows, proj_w, proj_b, gains, gamma, post_norm,
                               static_cast<float*>(qkv_buf), static_cast<float*>(ao_buf),
-                              branch32, static_cast<float*>(out), bw, n, c, heads,
-                              rows_per_sample, scale, lam, s);
+                              nullptr, row_stats, branch32, static_cast<float*>(out), bw, n,
+                              c, heads, rows_per_sample, scale, lam, s);
+}
+
+// K1f's key-tiled attention launch alone (the attention of ``tiled`` above):
+// qkv [BW*N, 3C] -> ao [BW*N, C], o32 and row_stats as there.
+extern "C" int vsn_attention_tiled_fwd(int is_bf16, const void* qkv, const float* bias,
+                                       const int* ids, int ids_rows, void* ao, float* o32,
+                                       float* row_stats, long long bw, int n, int c,
+                                       int heads, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)launch_attention_tiled<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(qkv), bias, ids, ids_rows,
+        static_cast<__nv_bfloat16*>(ao), o32, row_stats, bw, n, c, heads, scale, s);
+  return (int)launch_attention_tiled<float>(static_cast<const float*>(qkv), bias, ids,
+                                            ids_rows, static_cast<float*>(ao), nullptr,
+                                            row_stats, bw, n, c, heads, scale, s);
 }
 
 // The attention probes P1 / P5 (``probe_attn_half``). is_bf16 selects bf16 x

@@ -17,8 +17,10 @@
 //   4. attention backward, one block per (window, head), below; it also
 //      recomputes the attention output ao, which dWproj needs. Where d > 32
 //      or the window's Q, K, V and dO do not fit in shared memory whole
-//      (ViT), the caller takes the key-tiled form instead: two launches,
-//      phase A over query tiles and phase B over key tiles (further below);
+//      (ViT), the caller takes the key-tiled form instead (attn_tiled.cuh):
+//      two launches, phase A over query tiles and phase B over key tiles,
+//      which read K1f's ao, row statistics and f32 o of the call (kept by
+//      the caller) and recompute none of the forward's softmax;
 //   5. dWproj = do^T @ ao (split-K weight-gradient GEMM), 6. dbproj = sum do;
 //   7. dWqkv = dqkv^T @ y (split-K), 8. dy = dqkv @ Wqkv (GEMM, f32 out);
 //   9. LN1 backward + residual: dx = T(lam * do_res + LN_bwd(dy)), dLN1.
@@ -66,6 +68,7 @@
 // A's bit for bit. Rounding follows the TPU kernel: p and ds are rounded to
 // T as product operands, dbias and the bias gradients take them unrounded.
 
+#include "attn_tiled.cuh"
 #include "common.cuh"
 
 namespace {
@@ -240,423 +243,18 @@ size_t attention_bwd_smem_bytes(int n, int d) {
          sizeof(int) * (size_t)n;
 }
 
-// ---------------------------------------------------------------------------
-// The key-tiled attention backward: launch 4 for a head dim above 32 or a
-// window whose Q, K, V and dO do not fit in shared memory whole (ViT: N =
-// 811, d = 64, 843 KB as f32), as two launches.
-//
-// Phase A, one block per (window, head, tile of kTileQ query rows), streams
-// K and V through shared memory in tiles of kTileK keys, three times; each
-// warp takes kTileQ / kTiledWarps query rows and keeps their statistics
-// and sums in registers:
-//   1. the row shift m = max(rowmax, 0) and sum l, online (l is rescaled by
-//      exp(m_old - m_new) when the max grows), then 1 / (l + 1e-30);
-//   2. p = exp(s - m) / l, dp = dO v^T, s1 = rowsum(p * dp), and ao = (sum
-//      round(exp(s - m)) v) / l, as K1f forms it (dWproj needs ao);
-//   3. ds = p * dp - s1 * p, dbias += ds (f32 atomics), dq = scale ds K.
-// It writes (m, 1 / l, s1) of every row to ``stats`` [BW, H, N, 3].
-// s1 is summed over the keys as the rowsum of the [N, N] product p * dp, in
-// the order the whole-window body sums it (keys j = lane, lane + 32, ...
-// per lane, then across the warp), not as dO . o.
-//
-// Phase B, one block per (window, head, tile of kTileK key rows), streams Q
-// and dO (and the rows' statistics) in tiles of kTileQ query rows; each warp
-// takes kTileK / kTiledWarps key rows and recomputes p and ds of its key
-// rows against every query row from the statistics, for dk = scale ds^T Q
-// and dv = p^T dO, so no dk or dv sum needs atomics. Both phases form s, p
-// and ds with ``score`` and the same round-to-nearest operations, and every
-// dot product as one FMA chain over the channels in order, so phase B's p
-// and ds equal phase A's bit for bit.
-// ---------------------------------------------------------------------------
-
-constexpr int kTileQ = 64;
-constexpr int kTileK = 64;
-constexpr int kTiledWarps = 8;
-constexpr int kRowsPerWarp = kTileQ / kTiledWarps;
-constexpr int kKeysPerWarp = kTileK / kTiledWarps;
-constexpr int kKeysPerLane = kTileK / 32;
-constexpr int kQueriesPerLane = kTileQ / 32;
-
-template <typename T, int CH>
-__global__ void __launch_bounds__(kTiledWarps * 32) attention_bwd_rows_kernel(
-    const T* __restrict__ qkv, const T* __restrict__ dao,
-    const float* __restrict__ bias, const int* __restrict__ ids, int ids_rows,
-    T* __restrict__ ao, T* __restrict__ dqkv, float* __restrict__ dbias,
-    float* __restrict__ dbqkv, float* __restrict__ stats, int n, int c, int heads,
-    float scale) {
-  extern __shared__ float smem[];
-  const int d = c / heads, dp1 = d + 1;
-  float* qs = smem;                  // [kTileQ][d]      queries of the block
-  float* dos = qs + kTileQ * d;      // [kTileQ][d]      their dO
-  float* ks = dos + kTileQ * d;      // [kTileK][d + 1]  (padded: no bank conflicts)
-  float* vs = ks + kTileK * dp1;     // [kTileK][d + 1]
-  float* bufs = vs + kTileK * dp1;   // [warps][2][kTileK]
-  int* idq = reinterpret_cast<int*>(bufs + 2 * kTiledWarps * kTileK);  // [kTileQ]
-  int* idk = idq + kTileQ;                                              // [kTileK]
-
-  const int qtiles = (n + kTileQ - 1) / kTileQ;
-  const int q0 = (blockIdx.x % qtiles) * kTileQ;
-  const int h = (blockIdx.x / qtiles) % heads;
-  const long long bw = blockIdx.x / qtiles / heads;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long base = bw * n;
-  const int c3 = 3 * c;
-  const bool has_mask = ids != nullptr;
-  const int* id_row = has_mask ? ids + (bw % ids_rows) * n : nullptr;
-  const float* bias_h = bias ? bias + (long long)h * n * n : nullptr;
-
-  for (int e = tid; e < kTileQ * d; e += blockDim.x) {
-    const int i = q0 + e / d, cc = e % d;
-    qs[e] = i < n ? to_f32(qkv[(base + i) * c3 + h * d + cc]) : 0.f;
-    dos[e] = i < n ? to_f32(dao[(base + i) * c + h * d + cc]) : 0.f;
-  }
-  if (has_mask)
-    for (int i = tid; i < kTileQ; i += blockDim.x) idq[i] = q0 + i < n ? id_row[q0 + i] : 0;
-
-  float* u = bufs + warp * 2 * kTileK;  // pass 2: round(e); pass 3: round(ds)
-  float shift[kRowsPerWarp], rinv[kRowsPerWarp], s1[kRowsPerWarp];
-  float acc[kRowsPerWarp][CH];  // pass 2: ao; pass 3: dq
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    shift[r] = 0.f;  // max(rowmax, 0): the running max starts at 0
-    rinv[r] = 0.f;   // pass 1: the running sum
-    s1[r] = 0.f;     // per-lane partial sums until the end of pass 2
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) acc[r][ch] = 0.f;
-  }
-
-  for (int pass = 1; pass <= 3; ++pass) {
-    for (int k0 = 0; k0 < n; k0 += kTileK) {
-      const int nk = min(kTileK, n - k0);
-      __syncthreads();  // every warp is done with the last tile (and qs, dos are staged)
-      for (int e = tid; e < kTileK * d; e += blockDim.x) {
-        const int j = e / d, cc = e % d;
-        const T* row = qkv + (base + k0 + j) * c3 + h * d + cc;
-        ks[j * dp1 + cc] = j < nk ? to_f32(row[c]) : 0.f;
-        if (pass > 1) vs[j * dp1 + cc] = j < nk ? to_f32(row[2 * c]) : 0.f;
-      }
-      if (has_mask)
-        for (int j = tid; j < nk; j += blockDim.x) idk[j] = id_row[k0 + j];
-      __syncthreads();
-
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int il = warp + r * kTiledWarps;
-        const int i = q0 + il;
-        if (i >= n) continue;  // the same for the whole warp
-        const float* qi = qs + il * d;
-        const float* doi = dos + il * d;
-        const int id_i = has_mask ? idq[il] : 0;
-        float s[kKeysPerLane];
-        float tmax = -INFINITY;
-#pragma unroll
-        for (int t = 0; t < kKeysPerLane; ++t) {
-          const int j = lane + 32 * t;
-          const float* kr = ks + j * dp1;
-          float dot = 0.f;
-          for (int cc = 0; cc < d; ++cc) dot = fmaf(qi[cc], kr[cc], dot);
-          s[t] = score(dot, scale, has_mask && j < nk && idk[j] != id_i, has_mask,
-                       bias_h && j < nk ? bias_h + (long long)i * n + k0 + j : nullptr);
-          if (j < nk) tmax = fmaxf(tmax, s[t]);
-        }
-        if (pass == 1) {  // online shift and sum
-          const float mn = fmaxf(shift[r], warp_max(tmax));
-          float part = 0.f;
-#pragma unroll
-          for (int t = 0; t < kKeysPerLane; ++t)
-            if (lane + 32 * t < nk) part += expf(__fsub_rn(s[t], mn));
-          rinv[r] = rinv[r] * expf(shift[r] - mn) + warp_sum(part);
-          shift[r] = mn;
-          continue;
-        }
-        float* w = u + kTileK;
-#pragma unroll
-        for (int t = 0; t < kKeysPerLane; ++t) {
-          const int j = lane + 32 * t;
-          float ev = 0.f, dsv = 0.f;
-          if (j < nk) {
-            const float* vr = vs + j * dp1;
-            float dp = 0.f;
-            for (int cc = 0; cc < d; ++cc) dp = fmaf(doi[cc], vr[cc], dp);
-            ev = expf(__fsub_rn(s[t], shift[r]));
-            const float p = __fmul_rn(ev, rinv[r]);
-            const float pw = __fmul_rn(p, dp);
-            if (pass == 2) {
-              s1[r] += pw;
-            } else {
-              dsv = __fsub_rn(pw, __fmul_rn(s1[r], p));
-              if (dbias)
-                atomicAdd(&dbias[(long long)h * n * n + (long long)i * n + k0 + j], dsv);
-            }
-          }
-          u[j] = round_to<T>(ev);
-          w[j] = round_to<T>(dsv);
-        }
-        __syncwarp();
-        const float* src = pass == 2 ? u : w;          // round(e) or round(ds)
-        const float* rows = pass == 2 ? vs : ks;       // times v or k
-        for (int j = 0; j < nk; ++j) {
-          const float a = src[j];
-#pragma unroll
-          for (int ch = 0; ch < CH; ++ch)
-            if (lane + 32 * ch < d)
-              acc[r][ch] = fmaf(a, rows[j * dp1 + lane + 32 * ch], acc[r][ch]);
-        }
-        __syncwarp();
-      }
-    }
-    if (pass == 1) {
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) rinv[r] = 1.f / (rinv[r] + 1e-30f);
-    } else if (pass == 2) {  // ao, as K1f forms it; s1 across the warp
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int i = q0 + warp + r * kTiledWarps;
-        s1[r] = warp_sum(s1[r]);
-#pragma unroll
-        for (int ch = 0; ch < CH; ++ch) {
-          const int cc = lane + 32 * ch;
-          if (i < n && cc < d)
-            ao[(base + i) * c + h * d + cc] = from_f32<T>(acc[r][ch] * rinv[r]);
-          acc[r][ch] = 0.f;
-        }
-      }
-    }
-  }
-
-  float dq_sum[CH];
-#pragma unroll
-  for (int ch = 0; ch < CH; ++ch) dq_sum[ch] = 0.f;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = q0 + warp + r * kTiledWarps;
-    if (i >= n) continue;
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int cc = lane + 32 * ch;
-      if (cc >= d) continue;
-      const float dq = acc[r][ch] * scale;
-      dqkv[(base + i) * c3 + h * d + cc] = from_f32<T>(dq);
-      dq_sum[ch] += dq;
-    }
-    if (lane == 0) {
-      float* st = stats + ((bw * heads + h) * (long long)n + i) * 3;
-      st[0] = shift[r];
-      st[1] = rinv[r];
-      st[2] = s1[r];
-    }
-  }
-#pragma unroll
-  for (int ch = 0; ch < CH; ++ch)  // dbqkv: column sums of the unrounded dq
-    if (lane + 32 * ch < d) atomicAdd(&dbqkv[h * d + lane + 32 * ch], dq_sum[ch]);
-}
-
-template <typename T, int CH>
-__global__ void __launch_bounds__(kTiledWarps * 32) attention_bwd_keys_kernel(
-    const T* __restrict__ qkv, const T* __restrict__ dao,
-    const float* __restrict__ bias_t, const int* __restrict__ ids, int ids_rows,
-    const float* __restrict__ stats, T* __restrict__ dqkv, float* __restrict__ dbqkv,
-    int n, int c, int heads, float scale) {
-  extern __shared__ float smem[];
-  const int d = c / heads, dp1 = d + 1;
-  float* kst = smem;                 // [kTileK][d]      keys of the block
-  float* vst = kst + kTileK * d;     // [kTileK][d]      their values
-  float* qs = vst + kTileK * d;      // [kTileQ][d + 1]  (padded: no bank conflicts)
-  float* dos = qs + kTileQ * dp1;    // [kTileQ][d + 1]
-  float* st_s = dos + kTileQ * dp1;  // [kTileQ][3]      shift, 1 / sum, s1
-  float* bufs = st_s + 3 * kTileQ;   // [warps][2][kTileQ]
-  int* idk = reinterpret_cast<int*>(bufs + 2 * kTiledWarps * kTileQ);  // [kTileK]
-  int* idq = idk + kTileK;                                              // [kTileQ]
-
-  const int ktiles = (n + kTileK - 1) / kTileK;
-  const int k0 = (blockIdx.x % ktiles) * kTileK;
-  const int h = (blockIdx.x / ktiles) % heads;
-  const long long bw = blockIdx.x / ktiles / heads;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long base = bw * n;
-  const int c3 = 3 * c;
-  const bool has_mask = ids != nullptr;
-  const int* id_row = has_mask ? ids + (bw % ids_rows) * n : nullptr;
-  const float* bias_th = bias_t ? bias_t + (long long)h * n * n : nullptr;
-  const float* stats_h = stats + (bw * heads + h) * (long long)n * 3;
-
-  for (int e = tid; e < kTileK * d; e += blockDim.x) {
-    const int j = k0 + e / d, cc = e % d;
-    const T* row = qkv + (base + j) * c3 + h * d + cc;
-    kst[e] = j < n ? to_f32(row[c]) : 0.f;
-    vst[e] = j < n ? to_f32(row[2 * c]) : 0.f;
-  }
-  if (has_mask)
-    for (int j = tid; j < kTileK; j += blockDim.x) idk[j] = k0 + j < n ? id_row[k0 + j] : 0;
-
-  float* u = bufs + warp * 2 * kTileQ;  // round(p) of one key row
-  float* w = u + kTileQ;                // round(ds)
-  float dk[kKeysPerWarp][CH], dv[kKeysPerWarp][CH];
-#pragma unroll
-  for (int r = 0; r < kKeysPerWarp; ++r)
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) dk[r][ch] = dv[r][ch] = 0.f;
-
-  for (int q0 = 0; q0 < n; q0 += kTileQ) {
-    const int nq = min(kTileQ, n - q0);
-    __syncthreads();  // every warp is done with the last tile (and kst, vst are staged)
-    for (int e = tid; e < kTileQ * d; e += blockDim.x) {
-      const int i = e / d, cc = e % d;
-      qs[i * dp1 + cc] = i < nq ? to_f32(qkv[(base + q0 + i) * c3 + h * d + cc]) : 0.f;
-      dos[i * dp1 + cc] = i < nq ? to_f32(dao[(base + q0 + i) * c + h * d + cc]) : 0.f;
-    }
-    for (int e = tid; e < 3 * nq; e += blockDim.x) st_s[e] = stats_h[q0 * 3 + e];
-    if (has_mask)
-      for (int i = tid; i < nq; i += blockDim.x) idq[i] = id_row[q0 + i];
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kKeysPerWarp; ++r) {
-      const int jl = warp + r * kTiledWarps;
-      const int j = k0 + jl;
-      if (j >= n) continue;  // the same for the whole warp
-      const float* kj = kst + jl * d;
-      const float* vj = vst + jl * d;
-      const int id_j = has_mask ? idk[jl] : 0;
-#pragma unroll
-      for (int t = 0; t < kQueriesPerLane; ++t) {
-        const int il = lane + 32 * t;
-        float pv = 0.f, dsv = 0.f;
-        if (il < nq) {
-          const float* qi = qs + il * dp1;
-          const float* doi = dos + il * dp1;
-          float dot = 0.f;
-          for (int cc = 0; cc < d; ++cc) dot = fmaf(qi[cc], kj[cc], dot);
-          const float s = score(dot, scale, has_mask && id_j != idq[il], has_mask,
-                                bias_th ? bias_th + (long long)j * n + q0 + il : nullptr);
-          const float* st = st_s + il * 3;
-          const float p = __fmul_rn(expf(__fsub_rn(s, st[0])), st[1]);
-          float dp = 0.f;
-          for (int cc = 0; cc < d; ++cc) dp = fmaf(doi[cc], vj[cc], dp);
-          pv = p;
-          dsv = __fsub_rn(__fmul_rn(p, dp), __fmul_rn(st[2], p));
-        }
-        u[il] = round_to<T>(pv);
-        w[il] = round_to<T>(dsv);
-      }
-      __syncwarp();
-      for (int i = 0; i < nq; ++i) {
-        const float a = u[i], b = w[i];
-#pragma unroll
-        for (int ch = 0; ch < CH; ++ch) {
-          const int cc = lane + 32 * ch;
-          if (cc < d) {
-            dv[r][ch] = fmaf(a, dos[i * dp1 + cc], dv[r][ch]);
-            dk[r][ch] = fmaf(b, qs[i * dp1 + cc], dk[r][ch]);
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
-
-  float dk_sum[CH], dv_sum[CH];
-#pragma unroll
-  for (int ch = 0; ch < CH; ++ch) dk_sum[ch] = dv_sum[ch] = 0.f;
-#pragma unroll
-  for (int r = 0; r < kKeysPerWarp; ++r) {
-    const int j = k0 + warp + r * kTiledWarps;
-    if (j >= n) continue;
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int cc = lane + 32 * ch;
-      if (cc >= d) continue;
-      const float dkv = dk[r][ch] * scale;
-      dqkv[(base + j) * c3 + c + h * d + cc] = from_f32<T>(dkv);
-      dqkv[(base + j) * c3 + 2 * c + h * d + cc] = from_f32<T>(dv[r][ch]);
-      dk_sum[ch] += dkv;
-      dv_sum[ch] += dv[r][ch];
-    }
-  }
-#pragma unroll
-  for (int ch = 0; ch < CH; ++ch) {  // dbqkv: column sums of the unrounded dk, dv
-    const int cc = lane + 32 * ch;
-    if (cc < d) {
-      atomicAdd(&dbqkv[c + h * d + cc], dk_sum[ch]);
-      atomicAdd(&dbqkv[2 * c + h * d + cc], dv_sum[ch]);
-    }
-  }
-}
-
-size_t attention_bwd_rows_smem_bytes(int d) {
-  return sizeof(float) * (2 * (size_t)kTileQ * d + 2 * (size_t)kTileK * (d + 1) +
-                          2 * (size_t)kTiledWarps * kTileK) +
-         sizeof(int) * (size_t)(kTileQ + kTileK);
-}
-
-size_t attention_bwd_keys_smem_bytes(int d) {
-  return sizeof(float) * (2 * (size_t)kTileK * d + 2 * (size_t)kTileQ * (d + 1) +
-                          3 * (size_t)kTileQ + 2 * (size_t)kTiledWarps * kTileQ) +
-         sizeof(int) * (size_t)(kTileQ + kTileK);
-}
-
-template <typename T, int CH>
-cudaError_t launch_attention_bwd_tiled_ch(const T* qkv, const T* dao, const float* bias,
-                                          const float* bias_t, const int* ids,
-                                          int ids_rows, T* ao, T* dqkv, float* dbias,
-                                          float* dbqkv, float* stats, long long bw,
-                                          int n, int c, int heads, float scale,
-                                          cudaStream_t stream) {
-  const int d = c / heads;
-  auto rows_kernel = attention_bwd_rows_kernel<T, CH>;
-  auto keys_kernel = attention_bwd_keys_kernel<T, CH>;
-  const size_t rows_smem = attention_bwd_rows_smem_bytes(d);
-  const size_t keys_smem = attention_bwd_keys_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)keys_smem);
-  if (err != cudaSuccess) return err;
-  const long long qblocks = bw * heads * ((n + kTileQ - 1) / kTileQ);
-  rows_kernel<<<(unsigned)qblocks, kTiledWarps * 32, rows_smem, stream>>>(
-      qkv, dao, bias, ids, ids_rows, ao, dqkv, dbias, dbqkv, stats, n, c, heads, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long kblocks = bw * heads * ((n + kTileK - 1) / kTileK);
-  keys_kernel<<<(unsigned)kblocks, kTiledWarps * 32, keys_smem, stream>>>(
-      qkv, dao, bias_t, ids, ids_rows, stats, dqkv, dbqkv, n, c, heads, scale);
-  return cudaGetLastError();
-}
-
-// Head dims up to 32 * CH, CH in {1, 2, 4}: d <= 128.
-template <typename T>
-cudaError_t launch_attention_bwd_tiled(const T* qkv, const T* dao, const float* bias,
-                                       const float* bias_t, const int* ids, int ids_rows,
-                                       T* ao, T* dqkv, float* dbias, float* dbqkv,
-                                       float* stats, long long bw, int n, int c,
-                                       int heads, float scale, cudaStream_t stream) {
-  const int d = c / heads;
-  if (d <= 32)
-    return launch_attention_bwd_tiled_ch<T, 1>(qkv, dao, bias, bias_t, ids, ids_rows, ao,
-                                               dqkv, dbias, dbqkv, stats, bw, n, c, heads,
-                                               scale, stream);
-  if (d <= 64)
-    return launch_attention_bwd_tiled_ch<T, 2>(qkv, dao, bias, bias_t, ids, ids_rows, ao,
-                                               dqkv, dbias, dbqkv, stats, bw, n, c, heads,
-                                               scale, stream);
-  if (d <= 128)
-    return launch_attention_bwd_tiled_ch<T, 4>(qkv, dao, bias, bias_t, ids, ids_rows, ao,
-                                               dqkv, dbias, dbqkv, stats, bw, n, c, heads,
-                                               scale, stream);
-  return cudaErrorInvalidValue;
-}
-
+// The attention backward (launch 4). Tiled: phases A and B from K1f's o
+// (f32) and row statistics; ao is not touched. Whole-window: the body
+// above, which writes ao.
 template <typename T>
 cudaError_t attention_bwd_launch(int tiled, const T* qkv, const T* dao, const float* bias,
                                  const float* bias_t, const int* ids, int ids_rows, T* ao,
-                                 T* dqkv, float* dbias, float* dqkv_b, float* row_stats,
-                                 long long bw, int n, int c, int heads, float scale,
-                                 cudaStream_t stream) {
+                                 const float* o, const float* row_stats, float* s1, T* dqkv,
+                                 float* dbias, float* dqkv_b, long long bw, int n, int c,
+                                 int heads, float scale, cudaStream_t stream) {
   if (tiled)
-    return launch_attention_bwd_tiled<T>(qkv, dao, bias, bias_t, ids, ids_rows, ao, dqkv,
-                                         dbias, dqkv_b, row_stats, bw, n, c, heads, scale,
-                                         stream);
+    return launch_attention_bwd_tiled<T>(qkv, dao, o, row_stats, bias, ids, ids_rows, s1, dqkv,
+                                         dbias, dqkv_b, bw, n, c, heads, scale, stream);
   const size_t smem = attention_bwd_smem_bytes(n, c / heads);
   cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -675,7 +273,8 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
                   const T* dout, T* y, float* stats, T* qkv, T* dao, T* ao, T* dqkv,
                   float* dy, T* dx, float* dln_w, float* dln_b, float* dqkv_w,
                   float* dqkv_b, float* dbias, float* dproj_w, float* dproj_b,
-                  float* dgamma, float* row_stats, long long bw, int n, int c, int heads,
+                  float* dgamma, const float* o32, const float* row_stats, float* s1,
+                  long long bw, int n, int c, int heads,
                   long long rows_per_sample, float scale, float lam,
                   cudaStream_t stream) {
   const long long rows = bw * n;
@@ -722,8 +321,9 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
     g_dao.k = c;
     err = launch_gemm<T, EPI_BIAS, true>(g_dao, stream);
     if (err != cudaSuccess) return (int)err;
-    err = attention_bwd_launch<T>(tiled, qkv, dao, bias, bias_t, ids, ids_rows, y, dqkv,
-                                  dbias, dqkv_b, row_stats, bw, n, c, heads, scale, stream);
+    err = attention_bwd_launch<T>(tiled, qkv, dao, bias, bias_t, ids, ids_rows, y, o32,
+                                  row_stats, s1, dqkv, dbias, dqkv_b, bw, n, c, heads, scale,
+                                  stream);
     if (err != cudaSuccess) return (int)err;
 
     WgradParams<T, float> w_proj = {};  // dWproj[o, i] = sum_m dbranch[m, o] ao[m, i]
@@ -751,8 +351,9 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
     err = gamma ? launch_gemm<T, EPI_BIAS, true, LS_PRO>(g_dao, stream)
                 : launch_gemm<T, EPI_BIAS, true>(g_dao, stream);
     if (err != cudaSuccess) return (int)err;
-    err = attention_bwd_launch<T>(tiled, qkv, dao, bias, bias_t, ids, ids_rows, ao, dqkv,
-                                  dbias, dqkv_b, row_stats, bw, n, c, heads, scale, stream);
+    err = attention_bwd_launch<T>(tiled, qkv, dao, bias, bias_t, ids, ids_rows, ao, o32,
+                                  row_stats, s1, dqkv, dbias, dqkv_b, bw, n, c, heads, scale,
+                                  stream);
     if (err != cudaSuccess) return (int)err;
 
     WgradParams<T, T> w_proj = {};  // dWproj[o, i] = sum_m do[m, o] ao[m, i]
@@ -813,13 +414,16 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
 // and ids may be null; dbias is then not written. The f32 gradient outputs
 // (dln_w .. dproj_b, dbias, dgamma) must be zeroed by the caller: the
 // kernels add into them. y, stats, qkv, dao, ao, dqkv and dy are scratch,
-// but for ao under post_norm: the input K1f's attention output [BW*N, C]
-// of this call (vsn_attn_half_fwd's ao_buf), read only.
+// but for ao under post_norm or tiled: the input K1f's attention output
+// [BW*N, C] of this call (vsn_attn_half_fwd's ao_buf), read only.
 // tiled selects the key-tiled attention backward (phases A and B, head dims
-// up to 128, any N; row_stats [BW, H, N, 3] f32 scratch) over the
-// whole-window one (head dims up to 32, row_stats unused and may be null);
-// the caller chooses by shape. gamma [C] (in-band LayerScale, with dgamma)
-// may be null; post_norm selects the post-norm backward (stats unused).
+// that are multiples of 16 up to 128, any N), which reads K1f's row_stats
+// [BW, H, N, 2] and o32 (the f32 attention output; null for f32
+// activations, whose ao is f32) of the call and takes s1 [BW, H, N] f32 as
+// scratch, over the whole-window one (head dims up to 32; o32, row_stats
+// and s1 unused and may be null); the caller chooses by shape. gamma [C]
+// (in-band LayerScale, with dgamma) may be null; post_norm selects the
+// post-norm backward (stats unused).
 extern "C" int vsn_attn_half_bwd(
     int tiled, int is_bf16, const void* x, const float* ln_w, const float* ln_b,
     const float* qkv_w, const float* qkv_b, const float* bias, const float* bias_t,
@@ -827,8 +431,9 @@ extern "C" int vsn_attn_half_bwd(
     const float* gamma, int post_norm, const float* gb, const void* dout, void* y,
     float* stats, void* qkv, void* dao, void* ao, void* dqkv, float* dy, void* dx,
     float* dln_w, float* dln_b, float* dqkv_w, float* dqkv_b, float* dbias,
-    float* dproj_w, float* dproj_b, float* dgamma, float* row_stats, long long bw, int n,
-    int c, int heads, long long rows_per_sample, float scale, float lam, void* stream) {
+    float* dproj_w, float* dproj_b, float* dgamma, const float* o32,
+    const float* row_stats, float* s1, long long bw, int n, int c, int heads,
+    long long rows_per_sample, float scale, float lam, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using B = __nv_bfloat16;
@@ -837,14 +442,37 @@ extern "C" int vsn_attn_half_bwd(
         proj_w, proj_b, gamma, post_norm, gb, static_cast<const B*>(dout),
         static_cast<B*>(y), stats, static_cast<B*>(qkv), static_cast<B*>(dao),
         static_cast<B*>(ao), static_cast<B*>(dqkv), dy, static_cast<B*>(dx), dln_w, dln_b,
-        dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma, row_stats, bw, n, c, heads,
-        rows_per_sample, scale, lam, s);
+        dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma, o32, row_stats, s1, bw, n, c,
+        heads, rows_per_sample, scale, lam, s);
   }
   return attn_half_bwd<float>(
       tiled, static_cast<const float*>(x), ln_w, ln_b, qkv_w, qkv_b, bias, bias_t, ids, ids_rows,
       proj_w, proj_b, gamma, post_norm, gb, static_cast<const float*>(dout),
       static_cast<float*>(y), stats, static_cast<float*>(qkv), static_cast<float*>(dao),
       static_cast<float*>(ao), static_cast<float*>(dqkv), dy, static_cast<float*>(dx), dln_w,
-      dln_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma, row_stats, bw, n, c, heads,
-      rows_per_sample, scale, lam, s);
+      dln_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma,
+      static_cast<const float*>(ao), row_stats, s1, bw, n, c, heads, rows_per_sample, scale,
+      lam, s);
+}
+
+// K1b's key-tiled attention backward alone (launch 4 of ``tiled`` above):
+// from qkv [BW*N, 3C], dao [BW*N, C], K1f's o (f32 [BW*N, C]) and row_stats
+// [BW, H, N, 2], into dqkv [BW*N, 3C], and added into the zeroed f32 dbias
+// [H, N, N] (may be null) and dbqkv [3C]; s1 [BW, H, N] f32 scratch.
+extern "C" int vsn_attention_tiled_bwd(int is_bf16, const void* qkv, const void* dao,
+                                       const float* o, const float* row_stats,
+                                       const float* bias, const int* ids, int ids_rows,
+                                       float* s1, void* dqkv, float* dbias, float* dbqkv,
+                                       long long bw, int n, int c, int heads, float scale,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using B = __nv_bfloat16;
+    return (int)launch_attention_bwd_tiled<B>(
+        static_cast<const B*>(qkv), static_cast<const B*>(dao), o, row_stats, bias, ids,
+        ids_rows, s1, static_cast<B*>(dqkv), dbias, dbqkv, bw, n, c, heads, scale, s);
+  }
+  return (int)launch_attention_bwd_tiled<float>(
+      static_cast<const float*>(qkv), static_cast<const float*>(dao), o, row_stats, bias, ids,
+      ids_rows, s1, static_cast<float*>(dqkv), dbias, dbqkv, bw, n, c, heads, scale, s);
 }

@@ -1,0 +1,994 @@
+// K1's key-tiled attention body, forward (K1f's launch 2) and backward (K1b's
+// launch 4, phases A and B), for a head dim d that is a multiple of 16 up to
+// 128 and any N: ViT's calls (vsn_tpu/models/vit3d.py _fused_attn_half, one
+// window of N = 811 tokens per sample at d = 64), and Swin's (d = 32) when the
+// caller forces it.
+//
+// Replaces the attention chain of vsn_tpu/ops/swin_block_kernels.py
+// _heads_attention_fwd / _heads_attention_bwd (:169-226, :292-336), which the
+// TPU runs as MXU matmuls on a whole window in VMEM. Here one window's K and
+// V (832 KB in f32 at ViT's N) do not fit in a block's shared memory, so the
+// body is the FlashAttention-2 form: keys stream through shared memory in
+// tiles, and the softmax is taken online.
+//
+// What bounds it: the products, 4 N^2 d per (window, head) forward and 10 N^2
+// d backward (24.25 and 60.6 GFLOP per ViT-S call at micro-batch 24), about
+// 300 bf16 operations per byte of q, k, v read: above the H100's ridge, so
+// the tensor cores. What the design does about it:
+//
+//   - bf16 (T = __nv_bfloat16): every product is mma.sync.m16n8k16 (bf16 in,
+//     f32 accumulate). Tiles are staged in shared memory as bf16, rows padded
+//     by 16 bytes so that ldmatrix / ldmatrix.trans hit no bank twice, and
+//     filled by cp.async double-buffered: the next tile's copy runs under the
+//     current tile's products. The probabilities (e, p, ds) go from the
+//     accumulator fragments of one product to the A fragments of the next in
+//     registers: no round trip through shared memory.
+//   - f32 (the tests' type, held to 1e-4, which neither bf16 mma nor TF32
+//     keeps): the same tiles, staging and loops, with FMA product steps on the
+//     same fragment layout (``fma_nt`` / ``fma_nn``); only they pass a
+//     probability chunk through a per-warp scratch in shared memory.
+//
+// Blocks have 4 warps; each warp owns 16 rows of a 64-row tile. A thread
+// holds the accumulator fragment of mma.m16n8k16: rows g = lane / 4 and g + 8,
+// columns 8 nt + 2 t + {0, 1} (t = lane % 4) of each 8-column tile nt.
+//
+// Forward (``attention_tiled_mma_kernel``): one block per (window, head, tile
+// of 64 query rows). Q goes once into A fragments; per key tile, S = Q K^T,
+// then in the fragment layout: x scale, + the -1e9 region mask, + the bias;
+// the running shift m starts at 0 (so it is max(rowmax, 0)), alpha = exp(m -
+// m') rescales the running sum l and O when the max grows, and e = exp(s -
+// m') is rounded to T as the A fragment of O += e V. The ragged last key tile
+// (811 = 12 x 64 + 43) stages its missing keys as zero rows and gives their
+// scores -inf before the max. ao = O / (l + 1e-30) in T; beside it the kernel
+// writes each row's (m, 1 / (l + 1e-30)) f32 [BW, H, N, 2] and, for bf16, o
+// in f32 [BW*N, C], for K1b.
+//
+// e is rounded against the running shift, so a tile whose max is later
+// overtaken contributes round(exp(s - m)) exp(m - m_final) where the TPU
+// forms round(exp(s - m_final)): the same up to one rounding of e in T.
+//
+// Backward, from K1f's kept statistics, in the p-basis:
+//   p = exp(s - m) / (l + 1e-30),  dp = dO V^T,  s1 = rowsum(p dp) = dO . o
+//   ds = p dp - s1 p,  dq = scale ds K,  dk = scale ds^T Q,  dv = p^T dO
+// with s1 taken as dO . o on K1f's f32 o (the FlashAttention identity; o in
+// f32, so s1 carries no bf16 rounding of o), in phase A's prologue.
+//
+// Phase A (``attention_bwd_rows_mma_kernel``): one block per (window, head,
+// tile of 64 query rows), Q and dO in A fragments, one pass over the key
+// tiles, 16 keys a step: S, p, dp, ds; dbias += ds (f32 atomics, only with a
+// bias); dq += round(ds) K. It writes s1 [BW, H, N] for phase B.
+// Phase B (``attention_bwd_keys_mma_kernel``): one block per (window, head,
+// tile of 64 keys), each warp 16 keys, one pass over the query tiles, 16
+// queries a step: the same S (the same mma on the same A = Q and B = K
+// fragments, in the same channel order) and dp, so p and ds are phase A's
+// bit for bit; dv += round(p)^T dO and dk += round(ds)^T Q summed in
+// registers, the transposes of p and ds taken in registers with
+// movmatrix.trans. No atomics for dq, dk, dv: each is written once into dqkv
+// [rows, 3C]. dbqkv (the qkv bias gradient) takes the column sums of the
+// unrounded dq, dk, dv with f32 atomics, one per column and block.
+//
+// Rounding follows the TPU kernels: q, k, v, dO are T; e before PV, p before
+// dv and ds before dq / dk are rounded to T; dbias takes ds unrounded.
+//
+// Head dims: the body is compiled for D = 32, 64 and 128; a head dim d < D
+// (a multiple of 16) stages its channels d..D-1 as zeros, which add exactly 0
+// to every product.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kTile = 64;        // rows of a query tile, keys of a key tile
+constexpr int kTiledWarps = 4;   // 16 rows each
+constexpr int kTiledThreads = kTiledWarps * 32;
+constexpr int kSp = 17;          // row stride of the f32 scratch [16][16]
+
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
+// Blocks an SM must hold (launch bounds): 3 for bf16 at d <= 64, which
+// shared memory allows and which keeps ptxas at <= 168 registers without
+// spills; 1 otherwise (ptxas spills at 168 there). Without a minimum, ptxas
+// chose 128 registers for phase B at d = 64, with spills.
+template <typename T, int D>
+constexpr int kTiledMinBlocks = kTensorCores<T> && D <= 64 ? 3 : 1;
+
+// Row stride (elements) of a staged [kTile][D] tile: 16 bytes of padding.
+template <typename T, int D>
+constexpr int kLd = D + 16 / (int)sizeof(T);
+
+template <typename T, int D>
+constexpr size_t kTileBytes = sizeof(T) * kTile * kLd<T, D>;
+
+// ---------------------------------------------------------------------------
+// Staging
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy rows [0, nrows) x channels [0, d) of a [rows][stride] T array into a
+// staged tile; the tile's other rows and channels (up to kTile x D) are
+// zero-filled, so they add exactly 0 to a product.
+template <typename T, int D>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long stride, int nrows,
+                                           int d) {
+  constexpr int E = 16 / (int)sizeof(T), CPR = D / E, LD = kLd<T, D>;
+  for (int e = threadIdx.x; e < kTile * CPR; e += kTiledThreads) {
+    const int r = e / CPR, cc = e % CPR;
+    const bool ok = r < nrows && cc * E < d;
+    cp_async16(dst + r * LD + cc * E, ok ? src + r * stride + cc * E : src, ok);
+  }
+}
+
+// Stage key tile kt of a head (K and V; head points at its q of token 0,
+// rows 3C apart) into buffer kt % 2 of kvs [2][K, V][kTile][LD], and commit
+// the copies as one group. The last tile is ragged (811 = 12 x 64 + 43): its
+// missing keys stage as zero rows.
+template <typename T, int D>
+__device__ __forceinline__ void stage_kv(T* kvs, const T* head, long long c3, int c, int n,
+                                         int kt, int d) {
+  constexpr int LD = kLd<T, D>;
+  T* dst = kvs + (kt & 1) * 2 * kTile * LD;
+  const T* src = head + (long long)kt * kTile * c3;
+  const int nk = min(kTile, n - kt * kTile);
+  stage_tile<T, D>(dst, src + c, c3, nk, d);
+  stage_tile<T, D>(dst + kTile * LD, src + 2 * c, c3, nk, d);
+  cp_async_commit();
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core product steps (bf16)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// c += a b: m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The transpose of an 8 x 8 bf16 matrix held one row pair a lane.
+__device__ __forceinline__ uint32_t transpose_8x8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// The A fragment (16 rows x 16 columns from row0, col0) of a staged tile.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int row0,
+                                       int col0, int lane) {
+  ldsm_x4(a, tile + (row0 + (lane & 15)) * LD + col0 + (lane >> 4) * 8);
+}
+
+// B fragments of two 8-column tiles of a product X Y^T: Y's rows row0..row0+15
+// are the columns, channels col0..col0+15 the depth. b[0], b[1] belong to the
+// first 8 rows, b[2], b[3] to the next.
+template <int LD>
+__device__ __forceinline__ void load_b_nt(uint32_t (&b)[4], const __nv_bfloat16* tile,
+                                          int row0, int col0, int lane) {
+  ldsm_x4(b, tile + (row0 + (lane & 7) + ((lane >> 4) << 3)) * LD + col0 +
+                 ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two 8-column tiles of a product X Y: Y's rows row0..row0+15
+// are the depth, channels col0..col0+15 the columns.
+template <int LD>
+__device__ __forceinline__ void load_b_nn(uint32_t (&b)[4], const __nv_bfloat16* tile,
+                                          int row0, int col0, int lane) {
+  ldsm_x4_t(b, tile + (row0 + (lane & 15)) * LD + col0 + (lane >> 4) * 8);
+}
+
+// acc[DT] += A Y over 16 depth rows row0.. of a staged tile Y [.][D]: the
+// accumulators of a [16 x D] output.
+template <int D>
+__device__ __forceinline__ void mma_nn(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int row0, int lane) {
+  constexpr int LD = kLd<__nv_bfloat16, D>;
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    uint32_t b[4];
+    load_b_nn<LD>(b, tile, row0, 16 * j, lane);
+    mma_bf16(acc[2 * j], a, b[0], b[1]);
+    mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
+  }
+}
+
+// The A fragment of a [16 x 16] chunk whose accumulators are v0 (columns 0-7)
+// and v1 (columns 8-15), rounded to bf16.
+__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4], const float (&v0)[4],
+                                           const float (&v1)[4]) {
+  a[0] = pack_bf16(v0[0], v0[1]);
+  a[1] = pack_bf16(v0[2], v0[3]);
+  a[2] = pack_bf16(v1[0], v1[1]);
+  a[3] = pack_bf16(v1[2], v1[3]);
+}
+
+// The A fragment of the transpose of the same chunk (rows and columns
+// swapped), rounded to bf16: each 8 x 8 quarter transposed in registers.
+__device__ __forceinline__ void a_from_acc_t(uint32_t (&a)[4], const float (&v0)[4],
+                                             const float (&v1)[4]) {
+  a[0] = transpose_8x8(pack_bf16(v0[0], v0[1]));  // rows 0-7 of v0
+  a[1] = transpose_8x8(pack_bf16(v1[0], v1[1]));  // rows 0-7 of v1
+  a[2] = transpose_8x8(pack_bf16(v0[2], v0[3]));  // rows 8-15 of v0
+  a[3] = transpose_8x8(pack_bf16(v1[2], v1[3]));  // rows 8-15 of v1
+}
+
+// ---------------------------------------------------------------------------
+// FMA product steps (f32), on the same fragment layout
+// ---------------------------------------------------------------------------
+
+// acc[NT] += X Y^T for X's 16 rows at x and Y's 8 NT rows at y (staged f32
+// tiles), each output one FMA chain over the channels in order.
+template <int NT, int D>
+__device__ __forceinline__ void fma_nt(float (&acc)[NT][4], const float* x, const float* y,
+                                       int lane) {
+  constexpr int LD = kLd<float, D>;
+  const int g = lane >> 2, t = lane & 3;
+  const float* x0 = x + g * LD;
+  const float* x1 = x0 + 8 * LD;
+#pragma unroll 2
+  for (int cc = 0; cc < D; cc += 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(x0 + cc);
+    const float4 a1 = *reinterpret_cast<const float4*>(x1 + cc);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 b = *reinterpret_cast<const float4*>(y + (8 * nt + 2 * t + e) * LD + cc);
+        float u = acc[nt][e], v = acc[nt][2 + e];
+        u = fmaf(a0.x, b.x, u);
+        v = fmaf(a1.x, b.x, v);
+        u = fmaf(a0.y, b.y, u);
+        v = fmaf(a1.y, b.y, v);
+        u = fmaf(a0.z, b.z, u);
+        v = fmaf(a1.z, b.z, v);
+        u = fmaf(a0.w, b.w, u);
+        v = fmaf(a1.w, b.w, v);
+        acc[nt][e] = u;
+        acc[nt][2 + e] = v;
+      }
+  }
+}
+
+// Store a [16 x 16] chunk's accumulators v0, v1 into a warp's scratch sp
+// [16][kSp].
+__device__ __forceinline__ void store_chunk(float* sp, const float (&v0)[4],
+                                            const float (&v1)[4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    sp[g * kSp + 2 * t + e] = v0[e];
+    sp[(g + 8) * kSp + 2 * t + e] = v0[2 + e];
+    sp[g * kSp + 8 + 2 * t + e] = v1[e];
+    sp[(g + 8) * kSp + 8 + 2 * t + e] = v1[2 + e];
+  }
+}
+
+// acc[DT] += P Y over 16 depth rows of Y at y (a staged f32 tile [.][D]), P
+// the [16 x 16] chunk in the scratch sp, or its transpose (PT).
+template <int D, bool PT>
+__device__ __forceinline__ void fma_nn(float (&acc)[D / 8][4], const float* sp, const float* y,
+                                       int lane) {
+  constexpr int LD = kLd<float, D>;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 4
+  for (int k = 0; k < 16; ++k) {
+    const float p0 = PT ? sp[k * kSp + g] : sp[g * kSp + k];
+    const float p1 = PT ? sp[k * kSp + g + 8] : sp[(g + 8) * kSp + k];
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const float2 b = *reinterpret_cast<const float2*>(y + k * LD + 8 * dt + 2 * t);
+      acc[dt][0] = fmaf(p0, b.x, acc[dt][0]);
+      acc[dt][1] = fmaf(p0, b.y, acc[dt][1]);
+      acc[dt][2] = fmaf(p1, b.x, acc[dt][2]);
+      acc[dt][3] = fmaf(p1, b.y, acc[dt][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Scores and probabilities, the same operations in every kernel
+// ---------------------------------------------------------------------------
+
+// The masked, biased, scaled score of query i, key j from its product.
+__device__ __forceinline__ float tiled_score(float acc, float scale, const int* id_row,
+                                             int id_i, const float* bias_i, int j) {
+  float s = __fmul_rn(acc, scale);
+  if (id_row) s = __fadd_rn(s, id_row[j] != id_i ? kNegInf : 0.f);
+  if (bias_i) s = __fadd_rn(s, bias_i[j]);
+  return s;
+}
+
+// p from K1f's row statistics (shift m, 1 / (l + 1e-30)).
+__device__ __forceinline__ float kept_p(float s, float m, float rinv) {
+  return __fmul_rn(expf(__fsub_rn(s, m)), rinv);
+}
+
+__device__ __forceinline__ float tiled_ds(float p, float dp, float s1) {
+  return __fsub_rn(__fmul_rn(p, dp), __fmul_rn(s1, p));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// dbqkv[col0 + channel] += the column sums over the block's 64 rows of a
+// [16 x D] accumulator of each warp (rows at or past n held as 0 by the
+// caller); red is kTiledWarps x D floats of shared memory.
+template <int D>
+__device__ __forceinline__ void add_column_sums(float* dbqkv, int col0, int d,
+                                                const float (&acc)[D / 8][4], float* red,
+                                                int warp, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = acc[dt][e] + acc[dt][2 + e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) red[warp * D + 8 * dt + 2 * t + e] = v;
+    }
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < d; ch += kTiledThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kTiledWarps; ++w) v += red[w * D + ch];
+    atomicAdd(&dbqkv[col0 + ch], v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward: K1f's attention launch
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_tiled_mma_kernel(
+    const T* __restrict__ qkv, const float* __restrict__ bias, const int* __restrict__ ids,
+    int ids_rows, T* __restrict__ ao, float* __restrict__ o32, float* __restrict__ stats,
+    int n, int c, int heads, float scale) {
+  constexpr bool TC = kTensorCores<T>;
+  constexpr int LD = kLd<T, D>, NT = kTile / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kTile][LD] the block's queries
+  T* kvs = qs + kTile * LD;                // [2 stages][K, V][kTile][LD]
+  float* scratch = reinterpret_cast<float*>(kvs + 4 * kTile * LD);  // f32: [warps][16][kSp]
+
+  const int qtiles = (n + kTile - 1) / kTile;
+  const int q0 = (blockIdx.x % qtiles) * kTile;
+  const int h = (blockIdx.x / qtiles) % heads;
+  const long long bw = blockIdx.x / qtiles / heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int d = c / heads;
+  const long long c3 = 3LL * c;
+  const T* head = qkv + bw * n * c3 + h * d;  // q of the window's token 0
+  const int* id_row = ids ? ids + (bw % ids_rows) * n : nullptr;
+  const int i0 = q0 + 16 * warp + g, i1 = i0 + 8;  // this thread's rows
+  const int id0 = id_row && i0 < n ? id_row[i0] : 0;
+  const int id1 = id_row && i1 < n ? id_row[i1] : 0;
+  const float* bias0 = bias && i0 < n ? bias + ((long long)h * n + i0) * n : nullptr;
+  const float* bias1 = bias && i1 < n ? bias + ((long long)h * n + i1) * n : nullptr;
+  float* sp = scratch + warp * 16 * kSp;
+
+  stage_tile<T, D>(qs, head + q0 * c3, c3, min(kTile, n - q0), d);
+  stage_kv<T, D>(kvs, head, c3, c, n, 0, d);  // one group with the queries
+
+  float m0 = 0.f, m1 = 0.f;  // the running shift starts at 0: max(rowmax, 0)
+  float l0 = 0.f, l1 = 0.f;  // this thread's part of the running sums
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  uint32_t qf[TC ? D / 16 : 1][4];
+
+  const int ktiles = (n + kTile - 1) / kTile;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int k0 = kt * kTile, nk = min(kTile, n - k0);
+    if (kt + 1 < ktiles) {  // the next tile's copy runs under this tile's products
+      stage_kv<T, D>(kvs, head, c3, c, n, kt + 1, d);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ks = kvs + (kt & 1) * 2 * kTile * LD;
+    const T* vs = ks + kTile * LD;
+
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    if constexpr (TC) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], qs, 16 * warp, 16 * kk, lane);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          load_b_nt<LD>(b, ks, 16 * np, 16 * kk, lane);
+          mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+        }
+    } else {
+      fma_nt<NT, D>(s, qs + 16 * warp * LD, ks, lane);
+    }
+
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * nt + 2 * t + e;
+        if (j < nk) {
+          s[nt][e] = tiled_score(s[nt][e], scale, id_row, id0, bias0, k0 + j);
+          s[nt][2 + e] = tiled_score(s[nt][2 + e], scale, id_row, id1, bias1, k0 + j);
+          mx0 = fmaxf(mx0, s[nt][e]);
+          mx1 = fmaxf(mx1, s[nt][2 + e]);
+        } else {  // the ragged tile's missing keys
+          s[nt][e] = s[nt][2 + e] = -INFINITY;
+        }
+      }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);  // 1 while the max holds
+    m0 = mn0;
+    m1 = mn1;
+    float part0 = 0.f, part1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] = expf(s[nt][e] - mn0);
+        s[nt][2 + e] = expf(s[nt][2 + e] - mn1);
+        part0 += s[nt][e];
+        part1 += s[nt][2 + e];
+      }
+    l0 = l0 * alpha0 + part0;
+    l1 = l1 * alpha1 + part1;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= alpha0;
+      o[dt][1] *= alpha0;
+      o[dt][2] *= alpha1;
+      o[dt][3] *= alpha1;
+    }
+
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) {  // O += round_T(e) V, 16 keys a step
+      if constexpr (TC) {
+        uint32_t a[4];
+        a_from_acc(a, s[2 * kc], s[2 * kc + 1]);
+        mma_nn<D>(o, a, vs, 16 * kc, lane);
+      } else {
+        store_chunk(sp, s[2 * kc], s[2 * kc + 1], lane);
+        __syncwarp();
+        fma_nn<D, false>(o, sp, vs + 16 * kc * LD, lane);
+        __syncwarp();
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const float r0 = 1.f / (quad_sum(l0) + 1e-30f), r1 = 1.f / (quad_sum(l1) + 1e-30f);
+  const long long base = bw * n;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 8 * dt + 2 * t + e;
+      if (ch >= d) continue;
+      if (i0 < n) {
+        const long long at = (base + i0) * c + h * d + ch;
+        ao[at] = from_f32<T>(o[dt][e] * r0);
+        if (o32) o32[at] = o[dt][e] * r0;
+      }
+      if (i1 < n) {
+        const long long at = (base + i1) * c + h * d + ch;
+        ao[at] = from_f32<T>(o[dt][2 + e] * r1);
+        if (o32) o32[at] = o[dt][2 + e] * r1;
+      }
+    }
+  if (t == 0) {
+    float* st = stats + ((bw * heads + h) * (long long)n) * 2;
+    if (i0 < n) {
+      st[2 * i0] = m0;
+      st[2 * i0 + 1] = r0;
+    }
+    if (i1 < n) {
+      st[2 * i1] = m1;
+      st[2 * i1 + 1] = r1;
+    }
+  }
+}
+
+template <typename T, int D>
+constexpr size_t attention_tiled_fwd_smem() {
+  return 5 * kTileBytes<T, D> + (kTensorCores<T> ? 0 : sizeof(float) * kTiledWarps * 16 * kSp);
+}
+
+// ---------------------------------------------------------------------------
+// Backward phase A: query tiles -> dq, dbias, s1
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_bwd_rows_mma_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ dao, const float* __restrict__ o,
+    const float* __restrict__ stats, const float* __restrict__ bias,
+    const int* __restrict__ ids, int ids_rows, T* __restrict__ dqkv,
+    float* __restrict__ dbias, float* __restrict__ dbqkv, float* __restrict__ s1_out, int n,
+    int c, int heads, float scale) {
+  constexpr bool TC = kTensorCores<T>;
+  constexpr int LD = kLd<T, D>, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kTile][LD] the block's queries
+  T* dos = qs + kTile * LD;                // [kTile][LD] their dO
+  T* kvs = dos + kTile * LD;               // [2 stages][K, V][kTile][LD]
+  float* scratch = reinterpret_cast<float*>(kvs + 4 * kTile * LD);  // f32: [warps][16][kSp]
+  float* red = reinterpret_cast<float*>(kvs);  // [warps][D] after the last tile
+
+  const int qtiles = (n + kTile - 1) / kTile;
+  const int q0 = (blockIdx.x % qtiles) * kTile;
+  const int h = (blockIdx.x / qtiles) % heads;
+  const long long bw = blockIdx.x / qtiles / heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int d = c / heads;
+  const long long c3 = 3LL * c, base = bw * n;
+  const T* head = qkv + base * c3 + h * d;
+  const int* id_row = ids ? ids + (bw % ids_rows) * n : nullptr;
+  const int i0 = q0 + 16 * warp + g, i1 = i0 + 8;
+  const bool live0 = i0 < n, live1 = i1 < n;
+  const int id0 = id_row && live0 ? id_row[i0] : 0;
+  const int id1 = id_row && live1 ? id_row[i1] : 0;
+  const float* bias0 = bias && live0 ? bias + ((long long)h * n + i0) * n : nullptr;
+  const float* bias1 = bias && live1 ? bias + ((long long)h * n + i1) * n : nullptr;
+  float* dbias0 = dbias && live0 ? dbias + ((long long)h * n + i0) * n : nullptr;
+  float* dbias1 = dbias && live1 ? dbias + ((long long)h * n + i1) * n : nullptr;
+  const long long srow = (bw * heads + h) * (long long)n;  // the head's first row statistics
+  const float m0 = live0 ? stats[2 * (srow + i0)] : 0.f;
+  const float rinv0 = live0 ? stats[2 * (srow + i0) + 1] : 0.f;
+  const float m1 = live1 ? stats[2 * (srow + i1)] : 0.f;
+  const float rinv1 = live1 ? stats[2 * (srow + i1) + 1] : 0.f;
+  float* sp = scratch + warp * 16 * kSp;
+
+  stage_tile<T, D>(qs, head + q0 * c3, c3, min(kTile, n - q0), d);
+  stage_tile<T, D>(dos, dao + (base + q0) * c + h * d, c, min(kTile, n - q0), d);
+  stage_kv<T, D>(kvs, head, c3, c, n, 0, d);  // one group with Q and dO
+
+  float s1_0 = 0.f, s1_1 = 0.f;  // rowsum(p dp) = dO . o
+  float dq[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+  uint32_t qf[TC ? D / 16 : 1][4], df[TC ? D / 16 : 1][4];
+
+  const int ktiles = (n + kTile - 1) / kTile;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int k0 = kt * kTile, nk = min(kTile, n - k0);
+    if (kt + 1 < ktiles) {
+      stage_kv<T, D>(kvs, head, c3, c, n, kt + 1, d);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+      // s1 of rows i0, i1: the FlashAttention identity on K1f's f32 o, each
+      // lane of the quad a quarter of the channels, then across the quad
+      const T* d0 = dos + (16 * warp + g) * LD;
+      const T* d1 = d0 + 8 * LD;
+      const float* o0 = o + (base + i0) * c + h * d;
+      const float* o1 = o + (base + i1) * c + h * d;
+      for (int ch = t; ch < d; ch += 4) {
+        if (live0) s1_0 = fmaf(to_f32(d0[ch]), o0[ch], s1_0);
+        if (live1) s1_1 = fmaf(to_f32(d1[ch]), o1[ch], s1_1);
+      }
+      s1_0 = quad_sum(s1_0);
+      s1_1 = quad_sum(s1_1);
+      if (t == 0) {
+        if (live0) s1_out[srow + i0] = s1_0;
+        if (live1) s1_out[srow + i1] = s1_1;
+      }
+      if constexpr (TC) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          load_a<LD>(qf[kk], qs, 16 * warp, 16 * kk, lane);
+          load_a<LD>(df[kk], dos, 16 * warp, 16 * kk, lane);
+        }
+      }
+    }
+    const T* ks = kvs + (kt & 1) * 2 * kTile * LD;
+    const T* vs = ks + kTile * LD;
+
+    for (int kc = 0; kc < kTile / 16; ++kc) {  // 16 keys a step
+      if (16 * kc >= nk) break;  // the same for the whole block
+      float sc[2][4] = {}, dp[2][4] = {};
+      if constexpr (TC) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t b[4];
+          load_b_nt<LD>(b, ks, 16 * kc, 16 * kk, lane);
+          mma_bf16(sc[0], qf[kk], b[0], b[1]);
+          mma_bf16(sc[1], qf[kk], b[2], b[3]);
+          load_b_nt<LD>(b, vs, 16 * kc, 16 * kk, lane);
+          mma_bf16(dp[0], df[kk], b[0], b[1]);
+          mma_bf16(dp[1], df[kk], b[2], b[3]);
+        }
+      } else {
+        fma_nt<2, D>(sc, qs + 16 * warp * LD, ks + 16 * kc * LD, lane);
+        fma_nt<2, D>(dp, dos + 16 * warp * LD, vs + 16 * kc * LD, lane);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 16 * kc + 8 * nt + 2 * t + e, key = k0 + j;
+          float ds0 = 0.f, ds1 = 0.f;
+          if (j < nk) {
+            if (live0) {
+              const float p = kept_p(
+                  tiled_score(sc[nt][e], scale, id_row, id0, bias0, key), m0, rinv0);
+              ds0 = tiled_ds(p, dp[nt][e], s1_0);
+              if (dbias0) atomicAdd(&dbias0[key], ds0);
+            }
+            if (live1) {
+              const float p = kept_p(
+                  tiled_score(sc[nt][2 + e], scale, id_row, id1, bias1, key), m1, rinv1);
+              ds1 = tiled_ds(p, dp[nt][2 + e], s1_1);
+              if (dbias1) atomicAdd(&dbias1[key], ds1);
+            }
+          }
+          sc[nt][e] = ds0;
+          sc[nt][2 + e] = ds1;
+        }
+      if constexpr (TC) {  // dq += round_T(ds) K
+        uint32_t a[4];
+        a_from_acc(a, sc[0], sc[1]);
+        mma_nn<D>(dq, a, ks, 16 * kc, lane);
+      } else {
+        store_chunk(sp, sc[0], sc[1], lane);
+        __syncwarp();
+        fma_nn<D, false>(dq, sp, ks + 16 * kc * LD, lane);
+        __syncwarp();
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[dt][e] = (e < 2 ? live0 : live1) ? dq[dt][e] * scale : 0.f;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 8 * dt + 2 * t + e;
+      if (ch >= d) continue;
+      if (live0) dqkv[(base + i0) * c3 + h * d + ch] = from_f32<T>(dq[dt][e]);
+      if (live1) dqkv[(base + i1) * c3 + h * d + ch] = from_f32<T>(dq[dt][2 + e]);
+    }
+  add_column_sums<D>(dbqkv, h * d, d, dq, red, warp, lane);  // the unrounded dq
+}
+
+template <typename T, int D>
+constexpr size_t attention_bwd_rows_smem() {
+  return 6 * kTileBytes<T, D> + (kTensorCores<T> ? 0 : sizeof(float) * kTiledWarps * 16 * kSp);
+}
+
+// ---------------------------------------------------------------------------
+// Backward phase B: key tiles -> dk, dv
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_bwd_keys_mma_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ dao, const float* __restrict__ stats,
+    const float* __restrict__ s1, const float* __restrict__ bias,
+    const int* __restrict__ ids, int ids_rows, T* __restrict__ dqkv,
+    float* __restrict__ dbqkv, int n, int c, int heads, float scale) {
+  constexpr bool TC = kTensorCores<T>;
+  constexpr int LD = kLd<T, D>, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [kTile][LD] the block's keys
+  T* vs = ks + kTile * LD;                 // [kTile][LD] their values
+  T* qds = vs + kTile * LD;                // [2 stages][Q, dO][kTile][LD]
+  float* sts = reinterpret_cast<float*>(qds + 4 * kTile * LD);  // [2 stages][kTile][3]
+  float* scratch = sts + 2 * kTile * 3;    // f32: [warps][2][16][kSp]
+  float* red = reinterpret_cast<float*>(qds);  // [warps][D] after the last tile
+
+  const int ktiles = (n + kTile - 1) / kTile;
+  const int k0 = (blockIdx.x % ktiles) * kTile;
+  const int h = (blockIdx.x / ktiles) % heads;
+  const long long bw = blockIdx.x / ktiles / heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int d = c / heads;
+  const long long c3 = 3LL * c, base = bw * n;
+  const T* head = qkv + base * c3 + h * d;
+  const T* dhead = dao + base * c + h * d;
+  const int* id_row = ids ? ids + (bw % ids_rows) * n : nullptr;
+  const long long srow = (bw * heads + h) * (long long)n;
+  const int kw = 16 * warp;                  // the warp's first key in the tile
+  const int j0 = k0 + kw + g, j1 = j0 + 8;   // this thread's key rows of dk, dv
+  float* sp = scratch + warp * 2 * 16 * kSp;  // p, then ds
+
+  stage_tile<T, D>(ks, head + k0 * c3 + c, c3, min(kTile, n - k0), d);
+  stage_tile<T, D>(vs, head + k0 * c3 + 2 * c, c3, min(kTile, n - k0), d);
+  stage_tile<T, D>(qds, head, c3, min(kTile, n), d);
+  stage_tile<T, D>(qds + kTile * LD, dhead, c, min(kTile, n), d);
+  cp_async_commit();
+  for (int e = threadIdx.x; e < kTile; e += kTiledThreads) {
+    const bool ok = e < n;
+    sts[3 * e] = ok ? stats[2 * (srow + e)] : 0.f;
+    sts[3 * e + 1] = ok ? stats[2 * (srow + e) + 1] : 0.f;
+    sts[3 * e + 2] = ok ? s1[srow + e] : 0.f;
+  }
+
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+
+  const int qtiles = (n + kTile - 1) / kTile;
+  for (int qt = 0; qt < qtiles; ++qt) {
+    const int q0 = qt * kTile, nq = min(kTile, n - q0);
+    if (qt + 1 < qtiles) {
+      const int q1 = q0 + kTile, nq1 = min(kTile, n - q1);
+      T* next = qds + ((qt + 1) & 1) * 2 * kTile * LD;
+      stage_tile<T, D>(next, head + q1 * c3, c3, nq1, d);
+      stage_tile<T, D>(next + kTile * LD, dhead + q1 * c, c, nq1, d);
+      cp_async_commit();
+      float* st = sts + ((qt + 1) & 1) * kTile * 3;
+      for (int e = threadIdx.x; e < kTile; e += kTiledThreads) {
+        const bool ok = e < nq1;
+        st[3 * e] = ok ? stats[2 * (srow + q1 + e)] : 0.f;
+        st[3 * e + 1] = ok ? stats[2 * (srow + q1 + e) + 1] : 0.f;
+        st[3 * e + 2] = ok ? s1[srow + q1 + e] : 0.f;
+      }
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* qs = qds + (qt & 1) * 2 * kTile * LD;
+    const T* dos = qs + kTile * LD;
+    const float* st = sts + (qt & 1) * kTile * 3;
+
+    for (int mi = 0; mi < kTile / 16; ++mi) {  // 16 queries a step
+      if (16 * mi >= nq) break;  // the same for the whole block
+      // S and dp of queries 16 mi.. against the warp's 16 keys: phase A's
+      // products, rows = queries
+      float sc[2][4] = {}, dp[2][4] = {};
+      if constexpr (TC) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t a[4], b[4];
+          load_a<LD>(a, qs, 16 * mi, 16 * kk, lane);
+          load_b_nt<LD>(b, ks, kw, 16 * kk, lane);
+          mma_bf16(sc[0], a, b[0], b[1]);
+          mma_bf16(sc[1], a, b[2], b[3]);
+          load_a<LD>(a, dos, 16 * mi, 16 * kk, lane);
+          load_b_nt<LD>(b, vs, kw, 16 * kk, lane);
+          mma_bf16(dp[0], a, b[0], b[1]);
+          mma_bf16(dp[1], a, b[2], b[3]);
+        }
+      } else {
+        fma_nt<2, D>(sc, qs + 16 * mi * LD, ks + kw * LD, lane);
+        fma_nt<2, D>(dp, dos + 16 * mi * LD, vs + kw * LD, lane);
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {  // query rows g, g + 8 of the step
+        const int il = 16 * mi + g + 8 * hr, i = q0 + il;
+        const bool live = il < nq;
+        const float* sti = st + 3 * il;
+        const int id_i = id_row && live ? id_row[i] : 0;
+        const float* bias_i = bias && live ? bias + ((long long)h * n + i) * n : nullptr;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + kw + 8 * nt + 2 * t + e;
+            float p = 0.f, ds = 0.f;
+            if (live && key < n) {  // phase B's p from the kept statistics
+              p = kept_p(tiled_score(sc[nt][2 * hr + e], scale, id_row, id_i, bias_i, key),
+                         sti[0], sti[1]);
+              ds = tiled_ds(p, dp[nt][2 * hr + e], sti[2]);
+            }
+            sc[nt][2 * hr + e] = p;
+            dp[nt][2 * hr + e] = ds;
+          }
+      }
+      if constexpr (TC) {  // dv += round_T(p)^T dO, dk += round_T(ds)^T Q
+        uint32_t a[4];
+        a_from_acc_t(a, sc[0], sc[1]);
+        mma_nn<D>(dv, a, dos, 16 * mi, lane);
+        a_from_acc_t(a, dp[0], dp[1]);
+        mma_nn<D>(dk, a, qs, 16 * mi, lane);
+      } else {
+        store_chunk(sp, sc[0], sc[1], lane);
+        store_chunk(sp + 16 * kSp, dp[0], dp[1], lane);
+        __syncwarp();
+        fma_nn<D, true>(dv, sp, dos + 16 * mi * LD, lane);
+        fma_nn<D, true>(dk, sp + 16 * kSp, qs + 16 * mi * LD, lane);
+        __syncwarp();
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const bool live0 = j0 < n, live1 = j1 < n;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool live = e < 2 ? live0 : live1;
+      dk[dt][e] = live ? dk[dt][e] * scale : 0.f;
+      dv[dt][e] = live ? dv[dt][e] : 0.f;
+    }
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 8 * dt + 2 * t + e;
+      if (ch >= d) continue;
+      if (live0) {
+        T* row = dqkv + (base + j0) * c3 + h * d + ch;
+        row[c] = from_f32<T>(dk[dt][e]);
+        row[2 * c] = from_f32<T>(dv[dt][e]);
+      }
+      if (live1) {
+        T* row = dqkv + (base + j1) * c3 + h * d + ch;
+        row[c] = from_f32<T>(dk[dt][2 + e]);
+        row[2 * c] = from_f32<T>(dv[dt][2 + e]);
+      }
+    }
+  add_column_sums<D>(dbqkv, c + h * d, d, dk, red, warp, lane);  // the unrounded dk, dv
+  __syncthreads();
+  add_column_sums<D>(dbqkv, 2 * c + h * d, d, dv, red, warp, lane);
+}
+
+template <typename T, int D>
+constexpr size_t attention_bwd_keys_smem() {
+  return 6 * kTileBytes<T, D> + sizeof(float) * 2 * kTile * 3 +
+         (kTensorCores<T> ? 0 : sizeof(float) * kTiledWarps * 2 * 16 * kSp);
+}
+
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int D>
+cudaError_t launch_attention_tiled_d(const T* qkv, const float* bias, const int* ids,
+                                     int ids_rows, T* ao, float* o32, float* stats,
+                                     long long bw, int n, int c, int heads, float scale,
+                                     cudaStream_t stream) {
+  auto kernel = attention_tiled_mma_kernel<T, D>;
+  constexpr size_t smem = attention_tiled_fwd_smem<T, D>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = bw * heads * ((n + kTile - 1) / kTile);
+  kernel<<<(unsigned)blocks, kTiledThreads, smem, stream>>>(qkv, bias, ids, ids_rows, ao, o32,
+                                                           stats, n, c, heads, scale);
+  return cudaGetLastError();
+}
+
+// K1f's key-tiled attention launch: qkv [BW*N, 3C] -> ao [BW*N, C] (T), o32
+// [BW*N, C] (f32; may be null), stats [BW, H, N, 2] (shift, 1 / (sum +
+// 1e-30)). Head dims that are multiples of 16 up to 128.
+template <typename T>
+cudaError_t launch_attention_tiled(const T* qkv, const float* bias, const int* ids,
+                                   int ids_rows, T* ao, float* o32, float* stats, long long bw,
+                                   int n, int c, int heads, float scale, cudaStream_t stream) {
+  const int d = c / heads;
+  if (d % 16 || d > 128) return cudaErrorInvalidValue;
+  if (d <= 32)
+    return launch_attention_tiled_d<T, 32>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n, c,
+                                           heads, scale, stream);
+  if (d <= 64)
+    return launch_attention_tiled_d<T, 64>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n, c,
+                                           heads, scale, stream);
+  return launch_attention_tiled_d<T, 128>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n, c,
+                                          heads, scale, stream);
+}
+
+template <typename T, int D>
+cudaError_t launch_attention_bwd_tiled_d(const T* qkv, const T* dao, const float* o,
+                                         const float* stats, const float* bias, const int* ids,
+                                         int ids_rows, float* s1, T* dqkv, float* dbias,
+                                         float* dbqkv, long long bw, int n, int c, int heads,
+                                         float scale, cudaStream_t stream) {
+  auto rows_kernel = attention_bwd_rows_mma_kernel<T, D>;
+  auto keys_kernel = attention_bwd_keys_mma_kernel<T, D>;
+  constexpr size_t rows_smem = attention_bwd_rows_smem<T, D>();
+  constexpr size_t keys_smem = attention_bwd_keys_smem<T, D>();
+  cudaError_t err = allow_smem(rows_kernel, rows_smem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(keys_kernel, keys_smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = bw * heads * ((n + kTile - 1) / kTile);
+  rows_kernel<<<(unsigned)blocks, kTiledThreads, rows_smem, stream>>>(
+      qkv, dao, o, stats, bias, ids, ids_rows, dqkv, dbias, dbqkv, s1, n, c, heads, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  keys_kernel<<<(unsigned)blocks, kTiledThreads, keys_smem, stream>>>(
+      qkv, dao, stats, s1, bias, ids, ids_rows, dqkv, dbqkv, n, c, heads, scale);
+  return cudaGetLastError();
+}
+
+// K1b's key-tiled attention backward, phases A and B: from qkv, dao (T),
+// K1f's o (f32 [BW*N, C]) and stats [BW, H, N, 2], into dqkv [BW*N, 3C] (T),
+// and added into the zeroed f32 dbias [H, N, N] (may be null: no bias) and
+// dbqkv [3C]; s1 [BW, H, N] f32 is scratch.
+template <typename T>
+cudaError_t launch_attention_bwd_tiled(const T* qkv, const T* dao, const float* o,
+                                       const float* stats, const float* bias, const int* ids,
+                                       int ids_rows, float* s1, T* dqkv, float* dbias,
+                                       float* dbqkv, long long bw, int n, int c, int heads,
+                                       float scale, cudaStream_t stream) {
+  const int d = c / heads;
+  if (d % 16 || d > 128) return cudaErrorInvalidValue;
+  if (d <= 32)
+    return launch_attention_bwd_tiled_d<T, 32>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
+                                               dqkv, dbias, dbqkv, bw, n, c, heads, scale,
+                                               stream);
+  if (d <= 64)
+    return launch_attention_bwd_tiled_d<T, 64>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
+                                               dqkv, dbias, dbqkv, bw, n, c, heads, scale,
+                                               stream);
+  return launch_attention_bwd_tiled_d<T, 128>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
+                                              dqkv, dbias, dbqkv, bw, n, c, heads, scale,
+                                              stream);
+}
+
+}  // namespace

@@ -16,7 +16,10 @@ K1b count their two attention bodies apart: ``attn_half`` /
 ``attn_half_bwd`` for Swin's whole-window body, ``attn_half_tiled`` /
 ``attn_half_bwd_tiled`` for the key-tiled one; K1 and K2 also count their
 residual modes apart (``swin_block_kernels.mode_key``: ``..._post``,
-``..._ls``, ``..._post_ls``). The
+``..._ls``, ``..._post_ls``). The key-tiled attention launches called
+alone (``swin_block_kernels.attention_tiled_launch`` and its backward,
+for the card's launch-level checks) count as ``attention_tiled_launch`` /
+``attention_tiled_bwd_launch``. The
 attention probes (``ops/attn_probe.py``) count per run instead, under the
 run's key, and add the number of CUDA launches the call made (3 for a
 whole half-block, 2 without the attention or without the GEMMs, 1 for a
@@ -43,13 +46,17 @@ launches: collections.Counter = collections.Counter()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "vsn_attn_half_fwd": [_I, _I, *[_P] * 7, _I, *[_P] * 4, _I, *[_P] * 4,
+    "vsn_attn_half_fwd": [_I, _I, *[_P] * 7, _I, *[_P] * 4, _I, *[_P] * 6,
                           _L, _I, _I, _I, _L, _F, _F, _P],
+    "vsn_attention_tiled_fwd": [_I, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I,
+                                _I, _F, _P],
+    "vsn_attention_tiled_bwd": [_I, *[_P] * 6, _I, *[_P] * 4, _L, _I, _I, _I,
+                                _F, _P],
     "vsn_ln_mlp_fwd": [_I, *[_P] * 9, _I, _P, _P, _P, _L, _I, _I, _L, _F,
                        _P],
     "vsn_window_relayout": [_P, _P, _L, _I, _I, _I, _L, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P],
-    "vsn_attn_half_bwd": [_I, _I, *[_P] * 8, _I, *[_P] * 3, _I, *[_P] * 19,
+    "vsn_attn_half_bwd": [_I, _I, *[_P] * 8, _I, *[_P] * 3, _I, *[_P] * 21,
                           _L, _I, _I, _I, _L, _F, _F, _P],
     "vsn_ln_mlp_bwd": [_I, *[_P] * 8, _I, *[_P] * 15, _L, _I, _I, _L, _F,
                        _P],

@@ -17,7 +17,8 @@ The residual gains are per sample: ``gf`` scales the branch forward and
 ``gb`` its cotangent backward (``dbranch = gb * do``, ``dx = lam * do +
 ...``), the (gf, gb) form of ShakeDrop and DropPath. Gains, region ids and
 the static arguments get no gradient, as in the JAX VJP. The backward saves
-only the inputs and recomputes the forward, as the TPU kernels do.
+the inputs and recomputes the forward, as the TPU kernels do, but for K1's
+attention output and (tiled) its softmax statistics, which K1f hands on.
 
 ``attn_half_reference`` / ``ln_mlp_reference`` are the plain versions: the
 same Functions with the plain forward and the explicit plain backward
@@ -30,9 +31,19 @@ K1's attention has two hand-written bodies, chosen by shape
 (``attention_tiled``): Swin's whole-window body, where the head dim is at
 most 32 and K and V of a window (in K1b also Q and dO) fit in shared
 memory, and a key-tiled body everywhere else (ViT: one window of N = 811
-tokens per sample at d = 64). The launch counters name the body:
-``attn_half`` / ``attn_half_bwd`` and ``attn_half_tiled`` /
-``attn_half_bwd_tiled``. A head dim above 128 raises.
+tokens per sample at d = 64): FlashAttention-2 on bf16 mma.sync
+(``csrc/attn_tiled.cuh``). A call takes the same body in both directions:
+the tiled one wherever K1b's choice would take it. The tiled K1f also
+writes each row's softmax statistics (shift, 1 / (sum + 1e-30)) and, for
+bf16, an f32 copy of the attention output; autograd keeps them with ao, and
+the tiled K1b reads them instead of recomputing the softmax (s1 = dO . o).
+The launch counters name the body: ``attn_half`` / ``attn_half_bwd`` and
+``attn_half_tiled`` / ``attn_half_bwd_tiled``. A head dim above 128
+raises, and so does, on the card, a tiled call whose head dim is not a
+multiple of 16. ``attention_tiled_reference`` and
+``attention_tiled_backward_reference`` are the plain versions of the
+tiled body's two launches alone (``attention_tiled_launch`` and
+``attention_tiled_backward_launch`` launch them).
 
 Both kernels take the TPU kernels' two residual modes in band: ``gamma``
 (LayerScale: a [C] f32 scale of the branch before the gains, with its
@@ -63,7 +74,8 @@ from vsn_tpu_torch.ops._build import (
 from vsn_tpu_torch.ops.window_attention import mask_from_ids
 
 LN_EPS = 1e-5
-MAX_HEAD_DIM = 128     # the key-tiled body: up to 4 channels a warp lane
+MAX_HEAD_DIM = 128     # the key-tiled body: head dims 16, 32, ..., 128
+TILED_HEAD_STEP = 16   # the key-tiled body's mma depth
 UNTILED_HEAD_DIM = 32  # the whole-window body: one warp lane a channel
 SMEM_PER_BLOCK = 232448  # shared memory a block may use on sm_90 (227 KB)
 
@@ -86,6 +98,14 @@ def attention_tiled(n: int, d: int, backward: bool = False) -> bool:
     the tiled one."""
     return (d > UNTILED_HEAD_DIM
             or _untiled_smem_bytes(n, d, backward) > SMEM_PER_BLOCK)
+
+
+def _check_tiled_head_dim(what, c, num_heads):
+    """The key-tiled CUDA body takes head dims that are multiples of 16."""
+    if (c // num_heads) % TILED_HEAD_STEP:
+        raise ValueError(f"{what}: head dim {c // num_heads}: the key-tiled "
+                         f"attention takes multiples of {TILED_HEAD_STEP} "
+                         f"up to {MAX_HEAD_DIM}")
 
 
 def _compute_dtype(x):
@@ -203,10 +223,9 @@ def _scores(q, k, bias, ids, scale):
     return s
 
 
-def _attention_parts(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, scale,
-                     num_heads, post_norm=False):
-    """The forward up to the head-merged attention output, as K1 rounds it:
-    returns (y, xhat, rstd, q, k, v, u, r, ao); under post-norm y is x (f32)
+def _qkv_parts(x, norm_w, norm_b, qkv_w, qkv_b, post_norm=False):
+    """K1's launch 1 as it rounds: (y, xhat, rstd, qkv [BW*N, 3C] f32 of
+    values rounded to the activation type); under post-norm y is x (f32)
     and xhat, rstd are None."""
     bw, n, c = x.shape
     cdt = _compute_dtype(x)
@@ -218,7 +237,19 @@ def _attention_parts(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, scale,
     qkv = _mm(y, qkv_w, cdt)
     if qkv_b is not None:
         qkv = qkv + qkv_b
-    qkv = _r(qkv, cdt).reshape(bw, n, 3, num_heads, c // num_heads)
+    return y, xhat, rstd, _r(qkv, cdt)
+
+
+def _attention_parts(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, scale,
+                     num_heads, post_norm=False):
+    """The forward up to the head-merged attention output, as K1 rounds it:
+    returns (y, xhat, rstd, q, k, v, u, r, ao); under post-norm y is x (f32)
+    and xhat, rstd are None."""
+    bw, n, c = x.shape
+    cdt = _compute_dtype(x)
+    y, xhat, rstd, qkv = _qkv_parts(x, norm_w, norm_b, qkv_w, qkv_b,
+                                    post_norm)
+    qkv = qkv.reshape(bw, n, 3, num_heads, c // num_heads)
     q, k, v = qkv.permute(2, 0, 3, 1, 4)                    # [BW, H, N, d]
     s = _scores(q, k, bias, ids, scale)
     m = s.amax(dim=-1, keepdim=True).clamp_min(0.0)
@@ -286,6 +317,50 @@ def attn_half_backward_reference(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
             dgamma)
 
 
+def attention_tiled_reference(qkv, bias, ids, scale, num_heads):
+    """Plain version of the key-tiled K1f attention launch alone: qkv [BW, N,
+    3C] in the activation type -> (ao [BW, N, C] in that type, the row
+    statistics [BW, H, N, 2] f32 (the shift max(rowmax, 0) and 1 / (sum +
+    1e-30)), o [BW, N, C] f32: ao before its rounding)."""
+    bw, n, c3 = qkv.shape
+    cdt = _compute_dtype(qkv)
+    q, k, v = qkv.float().reshape(bw, n, 3, num_heads, -1).permute(
+        2, 0, 3, 1, 4)
+    s = _scores(q, k, bias, ids, scale)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(0.0)
+    u = torch.exp(s - m)
+    r = 1.0 / (u.sum(dim=-1, keepdim=True) + 1e-30)
+    o = ((_r(u, cdt) @ v) * r).transpose(1, 2).reshape(bw, n, c3 // 3)
+    return o.to(qkv.dtype), torch.cat([m, r], dim=-1), o
+
+
+def attention_tiled_backward_reference(qkv, dao, o, stats, bias, ids, scale,
+                                       num_heads):
+    """Plain version of the key-tiled K1b attention launches alone (phases A
+    and B): from qkv [BW, N, 3C] and dao [BW, N, C] in the activation type,
+    and K1f's o [BW, N, C] f32 and row statistics [BW, H, N, 2], p = exp(s -
+    shift) / sum, s1 = dO . o, ds = p dp - s1 p -> (dqkv [BW, N, 3C] in the
+    activation type, dbias [H, N, N] f32 or None without a bias, dbqkv [3C]
+    f32: the column sums of the unrounded dq, dk, dv)."""
+    bw, n, c3 = qkv.shape
+    cdt = _compute_dtype(qkv)
+    q, k, v = qkv.float().reshape(bw, n, 3, num_heads, -1).permute(
+        2, 0, 3, 1, 4)
+    split = lambda t: t.float().reshape(bw, n, num_heads, -1).transpose(1, 2)
+    daoh, oh = split(dao), split(o)
+    p = torch.exp(_scores(q, k, bias, ids, scale) - stats[..., :1]) \
+        * stats[..., 1:]
+    s1 = (daoh * oh).sum(dim=-1, keepdim=True)
+    ds = p * (daoh @ v.transpose(-1, -2)) - s1 * p
+    dsb = _r(ds, cdt)
+    dqkv = torch.stack([(dsb @ k) * scale,
+                        (dsb.transpose(-1, -2) @ q) * scale,
+                        _r(p, cdt).transpose(-1, -2) @ daoh])
+    dqkv = dqkv.permute(1, 3, 0, 2, 4).reshape(bw, n, c3)
+    return (dqkv.to(qkv.dtype), ds.sum(0) if bias is not None else None,
+            dqkv.sum((0, 1)))
+
+
 def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
                 gf, gb, num_heads, gamma=None):
     """Validate K1's arguments (qkv_b, bias, ids, proj_b and gamma may be
@@ -316,16 +391,41 @@ def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
     return ids_rows, _check_gains("attn_half", gf, gb, bw, dev)
 
 
+def _tiled(n, c, num_heads, force_tiled):
+    """Whether a K1 call takes the key-tiled body, forward and backward
+    alike: where K1b's shared memory or the head dim asks for it (which
+    covers K1f's own choice), or ``force_tiled``."""
+    return force_tiled or attention_tiled(n, c // num_heads, backward=True)
+
+
+def _tiled_buffers(x, num_heads):
+    """K1f's tiled outputs beside ao, K1b's inputs: the row statistics [BW,
+    H, N, 2] f32 and, for bf16 x, o [BW, N, C] f32 (None for f32 x: ao is
+    o)."""
+    bw, n, c = x.shape
+    stats = torch.empty((bw, num_heads, n, 2), dtype=torch.float32,
+                        device=x.device)
+    o32 = (torch.empty((bw, n, c), dtype=torch.float32, device=x.device)
+           if x.dtype == torch.bfloat16 else None)
+    return stats, o32
+
+
 def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                       proj_b, gf, gb, scale, num_heads, lam, gamma=None,
                       post_norm=False, force_tiled=False):
     """K1f: launch ``csrc/attn_half.cu``, with the key-tiled attention body
-    where ``attention_tiled`` says so or ``force_tiled``. Returns (out, the
-    attention output ao [BW, N, C]: K1b's input under post-norm)."""
+    where ``_tiled`` says so. Returns (out, the attention output ao [BW, N,
+    C], the row statistics [BW, H, N, 2] and o [BW, N, C] f32 of the tiled
+    body (None untiled; o None for f32 x)): K1b's inputs, ao under post-norm
+    or tiled, the others tiled."""
     ids_rows, nsamp = _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
                                   proj_w, proj_b, gf, gb, num_heads, gamma)
     bw, n, c = x.shape
-    tiled = force_tiled or attention_tiled(n, c // num_heads)
+    tiled = _tiled(n, c, num_heads, force_tiled)
+    stats = o32 = None
+    if tiled:
+        _check_tiled_head_dim("attn_half", c, num_heads)
+        stats, o32 = _tiled_buffers(x, num_heads)
     out = torch.empty_like(x)
     qkv_buf = torch.empty((bw * n, 3 * c), dtype=x.dtype, device=x.device)
     ao_buf = torch.empty_like(x)
@@ -337,25 +437,99 @@ def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
             norm_w.data_ptr(), norm_b.data_ptr(), qkv_w.data_ptr(),
             ptr(qkv_b), ptr(bias), ptr(ids), ids_rows, proj_w.data_ptr(),
             proj_b.data_ptr(), gf.data_ptr(), ptr(gamma), int(post_norm),
-            qkv_buf.data_ptr(), ao_buf.data_ptr(), ptr(branch),
-            out.data_ptr(), bw, n, c, num_heads, (bw // nsamp) * n,
-            float(scale), float(lam), stream_of(x))
+            qkv_buf.data_ptr(), ao_buf.data_ptr(), ptr(o32), ptr(stats),
+            ptr(branch), out.data_ptr(), bw, n, c, num_heads,
+            (bw // nsamp) * n, float(scale), float(lam), stream_of(x))
     check(err, "attn_half")
     launches[mode_key("attn_half_tiled" if tiled else "attn_half", gamma,
                       post_norm)] += 1
-    return out, ao_buf
+    return out, ao_buf, stats, o32
+
+
+def _check_tiled_launch(qkv, bias, ids, num_heads):
+    """Validate a tiled attention launch's arguments; returns ids_rows."""
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention_tiled: qkv dtype {qkv.dtype}")
+    bw, n, c3 = qkv.shape
+    c = c3 // 3
+    if c3 % 3 or c % num_heads or c // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"attention_tiled: qkv {tuple(qkv.shape)} over "
+                         f"{num_heads} heads")
+    _check_tiled_head_dim("attention_tiled", c, num_heads)
+    expect(qkv, "qkv", (bw, n, c3), qkv.dtype, qkv.device)
+    if bias is not None:
+        expect(bias, "bias", (num_heads, n, n), torch.float32, qkv.device)
+    if ids is None:
+        return 1
+    expect(ids, "ids", (ids.shape[0], n), torch.int32, qkv.device)
+    if bw % ids.shape[0]:
+        raise ValueError(f"attention_tiled: {ids.shape[0]} id rows for {bw} "
+                         f"windows")
+    return ids.shape[0]
+
+
+def attention_tiled_launch(qkv, bias, ids, scale, num_heads):
+    """K1f's key-tiled attention launch alone, for the card's launch-level
+    checks (K1 itself launches it inside ``attn_half``): the CUDA kernel for
+    a CUDA tensor, ``attention_tiled_reference`` for a CPU one; same
+    returns (o is ao itself for f32 qkv)."""
+    if qkv.device.type == "cpu":
+        return attention_tiled_reference(qkv, bias, ids, scale, num_heads)
+    ids_rows = _check_tiled_launch(qkv, bias, ids, num_heads)
+    bw, n, c3 = qkv.shape
+    ao = torch.empty((bw, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    stats, o32 = _tiled_buffers(ao, num_heads)
+    with torch.cuda.device(qkv.device):
+        err = library().vsn_attention_tiled_fwd(
+            int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), ptr(bias),
+            ptr(ids), ids_rows, ao.data_ptr(), ptr(o32), stats.data_ptr(), bw,
+            n, c3 // 3, num_heads, float(scale), stream_of(qkv))
+    check(err, "attention_tiled")
+    launches["attention_tiled_launch"] += 1
+    return ao, stats, ao if o32 is None else o32
+
+
+def attention_tiled_backward_launch(qkv, dao, o, stats, bias, ids, scale,
+                                    num_heads):
+    """K1b's key-tiled attention launches alone (phases A and B), for the
+    card's launch-level checks: the CUDA kernels for a CUDA tensor,
+    ``attention_tiled_backward_reference`` for a CPU one; same returns."""
+    if qkv.device.type == "cpu":
+        return attention_tiled_backward_reference(qkv, dao, o, stats, bias,
+                                                  ids, scale, num_heads)
+    ids_rows = _check_tiled_launch(qkv, bias, ids, num_heads)
+    bw, n, c3 = qkv.shape
+    dev = qkv.device
+    expect(dao, "dao", (bw, n, c3 // 3), qkv.dtype, dev)
+    expect(o, "o", (bw, n, c3 // 3), torch.float32, dev)
+    expect(stats, "stats", (bw, num_heads, n, 2), torch.float32, dev)
+    dqkv = torch.empty_like(qkv)
+    s1 = torch.empty((bw, num_heads, n), dtype=torch.float32, device=dev)
+    dbias = (torch.zeros((num_heads, n, n), dtype=torch.float32, device=dev)
+             if bias is not None else None)
+    dbqkv = torch.zeros(c3, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = library().vsn_attention_tiled_bwd(
+            int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), dao.data_ptr(),
+            o.data_ptr(), stats.data_ptr(), ptr(bias), ptr(ids), ids_rows,
+            s1.data_ptr(), dqkv.data_ptr(), ptr(dbias), dbqkv.data_ptr(), bw,
+            n, c3 // 3, num_heads, float(scale), stream_of(qkv))
+    check(err, "attention_tiled_bwd")
+    launches["attention_tiled_bwd_launch"] += 1
+    return dqkv, dbias, dbqkv
 
 
 def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                        gb, dout, scale, num_heads, lam=1.0,
                        _force_tiled=False, proj_b=None, gamma=None,
-                       post_norm=False, ao=None):
+                       post_norm=False, ao=None, stats=None, o32=None):
     """VJP of ``attn_half``: K1b (``csrc/attn_half_bwd.cu``) for a CUDA
-    tensor, with the key-tiled attention backward where ``attention_tiled``
-    says so or ``_force_tiled``; ``attn_half_backward_reference`` for a CPU
-    one (which recomputes ao); same returns. Under post-norm K1b reads
-    ``ao``, K1f's attention output of this call (``_attn_half_kernel``'s
-    second return), where the TPU kernel recomputes it."""
+    tensor, with the key-tiled attention backward where ``_tiled`` says so;
+    ``attn_half_backward_reference`` for a CPU one (which recomputes ao);
+    same returns. Under post-norm, and with the tiled body, K1b reads
+    ``ao``, K1f's attention output of this call, where the TPU kernel
+    recomputes it; the tiled body also reads K1f's row ``stats`` and (bf16)
+    ``o32`` (``_attn_half_kernel``'s second to fourth returns)."""
     if x.device.type == "cpu":
         return attn_half_backward_reference(x, norm_w, norm_b, qkv_w, qkv_b,
                                             bias, ids, proj_w, gb, dout,
@@ -364,15 +538,24 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
     if (gamma is not None or post_norm) and proj_b is None:
         raise ValueError("attn_half_backward: LayerScale and post-norm need "
                          "proj_b")
-    if post_norm:
-        if ao is None:
-            raise ValueError("attn_half_backward: post-norm needs K1f's ao")
-        expect(ao, "ao", tuple(x.shape), x.dtype, x.device)
     ids_rows, nsamp = _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
                                   proj_w, proj_b, gb, gb, num_heads, gamma)
     expect(dout, "dout", tuple(x.shape), x.dtype, x.device)
     bw, n, c = x.shape
-    tiled = _force_tiled or attention_tiled(n, c // num_heads, backward=True)
+    tiled = _tiled(n, c, num_heads, _force_tiled)
+    if tiled:
+        _check_tiled_head_dim("attn_half_backward", c, num_heads)
+        if stats is None or (o32 is None) != (x.dtype == torch.float32):
+            raise ValueError("attn_half_backward: the key-tiled body needs "
+                             "K1f's row statistics (and o32 for bf16)")
+        expect(stats, "stats", (bw, num_heads, n, 2), torch.float32, x.device)
+        if o32 is not None:
+            expect(o32, "o32", tuple(x.shape), torch.float32, x.device)
+    if post_norm or tiled:
+        if ao is None:
+            raise ValueError("attn_half_backward: post-norm and the key-tiled"
+                             " body need K1f's ao")
+        expect(ao, "ao", tuple(x.shape), x.dtype, x.device)
     rows, dev, dt = bw * n, x.device, x.dtype
     # the f32 gradients the kernels add into, zeroed in one buffer
     sizes = (c, c, 3 * c * c, 3 * c, num_heads * n * n if bias is not None
@@ -382,29 +565,31 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
      dgamma) = grads.split(sizes)
     bias_t = None if bias is None else bias.transpose(1, 2).contiguous()
     y = torch.empty((rows, c), dtype=dt, device=dev)
-    stats = torch.empty((rows, 2), dtype=torch.float32, device=dev)
+    ln_stats = torch.empty((rows, 2), dtype=torch.float32, device=dev)
     qkv = torch.empty((rows, 3 * c), dtype=dt, device=dev)
     dao = torch.empty((rows, c), dtype=dt, device=dev)
-    ao = ao if post_norm else torch.empty((rows, c), dtype=dt, device=dev)
+    if not (post_norm or tiled):   # the whole-window body writes ao here
+        ao = torch.empty((rows, c), dtype=dt, device=dev)
     dqkv = torch.empty((rows, 3 * c), dtype=dt, device=dev)
     dy = torch.empty((rows, c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    row_stats = (torch.empty((bw, num_heads, n, 3), dtype=torch.float32,
-                             device=dev) if tiled else None)
+    s1 = (torch.empty((bw, num_heads, n), dtype=torch.float32, device=dev)
+          if tiled else None)
     with torch.cuda.device(dev):
         err = library().vsn_attn_half_bwd(
             int(tiled), int(dt == torch.bfloat16), x.data_ptr(),
             norm_w.data_ptr(), norm_b.data_ptr(), qkv_w.data_ptr(),
             ptr(qkv_b), ptr(bias), ptr(bias_t), ptr(ids), ids_rows,
             proj_w.data_ptr(), ptr(proj_b), ptr(gamma), int(post_norm),
-            gb.data_ptr(), dout.data_ptr(), y.data_ptr(), stats.data_ptr(),
+            gb.data_ptr(), dout.data_ptr(), y.data_ptr(), ln_stats.data_ptr(),
             qkv.data_ptr(), dao.data_ptr(), ao.data_ptr(), dqkv.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
             dqkv_w.data_ptr(), dqkv_b.data_ptr(),
             dbias.data_ptr() if bias is not None else None,
             dproj_w.data_ptr(), dproj_b.data_ptr(),
             dgamma.data_ptr() if gamma is not None else None,
-            ptr(row_stats), bw, n, c, num_heads, (bw // nsamp) * n,
+            ptr(o32), ptr(stats), ptr(s1), bw, n, c, num_heads,
+            (bw // nsamp) * n,
             float(scale), float(lam), stream_of(x))
     check(err, "attn_half_bwd")
     launches[mode_key("attn_half_bwd_tiled" if tiled else "attn_half_bwd",
@@ -418,7 +603,9 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
 
 class _AttnHalf(torch.autograd.Function):
     """K1 with its VJP; ``plain`` selects the plain forward and backward,
-    ``force_tiled`` the key-tiled attention body on any shape."""
+    ``force_tiled`` the key-tiled attention body on any shape. On the card
+    the forward keeps what K1b reads of it: ao under post-norm or with the
+    tiled body, and the tiled body's row statistics and f32 o."""
 
     @staticmethod
     def forward(ctx, plain, force_tiled, x, norm_w, norm_b, qkv_w, qkv_b,
@@ -429,18 +616,20 @@ class _AttnHalf(torch.autograd.Function):
         ctx.plain, ctx.static = plain, (scale, num_heads, lam)
         ctx.force_tiled, ctx.post_norm = force_tiled, post_norm
         if plain:
-            out, ao = attn_half_math(*args), None
+            out, ao, stats, o32 = attn_half_math(*args), None, None, None
         else:
-            out, ao = _attn_half_kernel(*args, force_tiled=force_tiled)
+            out, ao, stats, o32 = _attn_half_kernel(*args,
+                                                    force_tiled=force_tiled)
+            if not (post_norm or stats is not None):
+                ao = None
         ctx.save_for_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
-                              proj_w, gb, proj_b, gamma,
-                              ao if post_norm else None)
+                              proj_w, gb, proj_b, gamma, ao, stats, o32)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         (x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, gb, proj_b,
-         gamma, ao) = ctx.saved_tensors
+         gamma, ao, stats, o32) = ctx.saved_tensors
         args = (x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, gb,
                 dout.contiguous(), *ctx.static)
         mode = dict(proj_b=proj_b, gamma=gamma, post_norm=ctx.post_norm)
@@ -448,7 +637,7 @@ class _AttnHalf(torch.autograd.Function):
             grads = attn_half_backward_reference(*args, **mode)
         else:
             grads = attn_half_backward(*args, _force_tiled=ctx.force_tiled,
-                                       ao=ao, **mode)
+                                       ao=ao, stats=stats, o32=o32, **mode)
         (dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b,
          dgamma) = grads
         return (None, None, dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias,
@@ -473,8 +662,9 @@ def attn_half(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
             differ are masked with -1e9), or None for no mask.
         proj_w: [C, C] f32; proj_b: [C] f32.
         gf, gb: [B] f32 per-sample branch gains, forward and backward.
-        scale, num_heads, lam: attention scale, heads (C / heads <= 128),
-            residual x-gain.
+        scale, num_heads, lam: attention scale, heads (C / heads <= 128;
+            on the card a call that takes the key-tiled body needs a
+            multiple of 16), residual x-gain.
         gamma: [C] f32 LayerScale of the branch (before the gains), or None.
         post_norm: the LayerNorm applies to the proj output, not to x.
         _force_tiled: run the key-tiled attention body (forward and
