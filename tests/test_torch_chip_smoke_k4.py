@@ -29,7 +29,9 @@ def test_k4_bounds_follow_the_shapes():
     252, 252], ids [216, 252]): 4 * 1728 * 252^2 * 96 FLOP (0.043 ms at 989
     TFLOP/s) against qkv, bias and ids read and out written (0.100 ms at
     3.35 TB/s): bound by bytes; K4b does 10 / 4 of the FLOP and moves
-    qkv, bias twice, dout once."""
+    qkv, bias twice, dout once. The state K4f keeps for K4b (the row
+    statistics [1728, 3, 252, 2] f32 and, bf16, the f32 o; in f32, out
+    itself) is the port's design, counted apart and not in the bound."""
     qkv = _meta(1728, 252, 288)
     bias = _meta(3, 252, 252, dtype=torch.float32)
     ids = _meta(216, 252, dtype=torch.int32)
@@ -45,6 +47,11 @@ def test_k4_bounds_follow_the_shapes():
     assert by == "bytes" and ms == pytest.approx(
         (qkv_b + bias_b + ids_b + out) / 3.35e12 * 1e3)
     assert chip_smoke.bound_ms("attention_bwd", calls)[0] > ms
+    stats = 1728 * 3 * 252 * 8
+    assert chip_smoke.k4_kept_bytes(calls[0][1]) == stats + 2 * out
+    f32 = (_meta(1728, 252, 288, dtype=torch.float32), bias, ids,
+           32 ** -0.5, 3)
+    assert chip_smoke.k4_kept_bytes(f32) == stats
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])
@@ -75,6 +82,37 @@ def test_k4_plain_versions_pass_and_every_case_is_covered(k4_calls,
         assert cases <= kinds["tiny"]["attention"]
         assert cases <= bkinds["tiny"]["attention_bwd"]
     chip_smoke.saturation_phase(k4_calls, table, gen, "attention")
+
+
+def test_k4_saturation_and_launch_phases_on_cpu(k4_calls, k4_train_calls):
+    """The K4 saturation phase (45, 200, -200 on a shifted call, then with
+    the top logits in the ragged last key tile of the first call of each
+    N) and the launch-level phase (K4f with its kept state, K4b from it)
+    on the plain versions: they pass, and a wrong kept statistic fails the
+    launch-level phase: a max off by 1, or a 1 / sum off by 0.1%."""
+    from vsn_tpu_torch.ops import window_attention as wa
+
+    if k4_calls[0][1][0].dtype == torch.float32:
+        worst = chip_smoke.k4_saturation_phase(
+            k4_calls, torch.Generator().manual_seed(3))
+        assert worst == [0.0, 0.0]
+    sets = {"tiny": k4_calls, "tiny train": k4_train_calls}
+    assert chip_smoke.k4_launch_parity_phase(
+        sets, torch.Generator().manual_seed(4)) == 0.0
+    plain = wa.window_attention_qkv_kept_reference
+
+    for shift, factor in (([1.0, 0.0], [1.0, 1.0]),
+                          ([0.0, 0.0], [1.0, 1.001])):
+        def wrong_stats(*args):
+            out, stats, o = plain(*args)
+            return out, (stats + torch.tensor(shift)) * torch.tensor(
+                factor), o
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(wa, "window_attention_qkv_launch", wrong_stats)
+            with pytest.raises(AssertionError, match="the K4 launches on"):
+                chip_smoke.k4_launch_parity_phase(
+                    sets, torch.Generator().manual_seed(4))
 
 
 def _ids_row_bw(a):
@@ -205,40 +243,62 @@ def test_dyt_training_phase_rehearsal_on_cpu():
         "loss": 0.0, "grad_norm": 0.0}
 
 
-# One-line edits of csrc/window_attention_qkv.cu that chip_smoke.py must
-# reject on the card (exit 1, in its K4 parity phase): name -> (line, mutant)
-K4_SOURCE = ROOT / "vsn_tpu_torch" / "csrc" / "window_attention_qkv.cu"
+# One-line edits of the lines K4f / K4b run that chip_smoke.py must reject
+# on the card (exit 1): name -> (source, line, mutant, what the failure
+# names). The first four are lines of the key-tiled body (csrc/
+# attn_tiled.cuh) that K1's tiled calls run too, so a run may fail in K1's
+# phase 3 (ViT's calls, with a bias at saturation) before K4's phase 4;
+# the ids row is only K4's in this run (ViT's calls have no ids). The last
+# two are K4's softmax policy (csrc/window_attention_qkv.cu).
+CSRC = ROOT / "vsn_tpu_torch" / "csrc"
+K4_SOURCE = CSRC / "window_attention_qkv.cu"
+TILED_SOURCE = CSRC / "attn_tiled.cuh"
 K4_SOURCE_MUTANTS = {
     "ids row (bw + 1) % W (K4f and K4b)": (
-        "return bw % rows;",
-        "return (bw + 1) % rows;"),
-    "head 0's bias for every head (K4f)": (
-        "const float* bias_h = p.bias + (long long)h * n * n;",
-        "const float* bias_h = p.bias;"),
+        TILED_SOURCE, "return ids ? ids + (bw % ids_rows) * n : nullptr;",
+        "return ids ? ids + ((bw + 1) % ids_rows) * n : nullptr;",
+        "kernels disagree with their plain versions: DyT"),
+    "head 0's bias for every head (K4f and K4b)": (
+        TILED_SOURCE, "return bias + ((long long)h * n + i) * n;",
+        "return bias + (long long)i * n;", "at logits"),
     "dk without scale (K4b)": (
-        "p.dk[at.in(j) + lane] = from_f32<T>(ak * p.scale);",
-        "p.dk[at.in(j) + lane] = from_f32<T>(ak);"),
+        TILED_SOURCE, "dk[dt][e] = live ? dk[dt][e] * scale : 0.f;",
+        "dk[dt][e] = live ? dk[dt][e] : 0.f;",
+        "backward kernels disagree with their plain versions"),
     "dbias from one window (K4b)": (
-        "atomicAdd(&dbias_h[(long long)i * n + j], ds);",
-        "if (bw == 0) atomicAdd(&dbias_h[(long long)i * n + j], ds);"),
+        TILED_SOURCE,
+        "float* dbias0 = dbias && live0 ? bias_row(dbias, h, n, i0) : "
+        "nullptr;",
+        "float* dbias0 = dbias && live0 && bw == 0 ? bias_row(dbias, h, n, "
+        "i0) : nullptr;", "at logits"),
+    "K4's shift started at 0, not -inf (K4f)": (
+        K4_SOURCE, "static constexpr float kShift0 = -INFINITY;",
+        "static constexpr float kShift0 = 0.f;", "K4 at logits -200"),
+    "the bias dropped from K4's score (K4f and K4b)": (
+        K4_SOURCE,
+        "const float s = __fadd_rn(__fmul_rn(acc, scale), bias_i ? bias_i[j] "
+        ": 0.f);",
+        "const float s = __fmul_rn(acc, scale);",
+        "kernels disagree with their plain versions: DyT"),
 }
 
 
 @pytest.mark.parametrize("mutant", sorted(K4_SOURCE_MUTANTS))
 def test_k4_source_mutants_name_one_line_of_the_source(mutant):
-    line, new = K4_SOURCE_MUTANTS[mutant]
-    assert K4_SOURCE.read_text().count(line) == 1 and new != line
+    source, line, new, _ = K4_SOURCE_MUTANTS[mutant]
+    assert source.read_text().count(line) == 1 and new != line
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mutant", sorted(K4_SOURCE_MUTANTS))
 def test_a_mutated_k4_source_makes_chip_smoke_fail(mutant, tmp_path):
-    """chip_smoke.py run from a copy whose K4 source has one line mutated
-    exits 1, failing the K4 parity (forward or backward)."""
-    res = _run_mutated_chip_smoke(K4_SOURCE, *K4_SOURCE_MUTANTS[mutant],
-                                  tmp_path)
+    """chip_smoke.py run from a copy in which one line that K4 runs is
+    mutated exits 1, failing a parity check (K4's, or K1's tiled calls'
+    where the line is theirs too)."""
+    source, line, new, failure = K4_SOURCE_MUTANTS[mutant]
+    res = _run_mutated_chip_smoke(source, line, new, tmp_path)
     assert res.returncode == 1
-    assert "kernels disagree with their plain versions: DyT" in res.stderr
+    assert failure in res.stderr, res.stderr[-2000:]
 
 
 # ---------------------------------------------------------------------------

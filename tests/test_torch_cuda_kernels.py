@@ -492,7 +492,7 @@ def test_window_attention_qkv_matches_plain(dev, dtype, dims, window, shift,
                              (0, 1)), dtype)
 
 
-@pytest.mark.parametrize("logit", [45.0, 200.0])
+@pytest.mark.parametrize("logit", [45.0, 200.0, -200.0])
 def test_window_attention_qkv_at_saturated_logits(dev, logit):
     args = list(_k4_args(dev, (12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96,
                          "shifted", torch.float32))
@@ -506,6 +506,34 @@ def test_window_attention_qkv_at_saturated_logits(dev, logit):
                              (0, 1)), torch.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d", [(2, 4), (2, 12), (3, 32), (2, 64),
+                                     (1, 128)])
+def test_window_attention_qkv_head_dims(dev, dtype, heads, d):
+    """K4 at head dims 4 and 12 (rows of bf16 channels that are not whole
+    16-byte chunks: staged by plain loads; 12 also in f32), 32, 64 and 128
+    (the tiled body's D = 64 and 128) on a shifted stage-1-like call with
+    the ragged key tile (N = 70 = 64 + 6): K4f, K4b's dqkv and dbias, and
+    the kept state against the plain versions."""
+    from vsn_tpu_torch.models.swin3d import shifted_window_region_ids
+
+    g = torch.Generator().manual_seed(d)
+    ids = torch.from_numpy(shifted_window_region_ids(
+        (4, 10, 14), (2, 5, 7), (1, 2, 3))).to(dev)
+    n, c = 70, heads * d
+    args = (torch.randn(2 * ids.shape[0], n, 3 * c, generator=g).to(
+        dev, dtype), torch.randn(heads, n, n, generator=g).to(dev), ids,
+        d ** -0.5, heads)
+    _close(wa.window_attention_qkv(*args),
+           wa.window_attention_qkv_reference(*args), dtype)
+    dout = torch.randn(args[0].shape[:2] + (c,), generator=g).to(dev, dtype)
+    _close_grads(_grads(wa.window_attention_qkv, args, dout, (0, 1)),
+                 _grads(wa.window_attention_qkv_reference, args, dout,
+                        (0, 1)), dtype)
+    rows = chip_smoke.k4_launch_compare(args, dout)
+    assert all(ok for *_, ok in rows), rows
+
+
 def test_window_attention_qkv_rejects_what_the_kernels_do_not_take(dev):
     args = list(_k4_args(dev, (4, 6, 4), (2, 3, 2), (1, 1, 1), 2, 16,
                          "shifted", torch.float32))
@@ -515,6 +543,12 @@ def test_window_attention_qkv_rejects_what_the_kernels_do_not_take(dev):
         new[i] = bad
         with pytest.raises((TypeError, ValueError)):
             wa.window_attention_qkv(*new)
+    qkv = torch.zeros(args[0].shape[:2] + (3 * 2 * 40,), device=dev)
+    with pytest.raises(ValueError, match="head dims"):   # d = 40
+        wa.window_attention_qkv(qkv, args[1], args[2], 40 ** -0.5, 2)
+    with pytest.raises(ValueError, match="kept o"):
+        wa.window_attention_qkv_backward(*args[:3], qkv[..., :16],
+                                         *args[3:])
 
 
 def _v1_args(dev, dims, window, shift, heads, c, ids_kind, dtype):
@@ -632,9 +666,11 @@ def test_v1_and_v3_at_saturated_logits(dev, logit):
         _close_grads(got, _grads(ref, args, dout, diff), torch.float32)
 
 
-def test_v1_and_v3_equal_k4_on_the_same_values(dev):
-    """One kernel body on three layouts: V1f and V3f give K4f's output bit
-    for bit (heads merged, windows partitioned)."""
+def test_v1_equals_v3_and_both_agree_with_k4(dev):
+    """V1 and V3 share the FMA body: V1f gives V3f's output bit for bit
+    (heads merged, windows partitioned). K4 runs the key-tiled body, which
+    rounds e to bf16 before e v: each is within the bf16 parity limit (2e-2
+    of the scale) of K4f's output."""
     from vsn_tpu_torch.models.swin3d import window_partition
 
     shape = ((12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96, "shifted",
@@ -643,10 +679,12 @@ def test_v1_and_v3_equal_k4_on_the_same_values(dev):
     ref = wa.window_attention_qkv(*k4)
     out = wa.window_attention(*_v1_args(dev, *shape))
     bw, heads, n, d = out.shape
-    assert torch.equal(out.transpose(1, 2).reshape(bw, n, heads * d), ref)
+    v1 = out.transpose(1, 2).reshape(bw, n, heads * d)
     v3 = _v3_args(dev, *shape)
-    assert torch.equal(window_partition(wa.window_attention_windows(*v3),
-                                        v3[5]), ref)
+    v3 = window_partition(wa.window_attention_windows(*v3), v3[5])
+    assert torch.equal(v1, v3)
+    _close(v1, ref, torch.bfloat16)
+    _close(v3, ref, torch.bfloat16)
 
 
 def test_v1_and_v3_reject_what_the_kernels_do_not_take(dev):
@@ -748,15 +786,17 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
 # One-line edits of K1's key-tiled body that chip_smoke.py must reject on
 # the card (exit 1, in its phase 3: parity on ViT's calls or the saturation
 # with the top logits in the ragged last key tile): name -> (source, line,
-# its mutant)
+# its mutant). The clamp and s1's term of ds are K1's softmax policy
+# (``K1Softmax``); the other lines K4's tiled kernels run too, but K1's
+# phase 3 comes first.
 _CSRC = Path(__file__).resolve().parent.parent / "vsn_tpu_torch" / "csrc"
 TILED_SOURCE_MUTANTS = {
     "K1f: the ragged tile's missing keys scored 0, not -inf": (
         "attn_tiled.cuh", "s[nt][e] = s[nt][2 + e] = -INFINITY;",
         "s[nt][e] = s[nt][2 + e] = 0.f;"),
     "K1f: the max(rowmax, 0) clamp dropped": (
-        "attn_tiled.cuh", "float m0 = 0.f, m1 = 0.f;",
-        "float m0 = -INFINITY, m1 = -INFINITY;"),
+        "attn_tiled.cuh", "static constexpr float kShift0 = 0.f;",
+        "static constexpr float kShift0 = -INFINITY;"),
     "K1f: no rescale of l and O when the running max grows": (
         "attn_tiled.cuh",
         "const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);",

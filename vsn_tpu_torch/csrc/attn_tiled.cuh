@@ -1,8 +1,10 @@
-// K1's key-tiled attention body, forward (K1f's launch 2) and backward (K1b's
-// launch 4, phases A and B), for a head dim d that is a multiple of 16 up to
-// 128 and any N: ViT's calls (vsn_tpu/models/vit3d.py _fused_attn_half, one
-// window of N = 811 tokens per sample at d = 64), and Swin's (d = 32) when the
-// caller forces it.
+// The key-tiled attention body, forward and backward (phases A and B), for
+// any N: K1's (K1f's launch 2, K1b's launch 4) at a head dim d that is a
+// multiple of 16 up to 128: ViT's calls (vsn_tpu/models/vit3d.py
+// _fused_attn_half, one window of N = 811 tokens per sample at d = 64), and
+// Swin's (d = 32) when the caller forces it; and K4f / K4b, the unfused Swin
+// block's window attention on packed qkv (window_attention_qkv.cu), under
+// K4's softmax policy (below).
 //
 // Replaces the attention chain of vsn_tpu/ops/swin_block_kernels.py
 // _heads_attention_fwd / _heads_attention_bwd (:169-226, :292-336), which the
@@ -71,8 +73,18 @@
 // dv and ds before dq / dk are rounded to T; dbias takes ds unrounded.
 //
 // Head dims: the body is compiled for D = 32, 64 and 128; a head dim d < D
-// (a multiple of 16) stages its channels d..D-1 as zeros, which add exactly 0
-// to every product.
+// stages its channels d..D-1 as zeros, which add exactly 0 to every product.
+// K1 takes multiples of 16 up to 128.
+//
+// Softmax policies. The kernels are templated on a policy P that says how a
+// score is formed from its product, where the running shift starts, what the
+// row sum adds, how ds is formed, whether dbqkv's column sums are taken and
+// whether rows may be staged by plain loads. ``K1Softmax`` (here) is
+// K1's, as described above; ``K4Softmax`` (window_attention_qkv.cu) is K4's:
+// the score (dot * scale + bias) + mask, the plain row max (the shift starts
+// at -inf), no epsilon, ds = p (dp - s1), no dbqkv, any head dim up to 32,
+// whose rows are staged by plain loads where they are not whole 16-byte
+// chunks.
 
 #pragma once
 
@@ -124,11 +136,20 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Copy rows [0, nrows) x channels [0, d) of a [rows][stride] T array into a
 // staged tile; the tile's other rows and channels (up to kTile x D) are
-// zero-filled, so they add exactly 0 to a product.
-template <typename T, int D>
+// zero-filled, so they add exactly 0 to a product. By 16-byte cp.async
+// copies, or, where the policy allows and ``plain`` asks for it (a row whose
+// channels are not whole 16-byte chunks), by plain element copies.
+template <typename T, int D, typename P>
 __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long stride, int nrows,
-                                           int d) {
+                                           int d, bool plain) {
   constexpr int E = 16 / (int)sizeof(T), CPR = D / E, LD = kLd<T, D>;
+  if (P::kPlainLoads && plain) {
+    for (int e = threadIdx.x; e < kTile * D; e += kTiledThreads) {
+      const int r = e / D, ch = e % D;
+      dst[r * LD + ch] = r < nrows && ch < d ? src[r * stride + ch] : from_f32<T>(0.f);
+    }
+    return;
+  }
   for (int e = threadIdx.x; e < kTile * CPR; e += kTiledThreads) {
     const int r = e / CPR, cc = e % CPR;
     const bool ok = r < nrows && cc * E < d;
@@ -140,15 +161,15 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long strid
 // rows 3C apart) into buffer kt % 2 of kvs [2][K, V][kTile][LD], and commit
 // the copies as one group. The last tile is ragged (811 = 12 x 64 + 43): its
 // missing keys stage as zero rows.
-template <typename T, int D>
+template <typename T, int D, typename P>
 __device__ __forceinline__ void stage_kv(T* kvs, const T* head, long long c3, int c, int n,
-                                         int kt, int d) {
+                                         int kt, int d, bool plain) {
   constexpr int LD = kLd<T, D>;
   T* dst = kvs + (kt & 1) * 2 * kTile * LD;
   const T* src = head + (long long)kt * kTile * c3;
   const int nk = min(kTile, n - kt * kTile);
-  stage_tile<T, D>(dst, src + c, c3, nk, d);
-  stage_tile<T, D>(dst + kTile * LD, src + 2 * c, c3, nk, d);
+  stage_tile<T, D, P>(dst, src + c, c3, nk, d, plain);
+  stage_tile<T, D, P>(dst + kTile * LD, src + 2 * c, c3, nk, d, plain);
   cp_async_commit();
 }
 
@@ -331,22 +352,44 @@ __device__ __forceinline__ void fma_nn(float (&acc)[D / 8][4], const float* sp, 
 // Scores and probabilities, the same operations in every kernel
 // ---------------------------------------------------------------------------
 
-// The masked, biased, scaled score of query i, key j from its product.
-__device__ __forceinline__ float tiled_score(float acc, float scale, const int* id_row,
-                                             int id_i, const float* bias_i, int j) {
-  float s = __fmul_rn(acc, scale);
-  if (id_row) s = __fadd_rn(s, id_row[j] != id_i ? kNegInf : 0.f);
-  if (bias_i) s = __fadd_rn(s, bias_i[j]);
-  return s;
+// K1's softmax policy (see the header; K4's is K4Softmax in
+// window_attention_qkv.cu).
+struct K1Softmax {
+  static constexpr float kShift0 = 0.f;       // the running shift: max(rowmax, 0)
+  static constexpr float kSumEps = 1e-30f;    // a fully masked row gives 0
+  static constexpr bool kColumnSums = true;   // dbqkv
+  static constexpr bool kPlainLoads = false;  // rows of whole 16-byte chunks only
+
+  // The masked, biased, scaled score of query i, key j from its product.
+  static __device__ __forceinline__ float score(float acc, float scale, const int* id_row,
+                                                int id_i, const float* bias_i, int j) {
+    float s = __fmul_rn(acc, scale);
+    if (id_row) s = __fadd_rn(s, id_row[j] != id_i ? kNegInf : 0.f);
+    if (bias_i) s = __fadd_rn(s, bias_i[j]);
+    return s;
+  }
+
+  static __device__ __forceinline__ float ds(float p, float dp, float s1) {
+    return __fsub_rn(__fmul_rn(p, dp), __fmul_rn(s1, p));
+  }
+};
+
+// The ids row of window bw (row bw % ids_rows), null without ids.
+__device__ __forceinline__ const int* window_ids(const int* ids, long long bw, int ids_rows,
+                                                 int n) {
+  return ids ? ids + (bw % ids_rows) * n : nullptr;
 }
 
-// p from K1f's row statistics (shift m, 1 / (l + 1e-30)).
+// Row i of head h of a [H, N, N] bias (or of its gradient).
+template <typename F>
+__device__ __forceinline__ F* bias_row(F* bias, int h, int n, int i) {
+  return bias + ((long long)h * n + i) * n;
+}
+
+// p from the forward's kept row statistics (shift m, 1 / (the row sum + the
+// policy's epsilon)).
 __device__ __forceinline__ float kept_p(float s, float m, float rinv) {
   return __fmul_rn(expf(__fsub_rn(s, m)), rinv);
-}
-
-__device__ __forceinline__ float tiled_ds(float p, float dp, float s1) {
-  return __fsub_rn(__fmul_rn(p, dp), __fmul_rn(s1, p));
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
@@ -387,14 +430,14 @@ __device__ __forceinline__ void add_column_sums(float* dbqkv, int col0, int d,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: K1f's attention launch
+// Forward: K1f's and K4f's attention launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, typename P>
 __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_tiled_mma_kernel(
     const T* __restrict__ qkv, const float* __restrict__ bias, const int* __restrict__ ids,
     int ids_rows, T* __restrict__ ao, float* __restrict__ o32, float* __restrict__ stats,
-    int n, int c, int heads, float scale) {
+    int n, int c, int heads, float scale, bool plain) {
   constexpr bool TC = kTensorCores<T>;
   constexpr int LD = kLd<T, D>, NT = kTile / 8, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -410,18 +453,18 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   const int d = c / heads;
   const long long c3 = 3LL * c;
   const T* head = qkv + bw * n * c3 + h * d;  // q of the window's token 0
-  const int* id_row = ids ? ids + (bw % ids_rows) * n : nullptr;
+  const int* id_row = window_ids(ids, bw, ids_rows, n);
   const int i0 = q0 + 16 * warp + g, i1 = i0 + 8;  // this thread's rows
   const int id0 = id_row && i0 < n ? id_row[i0] : 0;
   const int id1 = id_row && i1 < n ? id_row[i1] : 0;
-  const float* bias0 = bias && i0 < n ? bias + ((long long)h * n + i0) * n : nullptr;
-  const float* bias1 = bias && i1 < n ? bias + ((long long)h * n + i1) * n : nullptr;
+  const float* bias0 = bias && i0 < n ? bias_row(bias, h, n, i0) : nullptr;
+  const float* bias1 = bias && i1 < n ? bias_row(bias, h, n, i1) : nullptr;
   float* sp = scratch + warp * 16 * kSp;
 
-  stage_tile<T, D>(qs, head + q0 * c3, c3, min(kTile, n - q0), d);
-  stage_kv<T, D>(kvs, head, c3, c, n, 0, d);  // one group with the queries
+  stage_tile<T, D, P>(qs, head + q0 * c3, c3, min(kTile, n - q0), d, plain);
+  stage_kv<T, D, P>(kvs, head, c3, c, n, 0, d, plain);  // one group with the queries
 
-  float m0 = 0.f, m1 = 0.f;  // the running shift starts at 0: max(rowmax, 0)
+  float m0 = P::kShift0, m1 = P::kShift0;  // the running shift
   float l0 = 0.f, l1 = 0.f;  // this thread's part of the running sums
   float o[DT][4];
 #pragma unroll
@@ -432,7 +475,7 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   for (int kt = 0; kt < ktiles; ++kt) {
     const int k0 = kt * kTile, nk = min(kTile, n - k0);
     if (kt + 1 < ktiles) {  // the next tile's copy runs under this tile's products
-      stage_kv<T, D>(kvs, head, c3, c, n, kt + 1, d);
+      stage_kv<T, D, P>(kvs, head, c3, c, n, kt + 1, d, plain);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -469,8 +512,8 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
       for (int e = 0; e < 2; ++e) {
         const int j = 8 * nt + 2 * t + e;
         if (j < nk) {
-          s[nt][e] = tiled_score(s[nt][e], scale, id_row, id0, bias0, k0 + j);
-          s[nt][2 + e] = tiled_score(s[nt][2 + e], scale, id_row, id1, bias1, k0 + j);
+          s[nt][e] = P::score(s[nt][e], scale, id_row, id0, bias0, k0 + j);
+          s[nt][2 + e] = P::score(s[nt][2 + e], scale, id_row, id1, bias1, k0 + j);
           mx0 = fmaxf(mx0, s[nt][e]);
           mx1 = fmaxf(mx1, s[nt][2 + e]);
         } else {  // the ragged tile's missing keys
@@ -478,7 +521,8 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
         }
       }
     const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);  // 1 while the max holds
+    // 1 while the max holds; 0 at K4's first tile (exp(-inf))
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float part0 = 0.f, part1 = 0.f;
@@ -517,7 +561,7 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  const float r0 = 1.f / (quad_sum(l0) + 1e-30f), r1 = 1.f / (quad_sum(l1) + 1e-30f);
+  const float r0 = 1.f / (quad_sum(l0) + P::kSumEps), r1 = 1.f / (quad_sum(l1) + P::kSumEps);
   const long long base = bw * n;
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt)
@@ -558,13 +602,13 @@ constexpr size_t attention_tiled_fwd_smem() {
 // Backward phase A: query tiles -> dq, dbias, s1
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, typename P>
 __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_bwd_rows_mma_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dao, const float* __restrict__ o,
     const float* __restrict__ stats, const float* __restrict__ bias,
     const int* __restrict__ ids, int ids_rows, T* __restrict__ dqkv,
     float* __restrict__ dbias, float* __restrict__ dbqkv, float* __restrict__ s1_out, int n,
-    int c, int heads, float scale) {
+    int c, int heads, float scale, bool plain) {
   constexpr bool TC = kTensorCores<T>;
   constexpr int LD = kLd<T, D>, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -582,15 +626,15 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   const int d = c / heads;
   const long long c3 = 3LL * c, base = bw * n;
   const T* head = qkv + base * c3 + h * d;
-  const int* id_row = ids ? ids + (bw % ids_rows) * n : nullptr;
+  const int* id_row = window_ids(ids, bw, ids_rows, n);
   const int i0 = q0 + 16 * warp + g, i1 = i0 + 8;
   const bool live0 = i0 < n, live1 = i1 < n;
   const int id0 = id_row && live0 ? id_row[i0] : 0;
   const int id1 = id_row && live1 ? id_row[i1] : 0;
-  const float* bias0 = bias && live0 ? bias + ((long long)h * n + i0) * n : nullptr;
-  const float* bias1 = bias && live1 ? bias + ((long long)h * n + i1) * n : nullptr;
-  float* dbias0 = dbias && live0 ? dbias + ((long long)h * n + i0) * n : nullptr;
-  float* dbias1 = dbias && live1 ? dbias + ((long long)h * n + i1) * n : nullptr;
+  const float* bias0 = bias && live0 ? bias_row(bias, h, n, i0) : nullptr;
+  const float* bias1 = bias && live1 ? bias_row(bias, h, n, i1) : nullptr;
+  float* dbias0 = dbias && live0 ? bias_row(dbias, h, n, i0) : nullptr;
+  float* dbias1 = dbias && live1 ? bias_row(dbias, h, n, i1) : nullptr;
   const long long srow = (bw * heads + h) * (long long)n;  // the head's first row statistics
   const float m0 = live0 ? stats[2 * (srow + i0)] : 0.f;
   const float rinv0 = live0 ? stats[2 * (srow + i0) + 1] : 0.f;
@@ -598,9 +642,9 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   const float rinv1 = live1 ? stats[2 * (srow + i1) + 1] : 0.f;
   float* sp = scratch + warp * 16 * kSp;
 
-  stage_tile<T, D>(qs, head + q0 * c3, c3, min(kTile, n - q0), d);
-  stage_tile<T, D>(dos, dao + (base + q0) * c + h * d, c, min(kTile, n - q0), d);
-  stage_kv<T, D>(kvs, head, c3, c, n, 0, d);  // one group with Q and dO
+  stage_tile<T, D, P>(qs, head + q0 * c3, c3, min(kTile, n - q0), d, plain);
+  stage_tile<T, D, P>(dos, dao + (base + q0) * c + h * d, c, min(kTile, n - q0), d, plain);
+  stage_kv<T, D, P>(kvs, head, c3, c, n, 0, d, plain);  // one group with Q and dO
 
   float s1_0 = 0.f, s1_1 = 0.f;  // rowsum(p dp) = dO . o
   float dq[DT][4];
@@ -612,7 +656,7 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   for (int kt = 0; kt < ktiles; ++kt) {
     const int k0 = kt * kTile, nk = min(kTile, n - k0);
     if (kt + 1 < ktiles) {
-      stage_kv<T, D>(kvs, head, c3, c, n, kt + 1, d);
+      stage_kv<T, D, P>(kvs, head, c3, c, n, kt + 1, d, plain);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -673,14 +717,14 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
           if (j < nk) {
             if (live0) {
               const float p = kept_p(
-                  tiled_score(sc[nt][e], scale, id_row, id0, bias0, key), m0, rinv0);
-              ds0 = tiled_ds(p, dp[nt][e], s1_0);
+                  P::score(sc[nt][e], scale, id_row, id0, bias0, key), m0, rinv0);
+              ds0 = P::ds(p, dp[nt][e], s1_0);
               if (dbias0) atomicAdd(&dbias0[key], ds0);
             }
             if (live1) {
               const float p = kept_p(
-                  tiled_score(sc[nt][2 + e], scale, id_row, id1, bias1, key), m1, rinv1);
-              ds1 = tiled_ds(p, dp[nt][2 + e], s1_1);
+                  P::score(sc[nt][2 + e], scale, id_row, id1, bias1, key), m1, rinv1);
+              ds1 = P::ds(p, dp[nt][2 + e], s1_1);
               if (dbias1) atomicAdd(&dbias1[key], ds1);
             }
           }
@@ -714,7 +758,8 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
       if (live0) dqkv[(base + i0) * c3 + h * d + ch] = from_f32<T>(dq[dt][e]);
       if (live1) dqkv[(base + i1) * c3 + h * d + ch] = from_f32<T>(dq[dt][2 + e]);
     }
-  add_column_sums<D>(dbqkv, h * d, d, dq, red, warp, lane);  // the unrounded dq
+  if constexpr (P::kColumnSums)
+    add_column_sums<D>(dbqkv, h * d, d, dq, red, warp, lane);  // the unrounded dq
 }
 
 template <typename T, int D>
@@ -726,12 +771,12 @@ constexpr size_t attention_bwd_rows_smem() {
 // Backward phase B: key tiles -> dk, dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, typename P>
 __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_bwd_keys_mma_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dao, const float* __restrict__ stats,
     const float* __restrict__ s1, const float* __restrict__ bias,
     const int* __restrict__ ids, int ids_rows, T* __restrict__ dqkv,
-    float* __restrict__ dbqkv, int n, int c, int heads, float scale) {
+    float* __restrict__ dbqkv, int n, int c, int heads, float scale, bool plain) {
   constexpr bool TC = kTensorCores<T>;
   constexpr int LD = kLd<T, D>, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -751,16 +796,16 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   const long long c3 = 3LL * c, base = bw * n;
   const T* head = qkv + base * c3 + h * d;
   const T* dhead = dao + base * c + h * d;
-  const int* id_row = ids ? ids + (bw % ids_rows) * n : nullptr;
+  const int* id_row = window_ids(ids, bw, ids_rows, n);
   const long long srow = (bw * heads + h) * (long long)n;
   const int kw = 16 * warp;                  // the warp's first key in the tile
   const int j0 = k0 + kw + g, j1 = j0 + 8;   // this thread's key rows of dk, dv
   float* sp = scratch + warp * 2 * 16 * kSp;  // p, then ds
 
-  stage_tile<T, D>(ks, head + k0 * c3 + c, c3, min(kTile, n - k0), d);
-  stage_tile<T, D>(vs, head + k0 * c3 + 2 * c, c3, min(kTile, n - k0), d);
-  stage_tile<T, D>(qds, head, c3, min(kTile, n), d);
-  stage_tile<T, D>(qds + kTile * LD, dhead, c, min(kTile, n), d);
+  stage_tile<T, D, P>(ks, head + k0 * c3 + c, c3, min(kTile, n - k0), d, plain);
+  stage_tile<T, D, P>(vs, head + k0 * c3 + 2 * c, c3, min(kTile, n - k0), d, plain);
+  stage_tile<T, D, P>(qds, head, c3, min(kTile, n), d, plain);
+  stage_tile<T, D, P>(qds + kTile * LD, dhead, c, min(kTile, n), d, plain);
   cp_async_commit();
   for (int e = threadIdx.x; e < kTile; e += kTiledThreads) {
     const bool ok = e < n;
@@ -781,8 +826,8 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
     if (qt + 1 < qtiles) {
       const int q1 = q0 + kTile, nq1 = min(kTile, n - q1);
       T* next = qds + ((qt + 1) & 1) * 2 * kTile * LD;
-      stage_tile<T, D>(next, head + q1 * c3, c3, nq1, d);
-      stage_tile<T, D>(next + kTile * LD, dhead + q1 * c, c, nq1, d);
+      stage_tile<T, D, P>(next, head + q1 * c3, c3, nq1, d, plain);
+      stage_tile<T, D, P>(next + kTile * LD, dhead + q1 * c, c, nq1, d, plain);
       cp_async_commit();
       float* st = sts + ((qt + 1) & 1) * kTile * 3;
       for (int e = threadIdx.x; e < kTile; e += kTiledThreads) {
@@ -828,7 +873,7 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
         const bool live = il < nq;
         const float* sti = st + 3 * il;
         const int id_i = id_row && live ? id_row[i] : 0;
-        const float* bias_i = bias && live ? bias + ((long long)h * n + i) * n : nullptr;
+        const float* bias_i = bias && live ? bias_row(bias, h, n, i) : nullptr;
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -836,9 +881,9 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
             const int key = k0 + kw + 8 * nt + 2 * t + e;
             float p = 0.f, ds = 0.f;
             if (live && key < n) {  // phase B's p from the kept statistics
-              p = kept_p(tiled_score(sc[nt][2 * hr + e], scale, id_row, id_i, bias_i, key),
+              p = kept_p(P::score(sc[nt][2 * hr + e], scale, id_row, id_i, bias_i, key),
                          sti[0], sti[1]);
-              ds = tiled_ds(p, dp[nt][2 * hr + e], sti[2]);
+              ds = P::ds(p, dp[nt][2 * hr + e], sti[2]);
             }
             sc[nt][2 * hr + e] = p;
             dp[nt][2 * hr + e] = ds;
@@ -888,9 +933,11 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
         row[2 * c] = from_f32<T>(dv[dt][2 + e]);
       }
     }
-  add_column_sums<D>(dbqkv, c + h * d, d, dk, red, warp, lane);  // the unrounded dk, dv
-  __syncthreads();
-  add_column_sums<D>(dbqkv, 2 * c + h * d, d, dv, red, warp, lane);
+  if constexpr (P::kColumnSums) {
+    add_column_sums<D>(dbqkv, c + h * d, d, dk, red, warp, lane);  // the unrounded dk, dv
+    __syncthreads();
+    add_column_sums<D>(dbqkv, 2 * c + h * d, d, dv, red, warp, lane);
+  }
 }
 
 template <typename T, int D>
@@ -908,48 +955,57 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
+// Whether the policy P takes head dim d: multiples of 16 up to 128, and with
+// plain loads also any d up to 32 (all compiled as D = 32).
+template <typename P>
+constexpr bool takes_head_dim(int d) {
+  return d > 0 && d <= 128 && (d % 16 == 0 || (P::kPlainLoads && d <= 32));
+}
+
+template <typename T, int D, typename P>
 cudaError_t launch_attention_tiled_d(const T* qkv, const float* bias, const int* ids,
                                      int ids_rows, T* ao, float* o32, float* stats,
                                      long long bw, int n, int c, int heads, float scale,
-                                     cudaStream_t stream) {
-  auto kernel = attention_tiled_mma_kernel<T, D>;
+                                     bool plain, cudaStream_t stream) {
+  auto kernel = attention_tiled_mma_kernel<T, D, P>;
   constexpr size_t smem = attention_tiled_fwd_smem<T, D>();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = bw * heads * ((n + kTile - 1) / kTile);
   kernel<<<(unsigned)blocks, kTiledThreads, smem, stream>>>(qkv, bias, ids, ids_rows, ao, o32,
-                                                           stats, n, c, heads, scale);
+                                                           stats, n, c, heads, scale, plain);
   return cudaGetLastError();
 }
 
-// K1f's key-tiled attention launch: qkv [BW*N, 3C] -> ao [BW*N, C] (T), o32
-// [BW*N, C] (f32; may be null), stats [BW, H, N, 2] (shift, 1 / (sum +
-// 1e-30)). Head dims that are multiples of 16 up to 128.
-template <typename T>
+// The key-tiled attention launch under policy P (K1f's by default): qkv
+// [BW*N, 3C] -> ao [BW*N, C] (T), o32 [BW*N, C] (f32; may be null), stats
+// [BW, H, N, 2] (shift, 1 / (sum + P::kSumEps)). ``plain`` stages rows by
+// plain loads (a policy with kPlainLoads only).
+template <typename T, typename P = K1Softmax>
 cudaError_t launch_attention_tiled(const T* qkv, const float* bias, const int* ids,
                                    int ids_rows, T* ao, float* o32, float* stats, long long bw,
-                                   int n, int c, int heads, float scale, cudaStream_t stream) {
+                                   int n, int c, int heads, float scale, cudaStream_t stream,
+                                   bool plain = false) {
   const int d = c / heads;
-  if (d % 16 || d > 128) return cudaErrorInvalidValue;
+  if (!takes_head_dim<P>(d)) return cudaErrorInvalidValue;
   if (d <= 32)
-    return launch_attention_tiled_d<T, 32>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n, c,
-                                           heads, scale, stream);
+    return launch_attention_tiled_d<T, 32, P>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n,
+                                              c, heads, scale, plain, stream);
   if (d <= 64)
-    return launch_attention_tiled_d<T, 64>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n, c,
-                                           heads, scale, stream);
-  return launch_attention_tiled_d<T, 128>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n, c,
-                                          heads, scale, stream);
+    return launch_attention_tiled_d<T, 64, P>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n,
+                                              c, heads, scale, plain, stream);
+  return launch_attention_tiled_d<T, 128, P>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n,
+                                             c, heads, scale, plain, stream);
 }
 
-template <typename T, int D>
+template <typename T, int D, typename P>
 cudaError_t launch_attention_bwd_tiled_d(const T* qkv, const T* dao, const float* o,
                                          const float* stats, const float* bias, const int* ids,
                                          int ids_rows, float* s1, T* dqkv, float* dbias,
                                          float* dbqkv, long long bw, int n, int c, int heads,
-                                         float scale, cudaStream_t stream) {
-  auto rows_kernel = attention_bwd_rows_mma_kernel<T, D>;
-  auto keys_kernel = attention_bwd_keys_mma_kernel<T, D>;
+                                         float scale, bool plain, cudaStream_t stream) {
+  auto rows_kernel = attention_bwd_rows_mma_kernel<T, D, P>;
+  auto keys_kernel = attention_bwd_keys_mma_kernel<T, D, P>;
   constexpr size_t rows_smem = attention_bwd_rows_smem<T, D>();
   constexpr size_t keys_smem = attention_bwd_keys_smem<T, D>();
   cudaError_t err = allow_smem(rows_kernel, rows_smem);
@@ -958,37 +1014,39 @@ cudaError_t launch_attention_bwd_tiled_d(const T* qkv, const T* dao, const float
   if (err != cudaSuccess) return err;
   const long long blocks = bw * heads * ((n + kTile - 1) / kTile);
   rows_kernel<<<(unsigned)blocks, kTiledThreads, rows_smem, stream>>>(
-      qkv, dao, o, stats, bias, ids, ids_rows, dqkv, dbias, dbqkv, s1, n, c, heads, scale);
+      qkv, dao, o, stats, bias, ids, ids_rows, dqkv, dbias, dbqkv, s1, n, c, heads, scale,
+      plain);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   keys_kernel<<<(unsigned)blocks, kTiledThreads, keys_smem, stream>>>(
-      qkv, dao, stats, s1, bias, ids, ids_rows, dqkv, dbqkv, n, c, heads, scale);
+      qkv, dao, stats, s1, bias, ids, ids_rows, dqkv, dbqkv, n, c, heads, scale, plain);
   return cudaGetLastError();
 }
 
-// K1b's key-tiled attention backward, phases A and B: from qkv, dao (T),
-// K1f's o (f32 [BW*N, C]) and stats [BW, H, N, 2], into dqkv [BW*N, 3C] (T),
-// and added into the zeroed f32 dbias [H, N, N] (may be null: no bias) and
+// The key-tiled attention backward under policy P (K1b's by default),
+// phases A and B: from qkv, dao (T), the forward's o (f32 [BW*N, C]) and
+// stats [BW, H, N, 2], into dqkv [BW*N, 3C] (T), and added into the zeroed
+// f32 dbias [H, N, N] (may be null: no bias) and, where P takes column sums,
 // dbqkv [3C]; s1 [BW, H, N] f32 is scratch.
-template <typename T>
+template <typename T, typename P = K1Softmax>
 cudaError_t launch_attention_bwd_tiled(const T* qkv, const T* dao, const float* o,
                                        const float* stats, const float* bias, const int* ids,
                                        int ids_rows, float* s1, T* dqkv, float* dbias,
                                        float* dbqkv, long long bw, int n, int c, int heads,
-                                       float scale, cudaStream_t stream) {
+                                       float scale, cudaStream_t stream, bool plain = false) {
   const int d = c / heads;
-  if (d % 16 || d > 128) return cudaErrorInvalidValue;
+  if (!takes_head_dim<P>(d)) return cudaErrorInvalidValue;
   if (d <= 32)
-    return launch_attention_bwd_tiled_d<T, 32>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
-                                               dqkv, dbias, dbqkv, bw, n, c, heads, scale,
-                                               stream);
+    return launch_attention_bwd_tiled_d<T, 32, P>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
+                                                  dqkv, dbias, dbqkv, bw, n, c, heads, scale,
+                                                  plain, stream);
   if (d <= 64)
-    return launch_attention_bwd_tiled_d<T, 64>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
-                                               dqkv, dbias, dbqkv, bw, n, c, heads, scale,
-                                               stream);
-  return launch_attention_bwd_tiled_d<T, 128>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
-                                              dqkv, dbias, dbqkv, bw, n, c, heads, scale,
-                                              stream);
+    return launch_attention_bwd_tiled_d<T, 64, P>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
+                                                  dqkv, dbias, dbqkv, bw, n, c, heads, scale,
+                                                  plain, stream);
+  return launch_attention_bwd_tiled_d<T, 128, P>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
+                                                 dqkv, dbias, dbqkv, bw, n, c, heads, scale,
+                                                 plain, stream);
 }
 
 }  // namespace

@@ -18,24 +18,36 @@
 //   order within each sample; window (i, j, kw) on ids row flat(i, j, kw)
 //   % W, its index within its sample (not bw % W: the two agree only when
 //   W divides the windows per sample).
-// The Pallas bodies (_fwd_kernel, _fwd_qkv_kernel, _fwd_win_kernel and
-// their backward) agree op for op and differ only in where an operand
-// lies, so here one kernel body serves all three, templated on an
-// addressing policy: Strided (K4, V1) or WindowRows (V3) maps (window,
-// head, token) to an element offset and a window to its ids row. Each
-// (TPU kernel, layout) pair is its own instantiation and C entry point.
 //
-// Numerics are the TPU kernels', not K1's: q, k, v are read from the
-// stored type into f32 and every product is an f32 FMA; the softmax
-// subtracts the plain row max and divides each term by the f32 row sum
-// before p . v; the output and the gradients are cast to the activation
-// type T once. The mask is additive -1e9 where the region ids of query and
-// key differ (pad slots carry -1, an unshifted block passes W = 1 row of
-// zeros).
+// K4 runs the key-tiled tensor-core body of attn_tiled.cuh (FlashAttention-2
+// on bf16 mma.sync; FMA product steps in f32) under K4's softmax policy,
+// ``K4Softmax`` below: the TPU kernel's score (dot * scale + bias) + mask,
+// each step rounded; the plain row max (the running shift starts at -inf);
+// the plain row sum; ds = p (dp - rowsum(p dp)). K4f keeps each row's (max,
+// 1 / sum) and, for bf16, the f32 output for K4b, whose phase A takes s1 =
+// dO . o and adds dbias with f32 atomics and whose phase B gives dk and dv.
+// e, p and ds are rounded to T before their products, as the TPU's MXU
+// rounds its f32 operands at default precision. Head dims: any up to 32 and
+// multiples of 16 up to 128.
+//
+// The rest of this file is the FMA body that V1 and V3 run, and only they.
+// The Pallas bodies (_fwd_kernel,
+// _fwd_win_kernel and their backward) agree op for op and differ only in
+// where an operand lies, so one kernel body serves both, templated on an
+// addressing policy: Strided (V1) or WindowRows (V3) maps (window, head,
+// token) to an element offset and a window to its ids row. Each (TPU
+// kernel, layout) pair is its own instantiation and C entry point.
+//
+// Numerics are the TPU kernels': q, k, v are read from the stored type into
+// f32 and every product is an f32 FMA; the softmax subtracts the plain row
+// max and divides each term by the f32 row sum before p . v; the output and
+// the gradients are cast to the activation type T once. The mask is
+// additive -1e9 where the region ids of query and key differ (pad slots
+// carry -1, an unshifted block passes W = 1 row of zeros).
 //
 // What bounds it here: the FMA arithmetic of the products (4 N^2 d per
-// window and head forward, 10 N^2 d backward; no tensor cores yet), while
-// the bytes it must move are small (q, k, v once, the output once). One
+// window and head forward, 10 N^2 d backward; no tensor cores), while the
+// bytes it must move are small (q, k, v once, the output once). One
 // window's [N, N] f32 scores (254 KB at N = 252) do not fit in the 227 KB a
 // block may hold, so no [N, N] matrix is ever stored: as in K1f
 // (attn_half.cu) and K1b (attn_half_bwd.cu), one block takes one (window,
@@ -53,7 +65,9 @@
 // round-to-nearest operations (no contraction into FMA), so phase B's p
 // and ds equal phase A's bit for bit.
 
-#include "common.cuh"
+#include <cstdint>
+
+#include "attn_tiled.cuh"
 
 namespace {
 
@@ -63,8 +77,8 @@ struct HeadStrides {
   long long win, head, row;
 };
 
-// Addressing policy of K4 (packed qkv, merged-head out) and V1 (split
-// q, k, v and out): every operand in strides; window bw on ids row bw % W.
+// Addressing policy of V1 (split q, k, v and out): every operand in
+// strides; window bw on ids row bw % W.
 struct Strided {
   HeadStrides in, out;  // q, k, v (and dq, dk, dv); out (and dout)
   // One (window, head): token t at in(t) in q, k, v and at out(t) in out.
@@ -390,13 +404,6 @@ int launch_bwd(const AttnParams<T>& p, const L& lay, long long bw, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-// K4: qkv [BW, N, 3C] (q at channel 0, k at C, v at 2C; head h at h * d)
-// and the merged-head out / dout [BW, N, C].
-Strided packed(int n, int c, int heads) {
-  const int d = c / heads;
-  return {{(long long)n * 3 * c, d, 3LL * c}, {(long long)n * c, d, (long long)c}};
-}
-
 // V1: q, k, v, out and their gradients [BW, H, N, d].
 Strided split(int n, int d, int heads) {
   const HeadStrides s = {(long long)heads * n * d, (long long)n * d, d};
@@ -406,32 +413,6 @@ Strided split(int n, int d, int heads) {
 // V3: qkv [B, md, mh, mw, 3C] and out / dout [B, md, mh, mw, C].
 WindowRows grid(int md, int mh, int mw, int wd, int wh, int ww, int c, int heads) {
   return {md, mh, mw, wd, wh, ww, c / heads, 3LL * c, (long long)c};
-}
-
-template <typename T>
-int attention_qkv_fwd(const T* qkv, const float* bias, const int* ids, int ids_rows,
-                      T* out, long long bw, int n, int c, int heads, float scale,
-                      cudaStream_t stream) {
-  AttnParams<T> p = params(qkv, qkv + c, qkv + 2 * c, bias, ids, ids_rows, n,
-                           c / heads, heads, scale);
-  p.out = out;
-  return launch_fwd(p, packed(n, c, heads), bw, stream);
-}
-
-template <typename T>
-int attention_qkv_bwd(const T* qkv, const float* bias, const float* bias_t,
-                      const int* ids, int ids_rows, const T* dout, T* dqkv,
-                      float* dbias, long long bw, int n, int c, int heads,
-                      float scale, cudaStream_t stream) {
-  AttnParams<T> p = params(qkv, qkv + c, qkv + 2 * c, bias, ids, ids_rows, n,
-                           c / heads, heads, scale);
-  p.dout = dout;
-  p.dq = dqkv;
-  p.dk = dqkv + c;
-  p.dv = dqkv + 2 * c;
-  p.bias_t = bias_t;
-  p.dbias = dbias;
-  return launch_bwd(p, packed(n, c, heads), bw, stream);
 }
 
 template <typename T>
@@ -490,47 +471,100 @@ int attention_windows_bwd(const T* qkv, const float* bias, const float* bias_t,
   return launch_bwd(p, lay, bw, stream);
 }
 
+// K4's softmax policy on the tiled body (attn_tiled.cuh), as _fwd_qkv_kernel
+// and _bwd_qkv_kernel form it.
+struct K4Softmax {
+  static constexpr float kShift0 = -INFINITY;  // the plain row max
+  static constexpr float kSumEps = 0.f;        // a row always keeps its own key
+  static constexpr bool kColumnSums = false;   // the qkv bias gradient is the Linear's
+  static constexpr bool kPlainLoads = true;    // any head dim up to 32
+
+  // (dot * scale + bias) + mask, each step rounded to nearest.
+  static __device__ __forceinline__ float score(float acc, float scale, const int* id_row,
+                                                int id_i, const float* bias_i, int j) {
+    const float s = __fadd_rn(__fmul_rn(acc, scale), bias_i ? bias_i[j] : 0.f);
+    return __fadd_rn(s, id_row && id_row[j] != id_i ? kNegInf : 0.f);
+  }
+
+  static __device__ __forceinline__ float ds(float p, float dp, float s1) {
+    return __fmul_rn(p, __fsub_rn(dp, s1));
+  }
+};
+
+// Whether K4's rows must be staged by plain loads: a head's channels that are
+// not whole 16-byte chunks, or an operand that is not 16-byte aligned.
+template <typename T>
+bool k4_plain_loads(int d, const void* a, const void* b) {
+  return d % (16 / (int)sizeof(T)) || reinterpret_cast<uintptr_t>(a) % 16 ||
+         reinterpret_cast<uintptr_t>(b) % 16;
+}
+
+template <typename T>
+int k4_fwd(const T* qkv, const float* bias, const int* ids, int ids_rows, T* out, float* o32,
+           float* stats, long long bw, int n, int c, int heads, float scale,
+           cudaStream_t stream) {
+  const bool plain = k4_plain_loads<T>(c / heads, qkv, qkv);
+  return (int)launch_attention_tiled<T, K4Softmax>(qkv, bias, ids, ids_rows, out, o32, stats,
+                                                   bw, n, c, heads, scale, stream, plain);
+}
+
+template <typename T>
+int k4_bwd(const T* qkv, const T* dout, const float* o, const float* stats,
+           const float* bias, const int* ids, int ids_rows, float* s1, T* dqkv, float* dbias,
+           long long bw, int n, int c, int heads, float scale, cudaStream_t stream) {
+  const bool plain = k4_plain_loads<T>(c / heads, qkv, dout);
+  return (int)launch_attention_bwd_tiled<T, K4Softmax>(qkv, dout, o, stats, bias, ids,
+                                                       ids_rows, s1, dqkv, dbias, nullptr, bw,
+                                                       n, c, heads, scale, stream, plain);
+}
+
 }  // namespace
 
 // Every entry returns cudaGetLastError() of the launch (or of setting its
-// shared memory size), else 0. is_bf16 selects bf16 activations (q, k, v
+// shared memory size; K4: cudaErrorInvalidValue for a head dim it does not
+// take), else 0. is_bf16 selects bf16 activations (q, k, v
 // or qkv, out, dout and their gradients), else f32; bias, bias_t (bias
 // with each head transposed) and dbias are f32, ids int32. dbias must be
 // zeroed by the caller: the backward adds into it.
 
-// K4 on packed qkv [BW, N, 3C] (c = C).
-extern "C" int vsn_window_attention_qkv_fwd(int is_bf16, const void* qkv,
-                                            const float* bias, const int* ids,
-                                            int ids_rows, void* out, long long bw,
-                                            int n, int c, int heads, float scale,
-                                            void* stream) {
+// K4f on packed qkv [BW, N, 3C] (c = C): out [BW, N, C] (T), o32 [BW, N, C]
+// f32 (bf16 only; null for f32, where out is o), stats [BW, H, N, 2] f32
+// (each row's max and 1 / sum).
+extern "C" int vsn_window_attention_qkv_tiled_fwd(int is_bf16, const void* qkv,
+                                                  const float* bias, const int* ids,
+                                                  int ids_rows, void* out, float* o32,
+                                                  float* stats, long long bw, int n, int c,
+                                                  int heads, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using B = __nv_bfloat16;
-    return attention_qkv_fwd<B>(static_cast<const B*>(qkv), bias, ids, ids_rows,
-                                static_cast<B*>(out), bw, n, c, heads, scale, s);
+    return k4_fwd<B>(static_cast<const B*>(qkv), bias, ids, ids_rows, static_cast<B*>(out),
+                     o32, stats, bw, n, c, heads, scale, s);
   }
-  return attention_qkv_fwd<float>(static_cast<const float*>(qkv), bias, ids, ids_rows,
-                                  static_cast<float*>(out), bw, n, c, heads, scale, s);
+  return k4_fwd<float>(static_cast<const float*>(qkv), bias, ids, ids_rows,
+                       static_cast<float*>(out), nullptr, stats, bw, n, c, heads, scale, s);
 }
 
-extern "C" int vsn_window_attention_qkv_bwd(int is_bf16, const void* qkv,
-                                            const float* bias, const float* bias_t,
-                                            const int* ids, int ids_rows,
-                                            const void* dout, void* dqkv,
-                                            float* dbias, long long bw, int n, int c,
-                                            int heads, float scale, void* stream) {
+// K4b from K4f's o (f32 [BW, N, C]) and stats: dqkv [BW, N, 3C] (T), and
+// added into the zeroed f32 dbias [H, N, N] (null: no dbias, a probe of the
+// atomics' cost); s1 [BW, H, N] f32 is scratch.
+extern "C" int vsn_window_attention_qkv_tiled_bwd(int is_bf16, const void* qkv,
+                                                  const void* dout, const float* o,
+                                                  const float* stats, const float* bias,
+                                                  const int* ids, int ids_rows, float* s1,
+                                                  void* dqkv, float* dbias, long long bw,
+                                                  int n, int c, int heads, float scale,
+                                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using B = __nv_bfloat16;
-    return attention_qkv_bwd<B>(static_cast<const B*>(qkv), bias, bias_t, ids, ids_rows,
-                                static_cast<const B*>(dout), static_cast<B*>(dqkv), dbias,
-                                bw, n, c, heads, scale, s);
+    return k4_bwd<B>(static_cast<const B*>(qkv), static_cast<const B*>(dout), o, stats, bias,
+                     ids, ids_rows, s1, static_cast<B*>(dqkv), dbias, bw, n, c, heads, scale,
+                     s);
   }
-  return attention_qkv_bwd<float>(static_cast<const float*>(qkv), bias, bias_t, ids,
-                                  ids_rows, static_cast<const float*>(dout),
-                                  static_cast<float*>(dqkv), dbias, bw, n, c, heads,
-                                  scale, s);
+  return k4_bwd<float>(static_cast<const float*>(qkv), static_cast<const float*>(dout), o,
+                       stats, bias, ids, ids_rows, s1, static_cast<float*>(dqkv), dbias, bw, n,
+                       c, heads, scale, s);
 }
 
 // V1 on split q, k, v [BW, H, N, d].

@@ -62,10 +62,10 @@ _SIGNATURES = {
                        _P],
     "vsn_stem_conv_fwd": [_I, _P, _P, _P, *[_I] * 17, _P],
     "vsn_stem_conv_dw": [_I, _P, _P, _P, *[_I] * 17, _P],
-    "vsn_window_attention_qkv_fwd": [_I, _P, _P, _P, _I, _P, _L, _I, _I, _I,
-                                     _F, _P],
-    "vsn_window_attention_qkv_bwd": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _L,
-                                     _I, _I, _I, _F, _P],
+    "vsn_window_attention_qkv_tiled_fwd": [_I, _P, _P, _P, _I, _P, _P, _P, _L,
+                                           _I, _I, _I, _F, _P],
+    "vsn_window_attention_qkv_tiled_bwd": [_I, *[_P] * 6, _I, *[_P] * 3, _L,
+                                           _I, _I, _I, _F, _P],
     "vsn_window_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _P, _L, _I, _I,
                                  _I, _F, _P],
     "vsn_window_attention_bwd": [_I, *[_P] * 6, _I, *[_P] * 5, _L, _I, _I,

@@ -19,18 +19,34 @@ Three entry points compute one function on three operand layouts,
   row flat(i, j, k) % W.
 
 Each is a ``torch.autograd.Function``: for a tensor on a CUDA device it
-launches its kernels (``csrc/window_attention_qkv.cu``, one body on three
-addressing policies) forward and backward; for a tensor on the CPU it runs
+launches its kernels forward and backward; for a tensor on the CPU it runs
 the plain forward and the explicit plain backward. It never falls back from
 one to the other.
 
-Numerics are the TPU kernels', not K1's: q, k, v are read from their
-stored dtype into f32; the softmax subtracts the plain row max and divides
-by the row sum in f32; p . v uses f32 p and f32 v; the output is cast to
-the input's dtype once. The mask is additive -1e9 where region ids differ;
-pad slots carry id -1. The backward gives the input gradients in the
-input's dtype and dbias summed over every window in f32; ids and the
-static arguments get no gradient.
+K4 launches the key-tiled tensor-core body (``csrc/attn_tiled.cuh``, bf16
+mma.sync; FMA product steps in f32) under K4's softmax policy
+(``csrc/window_attention_qkv.cu``): the plain row max, the plain row sum,
+the TPU kernel's score (dot * scale + bias) + mask. K4f also writes each
+row's statistics (max, 1 / sum) and, for bf16, the f32 output o; autograd
+keeps them, and K4b reads them (p = exp(s - max) / sum, s1 = dO . o)
+instead of recomputing the softmax. e, p and ds are rounded to the
+activation type before their products. K4 takes head dims up to 32 and
+multiples of 16 up to 128. ``window_attention_qkv_launch`` is K4f with its
+kept state; ``window_attention_qkv_kept_reference`` and
+``window_attention_qkv_kept_backward_reference`` are the plain versions of
+K4f and K4b at that level.
+
+V1 and V3 launch the FMA body of ``csrc/window_attention_qkv.cu`` (one
+body on two addressing policies), whose numerics are the TPU kernels': q,
+k, v are read from their stored dtype into f32; the softmax subtracts the
+plain row max and divides by the row sum in f32; p . v uses f32 p and f32
+v; the output is cast to the input's dtype once. They take head dims up to
+32.
+
+Everywhere the mask is additive -1e9 where region ids differ; pad slots
+carry id -1. The backward gives the input gradients in the input's dtype
+and dbias summed over every window in f32; ids and the static arguments
+get no gradient.
 
 ``*_reference`` are the plain versions on any device (the plain forward,
 and ``*_backward_reference`` as its backward); ``mask_from_ids`` and
@@ -49,11 +65,14 @@ from vsn_tpu_torch.ops._build import (
     expect,
     launches,
     library,
+    ptr,
     stream_of,
 )
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 32  # one warp lane per head channel in K4f/K4b
+MAX_HEAD_DIM = 128     # K4's tiled body: any head dim up to 32, then
+TILED_HEAD_STEP = 16   # multiples of 16 (its mma depth) up to 128
+FMA_HEAD_DIM = 32      # V1 / V3's FMA body: one warp lane per head channel
 
 
 def mask_from_ids(ids: torch.Tensor) -> torch.Tensor:
@@ -84,13 +103,25 @@ def _split_heads(qkv, n_heads):
     return parts.permute(2, 0, 3, 1, 4)
 
 
-def _probs(q, k, bias, ids, scale):
-    """p [BW, H, N, N] in f32, as _fwd_qkv_kernel forms it."""
+def _scores(q, k, bias, ids, scale):
+    """s [BW, H, N, N] in f32, as _fwd_qkv_kernel forms it: (q k^T scale +
+    bias) + mask(ids)."""
     rows = torch.arange(q.shape[0], device=q.device) % ids.shape[0]
     s = (q @ k.transpose(-1, -2)) * scale + bias[None]
-    s = s + mask_from_ids(ids)[rows][:, None]
+    return s + mask_from_ids(ids)[rows][:, None]
+
+
+def _probs(q, k, bias, ids, scale):
+    """p [BW, H, N, N] in f32, as _fwd_qkv_kernel forms it."""
+    s = _scores(q, k, bias, ids, scale)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return p / p.sum(dim=-1, keepdim=True)
+
+
+def _rounded(t, dtype):
+    """``t`` rounded to ``dtype`` (a product operand of the kernels), held
+    as f32."""
+    return t.to(dtype).float() if dtype == torch.bfloat16 else t
 
 
 def window_attention_qkv_math(qkv, bias, ids, scale, n_heads):
@@ -122,15 +153,66 @@ def window_attention_qkv_backward_reference(qkv, bias, ids, dout, scale,
     return dqkv.reshape(bw, n, c3).to(qkv.dtype), dbias
 
 
+def window_attention_qkv_kept_reference(qkv, bias, ids, scale, n_heads):
+    """Plain version of K4f with its kept state: qkv [BW, N, 3C] -> (out
+    [BW, N, C] in qkv's dtype, the row statistics [BW, H, N, 2] f32 (each
+    row's max and 1 / its sum of exp(s - max)), o [BW, N, C] f32: out before
+    its rounding). e = exp(s - max) is rounded to qkv's dtype before e v,
+    as the kernel rounds it."""
+    bw, n, c3 = qkv.shape
+    q, k, v = _split_heads(qkv, n_heads)
+    s = _scores(q, k, bias, ids, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    r = 1.0 / e.sum(dim=-1, keepdim=True)
+    o = ((_rounded(e, qkv.dtype) @ v) * r).transpose(1, 2).reshape(
+        bw, n, c3 // 3)
+    return o.to(qkv.dtype), torch.cat([m, r], dim=-1), o
+
+
+def window_attention_qkv_kept_backward_reference(qkv, dout, o, stats, bias,
+                                                 ids, scale, n_heads):
+    """Plain version of K4b from K4f's kept state: qkv [BW, N, 3C] and dout
+    [BW, N, C] in the activation type, o [BW, N, C] f32 and the row
+    statistics [BW, H, N, 2]; p = exp(s - max) / sum, s1 = dO . o, ds = p
+    (dp - s1), dq = round(ds) k scale, dk = round(ds)^T q scale, dv =
+    round(p)^T dO. Returns (dqkv in qkv's dtype, dbias [H, N, N] f32 summed
+    over every window, from the unrounded ds)."""
+    bw, n, c3 = qkv.shape
+    dt = qkv.dtype
+    q, k, v = _split_heads(qkv, n_heads)
+    split = lambda t: t.float().reshape(bw, n, n_heads, -1).transpose(1, 2)
+    do, oh = split(dout), split(o)
+    p = torch.exp(_scores(q, k, bias, ids, scale) - stats[..., :1]) \
+        * stats[..., 1:]
+    s1 = (do * oh).sum(dim=-1, keepdim=True)
+    ds = p * (do @ v.transpose(-1, -2) - s1)
+    dsr = _rounded(ds, dt)
+    dqkv = torch.stack([(dsr @ k) * scale,
+                        (dsr.transpose(-1, -2) @ q) * scale,
+                        _rounded(p, dt).transpose(-1, -2) @ do])
+    dqkv = dqkv.permute(1, 3, 0, 2, 4).reshape(bw, n, c3)
+    return dqkv.to(dt), ds.sum(0)
+
+
+def takes_head_dim(d: int) -> bool:
+    """Whether K4's CUDA body takes head dim ``d``: any up to 32, and
+    multiples of 16 up to 128."""
+    return 0 < d <= MAX_HEAD_DIM and (d <= FMA_HEAD_DIM
+                                      or d % TILED_HEAD_STEP == 0)
+
+
 def _check(qkv, bias, ids, n_heads):
     """Validate K4's arguments; returns the number of id rows W."""
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"window_attention_qkv: qkv dtype {qkv.dtype} (f32 "
                         "or bf16)")
     bw, n, c3 = qkv.shape
-    if c3 % (3 * n_heads) or c3 // (3 * n_heads) > MAX_HEAD_DIM:
-        raise ValueError(f"window_attention_qkv: 3C={c3} over {n_heads} heads "
-                         f"needs a head dim <= {MAX_HEAD_DIM}")
+    if c3 % (3 * n_heads) or not takes_head_dim(c3 // (3 * n_heads)):
+        raise ValueError(f"window_attention_qkv: 3C={c3} over {n_heads} "
+                         f"heads: K4 takes head dims up to {FMA_HEAD_DIM} "
+                         f"and multiples of {TILED_HEAD_STEP} up to "
+                         f"{MAX_HEAD_DIM}")
     dev = qkv.device
     expect(qkv, "qkv", (bw, n, c3), qkv.dtype, dev)
     expect(bias, "bias", (n_heads, n, n), torch.float32, dev)
@@ -141,62 +223,113 @@ def _check(qkv, bias, ids, n_heads):
     return w
 
 
-def _forward_kernel(qkv, bias, ids, scale, n_heads):
-    """K4f: launch ``csrc/window_attention_qkv.cu``."""
+def window_attention_qkv_launch(qkv, bias, ids, scale, n_heads):
+    """K4f with its kept state: (out [BW, N, C] in qkv's dtype, the row
+    statistics [BW, H, N, 2] f32, o [BW, N, C] f32: out itself for f32
+    qkv). The CUDA kernel (``csrc/window_attention_qkv.cu`` on
+    ``csrc/attn_tiled.cuh``) for a CUDA tensor,
+    ``window_attention_qkv_kept_reference`` for a CPU one."""
+    if qkv.device.type == "cpu":
+        return window_attention_qkv_kept_reference(qkv, bias, ids, scale,
+                                                   n_heads)
     w = _check(qkv, bias, ids, n_heads)
     bw, n, c3 = qkv.shape
-    out = torch.empty((bw, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = library().vsn_window_attention_qkv_fwd(
+    dev = qkv.device
+    out = torch.empty((bw, n, c3 // 3), dtype=qkv.dtype, device=dev)
+    stats = torch.empty((bw, n_heads, n, 2), dtype=torch.float32, device=dev)
+    o32 = (torch.empty((bw, n, c3 // 3), dtype=torch.float32, device=dev)
+           if qkv.dtype == torch.bfloat16 else None)
+    with torch.cuda.device(dev):
+        err = library().vsn_window_attention_qkv_tiled_fwd(
             int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), bias.data_ptr(),
-            ids.data_ptr(), w, out.data_ptr(), bw, n, c3 // 3, n_heads,
-            float(scale), stream_of(qkv))
+            ids.data_ptr(), w, out.data_ptr(), ptr(o32), stats.data_ptr(), bw,
+            n, c3 // 3, n_heads, float(scale), stream_of(qkv))
     check(err, "window_attention_qkv")
     launches["attention"] += 1
-    return out
+    return out, stats, out if o32 is None else o32
 
 
-def window_attention_qkv_backward(qkv, bias, ids, dout, scale, n_heads):
-    """VJP of ``window_attention_qkv``: K4b (``csrc/window_attention_qkv.cu``)
-    for a CUDA tensor, ``window_attention_qkv_backward_reference`` for a CPU
-    one; same returns."""
-    if qkv.device.type == "cpu":
-        return window_attention_qkv_backward_reference(qkv, bias, ids, dout,
-                                                       scale, n_heads)
+def _backward_kernel(qkv, bias, ids, dout, o, stats, scale, n_heads,
+                     dbias=True):
+    """K4b: launch ``csrc/window_attention_qkv.cu``; returns (dqkv, dbias).
+    ``dbias=False`` launches it without dbias's atomics (dbias None): a
+    probe of what they cost."""
     w = _check(qkv, bias, ids, n_heads)
     bw, n, c3 = qkv.shape
-    expect(dout, "dout", (bw, n, c3 // 3), qkv.dtype, qkv.device)
+    dev = qkv.device
+    expect(dout, "dout", (bw, n, c3 // 3), qkv.dtype, dev)
+    expect(o, "o", (bw, n, c3 // 3), torch.float32, dev)
+    expect(stats, "stats", (bw, n_heads, n, 2), torch.float32, dev)
     dqkv = torch.empty_like(qkv)
-    dbias = torch.zeros((n_heads, n, n), dtype=torch.float32,
-                        device=qkv.device)  # K4b adds into it
-    bias_t = bias.transpose(1, 2).contiguous()
-    with torch.cuda.device(qkv.device):
-        err = library().vsn_window_attention_qkv_bwd(
-            int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), bias.data_ptr(),
-            bias_t.data_ptr(), ids.data_ptr(), w, dout.data_ptr(),
-            dqkv.data_ptr(), dbias.data_ptr(), bw, n, c3 // 3, n_heads,
-            float(scale), stream_of(qkv))
+    s1 = torch.empty((bw, n_heads, n), dtype=torch.float32, device=dev)
+    dbias = (torch.zeros((n_heads, n, n), dtype=torch.float32, device=dev)
+             if dbias else None)   # K4b adds into it
+    with torch.cuda.device(dev):
+        err = library().vsn_window_attention_qkv_tiled_bwd(
+            int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), dout.data_ptr(),
+            o.data_ptr(), stats.data_ptr(), bias.data_ptr(), ids.data_ptr(),
+            w, s1.data_ptr(), dqkv.data_ptr(), ptr(dbias), bw, n, c3 // 3,
+            n_heads, float(scale), stream_of(qkv))
     check(err, "window_attention_qkv_bwd")
     launches["attention_bwd"] += 1
     return dqkv, dbias
 
 
+def window_attention_qkv_backward_launch(qkv, dout, o, stats, bias, ids,
+                                        scale, n_heads):
+    """K4b from K4f's kept state alone, for the card's launch-level checks:
+    the CUDA kernels for a CUDA tensor,
+    ``window_attention_qkv_kept_backward_reference`` for a CPU one; same
+    returns."""
+    if qkv.device.type == "cpu":
+        return window_attention_qkv_kept_backward_reference(
+            qkv, dout, o, stats, bias, ids, scale, n_heads)
+    return _backward_kernel(qkv, bias, ids, dout, o, stats, scale, n_heads)
+
+
+def window_attention_qkv_backward(qkv, bias, ids, dout, scale, n_heads, *,
+                                  o=None, stats=None):
+    """VJP of ``window_attention_qkv``: K4b for a CUDA tensor, which reads
+    K4f's kept ``o`` and row ``stats`` (``window_attention_qkv_launch``'s
+    third and second returns) and raises without them;
+    ``window_attention_qkv_backward_reference`` for a CPU one (which
+    recomputes the softmax). Returns (dqkv in qkv's dtype, dbias [H, N, N]
+    f32)."""
+    if qkv.device.type == "cpu":
+        return window_attention_qkv_backward_reference(qkv, bias, ids, dout,
+                                                       scale, n_heads)
+    if o is None or stats is None:
+        raise ValueError("window_attention_qkv_backward: K4b reads K4f's "
+                         "kept o and row statistics (o=, stats=)")
+    return _backward_kernel(qkv, bias, ids, dout, o, stats, scale, n_heads)
+
+
 class _WindowAttentionQKV(torch.autograd.Function):
-    """K4 with its VJP; ``plain`` selects the plain forward and backward."""
+    """K4 with its VJP; ``plain`` selects the plain forward and backward.
+    The kernel route keeps K4f's row statistics and o for K4b."""
 
     @staticmethod
     def forward(ctx, plain, qkv, bias, ids, scale, n_heads):
-        fwd = window_attention_qkv_math if plain else _forward_kernel
         ctx.plain, ctx.static = plain, (scale, n_heads)
-        ctx.save_for_backward(qkv, bias, ids)
-        return fwd(qkv, bias, ids, scale, n_heads)
+        if plain:
+            ctx.save_for_backward(qkv, bias, ids)
+            return window_attention_qkv_math(qkv, bias, ids, scale, n_heads)
+        out, stats, o = window_attention_qkv_launch(qkv, bias, ids, scale,
+                                                    n_heads)
+        ctx.save_for_backward(qkv, bias, ids, stats, o)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        bwd = (window_attention_qkv_backward_reference if ctx.plain
-               else window_attention_qkv_backward)
-        qkv, bias, ids = ctx.saved_tensors
-        dqkv, dbias = bwd(qkv, bias, ids, dout.contiguous(), *ctx.static)
+        dout = dout.contiguous()
+        if ctx.plain:
+            qkv, bias, ids = ctx.saved_tensors
+            dqkv, dbias = window_attention_qkv_backward_reference(
+                qkv, bias, ids, dout, *ctx.static)
+        else:
+            qkv, bias, ids, stats, o = ctx.saved_tensors
+            dqkv, dbias = window_attention_qkv_backward(
+                qkv, bias, ids, dout, *ctx.static, o=o, stats=stats)
         return None, dqkv, dbias, None, None, None
 
 
@@ -205,7 +338,8 @@ def window_attention_qkv(qkv, bias, ids, scale, n_heads):
 
     Args:
         qkv: [BW, N, 3C], f32 or bf16, channels [q heads | k heads | v
-            heads], head dim C / n_heads <= 32.
+            heads], head dim C / n_heads: any up to 32, or a multiple of 16
+            up to 128.
         bias: [H, N, N] f32 relative-position bias.
         ids: [W, N] int32 region ids (window bw uses row bw % W; ids that
             differ are masked with -1e9, pad slots carry -1); an unshifted
@@ -250,9 +384,9 @@ def _check_split(q, k, v, bias, ids):
     """Validate V1's arguments; returns the number of id rows W."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"window_attention: q dtype {q.dtype} (f32 or bf16)")
-    if q.dim() != 4 or q.shape[-1] > MAX_HEAD_DIM:
+    if q.dim() != 4 or q.shape[-1] > FMA_HEAD_DIM:
         raise ValueError(f"window_attention: q {tuple(q.shape)} must be [BW, "
-                         f"H, N, d] with d <= {MAX_HEAD_DIM}")
+                         f"H, N, d] with d <= {FMA_HEAD_DIM}")
     bw, heads, n, _ = q.shape
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -405,9 +539,9 @@ def _check_windows(qkv, bias, ids, n_heads, window):
     if any(w <= 0 or m % w for m, w in zip(dims, window)):
         raise ValueError(f"window_attention_windows: map {tuple(dims)} is not "
                          f"a multiple of the window {tuple(window)}")
-    if c3 % (3 * n_heads) or c3 // (3 * n_heads) > MAX_HEAD_DIM:
+    if c3 % (3 * n_heads) or c3 // (3 * n_heads) > FMA_HEAD_DIM:
         raise ValueError(f"window_attention_windows: 3C={c3} over {n_heads} "
-                         f"heads needs a head dim <= {MAX_HEAD_DIM}")
+                         f"heads needs a head dim <= {FMA_HEAD_DIM}")
     n = math.prod(window)
     dev = qkv.device
     expect(qkv, "qkv", qkv.shape, qkv.dtype, dev)
