@@ -9,7 +9,8 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 (``build_model``). Phases:
 
 1. build the hand-written kernels from ``vsn_tpu_torch/csrc`` (one nvcc per
-   source, in parallel, into build/);
+   source, in parallel, into build/), and beside them the ptxas report of
+   the window-attention source (``python -m vsn_tpu_torch.probes.ptxas``);
 2. print the card's name and power limit (nvidia-smi);
 3. K1's key-tiled attention body, and K2, on ViT-S's calls
    (vit-5c-no_seed-baseline: N = 811 tokens, 6 heads of 64, no bias, no
@@ -63,13 +64,24 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    synthetic call per set whose 3 id rows do not divide its 8 windows per
    sample. V1f/V3f against their plain versions, V1b's dq, dk, dv, dbias
    and V3b's dqkv, dbias against the plain backward, to TOL of each
-   output's scale; V1b/V3b at saturated logits (f32). Then the V path:
-   the 12 calls of the training forward through both entry points, forward
-   and backward, with every launch counter at 0 before and exactly one
-   launch of each V kernel per call after; V1f's and V3f's largest
-   difference from K4f on the same calls (logged: V1 and V3 run the FMA
-   body, K4 the tiled one); their times beside the plain versions', and
-   V3's beside partition + K4 + reverse;
+   output's scale; V1b/V3b at saturated logits (f32); then, on every call
+   of those sets, V1f's and V3f's launches with their kept state
+   (``window_attention_launch``, ``window_attention_windows_launch``) and
+   V1b / V3b from that state against their plain versions as phase 4
+   holds K4's. Then the V path: the 12 calls of the training forward
+   through both entry points, forward and backward, with every launch
+   counter at 0 before and exactly one launch of each V kernel per call
+   after. On every set, V1f (heads merged) and V3f (windows partitioned)
+   must equal K4f on the same values bit for bit, out, row statistics and
+   o (V1, V3 and K4 run one tiled body on three layouts); V1b's and V3b's
+   dq, dk, dv from their kept state against K4b's (logged) and dbias
+   within TOL["float32"] of its scale. The ptxas report of phase 1: every
+   window-attention kernel's registers, none spilling. The V kernels'
+   times per micro-batch beside their plain versions', SDPA's forward and
+   backward on the same calls and their bounds; their launches alone
+   (profiler: V1f, V3f, V1b's and V3b's phases A and B); V3 beside
+   partition + K4 + reverse; the kept state's bytes, apart from the
+   bounds;
 6. forward parity: every K1/K2/K3 call of a Swin-T eval forward at batch 2
    in f32 and in bf16, and at the eval path's batch 4 in bf16 (all four
    stages: shifted, unshifted, padded with -1 pad ids, clamped N = 150).
@@ -183,8 +195,8 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    eval phase times the forwards at batch 4), and
    for K4f / K4b the library's: one ``F.scaled_dot_product_attention`` call
    per K4 call on the split heads with the additive float mask bias[h] +
-   mask(ids), and that call's backward (also V1f / V1b's yardstick: the
-   same function on the same split heads; V3 has no single call), K4f's
+   mask(ids), and that call's backward (phase 5 times it on V1's own
+   calls, V1f / V1b's yardstick; V3 has no single call), K4f's
    and K4b's launches (phases A and B) from the profiler, K4b with and
    without dbias's f32 atomics, the bytes of K4f's kept state (logged
    apart: the bounds count only the function's own inputs and outputs),
@@ -868,27 +880,56 @@ def k4_saturation_phase(calls, gen, logits=TILED_LOGITS):
     return worst
 
 
-def k4_launch_compare(args, dout):
-    """[(output, max|d|, limit, ok)] of K4f's launch with its kept state
-    and K4b from that state against their plain versions on one call:
-    out and o to TOL of their scale; each row statistic (the max and 1 /
-    the sum) elementwise to an f32 limit, STATS_RTOL of itself plus
-    STATS_ATOL (the entry is the worst ratio, the limit 1); the backward
-    from the plain o and statistics, dq, dk, dv and dbias each to TOL of
-    its own scale."""
-    import torch
+def kept_launches(name):
+    """(forward launch with its kept state, its plain version, backward
+    launch from that state, its plain version) of window-attention kernel
+    ``name``: K4 ("attention"), V1 ("attention_split") or V3
+    ("attention_windows")."""
     from vsn_tpu_torch.ops import window_attention as wa
 
-    qkv, bias, ids, scale, heads = args
-    tol = TOL[str(qkv.dtype).removeprefix("torch.")]
-    c = qkv.shape[-1] // 3
+    stem = {"attention": "window_attention_qkv", "attention_split":
+            "window_attention", "attention_windows":
+            "window_attention_windows"}[name]
+    return tuple(getattr(wa, stem + suffix) for suffix in (
+        "_launch", "_kept_reference", "_backward_launch",
+        "_kept_backward_reference"))
+
+
+def kept_backward_args(name, args, dout, o, stats):
+    """The backward launch's arguments for the forward call ``args`` of
+    ``name``: its inputs (q, k, v or qkv), dout, the kept o and row
+    statistics, then the rest of ``args``."""
+    n_in = 3 if name == "attention_split" else 1
+    return (*args[:n_in], dout, o, stats, *args[n_in:])
+
+
+def _qkv_grads(name, grads):
+    """(dq, dk, dv, dbias) of a backward launch's returns (K4 and V3 give
+    dqkv, whose thirds of the channels are dq, dk, dv)."""
+    if name == "attention_split":
+        return grads
+    dqkv, dbias = grads
+    return (*dqkv.chunk(3, dim=-1), dbias)
+
+
+def launch_compare(name, args, dout):
+    """[(output, max|d|, limit, ok)] of the forward launch of ``name`` with
+    its kept state and the backward launch from that state against their
+    plain versions on one call: out and o to TOL of their scale; each row
+    statistic (the max and 1 / the sum) elementwise to an f32 limit,
+    STATS_RTOL of itself plus STATS_ATOL (the entry is the worst ratio, the
+    limit 1); the backward from the plain o and statistics, dq, dk, dv and
+    dbias each to TOL of its own scale."""
+    import torch
+
+    launch, kept_plain, backward, backward_plain = kept_launches(name)
+    tol = TOL[str(args[0].dtype).removeprefix("torch.")]
     with torch.no_grad():
-        got = wa.window_attention_qkv_launch(*args)
-        want = wa.window_attention_qkv_kept_reference(*args)
-        bgot = wa.window_attention_qkv_backward_launch(
-            qkv, dout, want[2], want[1], bias, ids, scale, heads)
-        bwant = wa.window_attention_qkv_kept_backward_reference(
-            qkv, dout, want[2], want[1], bias, ids, scale, heads)
+        got = launch(*args)
+        want = kept_plain(*args)
+        b_args = kept_backward_args(name, args, dout, want[2], want[1])
+        bgot = _qkv_grads(name, backward(*b_args))
+        bwant = _qkv_grads(name, backward_plain(*b_args))
     rows = []
 
     def add(label, g, w, limit):
@@ -907,53 +948,52 @@ def k4_launch_compare(args, dout):
         r = ((g - w).abs() / (STATS_RTOL * w.abs() + STATS_ATOL)).max()
         rows.append((label, r.item(), 1.0,
                      bool(torch.isfinite(g).all()) and r.item() <= 1.0))
-    for label, i, part in (("dq", 0, 0), ("dk", 0, 1), ("dv", 0, 2),
-                           ("dbias", 1, None)):
-        g, w = bgot[i], bwant[i]
-        if part is not None:
-            g, w = (t[..., part * c:(part + 1) * c] for t in (g, w))
+    for label, g, w in zip(("dq", "dk", "dv", "dbias"), bgot, bwant):
         add(label, g, w, tol * w.float().abs().max().item())
     return rows
 
 
-def k4_launch_parity_phase(sets, gen):
-    """K4f's launch with its kept state and K4b from that state against
-    their plain versions (``k4_launch_compare``) on every K4 call of
-    ``sets`` (seeded as ``parity_phase`` seeds them, one seeded cotangent
-    each). Logs one line per set; raises on any output beyond its limit.
-    Returns the worst ratio to the limit."""
+def launch_parity_phase(sets, gen, names=("attention",), what="K4"):
+    """The forward launches with their kept state and the backward launches
+    from that state against their plain versions (``launch_compare``) on
+    every call of ``names`` in ``sets`` (K4's seeded as ``parity_phase``
+    seeds them; one seeded cotangent each). Logs one line per set and
+    kernel; raises on any output beyond its limit. Returns the worst ratio
+    to the limit."""
     worst, failed = 0.0, []
     for label, calls in sets.items():
-        ratio, bad, outputs = 0.0, 0, set()
-        k4 = [seeded_params("attention", a, gen) for n, a in calls
-              if n == "attention"]
-        for args in k4:
-            rows = k4_launch_compare(args, cotangent("attention", args, gen))
-            ratio = max([ratio] + [_ratio(e, lim) for _, e, lim, _ in rows])
-            bad += sum(not ok for *_, ok in rows)
-            outputs |= {name for name, *_ in rows}
-        log(f"parity K4 launches with the kept state {label}: {len(k4)} "
-            f"calls, {'/'.join(sorted(outputs))} worst {ratio:.3f} of the "
-            f"limit {'ok' if not bad else 'FAIL in %d' % bad}")
-        worst = max(worst, ratio)
-        if bad:
-            failed.append(label)
+        for name in names:
+            ratio, bad, outputs = 0.0, 0, set()
+            todo = [seeded_params(name, a, gen) for n, a in calls
+                    if n == name]
+            for args in todo:
+                rows = launch_compare(name, args, cotangent(name, args, gen))
+                ratio = max([ratio] + [_ratio(e, lim)
+                                       for _, e, lim, _ in rows])
+                bad += sum(not ok for *_, ok in rows)
+                outputs |= {out for out, *_ in rows}
+            log(f"parity {what} launches with the kept state {label} {name}: "
+                f"{len(todo)} calls, {'/'.join(sorted(outputs))} worst "
+                f"{ratio:.3f} of the limit "
+                f"{'ok' if not bad else 'FAIL in %d' % bad}")
+            worst = max(worst, ratio)
+            if bad:
+                failed.append(f"{label} {name}")
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
-                             f"the K4 launches on {failed}")
+                             f"the {what} launches on {failed}")
     return worst
 
 
-def k4_kept(args):
-    """What K4b reads of K4f's call on the card, for a direct
-    ``window_attention_qkv_backward`` call on the K4 arguments ``args``:
-    K4f's f32 o and row statistics from one K4f launch ({} on the CPU,
-    where the plain backward recomputes the softmax)."""
-    from vsn_tpu_torch.ops import window_attention as wa
-
+def kept_state(name, args):
+    """What the backward reads of the forward's call on the card, for a
+    direct backward call (``window_attention_qkv_backward``, ...) on the
+    arguments ``args`` of ``name``: the f32 o and row statistics of one
+    forward launch ({} on the CPU, where the plain backward recomputes the
+    softmax)."""
     if not args[0].is_cuda:
         return {}
-    _, stats, o = wa.window_attention_qkv_launch(*args)
+    _, stats, o = kept_launches(name)[0](*args)
     return dict(o=o, stats=stats)
 
 
@@ -1093,28 +1133,106 @@ def v_path(calls, gen):
     return {name: _build.launches[name] for name in KERNELS}
 
 
-def k4_agreement(triples):
-    """(largest |V1f - K4f|, largest |V3f - K4f|) over the calls, V1's heads
-    merged and V3's map partitioned (a log line, not a gate). V1 and V3 run
-    the FMA body, K4 the key-tiled one, which rounds e to the activation
-    type before e v: they agree within the parity tolerance of the output's
-    scale, not bit for bit (on the CPU, where all three run plain versions,
-    V3 equals K4)."""
+def start_ptxas():
+    """``python -m vsn_tpu_torch.probes.ptxas`` on the window-attention
+    source (K4, V1, V3), which compiles it once more with ``-Xptxas -v``:
+    the process, to be read by ``ptxas_phase``."""
+    import atexit
+    import signal
+
+    root = Path(__file__).resolve().parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vsn_tpu_torch.probes.ptxas",
+         str(root / "vsn_tpu_torch" / "csrc"), "window_attention_qkv.cu"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+    def stop():  # it and its nvcc, if a phase fails before phase 5
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def ptxas_phase(proc):
+    """Log the registers of every kernel of the window-attention source
+    (``start_ptxas``'s report: source, registers, spill stores, spill
+    loads, name) and fail if one spills or no V1 / V3 instantiation (layout
+    ``Split`` / ``MapRows``) is there."""
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode:
+        raise AssertionError(f"ptxas report failed: {err[-2000:]}")
+    rows = [line.split(None, 4) for line in out.splitlines() if line.strip()]
+    for _, regs, st, ld, name in rows:
+        log(f"ptxas {regs} registers, spills {st} / {ld} bytes: {name}")
+    spills = [r[4] for r in rows if int(r[2]) or int(r[3])]
+    layouts = {lay for r in rows for lay in ("Split", "MapRows")
+               if lay in r[4]}
+    if spills or layouts != {"Split", "MapRows"}:
+        raise AssertionError(f"window attention kernels that spill: {spills};"
+                             f" V layouts compiled: {sorted(layouts)}")
+
+
+def k4_agreement(triples, gen):
+    """V1 (heads merged) and V3 (windows partitioned) against K4 on the same
+    values: the forward launches' out, row statistics and o must equal
+    K4f's bit for bit (one body stages the same tiles and runs the same
+    products on every layout); then, from each one's own kept state and one
+    seeded cotangent, V1b's and V3b's dq, dk, dv against K4b's (their
+    largest difference, logged) and dbias within TOL["float32"] of its
+    scale (its f32 atomics add in an order that varies). Raises where they
+    differ; returns {what: largest |difference|}."""
     import torch
-    from vsn_tpu_torch.models.swin3d import window_partition
+    from vsn_tpu_torch.models.swin3d import window_partition, window_reverse
     from vsn_tpu_torch.ops import window_attention as wa
 
-    d1 = d3 = 0.0
+    diff = dict.fromkeys(("V1f", "V3f", "V1b", "V3b", "V1b dbias",
+                          "V3b dbias"), 0.0)
+    unequal, loose = [], []
+
+    def merged(t):  # [BW, H, N, d] -> [BW, N, H d]
+        return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], -1)
+
     with torch.no_grad():
         for k4, v1, v3 in triples:
-            ref = wa.window_attention_qkv(*k4).float()
-            out = wa.window_attention(*v1)
-            bw, heads, n, d = out.shape
-            merged = out.transpose(1, 2).reshape(bw, n, heads * d).float()
-            d1 = max(d1, (merged - ref).abs().max().item())
-            out = window_partition(wa.window_attention_windows(*v3), v3[5])
-            d3 = max(d3, (out.float() - ref).abs().max().item())
-    return d1, d3
+            window, dims = v3[5], v3[0].shape[1:4]
+            ref = wa.window_attention_qkv_launch(*k4)
+            g = cotangent("attention", k4, gen)
+            want = wa.window_attention_qkv_backward_launch(
+                k4[0], g, ref[2], ref[1], *k4[1:])
+            out, stats, o = wa.window_attention_launch(*v1)
+            got1 = (merged(out), stats, merged(o))
+            d1 = wa.window_attention_backward_launch(
+                *v1[:3], g.reshape(out.shape[0], out.shape[2], out.shape[1],
+                                   -1).transpose(1, 2).contiguous(), o,
+                stats, *v1[3:])
+            b1 = (torch.cat([merged(t) for t in d1[:3]], dim=-1), d1[3])
+            out, stats, o = wa.window_attention_windows_launch(*v3)
+            got3 = (window_partition(out, window), stats,
+                    window_partition(o, window))
+            d3 = wa.window_attention_windows_backward_launch(
+                v3[0], window_reverse(g, window, dims).contiguous(), o, stats,
+                *v3[1:])
+            b3 = (window_partition(d3[0], window), d3[1])
+            for label, got, grads in (("V1", got1, b1), ("V3", got3, b3)):
+                for g_, w_ in zip(got, ref):
+                    diff[label + "f"] = max(diff[label + "f"], (
+                        g_.float() - w_.float()).abs().max().item())
+                    if not torch.equal(g_, w_):
+                        unequal.append(label + "f")
+                diff[label + "b"] = max(diff[label + "b"], (
+                    grads[0].float() - want[0].float()).abs().max().item())
+                err = (grads[1] - want[1]).abs().max().item()
+                diff[label + "b dbias"] = max(diff[label + "b dbias"], err)
+                if err > TOL["float32"] * want[1].abs().max().item():
+                    loose.append(label + "b dbias")
+    if unequal or loose:
+        raise AssertionError(f"V1 / V3 differ from K4 on the same values: "
+                             f"{sorted(set(unequal))} not bit-equal to K4f, "
+                             f"{sorted(set(loose))} beyond the f32 limit")
+    return diff
 
 
 def composite_times(calls):
@@ -1138,8 +1256,8 @@ def composite_times(calls):
             g = torch.randn(*qkv.shape[:4], qkv.shape[4] // 3,
                             device=qkv.device).to(qkv.dtype)
             # K4f's kept state, as the forward of a training step leaves it
-            kept = k4_kept((window_partition(qkv, window), bias, rows, scale,
-                            heads))
+            kept = kept_state("attention", (window_partition(qkv, window),
+                                            bias, rows, scale, heads))
             bwd += cuda_ms(lambda: window_reverse(
                 wa.window_attention_qkv_backward(
                     window_partition(qkv, window), bias, rows,
@@ -1370,6 +1488,19 @@ def check_train_metrics(kernel, plain):
     return worst
 
 
+# the window-attention kernels' backward and its plain version (attributes
+# of ops/window_attention.py), whose arguments put the cotangent after
+# (q, k, v, bias, ids) for V1 and after (qkv, bias, ids) for K4 and V3
+KEPT_BACKWARD = {
+    "attention": ("window_attention_qkv_backward",
+                  "window_attention_qkv_backward_reference"),
+    "attention_split": ("window_attention_backward",
+                        "window_attention_backward_reference"),
+    "attention_windows": ("window_attention_windows_backward",
+                          "window_attention_windows_backward_reference"),
+}
+
+
 def cuda_ms(fn, reps=3):
     import torch
 
@@ -1436,27 +1567,16 @@ def kernel_times(calls, backward=True):
                 ms[bname] += cuda_ms(lambda: sbk.ln_mlp_backward(*b_args))
                 plain_ms[bname] += cuda_ms(
                     lambda: sbk.ln_mlp_backward_reference(*b_args))
-            elif name == "attention":
-                b_args = (*args[:3], g, *args[3:])
-                kept = k4_kept(args)
-                ms[bname] += cuda_ms(
-                    lambda: wa.window_attention_qkv_backward(*b_args, **kept))
-                plain_ms[bname] += cuda_ms(
-                    lambda: wa.window_attention_qkv_backward_reference(
-                        *b_args))
-            elif name == "attention_split":
-                b_args = (*args[:5], g, args[5])
-                ms[bname] += cuda_ms(
-                    lambda: wa.window_attention_backward(*b_args))
-                plain_ms[bname] += cuda_ms(
-                    lambda: wa.window_attention_backward_reference(*b_args))
-            elif name == "attention_windows":
-                b_args = (*args[:3], g, *args[3:])
-                ms[bname] += cuda_ms(
-                    lambda: wa.window_attention_windows_backward(*b_args))
-                plain_ms[bname] += cuda_ms(
-                    lambda: wa.window_attention_windows_backward_reference(
-                        *b_args))
+            elif name in KEPT_BACKWARD:
+                # the backward reads the kept state of its forward's call
+                kernel_b, plain_b = (getattr(wa, f) for f in
+                                     KEPT_BACKWARD[name])
+                n_in = 5 if name == "attention_split" else 3
+                b_args = (*args[:n_in], g, *args[n_in:])
+                kept = kept_state(name, args)
+                ms[bname] += cuda_ms(lambda: kernel_b(*b_args, **kept))
+                plain_ms[bname] += cuda_ms(lambda: plain_b(*b_args))
+                del kept
             else:
                 adj, plain_adj = adjoints[name]
                 ms[bname] += cuda_ms(lambda: adj(g, args))
@@ -1651,21 +1771,15 @@ def call_work(name, args):
     count each input read once and each output written once; FLOP count
     the products the kernel computes from those inputs (the backward
     kernels recompute the forward's products they need); K1's tiled body
-    does K1's work, but its backward reads K1f's ao, row statistics and
-    (bf16) f32 o instead of recomputing ao (five attention products, not
-    six); a residual mode does its kernel's, and reads gamma (and writes
-    dgamma) besides."""
+    is counted by K1's work, the function's own (its backward reads K1f's
+    ao, row statistics and f32 o instead of recomputing ao: the port's
+    design, which ``kept_bytes`` counts apart); a residual mode does its
+    kernel's, and reads gamma (and writes dgamma) besides."""
     x = args[0]
     if name in RESIDUAL_KERNELS:
         base = RESIDUAL_KERNELS[name]
         flops, nbytes = call_work(base, args)
         return flops, nbytes + 4 * x.shape[-1] * (2 if "_bwd" in base else 1)
-    kept_bytes = 0
-    if name == TILED_NAME["attn_half_bwd"]:   # ao, o, stats from K1f
-        bw, n, c = x.shape
-        heads = args[12]
-        kept_bytes = _nbytes(x) + (4 * x.numel() if x.element_size() == 2
-                                   else 0) + 8 * bw * heads * n
     name = {v: k for k, v in TILED_NAME.items()}.get(name, name)
     if name in PROBES:
         return probe_work(name, *args)
@@ -1673,7 +1787,7 @@ def call_work(name, args):
         # K4f: q k^T and p v from packed qkv (qkv, bias, ids in; out);
         # K4b: s, dp, dv, dq, dk (qkv, bias, ids, dout in; dqkv, dbias out).
         # The state K4f keeps for K4b is the port's design, not the
-        # function's work: k4_kept_bytes counts it apart.
+        # function's work: kept_bytes counts it apart.
         qkv, bias, ids = args[:3]
         bw, n, c3 = qkv.shape
         work = bw * n * n * (c3 // 3)
@@ -1703,11 +1817,9 @@ def call_work(name, args):
         if name == "attn_half":  # qkv, proj; q k^T and p v
             return 8 * rows * c * c + 4 * rows * n * c, 2 * _nbytes(x) + \
                 params + _nbytes(*args[9:11])
-        # recomputed qkv, dWproj, dao, dWqkv, dy; s, ao (whole-window only),
-        # dp, dv, dq, dk
-        attn = 10 if kept_bytes else 12
-        return 22 * rows * c * c + attn * rows * n * c, 3 * _nbytes(x) + \
-            2 * params + _nbytes(args[10]) + kept_bytes
+        # recomputed qkv, dWproj, dao, dWqkv, dy; s, ao, dp, dv, dq, dk
+        return 22 * rows * c * c + 12 * rows * n * c, 3 * _nbytes(x) + \
+            2 * params + _nbytes(args[10])
     if name in ("ln_mlp", "ln_mlp_bwd"):
         rows, c = x.shape
         hid = args[3].shape[0]
@@ -1728,15 +1840,23 @@ def call_work(name, args):
     return 0, 2 * _nbytes(x)  # a mover or its adjoint: read and write
 
 
-def k4_kept_bytes(args):
-    """Bytes of the state that K4f keeps for K4b on the K4 call ``args``:
-    the row statistics [BW, H, N, 2] f32 and, bf16, the f32 o (in f32, K4b
-    reads out itself as o). K4f writes them once and K4b reads them once;
-    the function's bound (``call_work``) does not count them."""
-    qkv, heads = args[0], args[4]
-    bw, n, c3 = qkv.shape
-    o32 = 4 * bw * n * (c3 // 3) if qkv.element_size() == 2 else 0
-    return 8 * bw * heads * n + o32
+def kept_bytes(name, args):
+    """Bytes of the state that the forward of kernel ``name`` keeps for its
+    backward on its call ``args``: the row statistics [BW, H, N, 2] f32
+    and, bf16, the f32 o (in f32 the backward reads out itself as o); the
+    key-tiled K1f (``attn_half`` at ViT's calls) keeps ao besides. The
+    forward writes them once and the backward reads them once; the
+    function's bound (``call_work``) does not count them."""
+    x = args[0]
+    if name == "attention_split":      # q [BW, H, N, d]
+        out, d = x.numel(), x.shape[-1]
+    elif name == "attn_half":          # x [BW, N, C], heads
+        out, d = x.numel(), x.shape[-1] // args[12]
+    else:                              # qkv [..., 3C], heads
+        out, d = x.numel() // 3, x.shape[-1] // (3 * args[4])
+    o32 = 4 * out if x.element_size() == 2 else 0
+    ao = out * x.element_size() if name == "attn_half" else 0
+    return 8 * (out // d) + o32 + ao
 
 
 def bound_ms(name, calls, dtype="bfloat16"):
@@ -2249,6 +2369,11 @@ def tiled_launch_times(calls, card):
         f"TFLOP/s) forward {bound_f:.3f} ms, backward {bound_b:.3f} ms; "
         f"tiled / SDPA forward {fwd / lib:.2f}x, backward "
         f"{(phase_a + phase_b) / lib_bwd:.2f}x")
+    kept = sum(kept_bytes("attn_half", a) for a in k1)
+    log(f"[{card}] vit K1f's kept state (ao, row statistics, f32 o) "
+        f"{kept / 1e6:.1f} MB per micro-batch, written by K1f and read by "
+        f"K1b, {kept / HBM_BYTES_PER_S * 1e3:.3f} ms each way at the HBM "
+        "rate (outside K1b's bound)")
     return fwd, phase_a + phase_b, lib, lib_bwd
 
 
@@ -2264,7 +2389,7 @@ def k4_launch_times(calls, card):
     k4 = [a for name, a in calls if name == "attention"]
     out = collections.Counter()
     with torch.no_grad():
-        kept = [k4_kept(a) for a in k4]
+        kept = [kept_state("attention", a) for a in k4]
         douts = [torch.randn(a[0].shape[:2] + (a[0].shape[2] // 3,),
                              device=a[0].device).to(a[0].dtype) for a in k4]
         fwd = device_kernel_ms(lambda: [wa.window_attention_qkv_launch(*a)
@@ -2283,7 +2408,7 @@ def k4_launch_times(calls, card):
                 out[f"phase {phase} {key}"] = sum(
                     v for n, v in ms.items() if tag in n)
         del kept, douts
-    kept = sum(k4_kept_bytes(a) for a in k4)
+    kept = sum(kept_bytes("attention", a) for a in k4)
     log(f"[{card}] K4 launches alone, device ms per micro-batch of "
         f"{TRAIN_MICRO} ({len(k4)} calls): K4f {out['forward']:.3f}; K4b "
         f"phase A {out['phase A with dbias']:.3f} (without dbias's atomics "
@@ -2293,6 +2418,45 @@ def k4_launch_times(calls, card):
         f"{kept / 1e6:.1f} MB, written by K4f and read by K4b, "
         f"{kept / HBM_BYTES_PER_S * 1e3:.3f} ms each way at the HBM rate "
         "(outside the bounds)")
+    return out
+
+
+def v_launch_times(calls, card):
+    """Device ms per micro-batch of V1f's, V3f's and K4f's launches and of
+    V1b's, V3b's and K4b's phases A and B (from their kept state) over the
+    V and K4 calls of ``calls`` (the same values), from the profiler. Logs
+    one line; returns {label: ms}."""
+    import torch
+
+    out = {}
+    with torch.no_grad():
+        for name in ("attention", *V_KERNELS):
+            launch, _, backward, _ = kept_launches(name)
+            vc = [a for n, a in calls if n == name]
+            kept = [launch(*a) for a in vc]
+            douts = [torch.randn(k[0].shape, device=k[0].device).to(
+                k[0].dtype) for k in kept]
+            fwd = device_kernel_ms(lambda: [launch(*a) for a in vc],
+                                   f"{name}_launch")
+            bwd = device_kernel_ms(lambda: [
+                backward(*kept_backward_args(name, a, g, k[2], k[1]))
+                for a, g, k in zip(vc, douts, kept)], f"{name}_bwd_launch")
+            out[name] = sum(v for n, v in fwd.items()
+                            if "attention_tiled_mma" in n)
+            for phase, tag in (("A", "attention_bwd_rows"),
+                               ("B", "attention_bwd_keys")):
+                out[f"{name}_bwd {phase}"] = sum(v for n, v in bwd.items()
+                                                 if tag in n)
+            del kept, douts
+    log(f"[{card}] V launches alone, device ms per micro-batch of "
+        f"{TRAIN_MICRO}: V1f {out['attention_split']:.3f}, V1b phase A "
+        f"{out['attention_split_bwd A']:.3f} + B "
+        f"{out['attention_split_bwd B']:.3f}; V3f "
+        f"{out['attention_windows']:.3f}, V3b phase A "
+        f"{out['attention_windows_bwd A']:.3f} + B "
+        f"{out['attention_windows_bwd B']:.3f}; K4f on the same values "
+        f"{out['attention']:.3f}, K4b phase A "
+        f"{out['attention_bwd A']:.3f} + B {out['attention_bwd B']:.3f}")
     return out
 
 
@@ -2772,6 +2936,7 @@ def main() -> int:
 
     # 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
+    ptxas = start_ptxas()   # beside the build; read in phase 5
     so = _build.build()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s -> "
@@ -2860,13 +3025,17 @@ def main() -> int:
     sat = k4_saturation_phase(k4sets["DyT float32 B=2"], kgen)
     for name, err in zip(("attention", "attention_bwd"), sat):
         worst[name] = max(worst[name], err)
-    k4_launch_parity_phase(k4sets, torch.Generator().manual_seed(SEED + 21))
+    launch_parity_phase(k4sets, torch.Generator().manual_seed(SEED + 21))
 
     # 5. V1 and V3 on the K4 calls ----------------------------------------
     vgen = torch.Generator().manual_seed(SEED + 12)
     triples = {label: v_calls(calls, blocks[label], vgen)
                for label, calls in k4sets.items()}
-    worst.update(v_parity_phase(v_sets(triples, vgen), v_table(), vgen))
+    vsets = v_sets(triples, vgen)
+    worst.update(v_parity_phase(vsets, v_table(), vgen))
+    launch_parity_phase(vsets, torch.Generator().manual_seed(SEED + 22),
+                        V_KERNELS, "V")
+    del vsets
     v_main = v_main_calls(triples[train_label])
     v_counts = v_path(v_main, vgen)
     launched = {name: n for name, n in v_counts.items() if n}
@@ -2875,19 +3044,38 @@ def main() -> int:
         f"window_attention_windows, forward and backward, launches "
         f"{launched}")
     check_counts(v_counts, V_PER_CALL, len(triples[train_label]), "V path")
+    agen = torch.Generator().manual_seed(SEED + 23)
     for label, t in triples.items():
-        d1, d3 = k4_agreement(t)
-        log(f"V vs K4 {label}: max|V1f - K4f| {d1:.3e}, max|V3f - K4f| "
-            f"{d3:.3e} over {len(t)} calls (V1 / V3's FMA body against K4's "
-            f"tiled one: within the parity tolerance, not 0)")
+        diff = k4_agreement(t, agen)
+        log(f"V vs K4 {label}: V1f and V3f equal K4f bit for bit (out, row "
+            f"statistics, o) over {len(t)} calls; from their kept state "
+            f"max|V1b - K4b| {diff['V1b']:.3e}, max|V3b - K4b| "
+            f"{diff['V3b']:.3e} (dq, dk, dv), dbias {diff['V1b dbias']:.3e}"
+            f" / {diff['V3b dbias']:.3e}")
+    ptxas_phase(ptxas)
     vms, vplain = kernel_times(v_main)
     vbounds = {name: bound_ms(name, v_main) for name in V_PER_CALL}
+    vsdpa = sdpa_times([("attention", k4) for k4, _, _ in
+                        triples[train_label]])
+    for name in V_PER_CALL:
+        log(f"[{card}] {name}: {vms[name]:.3f} ms per micro-batch of "
+            f"{TRAIN_MICRO} (plain {vplain[name]:.3f} ms; SDPA on the same "
+            f"calls {vsdpa['_bwd' in name]:.3f} ms; bound "
+            f"{vbounds[name][0]:.3f} ms by {vbounds[name][1]})")
+    v_launch_times(v_main + [("attention", k4) for k4, _, _ in
+                             triples[train_label]], card)
     composite = composite_times(v_main)
     for what, t, name in (("forward", composite[0], "attention_windows"),
                           ("backward", composite[1],
                            "attention_windows_bwd")):
         log(f"[{card}] V3 {what}: {vms[name]:.3f} ms per micro-batch of "
             f"{TRAIN_MICRO} against partition + K4 + reverse {t:.3f} ms")
+    for name in V_KERNELS:
+        kept = sum(kept_bytes(name, a) for n, a in v_main if n == name)
+        log(f"[{card}] {name}: the kept state {kept / 1e6:.1f} MB, written "
+            f"by the forward and read by the backward, "
+            f"{kept / HBM_BYTES_PER_S * 1e3:.3f} ms each way at the HBM rate "
+            "(outside the bounds)")
     k4_calls = k4sets.pop(train_label)  # phase 17
     del k4sets, triples, v_main, m, x
     torch.cuda.empty_cache()
@@ -3086,8 +3274,7 @@ def main() -> int:
         k4_calls)
     k4_launch_times(k4_calls, card)
     # V1 computes K4's function on the split heads that the SDPA call takes
-    library_ms["attention_split"] = library_ms["attention"]
-    library_ms["attention_split_bwd"] = library_ms["attention_bwd"]
+    library_ms["attention_split"], library_ms["attention_split_bwd"] = vsdpa
     for name in TILED_NAME:  # K1's tiled body: ViT's calls
         tname = TILED_NAME[name]
         ms[tname], plain_ms[tname] = vms_vit[name], vplain_vit[name]

@@ -48,10 +48,10 @@ def test_k4_bounds_follow_the_shapes():
         (qkv_b + bias_b + ids_b + out) / 3.35e12 * 1e3)
     assert chip_smoke.bound_ms("attention_bwd", calls)[0] > ms
     stats = 1728 * 3 * 252 * 8
-    assert chip_smoke.k4_kept_bytes(calls[0][1]) == stats + 2 * out
+    assert chip_smoke.kept_bytes("attention", calls[0][1]) == stats + 2 * out
     f32 = (_meta(1728, 252, 288, dtype=torch.float32), bias, ids,
            32 ** -0.5, 3)
-    assert chip_smoke.k4_kept_bytes(f32) == stats
+    assert chip_smoke.kept_bytes("attention", f32) == stats
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])
@@ -97,7 +97,7 @@ def test_k4_saturation_and_launch_phases_on_cpu(k4_calls, k4_train_calls):
             k4_calls, torch.Generator().manual_seed(3))
         assert worst == [0.0, 0.0]
     sets = {"tiny": k4_calls, "tiny train": k4_train_calls}
-    assert chip_smoke.k4_launch_parity_phase(
+    assert chip_smoke.launch_parity_phase(
         sets, torch.Generator().manual_seed(4)) == 0.0
     plain = wa.window_attention_qkv_kept_reference
 
@@ -111,7 +111,7 @@ def test_k4_saturation_and_launch_phases_on_cpu(k4_calls, k4_train_calls):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(wa, "window_attention_qkv_launch", wrong_stats)
             with pytest.raises(AssertionError, match="the K4 launches on"):
-                chip_smoke.k4_launch_parity_phase(
+                chip_smoke.launch_parity_phase(
                     sets, torch.Generator().manual_seed(4))
 
 
@@ -360,14 +360,17 @@ def test_v_plain_versions_pass_and_every_case_is_covered(v_calls):
 def test_v_path_and_its_timings_on_cpu(v_calls, monkeypatch):
     """The V path's plumbing: the main calls of a training forward through
     both entry points, forward and backward (no launch on the CPU, so the
-    count check fails here), the K4 agreement, the timing and bound
-    helpers with a stand-in timer."""
+    count check fails here), the K4 agreement gate (V1's and V3's plain
+    versions are K4's on the heads merged and the windows partitioned, so
+    every difference is 0 here too), the timing and bound helpers with a
+    stand-in timer."""
     triples, _ = v_calls
+    gen = torch.Generator().manual_seed(6)
     for label, t in triples.items():
-        d1, d3 = chip_smoke.k4_agreement(t)
-        dtype = str(t[0][0][0].dtype).removeprefix("torch.")
-        assert d3 == 0.0 and d1 <= chip_smoke.TOL[dtype], label
+        diff = chip_smoke.k4_agreement(t, gen)
+        assert diff == dict.fromkeys(diff, 0.0) and len(diff) == 6, label
     t = triples["tiny bfloat16 train=True"]
+    dtype = "bfloat16"
     main = chip_smoke.v_main_calls(t)
     gen = torch.Generator().manual_seed(4)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -387,6 +390,39 @@ def test_v_path_and_its_timings_on_cpu(v_calls, monkeypatch):
         assert fwd[0] > 0 and bwd[0] > fwd[0]
 
 
+def test_v_launch_phase_and_k4_gate_on_cpu(v_calls):
+    """The V launch-level phase (V1f / V3f with their kept state, V1b / V3b
+    from it, against their plain versions) passes on the plain versions,
+    and fails on a wrong kept statistic; the K4 agreement gate fails on a
+    V1f whose o is one f32 step off (bit equality, not a tolerance)."""
+    from vsn_tpu_torch.ops import window_attention as wa
+
+    triples, sets = v_calls
+    gen = lambda: torch.Generator().manual_seed(7)
+    assert chip_smoke.launch_parity_phase(
+        sets, gen(), chip_smoke.V_KERNELS, "V") == 0.0
+    plain = wa.window_attention_windows_kept_reference
+
+    def wrong_stats(*args):
+        out, stats, o = plain(*args)
+        return out, stats * torch.tensor([1.0, 1.001]), o
+
+    def o_off(*args):
+        out, stats, o = wa.window_attention_kept_reference(*args)
+        return out, stats, torch.nextafter(o, o + 1)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(wa, "window_attention_windows_launch", wrong_stats)
+        with pytest.raises(AssertionError, match="the V launches on"):
+            chip_smoke.launch_parity_phase(sets, gen(), chip_smoke.V_KERNELS,
+                                           "V")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(wa, "window_attention_launch", o_off)
+        with pytest.raises(AssertionError, match=r"\['V1f'\] not bit-equal"):
+            chip_smoke.k4_agreement(triples["tiny float32 train=False"],
+                                    gen())
+
+
 def test_v_bounds_equal_k4s_on_the_same_call():
     """V1 and V3 do K4's work on the same values: the same FLOP and bytes
     at Swin-T stage 1, micro 8 (qkv [1728, 252, 288] bf16)."""
@@ -401,6 +437,25 @@ def test_v_bounds_equal_k4s_on_the_same_call():
         want = chip_smoke.call_work("attention" + suffix, k4)
         assert chip_smoke.call_work("attention_split" + suffix, v1) == want
         assert chip_smoke.call_work("attention_windows" + suffix, v3) == want
+
+
+def test_v_kept_bytes_equal_k4s_on_the_same_call():
+    """V1's and V3's kept state (the row statistics [1728, 3, 252, 2] f32
+    and the f32 o) is K4's at Swin-T stage 1, micro 8, counted apart from
+    the bounds: 1728 * 252 * (3 * 8 + 96 * 4) bytes in bf16, the
+    statistics alone in f32."""
+    bias = _meta(3, 252, 252, dtype=torch.float32)
+    ids = _meta(216, 252, dtype=torch.int32)
+    for dtype, o32 in ((torch.bfloat16, 96 * 4), (torch.float32, 0)):
+        q = _meta(1728, 3, 252, 32, dtype=dtype)
+        k4 = (_meta(1728, 252, 288, dtype=dtype), bias, ids, 32 ** -0.5, 3)
+        v1 = (q, q, q, bias, ids, 32 ** -0.5)
+        v3 = (_meta(8, 36, 42, 36, 288, dtype=dtype), bias, ids, 32 ** -0.5,
+              3, (6, 7, 6))
+        want = 1728 * 252 * (3 * 8 + o32)
+        assert chip_smoke.kept_bytes("attention", k4) == want
+        assert chip_smoke.kept_bytes("attention_split", v1) == want
+        assert chip_smoke.kept_bytes("attention_windows", v3) == want
 
 
 class _DvIntoDk(torch.autograd.Function):
@@ -480,16 +535,21 @@ def test_a_v_kernel_with_a_wrong_index_fails(v_calls, mutant):
                                   TINY_V_CASES)
 
 
-# One-line edits of csrc/window_attention_qkv.cu that chip_smoke.py must
-# reject on the card (exit 1, in its V phase): name -> (line, mutant, the
-# kernel whose parity fails)
+# One-line edits of csrc/window_attention_qkv.cu's V layouts (``Split``,
+# ``MapRows``) that chip_smoke.py must reject on the card (exit 1, in its V
+# phase): name -> (line, mutant, the kernel whose parity fails)
 V_SOURCE_MUTANTS = {
     "head stride d instead of N d (V1)": (
-        "const HeadStrides s = {(long long)heads * n * d, (long long)n * d, d};",
-        "const HeadStrides s = {(long long)heads * n * d, d, d};",
+        "const long long off = (bw * heads + h) * n * d;",
+        "const long long off = (bw * heads * n + h) * d;",
         "attention_split"),
     "dv written to dk (V1b)": (
-        "p.dv = dv;", "p.dv = dk;", "attention_split_bwd"),
+        "dv[in(t) + ch] = dv_t;", "dk[in(t) + ch] = dv_t;",
+        "attention_split_bwd"),
+    "K read from q's base (V1)": (
+        "stage_tile<T, D, P>(ks, k + in(t0), ld, nrows, d, plain);",
+        "stage_tile<T, D, P>(ks, q + in(t0), ld, nrows, d, plain);",
+        "attention_split"),
     "H and D window indices swapped (V3)": (
         "return ((b * md + i * wd) * mh + j * wh) * mw + kw * ww;",
         "return ((b * md + j * wd) * mh + i * wh) * mw + kw * ww;",
@@ -497,6 +557,9 @@ V_SOURCE_MUTANTS = {
     "ids row from the global bw % W (V3)": (
         "return (bw % windows()) % rows;", "return bw % rows;",
         "attention_windows"),
+    "a token's row ignoring the wh ww jump between slices (V3)": (
+        "return ((long long)td * mh + th) * mw + tw;",
+        "return (long long)a * mw + tw;", "attention_windows"),
 }
 
 
@@ -511,7 +574,7 @@ def test_v_source_mutants_name_one_line_of_the_source(mutant):
 def test_a_mutated_v_source_makes_chip_smoke_fail(mutant, tmp_path):
     """chip_smoke.py run from a copy whose V1/V3 addressing has one line
     mutated exits 1, failing the V phase's parity (K4's passes: the
-    mutants touch only the split and window-grid layouts)."""
+    mutants touch only the Split and MapRows layouts)."""
     line, new, kernel = V_SOURCE_MUTANTS[mutant]
     res = _run_mutated_chip_smoke(K4_SOURCE, line, new, tmp_path)
     assert res.returncode == 1

@@ -191,6 +191,27 @@ def test_vit_k1_bound_at_micro_24():
     assert chip_smoke.bound_ms("attn_half_bwd_tiled", calls)[0] > ms
 
 
+def test_vit_k1b_tiled_bound_is_the_functions_own_work():
+    """K1b's tiled body at ViT-S's call, micro 24, is counted by K1b's own
+    work, as the whole-window K1b: 22 rows C^2 GEMM FLOP and twelve
+    attention products' 12 rows N C (s, ao, dp, dv, dq, dk), and the
+    function's bytes. What K1f keeps for it (ao in bf16, the row
+    statistics [24, 6, 811, 2] and the f32 o) is the port's design,
+    counted apart (``kept_bytes``)."""
+    c, n, b = 384, 811, 24
+    f32 = torch.float32
+    args = (_meta(b, n, c), _meta(c, dtype=f32), _meta(c, dtype=f32),
+            _meta(3 * c, c, dtype=f32), None, None, None,
+            _meta(c, c, dtype=f32), _meta(c, dtype=f32), _meta(b, dtype=f32),
+            _meta(b, dtype=f32), 0.125, 6)
+    rows = b * n
+    work = chip_smoke.call_work("attn_half_bwd_tiled", args)
+    assert work == chip_smoke.call_work("attn_half_bwd", args)
+    assert work[0] == 22 * rows * c * c + 12 * rows * n * c
+    assert chip_smoke.kept_bytes("attn_half", args) == (
+        2 * rows * c + 8 * b * 6 * n + 4 * rows * c)
+
+
 def test_vit_training_phase_rehearsal_on_cpu():
     """The ViT training phase's pieces at a tiny size: DropPath draws from
     ``model.draw``, every parameter reached, two steps, the plain route

@@ -530,7 +530,7 @@ def test_window_attention_qkv_head_dims(dev, dtype, heads, d):
     _close_grads(_grads(wa.window_attention_qkv, args, dout, (0, 1)),
                  _grads(wa.window_attention_qkv_reference, args, dout,
                         (0, 1)), dtype)
-    rows = chip_smoke.k4_launch_compare(args, dout)
+    rows = chip_smoke.launch_compare("attention", args, dout)
     assert all(ok for *_, ok in rows), rows
 
 
@@ -667,24 +667,63 @@ def test_v1_and_v3_at_saturated_logits(dev, logit):
 
 
 def test_v1_equals_v3_and_both_agree_with_k4(dev):
-    """V1 and V3 share the FMA body: V1f gives V3f's output bit for bit
-    (heads merged, windows partitioned). K4 runs the key-tiled body, which
-    rounds e to bf16 before e v: each is within the bf16 parity limit (2e-2
-    of the scale) of K4f's output."""
-    from vsn_tpu_torch.models.swin3d import window_partition
+    """V1, V3 and K4 run one tiled body on three layouts: on the same
+    values, V1f (heads merged) and V3f (windows partitioned) give K4f's
+    out, row statistics and o bit for bit, in bf16 and f32 (chip_smoke's
+    ``k4_agreement``, which also holds V1b's and V3b's dbias to K4b's)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        shape = ((12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96, "shifted", dtype)
+        k4 = _k4_args(dev, *shape)
+        triple = (k4, chip_smoke.split_call(k4), _v3_args(dev, *shape))
+        diff = chip_smoke.k4_agreement([triple], torch.Generator()
+                                       .manual_seed(3))
+        assert diff["V1f"] == diff["V3f"] == 0.0, diff
 
-    shape = ((12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96, "shifted",
-             torch.bfloat16)
-    k4 = _k4_args(dev, *shape)
-    ref = wa.window_attention_qkv(*k4)
-    out = wa.window_attention(*_v1_args(dev, *shape))
-    bw, heads, n, d = out.shape
-    v1 = out.transpose(1, 2).reshape(bw, n, heads * d)
-    v3 = _v3_args(dev, *shape)
-    v3 = window_partition(wa.window_attention_windows(*v3), v3[5])
-    assert torch.equal(v1, v3)
-    _close(v1, ref, torch.bfloat16)
-    _close(v3, ref, torch.bfloat16)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d", [(2, 4), (2, 12), (3, 32), (2, 64),
+                                     (1, 128)])
+def test_v1_and_v3_head_dims(dev, dtype, heads, d):
+    """V1 and V3 at head dims 4 and 12 (staged by plain loads), 32, 64 and
+    128 on a shifted call with the ragged key tile (N = 70 = 64 + 6): the
+    wrappers forward and backward, and the launches with their kept state,
+    against the plain versions; V1f and V3f bit-equal to K4f."""
+    from vsn_tpu_torch.models.swin3d import window_reverse
+
+    g = torch.Generator().manual_seed(d)
+    dims, window = (4, 10, 14), (2, 5, 7)
+    ids = torch.from_numpy(shifted_window_region_ids(dims, window,
+                                                     (1, 2, 3))).to(dev)
+    n, c = 70, heads * d
+    k4 = (torch.randn(2 * ids.shape[0], n, 3 * c, generator=g).to(
+        dev, dtype), torch.randn(heads, n, n, generator=g).to(dev), ids,
+        d ** -0.5, heads)
+    v1 = chip_smoke.split_call(k4)
+    v3 = (window_reverse(k4[0], window, dims).contiguous(), *k4[1:], window)
+    for name, args, fn, ref, diff in (
+            ("attention_split", v1, wa.window_attention,
+             wa.window_attention_split_reference, (0, 1, 2, 3)),
+            ("attention_windows", v3, wa.window_attention_windows,
+             wa.window_attention_windows_reference, (0, 1))):
+        dout = chip_smoke.cotangent(name, args, g)
+        _v_check(fn, ref, args, diff, dout, dtype, (name, name + "_bwd"))
+        rows = chip_smoke.launch_compare(name, args, dout)
+        assert all(ok for *_, ok in rows), rows
+    diff = chip_smoke.k4_agreement([(k4, v1, v3)], g)
+    assert diff["V1f"] == diff["V3f"] == 0.0, diff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v3_launches_at_the_3_over_8_call(dev, dtype):
+    """V3f's launch with its kept state and V3b from it against their
+    plain versions at 3 id rows over 8 windows per sample (window r of a
+    sample on row r % 3)."""
+    args = chip_smoke.synthetic_windows_call(
+        dtype, dev, torch.Generator().manual_seed(10))
+    dout = chip_smoke.cotangent("attention_windows", args,
+                                torch.Generator().manual_seed(11))
+    rows = chip_smoke.launch_compare("attention_windows", args, dout)
+    assert all(ok for *_, ok in rows), rows
 
 
 def test_v1_and_v3_reject_what_the_kernels_do_not_take(dev):
@@ -705,6 +744,15 @@ def test_v1_and_v3_reject_what_the_kernels_do_not_take(dev):
         new[i] = bad
         with pytest.raises((TypeError, ValueError)):
             wa.window_attention_windows(*new)
+    z = torch.zeros(2, 2, 12, 40, device=dev)   # head dim 40
+    with pytest.raises(ValueError, match="head dim"):
+        wa.window_attention(z, z, z, bias, ids, scale)
+    with pytest.raises(ValueError, match="kept o"):
+        wa.window_attention_backward(q, k, v, bias, ids, q, scale)
+    with pytest.raises(ValueError, match="kept o"):
+        wa.window_attention_windows_backward(
+            qkv, bias, ids, qkv[..., :qkv.shape[-1] // 3].contiguous(), scale,
+            heads, window)
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,11 @@ on the CPU as tests/test_window_attention_kernel.py runs it, forward and
 ``jax.vjp`` (dq, dk, dv, dbias).
 
 On CPU tensors the port's Function runs its plain forward
-(``window_attention_reference``) and the explicit plain backward
-(``window_attention_backward_reference``), which the CUDA kernels V1f/V1b
-are held to on the card. Both sides read q, k, v into f32, subtract the
-plain row max and mask with -1e9, so they differ only in the order of sums.
+(``window_attention_math``) and the explicit plain backward
+(``window_attention_backward_reference``): K4's on the heads merged, which
+the CUDA kernels V1f/V1b are held to on the card. Both sides read q, k, v
+into f32, subtract the plain row max and mask with -1e9, so they differ
+only in the order of sums.
 
 Tolerances: f32 1e-5 (rtol and atol), the rounding of sums taken in another
 order; dbias sums over every window. bf16 2e-2 of each output's own scale:
@@ -170,6 +171,17 @@ def test_argument_check_rejects_what_the_kernels_do_not_take():
         with pytest.raises((TypeError, ValueError)):
             port._check_split(*new)
             pytest.fail(what)
-    with pytest.raises(ValueError):  # head dim 48 > 32
-        z = torch.zeros(2, 1, 16, 48)
-        port._check_split(z, z, z, t(bias)[:1].contiguous(), t(ids))
+    for d in (40, 144):  # neither up to 32 nor a multiple of 16 up to 128
+        with pytest.raises(ValueError):
+            z = torch.zeros(2, 1, 16, d)
+            port._check_split(z, z, z, t(bias)[:1].contiguous(), t(ids))
+
+
+@pytest.mark.parametrize("d", [48, 64])
+def test_argument_check_takes_the_tiled_head_dims(d):
+    """Head dims 48 and 64, multiples of 16 past 32, which the tiled body
+    takes."""
+    _, _, _, bias, ids, _ = _case("padded", 2, seed=2)
+    z = torch.zeros(2, 1, 16, d)
+    b = torch.from_numpy(bias)[:1].contiguous()
+    assert port._check_split(z, z, z, b, torch.from_numpy(ids)) == 2

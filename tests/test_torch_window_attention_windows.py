@@ -243,8 +243,10 @@ def test_argument_check_rejects_what_the_kernels_do_not_take():
     bad = {  # what the kernels do not take -> (qkv, bias, ids, heads, window)
         "map 4x6x4 over a 3x3x2 window": (t(qkv), t(bias), t(ids), 2,
                                           (3, 3, 2)),
-        "head dim 48 > 32": (torch.zeros(2, 4, 6, 4, 3 * 96), t(bias),
-                             t(ids), 2, window),
+        "head dim 40": (torch.zeros(2, 4, 6, 4, 3 * 80), t(bias), t(ids), 2,
+                        window),
+        "head dim 144": (torch.zeros(2, 4, 6, 4, 3 * 144), t(bias)[:1],
+                         t(ids), 1, window),
         "3C not divisible by 3 heads": (t(qkv), t(bias), t(ids), 3, window),
         "f16 qkv": (t(qkv).half(), t(bias), t(ids), 2, window),
         "f64 bias": (t(qkv), t(bias).double(), t(ids), 2, window),
@@ -259,3 +261,13 @@ def test_argument_check_rejects_what_the_kernels_do_not_take():
         with pytest.raises((TypeError, ValueError)):
             port._check_windows(*args)
             pytest.fail(what)
+
+
+@pytest.mark.parametrize("d", [48, 64])
+def test_argument_check_takes_the_tiled_head_dims(d):
+    """Head dims 48 and 64, multiples of 16 past 32, which the tiled body
+    takes."""
+    _, bias, ids, window, _ = _case("padded", 2, seed=2)
+    t = torch.from_numpy
+    qkv = torch.zeros(2, 4, 6, 4, 3 * 2 * d)
+    assert port._check_windows(qkv, t(bias), t(ids), 2, window) == 8

@@ -3,7 +3,8 @@
 // multiple of 16 up to 128: ViT's calls (vsn_tpu/models/vit3d.py
 // _fused_attn_half, one window of N = 811 tokens per sample at d = 64), and
 // Swin's (d = 32) when the caller forces it; and K4f / K4b, the unfused Swin
-// block's window attention on packed qkv (window_attention_qkv.cu), under
+// block's window attention on packed qkv, and V1 / V3, the same function on
+// split heads and on the unpartitioned map (window_attention_qkv.cu), under
 // K4's softmax policy (below).
 //
 // Replaces the attention chain of vsn_tpu/ops/swin_block_kernels.py
@@ -85,6 +86,13 @@
 // at -inf), no epsilon, ds = p (dp - s1), no dbqkv, any head dim up to 32,
 // whose rows are staged by plain loads where they are not whole 16-byte
 // chunks.
+//
+// Layouts. The kernels are also templated on a layout L that places a
+// (window, head)'s operands (see ``Packed`` below): ``Packed`` (K1, K4: qkv
+// [BW*N, 3C], ao [BW*N, C]); ``Split`` (V1: q, k, v, out [BW, H, N, d]) and
+// ``MapRows`` (V3: qkv and out on the unpartitioned map, a window's tokens
+// not at a fixed stride), both in window_attention_qkv.cu. The row
+// statistics are [BW, H, N, 2] in every layout; o32 and o lie as out does.
 
 #pragma once
 
@@ -106,6 +114,14 @@ constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 // chose 128 registers for phase B at d = 64, with spills.
 template <typename T, int D>
 constexpr int kTiledMinBlocks = kTensorCores<T> && D <= 64 ? 3 : 1;
+
+// Phase A's on layout L: kTiledMinBlocks, but 2 where a layout's phase A
+// spills at the registers that 3 blocks leave (``kRowsSpill``, which the
+// layout sets; window_attention_qkv.cu).
+template <typename L, typename T, int D>
+constexpr bool kRowsSpill = false;
+template <typename T, int D, typename L>
+constexpr int kRowsMinBlocks = kRowsSpill<L, T, D> ? 2 : kTiledMinBlocks<T, D>;
 
 // Row stride (elements) of a staged [kTile][D] tile: 16 bytes of padding.
 template <typename T, int D>
@@ -171,6 +187,36 @@ __device__ __forceinline__ void stage_kv(T* kvs, const T* head, long long c3, in
   stage_tile<T, D, P>(dst, src + c, c3, nk, d, plain);
   stage_tile<T, D, P>(dst + kTile * LD, src + 2 * c, c3, nk, d, plain);
   cp_async_commit();
+}
+
+// Copy two tiles from the same token rows, for a layout whose tokens do not
+// lie at a fixed stride: tile row r of dst0 (dst1) is token t0 + r, row
+// rows.row(t0 + r) of src0 (src1), ld0 (ld1) elements per row; dst1 null
+// copies one tile. Each thread computes a row's offset once, for both
+// tiles. Rows and channels past (nrows, d) are zero-filled, as stage_tile
+// fills them, by the same cp.async copies or plain loads.
+template <typename T, int D, typename P, typename Rows>
+__device__ __forceinline__ void stage_rows(T* dst0, const T* src0, long long ld0, T* dst1,
+                                           const T* src1, long long ld1, const Rows& rows,
+                                           int t0, int nrows, int d, bool plain) {
+  constexpr int E = 16 / (int)sizeof(T), CPR = D / E, LD = kLd<T, D>;
+  if (P::kPlainLoads && plain) {
+    for (int e = threadIdx.x; e < kTile * D; e += kTiledThreads) {
+      const int r = e / D, ch = e % D;
+      const bool ok = r < nrows && ch < d;
+      const long long row = ok ? rows.row(t0 + r) : 0;
+      dst0[r * LD + ch] = ok ? src0[row * ld0 + ch] : from_f32<T>(0.f);
+      if (dst1) dst1[r * LD + ch] = ok ? src1[row * ld1 + ch] : from_f32<T>(0.f);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < kTile * CPR; e += kTiledThreads) {
+    const int r = e / CPR, cc = e % CPR;
+    const bool ok = r < nrows && cc * E < d;
+    const long long row = ok ? rows.row(t0 + r) : 0;
+    cp_async16(dst0 + r * LD + cc * E, ok ? src0 + row * ld0 + cc * E : src0, ok);
+    if (dst1) cp_async16(dst1 + r * LD + cc * E, ok ? src1 + row * ld1 + cc * E : src1, ok);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -386,6 +432,35 @@ __device__ __forceinline__ F* bias_row(F* bias, int h, int n, int i) {
   return bias + ((long long)h * n + i) * n;
 }
 
+// Operand layouts (the kernels' template parameter L). A layout places the
+// q, k, v rows of one (window, head) and its out, o32, dO, dq, dk, dv rows,
+// and gives a window its ids row (``lay.ids``). ``lay.head(...)`` binds one
+// (window bw, head h); its members stage the tiles (stage_q, stage_kv: the
+// forward's and phase A's; stage_do: phase A's dO; stage_keys, stage_q_do:
+// phase B's) and give element offsets (out: token t's channel h d in out,
+// o32 and dO; in: in q and dq; store_dkv: dk and dv). ``Packed`` is K1's
+// and K4's; ``Split`` (V1) and ``MapRows`` (V3) are in
+// window_attention_qkv.cu.
+
+// qkv [BW*N, 3C] (q, k, v at channels 0, C, 2C, head h at h d), out [BW*N,
+// C]: window bw's token t is row bw N + t of each; ids row bw % W. The
+// kernels address it themselves (``kPacked``), as K1's and K4's kernels did
+// before the other layouts came: its instantiations compile to the same code.
+struct Packed {
+  struct Head {};
+  template <typename T>
+  static __device__ __forceinline__ Head head(const T*, long long, int, int, int, int, int) {
+    return {};
+  }
+  static __device__ __forceinline__ const int* ids(const int* ids, long long bw, int ids_rows,
+                                                   int n) {
+    return window_ids(ids, bw, ids_rows, n);
+  }
+};
+
+template <typename L>
+constexpr bool kPacked = std::is_same<L, Packed>::value;
+
 // p from the forward's kept row statistics (shift m, 1 / (the row sum + the
 // policy's epsilon)).
 __device__ __forceinline__ float kept_p(float s, float m, float rinv) {
@@ -433,12 +508,12 @@ __device__ __forceinline__ void add_column_sums(float* dbqkv, int col0, int d,
 // Forward: K1f's and K4f's attention launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, typename P>
+template <typename T, int D, typename P, typename L>
 __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_tiled_mma_kernel(
     const T* __restrict__ qkv, const float* __restrict__ bias, const int* __restrict__ ids,
     int ids_rows, T* __restrict__ ao, float* __restrict__ o32, float* __restrict__ stats,
-    int n, int c, int heads, float scale, bool plain) {
-  constexpr bool TC = kTensorCores<T>;
+    int n, int c, int heads, float scale, bool plain, L lay) {
+  constexpr bool TC = kTensorCores<T>, PACKED = kPacked<L>;
   constexpr int LD = kLd<T, D>, NT = kTile / 8, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [kTile][LD] the block's queries
@@ -453,7 +528,8 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   const int d = c / heads;
   const long long c3 = 3LL * c;
   const T* head = qkv + bw * n * c3 + h * d;  // q of the window's token 0
-  const int* id_row = window_ids(ids, bw, ids_rows, n);
+  const auto at = lay.head(qkv, bw, h, n, c, d, heads);  // other layouts
+  const int* id_row = lay.ids(ids, bw, ids_rows, n);
   const int i0 = q0 + 16 * warp + g, i1 = i0 + 8;  // this thread's rows
   const int id0 = id_row && i0 < n ? id_row[i0] : 0;
   const int id1 = id_row && i1 < n ? id_row[i1] : 0;
@@ -461,8 +537,13 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   const float* bias1 = bias && i1 < n ? bias_row(bias, h, n, i1) : nullptr;
   float* sp = scratch + warp * 16 * kSp;
 
-  stage_tile<T, D, P>(qs, head + q0 * c3, c3, min(kTile, n - q0), d, plain);
-  stage_kv<T, D, P>(kvs, head, c3, c, n, 0, d, plain);  // one group with the queries
+  if constexpr (PACKED) {
+    stage_tile<T, D, P>(qs, head + q0 * c3, c3, min(kTile, n - q0), d, plain);
+    stage_kv<T, D, P>(kvs, head, c3, c, n, 0, d, plain);  // one group with the queries
+  } else {
+    at.template stage_q<D, P>(qs, q0, min(kTile, n - q0), d, plain);
+    at.template stage_kv<D, P>(kvs, n, 0, d, plain);
+  }
 
   float m0 = P::kShift0, m1 = P::kShift0;  // the running shift
   float l0 = 0.f, l1 = 0.f;  // this thread's part of the running sums
@@ -475,7 +556,10 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   for (int kt = 0; kt < ktiles; ++kt) {
     const int k0 = kt * kTile, nk = min(kTile, n - k0);
     if (kt + 1 < ktiles) {  // the next tile's copy runs under this tile's products
-      stage_kv<T, D, P>(kvs, head, c3, c, n, kt + 1, d, plain);
+      if constexpr (PACKED)
+        stage_kv<T, D, P>(kvs, head, c3, c, n, kt + 1, d, plain);
+      else
+        at.template stage_kv<D, P>(kvs, n, kt + 1, d, plain);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -570,14 +654,22 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
       const int ch = 8 * dt + 2 * t + e;
       if (ch >= d) continue;
       if (i0 < n) {
-        const long long at = (base + i0) * c + h * d + ch;
-        ao[at] = from_f32<T>(o[dt][e] * r0);
-        if (o32) o32[at] = o[dt][e] * r0;
+        long long to;
+        if constexpr (PACKED)
+          to = (base + i0) * c + h * d + ch;
+        else
+          to = at.out(i0) + ch;
+        ao[to] = from_f32<T>(o[dt][e] * r0);
+        if (o32) o32[to] = o[dt][e] * r0;
       }
       if (i1 < n) {
-        const long long at = (base + i1) * c + h * d + ch;
-        ao[at] = from_f32<T>(o[dt][2 + e] * r1);
-        if (o32) o32[at] = o[dt][2 + e] * r1;
+        long long to;
+        if constexpr (PACKED)
+          to = (base + i1) * c + h * d + ch;
+        else
+          to = at.out(i1) + ch;
+        ao[to] = from_f32<T>(o[dt][2 + e] * r1);
+        if (o32) o32[to] = o[dt][2 + e] * r1;
       }
     }
   if (t == 0) {
@@ -602,14 +694,14 @@ constexpr size_t attention_tiled_fwd_smem() {
 // Backward phase A: query tiles -> dq, dbias, s1
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, typename P>
-__global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_bwd_rows_mma_kernel(
+template <typename T, int D, typename P, typename L>
+__global__ void __launch_bounds__(kTiledThreads, kRowsMinBlocks<T, D, L>) attention_bwd_rows_mma_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dao, const float* __restrict__ o,
     const float* __restrict__ stats, const float* __restrict__ bias,
     const int* __restrict__ ids, int ids_rows, T* __restrict__ dqkv,
     float* __restrict__ dbias, float* __restrict__ dbqkv, float* __restrict__ s1_out, int n,
-    int c, int heads, float scale, bool plain) {
-  constexpr bool TC = kTensorCores<T>;
+    int c, int heads, float scale, bool plain, L lay) {
+  constexpr bool TC = kTensorCores<T>, PACKED = kPacked<L>;
   constexpr int LD = kLd<T, D>, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [kTile][LD] the block's queries
@@ -626,7 +718,8 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   const int d = c / heads;
   const long long c3 = 3LL * c, base = bw * n;
   const T* head = qkv + base * c3 + h * d;
-  const int* id_row = window_ids(ids, bw, ids_rows, n);
+  const auto at = lay.head(qkv, bw, h, n, c, d, heads);  // other layouts
+  const int* id_row = lay.ids(ids, bw, ids_rows, n);
   const int i0 = q0 + 16 * warp + g, i1 = i0 + 8;
   const bool live0 = i0 < n, live1 = i1 < n;
   const int id0 = id_row && live0 ? id_row[i0] : 0;
@@ -642,9 +735,15 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   const float rinv1 = live1 ? stats[2 * (srow + i1) + 1] : 0.f;
   float* sp = scratch + warp * 16 * kSp;
 
-  stage_tile<T, D, P>(qs, head + q0 * c3, c3, min(kTile, n - q0), d, plain);
-  stage_tile<T, D, P>(dos, dao + (base + q0) * c + h * d, c, min(kTile, n - q0), d, plain);
-  stage_kv<T, D, P>(kvs, head, c3, c, n, 0, d, plain);  // one group with Q and dO
+  if constexpr (PACKED) {
+    stage_tile<T, D, P>(qs, head + q0 * c3, c3, min(kTile, n - q0), d, plain);
+    stage_tile<T, D, P>(dos, dao + (base + q0) * c + h * d, c, min(kTile, n - q0), d, plain);
+    stage_kv<T, D, P>(kvs, head, c3, c, n, 0, d, plain);  // one group with Q and dO
+  } else {
+    at.template stage_q<D, P>(qs, q0, min(kTile, n - q0), d, plain);
+    at.template stage_do<D, P>(dos, dao, q0, min(kTile, n - q0), d, plain);
+    at.template stage_kv<D, P>(kvs, n, 0, d, plain);
+  }
 
   float s1_0 = 0.f, s1_1 = 0.f;  // rowsum(p dp) = dO . o
   float dq[DT][4];
@@ -656,7 +755,10 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   for (int kt = 0; kt < ktiles; ++kt) {
     const int k0 = kt * kTile, nk = min(kTile, n - k0);
     if (kt + 1 < ktiles) {
-      stage_kv<T, D, P>(kvs, head, c3, c, n, kt + 1, d, plain);
+      if constexpr (PACKED)
+        stage_kv<T, D, P>(kvs, head, c3, c, n, kt + 1, d, plain);
+      else
+        at.template stage_kv<D, P>(kvs, n, kt + 1, d, plain);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -667,8 +769,14 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
       // lane of the quad a quarter of the channels, then across the quad
       const T* d0 = dos + (16 * warp + g) * LD;
       const T* d1 = d0 + 8 * LD;
-      const float* o0 = o + (base + i0) * c + h * d;
-      const float* o1 = o + (base + i1) * c + h * d;
+      const float *o0, *o1;
+      if constexpr (PACKED) {
+        o0 = o + (base + i0) * c + h * d;
+        o1 = o + (base + i1) * c + h * d;
+      } else {
+        o0 = o + at.out(i0);
+        o1 = o + at.out(i1);
+      }
       for (int ch = t; ch < d; ch += 4) {
         if (live0) s1_0 = fmaf(to_f32(d0[ch]), o0[ch], s1_0);
         if (live1) s1_1 = fmaf(to_f32(d1[ch]), o1[ch], s1_1);
@@ -755,8 +863,13 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
     for (int e = 0; e < 2; ++e) {
       const int ch = 8 * dt + 2 * t + e;
       if (ch >= d) continue;
-      if (live0) dqkv[(base + i0) * c3 + h * d + ch] = from_f32<T>(dq[dt][e]);
-      if (live1) dqkv[(base + i1) * c3 + h * d + ch] = from_f32<T>(dq[dt][2 + e]);
+      if constexpr (PACKED) {
+        if (live0) dqkv[(base + i0) * c3 + h * d + ch] = from_f32<T>(dq[dt][e]);
+        if (live1) dqkv[(base + i1) * c3 + h * d + ch] = from_f32<T>(dq[dt][2 + e]);
+      } else {
+        if (live0) dqkv[at.in(i0) + ch] = from_f32<T>(dq[dt][e]);
+        if (live1) dqkv[at.in(i1) + ch] = from_f32<T>(dq[dt][2 + e]);
+      }
     }
   if constexpr (P::kColumnSums)
     add_column_sums<D>(dbqkv, h * d, d, dq, red, warp, lane);  // the unrounded dq
@@ -771,13 +884,13 @@ constexpr size_t attention_bwd_rows_smem() {
 // Backward phase B: key tiles -> dk, dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, typename P>
+template <typename T, int D, typename P, typename L>
 __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_bwd_keys_mma_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dao, const float* __restrict__ stats,
     const float* __restrict__ s1, const float* __restrict__ bias,
     const int* __restrict__ ids, int ids_rows, T* __restrict__ dqkv,
-    float* __restrict__ dbqkv, int n, int c, int heads, float scale, bool plain) {
-  constexpr bool TC = kTensorCores<T>;
+    float* __restrict__ dbqkv, int n, int c, int heads, float scale, bool plain, L lay) {
+  constexpr bool TC = kTensorCores<T>, PACKED = kPacked<L>;
   constexpr int LD = kLd<T, D>, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // [kTile][LD] the block's keys
@@ -796,16 +909,22 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   const long long c3 = 3LL * c, base = bw * n;
   const T* head = qkv + base * c3 + h * d;
   const T* dhead = dao + base * c + h * d;
-  const int* id_row = window_ids(ids, bw, ids_rows, n);
+  const auto at = lay.head(qkv, bw, h, n, c, d, heads);  // other layouts
+  const int* id_row = lay.ids(ids, bw, ids_rows, n);
   const long long srow = (bw * heads + h) * (long long)n;
   const int kw = 16 * warp;                  // the warp's first key in the tile
   const int j0 = k0 + kw + g, j1 = j0 + 8;   // this thread's key rows of dk, dv
   float* sp = scratch + warp * 2 * 16 * kSp;  // p, then ds
 
-  stage_tile<T, D, P>(ks, head + k0 * c3 + c, c3, min(kTile, n - k0), d, plain);
-  stage_tile<T, D, P>(vs, head + k0 * c3 + 2 * c, c3, min(kTile, n - k0), d, plain);
-  stage_tile<T, D, P>(qds, head, c3, min(kTile, n), d, plain);
-  stage_tile<T, D, P>(qds + kTile * LD, dhead, c, min(kTile, n), d, plain);
+  if constexpr (PACKED) {
+    stage_tile<T, D, P>(ks, head + k0 * c3 + c, c3, min(kTile, n - k0), d, plain);
+    stage_tile<T, D, P>(vs, head + k0 * c3 + 2 * c, c3, min(kTile, n - k0), d, plain);
+    stage_tile<T, D, P>(qds, head, c3, min(kTile, n), d, plain);
+    stage_tile<T, D, P>(qds + kTile * LD, dhead, c, min(kTile, n), d, plain);
+  } else {
+    at.template stage_keys<D, P>(ks, vs, k0, min(kTile, n - k0), d, plain);
+    at.template stage_q_do<D, P>(qds, qds + kTile * LD, dao, 0, min(kTile, n), d, plain);
+  }
   cp_async_commit();
   for (int e = threadIdx.x; e < kTile; e += kTiledThreads) {
     const bool ok = e < n;
@@ -826,8 +945,12 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
     if (qt + 1 < qtiles) {
       const int q1 = q0 + kTile, nq1 = min(kTile, n - q1);
       T* next = qds + ((qt + 1) & 1) * 2 * kTile * LD;
-      stage_tile<T, D, P>(next, head + q1 * c3, c3, nq1, d, plain);
-      stage_tile<T, D, P>(next + kTile * LD, dhead + q1 * c, c, nq1, d, plain);
+      if constexpr (PACKED) {
+        stage_tile<T, D, P>(next, head + q1 * c3, c3, nq1, d, plain);
+        stage_tile<T, D, P>(next + kTile * LD, dhead + q1 * c, c, nq1, d, plain);
+      } else {
+        at.template stage_q_do<D, P>(next, next + kTile * LD, dao, q1, nq1, d, plain);
+      }
       cp_async_commit();
       float* st = sts + ((qt + 1) & 1) * kTile * 3;
       for (int e = threadIdx.x; e < kTile; e += kTiledThreads) {
@@ -922,15 +1045,21 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
     for (int e = 0; e < 2; ++e) {
       const int ch = 8 * dt + 2 * t + e;
       if (ch >= d) continue;
-      if (live0) {
-        T* row = dqkv + (base + j0) * c3 + h * d + ch;
-        row[c] = from_f32<T>(dk[dt][e]);
-        row[2 * c] = from_f32<T>(dv[dt][e]);
-      }
-      if (live1) {
-        T* row = dqkv + (base + j1) * c3 + h * d + ch;
-        row[c] = from_f32<T>(dk[dt][2 + e]);
-        row[2 * c] = from_f32<T>(dv[dt][2 + e]);
+      if constexpr (PACKED) {
+        if (live0) {
+          T* row = dqkv + (base + j0) * c3 + h * d + ch;
+          row[c] = from_f32<T>(dk[dt][e]);
+          row[2 * c] = from_f32<T>(dv[dt][e]);
+        }
+        if (live1) {
+          T* row = dqkv + (base + j1) * c3 + h * d + ch;
+          row[c] = from_f32<T>(dk[dt][2 + e]);
+          row[2 * c] = from_f32<T>(dv[dt][2 + e]);
+        }
+      } else {
+        if (live0) at.store_dkv(dqkv, j0, ch, from_f32<T>(dk[dt][e]), from_f32<T>(dv[dt][e]));
+        if (live1)
+          at.store_dkv(dqkv, j1, ch, from_f32<T>(dk[dt][2 + e]), from_f32<T>(dv[dt][2 + e]));
       }
     }
   if constexpr (P::kColumnSums) {
@@ -962,50 +1091,53 @@ constexpr bool takes_head_dim(int d) {
   return d > 0 && d <= 128 && (d % 16 == 0 || (P::kPlainLoads && d <= 32));
 }
 
-template <typename T, int D, typename P>
+template <typename T, int D, typename P, typename L>
 cudaError_t launch_attention_tiled_d(const T* qkv, const float* bias, const int* ids,
                                      int ids_rows, T* ao, float* o32, float* stats,
                                      long long bw, int n, int c, int heads, float scale,
-                                     bool plain, cudaStream_t stream) {
-  auto kernel = attention_tiled_mma_kernel<T, D, P>;
+                                     bool plain, const L& lay, cudaStream_t stream) {
+  auto kernel = attention_tiled_mma_kernel<T, D, P, L>;
   constexpr size_t smem = attention_tiled_fwd_smem<T, D>();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = bw * heads * ((n + kTile - 1) / kTile);
   kernel<<<(unsigned)blocks, kTiledThreads, smem, stream>>>(qkv, bias, ids, ids_rows, ao, o32,
-                                                           stats, n, c, heads, scale, plain);
+                                                           stats, n, c, heads, scale, plain,
+                                                           lay);
   return cudaGetLastError();
 }
 
-// The key-tiled attention launch under policy P (K1f's by default): qkv
-// [BW*N, 3C] -> ao [BW*N, C] (T), o32 [BW*N, C] (f32; may be null), stats
-// [BW, H, N, 2] (shift, 1 / (sum + P::kSumEps)). ``plain`` stages rows by
-// plain loads (a policy with kPlainLoads only).
-template <typename T, typename P = K1Softmax>
+// The key-tiled attention launch under policy P (K1f's by default) on
+// layout L (Packed by default: qkv [BW*N, 3C] -> ao [BW*N, C] (T), o32
+// [BW*N, C] (f32; may be null); other layouts take q and ao in qkv's and
+// ao's place), stats [BW, H, N, 2] (shift, 1 / (sum + P::kSumEps)).
+// ``plain`` stages rows by plain loads (a policy with kPlainLoads only).
+template <typename T, typename P = K1Softmax, typename L = Packed>
 cudaError_t launch_attention_tiled(const T* qkv, const float* bias, const int* ids,
                                    int ids_rows, T* ao, float* o32, float* stats, long long bw,
                                    int n, int c, int heads, float scale, cudaStream_t stream,
-                                   bool plain = false) {
+                                   bool plain = false, const L& lay = L()) {
   const int d = c / heads;
   if (!takes_head_dim<P>(d)) return cudaErrorInvalidValue;
   if (d <= 32)
     return launch_attention_tiled_d<T, 32, P>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n,
-                                              c, heads, scale, plain, stream);
+                                              c, heads, scale, plain, lay, stream);
   if (d <= 64)
     return launch_attention_tiled_d<T, 64, P>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n,
-                                              c, heads, scale, plain, stream);
+                                              c, heads, scale, plain, lay, stream);
   return launch_attention_tiled_d<T, 128, P>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n,
-                                             c, heads, scale, plain, stream);
+                                             c, heads, scale, plain, lay, stream);
 }
 
-template <typename T, int D, typename P>
+template <typename T, int D, typename P, typename L>
 cudaError_t launch_attention_bwd_tiled_d(const T* qkv, const T* dao, const float* o,
                                          const float* stats, const float* bias, const int* ids,
                                          int ids_rows, float* s1, T* dqkv, float* dbias,
                                          float* dbqkv, long long bw, int n, int c, int heads,
-                                         float scale, bool plain, cudaStream_t stream) {
-  auto rows_kernel = attention_bwd_rows_mma_kernel<T, D, P>;
-  auto keys_kernel = attention_bwd_keys_mma_kernel<T, D, P>;
+                                         float scale, bool plain, const L& lay,
+                                         cudaStream_t stream) {
+  auto rows_kernel = attention_bwd_rows_mma_kernel<T, D, P, L>;
+  auto keys_kernel = attention_bwd_keys_mma_kernel<T, D, P, L>;
   constexpr size_t rows_smem = attention_bwd_rows_smem<T, D>();
   constexpr size_t keys_smem = attention_bwd_keys_smem<T, D>();
   cudaError_t err = allow_smem(rows_kernel, rows_smem);
@@ -1015,38 +1147,40 @@ cudaError_t launch_attention_bwd_tiled_d(const T* qkv, const T* dao, const float
   const long long blocks = bw * heads * ((n + kTile - 1) / kTile);
   rows_kernel<<<(unsigned)blocks, kTiledThreads, rows_smem, stream>>>(
       qkv, dao, o, stats, bias, ids, ids_rows, dqkv, dbias, dbqkv, s1, n, c, heads, scale,
-      plain);
+      plain, lay);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   keys_kernel<<<(unsigned)blocks, kTiledThreads, keys_smem, stream>>>(
-      qkv, dao, stats, s1, bias, ids, ids_rows, dqkv, dbqkv, n, c, heads, scale, plain);
+      qkv, dao, stats, s1, bias, ids, ids_rows, dqkv, dbqkv, n, c, heads, scale, plain, lay);
   return cudaGetLastError();
 }
 
-// The key-tiled attention backward under policy P (K1b's by default),
-// phases A and B: from qkv, dao (T), the forward's o (f32 [BW*N, C]) and
+// The key-tiled attention backward under policy P (K1b's by default) on
+// layout L (Packed by default; others take q, dq in qkv's, dqkv's place),
+// phases A and B: from qkv, dao (T), the forward's o (f32, out's layout) and
 // stats [BW, H, N, 2], into dqkv [BW*N, 3C] (T), and added into the zeroed
 // f32 dbias [H, N, N] (may be null: no bias) and, where P takes column sums,
 // dbqkv [3C]; s1 [BW, H, N] f32 is scratch.
-template <typename T, typename P = K1Softmax>
+template <typename T, typename P = K1Softmax, typename L = Packed>
 cudaError_t launch_attention_bwd_tiled(const T* qkv, const T* dao, const float* o,
                                        const float* stats, const float* bias, const int* ids,
                                        int ids_rows, float* s1, T* dqkv, float* dbias,
                                        float* dbqkv, long long bw, int n, int c, int heads,
-                                       float scale, cudaStream_t stream, bool plain = false) {
+                                       float scale, cudaStream_t stream, bool plain = false,
+                                       const L& lay = L()) {
   const int d = c / heads;
   if (!takes_head_dim<P>(d)) return cudaErrorInvalidValue;
   if (d <= 32)
     return launch_attention_bwd_tiled_d<T, 32, P>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
                                                   dqkv, dbias, dbqkv, bw, n, c, heads, scale,
-                                                  plain, stream);
+                                                  plain, lay, stream);
   if (d <= 64)
     return launch_attention_bwd_tiled_d<T, 64, P>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
                                                   dqkv, dbias, dbqkv, bw, n, c, heads, scale,
-                                                  plain, stream);
+                                                  plain, lay, stream);
   return launch_attention_bwd_tiled_d<T, 128, P>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
                                                  dqkv, dbias, dbqkv, bw, n, c, heads, scale,
-                                                 plain, stream);
+                                                 plain, lay, stream);
 }
 
 }  // namespace

@@ -19,457 +19,40 @@
 //   % W, its index within its sample (not bw % W: the two agree only when
 //   W divides the windows per sample).
 //
-// K4 runs the key-tiled tensor-core body of attn_tiled.cuh (FlashAttention-2
-// on bf16 mma.sync; FMA product steps in f32) under K4's softmax policy,
-// ``K4Softmax`` below: the TPU kernel's score (dot * scale + bias) + mask,
-// each step rounded; the plain row max (the running shift starts at -inf);
-// the plain row sum; ds = p (dp - rowsum(p dp)). K4f keeps each row's (max,
-// 1 / sum) and, for bf16, the f32 output for K4b, whose phase A takes s1 =
-// dO . o and adds dbias with f32 atomics and whose phase B gives dk and dv.
-// e, p and ds are rounded to T before their products, as the TPU's MXU
-// rounds its f32 operands at default precision. Head dims: any up to 32 and
-// multiples of 16 up to 128.
+// The three Pallas bodies (_fwd_qkv_kernel, _fwd_kernel, _fwd_win_kernel and
+// their backward) compute one function with one set of numerics and differ
+// only in where an operand lies. So all three run the key-tiled tensor-core
+// body of attn_tiled.cuh (FlashAttention-2 on bf16 mma.sync; FMA product
+// steps in f32) under K4's softmax policy, ``K4Softmax`` below, each on its
+// layout: ``Packed`` (K4, attn_tiled.cuh), ``Split`` (V1) and ``MapRows``
+// (V3) below. K4Softmax is the TPU kernel's: the score (dot * scale + bias)
+// + mask, each step rounded; the plain row max (the running shift starts at
+// -inf); the plain row sum; ds = p (dp - rowsum(p dp)). The forward keeps
+// each row's (max, 1 / sum) [BW, H, N, 2] and, for bf16, the f32 output in
+// out's layout for the backward, whose phase A takes s1 = dO . o and adds
+// dbias with f32 atomics and whose phase B gives dk and dv. e, p and ds are
+// rounded to T before their products, as the TPU's MXU rounds its f32
+// operands at default precision. The mask is additive -1e9 where the region
+// ids of query and key differ (pad slots carry -1, an unshifted block
+// passes W = 1 row of zeros). Head dims: any up to 32 and multiples of 16 up
+// to 128; rows that are not whole 16-byte chunks (or an operand that is not
+// 16-byte aligned) are staged by plain loads.
 //
-// The rest of this file is the FMA body that V1 and V3 run, and only they.
-// The Pallas bodies (_fwd_kernel,
-// _fwd_win_kernel and their backward) agree op for op and differ only in
-// where an operand lies, so one kernel body serves both, templated on an
-// addressing policy: Strided (V1) or WindowRows (V3) maps (window, head,
-// token) to an element offset and a window to its ids row. Each (TPU
-// kernel, layout) pair is its own instantiation and C entry point.
-//
-// Numerics are the TPU kernels': q, k, v are read from the stored type into
-// f32 and every product is an f32 FMA; the softmax subtracts the plain row
-// max and divides each term by the f32 row sum before p . v; the output and
-// the gradients are cast to the activation type T once. The mask is
-// additive -1e9 where the region ids of query and key differ (pad slots
-// carry -1, an unshifted block passes W = 1 row of zeros).
-//
-// What bounds it here: the FMA arithmetic of the products (4 N^2 d per
-// window and head forward, 10 N^2 d backward; no tensor cores), while the
-// bytes it must move are small (q, k, v once, the output once). One
-// window's [N, N] f32 scores (254 KB at N = 252) do not fit in the 227 KB a
-// block may hold, so no [N, N] matrix is ever stored: as in K1f
-// (attn_half.cu) and K1b (attn_half_bwd.cu), one block takes one (window,
-// head), keeps that head's operands in shared memory as f32 and gives each
-// warp one query row at a time, whose N scores sit in a row buffer.
-//
-// The backward runs in the two phases of K1b. Phase A takes query rows:
-// scores, row max and sum, p, dp = dO V^T, ds = p (dp - rowsum(p dp)),
-// dq = scale ds K, and adds ds into dbias with f32 atomics (the TPU's
-// revisited block is a reduction over every window here; the order of the
-// adds varies, so dbias matches a plain sum to rounding). Phase B takes key
-// rows and recomputes p and ds column by column from phase A's row
-// statistics for dk = scale ds^T Q and dv = p^T dO, so no dk/dv sum needs
-// atomics. Both phases form the score, p and ds with the same
-// round-to-nearest operations (no contraction into FMA), so phase B's p
-// and ds equal phase A's bit for bit.
+// What bounds it: the products, 4 N^2 d per window and head forward and 10
+// N^2 d backward (above the H100's ridge: the tensor cores), against q, k,
+// v, bias read and out written once. The same body stages the same tiles
+// in the same order on every layout, so V1f and V3f give K4f's out, row
+// statistics and o bit for bit; only where a row lies changes. V3's 64-token
+// tiles cross its window's row (ww) and slice (wh ww) boundaries, so its
+// rows are not at a fixed stride: each thread maps a tile row to its voxel
+// once and copies the row's q (or k and v, or q and dO) from there.
 
 #include <cstdint>
+#include <initializer_list>
 
 #include "attn_tiled.cuh"
 
 namespace {
-
-// Element (window bw, head h, token t, channel c) of a strided operand
-// lies at bw * win + h * head + t * row + c from its base pointer.
-struct HeadStrides {
-  long long win, head, row;
-};
-
-// Addressing policy of V1 (split q, k, v and out): every operand in
-// strides; window bw on ids row bw % W.
-struct Strided {
-  HeadStrides in, out;  // q, k, v (and dq, dk, dv); out (and dout)
-  // One (window, head): token t at in(t) in q, k, v and at out(t) in out.
-  struct At {
-    long long in0, out0, in_row, out_row;
-    __device__ __forceinline__ long long in(int t) const { return in0 + t * in_row; }
-    __device__ __forceinline__ long long out(int t) const { return out0 + t * out_row; }
-  };
-  __device__ __forceinline__ At at(long long bw, int h) const {
-    return {bw * in.win + h * in.head, bw * out.win + h * out.head, in.row, out.row};
-  }
-  __device__ __forceinline__ long long ids_row(long long bw, int rows) const {
-    return bw % rows;
-  }
-};
-
-// Addressing policy of V3: the unpartitioned map [B, md, mh, mw, ch] (ch
-// = 3C channels for qkv, C for out; q, k, v at channel 0, C, 2C; head h
-// at h * d). Window bw = (b, i, j, kw) and token t = (td, th, tw) sit at
-// voxel ((b md + i wd + td) mh + j wh + th) mw + kw ww + tw, in 64 bits.
-struct WindowRows {
-  int md, mh, mw;             // the map's D, H, W (multiples of the window)
-  int wd, wh, ww;             // the window
-  int d;                      // head dim
-  long long in_row, out_row;  // channels per voxel of qkv (3C) and out (C)
-  struct At {
-    long long in0, out0, in_row, out_row;
-    int mh, mw, wh, ww;
-    // token t's voxel, counted from the window's first voxel
-    __device__ __forceinline__ long long voxel(int t) const {
-      const int td = t / (wh * ww), th = (t / ww) % wh, tw = t % ww;
-      return ((long long)td * mh + th) * mw + tw;
-    }
-    __device__ __forceinline__ long long in(int t) const { return in0 + voxel(t) * in_row; }
-    __device__ __forceinline__ long long out(int t) const { return out0 + voxel(t) * out_row; }
-  };
-  __device__ __forceinline__ long long windows() const {
-    return (long long)(md / wd) * (mh / wh) * (mw / ww);
-  }
-  // the first voxel of window bw
-  __device__ __forceinline__ long long voxel0(long long bw) const {
-    const int nwh = mh / wh, nww = mw / ww;
-    const long long b = bw / windows(), r = bw % windows();
-    const long long i = r / (nwh * nww), j = (r / nww) % nwh, kw = r % nww;
-    return ((b * md + i * wd) * mh + j * wh) * mw + kw * ww;
-  }
-  __device__ __forceinline__ At at(long long bw, int h) const {
-    const long long v0 = voxel0(bw);
-    return {v0 * in_row + h * d, v0 * out_row + h * d, in_row, out_row, mh, mw, wh, ww};
-  }
-  __device__ __forceinline__ long long ids_row(long long bw, int rows) const {
-    return (bw % windows()) % rows;
-  }
-};
-
-template <typename T>
-struct AttnParams {
-  const T* q;            // q, k, v (and dq, dk, dv): the policy's in(t)
-  const T* k;
-  const T* v;
-  T* out;                // out (forward) and dout (backward): its out(t)
-  const T* dout;
-  T* dq;                 // backward
-  T* dk;
-  T* dv;
-  const float* bias;     // [H, N, N]
-  const float* bias_t;   // [H, N, N], each head transposed (backward)
-  float* dbias;          // [H, N, N], zeroed by the caller (backward adds)
-  const int* ids;        // [W, N]: window bw uses the policy's ids_row
-  int ids_rows;
-  int n, d, heads;
-  float scale;
-};
-
-// The masked, biased, scaled score as _fwd_qkv_kernel forms it:
-// (dot * scale + bias) + mask, each step rounded to nearest.
-__device__ __forceinline__ float qkv_score(float dot, float scale, float bias,
-                                           bool masked) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dot, scale), bias), masked ? kNegInf : 0.f);
-}
-
-__device__ __forceinline__ float dot_row(const float* a, const float* b, int d) {
-  float s = 0.f;
-  for (int c = 0; c < d; ++c) s = fmaf(a[c], b[c], s);
-  return s;
-}
-
-// Copies one (window, head) operand [N, d] of ``src``, token t at
-// offset(t), into shared memory as f32 rows of ``ld`` floats.
-template <typename T, typename Offset>
-__device__ __forceinline__ void stage_head(float* dst, int ld, const T* src,
-                                           Offset offset, int n, int d) {
-  for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
-    const int j = e / d, c = e % d;
-    dst[j * ld + c] = to_f32(src[offset(j) + c]);
-  }
-}
-
-// Copies ids row ``row`` into shared memory.
-__device__ __forceinline__ void stage_ids(int* dst, const int* ids, long long row, int n) {
-  const int* src = ids + row * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = src[j];
-}
-
-constexpr int kFwdWarps = 8;
-
-template <typename T, typename L>
-__global__ void __launch_bounds__(kFwdWarps * 32) attention_fwd_kernel(AttnParams<T> p, L lay) {
-  extern __shared__ float smem[];
-  const int n = p.n, d = p.d, dp1 = d + 1;
-  float* ks = smem;                      // [n][d + 1]  (padded: no bank conflicts)
-  float* vs = ks + n * dp1;              // [n][d]
-  float* qs = vs + n * d;                // [warps][32]
-  float* us = qs + kFwdWarps * 32;       // [warps][n]  one row of scores, then p
-  int* ids_s = reinterpret_cast<int*>(us + kFwdWarps * n);  // [n]
-
-  const long long bw = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const typename L::At at = lay.at(bw, h);
-  const auto in = [&](int t) { return at.in(t); };
-
-  stage_head(ks, dp1, p.k, in, n, d);
-  stage_head(vs, d, p.v, in, n, d);
-  stage_ids(ids_s, p.ids, lay.ids_row(bw, p.ids_rows), n);
-  __syncthreads();
-
-  float* q = qs + warp * 32;
-  float* u = us + warp * n;
-  const float* bias_h = p.bias + (long long)h * n * n;
-  for (int i = warp; i < n; i += kFwdWarps) {
-    if (lane < d) q[lane] = to_f32(p.q[at.in(i) + lane]);
-    __syncwarp();
-    const int id_i = ids_s[i];
-    float mx = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const float s = qkv_score(dot_row(q, ks + j * dp1, d), p.scale,
-                                bias_h[(long long)i * n + j], ids_s[j] != id_i);
-      u[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = expf(__fsub_rn(u[j], mx));
-      sum += e;
-      u[j] = e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < n; j += 32) u[j] = __fdiv_rn(u[j], sum);
-    __syncwarp();
-    if (lane < d) {
-      float o = 0.f;
-      for (int j = 0; j < n; ++j) o = fmaf(u[j], vs[j * d + lane], o);
-      p.out[at.out(i) + lane] = from_f32<T>(o);
-    }
-    __syncwarp();
-  }
-}
-
-size_t fwd_smem_bytes(int n, int d) {
-  return sizeof(float) * ((size_t)n * (d + 1) + (size_t)n * d + kFwdWarps * 32 +
-                          (size_t)kFwdWarps * n) +
-         sizeof(int) * (size_t)n;
-}
-
-constexpr int kBwdWarps = 16;
-
-template <typename T, typename L>
-__global__ void __launch_bounds__(kBwdWarps * 32) attention_bwd_kernel(AttnParams<T> p, L lay) {
-  extern __shared__ float smem[];
-  const int n = p.n, d = p.d, dp1 = d + 1;
-  float* qs = smem;                  // [n][d + 1]
-  float* ks = qs + n * dp1;          // [n][d + 1]
-  float* vs = ks + n * dp1;          // [n][d + 1]
-  float* dos = vs + n * dp1;         // [n][d + 1]   dO of the head
-  float* mx_s = dos + n * dp1;       // [n]  row max
-  float* sum_s = mx_s + n;           // [n]  row sum of exp(s - max)
-  float* s1_s = sum_s + n;           // [n]  rowsum(p * dp)
-  float* bufs = s1_s + n;            // [warps][2][n]
-  int* ids_s = reinterpret_cast<int*>(bufs + 2 * kBwdWarps * n);  // [n]
-
-  const long long bw = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const typename L::At at = lay.at(bw, h);
-  const auto in = [&](int t) { return at.in(t); };
-  const auto out = [&](int t) { return at.out(t); };
-
-  stage_head(qs, dp1, p.q, in, n, d);
-  stage_head(ks, dp1, p.k, in, n, d);
-  stage_head(vs, dp1, p.v, in, n, d);
-  stage_head(dos, dp1, p.dout, out, n, d);
-  stage_ids(ids_s, p.ids, lay.ids_row(bw, p.ids_rows), n);
-  __syncthreads();
-
-  float* u = bufs + warp * 2 * n;  // phase A: scores, exp, then p; phase B: p column
-  float* w = u + n;                // phase A: dp, then ds; phase B: ds column
-  const long long hnn = (long long)h * n * n;
-  const float* bias_h = p.bias + hnn;
-  const float* bias_th = p.bias_t + hnn;
-  float* dbias_h = p.dbias + hnn;
-
-  // Phase A: query rows.
-  for (int i = warp; i < n; i += kBwdWarps) {
-    const float* qi = qs + i * dp1;
-    const float* doi = dos + i * dp1;
-    const int id_i = ids_s[i];
-    float mx = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const float s = qkv_score(dot_row(qi, ks + j * dp1, d), p.scale,
-                                bias_h[(long long)i * n + j], ids_s[j] != id_i);
-      u[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = expf(__fsub_rn(u[j], mx));
-      sum += e;
-      u[j] = e;
-    }
-    sum = warp_sum(sum);
-    float s1 = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float dpv = dot_row(doi, vs + j * dp1, d);
-      const float pj = __fdiv_rn(u[j], sum);
-      s1 += __fmul_rn(pj, dpv);
-      u[j] = pj;
-      w[j] = dpv;
-    }
-    s1 = warp_sum(s1);
-    for (int j = lane; j < n; j += 32) {
-      const float ds = __fmul_rn(u[j], __fsub_rn(w[j], s1));
-      atomicAdd(&dbias_h[(long long)i * n + j], ds);
-      w[j] = ds;
-    }
-    __syncwarp();
-    if (lane < d) {
-      float a = 0.f;
-      for (int j = 0; j < n; ++j) a = fmaf(w[j], ks[j * dp1 + lane], a);
-      p.dq[at.in(i) + lane] = from_f32<T>(a * p.scale);
-    }
-    if (lane == 0) {
-      mx_s[i] = mx;
-      sum_s[i] = sum;
-      s1_s[i] = s1;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // Phase B: key rows, from the row statistics of phase A.
-  for (int j = warp; j < n; j += kBwdWarps) {
-    const float* kj = ks + j * dp1;
-    const float* vj = vs + j * dp1;
-    const int id_j = ids_s[j];
-    for (int i = lane; i < n; i += 32) {
-      const float s = qkv_score(dot_row(qs + i * dp1, kj, d), p.scale,
-                                bias_th[(long long)j * n + i], id_j != ids_s[i]);
-      const float pij = __fdiv_rn(expf(__fsub_rn(s, mx_s[i])), sum_s[i]);
-      const float dpv = dot_row(dos + i * dp1, vj, d);
-      u[i] = pij;
-      w[i] = __fmul_rn(pij, __fsub_rn(dpv, s1_s[i]));
-    }
-    __syncwarp();
-    if (lane < d) {
-      float av = 0.f, ak = 0.f;
-      for (int i = 0; i < n; ++i) {
-        av = fmaf(u[i], dos[i * dp1 + lane], av);
-        ak = fmaf(w[i], qs[i * dp1 + lane], ak);
-      }
-      p.dk[at.in(j) + lane] = from_f32<T>(ak * p.scale);
-      p.dv[at.in(j) + lane] = from_f32<T>(av);
-    }
-    __syncwarp();
-  }
-}
-
-size_t bwd_smem_bytes(int n, int d) {
-  return sizeof(float) * ((size_t)4 * n * (d + 1) + 3 * (size_t)n +
-                          2 * (size_t)kBwdWarps * n) +
-         sizeof(int) * (size_t)n;
-}
-
-template <typename T>
-AttnParams<T> params(const T* q, const T* k, const T* v, const float* bias,
-                     const int* ids, int ids_rows, int n, int d, int heads,
-                     float scale) {
-  AttnParams<T> p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.bias = bias;
-  p.ids = ids;
-  p.ids_rows = ids_rows;
-  p.n = n;
-  p.d = d;
-  p.heads = heads;
-  p.scale = scale;
-  return p;
-}
-
-template <typename T, typename L>
-int launch_fwd(const AttnParams<T>& p, const L& lay, long long bw, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(p.n, p.d);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, L>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_fwd_kernel<T, L><<<(unsigned)(bw * p.heads), kFwdWarps * 32, smem, stream>>>(p, lay);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, typename L>
-int launch_bwd(const AttnParams<T>& p, const L& lay, long long bw, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(p.n, p.d);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<T, L>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_kernel<T, L><<<(unsigned)(bw * p.heads), kBwdWarps * 32, smem, stream>>>(p, lay);
-  return (int)cudaGetLastError();
-}
-
-// V1: q, k, v, out and their gradients [BW, H, N, d].
-Strided split(int n, int d, int heads) {
-  const HeadStrides s = {(long long)heads * n * d, (long long)n * d, d};
-  return {s, s};
-}
-
-// V3: qkv [B, md, mh, mw, 3C] and out / dout [B, md, mh, mw, C].
-WindowRows grid(int md, int mh, int mw, int wd, int wh, int ww, int c, int heads) {
-  return {md, mh, mw, wd, wh, ww, c / heads, 3LL * c, (long long)c};
-}
-
-template <typename T>
-int attention_split_fwd(const T* q, const T* k, const T* v, const float* bias,
-                        const int* ids, int ids_rows, T* out, long long bw, int n,
-                        int d, int heads, float scale, cudaStream_t stream) {
-  AttnParams<T> p = params(q, k, v, bias, ids, ids_rows, n, d, heads, scale);
-  p.out = out;
-  return launch_fwd(p, split(n, d, heads), bw, stream);
-}
-
-template <typename T>
-int attention_split_bwd(const T* q, const T* k, const T* v, const float* bias,
-                        const float* bias_t, const int* ids, int ids_rows,
-                        const T* dout, T* dq, T* dk, T* dv, float* dbias,
-                        long long bw, int n, int d, int heads, float scale,
-                        cudaStream_t stream) {
-  AttnParams<T> p = params(q, k, v, bias, ids, ids_rows, n, d, heads, scale);
-  p.dout = dout;
-  p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
-  p.bias_t = bias_t;
-  p.dbias = dbias;
-  return launch_bwd(p, split(n, d, heads), bw, stream);
-}
-
-template <typename T>
-int attention_windows_fwd(const T* qkv, const float* bias, const int* ids, int ids_rows,
-                          T* out, int b, int md, int mh, int mw, int wd, int wh,
-                          int ww, int c, int heads, float scale, cudaStream_t stream) {
-  const WindowRows lay = grid(md, mh, mw, wd, wh, ww, c, heads);
-  const long long bw = (long long)b * (md / wd) * (mh / wh) * (mw / ww);
-  AttnParams<T> p = params(qkv, qkv + c, qkv + 2 * c, bias, ids, ids_rows,
-                           wd * wh * ww, c / heads, heads, scale);
-  p.out = out;
-  return launch_fwd(p, lay, bw, stream);
-}
-
-template <typename T>
-int attention_windows_bwd(const T* qkv, const float* bias, const float* bias_t,
-                          const int* ids, int ids_rows, const T* dout, T* dqkv,
-                          float* dbias, int b, int md, int mh, int mw, int wd,
-                          int wh, int ww, int c, int heads, float scale,
-                          cudaStream_t stream) {
-  const WindowRows lay = grid(md, mh, mw, wd, wh, ww, c, heads);
-  const long long bw = (long long)b * (md / wd) * (mh / wh) * (mw / ww);
-  AttnParams<T> p = params(qkv, qkv + c, qkv + 2 * c, bias, ids, ids_rows,
-                           wd * wh * ww, c / heads, heads, scale);
-  p.dout = dout;
-  p.dq = dqkv;
-  p.dk = dqkv + c;
-  p.dv = dqkv + 2 * c;
-  p.bias_t = bias_t;
-  p.dbias = dbias;
-  return launch_bwd(p, lay, bw, stream);
-}
 
 // K4's softmax policy on the tiled body (attn_tiled.cuh), as _fwd_qkv_kernel
 // and _bwd_qkv_kernel form it.
@@ -491,19 +74,188 @@ struct K4Softmax {
   }
 };
 
-// Whether K4's rows must be staged by plain loads: a head's channels that are
-// not whole 16-byte chunks, or an operand that is not 16-byte aligned.
+// V1's layout: q, k, v, out, o32, dO and dq, dk, dv [BW, H, N, d]; token t
+// of head h of window bw at ((bw H + h) N + t) d in each. q, out and dq come
+// in the kernels' qkv, ao and dqkv; k, v, dk and dv have their own base
+// pointers here. Window bw on ids row bw % W.
 template <typename T>
-bool k4_plain_loads(int d, const void* a, const void* b) {
-  return d % (16 / (int)sizeof(T)) || reinterpret_cast<uintptr_t>(a) % 16 ||
-         reinterpret_cast<uintptr_t>(b) % 16;
+struct Split {
+  const T* k;
+  const T* v;
+  T* dk;  // backward
+  T* dv;
+
+  struct Head {
+    const T* q;     // the base pointers, as given
+    const T* k;
+    const T* v;
+    T* dk;
+    T* dv;
+    long long off;  // the head's token 0 in every tensor
+    int ld;         // elements from token to token: the head dim
+
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_q(T* dst, int t0, int nrows, int d, bool plain) const {
+      stage_tile<T, D, P>(dst, q + in(t0), ld, nrows, d, plain);
+    }
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_kv(T* kvs, int n, int kt, int d, bool plain) const {
+      constexpr int LD = kLd<T, D>;
+      T* dst = kvs + (kt & 1) * 2 * kTile * LD;
+      const int nk = min(kTile, n - kt * kTile);
+      stage_keys<D, P>(dst, dst + kTile * LD, kt * kTile, nk, d, plain);
+      cp_async_commit();
+    }
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_do(T* dst, const T* dao, int t0, int nrows, int d,
+                                             bool plain) const {
+      stage_tile<T, D, P>(dst, dao + in(t0), ld, nrows, d, plain);
+    }
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_keys(T* ks, T* vs, int t0, int nrows, int d,
+                                               bool plain) const {
+      stage_tile<T, D, P>(ks, k + in(t0), ld, nrows, d, plain);
+      stage_tile<T, D, P>(vs, v + in(t0), ld, nrows, d, plain);
+    }
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_q_do(T* qd, T* dd, const T* dao, int t0, int nrows,
+                                               int d, bool plain) const {
+      stage_q<D, P>(qd, t0, nrows, d, plain);
+      stage_do<D, P>(dd, dao, t0, nrows, d, plain);
+    }
+    __device__ __forceinline__ long long in(int t) const { return off + (long long)t * ld; }
+    __device__ __forceinline__ long long out(int t) const { return in(t); }
+    __device__ __forceinline__ void store_dkv(T*, int t, int ch, T dk_t, T dv_t) const {
+      dk[in(t) + ch] = dk_t;
+      dv[in(t) + ch] = dv_t;
+    }
+  };
+
+  __device__ __forceinline__ Head head(const T* q, long long bw, int h, int n, int, int d,
+                                       int heads) const {
+    const long long off = (bw * heads + h) * n * d;
+    return {q, k, v, dk, dv, off, d};
+  }
+  __device__ __forceinline__ const int* ids(const int* ids, long long bw, int ids_rows,
+                                            int n) const {
+    return window_ids(ids, bw, ids_rows, n);
+  }
+};
+
+// V1b's phase A at bf16 D = 64 spills at the 168 registers that 3 blocks an
+// SM leave (ptxas: K and V have their own base pointers here): 2 blocks.
+template <typename T>
+constexpr bool kRowsSpill<Split<T>, __nv_bfloat16, 64> = true;
+
+// V3's layout: qkv [B, md, mh, mw, 3C] (q, k, v at channel 0, C, 2C; head h
+// at h d) and out, o32, dO [B, md, mh, mw, C] on the unpartitioned map;
+// dqkv as qkv. Window bw = (b, i, j, kw) and its token t = (td, th, tw) sit
+// at voxel ((b md + i wd + td) mh + j wh + th) mw + kw ww + tw, in 64 bits;
+// a voxel is a row of 3C (qkv) or C (out) elements. Window bw takes ids row
+// flat(i, j, kw) % W, its index within its sample.
+struct WindowGrid {
+  int md, mh, mw;  // the map's D, H, W (multiples of the window)
+  int wd, wh, ww;  // the window
+  // ceil(2^32 / ww), ceil(2^32 / wh): x / ww = x ww_inv >> 32 exactly for
+  // x ww < 2^32 (the host checks N ww and N wh), a multiply in place of a
+  // division in every staged row
+  long long ww_inv, wh_inv;
+
+  // token t's voxel, counted from its window's first voxel
+  __device__ __forceinline__ long long row(int t) const {
+    const int a = (int)(t * ww_inv >> 32), tw = t - a * ww;  // a = td wh + th
+    const int td = (int)(a * wh_inv >> 32), th = a - td * wh;
+    return ((long long)td * mh + th) * mw + tw;
+  }
+  __device__ __forceinline__ long long windows() const {
+    return (long long)(md / wd) * (mh / wh) * (mw / ww);
+  }
+  // the first voxel of window bw
+  __device__ __forceinline__ long long voxel0(long long bw) const {
+    const int nwh = mh / wh, nww = mw / ww;
+    const long long b = bw / windows(), r = bw % windows();
+    const long long i = r / (nwh * nww), j = (r / nww) % nwh, kw = r % nww;
+    return ((b * md + i * wd) * mh + j * wh) * mw + kw * ww;
+  }
+  __device__ __forceinline__ long long ids_row(long long bw, int rows) const {
+    return (bw % windows()) % rows;
+  }
+};
+
+struct MapRows : WindowGrid {
+  template <typename T>
+  struct Head {
+    WindowGrid map;
+    const T* head;     // q of the window's first voxel
+    long long c3, v0;  // 3C; the window's first voxel
+    int c, hd;         // C; h d
+
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_q(T* dst, int t0, int nrows, int d, bool plain) const {
+      stage_rows<T, D, P>(dst, head, c3, nullptr, nullptr, 0, map, t0, nrows, d, plain);
+    }
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_kv(T* kvs, int n, int kt, int d, bool plain) const {
+      constexpr int LD = kLd<T, D>;
+      T* dst = kvs + (kt & 1) * 2 * kTile * LD;
+      const int nk = min(kTile, n - kt * kTile);
+      stage_rows<T, D, P>(dst, head + c, c3, dst + kTile * LD, head + 2 * c, c3, map,
+                          kt * kTile, nk, d, plain);
+      cp_async_commit();
+    }
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_do(T* dst, const T* dao, int t0, int nrows, int d,
+                                             bool plain) const {
+      stage_rows<T, D, P>(dst, dao + v0 * c + hd, c, nullptr, nullptr, 0, map, t0, nrows, d,
+                          plain);
+    }
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_keys(T* ks, T* vs, int t0, int nrows, int d,
+                                               bool plain) const {
+      stage_rows<T, D, P>(ks, head + c, c3, vs, head + 2 * c, c3, map, t0, nrows, d, plain);
+    }
+    template <int D, typename P>
+    __device__ __forceinline__ void stage_q_do(T* qd, T* dd, const T* dao, int t0, int nrows,
+                                               int d, bool plain) const {
+      stage_rows<T, D, P>(qd, head, c3, dd, dao + v0 * c + hd, c, map, t0, nrows, d, plain);
+    }
+    __device__ __forceinline__ long long out(int t) const { return (v0 + map.row(t)) * c + hd; }
+    __device__ __forceinline__ long long in(int t) const { return (v0 + map.row(t)) * c3 + hd; }
+    __device__ __forceinline__ void store_dkv(T* dqkv, int t, int ch, T dk, T dv) const {
+      T* row = dqkv + in(t) + ch;
+      row[c] = dk;
+      row[2 * c] = dv;
+    }
+  };
+
+  template <typename T>
+  __device__ __forceinline__ Head<T> head(const T* qkv, long long bw, int h, int, int c, int d,
+                                          int) const {
+    const long long c3 = 3LL * c, v0 = voxel0(bw);
+    return {*this, qkv + v0 * c3 + h * d, c3, v0, c, h * d};
+  }
+  __device__ __forceinline__ const int* ids(const int* ids, long long bw, int ids_rows,
+                                            int n) const {
+    return ids + ids_row(bw, ids_rows) * n;
+  }
+};
+
+// Whether rows must be staged by plain loads: a head's channels that are
+// not whole 16-byte chunks, or an operand that is not 16-byte aligned. Every
+// row stride of every layout is a multiple of the head dim, so the head dim
+// and the base pointers decide.
+template <typename T>
+bool plain_loads(int d, std::initializer_list<const void*> operands) {
+  bool plain = d % (16 / (int)sizeof(T));
+  for (const void* a : operands) plain = plain || reinterpret_cast<uintptr_t>(a) % 16;
+  return plain;
 }
 
 template <typename T>
 int k4_fwd(const T* qkv, const float* bias, const int* ids, int ids_rows, T* out, float* o32,
            float* stats, long long bw, int n, int c, int heads, float scale,
            cudaStream_t stream) {
-  const bool plain = k4_plain_loads<T>(c / heads, qkv, qkv);
+  const bool plain = plain_loads<T>(c / heads, {qkv});
   return (int)launch_attention_tiled<T, K4Softmax>(qkv, bias, ids, ids_rows, out, o32, stats,
                                                    bw, n, c, heads, scale, stream, plain);
 }
@@ -512,20 +264,74 @@ template <typename T>
 int k4_bwd(const T* qkv, const T* dout, const float* o, const float* stats,
            const float* bias, const int* ids, int ids_rows, float* s1, T* dqkv, float* dbias,
            long long bw, int n, int c, int heads, float scale, cudaStream_t stream) {
-  const bool plain = k4_plain_loads<T>(c / heads, qkv, dout);
+  const bool plain = plain_loads<T>(c / heads, {qkv, dout});
   return (int)launch_attention_bwd_tiled<T, K4Softmax>(qkv, dout, o, stats, bias, ids,
                                                        ids_rows, s1, dqkv, dbias, nullptr, bw,
                                                        n, c, heads, scale, stream, plain);
 }
 
+template <typename T>
+int v1_fwd(const T* q, const T* k, const T* v, const float* bias, const int* ids, int ids_rows,
+           T* out, float* o32, float* stats, long long bw, int n, int d, int heads, float scale,
+           cudaStream_t stream) {
+  const Split<T> lay = {k, v, nullptr, nullptr};
+  const bool plain = plain_loads<T>(d, {q, k, v});
+  return (int)launch_attention_tiled<T, K4Softmax>(q, bias, ids, ids_rows, out, o32, stats, bw,
+                                                   n, heads * d, heads, scale, stream, plain,
+                                                   lay);
+}
+
+template <typename T>
+int v1_bwd(const T* q, const T* k, const T* v, const T* dout, const float* o,
+           const float* stats, const float* bias, const int* ids, int ids_rows, float* s1,
+           T* dq, T* dk, T* dv, float* dbias, long long bw, int n, int d, int heads, float scale,
+           cudaStream_t stream) {
+  const Split<T> lay = {k, v, dk, dv};
+  const bool plain = plain_loads<T>(d, {q, k, v, dout});
+  return (int)launch_attention_bwd_tiled<T, K4Softmax>(q, dout, o, stats, bias, ids, ids_rows,
+                                                       s1, dq, dbias, nullptr, bw, n, heads * d,
+                                                       heads, scale, stream, plain, lay);
+}
+
+// V3's layout of a map [b, md, mh, mw, .] in windows (wd, wh, ww); false
+// where the row map's multiplies would not divide exactly (N ww or N wh at
+// 2^32 or past).
+bool map_rows(MapRows& lay, int md, int mh, int mw, int wd, int wh, int ww) {
+  const long long n = (long long)wd * wh * ww, one = 1LL << 32;
+  lay = {{md, mh, mw, wd, wh, ww, (one + ww - 1) / ww, (one + wh - 1) / wh}};
+  return n * ww < one && n * wh < one;
+}
+
+template <typename T>
+int v3_fwd(const T* qkv, const float* bias, const int* ids, int ids_rows, T* out, float* o32,
+           float* stats, int b, const MapRows& lay, int c, int heads, float scale,
+           cudaStream_t stream) {
+  const long long bw = b * (long long)(lay.md / lay.wd) * (lay.mh / lay.wh) * (lay.mw / lay.ww);
+  const bool plain = plain_loads<T>(c / heads, {qkv});
+  return (int)launch_attention_tiled<T, K4Softmax>(qkv, bias, ids, ids_rows, out, o32, stats,
+                                                   bw, lay.wd * lay.wh * lay.ww, c, heads,
+                                                   scale, stream, plain, lay);
+}
+
+template <typename T>
+int v3_bwd(const T* qkv, const T* dout, const float* o, const float* stats, const float* bias,
+           const int* ids, int ids_rows, float* s1, T* dqkv, float* dbias, int b,
+           const MapRows& lay, int c, int heads, float scale, cudaStream_t stream) {
+  const long long bw = b * (long long)(lay.md / lay.wd) * (lay.mh / lay.wh) * (lay.mw / lay.ww);
+  const bool plain = plain_loads<T>(c / heads, {qkv, dout});
+  return (int)launch_attention_bwd_tiled<T, K4Softmax>(
+      qkv, dout, o, stats, bias, ids, ids_rows, s1, dqkv, dbias, nullptr, bw,
+      lay.wd * lay.wh * lay.ww, c, heads, scale, stream, plain, lay);
+}
+
 }  // namespace
 
 // Every entry returns cudaGetLastError() of the launch (or of setting its
-// shared memory size; K4: cudaErrorInvalidValue for a head dim it does not
-// take), else 0. is_bf16 selects bf16 activations (q, k, v
-// or qkv, out, dout and their gradients), else f32; bias, bias_t (bias
-// with each head transposed) and dbias are f32, ids int32. dbias must be
-// zeroed by the caller: the backward adds into it.
+// shared memory size; cudaErrorInvalidValue for a head dim the body does
+// not take), else 0. is_bf16 selects bf16 activations (q, k, v or qkv,
+// out, dout and their gradients), else f32; o, stats, bias and dbias are
+// f32, ids int32. dbias must be zeroed by the caller: the backward adds
+// into it.
 
 // K4f on packed qkv [BW, N, 3C] (c = C): out [BW, N, C] (T), o32 [BW, N, C]
 // f32 (bf16 only; null for f32, where out is o), stats [BW, H, N, 2] f32
@@ -567,83 +373,90 @@ extern "C" int vsn_window_attention_qkv_tiled_bwd(int is_bf16, const void* qkv,
                        c, heads, scale, s);
 }
 
-// V1 on split q, k, v [BW, H, N, d].
+// V1f on split q, k, v [BW, H, N, d]: out [BW, H, N, d] (T), o32 (f32,
+// out's shape; bf16 only, null for f32) and stats [BW, H, N, 2] f32.
 extern "C" int vsn_window_attention_fwd(int is_bf16, const void* q, const void* k,
-                                        const void* v, const float* bias,
-                                        const int* ids, int ids_rows, void* out,
-                                        long long bw, int n, int d, int heads,
-                                        float scale, void* stream) {
+                                        const void* v, const float* bias, const int* ids,
+                                        int ids_rows, void* out, float* o32, float* stats,
+                                        long long bw, int n, int d, int heads, float scale,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using B = __nv_bfloat16;
-    return attention_split_fwd<B>(static_cast<const B*>(q), static_cast<const B*>(k),
-                                  static_cast<const B*>(v), bias, ids, ids_rows,
-                                  static_cast<B*>(out), bw, n, d, heads, scale, s);
+    return v1_fwd<B>(static_cast<const B*>(q), static_cast<const B*>(k),
+                     static_cast<const B*>(v), bias, ids, ids_rows, static_cast<B*>(out), o32,
+                     stats, bw, n, d, heads, scale, s);
   }
-  return attention_split_fwd<float>(static_cast<const float*>(q),
-                                    static_cast<const float*>(k),
-                                    static_cast<const float*>(v), bias, ids, ids_rows,
-                                    static_cast<float*>(out), bw, n, d, heads, scale, s);
+  return v1_fwd<float>(static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), bias, ids, ids_rows,
+                       static_cast<float*>(out), nullptr, stats, bw, n, d, heads, scale, s);
 }
 
+// V1b from V1f's o (f32 [BW, H, N, d]) and stats: dq, dk, dv [BW, H, N, d]
+// (T), and added into the zeroed f32 dbias [H, N, N]; s1 [BW, H, N] f32 is
+// scratch.
 extern "C" int vsn_window_attention_bwd(int is_bf16, const void* q, const void* k,
-                                        const void* v, const float* bias,
-                                        const float* bias_t, const int* ids,
-                                        int ids_rows, const void* dout, void* dq,
-                                        void* dk, void* dv, float* dbias,
-                                        long long bw, int n, int d, int heads,
+                                        const void* v, const void* dout, const float* o,
+                                        const float* stats, const float* bias, const int* ids,
+                                        int ids_rows, float* s1, void* dq, void* dk, void* dv,
+                                        float* dbias, long long bw, int n, int d, int heads,
                                         float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using B = __nv_bfloat16;
-    return attention_split_bwd<B>(
-        static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
-        bias, bias_t, ids, ids_rows, static_cast<const B*>(dout), static_cast<B*>(dq),
-        static_cast<B*>(dk), static_cast<B*>(dv), dbias, bw, n, d, heads, scale, s);
+    return v1_bwd<B>(static_cast<const B*>(q), static_cast<const B*>(k),
+                     static_cast<const B*>(v), static_cast<const B*>(dout), o, stats, bias,
+                     ids, ids_rows, s1, static_cast<B*>(dq), static_cast<B*>(dk),
+                     static_cast<B*>(dv), dbias, bw, n, d, heads, scale, s);
   }
-  return attention_split_bwd<float>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, bias_t, ids, ids_rows,
-      static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), dbias, bw, n, d, heads, scale, s);
+  return v1_bwd<float>(static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<const float*>(dout), o, stats,
+                       bias, ids, ids_rows, s1, static_cast<float*>(dq),
+                       static_cast<float*>(dk), static_cast<float*>(dv), dbias, bw, n, d,
+                       heads, scale, s);
 }
 
-// V3 on the map qkv [b, md, mh, mw, 3C] (c = C), windows (wd, wh, ww).
+// V3f on the map qkv [b, md, mh, mw, 3C] (c = C), windows (wd, wh, ww): out
+// [b, md, mh, mw, C] (T), o32 (f32, out's shape; bf16 only, null for f32),
+// stats [b nW, H, N, 2] f32.
 extern "C" int vsn_window_attention_windows_fwd(int is_bf16, const void* qkv,
                                                 const float* bias, const int* ids,
-                                                int ids_rows, void* out, int b, int md,
-                                                int mh, int mw, int wd, int wh, int ww,
-                                                int c, int heads, float scale,
-                                                void* stream) {
+                                                int ids_rows, void* out, float* o32,
+                                                float* stats, int b, int md, int mh, int mw,
+                                                int wd, int wh, int ww, int c, int heads,
+                                                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MapRows lay;
+  if (!map_rows(lay, md, mh, mw, wd, wh, ww)) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     using B = __nv_bfloat16;
-    return attention_windows_fwd<B>(static_cast<const B*>(qkv), bias, ids, ids_rows,
-                                    static_cast<B*>(out), b, md, mh, mw, wd, wh, ww, c,
-                                    heads, scale, s);
+    return v3_fwd<B>(static_cast<const B*>(qkv), bias, ids, ids_rows, static_cast<B*>(out),
+                     o32, stats, b, lay, c, heads, scale, s);
   }
-  return attention_windows_fwd<float>(static_cast<const float*>(qkv), bias, ids,
-                                      ids_rows, static_cast<float*>(out), b, md, mh, mw,
-                                      wd, wh, ww, c, heads, scale, s);
+  return v3_fwd<float>(static_cast<const float*>(qkv), bias, ids, ids_rows,
+                       static_cast<float*>(out), nullptr, stats, b, lay, c, heads, scale, s);
 }
 
-extern "C" int vsn_window_attention_windows_bwd(int is_bf16, const void* qkv,
-                                                const float* bias, const float* bias_t,
-                                                const int* ids, int ids_rows,
-                                                const void* dout, void* dqkv,
-                                                float* dbias, int b, int md, int mh,
-                                                int mw, int wd, int wh, int ww, int c,
-                                                int heads, float scale, void* stream) {
+// V3b from V3f's o (f32, out's shape) and stats: dqkv [b, md, mh, mw, 3C]
+// (T), and added into the zeroed f32 dbias [H, N, N]; s1 [b nW, H, N] f32 is
+// scratch.
+extern "C" int vsn_window_attention_windows_bwd(int is_bf16, const void* qkv, const void* dout,
+                                                const float* o, const float* stats,
+                                                const float* bias, const int* ids,
+                                                int ids_rows, float* s1, void* dqkv,
+                                                float* dbias, int b, int md, int mh, int mw,
+                                                int wd, int wh, int ww, int c, int heads,
+                                                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MapRows lay;
+  if (!map_rows(lay, md, mh, mw, wd, wh, ww)) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     using B = __nv_bfloat16;
-    return attention_windows_bwd<B>(static_cast<const B*>(qkv), bias, bias_t, ids,
-                                    ids_rows, static_cast<const B*>(dout),
-                                    static_cast<B*>(dqkv), dbias, b, md, mh, mw, wd, wh,
-                                    ww, c, heads, scale, s);
+    return v3_bwd<B>(static_cast<const B*>(qkv), static_cast<const B*>(dout), o, stats, bias,
+                     ids, ids_rows, s1, static_cast<B*>(dqkv), dbias, b, lay, c, heads, scale,
+                     s);
   }
-  return attention_windows_bwd<float>(static_cast<const float*>(qkv), bias, bias_t, ids,
-                                      ids_rows, static_cast<const float*>(dout),
-                                      static_cast<float*>(dqkv), dbias, b, md, mh, mw,
-                                      wd, wh, ww, c, heads, scale, s);
+  return v3_bwd<float>(static_cast<const float*>(qkv), static_cast<const float*>(dout), o,
+                       stats, bias, ids, ids_rows, s1, static_cast<float*>(dqkv), dbias, b, lay,
+                       c, heads, scale, s);
 }

@@ -66,13 +66,13 @@ _SIGNATURES = {
                                            _I, _I, _I, _F, _P],
     "vsn_window_attention_qkv_tiled_bwd": [_I, *[_P] * 6, _I, *[_P] * 3, _L,
                                            _I, _I, _I, _F, _P],
-    "vsn_window_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _P, _L, _I, _I,
+    "vsn_window_attention_fwd": [_I, *[_P] * 5, _I, _P, _P, _P, _L, _I, _I,
                                  _I, _F, _P],
-    "vsn_window_attention_bwd": [_I, *[_P] * 6, _I, *[_P] * 5, _L, _I, _I,
+    "vsn_window_attention_bwd": [_I, *[_P] * 8, _I, *[_P] * 5, _L, _I, _I,
                                  _I, _F, _P],
-    "vsn_window_attention_windows_fwd": [_I, _P, _P, _P, _I, _P, *[_I] * 9,
-                                         _F, _P],
-    "vsn_window_attention_windows_bwd": [_I, _P, _P, _P, _P, _I, _P, _P, _P,
+    "vsn_window_attention_windows_fwd": [_I, _P, _P, _P, _I, _P, _P, _P,
+                                         *[_I] * 9, _F, _P],
+    "vsn_window_attention_windows_bwd": [_I, *[_P] * 6, _I, _P, _P, _P,
                                          *[_I] * 9, _F, _P],
     "vsn_probe_attn_half": [_I, _I, _I, *[_P] * 9, _L, _I, _I, _I, _F, _P],
     "vsn_probe_copy": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P],

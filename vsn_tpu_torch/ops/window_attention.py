@@ -23,25 +23,22 @@ launches its kernels forward and backward; for a tensor on the CPU it runs
 the plain forward and the explicit plain backward. It never falls back from
 one to the other.
 
-K4 launches the key-tiled tensor-core body (``csrc/attn_tiled.cuh``, bf16
-mma.sync; FMA product steps in f32) under K4's softmax policy
+All three launch the key-tiled tensor-core body (``csrc/attn_tiled.cuh``,
+bf16 mma.sync; FMA product steps in f32) under K4's softmax policy
 (``csrc/window_attention_qkv.cu``): the plain row max, the plain row sum,
-the TPU kernel's score (dot * scale + bias) + mask. K4f also writes each
-row's statistics (max, 1 / sum) and, for bf16, the f32 output o; autograd
-keeps them, and K4b reads them (p = exp(s - max) / sum, s1 = dO . o)
-instead of recomputing the softmax. e, p and ds are rounded to the
-activation type before their products. K4 takes head dims up to 32 and
-multiples of 16 up to 128. ``window_attention_qkv_launch`` is K4f with its
-kept state; ``window_attention_qkv_kept_reference`` and
-``window_attention_qkv_kept_backward_reference`` are the plain versions of
-K4f and K4b at that level.
-
-V1 and V3 launch the FMA body of ``csrc/window_attention_qkv.cu`` (one
-body on two addressing policies), whose numerics are the TPU kernels': q,
-k, v are read from their stored dtype into f32; the softmax subtracts the
-plain row max and divides by the row sum in f32; p . v uses f32 p and f32
-v; the output is cast to the input's dtype once. They take head dims up to
-32.
+the TPU kernel's score (dot * scale + bias) + mask; each on its operand
+layout (``Packed``, ``Split``, ``MapRows``), so V1f and V3f give K4f's
+output bit for bit on the same values. The forward also writes each row's
+statistics (max, 1 / sum) [BW, H, N, 2] and, for bf16, the f32 output o
+in the output's layout; autograd keeps them, and the backward reads them
+(p = exp(s - max) / sum, s1 = dO . o) instead of recomputing the softmax.
+e, p and ds are rounded to the activation type before their products.
+Head dims: any up to 32 and multiples of 16 up to 128.
+``window_attention_qkv_launch`` / ``window_attention_launch`` /
+``window_attention_windows_launch`` are the forwards with their kept
+state, and ``*_backward_launch`` the backwards from it; their plain
+versions are ``*_kept_reference`` and ``*_kept_backward_reference``
+(V1's and V3's: K4's on the heads merged or the windows partitioned).
 
 Everywhere the mask is additive -1e9 where region ids differ; pad slots
 carry id -1. The backward gives the input gradients in the input's dtype
@@ -49,9 +46,10 @@ and dbias summed over every window in f32; ids and the static arguments
 get no gradient.
 
 ``*_reference`` are the plain versions on any device (the plain forward,
-and ``*_backward_reference`` as its backward); ``mask_from_ids`` and
-``window_attention_reference`` (V1's plain forward) are the plain helpers
-the other kernels' plain versions share.
+and ``*_backward_reference`` as its backward; V1's and V3's are K4's on the
+heads merged or the windows partitioned); ``mask_from_ids`` and
+``window_attention_reference`` (the softmax on split heads with
+``torch.softmax``) are plain helpers that other plain versions share.
 """
 
 from __future__ import annotations
@@ -70,9 +68,9 @@ from vsn_tpu_torch.ops._build import (
 )
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 128     # K4's tiled body: any head dim up to 32, then
-TILED_HEAD_STEP = 16   # multiples of 16 (its mma depth) up to 128
-FMA_HEAD_DIM = 32      # V1 / V3's FMA body: one warp lane per head channel
+SMALL_HEAD_DIM = 32    # the tiled body: any head dim up to 32 (as D = 32),
+TILED_HEAD_STEP = 16   # then multiples of 16 (its mma depth)
+MAX_HEAD_DIM = 128     # up to 128
 
 
 def mask_from_ids(ids: torch.Tensor) -> torch.Tensor:
@@ -196,9 +194,9 @@ def window_attention_qkv_kept_backward_reference(qkv, dout, o, stats, bias,
 
 
 def takes_head_dim(d: int) -> bool:
-    """Whether K4's CUDA body takes head dim ``d``: any up to 32, and
-    multiples of 16 up to 128."""
-    return 0 < d <= MAX_HEAD_DIM and (d <= FMA_HEAD_DIM
+    """Whether the tiled CUDA body (K4, V1, V3) takes head dim ``d``: any
+    up to 32, and multiples of 16 up to 128."""
+    return 0 < d <= MAX_HEAD_DIM and (d <= SMALL_HEAD_DIM
                                       or d % TILED_HEAD_STEP == 0)
 
 
@@ -210,7 +208,7 @@ def _check(qkv, bias, ids, n_heads):
     bw, n, c3 = qkv.shape
     if c3 % (3 * n_heads) or not takes_head_dim(c3 // (3 * n_heads)):
         raise ValueError(f"window_attention_qkv: 3C={c3} over {n_heads} "
-                         f"heads: K4 takes head dims up to {FMA_HEAD_DIM} "
+                         f"heads: K4 takes head dims up to {SMALL_HEAD_DIM} "
                          f"and multiples of {TILED_HEAD_STEP} up to "
                          f"{MAX_HEAD_DIM}")
     dev = qkv.device
@@ -364,29 +362,74 @@ def window_attention_qkv_reference(qkv, bias, ids, scale, n_heads):
 # ---------------------------------------------------------------------------
 
 
+def _packed(*heads):
+    """Tensors [BW, H, N, d] -> their heads merged, side by side on the last
+    axis: [BW, N, len(heads) H d] (q, k, v -> K4's qkv)."""
+    bw, h, n, d = heads[0].shape
+    return torch.cat([t.transpose(1, 2).reshape(bw, n, h * d) for t in heads],
+                     dim=-1)
+
+
+def _split(x, n_heads, parts=1):
+    """[BW, N, parts C] -> ``parts`` tensors [BW, H, N, d] (K4's qkv -> q,
+    k, v; out -> out)."""
+    bw, n, c = x.shape
+    return x.reshape(bw, n, parts, n_heads, c // (parts * n_heads)).permute(
+        2, 0, 3, 1, 4).unbind(0)
+
+
+def window_attention_math(q, k, v, bias, ids, scale):
+    """The forward of ``window_attention`` in plain PyTorch ops: K4's plain
+    forward (``window_attention_qkv_math``) on the heads merged, split
+    again."""
+    out = window_attention_qkv_math(_packed(q, k, v), bias, ids, scale,
+                                    q.shape[1])
+    return _split(out, q.shape[1])[0].contiguous()
+
+
 def window_attention_backward_reference(q, k, v, bias, ids, dout, scale):
-    """Plain VJP of ``window_attention``, mirroring _bwd_kernel: recompute
-    p, then dv = p^T do, dp = do v^T, ds = p (dp - rowsum(p dp)), dq = ds k
-    scale, dk = ds^T q scale. Returns (dq, dk, dv in q's dtype, dbias [H,
-    N, N] f32 summed over every window)."""
-    qf, kf = q.float(), k.float()
-    p = _probs(qf, kf, bias, ids, scale)
-    do = dout.float()
-    dv = p.transpose(-1, -2) @ do
-    dp = do @ v.float().transpose(-1, -2)
-    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
-    dq = (ds @ kf) * scale
-    dk = (ds.transpose(-1, -2) @ qf) * scale
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds.sum(0)
+    """Plain VJP of ``window_attention``: K4's plain backward on the heads
+    merged. Returns (dq, dk, dv in q's dtype, dbias [H, N, N] f32 summed
+    over every window)."""
+    heads = q.shape[1]
+    dqkv, dbias = window_attention_qkv_backward_reference(
+        _packed(q, k, v), bias, ids, _packed(dout), scale, heads)
+    return (*(t.contiguous() for t in _split(dqkv, heads, 3)), dbias)
+
+
+def window_attention_kept_reference(q, k, v, bias, ids, scale):
+    """Plain version of V1f with its kept state: (out [BW, H, N, d] in q's
+    dtype, the row statistics [BW, H, N, 2] f32, o [BW, H, N, d] f32), K4's
+    (``window_attention_qkv_kept_reference``) on the heads merged."""
+    heads = q.shape[1]
+    out, stats, o = window_attention_qkv_kept_reference(
+        _packed(q, k, v), bias, ids, scale, heads)
+    return (_split(out, heads)[0].contiguous(), stats,
+            _split(o, heads)[0].contiguous())
+
+
+def window_attention_kept_backward_reference(q, k, v, dout, o, stats, bias,
+                                             ids, scale):
+    """Plain version of V1b from V1f's kept state (o [BW, H, N, d] f32 and
+    the row statistics): K4b's (``window_attention_qkv_kept_backward_
+    reference``) on the heads merged. Returns (dq, dk, dv in q's dtype,
+    dbias [H, N, N] f32)."""
+    heads = q.shape[1]
+    dqkv, dbias = window_attention_qkv_kept_backward_reference(
+        _packed(q, k, v), _packed(dout), _packed(o), stats, bias, ids, scale,
+        heads)
+    return (*(t.contiguous() for t in _split(dqkv, heads, 3)), dbias)
 
 
 def _check_split(q, k, v, bias, ids):
     """Validate V1's arguments; returns the number of id rows W."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"window_attention: q dtype {q.dtype} (f32 or bf16)")
-    if q.dim() != 4 or q.shape[-1] > FMA_HEAD_DIM:
+    if q.dim() != 4 or not takes_head_dim(q.shape[-1]):
         raise ValueError(f"window_attention: q {tuple(q.shape)} must be [BW, "
-                         f"H, N, d] with d <= {FMA_HEAD_DIM}")
+                         f"H, N, d] with a head dim up to {SMALL_HEAD_DIM} or "
+                         f"a multiple of {TILED_HEAD_STEP} up to "
+                         f"{MAX_HEAD_DIM}")
     bw, heads, n, _ = q.shape
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -399,72 +442,121 @@ def _check_split(q, k, v, bias, ids):
     return w
 
 
-def _split_forward_kernel(q, k, v, bias, ids, scale):
-    """V1f: launch ``csrc/window_attention_qkv.cu`` on the split layout."""
+def window_attention_launch(q, k, v, bias, ids, scale):
+    """V1f with its kept state: (out [BW, H, N, d] in q's dtype, the row
+    statistics [BW, H, N, 2] f32, o [BW, H, N, d] f32: out itself for f32
+    q). The CUDA kernel (``csrc/window_attention_qkv.cu``, the tiled body on
+    the ``Split`` layout) for a CUDA tensor,
+    ``window_attention_kept_reference`` for a CPU one."""
+    if q.device.type == "cpu":
+        return window_attention_kept_reference(q, k, v, bias, ids, scale)
     w = _check_split(q, k, v, bias, ids)
     bw, heads, n, d = q.shape
     out = torch.empty_like(q)
+    stats = torch.empty((bw, heads, n, 2), dtype=torch.float32,
+                        device=q.device)
+    o32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+           if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         err = library().vsn_window_attention_fwd(
             int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), bias.data_ptr(), ids.data_ptr(), w, out.data_ptr(),
-            bw, n, d, heads, float(scale), stream_of(q))
+            ptr(o32), stats.data_ptr(), bw, n, d, heads, float(scale),
+            stream_of(q))
     check(err, "window_attention")
     launches["attention_split"] += 1
-    return out
+    return out, stats, out if o32 is None else o32
 
 
-def window_attention_backward(q, k, v, bias, ids, dout, scale):
-    """VJP of ``window_attention``: V1b for a CUDA tensor,
-    ``window_attention_backward_reference`` for a CPU one; same returns."""
-    if q.device.type == "cpu":
-        return window_attention_backward_reference(q, k, v, bias, ids, dout,
-                                                   scale)
+def _split_backward_kernel(q, k, v, bias, ids, dout, o, stats, scale):
+    """V1b: launch ``csrc/window_attention_qkv.cu`` on the ``Split`` layout
+    from V1f's kept state; returns (dq, dk, dv, dbias)."""
     w = _check_split(q, k, v, bias, ids)
     bw, heads, n, d = q.shape
-    expect(dout, "dout", q.shape, q.dtype, q.device)
+    dev = q.device
+    expect(dout, "dout", q.shape, q.dtype, dev)
+    expect(o, "o", q.shape, torch.float32, dev)
+    expect(stats, "stats", (bw, heads, n, 2), torch.float32, dev)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    s1 = torch.empty((bw, heads, n), dtype=torch.float32, device=dev)
     dbias = torch.zeros((heads, n, n), dtype=torch.float32,
-                        device=q.device)  # V1b adds into it
-    bias_t = bias.transpose(1, 2).contiguous()
-    with torch.cuda.device(q.device):
+                        device=dev)  # V1b adds into it
+    with torch.cuda.device(dev):
         err = library().vsn_window_attention_bwd(
             int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), bias.data_ptr(), bias_t.data_ptr(), ids.data_ptr(),
-            w, dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dbias.data_ptr(), bw, n, d, heads, float(scale), stream_of(q))
+            v.data_ptr(), dout.data_ptr(), o.data_ptr(), stats.data_ptr(),
+            bias.data_ptr(), ids.data_ptr(), w, s1.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), bw, n, d, heads,
+            float(scale), stream_of(q))
     check(err, "window_attention_bwd")
     launches["attention_split_bwd"] += 1
     return dq, dk, dv, dbias
 
 
+def window_attention_backward_launch(q, k, v, dout, o, stats, bias, ids,
+                                     scale):
+    """V1b from V1f's kept state alone, for the card's launch-level checks:
+    the CUDA kernels for a CUDA tensor,
+    ``window_attention_kept_backward_reference`` for a CPU one; returns (dq,
+    dk, dv, dbias)."""
+    if q.device.type == "cpu":
+        return window_attention_kept_backward_reference(
+            q, k, v, dout, o, stats, bias, ids, scale)
+    return _split_backward_kernel(q, k, v, bias, ids, dout, o, stats, scale)
+
+
+def window_attention_backward(q, k, v, bias, ids, dout, scale, *, o=None,
+                              stats=None):
+    """VJP of ``window_attention``: V1b for a CUDA tensor, which reads V1f's
+    kept ``o`` and row ``stats`` (``window_attention_launch``'s third and
+    second returns) and raises without them;
+    ``window_attention_backward_reference`` for a CPU one. Returns (dq, dk,
+    dv in q's dtype, dbias [H, N, N] f32)."""
+    if q.device.type == "cpu":
+        return window_attention_backward_reference(q, k, v, bias, ids, dout,
+                                                   scale)
+    if o is None or stats is None:
+        raise ValueError("window_attention_backward: V1b reads V1f's kept o "
+                         "and row statistics (o=, stats=)")
+    return _split_backward_kernel(q, k, v, bias, ids, dout, o, stats, scale)
+
+
 class _WindowAttention(torch.autograd.Function):
-    """V1 with its VJP; ``plain`` selects the plain forward and backward."""
+    """V1 with its VJP; ``plain`` selects the plain forward and backward.
+    The kernel route keeps V1f's row statistics and o for V1b."""
 
     @staticmethod
     def forward(ctx, plain, q, k, v, bias, ids, scale):
-        fwd = window_attention_reference if plain else _split_forward_kernel
         ctx.plain, ctx.scale = plain, scale
-        ctx.save_for_backward(q, k, v, bias, ids)
-        return fwd(q, k, v, bias, ids, scale)
+        if plain:
+            ctx.save_for_backward(q, k, v, bias, ids)
+            return window_attention_math(q, k, v, bias, ids, scale)
+        out, stats, o = window_attention_launch(q, k, v, bias, ids, scale)
+        ctx.save_for_backward(q, k, v, bias, ids, stats, o)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        bwd = (window_attention_backward_reference if ctx.plain
-               else window_attention_backward)
-        q, k, v, bias, ids = ctx.saved_tensors
-        dq, dk, dv, dbias = bwd(q, k, v, bias, ids, dout.contiguous(),
-                                ctx.scale)
-        return None, dq, dk, dv, dbias, None, None
+        dout = dout.contiguous()
+        if ctx.plain:
+            q, k, v, bias, ids = ctx.saved_tensors
+            grads = window_attention_backward_reference(q, k, v, bias, ids,
+                                                        dout, ctx.scale)
+        else:
+            q, k, v, bias, ids, stats, o = ctx.saved_tensors
+            grads = window_attention_backward(q, k, v, bias, ids, dout,
+                                              ctx.scale, o=o, stats=stats)
+        return None, *grads, None, None
 
 
 def window_attention(q, k, v, bias, ids, scale):
     """Multi-head window attention on split heads.
 
     Args:
-        q, k, v: [BW, H, N, d], one dtype (f32 or bf16), d <= 32. Any N:
-            padding N (to 256, as the JAX caller does) is the caller's
-            choice; pad slots then carry id -1.
+        q, k, v: [BW, H, N, d], one dtype (f32 or bf16); head dim d any up
+            to 32, or a multiple of 16 up to 128. Any N: padding N (to 256,
+            as the JAX caller does) is the caller's choice; pad slots then
+            carry id -1.
         bias: [H, N, N] f32 relative-position bias.
         ids: [W, N] int32 region ids, W dividing BW (window bw uses row bw
             % W; ids that differ are masked with -1e9).
@@ -478,7 +570,7 @@ def window_attention(q, k, v, bias, ids, scale):
 
 def window_attention_split_reference(q, k, v, bias, ids, scale):
     """Plain version of ``window_attention`` on any device: the plain
-    forward (``window_attention_reference``), and
+    forward (``window_attention_math``), and
     ``window_attention_backward_reference`` as its backward."""
     return _WindowAttention.apply(True, q, k, v, bias, ids, scale)
 
@@ -495,13 +587,18 @@ def window_ids(ids, n_windows):
     return ids[rows]
 
 
+def _n_windows(qkv, window):
+    """Windows per sample of a V3 map qkv [B, D, H, W, 3C]."""
+    return math.prod(m // w for m, w in zip(qkv.shape[1:4], window))
+
+
 def _partitioned(qkv, ids, window):
     """(partition of qkv, ids expanded to one row per window of a sample)
     for the plain versions of V3."""
     from vsn_tpu_torch.models.swin3d import window_partition
 
-    n_windows = math.prod(m // w for m, w in zip(qkv.shape[1:4], window))
-    return window_partition(qkv, window), window_ids(ids, n_windows)
+    return window_partition(qkv, window), window_ids(ids,
+                                                     _n_windows(qkv, window))
 
 
 def window_attention_windows_math(qkv, bias, ids, scale, n_heads, window):
@@ -527,6 +624,38 @@ def window_attention_windows_backward_reference(qkv, bias, ids, dout, scale,
     return window_reverse(dwins, window, qkv.shape[1:4]), dbias
 
 
+def window_attention_windows_kept_reference(qkv, bias, ids, scale, n_heads,
+                                            window):
+    """Plain version of V3f with its kept state: (out [B, D, H, W, C] in
+    qkv's dtype, the row statistics [B nW, H, N, 2] f32, o [B, D, H, W, C]
+    f32): partition, K4f's (``window_attention_qkv_kept_reference``),
+    reverse."""
+    from vsn_tpu_torch.models.swin3d import window_reverse
+
+    wins, rows = _partitioned(qkv, ids, window)
+    out, stats, o = window_attention_qkv_kept_reference(wins, bias, rows,
+                                                        scale, n_heads)
+    dims = qkv.shape[1:4]
+    return (window_reverse(out, window, dims), stats,
+            window_reverse(o, window, dims))
+
+
+def window_attention_windows_kept_backward_reference(qkv, dout, o, stats,
+                                                     bias, ids, scale,
+                                                     n_heads, window):
+    """Plain version of V3b from V3f's kept state (o [B, D, H, W, C] f32 and
+    the row statistics): partition, K4b's (``window_attention_qkv_kept_
+    backward_reference``), reverse. Returns (dqkv [B, D, H, W, 3C] in qkv's
+    dtype, dbias [H, N, N] f32)."""
+    from vsn_tpu_torch.models.swin3d import window_partition, window_reverse
+
+    wins, rows = _partitioned(qkv, ids, window)
+    dwins, dbias = window_attention_qkv_kept_backward_reference(
+        wins, window_partition(dout, window), window_partition(o, window),
+        stats, bias, rows, scale, n_heads)
+    return window_reverse(dwins, window, qkv.shape[1:4]), dbias
+
+
 def _check_windows(qkv, bias, ids, n_heads, window):
     """Validate V3's arguments; returns the number of id rows W."""
     if qkv.dtype not in (torch.float32, torch.bfloat16):
@@ -539,9 +668,11 @@ def _check_windows(qkv, bias, ids, n_heads, window):
     if any(w <= 0 or m % w for m, w in zip(dims, window)):
         raise ValueError(f"window_attention_windows: map {tuple(dims)} is not "
                          f"a multiple of the window {tuple(window)}")
-    if c3 % (3 * n_heads) or c3 // (3 * n_heads) > FMA_HEAD_DIM:
+    if c3 % (3 * n_heads) or not takes_head_dim(c3 // (3 * n_heads)):
         raise ValueError(f"window_attention_windows: 3C={c3} over {n_heads} "
-                         f"heads needs a head dim <= {FMA_HEAD_DIM}")
+                         f"heads: the head dims are up to {SMALL_HEAD_DIM} "
+                         f"and multiples of {TILED_HEAD_STEP} up to "
+                         f"{MAX_HEAD_DIM}")
     n = math.prod(window)
     dev = qkv.device
     expect(qkv, "qkv", qkv.shape, qkv.dtype, dev)
@@ -558,64 +689,125 @@ def _geometry(qkv, window):
     return (*qkv.shape[:4], *window, qkv.shape[4] // 3)
 
 
-def _windows_forward_kernel(qkv, bias, ids, scale, n_heads, window):
-    """V3f: launch ``csrc/window_attention_qkv.cu`` on the map."""
+def _stats_shape(qkv, n_heads, window):
+    """The row statistics' shape of a V3 call: [B nW, H, N, 2]."""
+    n = math.prod(window)
+    return (qkv.shape[0] * _n_windows(qkv, window), n_heads, n, 2)
+
+
+def window_attention_windows_launch(qkv, bias, ids, scale, n_heads, window):
+    """V3f with its kept state: (out [B, D, H, W, C] in qkv's dtype, the row
+    statistics [B nW, H, N, 2] f32, o [B, D, H, W, C] f32: out itself for
+    f32 qkv). The CUDA kernel (the tiled body on the ``MapRows`` layout) for
+    a CUDA tensor, ``window_attention_windows_kept_reference`` for a CPU
+    one."""
+    window = tuple(window)
+    if qkv.device.type == "cpu":
+        return window_attention_windows_kept_reference(qkv, bias, ids, scale,
+                                                       n_heads, window)
     w = _check_windows(qkv, bias, ids, n_heads, window)
-    out = torch.empty((*qkv.shape[:4], qkv.shape[4] // 3), dtype=qkv.dtype,
-                      device=qkv.device)
-    with torch.cuda.device(qkv.device):
+    dev = qkv.device
+    shape = (*qkv.shape[:4], qkv.shape[4] // 3)
+    out = torch.empty(shape, dtype=qkv.dtype, device=dev)
+    stats = torch.empty(_stats_shape(qkv, n_heads, window),
+                        dtype=torch.float32, device=dev)
+    o32 = (torch.empty(shape, dtype=torch.float32, device=dev)
+           if qkv.dtype == torch.bfloat16 else None)
+    with torch.cuda.device(dev):
         err = library().vsn_window_attention_windows_fwd(
             int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), bias.data_ptr(),
-            ids.data_ptr(), w, out.data_ptr(), *_geometry(qkv, window),
-            n_heads, float(scale), stream_of(qkv))
+            ids.data_ptr(), w, out.data_ptr(), ptr(o32), stats.data_ptr(),
+            *_geometry(qkv, window), n_heads, float(scale), stream_of(qkv))
     check(err, "window_attention_windows")
     launches["attention_windows"] += 1
-    return out
+    return out, stats, out if o32 is None else o32
 
 
-def window_attention_windows_backward(qkv, bias, ids, dout, scale, n_heads,
-                                      window):
-    """VJP of ``window_attention_windows``: V3b for a CUDA tensor,
-    ``window_attention_windows_backward_reference`` for a CPU one; same
-    returns."""
-    if qkv.device.type == "cpu":
-        return window_attention_windows_backward_reference(
-            qkv, bias, ids, dout, scale, n_heads, window)
+def _windows_backward_kernel(qkv, bias, ids, dout, o, stats, scale, n_heads,
+                             window):
+    """V3b: launch ``csrc/window_attention_qkv.cu`` on the ``MapRows``
+    layout from V3f's kept state; returns (dqkv, dbias)."""
     w = _check_windows(qkv, bias, ids, n_heads, window)
-    expect(dout, "dout", (*qkv.shape[:4], qkv.shape[4] // 3), qkv.dtype,
-           qkv.device)
+    dev = qkv.device
+    shape = (*qkv.shape[:4], qkv.shape[4] // 3)
+    stats_shape = _stats_shape(qkv, n_heads, window)
+    n = stats_shape[2]
+    expect(dout, "dout", shape, qkv.dtype, dev)
+    expect(o, "o", shape, torch.float32, dev)
+    expect(stats, "stats", stats_shape, torch.float32, dev)
     dqkv = torch.empty_like(qkv)
-    n = math.prod(window)
+    s1 = torch.empty(stats_shape[:3], dtype=torch.float32, device=dev)
     dbias = torch.zeros((n_heads, n, n), dtype=torch.float32,
-                        device=qkv.device)  # V3b adds into it
-    bias_t = bias.transpose(1, 2).contiguous()
-    with torch.cuda.device(qkv.device):
+                        device=dev)  # V3b adds into it
+    with torch.cuda.device(dev):
         err = library().vsn_window_attention_windows_bwd(
-            int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), bias.data_ptr(),
-            bias_t.data_ptr(), ids.data_ptr(), w, dout.data_ptr(),
-            dqkv.data_ptr(), dbias.data_ptr(), *_geometry(qkv, window),
-            n_heads, float(scale), stream_of(qkv))
+            int(qkv.dtype == torch.bfloat16), qkv.data_ptr(), dout.data_ptr(),
+            o.data_ptr(), stats.data_ptr(), bias.data_ptr(), ids.data_ptr(),
+            w, s1.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
+            *_geometry(qkv, window), n_heads, float(scale), stream_of(qkv))
     check(err, "window_attention_windows_bwd")
     launches["attention_windows_bwd"] += 1
     return dqkv, dbias
 
 
+def window_attention_windows_backward_launch(qkv, dout, o, stats, bias, ids,
+                                             scale, n_heads, window):
+    """V3b from V3f's kept state alone, for the card's launch-level checks:
+    the CUDA kernels for a CUDA tensor,
+    ``window_attention_windows_kept_backward_reference`` for a CPU one;
+    returns (dqkv, dbias)."""
+    window = tuple(window)
+    if qkv.device.type == "cpu":
+        return window_attention_windows_kept_backward_reference(
+            qkv, dout, o, stats, bias, ids, scale, n_heads, window)
+    return _windows_backward_kernel(qkv, bias, ids, dout, o, stats, scale,
+                                    n_heads, window)
+
+
+def window_attention_windows_backward(qkv, bias, ids, dout, scale, n_heads,
+                                      window, *, o=None, stats=None):
+    """VJP of ``window_attention_windows``: V3b for a CUDA tensor, which
+    reads V3f's kept ``o`` and row ``stats``
+    (``window_attention_windows_launch``'s third and second returns) and
+    raises without them; ``window_attention_windows_backward_reference``
+    for a CPU one. Returns (dqkv in qkv's dtype, dbias [H, N, N] f32)."""
+    window = tuple(window)
+    if qkv.device.type == "cpu":
+        return window_attention_windows_backward_reference(
+            qkv, bias, ids, dout, scale, n_heads, window)
+    if o is None or stats is None:
+        raise ValueError("window_attention_windows_backward: V3b reads V3f's "
+                         "kept o and row statistics (o=, stats=)")
+    return _windows_backward_kernel(qkv, bias, ids, dout, o, stats, scale,
+                                    n_heads, window)
+
+
 class _WindowAttentionWindows(torch.autograd.Function):
-    """V3 with its VJP; ``plain`` selects the plain forward and backward."""
+    """V3 with its VJP; ``plain`` selects the plain forward and backward.
+    The kernel route keeps V3f's row statistics and o for V3b."""
 
     @staticmethod
     def forward(ctx, plain, qkv, bias, ids, scale, n_heads, window):
-        fwd = window_attention_windows_math if plain else _windows_forward_kernel
         ctx.plain, ctx.static = plain, (scale, n_heads, tuple(window))
-        ctx.save_for_backward(qkv, bias, ids)
-        return fwd(qkv, bias, ids, scale, n_heads, tuple(window))
+        if plain:
+            ctx.save_for_backward(qkv, bias, ids)
+            return window_attention_windows_math(qkv, bias, ids, *ctx.static)
+        out, stats, o = window_attention_windows_launch(qkv, bias, ids,
+                                                        *ctx.static)
+        ctx.save_for_backward(qkv, bias, ids, stats, o)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        bwd = (window_attention_windows_backward_reference if ctx.plain
-               else window_attention_windows_backward)
-        qkv, bias, ids = ctx.saved_tensors
-        dqkv, dbias = bwd(qkv, bias, ids, dout.contiguous(), *ctx.static)
+        dout = dout.contiguous()
+        if ctx.plain:
+            qkv, bias, ids = ctx.saved_tensors
+            dqkv, dbias = window_attention_windows_backward_reference(
+                qkv, bias, ids, dout, *ctx.static)
+        else:
+            qkv, bias, ids, stats, o = ctx.saved_tensors
+            dqkv, dbias = window_attention_windows_backward(
+                qkv, bias, ids, dout, *ctx.static, o=o, stats=stats)
         return None, dqkv, dbias, None, None, None, None
 
 
@@ -626,7 +818,7 @@ def window_attention_windows(qkv, bias, ids, scale, n_heads, window):
         qkv: [B, D, H, W, 3C] (the qkv Linear's output on the rolled, padded
             feature map), f32 or bf16, contiguous; D, H, W multiples of
             ``window``; channels [q heads | k heads | v heads], head dim C /
-            n_heads <= 32.
+            n_heads: any up to 32, or a multiple of 16 up to 128.
         bias: [H, N, N] f32 relative-position bias, N = prod(window).
         ids: [W, N] int32 region ids; window (i, j, k) of each sample, in
             row-major order, uses row flat(i, j, k) % W (any W). An
