@@ -10,8 +10,22 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 
 1. build the hand-written kernels from ``vsn_tpu_torch/csrc`` (one nvcc per
    source, in parallel, into build/), and beside them the ptxas report of
-   the window-attention source (``python -m vsn_tpu_torch.probes.ptxas``);
+   the window-attention and GEMM sources (``python -m
+   vsn_tpu_torch.probes.ptxas``);
 2. print the card's name and power limit (nvidia-smi);
+2a. the GEMM and weight-gradient bodies of K1 / K2 alone (``gemm_launch``
+   / ``wgrad_launch``, csrc/gemm.cu): every launch that one training
+   forward and backward of Swin-T 5c at micro-batch 8 (each stage) and of
+   ViT-S 5c at micro-batch 24 make (the K1 / K2 calls recorded on zero
+   volumes of their input size), on seeded operands with GEMM_TAIL nonzero
+   rows past M, against their plain versions: bf16 outputs within 2e-2 of
+   their scale, f32 outputs and the weight gradients' sums within 1e-3,
+   and ViT's launches once more in f32 within 1e-4; then the GEMM path,
+   each launch once through its entry point with every counter at 0
+   before and one launch per call after; then per launch the tensor-core
+   body's device time beside the FMA body's on the same call (the body
+   every bf16 GEMM took before), ``torch.matmul`` on the same rounded
+   operands (a yardstick), the plain version and the bound;
 3. K1's key-tiled attention body, and K2, on ViT-S's calls
    (vit-5c-no_seed-baseline: N = 811 tokens, 6 heads of 64, no bias, no
    region ids): every K1/K2 call of an eval forward at batch 2 in f32 and in
@@ -76,7 +90,8 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    o (V1, V3 and K4 run one tiled body on three layouts); V1b's and V3b's
    dq, dk, dv from their kept state against K4b's (logged) and dbias
    within TOL["float32"] of its scale. The ptxas report of phase 1: every
-   window-attention kernel's registers, none spilling. The V kernels'
+   window-attention, GEMM and weight-gradient kernel's registers, none
+   spilling. The V kernels'
    times per micro-batch beside their plain versions', SDPA's forward and
    backward on the same calls and their bounds; their launches alone
    (profiler: V1f, V3f, V1b's and V3b's phases A and B); V3 beside
@@ -116,7 +131,11 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    bf16 out to 2e-2 of its scale), and every P1 variant and P5 run with f32
    x and out at seeded inputs where each ablated piece matters (x = 3 z + 1
    + a per-row offset, weights fan_in^-0.5 z, bias z), on the branch out -
-   x: max within 8e-3 of its largest value and RMS within 1e-3 of its RMS;
+   x: max within 8e-3 of its largest value and RMS within 1e-3 of its RMS,
+   the plain version run on the run's own qkv (its launch 1 alone, held to
+   its plain version within 2e-2 of its scale: a q or k rounded the other
+   way by the order of the GEMM's sums moves ``noln``'s branch, whose
+   logits are O(30), past that limit);
    the probe path (``python -m vsn_tpu_torch.probes.attn_ablate[2]``'s
    ``main``) with every launch counter at 0 before and exactly 3 launches
    per call of a whole half-block, 2 of ``linear_only`` / ``attn_only`` /
@@ -324,6 +343,27 @@ RESIDUAL_KERNELS = {
 }
 KERNELS.update({name: KERNELS[base]
                 for name, base in RESIDUAL_KERNELS.items()})
+# The GEMM and weight-gradient bodies of K1 / K2 (csrc/common.cuh), which
+# K1f / K1b / K2f / K2b launch inside their calls; the GEMM phase drives
+# them through their own entry points (csrc/gemm.cu). name -> (source, the
+# TPU kernels' products they replace: _mmw, and the weight gradient over
+# the token rows)
+GEMM_KERNELS = {
+    "gemm": ("vsn_tpu_torch/csrc/common.cuh",
+             "vsn_tpu/ops/swin_block_kernels.py:246"),
+    "wgrad": ("vsn_tpu_torch/csrc/common.cuh",
+              "vsn_tpu/ops/swin_block_kernels.py:434"),
+}
+KERNELS.update(GEMM_KERNELS)
+# The GEMM phase's tolerances, relative to each output's scale: bf16
+# outputs 2e-2 (one bf16 step where the f32 sums round apart); the f32
+# outputs of bf16 launches (out32, and the weight gradients' sums, added by
+# atomics in an order that varies) 1e-3 (the same rounded products summed
+# in another order, on the tensor cores); f32 launches 1e-4.
+GEMM_TOL = {"bfloat16": 2e-2, "out32": 1e-3, "float32": 1e-4}
+# nonzero rows past M behind every row operand of the GEMM phase: a kernel
+# that reads past its M rows (a weight gradient's contraction) sums them
+GEMM_TAIL = 64
 # the stabilizer path (STABILIZER_PATHS key) whose launch count the result
 # line gives each RESIDUAL_KERNELS entry: the Swin arm of its mode, ViT's
 # for the tiled ones (ln_mlp(_bwd)_post_ls, which both launch, takes Swin's)
@@ -1135,15 +1175,18 @@ def v_path(calls, gen):
 
 def start_ptxas():
     """``python -m vsn_tpu_torch.probes.ptxas`` on the window-attention
-    source (K4, V1, V3), which compiles it once more with ``-Xptxas -v``:
-    the process, to be read by ``ptxas_phase``."""
+    source (K4, V1, V3) and the GEMM source (every GEMM and weight-gradient
+    instantiation of K1 / K2, tensor-core and FMA bodies, bf16 and f32),
+    which compiles them once more with ``-Xptxas -v``: the process, to be
+    read by ``ptxas_phase``."""
     import atexit
     import signal
 
     root = Path(__file__).resolve().parent
     proc = subprocess.Popen(
         [sys.executable, "-m", "vsn_tpu_torch.probes.ptxas",
-         str(root / "vsn_tpu_torch" / "csrc"), "window_attention_qkv.cu"],
+         str(root / "vsn_tpu_torch" / "csrc"), "window_attention_qkv.cu",
+         "gemm.cu"],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
 
@@ -1157,10 +1200,11 @@ def start_ptxas():
 
 
 def ptxas_phase(proc):
-    """Log the registers of every kernel of the window-attention source
-    (``start_ptxas``'s report: source, registers, spill stores, spill
-    loads, name) and fail if one spills or no V1 / V3 instantiation (layout
-    ``Split`` / ``MapRows``) is there."""
+    """Log the registers of every kernel of the window-attention and GEMM
+    sources (``start_ptxas``'s report: source, registers, spill stores,
+    spill loads, name) and fail if one spills, if no V1 / V3 instantiation
+    (layout ``Split`` / ``MapRows``) is there, or if a tensor-core GEMM or
+    weight-gradient body is missing."""
     out, err = proc.communicate(timeout=900)
     if proc.returncode:
         raise AssertionError(f"ptxas report failed: {err[-2000:]}")
@@ -1170,9 +1214,14 @@ def ptxas_phase(proc):
     spills = [r[4] for r in rows if int(r[2]) or int(r[3])]
     layouts = {lay for r in rows for lay in ("Split", "MapRows")
                if lay in r[4]}
-    if spills or layouts != {"Split", "MapRows"}:
-        raise AssertionError(f"window attention kernels that spill: {spills};"
-                             f" V layouts compiled: {sorted(layouts)}")
+    bodies = {body for r in rows for body in ("gemm_mma_kernel",
+                                              "wgrad_mma_kernel")
+              if body in r[4]}
+    if spills or layouts != {"Split", "MapRows"} or len(bodies) != 2:
+        raise AssertionError(f"window attention and GEMM kernels that "
+                             f"spill: {spills}; V layouts compiled: "
+                             f"{sorted(layouts)}; tensor-core GEMM bodies: "
+                             f"{sorted(bodies)}")
 
 
 def k4_agreement(triples, gen):
@@ -1865,13 +1914,16 @@ def bound_ms(name, calls, dtype="bfloat16"):
     over the HBM rate and the FLOP over the peak rate for ``dtype``."""
     base = FORWARD_OF.get(name, name)
     flops = nbytes = 0
+    if name in GEMM_KERNELS:  # the launches that the K1 / K2 calls make
+        for launch, times in gemm_launch_set(calls).items():
+            if launch.kind == name:
+                f, b = gemm_work(launch, dtype)
+                flops, nbytes = flops + times * f, nbytes + times * b
     for cname, args in calls:
         if cname == base:
             f, b = call_work(name, args)
             flops, nbytes = flops + f, nbytes + b
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+    return work_bound_ms(flops, nbytes, dtype)
 
 
 def launch_counts():
@@ -2765,13 +2817,39 @@ def probe_compare(name, x, got, want):
     return err, ratios, bool(torch.isfinite(got).all()) and max(ratios) <= 1
 
 
+def probe_qkv(variant, x, wqkv):
+    """Launch 1 of a P1 / P5 run with f32 x alone (``gemm_launch``: the same
+    GEMM instantiation on the same operands as the run's own, so the same
+    bits): (qkv [BW, N, 3C] bf16, whether it is within the GEMM phase's
+    bf16 limit of its plain version)."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    bw, n, c = x.shape
+    ln = None if variant == "noln" else (
+        torch.ones(c, device=x.device), torch.zeros(c, device=x.device))
+    args = (x.reshape(bw * n, c), wqkv, "bias", torch.bfloat16)
+    got = sbk.gemm_launch(*args, w_kn=True, ln=ln)[0]
+    want = sbk.gemm_reference(*args, w_kn=True, ln=ln)[0].float()
+    err = (got.float() - want).abs().max().item()
+    ok = err <= GEMM_TOL["bfloat16"] * max(1.0, want.abs().max().item())
+    return got.reshape(bw, n, 3 * c), ok
+
+
 def probe_parity_phase(sets, table, runs):
     """Hold every probe run's kernel against its plain version on each set
     of ``sets`` {label: (x bf16, wqkv, bias, wproj)}: a set whose x is bf16
     runs every run at its own dtype (the scripts' inputs: copies bit-exact,
     ``out`` to TOL), an f32 set every P1 and P5 run with f32 x and out
-    (``probe_compare``'s branch check). Logs one line per (set, run);
-    raises naming every failure. Returns {launch key: worst max|d|}."""
+    (``probe_compare``'s branch check). In an f32 set the plain version
+    runs on the run's own qkv (``probe_qkv``), which must be within the
+    GEMM phase's bf16 limit of its plain version: a single bf16 rounding of
+    q or k that the
+    order of the qkv sums decides moves the branch of ``noln`` (no
+    LayerNorm, logits O(30)) by more than the branch limit, and the
+    tensor-core GEMM sums in another order than the plain version's f32
+    product. Logs one line per (set, run); raises naming every failure.
+    Returns {launch key: worst max|d|}."""
     import torch
 
     worst = collections.defaultdict(float)
@@ -2785,15 +2863,22 @@ def probe_parity_phase(sets, table, runs):
             else:
                 x = run.x(xs)
             kernel, plain = table[run.key]
+            qkv, qkv_ok = None, True
+            variant = _probe_variant(run.key)
             with torch.inference_mode():
-                got, want = kernel(x, *weights), plain(x, *weights)
+                if xs.dtype == torch.float32 and variant != "attn_only":
+                    qkv, qkv_ok = probe_qkv(variant, x, weights[0])
+                got, want = kernel(x, *weights), plain(x, *weights, qkv=qkv)
             err, ratios, ok = probe_compare(run.key, x, got, want)
+            ok = ok and qkv_ok
             worst[run.key] = max(worst[run.key], err)
             limit = ("max " + " / RMS ".join(f"{r:.3f}" for r in ratios)
                      + " of the limit" if ratios else "bit-exact")
             log(f"parity probes {label} {run.name} ({run.key}, "
                 f"{str(x.dtype).removeprefix('torch.')}): max|d| {err:.3e} "
-                f"({limit}) {'ok' if ok else 'FAIL'}")
+                f"({limit}{'' if qkv is None else ', on its own qkv'}"
+                f"{'' if qkv_ok else ', qkv off its plain version'})"
+                f" {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"{label} {run.key}")
             del got, want
@@ -2906,6 +2991,308 @@ def probe_phase(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The GEMM and weight-gradient bodies of K1 / K2 alone
+# ---------------------------------------------------------------------------
+
+GemmLaunch = collections.namedtuple(
+    "GemmLaunch", "label kind mode m k n rows_per_sample")
+
+
+def block_gemm_launches(name, args):
+    """The GEMM and weight-gradient launches that one K1 (``attn_half``) or
+    K2 (``ln_mlp``) call of the main path makes, forward and backward, in
+    the default mode (pre-norm, no LayerScale), as csrc/attn_half.cu,
+    attn_half_bwd.cu, ln_mlp.cu and ln_mlp_bwd.cu launch them:
+    [GemmLaunch]. A GEMM's mode is (epilogue, LayerScale flag, W read as [K,
+    N], A's prologue: "ln", "gain", "f32" or "plain"), k its depth, n its
+    width; a weight gradient's (A's type "T" or "f32", A gained), k = N1 and
+    n = N2, over m rows."""
+    x = args[0]
+    if name == "attn_half":
+        bw, n, c = x.shape
+        m, nsamp = bw * n, args[9].shape[0]
+        return [GemmLaunch(*launch, m // nsamp) for launch in (
+            ("K1f qkv", "gemm", ("bias", None, False, "ln"), m, c, 3 * c),
+            ("K1f proj", "gemm", ("residual", None, False, "plain"), m, c,
+             c),
+            ("K1b qkv", "gemm", ("bias", None, False, "plain"), m, c, 3 * c),
+            ("K1b dao", "gemm", ("bias", None, True, "gain"), m, c, c),
+            ("K1b dWproj", "wgrad", ("T", True), m, c, c),
+            ("K1b dWqkv", "wgrad", ("T", False), m, 3 * c, c),
+            ("K1b dy", "gemm", ("f32", None, True, "plain"), m, 3 * c, c))]
+    m, c = x.shape
+    hid, nsamp = args[3].shape[0], args[7].shape[0]
+    return [GemmLaunch(*launch, m // nsamp) for launch in (
+        ("K2f fc1", "gemm", ("gelu", None, False, "ln"), m, c, hid),
+        ("K2f fc2", "gemm", ("residual", None, False, "plain"), m, hid, c),
+        ("K2b fc1", "gemm", ("gelu_grad", None, False, "plain"), m, c, hid),
+        ("K2b dh1", "gemm", ("mul_f32", None, True, "gain"), m, c, hid),
+        ("K2b dW2", "wgrad", ("T", True), m, c, hid),
+        ("K2b dW1", "wgrad", ("f32", False), m, hid, c),
+        ("K2b dy", "gemm", ("f32", None, True, "f32"), m, hid, c))]
+
+
+def gemm_launch_set(calls):
+    """{GemmLaunch: how many of the calls make it}, in first-call order,
+    for the K1 / K2 calls among ``calls`` [(name, args)]."""
+    out = collections.Counter()
+    for name, args in calls:
+        if name in BLOCK_KERNELS:
+            out.update(block_gemm_launches(name, args))
+    return out
+
+
+def gemm_work(launch, dtype="bfloat16"):
+    """(FLOP, bytes) of one launch: its products, and each input read once
+    (A, the f32 W, the small vectors, the residual, out32 of "mul_f32") and
+    each output written once."""
+    el = 2 if dtype == "bfloat16" else 4
+    m, k, n = launch.m, launch.k, launch.n
+    if launch.kind == "wgrad":
+        a_el = 4 if launch.mode[0] == "f32" else el
+        return 2 * m * k * n, m * k * a_el + m * n * el + 4 * k * n
+    epi, _, _, a_kind = launch.mode
+    a_el = 4 if a_kind == "f32" else el
+    nbytes = m * k * a_el + 4 * (n * k + n + 2 * k) + m * n * {
+        "bias": el, "gelu": el, "residual": 2 * el, "gelu_grad": el + 4,
+        "f32": 4, "mul_f32": 8, "add_resid": 2 * el}[epi]
+    return 2 * m * k * n, nbytes
+
+
+def work_bound_ms(flops, nbytes, dtype="bfloat16"):
+    """(least ms, "bytes" or "operations") of ``flops`` and ``nbytes`` on
+    this card: the larger of the bytes over the HBM rate and the FLOP over
+    the peak rate for ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def gemm_table():
+    """name -> (launch wrapper, plain version) of the GEMM bodies alone."""
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    return {"gemm": (sbk.gemm_launch, sbk.gemm_reference),
+            "wgrad": (sbk.wgrad_launch, sbk.wgrad_reference)}
+
+
+def gemm_call(launch, dtype, device, gen):
+    """Seeded operands of one launch in ``dtype``: (args, keywords) of its
+    wrapper. Row operands are the first M rows of a buffer with GEMM_TAIL
+    nonzero rows past them; weights fan_in^-0.5 z, biases and shifts 0.1 z,
+    LayerNorm scales 1 + 0.1 z, per-sample gains 0.6 .. 1.4 (distinct in
+    every sample)."""
+    import torch
+
+    cdt = getattr(torch, dtype)
+    f32 = torch.float32
+    z = lambda *s: torch.randn(*s, generator=gen, device=device)
+    rows = lambda k, dt, scale=1.0, shift=0.0: (
+        scale * z(launch.m + GEMM_TAIL, k) + shift).to(dt)[:launch.m]
+    gains = torch.linspace(0.6, 1.4, -(-launch.m // launch.rows_per_sample),
+                           device=device)
+    if launch.kind == "wgrad":
+        a_type, gained = launch.mode
+        a = rows(launch.k, f32 if a_type == "f32" else cdt)
+        kw = dict(a_gain=gains, rows_per_sample=launch.rows_per_sample) \
+            if gained else {}
+        return (a, rows(launch.n, cdt), cdt), kw
+    epi, ls, w_kn, a_kind = launch.mode
+    a = rows(launch.k, f32 if a_kind == "f32" else cdt,
+             *((3.0, 1.0) if a_kind == "ln" else ()))
+    w = launch.k ** -0.5 * (z(launch.k, launch.n) if w_kn
+                            else z(launch.n, launch.k))
+    kw = dict(w_kn=w_kn, bias=0.1 * z(launch.n),
+              rows_per_sample=launch.rows_per_sample, lam=PATH_LAM)
+    if a_kind == "ln":
+        kw["ln"] = (1 + 0.1 * z(launch.k), 0.1 * z(launch.k))
+    if a_kind == "gain":
+        kw["a_gain"] = gains
+    if epi in ("residual", "add_resid"):
+        kw["resid"] = rows(launch.n, cdt)
+    if epi == "residual":
+        kw["gains"] = gains
+    if epi == "mul_f32":
+        kw["out32"] = rows(launch.n, f32)
+    return (a, w, epi, cdt), kw
+
+
+def _fresh(kw):
+    """The keywords with a fresh copy of out32, which "mul_f32" updates in
+    place."""
+    return {**kw, "out32": kw["out32"].clone()} if "out32" in kw else kw
+
+
+def gemm_compare(launch, args, kw, table):
+    """One launch against its plain version on the same operands: (the
+    largest max|d| of its outputs, the largest as a share of its limit,
+    GEMM_TOL of each output's scale: a weight gradient's f32 sums and a
+    GEMM's out32 under bf16 to GEMM_TOL["out32"])."""
+    kernel, plain = table[launch.kind]
+    got, want = kernel(*args, **_fresh(kw)), plain(*args, **_fresh(kw))
+    f32 = str(args[-1]) == "torch.float32"   # the launch's operand type
+    if launch.kind == "wgrad":
+        got, want = (got,), (want,)
+    err_max = ratio_max = 0.0
+    for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            raise AssertionError(f"{launch.label}: an output is missing")
+        if g is None:
+            continue
+        limit = GEMM_TOL["float32" if f32 else
+                         "out32" if g.dtype.itemsize == 4 else "bfloat16"]
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(1.0, w.float().abs().max().item())
+        err_max = max(err_max, err) if math.isfinite(err) else math.inf
+        ratio_max = max(ratio_max, err / (limit * scale)) \
+            if math.isfinite(err) else math.inf
+    return err_max, ratio_max
+
+
+def gemm_parity_phase(sets, device, table=None, seed=SEED + 24):
+    """Every launch of ``sets`` {label: (launches, dtype)} against its
+    plain version (``gemm_compare``); logs each set's worst, raises naming
+    the launches over their limit. Returns {"gemm": worst max|d|, "wgrad":
+    ...}."""
+    import torch
+
+    table = table or gemm_table()
+    gen = torch.Generator(device).manual_seed(seed)
+    worst, failed = dict.fromkeys(GEMM_KERNELS, 0.0), []
+    for label, (launches, dtype) in sets.items():
+        ratios = dict.fromkeys(GEMM_KERNELS, 0.0)
+        for launch in launches:
+            args, kw = gemm_call(launch, dtype, device, gen)
+            err, ratio = gemm_compare(launch, args, kw, table)
+            worst[launch.kind] = max(worst[launch.kind], err)
+            ratios[launch.kind] = max(ratios[launch.kind], ratio)
+            if not ratio <= 1.0:
+                failed.append(f"{label} {launch.label} {launch.m}x{launch.k}"
+                              f"x{launch.n}: {ratio:.2f} of its limit")
+        log(f"GEMM parity {label} ({dtype}): {len(launches)} launch shapes, "
+            + ", ".join(f"{k} worst {v:.3f} of the limit"
+                        for k, v in ratios.items()))
+    if failed:
+        raise AssertionError("GEMM launches disagree with their plain "
+                             f"versions: {failed}")
+    return worst
+
+
+def gemm_path(launches, device, dtype="bfloat16"):
+    """Every launch of ``launches`` once through ``gemm_launch`` /
+    ``wgrad_launch`` with every launch counter at 0 before: the counters
+    after, which must be one per launch of each body and nothing else."""
+    import torch
+    from vsn_tpu_torch.ops import _build
+
+    gen = torch.Generator(device).manual_seed(SEED + 25)
+    calls = [gemm_call(launch, dtype, device, gen) for launch in launches]
+    table = gemm_table()
+    _build.launches.clear()
+    for launch, (args, kw) in zip(launches, calls):
+        table[launch.kind][0](*args, **_fresh(kw))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = collections.Counter(launch.kind for launch in launches)
+    check_counts(counts, want, 1, "GEMM path")
+    return counts
+
+
+def gemm_times(launch_sets, device, card):
+    """Per launch of each set {label: Counter(GemmLaunch)}, bf16: the
+    tensor-core body's ms, the FMA body's on the same call (the body every
+    bf16 GEMM took before), torch.matmul's on the same operands already
+    rounded to bf16 (A' and W', or round(g A)^T and B: a yardstick the port
+    never calls), all three device time from one profiler trace (the
+    wrapper's host time, which can exceed a small launch's, left out), the
+    plain version's (CUDA events), and the bound; logged. Returns, per
+    set, {name: (ms, FMA ms, plain ms, (bound ms, by), matmul ms)} summed
+    over the set's launches, each by how many calls make it."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    gen = torch.Generator(device).manual_seed(SEED + 26)
+    table = gemm_table()
+    out = {}
+    for label, launches in launch_sets.items():
+        tot = {name: collections.Counter() for name in GEMM_KERNELS}
+        for launch, times in launches.items():
+            args, kw = gemm_call(launch, "bfloat16", device, gen)
+            kernel, plain = table[launch.kind]
+            bf = torch.bfloat16
+            if launch.kind == "wgrad":
+                g = (sbk._gain_rows(kw["a_gain"], launch.rows_per_sample,
+                                    launch.m) if kw else 1.0)
+                at, bt = (g * args[0].float()).to(bf).t(), args[1]
+            else:
+                epi, ls, w_kn, a_kind = launch.mode
+                a32 = args[0].float()
+                if a_kind == "ln":
+                    a32 = sbk._ln_parts(a32, *kw["ln"])[0]
+                elif a_kind == "gain":
+                    a32 = sbk._gain_rows(kw["a_gain"], launch.rows_per_sample,
+                                         launch.m) * a32
+                at, bt = a32.to(bf), (args[1] if w_kn else args[1].t()).to(bf)
+                del a32
+            dev_ms = device_kernel_ms(lambda: (
+                kernel(*args, **kw), kernel(*args, **kw, _fma=True),
+                torch.matmul(at, bt)), f"gemm_{launch.kind}")
+            t = dict(ms=0.0, fma=0.0, matmul=0.0,
+                     plain=cuda_ms(lambda: plain(*args, **kw)))
+            for name, v in dev_ms.items():
+                t["ms" if "_mma_kernel" in name else "fma" if (
+                    "gemm_kernel" in name or "wgrad_kernel" in name)
+                  else "matmul"] += v
+            bound, by = work_bound_ms(*gemm_work(launch))
+            log(f"[{card}] GEMM {label} {launch.label} {launch.m}x{launch.k}"
+                f"x{launch.n} (x{times} a micro-batch): {t['ms']:.4f} ms, "
+                f"FMA body {t['fma']:.4f} ms, torch.matmul {t['matmul']:.4f}"
+                f" ms, plain {t['plain']:.4f} ms, bound {bound:.4f} ms by "
+                f"{by}")
+            flops, nbytes = gemm_work(launch)
+            tot[launch.kind].update({k: times * v for k, v in (
+                *t.items(), ("flops", flops), ("bytes", nbytes))})
+            del args, kw, at, bt
+        out[label] = {}
+        for name, t in tot.items():
+            bound = work_bound_ms(t["flops"], t["bytes"])
+            out[label][name] = (t["ms"], t["fma"], t["plain"], bound,
+                                t["matmul"])
+            log(f"[{card}] GEMM {label} {name}: {t['ms']:.3f} ms per "
+                f"micro-batch (FMA body {t['fma']:.3f} ms, torch.matmul "
+                f"{t['matmul']:.3f} ms, plain {t['plain']:.3f} ms, bound "
+                f"{bound[0]:.3f} ms by {bound[1]})")
+        torch.cuda.empty_cache()
+    return out
+
+
+def gemm_shapes(device):
+    """The K1 / K2 calls of one training forward of the Swin-T 5c flagship
+    model at micro-batch TRAIN_MICRO and of ViT-S 5c at VIT_MICRO, recorded
+    on zero volumes of their input size (only the shapes are read):
+    {label: Counter(GemmLaunch)}."""
+    import torch
+    from vsn_tpu_torch.config import load_config
+
+    out = {}
+    for label, cfg in (
+            (f"Swin-T micro {TRAIN_MICRO}", load_config(dict(
+                USE_SHAKEDROP=True, BATCH_SIZE=TRAIN_MICRO))),
+            (f"ViT-S micro {VIT_MICRO}", load_config(dict(
+                USE_SHAKEDROP=True, BATCH_SIZE=VIT_MICRO),
+                preset=VIT_PRESET))):
+        model = seeded_model(cfg).train()
+        x = torch.zeros((cfg.BATCH_SIZE, *cfg.input_size, 1),
+                        dtype=torch.bfloat16, device=device)
+        calls = record_calls(model, x,
+                             generator=torch.Generator(device).manual_seed(4))
+        out[label] = gemm_launch_set(calls)
+        del model, x, calls
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
@@ -2947,6 +3334,19 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+
+    # 2a. the GEMM and weight-gradient bodies alone -----------------------
+    gemm_sets = gemm_shapes(device)
+    swin_gemm, vit_gemm = gemm_sets
+    gemm_worst = gemm_parity_phase(
+        {**{label: (list(launches), "bfloat16")
+            for label, launches in gemm_sets.items()},
+         f"{vit_gemm} f32": (list(gemm_sets[vit_gemm]), "float32")}, device)
+    gemm_counts = gemm_path([*gemm_sets[swin_gemm], *gemm_sets[vit_gemm]],
+                            device)
+    log(f"GEMM path: {sum(gemm_counts.values())} launches, "
+        f"{ {k: v for k, v in gemm_counts.items() if v} }")
+    gemm_ms = gemm_times(gemm_sets, device, card)
 
     # 3. K1's tiled body and K2 on ViT-S's calls ------------------------
     vit_cfg = load_config(preset=VIT_PRESET)
@@ -3377,6 +3777,10 @@ def main() -> int:
     del pstate, rbatch, model, draws
 
     # 20. per-kernel times beside their bounds ----------------------------
+    for name in GEMM_KERNELS:  # the Swin training micro-batch's launches
+        ms[name], _, plain_ms[name], bounds[name], library_ms[name] = \
+            gemm_ms[swin_gemm][name]
+        path_counts[name], worst[name] = gemm_counts[name], gemm_worst[name]
     for name in STEM:
         ms[name], plain_ms[name], library_ms[name] = stem_ms[name]
         bounds[name] = stem_bound[name]

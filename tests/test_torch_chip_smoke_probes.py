@@ -42,8 +42,9 @@ def test_probes_table_lists_every_run():
     for key, (_, src, rep) in chip_smoke.PROBES.items():
         assert chip_smoke.KERNELS[key] == (src, rep)
         assert (ROOT / src).exists() and (ROOT / rep.split(":")[0]).exists()
-    # K1's tiled body: 2; K1/K2 in the stabilizer paths' residual modes: 10
-    assert len(chip_smoke.KERNELS) == 18 + 2 + 13 + 10
+    # K1's tiled body: 2; K1/K2 in the stabilizer paths' residual modes: 10;
+    # the GEMM and weight-gradient bodies of K1 / K2 alone: 2
+    assert len(chip_smoke.KERNELS) == 18 + 2 + 13 + 10 + 2
 
 
 def test_probe_plain_versions_pass(probe_sets):

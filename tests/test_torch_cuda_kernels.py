@@ -878,3 +878,174 @@ def test_a_mutated_tiled_source_makes_chip_smoke_fail(dev, mutant, tmp_path):
     res = _run_mutated_chip_smoke(_CSRC / src, line, new, tmp_path)
     assert res.returncode == 1
     assert any(f in res.stderr for f in TILED_FAILURES), res.stderr[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# The GEMM and weight-gradient bodies of K1 / K2 alone (csrc/gemm.cu)
+# ---------------------------------------------------------------------------
+
+# (epilogue, LayerScale flag, W as [K, N], A's prologue: "ln", "gain",
+# "f32" or "plain"): every mode of sbk.GEMM_MODES with each prologue that
+# K1, K2 or the probes launch it with (an f32 A only under bf16)
+GEMM_CASES = [
+    ("bias", None, False, "ln"), ("bias", None, False, "plain"),
+    ("gelu", None, False, "ln"), ("gelu", None, False, "plain"),
+    ("residual", None, False, "plain"), ("residual", "epi", False, "plain"),
+    ("gelu_grad", None, False, "plain"), ("f32", None, False, "plain"),
+    ("bias", None, True, "gain"), ("bias", "pro", True, "gain"),
+    ("bias", None, True, "f32"), ("bias", None, True, "ln"),
+    ("mul_f32", None, True, "gain"), ("mul_f32", "pro", True, "gain"),
+    ("mul_f32", None, True, "f32"), ("f32", None, True, "plain"),
+    ("f32", None, True, "f32"), ("add_resid", None, True, "plain"),
+    ("add_resid", None, True, "f32"),
+]
+# (M, K, N): Swin's stage-1 qkv cut to a ragged 70 rows; a K and N that
+# are not whole tiles, N not a multiple of 8 (element-wise W loads and
+# stores); several tiles of each
+GEMM_SHAPES = [(70, 96, 288), (300, 40, 50), (1000, 384, 1152)]
+
+
+def _gemm_check(dev, launch, dtype, fma=False):
+    gen = torch.Generator(dev).manual_seed(5)
+    args, kw = chip_smoke.gemm_call(launch, dtype, dev, gen)
+    table = chip_smoke.gemm_table()
+    if fma:
+        kernel, plain = table[launch.kind]
+        table[launch.kind] = (
+            lambda *a, **k: kernel(*a, **k, _fma=True), plain)
+    key = launch.kind + ("_fma" if fma else "")
+    before = _build.launches[key]
+    err, ratio = chip_smoke.gemm_compare(launch, args, kw, table)
+    torch.cuda.synchronize()
+    assert _build.launches[key] == before + 1
+    assert ratio <= 1.0, (err, ratio)
+
+
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+@pytest.mark.parametrize("case,dtype", [
+    (case, dtype) for case in GEMM_CASES for dtype in ("float32", "bfloat16")
+    if dtype == "bfloat16" or case[3] != "f32"],   # f32 A is f32's own type
+    ids=lambda v: "-".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_gemm_launch_matches_plain(dev, case, dtype, shape):
+    """Every GEMM mode, prologue and type against ``gemm_reference`` to
+    chip_smoke.py's GEMM_TOL (bf16 out 2e-2, out32 under bf16 1e-3, f32
+    1e-4 of each output's scale), per-sample gains over 2 samples."""
+    m, k, n = shape
+    _gemm_check(dev, chip_smoke.GemmLaunch("card", "gemm", case, m, k, n,
+                                           m // 2), dtype)
+
+
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+@pytest.mark.parametrize("case", GEMM_CASES[:6], ids=lambda c: "-".join(
+    map(str, c)))
+def test_gemm_fma_yardstick_matches_plain(dev, case, shape):
+    """The FMA body on bf16 operands (``_fma``, chip_smoke.py's
+    yardstick) computes the same function."""
+    m, k, n = shape
+    _gemm_check(dev, chip_smoke.GemmLaunch("card", "gemm", case, m, k, n,
+                                           m // 2), "bfloat16", fma=True)
+
+
+@pytest.mark.parametrize("dtype,a_type,fma", [
+    ("float32", "T", False), ("bfloat16", "T", False),
+    ("bfloat16", "f32", False), ("bfloat16", "T", True),
+    ("bfloat16", "f32", True)])   # the f32 body is the FMA body
+@pytest.mark.parametrize("gained", [False, True])
+@pytest.mark.parametrize("m,n1,n2", [(70, 96, 288), (5000, 40, 50),
+                                     (20000, 384, 1152)])
+def test_wgrad_launch_matches_plain(dev, m, n1, n2, gained, dtype, a_type,
+                                    fma):
+    """The weight gradient over one split and over several (20000 rows),
+    ragged edges, with and without the per-sample gain, against
+    ``wgrad_reference`` to 1e-3 (bf16) / 1e-4 (f32) of its scale; with
+    ``fma`` the FMA body on bf16 operands (chip_smoke.py's yardstick)."""
+    _gemm_check(dev, chip_smoke.GemmLaunch(
+        "card", "wgrad", (a_type, gained), m, n1, n2, m // 2), dtype, fma)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_launch_probe_proj_at_a_row_stride(dev, out_dtype):
+    """The probes' proj: A the q slice of a packed [M, 3K] qkv (lda = 3K),
+    W as [K, N], out and the residual bf16 or f32."""
+    g = torch.Generator(dev).manual_seed(6)
+    z = lambda *s: torch.randn(*s, generator=g, device=dev)
+    qkv = z(70, 288).to(torch.bfloat16)
+    kw = dict(w_kn=True, resid=z(70, 96).to(out_dtype),
+              gains=torch.ones(1, device=dev), lam=1.0, out_dtype=out_dtype)
+    args = (qkv[:, :96], z(96, 96) * 96 ** -0.5, "residual", torch.bfloat16)
+    got = sbk.gemm_launch(*args, **kw)[0]
+    _close(got, sbk.gemm_reference(*args, **kw)[0], out_dtype)
+
+
+def test_gemm_wrappers_reject_what_the_kernels_do_not_take(dev):
+    a = torch.zeros(70, 96, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(288, 96, device=dev)
+    with pytest.raises(ValueError, match="not a launch of K1 / K2"):
+        sbk.gemm_launch(a, w.t().contiguous(), "gelu", torch.bfloat16,
+                        w_kn=True)
+    with pytest.raises(ValueError, match="not a launch of K1 / K2"):
+        sbk.gemm_launch(a.float(), w, "gelu", torch.bfloat16)
+    with pytest.raises(ValueError, match="lacks an argument"):
+        sbk.gemm_launch(a, w, "residual", torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        sbk.gemm_launch(a, w.half(), "bias", torch.bfloat16)
+    with pytest.raises(ValueError, match="wgrad_launch"):
+        sbk.wgrad_launch(a.half(), a, torch.bfloat16)
+
+
+# One-line edits of the tensor-core GEMM and weight-gradient bodies that
+# chip_smoke.py must reject on the card (exit 1, in its GEMM phase 2a, or
+# at the CUDA error of a read past an operand): name -> (source, line, its
+# mutant)
+GEMM_SOURCE_MUTANTS = {
+    "GEMM: the last k-tile dropped": (
+        "common.cuh", "const int nk = (p.k + kMmaBK - 1) / kMmaBK;",
+        "const int nk = (p.k + kMmaBK - 1) / kMmaBK - 1;"),
+    "GEMM: LayerNorm statistics of the wrong row": (
+        "common.cuh",
+        "x = (x - mu_s[r]) * rstd_s[r] * p.ln_w[k + e] + p.ln_b[k + e];",
+        "x = (x - mu_s[r ^ 1]) * rstd_s[r ^ 1] * p.ln_w[k + e] + "
+        "p.ln_b[k + e];"),
+    "GEMM: the prologue's row gain skipped": (
+        "common.cuh", "const float g = p.a_gain ? scale_s[r] : 1.f;",
+        "const float g = 1.f;"),
+    "GEMM: the residual gain of the first sample for all": (
+        "common.cuh",
+        "(EPI == EPI_RESIDUAL && m < p.m) ? p.gains[m / p.rows_per_sample]"
+        " : 1.f;",
+        "(EPI == EPI_RESIDUAL && m < p.m) ? p.gains[0] : 1.f;"),
+    "GEMM: GELU written where EPI_GELU_GRAD writes GELU'": (
+        "common.cuh",
+        "for (int e = 0; e < 8; ++e) d[e] = gelu_erf_grad(v[e]);",
+        "for (int e = 0; e < 8; ++e) d[e] = gelu_erf(v[e]);"),
+    "wgrad: the ragged last split reads past M": (
+        "common.cuh", "const long long r1 = min(r0 + p.rows, p.m);",
+        "const long long r1 = r0 + p.rows;"),
+    "wgrad: the first split's atomicAdd dropped": (
+        "common.cuh",
+        "if (oj < p.n2) atomicAdd(&p.out[(long long)oi * p.n2 + oj], "
+        "acc[i][j][2 * hh + e]);",
+        "if (oj < p.n2 && blockIdx.z) atomicAdd(&p.out[(long long)oi * "
+        "p.n2 + oj], acc[i][j][2 * hh + e]);"),
+}
+GEMM_FAILURES = ("GEMM launches disagree with their plain versions",
+                 "CUDA error", "illegal memory access")
+
+
+@pytest.mark.parametrize("mutant", sorted(GEMM_SOURCE_MUTANTS))
+def test_gemm_source_mutants_name_one_line_of_the_source(mutant):
+    src, line, new = GEMM_SOURCE_MUTANTS[mutant]
+    assert (_CSRC / src).read_text().count(line) == 1 and new != line
+
+
+@pytest.mark.parametrize("mutant", sorted(GEMM_SOURCE_MUTANTS))
+def test_a_mutated_gemm_source_makes_chip_smoke_fail(dev, mutant, tmp_path):
+    """chip_smoke.py run from a copy of the port whose tensor-core GEMM or
+    weight-gradient body has one line mutated exits 1."""
+    from test_torch_chip_smoke import _run_mutated_chip_smoke
+
+    src, line, new = GEMM_SOURCE_MUTANTS[mutant]
+    res = _run_mutated_chip_smoke(_CSRC / src, line, new, tmp_path)
+    assert res.returncode == 1
+    assert any(f in res.stderr for f in GEMM_FAILURES), res.stderr[-2000:]
+

@@ -107,7 +107,7 @@ def test_library_is_named_by_its_sources_and_builds_under_build():
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert names == {"attn_half.cu", "attn_half_bwd.cu", "ln_mlp.cu",
                      "ln_mlp_bwd.cu", "stem_im2col.cu", "window_relayout.cu",
-                     "window_attention_qkv.cu", "probe_copy.cu"}
+                     "window_attention_qkv.cu", "probe_copy.cu", "gemm.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -128,3 +128,25 @@ def test_ptxas_report_parses_registers_and_spills():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 40 registers, used 1 barriers\n")
     assert parse(text) == [("_Z1av", 128, 196, 296), ("_Z1bv", 40, 0, 0)]
+
+
+def test_ptxas_against_matches_kernels_by_demangled_name(monkeypatch,
+                                                          tmp_path):
+    """``--against``: a kernel's anonymous-namespace mangled name differs
+    between two source trees, so the report pairs kernels by demangled
+    name, and only those both trees compile."""
+    from vsn_tpu_torch.probes import ptxas
+
+    reports = {
+        ptxas.CSRC: {"gemm.cu": [("_ZN_a1_k1", 180, 0, 0),
+                                 ("_ZN_a1_k2", 48, 0, 0)]},
+        tmp_path: {"gemm.cu": [("_ZN_b2_k1", 178, 0, 0),
+                               ("_ZN_b2_k3", 64, 0, 0)]},
+    }
+    monkeypatch.setattr(ptxas, "report", lambda sources: reports[
+        sources[0].parent])
+    monkeypatch.setattr(ptxas, "_demangle", lambda names: [
+        n.rsplit("_", 1)[1] for n in names])
+    assert ptxas.against(tmp_path, ["gemm.cu"]) == [
+        ("gemm.cu", "k1", 180, 178, 0)]
+

@@ -39,10 +39,11 @@
 // whole rows. The attention launch is the same in every mode; under
 // post_norm K1b's backward reads the ao it leaves in ao_buf.
 //
-// Arithmetic outside the key-tiled body is FMA with f32 accumulation on
-// operands rounded to the activation type. The qkv and ao intermediates
-// round-trip through device memory; fusing them away (and moving the GEMMs
-// onto the tensor cores) is later performance work.
+// Launches 1 and 3 are common.cuh's GEMM: bf16 mma.sync on the tensor
+// cores with f32 accumulation under bf16 activations, FMA under f32. The
+// whole-window attention launch is FMA with f32 accumulation on operands
+// rounded to the activation type. The qkv and ao intermediates round-trip
+// through device memory; fusing them away is later performance work.
 //
 // Softmax semantics (swin_block_kernels.py:210-221): the shift is
 // max(rowmax, 0), not the plain rowmax; the row sum gets +1e-30, so a fully

@@ -46,7 +46,8 @@
 //
 // What bounds it here: the attention backward's FMA arithmetic (8 N^2 d per
 // window and head) and, at stage 1, the bytes of the [rows, 3C] qkv and dqkv
-// round trips. What the design does: the attention block keeps Q, K, V and
+// round trips. The GEMM and weight-gradient launches (2, 3, 5, 7, 8) run on
+// the tensor cores under bf16 (common.cuh). What the design does: the attention block keeps Q, K, V and
 // dO of its head in shared memory as f32 (4 x N x 33 floats, 133 KB at
 // N = 252) and never the [N, N] matrices: one row buffer per warp.
 //

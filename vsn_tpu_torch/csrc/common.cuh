@@ -4,9 +4,10 @@
 // bf16 activations every matrix-product operand is rounded to bf16 and the
 // products accumulate in f32; with f32 activations everything stays f32.
 // LayerNorm and softmax statistics are f32 in both cases. The kernels below
-// hold every operand as an f32 register value that has already been rounded
-// to the activation type T (``round_to<T>``), so one FMA code path serves
-// both precisions with the same arithmetic as bf16 MMA + f32 accumulation.
+// round every product operand to the activation type T (``round_to<T>``)
+// once, before the product: the bf16 GEMM bodies feed them to mma.sync
+// (mma.cuh), the f32 ones and the row kernels hold them as f32 register
+// values, the same arithmetic as bf16 MMA + f32 accumulation.
 //
 // Everything here has internal linkage (anonymous namespace): each .cu file
 // is its own translation unit and instantiates what it uses.
@@ -18,6 +19,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -54,7 +57,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Tiled FMA GEMM with an optional A prologue and a set of epilogues:
+// Tiled GEMM with an optional A prologue and a set of epilogues:
 //
 //   out[M, N] = epi( A'[M, K] @ W'[K, N] + bias[N] )
 //   A' = round_T(LN(A))              when ln_w is given (forward prologue)
@@ -96,9 +99,39 @@ __device__ __forceinline__ float warp_max(float v) {
 // (TO = float), and read A at a row stride ``lda`` wider than K (the q
 // slice of a packed qkv buffer); lda = 0 means K.
 //
-// Tiles: 64 x 64 outputs per block of 256 threads, 4 x 4 per thread, K in
-// steps of 16 through shared memory. Ragged M, N and K edges are masked with
-// zeros, so they add exactly 0 to the sums.
+// Replaces the products of vsn_tpu/ops/swin_block_kernels.py: ``_mmw``
+// (:246) in _attn_fwd_kernel / _attn_bwd_kernel and the dot_generals of
+// _mlp_fwd_kernel / _mlp_bwd_kernel (:857-966), which the TPU runs on its
+// MXU inside the fused kernels. Two bodies, chosen by T in ``launch_gemm``:
+//
+//   - bf16 (T = __nv_bfloat16): ``gemm_mma_kernel``, mma.sync.m16n8k16 on
+//     bf16 operands with f32 accumulators (mma.cuh). What bounds it on the
+//     H100: bytes at K = 96 (Swin stage 1: qkv reads 83.6 MB and writes
+//     250.8 MB per micro-batch of 8 against 24 GFLOP, 72 FLOP/byte under the
+//     card's ~295), the products from K >= 384 (ViT: 24 C^2 operations per
+//     row and block). What the design does: 128 x 128 output tiles of 4
+//     warps (64 x 64 each), two blocks an SM; K in steps of 32. cp.async
+//     copies A (as TA) and W (f32) kStages k-tiles ahead into raw tiles, so
+//     that no thread waits on device memory; one k-tile ahead of the
+//     products each thread turns its chunks of a raw tile into bf16 operand
+//     tiles (double-buffered, rows padded by 16 bytes so that ldmatrix hits
+//     no bank twice): A's LN, gain and LS_PRO in f32, W and an f32 A
+//     rounded once (round to nearest even, as round_to<T>); a bf16 A with no
+//     transform is copied. The N tiles of one row block are neighbours in
+//     the grid, so A's row block is read from DRAM once and from L2 after.
+//     The epilogue stages the tile in f32 over the pipeline's shared memory
+//     and finishes it in coalesced 16-byte chunks of 8 columns (resid,
+//     out32 and out read and written as whole vectors). LN statistics are
+//     computed per block from A (two passes, as _ln_fwd, 8 lanes a row,
+//     under the first k-tiles' copies): ceil(N / 128) times per row, 3 at
+//     qkv (N = 288).
+//   - f32 (T = float, the tests' type, held to 1e-4, which bf16 mma does not
+//     keep): ``gemm_kernel``, 64 x 64 outputs per block of 256 threads, 4 x 4
+//     per thread, K in steps of 16 through shared memory, FMA on f32
+//     registers.
+//
+// Ragged M, N and K edges are masked with zeros in both, so they add exactly
+// 0 to the sums.
 // ---------------------------------------------------------------------------
 
 enum Epilogue {
@@ -261,11 +294,461 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams<T, TA, TO
   }
 }
 
+// The FMA body's launch: every f32 GEMM; on bf16 operands only where
+// chip_smoke.py times it beside the tensor-core body (csrc/gemm.cu).
 template <typename T, int EPI, bool W_KN = false, int LS = 0, typename TA, typename TO>
-cudaError_t launch_gemm(const GemmParams<T, TA, TO>& p, cudaStream_t stream) {
+cudaError_t launch_gemm_fma(const GemmParams<T, TA, TO>& p, cudaStream_t stream) {
   const dim3 grid((unsigned)((p.m + kBM - 1) / kBM), (unsigned)((p.n + kBN - 1) / kBN));
   gemm_kernel<T, EPI, TA, W_KN, TO, LS><<<grid, kGemmThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core GEMM body (bf16), see the note above ``enum Epilogue``.
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaBM = 128, kMmaBN = 128, kMmaBK = 32, kMmaThreads = 128;
+constexpr int kMmaLdK = kMmaBK + 8;   // [rows][32 depth] tiles: 80-byte rows
+constexpr int kMmaLdN = kMmaBN + 8;   // [32 depth][128 columns] tiles: 272-byte rows
+constexpr int kMmaLdE = kMmaBN + 4;   // the f32 epilogue tile's rows
+constexpr int kMmaMinBlocks = 2;      // per SM: one block's epilogue runs under another's products
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Eight consecutive elements of a row, held as loaded: by 16-byte vector
+// loads where all eight lie inside the row (``valid`` >= 8) and ``vec`` says
+// the address is aligned, else element by element, zero past ``valid``.
+template <typename TA>
+struct Row8;
+
+template <>
+struct Row8<__nv_bfloat16> {
+  uint32_t w[4];  // bf16 bits, element 2 i in the low half of w[i]
+  __device__ __forceinline__ void load(const __nv_bfloat16* src, int valid, bool vec) {
+    if (vec && valid >= 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t lo = 2 * i < valid ? __bfloat16_as_ushort(src[2 * i]) : 0u;
+      const uint32_t hi = 2 * i + 1 < valid ? __bfloat16_as_ushort(src[2 * i + 1]) : 0u;
+      w[i] = lo | (hi << 16);
+    }
+  }
+  __device__ __forceinline__ float get(int e) const {
+    return __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u : w[e >> 1] << 16);
+  }
+};
+
+template <>
+struct Row8<float> {
+  float f[8];
+  __device__ __forceinline__ void load(const float* src, int valid, bool vec) {
+    if (vec && valid >= 8) {
+      const float4 a = reinterpret_cast<const float4*>(src)[0];
+      const float4 b = reinterpret_cast<const float4*>(src)[1];
+      f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+      f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = e < valid ? src[e] : 0.f;
+  }
+  __device__ __forceinline__ float get(int e) const { return f[e]; }
+};
+
+// Eight f32 values rounded to bf16 (nearest even), as one 16-byte vector.
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                    pack_bf16(v[6], v[7]));
+}
+
+// Store the first ``valid`` of eight values as TO: one or two 16-byte
+// vectors where all eight are valid and ``vec`` says the address is aligned.
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[8], int valid,
+                                       bool vec) {
+  if (vec && valid >= 8) {
+    *reinterpret_cast<uint4*>(dst) = pack8(v);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e < valid) dst[e] = __float2bfloat16(v[e]);
+}
+
+__device__ __forceinline__ void store8(float* dst, const float (&v)[8], int valid, bool vec) {
+  if (vec && valid >= 8) {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e < valid) dst[e] = v[e];
+}
+
+// The epilogue of eight columns n.. of row m from their staged values v
+// (acc + bias, and for EPI_RESIDUAL already gains[m / rps] * (... [* gamma])):
+// every read and write a whole vector where the row allows.
+template <typename T, int EPI, typename TA, typename TO>
+__device__ __forceinline__ void gemm_epilogue8(const GemmParams<T, TA, TO>& p, float (&v)[8],
+                                               long long o, int valid, bool vec) {
+  if (EPI == EPI_F32) {
+    store8(p.out32 + o, v, valid, vec);
+    return;
+  }
+  if (EPI == EPI_MUL_F32) {
+    Row8<float> old;
+    old.load(p.out32 + o, valid, vec);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = old.get(e) * v[e];
+    store8(p.out32 + o, v, valid, vec);
+    return;
+  }
+  if (EPI == EPI_GELU_GRAD) {
+    float d[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) d[e] = gelu_erf_grad(v[e]);
+    store8(p.out32 + o, d, valid, vec);
+  }
+  if (EPI == EPI_GELU || EPI == EPI_GELU_GRAD) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = gelu_erf(v[e]);
+  }
+  if (EPI == EPI_RESIDUAL || EPI == EPI_ADD_RESID) {
+    Row8<TO> r;
+    r.load(p.resid + o, valid, vec);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = p.lam * r.get(e) + v[e];
+  }
+  store8(p.out + o, v, valid, vec);
+}
+
+// Let ``kernel`` take ``bytes`` of dynamic shared memory, with the SM's
+// whole carveout given to shared memory: CUDA may otherwise pick a carveout
+// that holds one block, not the kMmaMinBlocks the sizes allow.
+template <typename K>
+cudaError_t set_smem(K kernel, int bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// Copy a [rows][cols] tile of elements E (cols a multiple of 16 bytes) from
+// row r0 of a [nrows][ld] array, at column c0 of ncols, into shared memory
+// dst (row stride dld elements), by 16-byte cp.async where ``vec``, else by
+// plain element loads; rows past nrows and columns past ncols are zero. The
+// block's threads take the tile's 16-byte chunks in turn.
+template <int ROWS, int COLS, typename E>
+__device__ __forceinline__ void stage_raw(E* dst, int dld, const E* src, long long ld,
+                                          long long r0, long long nrows, int c0, int ncols,
+                                          bool vec) {
+  constexpr int kPer = 16 / (int)sizeof(E), kChunks = ROWS * COLS / kPer;
+#pragma unroll 1
+  for (int c = threadIdx.x; c < kChunks; c += kMmaThreads) {
+    const int r = c / (COLS / kPer), cc = (c % (COLS / kPer)) * kPer;
+    const long long row = r0 + r;
+    const int col = c0 + cc;
+    if (vec) {
+      const bool ok = row < nrows && col < ncols;
+      cp_async16(dst + r * dld + cc, ok ? src + row * ld + col : src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e)
+        dst[r * dld + cc + e] = row < nrows && col + e < ncols ? src[row * ld + col + e]
+                                                               : from_f32<E>(0.f);
+    }
+  }
+}
+
+// Shared memory of the tensor-core GEMM body: kStages raw k-tiles of A (as
+// TA) and W (f32) that cp.async fills, two bf16 operand tiles of each that
+// the products read, and the f32 epilogue tile over all of them.
+template <typename TA, bool W_KN>
+struct GemmSmem {
+  static constexpr int kStages = sizeof(TA) == 2 ? 3 : 2;
+  static constexpr int kRawA = kMmaBM * kMmaBK * (int)sizeof(TA);
+  static constexpr int kRawW = kMmaBN * kMmaBK * 4;
+  static constexpr int kOpA = kMmaBM * kMmaLdK * 2;
+  static constexpr int kOpW = (W_KN ? kMmaBK * kMmaLdN : kMmaBN * kMmaLdK) * 2;
+  static constexpr int kPipe = kStages * (kRawA + kRawW) + 2 * (kOpA + kOpW);
+  static constexpr int kEpi = kMmaBM * kMmaLdE * 4;
+  static constexpr int kBytes = kPipe > kEpi ? kPipe : kEpi;
+};
+
+template <typename T, int EPI, typename TA, bool W_KN, typename TO, int LS>
+__global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
+    gemm_mma_kernel(GemmParams<T, TA, TO> p) {
+  using B = __nv_bfloat16;
+  using S = GemmSmem<TA, W_KN>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  __shared__ float mu_s[kMmaBM], rstd_s[kMmaBM];  // LN statistics
+  float* scale_s = mu_s;                            // or the row gains
+  unsigned char* raw = gemm_smem;                                  // [kStages][A, W]
+  B* op = reinterpret_cast<B*>(gemm_smem + kStages * (S::kRawA + S::kRawW));  // [2][A, W]
+  auto raw_a = [&](int s) { return reinterpret_cast<TA*>(raw + s * (S::kRawA + S::kRawW)); };
+  auto raw_w = [&](int s) {
+    return reinterpret_cast<float*>(raw + s * (S::kRawA + S::kRawW) + S::kRawA);
+  };
+  auto op_a = [&](int b) { return op + b * (S::kOpA + S::kOpW) / 2; };
+  auto op_w = [&](int b) { return op + b * (S::kOpA + S::kOpW) / 2 + S::kOpA / 2; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntn = (p.n + kMmaBN - 1) / kMmaBN;  // the N tiles of a row block: neighbours
+  const long long m0 = (long long)(blockIdx.x / ntn) * kMmaBM;
+  const int n0 = (int)(blockIdx.x % ntn) * kMmaBN;
+  const bool ln = p.ln_w != nullptr;
+  const long long lda = p.lda ? p.lda : p.k;
+  constexpr int kPerA = 16 / (int)sizeof(TA);
+  const bool a_vec = aligned16(p.a) && lda % kPerA == 0 && p.k % kPerA == 0;
+  const bool w_vec = aligned16(p.w) && p.n % 4 == 0 && p.k % 4 == 0;
+
+  auto fetch = [&](int t) {  // raw k-tile t into stage t % kStages, one commit group
+    if (t < (p.k + kMmaBK - 1) / kMmaBK) {
+      const int k0 = t * kMmaBK, s = t % kStages;
+      stage_raw<kMmaBM, kMmaBK>(raw_a(s), kMmaBK, p.a, lda, m0, p.m, k0, p.k, a_vec);
+      if (W_KN)
+        stage_raw<kMmaBK, kMmaBN>(raw_w(s), kMmaBN, p.w, p.n, k0, p.k, n0, p.n, w_vec);
+      else
+        stage_raw<kMmaBN, kMmaBK>(raw_w(s), kMmaBK, p.w, p.k, n0, p.n, k0, p.k, w_vec);
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+  fetch(1);
+  if (kStages > 2) fetch(2);
+
+  // Row terms of the A prologue: LayerNorm statistics (two passes over the
+  // row, as _ln_fwd; 8 lanes a row, 4 rows a warp at a time) or the gain.
+  if (ln) {
+    const int sub = lane & 7;
+    for (int r = warp * 4 + (lane >> 3); r < kMmaBM; r += 16) {
+      const long long m = m0 + r;
+      const TA* row = p.a + (m < p.m ? m : 0) * lda;
+      float s = 0.f;
+      if (m < p.m) {
+        if (a_vec) {
+          for (int k = sub * kPerA; k < p.k; k += 8 * kPerA) {
+            Row8<TA> v;
+            v.load(row + k, kPerA, true);
+#pragma unroll
+            for (int e = 0; e < kPerA; ++e) s += v.get(e);
+          }
+        } else {
+          for (int k = sub; k < p.k; k += 8) s += to_f32(row[k]);
+        }
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float mu = s / p.k;
+      float v2 = 0.f;
+      if (m < p.m) {
+        if (a_vec) {
+          for (int k = sub * kPerA; k < p.k; k += 8 * kPerA) {
+            Row8<TA> v;
+            v.load(row + k, kPerA, true);
+#pragma unroll
+            for (int e = 0; e < kPerA; ++e) {
+              const float d = v.get(e) - mu;
+              v2 += d * d;
+            }
+          }
+        } else {
+          for (int k = sub; k < p.k; k += 8) {
+            const float d = to_f32(row[k]) - mu;
+            v2 += d * d;
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) v2 += __shfl_xor_sync(0xffffffffu, v2, o);
+      if (sub == 0) {
+        mu_s[r] = mu;
+        rstd_s[r] = m < p.m ? 1.f / sqrtf(v2 / p.k + kLnEps) : 0.f;
+      }
+    }
+  } else if (p.a_gain) {
+    for (int r = tid; r < kMmaBM; r += kMmaThreads) {
+      const long long m = m0 + r;
+      scale_s[r] = m < p.m ? p.a_gain[m / p.rows_per_sample] : 1.f;
+    }
+  }
+
+  // Raw k-tile t (stage t % kStages) -> bf16 operand tiles b: A transformed
+  // in f32 and rounded once, W rounded. Each thread takes four 8-element
+  // chunks of each, at one depth (A) or column (W_KN) offset.
+  auto transform = [&](int t, int b) {
+    const int k0 = t * kMmaBK, s = t % kStages;
+    const TA* ra = raw_a(s);
+    const float* rw = raw_w(s);
+    B* oa = op_a(b);
+    B* ow = op_w(b);
+    const int lc = (tid & 3) * 8;  // A: depth offset, rows tid / 4 + 32 q
+    const int k = k0 + lc;
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) {
+      const int r = (tid >> 2) + 32 * q;
+      const bool live = m0 + r < p.m;
+      uint4* dst = reinterpret_cast<uint4*>(oa + r * kMmaLdK + lc);
+      Row8<TA> x8;
+      x8.load(ra + r * kMmaBK + lc, 8, true);
+      float v[8];
+      if (!ln && !(LS & LS_PRO)) {
+        // the raw tile holds zeros past M and K: no masks. A bf16 A with
+        // no gain is a copy; otherwise the gain times A, rounded
+        if constexpr (std::is_same<TA, B>::value) {
+          if (!p.a_gain) {
+            *dst = make_uint4(x8.w[0], x8.w[1], x8.w[2], x8.w[3]);
+            continue;
+          }
+        }
+        const float g = p.a_gain ? scale_s[r] : 1.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = g * x8.get(e);
+        *dst = pack8(v);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float x = x8.get(e);
+        if (live && k + e < p.k) {
+          if (ln)
+            x = (x - mu_s[r]) * rstd_s[r] * p.ln_w[k + e] + p.ln_b[k + e];
+          else if (p.a_gain)
+            x = (scale_s[r] * x) * p.gamma[k + e];  // LS_PRO
+        } else {
+          x = 0.f;
+        }
+        v[e] = x;
+      }
+      *dst = pack8(v);
+    }
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) {
+      // W: [128 n][32 k] -> rows tid / 4 + 32 q at depth lc; W_KN: [32 k][128
+      // n] -> rows tid / 16 + 8 q at column (tid % 16) * 8
+      const int r = W_KN ? (tid >> 4) + 8 * q : (tid >> 2) + 32 * q;
+      const int c = W_KN ? (tid & 15) * 8 : lc;
+      Row8<float> w8;
+      w8.load(rw + r * (W_KN ? kMmaBN : kMmaBK) + c, 8, true);
+      *reinterpret_cast<uint4*>(ow + r * (W_KN ? kMmaLdN : kMmaLdK) + c) = pack8(w8.f);
+    }
+  };
+
+  const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps of 64 x 64 outputs
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nk = (p.k + kMmaBK - 1) / kMmaBK;
+  cp_async_wait<kStages - 1>();  // raw tile 0
+  __syncthreads();               // ... and the row terms
+  transform(0, 0);
+  for (int t = 0; t < nk; ++t) {
+    // raw tile t + 1 landed; operand tile t written; every warp done with
+    // the products of t - 1 and the transform of raw tile t
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    fetch(t + kStages);
+    if (t + 1 < nk) transform(t + 1, (t + 1) & 1);
+    const B* at = op_a(t & 1);
+    const B* wt = op_w(t & 1);
+#pragma unroll 1
+    for (int ks = 0; ks < kMmaBK; ks += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load_a<kMmaLdK>(a[i], at, wm * 64 + i * 16, ks, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b[4];
+        if (W_KN)
+          load_b_nn<kMmaLdN>(b, wt, ks, wn * 64 + j * 16, lane);
+        else
+          load_b_nt<kMmaLdK>(b, wt, wn * 64 + j * 16, ks, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_bf16(acc[i][2 * j], a[i], b[0], b[1]);
+          mma_bf16(acc[i][2 * j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Epilogue: the warps stage acc + bias (EPI_RESIDUAL: times gamma and the
+  // row's gain) in f32 over the pipeline's memory, then every thread
+  // finishes chunks of 8 columns of it.
+  float* es = reinterpret_cast<float*>(gemm_smem);  // [128][kMmaLdE]
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = wm * 64 + i * 16 + g + 8 * hh;
+      const long long m = m0 + r;
+      const float gain =
+          (EPI == EPI_RESIDUAL && m < p.m) ? p.gains[m / p.rows_per_sample] : 1.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = wn * 64 + j * 8 + 2 * t4 + e, n = n0 + c;
+          float v = acc[i][j][2 * hh + e];
+          if (n < p.n) {
+            if (p.bias) v += p.bias[n];
+            if (EPI == EPI_RESIDUAL) v = gain * ((LS & LS_EPI) ? p.gamma[n] * v : v);
+          }
+          es[r * kMmaLdE + c] = v;
+        }
+    }
+  __syncthreads();
+  const bool o_vec = p.n % 8 == 0 && aligned16(p.out) && aligned16(p.out32) &&
+                     aligned16(p.resid);
+#pragma unroll 1
+  for (int c = tid; c < kMmaBM * (kMmaBN / 8); c += kMmaThreads) {
+    const int r = c >> 4, col = (c & 15) * 8;
+    const long long m = m0 + r;
+    const int n = n0 + col;
+    if (m < p.m && n < p.n) {
+      float v[8];
+      const float4 lo = *reinterpret_cast<const float4*>(es + r * kMmaLdE + col);
+      const float4 hi = *reinterpret_cast<const float4*>(es + r * kMmaLdE + col + 4);
+      v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+      v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+      gemm_epilogue8<T, EPI, TA, TO>(p, v, m * p.n + n, p.n - n, o_vec);
+    }
+  }
+}
+
+// The GEMM launch: the tensor-core body for bf16 operands, the FMA body for
+// f32. Blocks are numbered row block by row block, the N tiles of one row
+// block next to each other.
+template <typename T, int EPI, bool W_KN = false, int LS = 0, typename TA, typename TO>
+cudaError_t launch_gemm(const GemmParams<T, TA, TO>& p, cudaStream_t stream) {
+  if constexpr (kTensorCores<T>) {
+    auto kernel = gemm_mma_kernel<T, EPI, TA, W_KN, TO, LS>;
+    constexpr int kBytes = GemmSmem<TA, W_KN>::kBytes;
+    cudaError_t err = set_smem(kernel, kBytes);
+    if (err != cudaSuccess) return err;
+    const long long blocks =
+        (p.m + kMmaBM - 1) / kMmaBM * ((p.n + kMmaBN - 1) / kMmaBN);
+    kernel<<<(unsigned)blocks, kMmaThreads, kBytes, stream>>>(p);
+    return cudaGetLastError();
+  } else {
+    return launch_gemm_fma<T, EPI, W_KN, LS>(p, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -436,8 +919,27 @@ cudaError_t launch_colsum(const TA* a, const float* a_gain, long long rps, float
 //   out[N1, N2] += sum_m round_T(g_m * A[m, n1]) * round_T(B[m, n2])
 //
 // with g_m = a_gain[m / rps] or 1. Split-K: blockIdx.z takes one slice of
-// the rows, accumulates a 64 x 64 tile in registers as the GEMM above does,
-// and adds it into the zeroed f32 output with atomicAdd.
+// the rows, accumulates one output tile, and adds it into the zeroed f32
+// output with atomicAdd once.
+//
+// Replaces the weight-gradient dot_generals of the TPU backward kernels
+// (swin_block_kernels.py _attn_bwd_kernel, _mlp_bwd_kernel :917-966), which
+// add into output blocks carried across a sequential grid. Two bodies,
+// chosen by T in ``launch_wgrad``:
+//
+//   - bf16: ``wgrad_mma_kernel``, 128 x 128 output tiles of 4 warps on
+//     mma.sync.m16n8k16. What bounds it: the products (2 N1 N2 per row;
+//     ViT's dW1 is 23 GFLOP per micro-batch of 24), and at Swin stage 1 the
+//     bytes of the two [rows, .] operands. Both operands are read k-major
+//     (rows are the depth): cp.async copies 32-row k-tiles of A (as TA)
+//     and B (bf16, rows padded for ldmatrix, read by the products as they
+//     land) kStages - 1 ahead; each thread turns its chunks of raw A into
+//     round(g A) bf16 operand tiles one k-tile ahead (a copy for a bf16 A
+//     without gain); the fragments come from ldmatrix.trans (``load_a_t``
+//     for A^T, ``load_b_nn`` for B). Each split covers at least
+//     kWgradMmaRows rows, so that its one atomicAdd per output (16,384 per
+//     tile) stays small beside its products.
+//   - f32: ``wgrad_kernel``, 64 x 64 tiles, 4 x 4 FMA outputs per thread.
 template <typename T, typename TA>
 struct WgradParams {
   const TA* a;                // [M, N1]
@@ -499,14 +1001,170 @@ __global__ void __launch_bounds__(kGemmThreads) wgrad_kernel(WgradParams<T, TA> 
   }
 }
 
+// The FMA body's launch: every f32 weight gradient; on bf16 operands only
+// where chip_smoke.py times it beside the tensor-core body (csrc/gemm.cu).
 template <typename T, typename TA>
-cudaError_t launch_wgrad(WgradParams<T, TA> p, cudaStream_t stream) {
+cudaError_t launch_wgrad_fma(WgradParams<T, TA> p, cudaStream_t stream) {
   const unsigned gx = (unsigned)((p.n1 + kBM - 1) / kBM);
   const unsigned gy = (unsigned)((p.n2 + kBN - 1) / kBN);
   p.rows = rows_per_split(p.m, (long long)gx * gy, 256);
   const dim3 grid(gx, gy, (unsigned)((p.m + p.rows - 1) / p.rows));
   wgrad_kernel<T, TA><<<grid, kGemmThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+constexpr int kWgradMmaRows = 2048;  // least rows of a split of the tensor-core body
+
+// Shared memory of the tensor-core weight-gradient body: kStages raw
+// 32-row k-tiles of A (as TA, [32][128]) and B (bf16 [32][136], which the
+// products read as it lands), and two bf16 operand tiles of round(g A).
+template <typename TA>
+struct WgradSmem {
+  static constexpr int kStages = sizeof(TA) == 2 ? 4 : 3;
+  static constexpr int kRawA = kMmaBK * kMmaBM * (int)sizeof(TA);
+  static constexpr int kRawB = kMmaBK * kMmaLdN * 2;
+  static constexpr int kOpA = kMmaBK * kMmaLdN * 2;
+  static constexpr int kBytes = kStages * (kRawA + kRawB) + 2 * kOpA;
+};
+
+template <typename T, typename TA>
+__global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
+    wgrad_mma_kernel(WgradParams<T, TA> p) {
+  using B = __nv_bfloat16;
+  using S = WgradSmem<TA>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ __align__(16) unsigned char wgrad_smem[];
+  auto raw_a = [&](int s) { return reinterpret_cast<TA*>(wgrad_smem + s * (S::kRawA + S::kRawB)); };
+  auto raw_b = [&](int s) {
+    return reinterpret_cast<B*>(wgrad_smem + s * (S::kRawA + S::kRawB) + S::kRawA);
+  };
+  auto op_a = [&](int b) {
+    return reinterpret_cast<B*>(wgrad_smem + kStages * (S::kRawA + S::kRawB) + b * S::kOpA);
+  };
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int i0 = blockIdx.x * kMmaBM, j0 = blockIdx.y * kMmaBN;
+  const long long r0 = (long long)blockIdx.z * p.rows;
+  const long long r1 = min(r0 + p.rows, p.m);
+  constexpr int kPerA = 16 / (int)sizeof(TA);
+  const bool a_vec = aligned16(p.a) && p.n1 % kPerA == 0;
+  const bool b_vec = aligned16(p.b) && p.n2 % 8 == 0;
+  const int nk = (int)((r1 - r0 + kMmaBK - 1) / kMmaBK);
+  const bool small = p.m < (1LL << 31) && p.rows_per_sample < (1LL << 31);
+
+  auto fetch = [&](int t) {  // raw k-tile t into stage t % kStages, one commit group
+    if (t < nk) {
+      const long long k0 = r0 + (long long)t * kMmaBK;
+      const int s = t % kStages;
+      stage_raw<kMmaBK, kMmaBM>(raw_a(s), kMmaBM, p.a, p.n1, k0, r1, i0, p.n1, a_vec);
+      stage_raw<kMmaBK, kMmaBN>(raw_b(s), kMmaLdN, p.b, p.n2, k0, r1, j0, p.n2, b_vec);
+    }
+    cp_async_commit();
+  };
+  // raw A of k-tile t -> round(g A) in operand tile b (rows past r1 are zero
+  // in the raw tile)
+  auto transform = [&](int t, int b) {
+    const long long k0 = r0 + (long long)t * kMmaBK;
+    const TA* ra = raw_a(t % kStages);
+    B* oa = op_a(b);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = (tid >> 4) + 8 * q, c = (tid & 15) * 8;
+      const long long row = k0 + r;
+      Row8<TA> x8;
+      x8.load(ra + r * kMmaBM + c, 8, true);
+      uint4* dst = reinterpret_cast<uint4*>(oa + r * kMmaLdN + c);
+      if constexpr (std::is_same<TA, B>::value) {
+        if (!p.a_gain) {  // a copy
+          *dst = make_uint4(x8.w[0], x8.w[1], x8.w[2], x8.w[3]);
+          continue;
+        }
+      }
+      float g = 1.f;
+      if (p.a_gain && row < r1)
+        g = p.a_gain[small ? (long long)((unsigned)row / (unsigned)p.rows_per_sample)
+                           : row / p.rows_per_sample];
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = g * x8.get(e);
+      *dst = pack8(v);
+    }
+  };
+
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+  const int wi = warp >> 1, wj = warp & 1;  // 2 x 2 warps of 64 x 64 outputs
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  cp_async_wait<kStages - 2>();  // raw tile 0
+  __syncthreads();
+  transform(0, 0);
+  for (int t = 0; t < nk; ++t) {
+    // raw tile t + 1 landed; operand tile t written; every warp done with
+    // the products of t - 1 (raw B of its stage) and the transform of t
+    cp_async_wait<kStages - 3>();
+    __syncthreads();
+    fetch(t + kStages - 1);  // into the stage of tile t - 1
+    if (t + 1 < nk) transform(t + 1, (t + 1) & 1);
+    const B* at = op_a(t & 1);
+    const B* bt = raw_b(t % kStages);
+#pragma unroll
+    for (int ks = 0; ks < kMmaBK; ks += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load_a_t<kMmaLdN>(a[i], at, ks, wi * 64 + i * 16, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b[4];
+        load_b_nn<kMmaLdN>(b, bt, ks, wj * 64 + j * 16, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_bf16(acc[i][2 * j], a[i], b[0], b[1]);
+          mma_bf16(acc[i][2 * j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int oi = i0 + wi * 64 + i * 16 + gq + 8 * hh;
+      if (oi >= p.n1) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int oj = j0 + wj * 64 + j * 8 + 2 * t4 + e;
+          if (oj < p.n2) atomicAdd(&p.out[(long long)oi * p.n2 + oj], acc[i][j][2 * hh + e]);
+        }
+    }
+}
+
+// The weight-gradient launch: the tensor-core body for bf16 operands, the
+// FMA body for f32.
+template <typename T, typename TA>
+cudaError_t launch_wgrad(WgradParams<T, TA> p, cudaStream_t stream) {
+  if constexpr (kTensorCores<T>) {
+    const unsigned gx = (unsigned)((p.n1 + kMmaBM - 1) / kMmaBM);
+    const unsigned gy = (unsigned)((p.n2 + kMmaBN - 1) / kMmaBN);
+    p.rows = rows_per_split(p.m, (long long)gx * gy, kWgradMmaRows);
+    auto kernel = wgrad_mma_kernel<T, TA>;
+    constexpr int kBytes = WgradSmem<TA>::kBytes;
+    cudaError_t err = set_smem(kernel, kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(gx, gy, (unsigned)((p.m + p.rows - 1) / p.rows));
+    kernel<<<grid, kMmaThreads, kBytes, stream>>>(p);
+    return cudaGetLastError();
+  } else {
+    return launch_wgrad_fma(p, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -6,11 +6,14 @@
 // _mlp_fwd_kernel), which runs LN2 + fc1 + GELU + fc2 + residual on row
 // tiles held in TPU VMEM.
 //
-// What bounds it here: the two products, 16 C^2 operations per row against
-// 4 C bytes of bf16 row traffic, so the math and not the bytes. The hidden
-// activation [rows, 4C] is what does not fit on chip: a 64-row tile of it is
-// 196 KB in f32 at C = 192 and 786 KB at C = 768. This first version
-// therefore runs two launches of the LayerNorm-prologue GEMM (common.cuh):
+// What bounds it here: the two products, 16 C^2 operations per row, against
+// about 22 C bytes of bf16 traffic per row (x, the [rows, 4C] hidden written
+// and read back, the residual, out): 70 operations a byte at Swin's C = 96,
+// under the H100's ~295, so the bytes at stage 1; the products from C = 384
+// (ViT). Both launches are common.cuh's GEMM, on the tensor cores (bf16
+// mma.sync) under bf16. The hidden activation is what does not fit on chip:
+// a 128-row tile of it is 393 KB in f32 at C = 192 and 1.5 MB at C = 768.
+// So the kernel runs two launches of the LayerNorm-prologue GEMM:
 //
 //   1. LN2 + fc1 + exact-erf GELU, writing hidden [rows, 4C] rounded to the
 //      activation type (the TPU kernel rounds it there before fc2 too);

@@ -30,11 +30,13 @@
 //   dgamma); launches 3-5 take dbranch for do; launch 8 forms dx = T(lam *
 //   do_res + dh1 @ W1) in its epilogue (EPI_ADD_RESID), with no LN backward.
 //
-// What bounds it here: the four products of 8 C^2 operations per row each
-// (two recomputed or data-gradient GEMMs, two weight gradients); and the
-// [rows, 4C] hidden activations, which do not fit on chip (a 64-row tile is
-// 786 KB in f32 at C = 768), so h and dh1 go through device memory as in
-// K2f. GELU' is the exact-erf derivative (_gelu_grad:117) with erff.
+// What bounds it here: the five products of 8 C^2 operations per row each
+// (fc1 recomputed, two data gradients, two weight gradients), which run on
+// the tensor cores under bf16 (common.cuh's GEMM and weight-gradient
+// bodies); and, at Swin's stage 1 (C = 96), the bytes of the [rows, 4C]
+// hidden activations, which do not fit on chip (a 128-row tile is 1.5 MB in
+// f32 at C = 768), so h, GELU' and dh1 go through device memory as in K2f.
+// GELU' is the exact-erf derivative (_gelu_grad:117) with erff.
 
 #include "common.cuh"
 

@@ -19,7 +19,10 @@ residual modes apart (``swin_block_kernels.mode_key``: ``..._post``,
 ``..._ls``, ``..._post_ls``). The key-tiled attention launches called
 alone (``swin_block_kernels.attention_tiled_launch`` and its backward,
 for the card's launch-level checks) count as ``attention_tiled_launch`` /
-``attention_tiled_bwd_launch``. The
+``attention_tiled_bwd_launch``; the GEMM and weight-gradient launches of
+K1 / K2 called alone (``swin_block_kernels.gemm_launch`` /
+``wgrad_launch``) as ``gemm`` / ``wgrad``, and their FMA bodies on bf16
+operands, chip_smoke.py's yardstick, as ``gemm_fma`` / ``wgrad_fma``. The
 attention probes (``ops/attn_probe.py``) count per run instead, under the
 run's key, and add the number of CUDA launches the call made (3 for a
 whole half-block, 2 without the attention or without the GEMMs, 1 for a
@@ -76,6 +79,9 @@ _SIGNATURES = {
                                          *[_I] * 9, _F, _P],
     "vsn_probe_attn_half": [_I, _I, _I, *[_P] * 9, _L, _I, _I, _I, _F, _P],
     "vsn_probe_copy": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
+    "vsn_gemm": [*[_I] * 7, _P, _L, _P, _L, *[_P] * 6, _F, _P, _P, _P, _L,
+                 _I, _I, _P],
+    "vsn_wgrad": [_I, _I, _I, _P, _P, _L, _P, _P, _L, _I, _I, _P],
 }
 
 _lib = None

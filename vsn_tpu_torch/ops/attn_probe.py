@@ -84,9 +84,11 @@ def _r(t):
     return t.to(torch.bfloat16).float()
 
 
-def _probe_math(variant, x, wqkv, bias, wproj):
+def _probe_math(variant, x, wqkv, bias, wproj, qkv=None):
     """perf_probe_attn_ablate.py ``kernel`` for every window of x [BW, N,
-    C] at once (``slot_kernel`` is its "full2d" / "linear_only")."""
+    C] at once (``slot_kernel`` is its "full2d" / "linear_only"). ``qkv``
+    [BW, N, 3C], when given, stands for the rounded qkv product (launch 1's
+    output), and the rest runs on it."""
     bw, n, c = x.shape
     heads = bias.shape[0]
     d = c // heads
@@ -100,8 +102,10 @@ def _probe_math(variant, x, wqkv, bias, wproj):
         y = xc * torch.rsqrt(var + LN_EPS)
     if variant == "attn_only":
         qkv = torch.cat([y, y, y], dim=-1)
-    else:
+    elif qkv is None:
         qkv = _r(y) @ _r(wqkv)
+    else:
+        qkv = qkv.float()
     if variant == "linear_only":
         ao = qkv[..., :c]
     else:
@@ -182,12 +186,12 @@ def _probe_kernel(variant, wb, key, x, wqkv, bias, wproj):
     return out
 
 
-def attn_ablate_reference(variant, xw, wqkv, bias, wproj):
+def attn_ablate_reference(variant, xw, wqkv, bias, wproj, qkv=None):
     """Plain version of ``attn_ablate`` (perf_probe_attn_ablate.py
-    ``kernel``), on any device."""
+    ``kernel``), on any device; ``qkv`` as ``_probe_math`` takes it."""
     _check_variant("attn_ablate", variant, ABLATIONS)
     _check("attn_ablate", xw, wqkv, bias, wproj)
-    return _probe_math(variant, xw, wqkv, bias, wproj)
+    return _probe_math(variant, xw, wqkv, bias, wproj, qkv)
 
 
 def attn_ablate(variant, xw, wqkv, bias, wproj):
@@ -211,13 +215,13 @@ def attn_ablate(variant, xw, wqkv, bias, wproj):
     return _probe_kernel(variant, 1, key, xw, wqkv, bias, wproj)
 
 
-def attn_slot_reference(wb, variant, xw, wqkv, bias, wproj):
+def attn_slot_reference(wb, variant, xw, wqkv, bias, wproj, qkv=None):
     """Plain version of ``attn_slot`` (perf_probe_attn_ablate2.py
     ``slot_kernel``); ``wb`` only schedules the kernel and changes nothing
-    here."""
+    here; ``qkv`` as ``_probe_math`` takes it."""
     _check_variant("attn_slot", variant, SLOT_VARIANTS)
     _check("attn_slot", xw, wqkv, bias, wproj, wb)
-    return _probe_math(SLOT_VARIANTS[variant], xw, wqkv, bias, wproj)
+    return _probe_math(SLOT_VARIANTS[variant], xw, wqkv, bias, wproj, qkv)
 
 
 def attn_slot(wb, variant, xw, wqkv, bias, wproj):

@@ -519,6 +519,219 @@ def attention_tiled_backward_launch(qkv, dao, o, stats, bias, ids, scale,
     return dqkv, dbias, dbqkv
 
 
+# ---------------------------------------------------------------------------
+# The GEMM and weight-gradient launches of K1 / K2 alone
+# ---------------------------------------------------------------------------
+
+# csrc/common.cuh ``Epilogue``, in its order, and ``LayerScaleFlags``
+GEMM_EPILOGUES = ("bias", "gelu", "residual", "gelu_grad", "f32", "mul_f32",
+                  "add_resid")
+LS_FLAGS = {None: 0, "epi": 1, "pro": 2}
+# (epilogue, LayerScale flag, W read as [K, N]): the launches K1 and K2
+# make (csrc/gemm.cu takes these and no others)
+GEMM_MODES = {
+    ("bias", None, False), ("gelu", None, False), ("residual", None, False),
+    ("residual", "epi", False), ("gelu_grad", None, False),
+    ("f32", None, False),
+    ("bias", None, True), ("bias", "pro", True), ("mul_f32", None, True),
+    ("mul_f32", "pro", True), ("f32", None, True), ("add_resid", None, True),
+}
+# those whose A may be f32 under bf16 operands (dy, dh1: K1b's and K2b's
+# post-norm and data gradients)
+GEMM_F32_A = {("bias", None, True), ("mul_f32", None, True),
+              ("f32", None, True), ("add_resid", None, True)}
+# the attention probes' proj (bf16 operands only, out bf16 or f32)
+GEMM_PROBE = ("residual", None, True)
+_WRITES_OUT = {"bias", "gelu", "residual", "gelu_grad", "add_resid"}
+_WRITES_OUT32 = {"gelu_grad", "f32", "mul_f32"}
+
+
+def _gain_rows(g, rows_per_sample, m):
+    """Per-sample gains [S] -> per-row [m, 1] f32: row r takes g[r // rps]."""
+    return g.float()[torch.arange(m, device=g.device) // rows_per_sample][
+        :, None]
+
+
+def gemm_reference(a, w, epi, cdt, *, w_kn=False, ln=None, a_gain=None,
+                   rows_per_sample=None, gamma=None, ls=None, bias=None,
+                   resid=None, gains=None, lam=1.0, out32=None,
+                   out_dtype=None):
+    """Plain version of one GEMM launch of K1 / K2 (csrc/common.cuh
+    ``launch_gemm``): out = epi(A' @ W' + bias), every product operand
+    rounded to ``cdt`` and the sums in f32, as _mmw (swin_block_kernels.py
+    :246) with ``.astype(cdt)`` operands.
+
+    A' is LN(a) (``ln`` = (w, b), _ln_fwd), a_gain[row // rps] * a (times
+    gamma[k] with ``ls`` "pro"), or a; W' is w ([N, K], a torch Linear
+    weight) or, with ``w_kn``, w read as [K, N]. The epilogues
+    (``GEMM_EPILOGUES``): "bias" out = v; "gelu" out = gelu_erf(v);
+    "residual" out = lam * resid + gains[row // rps] * (v [* gamma] with
+    ``ls`` "epi"), formed in f32 and cast once; "gelu_grad" out =
+    gelu_erf(v), out32 = gelu_erf'(v); "f32" out32 = v; "mul_f32" out32 *=
+    v, in place, as K2b's dh1 = dh * GELU' overwrites GELU'; "add_resid"
+    out = lam * resid + v; with v = a' @ w' (+ bias). out is in
+    ``out_dtype`` (default ``cdt``). Returns (out, out32), None where the
+    epilogue writes none."""
+    m = a.shape[0]
+    rps = m if rows_per_sample is None else rows_per_sample
+    a32 = a.float()
+    if ln is not None:
+        a32 = _ln_parts(a32, *ln)[0]
+    elif a_gain is not None:
+        a32 = _gain_rows(a_gain, rps, m) * a32
+        if ls == "pro":
+            a32 = a32 * gamma
+    v = _mm(a32, w.t() if w_kn else w, cdt)
+    if bias is not None:
+        v = v + bias
+    res = None
+    if epi == "f32":
+        return None, v
+    if epi == "mul_f32":
+        return None, out32.mul_(v)
+    if epi == "gelu_grad":
+        res = _gelu_grad(v)
+    if epi in ("gelu", "gelu_grad"):
+        v = F.gelu(v)
+    if epi == "residual":
+        v = lam * resid.float() + _gain_rows(gains, rps, m) * (
+            v * gamma if ls == "epi" else v)
+    if epi == "add_resid":
+        v = lam * resid.float() + v
+    return v.to(out_dtype or cdt), res
+
+
+def wgrad_reference(a, b, cdt, a_gain=None, rows_per_sample=None):
+    """Plain version of one weight-gradient launch of K1b / K2b (csrc/
+    common.cuh ``launch_wgrad``): out [N1, N2] = sum_m round(g_m a[m, n1])
+    round(b[m, n2]) in f32, with g_m = a_gain[m // rps] or 1 (the
+    dot_generals over the token rows of _attn_bwd_kernel / _mlp_bwd_kernel,
+    e.g. dW2 = h^T do, :917-935)."""
+    a32 = a.float()
+    if a_gain is not None:
+        m = a.shape[0]
+        a32 = _gain_rows(a_gain, m if rows_per_sample is None
+                         else rows_per_sample, m) * a32
+    return _r(a32, cdt).t() @ _r(b, cdt)
+
+
+def _check_rows(t, name, m, k, dtype, dev):
+    """A [m, k] operand whose rows may lie further apart than k (the q slice
+    of a packed qkv): unit column stride, row stride >= k."""
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if (t.dim() != 2 or tuple(t.shape) != (m, k) or t.stride(1) != 1
+            or t.stride(0) < k):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} strides "
+                         f"{t.stride()}, expected ({m}, {k}) rows of unit "
+                         f"stride")
+
+
+def gemm_launch(a, w, epi, cdt, *, w_kn=False, ln=None, a_gain=None,
+                rows_per_sample=None, gamma=None, ls=None, bias=None,
+                resid=None, gains=None, lam=1.0, out32=None, out_dtype=None,
+                _fma=False):
+    """One GEMM launch of K1 / K2 alone (csrc/gemm.cu ``vsn_gemm``), for
+    the card's launch-level checks (K1 and K2 make it inside their own
+    calls): the CUDA kernel for a CUDA tensor (bf16 ``cdt``: the tensor-core
+    body; f32: the FMA body), ``gemm_reference`` for a CPU one; same
+    arguments and returns. ``a`` [M, K] may be a row-strided view (the
+    probes' ``lda``); it is ``cdt`` or, for the modes of ``GEMM_F32_A``
+    under bf16, f32. ``_fma`` launches the FMA body on bf16 operands, the
+    body every bf16 GEMM took before the tensor cores (chip_smoke.py's
+    yardstick; counted apart, as ``gemm_fma``). A combination that K1,
+    K2 and the probes do not launch raises."""
+    kw = dict(w_kn=w_kn, ln=ln, a_gain=a_gain, rows_per_sample=rows_per_sample,
+              gamma=gamma, ls=ls, bias=bias, resid=resid, gains=gains,
+              lam=lam, out32=out32, out_dtype=out_dtype)
+    if a.device.type == "cpu":
+        return gemm_reference(a, w, epi, cdt, **kw)
+    bf16 = cdt == torch.bfloat16
+    out_dtype = out_dtype or cdt
+    mode = (epi, ls, w_kn)
+    ta_f32 = bf16 and a.dtype == torch.float32
+    to_f32 = bf16 and out_dtype == torch.float32
+    if not ((mode in GEMM_MODES and not to_f32
+             and (not ta_f32 or mode in GEMM_F32_A))
+            or (bf16 and mode == GEMM_PROBE and not ta_f32)) or (
+                _fma and not bf16) or cdt not in (torch.bfloat16,
+                                                  torch.float32):
+        raise ValueError(f"gemm_launch: {epi}, LayerScale {ls}, w_kn {w_kn},"
+                         f" A {a.dtype}, out {out_dtype} under {cdt}: not a "
+                         "launch of K1 / K2")
+    m, k = a.shape
+    n = w.shape[1] if w_kn else w.shape[0]
+    dev, f32 = a.device, torch.float32
+    _check_rows(a, "a", m, k, f32 if ta_f32 else cdt, dev)
+    expect(w, "w", (k, n) if w_kn else (n, k), f32, dev)
+    rps = m if rows_per_sample is None else rows_per_sample
+    for t, name, shape, dt in (
+            (bias, "bias", (n,), f32),
+            (gamma, "gamma", (k,) if ls == "pro" else (n,), f32),
+            (resid, "resid", (m, n), out_dtype),
+            (out32, "out32", (m, n), f32),
+            *[(t, nm, (k,), f32) for t, nm in zip(ln or (), ("ln_w", "ln_b"))],
+            (a_gain, "a_gain", (-(-m // rps),), f32),
+            (gains, "gains", (-(-m // rps),), f32)):
+        if t is not None:
+            expect(t, name, shape, dt, dev)
+    if (ls is None) != (gamma is None) or (
+            epi in ("residual", "add_resid") and resid is None) or (
+            epi == "residual" and gains is None) or (
+            epi == "mul_f32" and out32 is None) or (
+            ls == "pro" and a_gain is None):
+        raise ValueError(f"gemm_launch: {epi} (LayerScale {ls}) lacks an "
+                         "argument")
+    out = (torch.empty((m, n), dtype=out_dtype, device=dev)
+           if epi in _WRITES_OUT else None)
+    if epi in ("gelu_grad", "f32"):
+        out32 = torch.empty((m, n), dtype=f32, device=dev)
+    ln_w, ln_b = ln if ln is not None else (None, None)
+    with torch.cuda.device(dev):
+        err = library().vsn_gemm(
+            int(bf16), int(ta_f32), int(to_f32), GEMM_EPILOGUES.index(epi),
+            LS_FLAGS[ls], int(w_kn), int(_fma), a.data_ptr(), a.stride(0),
+            ptr(a_gain), rps, ptr(ln_w), ptr(ln_b), w.data_ptr(), ptr(bias),
+            ptr(resid), ptr(gains), float(lam), ptr(gamma), ptr(out),
+            ptr(out32), m, n, k, stream_of(a))
+    check(err, "gemm")
+    launches["gemm_fma" if _fma else "gemm"] += 1
+    return out, out32 if epi in _WRITES_OUT32 else None
+
+
+def wgrad_launch(a, b, cdt, a_gain=None, rows_per_sample=None, _fma=False):
+    """One weight-gradient launch of K1b / K2b alone (csrc/gemm.cu
+    ``vsn_wgrad``), for the card's launch-level checks: the CUDA kernel for
+    a CUDA tensor (bf16: the tensor-core body; f32: the FMA body; ``_fma``
+    the FMA body on bf16 operands, counted as ``wgrad_fma``),
+    ``wgrad_reference`` for a CPU one; same arguments and returns. a [M,
+    N1] is ``cdt`` or, under bf16, f32 (dy, dh1); b [M, N2] is ``cdt``."""
+    if a.device.type == "cpu":
+        return wgrad_reference(a, b, cdt, a_gain, rows_per_sample)
+    bf16 = cdt == torch.bfloat16
+    if cdt not in (torch.bfloat16, torch.float32) or (_fma and not bf16) or (
+            a.dtype not in (cdt, torch.float32)):
+        raise ValueError(f"wgrad_launch: A {a.dtype} under {cdt}")
+    (m, n1), n2 = a.shape, b.shape[1]
+    dev = a.device
+    rps = m if rows_per_sample is None else rows_per_sample
+    expect(a, "a", (m, n1), a.dtype, dev)
+    expect(b, "b", (m, n2), cdt, dev)
+    if a_gain is not None:
+        expect(a_gain, "a_gain", (-(-m // rps),), torch.float32, dev)
+    out = torch.zeros((n1, n2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = library().vsn_wgrad(
+            int(bf16), int(bf16 and a.dtype == torch.float32), int(_fma),
+            a.data_ptr(), ptr(a_gain), rps, b.data_ptr(), out.data_ptr(), m,
+            n1, n2, stream_of(a))
+    check(err, "wgrad")
+    launches["wgrad_fma" if _fma else "wgrad"] += 1
+    return out
+
+
 def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                        gb, dout, scale, num_heads, lam=1.0,
                        _force_tiled=False, proj_b=None, gamma=None,

@@ -67,14 +67,17 @@ class Run:
             return ap.attn_slot(self.wb, self.variant, x, wqkv, bias, wproj)
         return ap.attn_ablate(self.variant, x, wqkv, bias, wproj)
 
-    def plain(self, x, wqkv, bias, wproj):
+    def plain(self, x, wqkv, bias, wproj, qkv=None):
+        """The plain version; ``qkv``, for P1 / P5, stands for launch 1's
+        output (``attn_probe._probe_math``)."""
         if self.kind == "copy_windows":
             ops = (wqkv, bias, wproj) if self.variant == "ops" else None
             return ap.copy_reference(x, self.wb, ops)
         if self.kind == "attn_slot":
             return ap.attn_slot_reference(self.wb, self.variant, x, wqkv,
-                                          bias, wproj)
-        return ap.attn_ablate_reference(self.variant, x, wqkv, bias, wproj)
+                                          bias, wproj, qkv)
+        return ap.attn_ablate_reference(self.variant, x, wqkv, bias, wproj,
+                                        qkv)
 
 
 def script_inputs(device, micro=MICRO, seed=0):
