@@ -106,12 +106,20 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    backward gains (gf != gb). Each K1/K2 call is checked with lam = 0 (the
    gained branch alone) and lam = 1 (the residual); f32 max|d| <= 1e-4 of
    the output scale (TF32 off), bf16 <= 2e-2; the movers bit-exact;
-7. the key-tiled body forced (``attn_half(..., _force_tiled=True)``) onto
-   a recorded Swin stage-1 K1 call with bias and region ids (f32 at batch
-   2, bf16 at batch 4; d = 32, N = 252, the whole-window body's shape) and
-   onto each call cut to its first 37 tokens (N below one key tile):
-   forward and backward against the plain versions, only tiled launches;
-   and the tiled launches alone on those calls, dbias included;
+7. K1's route at Swin's calls: through its entry point (``attn_half``),
+   one recorded K1 call of every Swin stage shape (N = 252 shifted,
+   unshifted and padded with -1 pad ids, the clamped N = 150; f32 at batch
+   2, bf16 at batch 4) and the shifted call cut to its first 37 tokens (N
+   below one key tile), forward and backward against the plain versions,
+   with every launch counter at 0 before and only the key-tiled body's
+   launches after (none of the whole-window body); K1 and K1b at saturated
+   logits (bias 8 z + 45, + 200, - 200, f32) on the N = 150 call with the
+   keys of its ragged last key tile (128-149) 12 higher; the tiled
+   launches alone on those calls against their plain versions, dbias
+   included; and K1's whole-window bodies, which no preset's call takes:
+   the same calls re-headed to d = 24 (not a multiple of 16) through
+   ``attn_half``, forward and backward against the plain versions, with
+   only the whole-window body's launches after the counters' reset;
 8. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
    draws), f32 and bf16 at batch 2 and the training path's bf16 calls at
    micro-batch 8, with the same seeded parameters and gains, lam 0 and 1.
@@ -196,7 +204,9 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    (SAM, EMA of 3, MixUp p = 0.5, USE_SHAKEDROP, which ViT reads as
    DropPath 0.15, label smoothing 0.1) at the preset's micro-batch 24 x 2:
    exactly 12 tiled K1f, 12 tiled K1b, 12 K2f and 12 K2b per micro-batch
-   and SAM pass, none of the whole-window K1; then the times per
+   and SAM pass, none of the whole-window K1 (nor on any Swin path, whose
+   K1 calls take the key-tiled body too: 12 tiled K1f and 12 tiled K1b
+   per micro-batch and SAM pass in phases 12 and 14a); then the times per
    micro-batch of 24 of K1f/K1b (tiled), K2f and K2b at ViT's calls beside
    their plain versions and bounds, and the tiled attention launches alone
    (profiler; K1b's phases A and B) beside ``F.scaled_dot_product_attention``
@@ -207,9 +217,15 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 16a. the ViT stabilizer path: phases 15 and 16 for ViT-S with POST_NORM,
    LAYER_SCALE and ENABLE_STABLE (12 tiled K1f / K1b and 12 K2f / K2b in
    the "_post_ls" mode per forward or micro-batch and SAM pass);
-17. K1f / K1b and their attention launches on Swin's stage-1 training
-   calls with the key-tiled body forced, beside the whole-window body they
-   take (a finding for routing; the route stays); each Swin kernel's time
+17. K1 at Swin's training calls at micro-batch 8, per stage and summed
+   (``swin_k1_times``): K1f and K1b whole; their attention launches alone
+   (CUDA events over 10 calls: K1f's launch 2, K1b's phases A and B, split
+   by the profiler) beside K4f's launch on the same values, beside one
+   ``F.scaled_dot_product_attention`` call per K1 call on its split heads
+   with the float mask bias[h] + mask(ids), and its backward (a yardstick),
+   and beside their bound (the attention's own bytes and products); the
+   bytes of K1f's kept state (ao, row statistics, f32 o; apart from the
+   bounds); each Swin kernel's time
    per micro-batch at the training shapes beside its plain version's (the
    eval phase times the forwards at batch 4), and
    for K4f / K4b the library's: one ``F.scaled_dot_product_attention`` call
@@ -269,11 +285,14 @@ TRAIN_RTOL = {"loss": 2e-2, "grad_norm": 5e-2}  # kernel vs plain route, bf16
 PATH_LAM = 1.0  # the residual x-gain every block of the main path passes
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
+    # K1 at Swin's calls (d = 32, N = 252 and 150, bias and region ids): the
+    # key-tiled attention body, whose launch counters on a Swin path feed
+    # these entries (``entry_name``)
     "attn_half": ("vsn_tpu_torch/csrc/attn_half.cu",
                   "vsn_tpu/ops/swin_block_kernels.py:525"),
     "attn_half_bwd": ("vsn_tpu_torch/csrc/attn_half_bwd.cu",
                       "vsn_tpu/ops/swin_block_kernels.py:560"),
-    # K1's key-tiled attention body (ViT's calls: d = 64, N = 811)
+    # K1 at ViT's calls (d = 64, N = 811, no bias): the same body
     "attn_half_tiled": ("vsn_tpu_torch/csrc/attn_half.cu",
                         "vsn_tpu/ops/swin_block_kernels.py:525"),
     "attn_half_bwd_tiled": ("vsn_tpu_torch/csrc/attn_half_bwd.cu",
@@ -331,10 +350,12 @@ PROBES = {
     "attn_slot.full.wb1": ("full2d_wb1", _K1_SRC, f"{_P2}:152"),
 }
 KERNELS.update({key: (src, rep) for key, (_, src, rep) in PROBES.items()})
-# K1/K2 in their residual modes (swin_block_kernels.mode_key names), as the
-# stabilizer paths launch them: Swin's LayerScale arm (pre-norm + gamma,
-# "_ls") and post-norm + LayerScale ("_post_ls") on the whole-window body,
-# ViT with all three options on the key-tiled body. name -> base kernel.
+# K1/K2 in their residual modes, as the stabilizer paths launch them:
+# Swin's LayerScale arm (pre-norm + gamma, "_ls") and post-norm + LayerScale
+# ("_post_ls"), ViT with all three options ("_tiled_post_ls"). Entries are
+# named as K1's (above): the ``_tiled`` ones are K1 at ViT's calls, the
+# others at Swin's, whose launch counters are the key-tiled body's too
+# (``entry_name``). name -> base kernel.
 RESIDUAL_KERNELS = {
     **{f"{base}{mode}": base for mode in ("_ls", "_post_ls")
        for base in ("attn_half", "attn_half_bwd", "ln_mlp", "ln_mlp_bwd")},
@@ -407,17 +428,18 @@ TOLERANT = (*BLOCK_KERNELS, "attention", *V_KERNELS)
 # kernel name -> the name models/swin3d.py calls it by, where they differ
 MODEL_NAME = {"attention": "window_attention_qkv"}
 MOVERS = ("spatial_to_windows", "windows_to_windows", "windows_to_spatial")
-# Launches per Swin-T forward: 12 blocks (depths 2+2+6+2), one K1 and one K2
-# each; the window-resident stages 1, 2 and 4 enter through
+# Launches per Swin-T forward: 12 blocks (depths 2+2+6+2), one K1 (its
+# key-tiled body, d = 32) and one K2 each; the window-resident stages 1, 2
+# and 4 enter through
 # spatial_to_windows (3), stages 1 and 2 glue one shifted junction each
 # (windows_to_windows, 2) and leave in the shifted layout
 # (windows_to_spatial, 2); stage 4 is unshifted and leaves through a plain
 # reshape, stage 3 (padded) uses no mover.
-PER_FORWARD = {"attn_half": 12, "ln_mlp": 12, "spatial_to_windows": 3,
+PER_FORWARD = {"attn_half_tiled": 12, "ln_mlp": 12, "spatial_to_windows": 3,
                "windows_to_windows": 2, "windows_to_spatial": 2}
 # per micro-batch and SAM pass of training: the forward's launches, and the
 # backward's mirror (K1b, K2b, one adjoint per mover call)
-PER_PASS = {**PER_FORWARD, "attn_half_bwd": 12, "ln_mlp_bwd": 12,
+PER_PASS = {**PER_FORWARD, "attn_half_bwd_tiled": 12, "ln_mlp_bwd": 12,
             **{f"{m}_adjoint": PER_FORWARD[m] for m in MOVERS}}
 # ResNet-18 launches per forward (the 7^3 stem conv) and per micro-batch and
 # SAM pass of training (the stem and its weight gradient; dx is not taken)
@@ -445,9 +467,17 @@ VIT_PER_FORWARD = {"attn_half_tiled": 12, "ln_mlp": 12}
 VIT_PER_PASS = {**VIT_PER_FORWARD, "attn_half_bwd_tiled": 12,
                 "ln_mlp_bwd": 12}
 VIT_CASES = {"no mask", "no bias", "N=811"}
-# K1's names for ViT's calls: the tiled body's launch counters
+# K1's names for ViT's calls, and the key-tiled body's launch counters
 TILED_NAME = {"attn_half": "attn_half_tiled",
               "attn_half_bwd": "attn_half_bwd_tiled"}
+# K1's whole-window attention bodies (csrc/attn_half.cu, attn_half_bwd.cu):
+# head dims that the key-tiled body does not take, and the probes P1 / P5
+WHOLE_WINDOW = ("window_attention_kernel", "window_attention_bwd_kernel")
+# the head dim that phase 7 re-heads Swin's calls to, to drive them (not a
+# multiple of 16; divides every Swin-T stage width)
+WHOLE_WINDOW_HEAD_DIM = 24
+# calls a launch-alone time of phase 17 averages over (CUDA events)
+LAUNCH_REPS = 10
 KEY_TILE = 64   # keys per shared-memory tile of the tiled body (kTileK)
 # logits of the tiled saturation phase: 45 and 200 (exp exact under the
 # row-max shift), -200 (every exp underflows under the max(rowmax, 0)
@@ -1175,10 +1205,11 @@ def v_path(calls, gen):
 
 def start_ptxas():
     """``python -m vsn_tpu_torch.probes.ptxas`` on the window-attention
-    source (K4, V1, V3) and the GEMM source (every GEMM and weight-gradient
-    instantiation of K1 / K2, tensor-core and FMA bodies, bf16 and f32),
-    which compiles them once more with ``-Xptxas -v``: the process, to be
-    read by ``ptxas_phase``."""
+    source (K4, V1, V3), the GEMM source (every GEMM and weight-gradient
+    instantiation of K1 / K2, tensor-core and FMA bodies, bf16 and f32) and
+    K1's two sources (its tiled and whole-window launches), which compiles
+    them once more with ``-Xptxas -v``: the process, to be read by
+    ``ptxas_phase``."""
     import atexit
     import signal
 
@@ -1186,7 +1217,7 @@ def start_ptxas():
     proc = subprocess.Popen(
         [sys.executable, "-m", "vsn_tpu_torch.probes.ptxas",
          str(root / "vsn_tpu_torch" / "csrc"), "window_attention_qkv.cu",
-         "gemm.cu"],
+         "gemm.cu", "attn_half.cu", "attn_half_bwd.cu"],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
 
@@ -1200,25 +1231,28 @@ def start_ptxas():
 
 
 def ptxas_phase(proc):
-    """Log the registers of every kernel of the window-attention and GEMM
-    sources (``start_ptxas``'s report: source, registers, spill stores,
+    """Log the registers of every kernel of the window-attention, GEMM and
+    K1 sources (``start_ptxas``'s report: source, registers, spill stores,
     spill loads, name) and fail if one spills, if no V1 / V3 instantiation
-    (layout ``Split`` / ``MapRows``) is there, or if a tensor-core GEMM or
-    weight-gradient body is missing."""
+    (layout ``Split`` / ``MapRows``) is there, if a tensor-core GEMM or
+    weight-gradient body is missing. K1's whole-window bodies
+    (``WHOLE_WINDOW``), off every main path, are logged and not held to
+    the spill gate: the bf16 backward has spilled since it was written."""
     out, err = proc.communicate(timeout=900)
     if proc.returncode:
         raise AssertionError(f"ptxas report failed: {err[-2000:]}")
     rows = [line.split(None, 4) for line in out.splitlines() if line.strip()]
     for _, regs, st, ld, name in rows:
         log(f"ptxas {regs} registers, spills {st} / {ld} bytes: {name}")
-    spills = [r[4] for r in rows if int(r[2]) or int(r[3])]
+    spills = [r[4] for r in rows if (int(r[2]) or int(r[3])) and not any(
+        body in r[4] for body in WHOLE_WINDOW)]
     layouts = {lay for r in rows for lay in ("Split", "MapRows")
                if lay in r[4]}
     bodies = {body for r in rows for body in ("gemm_mma_kernel",
                                               "wgrad_mma_kernel")
               if body in r[4]}
     if spills or layouts != {"Split", "MapRows"} or len(bodies) != 2:
-        raise AssertionError(f"window attention and GEMM kernels that "
+        raise AssertionError(f"window attention, GEMM and K1 kernels that "
                              f"spill: {spills}; V layouts compiled: "
                              f"{sorted(layouts)}; tensor-core GEMM bodies: "
                              f"{sorted(bodies)}")
@@ -1638,7 +1672,8 @@ def sdpa_times(calls):
     summed over the K4 calls of ``calls``: one
     ``F.scaled_dot_product_attention`` call per K4 call on its split heads
     [BW, H, N, d] with the additive float mask bias[h] + mask(ids) [BW, H,
-    N, N] in qkv's dtype (made outside the timing), and that call's
+    N, N] (bias[h] alone, [1, H, N, N], where ids is None: K1's unshifted
+    calls) in qkv's dtype (made outside the timing), and that call's
     backward to q, k, v and the mask. A yardstick the port never calls."""
     import torch
     import torch.nn.functional as F
@@ -1651,8 +1686,11 @@ def sdpa_times(calls):
         bw, n, c3 = qkv.shape
         q, k, v = (t.contiguous() for t in
                    qkv.reshape(bw, n, 3, heads, -1).permute(2, 0, 3, 1, 4))
-        rows = torch.arange(bw, device=qkv.device) % ids.shape[0]
-        mask = (bias[None] + mask_from_ids(ids)[rows][:, None]).to(qkv.dtype)
+        mask = bias[None]
+        if ids is not None:
+            rows = torch.arange(bw, device=qkv.device) % ids.shape[0]
+            mask = mask + mask_from_ids(ids)[rows][:, None]
+        mask = mask.to(qkv.dtype)
         fwd += cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale))
         leaves = [t.detach().requires_grad_() for t in (q, k, v, mask)]
@@ -1893,9 +1931,9 @@ def kept_bytes(name, args):
     """Bytes of the state that the forward of kernel ``name`` keeps for its
     backward on its call ``args``: the row statistics [BW, H, N, 2] f32
     and, bf16, the f32 o (in f32 the backward reads out itself as o); the
-    key-tiled K1f (``attn_half`` at ViT's calls) keeps ao besides. The
-    forward writes them once and the backward reads them once; the
-    function's bound (``call_work``) does not count them."""
+    key-tiled K1f (``attn_half``, at Swin's calls and ViT's) keeps ao
+    besides. The forward writes them once and the backward reads them once;
+    the function's bound (``call_work``) does not count them."""
     x = args[0]
     if name == "attention_split":      # q [BW, H, N, d]
         out, d = x.numel(), x.shape[-1]
@@ -2265,13 +2303,14 @@ def _ratio(err, limit):
 
 
 def tiled_saturation_phase(calls, gen, table=None, logits=TILED_LOGITS):
-    """K1 and K1b (tiled body) at saturated logits on the first ViT call of
-    ``calls`` (f32, seeded parameters), its bias set to 8 z + logit with
-    the keys of the last, ragged key tile 12 higher, so the top logits of
-    every row lie there and its running max grows at its last tile: the
-    forward at lam 0 and 1 and every gradient finite and within tolerance
-    of the plain versions. Returns the worst max|d| of the forward and the
-    backward (``table`` as in ``vit_parity_phase``)."""
+    """K1 and K1b (tiled body) at saturated logits on the first K1 call of
+    ``calls`` (f32, seeded parameters: ViT's in phase 3, Swin's last stage
+    in phase 7), its bias set to 8 z + logit with the keys of the last,
+    ragged key tile 12 higher, so the top logits of every row lie there and
+    its running max grows at its last tile: the forward at lam 0 and 1 and
+    every gradient finite and within tolerance of the plain versions.
+    Returns the worst max|d| of the forward and the backward (``table`` as
+    in ``vit_parity_phase``)."""
     import torch
 
     kernel, plain = (table or kernel_table())["attn_half"]
@@ -2297,7 +2336,7 @@ def tiled_saturation_phase(calls, gen, table=None, logits=TILED_LOGITS):
         ratio = max(_ratio(err, limit) for _, err, limit, _ in rows + grads)
         bad = [g for g, _, _, ok in rows + grads if not ok]
         log(f"parity tiled saturated logits {logit:g} (top in keys "
-            f"{last}-{n - 1}): attn_half_tiled and attn_half_bwd_tiled "
+            f"{last}-{n - 1} of {tuple(x.shape)}): K1 and K1b "
             f"{len(rows) + len(grads)} outputs, worst {ratio:.3f} of the "
             f"limit {'ok' if not bad else 'FAIL'}")
         if bad:
@@ -2305,46 +2344,108 @@ def tiled_saturation_phase(calls, gen, table=None, logits=TILED_LOGITS):
     return worst
 
 
-def forced_tiled_calls(calls, n_small=37):
-    """A recorded Swin stage-1 K1 call with region ids and bias (N = 252,
-    d = 32: the whole-window body's shape), and the same call cut to its
-    first ``n_small`` tokens (N below one key tile)."""
-    call = next(a for n, a in calls if n == "attn_half"
-                and "shifted ids" in case_kind(n, a)
-                and "no bias" not in case_kind(n, a))
+def swin_route_calls(calls, n_small=37):
+    """One recorded Swin K1 call of each case that the stages give
+    (``case_kind``: at Swin-T's, N = 252 shifted, unshifted and padded, and
+    the clamped N = 150), in call order, then the first shifted call cut to
+    its first ``n_small`` tokens (N below one key tile)."""
+    picked = {}
+    for name, args in calls:
+        if name == "attn_half":
+            picked.setdefault(frozenset(case_kind(name, args)), args)
+    call = next(a for kind, a in picked.items() if "shifted ids" in kind)
     x, bias, ids = call[0], call[5], call[6]
     small = list(call)
     small[0] = x[:, :n_small].contiguous()
     small[5] = bias[:, :n_small, :n_small].contiguous()
     small[6] = ids[:, :n_small].contiguous()
-    return [("attn_half", call), ("attn_half", tuple(small))]
+    return [("attn_half", a) for a in (*picked.values(), tuple(small))]
 
 
-def forced_tiled_phase(sets, gen):
-    """The tiled body forced (``_force_tiled``) onto Swin's calls of
-    ``sets`` (``forced_tiled_calls``): forward and backward against the
-    plain versions; only tiled launches. Returns {tiled kernel: worst
-    max|d|}."""
-    import functools
-
+def swin_route_phase(sets, gen):
+    """K1's route at Swin's calls (phase 7): the calls of
+    ``swin_route_calls`` of every set through K1's entry point, forward and
+    backward against the plain versions, with every launch counter at 0
+    before and, after, only the key-tiled body's launches (4 K1f and 2 K1b
+    a call: lam 0 and 1, as ``parity_phase`` and ``grad_parity_phase`` run
+    them); K1 and K1b at saturated logits on the f32 set's last-stage call
+    (N = 150 at Swin-T's) with its top keys in the ragged last key tile
+    (``tiled_saturation_phase``); and the tiled launches alone on every
+    call (``tiled_launch_parity_phase``, dbias included). Returns {kernel:
+    worst max|d|} under the result line's Swin names."""
+    import torch
     from vsn_tpu_torch.ops import _build
-    from vsn_tpu_torch.ops import swin_block_kernels as sbk
 
-    forced = functools.partial(sbk.attn_half, _force_tiled=True)
-    table = {"attn_half": (forced, sbk.attn_half_reference)}
+    route = {f"Swin route {label}": swin_route_calls(calls)
+             for label, calls in sets.items()}
+    table = kernel_table()
     _build.launches.clear()
-    worst, _ = parity_phase(sets, table, gen)
-    bworst, _ = grad_parity_phase(sets, table, gen)
-    counts = {name: _build.launches[name] for name in KERNELS
-              if _build.launches[name]}
-    n_calls = sum(len(calls) for calls in sets.values())
-    # per call: 2 forwards (lam 0 and 1) and 2 forward-and-backward pairs
-    want = {"attn_half_tiled": 4 * n_calls, "attn_half_bwd_tiled": 2 * n_calls}
-    log(f"forced tiled: {n_calls} Swin calls, launches {counts}")
+    worst, _ = parity_phase(route, table, gen)
+    bworst, _ = grad_parity_phase(route, table, gen)
+    counts = {name: n for name, n in _build.launches.items() if n}
+    n_calls = sum(len(calls) for calls in route.values())
+    want = {TILED_NAME["attn_half"]: 4 * n_calls,
+            TILED_NAME["attn_half_bwd"]: 2 * n_calls}
+    log(f"Swin route: {n_calls} K1 calls through attn_half, launches "
+        f"{counts}")
     if counts != want:
-        raise AssertionError(f"forced tiled launches {counts}, expected "
+        raise AssertionError(f"Swin route launches {counts}, expected "
                              f"{want}")
-    return tiled_names({**worst, **bworst})
+    worst.update(bworst)
+    f32 = next(calls for calls in route.values()
+               if calls[0][1][0].dtype == torch.float32)
+    last = min(f32[:-1], key=lambda call: call[1][0].shape[0])
+    for name, err in zip(TILED_NAME, tiled_saturation_phase([last], gen)):
+        worst[name] = max(worst[name], err)
+    tiled_launch_parity_phase(route, gen)
+    return worst
+
+
+def reheaded(args, head_dim):
+    """K1 call ``args`` cut into heads of ``head_dim`` channels: C /
+    head_dim heads, its scale head_dim^-0.5 and a zero bias of that many
+    heads (``seeded_params`` seeds it)."""
+    import torch
+
+    x = args[0]
+    bw, n, c = x.shape
+    if c % head_dim:
+        raise ValueError(f"width {c} does not split into heads of {head_dim}")
+    args = list(args)
+    heads = c // head_dim
+    if args[5] is not None:
+        args[5] = torch.zeros(heads, n, n, device=x.device)
+    args[11], args[12] = head_dim ** -0.5, heads
+    return tuple(args)
+
+
+def whole_window_phase(sets, gen, head_dim=WHOLE_WINDOW_HEAD_DIM):
+    """K1's whole-window bodies (``WHOLE_WINDOW``), which K1 takes at head
+    dims that the key-tiled body does not (phase 7): the calls of
+    ``swin_route_calls`` of every set re-headed to ``head_dim``
+    (``reheaded``) through K1's entry point, forward and backward against
+    the plain versions, with every launch counter at 0 before and, after,
+    only the whole-window body's launches (4 K1f and 2 K1b a call). Returns
+    {launch counter: worst max|d|}."""
+    from vsn_tpu_torch.ops import _build
+
+    route = {f"whole-window d={head_dim} {label}": [
+        (name, reheaded(args, head_dim))
+        for name, args in swin_route_calls(calls)]
+        for label, calls in sets.items()}
+    table = kernel_table()
+    _build.launches.clear()
+    worst, _ = parity_phase(route, table, gen)
+    bworst, _ = grad_parity_phase(route, table, gen)
+    counts = {name: n for name, n in _build.launches.items() if n}
+    n_calls = sum(len(calls) for calls in route.values())
+    want = {"attn_half": 4 * n_calls, "attn_half_bwd": 2 * n_calls}
+    log(f"whole-window K1: {n_calls} Swin K1 calls at head dim {head_dim} "
+        f"through attn_half, launches {counts}")
+    if counts != want:
+        raise AssertionError(f"whole-window launches {counts}, expected "
+                             f"{want}")
+    return {**worst, **bworst}
 
 
 def device_kernel_ms(fn, label, reps=3):
@@ -2512,51 +2613,114 @@ def v_launch_times(calls, card):
     return out
 
 
-def forced_tiled_times(calls, card):
-    """K1f and K1b, whole and their attention launches alone (profiler),
-    on Swin's stage-1 K1 calls of ``calls`` (the calls with the most
-    windows: N = 252, d = 32, bias and region ids), with the key-tiled body
-    forced beside the whole-window body that they take: a finding for
-    K1's routing, which this does not change. Logs one line; returns
-    {label: ms per micro-batch}."""
+def attention_work(k1_args, backward=False):
+    """(FLOP, bytes) of the attention alone of one K1 call (its launch 2, or
+    K1b's phases A and B): 4 N^2 d per window and head forward, 10 backward
+    (s, dp, dv, dq, dk); bytes qkv, the bias and ids in and ao out, or qkv,
+    dao, the bias and ids in and dqkv and dbias out, in x's dtype."""
+    x, bias, ids = k1_args[0], k1_args[5], k1_args[6]
+    bw, n, c = x.shape
+    act = bw * n * c * x.element_size()   # one [BW, N, C] in x's dtype
+    if backward:
+        return 10 * bw * n * n * c, 7 * act + 2 * _nbytes(bias) + _nbytes(ids)
+    return 4 * bw * n * n * c, 4 * act + _nbytes(bias, ids)
+
+
+def swin_k1_times(calls, card):
+    """K1 at Swin's training calls (``calls``: one micro-batch's), per stage
+    (the calls of one x shape) and summed, ms per micro-batch: K1f and K1b
+    whole (CUDA events); their attention launches alone (CUDA events over
+    LAUNCH_REPS calls: K1f's launch 2, K1b's phases A and B, split by the
+    profiler) beside K4f's launch on the same q, k, v, bias and ids in the
+    same phase (the same body under K4's softmax), beside one
+    ``F.scaled_dot_product_attention``
+    call per K1 call on its split heads with the float mask bias[h] +
+    mask(ids), and that call's backward (``sdpa_times``: a yardstick the
+    port never calls), and beside their bound (``attention_work``); the
+    bytes of K1f's kept state (apart from the bounds). Logs one line per
+    stage and one for the sums; returns the sums {label: ms}."""
     import torch
     from vsn_tpu_torch.ops import swin_block_kernels as sbk
+    from vsn_tpu_torch.ops import window_attention as wa
 
     k1 = [a for name, a in calls if name == "attn_half"]
-    most = max(a[0].shape[0] for a in k1)
-    k1 = [a for a in k1 if a[0].shape[0] == most]
-    b_args = [(*a[:8], a[10], torch.randn(a[0].shape, device=a[0].device).to(
-        a[0].dtype), *a[11:13]) for a in k1]
-    out = collections.Counter()
-    with torch.no_grad():
-        for forced in (False, True):
-            key = "tiled" if forced else "whole-window"
-            kept = [{} if not forced else
-                    k1_kept(a, force_tiled=True) for a in k1]
-            fwd = lambda: [sbk.attn_half(*a, _force_tiled=forced) for a in k1]
-            bwd = lambda: [sbk.attn_half_backward(*a, _force_tiled=forced,
-                                                  **kk)
+    stages = collections.defaultdict(list)
+    for a in k1:
+        stages[tuple(a[0].shape)].append(a)
+    gen = torch.Generator().manual_seed(SEED + 25)
+    total = collections.Counter()
+    for shape, stage in stages.items():
+        out = collections.Counter()
+        label = "swin_k1_" + "x".join(map(str, shape))
+        with torch.no_grad():
+            b_args = [(*a[:8], a[10], torch.randn(
+                a[0].shape, device=a[0].device).to(a[0].dtype), *a[11:13])
+                for a in stage]
+            kept = [k1_kept(a) for a in stage]
+            fwd = lambda: [sbk.attn_half(*a) for a in stage]
+            bwd = lambda: [sbk.attn_half_backward(*a, **kk)
                            for a, kk in zip(b_args, kept)]
-            out[f"K1f {key}"] = cuda_ms(fwd)
-            out[f"K1b {key}"] = cuda_ms(bwd)
-            for label, fn, names in (
-                    ("forward", fwd, ("attention_tiled",) if forced
-                     else ("window_attention_kernel",)),
-                    ("backward", bwd, ("attention_bwd_rows",
-                                       "attention_bwd_keys") if forced
-                     else ("window_attention_bwd_kernel",))):
-                ms = device_kernel_ms(fn, f"swin_stage1_{key}_{label}")
-                out[f"{label} attention {key}"] = sum(
-                    v for n, v in ms.items() if any(s in n for s in names))
-            del kept
-    log(f"[{card}] swin stage-1 K1 calls ({len(k1)} of x "
-        f"{tuple(k1[0][0].shape)} {k1[0][0].dtype}), ms per micro-batch, "
-        f"whole-window / key-tiled forced: " + ", ".join(
-            f"{what} {out[what + ' whole-window']:.3f} / "
-            f"{out[what + ' tiled']:.3f}"
-            for what in ("K1f", "K1b", "forward attention",
-                         "backward attention")))
-    return out
+            out["K1f"], out["K1b"] = cuda_ms(fwd), cuda_ms(bwd)
+            del kept, b_args
+            launch = []
+            for a in stage:
+                qkv, dao = tiled_launch_inputs(a, gen)
+                _, stats, o = sbk.attention_tiled_launch(qkv, a[5], a[6],
+                                                         a[11], a[12])
+                launch.append((qkv, dao, o, stats, a[5], a[6], a[11], a[12]))
+            # K4's ids: one row of zeros where K1's call has none
+            k4 = [(la[0], la[4], torch.zeros(
+                1, la[0].shape[1], dtype=torch.int32, device=la[0].device)
+                if la[5] is None else la[5], *la[6:]) for la in launch]
+            bwd_launch = lambda: [sbk.attention_tiled_backward_launch(*la)
+                                  for la in launch]
+            out["forward"] = cuda_ms(lambda: [sbk.attention_tiled_launch(
+                la[0], *la[4:]) for la in launch], LAUNCH_REPS)
+            out["K4f"] = cuda_ms(lambda: [wa.window_attention_qkv_launch(*a)
+                                          for a in k4], LAUNCH_REPS)
+            out["backward"] = cuda_ms(bwd_launch, LAUNCH_REPS)
+            ms = device_kernel_ms(bwd_launch, label + "_bwd")
+            out["phase A"] = sum(v for n, v in ms.items()
+                                 if "attention_bwd_rows" in n)
+            out["phase B"] = sum(v for n, v in ms.items()
+                                 if "attention_bwd_keys" in n)
+        out["SDPA"], out["SDPA backward"] = sdpa_times(
+            [("attention", (la[0], *la[4:])) for la in launch])
+        del launch, k4
+        kept = sum(kept_bytes("attn_half", a) for a in stage)
+        log(f"[{card}] swin K1 at {len(stage)} training calls of x {shape} "
+            f"{stage[0][0].dtype}, ms per micro-batch of {TRAIN_MICRO}: "
+            f"{_k1_times_line(out, stage)}; K1f's kept state "
+            f"{kept / 1e6:.1f} MB")
+        total.update(out)
+        total["kept bytes"] += kept
+    log(f"[{card}] swin K1 at the {len(k1)} training calls of a micro-batch "
+        f"of {TRAIN_MICRO}, summed: {_k1_times_line(total, k1)}; K1f's kept "
+        f"state {total['kept bytes'] / 1e6:.1f} MB, written by K1f and read "
+        f"by K1b, {total['kept bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms each "
+        "way at the HBM rate (outside the bounds)")
+    return total
+
+
+def _k1_times_line(out, k1):
+    """The numbers of ``swin_k1_times``'s log line for the K1 calls ``k1``."""
+    bounds = []
+    for backward in (False, True):
+        flops = sum(attention_work(a, backward)[0] for a in k1)
+        nbytes = sum(attention_work(a, backward)[1] for a in k1)
+        bounds.append(work_bound_ms(flops, nbytes))
+    back = out["backward"]
+    return (f"K1f {out['K1f']:.3f}, K1b {out['K1b']:.3f}; the attention "
+            f"launches alone forward {out['forward']:.3f} (K4f's launch on "
+            f"the same values {out['K4f']:.3f}, "
+            f"{_ratio(out['forward'], out['K4f']):.2f}x), backward "
+            f"{back:.3f} (profiler: phase A {out['phase A']:.3f}, phase B "
+            f"{out['phase B']:.3f}); SDPA on the same q, k, v with the float "
+            f"mask {out['SDPA']:.3f}, its backward {out['SDPA backward']:.3f}"
+            f" (launches / SDPA {_ratio(out['forward'], out['SDPA']):.2f}x, "
+            f"{_ratio(back, out['SDPA backward']):.2f}x); bound forward "
+            f"{bounds[0][0]:.3f} by {bounds[0][1]}, backward "
+            f"{bounds[1][0]:.3f} by {bounds[1][1]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2572,23 +2736,38 @@ def seeded_gamma(x, gen):
     return (0.5 + 0.1 * torch.randn(c, generator=gen)).to(x.device)
 
 
-def mode_name(name, args, mode):
-    """The launch counter of block kernel ``name`` (or its backward, with
-    ``_bwd`` in ``name``) on ``args`` in residual ``mode`` (a suffix of
-    RESIDUAL_MODES): its attention body (the same in both directions of a
-    call: the tiled one wherever K1b takes it), then the mode."""
-    from vsn_tpu_torch.ops.swin_block_kernels import attention_tiled
-
-    if name.startswith("attn_half"):
-        x, heads = args[0], args[12]
-        if attention_tiled(x.shape[1], x.shape[-1] // heads, backward=True):
-            name = TILED_NAME[name]
-    return name + mode
+def entry_name(counter, path):
+    """The result line's entry that launch counter ``counter`` feeds on a
+    ``path`` ("swin" or "vit"). K1's counters name its body
+    (``attn_half_tiled...`` the key-tiled one, which every preset's K1
+    takes; ``attn_half...`` the whole-window one), its entries the call
+    site: ``attn_half...`` K1 at Swin's calls, ``attn_half_tiled...`` K1 at
+    ViT's. Every other counter is its own entry."""
+    if path == "swin" and counter.startswith("attn_half"):
+        return counter.replace("_tiled", "", 1)
+    return counter
 
 
-def residual_parity_phase(sets, gen, table=None, logits=(45.0, 200.0)):
+def path_entries(counts, path):
+    """The launch counts ``counts`` of a run on ``path`` under the result
+    line's entries (``entry_name``); counters at 0 are left out."""
+    return {entry_name(name, path): n for name, n in counts.items() if n}
+
+
+def mode_name(name, mode, path):
+    """The result line's entry of block kernel ``name`` (or its backward,
+    with ``_bwd`` in ``name``) in residual ``mode`` (a suffix of
+    RESIDUAL_MODES) on ``path``: its launch counter (K1's key-tiled body's)
+    in the mode, under ``entry_name``."""
+    return entry_name(TILED_NAME.get(name, name) + mode, path)
+
+
+def residual_parity_phase(sets, gen, path, table=None,
+                          logits=(45.0, 200.0)):
     """K1/K2 in every residual mode (RESIDUAL_MODES: pre-norm + gamma,
-    post-norm, post-norm + gamma) on every recorded K1/K2 call of ``sets``,
+    post-norm, post-norm + gamma) on every recorded K1/K2 call of ``sets``
+    (the calls of ``path``, "swin" or "vit", which names their kernels:
+    ``mode_name``),
     with the seeded parameters of ``seeded_params`` and gamma = 0.5 + 0.1 z:
     the forward at lam 0, STABLE_LAM and 1, every gradient (dgamma
     included) at lam 0 and STABLE_LAM, against the plain versions to TOL of
@@ -2612,8 +2791,8 @@ def residual_parity_phase(sets, gen, table=None, logits=(45.0, 200.0)):
             gamma = seeded_gamma(args[0], gen)
             for mode, (ls, post) in RESIDUAL_MODES.items():
                 kw = dict(gamma=gamma if ls else None, post_norm=post)
-                fname = mode_name(name, args, mode)
-                bname = mode_name(f"{name}_bwd", args, mode)
+                fname = mode_name(name, mode, path)
+                bname = mode_name(f"{name}_bwd", mode, path)
                 kinds[fname] |= case_kind(name, args)
                 kinds[bname] |= case_kind(name, args)
                 for lam in MODE_LAMS:
@@ -2648,7 +2827,7 @@ def residual_parity_phase(sets, gen, table=None, logits=(45.0, 200.0)):
             rows = grad_compare("attn_half", kernel, plain, args, STABLE_LAM,
                                 gen, gamma=gamma if ls else None,
                                 post_norm=post)
-            bname = mode_name("attn_half_bwd", args, mode)
+            bname = mode_name("attn_half_bwd", mode, path)
             ratio = max(_ratio(err, limit) for _, err, limit, _ in rows)
             bad = [g for g, _, _, ok in rows if not ok]
             log(f"parity saturated logits {logit:g}: {bname} {len(rows)} "
@@ -2660,11 +2839,12 @@ def residual_parity_phase(sets, gen, table=None, logits=(45.0, 200.0)):
     return dict(worst)
 
 
-def mode_times(calls, mode):
+def mode_times(calls, mode, path):
     """Per-kernel (ms, plain ms) in residual ``mode`` summed over the K1/K2
-    calls of ``calls`` (one micro-batch's) and their backward, on the
-    recorded arguments with gamma = 0.5 (the timing does not read its
-    values) and one cotangent, under the mode's launch counters. K1b reads
+    calls of ``calls`` (one micro-batch's of ``path``) and their backward,
+    on the recorded arguments with gamma = 0.5 (the timing does not read
+    its values) and one cotangent, under the mode's entries
+    (``mode_name``). K1b reads
     what K1f kept of the call (``k1_kept``), made before the timing (the
     plain backward recomputes it, as the TPU kernel does)."""
     import torch
@@ -2683,8 +2863,8 @@ def mode_times(calls, mode):
                      if ls else None)
             kw = dict(gamma=gamma, post_norm=post)
             kernel, plain = table[name]
-            fname = mode_name(name, args, mode)
-            bname = mode_name(f"{name}_bwd", args, mode)
+            fname = mode_name(name, mode, path)
+            bname = mode_name(f"{name}_bwd", mode, path)
             ms[fname] += cuda_ms(lambda: kernel(*args, **kw))
             plain_ms[fname] += cuda_ms(lambda: plain(*args, **kw))
             g = torch.randn(x.shape, device=x.device).to(x.dtype)
@@ -2712,9 +2892,12 @@ def key_label(over):
 def residual_launches(path_counts):
     """The result line's launches of every RESIDUAL_KERNELS entry: the
     count that its path in RESIDUAL_PATH measured ({STABILIZER_PATHS key:
-    launch counts}). Raises AssertionError for an entry whose path launched
-    it no time."""
-    launches = {name: path_counts[RESIDUAL_PATH[name]].get(name, 0)
+    launch counts}, under ``path_entries``; ViT's path is ``vit_all``).
+    Raises AssertionError for an entry whose path launched it no time."""
+    entries = {key: path_entries(counts, "vit" if key == "vit_all" else
+                                 "swin")
+               for key, counts in path_counts.items()}
+    launches = {name: entries[RESIDUAL_PATH[name]].get(name, 0)
                 for name in RESIDUAL_KERNELS}
     idle = [name for name, n in launches.items() if not n]
     if idle:
@@ -3380,7 +3563,7 @@ def main() -> int:
     tiled_launch_parity_phase(vit_sets, torch.Generator().manual_seed(
         SEED + 20), TILED_LOGITS)
     # 3a. the same calls in K1/K2's residual modes -------------------------
-    mode_worst = residual_parity_phase(vit_sets, vgen)   # merged in phase 20
+    mode_worst = residual_parity_phase(vit_sets, vgen, "vit")  # phase 20
     vit_calls = vit_sets.pop(vit_label)  # timed in phase 16
     del vit_sets, vit_micro0, vit_images, m, x
     torch.cuda.empty_cache()
@@ -3504,17 +3687,15 @@ def main() -> int:
                                  f"{ATTN_CASES - by_name['attn_half']}")
     eval_calls = sets.pop(f"bfloat16 B={BATCH}")  # timed in phase 11
 
-    # 7. the tiled body forced onto Swin's calls ---------------------------
-    forced_sets = {f"forced tiled, Swin {label}": forced_tiled_calls(calls)
-                   for label, calls in (("float32 B=2", sets["float32 B=2"]),
-                                        (f"bfloat16 B={BATCH}", eval_calls))}
-    fworst = forced_tiled_phase(forced_sets,
-                                torch.Generator().manual_seed(SEED + 17))
-    tiled_launch_parity_phase(forced_sets,
-                              torch.Generator().manual_seed(SEED + 19))
-    del forced_sets
-    for name, err in fworst.items():
-        vit_worst[name] = max(vit_worst[name], err)
+    # 7. K1's route at every Swin stage shape ------------------------------
+    for name, err in swin_route_phase(
+            {"float32 B=2": sets["float32 B=2"],
+             f"bfloat16 B={BATCH}": eval_calls},
+            torch.Generator().manual_seed(SEED + 17)).items():
+        worst[name] = max(worst.get(name, 0.0), err)
+    whole_window_phase({"float32 B=2": sets["float32 B=2"],
+                        f"bfloat16 B={BATCH}": eval_calls},
+                       torch.Generator().manual_seed(SEED + 19))
 
     # 8. backward parity on training forwards -----------------------------
     gsets = {}
@@ -3540,7 +3721,7 @@ def main() -> int:
     # 8a. the Swin calls in K1/K2's residual modes -------------------------
     for name, err in residual_parity_phase(
             {**sets, f"bfloat16 B={TRAIN_MICRO} train": train_calls},
-            torch.Generator().manual_seed(SEED + 18)).items():
+            torch.Generator().manual_seed(SEED + 18), "swin").items():
         mode_worst[name] = max(mode_worst.get(name, 0.0), err)
     del sets, gsets, models, x, images8
     torch.cuda.empty_cache()
@@ -3580,8 +3761,9 @@ def main() -> int:
     passes = steps * TRAIN_ACCUM * (2 if train_cfg.USE_SAM else 1)
     recipe = (f"SAM + EMA + MixUp + ShakeDrop, micro {TRAIN_MICRO} x "
               f"{TRAIN_ACCUM}")
-    path_counts = model_train_path(train_cfg, batch, images, PER_PASS,
-                                   passes, "train", recipe, card)
+    path_counts = path_entries(model_train_path(
+        train_cfg, batch, images, PER_PASS, passes, "train", recipe, card),
+        "swin")
 
     # 13. the DynamicTanh eval path ---------------------------------------
     dyt_cfg = cfg.replace(**DYT)
@@ -3649,7 +3831,7 @@ def main() -> int:
             f"of {VIT_MICRO} (plain {vplain_vit[name]:.3f} ms, bound "
             f"{vit_bounds[tname][0]:.3f} ms by {vit_bounds[tname][1]})")
     tiled_launch_times(vit_calls, card)
-    vms_mode, vplain_mode = mode_times(vit_calls, "_post_ls")
+    vms_mode, vplain_mode = mode_times(vit_calls, "_post_ls", "vit")
     for name in sorted(vms_mode):
         bound = bound_ms(name, vit_calls)
         log(f"[{card}] vit {name}: {vms_mode[name]:.3f} ms per micro-batch "
@@ -3661,7 +3843,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 17. Swin kernel timings at the training shapes ----------------------
-    forced_tiled_times(train_calls, card)
+    swin_k1_times(train_calls, card)
     ms, plain_ms = kernel_times(train_calls + k4_calls)
     bounds = {name: bound_ms(name, train_calls + k4_calls) for name in KERNELS
               if name not in STEM and name not in V_PER_CALL
@@ -3680,7 +3862,7 @@ def main() -> int:
         ms[tname], plain_ms[tname] = vms_vit[name], vplain_vit[name]
         bounds[tname] = vit_bounds[tname]
     for mode in ("_ls", "_post_ls"):   # the Swin stabilizer paths' modes
-        mms, mplain = mode_times(train_calls, mode)
+        mms, mplain = mode_times(train_calls, mode, "swin")
         ms.update(mms)
         plain_ms.update(mplain)
     for name in RESIDUAL_KERNELS:      # the tiled ones: ViT's calls
@@ -3805,7 +3987,7 @@ def main() -> int:
             f"{bounds[name][0]:.3f} ms by {bounds[name][1]})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    idle = [name for name in KERNELS if not path_counts[name]]
+    idle = [name for name in KERNELS if not path_counts.get(name)]
     if idle:
         raise AssertionError(f"kernels that no path launched: {idle}")
     result = {"kernels": [

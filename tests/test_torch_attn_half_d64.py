@@ -139,18 +139,26 @@ def test_saturated_logits_match_jax(via, logit):
 
 def test_head_dims_up_to_128_and_the_tiled_choice():
     """The plain version takes any head dim, the wrapper's check up to 128;
-    the body choice follows the shape: Swin-T's calls keep the
-    whole-window body, ViT's take the key-tiled one."""
-    assert not port.attention_tiled(252, 32)
-    assert not port.attention_tiled(252, 32, backward=True)
-    assert not port.attention_tiled(150, 32, backward=True)
+    the body choice follows the head dim: the key-tiled body wherever it
+    takes it (a multiple of 16: Swin-T's calls at d = 32, N = 252 and 150,
+    and ViT's at d = 64), the whole-window body for the other head dims up
+    to 32 whose window fits in shared memory."""
+    for n in (252, 150, 400, 37):
+        assert port.attention_tiled(n, 32)
+        assert port.attention_tiled(n, 32, backward=True)
     assert port.attention_tiled(811, 64) and port.attention_tiled(
         811, 64, backward=True)
     assert port.attention_tiled(13, 64)       # d > 32: always tiled
-    # d = 32 at N = 811: whole K and V do not fit in shared memory
-    assert port.attention_tiled(811, 32)
-    assert port.attention_tiled(400, 32, backward=True)
-    assert not port.attention_tiled(400, 32)
+    assert port.attention_tiled(252, 16)
+    # head dims off the mma depth keep the whole-window body where it fits
+    for d in (8, 24):
+        assert not port.attention_tiled(252, d)
+        assert not port.attention_tiled(252, d, backward=True)
+    # d = 24 at N = 1000: whole K and V do not fit in shared memory; at 450
+    # K1b's Q, K, V and dO do not, and the call takes the tiled body
+    assert port.attention_tiled(1000, 24)
+    assert port.attention_tiled(450, 24, backward=True)
+    assert not port.attention_tiled(450, 24)
     x = torch.zeros(1, 5, 129 * 2)
     args = (torch.ones(258), torch.zeros(258), torch.zeros(774, 258), None,
             None, None, torch.zeros(258, 258), torch.zeros(258),

@@ -67,11 +67,26 @@ def sets():
     }
 
 
+def _path(label):
+    """The path ("swin" or "vit") whose calls a set of ``sets`` holds."""
+    return label.split()[0]
+
+
+def _each_path(sets, gen, table=None):
+    """The residual phase on the Swin sets, then on the ViT ones, as
+    chip_smoke.py's phases 8a and 3a run it."""
+    worst = {}
+    for path in ("swin", "vit"):
+        worst.update(chip_smoke.residual_parity_phase(
+            {k: v for k, v in sets.items() if _path(k) == path}, gen, path,
+            table))
+    return worst
+
+
 def test_plain_versions_pass_in_every_mode(sets):
-    worst = chip_smoke.residual_parity_phase(
-        sets, torch.Generator().manual_seed(3))
-    names = {chip_smoke.mode_name(base, args, mode)
-             for calls in sets.values() for name, args in calls
+    worst = _each_path(sets, torch.Generator().manual_seed(3))
+    names = {chip_smoke.mode_name(base, mode, _path(label))
+             for label, calls in sets.items() for name, args in calls
              if name in chip_smoke.BLOCK_KERNELS
              for base in (name, f"{name}_bwd")
              for mode in chip_smoke.RESIDUAL_MODES}
@@ -155,8 +170,7 @@ def test_a_mode_backward_mutant_fails(sets, mutant):
     fn, shows = BACKWARD_MUTANTS[mutant]
     table, patch = _switched(chip_smoke.kernel_table(), fn)
     with patch, pytest.raises(AssertionError, match=shows):
-        chip_smoke.residual_parity_phase(
-            sets, torch.Generator().manual_seed(3), table)
+        _each_path(sets, torch.Generator().manual_seed(3), table)
 
 
 def test_post_norm_applied_to_the_input_fails(sets):
@@ -170,8 +184,7 @@ def test_post_norm_applied_to_the_input_fails(sets):
             return _plain(*args, **dict(kw, post_norm=False))
         table[name] = (pre, plain)
     with pytest.raises(AssertionError, match="_post"):
-        chip_smoke.residual_parity_phase(
-            sets, torch.Generator().manual_seed(3), table)
+        _each_path(sets, torch.Generator().manual_seed(3), table)
 
 
 def test_stabilizer_path_counts_and_training_pieces(monkeypatch):
@@ -180,8 +193,15 @@ def test_stabilizer_path_counts_and_training_pieces(monkeypatch):
     parameter (the gammas included) reached by one backward, the training
     route, and the mode timings and bounds with a stand-in timer."""
     expected = chip_smoke.in_mode(chip_smoke.PER_PASS, "_post_ls")
-    assert expected["attn_half_post_ls"] == expected["ln_mlp_bwd_post_ls"] \
-        == 12 and "attn_half" not in expected
+    # Swin's K1 calls count the key-tiled body's launches
+    assert expected["attn_half_tiled_post_ls"] == expected[
+        "ln_mlp_bwd_post_ls"] == 12 and "attn_half_tiled" not in expected
+    assert chip_smoke.entry_name("attn_half_tiled_post_ls", "swin") == \
+        "attn_half_post_ls"
+    assert chip_smoke.entry_name("attn_half_tiled_post_ls", "vit") == \
+        "attn_half_tiled_post_ls"
+    assert chip_smoke.entry_name("ln_mlp_bwd_post_ls", "swin") == \
+        "ln_mlp_bwd_post_ls"
     assert expected["windows_to_windows_adjoint"] == 2
     vit = chip_smoke.in_mode(chip_smoke.VIT_PER_PASS, "_post_ls")
     assert set(vit) <= set(chip_smoke.KERNELS)
@@ -213,7 +233,7 @@ def test_stabilizer_path_counts_and_training_pieces(monkeypatch):
     calls = _record(TINY, (12, 18, 12), "bfloat16", True)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=3: (
         fn(), 1.0)[1])
-    ms, plain = chip_smoke.mode_times(calls, mode)
+    ms, plain = chip_smoke.mode_times(calls, mode, "swin")
     assert ms == plain and set(ms) == {
         "attn_half_post_ls", "attn_half_bwd_post_ls", "ln_mlp_post_ls",
         "ln_mlp_bwd_post_ls"}
@@ -227,23 +247,26 @@ def test_stabilizer_path_counts_and_training_pieces(monkeypatch):
 def test_result_line_takes_each_mode_from_its_path():
     """Every RESIDUAL_KERNELS entry of the result line gets the launches
     its own stabilizer path measured, non-zero, over the Swin baseline's 0
-    for it (the tiled ones ViT's, not Swin's), and a mode that its path
-    launched no time fails."""
+    for it (the tiled ones ViT's, not Swin's: ViT's path runs one pass more
+    here, so a count taken from the other path shows), and a mode that its
+    path launched no time fails."""
     passes = (1 + chip_smoke.TIMED_STEPS) * chip_smoke.TRAIN_ACCUM * 2
 
-    def measured(per_pass):  # as launch_counts returns them
+    def measured(per_pass, units):  # as launch_counts returns them
         counts = dict.fromkeys(chip_smoke.KERNELS, 0)
-        counts.update({k: n * passes for k, n in per_pass.items()})
+        counts.update({k: n * units for k, n in per_pass.items()})
         return counts
 
+    units = {key: passes + (key == "vit_all")
+             for key in chip_smoke.STABILIZER_PATHS}
     paths = {key: measured(chip_smoke.in_mode(
         chip_smoke.VIT_PER_PASS if key == "vit_all" else chip_smoke.PER_PASS,
-        mode)) for key, (_, mode) in chip_smoke.STABILIZER_PATHS.items()}
-    path_counts = measured(chip_smoke.PER_PASS)   # the baseline's
+        mode), units[key])
+        for key, (_, mode) in chip_smoke.STABILIZER_PATHS.items()}
+    path_counts = measured(chip_smoke.PER_PASS, passes)   # the baseline's
     path_counts.update(chip_smoke.residual_launches(paths))
     for name in chip_smoke.RESIDUAL_KERNELS:
-        want = paths[chip_smoke.RESIDUAL_PATH[name]][name]
-        assert path_counts[name] == want == 12 * passes
+        assert path_counts[name] == 12 * units[chip_smoke.RESIDUAL_PATH[name]]
     assert chip_smoke.RESIDUAL_PATH["attn_half_bwd_tiled_post_ls"] \
         == "vit_all" and chip_smoke.RESIDUAL_PATH["ln_mlp_post_ls"] \
         == "post_ls"

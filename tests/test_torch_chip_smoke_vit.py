@@ -7,9 +7,9 @@ draws. On the CPU every wrapper runs its plain version, so the phases must
 accept the plain versions and reject argument-level mutants of K1: the
 ragged last key tile left out, the max(rowmax, 0) clamp dropped (only the
 saturation phase's logits near -200 see it), the per-sample gains ignored.
-The forced-tiled phase's calls, the ViT bounds and the ViT training phase's
-pieces (every parameter reached, the plain route equal to the kernel
-route) are checked here too.
+The Swin route phase's calls and its timing plumbing, the ViT bounds and
+the ViT training phase's pieces (every parameter reached, the plain route
+equal to the kernel route) are checked here too.
 """
 
 import numpy as np
@@ -150,21 +150,32 @@ def test_the_clamp_is_seen_only_at_negative_logits(vit_sets):
 
 
 def test_forced_tiled_calls_cut_a_swin_stage_call():
+    """The Swin route phase's calls: one K1 call of every stage case (the
+    tiny Swin's shifted, unshifted and padded windows), then the shifted
+    one cut to 5 tokens; the phase on the plain versions here (no launch),
+    where its launch count check must see the key-tiled body's launches."""
     from tests.test_torch_chip_smoke import _record
 
     calls = _record("float32", False)
-    full, small = chip_smoke.forced_tiled_calls(calls, n_small=5)
+    route = chip_smoke.swin_route_calls(calls, n_small=5)
+    *stages, small = route
+    kinds = [chip_smoke.case_kind(*c) for c in stages]
+    assert len({frozenset(k) for k in kinds}) == len(stages) == 3
+    assert {"shifted ids", "no mask", "padded ids"} <= set().union(*kinds)
+    full = next(c for c in stages if "shifted ids" in chip_smoke.case_kind(*c))
     assert full[1][5] is not None and full[1][6] is not None
-    assert "shifted ids" in chip_smoke.case_kind(*full)
     x, bias, ids = small[1][0], small[1][5], small[1][6]
     assert x.shape[1] == 5 and bias.shape[1:] == (5, 5) and ids.shape[1] == 5
     assert torch.equal(x, full[1][0][:, :5])
     assert not sbk.attention_tiled(full[1][0].shape[1], 8)
-    # the forced phase's comparisons, on the plain versions here
-    worst, _ = chip_smoke.parity_phase({"forced": [full, small]},
+    # the route phase's comparisons, on the plain versions here
+    worst, _ = chip_smoke.parity_phase({"route": route},
                                        chip_smoke.kernel_table(),
                                        torch.Generator().manual_seed(5))
     assert worst["attn_half"] == 0.0
+    with pytest.raises(AssertionError, match="Swin route launches"):
+        chip_smoke.swin_route_phase({"f32": calls},
+                                    torch.Generator().manual_seed(5))
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -330,36 +341,168 @@ def test_tiled_launch_parity_phase_on_cpu(vit_sets, monkeypatch):
 
 
 def test_forced_tiled_times_plumbing_on_cpu(monkeypatch):
-    """The forced-tiled timing on Swin's stage-1 calls on the CPU, clocks
-    replaced: both bodies' K1f and K1b run on the calls with the most
-    windows, the attention kernels are picked out of the profiler's names,
-    and K1b gets nothing kept from K1f here (the plain backward)."""
+    """The Swin K1 timing (phase 17) on the CPU, clocks replaced: every
+    stage's K1f, K1b, the launches alone, K4f's launch on the same values
+    and SDPA's forward and backward run; phases A and B are picked out of
+    the profiler's names, K1b gets nothing kept from K1f here (the plain
+    backward), and the sums add the stages."""
     import collections
 
     from tests.test_torch_chip_smoke import _record
 
-    calls = _record("float32", False)
+    calls = _record("bfloat16", True)
     seen = []
 
     def kernels_ms(fn, label, reps=3):
         fn()
-        seen.append(label)
+        seen.append((label, reps))
         return collections.Counter({
-            "window_attention_kernel<float>": 1.0,
-            "window_attention_bwd_kernel<float>": 2.0,
-            "attention_tiled_mma_kernel<float, 32>": 3.0,
-            "attention_bwd_rows_mma_kernel<float, 32>": 4.0,
-            "attention_bwd_keys_mma_kernel<float, 32>": 5.0,
+            "attention_tiled_mma_kernel<bf16, 32>": 3.0,
+            "attention_bwd_rows_mma_kernel<bf16, 32>": 4.0,
+            "attention_bwd_keys_mma_kernel<bf16, 32>": 5.0,
             "gemm_kernel": 9.0})
 
+    timed = []
+
+    def events_ms(fn, reps=3):
+        fn()
+        timed.append(reps)
+        return 0.5
+
     monkeypatch.setattr(chip_smoke, "device_kernel_ms", kernels_ms)
-    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=3: (
-        fn(), 0.5)[1])
-    out = chip_smoke.forced_tiled_times(calls, "cpu")
-    assert out["forward attention whole-window"] == 1.0
-    assert out["backward attention whole-window"] == 2.0
-    assert out["forward attention tiled"] == 3.0
-    assert out["backward attention tiled"] == 9.0
-    assert out["K1f tiled"] == out["K1b whole-window"] == 0.5
-    assert len(seen) == 4
+    monkeypatch.setattr(chip_smoke, "cuda_ms", events_ms)
+    stages = {tuple(a[0].shape) for n, a in calls if n == "attn_half"}
+    out = chip_smoke.swin_k1_times(calls, "cpu")
+    k = len(stages)
+    assert out["forward"] == out["K4f"] == out["backward"] == 0.5 * k
+    assert out["phase A"] == 4.0 * k and out["phase B"] == 5.0 * k
+    assert out["K1f"] == out["K1b"] == 0.5 * k
+    assert out["SDPA"] == out["SDPA backward"] == 0.5 * 6   # one a call
+    assert len(seen) == k
+    # K1f, K1b, then the three launches alone over LAUNCH_REPS calls
+    assert timed.count(chip_smoke.LAUNCH_REPS) == 3 * k
+    assert out["kept bytes"] == sum(chip_smoke.kept_bytes("attn_half", a)
+                                    for n, a in calls if n == "attn_half")
     assert chip_smoke.k1_kept(calls[0][1]) == {}
+
+
+def _counted_k1(*args, **kw):
+    """K1's plain version counting as the card's key-tiled K1 and K1b."""
+    from vsn_tpu_torch.ops import _build
+
+    _build.launches["attn_half_tiled"] += 1
+    out = sbk.attn_half_reference(*args, **kw)
+    if out.requires_grad:
+        out.register_hook(lambda g: _build.launches.update(
+            {"attn_half_bwd_tiled": 1}))
+    return out
+
+
+def _unmasked_backward(qkv, dao, o, stats, bias, ids, scale, heads):
+    """K1b's tiled launches without the region mask."""
+    return sbk.attention_tiled_backward_reference(qkv, dao, o, stats, bias,
+                                                  None, scale, heads)
+
+
+def test_swin_route_phase_on_cpu(monkeypatch):
+    """Phase 7 whole on the CPU, K1's plain version counting as the tiled
+    body's launches: the stage calls, the saturated logits at the last
+    stage's ragged key tile and the launches alone; a backward launch that
+    drops the region mask fails it."""
+    from tests.test_torch_chip_smoke import _record
+
+    table = chip_smoke.kernel_table()
+    table["attn_half"] = (_counted_k1, table["attn_half"][1])
+    monkeypatch.setattr(chip_smoke, "kernel_table", lambda: dict(table))
+    sets = {"float32 B=2": _record("float32", False),
+            "bfloat16 B=2": _record("bfloat16", False)}
+    gen = lambda: torch.Generator().manual_seed(8)
+    worst = chip_smoke.swin_route_phase(sets, gen())
+    assert set(worst) == {"attn_half", "attn_half_bwd"}
+    assert all(err == 0.0 for err in worst.values())
+    monkeypatch.setattr(sbk, "attention_tiled_backward_launch",
+                        _unmasked_backward)
+    with pytest.raises(AssertionError, match="tiled attention launches"):
+        chip_smoke.swin_route_phase(sets, gen())
+
+
+def _counted_by_body(*args, **kw):
+    """K1's plain version counting as the card's K1 and K1b of the body
+    that the call's head dim takes."""
+    from vsn_tpu_torch.ops import _build
+
+    x, heads = args[0], args[12]
+    tiled = sbk.attention_tiled(x.shape[1], x.shape[-1] // heads, True)
+    body = "_tiled" if tiled else ""
+    _build.launches["attn_half" + body] += 1
+    out = sbk.attn_half_reference(*args, **kw)
+    if out.requires_grad:
+        out.register_hook(lambda g: _build.launches.update(
+            {"attn_half_bwd" + body: 1}))
+    return out
+
+
+@pytest.mark.parametrize("head_dim,tiled", [(4, False), (16, True)])
+def test_whole_window_phase_on_cpu(monkeypatch, head_dim, tiled):
+    """Phase 7's whole-window part on the CPU, K1's plain version counting
+    as the body the head dim takes: the Swin route's calls re-headed (the
+    tiny widths 8, 16 and 32 at d = 4: 2, 4 and 8 heads) pass at a head dim
+    that the key-tiled body does not take; at one it takes (d = 16) the
+    launch count fails, and a width that does not split raises."""
+    from tests.test_torch_chip_smoke import _record
+
+    calls = _record("float32", False)
+    for name, args in chip_smoke.swin_route_calls(calls):
+        x = args[0]
+        if x.shape[-1] % head_dim == 0:
+            re = chip_smoke.reheaded(args, head_dim)
+            assert re[12] == x.shape[-1] // head_dim
+            assert re[5].shape == (re[12], x.shape[1], x.shape[1])
+            assert re[11] == head_dim ** -0.5
+    table = chip_smoke.kernel_table()
+    table["attn_half"] = (_counted_by_body, table["attn_half"][1])
+    monkeypatch.setattr(chip_smoke, "kernel_table", lambda: dict(table))
+    gen = torch.Generator().manual_seed(8)
+    if tiled:
+        with pytest.raises(ValueError, match="heads of 16"):
+            chip_smoke.whole_window_phase({"f32": calls}, gen, head_dim)
+        widest = [c for c in calls if c[0] == "attn_half"
+                  and c[1][0].shape[-1] == 32]
+        monkeypatch.setattr(chip_smoke, "swin_route_calls",
+                            lambda calls: calls)
+        with pytest.raises(AssertionError, match="whole-window launches"):
+            chip_smoke.whole_window_phase({"f32": widest}, gen, head_dim)
+        return
+    worst = chip_smoke.whole_window_phase({"f32": calls}, gen, head_dim)
+    assert set(worst) == {"attn_half", "attn_half_bwd"}
+    assert all(err == 0.0 for err in worst.values())
+
+
+def test_swin_attention_bound_at_micro_8():
+    """The attention alone of Swin-T's 12 training calls at micro-batch 8
+    (``attention_work``): 143.9 GFLOP forward, 0.146 ms at 989 TFLOP/s,
+    against 1.175 GB (qkv read and ao written in bf16, the f32 bias read),
+    0.351 ms at 3.35 TB/s: bound by bytes; backward 2.064 GB (qkv and dao
+    read, dqkv written, the bias read and dbias written), 0.616 ms, against
+    0.364 ms of products."""
+    f32 = torch.float32
+    calls = []
+    for bw, c, heads, n, copies in ((1728, 96, 3, 252, 2),
+                                    (216, 192, 6, 252, 2),
+                                    (64, 384, 12, 252, 6),
+                                    (8, 768, 24, 150, 2)):
+        args = (_meta(bw, n, c), *[None] * 4, _meta(heads, n, n, dtype=f32),
+                None, *[None] * 4, 32 ** -0.5, heads)
+        calls += [args] * copies
+    fwd = [sum(chip_smoke.attention_work(a)[i] for a in calls)
+           for i in (0, 1)]
+    bwd = [sum(chip_smoke.attention_work(a, True)[i] for a in calls)
+           for i in (0, 1)]
+    assert fwd[0] == pytest.approx(143.9e9, rel=1e-3)
+    assert fwd[1] == pytest.approx(1.175e9, rel=1e-3)
+    assert bwd[1] == pytest.approx(2.064e9, rel=1e-3)
+    assert chip_smoke.work_bound_ms(*fwd) == (pytest.approx(
+        0.351, abs=1e-3), "bytes")
+    assert chip_smoke.work_bound_ms(*bwd) == (pytest.approx(
+        0.616, abs=1e-3), "bytes")
+    assert bwd[0] / 989e12 * 1e3 == pytest.approx(0.364, abs=1e-3)

@@ -87,11 +87,16 @@ ATTN_SHAPES = [  # the four Swin-T stage kinds, and a head dim of 8
 @pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", ATTN_SHAPES)
 def test_attn_half_matches_plain(dev, dtype, dims, window, shift, heads, c,
                                  ids_kind):
+    """One launch of the body that the head dim takes: Swin-T's d = 32 the
+    key-tiled one, d = 8 the whole-window one."""
     args = _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
-    before = _build.launches["attn_half"]
+    n = window[0] * window[1] * window[2]
+    name = ("attn_half_tiled" if sbk.attention_tiled(n, c // heads, True)
+            else "attn_half")
+    before = _build.launches[name]
     got = sbk.attn_half(*args)
     torch.cuda.synchronize()
-    assert _build.launches["attn_half"] == before + 1
+    assert _build.launches[name] == before + 1
     _close(got, sbk.attn_half_reference(*args), dtype)
 
 
@@ -204,10 +209,13 @@ def test_attn_half_bwd_matches_plain(dev, dtype, dims, window, shift, heads,
     args = (*args, lam)
     dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
         2)).to(dev, dtype)
-    before = _build.launches["attn_half_bwd"]
+    n = window[0] * window[1] * window[2]
+    name = ("attn_half_bwd_tiled" if sbk.attention_tiled(n, c // heads, True)
+            else "attn_half_bwd")    # the body the head dim takes
+    before = _build.launches[name]
     got = _grads(sbk.attn_half, args, dout, ATTN_DIFF)
     torch.cuda.synchronize()
-    assert _build.launches["attn_half_bwd"] == before + 1
+    assert _build.launches[name] == before + 1
     _close_grads(got, _grads(sbk.attn_half_reference, args, dout, ATTN_DIFF),
                  dtype)
 
@@ -276,21 +284,24 @@ def test_attn_half_tiled_matches_plain(dev, dtype, b, n, heads, lam):
 @pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", ATTN_SHAPES)
 def test_attn_half_forced_tiled_on_swin_calls(dev, dtype, dims, window,
                                               shift, heads, c, ids_kind):
-    """The tiled body forced onto Swin's calls (relative-position bias,
-    shifted and padded region ids, qkv bias, head dim 32); a head dim of 8
-    (not a multiple of the body's 16) raises."""
+    """Swin's calls (relative-position bias, shifted and padded region ids,
+    qkv bias, head dim 32) take the key-tiled body through K1's entry
+    point, forward and backward, and none of the whole-window body; a head
+    dim of 8 (not a multiple of the tiled body's 16) takes the whole-window
+    body."""
     args = _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
     dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
         2)).to(dev, dtype)
-    tiled = lambda *a, lam=1.0: sbk.attn_half(*a, lam=lam, _force_tiled=True)
-    if (c // heads) % 16:
-        with pytest.raises(ValueError, match="multiples of 16"):
-            tiled(*args)
-        return
-    before = _build.launches["attn_half_bwd_tiled"]
-    out, got = _tiled_case(tiled, args, 1.0, dout, ATTN_DIFF)
+    tiled = (c // heads) % 16 == 0
+    before = dict(_build.launches)
+    out, got = _tiled_case(sbk.attn_half, args, 1.0, dout, ATTN_DIFF)
     torch.cuda.synchronize()
-    assert _build.launches["attn_half_bwd_tiled"] == before + 1
+    body = "_tiled" if tiled else ""
+    want = {"attn_half" + body: 2, "attn_half_bwd" + body: 1}
+    for name in ("attn_half_tiled", "attn_half_bwd_tiled", "attn_half",
+                 "attn_half_bwd"):
+        assert _build.launches[name] == before.get(name, 0) + want.get(
+            name, 0), name
     want_out, want = _tiled_case(sbk.attn_half_reference, args, 1.0, dout,
                                  ATTN_DIFF)
     _close(out, want_out, dtype)
@@ -325,8 +336,9 @@ def test_tiled_launches_match_plain(dev, dtype, bw, n, heads, hd, bias, ids):
     rows = chip_smoke.tiled_launch_compare(args, qkv, dao)
     torch.cuda.synchronize()
     assert all(ok for *_, ok in rows), rows
-    assert {r[0] for r in rows} >= {"ao", "o", "stats", "dq", "dk", "dv",
-                                    "dbqkv"} | ({"dbias"} if bias else set())
+    assert {r[0] for r in rows} >= {"ao", "o", "max", "1/sum", "dq", "dk",
+                                    "dv", "dbqkv"} | (
+        {"dbias"} if bias else set())
     for name in ("attention_tiled_launch", "attention_tiled_bwd_launch"):
         assert _build.launches[name] == before.get(name, 0) + 1, name
 
@@ -860,6 +872,61 @@ TILED_SOURCE_MUTANTS = {
 }
 TILED_FAILURES = ("kernels disagree with their plain versions",
                   "tiled K1 at logits")
+
+# One-line edits of K1's route at Swin's calls and of the lines of the
+# key-tiled body that only Swin's calls reach (the region mask and the
+# relative-position bias: ViT's calls carry neither) that chip_smoke.py must
+# reject on the card (exit 1: in its Swin parity phases 6-8, or in phase 3,
+# whose saturated logits give ViT's call a bias, or in phase 7's launch
+# counts of the route): name -> (source under vsn_tpu_torch, line, its
+# mutant)
+SWIN_ROUTE_MUTANTS = {
+    "route: Swin's d = 32 sent back to the whole-window body": (
+        "ops/swin_block_kernels.py",
+        "return (d % TILED_HEAD_STEP == 0 or d > UNTILED_HEAD_DIM",
+        "return (d > UNTILED_HEAD_DIM"),
+    "K1Softmax: the region mask dropped": (
+        "csrc/attn_tiled.cuh",
+        "if (id_row) s = __fadd_rn(s, id_row[j] != id_i ? kNegInf : 0.f);",
+        "if (id_row) s = __fadd_rn(s, 0.f);"),
+    "K1Softmax: the relative-position bias dropped": (
+        "csrc/attn_tiled.cuh", "if (bias_i) s = __fadd_rn(s, bias_i[j]);",
+        "if (bias_i) s = __fadd_rn(s, 0.f);"),
+    "K1f: the tiled launch given no bias": (
+        "csrc/attn_half.cu",
+        "err = tiled ? launch_attention_tiled<T>(qkv_buf, bias, ids, ids_rows,",
+        "err = tiled ? launch_attention_tiled<T>(qkv_buf, nullptr, ids, "
+        "ids_rows,"),
+    "K1b: the tiled backward given no region ids": (
+        "csrc/attn_half_bwd.cu",
+        "return launch_attention_bwd_tiled<T>(qkv, dao, o, row_stats, bias, "
+        "ids, ids_rows, s1, dqkv,",
+        "return launch_attention_bwd_tiled<T>(qkv, dao, o, row_stats, bias, "
+        "nullptr, ids_rows, s1, dqkv,"),
+}
+SWIN_ROUTE_FAILURES = ("kernels disagree with their plain versions",
+                       "tiled K1 at logits", "Swin route launches")
+_PORT = _CSRC.parent
+
+
+@pytest.mark.parametrize("mutant", sorted(SWIN_ROUTE_MUTANTS))
+def test_swin_route_mutants_name_one_line_of_the_source(mutant):
+    src, line, new = SWIN_ROUTE_MUTANTS[mutant]
+    assert (_PORT / src).read_text().count(line) == 1 and new != line
+
+
+@pytest.mark.parametrize("mutant", sorted(SWIN_ROUTE_MUTANTS))
+def test_a_mutated_swin_route_makes_chip_smoke_fail(dev, mutant, tmp_path):
+    """chip_smoke.py run from a copy of the port whose route at Swin's
+    calls, or a line of the tiled body that only they reach, has one line
+    mutated exits 1."""
+    from test_torch_chip_smoke import _run_mutated_chip_smoke
+
+    src, line, new = SWIN_ROUTE_MUTANTS[mutant]
+    res = _run_mutated_chip_smoke(_PORT / src, line, new, tmp_path)
+    assert res.returncode == 1
+    assert any(f in res.stderr for f in SWIN_ROUTE_FAILURES), \
+        res.stderr[-2000:]
 
 
 @pytest.mark.parametrize("mutant", sorted(TILED_SOURCE_MUTANTS))

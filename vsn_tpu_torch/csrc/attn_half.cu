@@ -17,18 +17,22 @@
 //      qkv [BW*N, 3C] in the activation type. The TPU kernel rounds q, k, v
 //      to that type before its products, so storing them rounded loses
 //      nothing.
-//   2. Attention, one block per (window, head): K and V of the head (N x 32
-//      f32, 65 KB) sit in shared memory; each warp takes query rows, keeps
-//      that row's N scores in shared memory (never the whole [N, N]
-//      matrix), and writes the head's slice of the merged output ao.
+//   2. Attention on the key-tiled body of attn_tiled.cuh (the
+//      FlashAttention-2 form on bf16 mma.sync), one block per (window,
+//      head, tile of 64 query rows), which also writes each row's softmax
+//      statistics and (bf16) an f32 copy of the attention output for K1b;
 //   3. proj + bias + per-sample gain + residual: GEMM epilogue (common.cuh).
 //
-// Launch 2 has two bodies, chosen by shape in the caller: the one above
-// (Swin: d <= 32, K and V of a window fit in shared memory), and a key-tiled
-// one for everything else (ViT, vsn_tpu/models/vit3d.py _fused_attn_half:
-// one window of N = 811 tokens per sample at d = 64): the FlashAttention-2
-// form on bf16 mma.sync in attn_tiled.cuh, which also writes each row's
-// softmax statistics and (bf16) an f32 copy of the attention output for K1b.
+// Launch 2 has two bodies, chosen by head dim in the caller: the key-tiled
+// one wherever it takes the head dim (multiples of 16 up to 128: Swin's
+// d = 32 windows of N = 252 and 150, ViT's d = 64, vsn_tpu/models/vit3d.py
+// _fused_attn_half, one window of N = 811 tokens per sample), and the
+// whole-window one below for other head dims up to 32 (none of the
+// presets; the attention probes run it as their variants): one block per
+// (window, head), K and V of the head (N x 32 f32, 65 KB) in shared memory,
+// each warp taking query rows and keeping that row's N scores in shared
+// memory (never the whole [N, N] matrix), writing the head's slice of the
+// merged output ao.
 //
 // The residual modes (_attn_fwd_kernel :271-288) touch launches 1 and 3
 // only: with gamma (in-band LayerScale) launch 3's epilogue is ``lam * x +
@@ -41,7 +45,7 @@
 //
 // Launches 1 and 3 are common.cuh's GEMM: bf16 mma.sync on the tensor
 // cores with f32 accumulation under bf16 activations, FMA under f32. The
-// whole-window attention launch is FMA with f32 accumulation on operands
+// whole-window attention body is FMA with f32 accumulation on operands
 // rounded to the activation type. The qkv and ao intermediates round-trip
 // through device memory; fusing them away is later performance work.
 //
@@ -340,8 +344,9 @@ int probe_attn_half(int variant, int wb, const TX* x, const float* wqkv,
 // is_bf16 selects bf16 activations (else f32); parameters are f32.
 // bias and ids may be null (no relative-position bias / no region mask).
 // tiled selects the key-tiled attention launch (head dims that are
-// multiples of 16 up to 128, any N) over the whole-window one (head dims up
-// to 32, K and V of a window in shared memory); the caller chooses by shape.
+// multiples of 16 up to 128, any N) over the whole-window one (other head
+// dims up to 32, K and V of a window in shared memory); the caller chooses
+// by head dim.
 // The tiled launch also writes row_stats [BW, H, N, 2] f32 (each row's
 // softmax shift and 1 / (sum + 1e-30)) and, with bf16 activations, o32
 // [BW*N, C], the attention output in f32 (null for f32 activations, whose

@@ -14,13 +14,14 @@
 //   1. y = LN1(x) (rounded to the activation type T) and row statistics;
 //   2. qkv = y @ Wqkv^T + bqkv, recomputed (GEMM);
 //   3. dao = round(gb * do_res) @ Wproj (GEMM with a row-gain prologue);
-//   4. attention backward, one block per (window, head), below; it also
-//      recomputes the attention output ao, which dWproj needs. Where d > 32
-//      or the window's Q, K, V and dO do not fit in shared memory whole
-//      (ViT), the caller takes the key-tiled form instead (attn_tiled.cuh):
-//      two launches, phase A over query tiles and phase B over key tiles,
-//      which read K1f's ao, row statistics and f32 o of the call (kept by
-//      the caller) and recompute none of the forward's softmax;
+//   4. attention backward on the key-tiled tensor-core body (attn_tiled.cuh)
+//      wherever it takes the head dim (multiples of 16 up to 128: Swin's
+//      d = 32, ViT's d = 64): two launches, phase A over query tiles and
+//      phase B over key tiles, which read K1f's ao, row statistics and f32
+//      o of the call (kept by the caller) and recompute none of the
+//      forward's softmax. Other head dims (none of the presets) take the
+//      whole-window body below, one block per (window, head), which also
+//      recomputes the attention output ao, which dWproj needs;
 //   5. dWproj = do^T @ ao (split-K weight-gradient GEMM), 6. dbproj = sum do;
 //   7. dWqkv = dqkv^T @ y (split-K), 8. dy = dqkv @ Wqkv (GEMM, f32 out);
 //   9. LN1 backward + residual: dx = T(lam * do_res + LN_bwd(dy)), dLN1.
@@ -44,12 +45,13 @@
 //   forms dx = T(lam * do_res + dqkv @ Wqkv) in its epilogue
 //   (EPI_ADD_RESID), with no LN backward.
 //
-// What bounds it here: the attention backward's FMA arithmetic (8 N^2 d per
-// window and head) and, at stage 1, the bytes of the [rows, 3C] qkv and dqkv
-// round trips. The GEMM and weight-gradient launches (2, 3, 5, 7, 8) run on
-// the tensor cores under bf16 (common.cuh). What the design does: the attention block keeps Q, K, V and
-// dO of its head in shared memory as f32 (4 x N x 33 floats, 133 KB at
-// N = 252) and never the [N, N] matrices: one row buffer per warp.
+// What bounds it here: the attention backward's products (10 N^2 d per
+// window and head on the tiled body) and, at stage 1, the bytes of the
+// [rows, 3C] qkv and dqkv round trips. The GEMM and weight-gradient
+// launches (2, 3, 5, 7, 8) and the tiled attention run on the tensor cores
+// under bf16 (common.cuh, attn_tiled.cuh). The whole-window body keeps Q,
+// K, V and dO of its head in shared memory as f32 (4 x N x 33 floats, 133
+// KB at N = 252) and never the [N, N] matrices: one row buffer per warp.
 //
 // The attention backward works in the p-basis of _heads_attention_bwd
 // (swin_block_kernels.py:292-336), exact at saturated logits:
@@ -421,10 +423,10 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
 // that are multiples of 16 up to 128, any N), which reads K1f's row_stats
 // [BW, H, N, 2] and o32 (the f32 attention output; null for f32
 // activations, whose ao is f32) of the call and takes s1 [BW, H, N] f32 as
-// scratch, over the whole-window one (head dims up to 32; o32, row_stats
-// and s1 unused and may be null); the caller chooses by shape. gamma [C]
-// (in-band LayerScale, with dgamma) may be null; post_norm selects the
-// post-norm backward (stats unused).
+// scratch, over the whole-window one (other head dims up to 32; o32,
+// row_stats and s1 unused and may be null); the caller chooses by head dim.
+// gamma [C] (in-band LayerScale, with dgamma) may be null; post_norm
+// selects the post-norm backward (stats unused).
 extern "C" int vsn_attn_half_bwd(
     int tiled, int is_bf16, const void* x, const float* ln_w, const float* ln_b,
     const float* qkv_w, const float* qkv_b, const float* bias, const float* bias_t,
@@ -459,7 +461,8 @@ extern "C" int vsn_attn_half_bwd(
 // K1b's key-tiled attention backward alone (launch 4 of ``tiled`` above):
 // from qkv [BW*N, 3C], dao [BW*N, C], K1f's o (f32 [BW*N, C]) and row_stats
 // [BW, H, N, 2], into dqkv [BW*N, 3C], and added into the zeroed f32 dbias
-// [H, N, N] (may be null) and dbqkv [3C]; s1 [BW, H, N] f32 scratch.
+// [H, N, N] (may be null: phase A then adds nothing, the same work
+// otherwise) and dbqkv [3C]; s1 [BW, H, N] f32 scratch.
 extern "C" int vsn_attention_tiled_bwd(int is_bf16, const void* qkv, const void* dao,
                                        const float* o, const float* row_stats,
                                        const float* bias, const int* ids, int ids_rows,

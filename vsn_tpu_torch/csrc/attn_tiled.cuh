@@ -1,11 +1,12 @@
 // The key-tiled attention body, forward and backward (phases A and B), for
-// any N: K1's (K1f's launch 2, K1b's launch 4) at a head dim d that is a
-// multiple of 16 up to 128: ViT's calls (vsn_tpu/models/vit3d.py
-// _fused_attn_half, one window of N = 811 tokens per sample at d = 64), and
-// Swin's (d = 32) when the caller forces it; and K4f / K4b, the unfused Swin
-// block's window attention on packed qkv, and V1 / V3, the same function on
-// split heads and on the unpartitioned map (window_attention_qkv.cu), under
-// K4's softmax policy (below).
+// any N: K1's (K1f's launch 2, K1b's launch 4) at every head dim d that is a
+// multiple of 16 up to 128: Swin's calls (d = 32: windows of N = 252 with
+// the relative-position bias and region ids, N = 150 at the clamped last
+// stage) and ViT's (vsn_tpu/models/vit3d.py _fused_attn_half, one window of
+// N = 811 tokens per sample at d = 64, no bias); and K4f / K4b, the unfused
+// Swin block's window attention on packed qkv, and V1 / V3, the same
+// function on split heads and on the unpartitioned map
+// (window_attention_qkv.cu), under K4's softmax policy (below).
 //
 // Replaces the attention chain of vsn_tpu/ops/swin_block_kernels.py
 // _heads_attention_fwd / _heads_attention_bwd (:169-226, :292-336), which the
@@ -59,7 +60,11 @@
 // Phase A (``attention_bwd_rows_mma_kernel``): one block per (window, head,
 // tile of 64 query rows), Q and dO in A fragments, one pass over the key
 // tiles, 16 keys a step: S, p, dp, ds; dbias += ds (f32 atomics, only with a
-// bias); dq += round(ds) K. It writes s1 [BW, H, N] for phase B.
+// bias); dq += round(ds) K. It writes s1 [BW, H, N] for phase B. At Swin's
+// stage 1 (1,728 windows a call onto one [H, N, N] dbias) the atomics take
+// half of phase A, but a block that sums ds over 4-16 windows in a shared
+// f32 dbias tile first (the TPU kernel's carried accumulator) ran slower:
+// the tile halves the blocks an SM holds (PERF.md, PR 13).
 // Phase B (``attention_bwd_keys_mma_kernel``): one block per (window, head,
 // tile of 64 keys), each warp 16 keys, one pass over the query tiles, 16
 // queries a step: the same S (the same mma on the same A = Q and B = K

@@ -12,9 +12,10 @@ checkout.
 ``launches`` counts, per kernel wrapper, the calls that launched the CUDA
 kernel. A wrapper adds one per call, however many launches the call makes;
 the CPU path, which runs the plain PyTorch version, adds nothing. K1 and
-K1b count their two attention bodies apart: ``attn_half`` /
-``attn_half_bwd`` for Swin's whole-window body, ``attn_half_tiled`` /
-``attn_half_bwd_tiled`` for the key-tiled one; K1 and K2 also count their
+K1b count their two attention bodies apart: ``attn_half_tiled`` /
+``attn_half_bwd_tiled`` for the key-tiled one, which every preset's calls
+take, ``attn_half`` / ``attn_half_bwd`` for the whole-window one (head
+dims that the tiled body does not take); K1 and K2 also count their
 residual modes apart (``swin_block_kernels.mode_key``: ``..._post``,
 ``..._ls``, ``..._post_ls``). The key-tiled attention launches called
 alone (``swin_block_kernels.attention_tiled_launch`` and its backward,

@@ -27,20 +27,21 @@ kernels do. ``attn_half_math`` / ``ln_mlp_math`` are the bare forward math,
 for autograd to differentiate as an independent check (in f32; in bf16
 autograd rounds at other points).
 
-K1's attention has two hand-written bodies, chosen by shape
-(``attention_tiled``): Swin's whole-window body, where the head dim is at
-most 32 and K and V of a window (in K1b also Q and dO) fit in shared
-memory, and a key-tiled body everywhere else (ViT: one window of N = 811
-tokens per sample at d = 64): FlashAttention-2 on bf16 mma.sync
-(``csrc/attn_tiled.cuh``). A call takes the same body in both directions:
-the tiled one wherever K1b's choice would take it. The tiled K1f also
-writes each row's softmax statistics (shift, 1 / (sum + 1e-30)) and, for
-bf16, an f32 copy of the attention output; autograd keeps them with ao, and
-the tiled K1b reads them instead of recomputing the softmax (s1 = dO . o).
-The launch counters name the body: ``attn_half`` / ``attn_half_bwd`` and
-``attn_half_tiled`` / ``attn_half_bwd_tiled``. A head dim above 128
-raises, and so does, on the card, a tiled call whose head dim is not a
-multiple of 16. ``attention_tiled_reference`` and
+K1's attention has two hand-written bodies, chosen by head dim
+(``attention_tiled``): a key-tiled body, FlashAttention-2 on bf16
+mma.sync (``csrc/attn_tiled.cuh``), wherever it takes the head dim, a
+multiple of 16 up to 128: every preset's calls (Swin-T's windows at
+d = 32, N = 252 and 150; ViT's one window of N = 811 tokens per sample at
+d = 64); and a whole-window body for other head dims up to 32 whose
+window fits in shared memory (the tiny test models' d = 8). A call takes
+the same body in both directions. The tiled K1f also writes each row's
+softmax statistics (shift, 1 / (sum + 1e-30)) and, for bf16, an f32 copy
+of the attention output; autograd keeps them with ao, and the tiled K1b
+reads them instead of recomputing the softmax (s1 = dO . o). The launch
+counters name the body: ``attn_half_tiled`` / ``attn_half_bwd_tiled`` and,
+for the whole-window body, ``attn_half`` / ``attn_half_bwd``. A head dim
+above 128 raises, and so does, on the card, a head dim that neither body
+takes (above 32 and not a multiple of 16). ``attention_tiled_reference`` and
 ``attention_tiled_backward_reference`` are the plain versions of the
 tiled body's two launches alone (``attention_tiled_launch`` and
 ``attention_tiled_backward_launch`` launch them).
@@ -92,11 +93,11 @@ def _untiled_smem_bytes(n: int, d: int, backward: bool) -> int:
 
 def attention_tiled(n: int, d: int, backward: bool = False) -> bool:
     """Whether K1 (``backward``: K1b) runs the key-tiled attention body at N
-    = n and head dim d: where the head dim is above 32, or the whole-window
-    body's shared memory would exceed what a block may use. Swin-T's calls
-    (d = 32, N <= 252) take the whole-window body, ViT's (d = 64, N = 811)
-    the tiled one."""
-    return (d > UNTILED_HEAD_DIM
+    = n and head dim d: wherever the tiled body takes the head dim (a
+    multiple of 16; every preset: Swin-T's d = 32, ViT's d = 64), and
+    wherever the whole-window body does not (a head dim above 32, or its
+    shared memory beyond what a block may use)."""
+    return (d % TILED_HEAD_STEP == 0 or d > UNTILED_HEAD_DIM
             or _untiled_smem_bytes(n, d, backward) > SMEM_PER_BLOCK)
 
 
@@ -391,11 +392,10 @@ def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
     return ids_rows, _check_gains("attn_half", gf, gb, bw, dev)
 
 
-def _tiled(n, c, num_heads, force_tiled):
+def _tiled(n, c, num_heads):
     """Whether a K1 call takes the key-tiled body, forward and backward
-    alike: where K1b's shared memory or the head dim asks for it (which
-    covers K1f's own choice), or ``force_tiled``."""
-    return force_tiled or attention_tiled(n, c // num_heads, backward=True)
+    alike: K1b's choice, which covers K1f's own."""
+    return attention_tiled(n, c // num_heads, backward=True)
 
 
 def _tiled_buffers(x, num_heads):
@@ -412,7 +412,7 @@ def _tiled_buffers(x, num_heads):
 
 def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                       proj_b, gf, gb, scale, num_heads, lam, gamma=None,
-                      post_norm=False, force_tiled=False):
+                      post_norm=False):
     """K1f: launch ``csrc/attn_half.cu``, with the key-tiled attention body
     where ``_tiled`` says so. Returns (out, the attention output ao [BW, N,
     C], the row statistics [BW, H, N, 2] and o [BW, N, C] f32 of the tiled
@@ -421,7 +421,7 @@ def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
     ids_rows, nsamp = _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
                                   proj_w, proj_b, gf, gb, num_heads, gamma)
     bw, n, c = x.shape
-    tiled = _tiled(n, c, num_heads, force_tiled)
+    tiled = _tiled(n, c, num_heads)
     stats = o32 = None
     if tiled:
         _check_tiled_head_dim("attn_half", c, num_heads)
@@ -733,9 +733,9 @@ def wgrad_launch(a, b, cdt, a_gain=None, rows_per_sample=None, _fma=False):
 
 
 def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
-                       gb, dout, scale, num_heads, lam=1.0,
-                       _force_tiled=False, proj_b=None, gamma=None,
-                       post_norm=False, ao=None, stats=None, o32=None):
+                       gb, dout, scale, num_heads, lam=1.0, proj_b=None,
+                       gamma=None, post_norm=False, ao=None, stats=None,
+                       o32=None):
     """VJP of ``attn_half``: K1b (``csrc/attn_half_bwd.cu``) for a CUDA
     tensor, with the key-tiled attention backward where ``_tiled`` says so;
     ``attn_half_backward_reference`` for a CPU one (which recomputes ao);
@@ -755,7 +755,7 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                                   proj_w, proj_b, gb, gb, num_heads, gamma)
     expect(dout, "dout", tuple(x.shape), x.dtype, x.device)
     bw, n, c = x.shape
-    tiled = _tiled(n, c, num_heads, _force_tiled)
+    tiled = _tiled(n, c, num_heads)
     if tiled:
         _check_tiled_head_dim("attn_half_backward", c, num_heads)
         if stats is None or (o32 is None) != (x.dtype == torch.float32):
@@ -815,24 +815,22 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
 
 
 class _AttnHalf(torch.autograd.Function):
-    """K1 with its VJP; ``plain`` selects the plain forward and backward,
-    ``force_tiled`` the key-tiled attention body on any shape. On the card
-    the forward keeps what K1b reads of it: ao under post-norm or with the
-    tiled body, and the tiled body's row statistics and f32 o."""
+    """K1 with its VJP; ``plain`` selects the plain forward and backward. On
+    the card the forward keeps what K1b reads of it: ao under post-norm or
+    with the tiled body, and the tiled body's row statistics and f32 o."""
 
     @staticmethod
-    def forward(ctx, plain, force_tiled, x, norm_w, norm_b, qkv_w, qkv_b,
-                bias, ids, proj_w, proj_b, gf, gb, scale, num_heads, lam,
-                gamma, post_norm):
+    def forward(ctx, plain, x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
+                proj_w, proj_b, gf, gb, scale, num_heads, lam, gamma,
+                post_norm):
         args = (x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
                 gf, gb, scale, num_heads, lam, gamma, post_norm)
         ctx.plain, ctx.static = plain, (scale, num_heads, lam)
-        ctx.force_tiled, ctx.post_norm = force_tiled, post_norm
+        ctx.post_norm = post_norm
         if plain:
             out, ao, stats, o32 = attn_half_math(*args), None, None, None
         else:
-            out, ao, stats, o32 = _attn_half_kernel(*args,
-                                                    force_tiled=force_tiled)
+            out, ao, stats, o32 = _attn_half_kernel(*args)
             if not (post_norm or stats is not None):
                 ao = None
         ctx.save_for_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
@@ -849,18 +847,16 @@ class _AttnHalf(torch.autograd.Function):
         if ctx.plain:
             grads = attn_half_backward_reference(*args, **mode)
         else:
-            grads = attn_half_backward(*args, _force_tiled=ctx.force_tiled,
-                                       ao=ao, stats=stats, o32=o32, **mode)
+            grads = attn_half_backward(*args, ao=ao, stats=stats, o32=o32,
+                                       **mode)
         (dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b,
          dgamma) = grads
-        return (None, None, dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias,
-                None, dproj_w, dproj_b, None, None, None, None, None, dgamma,
-                None)
+        return (None, dx, dnorm_w, dnorm_b, dqkv_w, dqkv_b, dbias, None,
+                dproj_w, dproj_b, None, None, None, None, None, dgamma, None)
 
 
 def attn_half(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
-              gf, gb, scale, num_heads, lam=1.0, gamma=None, post_norm=False,
-              _force_tiled=False):
+              gf, gb, scale, num_heads, lam=1.0, gamma=None, post_norm=False):
     """lam * x + gf[s] * (gamma *) [LN](proj(window_attention(qkv([LN](x)))))
     per window: the LayerNorm on the input (pre-norm) or on the branch
     (``post_norm``).
@@ -876,18 +872,16 @@ def attn_half(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
         proj_w: [C, C] f32; proj_b: [C] f32.
         gf, gb: [B] f32 per-sample branch gains, forward and backward.
         scale, num_heads, lam: attention scale, heads (C / heads <= 128;
-            on the card a call that takes the key-tiled body needs a
-            multiple of 16), residual x-gain.
+            on the card a multiple of 16, the key-tiled body's, or at most
+            32, the whole-window body's), residual x-gain.
         gamma: [C] f32 LayerScale of the branch (before the gains), or None.
         post_norm: the LayerNorm applies to the proj output, not to x.
-        _force_tiled: run the key-tiled attention body (forward and
-            backward) whatever the shape; for the card's checks only.
     Returns: [BW, N, C] in x's dtype. Differentiable in x and the
     parameters, gamma included (K1b on a CUDA device).
     """
-    return _AttnHalf.apply(x.device.type == "cpu", _force_tiled, x, norm_w,
-                           norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
-                           gf, gb, scale, num_heads, lam, gamma, post_norm)
+    return _AttnHalf.apply(x.device.type == "cpu", x, norm_w, norm_b, qkv_w,
+                           qkv_b, bias, ids, proj_w, proj_b, gf, gb, scale,
+                           num_heads, lam, gamma, post_norm)
 
 
 def attn_half_reference(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
@@ -895,9 +889,9 @@ def attn_half_reference(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                         post_norm=False):
     """Plain version of ``attn_half`` on any device: the plain forward, and
     ``attn_half_backward_reference`` as its backward."""
-    return _AttnHalf.apply(True, False, x, norm_w, norm_b, qkv_w, qkv_b,
-                           bias, ids, proj_w, proj_b, gf, gb, scale,
-                           num_heads, lam, gamma, post_norm)
+    return _AttnHalf.apply(True, x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
+                           proj_w, proj_b, gf, gb, scale, num_heads, lam,
+                           gamma, post_norm)
 
 
 # ---------------------------------------------------------------------------
