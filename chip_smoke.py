@@ -10,7 +10,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 
 1. build the hand-written kernels from ``vsn_tpu_torch/csrc`` (one nvcc per
    source, in parallel, into build/), and beside them the ptxas report of
-   the window-attention and GEMM sources (``python -m
+   the window-attention, GEMM, K1 and stem sources (``python -m
    vsn_tpu_torch.probes.ptxas``);
 2. print the card's name and power limit (nvidia-smi);
 2a. the GEMM and weight-gradient bodies of K1 / K2 alone (``gemm_launch``
@@ -23,7 +23,8 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    and ViT's launches once more in f32 within 1e-4; then the GEMM path,
    each launch once through its entry point with every counter at 0
    before and one launch per call after; then per launch the tensor-core
-   body's device time beside the FMA body's on the same call (the body
+   body's device time (CUDA events, the calls queued behind a spin kernel)
+   beside the FMA body's on the same call (the body
    every bf16 GEMM took before), ``torch.matmul`` on the same rounded
    operands (a yardstick), the plain version and the bound;
 3. K1's key-tiled attention body, and K2, on ViT-S's calls
@@ -90,11 +91,13 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    o (V1, V3 and K4 run one tiled body on three layouts); V1b's and V3b's
    dq, dk, dv from their kept state against K4b's (logged) and dbias
    within TOL["float32"] of its scale. The ptxas report of phase 1: every
-   window-attention, GEMM and weight-gradient kernel's registers, none
-   spilling. The V kernels'
+   window-attention, GEMM, weight-gradient, K1 and stem kernel's
+   registers, none spilling but K1's whole-window bodies and K5f's f32
+   FMA body, and K5's tensor-core bodies there. The V kernels'
    times per micro-batch beside their plain versions', SDPA's forward and
    backward on the same calls and their bounds; their launches alone
-   (profiler: V1f, V3f, V1b's and V3b's phases A and B); V3 beside
+   (CUDA events, the calls queued behind a spin kernel: V1f, V3f, V1b and
+   V3b, whose phases A and B the profiler's shares split); V3 beside
    partition + K4 + reverse; the kept state's bytes, apart from the
    bounds;
 6. forward parity: every K1/K2/K3 call of a Swin-T eval forward at batch 2
@@ -155,8 +158,13 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    geometries of tests/test_stem_im2col.py (ResNet and MedViT stems,
    stride 1, the odd 9x11x13 extent) and the ResNet stem at 16x18x16 x 64,
    then in bf16 at the slice's shape, x [12, 144, 168, 144, 1] (2e-2);
-   their times beside the plain versions' and the library calls' (cuDNN
-   conv3d in bf16, channels-last, and conv3d_weight);
+   bf16 runs the tensor-core bodies, f32 the FMA bodies. Then two K5w
+   launches on the same inputs must give the same dW bits at every bf16
+   case (the tensor-core body adds its block partials in a fixed order);
+   their times at the slice's shape by CUDA events beside the FMA bodies'
+   on the same bf16 inputs (``_fma=True``), the plain versions', the
+   library calls' (cuDNN conv3d in bf16, channels-last, and conv3d_weight)
+   and their bounds;
 11. the Swin eval path: Swin-T 5c with the flagship recipe's ShakeDrop eval
    gains, ``Evaluator`` over 8 seeded float16 144x168x144 volumes in
    batches of 4, launch counters 0 before and exactly 12 (K1) / 12 (K2) /
@@ -209,7 +217,8 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    per micro-batch and SAM pass in phases 12 and 14a); then the times per
    micro-batch of 24 of K1f/K1b (tiled), K2f and K2b at ViT's calls beside
    their plain versions and bounds, and the tiled attention launches alone
-   (profiler; K1b's phases A and B) beside ``F.scaled_dot_product_attention``
+   (CUDA events; K1b's phases A and B split by the profiler's shares)
+   beside ``F.scaled_dot_product_attention``
    on the same q, k, v [24, 6, 811, 64] in bf16 and its backward (a
    yardstick) and beside their bound (4 N^2 d per window and head forward,
    10 N^2 d backward, at 989 TFLOP/s); then ViT's
@@ -219,8 +228,9 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    the "_post_ls" mode per forward or micro-batch and SAM pass);
 17. K1 at Swin's training calls at micro-batch 8, per stage and summed
    (``swin_k1_times``): K1f and K1b whole; their attention launches alone
-   (CUDA events over 10 calls: K1f's launch 2, K1b's phases A and B, split
-   by the profiler) beside K4f's launch on the same values, beside one
+   (CUDA events over 10 calls queued behind a spin kernel: K1f's launch
+   2, K1b's phases A and B, split by the profiler's shares) beside K4f's
+   launch on the same values, beside one
    ``F.scaled_dot_product_attention`` call per K1 call on its split heads
    with the float mask bias[h] + mask(ids), and its backward (a yardstick),
    and beside their bound (the attention's own bytes and products); the
@@ -232,7 +242,8 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    per K4 call on the split heads with the additive float mask bias[h] +
    mask(ids), and that call's backward (phase 5 times it on V1's own
    calls, V1f / V1b's yardstick; V3 has no single call), K4f's
-   and K4b's launches (phases A and B) from the profiler, K4b with and
+   and K4b's launches alone (CUDA events; phases A and B split by the
+   profiler's shares), K4b with and
    without dbias's f32 atomics, the bytes of K4f's kept state (logged
    apart: the bounds count only the function's own inputs and outputs),
    and K1/K2 in the "_ls" and "_post_ls"
@@ -493,6 +504,10 @@ STEM_GEOMS = [((12, 14, 12), (7, 7, 7), (1, 2, 2), 16),
               ((9, 11, 13), (3, 5, 3), (2, 2, 1), 16),
               ((16, 18, 16), (7, 7, 7), (1, 2, 2), 64)]
 RESNET_STEM = ((144, 168, 144), (7, 7, 7), (1, 2, 2), 64)
+# K5's tensor-core bodies (csrc/stem_im2col.cu), each at x-strides 1 and 2,
+# and its f32 FMA forward, whose 24 bytes of spills predate them
+STEM_MMA = ("stem_fwd_mma_kernel", "stem_dw_mma_kernel")
+STEM_F32_FMA = "stem_fwd_kernel<float"
 # H100 SXM datasheet peaks: HBM bytes/s and dense FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1206,10 +1221,10 @@ def v_path(calls, gen):
 def start_ptxas():
     """``python -m vsn_tpu_torch.probes.ptxas`` on the window-attention
     source (K4, V1, V3), the GEMM source (every GEMM and weight-gradient
-    instantiation of K1 / K2, tensor-core and FMA bodies, bf16 and f32) and
-    K1's two sources (its tiled and whole-window launches), which compiles
-    them once more with ``-Xptxas -v``: the process, to be read by
-    ``ptxas_phase``."""
+    instantiation of K1 / K2, tensor-core and FMA bodies, bf16 and f32),
+    K1's two sources (its tiled and whole-window launches) and the stem's
+    (K5f / K5w, tensor-core and FMA bodies), which compiles them once more
+    with ``-Xptxas -v``: the process, to be read by ``ptxas_phase``."""
     import atexit
     import signal
 
@@ -1217,7 +1232,7 @@ def start_ptxas():
     proc = subprocess.Popen(
         [sys.executable, "-m", "vsn_tpu_torch.probes.ptxas",
          str(root / "vsn_tpu_torch" / "csrc"), "window_attention_qkv.cu",
-         "gemm.cu", "attn_half.cu", "attn_half_bwd.cu"],
+         "gemm.cu", "attn_half.cu", "attn_half_bwd.cu", "stem_im2col.cu"],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
 
@@ -1231,13 +1246,16 @@ def start_ptxas():
 
 
 def ptxas_phase(proc):
-    """Log the registers of every kernel of the window-attention, GEMM and
-    K1 sources (``start_ptxas``'s report: source, registers, spill stores,
-    spill loads, name) and fail if one spills, if no V1 / V3 instantiation
-    (layout ``Split`` / ``MapRows``) is there, if a tensor-core GEMM or
-    weight-gradient body is missing. K1's whole-window bodies
-    (``WHOLE_WINDOW``), off every main path, are logged and not held to
-    the spill gate: the bf16 backward has spilled since it was written."""
+    """Log the registers of every kernel of the window-attention, GEMM, K1
+    and stem sources (``start_ptxas``'s report: source, registers, spill
+    stores, spill loads, name) and fail if one spills, if no V1 / V3
+    instantiation (layout ``Split`` / ``MapRows``) is there, if a
+    tensor-core GEMM or weight-gradient body is missing, or if K5's
+    tensor-core bodies (``STEM_MMA``) are not there at both x-strides.
+    K1's whole-window bodies (``WHOLE_WINDOW``), off every main path, and
+    K5f's f32 FMA body (``STEM_F32_FMA``), which keeps its statements and
+    registers, are logged and not held to the spill gate: they have
+    spilled since they were written."""
     out, err = proc.communicate(timeout=900)
     if proc.returncode:
         raise AssertionError(f"ptxas report failed: {err[-2000:]}")
@@ -1245,17 +1263,21 @@ def ptxas_phase(proc):
     for _, regs, st, ld, name in rows:
         log(f"ptxas {regs} registers, spills {st} / {ld} bytes: {name}")
     spills = [r[4] for r in rows if (int(r[2]) or int(r[3])) and not any(
-        body in r[4] for body in WHOLE_WINDOW)]
+        body in r[4] for body in (*WHOLE_WINDOW, STEM_F32_FMA))]
     layouts = {lay for r in rows for lay in ("Split", "MapRows")
                if lay in r[4]}
     bodies = {body for r in rows for body in ("gemm_mma_kernel",
                                               "wgrad_mma_kernel")
               if body in r[4]}
-    if spills or layouts != {"Split", "MapRows"} or len(bodies) != 2:
-        raise AssertionError(f"window attention, GEMM and K1 kernels that "
-                             f"spill: {spills}; V layouts compiled: "
+    stem = collections.Counter(body for r in rows for body in STEM_MMA
+                               if body in r[4])
+    if spills or layouts != {"Split", "MapRows"} or len(bodies) != 2 or \
+            stem != dict.fromkeys(STEM_MMA, 2):
+        raise AssertionError(f"window attention, GEMM, K1 and stem kernels "
+                             f"that spill: {spills}; V layouts compiled: "
                              f"{sorted(layouts)}; tensor-core GEMM bodies: "
-                             f"{sorted(bodies)}")
+                             f"{sorted(bodies)}; K5 tensor-core bodies "
+                             f"(x-strides 1 and 2): {dict(stem)}")
 
 
 def k4_agreement(triples, gen):
@@ -1584,19 +1606,69 @@ KEPT_BACKWARD = {
 }
 
 
-def cuda_ms(fn, reps=3):
+def cuda_ms(fn, reps=3, queued=False):
+    """ms per call of ``fn`` by CUDA events over ``reps`` calls after a
+    warm-up call. ``queued``: the calls wait on the stream behind a spin
+    kernel (``torch.cuda._sleep``) that outlasts their host work, so that
+    the events bracket the device's time alone, not a wrapper's host time
+    where that exceeds its launches'."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    if queued:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:  # cycles at <= 2 GHz: at least 1.5 x the host time + 1 ms
+        torch.cuda._sleep(int(2e9 * (1.5 * host + 1e-3)))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(fn):
+    """Device ms per call of ``fn``, a kernel's launches alone: CUDA events
+    over LAUNCH_REPS calls queued behind a spin kernel (``cuda_ms``)."""
+    return cuda_ms(fn, LAUNCH_REPS, queued=True)
+
+
+def phase_shares(fn, label, tags):
+    """{tag: the share of ``fn``'s device kernel time spent in kernels whose
+    name holds ``tag``}, from a torch.profiler trace of 3 calls after a
+    warm-up (trace in build/): the split of an events-timed sum into its
+    launches (K1b's, K4b's, V1b's, V3b's phases A and B), which only the
+    profiler can make. Short traces lose kernel time unevenly between runs
+    (0.4-2x below CUDA events), so only the shares are used."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    trace = Path(__file__).resolve().parent / "build" / f"{label}_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    by_tag, total = collections.Counter(), 0.0
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            total += e["dur"]
+            for tag in tags:
+                if tag in e["name"]:
+                    by_tag[tag] += e["dur"]
+    if not total:
+        raise AssertionError(f"{label}: the profiler recorded no kernel")
+    return {tag: by_tag[tag] / total for tag in tags}
 
 
 def kernel_times(calls, backward=True):
@@ -1814,12 +1886,41 @@ def stem_parity_phase(cases, table):
     return dict(worst)
 
 
+def stem_dw_bits(cases, table):
+    """Two K5w launches on the same inputs give the same dW bits (the
+    tensor-core body sums fixed runs of rows into a scratch of block
+    partials and adds them in order, as the TPU's one revisited output
+    block does), on every case of ``cases`` ({label: stem_case(...)});
+    raises naming each case whose two dW differ."""
+    import torch
+
+    differ = []
+    with torch.no_grad():
+        for label, (x, kernel, strides, pad, g) in cases.items():
+            args = (x, g, tuple(kernel.shape[:3]), strides, pad, x.dtype)
+            a = table["stem_im2col_dw"][0](*args)
+            b = table["stem_im2col_dw"][0](*args)
+            d = (a - b).abs().max().item()
+            log(f"stem_im2col_dw {label}: two launches on the same inputs "
+                f"{'equal bit for bit' if torch.equal(a, b) else 'DIFFER'}"
+                f" (max|d| {d:.3e})")
+            if not torch.equal(a, b):
+                differ.append(label)
+    if differ:
+        raise AssertionError("stem_im2col_dw: two launches on the same "
+                             "inputs give other dW bits: " + "; ".join(differ))
+
+
 def stem_times(x, kernel, strides, pad, g, table):
-    """{name: (ms, plain ms, library ms)} of K5f and K5w on one case; the
-    library calls (cuDNN conv3d in bf16, channels-last, and its weight
-    gradient) are yardsticks the port never calls."""
+    """{name: (ms, FMA ms, plain ms, library ms)} of K5f and K5w on one
+    case, each by CUDA events over LAUNCH_REPS calls: the wrapper's call,
+    the same call through the FMA bodies on the same bf16 inputs
+    (``_fma=True``, the bodies bf16 took before), the plain version, and
+    the library calls (cuDNN conv3d in bf16, channels-last, and its weight
+    gradient), yardsticks the port never calls."""
     import torch
     import torch.nn.functional as F
+    from vsn_tpu_torch.ops import stem_im2col as stem
 
     dt = x.dtype
     xc = x[..., 0][:, None].contiguous(memory_format=torch.channels_last_3d)
@@ -1832,15 +1933,18 @@ def stem_times(x, kernel, strides, pad, g, table):
         "stem_im2col_dw": lambda: torch.nn.grad.conv3d_weight(
             xc, wc.shape, gc, stride=strides, padding=pad),
     }
+    fma = {"stem_im2col": lambda *a: stem.stem_conv_im2col(*a, _fma=True),
+           "stem_im2col_dw": lambda *a: stem.stem_conv_dw(*a, _fma=True)}
     out = {}
     with torch.no_grad():
         for name, args in (("stem_im2col", (x, kernel, strides, pad, dt)),
                            ("stem_im2col_dw", (x, g, tuple(kernel.shape[:3]),
                                                strides, pad, dt))):
             kernel_fn, plain = table[name]
-            out[name] = (cuda_ms(lambda: kernel_fn(*args)),
+            out[name] = (cuda_ms(lambda: kernel_fn(*args), LAUNCH_REPS),
+                         cuda_ms(lambda: fma[name](*args), LAUNCH_REPS),
                          cuda_ms(lambda: plain(*args), reps=1),
-                         cuda_ms(library[name]))
+                         cuda_ms(library[name], LAUNCH_REPS))
     return out
 
 
@@ -2448,32 +2552,13 @@ def whole_window_phase(sets, gen, head_dim=WHOLE_WINDOW_HEAD_DIM):
     return {**worst, **bworst}
 
 
-def device_kernel_ms(fn, label, reps=3):
-    """{kernel name: device ms per call of ``fn``} from a torch.profiler
-    trace of ``reps`` calls after a warm-up (trace in build/)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    trace = Path(__file__).resolve().parent / "build" / f"{label}_trace.json"
-    trace.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    out = collections.Counter()
-    for e in json.loads(trace.read_text())["traceEvents"]:
-        if e.get("cat") == "kernel":
-            out[e["name"]] += e["dur"] / 1e3 / reps
-    return out
-
-
 def tiled_launch_times(calls, card):
     """Device ms per micro-batch of the tiled attention launches alone
-    (K1f's launch 2, K1b's phases A and B) over ViT's K1 calls, from the
-    profiler, beside ``F.scaled_dot_product_attention`` on the calls' q, k,
+    (K1f's launch 2, K1b's phases A and B: ``attention_tiled_launch`` and
+    its backward on each call's qkv as K1's launch 1 rounds it, a seeded
+    dao, and the forward's kept o and statistics) over ViT's K1 calls, by
+    CUDA events (``launch_ms``; the profiler splits the backward into its
+    phases), beside ``F.scaled_dot_product_attention`` on the calls' q, k,
     v [B, H, N, d] in bf16 (forward, and its backward to q, k, v): the
     same attention at ordinary logits, a yardstick the port never calls.
     Returns (forward ms, phase A + B ms, SDPA ms, SDPA backward ms)."""
@@ -2482,19 +2567,24 @@ def tiled_launch_times(calls, card):
     from vsn_tpu_torch.ops import swin_block_kernels as sbk
 
     k1 = [args for name, args in calls if name == "attn_half"]
-    b_args = [(*a[:8], a[10], torch.randn(a[0].shape, device=a[0].device).to(
-        a[0].dtype), *a[11:13]) for a in k1]
+    gen = torch.Generator().manual_seed(SEED + 27)
     with torch.no_grad():
-        kept = [k1_kept(a) for a in k1]
-        fwd_k = device_kernel_ms(lambda: [sbk.attn_half(*a) for a in k1],
-                                 "vit_k1f")
-        bwd_k = device_kernel_ms(
-            lambda: [sbk.attn_half_backward(*a, **kk)
-                     for a, kk in zip(b_args, kept)], "vit_k1b")
-    del kept
-    fwd = sum(v for n, v in fwd_k.items() if "attention_tiled" in n)
-    phase_a = sum(v for n, v in bwd_k.items() if "attention_bwd_rows" in n)
-    phase_b = sum(v for n, v in bwd_k.items() if "attention_bwd_keys" in n)
+        launch = []
+        for a in k1:
+            qkv, dao = tiled_launch_inputs(a, gen)
+            _, stats, o = sbk.attention_tiled_launch(qkv, a[5], a[6], a[11],
+                                                     a[12])
+            launch.append((qkv, dao, o, stats, a[5], a[6], a[11], a[12]))
+        fwd = launch_ms(lambda: [sbk.attention_tiled_launch(la[0], *la[4:])
+                                 for la in launch])
+        bwd_launch = lambda: [sbk.attention_tiled_backward_launch(*la)
+                              for la in launch]
+        bwd = launch_ms(bwd_launch)
+        shares = phase_shares(bwd_launch, "vit_k1b", (
+            "attention_bwd_rows", "attention_bwd_keys"))
+    del launch
+    phase_a = bwd * shares["attention_bwd_rows"]
+    phase_b = bwd * shares["attention_bwd_keys"]
     lib = lib_bwd = 0.0
     for a in k1:
         parts = sbk._attention_parts(*a[:7], a[11], a[12])
@@ -2513,29 +2603,31 @@ def tiled_launch_times(calls, card):
     work = sum(a[0].shape[0] * a[0].shape[1] ** 2 * a[0].shape[2] for a in k1)
     bound_f, bound_b = (k * work / PEAK_FLOPS["bfloat16"] * 1e3
                         for k in (4, 10))
-    log(f"[{card}] vit attention launches alone, per micro-batch of "
-        f"{VIT_MICRO} ({len(k1)} calls): tiled forward {fwd:.3f} ms, tiled "
-        f"backward {phase_a + phase_b:.3f} ms (phase A {phase_a:.3f}, phase "
-        f"B {phase_b:.3f}); F.scaled_dot_product_attention on the same q, "
+    log(f"[{card}] vit attention launches alone (CUDA events), per "
+        f"micro-batch of {VIT_MICRO} ({len(k1)} calls): tiled forward "
+        f"{fwd:.3f} ms, tiled backward {bwd:.3f} ms (the profiler's split: "
+        f"phase A {phase_a:.3f}, phase B {phase_b:.3f}); "
+        f"F.scaled_dot_product_attention on the same q, "
         f"k, v {shape} bf16 {lib:.3f} ms, its backward {lib_bwd:.3f} ms; "
         f"bound (the attention alone at {PEAK_FLOPS['bfloat16'] / 1e12:g} "
         f"TFLOP/s) forward {bound_f:.3f} ms, backward {bound_b:.3f} ms; "
         f"tiled / SDPA forward {fwd / lib:.2f}x, backward "
-        f"{(phase_a + phase_b) / lib_bwd:.2f}x")
+        f"{bwd / lib_bwd:.2f}x")
     kept = sum(kept_bytes("attn_half", a) for a in k1)
     log(f"[{card}] vit K1f's kept state (ao, row statistics, f32 o) "
         f"{kept / 1e6:.1f} MB per micro-batch, written by K1f and read by "
         f"K1b, {kept / HBM_BYTES_PER_S * 1e3:.3f} ms each way at the HBM "
         "rate (outside K1b's bound)")
-    return fwd, phase_a + phase_b, lib, lib_bwd
+    return fwd, bwd, lib, lib_bwd
 
 
 def k4_launch_times(calls, card):
     """Device ms per micro-batch of K4f's launch and K4b's phases A and B
-    over the K4 calls of ``calls``, from the profiler, and of K4b launched
-    without dbias (a null dbias: phase A's f32 atomics skipped, the same
-    instantiation), which reads what the atomics cost. Logs one line;
-    returns {label: ms}."""
+    over the K4 calls of ``calls``, by CUDA events (``launch_ms``; the
+    profiler splits K4b into its phases), and of K4b launched without dbias
+    (a null dbias: phase A's f32 atomics skipped, the same instantiation),
+    which reads what the atomics cost. Logs one line; returns {label:
+    ms}."""
     import torch
     from vsn_tpu_torch.ops import window_attention as wa
 
@@ -2545,24 +2637,24 @@ def k4_launch_times(calls, card):
         kept = [kept_state("attention", a) for a in k4]
         douts = [torch.randn(a[0].shape[:2] + (a[0].shape[2] // 3,),
                              device=a[0].device).to(a[0].dtype) for a in k4]
-        fwd = device_kernel_ms(lambda: [wa.window_attention_qkv_launch(*a)
-                                        for a in k4], "k4f")
-        out["forward"] = sum(v for n, v in fwd.items()
-                             if "attention_tiled_mma" in n)
+        out["forward"] = launch_ms(lambda: [wa.window_attention_qkv_launch(*a)
+                                            for a in k4])
         for with_dbias in (True, False):
             key = "with dbias" if with_dbias else "without dbias"
-            ms = device_kernel_ms(lambda: [
+            bwd = lambda: [
                 wa._backward_kernel(a[0], a[1], a[2], g, kk["o"],
                                     kk["stats"], a[3], a[4], with_dbias)
-                for a, g, kk in zip(k4, douts, kept)],
-                "k4b_" + key.replace(" ", "_"))
+                for a, g, kk in zip(k4, douts, kept)]
+            ms = launch_ms(bwd)
+            shares = phase_shares(bwd, "k4b_" + key.replace(" ", "_"), (
+                "attention_bwd_rows", "attention_bwd_keys"))
             for phase, tag in (("A", "attention_bwd_rows"),
                                ("B", "attention_bwd_keys")):
-                out[f"phase {phase} {key}"] = sum(
-                    v for n, v in ms.items() if tag in n)
+                out[f"phase {phase} {key}"] = ms * shares[tag]
         del kept, douts
     kept = sum(kept_bytes("attention", a) for a in k4)
-    log(f"[{card}] K4 launches alone, device ms per micro-batch of "
+    log(f"[{card}] K4 launches alone (CUDA events; the profiler's split of "
+        f"K4b's phases), device ms per micro-batch of "
         f"{TRAIN_MICRO} ({len(k4)} calls): K4f {out['forward']:.3f}; K4b "
         f"phase A {out['phase A with dbias']:.3f} (without dbias's atomics "
         f"{out['phase A without dbias']:.3f}), phase B "
@@ -2577,8 +2669,9 @@ def k4_launch_times(calls, card):
 def v_launch_times(calls, card):
     """Device ms per micro-batch of V1f's, V3f's and K4f's launches and of
     V1b's, V3b's and K4b's phases A and B (from their kept state) over the
-    V and K4 calls of ``calls`` (the same values), from the profiler. Logs
-    one line; returns {label: ms}."""
+    V and K4 calls of ``calls`` (the same values), by CUDA events
+    (``launch_ms``; the profiler splits each backward into its phases).
+    Logs one line; returns {label: ms}."""
     import torch
 
     out = {}
@@ -2589,19 +2682,19 @@ def v_launch_times(calls, card):
             kept = [launch(*a) for a in vc]
             douts = [torch.randn(k[0].shape, device=k[0].device).to(
                 k[0].dtype) for k in kept]
-            fwd = device_kernel_ms(lambda: [launch(*a) for a in vc],
-                                   f"{name}_launch")
-            bwd = device_kernel_ms(lambda: [
+            out[name] = launch_ms(lambda: [launch(*a) for a in vc])
+            bwd = lambda: [
                 backward(*kept_backward_args(name, a, g, k[2], k[1]))
-                for a, g, k in zip(vc, douts, kept)], f"{name}_bwd_launch")
-            out[name] = sum(v for n, v in fwd.items()
-                            if "attention_tiled_mma" in n)
+                for a, g, k in zip(vc, douts, kept)]
+            ms = launch_ms(bwd)
+            shares = phase_shares(bwd, f"{name}_bwd_launch", (
+                "attention_bwd_rows", "attention_bwd_keys"))
             for phase, tag in (("A", "attention_bwd_rows"),
                                ("B", "attention_bwd_keys")):
-                out[f"{name}_bwd {phase}"] = sum(v for n, v in bwd.items()
-                                                 if tag in n)
+                out[f"{name}_bwd {phase}"] = ms * shares[tag]
             del kept, douts
-    log(f"[{card}] V launches alone, device ms per micro-batch of "
+    log(f"[{card}] V launches alone (CUDA events; the profiler's split of "
+        f"the phases), device ms per micro-batch of "
         f"{TRAIN_MICRO}: V1f {out['attention_split']:.3f}, V1b phase A "
         f"{out['attention_split_bwd A']:.3f} + B "
         f"{out['attention_split_bwd B']:.3f}; V3f "
@@ -2674,16 +2767,15 @@ def swin_k1_times(calls, card):
                 if la[5] is None else la[5], *la[6:]) for la in launch]
             bwd_launch = lambda: [sbk.attention_tiled_backward_launch(*la)
                                   for la in launch]
-            out["forward"] = cuda_ms(lambda: [sbk.attention_tiled_launch(
-                la[0], *la[4:]) for la in launch], LAUNCH_REPS)
-            out["K4f"] = cuda_ms(lambda: [wa.window_attention_qkv_launch(*a)
-                                          for a in k4], LAUNCH_REPS)
-            out["backward"] = cuda_ms(bwd_launch, LAUNCH_REPS)
-            ms = device_kernel_ms(bwd_launch, label + "_bwd")
-            out["phase A"] = sum(v for n, v in ms.items()
-                                 if "attention_bwd_rows" in n)
-            out["phase B"] = sum(v for n, v in ms.items()
-                                 if "attention_bwd_keys" in n)
+            out["forward"] = launch_ms(lambda: [sbk.attention_tiled_launch(
+                la[0], *la[4:]) for la in launch])
+            out["K4f"] = launch_ms(lambda: [wa.window_attention_qkv_launch(*a)
+                                            for a in k4])
+            out["backward"] = launch_ms(bwd_launch)
+            shares = phase_shares(bwd_launch, label + "_bwd", (
+                "attention_bwd_rows", "attention_bwd_keys"))
+            out["phase A"] = out["backward"] * shares["attention_bwd_rows"]
+            out["phase B"] = out["backward"] * shares["attention_bwd_keys"]
         out["SDPA"], out["SDPA backward"] = sdpa_times(
             [("attention", (la[0], *la[4:])) for la in launch])
         del launch, k4
@@ -2714,7 +2806,8 @@ def _k1_times_line(out, k1):
             f"launches alone forward {out['forward']:.3f} (K4f's launch on "
             f"the same values {out['K4f']:.3f}, "
             f"{_ratio(out['forward'], out['K4f']):.2f}x), backward "
-            f"{back:.3f} (profiler: phase A {out['phase A']:.3f}, phase B "
+            f"{back:.3f} (the profiler's split: phase A {out['phase A']:.3f}, "
+            f"phase B "
             f"{out['phase B']:.3f}); SDPA on the same q, k, v with the float "
             f"mask {out['SDPA']:.3f}, its backward {out['SDPA backward']:.3f}"
             f" (launches / SDPA {_ratio(out['forward'], out['SDPA']):.2f}x, "
@@ -3387,9 +3480,10 @@ def gemm_times(launch_sets, device, card):
     tensor-core body's ms, the FMA body's on the same call (the body every
     bf16 GEMM took before), torch.matmul's on the same operands already
     rounded to bf16 (A' and W', or round(g A)^T and B: a yardstick the port
-    never calls), all three device time from one profiler trace (the
-    wrapper's host time, which can exceed a small launch's, left out), the
-    plain version's (CUDA events), and the bound; logged. Returns, per
+    never calls), all three by CUDA events with the calls queued behind a
+    spin kernel (``launch_ms``: the wrapper's host time, which can exceed a
+    small launch's, left out), the plain version's (CUDA events), and the
+    bound; logged. Returns, per
     set, {name: (ms, FMA ms, plain ms, (bound ms, by), matmul ms)} summed
     over the set's launches, each by how many calls make it."""
     import torch
@@ -3418,15 +3512,10 @@ def gemm_times(launch_sets, device, card):
                                          launch.m) * a32
                 at, bt = a32.to(bf), (args[1] if w_kn else args[1].t()).to(bf)
                 del a32
-            dev_ms = device_kernel_ms(lambda: (
-                kernel(*args, **kw), kernel(*args, **kw, _fma=True),
-                torch.matmul(at, bt)), f"gemm_{launch.kind}")
-            t = dict(ms=0.0, fma=0.0, matmul=0.0,
+            t = dict(ms=launch_ms(lambda: kernel(*args, **kw)),
+                     fma=launch_ms(lambda: kernel(*args, **kw, _fma=True)),
+                     matmul=launch_ms(lambda: torch.matmul(at, bt)),
                      plain=cuda_ms(lambda: plain(*args, **kw)))
-            for name, v in dev_ms.items():
-                t["ms" if "_mma_kernel" in name else "fma" if (
-                    "gemm_kernel" in name or "wgrad_kernel" in name)
-                  else "matmul"] += v
             bound, by = work_bound_ms(*gemm_work(launch))
             log(f"[{card}] GEMM {label} {launch.label} {launch.m}x{launch.k}"
                 f"x{launch.n} (x{times} a micro-batch): {t['ms']:.4f} ms, "
@@ -3740,9 +3829,18 @@ def main() -> int:
     cases[full] = stem_case(RESNET_STEM, RESNET_MICRO, torch.bfloat16,
                             device, sgen)
     worst.update(stem_parity_phase(cases, stable))
+    stem_dw_bits({label: case for label, case in cases.items()
+                  if case[0].dtype == torch.bfloat16}, stable)
     stem_call = [("stem_im2col", cases[full])]
     stem_ms = stem_times(*cases[full], stable)
     stem_bound = {name: bound_ms(name, stem_call) for name in STEM}
+    for name in STEM:
+        t, fma, plain_t, lib = stem_ms[name]
+        log(f"[{card}] {name} at x {tuple(cases[full][0].shape)} bf16: "
+            f"{t:.3f} ms per micro-batch of {RESNET_MICRO} (the FMA body on "
+            f"the same inputs {fma:.3f} ms, {fma / t:.2f}x; plain "
+            f"{plain_t:.3f} ms; cuDNN {lib:.3f} ms; bound "
+            f"{stem_bound[name][0]:.3f} ms by {stem_bound[name][1]})")
     del cases, stem_call
     torch.cuda.empty_cache()
 
@@ -3964,7 +4062,7 @@ def main() -> int:
             gemm_ms[swin_gemm][name]
         path_counts[name], worst[name] = gemm_counts[name], gemm_worst[name]
     for name in STEM:
-        ms[name], plain_ms[name], library_ms[name] = stem_ms[name]
+        ms[name], _, plain_ms[name], library_ms[name] = stem_ms[name]
         bounds[name] = stem_bound[name]
     path_counts.update({name: v_counts[name] for name in V_PER_CALL})
     for key, (n, err, t, plain_t, bound, lib) in probes.items():

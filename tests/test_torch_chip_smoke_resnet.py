@@ -63,6 +63,49 @@ def test_a_stem_kernel_with_a_wrong_index_fails(mutant):
         chip_smoke.stem_parity_phase(_stem_cases(), table)
 
 
+def test_stem_dw_bits_holds_two_launches_to_the_same_bits():
+    """The K5w determinism check on the CPU (the plain version, the same
+    bits twice) passes; a K5w whose second launch moves one element by one
+    f32 step fails it, naming the case."""
+    cases = {k: v for k, v in _stem_cases().items() if "bfloat16" in k}
+    table = chip_smoke.stem_table()
+    chip_smoke.stem_dw_bits(cases, table)
+    calls = []
+
+    def wobbly(*args):
+        dw = table["stem_im2col_dw"][1](*args).contiguous()
+        calls.append(1)
+        if len(calls) % 2 == 0:
+            dw.view(-1)[0] = torch.nextafter(dw.view(-1)[0],
+                                             torch.tensor(float("inf")))
+        return dw
+
+    table["stem_im2col_dw"] = (wobbly, table["stem_im2col_dw"][1])
+    with pytest.raises(AssertionError, match="give other dW bits: "
+                                             "bfloat16"):
+        chip_smoke.stem_dw_bits(cases, table)
+
+
+def test_stem_times_plumbing_on_cpu(monkeypatch):
+    """Phase 10's timing on the CPU, clocks replaced: per kernel the
+    wrapper's call, the FMA route's on the same bf16 inputs, the plain
+    version's and the library call's, each run."""
+    seen = []
+
+    def events_ms(fn, reps=3, queued=False):
+        fn()
+        seen.append(reps)
+        return float(len(seen))
+
+    monkeypatch.setattr(chip_smoke, "cuda_ms", events_ms)
+    case = _stem_cases()[f"bfloat16 {chip_smoke.STEM_GEOMS[0]}"]
+    got = chip_smoke.stem_times(*case, chip_smoke.stem_table())
+    assert got == {"stem_im2col": (1.0, 2.0, 3.0, 4.0),
+                   "stem_im2col_dw": (5.0, 6.0, 7.0, 8.0)}
+    rep = chip_smoke.LAUNCH_REPS
+    assert seen == [rep, rep, 1, rep] * 2
+
+
 RESNET_TINY = dict(RESNET_VARIANT="resnet10", IMG_SIZE=[16, 18, 16],
                    BATCH_SIZE=2, EFFECTIVE_BATCH_SIZE=4, USE_SAM=True,
                    USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
@@ -141,7 +184,26 @@ SOURCE_MUTANTS = {
     "split-K reduction over one slice only (K5w)": (
         "if (!active) return;",
         "if (!active || blockIdx.x != 0) return;"),
+    # the tensor-core bodies (bf16)
+    "fragment address one depth pair over (K5f tensor-core body)": (
+        "base[mt][hf] = r * g.sy * g.wp + SX * xo + 2 * tq + m.lpad - m.f - "
+        "g.px;",
+        "base[mt][hf] = r * g.sy * g.wp + SX * xo + 2 * tq + m.lpad - m.f - "
+        "g.px + 2;"),
+    "partials summed in an order that varies between runs (K5w "
+    "tensor-core body)": (
+        "for (int b = 0; b < blocks; ++b) s += part[(long long)b * n + i];",
+        "for (int b = 0, r = (int)(clock64() % blocks); b < blocks; ++b) "
+        "s += part[(long long)((b + r) % blocks) * n + i];"),
+    "ring slot of the group's planes one over (K5w tensor-core body)": (
+        "poff[dz] = ((zo * g.sz + dz) % m.nslot) * g.slab_rows * g.wp;",
+        "poff[dz] = ((zo * g.sz + dz + 1) % m.nslot) * g.slab_rows * g.wp;"),
 }
+# what chip_smoke.py's K5 phase says of each mutant: the parity, or the bits
+# of two K5w launches on the same inputs
+MUTANT_FAILS = {"partials summed in an order that varies between runs (K5w "
+                "tensor-core body)": "two launches on the same inputs give "
+                                     "other dW bits"}
 STEM_SOURCE = ROOT / "vsn_tpu_torch" / "csrc" / "stem_im2col.cu"
 
 
@@ -155,9 +217,10 @@ def test_source_mutants_name_one_line_of_the_source(mutant):
 @pytest.mark.parametrize("mutant", sorted(SOURCE_MUTANTS))
 def test_a_mutated_stem_source_makes_chip_smoke_fail(mutant, tmp_path):
     """chip_smoke.py run from a copy of the port (the script and its
-    package) whose stem kernel has one line mutated exits 1, failing the K5
-    parity."""
+    package) whose stem kernel has one line mutated exits 1 in its K5
+    phase: the parity, or the bits of two K5w launches."""
     res = _run_mutated_chip_smoke(STEM_SOURCE, *SOURCE_MUTANTS[mutant],
                                   tmp_path)
     assert res.returncode == 1
-    assert "stem kernels disagree with their plain versions" in res.stderr
+    assert MUTANT_FAILS.get(mutant, "stem kernels disagree with their plain "
+                                    "versions") in res.stderr

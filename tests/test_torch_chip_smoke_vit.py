@@ -281,26 +281,27 @@ def test_vit_eval_path_pieces_on_cpu():
 
 def test_tiled_launch_times_plumbing_on_cpu(vit_sets, monkeypatch):
     """The launch-alone and SDPA timing phase on the CPU, clocks replaced:
-    every function it times runs, the tiled kernels' names are picked out
-    of the profiler's, and the SDPA call takes the calls' q, k, v."""
-    import collections
+    every function it times runs, the launches alone by events queued
+    behind the spin kernel, the backward split into its phases by the
+    profiler's shares, and the SDPA call takes the calls' q, k, v."""
+    seen, timed = [], []
 
-    seen = []
-
-    def kernels_ms(fn, label, reps=3):
+    def shares(fn, label, tags):
         fn()
         seen.append(label)
-        return collections.Counter({
-            "window_attention_tiled_kernel<bf16, 2>": 1.0,
-            "attention_bwd_rows_kernel<bf16, 2>": 2.0,
-            "attention_bwd_keys_kernel<bf16, 2>": 3.0, "gemm_kernel": 9.0})
+        return dict(zip(tags, (0.4, 0.6)))
 
-    monkeypatch.setattr(chip_smoke, "device_kernel_ms", kernels_ms)
-    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=3: (
-        fn(), 0.5)[1])
+    def events_ms(fn, reps=3, queued=False):
+        fn()
+        timed.append(queued)
+        return 0.5
+
+    monkeypatch.setattr(chip_smoke, "phase_shares", shares)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", events_ms)
     got = chip_smoke.tiled_launch_times(vit_sets["bfloat16 B=2"], "cpu")
-    assert got == (1.0, 5.0, 1.0, 1.0)   # 2 K1 calls of 0.5 ms each
-    assert seen == ["vit_k1f", "vit_k1b"]
+    assert got == (0.5, 0.5, 1.0, 1.0)   # SDPA: 2 K1 calls of 0.5 ms each
+    assert seen == ["vit_k1b"]
+    assert timed == [True, True, False, False, False, False]
 
 
 def _unclamped_statistics(qkv, bias, ids, scale, heads):
@@ -343,44 +344,41 @@ def test_tiled_launch_parity_phase_on_cpu(vit_sets, monkeypatch):
 def test_forced_tiled_times_plumbing_on_cpu(monkeypatch):
     """The Swin K1 timing (phase 17) on the CPU, clocks replaced: every
     stage's K1f, K1b, the launches alone, K4f's launch on the same values
-    and SDPA's forward and backward run; phases A and B are picked out of
-    the profiler's names, K1b gets nothing kept from K1f here (the plain
-    backward), and the sums add the stages."""
-    import collections
+    and SDPA's forward and backward run; phases A and B are the profiler's
+    shares of the backward launches' events time, K1b gets nothing kept
+    from K1f here (the plain backward), and the sums add the stages."""
 
     from tests.test_torch_chip_smoke import _record
 
     calls = _record("bfloat16", True)
     seen = []
 
-    def kernels_ms(fn, label, reps=3):
+    def shares(fn, label, tags):
         fn()
-        seen.append((label, reps))
-        return collections.Counter({
-            "attention_tiled_mma_kernel<bf16, 32>": 3.0,
-            "attention_bwd_rows_mma_kernel<bf16, 32>": 4.0,
-            "attention_bwd_keys_mma_kernel<bf16, 32>": 5.0,
-            "gemm_kernel": 9.0})
+        seen.append((label, tags))
+        return dict(zip(tags, (0.25, 0.5)))
 
     timed = []
 
-    def events_ms(fn, reps=3):
+    def events_ms(fn, reps=3, queued=False):
         fn()
-        timed.append(reps)
+        timed.append((reps, queued))
         return 0.5
 
-    monkeypatch.setattr(chip_smoke, "device_kernel_ms", kernels_ms)
+    monkeypatch.setattr(chip_smoke, "phase_shares", shares)
     monkeypatch.setattr(chip_smoke, "cuda_ms", events_ms)
     stages = {tuple(a[0].shape) for n, a in calls if n == "attn_half"}
     out = chip_smoke.swin_k1_times(calls, "cpu")
     k = len(stages)
     assert out["forward"] == out["K4f"] == out["backward"] == 0.5 * k
-    assert out["phase A"] == 4.0 * k and out["phase B"] == 5.0 * k
+    assert out["phase A"] == 0.125 * k and out["phase B"] == 0.25 * k
+    assert {tags for _, tags in seen} == {("attention_bwd_rows",
+                                           "attention_bwd_keys")}
     assert out["K1f"] == out["K1b"] == 0.5 * k
     assert out["SDPA"] == out["SDPA backward"] == 0.5 * 6   # one a call
     assert len(seen) == k
-    # K1f, K1b, then the three launches alone over LAUNCH_REPS calls
-    assert timed.count(chip_smoke.LAUNCH_REPS) == 3 * k
+    # K1f, K1b, then the three launches alone over LAUNCH_REPS queued calls
+    assert timed.count((chip_smoke.LAUNCH_REPS, True)) == 3 * k
     assert out["kept bytes"] == sum(chip_smoke.kept_bytes("attn_half", a)
                                     for n, a in calls if n == "attn_half")
     assert chip_smoke.k1_kept(calls[0][1]) == {}

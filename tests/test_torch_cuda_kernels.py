@@ -429,7 +429,8 @@ STEM_GEOMETRY = [  # (shape DHW, kernel, strides, C_out), as chip_smoke.py
 @pytest.mark.parametrize("shape,ks,strides,c_out", STEM_GEOMETRY)
 def test_stem_kernels_match_plain(dev, shape, ks, strides, c_out, dtype):
     """K5f and K5w against their plain versions (TF32 off for the f32 plain
-    conv); dW is a sum over every token, reduced with f32 atomics."""
+    conv); dW is a sum over every token: in bf16 the tensor-core bodies'
+    block partials added in order, in f32 the FMA body's f32 atomics."""
     from vsn_tpu_torch.ops import stem_im2col as stem
 
     torch.backends.cudnn.allow_tf32 = False
@@ -445,6 +446,51 @@ def test_stem_kernels_match_plain(dev, shape, ks, strides, c_out, dtype):
     assert dw.dtype == want.dtype == torch.float32
     err = (dw - want).abs().max().item()
     assert err <= TOL[dtype] * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape,ks,strides,c_out", STEM_GEOMETRY)
+def test_stem_dw_is_bit_identical_across_launches(dev, shape, ks, strides,
+                                                  c_out):
+    """K5w's tensor-core body (bf16) gives the same dW bits on every launch:
+    each block sums a fixed run of rows and the partials are added in
+    order, as the TPU kernel's one revisited output block."""
+    from vsn_tpu_torch.ops import stem_im2col as stem
+
+    pad = tuple(k // 2 for k in ks)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, *shape, 1, generator=g).to(dev, torch.bfloat16)
+    outs = stem.output_shape(shape, ks, strides, pad)
+    gy = torch.randn(2, *outs, c_out, generator=g).to(dev, torch.bfloat16)
+    first = stem.stem_conv_dw(x, gy, ks, strides, pad, torch.bfloat16)
+    for _ in range(3):
+        assert torch.equal(stem.stem_conv_dw(x, gy, ks, strides, pad,
+                                             torch.bfloat16), first)
+
+
+def test_stem_fma_route_matches_plain(dev):
+    """The FMA bodies on bf16 operands (``_fma=True``, chip_smoke.py's
+    yardstick) against the plain versions, counted apart."""
+    from vsn_tpu_torch.ops import stem_im2col as stem
+
+    shape, ks, strides, c_out = STEM_GEOMETRY[-1]
+    pad = tuple(k // 2 for k in ks)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, *shape, 1, generator=g).to(dev, torch.bfloat16)
+    kernel = (torch.randn(*ks, 1, c_out, generator=g) * 0.1).to(dev)
+    before = dict(_build.launches)
+    y = stem.stem_conv_im2col(x, kernel, strides, pad, torch.bfloat16,
+                              _fma=True)
+    _close(y, stem.stem_conv_reference(x, kernel, strides, pad,
+                                       torch.bfloat16), torch.bfloat16)
+    gy = torch.randn(y.shape, generator=g).to(dev, torch.bfloat16)
+    dw = stem.stem_conv_dw(x, gy, ks, strides, pad, torch.bfloat16, _fma=True)
+    want = stem.stem_dw_reference(x, gy, ks, strides, pad, torch.bfloat16)
+    assert (dw - want).abs().max() <= 2e-2 * want.abs().max()
+    torch.cuda.synchronize()
+    for name in ("stem_im2col_fma", "stem_im2col_dw_fma"):
+        assert _build.launches[name] == before.get(name, 0) + 1, name
+    for name in ("stem_im2col", "stem_im2col_dw"):
+        assert _build.launches[name] == before.get(name, 0), name
 
 
 def test_stem_autograd_launches_k5f_and_k5w(dev):

@@ -23,7 +23,9 @@ for the card's launch-level checks) count as ``attention_tiled_launch`` /
 ``attention_tiled_bwd_launch``; the GEMM and weight-gradient launches of
 K1 / K2 called alone (``swin_block_kernels.gemm_launch`` /
 ``wgrad_launch``) as ``gemm`` / ``wgrad``, and their FMA bodies on bf16
-operands, chip_smoke.py's yardstick, as ``gemm_fma`` / ``wgrad_fma``. The
+operands, chip_smoke.py's yardstick, as ``gemm_fma`` / ``wgrad_fma``; the
+stem's FMA bodies on bf16 (``stem_im2col(..., _fma=True)``) likewise as
+``stem_im2col_fma`` / ``stem_im2col_dw_fma``. The
 attention probes (``ops/attn_probe.py``) count per run instead, under the
 run's key, and add the number of CUDA launches the call made (3 for a
 whole half-block, 2 without the attention or without the GEMMs, 1 for a
@@ -64,8 +66,8 @@ _SIGNATURES = {
                           _L, _I, _I, _I, _L, _F, _F, _P],
     "vsn_ln_mlp_bwd": [_I, *[_P] * 8, _I, *[_P] * 15, _L, _I, _I, _L, _F,
                        _P],
-    "vsn_stem_conv_fwd": [_I, _P, _P, _P, *[_I] * 17, _P],
-    "vsn_stem_conv_dw": [_I, _P, _P, _P, *[_I] * 17, _P],
+    "vsn_stem_conv_fwd": [_I, _I, _P, _P, _P, *[_I] * 17, _P],
+    "vsn_stem_conv_dw": [_I, _I, _P, _P, _P, _P, _I, _I, *[_I] * 17, _P],
     "vsn_window_attention_qkv_tiled_fwd": [_I, _P, _P, _P, _I, _P, _P, _P, _L,
                                            _I, _I, _I, _F, _P],
     "vsn_window_attention_qkv_tiled_bwd": [_I, *[_P] * 6, _I, *[_P] * 3, _L,
