@@ -10,8 +10,8 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 
 1. build the hand-written kernels from ``vsn_tpu_torch/csrc`` (one nvcc per
    source, in parallel, into build/), and beside them the ptxas report of
-   the window-attention, GEMM, K1 and stem sources (``python -m
-   vsn_tpu_torch.probes.ptxas``);
+   the window-attention, GEMM, K1, stem, row-kernel and K3 sources
+   (``python -m vsn_tpu_torch.probes.ptxas``);
 2. print the card's name and power limit (nvidia-smi);
 2a. the GEMM and weight-gradient bodies of K1 / K2 alone (``gemm_launch``
    / ``wgrad_launch``, csrc/gemm.cu): every launch that one training
@@ -27,6 +27,29 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    beside the FMA body's on the same call (the body
    every bf16 GEMM took before), ``torch.matmul`` on the same rounded
    operands (a yardstick), the plain version and the bound;
+2b. the row kernels of K1 / K2 alone (csrc/row_kernels.cu): the LayerNorm
+   backward of K1b / K2b (``ln_bwd_launch``, ``postnorm_bwd_launch``: one
+   CUDA body in two modes, csrc/common.cuh) at every K1b / K2b call of those
+   training passes, in bf16 and f32, pre-norm (lam PATH_LAM) and post-norm
+   (with gamma, the arms' mode; the parameter vectors views 4 bytes into a
+   buffer, as training's), against their plain versions
+   (``ln_backward_rows_reference``, ``postnorm_backward_rows_reference``):
+   dx / dbranch within TOL of their scale, dw / db / dgamma within
+   LN_BWD_TOL (1e-3 bf16, 1e-4 f32); a second launch on the same inputs
+   must give the same bits in every output; then the LN-backward path, each
+   launch as often as a micro-batch pass makes it, with every counter at 0
+   before and exactly those launches after; then each launch's device time
+   (``launch_ms``) beside its plain version's, one
+   ``aten.native_layer_norm_backward`` call on the same rows (a yardstick:
+   bf16 pre-norm, f32 post-norm, the residual line and gamma outside it)
+   and its bound (bytes, or 13 / 20 f32 operations an element), summed per
+   micro-batch pass (the result line's LN-backward entries: both passes, the
+   launches the path counts); then the row kernels this phase leaves as they are
+   (``sbk.ROW_KERNELS``: LN's rows, the column sums, the post-norm
+   forward's finish, the pre-norm LayerScale gradients) at the same calls,
+   each launch held to its plain version once and timed beside it, the
+   library call (``native_layer_norm``, ``Tensor.sum(0)``) where one exists,
+   and its bound;
 3. K1's key-tiled attention body, and K2, on ViT-S's calls
    (vit-5c-no_seed-baseline: N = 811 tokens, 6 heads of 64, no bias, no
    region ids): every K1/K2 call of an eval forward at batch 2 in f32 and in
@@ -91,9 +114,10 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    o (V1, V3 and K4 run one tiled body on three layouts); V1b's and V3b's
    dq, dk, dv from their kept state against K4b's (logged) and dbias
    within TOL["float32"] of its scale. The ptxas report of phase 1: every
-   window-attention, GEMM, weight-gradient, K1 and stem kernel's
+   window-attention, GEMM, weight-gradient, K1, stem, row and K3 kernel's
    registers, none spilling but K1's whole-window bodies and K5f's f32
-   FMA body, and K5's tensor-core bodies there. The V kernels'
+   FMA body, and K5's tensor-core bodies, the LN-backward body's 32
+   instantiations and K3's three gathers there. The V kernels'
    times per micro-batch beside their plain versions', SDPA's forward and
    backward on the same calls and their bounds; their launches alone
    (CUDA events, the calls queued behind a spin kernel: V1f, V3f, V1b and
@@ -226,7 +250,12 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 16a. the ViT stabilizer path: phases 15 and 16 for ViT-S with POST_NORM,
    LAYER_SCALE and ENABLE_STABLE (12 tiled K1f / K1b and 12 K2f / K2b in
    the "_post_ls" mode per forward or micro-batch and SAM pass);
-17. K1 at Swin's training calls at micro-batch 8, per stage and summed
+17. K3 at Swin's training calls at micro-batch 8: each mover call and its
+   adjoint alone (``mover_launch_times``: CUDA events over LAUNCH_REPS calls
+   queued behind a spin kernel), the bandwidth each reaches (its bytes and
+   its row map's, over that time) and its share of 3.35 TB/s, summed per
+   micro-batch and logged beside the K3 entries' times (through their
+   wrappers, as every block kernel's entry); K1 at Swin's training calls at micro-batch 8, per stage and summed
    (``swin_k1_times``): K1f and K1b whole; their attention launches alone
    (CUDA events over 10 calls queued behind a spin kernel: K1f's launch
    2, K1b's phases A and B, split by the profiler's shares) beside K4f's
@@ -270,6 +299,14 @@ idle share (traces in build/).
 
 Every failure raises (exit code 1). The last lines are one JSON object of
 per-kernel results and then {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --k3-alone [PORT]
+
+times only K3's launches alone at the mover calls of one Swin-T training
+micro-batch (phase 17's ``mover_launch_times``) for the port in the
+directory PORT (an unpacked checkout of another commit; this checkout's by
+default), so that two commits' movers are held to one measure in one call;
+it prints the card's line and then {"k3_alone_ms": {name: ms}}.
 """
 
 from __future__ import annotations
@@ -387,6 +424,21 @@ GEMM_KERNELS = {
               "vsn_tpu/ops/swin_block_kernels.py:434"),
 }
 KERNELS.update(GEMM_KERNELS)
+# The LayerNorm backward of K1b / K2b (csrc/common.cuh, one body in two
+# modes), which they launch inside their calls; the row-kernel phase drives
+# it through its own entry points (csrc/row_kernels.cu). name -> (source,
+# the TPU kernels' _ln_bwd, which all four call sites share)
+LN_BWD_KERNELS = {
+    "ln_bwd": ("vsn_tpu_torch/csrc/common.cuh",
+               "vsn_tpu/ops/swin_block_kernels.py:85"),
+    "postnorm_bwd": ("vsn_tpu_torch/csrc/common.cuh",
+                     "vsn_tpu/ops/swin_block_kernels.py:85"),
+}
+KERNELS.update(LN_BWD_KERNELS)
+# dw / db / dgamma of the LN backward against its plain version, relative to
+# their scale: bf16 launches 1e-3 (the same f32 terms of rounded inputs
+# summed in another order), f32 1e-4
+LN_BWD_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
 # The GEMM phase's tolerances, relative to each output's scale: bf16
 # outputs 2e-2 (one bf16 step where the f32 sums round apart); the f32
 # outputs of bf16 launches (out32, and the weight gradients' sums, added by
@@ -508,6 +560,11 @@ RESNET_STEM = ((144, 168, 144), (7, 7, 7), (1, 2, 2), 64)
 # and its f32 FMA forward, whose 24 bytes of spills predate them
 STEM_MMA = ("stem_fwd_mma_kernel", "stem_dw_mma_kernel")
 STEM_F32_FMA = "stem_fwd_kernel<float"
+# The LN-backward body (2 types x 2 modes x 8 column layouts) with its
+# ordered sum, and K3's gather (16-, 4- and 1-byte chunks), as the ptxas
+# report of row_kernels.cu and window_relayout.cu lists them
+ROW_BODIES = {"ln_bwd_rows_kernel": 32, "ln_bwd_sum_kernel": 1,
+              "relayout_map_kernel": 3}
 # H100 SXM datasheet peaks: HBM bytes/s and dense FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1222,9 +1279,11 @@ def start_ptxas():
     """``python -m vsn_tpu_torch.probes.ptxas`` on the window-attention
     source (K4, V1, V3), the GEMM source (every GEMM and weight-gradient
     instantiation of K1 / K2, tensor-core and FMA bodies, bf16 and f32),
-    K1's two sources (its tiled and whole-window launches) and the stem's
-    (K5f / K5w, tensor-core and FMA bodies), which compiles them once more
-    with ``-Xptxas -v``: the process, to be read by ``ptxas_phase``."""
+    K1's two sources (its tiled and whole-window launches), the stem's
+    (K5f / K5w, tensor-core and FMA bodies), the row kernels' (the
+    LN-backward body in every instantiation) and K3's, which compiles them
+    once more with ``-Xptxas -v``: the process, to be read by
+    ``ptxas_phase``."""
     import atexit
     import signal
 
@@ -1232,7 +1291,8 @@ def start_ptxas():
     proc = subprocess.Popen(
         [sys.executable, "-m", "vsn_tpu_torch.probes.ptxas",
          str(root / "vsn_tpu_torch" / "csrc"), "window_attention_qkv.cu",
-         "gemm.cu", "attn_half.cu", "attn_half_bwd.cu", "stem_im2col.cu"],
+         "gemm.cu", "attn_half.cu", "attn_half_bwd.cu", "stem_im2col.cu",
+         "row_kernels.cu", "window_relayout.cu"],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
 
@@ -1250,8 +1310,10 @@ def ptxas_phase(proc):
     and stem sources (``start_ptxas``'s report: source, registers, spill
     stores, spill loads, name) and fail if one spills, if no V1 / V3
     instantiation (layout ``Split`` / ``MapRows``) is there, if a
-    tensor-core GEMM or weight-gradient body is missing, or if K5's
-    tensor-core bodies (``STEM_MMA``) are not there at both x-strides.
+    tensor-core GEMM or weight-gradient body is missing, if K5's
+    tensor-core bodies (``STEM_MMA``) are not there at both x-strides, or if
+    row_kernels.cu and window_relayout.cu do not compile the LN-backward
+    body and K3's gather as ``ROW_BODIES`` counts them.
     K1's whole-window bodies (``WHOLE_WINDOW``), off every main path, and
     K5f's f32 FMA body (``STEM_F32_FMA``), which keeps its statements and
     registers, are logged and not held to the spill gate: they have
@@ -1271,13 +1333,19 @@ def ptxas_phase(proc):
               if body in r[4]}
     stem = collections.Counter(body for r in rows for body in STEM_MMA
                                if body in r[4])
+    redesigned = collections.Counter(
+        body for r in rows for body in ROW_BODIES
+        if body in r[4] and r[0] in ("row_kernels.cu", "window_relayout.cu"))
     if spills or layouts != {"Split", "MapRows"} or len(bodies) != 2 or \
-            stem != dict.fromkeys(STEM_MMA, 2):
-        raise AssertionError(f"window attention, GEMM, K1 and stem kernels "
-                             f"that spill: {spills}; V layouts compiled: "
-                             f"{sorted(layouts)}; tensor-core GEMM bodies: "
-                             f"{sorted(bodies)}; K5 tensor-core bodies "
-                             f"(x-strides 1 and 2): {dict(stem)}")
+            stem != dict.fromkeys(STEM_MMA, 2) or redesigned != ROW_BODIES:
+        raise AssertionError(f"window attention, GEMM, K1, stem, row and K3 "
+                             f"kernels that spill: {spills}; V layouts "
+                             f"compiled: {sorted(layouts)}; tensor-core GEMM "
+                             f"bodies: {sorted(bodies)}; K5 tensor-core "
+                             f"bodies (x-strides 1 and 2): {dict(stem)}; the "
+                             f"LN-backward and K3 bodies of row_kernels.cu "
+                             f"and window_relayout.cu: {dict(redesigned)}, "
+                             f"expected {ROW_BODIES}")
 
 
 def k4_agreement(triples, gen):
@@ -1671,21 +1739,14 @@ def phase_shares(fn, label, tags):
     return {tag: by_tag[tag] / total for tag in tags}
 
 
-def kernel_times(calls, backward=True):
-    """Per-kernel (ms, plain ms) summed over one forward's calls and (with
-    ``backward``) their backward: the forward wrappers and K1b/K2b/K4b on
-    the recorded arguments with one cotangent, the movers' adjoints as the
-    opposite move."""
-    import torch
-    from vsn_tpu_torch.ops import swin_block_kernels as sbk
-    from vsn_tpu_torch.ops import window_attention as wa
+def mover_adjoints():
+    """mover -> (its adjoint's kernel, the plain adjoint), each a function
+    of (g, the mover call's arguments): the opposite move with the roll
+    negated."""
     from vsn_tpu_torch.ops import window_relayout as wr
 
-    table = {**kernel_table(), **attention_table(), **v_table()}
-    ms = collections.defaultdict(float)
-    plain_ms = collections.defaultdict(float)
     neg = lambda roll: tuple(-r for r in roll)
-    adjoints = {  # mover -> (adjoint kernel, plain adjoint) of (g, args)
+    return {
         "spatial_to_windows": (
             lambda g, a: wr.windows_to_spatial(g, a[1], a[0].shape[1:4],
                                                neg(a[2])),
@@ -1700,6 +1761,57 @@ def kernel_times(calls, backward=True):
             lambda g, a: wr.spatial_to_windows_reference(g, a[1],
                                                          neg(a[3]))),
     }
+
+
+def mover_launch_times(calls, card):
+    """The K3 launches alone at the mover calls of ``calls`` (one training
+    micro-batch's: Swin-T's stages 1, 2 and 4), each forward and its
+    adjoint: device ms by ``launch_ms``, the bandwidth reached (the bytes
+    read and written and the map's 4 a row, ``call_work``, over that time)
+    and its share of the HBM rate; one line per call. Returns {name: ms
+    summed over the calls}."""
+    import torch
+
+    table = kernel_table()
+    adjoints = mover_adjoints()
+    out = collections.Counter()
+    with torch.no_grad():
+        for name, args in calls:
+            if name not in MOVERS:
+                continue
+            g = table[name][1](*args)
+            for kname, fn in ((name, lambda: table[name][0](*args)),
+                              (f"{name}_adjoint",
+                               lambda: adjoints[name][0](g, args))):
+                t = launch_ms(fn)
+                nbytes = call_work(kname, args)[1]
+                rate = nbytes / t / 1e6  # GB/s
+                out[kname] += t
+                log(f"[{card}] {kname} alone at x {tuple(args[0].shape)} "
+                    f"{args[0].dtype}, roll {tuple(args[-1])}: {t:.4f} ms, "
+                    f"{rate:.0f} GB/s ({rate * 1e9 / HBM_BYTES_PER_S:.1%} "
+                    f"of {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {nbytes / 1e6:.1f}"
+                    " MB moved)")
+            del g
+    log(f"[{card}] K3 alone, summed over a micro-batch of {TRAIN_MICRO}: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+        + f"; all six {sum(out.values()):.4f} ms")
+    return out
+
+
+def kernel_times(calls, backward=True):
+    """Per-kernel (ms, plain ms) summed over one forward's calls and (with
+    ``backward``) their backward: the forward wrappers and K1b/K2b/K4b on
+    the recorded arguments with one cotangent, the movers' adjoints as the
+    opposite move."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+    from vsn_tpu_torch.ops import window_attention as wa
+
+    table = {**kernel_table(), **attention_table(), **v_table()}
+    ms = collections.defaultdict(float)
+    plain_ms = collections.defaultdict(float)
+    adjoints = mover_adjoints()
     with torch.no_grad():
         for name, args in calls:
             kernel, plain = table[name]
@@ -2028,7 +2140,9 @@ def call_work(name, args):
         flops = 2 * taps * g.shape[-1] * tokens
         out = g if name == "stem_im2col" else kernel  # y like g, dW like W
         return flops, _nbytes(x, kernel if name == "stem_im2col" else g, out)
-    return 0, 2 * _nbytes(x)  # a mover or its adjoint: read and write
+    # a mover or its adjoint: every byte read and written, and the row
+    # map's 4 bytes a row (csrc/window_relayout.cu)
+    return 0, 2 * _nbytes(x) + 4 * (x.numel() // x.shape[-1])
 
 
 def kept_bytes(name, args):
@@ -2056,6 +2170,11 @@ def bound_ms(name, calls, dtype="bfloat16"):
     over the HBM rate and the FLOP over the peak rate for ``dtype``."""
     base = FORWARD_OF.get(name, name)
     flops = nbytes = 0
+    if name in LN_BWD_KERNELS:  # the launches of the K1b / K2b calls, f32
+        for launch, times in row_launch_set(calls).items():
+            f, b = ln_bwd_work(name, launch, dtype)
+            flops, nbytes = flops + times * f, nbytes + times * b
+        return work_bound_ms(flops, nbytes, "float32")
     if name in GEMM_KERNELS:  # the launches that the K1 / K2 calls make
         for launch, times in gemm_launch_set(calls).items():
             if launch.kind == name:
@@ -3539,15 +3658,16 @@ def gemm_times(launch_sets, device, card):
     return out
 
 
-def gemm_shapes(device):
+def block_shapes(device):
     """The K1 / K2 calls of one training forward of the Swin-T 5c flagship
     model at micro-batch TRAIN_MICRO and of ViT-S 5c at VIT_MICRO, recorded
-    on zero volumes of their input size (only the shapes are read):
-    {label: Counter(GemmLaunch)}."""
+    on zero volumes of their input size (only the shapes are read): their
+    GEMM launches {label: Counter(GemmLaunch)} and their LN-backward
+    launches {label: Counter(RowLaunch)}."""
     import torch
     from vsn_tpu_torch.config import load_config
 
-    out = {}
+    out, rows = {}, {}
     for label, cfg in (
             (f"Swin-T micro {TRAIN_MICRO}", load_config(dict(
                 USE_SHAKEDROP=True, BATCH_SIZE=TRAIN_MICRO))),
@@ -3560,9 +3680,428 @@ def gemm_shapes(device):
         calls = record_calls(model, x,
                              generator=torch.Generator(device).manual_seed(4))
         out[label] = gemm_launch_set(calls)
+        rows[label] = row_launch_set(calls)
         del model, x, calls
     torch.cuda.empty_cache()
+    return out, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: the row kernels of K1 / K2 alone (csrc/common.cuh, entry points
+# csrc/row_kernels.cu): the LayerNorm backward of K1b / K2b in its two modes
+# (``ln_bwd_launch``, ``postnorm_bwd_launch``), and the row kernels it
+# leaves as they are (``sbk.ROW_KERNELS``), timed beside it
+# ---------------------------------------------------------------------------
+
+RowLaunch = collections.namedtuple("RowLaunch",
+                                   "label m c rows_per_sample hidden")
+
+
+def block_row_launches(name, args):
+    """The LN-backward launch that one K1 (``attn_half``) or K2
+    (``ln_mlp``) call makes in its backward: K1b's LN1 or K2b's LN2 over the
+    call's rows, as a RowLaunch (hidden: K2's hidden width, 0 for K1)."""
+    x = args[0]
+    if name == "attn_half":
+        m, c = x.shape[0] * x.shape[1], x.shape[2]
+        return RowLaunch("K1b LN1", m, c, m // args[9].shape[0], 0)
+    m, c = x.shape
+    return RowLaunch("K2b LN2", m, c, m // args[7].shape[0],
+                     args[3].shape[0])
+
+
+def row_launch_set(calls):
+    """{RowLaunch: how many of the calls make it} for the K1 / K2 calls
+    among ``calls`` [(name, args)]."""
+    return collections.Counter(block_row_launches(name, args)
+                               for name, args in calls
+                               if name in BLOCK_KERNELS)
+
+
+def ln_bwd_table():
+    """name -> (launch wrapper, plain version) of the LN backward alone."""
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    return {"ln_bwd": (sbk.ln_bwd_launch, sbk.ln_backward_rows_reference),
+            "postnorm_bwd": (sbk.postnorm_bwd_launch,
+                             sbk.postnorm_backward_rows_reference)}
+
+
+def ln_bwd_call(name, launch, dtype, device, gen):
+    """Seeded arguments of the LN-backward launch ``name`` at ``launch``'s
+    rows and width in ``dtype``. Pre-norm (``ln_bwd``): x = 3 z + 1 and its
+    own row statistics, LN scale 1 + 0.1 z, dy = z (f32), do_res = z, lam
+    PATH_LAM. Post-norm (``postnorm_bwd``, as the arms launch it, with
+    LayerScale): the f32 branch 2 z - 0.5, do_res = z, per-sample gains 0.6
+    .. 1.4, LN scale and shift 0.1 z, gamma 0.5 + 0.1 z. The parameter
+    vectors are views 4 bytes into a buffer, as training's are views into
+    its flat parameter buffer."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    cdt = getattr(torch, dtype)
+    z = lambda *s: torch.randn(*s, generator=gen, device=device)
+    vec = lambda v: torch.cat([v.new_zeros(1), v])[1:]
+    m, c = launch.m, launch.c
+    w = vec(1 + 0.1 * z(c))
+    do_res = z(m, c).to(cdt)
+    if name == "ln_bwd":
+        x = (3 * z(m, c) + 1).to(cdt)
+        stats = sbk.ln_rows_reference(x, torch.ones_like(w),
+                                      torch.zeros_like(w))[1]
+        return x, stats, w, z(m, c), do_res, PATH_LAM
+    gains = torch.linspace(0.6, 1.4, m // launch.rows_per_sample,
+                           device=device)
+    return (2 * z(m, c) - 0.5, do_res, gains, launch.rows_per_sample, w,
+            vec(0.1 * z(c)), vec(0.5 + 0.1 * z(c)))
+
+
+def _ln_outputs(name, fn, args):
+    """The outputs of ``fn`` (a launch or its plain version) on ``args``;
+    the post-norm kernel overwrites its branch, so it gets a copy."""
+    if name == "postnorm_bwd":
+        args = (args[0].clone(), *args[1:])
+    return [t for t in fn(*args) if t is not None]
+
+
+def ln_bwd_compare(name, args, table):
+    """One LN-backward launch against its plain version on the same
+    arguments: (the largest max|d| of its outputs, the largest as a share
+    of its limit, whether a second launch gave the same bits in every
+    output). dx / dbranch are held to TOL of the activation type, dw, db and
+    dgamma to LN_BWD_TOL, each relative to its scale."""
+    import torch
+
+    kernel, plain = table[name]
+    got = _ln_outputs(name, kernel, args)
+    again = _ln_outputs(name, kernel, args)
+    want = _ln_outputs(name, plain, args)
+    dtype = str(args[1 if name == "postnorm_bwd" else 0].dtype).split(".")[-1]
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} outputs, expected "
+                             f"{len(want)}")
+    err_max = ratio_max = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        limit = TOL[dtype] if i == 0 else LN_BWD_TOL[dtype]
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(1.0, w.float().abs().max().item())
+        if not math.isfinite(err):
+            err = math.inf
+        err_max = max(err_max, err)
+        ratio_max = max(ratio_max, err / (limit * scale))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    return err_max, ratio_max, same
+
+
+def ln_bwd_parity_phase(sets, device, table=None, seed=SEED + 27):
+    """Every LN-backward launch of ``sets`` {label: (Counter(RowLaunch),
+    dtype)} in both modes against its plain version, and a second launch
+    for the same bits (``ln_bwd_compare``); logs each set's worst; raises
+    naming the launches over their limit or whose bits differ. Returns
+    {name: worst max|d|}."""
+    import torch
+
+    table = table or ln_bwd_table()
+    gen = torch.Generator(device).manual_seed(seed)
+    worst, failed, unequal = dict.fromkeys(LN_BWD_KERNELS, 0.0), [], []
+    for label, (launches, dtype) in sets.items():
+        ratios = dict.fromkeys(LN_BWD_KERNELS, 0.0)
+        for name in LN_BWD_KERNELS:
+            for launch in launches:
+                args = ln_bwd_call(name, launch, dtype, device, gen)
+                err, ratio, same = ln_bwd_compare(name, args, table)
+                worst[name] = max(worst[name], err)
+                ratios[name] = max(ratios[name], ratio)
+                what = f"{label} {name} {launch.label} {launch.m}x{launch.c}"
+                if not ratio <= 1.0:
+                    failed.append(f"{what}: {ratio:.2f} of its limit")
+                if not same:
+                    unequal.append(what)
+                del args
+        log(f"LN-backward parity {label} ({dtype}): {len(launches)} launch "
+            "shapes a mode, " + ", ".join(
+                f"{k} worst {v:.3f} of the limit" for k, v in ratios.items())
+            + ", two launches bit-equal" * (not unequal))
+    if failed:
+        raise AssertionError("LN-backward launches disagree with their "
+                             f"plain versions: {failed}")
+    if unequal:
+        raise AssertionError("LN-backward launches differ between two runs "
+                             f"on the same inputs: {unequal}")
+    return worst
+
+
+def ln_bwd_path(sets, device):
+    """Every LN-backward launch of ``sets`` {label: Counter(RowLaunch)} as
+    often as a training micro-batch pass makes it, through
+    ``ln_bwd_launch`` (the default mode) and ``postnorm_bwd_launch`` (the
+    post-norm arms'), with every launch counter at 0 before: the counters
+    after, which must be one per launch and nothing else."""
+    import torch
+    from vsn_tpu_torch.ops import _build
+
+    gen = torch.Generator(device).manual_seed(SEED + 28)
+    table = ln_bwd_table()
+    want = collections.Counter()
+    _build.launches.clear()
+    for name in LN_BWD_KERNELS:
+        for launches in sets.values():
+            for launch, times in launches.items():
+                args = ln_bwd_call(name, launch, "bfloat16", device, gen)
+                for _ in range(times):
+                    table[name][0](*args)
+                want[name] += times
+                del args
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_counts(counts, want, 1, "LN-backward path")
+    return counts
+
+
+def ln_bwd_work(name, launch, dtype="bfloat16"):
+    """(f32 operations, bytes) of one LN-backward launch: each input read
+    once and each output written once (pre-norm x, do_res, dx in the
+    activation type, dy f32, the row statistics, w, dw, db; post-norm the
+    f32 branch read and dbranch written, do_res, the gains, w, b, gamma, dw,
+    db, dgamma); 13 operations an element pre-norm (xhat, dxhat, the two row
+    sums, dw, db, dx), 20 post-norm (the statistics, the gain and gamma and
+    dgamma besides)."""
+    el = 2 if dtype == "bfloat16" else 4
+    m, c = launch.m, launch.c
+    if name == "ln_bwd":
+        return 13 * m * c, m * c * (3 * el + 4) + 8 * m + 12 * c
+    return 20 * m * c, m * c * (8 + el) + 4 * (m // launch.rows_per_sample) \
+        + 24 * c
+
+
+def ln_library_call(name, args):
+    """One PyTorch call that computes the LN backward on the same rows, a
+    yardstick the port never calls: ``aten.native_layer_norm_backward``,
+    pre-norm in the activation type (dy rounded to it, LN's scale and a zero
+    shift in it; the residual line lies outside it), post-norm in f32 on
+    the branch with do = gb * do_res (gamma outside it). Its mean and rstd
+    come from ``native_layer_norm`` on the same rows."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    if name == "ln_bwd":
+        x, _, w, dy, _, _ = args
+        grad, w = dy.to(x.dtype), w.to(x.dtype)
+        b = torch.zeros_like(w)
+    else:
+        x, do_res, gains, rps, w, b, _ = args
+        grad = sbk._gain_rows(gains, rps, x.shape[0]) * do_res.float()
+    c = x.shape[1]
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [c], w, b, 1e-5)
+    return lambda: torch.ops.aten.native_layer_norm_backward(
+        grad, x, [c], mean, rstd, w, b, [True, True, True])
+
+
+def ln_bwd_times(sets, device, card):
+    """Per launch of each set {label: Counter(RowLaunch)}, bf16, in both
+    modes: the launches' device ms (``launch_ms``: the rows and the sum,
+    queued behind a spin kernel), the plain version's (``cuda_ms``),
+    ``ln_library_call``'s (``launch_ms``) and the bound (``ln_bwd_work`` at
+    the f32 rate); logged. Returns {(label, name): (ms, plain ms, (bound
+    ms, by), library ms)} summed over the set's launches, each times the
+    calls that make it in a micro-batch pass."""
+    import torch
+
+    gen = torch.Generator(device).manual_seed(SEED + 29)
+    table = ln_bwd_table()
+    out = {}
+    for label, launches in sets.items():
+        for name in LN_BWD_KERNELS:
+            kernel, plain = table[name]
+            tot = collections.Counter()
+            for launch, times in launches.items():
+                args = ln_bwd_call(name, launch, "bfloat16", device, gen)
+                lib = ln_library_call(name, args)
+                t = dict(ms=launch_ms(lambda: kernel(*args)),
+                         plain=cuda_ms(lambda: plain(*args)),
+                         library=launch_ms(lib))
+                flops, nbytes = ln_bwd_work(name, launch)
+                bound, by = work_bound_ms(flops, nbytes, "float32")
+                log(f"[{card}] {name} {label} {launch.label} {launch.m}x"
+                    f"{launch.c} (x{times} a micro-batch pass): "
+                    f"{t['ms']:.4f} ms ({t['ms'] / bound:.2f}x the bound), "
+                    f"plain {t['plain']:.4f} ms, native_layer_norm_backward"
+                    f" {t['library']:.4f} ms, bound {bound:.4f} ms by {by} "
+                    f"({nbytes / t['ms'] / 1e6:.0f} GB/s)")
+                tot.update({k: times * v for k, v in (
+                    *t.items(), ("flops", flops), ("bytes", nbytes))})
+                del args, lib
+            bound = work_bound_ms(tot["flops"], tot["bytes"], "float32")
+            out[(label, name)] = (tot["ms"], tot["plain"], bound,
+                                  tot["library"])
+            log(f"[{card}] {name} {label}: {tot['ms']:.3f} ms per "
+                f"micro-batch pass ({tot['ms'] / bound[0]:.2f}x the bound; "
+                f"plain {tot['plain']:.3f} ms, native_layer_norm_backward "
+                f"{tot['library']:.3f} ms, bound {bound[0]:.3f} ms by "
+                f"{bound[1]})")
+        torch.cuda.empty_cache()
     return out
+
+
+def ln_bwd_entries(times, sets):
+    """The result line's LN-backward entries {name: (ms, plain ms, (bound
+    ms, by), library ms)}: ``ln_bwd_times``' sums added over every set of
+    ``sets`` (the launches that ``ln_bwd_path`` counts), the bound that of
+    the summed work."""
+    out = {}
+    for name in LN_BWD_KERNELS:
+        per = [times[(label, name)] for label in sets]
+        work = [sum(t * ln_bwd_work(name, launch)[i]
+                    for launches in sets.values()
+                    for launch, t in launches.items()) for i in (0, 1)]
+        out[name] = (sum(p[0] for p in per), sum(p[1] for p in per),
+                     work_bound_ms(*work, "float32"),
+                     sum(p[3] for p in per))
+    return out
+
+
+def row_kernel_calls(launch):
+    """The row kernels other than the LN backward (``sbk.ROW_KERNELS``) that
+    the K1 / K2 call of ``launch`` makes in its training pass, by mode:
+    [(kernel, what, shape)]: LN's rows and statistics in the pre-norm
+    backward; the bias gradients' column sums (K1b's dbproj and K2b's dfc2_b
+    over the gated do_res, K2b's dfc1_b over the f32 dh1 [M, hidden]); the
+    post-norm forward's finish (K1f / K2f, post-norm arms); the pre-norm
+    LayerScale gradients (K1b / K2b, the LayerScale arm) of proj [C, C] or
+    fc2 [C, hidden]."""
+    m, c, k1 = launch.m, launch.c, launch.label.startswith("K1")
+    out = [("ln_rows", "LN rows", (m, c)),
+           ("colsum", "dbproj" if k1 else "dfc2_b", (m, c, "gated")),
+           ("postnorm_fwd", "post-norm forward", (m, c)),
+           ("layerscale_grads", "proj" if k1 else "fc2",
+            (c, c if k1 else launch.hidden))]
+    if not k1:
+        out.append(("colsum", "dfc1_b", (m, launch.hidden, "f32")))
+    return out
+
+
+def row_kernel_args(kname, shape, launch, device, gen, dtype="bfloat16"):
+    """Seeded arguments of one row-kernel launch (``row_kernel_calls``)."""
+    import torch
+
+    cdt = getattr(torch, dtype)
+    z = lambda *s: torch.randn(*s, generator=gen, device=device)
+    rps = launch.rows_per_sample
+    gains = torch.linspace(0.6, 1.4, launch.m // rps, device=device)
+    if kname == "ln_rows":
+        m, c = shape
+        return (3 * z(m, c) + 1).to(cdt), 1 + 0.1 * z(c), 0.1 * z(c)
+    if kname == "colsum":
+        m, n, kind = shape
+        if kind == "f32":
+            return (z(m, n),)
+        return z(m, n).to(cdt), gains, rps
+    if kname == "postnorm_fwd":
+        m, c = shape
+        return (2 * z(m, c) - 0.5, z(m, c).to(cdt), 1 + 0.1 * z(c),
+                0.1 * z(c), 0.5 + 0.1 * z(c), gains, rps, PATH_LAM)
+    n, k = shape
+    return (k ** -0.5 * z(n, k), 0.1 * z(n), 0.5 + 0.1 * z(n), z(n, k),
+            z(n), z(n))
+
+
+def row_kernel_work(kname, args):
+    """(f32 operations, bytes) of one row-kernel launch: each input read
+    once and each output written once."""
+    if kname == "ln_rows":
+        x = args[0]
+        return 5 * x.numel(), 2 * _nbytes(x) + 8 * x.shape[0] + \
+            _nbytes(*args[1:])
+    if kname == "colsum":
+        a = args[0]
+        return 2 * a.numel(), _nbytes(*args[:2]) + 4 * a.shape[1]
+    if kname == "postnorm_fwd":
+        branch, x = args[:2]
+        return 8 * x.numel(), _nbytes(branch) + 2 * _nbytes(x) + \
+            _nbytes(*args[2:6])
+    w = args[0]   # layerscale_grads: w and dw read, dw written
+    return 3 * w.numel(), 3 * _nbytes(w) + 5 * _nbytes(args[1])
+
+
+def row_library_call(kname, args):
+    """The one PyTorch call computing a row kernel's function, a yardstick
+    the port never calls (``native_layer_norm`` for LN's rows, in the
+    activation type, ``Tensor.sum(0)`` for the column sums, without the
+    gain), or None."""
+    import torch
+
+    if kname == "ln_rows":
+        x, w, b = args
+        return lambda: torch.ops.aten.native_layer_norm(
+            x, [x.shape[1]], w.to(x.dtype), b.to(x.dtype), 1e-5)
+    if kname == "colsum":
+        return lambda: args[0].sum(0)
+    return None
+
+
+def row_kernel_times(sets, device, card):
+    """The row kernels that this phase does not redesign, at the calls of
+    ``sets`` {label: Counter(RowLaunch)}, bf16: each distinct launch once
+    against its plain version (outputs in the activation type to TOL, f32
+    ones to LN_BWD_TOL of their scale), then its device ms (``launch_ms``),
+    the plain version's, the library call's where one exists and the bound,
+    with its launches a micro-batch pass in its mode; logged, and summed per
+    set and kernel. Raises if a launch disagrees with its plain version."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    gen = torch.Generator(device).manual_seed(SEED + 30)
+    failed = []
+    for label, launches in sets.items():
+        tot = collections.defaultdict(collections.Counter)
+        for launch, times in launches.items():
+            for kname, what, shape in row_kernel_calls(launch):
+                kernel, plain = sbk.ROW_KERNELS[kname]
+                args = row_kernel_args(kname, shape, launch, device, gen)
+                got, want = kernel(*args), plain(*args)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                ratio = 0.0
+                for g, w in zip(got, want):
+                    limit = (TOL["bfloat16"] if g.dtype == torch.bfloat16
+                             else LN_BWD_TOL["bfloat16"])
+                    scale = max(1.0, w.float().abs().max().item())
+                    err = (g.float() - w.float()).abs().max().item()
+                    ratio = max(ratio, err / (limit * scale)
+                                if math.isfinite(err) else math.inf)
+                if not ratio <= 1.0:
+                    failed.append(f"{label} {kname} {launch.label} {what}: "
+                                  f"{ratio:.2f} of its limit")
+                lib = row_library_call(kname, args)
+                t = dict(ms=launch_ms(lambda: kernel(*args)),
+                         plain=cuda_ms(lambda: plain(*args)),
+                         library=launch_ms(lib) if lib else 0.0)
+                flops, nbytes = row_kernel_work(kname, args)
+                bound, by = work_bound_ms(flops, nbytes, "float32")
+                lib_text = (f"{t['library']:.4f} ms" if lib
+                            else "no single call")
+                log(f"[{card}] row {kname} {label} {launch.label} {what} "
+                    f"{shape} (x{times} a micro-batch pass in its mode): "
+                    f"{t['ms']:.4f} ms ({t['ms'] / bound:.2f}x the bound), "
+                    f"plain {t['plain']:.4f} ms, library {lib_text}, bound "
+                    f"{bound:.4f} ms by {by}; worst {ratio:.3f} of the limit")
+                tot[kname].update({k: times * v for k, v in (
+                    *t.items(), ("flops", flops), ("bytes", nbytes),
+                    ("launches", 1))})
+                del args
+        for kname, t in tot.items():
+            bound = work_bound_ms(t["flops"], t["bytes"], "float32")
+            lib = (f"{t['library']:.3f} ms" if t["library"]
+                   else "no single call")
+            log(f"[{card}] row {kname} {label}: {t['launches']} launches, "
+                f"{t['ms']:.3f} ms per micro-batch pass in its mode "
+                f"({t['ms'] / bound[0]:.2f}x the bound; plain "
+                f"{t['plain']:.3f} ms, library {lib}, bound {bound[0]:.3f} "
+                f"ms by {bound[1]})")
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("row kernels disagree with their plain versions:"
+                             f" {failed}")
 
 
 def main() -> int:
@@ -3608,7 +4147,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     # 2a. the GEMM and weight-gradient bodies alone -----------------------
-    gemm_sets = gemm_shapes(device)
+    gemm_sets, row_sets = block_shapes(device)
     swin_gemm, vit_gemm = gemm_sets
     gemm_worst = gemm_parity_phase(
         {**{label: (list(launches), "bfloat16")
@@ -3619,6 +4158,20 @@ def main() -> int:
     log(f"GEMM path: {sum(gemm_counts.values())} launches, "
         f"{ {k: v for k, v in gemm_counts.items() if v} }")
     gemm_ms = gemm_times(gemm_sets, device, card)
+
+    # 2b. the row kernels of K1 / K2 alone: the LN backward, then the rest
+    ln_worst = ln_bwd_parity_phase(
+        {**{label: (launches, "bfloat16")
+            for label, launches in row_sets.items()},
+         **{f"{label} f32": (launches, "float32")
+            for label, launches in row_sets.items()}}, device)
+    ln_counts = ln_bwd_path(row_sets, device)
+    log(f"LN-backward path: {sum(ln_counts.values())} launches, "
+        f"{ {k: v for k, v in ln_counts.items() if v} }")
+    ln_entries = ln_bwd_entries(ln_bwd_times(row_sets, device, card),
+                                row_sets)
+    row_kernel_times(row_sets, device, card)
+    del row_sets
 
     # 3. K1's tiled body and K2 on ViT-S's calls ------------------------
     vit_cfg = load_config(preset=VIT_PRESET)
@@ -3943,6 +4496,11 @@ def main() -> int:
     # 17. Swin kernel timings at the training shapes ----------------------
     swin_k1_times(train_calls, card)
     ms, plain_ms = kernel_times(train_calls + k4_calls)
+    # K3's launches alone beside its entries' times through the wrappers
+    # (kernel_times' events, the yardstick of every block kernel's entry)
+    for name, t in mover_launch_times(train_calls, card).items():
+        log(f"[{card}] {name}: {t:.4f} ms per micro-batch of {TRAIN_MICRO} "
+            f"alone, {ms[name]:.4f} ms through its wrapper")
     bounds = {name: bound_ms(name, train_calls + k4_calls) for name in KERNELS
               if name not in STEM and name not in V_PER_CALL
               and name not in PROBES}
@@ -4064,6 +4622,10 @@ def main() -> int:
     for name in STEM:
         ms[name], _, plain_ms[name], library_ms[name] = stem_ms[name]
         bounds[name] = stem_bound[name]
+    for name in LN_BWD_KERNELS:  # both sets' launches, as the path counts
+        ms[name], plain_ms[name], bounds[name], library_ms[name] = \
+            ln_entries[name]
+        path_counts[name], worst[name] = ln_counts[name], ln_worst[name]
     path_counts.update({name: v_counts[name] for name in V_PER_CALL})
     for key, (n, err, t, plain_t, bound, lib) in probes.items():
         path_counts[key], worst[key], ms[key] = n, err, t
@@ -4077,6 +4639,8 @@ def main() -> int:
                else f"stage-1 call (micro-batch of {TRAIN_MICRO})"
                if name in PROBES else f"micro-batch of {VIT_MICRO} (ViT)"
                if "tiled" in name
+               else f"micro-batch pass of {TRAIN_MICRO} (Swin-T) and of "
+               f"{VIT_MICRO} (ViT-S)" if name in LN_BWD_KERNELS
                else f"micro-batch of {TRAIN_MICRO}")
         lib = ("no single call" if library_ms[name] is None
                else f"{library_ms[name]:.3f} ms")
@@ -4102,5 +4666,35 @@ def main() -> int:
     return 0
 
 
+def k3_alone(port=None) -> int:
+    """``--k3-alone [PORT]`` (see the module's docstring): K3's launches
+    alone at the mover calls that ``block_shapes`` records for Swin-T at
+    micro-batch TRAIN_MICRO, for the port at ``port`` (put first on the
+    import path) or this checkout's."""
+    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
+                         " is false)")
+    if port is not None:
+        sys.path.insert(0, str(Path(port).resolve()))
+    from vsn_tpu_torch.config import load_config
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    cfg = load_config(dict(USE_SHAKEDROP=True, BATCH_SIZE=TRAIN_MICRO))
+    x = torch.zeros((cfg.BATCH_SIZE, *cfg.input_size, 1),
+                    dtype=torch.bfloat16, device=device)
+    calls = record_calls(seeded_model(cfg).train(), x,
+                         generator=torch.Generator(device).manual_seed(4))
+    out = mover_launch_times(calls, card)
+    print(json.dumps({"k3_alone_ms": dict(out)}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--k3-alone"]:
+        sys.exit(k3_alone(*sys.argv[2:3]))
     sys.exit(main())

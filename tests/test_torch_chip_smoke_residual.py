@@ -286,14 +286,21 @@ SOURCE_MUTANTS = {
         "common.cuh", "for (int i = lane; i < k; i += 32) mrow[i] *= g;",
         "for (int i = lane; i < k; i += 32) mrow[i] *= 1.f;"),
     "post-norm backward without its LN backward": (
-        "common.cuh", "br[c] = rstd * (d * w[c] - m1 - xhat * m2);",
-        "br[c] = d;"),
+        "common.cuh", "out[e] = POST ? v : p.lam * res[k].get(e) + v;",
+        "out[e] = POST ? d_of(k, e) : p.lam * res[k].get(e) + v;"),
     "gamma's row and column swapped in the epilogue": (
         "common.cuh", "((LS & LS_EPI) ? v * p.gamma[n] : v)",
         "((LS & LS_EPI) ? v * p.gamma[m % p.n] : v)"),
     "post-norm forward without gamma": (
         "common.cuh", "if (gamma) bn *= gamma[c];", "if (gamma) bn *= 1.f;"),
 }
+# The message of the phase that must reject each mutant: the residual
+# parity phase 3a, but for the line of the LN-backward body, which phase 2b
+# holds alone first (the CPU rehearsal's mutant of the same name shows phase
+# 3a rejecting a post-norm backward without its LN backward)
+MODE_FAILS = "residual modes disagree with their plain versions"
+MUTANT_FAILS = {"post-norm backward without its LN backward":
+                "LN-backward launches disagree with their plain versions"}
 CSRC = ROOT / "vsn_tpu_torch" / "csrc"
 
 
@@ -301,14 +308,16 @@ CSRC = ROOT / "vsn_tpu_torch" / "csrc"
 def test_mode_source_mutants_name_one_line_of_the_source(mutant):
     src, line, new = SOURCE_MUTANTS[mutant]
     assert (CSRC / src).read_text().count(line) == 1 and new != line
+    assert set(MUTANT_FAILS) <= set(SOURCE_MUTANTS)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mutant", sorted(SOURCE_MUTANTS))
 def test_a_mutated_mode_source_makes_chip_smoke_fail(mutant, tmp_path):
     """chip_smoke.py run from a copy of the port whose residual-mode code
-    has one line mutated exits 1 in its residual parity phase."""
+    has one line mutated exits 1 in the first phase that runs that line
+    (``MUTANT_FAILS``; the residual parity phase otherwise)."""
     src, line, new = SOURCE_MUTANTS[mutant]
     res = _run_mutated_chip_smoke(CSRC / src, line, new, tmp_path)
     assert res.returncode == 1
-    assert "residual modes disagree with their plain versions" in res.stderr
+    assert MUTANT_FAILS.get(mutant, MODE_FAILS) in res.stderr

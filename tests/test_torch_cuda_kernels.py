@@ -1162,3 +1162,139 @@ def test_a_mutated_gemm_source_makes_chip_smoke_fail(dev, mutant, tmp_path):
     assert res.returncode == 1
     assert any(f in res.stderr for f in GEMM_FAILURES), res.stderr[-2000:]
 
+
+
+# ---------------------------------------------------------------------------
+# The LayerNorm backward of K1b / K2b alone (csrc/common.cuh, entry points
+# csrc/row_kernels.cu) and the K3 gather over its row map
+# ---------------------------------------------------------------------------
+
+# (M, C): Swin-T's stage widths and ViT-S's at ragged row counts (several
+# blocks, a ragged last run), the tests' narrow widths, single columns (C =
+# 12, not a multiple of 8) and the widest the body takes
+LN_SHAPES = [(70, 96), (5000, 96), (3001, 192), (2016, 384), (300, 768),
+             (74, 24), (111, 8), (50, 12), (40, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["ln_bwd", "postnorm_bwd"])
+@pytest.mark.parametrize("m,c", LN_SHAPES)
+def test_ln_bwd_launch_matches_plain_and_repeats_its_bits(dev, m, c, name,
+                                                          dtype):
+    """Each mode against its plain version to chip_smoke.py's limits (dx /
+    dbranch TOL of the activation type, dw / db / dgamma LN_BWD_TOL of their
+    scale), and a second launch on the same inputs gives the same bits in
+    every output (block partials summed in block order)."""
+    rps = m // 2 if m % 2 == 0 else m
+    launch = chip_smoke.RowLaunch("card", m, c, rps, 0)
+    args = chip_smoke.ln_bwd_call(name, launch, dtype, dev,
+                                  torch.Generator(dev).manual_seed(7))
+    before = _build.launches[name]
+    err, ratio, same = chip_smoke.ln_bwd_compare(name, args,
+                                                 chip_smoke.ln_bwd_table())
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 2
+    assert ratio <= 1.0, (err, ratio)
+    assert same
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_post_norm_without_gamma_and_pre_norm_at_deepscalelm_lam(dev, dtype):
+    """Post-norm alone (no LayerScale: dgamma not written) and the
+    pre-norm residual line at DeepScaleLM's lam."""
+    g = torch.Generator(dev).manual_seed(8)
+    z = lambda *s: torch.randn(*s, generator=g, device=dev)
+    m, c = 2 * 811, 384
+    branch, do_res = 2 * z(m, c) - 0.5, z(m, c).to(dtype)
+    gb, w, b = torch.tensor([0.7, 1.3], device=dev), 1 + 0.1 * z(c), z(c)
+    got = sbk.postnorm_bwd_launch(branch.clone(), do_res, gb, 811, w, b)
+    want = sbk.postnorm_backward_rows_reference(branch, do_res, gb, 811, w, b)
+    assert got[3] is None and want[3] is None
+    for i, (a, e) in enumerate(zip(got[:3], want[:3])):
+        tol = TOL[torch.float32] if i else TOL[dtype]
+        err = (a - e).abs().max().item()
+        assert err <= tol * max(1.0, e.abs().max().item()), (i, err)
+    x = (3 * z(m, c) + 1).to(dtype)
+    stats = sbk.ln_rows_reference(x, torch.ones_like(w),
+                                  torch.zeros_like(w))[1]
+    args = (x, stats, w, z(m, c), do_res, 0.9129)
+    dx, dw, db = sbk.ln_bwd_launch(*args)
+    ref = sbk.ln_backward_rows_reference(*args)
+    _close(dx, ref[0], dtype)
+    for a, e in zip((dw, db), ref[1:]):
+        assert (a - e).abs().max().item() <= 1e-3 * e.abs().max().item()
+
+
+def test_ln_bwd_wrappers_reject_what_the_body_does_not_take(dev):
+    x = torch.zeros(10, 300, device=dev)
+    stats = torch.zeros(10, 2, device=dev)
+    w = torch.ones(300, device=dev)
+    with pytest.raises(ValueError, match="C <= 1024"):
+        sbk.ln_bwd_launch(x, stats, w, x, x)
+    with pytest.raises(TypeError, match="dtype"):
+        sbk.ln_bwd_launch(x.half(), stats, w, x, x.half())
+    with pytest.raises(ValueError, match="rows over samples"):
+        sbk.postnorm_bwd_launch(x[:, :96].contiguous(), x[:, :96].contiguous(),
+                                torch.ones(3, device=dev), 3, w[:96], w[:96])
+
+
+@pytest.mark.parametrize("offset", [2, 1])   # 4- and 2-byte aligned views
+def test_movers_at_a_misaligned_view(dev, offset):
+    """Source and destination rows that 16 bytes do not divide (a view 4 or
+    2 bytes into its storage) move by 4- or 1-byte chunks, bit-exact."""
+    dims, window, roll = (12, 14, 12), (6, 7, 6), (3, 3, 3)
+    n = 2 * 12 * 14 * 12 * 96
+    base = torch.randn(n + offset, device=dev).to(torch.bfloat16)
+    x = base[offset:].view(2, *dims, 96)
+    assert x.data_ptr() % 16
+    wins = wr.spatial_to_windows(x, window, roll)
+    assert torch.equal(wins, wr.spatial_to_windows_reference(x, window,
+                                                             roll))
+    back = wr.windows_to_spatial(wins, window, dims, tuple(-r for r in roll))
+    assert torch.equal(back, x)
+
+
+# One-line edits of the LN-backward body and of K3's gather that
+# chip_smoke.py must reject on the card (exit 1: in its row-kernel phase 2b,
+# or in its mover parity, phase 6): name -> (source, line, its mutant)
+ROW_SOURCE_MUTANTS = {
+    "LN backward: mean(dxhat xhat) dropped": (
+        "common.cuh",
+        "const float m1 = group_sum(s1, lanes) / p.c, m2 = group_sum(s2, "
+        "lanes) / p.c;",
+        "const float m1 = group_sum(s1, lanes) / p.c, m2 = 0.f;"),
+    "LN backward: dw / db of the first block only": (
+        "common.cuh",
+        "for (int g = slice; g < blocks; g += kLnSumSlices) {",
+        "for (int g = slice; g < 1; g += kLnSumSlices) {"),
+    "LN backward: the slices' sums picked by the clock's parity": (
+        "common.cuh", "a += red[i][0][lane];",
+        "a += red[(clock() & 1) ? kLnSumSlices - i : i][0][lane];"),
+    "K3: each row from its neighbour's source": (
+        "window_relayout.cu",
+        "if (r < rows) v[i] = src[(unsigned)__ldg(map + r) * (unsigned)chunks"
+        " + c];",
+        "if (r < rows) v[i] = src[(unsigned)__ldg(map + (r ? r - 1 : 0)) * "
+        "(unsigned)chunks + c];"),
+}
+ROW_FAILURES = ("LN-backward launches disagree with their plain versions",
+                "LN-backward launches differ between two runs",
+                "kernels disagree with their plain versions")
+
+
+@pytest.mark.parametrize("mutant", sorted(ROW_SOURCE_MUTANTS))
+def test_row_source_mutants_name_one_line_of_the_source(mutant):
+    src, line, new = ROW_SOURCE_MUTANTS[mutant]
+    assert (_CSRC / src).read_text().count(line) == 1 and new != line
+
+
+@pytest.mark.parametrize("mutant", sorted(ROW_SOURCE_MUTANTS))
+def test_a_mutated_row_source_makes_chip_smoke_fail(dev, mutant, tmp_path):
+    """chip_smoke.py run from a copy of the port whose LN-backward body or
+    K3 gather has one line mutated exits 1."""
+    from test_torch_chip_smoke import _run_mutated_chip_smoke
+
+    src, line, new = ROW_SOURCE_MUTANTS[mutant]
+    res = _run_mutated_chip_smoke(_CSRC / src, line, new, tmp_path)
+    assert res.returncode == 1
+    assert any(f in res.stderr for f in ROW_FAILURES), res.stderr[-2000:]

@@ -107,7 +107,8 @@ def test_library_is_named_by_its_sources_and_builds_under_build():
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert names == {"attn_half.cu", "attn_half_bwd.cu", "ln_mlp.cu",
                      "ln_mlp_bwd.cu", "stem_im2col.cu", "window_relayout.cu",
-                     "window_attention_qkv.cu", "probe_copy.cu", "gemm.cu"}
+                     "window_attention_qkv.cu", "probe_copy.cu", "gemm.cu",
+                     "row_kernels.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 

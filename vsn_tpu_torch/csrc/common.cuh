@@ -760,7 +760,9 @@ cudaError_t launch_gemm(const GemmParams<T, TA, TO>& p, cudaStream_t stream) {
 // reduces its slice of the rows and adds its partial into a zeroed f32
 // output with atomicAdd. The order of those adds varies from run to run, so
 // the parameter gradients agree with a plain version to the f32 rounding of
-// the sums, not bit for bit.
+// the sums, not bit for bit. The LayerNorm backward's dw / db / dgamma are
+// the exception: its blocks write their partials, which a second launch
+// adds in block order (the same bits on every run).
 // ---------------------------------------------------------------------------
 
 // Splits of a reduction over ``m`` rows so that about four blocks per SM
@@ -813,67 +815,432 @@ cudaError_t launch_ln_rows(const T* x, const float* w, const float* b, TY* y,
   return cudaGetLastError();
 }
 
-// LayerNorm backward with the residual cotangent (swin_block_kernels.py
-// _ln_bwd and the dx line of both backward kernels):
+// LayerNorm backward rows, the last launches of K1b and K2b
+// (swin_block_kernels.py _ln_bwd :85 at its four call sites: the pre-norm dx
+// line of K1b :440-444 and K2b :971, the post-norm branch backward of K1b
+// :397 and K2b :926). One body, two modes:
 //
-//   xhat = (x - mu) * rstd, dxhat = dy * w
-//   dx   = T(lam * do_res + rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)))
-//   dw  += sum_rows dy * xhat,  db += sum_rows dy
+//   pre-norm (POST false), on the block input x [M, C] with LN's row
+//   statistics [M, 2] (ln_rows_kernel) and dy [M, C] f32 (the EPI_F32 GEMM):
+//     xhat = (x - mu) * rstd, d = dy, dxhat = d * w
+//     dx   = T(lam * do_res + rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)))
+//     dw   = sum_rows d * xhat,  db = sum_rows d
+//   post-norm (POST true), on the recomputed f32 branch [M, C], which it
+//   overwrites with dbranch (its statistics in f32, two passes, as the
+//   forward GEMM's prologue):
+//     xhat = (branch - mu) * rstd, d = gb[row / rps] * do_res
+//     dgamma = sum_rows d * (xhat * w + b), then d *= gamma   (gamma not null)
+//     dbranch = rstd * (d w - mean(d w) - xhat * mean(d w xhat))
+//     dw = sum_rows d * xhat,  db = sum_rows d
 //
-// One warp per row; each block sums its rows' dw/db in shared memory and adds
-// them to the zeroed outputs once.
-constexpr int kLnBwdRows = 128;
+// What bounds it: bytes. Each element is read and written once: 10 bytes
+// pre-norm under bf16 (x, do_res and dx bf16, dy f32), 10 post-norm (the
+// f32 branch read and written, do_res); the arithmetic is ~10 f32 operations
+// an element. The design:
+//
+//   - A lane group of L lanes (a power of two, 4 at C = 96, 32 at C = 768)
+//     owns a whole row: each lane holds K (<= 4) chunks of 8 columns (unit u
+//     = k * L + lane), loaded once into registers by 16-byte vectors (two
+//     for f32), so x / branch, dy and do_res are read once; the row sums
+//     (mean, variance, then mean(dxhat) and mean(dxhat xhat)) are shuffles
+//     within the group, and dx / dbranch leave by vector stores. A warp
+//     walks 32 / L rows at once, 8 at C = 96, so its loads keep several
+//     rows in flight. Rows that are not whole 8-column chunks take the same
+//     body one column a lane (L = 32, K <= 8 columns: C <= 256). LN's scale
+//     (post-norm: gamma * w) is staged once a block in shared memory, so
+//     its vector reads are aligned where the parameters are views into a
+//     flat buffer (training's); the row operands must be 16-byte aligned.
+//   - No atomics: each lane keeps the partial sums A = sum d xhat and B =
+//     sum d of its columns in registers over the rows its group walks (the
+//     post-norm's d before gamma; dgamma = w A + b B and dw, db = gamma A,
+//     gamma B are formed from them once, at the end). A block adds its
+//     groups' partials in a fixed order (shuffles, then a tree over its
+//     warps through shared memory) into its row of a [blocks, 2C] f32
+//     scratch.
+//   - A deterministic cross-block sum: the grid and each block's run of
+//     rows are a plan of (M, C) alone (``ln_bwd_plan``: at most 2 x 132
+//     blocks, runs of whole block steps), and ``ln_bwd_sum_kernel`` adds the
+//     blocks' partials in block order. Two launches on the same inputs give
+//     the same bits in dx, dw, db and dgamma; the outputs are written, not
+//     added into.
+//
+// Two launches a call: the rows, then the sum (``launch_ln_bwd_rows``).
+constexpr int kLnBwdWarps = 8;
+constexpr int kLnBwdThreads = 32 * kLnBwdWarps;
+constexpr int kLnBwdMaxBlocks = 2 * 132;  // one wave at two blocks an SM
+constexpr int kLnBwdMinSteps = 2;         // least block steps of rows in a run
 
-template <typename T>
-__global__ void __launch_bounds__(256) ln_bwd_kernel(
-    const T* __restrict__ x, const float* __restrict__ stats,
-    const float* __restrict__ w, const float* __restrict__ dy,
-    const T* __restrict__ do_res, float lam, T* __restrict__ dx,
-    float* __restrict__ dw, float* __restrict__ db, long long m, int k) {
-  extern __shared__ float part[];  // [2k]: dw, db partials
-  for (int c = threadIdx.x; c < 2 * k; c += blockDim.x) part[c] = 0.f;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long r0 = (long long)blockIdx.x * kLnBwdRows;
-  for (int rr = warp; rr < kLnBwdRows; rr += 8) {
-    const long long row = r0 + rr;
-    if (row >= m) break;
-    const float mu = stats[2 * row], rstd = stats[2 * row + 1];
-    const T* xr = x + row * k;
-    const float* dyr = dy + row * k;
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < k; c += 32) {
-      const float xhat = (to_f32(xr[c]) - mu) * rstd;
-      const float g = dyr[c];
-      const float dxhat = g * w[c];
-      s1 += dxhat;
-      s2 += dxhat * xhat;
-      atomicAdd(&part[c], g * xhat);
-      atomicAdd(&part[k + c], g);
-    }
-    const float m1 = warp_sum(s1) / k, m2 = warp_sum(s2) / k;
-    for (int c = lane; c < k; c += 32) {
-      const float xhat = (to_f32(xr[c]) - mu) * rstd;
-      const float dxhat = dyr[c] * w[c];
-      const float v = rstd * (dxhat - m1 - xhat * m2);
-      dx[row * k + c] = from_f32<T>(lam * to_f32(do_res[row * k + c]) + v);
-    }
+// The launch plan of one LN-backward call: columns per unit (8: whole
+// 16-byte chunks of bf16; 1), lanes per row (a power of two), units per
+// lane, rows per block (a multiple of the block's step, kLnBwdWarps * 32 /
+// lanes rows) and blocks. The wrappers size the scratch by it (row_kernels.cu
+// ``vsn_ln_bwd_blocks``).
+struct LnBwdPlan {
+  int vec, lanes, shift, units;
+  long long run;
+  int blocks;
+};
+
+inline bool ln_bwd_plan(long long m, int c, LnBwdPlan* p) {
+  if (m < 1 || c < 1) return false;
+  p->vec = c % 8 == 0 ? 8 : 1;
+  const int chunks = c / p->vec;
+  p->lanes = 32;
+  if (p->vec == 8) {
+    p->lanes = 1;
+    while (p->lanes < 32 && 3 * p->lanes < chunks) p->lanes <<= 1;
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < k; c += blockDim.x) {
-    atomicAdd(&dw[c], part[c]);
-    atomicAdd(&db[c], part[k + c]);
+  p->units = (chunks + p->lanes - 1) / p->lanes;
+  if (p->vec == 1) p->units = p->units <= 1 ? 1 : p->units <= 2 ? 2 : p->units <= 4 ? 4 : 8;
+  if (p->units > (p->vec == 8 ? 4 : 8)) return false;  // the body's instantiations
+  p->shift = 0;
+  while ((1 << p->shift) < p->lanes) ++p->shift;
+  const long long step = (long long)kLnBwdWarps * (32 / p->lanes);
+  long long run = (m + kLnBwdMaxBlocks - 1) / kLnBwdMaxBlocks;
+  if (run < kLnBwdMinSteps * step) run = kLnBwdMinSteps * step;
+  p->run = (run + step - 1) / step * step;
+  p->blocks = (int)((m + p->run - 1) / p->run);
+  return true;
+}
+
+// One element of a row, for the body's one-column-a-lane form (Row8's
+// interface).
+template <typename TA>
+struct Row1 {
+  float f;
+  __device__ __forceinline__ void load(const TA* src, int valid, bool) {
+    f = valid > 0 ? to_f32(*src) : 0.f;
+  }
+  __device__ __forceinline__ float get(int) const { return f; }
+};
+
+template <typename TA, int VEC>
+using RowV = typename std::conditional<VEC == 8, Row8<TA>, Row1<TA>>::type;
+
+template <int VEC, typename TO>
+__device__ __forceinline__ void store_row(TO* dst, const float (&v)[VEC]) {
+  if constexpr (VEC == 8) {
+    store8(dst, v, 8, true);
+  } else {
+    *dst = from_f32<TO>(v[0]);
   }
 }
 
+// The sum of ``v`` over the L = 1 << shift lanes of this lane's group.
+__device__ __forceinline__ float group_sum(float v, int lanes) {
+  for (int o = 1; o < lanes; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+struct LnBwdParams {
+  const T* x;              // pre-norm: the block input [M, C]
+  const float* stats;      // pre-norm: LN's (mean, 1/std) [M, 2]
+  const float* dy;         // pre-norm: LN's output cotangent [M, C] f32
+  float* branch;           // post-norm: the f32 branch, overwritten by dbranch
+  const float* gb;         // post-norm: per-sample gains [M / rps]
+  long long rps;           // post-norm: rows per sample
+  const T* do_res;         // the residual cotangent [M, C]
+  const float* w;          // LN's scale [C]
+  const float* gamma;      // post-norm LayerScale [C] or null
+  float lam;               // pre-norm residual x-gain
+  T* dx;                   // pre-norm: [M, C]
+  float* part;             // [blocks, 2C]: sum d xhat, sum d of each block
+  long long m;
+  int c;
+  LnBwdPlan plan;
+};
+
+template <typename T, bool POST, int VEC, int K>
+__global__ void __launch_bounds__(kLnBwdThreads) ln_bwd_rows_kernel(LnBwdParams<T> p) {
+  // [C] LN's scale (post-norm: gamma * w), staged once: 16-byte aligned
+  // whatever the parameters' own addresses; then [kLnBwdWarps / 2][2C] the
+  // warps' partials on their way to warp 0
+  extern __shared__ __align__(16) float ln_smem[];
+  float* w_s = ln_smem;
+  float* slots = ln_smem + p.c;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lanes = p.plan.lanes, sub = lane & (lanes - 1);
+  const int groups = kLnBwdWarps << (5 - p.plan.shift);
+  const int gid = tid >> p.plan.shift;
+  const int chunks = p.c / VEC;
+  const long long r0 = (long long)blockIdx.x * p.plan.run;
+  const long long r1 = min(r0 + p.plan.run, p.m);
+  float acc_a[K][VEC], acc_b[K][VEC];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc_a[k][e] = acc_b[k][e] = 0.f;
+
+  for (long long base = r0; base < r1; base += groups) {
+    const long long row = base + gid;
+    const bool live = row < r1;
+    const long long r = live ? row : r0;  // a row to address; nothing is loaded for it
+    RowV<T, VEC> res[K];                  // do_res
+    RowV<float, VEC> d32[K];              // dy (pre-norm), the branch (post-norm)
+    RowV<T, VEC> xin[K];                  // x (pre-norm)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = k * lanes + sub;
+      const int valid = live && u < chunks ? VEC : 0;
+      const long long off = r * p.c + (long long)u * VEC;
+      res[k].load(p.do_res + off, valid, true);
+      if constexpr (POST) {
+        d32[k].load(p.branch + off, valid, true);
+      } else {
+        xin[k].load(p.x + off, valid, true);
+        d32[k].load(p.dy + off, valid, true);
+      }
+    }
+    if (base == r0) {  // the block's first step: stage LN's scale under its loads
+      for (int j = tid; j < p.c; j += kLnBwdThreads)
+        w_s[j] = POST && p.gamma ? p.gamma[j] * p.w[j] : p.w[j];
+      __syncthreads();
+    }
+    // xhat of each column (post-norm: kept in place of the branch), and d:
+    // dy (pre-norm), g * do_res (post-norm)
+    float xh[POST ? K : 1][POST ? VEC : 1], mu, rstd, g = 1.f;
+    if constexpr (POST) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) s += d32[k].get(e);
+      mu = group_sum(s, lanes) / p.c;
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k * lanes + sub < chunks)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float t = d32[k].get(e) - mu;
+            v += t * t;
+          }
+      rstd = 1.f / sqrtf(group_sum(v, lanes) / p.c + kLnEps);
+      if (live) g = p.gb[(unsigned)row / (unsigned)p.rps];  // M < 2^31 (the launch)
+    } else {
+      const float2 st = live ? *reinterpret_cast<const float2*>(p.stats + 2 * r)
+                             : make_float2(0.f, 0.f);
+      mu = st.x;
+      rstd = st.y;
+    }
+    if constexpr (POST) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) xh[k][e] = (d32[k].get(e) - mu) * rstd;
+    }
+    auto xhat_of = [&](int k, int e) {
+      if constexpr (POST) {
+        return xh[k][e];
+      } else {
+        return (xin[k].get(e) - mu) * rstd;
+      }
+    };
+    auto d_of = [&](int k, int e) { return POST ? g * res[k].get(e) : d32[k].get(e); };
+    // dxhat = d * w (d * gamma * w post-norm) and its two row means
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = k * lanes + sub;
+      RowV<float, VEC> wk;
+      wk.load(w_s + u * VEC, u < chunks ? VEC : 0, true);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        // a row past the run adds 0: its d is 0 and its xhat finite
+        const float d = d_of(k, e), xhat = xhat_of(k, e);
+        acc_a[k][e] += d * xhat;
+        acc_b[k][e] += d;
+        const float dxhat = d * wk.get(e);
+        s1 += dxhat;
+        s2 += dxhat * xhat;
+      }
+    }
+    const float m1 = group_sum(s1, lanes) / p.c, m2 = group_sum(s2, lanes) / p.c;
+    if (!live) continue;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = k * lanes + sub;
+      if (u >= chunks) continue;
+      RowV<float, VEC> wk;
+      wk.load(w_s + u * VEC, VEC, true);
+      float out[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float v = rstd * (d_of(k, e) * wk.get(e) - m1 - xhat_of(k, e) * m2);
+        out[e] = POST ? v : p.lam * res[k].get(e) + v;
+      }
+      const long long off = row * p.c + (long long)u * VEC;
+      if constexpr (POST) {
+        store_row<VEC>(p.branch + off, out);
+      } else {
+        store_row<VEC>(p.dx + off, out);
+      }
+    }
+  }
+
+  // The block's partials: the groups of a warp hold the same columns
+  // (butterfly over them); then a fixed tree over the warps, warps [h, 2h)
+  // handing theirs to warps [0, h) through shared memory, h = 4, 2, 1; warp
+  // 0 writes the block's row of the scratch.
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      for (int o = lanes; o < 32; o <<= 1) {
+        acc_a[k][e] += __shfl_xor_sync(0xffffffffu, acc_a[k][e], o);
+        acc_b[k][e] += __shfl_xor_sync(0xffffffffu, acc_b[k][e], o);
+      }
+  for (int h = kLnBwdWarps / 2; h >= 1; h >>= 1) {
+    const bool gives = warp >= h && warp < 2 * h, takes = warp < h;
+    float* slot = slots + 2 * p.c * (gives ? warp - h : warp);
+    if ((gives || takes) && lane < lanes) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int u = k * lanes + lane;
+        if (u >= chunks) continue;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const int col = u * VEC + e;
+          if (gives) {
+            slot[col] = acc_a[k][e];
+            slot[p.c + col] = acc_b[k][e];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (takes && lane < lanes) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int u = k * lanes + lane;
+        if (u >= chunks) continue;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const int col = u * VEC + e;
+          acc_a[k][e] += slot[col];
+          acc_b[k][e] += slot[p.c + col];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && lane < lanes) {
+    float* part = p.part + (long long)blockIdx.x * 2 * p.c;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = k * lanes + lane;
+      if (u >= chunks) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        part[u * VEC + e] = acc_a[k][e];
+        part[p.c + u * VEC + e] = acc_b[k][e];
+      }
+    }
+  }
+}
+
+// The blocks' partials summed in block order, 32 columns a block of 32
+// slices: slice s takes the blocks s, s + 32, ... (their loads all in
+// flight), and the slices' sums are added in slice order. Then dw = A, db =
+// B, or with a post-norm gamma dgamma = w A + b B, dw = gamma A, db = gamma
+// B.
+constexpr int kLnSumSlices = 32;
+
+__global__ void __launch_bounds__(32 * kLnSumSlices) ln_bwd_sum_kernel(
+    const float* __restrict__ part, int blocks, int c, const float* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ gamma, float* __restrict__ dw,
+    float* __restrict__ db, float* __restrict__ dgamma) {
+  __shared__ float red[kLnSumSlices][2][33];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  float a = 0.f, s = 0.f;
+  if (col < c) {
+#pragma unroll 8
+    for (int g = slice; g < blocks; g += kLnSumSlices) {
+      a += part[(long long)g * 2 * c + col];
+      s += part[(long long)g * 2 * c + c + col];
+    }
+  }
+  red[slice][0][lane] = a;
+  red[slice][1][lane] = s;
+  __syncthreads();
+  if (slice || col >= c) return;
+  for (int i = 1; i < kLnSumSlices; ++i) {
+    a += red[i][0][lane];
+    s += red[i][1][lane];
+  }
+  if (gamma) {
+    dgamma[col] = w[col] * a + b[col] * s;
+    dw[col] = gamma[col] * a;
+    db[col] = gamma[col] * s;
+  } else {
+    dw[col] = a;
+    db[col] = s;
+  }
+}
+
+template <typename T, bool POST, int VEC, int K>
+cudaError_t launch_ln_bwd_body(const LnBwdParams<T>& p, cudaStream_t stream) {
+  ln_bwd_rows_kernel<T, POST, VEC, K>
+      <<<p.plan.blocks, kLnBwdThreads, (1 + kLnBwdWarps) * sizeof(float) * p.c, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The two launches of one call. ``blocks`` is the scratch's row count, which
+// must be the plan's; the rows' pointers must be 16-byte aligned (the
+// wrappers copy a row operand that is not).
+template <typename T, bool POST>
+cudaError_t launch_ln_bwd_rows(LnBwdParams<T> p, int blocks, const float* b, float* dw,
+                               float* db, float* dgamma, cudaStream_t stream) {
+  const uintptr_t rows = reinterpret_cast<uintptr_t>(p.do_res) |
+                         reinterpret_cast<uintptr_t>(p.branch) |
+                         reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.dy) |
+                         reinterpret_cast<uintptr_t>(p.dx);
+  if (!ln_bwd_plan(p.m, p.c, &p.plan) || p.plan.blocks != blocks || rows % 16 ||
+      p.m >= (1LL << 31) || p.rps < 1 || p.rps >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (p.plan.vec == 8) {
+    switch (p.plan.units) {
+      case 1: err = launch_ln_bwd_body<T, POST, 8, 1>(p, stream); break;
+      case 2: err = launch_ln_bwd_body<T, POST, 8, 2>(p, stream); break;
+      case 3: err = launch_ln_bwd_body<T, POST, 8, 3>(p, stream); break;
+      case 4: err = launch_ln_bwd_body<T, POST, 8, 4>(p, stream); break;
+    }
+  } else {
+    switch (p.plan.units) {
+      case 1: err = launch_ln_bwd_body<T, POST, 1, 1>(p, stream); break;
+      case 2: err = launch_ln_bwd_body<T, POST, 1, 2>(p, stream); break;
+      case 4: err = launch_ln_bwd_body<T, POST, 1, 4>(p, stream); break;
+      case 8: err = launch_ln_bwd_body<T, POST, 1, 8>(p, stream); break;
+    }
+  }
+  if (err != cudaSuccess) return err;
+  ln_bwd_sum_kernel<<<(p.c + 31) / 32, 32 * kLnSumSlices, 0, stream>>>(
+      p.part, blocks, p.c, p.w, b, POST ? p.gamma : nullptr, dw, db, dgamma);
+  return cudaGetLastError();
+}
+
+// Pre-norm: dx = T(lam * do_res + LN_bwd(dy)) and LN's dw, db (written).
+// part is [blocks, 2C] f32 scratch, blocks the plan's (``ln_bwd_plan``).
 template <typename T>
 cudaError_t launch_ln_bwd(const T* x, const float* stats, const float* w, const float* dy,
                           const T* do_res, float lam, T* dx, float* dw, float* db,
-                          long long m, int k, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 2 * (size_t)k;
-  ln_bwd_kernel<T><<<(unsigned)((m + kLnBwdRows - 1) / kLnBwdRows), 256, smem, stream>>>(
-      x, stats, w, dy, do_res, lam, dx, dw, db, m, k);
-  return cudaGetLastError();
+                          float* part, int blocks, long long m, int k, cudaStream_t stream) {
+  LnBwdParams<T> p = {};
+  p.x = x;
+  p.stats = stats;
+  p.dy = dy;
+  p.do_res = do_res;
+  p.w = w;
+  p.lam = lam;
+  p.dx = dx;
+  p.part = part;
+  p.m = m;
+  p.c = k;
+  p.rps = 1;
+  return launch_ln_bwd_rows<T, false>(p, blocks, nullptr, dw, db, nullptr, stream);
 }
 
 // Column sums out[n] += sum_m g_m * A[m, n], with g_m = a_gain[m / rps] or 1:
@@ -1217,84 +1584,26 @@ cudaError_t launch_postnorm_fwd(const float* branch, const T* x, const float* w,
   return cudaGetLastError();
 }
 
-// Post-norm backward, on the recomputed f32 branch, which it overwrites
-// with dbranch:
-//
-//   xhat = (branch - mu) * rstd, bn = xhat * w + b, do = gb[s] * do_res
-//   dgamma += sum_rows do * bn, then do *= gamma            (gamma not null)
-//   dbranch = rstd * (do w - mean(do w) - xhat * mean(do w xhat))
-//   dw += sum_rows do * xhat,  db += sum_rows do
-//
-// One warp per row; each block sums its rows' dw / db / dgamma in shared
-// memory and adds them to the zeroed outputs once (f32 atomics).
-template <typename T>
-__global__ void __launch_bounds__(256) postnorm_bwd_kernel(
-    float* __restrict__ branch, const T* __restrict__ do_res,
-    const float* __restrict__ gb, long long rps, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ gamma,
-    float* __restrict__ dw, float* __restrict__ db, float* __restrict__ dgamma,
-    long long m, int k) {
-  extern __shared__ float part[];  // [3k]: dw, db, dgamma partials
-  for (int c = threadIdx.x; c < 3 * k; c += blockDim.x) part[c] = 0.f;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long r0 = (long long)blockIdx.x * kLnBwdRows;
-  for (int rr = warp; rr < kLnBwdRows; rr += 8) {
-    const long long row = r0 + rr;
-    if (row >= m) break;
-    float* br = branch + row * k;
-    const T* dr = do_res + row * k;
-    const float g = gb[row / rps];
-    float s = 0.f;
-    for (int c = lane; c < k; c += 32) s += br[c];
-    const float mu = warp_sum(s) / k;
-    float v = 0.f;
-    for (int c = lane; c < k; c += 32) {
-      const float d = br[c] - mu;
-      v += d * d;
-    }
-    const float rstd = 1.f / sqrtf(warp_sum(v) / k + kLnEps);
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < k; c += 32) {
-      const float xhat = (br[c] - mu) * rstd;
-      float d = g * to_f32(dr[c]);
-      if (gamma) {
-        atomicAdd(&part[2 * k + c], d * (xhat * w[c] + b[c]));
-        d *= gamma[c];
-      }
-      const float dxhat = d * w[c];
-      s1 += dxhat;
-      s2 += dxhat * xhat;
-      atomicAdd(&part[c], d * xhat);
-      atomicAdd(&part[k + c], d);
-    }
-    const float m1 = warp_sum(s1) / k, m2 = warp_sum(s2) / k;
-    for (int c = lane; c < k; c += 32) {
-      const float xhat = (br[c] - mu) * rstd;
-      float d = g * to_f32(dr[c]);
-      if (gamma) d *= gamma[c];
-      br[c] = rstd * (d * w[c] - m1 - xhat * m2);
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < k; c += blockDim.x) {
-    atomicAdd(&dw[c], part[c]);
-    atomicAdd(&db[c], part[k + c]);
-    if (gamma) atomicAdd(&dgamma[c], part[2 * k + c]);
-  }
-}
-
+// Post-norm backward (the LN-backward body's post-norm mode, above): the
+// recomputed f32 branch [M, C] is overwritten with dbranch; LN's dw, db and,
+// with gamma, dgamma are written. part is [blocks, 2C] f32 scratch.
 template <typename T>
 cudaError_t launch_postnorm_bwd(float* branch, const T* do_res, const float* gb, long long rps,
                                 const float* w, const float* b, const float* gamma, float* dw,
-                                float* db, float* dgamma, long long m, int k,
-                                cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 3 * (size_t)k;
-  postnorm_bwd_kernel<T><<<(unsigned)((m + kLnBwdRows - 1) / kLnBwdRows), 256, smem, stream>>>(
-      branch, do_res, gb, rps, w, b, gamma, dw, db, dgamma, m, k);
-  return cudaGetLastError();
+                                float* db, float* dgamma, float* part, int blocks, long long m,
+                                int k, cudaStream_t stream) {
+  LnBwdParams<T> p = {};
+  p.branch = branch;
+  p.gb = gb;
+  p.rps = rps;
+  p.do_res = do_res;
+  p.w = w;
+  p.gamma = gamma;
+  p.part = part;
+  p.m = m;
+  p.c = k;
+  return launch_ln_bwd_rows<T, true>(p, blocks, b, dw, db, dgamma, stream);
 }
-
 // Pre-norm LayerScale gradients of the last product out = gamma * (a @ W^T +
 // bias), from its unscaled weight and bias gradients M = do^T @ a [N, K] and
 // s = sum_rows do [N] (the split-K and column-sum launches, finished on the

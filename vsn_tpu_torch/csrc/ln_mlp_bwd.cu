@@ -7,21 +7,23 @@
 // Replaces vsn_tpu/ops/swin_block_kernels.py _ln_mlp_bwd_arrays (Pallas
 // kernel _mlp_bwd_kernel), which recomputes LN2 + fc1 + GELU on row tiles in
 // VMEM and adds its weight gradients into output blocks carried across a
-// sequential grid. Here the recompute and the VJP run as nine launches on
-// the caller's stream, the carried sums as reductions (common.cuh):
+// sequential grid. Here the recompute and the VJP run as nine steps (ten
+// launches) on the caller's stream, the carried sums as reductions
+// (common.cuh):
 //
 //   1. y = LN2(x) (rounded to the activation type T) and row statistics;
 //   2. h1 = y @ W1^T + b1: one GEMM writes h = T(gelu(h1)) and GELU'(h1) (f32);
 //   3. dh1 = (round(gb * do_res) @ W2) * GELU'(h1), in place over GELU' (f32);
 //   4. dW2 = do^T @ h (split-K), 5. db2 = sum do, 6. db1 = sum dh1;
 //   7. dW1 = round(dh1)^T @ y (split-K), 8. dy = round(dh1) @ W1 (f32 out);
-//   9. LN2 backward + residual: dx = T(lam * do_res + LN_bwd(dy)), dLN2.
+//   9. LN2 backward + residual: dx = T(lam * do_res + LN_bwd(dy)), dLN2
+//      (two launches: the rows and the block-ordered sum of dLN2).
 //
 // The residual modes (_mlp_bwd_kernel :904-968):
 //
 //   in-band LayerScale (gamma, pre-norm): launch 3's prologue reads do =
 //   (gb * do_res) * gamma (common.cuh LS_PRO); launches 4 and 5 take dW2 and
-//   db2 unscaled (M and s), and a tenth launch, after them on the stream,
+//   db2 unscaled (M and s), and one more launch, after them on the stream,
 //   forms dgamma = rowsum(W2 * M) + b2 * s and only then scales dW2 and db2
 //   by gamma (common.cuh layerscale_grads_kernel);
 //   post-norm: fc1 reads raw x (launch 1 is skipped: y is x), the fc2
@@ -48,8 +50,8 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
                const float* gamma, int post_norm, const float* gb, const T* dout, T* y,
                float* stats, T* h, float* dh1, float* dy, T* dx, float* dln_w,
                float* dln_b, float* dfc1_w, float* dfc1_b, float* dfc2_w, float* dfc2_b,
-               float* dgamma, long long rows, int c, int hid, long long rows_per_sample,
-               float lam, cudaStream_t stream) {
+               float* dgamma, float* ln_part, int ln_blocks, long long rows, int c, int hid,
+               long long rows_per_sample, float lam, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   const T* yin = x;  // post-norm: fc1 reads raw x
   if (!post_norm) {
@@ -84,7 +86,7 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
     err = launch_gemm<T, EPI_F32>(gb2, stream);
     if (err != cudaSuccess) return (int)err;
     err = launch_postnorm_bwd<T>(dy, dout, gb, rows_per_sample, ln_w, ln_b, gamma, dln_w,
-                                 dln_b, dgamma, rows, c, stream);
+                                 dln_b, dgamma, ln_part, ln_blocks, rows, c, stream);
     if (err != cudaSuccess) return (int)err;
 
     GemmParams<T, float> g2 = {};  // dh1 = (dbranch @ W2) * GELU'(h1)
@@ -171,27 +173,30 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
   err = launch_gemm<T, EPI_F32, true>(g3, stream);
   if (err != cudaSuccess) return (int)err;
 
-  return (int)launch_ln_bwd<T>(x, stats, ln_w, dy, dout, lam, dx, dln_w, dln_b, rows, c,
-                               stream);
+  return (int)launch_ln_bwd<T>(x, stats, ln_w, dy, dout, lam, dx, dln_w, dln_b, ln_part,
+                               ln_blocks, rows, c, stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() of the first launch that failed, else 0.
 // is_bf16 selects bf16 activations (else f32); parameters and their
-// gradients are f32. The f32 gradient outputs (dln_w .. dfc2_b, dgamma) must
-// be zeroed by the caller: the kernels add into them. y, stats, h, dh1 and dy
-// are scratch. gamma [C] (in-band LayerScale, with dgamma) may be null;
-// post_norm selects the post-norm backward (y and stats are then unused).
+// gradients are f32. The f32 gradient outputs (dfc1_w .. dfc2_b, and dgamma
+// with a pre-norm gamma) must be zeroed by the caller: the kernels add into
+// them; LN2's (dln_w, dln_b, and dgamma under post-norm) are written. y,
+// stats, h, dh1, dy and ln_part ([ln_blocks, 2C] f32, ln_blocks = common.cuh
+// ln_bwd_plan(rows, C).blocks) are scratch. gamma [C] (in-band LayerScale,
+// with dgamma) may be null; post_norm selects the post-norm backward (y and
+// stats are then unused).
 extern "C" int vsn_ln_mlp_bwd(int is_bf16, const void* x, const float* ln_w,
                               const float* ln_b, const float* fc1_w, const float* fc1_b,
                               const float* fc2_w, const float* fc2_b, const float* gamma,
                               int post_norm, const float* gb, const void* dout, void* y,
                               float* stats, void* h, float* dh1, float* dy, void* dx,
                               float* dln_w, float* dln_b, float* dfc1_w, float* dfc1_b,
-                              float* dfc2_w, float* dfc2_b, float* dgamma, long long rows,
-                              int c, int hid, long long rows_per_sample, float lam,
-                              void* stream) {
+                              float* dfc2_w, float* dfc2_b, float* dgamma, float* ln_part,
+                              int ln_blocks, long long rows, int c, int hid,
+                              long long rows_per_sample, float lam, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using B = __nv_bfloat16;
@@ -199,11 +204,13 @@ extern "C" int vsn_ln_mlp_bwd(int is_bf16, const void* x, const float* ln_w,
                          gamma, post_norm, gb, static_cast<const B*>(dout),
                          static_cast<B*>(y), stats, static_cast<B*>(h), dh1, dy,
                          static_cast<B*>(dx), dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w,
-                         dfc2_b, dgamma, rows, c, hid, rows_per_sample, lam, s);
+                         dfc2_b, dgamma, ln_part, ln_blocks, rows, c, hid, rows_per_sample,
+                         lam, s);
   }
   return ln_mlp_bwd<float>(static_cast<const float*>(x), ln_w, ln_b, fc1_w, fc1_b, fc2_w,
                            fc2_b, gamma, post_norm, gb, static_cast<const float*>(dout),
                            static_cast<float*>(y), stats, static_cast<float*>(h), dh1, dy,
                            static_cast<float*>(dx), dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w,
-                           dfc2_b, dgamma, rows, c, hid, rows_per_sample, lam, s);
+                           dfc2_b, dgamma, ln_part, ln_blocks, rows, c, hid, rows_per_sample,
+                           lam, s);
 }

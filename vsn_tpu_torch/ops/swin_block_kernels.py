@@ -54,6 +54,12 @@ the post-norm's). The launch counters name the mode after the body:
 ``..._post`` for post-norm, ``..._ls`` with gamma (e.g.
 ``attn_half_tiled_post_ls``, ``ln_mlp_bwd_ls``).
 
+The GEMM, weight-gradient and row kernels that K1 / K2 launch inside their
+calls can also be launched alone, for the card's launch-level checks
+(``gemm_launch``, ``wgrad_launch``; the LayerNorm backward of K1b / K2b,
+``ln_bwd_launch`` and ``postnorm_bwd_launch``, and the other row kernels,
+``ROW_KERNELS``), each beside its plain version.
+
 Weights use the torch Linear layout ([out, in], f32), as the port's modules
 hold them.
 """
@@ -732,6 +738,272 @@ def wgrad_launch(a, b, cdt, a_gain=None, rows_per_sample=None, _fma=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The row kernels of K1 / K2 alone: the LayerNorm backward, and the others
+# ---------------------------------------------------------------------------
+
+def _ln_bwd_scratch(m, c, dev):
+    """The LN-backward body's [blocks, 2C] f32 scratch of block partials and
+    its block count, the plan's (csrc/common.cuh ``ln_bwd_plan``, a function
+    of (m, c) alone, asked through ``vsn_ln_bwd_blocks``); raises for a
+    width the body does not take."""
+    blocks = library().vsn_ln_bwd_blocks(m, c)
+    if not blocks:
+        raise ValueError(f"LayerNorm backward: C = {c}: the row kernel takes "
+                         "C <= 1024 in multiples of 8, or C <= 256")
+    return (torch.empty(blocks * 2 * c, dtype=torch.float32, device=dev),
+            blocks)
+
+
+def ln_backward_rows_reference(x, stats, w, dy, do_res, lam=1.0):
+    """Plain version of the pre-norm LN-backward launch (csrc/common.cuh
+    ``launch_ln_bwd``; K1b's and K2b's last line, swin_block_kernels.py
+    :440-444, :971): from x [M, C] and do_res [M, C] in the activation type,
+    LN's row statistics [M, 2] (mean, 1 / std), its scale w [C] and dy [M, C]
+    f32 -> (dx = T(lam * do_res + LN_bwd(dy)), dw, db), as _ln_bwd."""
+    xhat = (x.float() - stats[:, :1]) * stats[:, 1:]
+    dxn, dw, db = _ln_backward(dy, w, xhat, stats[:, 1:])
+    return (lam * do_res.float() + dxn).to(x.dtype), dw, db
+
+
+def postnorm_backward_rows_reference(branch, do_res, gb, rows_per_sample, w, b,
+                                     gamma=None):
+    """Plain version of the post-norm LN-backward launch (csrc/common.cuh
+    ``launch_postnorm_bwd``; swin_block_kernels.py :388-397, :917-926): from
+    the f32 branch [M, C], do_res [M, C] in the activation type and the
+    per-sample gains gb [M / rows_per_sample] -> (dbranch [M, C] f32, dw, db,
+    dgamma or None without gamma): do = gb * do_res, dgamma = sum do *
+    LN(branch), then LN's backward of do * gamma."""
+    bn, xhat, rstd = _ln_parts(branch.float(), w, b)
+    do = _gain_rows(gb, rows_per_sample, branch.shape[0]) * do_res.float()
+    dgamma = None
+    if gamma is not None:
+        dgamma = (do * bn).sum(0)
+        do = do * gamma
+    dbranch, dw, db = _ln_backward(do, w, xhat, rstd)
+    return dbranch, dw, db, dgamma
+
+
+def _aligned16(t):
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    boundary: the LN-backward body reads and writes its rows by 16-byte
+    vectors."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_act(t):
+    """A row kernel's activations are f32 or bf16."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"row kernel: dtype {t.dtype} (f32 or bf16)")
+
+
+def ln_bwd_launch(x, stats, w, dy, do_res, lam=1.0):
+    """The pre-norm LN-backward launches alone (csrc/row_kernels.cu
+    ``vsn_ln_bwd``: the rows, then the block-ordered sum of dw / db), for the
+    card's launch-level checks (K1b and K2b make them inside their own
+    calls): the CUDA kernels for a CUDA tensor, ``ln_backward_rows_reference``
+    for a CPU one; same arguments and returns."""
+    if x.device.type == "cpu":
+        return ln_backward_rows_reference(x, stats, w, dy, do_res, lam)
+    m, c = x.shape
+    _check_act(x)
+    f32, dev = torch.float32, x.device
+    expect(x, "x", (m, c), x.dtype, dev)
+    expect(stats, "stats", (m, 2), f32, dev)
+    expect(w, "w", (c,), f32, dev)
+    expect(dy, "dy", (m, c), f32, dev)
+    expect(do_res, "do_res", (m, c), x.dtype, dev)
+    part, blocks = _ln_bwd_scratch(m, c, dev)
+    x, dy, do_res = _aligned16(x), _aligned16(dy), _aligned16(do_res)
+    dx = torch.empty_like(x)
+    grads = torch.empty(2 * c, dtype=f32, device=dev)
+    dw, db = grads.split((c, c))
+    with torch.cuda.device(dev):
+        err = library().vsn_ln_bwd(
+            int(x.dtype == torch.bfloat16), x.data_ptr(), stats.data_ptr(),
+            w.data_ptr(), dy.data_ptr(), do_res.data_ptr(), float(lam),
+            dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(),
+            blocks, m, c, stream_of(x))
+    check(err, "ln_bwd")
+    launches["ln_bwd"] += 1
+    return dx, dw, db
+
+
+def postnorm_bwd_launch(branch, do_res, gb, rows_per_sample, w, b,
+                        gamma=None):
+    """The post-norm LN-backward launches alone (``vsn_postnorm_bwd``), for
+    the card's launch-level checks: the CUDA kernels for a CUDA tensor, which
+    overwrite ``branch`` with dbranch as K1b / K2b overwrite theirs and
+    return it; ``postnorm_backward_rows_reference`` for a CPU one; same
+    arguments and returns."""
+    if branch.device.type == "cpu":
+        return postnorm_backward_rows_reference(branch, do_res, gb,
+                                                rows_per_sample, w, b, gamma)
+    m, c = branch.shape
+    _check_act(do_res)
+    f32, dev = torch.float32, branch.device
+    expect(branch, "branch", (m, c), f32, dev)
+    expect(do_res, "do_res", (m, c), do_res.dtype, dev)
+    if m % rows_per_sample:
+        raise ValueError(f"postnorm_bwd: {m} rows over samples of "
+                         f"{rows_per_sample}")
+    if branch.data_ptr() % 16:
+        raise ValueError("postnorm_bwd: the branch, which the kernel "
+                         "overwrites, must start on a 16-byte boundary")
+    do_res = _aligned16(do_res)
+    expect(gb, "gb", (m // rows_per_sample,), f32, dev)
+    for t, name in ((w, "w"), (b, "b"), (gamma, "gamma")):
+        if t is not None:
+            expect(t, name, (c,), f32, dev)
+    part, blocks = _ln_bwd_scratch(m, c, dev)
+    grads = torch.empty(3 * c, dtype=f32, device=dev)
+    dw, db, dgamma = grads.split((c, c, c))
+    with torch.cuda.device(dev):
+        err = library().vsn_postnorm_bwd(
+            int(do_res.dtype == torch.bfloat16), branch.data_ptr(),
+            do_res.data_ptr(), gb.data_ptr(), rows_per_sample, w.data_ptr(),
+            b.data_ptr(), ptr(gamma), dw.data_ptr(), db.data_ptr(),
+            dgamma.data_ptr(), part.data_ptr(), blocks, m, c,
+            stream_of(branch))
+    check(err, "postnorm_bwd")
+    launches["postnorm_bwd"] += 1
+    return branch, dw, db, dgamma if gamma is not None else None
+
+
+def ln_rows_reference(x, w, b):
+    """Plain version of ``ln_rows_kernel`` (K1 / K1b / K2 / K2b's LN rows):
+    (y = T(LN(x)), the row statistics [M, 2] (mean, 1 / std))."""
+    y, xhat, rstd = _ln_parts(x.float(), w, b)
+    mu = x.float().mean(dim=-1, keepdim=True)
+    return y.to(x.dtype), torch.cat([mu, rstd], dim=-1)
+
+
+def colsum_reference(a, a_gain=None, rows_per_sample=None):
+    """Plain version of ``colsum_kernel`` (the bias gradients): [N] f32 =
+    sum_m g_m a[m, :], g_m = a_gain[m // rps] or 1."""
+    a32 = a.float()
+    if a_gain is not None:
+        a32 = _gain_rows(a_gain, rows_per_sample, a.shape[0]) * a32
+    return a32.sum(0)
+
+
+def postnorm_fwd_reference(branch, x, w, b, gamma, gains, rows_per_sample,
+                           lam=1.0):
+    """Plain version of ``postnorm_fwd_kernel``: T(lam * x + gains[row //
+    rps] * (LN(branch) [* gamma]))."""
+    bn = _branch_out(branch, w, b, gamma, True)
+    g = _gain_rows(gains, rows_per_sample, branch.shape[0])
+    return (lam * x.float() + g * bn).to(x.dtype)
+
+
+def layerscale_grads_reference(w, bias, gamma, dw, db, dgamma):
+    """Plain version of ``layerscale_grads_kernel``: (dw * gamma, db * gamma,
+    dgamma + rowsum(w * dw) + bias * db) from the unscaled dw [N, K] and db
+    [N]."""
+    return (dw * gamma[:, None], db * gamma,
+            dgamma + (w * dw).sum(1) + bias * db)
+
+
+def _row_launch(name, dev, fn):
+    with torch.cuda.device(dev):
+        err = fn(library())
+    check(err, name)
+    launches[f"row_{name}"] += 1
+
+
+def ln_rows_launch(x, w, b):
+    """``ln_rows_kernel`` alone (``vsn_ln_rows``): the kernel for a CUDA
+    tensor, ``ln_rows_reference`` for a CPU one."""
+    if x.device.type == "cpu":
+        return ln_rows_reference(x, w, b)
+    m, c = x.shape
+    _check_act(x)
+    f32, dev = torch.float32, x.device
+    expect(x, "x", (m, c), x.dtype, dev)
+    expect(w, "w", (c,), f32, dev)
+    expect(b, "b", (c,), f32, dev)
+    y = torch.empty_like(x)
+    stats = torch.empty((m, 2), dtype=f32, device=dev)
+    _row_launch("ln_rows", dev, lambda lib: lib.vsn_ln_rows(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), w.data_ptr(),
+        b.data_ptr(), y.data_ptr(), stats.data_ptr(), m, c, stream_of(x)))
+    return y, stats
+
+
+def colsum_launch(a, a_gain=None, rows_per_sample=None):
+    """``colsum_kernel`` alone (``vsn_colsum``): a [M, N] bf16 (the gated
+    do_res) or f32 (dh1, dbranch); the kernel for a CUDA tensor,
+    ``colsum_reference`` for a CPU one."""
+    if a.device.type == "cpu":
+        return colsum_reference(a, a_gain, rows_per_sample)
+    m, n = a.shape
+    _check_act(a)
+    f32, dev = torch.float32, a.device
+    expect(a, "a", (m, n), a.dtype, dev)
+    rps = m if rows_per_sample is None else rows_per_sample
+    if a_gain is not None:
+        expect(a_gain, "a_gain", (-(-m // rps),), f32, dev)
+    out = torch.zeros(n, dtype=f32, device=dev)
+    _row_launch("colsum", dev, lambda lib: lib.vsn_colsum(
+        int(a.dtype == torch.bfloat16), int(a.dtype == f32), a.data_ptr(),
+        ptr(a_gain), rps, out.data_ptr(), m, n, stream_of(a)))
+    return out
+
+
+def postnorm_fwd_launch(branch, x, w, b, gamma, gains, rows_per_sample,
+                        lam=1.0):
+    """``postnorm_fwd_kernel`` alone (``vsn_postnorm_fwd``): the kernel for
+    a CUDA tensor, ``postnorm_fwd_reference`` for a CPU one."""
+    if x.device.type == "cpu":
+        return postnorm_fwd_reference(branch, x, w, b, gamma, gains,
+                                      rows_per_sample, lam)
+    m, c = x.shape
+    _check_act(x)
+    f32, dev = torch.float32, x.device
+    expect(branch, "branch", (m, c), f32, dev)
+    expect(x, "x", (m, c), x.dtype, dev)
+    for t, name in ((w, "w"), (b, "b"), (gamma, "gamma")):
+        if t is not None:
+            expect(t, name, (c,), f32, dev)
+    expect(gains, "gains", (-(-m // rows_per_sample),), f32, dev)
+    out = torch.empty_like(x)
+    _row_launch("postnorm_fwd", dev, lambda lib: lib.vsn_postnorm_fwd(
+        int(x.dtype == torch.bfloat16), branch.data_ptr(), x.data_ptr(),
+        w.data_ptr(), b.data_ptr(), ptr(gamma), gains.data_ptr(),
+        rows_per_sample, float(lam), out.data_ptr(), m, c, stream_of(x)))
+    return out
+
+
+def layerscale_grads_launch(w, bias, gamma, dw, db, dgamma):
+    """``layerscale_grads_kernel`` alone (``vsn_layerscale_grads``), on
+    copies of dw, db and dgamma, which it updates in place: the kernel for a
+    CUDA tensor, ``layerscale_grads_reference`` for a CPU one; same
+    returns."""
+    if w.device.type == "cpu":
+        return layerscale_grads_reference(w, bias, gamma, dw, db, dgamma)
+    n, k = w.shape
+    dev, f32 = w.device, torch.float32
+    for t, name, shape in ((w, "w", (n, k)), (dw, "dw", (n, k)),
+                           (bias, "bias", (n,)), (gamma, "gamma", (n,)),
+                           (db, "db", (n,)), (dgamma, "dgamma", (n,))):
+        expect(t, name, shape, f32, dev)
+    dw, db, dgamma = dw.clone(), db.clone(), dgamma.clone()
+    _row_launch("layerscale_grads", dev, lambda lib: lib.vsn_layerscale_grads(
+        w.data_ptr(), bias.data_ptr(), gamma.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), dgamma.data_ptr(), n, k, stream_of(w)))
+    return dw, db, dgamma
+
+
+# The row kernels that K1 / K2 launch besides the LN backward, alone:
+# name -> (launch wrapper, plain version)
+ROW_KERNELS = {
+    "ln_rows": (ln_rows_launch, ln_rows_reference),
+    "colsum": (colsum_launch, colsum_reference),
+    "postnorm_fwd": (postnorm_fwd_launch, postnorm_fwd_reference),
+    "layerscale_grads": (layerscale_grads_launch, layerscale_grads_reference),
+}
+
+
 def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                        gb, dout, scale, num_heads, lam=1.0, proj_b=None,
                        gamma=None, post_norm=False, ao=None, stats=None,
@@ -770,6 +1042,7 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                              " body need K1f's ao")
         expect(ao, "ao", tuple(x.shape), x.dtype, x.device)
     rows, dev, dt = bw * n, x.device, x.dtype
+    x, dout = _aligned16(x), _aligned16(dout)   # the LN backward's rows
     # the f32 gradients the kernels add into, zeroed in one buffer
     sizes = (c, c, 3 * c * c, 3 * c, num_heads * n * n if bias is not None
              else 0, c * c, c, c if gamma is not None else 0)
@@ -788,6 +1061,7 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
     dx = torch.empty_like(x)
     s1 = (torch.empty((bw, num_heads, n), dtype=torch.float32, device=dev)
           if tiled else None)
+    part, blocks = _ln_bwd_scratch(rows, c, dev)
     with torch.cuda.device(dev):
         err = library().vsn_attn_half_bwd(
             int(tiled), int(dt == torch.bfloat16), x.data_ptr(),
@@ -801,7 +1075,8 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
             dbias.data_ptr() if bias is not None else None,
             dproj_w.data_ptr(), dproj_b.data_ptr(),
             dgamma.data_ptr() if gamma is not None else None,
-            ptr(o32), ptr(stats), ptr(s1), bw, n, c, num_heads,
+            ptr(o32), ptr(stats), ptr(s1), part.data_ptr(), blocks, bw, n, c,
+            num_heads,
             (bw // nsamp) * n,
             float(scale), float(lam), stream_of(x))
     check(err, "attn_half_bwd")
@@ -1006,6 +1281,7 @@ def ln_mlp_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb, dout,
     rows, c = x.shape
     hid = fc1_w.shape[0]
     dev, dt = x.device, x.dtype
+    x, dout = _aligned16(x), _aligned16(dout)   # the LN backward's rows
     sizes = (c, c, hid * c, hid, c * hid, c, c if gamma is not None else 0)
     grads = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
     dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b, dgamma = grads.split(sizes)
@@ -1015,6 +1291,7 @@ def ln_mlp_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb, dout,
     dh1 = torch.empty((rows, hid), dtype=torch.float32, device=dev)
     dy = torch.empty((rows, c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
+    part, blocks = _ln_bwd_scratch(rows, c, dev)
     with torch.cuda.device(dev):
         err = library().vsn_ln_mlp_bwd(
             int(dt == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(),
@@ -1024,8 +1301,9 @@ def ln_mlp_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb, dout,
             h.data_ptr(), dh1.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             dln_w.data_ptr(), dln_b.data_ptr(), dfc1_w.data_ptr(),
             dfc1_b.data_ptr(), dfc2_w.data_ptr(), dfc2_b.data_ptr(),
-            dgamma.data_ptr() if gamma is not None else None, rows, c, hid,
-            rows // nsamp, float(lam), stream_of(x))
+            dgamma.data_ptr() if gamma is not None else None,
+            part.data_ptr(), blocks, rows, c, hid, rows // nsamp, float(lam),
+            stream_of(x))
     check(err, "ln_mlp_bwd")
     launches[mode_key("ln_mlp_bwd", gamma, post_norm)] += 1
     return (dx, dln_w, dln_b, dfc1_w.view(hid, c), dfc1_b,

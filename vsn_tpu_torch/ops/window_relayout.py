@@ -4,10 +4,14 @@
   windows_to_windows(w, window, dims, roll)  == partition(roll3d(reverse(w), roll))
   windows_to_spatial(w, window, dims, roll)  == roll3d(reverse(w), roll)
 
-All three launch one CUDA gather kernel (``csrc/window_relayout.cu``) with
-different source and destination layouts, for a tensor on a CUDA device;
-for a tensor on the CPU they run the plain reshape/permute/roll forms from
-``models/swin3d.py``. Any dtype; the move is bit-exact.
+All three launch one CUDA gather kernel (``csrc/window_relayout.cu``) over
+a row map, for a tensor on a CUDA device; for a tensor on the CPU they run
+the plain reshape/permute/roll forms from ``models/swin3d.py``. Any dtype;
+the move is bit-exact. The map (``relayout_map``: for each destination row
+of one sample, its source row, int32) is the kernel's plan, built on the
+host from the index formulas once per geometry, roll, layouts and device
+and cached; ``relayout_launch`` gives the launch's chunk width and threads
+a row.
 
 On the CUDA route each mover is a ``torch.autograd.Function`` whose
 backward is the JAX adjoint (vsn_tpu/ops/window_relayout.py:141-153,
@@ -20,6 +24,10 @@ forms are differentiable through autograd as they are.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from vsn_tpu_torch.ops._build import check, expect, launches, library, stream_of
@@ -43,17 +51,81 @@ def _windows_batch(wins, window, dims):
     return wins.shape[0] // nwin
 
 
+RELAYOUT_THREADS = 256   # csrc/window_relayout.cu kRelayoutThreads
+RELAYOUT_ROWS = 4        # kRelayoutRows: rows a thread moves
+
+
+@functools.lru_cache(maxsize=None)
+def relayout_map(dims, window, roll, src_windows, dst_windows):
+    """The K3 kernel's row map of one sample (numpy int32 [D*H*W]): entry t
+    is the source row of destination row t, for the move from the source
+    layout (windows or spatial) to the destination layout that rolls by
+    ``roll`` (each 0 <= r < dim). Built from the index formulas:
+    destination row -> its spatial position (z, y, x) -> minus the roll ->
+    the source layout's row of that position."""
+    d, h, w = dims
+    wd, wh, ww = window
+    nwh, nww = h // wh, w // ww
+    n = wd * wh * ww
+    t = np.arange(d * h * w, dtype=np.int64)
+    if dst_windows:
+        win, pos = t // n, t % n
+        z = win // (nwh * nww) * wd + pos // (wh * ww)
+        y = win // nww % nwh * wh + pos // ww % wh
+        x = win % nww * ww + pos % ww
+    else:
+        z, y, x = t // (h * w), t // w % h, t % w
+    z, y, x = (z - roll[0]) % d, (y - roll[1]) % h, (x - roll[2]) % w
+    if src_windows:
+        win = (z // wd * nwh + y // wh) * nww + x // ww
+        src = win * n + (z % wd * wh + y % wh) * ww + x % ww
+    else:
+        src = (z * h + y) * w + x
+    return src.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_map(key, device):
+    """``relayout_map(*key)`` on ``device``, built once."""
+    return torch.from_numpy(relayout_map(*key)).to(device)
+
+
+class RelayoutLaunch(NamedTuple):
+    """How the K3 kernel moves rows of ``row_bytes``: ``chunk`` bytes a
+    thread at once (16, 4 or 1: the widest that divides the row and both
+    base addresses), ``chunks`` of them a row, ``lanes`` threads on a row
+    (threadIdx.x), ``rows_per_step`` rows a block step (threadIdx.y), each
+    thread moving one chunk of RELAYOUT_ROWS rows a block."""
+    chunk: int
+    chunks: int
+    lanes: int
+    rows_per_step: int
+
+
+def relayout_launch(row_bytes, src_ptr=0, dst_ptr=0):
+    """The K3 launch's shape for rows of ``row_bytes`` bytes."""
+    align = row_bytes | src_ptr | dst_ptr
+    chunk = 16 if align % 16 == 0 else 4 if align % 4 == 0 else 1
+    chunks = row_bytes // chunk
+    lanes = min(chunks, RELAYOUT_THREADS)
+    return RelayoutLaunch(chunk, chunks, lanes, RELAYOUT_THREADS // lanes)
+
+
 def _launch(name, src, dst, batch, dims, window, roll, src_windows,
             dst_windows):
     if src.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {src.device}")
     expect(src, "input", src.shape, src.dtype, src.device)
-    roll = [int(r) % int(d) for r, d in zip(roll, dims)]
+    dims, window = tuple(map(int, dims)), tuple(map(int, window))
+    roll = tuple(int(r) % d for r, d in zip(roll, dims))
+    rmap = _device_map((dims, window, roll, bool(src_windows),
+                        bool(dst_windows)), src.device)
+    row_bytes = src.shape[-1] * src.element_size()
+    plan = relayout_launch(row_bytes, src.data_ptr(), dst.data_ptr())
     with torch.cuda.device(src.device):
         err = library().vsn_window_relayout(
-            src.data_ptr(), dst.data_ptr(), batch, *dims,
-            src.shape[-1] * src.element_size(), *window, *roll,
-            int(src_windows), int(dst_windows), stream_of(src))
+            src.data_ptr(), dst.data_ptr(), rmap.data_ptr(), batch,
+            rmap.numel(), row_bytes, plan.chunk, plan.lanes, stream_of(src))
     check(err, name)
     launches[name] += 1
     return dst
