@@ -44,12 +44,24 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    bf16 pre-norm, f32 post-norm, the residual line and gamma outside it)
    and its bound (bytes, or 13 / 20 f32 operations an element), summed per
    micro-batch pass (the result line's LN-backward entries: both passes, the
-   launches the path counts); then the row kernels this phase leaves as they are
-   (``sbk.ROW_KERNELS``: LN's rows, the column sums, the post-norm
-   forward's finish, the pre-norm LayerScale gradients) at the same calls,
-   each launch held to its plain version once and timed beside it, the
-   library call (``native_layer_norm``, ``Tensor.sum(0)``) where one exists,
-   and its bound;
+   launches the path counts); then LN's rows and the bias gradients' column
+   sums (``ln_rows_launch``, ``colsum_launch``; ``ROW_KERNEL_ENTRIES``) at
+   every call of those passes, bf16 and f32, against their plain versions
+   (``ln_rows_reference``, ``colsum_reference``: bf16 y within TOL of its
+   scale, f32 outputs within LN_BWD_TOL), a second launch on the same
+   inputs giving the same bits; their path, each launch as often as a pass
+   makes it, counters at 0 before and exactly those launches after; then
+   every row kernel (those two, the post-norm forward's finish, the
+   pre-norm LayerScale gradients: ``sbk.ROW_KERNELS``) at the same calls,
+   held to its plain version once and timed beside it (``launch_ms``), the
+   library call (``native_layer_norm``, ``Tensor.sum(0)``) where one
+   exists, and its bound, summed per micro-batch pass (the result line's
+   ``ln_rows`` / ``colsum`` entries: both passes); then the wide rows
+   (``WIDE_ROWS``): one K1 and one K2 call, bf16, at Swin-T's stage-4 rows
+   of micro-batch 8 at C = 1536 (EMBED_DIM 192, hidden 6144) and at C =
+   300 (not a multiple of 8), in the default mode and post-norm +
+   LayerScale, forward and every gradient through the kernels against the
+   plain route to TOL;
 3. K1's key-tiled attention body, and K2, on ViT-S's calls
    (vit-5c-no_seed-baseline: N = 811 tokens, 6 heads of 64, no bias, no
    region ids): every K1/K2 call of an eval forward at batch 2 in f32 and in
@@ -116,8 +128,9 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    within TOL["float32"] of its scale. The ptxas report of phase 1: every
    window-attention, GEMM, weight-gradient, K1, stem, row and K3 kernel's
    registers, none spilling but K1's whole-window bodies and K5f's f32
-   FMA body, and K5's tensor-core bodies, the LN-backward body's 32
-   instantiations and K3's three gathers there. The V kernels'
+   FMA body, and K5's tensor-core bodies, the row bodies (``ROW_BODIES``:
+   every instantiation of the LN backward, LN's rows and the column sums)
+   and K3's three gathers there. The V kernels'
    times per micro-batch beside their plain versions', SDPA's forward and
    backward on the same calls and their bounds; their launches alone
    (CUDA events, the calls queued behind a spin kernel: V1f, V3f, V1b and
@@ -435,6 +448,27 @@ LN_BWD_KERNELS = {
                      "vsn_tpu/ops/swin_block_kernels.py:85"),
 }
 KERNELS.update(LN_BWD_KERNELS)
+# LN's rows and the bias gradients' column sums (csrc/common.cuh
+# ``ln_rows_kernel``, ``colsum_kernel`` + ``ordered_sum_kernel``), which
+# K1b / K2b launch inside their calls; phase 2b drives them through their
+# own entry points (csrc/row_kernels.cu) as it drives the LN backward.
+# name (their launch counter) -> (source, the TPU function they replace:
+# _ln_fwd in _attn_bwd_kernel / _mlp_bwd_kernel; the bias gradients' sums,
+# dbproj at :401, db2 and db1 at :943-963)
+ROW_KERNEL_ENTRIES = {
+    "ln_rows": ("vsn_tpu_torch/csrc/common.cuh",
+                "vsn_tpu/ops/swin_block_kernels.py:75"),
+    "colsum": ("vsn_tpu_torch/csrc/common.cuh",
+               "vsn_tpu/ops/swin_block_kernels.py:401"),
+}
+KERNELS.update(ROW_KERNEL_ENTRIES)
+# phase 2b's wide rows: (C, heads) of one K1 and one K2 call over Swin-T's
+# stage-4 rows at micro-batch 8 (8 windows of 5 x 6 x 5 tokens, clamped):
+# the stage at EMBED_DIM 192 (24 heads of 64: K1's key-tiled body; hidden
+# 6144), and a width that is not a multiple of 8 (12 heads of 25: K1's
+# whole-window body; hidden 1200)
+WIDE_ROWS = ((1536, 24), (300, 12))
+WIDE_WINDOWS, WIDE_N = TRAIN_MICRO, 150
 # dw / db / dgamma of the LN backward against its plain version, relative to
 # their scale: bf16 launches 1e-3 (the same f32 terms of rounded inputs
 # summed in another order), f32 1e-4
@@ -560,10 +594,14 @@ RESNET_STEM = ((144, 168, 144), (7, 7, 7), (1, 2, 2), 64)
 # and its f32 FMA forward, whose 24 bytes of spills predate them
 STEM_MMA = ("stem_fwd_mma_kernel", "stem_dw_mma_kernel")
 STEM_F32_FMA = "stem_fwd_kernel<float"
-# The LN-backward body (2 types x 2 modes x 8 column layouts) with its
-# ordered sum, and K3's gather (16-, 4- and 1-byte chunks), as the ptxas
-# report of row_kernels.cu and window_relayout.cu lists them
-ROW_BODIES = {"ln_bwd_rows_kernel": 32, "ln_bwd_sum_kernel": 1,
+# The row bodies, as the ptxas report of row_kernels.cu and
+# window_relayout.cu lists them: the LN backward (2 types x 2 modes x 13
+# plans: 8-column units at K = 1-3 in a warp and K = 2-4 across warps,
+# single columns at K = 1, 2, 4, 8 and K = 8, 16, 32 across warps), LN's
+# rows (bf16, f32 and f32 -> bf16 x the 13 plans), the column sums (2 types
+# x 7 plans), the ordered sum, and K3's gather (16-, 4- and 1-byte chunks)
+ROW_BODIES = {"ln_bwd_rows_kernel": 52, "ln_rows_kernel": 39,
+              "colsum_kernel": 14, "ordered_sum_kernel": 1,
               "relayout_map_kernel": 3}
 # H100 SXM datasheet peaks: HBM bytes/s and dense FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -1281,7 +1319,8 @@ def start_ptxas():
     instantiation of K1 / K2, tensor-core and FMA bodies, bf16 and f32),
     K1's two sources (its tiled and whole-window launches), the stem's
     (K5f / K5w, tensor-core and FMA bodies), the row kernels' (the
-    LN-backward body in every instantiation) and K3's, which compiles them
+    LN-backward body, LN's rows and the column sums in every
+    instantiation) and K3's, which compiles them
     once more with ``-Xptxas -v``: the process, to be read by
     ``ptxas_phase``."""
     import atexit
@@ -1312,8 +1351,8 @@ def ptxas_phase(proc):
     instantiation (layout ``Split`` / ``MapRows``) is there, if a
     tensor-core GEMM or weight-gradient body is missing, if K5's
     tensor-core bodies (``STEM_MMA``) are not there at both x-strides, or if
-    row_kernels.cu and window_relayout.cu do not compile the LN-backward
-    body and K3's gather as ``ROW_BODIES`` counts them.
+    row_kernels.cu and window_relayout.cu do not compile the row bodies
+    and K3's gather as ``ROW_BODIES`` counts them.
     K1's whole-window bodies (``WHOLE_WINDOW``), off every main path, and
     K5f's f32 FMA body (``STEM_F32_FMA``), which keeps its statements and
     registers, are logged and not held to the spill gate: they have
@@ -1343,7 +1382,7 @@ def ptxas_phase(proc):
                              f"compiled: {sorted(layouts)}; tensor-core GEMM "
                              f"bodies: {sorted(bodies)}; K5 tensor-core "
                              f"bodies (x-strides 1 and 2): {dict(stem)}; the "
-                             f"LN-backward and K3 bodies of row_kernels.cu "
+                             f"row and K3 bodies of row_kernels.cu "
                              f"and window_relayout.cu: {dict(redesigned)}, "
                              f"expected {ROW_BODIES}")
 
@@ -2174,6 +2213,14 @@ def bound_ms(name, calls, dtype="bfloat16"):
         for launch, times in row_launch_set(calls).items():
             f, b = ln_bwd_work(name, launch, dtype)
             flops, nbytes = flops + times * f, nbytes + times * b
+        return work_bound_ms(flops, nbytes, "float32")
+    if name in ROW_KERNEL_ENTRIES:  # likewise
+        for launch, times in row_launch_set(calls).items():
+            for kname, _, shape in row_kernel_calls(launch):
+                if kname == name:
+                    f, b = row_shape_work(kname, shape,
+                                          launch.rows_per_sample, dtype)
+                    flops, nbytes = flops + times * f, nbytes + times * b
         return work_bound_ms(flops, nbytes, "float32")
     if name in GEMM_KERNELS:  # the launches that the K1 / K2 calls make
         for launch, times in gemm_launch_set(calls).items():
@@ -4023,6 +4070,20 @@ def row_kernel_work(kname, args):
     return 3 * w.numel(), 3 * _nbytes(w) + 5 * _nbytes(args[1])
 
 
+def row_shape_work(kname, shape, rows_per_sample, dtype="bfloat16"):
+    """(f32 operations, bytes) of one launch of LN's rows or of a column
+    sum at its ``shape`` (``row_kernel_calls``), as ``row_kernel_work``
+    counts them on its arguments."""
+    el = 2 if dtype == "bfloat16" else 4
+    if kname == "ln_rows":
+        m, c = shape
+        return 5 * m * c, 2 * m * c * el + 8 * m + 8 * c
+    m, n, kind = shape
+    if kind == "f32":
+        return 2 * m * n, 4 * m * n + 4 * n
+    return 2 * m * n, m * n * el + 4 * (m // rows_per_sample) + 4 * n
+
+
 def row_library_call(kname, args):
     """The one PyTorch call computing a row kernel's function, a yardstick
     the port never calls (``native_layer_norm`` for LN's rows, in the
@@ -4039,36 +4100,142 @@ def row_library_call(kname, args):
     return None
 
 
-def row_kernel_times(sets, device, card):
-    """The row kernels that this phase does not redesign, at the calls of
-    ``sets`` {label: Counter(RowLaunch)}, bf16: each distinct launch once
-    against its plain version (outputs in the activation type to TOL, f32
-    ones to LN_BWD_TOL of their scale), then its device ms (``launch_ms``),
-    the plain version's, the library call's where one exists and the bound,
-    with its launches a micro-batch pass in its mode; logged, and summed per
-    set and kernel. Raises if a launch disagrees with its plain version."""
+def row_table():
+    """name -> (launch wrapper, plain version) of the row kernels besides
+    the LN backward (``sbk.ROW_KERNELS``)."""
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    return dict(sbk.ROW_KERNELS)
+
+
+def _row_outputs(fn, args):
+    out = fn(*args)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def row_compare(kname, args, table, dtype="bfloat16"):
+    """One row-kernel launch against its plain version on the same
+    arguments (a set of activation type ``dtype``): (the largest max|d| of
+    its outputs, the largest as a share of its limit, whether a second
+    launch gave the same bits in every output). bf16 outputs are held to
+    TOL, f32 ones (the statistics, the column sums, f32 y) to LN_BWD_TOL,
+    each relative to its scale."""
+    import torch
+
+    kernel, plain = table[kname]
+    got = _row_outputs(kernel, args)
+    again = _row_outputs(kernel, args)
+    want = _row_outputs(plain, args)
+    err_max = ratio_max = 0.0
+    for g, w in zip(got, want):
+        limit = (TOL["bfloat16"] if g.dtype == torch.bfloat16
+                 else LN_BWD_TOL[dtype])
+        err = (g.float() - w.float()).abs().max().item()
+        if not math.isfinite(err):
+            err = math.inf
+        err_max = max(err_max, err)
+        ratio_max = max(ratio_max, err / (limit * max(
+            1.0, w.float().abs().max().item())))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    return err_max, ratio_max, same
+
+
+def row_parity_phase(sets, device, table=None, names=tuple(ROW_KERNEL_ENTRIES),
+                     seed=SEED + 31):
+    """Every launch of the row kernels ``names`` that the K1b / K2b calls of
+    ``sets`` {label: (Counter(RowLaunch), dtype)} make (``row_kernel_calls``)
+    against its plain version, and a second launch for the same bits
+    (``row_compare``); logs each set's worst; raises naming the launches
+    over their limit or whose bits differ. Returns {name: worst max|d|}."""
+    import torch
+
+    table = table or row_table()
+    gen = torch.Generator(device).manual_seed(seed)
+    worst, failed, unequal = dict.fromkeys(names, 0.0), [], []
+    for label, (launches, dtype) in sets.items():
+        ratios = dict.fromkeys(names, 0.0)
+        for launch in launches:
+            for kname, what, shape in row_kernel_calls(launch):
+                if kname not in names:
+                    continue
+                args = row_kernel_args(kname, shape, launch, device, gen,
+                                       dtype)
+                err, ratio, same = row_compare(kname, args, table, dtype)
+                worst[kname] = max(worst[kname], err)
+                ratios[kname] = max(ratios[kname], ratio)
+                where = f"{label} {kname} {launch.label} {what} {shape}"
+                if not ratio <= 1.0:
+                    failed.append(f"{where}: {ratio:.2f} of its limit")
+                if not same:
+                    unequal.append(where)
+                del args
+        log(f"row parity {label} ({dtype}): {len(launches)} launch shapes, "
+            + ", ".join(f"{k} worst {v:.3f} of the limit"
+                        for k, v in ratios.items())
+            + ", two launches bit-equal" * (not unequal))
+    if failed:
+        raise AssertionError("row kernels disagree with their plain versions:"
+                             f" {failed}")
+    if unequal:
+        raise AssertionError("row kernel launches differ between two runs on"
+                             f" the same inputs: {unequal}")
+    return worst
+
+
+def row_path(sets, device, names=tuple(ROW_KERNEL_ENTRIES)):
+    """Every launch of the row kernels ``names`` that the K1b / K2b calls of
+    ``sets`` {label: Counter(RowLaunch)} make in a training micro-batch
+    pass, as often as the pass makes it, through their wrappers, with every
+    launch counter at 0 before: the counters after, which must be one per
+    launch and nothing else."""
+    import torch
+    from vsn_tpu_torch.ops import _build
+
+    gen = torch.Generator(device).manual_seed(SEED + 33)
+    table = row_table()
+    want = collections.Counter()
+    _build.launches.clear()
+    for launches in sets.values():
+        for launch, times in launches.items():
+            for kname, _, shape in row_kernel_calls(launch):
+                if kname not in names:
+                    continue
+                args = row_kernel_args(kname, shape, launch, device, gen)
+                for _ in range(times):
+                    table[kname][0](*args)
+                want[kname] += times
+                del args
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_counts(counts, want, 1, "row path")
+    return counts
+
+
+def row_kernel_times(sets, device, card, names=None):
+    """The row kernels other than the LN backward (``sbk.ROW_KERNELS``, or
+    those of ``names``) at the calls of ``sets`` {label: Counter(RowLaunch)},
+    bf16: each distinct launch once against its plain version (outputs in
+    the activation type to TOL, f32 ones to LN_BWD_TOL of their scale), then
+    its device ms (``launch_ms``), the plain version's, the library call's
+    where one exists and the bound, with its launches a micro-batch pass in
+    its mode; logged. Raises if a launch disagrees with its plain version.
+    Returns {(label, kernel): Counter of ms, plain, library, flops, bytes
+    and launches} summed over the set's launches, each times the calls that
+    make it in a micro-batch pass."""
     import torch
     from vsn_tpu_torch.ops import swin_block_kernels as sbk
 
     gen = torch.Generator(device).manual_seed(SEED + 30)
-    failed = []
+    failed, out = [], {}
     for label, launches in sets.items():
         tot = collections.defaultdict(collections.Counter)
         for launch, times in launches.items():
             for kname, what, shape in row_kernel_calls(launch):
+                if names is not None and kname not in names:
+                    continue
                 kernel, plain = sbk.ROW_KERNELS[kname]
                 args = row_kernel_args(kname, shape, launch, device, gen)
-                got, want = kernel(*args), plain(*args)
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                ratio = 0.0
-                for g, w in zip(got, want):
-                    limit = (TOL["bfloat16"] if g.dtype == torch.bfloat16
-                             else LN_BWD_TOL["bfloat16"])
-                    scale = max(1.0, w.float().abs().max().item())
-                    err = (g.float() - w.float()).abs().max().item()
-                    ratio = max(ratio, err / (limit * scale)
-                                if math.isfinite(err) else math.inf)
+                _, ratio, _ = row_compare(kname, args, sbk.ROW_KERNELS)
                 if not ratio <= 1.0:
                     failed.append(f"{label} {kname} {launch.label} {what}: "
                                   f"{ratio:.2f} of its limit")
@@ -4098,10 +4265,82 @@ def row_kernel_times(sets, device, card):
                 f"({t['ms'] / bound[0]:.2f}x the bound; plain "
                 f"{t['plain']:.3f} ms, library {lib}, bound {bound[0]:.3f} "
                 f"ms by {bound[1]})")
+            out[(label, kname)] = t
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError("row kernels disagree with their plain versions:"
                              f" {failed}")
+    return out
+
+
+def row_entries(times, sets, names=tuple(ROW_KERNEL_ENTRIES)):
+    """The result line's entries of the row kernels ``names`` {name: (ms,
+    plain ms, (bound ms, by), library ms)}: ``row_kernel_times``' sums added
+    over every set of ``sets`` (the launches that ``row_path`` counts), the
+    bound that of the summed work."""
+    out = {}
+    for name in names:
+        tot = sum((times[(label, name)] for label in sets),
+                  collections.Counter())
+        out[name] = (tot["ms"], tot["plain"],
+                     work_bound_ms(tot["flops"], tot["bytes"], "float32"),
+                     tot["library"])
+    return out
+
+
+def wide_calls(device, gen, c, heads, dtype="bfloat16"):
+    """A K1 and a K2 call [(name, args)] of width ``c`` over Swin-T's
+    stage-4 rows at micro-batch 8 (WIDE_WINDOWS windows of WIDE_N tokens, one
+    a sample, unshifted: no region ids), x = z in ``dtype``, with the seeded
+    parameters and gains of ``seeded_params`` (an O(1) relative-position
+    bias; K2's hidden width 4C)."""
+    import torch
+
+    x = torch.randn(WIDE_WINDOWS, WIDE_N, c, generator=gen).to(
+        device, getattr(torch, dtype))
+    gains = torch.ones(WIDE_WINDOWS, device=device)
+    none = torch.empty(0)
+    k1 = (x, None, None, None, none, torch.empty(heads, WIDE_N, WIDE_N), None,
+          None, None, gains, gains, (c // heads) ** -0.5, heads)
+    k2 = (x.reshape(-1, c), None, None, torch.empty(4 * c, 0), None, None,
+          None, gains, gains)
+    return [("attn_half", seeded_params("attn_half", k1, gen)),
+            ("ln_mlp", seeded_params("ln_mlp", k2, gen))]
+
+
+def wide_row_phase(device, gen, table=None):
+    """K1 and K2 at the wide rows (``WIDE_ROWS``, ``wide_calls``), bf16,
+    in the default mode and post-norm + LayerScale at lam PATH_LAM: every
+    gradient of one seeded cotangent through the kernels (K1b / K2b: LN's
+    rows, the column sums and the LN backward at these widths) against the
+    plain route, each to TOL of its scale (``grad_compare``); logged;
+    raises naming the gradients over their limit. Returns {backward kernel
+    name: worst max|d|}."""
+    import torch
+
+    table = table or kernel_table()
+    worst, failed = collections.defaultdict(float), []
+    for c, heads in WIDE_ROWS:
+        for name, args in wide_calls(device, gen, c, heads):
+            kernel, plain = table[name]
+            for mode, post_norm in (("", False), ("_post_ls", True)):
+                gamma = seeded_gamma(args[0], gen) if post_norm else None
+                rows = grad_compare(name, kernel, plain, args, PATH_LAM, gen,
+                                    gamma, post_norm)
+                ratio = max(err / limit for _, err, limit, _ in rows)
+                bad = [g for g, _, _, ok in rows if not ok]
+                worst[backward_name(name)] = max(
+                    worst[backward_name(name)], *(e for _, e, _, _ in rows))
+                log(f"wide rows C={c} {backward_name(name)}{mode} "
+                    f"({args[0].numel() // c} rows): {len(rows)} grads, worst"
+                    f" {ratio:.3f} of the limit {'ok' if not bad else 'FAIL'}")
+                if bad:
+                    failed.append(f"C={c} {backward_name(name)}{mode}: {bad}")
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("backward kernels disagree with their plain "
+                             f"versions at the wide rows: {failed}")
+    return dict(worst)
 
 
 def main() -> int:
@@ -4159,19 +4398,26 @@ def main() -> int:
         f"{ {k: v for k, v in gemm_counts.items() if v} }")
     gemm_ms = gemm_times(gemm_sets, device, card)
 
-    # 2b. the row kernels of K1 / K2 alone: the LN backward, then the rest
-    ln_worst = ln_bwd_parity_phase(
-        {**{label: (launches, "bfloat16")
-            for label, launches in row_sets.items()},
-         **{f"{label} f32": (launches, "float32")
-            for label, launches in row_sets.items()}}, device)
+    # 2b. the row kernels of K1 / K2 alone: the LN backward, LN's rows and
+    # the column sums; the other row kernels' times; the wide rows
+    typed_sets = {**{label: (launches, "bfloat16")
+                     for label, launches in row_sets.items()},
+                  **{f"{label} f32": (launches, "float32")
+                     for label, launches in row_sets.items()}}
+    ln_worst = ln_bwd_parity_phase(typed_sets, device)
+    row_worst = row_parity_phase(typed_sets, device)
     ln_counts = ln_bwd_path(row_sets, device)
     log(f"LN-backward path: {sum(ln_counts.values())} launches, "
         f"{ {k: v for k, v in ln_counts.items() if v} }")
+    row_counts = row_path(row_sets, device)
+    log(f"row path: {sum(row_counts.values())} launches, "
+        f"{ {k: v for k, v in row_counts.items() if v} }")
     ln_entries = ln_bwd_entries(ln_bwd_times(row_sets, device, card),
                                 row_sets)
-    row_kernel_times(row_sets, device, card)
-    del row_sets
+    ln_entries.update(row_entries(row_kernel_times(row_sets, device, card),
+                                  row_sets))
+    wide_row_phase(device, torch.Generator().manual_seed(SEED + 32))
+    del row_sets, typed_sets
 
     # 3. K1's tiled body and K2 on ViT-S's calls ------------------------
     vit_cfg = load_config(preset=VIT_PRESET)
@@ -4626,6 +4872,10 @@ def main() -> int:
         ms[name], plain_ms[name], bounds[name], library_ms[name] = \
             ln_entries[name]
         path_counts[name], worst[name] = ln_counts[name], ln_worst[name]
+    for name in ROW_KERNEL_ENTRIES:  # likewise
+        ms[name], plain_ms[name], bounds[name], library_ms[name] = \
+            ln_entries[name]
+        path_counts[name], worst[name] = row_counts[name], row_worst[name]
     path_counts.update({name: v_counts[name] for name in V_PER_CALL})
     for key, (n, err, t, plain_t, bound, lib) in probes.items():
         path_counts[key], worst[key], ms[key] = n, err, t
@@ -4640,7 +4890,8 @@ def main() -> int:
                if name in PROBES else f"micro-batch of {VIT_MICRO} (ViT)"
                if "tiled" in name
                else f"micro-batch pass of {TRAIN_MICRO} (Swin-T) and of "
-               f"{VIT_MICRO} (ViT-S)" if name in LN_BWD_KERNELS
+               f"{VIT_MICRO} (ViT-S)"
+               if name in LN_BWD_KERNELS or name in ROW_KERNEL_ENTRIES
                else f"micro-batch of {TRAIN_MICRO}")
         lib = ("no single call" if library_ms[name] is None
                else f"{library_ms[name]:.3f} ms")

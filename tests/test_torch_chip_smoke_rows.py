@@ -2,9 +2,11 @@
 tiny size on the CPU: the LN-backward launches that K1 / K2 calls make,
 their operands, the parity phase against the plain versions (which must
 reject a launch that drops a term, or whose second run gives other bits),
-the LN-backward path's counts, the other row kernels' calls and checks,
-and the bounds (split from tests/test_torch_chip_smoke.py, whose shared
-pieces it imports).
+the LN-backward path's counts; the same for LN's rows and the column sums
+(their parity phase, path and result-line entries); the other row kernels'
+calls and checks, the bounds, and the wide-row check's calls and phase
+(split from tests/test_torch_chip_smoke.py, whose shared pieces it
+imports).
 
 On the CPU ``ln_bwd_launch`` / ``postnorm_bwd_launch`` and the other row
 wrappers run their plain versions, so a "kernel" here is the plain version
@@ -307,6 +309,21 @@ def test_row_kernel_bounds():
         5 * 96 * 4
 
 
+def test_row_shape_work_counts_what_the_arguments_count(row_sets):
+    """The bound of LN's rows and the column sums from their shapes alone
+    (``row_shape_work``, the result line's bound over the recorded calls)
+    is the bound from their seeded arguments (``row_kernel_work``)."""
+    gen = torch.Generator().manual_seed(0)
+    for launch in row_sets["swin"]:
+        for kname, _, shape in chip_smoke.row_kernel_calls(launch):
+            if kname in chip_smoke.ROW_KERNEL_ENTRIES:
+                args = chip_smoke.row_kernel_args(kname, shape, launch, "cpu",
+                                                  gen)
+                assert chip_smoke.row_shape_work(
+                    kname, shape, launch.rows_per_sample) == \
+                    chip_smoke.row_kernel_work(kname, args)
+
+
 def test_mover_launch_times_cover_each_call_and_its_adjoint(one_call_clock):
     """Every mover call of a training forward, forward and adjoint, once
     each; the sums per name; the bytes counted include the map's 4 a row."""
@@ -329,3 +346,142 @@ def test_k3_alone_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         chip_smoke.k3_alone()
+
+
+# LN's rows and the column sums (phase 2b holds them as it holds the LN
+# backward): mutants of their plain versions that the row parity phase
+# must reject. name -> (kernel, its mutant of the plain version)
+ROW_MUTANTS = {
+    "column sums: the first third of the rows only": ("colsum", lambda a, *r: (
+        sbk.colsum_reference(a[: a.shape[0] // 3], *r) if not r else
+        sbk.colsum_reference(a[: a.shape[0] // 3], r[0], r[1]))),
+    "column sums: the first sample's gain for all": ("colsum", lambda a, *r: (
+        sbk.colsum_reference(a) if not r else sbk.colsum_reference(
+            a, r[0][:1].expand_as(r[0]).contiguous(), r[1]))),
+    "LN rows: the variance about 0": ("ln_rows", lambda x, w, b: (
+        lambda xf: ((xf * torch.rsqrt((xf * xf).mean(1, keepdim=True)
+                                      + 1e-5) * w + b).to(x.dtype),
+                    sbk.ln_rows_reference(x, w, b)[1]))(x.float())),
+    "LN rows: the statistics of the neighbouring row": ("ln_rows", lambda *a: (
+        lambda y, st: (y, st.roll(1, 0)))(*sbk.ln_rows_reference(*a))),
+}
+
+
+def test_row_plain_versions_pass(row_sets):
+    worst = chip_smoke.row_parity_phase(_sets(row_sets), "cpu")
+    assert worst == {"ln_rows": 0.0, "colsum": 0.0}
+
+
+@pytest.mark.parametrize("mutant", sorted(ROW_MUTANTS))
+def test_a_row_launch_missing_a_term_fails(row_sets, mutant):
+    name, kernel = ROW_MUTANTS[mutant]
+    table = chip_smoke.row_table()
+    table[name] = (kernel, table[name][1])
+    with pytest.raises(AssertionError, match="row kernels disagree"):
+        chip_smoke.row_parity_phase(_sets(row_sets), "cpu", table)
+
+
+def test_unequal_column_sum_bits_between_two_launches_fail(row_sets):
+    """A column sum whose second run gives other bits (an order of sums
+    that varies from run to run, as atomics give) makes the phase raise,
+    though each run is within its tolerance."""
+    runs = collections.Counter()
+
+    def flaky(a, *rest):
+        out = sbk.colsum_reference(a, *rest)
+        runs[a.shape] += 1
+        return out + 1e-7 * out.abs().max() * (runs[a.shape] % 2 == 0)
+
+    table = chip_smoke.row_table()
+    table["colsum"] = (flaky, table["colsum"][1])
+    with pytest.raises(AssertionError, match="row kernel launches differ"):
+        chip_smoke.row_parity_phase({"swin": (row_sets["swin"], "float32")},
+                                    "cpu", table)
+
+
+def test_row_path_counts_one_launch_per_call(row_sets, monkeypatch):
+    """The row path's plumbing: LN's rows once per K1b / K2b call (24 a
+    pass) and the column sums once per bias gradient (K1b's dbproj, K2b's
+    dfc2_b and dfc1_b: 36 a pass), for both sets, the counters at 0 before;
+    the wrappers counted by stand-ins (the CPU path counts nothing)."""
+    from vsn_tpu_torch.ops import _build
+
+    table = chip_smoke.row_table()
+
+    def counted(name):
+        def fn(*a):
+            _build.launches[name] += 1
+            return table[name][1](*a)
+        return fn
+
+    monkeypatch.setattr(chip_smoke, "row_table", lambda: {
+        k: (counted(k), v[1]) for k, v in table.items()})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    _build.launches["colsum"] += 5   # cleared by the path
+    counts = chip_smoke.row_path(row_sets, "cpu")
+    assert counts["ln_rows"] == 48 and counts["colsum"] == 72
+    assert sum(counts.values()) == 120
+    _build.launches.clear()
+
+
+def test_row_entries_sum_every_set_that_the_path_counts(
+        row_sets, one_call_clock):
+    """The result line's ``ln_rows`` / ``colsum`` entries describe the
+    launches that ``row_path`` counts: both sets' (24 + 24 and 36 + 36 a
+    pass at one ms each; ``Tensor.sum(0)`` and ``native_layer_norm`` run
+    on the CPU too), with the bound of the summed work."""
+    times = chip_smoke.row_kernel_times(row_sets, "cpu", "cpu")
+    entries = chip_smoke.row_entries(times, row_sets)
+    for name, n in (("ln_rows", 48), ("colsum", 72)):
+        ms, plain, bound, lib = entries[name]
+        assert ms == plain == lib == n
+        flops = nbytes = 0
+        for launches in row_sets.values():
+            for la, t in launches.items():
+                for kname, _, shape in chip_smoke.row_kernel_calls(la):
+                    if kname == name:
+                        args = chip_smoke.row_kernel_args(
+                            kname, shape, la, "cpu",
+                            torch.Generator().manual_seed(0))
+                        f, b = chip_smoke.row_kernel_work(kname, args)
+                        flops, nbytes = flops + t * f, nbytes + t * b
+        assert bound == chip_smoke.work_bound_ms(flops, nbytes, "float32")
+    only = chip_smoke.row_kernel_times(row_sets, "cpu", "cpu",
+                                       names=("colsum",))
+    assert {k for _, k in only} == {"colsum"}
+
+
+def test_the_wide_rows_calls():
+    """The wide-row check's calls: Swin-T's stage-4 rows at micro-batch 8
+    (8 windows of 150 tokens, 1200 rows), K1 at C = 1536 (24 heads of 64:
+    the key-tiled body) and at C = 300 (12 heads of 25: the whole-window
+    body), K2 at hidden 4C, seeded parameters and distinct gains."""
+    gen = torch.Generator().manual_seed(0)
+    for c, heads in chip_smoke.WIDE_ROWS:
+        (n1, k1), (n2, k2) = chip_smoke.wide_calls("cpu", gen, c, heads)
+        assert (n1, n2) == ("attn_half", "ln_mlp")
+        assert k1[0].shape == (8, 150, c) and k1[0].dtype == torch.bfloat16
+        assert k1[3].shape == (3 * c, c) and k1[5].shape == (heads, 150, 150)
+        assert k1[6] is None and k1[12] == heads
+        assert k2[0].shape == (1200, c) and k2[3].shape == (4 * c, c)
+        assert k2[7].shape == (8,) and not torch.equal(k2[7], k2[8])
+        assert sbk._tiled(150, c, heads) == (c % 8 == 0)
+    assert {c % 8 for c, _ in chip_smoke.WIDE_ROWS} == {0, 4}
+
+
+def test_wide_rows_phase_passes_and_a_mutant_fails(monkeypatch):
+    """The phase on narrow stand-ins for the wide rows (the CPU runs the
+    plain versions on both sides): passes; a K2 with its LN scale half
+    again fails it."""
+    monkeypatch.setattr(chip_smoke, "WIDE_ROWS", ((16, 2), (12, 3)))
+    monkeypatch.setattr(chip_smoke, "WIDE_WINDOWS", 2)
+    monkeypatch.setattr(chip_smoke, "WIDE_N", 10)
+    worst = chip_smoke.wide_row_phase("cpu", torch.Generator().manual_seed(0))
+    assert worst == {"attn_half_bwd": 0.0, "ln_mlp_bwd": 0.0}
+    table = chip_smoke.kernel_table()
+    plain = table["ln_mlp"][1]
+    table["ln_mlp"] = (lambda x, w, *a, **k: plain(x, 1.5 * w, *a, **k),
+                       plain)
+    with pytest.raises(AssertionError, match="at the wide rows"):
+        chip_smoke.wide_row_phase("cpu", torch.Generator().manual_seed(0),
+                                  table)

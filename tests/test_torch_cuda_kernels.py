@@ -1171,9 +1171,14 @@ def test_a_mutated_gemm_source_makes_chip_smoke_fail(dev, mutant, tmp_path):
 
 # (M, C): Swin-T's stage widths and ViT-S's at ragged row counts (several
 # blocks, a ragged last run), the tests' narrow widths, single columns (C =
-# 12, not a multiple of 8) and the widest the body takes
+# 12, not a multiple of 8), and the wide rows, whose lane group spans 2-8
+# warps: 1024 and 1280 (64 lanes), 1536 (Swin-T's stage 4 at EMBED_DIM 192,
+# 64 lanes x 3 units), 4096 and 8192 (256 lanes), and single columns above
+# 256: 300 (64 lanes x 8), 3000 (256 x 16) and 8191 (256 x 32)
 LN_SHAPES = [(70, 96), (5000, 96), (3001, 192), (2016, 384), (300, 768),
-             (74, 24), (111, 8), (50, 12), (40, 1024)]
+             (74, 24), (111, 8), (50, 12), (40, 1024), (1200, 1280),
+             (1200, 1536), (700, 300), (300, 4096), (150, 3000), (130, 8192),
+             (64, 8191)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1225,17 +1230,110 @@ def test_post_norm_without_gamma_and_pre_norm_at_deepscalelm_lam(dev, dtype):
         assert (a - e).abs().max().item() <= 1e-3 * e.abs().max().item()
 
 
-def test_ln_bwd_wrappers_reject_what_the_body_does_not_take(dev):
-    x = torch.zeros(10, 300, device=dev)
+def test_ln_bwd_wrappers_take_every_width_to_8192_and_no_wider(dev):
+    """The plan takes every C from 1 to 8192 (the widths above are launched
+    by the parity test); 8193 raises, and so do the dtypes and row counts
+    the body does not take."""
+    x = torch.zeros(10, 8193, device=dev)
     stats = torch.zeros(10, 2, device=dev)
+    with pytest.raises(ValueError, match="C <= 8192"):
+        sbk.ln_bwd_launch(x, stats, torch.ones(8193, device=dev), x, x)
+    assert all(_build.library().vsn_ln_bwd_blocks(10, c)
+               for c in range(1, 8193))
+    x = torch.zeros(10, 300, device=dev)
     w = torch.ones(300, device=dev)
-    with pytest.raises(ValueError, match="C <= 1024"):
-        sbk.ln_bwd_launch(x, stats, w, x, x)
     with pytest.raises(TypeError, match="dtype"):
         sbk.ln_bwd_launch(x.half(), stats, w, x, x.half())
     with pytest.raises(ValueError, match="rows over samples"):
         sbk.postnorm_bwd_launch(x[:, :96].contiguous(), x[:, :96].contiguous(),
                                 torch.ones(3, device=dev), 3, w[:96], w[:96])
+
+
+# (M, N, kind): the column sums at the K1b / K2b calls' shapes: the gated
+# do_res (bf16) at Swin-T's stage 1 and 4 widths and ViT-S's, at Swin-T's
+# stage 4 of EMBED_DIM 192 (1536: two column groups) and at a width of single
+# columns (300); f32 (dh1, dbranch) at hidden 3072 (four column groups of
+# 96 units), 384 and 1000 (single columns); rows over 3 samples, ragged
+COLSUM_SHAPES = [(5001, 96, "gated"), (300, 768, "gated"),
+                 (19464, 384, "gated"), (1200, 1536, "gated"),
+                 (700, 300, "gated"), (1200, 3072, "f32"),
+                 (5001, 384, "f32"), (301, 1000, "f32"), (7, 24, "gated")]
+
+
+def _colsum_args(dev, m, n, kind, dtype=torch.bfloat16):
+    g = torch.Generator(dev).manual_seed(9)
+    a = torch.randn(m, n, generator=g, device=dev)
+    if kind == "f32":
+        return (a,)
+    rps = -(-m // 3)
+    return (a.to(dtype), torch.linspace(0.6, 1.4, -(-m // rps), device=dev),
+            rps)
+
+
+@pytest.mark.parametrize("m,n,kind", COLSUM_SHAPES)
+def test_colsum_launch_matches_plain_and_repeats_its_bits(dev, m, n, kind):
+    """``colsum_launch`` against ``colsum_reference`` within LN_BWD_TOL of
+    its scale (the same f32 terms summed in another order), one launch
+    counted a call, and two launches on the same inputs give the same bits
+    (block partials summed in block order)."""
+    args = _colsum_args(dev, m, n, kind)
+    before = _build.launches["colsum"]
+    got, again = sbk.colsum_launch(*args), sbk.colsum_launch(*args)
+    want = sbk.colsum_reference(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["colsum"] == before + 2
+    tol = chip_smoke.LN_BWD_TOL["bfloat16"]
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert (got - want).abs().max().item() <= tol * max(
+        1.0, want.abs().max().item())
+    assert torch.equal(got, again)
+
+
+def test_colsum_launch_at_a_misaligned_view_and_f32_gated(dev):
+    """A row operand 4 bytes into its storage (copied by the wrapper) and
+    the gated sum over f32 rows (f32 activations)."""
+    m, n = 1001, 96
+    g = torch.Generator(dev).manual_seed(10)
+    base = torch.randn(m * n + 1, generator=g, device=dev)
+    a = base[1:].view(m, n)
+    assert a.data_ptr() % 16
+    gains = torch.tensor([0.7, 1.3], device=dev)
+    for args in ((a,), (a, gains, 501), (a.to(torch.bfloat16), gains, 501)):
+        want = sbk.colsum_reference(*args)
+        got = sbk.colsum_launch(*args)
+        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max()
+
+
+# (M, C) of LN's rows: the LN-backward shapes (the same plan)
+LN_ROWS_SHAPES = LN_SHAPES
+
+
+@pytest.mark.parametrize("x_dtype,y_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])   # the probe P1 attn_only's form
+@pytest.mark.parametrize("m,c", LN_ROWS_SHAPES)
+def test_ln_rows_launch_matches_plain_and_repeats_its_bits(dev, m, c,
+                                                           x_dtype, y_dtype):
+    """``ln_rows_launch`` against ``ln_rows_reference``: y within TOL of its
+    type (one rounding step where the f32 values round apart), the row
+    statistics within 1e-4 of their scale (the row's sums in another
+    order); parameters views 4 bytes into a buffer, as training's; two
+    launches give the same bits."""
+    g = torch.Generator(dev).manual_seed(11)
+    z = lambda *s: torch.randn(*s, generator=g, device=dev)
+    vec = lambda v: torch.cat([v.new_zeros(1), v])[1:]
+    x = (3 * z(m, c) + 1 + z(m, 1)).to(x_dtype)
+    w, b = vec(1 + 0.1 * z(c)), vec(0.1 * z(c))
+    before = _build.launches["ln_rows"]
+    y, stats = sbk.ln_rows_launch(x, w, b, y_dtype)
+    y2, stats2 = sbk.ln_rows_launch(x, w, b, y_dtype)
+    want_y, want_stats = sbk.ln_rows_reference(x, w, b, y_dtype)
+    torch.cuda.synchronize()
+    assert _build.launches["ln_rows"] == before + 2
+    _close(y, want_y, y_dtype)
+    err = (stats - want_stats).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want_stats.abs().max().item()), err
+    assert torch.equal(y, y2) and torch.equal(stats, stats2)
 
 
 @pytest.mark.parametrize("offset", [2, 1])   # 4- and 2-byte aligned views
@@ -1254,9 +1352,10 @@ def test_movers_at_a_misaligned_view(dev, offset):
     assert torch.equal(back, x)
 
 
-# One-line edits of the LN-backward body and of K3's gather that
-# chip_smoke.py must reject on the card (exit 1: in its row-kernel phase 2b,
-# or in its mover parity, phase 6): name -> (source, line, its mutant)
+# One-line edits of the row kernels (the LN backward, the column sums, LN's
+# rows) and of K3's gather that chip_smoke.py must reject on the card (exit
+# 1: in its row-kernel phase 2b, or in its mover parity, phase 6): name ->
+# (source, line, its mutant)
 ROW_SOURCE_MUTANTS = {
     "LN backward: mean(dxhat xhat) dropped": (
         "common.cuh",
@@ -1270,6 +1369,15 @@ ROW_SOURCE_MUTANTS = {
     "LN backward: the slices' sums picked by the clock's parity": (
         "common.cuh", "a += red[i][0][lane];",
         "a += red[(clock() & 1) ? kLnSumSlices - i : i][0][lane];"),
+    "column sums: the first block's partial only": (
+        "common.cuh",
+        "return launch_ordered_sum(part, plan.blocks, n, 0, nullptr, nullptr,"
+        " nullptr, out, nullptr,",
+        "return launch_ordered_sum(part, 1, n, 0, nullptr, nullptr, nullptr, "
+        "out, nullptr,"),
+    "LN rows: the variance about 0": (
+        "common.cuh", "const float t = xin[k].get(e) - mu;",
+        "const float t = xin[k].get(e);"),
     "K3: each row from its neighbour's source": (
         "window_relayout.cu",
         "if (r < rows) v[i] = src[(unsigned)__ldg(map + r) * (unsigned)chunks"
@@ -1279,7 +1387,8 @@ ROW_SOURCE_MUTANTS = {
 }
 ROW_FAILURES = ("LN-backward launches disagree with their plain versions",
                 "LN-backward launches differ between two runs",
-                "kernels disagree with their plain versions")
+                "kernels disagree with their plain versions",
+                "row kernel launches differ between two runs")
 
 
 @pytest.mark.parametrize("mutant", sorted(ROW_SOURCE_MUTANTS))

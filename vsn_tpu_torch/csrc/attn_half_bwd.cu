@@ -8,7 +8,7 @@
 // kernel _attn_bwd_kernel, attention chain in _heads_attention_bwd). The TPU
 // kernel recomputes the forward inside one VMEM program per window and adds
 // its weight gradients into output blocks carried across a sequential grid.
-// Here the same recompute-then-VJP runs as the nine steps below (eleven
+// Here the same recompute-then-VJP runs as the nine steps below (twelve
 // launches with the key-tiled attention) on the caller's stream, and every
 // carried accumulator is a reduction (common.cuh):
 //
@@ -23,11 +23,12 @@
 //      forward's softmax. Other head dims (none of the presets) take the
 //      whole-window body below, one block per (window, head), which also
 //      recomputes the attention output ao, which dWproj needs;
-//   5. dWproj = do^T @ ao (split-K weight-gradient GEMM), 6. dbproj = sum do;
+//   5. dWproj = do^T @ ao (split-K weight-gradient GEMM), 6. dbproj = sum do
+//      (two launches: the block partials and their block-ordered sum);
 //   7. dWqkv = dqkv^T @ y (split-K), 8. dy = dqkv @ Wqkv (GEMM, f32 out);
 //   9. LN1 backward + residual: dx = T(lam * do_res + LN_bwd(dy)), dLN1
 //      (two launches: the rows and the block-ordered sum of dLN1, common.cuh
-//      ln_bwd_rows_kernel / ln_bwd_sum_kernel).
+//      ln_bwd_rows_kernel / ordered_sum_kernel).
 //
 // The residual modes (_attn_bwd_kernel :369-442):
 //
@@ -280,7 +281,7 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
                   float* dy, T* dx, float* dln_w, float* dln_b, float* dqkv_w,
                   float* dqkv_b, float* dbias, float* dproj_w, float* dproj_b,
                   float* dgamma, const float* o32, const float* row_stats, float* s1,
-                  float* ln_part, int ln_blocks, long long bw, int n, int c, int heads,
+                  float* part, long long part_floats, long long bw, int n, int c, int heads,
                   long long rows_per_sample, float scale, float lam,
                   cudaStream_t stream) {
   const long long rows = bw * n;
@@ -315,7 +316,7 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
     err = launch_gemm<T, EPI_F32>(g_br, stream);
     if (err != cudaSuccess) return (int)err;
     err = launch_postnorm_bwd<T>(dy, dout, gb, rows_per_sample, ln_w, ln_b, gamma, dln_w,
-                                 dln_b, dgamma, ln_part, ln_blocks, rows, c, stream);
+                                 dln_b, dgamma, part, part_floats, rows, c, stream);
     if (err != cudaSuccess) return (int)err;
 
     GemmParams<T, float> g_dao = {};  // dao[m, i] = sum_o dbranch[m, o] Wproj[o, i]
@@ -341,7 +342,7 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
     w_proj.n2 = c;
     err = launch_wgrad(w_proj, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_colsum<float>(dy, nullptr, 1, dproj_b, rows, c, stream);
+    err = launch_colsum<float>(dy, nullptr, 1, dproj_b, part, part_floats, rows, c, stream);
     if (err != cudaSuccess) return (int)err;
   } else {
     GemmParams<T> g_dao = {};  // dao[m, i] = sum_o do[m, o] Wproj[o, i]
@@ -373,7 +374,8 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
     w_proj.n2 = c;
     err = launch_wgrad(w_proj, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_colsum<T>(dout, gb, rows_per_sample, dproj_b, rows, c, stream);
+    err = launch_colsum<T>(dout, gb, rows_per_sample, dproj_b, part, part_floats, rows, c,
+                            stream);
     if (err != cudaSuccess) return (int)err;
     if (gamma) {
       err = launch_layerscale_grads<float>(proj_w, proj_b, gamma, dproj_w, dproj_b, dgamma,
@@ -408,8 +410,8 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
   err = launch_gemm<T, EPI_F32, true>(g_dy, stream);
   if (err != cudaSuccess) return (int)err;
 
-  return (int)launch_ln_bwd<T>(x, stats, ln_w, dy, dout, lam, dx, dln_w, dln_b, ln_part,
-                               ln_blocks, rows, c, stream);
+  return (int)launch_ln_bwd<T>(x, stats, ln_w, dy, dout, lam, dx, dln_w, dln_b, part,
+                               part_floats, rows, c, stream);
 }
 
 }  // namespace
@@ -418,11 +420,12 @@ int attn_half_bwd(int tiled, const T* x, const float* ln_w, const float* ln_b, c
 // is_bf16 selects bf16 activations (else f32); parameters and their
 // gradients are f32. bias/bias_t (the bias and its [H, N^T, N] transpose)
 // and ids may be null; dbias is then not written. The f32 gradient outputs
-// (dqkv_w .. dproj_b, dbias, and dgamma with a pre-norm gamma) must be
+// dqkv_w, dqkv_b, dbias, dproj_w (and dgamma with a pre-norm gamma) must be
 // zeroed by the caller: the kernels add into them; LN1's (dln_w, dln_b, and
-// dgamma under post-norm) are written. y, stats, qkv, dao, ao, dqkv, dy and
-// ln_part ([ln_blocks, 2C] f32, ln_blocks = common.cuh ln_bwd_plan(BW*N,
-// C).blocks, the LN-backward body's block partials) are scratch,
+// dgamma under post-norm) and dproj_b are written. y, stats, qkv, dao, ao,
+// dqkv, dy and part (part_floats f32, at least what the LN backward's and
+// the column sum's plans need: common.cuh ln_bwd_plan(BW*N, C).blocks x 2C
+// and colsum_plan(BW*N, C).blocks x C, their block partials) are scratch,
 // but for ao under post_norm or tiled: the input K1f's attention output
 // [BW*N, C] of this call (vsn_attn_half_fwd's ao_buf), read only.
 // tiled selects the key-tiled attention backward (phases A and B, head dims
@@ -441,7 +444,7 @@ extern "C" int vsn_attn_half_bwd(
     float* stats, void* qkv, void* dao, void* ao, void* dqkv, float* dy, void* dx,
     float* dln_w, float* dln_b, float* dqkv_w, float* dqkv_b, float* dbias,
     float* dproj_w, float* dproj_b, float* dgamma, const float* o32,
-    const float* row_stats, float* s1, float* ln_part, int ln_blocks, long long bw, int n,
+    const float* row_stats, float* s1, float* part, long long part_floats, long long bw, int n,
     int c, int heads, long long rows_per_sample, float scale, float lam, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
@@ -451,8 +454,8 @@ extern "C" int vsn_attn_half_bwd(
         proj_w, proj_b, gamma, post_norm, gb, static_cast<const B*>(dout),
         static_cast<B*>(y), stats, static_cast<B*>(qkv), static_cast<B*>(dao),
         static_cast<B*>(ao), static_cast<B*>(dqkv), dy, static_cast<B*>(dx), dln_w, dln_b,
-        dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma, o32, row_stats, s1, ln_part,
-        ln_blocks, bw, n, c, heads, rows_per_sample, scale, lam, s);
+        dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma, o32, row_stats, s1, part,
+        part_floats, bw, n, c, heads, rows_per_sample, scale, lam, s);
   }
   return attn_half_bwd<float>(
       tiled, static_cast<const float*>(x), ln_w, ln_b, qkv_w, qkv_b, bias, bias_t, ids, ids_rows,
@@ -460,7 +463,7 @@ extern "C" int vsn_attn_half_bwd(
       static_cast<float*>(y), stats, static_cast<float*>(qkv), static_cast<float*>(dao),
       static_cast<float*>(ao), static_cast<float*>(dqkv), dy, static_cast<float*>(dx), dln_w,
       dln_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b, dgamma,
-      static_cast<const float*>(ao), row_stats, s1, ln_part, ln_blocks, bw, n, c, heads,
+      static_cast<const float*>(ao), row_stats, s1, part, part_floats, bw, n, c, heads,
       rows_per_sample, scale, lam, s);
 }
 

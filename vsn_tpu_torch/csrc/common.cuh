@@ -756,13 +756,14 @@ cudaError_t launch_gemm(const GemmParams<T, TA, TO>& p, cudaStream_t stream) {
 //
 // The TPU backward kernels keep their parameter-gradient accumulators in
 // output blocks that every program of a sequential grid adds to. Blocks of a
-// GPU grid run in parallel, so each such sum is a reduction here: a block
-// reduces its slice of the rows and adds its partial into a zeroed f32
-// output with atomicAdd. The order of those adds varies from run to run, so
-// the parameter gradients agree with a plain version to the f32 rounding of
-// the sums, not bit for bit. The LayerNorm backward's dw / db / dgamma are
-// the exception: its blocks write their partials, which a second launch
-// adds in block order (the same bits on every run).
+// GPU grid run in parallel, so each such sum is a reduction here. The weight
+// gradients' blocks add their partials into a zeroed f32 output with
+// atomicAdd; the order of those adds varies from run to run, so they agree
+// with a plain version to the f32 rounding of the sums, not bit for bit. The
+// row kernels' sums (the LayerNorm backward's dw / db / dgamma, the bias
+// gradients' column sums) are the exception: their blocks write their
+// partials, which a second launch adds in block order (the same bits on
+// every run).
 // ---------------------------------------------------------------------------
 
 // Splits of a reduction over ``m`` rows so that about four blocks per SM
@@ -778,41 +779,269 @@ inline long long rows_per_split(long long m, long long blocks_per_split,
   return (rows + 15) / 16 * 16;
 }
 
-// y = round_TY(LN(x)) and the row statistics (mean, 1/std) [M, 2], one warp
-// per row, computed as the forward GEMM's LayerNorm prologue computes them.
-template <typename T, typename TY = T>
-__global__ void __launch_bounds__(256) ln_rows_kernel(const T* __restrict__ x,
-                                                      const float* __restrict__ w,
-                                                      const float* __restrict__ b,
-                                                      TY* __restrict__ y,
-                                                      float* __restrict__ stats,
-                                                      long long m, int k) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * 8 + warp;
-  if (row >= m) return;
-  const T* xr = x + row * k;
-  float s = 0.f;
-  for (int c = lane; c < k; c += 32) s += to_f32(xr[c]);
-  const float mu = warp_sum(s) / k;
-  float v = 0.f;
-  for (int c = lane; c < k; c += 32) {
-    const float d = to_f32(xr[c]) - mu;
-    v += d * d;
+// The row plan of the kernels that hold whole rows: LN's rows
+// (``ln_rows_kernel``) and the LayerNorm backward (``ln_bwd_rows_kernel``).
+// A plan of (M, C) alone (``ln_bwd_plan``): a lane group of L lanes (a power
+// of two) owns a row, each lane K units of VEC columns (unit u = k * L + the
+// lane's place in the group), loaded once into registers; a block of
+// kLnBwdWarps warps walks a run of rows, 256 / L rows at a time, so where L
+// < 32 a warp keeps several rows' loads in flight.
+//
+//   - C a multiple of 8: 8-column units, read and written by 16-byte vectors
+//     (two for f32); L is the least power of two with 3 L >= C / 8, so K <= 3
+//     up to C = 768 at L = 32 (Swin-T's and ViT-S's widths: 4 lanes at C =
+//     96, 32 at 768), L = 64-256 above, and K = 4 at L = 256 (C <= 8192).
+//   - Other C: one column a lane (coalesced scalar loads); L = 32 with K = 1,
+//     2, 4 or 8 up to C = 256, then L = 64, 128, 256 at K = 8, and K = 16,
+//     32 at L = 256 (C <= 8192).
+//   - L <= 32: a row's sums are shuffles within its group. L = 64-256
+//     (``WIDE``): a group spans 2-8 warps, whose sums meet through shared
+//     memory, added in warp order (``RowSum``).
+// The rows' operands must be 16-byte aligned (the wrappers copy one that is
+// not); LN's parameters are staged once a block in shared memory, so their
+// vector reads are aligned where they are views into a flat buffer
+// (training's).
+constexpr int kLnBwdWarps = 8;
+constexpr int kLnBwdThreads = 32 * kLnBwdWarps;
+constexpr int kLnBwdMaxBlocks = 2 * 132;  // one wave at two blocks an SM
+constexpr int kLnRowsMaxBlocks = 4 * 132; // LN's rows: one wave at four blocks an SM
+constexpr int kLnBwdMinSteps = 2;         // least block steps of rows in a run
+constexpr int kRowMaxLanes = 256;         // a row's group: at most the block's warps
+constexpr int kRowMaxC = 8192;            // the widest row the plan takes
+
+// The launch plan of one row call: columns per unit (8: whole 16-byte
+// chunks of bf16; 1), lanes per row (a power of two), units per lane, rows
+// per block (a multiple of the block's step, kLnBwdThreads / lanes rows) and
+// blocks. The wrappers size the LN backward's scratch by it (row_kernels.cu
+// ``vsn_ln_bwd_blocks``).
+struct LnBwdPlan {
+  int vec, lanes, shift, units;
+  long long run;
+  int blocks;
+};
+
+inline bool ln_bwd_plan(long long m, int c, LnBwdPlan* p,
+                        int max_blocks = kLnBwdMaxBlocks) {
+  if (m < 1 || c < 1 || c > kRowMaxC) return false;
+  p->vec = c % 8 == 0 ? 8 : 1;
+  const int chunks = c / p->vec;
+  if (p->vec == 8) {
+    p->lanes = 1;
+    while (p->lanes < kRowMaxLanes && 3 * p->lanes < chunks) p->lanes <<= 1;
+    p->units = (chunks + p->lanes - 1) / p->lanes;
+  } else {
+    p->lanes = 32;
+    while (p->lanes < kRowMaxLanes && 8 * p->lanes < chunks) p->lanes <<= 1;
+    const int units = (chunks + p->lanes - 1) / p->lanes;
+    p->units = 1;
+    while (p->units < units) p->units <<= 1;
   }
-  const float rstd = 1.f / sqrtf(warp_sum(v) / k + kLnEps);
-  for (int c = lane; c < k; c += 32)
-    y[row * k + c] = from_f32<TY>((to_f32(xr[c]) - mu) * rstd * w[c] + b[c]);
-  if (lane == 0) {
-    stats[2 * row] = mu;
-    stats[2 * row + 1] = rstd;
+  p->shift = 0;
+  while ((1 << p->shift) < p->lanes) ++p->shift;
+  const long long step = kLnBwdThreads / p->lanes;
+  long long run = (m + max_blocks - 1) / max_blocks;
+  if (run < kLnBwdMinSteps * step) run = kLnBwdMinSteps * step;
+  p->run = (run + step - 1) / step * step;
+  p->blocks = (int)((m + p->run - 1) / p->run);
+  return true;
+}
+
+// Calls f(VEC, K, WIDE), each an integral_constant, for the body's
+// instantiation that takes ``plan``; cudaErrorInvalidValue for none.
+template <typename F>
+cudaError_t with_row_plan(const LnBwdPlan& plan, F&& f) {
+  using std::integral_constant;
+  using W = std::true_type;
+  using N = std::false_type;
+  using I1 = integral_constant<int, 1>;
+  using I8 = integral_constant<int, 8>;
+  const bool wide = plan.lanes > 32;
+  if (plan.vec == 8 && !wide) {
+    switch (plan.units) {
+      case 1: return f(I8(), I1(), N());
+      case 2: return f(I8(), integral_constant<int, 2>(), N());
+      case 3: return f(I8(), integral_constant<int, 3>(), N());
+    }
+  } else if (plan.vec == 8) {
+    switch (plan.units) {
+      case 2: return f(I8(), integral_constant<int, 2>(), W());
+      case 3: return f(I8(), integral_constant<int, 3>(), W());
+      case 4: return f(I8(), integral_constant<int, 4>(), W());
+    }
+  } else if (!wide) {
+    switch (plan.units) {
+      case 1: return f(I1(), I1(), N());
+      case 2: return f(I1(), integral_constant<int, 2>(), N());
+      case 4: return f(I1(), integral_constant<int, 4>(), N());
+      case 8: return f(I1(), I8(), N());
+    }
+  } else {
+    switch (plan.units) {
+      case 8: return f(I1(), I8(), W());
+      case 16: return f(I1(), integral_constant<int, 16>(), W());
+      case 32: return f(I1(), integral_constant<int, 32>(), W());
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// One element of a row, for the one-column-a-lane form (Row8's interface).
+template <typename TA>
+struct Row1 {
+  float f;
+  __device__ __forceinline__ void load(const TA* src, int valid, bool) {
+    f = valid > 0 ? to_f32(*src) : 0.f;
+  }
+  __device__ __forceinline__ float get(int) const { return f; }
+};
+
+template <typename TA, int VEC>
+using RowV = typename std::conditional<VEC == 8, Row8<TA>, Row1<TA>>::type;
+
+template <int VEC, typename TO>
+__device__ __forceinline__ void store_row(TO* dst, const float (&v)[VEC]) {
+  if constexpr (VEC == 8) {
+    store8(dst, v, 8, true);
+  } else {
+    *dst = from_f32<TO>(v[0]);
   }
 }
 
+// Hopper's programmatic dependent launch: a grid launched by
+// ``launch_ordered_sum`` may be scheduled while the grid before it on the
+// stream still runs, once that grid's blocks have let it
+// (``let_dependents_start``); ``wait_for_prior_grid`` then holds it until
+// the earlier grid has finished and its writes are visible. Launched
+// without the attribute, the wait returns at once.
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void let_dependents_start() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// The sum of ``v`` over this lane's row group of ``lanes`` lanes, the same
+// value in every lane of the group. Within a warp (L <= 32) a butterfly of
+// shuffles; a group of several warps (WIDE) adds the warps' sums in warp
+// order through ``red`` [2][kLnBwdWarps] in shared memory, its two halves in
+// turn, so one barrier a sum suffices: every thread of the block calls it
+// alike.
+template <bool WIDE>
+struct RowSum {
+  float (*red)[kLnBwdWarps];
+  int turn;
+  __device__ __forceinline__ float operator()(float v, int lanes) {
+    if constexpr (!WIDE) {
+      for (int o = 1; o < lanes; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      return v;
+    } else {
+      const int warp = threadIdx.x >> 5, gw = lanes >> 5, w0 = warp & ~(gw - 1);
+      v = warp_sum(v);
+      if ((threadIdx.x & 31) == 0) red[turn][warp] = v;
+      __syncthreads();
+      float s = red[turn][w0];
+      for (int j = 1; j < gw; ++j) s += red[turn][w0 + j];
+      turn ^= 1;
+      return s;
+    }
+  }
+};
+
+// y = round_TY(LN(x)) and the row statistics (mean, 1/std) [M, 2], computed
+// as the forward GEMM's LayerNorm prologue computes them (the mean, then the
+// variance about it, two passes over the row's registers). Replaces _ln_fwd
+// (vsn_tpu/ops/swin_block_kernels.py:75) as K1b and K2b recompute it.
+//
+// What bounds it: bytes (x read, y and 8 bytes of statistics a row
+// written; ~6 f32 operations an element). The row plan above: each lane
+// loads its units of x once by 16-byte vectors, y leaves by vector stores
+// and the statistics as one float2 a row; LN's scale and shift are staged
+// once a block in shared memory, under the block's first loads.
+template <typename T, typename TY, int VEC, int K, bool WIDE>
+__global__ void __launch_bounds__(kLnBwdThreads) ln_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
+    TY* __restrict__ y, float* __restrict__ stats, long long m, int c, LnBwdPlan plan) {
+  extern __shared__ __align__(16) float ln_smem[];  // [C] w, then [C] b
+  float* w_s = ln_smem;
+  float* b_s = ln_smem + c;
+  __shared__ float red[2][kLnBwdWarps];
+  RowSum<WIDE> group_sum{red, 0};
+  const int tid = threadIdx.x, lanes = plan.lanes;
+  const int sub = (WIDE ? tid : tid & 31) & (lanes - 1);
+  const int groups = kLnBwdThreads >> plan.shift, gid = tid >> plan.shift;
+  const int chunks = c / VEC;
+  const long long r0 = (long long)blockIdx.x * plan.run;
+  const long long r1 = min(r0 + plan.run, m);
+  for (long long base = r0; base < r1; base += groups) {
+    const long long row = base + gid;
+    const bool live = row < r1;
+    RowV<T, VEC> xin[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = k * lanes + sub;
+      xin[k].load(x + (live ? row : r0) * c + (long long)u * VEC,
+                  live && u < chunks ? VEC : 0, true);
+    }
+    if (base == r0) {  // the block's first step: stage w and b under its loads
+      for (int j = tid; j < c; j += kLnBwdThreads) {
+        w_s[j] = w[j];
+        b_s[j] = b[j];
+      }
+      __syncthreads();
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s += xin[k].get(e);
+    const float mu = group_sum(s, lanes) / c;
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k * lanes + sub < chunks)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float t = xin[k].get(e) - mu;
+          v += t * t;
+        }
+    const float rstd = 1.f / sqrtf(group_sum(v, lanes) / c + kLnEps);
+    if (!live) continue;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = k * lanes + sub;
+      if (u >= chunks) continue;
+      RowV<float, VEC> wk, bk;
+      wk.load(w_s + u * VEC, VEC, true);
+      bk.load(b_s + u * VEC, VEC, true);
+      float out[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) out[e] = (xin[k].get(e) - mu) * rstd * wk.get(e) + bk.get(e);
+      store_row<VEC>(y + row * c + (long long)u * VEC, out);
+    }
+    if (sub == 0) *reinterpret_cast<float2*>(stats + 2 * row) = make_float2(mu, rstd);
+  }
+}
+
+// x and y must be 16-byte aligned and stats 8-byte aligned; C <= kRowMaxC.
 template <typename T, typename TY = T>
 cudaError_t launch_ln_rows(const T* x, const float* w, const float* b, TY* y,
                            float* stats, long long m, int k, cudaStream_t stream) {
-  ln_rows_kernel<T, TY><<<(unsigned)((m + 7) / 8), 256, 0, stream>>>(x, w, b, y, stats, m, k);
-  return cudaGetLastError();
+  LnBwdPlan plan;
+  const uintptr_t rows = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
+  if (!ln_bwd_plan(m, k, &plan, kLnRowsMaxBlocks) || rows % 16 ||
+      reinterpret_cast<uintptr_t>(stats) % 8)
+    return cudaErrorInvalidValue;
+  return with_row_plan(plan, [&](auto vec, auto units, auto wide) {
+    auto kernel = ln_rows_kernel<T, TY, decltype(vec)::value, decltype(units)::value,
+                                 decltype(wide)::value>;
+    const size_t bytes = 2 * sizeof(float) * k;  // w and b
+    cudaError_t err = bytes > 48 * 1024 ? cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) : cudaSuccess;
+    if (err != cudaSuccess) return err;
+    kernel<<<plan.blocks, kLnBwdThreads, bytes, stream>>>(x, w, b, y, stats, m, k, plan);
+    return cudaGetLastError();
+  });
 }
 
 // LayerNorm backward rows, the last launches of K1b and K2b
@@ -838,100 +1067,26 @@ cudaError_t launch_ln_rows(const T* x, const float* w, const float* b, TY* y,
 // f32 branch read and written, do_res); the arithmetic is ~10 f32 operations
 // an element. The design:
 //
-//   - A lane group of L lanes (a power of two, 4 at C = 96, 32 at C = 768)
-//     owns a whole row: each lane holds K (<= 4) chunks of 8 columns (unit u
-//     = k * L + lane), loaded once into registers by 16-byte vectors (two
-//     for f32), so x / branch, dy and do_res are read once; the row sums
-//     (mean, variance, then mean(dxhat) and mean(dxhat xhat)) are shuffles
-//     within the group, and dx / dbranch leave by vector stores. A warp
-//     walks 32 / L rows at once, 8 at C = 96, so its loads keep several
-//     rows in flight. Rows that are not whole 8-column chunks take the same
-//     body one column a lane (L = 32, K <= 8 columns: C <= 256). LN's scale
-//     (post-norm: gamma * w) is staged once a block in shared memory, so
-//     its vector reads are aligned where the parameters are views into a
-//     flat buffer (training's); the row operands must be 16-byte aligned.
+//   - The row plan above (``ln_bwd_plan``): x / branch, dy and do_res are
+//     read once into registers, the row sums (mean, variance, then
+//     mean(dxhat) and mean(dxhat xhat)) are taken there, and dx / dbranch
+//     leave by vector stores. LN's scale (post-norm: gamma * w) is staged
+//     once a block in shared memory.
 //   - No atomics: each lane keeps the partial sums A = sum d xhat and B =
 //     sum d of its columns in registers over the rows its group walks (the
 //     post-norm's d before gamma; dgamma = w A + b B and dw, db = gamma A,
 //     gamma B are formed from them once, at the end). A block adds its
-//     groups' partials in a fixed order (shuffles, then a tree over its
-//     warps through shared memory) into its row of a [blocks, 2C] f32
-//     scratch.
+//     groups' partials in a fixed order (shuffles over the groups of a
+//     warp, then a tree over the warps that hold the same columns through
+//     shared memory) into its row of a [blocks, 2C] f32 scratch.
 //   - A deterministic cross-block sum: the grid and each block's run of
-//     rows are a plan of (M, C) alone (``ln_bwd_plan``: at most 2 x 132
-//     blocks, runs of whole block steps), and ``ln_bwd_sum_kernel`` adds the
-//     blocks' partials in block order. Two launches on the same inputs give
-//     the same bits in dx, dw, db and dgamma; the outputs are written, not
-//     added into.
+//     rows are a plan of (M, C) alone (at most 2 x 132 blocks, runs of
+//     whole block steps), and ``ordered_sum_kernel`` adds the blocks'
+//     partials in block order (a programmatic dependent launch). Two
+//     launches on the same inputs give the same bits in dx, dw, db and
+//     dgamma; the outputs are written, not added into.
 //
 // Two launches a call: the rows, then the sum (``launch_ln_bwd_rows``).
-constexpr int kLnBwdWarps = 8;
-constexpr int kLnBwdThreads = 32 * kLnBwdWarps;
-constexpr int kLnBwdMaxBlocks = 2 * 132;  // one wave at two blocks an SM
-constexpr int kLnBwdMinSteps = 2;         // least block steps of rows in a run
-
-// The launch plan of one LN-backward call: columns per unit (8: whole
-// 16-byte chunks of bf16; 1), lanes per row (a power of two), units per
-// lane, rows per block (a multiple of the block's step, kLnBwdWarps * 32 /
-// lanes rows) and blocks. The wrappers size the scratch by it (row_kernels.cu
-// ``vsn_ln_bwd_blocks``).
-struct LnBwdPlan {
-  int vec, lanes, shift, units;
-  long long run;
-  int blocks;
-};
-
-inline bool ln_bwd_plan(long long m, int c, LnBwdPlan* p) {
-  if (m < 1 || c < 1) return false;
-  p->vec = c % 8 == 0 ? 8 : 1;
-  const int chunks = c / p->vec;
-  p->lanes = 32;
-  if (p->vec == 8) {
-    p->lanes = 1;
-    while (p->lanes < 32 && 3 * p->lanes < chunks) p->lanes <<= 1;
-  }
-  p->units = (chunks + p->lanes - 1) / p->lanes;
-  if (p->vec == 1) p->units = p->units <= 1 ? 1 : p->units <= 2 ? 2 : p->units <= 4 ? 4 : 8;
-  if (p->units > (p->vec == 8 ? 4 : 8)) return false;  // the body's instantiations
-  p->shift = 0;
-  while ((1 << p->shift) < p->lanes) ++p->shift;
-  const long long step = (long long)kLnBwdWarps * (32 / p->lanes);
-  long long run = (m + kLnBwdMaxBlocks - 1) / kLnBwdMaxBlocks;
-  if (run < kLnBwdMinSteps * step) run = kLnBwdMinSteps * step;
-  p->run = (run + step - 1) / step * step;
-  p->blocks = (int)((m + p->run - 1) / p->run);
-  return true;
-}
-
-// One element of a row, for the body's one-column-a-lane form (Row8's
-// interface).
-template <typename TA>
-struct Row1 {
-  float f;
-  __device__ __forceinline__ void load(const TA* src, int valid, bool) {
-    f = valid > 0 ? to_f32(*src) : 0.f;
-  }
-  __device__ __forceinline__ float get(int) const { return f; }
-};
-
-template <typename TA, int VEC>
-using RowV = typename std::conditional<VEC == 8, Row8<TA>, Row1<TA>>::type;
-
-template <int VEC, typename TO>
-__device__ __forceinline__ void store_row(TO* dst, const float (&v)[VEC]) {
-  if constexpr (VEC == 8) {
-    store8(dst, v, 8, true);
-  } else {
-    *dst = from_f32<TO>(v[0]);
-  }
-}
-
-// The sum of ``v`` over the L = 1 << shift lanes of this lane's group.
-__device__ __forceinline__ float group_sum(float v, int lanes) {
-  for (int o = 1; o < lanes; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <typename T>
 struct LnBwdParams {
   const T* x;              // pre-norm: the block input [M, C]
@@ -951,17 +1106,29 @@ struct LnBwdParams {
   LnBwdPlan plan;
 };
 
-template <typename T, bool POST, int VEC, int K>
+// The body's dynamic shared memory, in floats: LN's scale [C], then the
+// slots of the warps' partials on their way to the first warps: 2C for each
+// group among warps [0, kLnBwdWarps / 2) (none where one group spans all
+// the block's warps).
+inline int ln_bwd_smem_floats(const LnBwdPlan& plan, int c) {
+  const int gw = plan.lanes > 32 ? plan.lanes >> 5 : 1;  // warps a group spans
+  return c + (gw <= kLnBwdWarps / 2 ? 2 * c * (kLnBwdWarps / 2 / gw) : 0);
+}
+
+template <typename T, bool POST, int VEC, int K, bool WIDE>
 __global__ void __launch_bounds__(kLnBwdThreads) ln_bwd_rows_kernel(LnBwdParams<T> p) {
   // [C] LN's scale (post-norm: gamma * w), staged once: 16-byte aligned
-  // whatever the parameters' own addresses; then [kLnBwdWarps / 2][2C] the
-  // warps' partials on their way to warp 0
+  // whatever the parameters' own addresses; then the warps' partials on
+  // their way to the first warps (``ln_bwd_smem_floats``)
   extern __shared__ __align__(16) float ln_smem[];
   float* w_s = ln_smem;
   float* slots = ln_smem + p.c;
+  __shared__ float red[2][kLnBwdWarps];
+  RowSum<WIDE> group_sum{red, 0};
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int lanes = p.plan.lanes, sub = lane & (lanes - 1);
-  const int groups = kLnBwdWarps << (5 - p.plan.shift);
+  const int lanes = p.plan.lanes, sub = (WIDE ? tid : lane) & (lanes - 1);
+  const int groups = kLnBwdThreads >> p.plan.shift;
+  const int gw = WIDE ? lanes >> 5 : 1;  // warps a group spans
   const int gid = tid >> p.plan.shift;
   const int chunks = p.c / VEC;
   const long long r0 = (long long)blockIdx.x * p.plan.run;
@@ -1078,11 +1245,13 @@ __global__ void __launch_bounds__(kLnBwdThreads) ln_bwd_rows_kernel(LnBwdParams<
       }
     }
   }
+  let_dependents_start();  // the ordered sum may be scheduled
 
   // The block's partials: the groups of a warp hold the same columns
-  // (butterfly over them); then a fixed tree over the warps, warps [h, 2h)
-  // handing theirs to warps [0, h) through shared memory, h = 4, 2, 1; warp
-  // 0 writes the block's row of the scratch.
+  // (butterfly over them); then a fixed tree over the warps that hold the
+  // same columns, warps [h, 2h) handing theirs to warps [0, h) through
+  // shared memory, h = 4, 2, 1 down to the warps a group spans; the first
+  // group's warps write the block's row of the scratch.
 #pragma unroll
   for (int k = 0; k < K; ++k)
 #pragma unroll
@@ -1091,13 +1260,13 @@ __global__ void __launch_bounds__(kLnBwdThreads) ln_bwd_rows_kernel(LnBwdParams<
         acc_a[k][e] += __shfl_xor_sync(0xffffffffu, acc_a[k][e], o);
         acc_b[k][e] += __shfl_xor_sync(0xffffffffu, acc_b[k][e], o);
       }
-  for (int h = kLnBwdWarps / 2; h >= 1; h >>= 1) {
+  for (int h = kLnBwdWarps / 2; h >= gw; h >>= 1) {
     const bool gives = warp >= h && warp < 2 * h, takes = warp < h;
-    float* slot = slots + 2 * p.c * (gives ? warp - h : warp);
+    float* slot = slots + 2 * p.c * ((gives ? warp - h : warp) / gw);
     if ((gives || takes) && lane < lanes) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int u = k * lanes + lane;
+        const int u = k * lanes + sub;
         if (u >= chunks) continue;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
@@ -1113,7 +1282,7 @@ __global__ void __launch_bounds__(kLnBwdThreads) ln_bwd_rows_kernel(LnBwdParams<
     if (takes && lane < lanes) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int u = k * lanes + lane;
+        const int u = k * lanes + sub;
         if (u >= chunks) continue;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
@@ -1125,11 +1294,11 @@ __global__ void __launch_bounds__(kLnBwdThreads) ln_bwd_rows_kernel(LnBwdParams<
     }
     __syncthreads();
   }
-  if (warp == 0 && lane < lanes) {
+  if (warp < gw && lane < lanes) {
     float* part = p.part + (long long)blockIdx.x * 2 * p.c;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int u = k * lanes + lane;
+      const int u = k * lanes + sub;
       if (u >= chunks) continue;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
@@ -1140,26 +1309,30 @@ __global__ void __launch_bounds__(kLnBwdThreads) ln_bwd_rows_kernel(LnBwdParams<
   }
 }
 
-// The blocks' partials summed in block order, 32 columns a block of 32
-// slices: slice s takes the blocks s, s + 32, ... (their loads all in
-// flight), and the slices' sums are added in slice order. Then dw = A, db =
-// B, or with a post-norm gamma dgamma = w A + b B, dw = gamma A, db = gamma
-// B.
+// The blocks' partials [blocks, C] (``pairs``: [blocks, 2C], the LN
+// backward's A and B side by side) summed in block order, 32 columns a block
+// of 32 slices: slice s takes the blocks s, s + 32, ... (their loads all in
+// flight), and the slices' sums are added in slice order. Then dw = A (the
+// column sums' out), db = B, or with a post-norm gamma dgamma = w A + b B,
+// dw = gamma A, db = gamma B.
 constexpr int kLnSumSlices = 32;
 
-__global__ void __launch_bounds__(32 * kLnSumSlices) ln_bwd_sum_kernel(
-    const float* __restrict__ part, int blocks, int c, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ gamma, float* __restrict__ dw,
-    float* __restrict__ db, float* __restrict__ dgamma) {
+__global__ void __launch_bounds__(32 * kLnSumSlices) ordered_sum_kernel(
+    const float* __restrict__ part, int blocks, int c, int pairs,
+    const float* __restrict__ w, const float* __restrict__ b,
+    const float* __restrict__ gamma, float* __restrict__ dw, float* __restrict__ db,
+    float* __restrict__ dgamma) {
   __shared__ float red[kLnSumSlices][2][33];
   const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
   const int col = blockIdx.x * 32 + lane;
+  const long long ld = pairs ? 2LL * c : c;
   float a = 0.f, s = 0.f;
+  wait_for_prior_grid();  // the partials of the grid before
   if (col < c) {
 #pragma unroll 8
     for (int g = slice; g < blocks; g += kLnSumSlices) {
-      a += part[(long long)g * 2 * c + col];
-      s += part[(long long)g * 2 * c + c + col];
+      a += part[g * ld + col];
+      if (pairs) s += part[g * ld + c + col];
     }
   }
   red[slice][0][lane] = a;
@@ -1176,58 +1349,67 @@ __global__ void __launch_bounds__(32 * kLnSumSlices) ln_bwd_sum_kernel(
     db[col] = gamma[col] * s;
   } else {
     dw[col] = a;
-    db[col] = s;
+    if (pairs) db[col] = s;
   }
 }
 
-template <typename T, bool POST, int VEC, int K>
+// ``ordered_sum_kernel`` after the rows' grid on ``stream``, as a
+// programmatic dependent launch.
+inline cudaError_t launch_ordered_sum(const float* part, int blocks, int c, int pairs,
+                                      const float* w, const float* b, const float* gamma,
+                                      float* dw, float* db, float* dgamma,
+                                      cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((c + 31) / 32);
+  cfg.blockDim = dim3(32 * kLnSumSlices);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, ordered_sum_kernel, part, blocks, c, pairs, w, b, gamma, dw,
+                            db, dgamma);
+}
+
+template <typename T, bool POST, int VEC, int K, bool WIDE>
 cudaError_t launch_ln_bwd_body(const LnBwdParams<T>& p, cudaStream_t stream) {
-  ln_bwd_rows_kernel<T, POST, VEC, K>
-      <<<p.plan.blocks, kLnBwdThreads, (1 + kLnBwdWarps) * sizeof(float) * p.c, stream>>>(p);
+  ln_bwd_rows_kernel<T, POST, VEC, K, WIDE>
+      <<<p.plan.blocks, kLnBwdThreads, sizeof(float) * ln_bwd_smem_floats(p.plan, p.c),
+         stream>>>(p);
   return cudaGetLastError();
 }
 
-// The two launches of one call. ``blocks`` is the scratch's row count, which
-// must be the plan's; the rows' pointers must be 16-byte aligned (the
-// wrappers copy a row operand that is not).
+// The two launches of one call. ``part_floats``, the scratch's size, must
+// hold the plan's [blocks, 2C]; the rows' pointers must be 16-byte aligned
+// (the wrappers copy a row operand that is not).
 template <typename T, bool POST>
-cudaError_t launch_ln_bwd_rows(LnBwdParams<T> p, int blocks, const float* b, float* dw,
-                               float* db, float* dgamma, cudaStream_t stream) {
+cudaError_t launch_ln_bwd_rows(LnBwdParams<T> p, long long part_floats, const float* b,
+                               float* dw, float* db, float* dgamma, cudaStream_t stream) {
   const uintptr_t rows = reinterpret_cast<uintptr_t>(p.do_res) |
                          reinterpret_cast<uintptr_t>(p.branch) |
                          reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.dy) |
                          reinterpret_cast<uintptr_t>(p.dx);
-  if (!ln_bwd_plan(p.m, p.c, &p.plan) || p.plan.blocks != blocks || rows % 16 ||
-      p.m >= (1LL << 31) || p.rps < 1 || p.rps >= (1LL << 31))
+  if (!ln_bwd_plan(p.m, p.c, &p.plan) || 2LL * p.c * p.plan.blocks > part_floats ||
+      rows % 16 || p.m >= (1LL << 31) || p.rps < 1 || p.rps >= (1LL << 31))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (p.plan.vec == 8) {
-    switch (p.plan.units) {
-      case 1: err = launch_ln_bwd_body<T, POST, 8, 1>(p, stream); break;
-      case 2: err = launch_ln_bwd_body<T, POST, 8, 2>(p, stream); break;
-      case 3: err = launch_ln_bwd_body<T, POST, 8, 3>(p, stream); break;
-      case 4: err = launch_ln_bwd_body<T, POST, 8, 4>(p, stream); break;
-    }
-  } else {
-    switch (p.plan.units) {
-      case 1: err = launch_ln_bwd_body<T, POST, 1, 1>(p, stream); break;
-      case 2: err = launch_ln_bwd_body<T, POST, 1, 2>(p, stream); break;
-      case 4: err = launch_ln_bwd_body<T, POST, 1, 4>(p, stream); break;
-      case 8: err = launch_ln_bwd_body<T, POST, 1, 8>(p, stream); break;
-    }
-  }
+  cudaError_t err = with_row_plan(p.plan, [&](auto vec, auto units, auto wide) {
+    return launch_ln_bwd_body<T, POST, decltype(vec)::value, decltype(units)::value,
+                              decltype(wide)::value>(p, stream);
+  });
   if (err != cudaSuccess) return err;
-  ln_bwd_sum_kernel<<<(p.c + 31) / 32, 32 * kLnSumSlices, 0, stream>>>(
-      p.part, blocks, p.c, p.w, b, POST ? p.gamma : nullptr, dw, db, dgamma);
-  return cudaGetLastError();
+  return launch_ordered_sum(p.part, p.plan.blocks, p.c, 1, p.w, b, POST ? p.gamma : nullptr,
+                            dw, db, dgamma, stream);
 }
 
 // Pre-norm: dx = T(lam * do_res + LN_bwd(dy)) and LN's dw, db (written).
-// part is [blocks, 2C] f32 scratch, blocks the plan's (``ln_bwd_plan``).
+// part is f32 scratch of part_floats >= 2C x the plan's blocks
+// (``ln_bwd_plan``).
 template <typename T>
 cudaError_t launch_ln_bwd(const T* x, const float* stats, const float* w, const float* dy,
                           const T* do_res, float lam, T* dx, float* dw, float* db,
-                          float* part, int blocks, long long m, int k, cudaStream_t stream) {
+                          float* part, long long part_floats, long long m, int k,
+                          cudaStream_t stream) {
   LnBwdParams<T> p = {};
   p.x = x;
   p.stats = stats;
@@ -1240,44 +1422,229 @@ cudaError_t launch_ln_bwd(const T* x, const float* stats, const float* w, const 
   p.m = m;
   p.c = k;
   p.rps = 1;
-  return launch_ln_bwd_rows<T, false>(p, blocks, nullptr, dw, db, nullptr, stream);
+  return launch_ln_bwd_rows<T, false>(p, part_floats, nullptr, dw, db, nullptr, stream);
 }
 
-// Column sums out[n] += sum_m g_m * A[m, n], with g_m = a_gain[m / rps] or 1:
-// the bias gradients (sum of do = gb * do_res, or of dh1). Blocks of 32
-// columns x 8 row lanes over a slice of the rows.
+// Column sums out[n] = sum_m g_m * A[m, n], with g_m = a_gain[m / rps] or 1:
+// the bias gradients (K1b's dbproj and K2b's dfc2_b over the gated do_res
+// or, post-norm, the f32 dbranch; K2b's dfc1_b over the f32 dh1). Replaces
+// the bias-gradient sums of _attn_bwd_kernel and _mlp_bwd_kernel
+// (vsn_tpu/ops/swin_block_kernels.py:401, :408-418, :933-950, :963).
+//
+// What bounds it: bytes (A read once; 2 f32 operations an element). The
+// design, the LN backward's without its row sums:
+//
+//   - A lane group of L <= 32 lanes owns whole units of a row (8 columns
+//     read by one 16-byte vector, two for f32; one column a lane where N is
+//     not a multiple of 8), K <= 3 units a lane (K <= 8 single columns); a
+//     warp walks 32 / L rows at once, and a group loads kColsumRows rows
+//     before it adds them, so each thread keeps 96-192 bytes in flight.
+//     Columns wider than one group's registers are split over the grid's
+//     second dimension, column groups of at most 96 units (a column sum has
+//     no row-wide term, so the split costs nothing): hidden = 3072 f32 is 4
+//     groups of 96.
+//   - Every block takes the same number of rows, and the grid is one wave
+//     of two blocks an SM (f32 rows at K = 3 need ~80 registers; a bound of
+//     four blocks spilled them, in throwaway builds on the card).
+//   - The gain is one load a row a lane group, its sample tracked by the
+//     next sample's first row (one division a thread, none a row).
+//   - No atomics: each lane keeps f32 partials of its columns in registers
+//     over the block's run of rows; the block adds its groups' partials in a
+//     fixed order (shuffles, then a tree over its warps through shared
+//     memory) into its row of a [blocks, N] f32 scratch, and
+//     ``ordered_sum_kernel`` adds the blocks' rows in block order, launched
+//     as a programmatic dependent launch (its blocks are scheduled while the
+//     rows' grid drains). The plan is a function of (M, N) alone
+//     (``colsum_plan``), so two launches on the same inputs give the same
+//     bits; out is written, not added into.
+constexpr int kColsumUnits = 3;           // units (8 columns) a lane at most
+constexpr int kColsumGroupUnits = 32 * kColsumUnits;  // units a column group at most
+constexpr int kColsumRows = 2;            // rows a lane group loads at once
+constexpr int kColsumBlocksPerSm = 2;     // the body's launch bound
+constexpr int kColsumMaxBlocks = kColsumBlocksPerSm * 132;  // row x column blocks: one wave
+constexpr int kColsumMinSteps = 2;        // least block steps of rows in a run
+
+// vec, lanes, shift, units (a lane), cols (column groups), per (units a
+// column group), run (rows a block, a multiple of the block's step
+// kLnBwdThreads / lanes) and blocks (row blocks; the scratch is [blocks, N]).
+struct ColsumPlan {
+  int vec, lanes, shift, units, cols, per;
+  long long run;
+  int blocks;
+};
+
+inline bool colsum_plan(long long m, int n, ColsumPlan* p) {
+  if (m < 1 || n < 1) return false;
+  p->vec = n % 8 == 0 ? 8 : 1;
+  const int chunks = n / p->vec;
+  const int most = p->vec == 8 ? kColsumGroupUnits : 32 * 8;
+  p->cols = (chunks + most - 1) / most;
+  p->per = (chunks + p->cols - 1) / p->cols;
+  if (p->vec == 8) {
+    p->lanes = 1;
+    while (p->lanes < 32 && kColsumUnits * p->lanes < p->per) p->lanes <<= 1;
+    p->units = (p->per + p->lanes - 1) / p->lanes;
+  } else {
+    p->lanes = 32;
+    const int units = (p->per + 31) / 32;
+    p->units = 1;
+    while (p->units < units) p->units <<= 1;
+  }
+  p->shift = 0;
+  while ((1 << p->shift) < p->lanes) ++p->shift;
+  // the same rows in every block, a wave of blocks (the last rows ragged)
+  const long long step = kColsumRows * (kLnBwdThreads / p->lanes);
+  const long long row_blocks = p->cols < kColsumMaxBlocks ? kColsumMaxBlocks / p->cols : 1;
+  p->run = (m + row_blocks - 1) / row_blocks;
+  if (p->run < kColsumMinSteps * step) p->run = kColsumMinSteps * step;
+  p->blocks = (int)((m + p->run - 1) / p->run);
+  return true;
+}
+
 template <typename TA>
-__global__ void __launch_bounds__(256) colsum_kernel(const TA* __restrict__ a,
-                                                     const float* __restrict__ a_gain,
-                                                     long long rps, float* __restrict__ out,
-                                                     long long m, int n, long long rows) {
-  __shared__ float red[8][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int col = blockIdx.x * 32 + tx;
-  const long long r0 = (long long)blockIdx.y * rows;
-  const long long r1 = r0 + rows < m ? r0 + rows : m;
-  float s = 0.f;
-  if (col < n)
-    for (long long r = r0 + ty; r < r1; r += 8)
-      s += (a_gain ? a_gain[r / rps] : 1.f) * to_f32(a[r * n + col]);
-  red[ty][tx] = s;
-  __syncthreads();
-  if (ty == 0 && col < n) {
-    float t = 0.f;
+struct ColsumParams {
+  const TA* a;             // [M, N]
+  const float* a_gain;     // [ceil(M / rps)] or null
+  long long rps;
+  float* part;             // [blocks, N]
+  long long m;
+  int n;
+  ColsumPlan plan;
+};
+
+template <typename TA, int VEC, int K>
+__global__ void __launch_bounds__(kLnBwdThreads, kColsumBlocksPerSm)
+    colsum_kernel(ColsumParams<TA> p) {
+  // the warps' partials of the column group on their way to warp 0
+  __shared__ __align__(16) float slots[kLnBwdWarps / 2][kColsumGroupUnits * 8];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lanes = p.plan.lanes, sub = lane & (lanes - 1);
+  const int groups = kLnBwdThreads >> p.plan.shift, gid = tid >> p.plan.shift;
+  const int u0 = blockIdx.y * p.plan.per;  // the column group's first unit
+  const int units = min(p.plan.per, p.n / VEC - u0);
+  const long long r0 = (long long)blockIdx.x * p.plan.run;
+  const long long r1 = min(r0 + p.plan.run, p.m);
+  float acc[K][VEC];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) t += red[i][tx];
-    atomicAdd(&out[col], t);
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[k][e] = 0.f;
+  long long row = r0 + gid;
+  // the gain of this group's latest row, and the first row of the next
+  // sample: the group's rows only grow
+  long long sample = p.a_gain ? row / p.rps : 0, next = (sample + 1) * p.rps;
+  float gain = p.a_gain && row < r1 ? p.a_gain[sample] : 1.f;
+  auto gain_of = [&](long long r) {
+    if (p.a_gain && r >= next) {
+      do {
+        ++sample;
+        next += p.rps;
+      } while (r >= next);
+      gain = p.a_gain[sample];
+    }
+    return gain;
+  };
+  const TA* src = p.a + (long long)u0 * VEC + sub * VEC;
+  for (; row < r1; row += kColsumRows * groups) {  // the group's next rows, in order
+    RowV<TA, VEC> v[kColsumRows][K];
+#pragma unroll
+    for (int j = 0; j < kColsumRows; ++j)
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        v[j][k].load(src + (row + j * groups) * p.n + (long long)k * lanes * VEC,
+                     row + j * groups < r1 && k * lanes + sub < units ? VEC : 0, true);
+#pragma unroll
+    for (int j = 0; j < kColsumRows; ++j) {
+      const float g = row + j * groups < r1 ? gain_of(row + j * groups) : 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[k][e] = fmaf(g, v[j][k].get(e), acc[k][e]);
+    }
+  }
+  let_dependents_start();  // the ordered sum may be scheduled
+
+  // The block's partials, in the LN backward's fixed order: butterfly over
+  // the groups of a warp, then warps [h, 2h) hand theirs to warps [0, h), h
+  // = 4, 2, 1; warp 0 writes the column group's part of the block's row.
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      for (int o = lanes; o < 32; o <<= 1)
+        acc[k][e] += __shfl_xor_sync(0xffffffffu, acc[k][e], o);
+  for (int h = kLnBwdWarps / 2; h >= 1; h >>= 1) {
+    const bool gives = warp >= h && warp < 2 * h, takes = warp < h;
+    float* slot = slots[gives ? warp - h : warp];
+    if (gives && lane < lanes) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k * lanes + sub < units)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) slot[(k * lanes + sub) * VEC + e] = acc[k][e];
+    }
+    __syncthreads();
+    if (takes && lane < lanes) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k * lanes + sub < units)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[k][e] += slot[(k * lanes + sub) * VEC + e];
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && lane < lanes) {
+    float* part = p.part + (long long)blockIdx.x * p.n + (long long)u0 * VEC;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k * lanes + sub < units)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) part[(k * lanes + sub) * VEC + e] = acc[k][e];
   }
 }
 
+// Calls f(VEC, K), each an integral_constant, for the column-sum body that
+// takes ``plan``; cudaErrorInvalidValue for none.
+template <typename F>
+cudaError_t with_colsum_plan(const ColsumPlan& plan, F&& f) {
+  using std::integral_constant;
+  if (plan.vec == 8) {
+    switch (plan.units) {
+      case 1: return f(integral_constant<int, 8>(), integral_constant<int, 1>());
+      case 2: return f(integral_constant<int, 8>(), integral_constant<int, 2>());
+      case 3: return f(integral_constant<int, 8>(), integral_constant<int, 3>());
+    }
+  } else {
+    switch (plan.units) {
+      case 1: return f(integral_constant<int, 1>(), integral_constant<int, 1>());
+      case 2: return f(integral_constant<int, 1>(), integral_constant<int, 2>());
+      case 4: return f(integral_constant<int, 1>(), integral_constant<int, 4>());
+      case 8: return f(integral_constant<int, 1>(), integral_constant<int, 8>());
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// out [n] = sum_m g_m a[m, n] (written): the rows, then the block-ordered
+// sum. part is f32 scratch of part_floats >= the plan's blocks x n; a must
+// be 16-byte aligned (the wrappers copy one that is not).
 template <typename TA>
 cudaError_t launch_colsum(const TA* a, const float* a_gain, long long rps, float* out,
-                          long long m, int n, cudaStream_t stream) {
-  const unsigned cols = (unsigned)((n + 31) / 32);
-  const long long rows = rows_per_split(m, cols, 1024);
-  const dim3 grid(cols, (unsigned)((m + rows - 1) / rows));
-  colsum_kernel<TA><<<grid, 256, 0, stream>>>(a, a_gain, rps, out, m, n, rows);
-  return cudaGetLastError();
+                          float* part, long long part_floats, long long m, int n,
+                          cudaStream_t stream) {
+  ColsumParams<TA> p = {a, a_gain, rps, part, m, n, {}};
+  if (!colsum_plan(m, n, &p.plan) || (long long)p.plan.blocks * n > part_floats ||
+      reinterpret_cast<uintptr_t>(a) % 16 || rps < 1 || p.plan.cols > 65535)
+    return cudaErrorInvalidValue;
+  const ColsumPlan plan = p.plan;
+  cudaError_t err = with_colsum_plan(plan, [&](auto vec, auto units) {
+    colsum_kernel<TA, decltype(vec)::value, decltype(units)::value>
+        <<<dim3(plan.blocks, plan.cols), kLnBwdThreads, 0, stream>>>(p);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  return launch_ordered_sum(part, plan.blocks, n, 0, nullptr, nullptr, nullptr, out, nullptr,
+                            nullptr, stream);
 }
 
 // Weight gradient of a Linear layer, a product that contracts over the token
@@ -1586,12 +1953,13 @@ cudaError_t launch_postnorm_fwd(const float* branch, const T* x, const float* w,
 
 // Post-norm backward (the LN-backward body's post-norm mode, above): the
 // recomputed f32 branch [M, C] is overwritten with dbranch; LN's dw, db and,
-// with gamma, dgamma are written. part is [blocks, 2C] f32 scratch.
+// with gamma, dgamma are written. part is f32 scratch of part_floats >= 2C x
+// the plan's blocks.
 template <typename T>
 cudaError_t launch_postnorm_bwd(float* branch, const T* do_res, const float* gb, long long rps,
                                 const float* w, const float* b, const float* gamma, float* dw,
-                                float* db, float* dgamma, float* part, int blocks, long long m,
-                                int k, cudaStream_t stream) {
+                                float* db, float* dgamma, float* part, long long part_floats,
+                                long long m, int k, cudaStream_t stream) {
   LnBwdParams<T> p = {};
   p.branch = branch;
   p.gb = gb;
@@ -1602,7 +1970,7 @@ cudaError_t launch_postnorm_bwd(float* branch, const T* do_res, const float* gb,
   p.part = part;
   p.m = m;
   p.c = k;
-  return launch_ln_bwd_rows<T, true>(p, blocks, b, dw, db, dgamma, stream);
+  return launch_ln_bwd_rows<T, true>(p, part_floats, b, dw, db, dgamma, stream);
 }
 // Pre-norm LayerScale gradients of the last product out = gamma * (a @ W^T +
 // bias), from its unscaled weight and bias gradients M = do^T @ a [N, K] and

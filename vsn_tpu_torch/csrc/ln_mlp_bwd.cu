@@ -7,14 +7,15 @@
 // Replaces vsn_tpu/ops/swin_block_kernels.py _ln_mlp_bwd_arrays (Pallas
 // kernel _mlp_bwd_kernel), which recomputes LN2 + fc1 + GELU on row tiles in
 // VMEM and adds its weight gradients into output blocks carried across a
-// sequential grid. Here the recompute and the VJP run as nine steps (ten
+// sequential grid. Here the recompute and the VJP run as nine steps (twelve
 // launches) on the caller's stream, the carried sums as reductions
 // (common.cuh):
 //
 //   1. y = LN2(x) (rounded to the activation type T) and row statistics;
 //   2. h1 = y @ W1^T + b1: one GEMM writes h = T(gelu(h1)) and GELU'(h1) (f32);
 //   3. dh1 = (round(gb * do_res) @ W2) * GELU'(h1), in place over GELU' (f32);
-//   4. dW2 = do^T @ h (split-K), 5. db2 = sum do, 6. db1 = sum dh1;
+//   4. dW2 = do^T @ h (split-K), 5. db2 = sum do, 6. db1 = sum dh1 (two
+//      launches each: the block partials and their block-ordered sum);
 //   7. dW1 = round(dh1)^T @ y (split-K), 8. dy = round(dh1) @ W1 (f32 out);
 //   9. LN2 backward + residual: dx = T(lam * do_res + LN_bwd(dy)), dLN2
 //      (two launches: the rows and the block-ordered sum of dLN2).
@@ -50,7 +51,7 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
                const float* gamma, int post_norm, const float* gb, const T* dout, T* y,
                float* stats, T* h, float* dh1, float* dy, T* dx, float* dln_w,
                float* dln_b, float* dfc1_w, float* dfc1_b, float* dfc2_w, float* dfc2_b,
-               float* dgamma, float* ln_part, int ln_blocks, long long rows, int c, int hid,
+               float* dgamma, float* part, long long part_floats, long long rows, int c, int hid,
                long long rows_per_sample, float lam, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   const T* yin = x;  // post-norm: fc1 reads raw x
@@ -86,7 +87,7 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
     err = launch_gemm<T, EPI_F32>(gb2, stream);
     if (err != cudaSuccess) return (int)err;
     err = launch_postnorm_bwd<T>(dy, dout, gb, rows_per_sample, ln_w, ln_b, gamma, dln_w,
-                                 dln_b, dgamma, ln_part, ln_blocks, rows, c, stream);
+                                 dln_b, dgamma, part, part_floats, rows, c, stream);
     if (err != cudaSuccess) return (int)err;
 
     GemmParams<T, float> g2 = {};  // dh1 = (dbranch @ W2) * GELU'(h1)
@@ -108,7 +109,7 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
     w2.n2 = hid;
     err = launch_wgrad(w2, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_colsum<float>(dy, nullptr, 1, dfc2_b, rows, c, stream);
+    err = launch_colsum<float>(dy, nullptr, 1, dfc2_b, part, part_floats, rows, c, stream);
     if (err != cudaSuccess) return (int)err;
   } else {
     GemmParams<T> g2 = {};  // dh1[m, k] = GELU'(h1)[m, k] * sum_o do[m, o] W2[o, k]
@@ -136,7 +137,8 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
     w2.n2 = hid;
     err = launch_wgrad(w2, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_colsum<T>(dout, gb, rows_per_sample, dfc2_b, rows, c, stream);
+    err = launch_colsum<T>(dout, gb, rows_per_sample, dfc2_b, part, part_floats, rows, c,
+                            stream);
     if (err != cudaSuccess) return (int)err;
     if (gamma) {
       err = launch_layerscale_grads<float>(fc2_w, fc2_b, gamma, dfc2_w, dfc2_b, dgamma, c,
@@ -144,7 +146,7 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
       if (err != cudaSuccess) return (int)err;
     }
   }
-  err = launch_colsum<float>(dh1, nullptr, 1, dfc1_b, rows, hid, stream);
+  err = launch_colsum<float>(dh1, nullptr, 1, dfc1_b, part, part_floats, rows, hid, stream);
   if (err != cudaSuccess) return (int)err;
 
   WgradParams<T, float> w1 = {};  // dW1[k, i] = sum_m dh1[m, k] y[m, i]
@@ -173,19 +175,21 @@ int ln_mlp_bwd(const T* x, const float* ln_w, const float* ln_b, const float* fc
   err = launch_gemm<T, EPI_F32, true>(g3, stream);
   if (err != cudaSuccess) return (int)err;
 
-  return (int)launch_ln_bwd<T>(x, stats, ln_w, dy, dout, lam, dx, dln_w, dln_b, ln_part,
-                               ln_blocks, rows, c, stream);
+  return (int)launch_ln_bwd<T>(x, stats, ln_w, dy, dout, lam, dx, dln_w, dln_b, part,
+                               part_floats, rows, c, stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() of the first launch that failed, else 0.
 // is_bf16 selects bf16 activations (else f32); parameters and their
-// gradients are f32. The f32 gradient outputs (dfc1_w .. dfc2_b, and dgamma
+// gradients are f32. The f32 gradient outputs dfc1_w and dfc2_w (and dgamma
 // with a pre-norm gamma) must be zeroed by the caller: the kernels add into
-// them; LN2's (dln_w, dln_b, and dgamma under post-norm) are written. y,
-// stats, h, dh1, dy and ln_part ([ln_blocks, 2C] f32, ln_blocks = common.cuh
-// ln_bwd_plan(rows, C).blocks) are scratch. gamma [C] (in-band LayerScale,
+// them; LN2's (dln_w, dln_b, and dgamma under post-norm), dfc1_b and dfc2_b
+// are written. y, stats, h, dh1, dy and part (part_floats f32, at least what
+// the LN backward's and the column sums' plans need: common.cuh
+// ln_bwd_plan(rows, C).blocks x 2C, colsum_plan(rows, C).blocks x C and
+// colsum_plan(rows, hid).blocks x hid) are scratch. gamma [C] (in-band LayerScale,
 // with dgamma) may be null; post_norm selects the post-norm backward (y and
 // stats are then unused).
 extern "C" int vsn_ln_mlp_bwd(int is_bf16, const void* x, const float* ln_w,
@@ -194,8 +198,8 @@ extern "C" int vsn_ln_mlp_bwd(int is_bf16, const void* x, const float* ln_w,
                               int post_norm, const float* gb, const void* dout, void* y,
                               float* stats, void* h, float* dh1, float* dy, void* dx,
                               float* dln_w, float* dln_b, float* dfc1_w, float* dfc1_b,
-                              float* dfc2_w, float* dfc2_b, float* dgamma, float* ln_part,
-                              int ln_blocks, long long rows, int c, int hid,
+                              float* dfc2_w, float* dfc2_b, float* dgamma, float* part,
+                              long long part_floats, long long rows, int c, int hid,
                               long long rows_per_sample, float lam, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
@@ -204,13 +208,13 @@ extern "C" int vsn_ln_mlp_bwd(int is_bf16, const void* x, const float* ln_w,
                          gamma, post_norm, gb, static_cast<const B*>(dout),
                          static_cast<B*>(y), stats, static_cast<B*>(h), dh1, dy,
                          static_cast<B*>(dx), dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w,
-                         dfc2_b, dgamma, ln_part, ln_blocks, rows, c, hid, rows_per_sample,
+                         dfc2_b, dgamma, part, part_floats, rows, c, hid, rows_per_sample,
                          lam, s);
   }
   return ln_mlp_bwd<float>(static_cast<const float*>(x), ln_w, ln_b, fc1_w, fc1_b, fc2_w,
                            fc2_b, gamma, post_norm, gb, static_cast<const float*>(dout),
                            static_cast<float*>(y), stats, static_cast<float*>(h), dh1, dy,
                            static_cast<float*>(dx), dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w,
-                           dfc2_b, dgamma, ln_part, ln_blocks, rows, c, hid, rows_per_sample,
+                           dfc2_b, dgamma, part, part_floats, rows, c, hid, rows_per_sample,
                            lam, s);
 }

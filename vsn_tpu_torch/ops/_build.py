@@ -28,7 +28,8 @@ stem's FMA bodies on bf16 (``stem_im2col(..., _fma=True)``) likewise as
 ``stem_im2col_fma`` / ``stem_im2col_dw_fma``; the row kernels of K1 / K2
 called alone (``swin_block_kernels.ln_bwd_launch`` /
 ``postnorm_bwd_launch``, and the others of ``ROW_KERNELS``) as ``ln_bwd``
-/ ``postnorm_bwd`` and ``row_<kernel>`` (e.g. ``row_colsum``). The
+/ ``postnorm_bwd``, ``ln_rows`` / ``colsum`` (LN's rows, the column sums)
+and ``row_<kernel>`` for the rest (e.g. ``row_postnorm_fwd``). The
 attention probes (``ops/attn_probe.py``) count per run instead, under the
 run's key, and add the number of CUDA launches the call made (3 for a
 whole half-block, 2 without the attention or without the GEMMs, 1 for a
@@ -65,8 +66,8 @@ _SIGNATURES = {
                        _P],
     "vsn_window_relayout": [_P, _P, _P, _L, _I, _L, _I, _I, _P],
     "vsn_attn_half_bwd": [_I, _I, *[_P] * 8, _I, *[_P] * 3, _I, *[_P] * 22,
-                          _I, _L, _I, _I, _I, _L, _F, _F, _P],
-    "vsn_ln_mlp_bwd": [_I, *[_P] * 8, _I, *[_P] * 16, _I, _L, _I, _I, _L,
+                          _L, _L, _I, _I, _I, _L, _F, _F, _P],
+    "vsn_ln_mlp_bwd": [_I, *[_P] * 8, _I, *[_P] * 16, _L, _L, _I, _I, _L,
                        _F, _P],
     "vsn_stem_conv_fwd": [_I, _I, _P, _P, _P, *[_I] * 17, _P],
     "vsn_stem_conv_dw": [_I, _I, _P, _P, _P, _P, _I, _I, *[_I] * 17, _P],
@@ -88,10 +89,11 @@ _SIGNATURES = {
                  _I, _I, _P],
     "vsn_wgrad": [_I, _I, _I, _P, _P, _L, _P, _P, _L, _I, _I, _P],
     "vsn_ln_bwd_blocks": [_L, _I],
-    "vsn_ln_bwd": [_I, *[_P] * 5, _F, *[_P] * 4, _I, _L, _I, _P],
-    "vsn_postnorm_bwd": [_I, _P, _P, _P, _L, *[_P] * 7, _I, _L, _I, _P],
-    "vsn_ln_rows": [_I, *[_P] * 5, _L, _I, _P],
-    "vsn_colsum": [_I, _I, _P, _P, _L, _P, _L, _I, _P],
+    "vsn_colsum_blocks": [_L, _I],
+    "vsn_ln_bwd": [_I, *[_P] * 5, _F, *[_P] * 4, _L, _L, _I, _P],
+    "vsn_postnorm_bwd": [_I, _P, _P, _P, _L, *[_P] * 7, _L, _L, _I, _P],
+    "vsn_ln_rows": [_I, _I, *[_P] * 5, _L, _I, _P],
+    "vsn_colsum": [_I, _I, _P, _P, _L, _P, _P, _L, _L, _I, _P],
     "vsn_postnorm_fwd": [_I, *[_P] * 6, _L, _F, _P, _L, _I, _P],
     "vsn_layerscale_grads": [*[_P] * 6, _I, _I, _P],
 }

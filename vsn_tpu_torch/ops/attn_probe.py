@@ -167,6 +167,8 @@ def _probe_kernel(variant, wb, key, x, wqkv, bias, wproj):
     bw, n, c = x.shape
     rows, dev, bf16 = bw * n, x.device, torch.bfloat16
     attn_only = variant == "attn_only"
+    if attn_only and x.data_ptr() % 16:   # LN's rows read x by 16-byte vectors
+        x = x.clone()
     out = torch.empty_like(x)
     qkv_buf = None if attn_only else torch.empty((rows, 3 * c), dtype=bf16,
                                                  device=dev)

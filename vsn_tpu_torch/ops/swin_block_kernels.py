@@ -742,17 +742,25 @@ def wgrad_launch(a, b, cdt, a_gain=None, rows_per_sample=None, _fma=False):
 # The row kernels of K1 / K2 alone: the LayerNorm backward, and the others
 # ---------------------------------------------------------------------------
 
-def _ln_bwd_scratch(m, c, dev):
-    """The LN-backward body's [blocks, 2C] f32 scratch of block partials and
-    its block count, the plan's (csrc/common.cuh ``ln_bwd_plan``, a function
-    of (m, c) alone, asked through ``vsn_ln_bwd_blocks``); raises for a
-    width the body does not take."""
-    blocks = library().vsn_ln_bwd_blocks(m, c)
-    if not blocks:
-        raise ValueError(f"LayerNorm backward: C = {c}: the row kernel takes "
-                         "C <= 1024 in multiples of 8, or C <= 256")
-    return (torch.empty(blocks * 2 * c, dtype=torch.float32, device=dev),
-            blocks)
+def _row_scratch(dev, m, ln_c=None, sums=()):
+    """The f32 scratch of block partials that the row kernels of one call
+    over ``m`` rows share (they run one after another on its stream), and
+    its size in floats: the LN backward's [blocks, 2C] at width ``ln_c``
+    (csrc/common.cuh ``ln_bwd_plan``, asked through ``vsn_ln_bwd_blocks``)
+    and the column sums' [blocks, N] at each width N of ``sums``
+    (``colsum_plan``, ``vsn_colsum_blocks``), each plan a function of the
+    call's shape alone; raises for a width the LN backward does not take
+    (above 8192)."""
+    lib, floats = library(), 0
+    if ln_c is not None:
+        blocks = lib.vsn_ln_bwd_blocks(m, ln_c)
+        if not blocks:
+            raise ValueError(f"LayerNorm backward: C = {ln_c}: the row "
+                             "kernels take C <= 8192")
+        floats = 2 * ln_c * blocks
+    for n in sums:
+        floats = max(floats, n * lib.vsn_colsum_blocks(m, n))
+    return torch.empty(floats, dtype=torch.float32, device=dev), floats
 
 
 def ln_backward_rows_reference(x, stats, w, dy, do_res, lam=1.0):
@@ -813,7 +821,7 @@ def ln_bwd_launch(x, stats, w, dy, do_res, lam=1.0):
     expect(w, "w", (c,), f32, dev)
     expect(dy, "dy", (m, c), f32, dev)
     expect(do_res, "do_res", (m, c), x.dtype, dev)
-    part, blocks = _ln_bwd_scratch(m, c, dev)
+    part, floats = _row_scratch(dev, m, c)
     x, dy, do_res = _aligned16(x), _aligned16(dy), _aligned16(do_res)
     dx = torch.empty_like(x)
     grads = torch.empty(2 * c, dtype=f32, device=dev)
@@ -823,7 +831,7 @@ def ln_bwd_launch(x, stats, w, dy, do_res, lam=1.0):
             int(x.dtype == torch.bfloat16), x.data_ptr(), stats.data_ptr(),
             w.data_ptr(), dy.data_ptr(), do_res.data_ptr(), float(lam),
             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(),
-            blocks, m, c, stream_of(x))
+            floats, m, c, stream_of(x))
     check(err, "ln_bwd")
     launches["ln_bwd"] += 1
     return dx, dw, db
@@ -855,7 +863,7 @@ def postnorm_bwd_launch(branch, do_res, gb, rows_per_sample, w, b,
     for t, name in ((w, "w"), (b, "b"), (gamma, "gamma")):
         if t is not None:
             expect(t, name, (c,), f32, dev)
-    part, blocks = _ln_bwd_scratch(m, c, dev)
+    part, floats = _row_scratch(dev, m, c)
     grads = torch.empty(3 * c, dtype=f32, device=dev)
     dw, db, dgamma = grads.split((c, c, c))
     with torch.cuda.device(dev):
@@ -863,19 +871,21 @@ def postnorm_bwd_launch(branch, do_res, gb, rows_per_sample, w, b,
             int(do_res.dtype == torch.bfloat16), branch.data_ptr(),
             do_res.data_ptr(), gb.data_ptr(), rows_per_sample, w.data_ptr(),
             b.data_ptr(), ptr(gamma), dw.data_ptr(), db.data_ptr(),
-            dgamma.data_ptr(), part.data_ptr(), blocks, m, c,
+            dgamma.data_ptr(), part.data_ptr(), floats, m, c,
             stream_of(branch))
     check(err, "postnorm_bwd")
     launches["postnorm_bwd"] += 1
     return branch, dw, db, dgamma if gamma is not None else None
 
 
-def ln_rows_reference(x, w, b):
-    """Plain version of ``ln_rows_kernel`` (K1 / K1b / K2 / K2b's LN rows):
-    (y = T(LN(x)), the row statistics [M, 2] (mean, 1 / std))."""
+def ln_rows_reference(x, w, b, out_dtype=None):
+    """Plain version of ``ln_rows_kernel`` (K1b / K2b's LN rows, and the
+    probe P1 ``attn_only``'s on f32 x into bf16): (y = LN(x) in
+    ``out_dtype``, x's by default; the row statistics [M, 2] (mean, 1 /
+    std))."""
     y, xhat, rstd = _ln_parts(x.float(), w, b)
     mu = x.float().mean(dim=-1, keepdim=True)
-    return y.to(x.dtype), torch.cat([mu, rstd], dim=-1)
+    return y.to(out_dtype or x.dtype), torch.cat([mu, rstd], dim=-1)
 
 
 def colsum_reference(a, a_gain=None, rows_per_sample=None):
@@ -904,36 +914,43 @@ def layerscale_grads_reference(w, bias, gamma, dw, db, dgamma):
             dgamma + (w * dw).sum(1) + bias * db)
 
 
-def _row_launch(name, dev, fn):
+def _row_launch(key, dev, fn):
     with torch.cuda.device(dev):
         err = fn(library())
-    check(err, name)
-    launches[f"row_{name}"] += 1
+    check(err, key)
+    launches[key] += 1
 
 
-def ln_rows_launch(x, w, b):
-    """``ln_rows_kernel`` alone (``vsn_ln_rows``): the kernel for a CUDA
-    tensor, ``ln_rows_reference`` for a CPU one."""
+def ln_rows_launch(x, w, b, out_dtype=None):
+    """``ln_rows_kernel`` alone (``vsn_ln_rows``, C <= 8192; y in x's dtype,
+    or bf16 from f32 x as the probe P1 ``attn_only`` takes it): the kernel
+    for a CUDA tensor, ``ln_rows_reference`` for a CPU one."""
     if x.device.type == "cpu":
-        return ln_rows_reference(x, w, b)
+        return ln_rows_reference(x, w, b, out_dtype)
     m, c = x.shape
     _check_act(x)
     f32, dev = torch.float32, x.device
     expect(x, "x", (m, c), x.dtype, dev)
     expect(w, "w", (c,), f32, dev)
     expect(b, "b", (c,), f32, dev)
-    y = torch.empty_like(x)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.bfloat16):
+        raise TypeError(f"ln_rows_launch: y {out_dtype} from x {x.dtype}")
+    x = _aligned16(x)
+    y = torch.empty(x.shape, dtype=out_dtype, device=dev)
     stats = torch.empty((m, 2), dtype=f32, device=dev)
     _row_launch("ln_rows", dev, lambda lib: lib.vsn_ln_rows(
-        int(x.dtype == torch.bfloat16), x.data_ptr(), w.data_ptr(),
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        x.data_ptr(), w.data_ptr(),
         b.data_ptr(), y.data_ptr(), stats.data_ptr(), m, c, stream_of(x)))
     return y, stats
 
 
 def colsum_launch(a, a_gain=None, rows_per_sample=None):
-    """``colsum_kernel`` alone (``vsn_colsum``): a [M, N] bf16 (the gated
-    do_res) or f32 (dh1, dbranch); the kernel for a CUDA tensor,
-    ``colsum_reference`` for a CPU one."""
+    """``colsum_kernel`` alone (``vsn_colsum``: the block partials, then
+    their block-ordered sum): a [M, N] bf16 (the gated do_res) or f32 (dh1,
+    dbranch), any N; the kernels for a CUDA tensor, ``colsum_reference`` for
+    a CPU one."""
     if a.device.type == "cpu":
         return colsum_reference(a, a_gain, rows_per_sample)
     m, n = a.shape
@@ -943,10 +960,13 @@ def colsum_launch(a, a_gain=None, rows_per_sample=None):
     rps = m if rows_per_sample is None else rows_per_sample
     if a_gain is not None:
         expect(a_gain, "a_gain", (-(-m // rps),), f32, dev)
-    out = torch.zeros(n, dtype=f32, device=dev)
+    a = _aligned16(a)
+    out = torch.empty(n, dtype=f32, device=dev)
+    part, floats = _row_scratch(dev, m, sums=(n,))
     _row_launch("colsum", dev, lambda lib: lib.vsn_colsum(
         int(a.dtype == torch.bfloat16), int(a.dtype == f32), a.data_ptr(),
-        ptr(a_gain), rps, out.data_ptr(), m, n, stream_of(a)))
+        ptr(a_gain), rps, out.data_ptr(), part.data_ptr(), floats, m, n,
+        stream_of(a)))
     return out
 
 
@@ -967,7 +987,7 @@ def postnorm_fwd_launch(branch, x, w, b, gamma, gains, rows_per_sample,
             expect(t, name, (c,), f32, dev)
     expect(gains, "gains", (-(-m // rows_per_sample),), f32, dev)
     out = torch.empty_like(x)
-    _row_launch("postnorm_fwd", dev, lambda lib: lib.vsn_postnorm_fwd(
+    _row_launch("row_postnorm_fwd", dev, lambda lib: lib.vsn_postnorm_fwd(
         int(x.dtype == torch.bfloat16), branch.data_ptr(), x.data_ptr(),
         w.data_ptr(), b.data_ptr(), ptr(gamma), gains.data_ptr(),
         rows_per_sample, float(lam), out.data_ptr(), m, c, stream_of(x)))
@@ -988,9 +1008,11 @@ def layerscale_grads_launch(w, bias, gamma, dw, db, dgamma):
                            (db, "db", (n,)), (dgamma, "dgamma", (n,))):
         expect(t, name, shape, f32, dev)
     dw, db, dgamma = dw.clone(), db.clone(), dgamma.clone()
-    _row_launch("layerscale_grads", dev, lambda lib: lib.vsn_layerscale_grads(
-        w.data_ptr(), bias.data_ptr(), gamma.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), dgamma.data_ptr(), n, k, stream_of(w)))
+    _row_launch("row_layerscale_grads", dev,
+                lambda lib: lib.vsn_layerscale_grads(
+                    w.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
+                    dw.data_ptr(), db.data_ptr(), dgamma.data_ptr(), n, k,
+                    stream_of(w)))
     return dw, db, dgamma
 
 
@@ -1061,7 +1083,7 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
     dx = torch.empty_like(x)
     s1 = (torch.empty((bw, num_heads, n), dtype=torch.float32, device=dev)
           if tiled else None)
-    part, blocks = _ln_bwd_scratch(rows, c, dev)
+    part, floats = _row_scratch(dev, rows, c, (c,))
     with torch.cuda.device(dev):
         err = library().vsn_attn_half_bwd(
             int(tiled), int(dt == torch.bfloat16), x.data_ptr(),
@@ -1075,7 +1097,7 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
             dbias.data_ptr() if bias is not None else None,
             dproj_w.data_ptr(), dproj_b.data_ptr(),
             dgamma.data_ptr() if gamma is not None else None,
-            ptr(o32), ptr(stats), ptr(s1), part.data_ptr(), blocks, bw, n, c,
+            ptr(o32), ptr(stats), ptr(s1), part.data_ptr(), floats, bw, n, c,
             num_heads,
             (bw // nsamp) * n,
             float(scale), float(lam), stream_of(x))
@@ -1291,7 +1313,7 @@ def ln_mlp_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb, dout,
     dh1 = torch.empty((rows, hid), dtype=torch.float32, device=dev)
     dy = torch.empty((rows, c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    part, blocks = _ln_bwd_scratch(rows, c, dev)
+    part, floats = _row_scratch(dev, rows, c, (c, hid))
     with torch.cuda.device(dev):
         err = library().vsn_ln_mlp_bwd(
             int(dt == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(),
@@ -1302,7 +1324,7 @@ def ln_mlp_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb, dout,
             dln_w.data_ptr(), dln_b.data_ptr(), dfc1_w.data_ptr(),
             dfc1_b.data_ptr(), dfc2_w.data_ptr(), dfc2_b.data_ptr(),
             dgamma.data_ptr() if gamma is not None else None,
-            part.data_ptr(), blocks, rows, c, hid, rows // nsamp, float(lam),
+            part.data_ptr(), floats, rows, c, hid, rows // nsamp, float(lam),
             stream_of(x))
     check(err, "ln_mlp_bwd")
     launches[mode_key("ln_mlp_bwd", gamma, post_norm)] += 1
