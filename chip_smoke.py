@@ -44,19 +44,25 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    bf16 pre-norm, f32 post-norm, the residual line and gamma outside it)
    and its bound (bytes, or 13 / 20 f32 operations an element), summed per
    micro-batch pass (the result line's LN-backward entries: both passes, the
-   launches the path counts); then LN's rows and the bias gradients' column
-   sums (``ln_rows_launch``, ``colsum_launch``; ``ROW_KERNEL_ENTRIES``) at
-   every call of those passes, bf16 and f32, against their plain versions
-   (``ln_rows_reference``, ``colsum_reference``: bf16 y within TOL of its
-   scale, f32 outputs within LN_BWD_TOL), a second launch on the same
-   inputs giving the same bits; their path, each launch as often as a pass
-   makes it, counters at 0 before and exactly those launches after; then
-   every row kernel (those two, the post-norm forward's finish, the
-   pre-norm LayerScale gradients: ``sbk.ROW_KERNELS``) at the same calls,
-   held to its plain version once and timed beside it (``launch_ms``), the
-   library call (``native_layer_norm``, ``Tensor.sum(0)``) where one
-   exists, and its bound, summed per micro-batch pass (the result line's
-   ``ln_rows`` / ``colsum`` entries: both passes); then the wide rows
+   launches the path counts); then the other row kernels
+   (``ROW_KERNEL_ENTRIES``, ``sbk.ROW_KERNELS``): LN's rows, the bias
+   gradients' column sums, the post-norm forward's finish and the pre-norm
+   LayerScale gradients (``ln_rows_launch``, ``colsum_launch``,
+   ``postnorm_fwd_launch``, ``layerscale_grads_launch``; the post-norm
+   forward with gamma at lam PATH_LAM, its LN scale, shift and gamma and
+   the LayerScale gradients' W views 4 bytes into a buffer, as training's)
+   at every call of those passes, bf16 and f32, against their plain
+   versions (``ln_rows_reference``, ``colsum_reference``,
+   ``postnorm_fwd_reference``, ``layerscale_grads_reference``: bf16
+   outputs within TOL of their scale, f32 ones within LN_BWD_TOL), a second
+   launch on the same inputs giving the same bits; their path, each launch
+   as often as a pass makes it, counters at 0 before and exactly those
+   launches after; then each at the same calls, held to its plain version
+   once and timed beside it (``launch_ms``; the LayerScale gradients in
+   place through their C entry, ``row_timed_call``), the library call
+   (``native_layer_norm``, ``Tensor.sum(0)``) where one exists, and its
+   bound, summed per micro-batch pass (the result line's four entries: both
+   passes); then the wide rows
    (``WIDE_ROWS``): one K1 and one K2 call, bf16, at Swin-T's stage-4 rows
    of micro-batch 8 at C = 1536 (EMBED_DIM 192, hidden 6144) and at C =
    300 (not a multiple of 8), in the default mode and post-norm +
@@ -129,8 +135,9 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    window-attention, GEMM, weight-gradient, K1, stem, row and K3 kernel's
    registers, none spilling but K1's whole-window bodies and K5f's f32
    FMA body, and K5's tensor-core bodies, the row bodies (``ROW_BODIES``:
-   every instantiation of the LN backward, LN's rows and the column sums)
-   and K3's three gathers there. The V kernels'
+   every instantiation of the LN backward, LN's rows, the post-norm
+   forward's finish, the column sums and the LayerScale gradients) and
+   K3's three gathers there. The V kernels'
    times per micro-batch beside their plain versions', SDPA's forward and
    backward on the same calls and their bounds; their launches alone
    (CUDA events, the calls queued behind a spin kernel: V1f, V3f, V1b and
@@ -320,6 +327,14 @@ micro-batch (phase 17's ``mover_launch_times``) for the port in the
 directory PORT (an unpacked checkout of another commit; this checkout's by
 default), so that two commits' movers are held to one measure in one call;
 it prints the card's line and then {"k3_alone_ms": {name: ms}}.
+
+    python3 chip_smoke.py --rows-alone [PORT]
+
+likewise times only the post-norm forward's finish and the LayerScale
+gradients alone (phase 2b's ``row_kernel_times``) at the row calls of one
+Swin-T and one ViT-S training micro-batch pass, for the port at PORT or
+this checkout's; it prints the card's line and then {"rows_alone_ms":
+{"<set> <kernel>": ms per pass}}.
 """
 
 from __future__ import annotations
@@ -450,16 +465,25 @@ LN_BWD_KERNELS = {
 KERNELS.update(LN_BWD_KERNELS)
 # LN's rows and the bias gradients' column sums (csrc/common.cuh
 # ``ln_rows_kernel``, ``colsum_kernel`` + ``ordered_sum_kernel``), which
-# K1b / K2b launch inside their calls; phase 2b drives them through their
-# own entry points (csrc/row_kernels.cu) as it drives the LN backward.
-# name (their launch counter) -> (source, the TPU function they replace:
-# _ln_fwd in _attn_bwd_kernel / _mlp_bwd_kernel; the bias gradients' sums,
-# dbproj at :401, db2 and db1 at :943-963)
+# K1b / K2b launch inside their calls, the post-norm forward's finish
+# (``postnorm_fwd_kernel``) of K1f / K2f and the pre-norm LayerScale
+# gradients (``layerscale_grads_kernel``) of K1b / K2b; phase 2b drives them
+# through their own entry points (csrc/row_kernels.cu) as it drives the LN
+# backward. name (their launch counter) -> (source, the TPU function they
+# replace: _ln_fwd in _attn_bwd_kernel / _mlp_bwd_kernel; the bias
+# gradients' sums, dbproj at :401, db2 and db1 at :943-963; the post-norm
+# finish of _attn_fwd_kernel :284-288 and _mlp_fwd_kernel :874-878; the
+# LayerScale gradients of _attn_bwd_kernel :404-415 and _mlp_bwd_kernel
+# :936-950)
 ROW_KERNEL_ENTRIES = {
     "ln_rows": ("vsn_tpu_torch/csrc/common.cuh",
                 "vsn_tpu/ops/swin_block_kernels.py:75"),
     "colsum": ("vsn_tpu_torch/csrc/common.cuh",
                "vsn_tpu/ops/swin_block_kernels.py:401"),
+    "postnorm_fwd": ("vsn_tpu_torch/csrc/common.cuh",
+                     "vsn_tpu/ops/swin_block_kernels.py:284"),
+    "layerscale_grads": ("vsn_tpu_torch/csrc/common.cuh",
+                         "vsn_tpu/ops/swin_block_kernels.py:404"),
 }
 KERNELS.update(ROW_KERNEL_ENTRIES)
 # phase 2b's wide rows: (C, heads) of one K1 and one K2 call over Swin-T's
@@ -598,10 +622,13 @@ STEM_F32_FMA = "stem_fwd_kernel<float"
 # window_relayout.cu lists them: the LN backward (2 types x 2 modes x 13
 # plans: 8-column units at K = 1-3 in a warp and K = 2-4 across warps,
 # single columns at K = 1, 2, 4, 8 and K = 8, 16, 32 across warps), LN's
-# rows (bf16, f32 and f32 -> bf16 x the 13 plans), the column sums (2 types
-# x 7 plans), the ordered sum, and K3's gather (16-, 4- and 1-byte chunks)
+# rows (bf16, f32 and f32 -> bf16 x the 13 plans), the post-norm forward's
+# finish (2 types x the 13 plans), the column sums (2 types x 7 plans), the
+# ordered sum, the LayerScale gradients (4- and 1-column units, a row in a
+# warp or across warps), and K3's gather (16-, 4- and 1-byte chunks)
 ROW_BODIES = {"ln_bwd_rows_kernel": 52, "ln_rows_kernel": 39,
-              "colsum_kernel": 14, "ordered_sum_kernel": 1,
+              "postnorm_fwd_kernel": 26, "colsum_kernel": 14,
+              "ordered_sum_kernel": 1, "layerscale_grads_kernel": 4,
               "relayout_map_kernel": 3}
 # H100 SXM datasheet peaks: HBM bytes/s and dense FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -1753,29 +1780,32 @@ def phase_shares(fn, label, tags):
     warm-up (trace in build/): the split of an events-timed sum into its
     launches (K1b's, K4b's, V1b's, V3b's phases A and B), which only the
     profiler can make. Short traces lose kernel time unevenly between runs
-    (0.4-2x below CUDA events), so only the shares are used."""
+    (0.4-2x below CUDA events), so only the shares are used; a short trace
+    has also come back with no kernel at all (once in a full run on the
+    H100), so the trace is taken up to three times before that raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
     trace = Path(__file__).resolve().parent / "build" / f"{label}_trace.json"
     trace.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    by_tag, total = collections.Counter(), 0.0
-    for e in json.loads(trace.read_text())["traceEvents"]:
-        if e.get("cat") == "kernel":
-            total += e["dur"]
-            for tag in tags:
-                if tag in e["name"]:
-                    by_tag[tag] += e["dur"]
-    if not total:
-        raise AssertionError(f"{label}: the profiler recorded no kernel")
-    return {tag: by_tag[tag] / total for tag in tags}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        by_tag, total = collections.Counter(), 0.0
+        for e in json.loads(trace.read_text())["traceEvents"]:
+            if e.get("cat") == "kernel":
+                total += e["dur"]
+                for tag in tags:
+                    if tag in e["name"]:
+                        by_tag[tag] += e["dur"]
+        if total:
+            return {tag: by_tag[tag] / total for tag in tags}
+    raise AssertionError(f"{label}: the profiler recorded no kernel")
 
 
 def mover_adjoints():
@@ -4028,11 +4058,16 @@ def row_kernel_calls(launch):
 
 
 def row_kernel_args(kname, shape, launch, device, gen, dtype="bfloat16"):
-    """Seeded arguments of one row-kernel launch (``row_kernel_calls``)."""
+    """Seeded arguments of one row-kernel launch (``row_kernel_calls``).
+    The post-norm forward's LN scale, shift and gamma and the LayerScale
+    gradients' W are views 4 bytes into a buffer, as training's parameters
+    are views into its flat parameter buffer."""
     import torch
 
     cdt = getattr(torch, dtype)
     z = lambda *s: torch.randn(*s, generator=gen, device=device)
+    view = lambda v: torch.cat([v.new_zeros(1), v.flatten()])[1:].view(
+        v.shape)
     rps = launch.rows_per_sample
     gains = torch.linspace(0.6, 1.4, launch.m // rps, device=device)
     if kname == "ln_rows":
@@ -4045,11 +4080,12 @@ def row_kernel_args(kname, shape, launch, device, gen, dtype="bfloat16"):
         return z(m, n).to(cdt), gains, rps
     if kname == "postnorm_fwd":
         m, c = shape
-        return (2 * z(m, c) - 0.5, z(m, c).to(cdt), 1 + 0.1 * z(c),
-                0.1 * z(c), 0.5 + 0.1 * z(c), gains, rps, PATH_LAM)
+        return (2 * z(m, c) - 0.5, z(m, c).to(cdt), view(1 + 0.1 * z(c)),
+                view(0.1 * z(c)), view(0.5 + 0.1 * z(c)), gains, rps,
+                PATH_LAM)
     n, k = shape
-    return (k ** -0.5 * z(n, k), 0.1 * z(n), 0.5 + 0.1 * z(n), z(n, k),
-            z(n), z(n))
+    return (view(k ** -0.5 * z(n, k)), 0.1 * z(n), 0.5 + 0.1 * z(n),
+            z(n, k), z(n), z(n))
 
 
 def row_kernel_work(kname, args):
@@ -4071,13 +4107,20 @@ def row_kernel_work(kname, args):
 
 
 def row_shape_work(kname, shape, rows_per_sample, dtype="bfloat16"):
-    """(f32 operations, bytes) of one launch of LN's rows or of a column
-    sum at its ``shape`` (``row_kernel_calls``), as ``row_kernel_work``
-    counts them on its arguments."""
+    """(f32 operations, bytes) of one row-kernel launch at its ``shape``
+    (``row_kernel_calls``), as ``row_kernel_work`` counts them on its
+    arguments."""
     el = 2 if dtype == "bfloat16" else 4
     if kname == "ln_rows":
         m, c = shape
         return 5 * m * c, 2 * m * c * el + 8 * m + 8 * c
+    if kname == "postnorm_fwd":
+        m, c = shape
+        return 8 * m * c, m * c * (4 + 2 * el) + 12 * c + \
+            4 * (m // rows_per_sample)
+    if kname == "layerscale_grads":
+        n, k = shape
+        return 3 * n * k, 12 * n * k + 20 * n
     m, n, kind = shape
     if kind == "f32":
         return 2 * m * n, 4 * m * n + 4 * n
@@ -4098,6 +4141,29 @@ def row_library_call(kname, args):
     if kname == "colsum":
         return lambda: args[0].sum(0)
     return None
+
+
+def row_timed_call(kname, args, kernel):
+    """A call that launches row kernel ``kname`` on ``args``, for
+    ``launch_ms``: its wrapper (``kernel``), but for the LayerScale
+    gradients on the card, whose wrapper copies dw, db and dgamma before
+    each launch: their C entry point on copies made once here, updated in
+    place call after call (dw and db scaled by gamma each time)."""
+    if kname != "layerscale_grads" or args[0].device.type != "cuda":
+        return lambda: kernel(*args)
+    from vsn_tpu_torch.ops import _build
+
+    w, bias, gamma, dw, db, dgamma = args
+    dw, db, dgamma = dw.clone(), db.clone(), dgamma.clone()
+    n, k = w.shape
+    lib, stream = _build.library(), _build.stream_of(w)
+
+    def call():
+        _build.check(lib.vsn_layerscale_grads(
+            w.data_ptr(), bias.data_ptr(), gamma.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), dgamma.data_ptr(), n, k, stream),
+            "layerscale_grads")
+    return call
 
 
 def row_table():
@@ -4240,7 +4306,7 @@ def row_kernel_times(sets, device, card, names=None):
                     failed.append(f"{label} {kname} {launch.label} {what}: "
                                   f"{ratio:.2f} of its limit")
                 lib = row_library_call(kname, args)
-                t = dict(ms=launch_ms(lambda: kernel(*args)),
+                t = dict(ms=launch_ms(row_timed_call(kname, args, kernel)),
                          plain=cuda_ms(lambda: plain(*args)),
                          library=launch_ms(lib) if lib else 0.0)
                 flops, nbytes = row_kernel_work(kname, args)
@@ -4275,16 +4341,17 @@ def row_kernel_times(sets, device, card, names=None):
 
 def row_entries(times, sets, names=tuple(ROW_KERNEL_ENTRIES)):
     """The result line's entries of the row kernels ``names`` {name: (ms,
-    plain ms, (bound ms, by), library ms)}: ``row_kernel_times``' sums added
-    over every set of ``sets`` (the launches that ``row_path`` counts), the
-    bound that of the summed work."""
+    plain ms, (bound ms, by), library ms or None where no single call
+    computes the function)}: ``row_kernel_times``' sums added over every set
+    of ``sets`` (the launches that ``row_path`` counts), the bound that of
+    the summed work."""
     out = {}
     for name in names:
         tot = sum((times[(label, name)] for label in sets),
                   collections.Counter())
         out[name] = (tot["ms"], tot["plain"],
                      work_bound_ms(tot["flops"], tot["bytes"], "float32"),
-                     tot["library"])
+                     tot["library"] or None)
     return out
 
 
@@ -4945,7 +5012,35 @@ def k3_alone(port=None) -> int:
     return 0
 
 
+def rows_alone(port=None) -> int:
+    """``--rows-alone [PORT]`` (see the module's docstring): phase 2b's
+    times of the post-norm forward's finish and the LayerScale gradients
+    (``row_kernel_times``) at the calls that ``block_shapes`` records for
+    Swin-T at micro-batch TRAIN_MICRO and ViT-S at VIT_MICRO, for the port
+    at ``port`` (put first on the import path) or this checkout's."""
+    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
+                         " is false)")
+    if port is not None:
+        sys.path.insert(0, str(Path(port).resolve()))
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    _, row_sets = block_shapes(device)
+    times = row_kernel_times(row_sets, device, card,
+                             names=("postnorm_fwd", "layerscale_grads"))
+    print(json.dumps({"rows_alone_ms": {f"{label} {kname}": t["ms"]
+                                        for (label, kname), t in
+                                        times.items()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-alone"]:
         sys.exit(k3_alone(*sys.argv[2:3]))
+    if sys.argv[1:2] == ["--rows-alone"]:
+        sys.exit(rows_alone(*sys.argv[2:3]))
     sys.exit(main())

@@ -44,9 +44,10 @@ def test_probes_table_lists_every_run():
         assert (ROOT / src).exists() and (ROOT / rep.split(":")[0]).exists()
     # K1's tiled body: 2; K1/K2 in the stabilizer paths' residual modes: 10;
     # the GEMM and weight-gradient bodies of K1 / K2 alone: 2; the LN
-    # backward of K1b / K2b alone in its two modes: 2; LN's rows and the
-    # column sums of K1b / K2b alone: 2
-    assert len(chip_smoke.KERNELS) == 18 + 2 + 13 + 10 + 2 + 2 + 2
+    # backward of K1b / K2b alone in its two modes: 2; LN's rows, the
+    # column sums, the post-norm forward's finish and the LayerScale
+    # gradients of K1 / K2 alone: 4
+    assert len(chip_smoke.KERNELS) == 18 + 2 + 13 + 10 + 2 + 2 + 4
 
 
 def test_probe_plain_versions_pass(probe_sets):

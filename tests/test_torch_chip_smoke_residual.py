@@ -280,11 +280,10 @@ def test_result_line_takes_each_mode_from_its_path():
 # its mutant)
 SOURCE_MUTANTS = {
     "dgamma without the b * s term": (
-        "common.cuh", "dgamma[o] += acc + bias[o] * db[o];",
-        "dgamma[o] += acc;"),
+        "common.cuh", "p.dgamma[o] += d + p.bias[o] * p.db[o];",
+        "p.dgamma[o] += d;"),
     "dW left unscaled by gamma": (
-        "common.cuh", "for (int i = lane; i < k; i += 32) mrow[i] *= g;",
-        "for (int i = lane; i < k; i += 32) mrow[i] *= 1.f;"),
+        "common.cuh", "mv[j][e] *= g;", "mv[j][e] *= 1.f;"),
     "post-norm backward without its LN backward": (
         "common.cuh", "out[e] = POST ? v : p.lam * res[k].get(e) + v;",
         "out[e] = POST ? d_of(k, e) : p.lam * res[k].get(e) + v;"),
@@ -292,15 +291,21 @@ SOURCE_MUTANTS = {
         "common.cuh", "((LS & LS_EPI) ? v * p.gamma[n] : v)",
         "((LS & LS_EPI) ? v * p.gamma[m % p.n] : v)"),
     "post-norm forward without gamma": (
-        "common.cuh", "if (gamma) bn *= gamma[c];", "if (gamma) bn *= 1.f;"),
+        "common.cuh", "g_s[j] = p.gamma ? p.gamma[j] : 1.f;", "g_s[j] = 1.f;"),
 }
 # The message of the phase that must reject each mutant: the residual
-# parity phase 3a, but for the line of the LN-backward body, which phase 2b
-# holds alone first (the CPU rehearsal's mutant of the same name shows phase
-# 3a rejecting a post-norm backward without its LN backward)
+# parity phase 3a, but for the lines of the row kernels, which phase 2b
+# holds alone first: the LN-backward body, the post-norm forward's finish
+# and the LayerScale gradients (the CPU rehearsal's mode mutants of the
+# same names show phase 3a rejecting a post-norm backward without its LN
+# backward and the two LayerScale faults too)
 MODE_FAILS = "residual modes disagree with their plain versions"
+ROW_FAILS = "row kernels disagree with their plain versions"
 MUTANT_FAILS = {"post-norm backward without its LN backward":
-                "LN-backward launches disagree with their plain versions"}
+                "LN-backward launches disagree with their plain versions",
+                "dgamma without the b * s term": ROW_FAILS,
+                "dW left unscaled by gamma": ROW_FAILS,
+                "post-norm forward without gamma": ROW_FAILS}
 CSRC = ROOT / "vsn_tpu_torch" / "csrc"
 
 

@@ -295,7 +295,8 @@ def test_row_kernel_plain_versions_pass_and_a_mutant_fails(
 
 def test_row_kernel_bounds():
     """LN rows read x once and write y and the statistics; a column sum
-    reads its rows and the gains once; LayerScale reads w and dw, writes
+    reads its rows and the gains once; the post-norm forward reads the f32
+    branch and x once and writes out; LayerScale reads w and dw, writes
     dw."""
     x = torch.zeros(100, 96, dtype=torch.bfloat16)
     w = torch.zeros(96)
@@ -307,6 +308,15 @@ def test_row_kernel_bounds():
     assert chip_smoke.row_kernel_work(
         "layerscale_grads", (wt, w, w, wt, w, w))[1] == 3 * 96 * 384 * 4 + \
         5 * 96 * 4
+    branch = torch.zeros(100, 96)
+    assert chip_smoke.row_kernel_work(
+        "postnorm_fwd", (branch, x, w, w, w, torch.zeros(2), 50, 1.0)) == (
+            8 * 9600, 38400 + 2 * 19200 + 3 * 384 + 8)
+    assert chip_smoke.row_shape_work("postnorm_fwd", (100, 96), 50) == \
+        chip_smoke.row_kernel_work(
+            "postnorm_fwd", (branch, x, w, w, w, torch.zeros(2), 50, 1.0))
+    assert chip_smoke.row_shape_work("layerscale_grads", (96, 384), 1) == \
+        (3 * 96 * 384, 12 * 96 * 384 + 20 * 96)
 
 
 def test_row_shape_work_counts_what_the_arguments_count(row_sets):
@@ -364,12 +374,34 @@ ROW_MUTANTS = {
                     sbk.ln_rows_reference(x, w, b)[1]))(x.float())),
     "LN rows: the statistics of the neighbouring row": ("ln_rows", lambda *a: (
         lambda y, st: (y, st.roll(1, 0)))(*sbk.ln_rows_reference(*a))),
+    "post-norm forward: without gamma": ("postnorm_fwd", lambda br, x, w, b,
+                                         gamma, *r: sbk.postnorm_fwd_reference(
+                                             br, x, w, b, None, *r)),
+    "post-norm forward: the variance about 0": (
+        "postnorm_fwd", lambda br, x, w, b, gamma, gains, rps, lam: (
+            lam * x.float() + sbk._gain_rows(gains, rps, x.shape[0]) * (
+                ((br - br.mean(1, keepdim=True)) * torch.rsqrt(
+                    (br * br).mean(1, keepdim=True) + 1e-5) * w + b)
+                * gamma)).to(x.dtype)),
+    "LayerScale gradients: dgamma without the b * s term": (
+        "layerscale_grads", lambda w, bias, *r: sbk.layerscale_grads_reference(
+            w, 0 * bias, *r)),
+    "LayerScale gradients: dgamma from the scaled M": (
+        "layerscale_grads", lambda w, bias, gamma, dw, db, dgamma: (
+            lambda out: (out[0], out[1], dgamma + (w * out[0]).sum(1)
+                         + bias * db))(sbk.layerscale_grads_reference(
+                             w, bias, gamma, dw, db, dgamma))),
+    "LayerScale gradients: dW left unscaled": (
+        "layerscale_grads", lambda w, bias, gamma, dw, *r: (
+            lambda out: (dw, *out[1:]))(sbk.layerscale_grads_reference(
+                w, bias, gamma, dw, *r))),
 }
 
 
 def test_row_plain_versions_pass(row_sets):
     worst = chip_smoke.row_parity_phase(_sets(row_sets), "cpu")
-    assert worst == {"ln_rows": 0.0, "colsum": 0.0}
+    assert worst == {"ln_rows": 0.0, "colsum": 0.0, "postnorm_fwd": 0.0,
+                     "layerscale_grads": 0.0}
 
 
 @pytest.mark.parametrize("mutant", sorted(ROW_MUTANTS))
@@ -399,11 +431,62 @@ def test_unequal_column_sum_bits_between_two_launches_fail(row_sets):
                                     "cpu", table)
 
 
+def test_unequal_layerscale_bits_between_two_launches_fail(row_sets):
+    """LayerScale gradients whose dgamma differs in its last bits on a
+    second run (a dot summed in an order that varies) make the phase
+    raise, though each run is within its tolerance."""
+    runs = collections.Counter()
+
+    def flaky(w, *rest):
+        dw, db, dgamma = sbk.layerscale_grads_reference(w, *rest)
+        runs[w.shape] += 1
+        return dw, db, dgamma + 1e-7 * dgamma.abs().max() * (
+            runs[w.shape] % 2 == 0)
+
+    table = chip_smoke.row_table()
+    table["layerscale_grads"] = (flaky, table["layerscale_grads"][1])
+    with pytest.raises(AssertionError, match="row kernel launches differ"):
+        chip_smoke.row_parity_phase({"vit": (row_sets["vit"], "float32")},
+                                    "cpu", table)
+
+
+def test_row_kernel_args_hold_parameters_as_views_into_a_buffer(row_sets):
+    """The post-norm forward's LN scale, shift and gamma and the
+    LayerScale gradients' W start 4 bytes into their storage, as views of
+    the flat parameter buffer do; the timed call on the CPU is the
+    wrapper's."""
+    gen = torch.Generator().manual_seed(0)
+    launch = next(la for la in row_sets["swin"] if la.label.startswith("K2"))
+    calls = {k: s for k, _, s in chip_smoke.row_kernel_calls(launch)}
+    pn = chip_smoke.row_kernel_args("postnorm_fwd", calls["postnorm_fwd"],
+                                    launch, "cpu", gen)
+    ls = chip_smoke.row_kernel_args("layerscale_grads",
+                                    calls["layerscale_grads"], launch, "cpu",
+                                    gen)
+    for t in (*pn[2:5], ls[0]):
+        assert t.storage_offset() == 1 and t.is_contiguous()
+    assert ls[0].shape == (launch.c, launch.hidden)
+    kernel, plain = sbk.ROW_KERNELS["layerscale_grads"]
+    got = chip_smoke.row_timed_call("layerscale_grads", ls, kernel)()
+    for a, e in zip(got, plain(*ls)):
+        assert torch.equal(a, e)
+
+
+def test_rows_alone_needs_a_card(monkeypatch):
+    """``chip_smoke.py --rows-alone`` exits, printing no times, without a
+    card, as the whole script does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        chip_smoke.rows_alone()
+
+
 def test_row_path_counts_one_launch_per_call(row_sets, monkeypatch):
     """The row path's plumbing: LN's rows once per K1b / K2b call (24 a
-    pass) and the column sums once per bias gradient (K1b's dbproj, K2b's
-    dfc2_b and dfc1_b: 36 a pass), for both sets, the counters at 0 before;
-    the wrappers counted by stand-ins (the CPU path counts nothing)."""
+    pass), the column sums once per bias gradient (K1b's dbproj, K2b's
+    dfc2_b and dfc1_b: 36 a pass), the post-norm forward's finish once per
+    K1f / K2f call and the LayerScale gradients once per K1b / K2b call (24
+    a pass each), for both sets, the counters at 0 before; the wrappers
+    counted by stand-ins (the CPU path counts nothing)."""
     from vsn_tpu_torch.ops import _build
 
     table = chip_smoke.row_table()
@@ -420,21 +503,26 @@ def test_row_path_counts_one_launch_per_call(row_sets, monkeypatch):
     _build.launches["colsum"] += 5   # cleared by the path
     counts = chip_smoke.row_path(row_sets, "cpu")
     assert counts["ln_rows"] == 48 and counts["colsum"] == 72
-    assert sum(counts.values()) == 120
+    assert counts["postnorm_fwd"] == counts["layerscale_grads"] == 48
+    assert sum(counts.values()) == 216
     _build.launches.clear()
 
 
 def test_row_entries_sum_every_set_that_the_path_counts(
         row_sets, one_call_clock):
-    """The result line's ``ln_rows`` / ``colsum`` entries describe the
-    launches that ``row_path`` counts: both sets' (24 + 24 and 36 + 36 a
-    pass at one ms each; ``Tensor.sum(0)`` and ``native_layer_norm`` run
-    on the CPU too), with the bound of the summed work."""
+    """The result line's row entries describe the launches that
+    ``row_path`` counts: both sets' (24 + 24 a pass, the column sums' 36 +
+    36, at one ms each; ``Tensor.sum(0)`` and ``native_layer_norm`` run on
+    the CPU too; no single call computes the post-norm finish or the
+    LayerScale gradients: null), with the bound of the summed work."""
     times = chip_smoke.row_kernel_times(row_sets, "cpu", "cpu")
     entries = chip_smoke.row_entries(times, row_sets)
-    for name, n in (("ln_rows", 48), ("colsum", 72)):
+    assert set(entries) == set(chip_smoke.ROW_KERNEL_ENTRIES)
+    for name, n in (("ln_rows", 48), ("colsum", 72), ("postnorm_fwd", 48),
+                    ("layerscale_grads", 48)):
         ms, plain, bound, lib = entries[name]
-        assert ms == plain == lib == n
+        assert ms == plain == n
+        assert lib == (n if name in ("ln_rows", "colsum") else None)
         flops = nbytes = 0
         for launches in row_sets.values():
             for la, t in launches.items():

@@ -1173,12 +1173,13 @@ def test_a_mutated_gemm_source_makes_chip_smoke_fail(dev, mutant, tmp_path):
 # blocks, a ragged last run), the tests' narrow widths, single columns (C =
 # 12, not a multiple of 8), and the wide rows, whose lane group spans 2-8
 # warps: 1024 and 1280 (64 lanes), 1536 (Swin-T's stage 4 at EMBED_DIM 192,
-# 64 lanes x 3 units), 4096 and 8192 (256 lanes), and single columns above
-# 256: 300 (64 lanes x 8), 3000 (256 x 16) and 8191 (256 x 32)
+# 64 lanes x 3 units), 4096, 6144 (LN's rows' w and b: 48 KB of shared
+# memory besides the row sums') and 8192 (256 lanes), and single columns
+# above 256: 300 (64 lanes x 8), 3000 (256 x 16) and 8191 (256 x 32)
 LN_SHAPES = [(70, 96), (5000, 96), (3001, 192), (2016, 384), (300, 768),
              (74, 24), (111, 8), (50, 12), (40, 1024), (1200, 1280),
-             (1200, 1536), (700, 300), (300, 4096), (150, 3000), (130, 8192),
-             (64, 8191)]
+             (1200, 1536), (700, 300), (300, 4096), (64, 6144), (150, 3000),
+             (130, 8192), (64, 8191)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1336,6 +1337,92 @@ def test_ln_rows_launch_matches_plain_and_repeats_its_bits(dev, m, c,
     assert torch.equal(y, y2) and torch.equal(stats, stats2)
 
 
+@pytest.mark.parametrize("gamma", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c", LN_SHAPES)   # the same row plan
+def test_postnorm_fwd_launch_matches_plain_and_repeats_its_bits(dev, m, c,
+                                                                dtype, gamma):
+    """``postnorm_fwd_launch`` against ``postnorm_fwd_reference`` at every
+    class of width the row plan takes (multiples of 8 up to 8192, single
+    columns, lane groups across warps), with and without gamma, at
+    DeepScaleLM's lam: out within TOL of its type (one rounding step where
+    the f32 values round apart); LN's parameters views 4 bytes into a
+    buffer, as training's; two launches give the same bits."""
+    g = torch.Generator(dev).manual_seed(12)
+    z = lambda *s: torch.randn(*s, generator=g, device=dev)
+    vec = lambda v: torch.cat([v.new_zeros(1), v])[1:]
+    rps = m // 2 if m % 2 == 0 else m
+    args = (2 * z(m, c) - 0.5 + z(m, 1), z(m, c).to(dtype),
+            vec(1 + 0.1 * z(c)), vec(0.1 * z(c)),
+            vec(0.5 + 0.1 * z(c)) if gamma else None,
+            torch.linspace(0.6, 1.4, m // rps, device=dev), rps, 0.9129)
+    before = _build.launches["postnorm_fwd"]
+    got = sbk.postnorm_fwd_launch(*args)
+    again = sbk.postnorm_fwd_launch(*args)
+    want = sbk.postnorm_fwd_reference(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["postnorm_fwd"] == before + 2
+    _close(got, want, dtype)
+    assert torch.equal(got, again)
+
+
+# (N, K) of the LayerScale gradients: Swin-T's proj and fc2 at its four
+# stage widths and ViT-S's (N = 96: rows split over a cluster of two
+# blocks), K above 8192 (lane groups of 256 looping; at N = 8 eight slices),
+# K not a multiple of 4 (single columns) and a tiny call
+LS_SHAPES = [(96, 96), (96, 384), (192, 192), (192, 768), (384, 384),
+             (384, 1536), (768, 768), (768, 3072), (64, 12288), (8, 32768),
+             (37, 150), (5, 7)]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])   # W's floats past 16 bytes
+@pytest.mark.parametrize("n,k", LS_SHAPES)
+def test_layerscale_grads_launch_matches_plain_and_repeats_its_bits(dev, n,
+                                                                    k,
+                                                                    offset):
+    """``layerscale_grads_launch`` against ``layerscale_grads_reference``
+    with W a view 0-3 floats past a 16-byte boundary (a view into the flat
+    parameter buffer): dw and db scaled by gamma bit for bit (the same f32
+    product), dgamma within 1e-4 of its scale (the row's dot in another
+    order); two launches give the same bits."""
+    g = torch.Generator(dev).manual_seed(13)
+    z = lambda *s: torch.randn(*s, generator=g, device=dev)
+    w = torch.cat([z(offset), k ** -0.5 * z(n * k)])[offset:].view(n, k)
+    assert w.data_ptr() % 16 == 4 * offset
+    args = (w, 0.1 * z(n), 0.5 + 0.1 * z(n), z(n, k), z(n), z(n))
+    before = _build.launches["layerscale_grads"]
+    got = sbk.layerscale_grads_launch(*args)
+    again = sbk.layerscale_grads_launch(*args)
+    want = sbk.layerscale_grads_reference(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["layerscale_grads"] == before + 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    err = (got[2] - want[2]).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want[2].abs().max().item()), err
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_layerscale_grads_in_place_on_an_unaligned_dw(dev):
+    """The C entry point updates dw, db and dgamma in place, as K1b / K2b
+    launch it; a dw 4 bytes into its storage takes the single-column body:
+    the same values."""
+    n, k = 192, 768
+    g = torch.Generator(dev).manual_seed(14)
+    z = lambda *s: torch.randn(*s, generator=g, device=dev)
+    w, bias, gamma = k ** -0.5 * z(n, k), 0.1 * z(n), 0.5 + 0.1 * z(n)
+    dw = torch.cat([z(1), z(n * k)])[1:].view(n, k)
+    db, dgamma = z(n), z(n)
+    want = sbk.layerscale_grads_reference(w, bias, gamma, dw, db, dgamma)
+    err = _build.library().vsn_layerscale_grads(
+        w.data_ptr(), bias.data_ptr(), gamma.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), dgamma.data_ptr(), n, k, _build.stream_of(w))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(dw, want[0]) and torch.equal(db, want[1])
+    assert (dgamma - want[2]).abs().max().item() <= 1e-4 * max(
+        1.0, want[2].abs().max().item())
+
+
 @pytest.mark.parametrize("offset", [2, 1])   # 4- and 2-byte aligned views
 def test_movers_at_a_misaligned_view(dev, offset):
     """Source and destination rows that 16 bytes do not divide (a view 4 or
@@ -1353,9 +1440,10 @@ def test_movers_at_a_misaligned_view(dev, offset):
 
 
 # One-line edits of the row kernels (the LN backward, the column sums, LN's
-# rows) and of K3's gather that chip_smoke.py must reject on the card (exit
-# 1: in its row-kernel phase 2b, or in its mover parity, phase 6): name ->
-# (source, line, its mutant)
+# rows, the post-norm forward's finish, the LayerScale gradients) and of
+# K3's gather that chip_smoke.py must reject on the card (exit 1: in its
+# row-kernel phase 2b, or in its mover parity, phase 6): name -> (source,
+# line, its mutant)
 ROW_SOURCE_MUTANTS = {
     "LN backward: mean(dxhat xhat) dropped": (
         "common.cuh",
@@ -1378,6 +1466,13 @@ ROW_SOURCE_MUTANTS = {
     "LN rows: the variance about 0": (
         "common.cuh", "const float t = xin[k].get(e) - mu;",
         "const float t = xin[k].get(e);"),
+    "post-norm forward: the variance about 0": (
+        "common.cuh", "const float t = br[k].get(e) - mu;",
+        "const float t = br[k].get(e);"),
+    "LayerScale gradients: dgamma from the scaled M": (
+        "common.cuh",
+        "dot = fmaf(wv[j][e], mv[j][e], dot);  // dgamma from the unscaled M",
+        "dot = fmaf(wv[j][e], mv[j][e] * g, dot);"),
     "K3: each row from its neighbour's source": (
         "window_relayout.cu",
         "if (r < rows) v[i] = src[(unsigned)__ldg(map + r) * (unsigned)chunks"

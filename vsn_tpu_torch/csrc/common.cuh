@@ -14,6 +14,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -808,6 +809,9 @@ constexpr int kLnRowsMaxBlocks = 4 * 132; // LN's rows: one wave at four blocks 
 constexpr int kLnBwdMinSteps = 2;         // least block steps of rows in a run
 constexpr int kRowMaxLanes = 256;         // a row's group: at most the block's warps
 constexpr int kRowMaxC = 8192;            // the widest row the plan takes
+// the row sums' static shared memory (``RowSum``'s [2][kLnBwdWarps]), which
+// counts with the dynamic toward the 48 KB a launch may take without opting in
+constexpr size_t kRowStaticSmem = 2 * kLnBwdWarps * sizeof(float);
 
 // The launch plan of one row call: columns per unit (8: whole 16-byte
 // chunks of bf16; 1), lanes per row (a power of two), units per lane, rows
@@ -908,11 +912,11 @@ __device__ __forceinline__ void store_row(TO* dst, const float (&v)[VEC]) {
 }
 
 // Hopper's programmatic dependent launch: a grid launched by
-// ``launch_ordered_sum`` may be scheduled while the grid before it on the
-// stream still runs, once that grid's blocks have let it
-// (``let_dependents_start``); ``wait_for_prior_grid`` then holds it until
-// the earlier grid has finished and its writes are visible. Launched
-// without the attribute, the wait returns at once.
+// ``launch_ordered_sum`` or ``launch_layerscale_grads`` may be scheduled
+// while the grid before it on the stream still runs, once that grid's
+// blocks have let it (``let_dependents_start``); ``wait_for_prior_grid``
+// then holds it until the earlier grid has finished and its writes are
+// visible. Launched without the attribute, the wait returns at once.
 __device__ __forceinline__ void wait_for_prior_grid() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
@@ -1036,7 +1040,7 @@ cudaError_t launch_ln_rows(const T* x, const float* w, const float* b, TY* y,
     auto kernel = ln_rows_kernel<T, TY, decltype(vec)::value, decltype(units)::value,
                                  decltype(wide)::value>;
     const size_t bytes = 2 * sizeof(float) * k;  // w and b
-    cudaError_t err = bytes > 48 * 1024 ? cudaFuncSetAttribute(
+    cudaError_t err = bytes + kRowStaticSmem > 48 * 1024 ? cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) : cudaSuccess;
     if (err != cudaSuccess) return err;
     kernel<<<plan.blocks, kLnBwdThreads, bytes, stream>>>(x, w, b, y, stats, m, k, plan);
@@ -1327,7 +1331,8 @@ __global__ void __launch_bounds__(32 * kLnSumSlices) ordered_sum_kernel(
   const int col = blockIdx.x * 32 + lane;
   const long long ld = pairs ? 2LL * c : c;
   float a = 0.f, s = 0.f;
-  wait_for_prior_grid();  // the partials of the grid before
+  let_dependents_start();  // a programmatic dependent launch after it may be scheduled
+  wait_for_prior_grid();   // the partials of the grid before
   if (col < c) {
 #pragma unroll 8
     for (int g = slice; g < blocks; g += kLnSumSlices) {
@@ -1911,44 +1916,162 @@ cudaError_t launch_wgrad(WgradParams<T, TA> p, cudaStream_t stream) {
 // last GEMM writes the f32 branch (EPI_F32) and a row kernel below finishes.
 // ---------------------------------------------------------------------------
 
-// Post-norm forward: out = T(lam * x + gains[row / rps] * (LN(branch) [*
-// gamma])), the LayerNorm statistics of the f32 branch in f32 (two passes,
-// as the forward GEMM's prologue), one warp per row. gamma may be null.
+// Post-norm forward, the finish of K1f's proj and K2f's fc2 under post-norm
+// (swin_block_kernels.py _attn_fwd_kernel :284-288, _mlp_fwd_kernel
+// :874-878):
+//
+//   out = T(lam * x + gains[row / rps] * (LN(branch) [* gamma]))
+//
+// with LN's statistics of the f32 branch taken in f32 in two passes (the
+// mean, then the variance about it), as the forward GEMM's prologue takes
+// them.
+//
+// What bounds it: bytes (the f32 branch and x read once, out written once:
+// 8 bytes an element under bf16, 12 under f32; ~8 f32 operations an
+// element). The design is LN's rows' (``ln_rows_kernel``, on the row plan):
+// a lane group reads its row of the branch and of x once into registers by
+// 16-byte vectors, the statistics come from the registers, and out leaves
+// by vector stores; the branch, read once and dead after, is loaded
+// evict-first (``load_streamed``); LN's scale and shift and gamma (1 where
+// there is none: an exact product) are staged once a block in shared
+// memory under the block's first loads, so their vector reads are aligned
+// where the parameters are views into a flat buffer (training's); each
+// row's gain is loaded beside its row.
 template <typename T>
-__global__ void __launch_bounds__(256) postnorm_fwd_kernel(
-    const float* __restrict__ branch, const T* __restrict__ x,
-    const float* __restrict__ w, const float* __restrict__ b,
-    const float* __restrict__ gamma, const float* __restrict__ gains,
-    long long rps, float lam, T* __restrict__ out, long long m, int k) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * 8 + warp;
-  if (row >= m) return;
-  const float* br = branch + row * k;
-  float s = 0.f;
-  for (int c = lane; c < k; c += 32) s += br[c];
-  const float mu = warp_sum(s) / k;
-  float v = 0.f;
-  for (int c = lane; c < k; c += 32) {
-    const float d = br[c] - mu;
-    v += d * d;
-  }
-  const float rstd = 1.f / sqrtf(warp_sum(v) / k + kLnEps);
-  const float g = gains[row / rps];
-  for (int c = lane; c < k; c += 32) {
-    float bn = (br[c] - mu) * rstd * w[c] + b[c];
-    if (gamma) bn *= gamma[c];
-    out[row * k + c] = from_f32<T>(lam * to_f32(x[row * k + c]) + g * bn);
+struct PostnormFwdParams {
+  const float* branch;  // [M, C] f32: the proj / fc2 output with its bias
+  const T* x;           // [M, C] the block input (the residual)
+  const float* w;       // LN's scale [C]
+  const float* b;       // LN's shift [C]
+  const float* gamma;   // LayerScale [C] or null
+  const float* gains;   // per-sample gains [M / rps]
+  long long rps;        // rows per sample
+  float lam;            // the residual's x-gain
+  T* out;               // [M, C]
+  long long m;
+  int c;
+  LnBwdPlan plan;
+};
+
+// A unit of the f32 branch, which nothing reads after the post-norm finish:
+// loads that L2 may evict first (ld.global.cs), so the single pass over it
+// does not push x and the rows the next launches read out of L2.
+template <int VEC>
+__device__ __forceinline__ void load_streamed(RowV<float, VEC>& r, const float* src, int valid) {
+  if constexpr (VEC == 8) {
+    const float4* v = reinterpret_cast<const float4*>(src);
+    const float4 a = valid ? __ldcs(v) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 b = valid ? __ldcs(v + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+    r.f[0] = a.x, r.f[1] = a.y, r.f[2] = a.z, r.f[3] = a.w;
+    r.f[4] = b.x, r.f[5] = b.y, r.f[6] = b.z, r.f[7] = b.w;
+  } else {
+    r.f = valid ? __ldcs(src) : 0.f;
   }
 }
 
+template <typename T, int VEC, int K, bool WIDE>
+__global__ void __launch_bounds__(kLnBwdThreads, WIDE ? 1 : 2)
+    postnorm_fwd_kernel(PostnormFwdParams<T> p) {
+  extern __shared__ __align__(16) float ln_smem[];  // [C] w, [C] b, [C] gamma
+  float* w_s = ln_smem;
+  float* b_s = ln_smem + p.c;
+  float* g_s = ln_smem + 2 * p.c;
+  __shared__ float red[2][kLnBwdWarps];
+  RowSum<WIDE> group_sum{red, 0};
+  const int tid = threadIdx.x, lanes = p.plan.lanes;
+  const int sub = (WIDE ? tid : tid & 31) & (lanes - 1);
+  const int groups = kLnBwdThreads >> p.plan.shift, gid = tid >> p.plan.shift;
+  const int chunks = p.c / VEC;
+  const long long r0 = (long long)blockIdx.x * p.plan.run;
+  const long long r1 = min(r0 + p.plan.run, p.m);
+  for (long long base = r0; base < r1; base += groups) {
+    const long long row = base + gid;
+    const bool live = row < r1;
+    const long long at = (live ? row : r0) * p.c;  // a row to address; nothing is loaded for it
+    const float* brow = p.branch + at;
+    const T* xrow = p.x + at;
+    RowV<float, VEC> br[K];  // the branch
+    RowV<T, VEC> res[K];     // x
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = k * lanes + sub;
+      const int valid = live && u < chunks ? VEC : 0;
+      load_streamed<VEC>(br[k], brow + u * VEC, valid);
+      res[k].load(xrow + u * VEC, valid, true);
+    }
+    // the row's gain, loaded beside its row: M < 2^31 (the launch)
+    const float g = live ? p.gains[(unsigned)row / (unsigned)p.rps] : 0.f;
+    if (base == r0) {  // the block's first step: stage w, b and gamma under its loads
+      for (int j = tid; j < p.c; j += kLnBwdThreads) {
+        w_s[j] = p.w[j];
+        b_s[j] = p.b[j];
+        g_s[j] = p.gamma ? p.gamma[j] : 1.f;
+      }
+      __syncthreads();
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s += br[k].get(e);
+    const float mu = group_sum(s, lanes) / p.c;
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k * lanes + sub < chunks)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float t = br[k].get(e) - mu;
+          v += t * t;
+        }
+    const float rstd = 1.f / sqrtf(group_sum(v, lanes) / p.c + kLnEps);
+    if (!live) continue;
+    T* orow = p.out + at;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = k * lanes + sub;
+      if (u >= chunks) continue;
+      RowV<float, VEC> wk, bk, gk;
+      wk.load(w_s + u * VEC, VEC, true);
+      bk.load(b_s + u * VEC, VEC, true);
+      gk.load(g_s + u * VEC, VEC, true);
+      float out[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float bn = ((br[k].get(e) - mu) * rstd * wk.get(e) + bk.get(e)) * gk.get(e);
+        out[e] = p.lam * res[k].get(e) + g * bn;
+      }
+      store_row<VEC>(orow + u * VEC, out);
+    }
+  }
+}
+
+// branch, x and out must be 16-byte aligned (the wrappers copy an x that is
+// not); C <= kRowMaxC. The grid is the LN backward's plan: one wave at the
+// two blocks an SM that the launch bound keeps room for up to C = 768 (the
+// body holds ~115 registers there, so LN's rows' twice as many blocks would
+// run in two uneven waves).
 template <typename T>
 cudaError_t launch_postnorm_fwd(const float* branch, const T* x, const float* w,
                                 const float* b, const float* gamma, const float* gains,
                                 long long rps, float lam, T* out, long long m, int k,
                                 cudaStream_t stream) {
-  postnorm_fwd_kernel<T><<<(unsigned)((m + 7) / 8), 256, 0, stream>>>(
-      branch, x, w, b, gamma, gains, rps, lam, out, m, k);
-  return cudaGetLastError();
+  PostnormFwdParams<T> p = {branch, x, w, b, gamma, gains, rps, lam, out, m, k, {}};
+  const uintptr_t rows = reinterpret_cast<uintptr_t>(branch) | reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(out);
+  if (!ln_bwd_plan(m, k, &p.plan) || rows % 16 || m >= (1LL << 31) || rps < 1 ||
+      rps >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  return with_row_plan(p.plan, [&](auto vec, auto units, auto wide) {
+    auto kernel = postnorm_fwd_kernel<T, decltype(vec)::value, decltype(units)::value,
+                                      decltype(wide)::value>;
+    const size_t bytes = 3 * sizeof(float) * k;  // w, b and gamma
+    cudaError_t err = bytes + kRowStaticSmem > 48 * 1024 ? cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) : cudaSuccess;
+    if (err != cudaSuccess) return err;
+    kernel<<<p.plan.blocks, kLnBwdThreads, bytes, stream>>>(p);
+    return cudaGetLastError();
+  });
 }
 
 // Post-norm backward (the LN-backward body's post-norm mode, above): the
@@ -1972,45 +2095,214 @@ cudaError_t launch_postnorm_bwd(float* branch, const T* do_res, const float* gb,
   p.c = k;
   return launch_ln_bwd_rows<T, true>(p, part_floats, b, dw, db, dgamma, stream);
 }
+
 // Pre-norm LayerScale gradients of the last product out = gamma * (a @ W^T +
 // bias), from its unscaled weight and bias gradients M = do^T @ a [N, K] and
-// s = sum_rows do [N] (the split-K and column-sum launches, finished on the
-// stream before this one):
+// s = sum_rows do [N] (the split-K weight gradient and the column sum,
+// finished on the stream before this launch):
 //
 //   dgamma[o] += sum_i W[o, i] M[o, i] + bias[o] s[o]
 //   M[o, :] *= gamma[o],  s[o] *= gamma[o]
 //
 // as the TPU kernels take it (swin_block_kernels.py:404-415, :936-950):
-// dgamma from the unscaled sums, dW and db scaled after. One warp per o.
-// TW is the parameters' and their gradients' type (f32); as a template the
-// kernel is compiled only into the sources that launch it.
-template <typename TW>
-__global__ void __launch_bounds__(256) layerscale_grads_kernel(
-    const TW* __restrict__ w, const TW* __restrict__ bias,
-    const TW* __restrict__ gamma, TW* __restrict__ dw, TW* __restrict__ db,
-    TW* __restrict__ dgamma, int n, int k) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int o = blockIdx.x * 8 + warp;
-  if (o >= n) return;
-  TW* mrow = dw + (long long)o * k;
-  const TW* wrow = w + (long long)o * k;
-  float acc = 0.f;
-  for (int i = lane; i < k; i += 32) acc += wrow[i] * mrow[i];
-  acc = warp_sum(acc);
-  const float g = gamma[o];
-  for (int i = lane; i < k; i += 32) mrow[i] *= g;
-  if (lane == 0) {
-    dgamma[o] += acc + bias[o] * db[o];
-    db[o] *= g;
-  }
+// dgamma from the unscaled sums, dW and db scaled after.
+//
+// What bounds it: bytes, 12 N K (W and M read, M written; 3 f32 operations
+// an element). The design:
+//
+//   - One streaming pass: a lane group (a warp, or 2-8 warps) walks one
+//     row's units (4 columns, one 16-byte vector of M; one column where K is
+//     not a multiple of 4 or M not 16-byte aligned), kLsUnits of them a lane
+//     in flight, and stores M gamma[o] in the pass that reads M for the dot:
+//     gamma[o] is known before it. K is not bounded by registers.
+//   - W is a view into the flat parameter buffer in training, whose rows 16
+//     bytes need not divide: a lane reads the aligned vector that holds its
+//     unit's first column and, where W is offset, the next one (its
+//     neighbour's, from L1), and takes its four columns from the two.
+//   - The grid: lanes a row and rows a block such that every SM has a block
+//     at every Swin-T / ViT-S shape (N = 96-768, K = N or 4N: at least 132
+//     blocks); where the rows alone are too few (N < 132) a row is split
+//     into 2-8 slices, the blocks of a thread block cluster, and rank 0 adds
+//     the slices' dots in rank order through distributed shared memory.
+//   - A fixed order of sums: a lane's units in order, a butterfly over the
+//     warp, a group's warps in warp order, the slices in rank order. The
+//     plan is a function of (N, K) and the operands' alignment, so two
+//     launches on the same inputs give the same bits.
+//   - A programmatic dependent launch: W and gamma, which no grid before it
+//     writes, are loaded before it waits for the grid before it (the column
+//     sum's ordered sum, which lets it start at once), so its prologue
+//     overlaps that grid.
+constexpr int kLsThreads = 256;    // a block at most
+constexpr int kLsUnits = 4;        // units a lane keeps in flight
+constexpr int kLsMaxSlices = 8;    // blocks a row: a portable cluster at most
+constexpr int kLsMinBlocks = 132;  // a block an SM
+
+// vec (columns a unit: 4, or 1), units a row, lanes a row slice (32-256),
+// rows a block, slices a row (the cluster's blocks), units a slice, and
+// W's offset in floats from a 16-byte boundary (vec 4).
+struct LsPlan {
+  int vec, units, lanes, rows, slices, per, shift;
+};
+
+inline bool ls_plan(const float* w, const float* dw, int n, int k, LsPlan* p) {
+  if (n < 1 || k < 1) return false;
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
+  p->vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(dw) % 16 == 0 && wa % 4 == 0 ? 4 : 1;
+  p->shift = p->vec == 4 ? (int)(wa / 4 % 4) : 0;
+  p->units = k / p->vec;
+  p->slices = 1;
+  while (p->slices < kLsMaxSlices && (long long)n * p->slices < kLsMinBlocks &&
+         p->units >= 16 * p->slices)
+    p->slices <<= 1;
+  p->per = (p->units + p->slices - 1) / p->slices;
+  p->lanes = 32;
+  while (p->lanes < kLsThreads && kLsUnits * p->lanes < p->per) p->lanes <<= 1;
+  p->rows = 1;
+  while (2 * p->rows * p->lanes <= kLsThreads &&
+         (long long)((n + 2 * p->rows - 1) / (2 * p->rows)) * p->slices >= kLsMinBlocks)
+    p->rows <<= 1;
+  return (n + p->rows - 1) / p->rows <= 65535;
 }
 
+struct LsParams {
+  const float* w;       // [N, K]
+  const float* bias;    // [N]
+  const float* gamma;   // [N]
+  float* dw;            // M [N, K], scaled in place
+  float* db;            // s [N], scaled in place
+  float* dgamma;        // [N], added into
+  int n, k;
+  LsPlan plan;
+};
+
+// W's columns 4u .. 4u + 3 of a row whose first column lies ``shift`` floats
+// past the 16-byte boundary ``wa``.
+__device__ __forceinline__ float4 load_shifted(const float4* wa, int u, int shift) {
+  const float4 a = wa[u];
+  if (shift == 0) return a;
+  const float4 b = wa[u + 1];
+  return shift == 1 ? make_float4(a.y, a.z, a.w, b.x)
+       : shift == 2 ? make_float4(a.z, a.w, b.x, b.y)
+                    : make_float4(a.w, b.x, b.y, b.z);
+}
+
+template <int VEC, bool WIDE>
+__global__ void __launch_bounds__(kLsThreads) layerscale_grads_kernel(LsParams p) {
+  __shared__ float red[2][kLnBwdWarps];
+  __shared__ float slice_dot[kLsThreads / 32];  // the block's rows' dots over its slice
+  RowSum<WIDE> group_sum{red, 0};
+  const int tid = threadIdx.x, lanes = p.plan.lanes;
+  const int sub = tid & (lanes - 1), grp = tid / lanes;
+  const int o = blockIdx.y * p.plan.rows + grp;
+  const bool live = o < p.n;
+  const int u0 = blockIdx.x * p.plan.per;
+  const int u1 = live ? min(u0 + p.plan.per, p.plan.units) : u0;
+  const long long at = (long long)(live ? o : 0) * p.k;
+  float* mrow = p.dw + at;
+  const float* wrow = p.w + at - (VEC == 4 ? p.plan.shift : 0);  // 16-byte aligned (VEC 4)
+  float wv[kLsUnits][VEC];
+  auto load_w = [&](int first) {
+#pragma unroll
+    for (int j = 0; j < kLsUnits; ++j) {
+      const int u = first + j * lanes;
+      if (u >= u1) continue;
+      if constexpr (VEC == 4) {
+        const float4 v = load_shifted(reinterpret_cast<const float4*>(wrow), u, p.plan.shift);
+        wv[j][0] = v.x, wv[j][1] = v.y, wv[j][2] = v.z, wv[j][3] = v.w;
+      } else {
+        wv[j][0] = wrow[u];
+      }
+    }
+  };
+  const int step = kLsUnits * lanes;
+  load_w(u0 + sub);  // the prologue: parameters, which no grid before this one writes
+  const float g = live ? p.gamma[o] : 0.f;
+  wait_for_prior_grid();  // M and s, finished by the grids before
+  float dot = 0.f;
+  for (int first = u0 + sub; first < u1; first += step) {
+    if (first != u0 + sub) load_w(first);
+    float mv[kLsUnits][VEC];
+#pragma unroll
+    for (int j = 0; j < kLsUnits; ++j) {
+      const int u = first + j * lanes;
+      if (u >= u1) continue;
+      if constexpr (VEC == 4) {
+        const float4 v = reinterpret_cast<const float4*>(mrow)[u];
+        mv[j][0] = v.x, mv[j][1] = v.y, mv[j][2] = v.z, mv[j][3] = v.w;
+      } else {
+        mv[j][0] = mrow[u];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kLsUnits; ++j) {
+      const int u = first + j * lanes;
+      if (u >= u1) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        dot = fmaf(wv[j][e], mv[j][e], dot);  // dgamma from the unscaled M
+        mv[j][e] *= g;
+      }
+      if constexpr (VEC == 4) {
+        reinterpret_cast<float4*>(mrow)[u] = make_float4(mv[j][0], mv[j][1], mv[j][2], mv[j][3]);
+      } else {
+        mrow[u] = mv[j][0];
+      }
+    }
+  }
+  dot = group_sum(dot, lanes);
+  auto finish = [&](float d) {  // the row's whole dot
+    p.dgamma[o] += d + p.bias[o] * p.db[o];
+    p.db[o] *= g;
+  };
+  if (p.plan.slices == 1) {
+    if (live && sub == 0) finish(dot);
+    return;
+  }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (sub == 0) slice_dot[grp] = dot;
+  cluster.sync();
+  if (blockIdx.x == 0 && live && sub == 0) {  // rank 0: the grid's x is the cluster
+    float d = 0.f;
+    for (int r = 0; r < p.plan.slices; ++r) d += *cluster.map_shared_rank(slice_dot + grp, r);
+    finish(d);
+  }
+  cluster.sync();  // every block's shared memory stays until rank 0 has read it
+}
+
+// dgamma [n] += rowsum(w * dw) + bias * db, then dw [n, k] and db [n] scaled
+// by gamma, in place; any k and alignment (16-byte vectors where k % 4 == 0
+// and dw is 16-byte aligned). TW is the parameters' and their gradients'
+// type (f32); as a template the kernel is compiled only into the sources
+// that launch it.
 template <typename TW>
 cudaError_t launch_layerscale_grads(const TW* w, const TW* bias, const TW* gamma, TW* dw,
-                                   TW* db, TW* dgamma, int n, int k, cudaStream_t stream) {
-  layerscale_grads_kernel<TW><<<(unsigned)((n + 7) / 8), 256, 0, stream>>>(w, bias, gamma, dw,
-                                                                           db, dgamma, n, k);
-  return cudaGetLastError();
+                                    TW* db, TW* dgamma, int n, int k, cudaStream_t stream) {
+  static_assert(std::is_same<TW, float>::value, "f32 parameters and gradients");
+  LsParams p = {w, bias, gamma, dw, db, dgamma, n, k, {}};
+  if (!ls_plan(w, dw, n, k, &p.plan)) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = p.plan.slices;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.plan.slices, (n + p.plan.rows - 1) / p.plan.rows);
+  cfg.blockDim = dim3(p.plan.lanes * p.plan.rows);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.plan.slices > 1 ? 2 : 1;
+  const bool wide = p.plan.lanes > 32;
+  cudaError_t err;
+  if (p.plan.vec == 4)
+    err = wide ? cudaLaunchKernelEx(&cfg, layerscale_grads_kernel<4, true>, p)
+               : cudaLaunchKernelEx(&cfg, layerscale_grads_kernel<4, false>, p);
+  else
+    err = wide ? cudaLaunchKernelEx(&cfg, layerscale_grads_kernel<1, true>, p)
+               : cudaLaunchKernelEx(&cfg, layerscale_grads_kernel<1, false>, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace

@@ -13,8 +13,10 @@
 //     backward's row plan), the _ln_fwd (:75) of K1b's and K2b's recompute.
 //   vsn_colsum: the bias gradients' column sums (``colsum_kernel``, then the
 //     block-ordered sum).
-//   vsn_postnorm_fwd, vsn_layerscale_grads: the post-norm forward's finish
-//     and the pre-norm LayerScale gradients, timed alone beside them.
+//   vsn_postnorm_fwd: the post-norm forward's finish (``postnorm_fwd_kernel``,
+//     on the row plan), the end of K1f's / K2f's post-norm mode.
+//   vsn_layerscale_grads: the pre-norm LayerScale gradients
+//     (``layerscale_grads_kernel``) of K1b's proj and K2b's fc2.
 //
 // Each returns cudaGetLastError() of its launches, or cudaErrorInvalidValue
 // for arguments its kernels do not take. is_bf16 selects bf16 activations
@@ -109,7 +111,8 @@ extern "C" int vsn_colsum(int is_bf16, int a_f32, const void* a, const float* a_
                                            out, part, part_floats, m, n, s);
 }
 
-// out [m, c] = T(lam * x + gains[row / rps] * (LN(branch) [* gamma])).
+// out [m, c] = T(lam * x + gains[row / rps] * (LN(branch) [* gamma])):
+// branch, x and out 16-byte aligned, c <= kRowMaxC.
 extern "C" int vsn_postnorm_fwd(int is_bf16, const float* branch, const void* x,
                                 const float* w, const float* b, const float* gamma,
                                 const float* gains, long long rps, float lam, void* out,
@@ -125,7 +128,7 @@ extern "C" int vsn_postnorm_fwd(int is_bf16, const float* branch, const void* x,
 }
 
 // dgamma [n] += rowsum(w * dw) + bias * db, then dw [n, k] and db [n] scaled
-// by gamma, in place.
+// by gamma, in place; any k, w at any alignment.
 extern "C" int vsn_layerscale_grads(const float* w, const float* bias, const float* gamma,
                                     float* dw, float* db, float* dgamma, int n, int k,
                                     void* stream) {

@@ -27,9 +27,9 @@ operands, chip_smoke.py's yardstick, as ``gemm_fma`` / ``wgrad_fma``; the
 stem's FMA bodies on bf16 (``stem_im2col(..., _fma=True)``) likewise as
 ``stem_im2col_fma`` / ``stem_im2col_dw_fma``; the row kernels of K1 / K2
 called alone (``swin_block_kernels.ln_bwd_launch`` /
-``postnorm_bwd_launch``, and the others of ``ROW_KERNELS``) as ``ln_bwd``
-/ ``postnorm_bwd``, ``ln_rows`` / ``colsum`` (LN's rows, the column sums)
-and ``row_<kernel>`` for the rest (e.g. ``row_postnorm_fwd``). The
+``postnorm_bwd_launch``, and those of ``ROW_KERNELS``) under their
+names: ``ln_bwd`` / ``postnorm_bwd``, ``ln_rows``, ``colsum``,
+``postnorm_fwd`` and ``layerscale_grads``. The
 attention probes (``ops/attn_probe.py``) count per run instead, under the
 run's key, and add the number of CUDA launches the call made (3 for a
 whole half-block, 2 without the attention or without the GEMMs, 1 for a

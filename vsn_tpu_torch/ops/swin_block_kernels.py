@@ -426,6 +426,8 @@ def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
     or tiled, the others tiled."""
     ids_rows, nsamp = _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
                                   proj_w, proj_b, gf, gb, num_heads, gamma)
+    if post_norm:   # the post-norm finish reads x's rows by 16-byte vectors
+        x = _aligned16(x)
     bw, n, c = x.shape
     tiled = _tiled(n, c, num_heads)
     stats = o32 = None
@@ -972,8 +974,9 @@ def colsum_launch(a, a_gain=None, rows_per_sample=None):
 
 def postnorm_fwd_launch(branch, x, w, b, gamma, gains, rows_per_sample,
                         lam=1.0):
-    """``postnorm_fwd_kernel`` alone (``vsn_postnorm_fwd``): the kernel for
-    a CUDA tensor, ``postnorm_fwd_reference`` for a CPU one."""
+    """``postnorm_fwd_kernel`` alone (``vsn_postnorm_fwd``, C <= 8192):
+    the kernel for a CUDA tensor, ``postnorm_fwd_reference`` for a CPU
+    one."""
     if x.device.type == "cpu":
         return postnorm_fwd_reference(branch, x, w, b, gamma, gains,
                                       rows_per_sample, lam)
@@ -986,8 +989,9 @@ def postnorm_fwd_launch(branch, x, w, b, gamma, gains, rows_per_sample,
         if t is not None:
             expect(t, name, (c,), f32, dev)
     expect(gains, "gains", (-(-m // rows_per_sample),), f32, dev)
+    branch, x = _aligned16(branch), _aligned16(x)
     out = torch.empty_like(x)
-    _row_launch("row_postnorm_fwd", dev, lambda lib: lib.vsn_postnorm_fwd(
+    _row_launch("postnorm_fwd", dev, lambda lib: lib.vsn_postnorm_fwd(
         int(x.dtype == torch.bfloat16), branch.data_ptr(), x.data_ptr(),
         w.data_ptr(), b.data_ptr(), ptr(gamma), gains.data_ptr(),
         rows_per_sample, float(lam), out.data_ptr(), m, c, stream_of(x)))
@@ -1008,7 +1012,7 @@ def layerscale_grads_launch(w, bias, gamma, dw, db, dgamma):
                            (db, "db", (n,)), (dgamma, "dgamma", (n,))):
         expect(t, name, shape, f32, dev)
     dw, db, dgamma = dw.clone(), db.clone(), dgamma.clone()
-    _row_launch("row_layerscale_grads", dev,
+    _row_launch("layerscale_grads", dev,
                 lambda lib: lib.vsn_layerscale_grads(
                     w.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
                     dw.data_ptr(), db.data_ptr(), dgamma.data_ptr(), n, k,
@@ -1065,11 +1069,13 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
         expect(ao, "ao", tuple(x.shape), x.dtype, x.device)
     rows, dev, dt = bw * n, x.device, x.dtype
     x, dout = _aligned16(x), _aligned16(dout)   # the LN backward's rows
-    # the f32 gradients the kernels add into, zeroed in one buffer
-    sizes = (c, c, 3 * c * c, 3 * c, num_heads * n * n if bias is not None
-             else 0, c * c, c, c if gamma is not None else 0)
+    # the f32 gradients the kernels add into, zeroed in one buffer; dproj_w
+    # first, 16-byte aligned: the LayerScale gradients read and write its
+    # rows by 16-byte vectors
+    sizes = (c * c, c, c, 3 * c * c, 3 * c, num_heads * n * n
+             if bias is not None else 0, c, c if gamma is not None else 0)
     grads = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-    (dln_w, dln_b, dqkv_w, dqkv_b, dbias, dproj_w, dproj_b,
+    (dproj_w, dln_w, dln_b, dqkv_w, dqkv_b, dbias, dproj_b,
      dgamma) = grads.split(sizes)
     bias_t = None if bias is None else bias.transpose(1, 2).contiguous()
     y = torch.empty((rows, c), dtype=dt, device=dev)
@@ -1268,6 +1274,8 @@ def _ln_mlp_kernel(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb,
     """K2f: launch ``csrc/ln_mlp.cu``."""
     nsamp = _check_mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, gf, gb,
                        gamma)
+    if post_norm:   # as K1f's
+        x = _aligned16(x)
     rows, c = x.shape
     hid = fc1_w.shape[0]
     out = torch.empty_like(x)
@@ -1304,9 +1312,10 @@ def ln_mlp_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, gb, dout,
     hid = fc1_w.shape[0]
     dev, dt = x.device, x.dtype
     x, dout = _aligned16(x), _aligned16(dout)   # the LN backward's rows
-    sizes = (c, c, hid * c, hid, c * hid, c, c if gamma is not None else 0)
+    # dfc2_w first, 16-byte aligned, as K1b's dproj_w
+    sizes = (c * hid, c, c, hid * c, hid, c, c if gamma is not None else 0)
     grads = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-    dln_w, dln_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b, dgamma = grads.split(sizes)
+    dfc2_w, dln_w, dln_b, dfc1_w, dfc1_b, dfc2_b, dgamma = grads.split(sizes)
     y = torch.empty((rows, c), dtype=dt, device=dev)
     stats = torch.empty((rows, 2), dtype=torch.float32, device=dev)
     h = torch.empty((rows, hid), dtype=dt, device=dev)
