@@ -133,8 +133,9 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    dq, dk, dv from their kept state against K4b's (logged) and dbias
    within TOL["float32"] of its scale. The ptxas report of phase 1: every
    window-attention, GEMM, weight-gradient, K1, stem, row and K3 kernel's
-   registers, none spilling but K1's whole-window bodies and K5f's f32
-   FMA body, and K5's tensor-core bodies, the row bodies (``ROW_BODIES``:
+   registers, none spilling but K5f's f32 FMA body (every K1, K4, V and
+   probe attention body on the key-tiled body included), and K5's
+   tensor-core bodies, the row bodies (``ROW_BODIES``:
    every instantiation of the LN backward, LN's rows, the post-norm
    forward's finish, the column sums and the LayerScale gradients) and
    K3's three gathers there. The V kernels'
@@ -159,14 +160,21 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    2, bf16 at batch 4) and the shifted call cut to its first 37 tokens (N
    below one key tile), forward and backward against the plain versions,
    with every launch counter at 0 before and only the key-tiled body's
-   launches after (none of the whole-window body); K1 and K1b at saturated
+   launches after; K1 and K1b at saturated
    logits (bias 8 z + 45, + 200, - 200, f32) on the N = 150 call with the
    keys of its ragged last key tile (128-149) 12 higher; the tiled
    launches alone on those calls against their plain versions, dbias
-   included; and K1's whole-window bodies, which no preset's call takes:
-   the same calls re-headed to d = 24 (not a multiple of 16) through
-   ``attn_half``, forward and backward against the plain versions, with
-   only the whole-window body's launches after the counters' reset;
+   included; then head dims that are not multiples of 16, which no
+   preset's call takes (``odd_head_dim_phase``): the same calls re-headed
+   to d = 24 and 12 (a bf16 row of 24 bytes: staged by plain loads), one K1
+   call at d = 24 and N = 450 in f32 and bf16, one K1 and one K4 call at d
+   = 40 (C = 120, 3 heads) over Swin-T's 1728 stage-1 windows of
+   micro-batch 8 with bias and region ids in bf16, through ``attn_half``
+   and ``window_attention_qkv``, forward and every gradient against the
+   plain versions, with only the tiled body's launches after the counters'
+   reset; then their launches alone (CUDA events) beside
+   ``F.scaled_dot_product_attention`` with the float mask on the same q,
+   k, v and the bound;
 8. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
    draws), f32 and bf16 at batch 2 and the training path's bf16 calls at
    micro-batch 8, with the same seeded parameters and gains, lam 0 and 1.
@@ -180,7 +188,8 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    and bf16) and the training calls at micro-batch 8 (bf16), and K1b's
    saturated logits on a shifted, masked f32 call;
 9. the attention probes P1-P5 (``ops/attn_probe.py``, the ports of
-   scripts/perf_probe_attn_ablate{,2}.py) at one stage-1 K1 call: every P1
+   scripts/perf_probe_attn_ablate{,2}.py; P1 / P5's attention on K1's
+   key-tiled body under the probes' policies) at one stage-1 K1 call: every P1
    variant, P5 run and copy against its plain version at the scripts'
    inputs (x [1728, 252, 96] bf16 from default_rng(0); copies bit-exact,
    bf16 out to 2e-2 of its scale), and every P1 variant and P5 run with f32
@@ -256,8 +265,7 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    (SAM, EMA of 3, MixUp p = 0.5, USE_SHAKEDROP, which ViT reads as
    DropPath 0.15, label smoothing 0.1) at the preset's micro-batch 24 x 2:
    exactly 12 tiled K1f, 12 tiled K1b, 12 K2f and 12 K2b per micro-batch
-   and SAM pass, none of the whole-window K1 (nor on any Swin path, whose
-   K1 calls take the key-tiled body too: 12 tiled K1f and 12 tiled K1b
+   and SAM pass (as on every Swin path: 12 tiled K1f and 12 tiled K1b
    per micro-batch and SAM pass in phases 12 and 14a); then the times per
    micro-batch of 24 of K1f/K1b (tiled), K2f and K2b at ViT's calls beside
    their plain versions and bounds, and the tiled attention launches alone
@@ -335,6 +343,14 @@ gradients alone (phase 2b's ``row_kernel_times``) at the row calls of one
 Swin-T and one ViT-S training micro-batch pass, for the port at PORT or
 this checkout's; it prints the card's line and then {"rows_alone_ms":
 {"<set> <kernel>": ms per pass}}.
+
+    python3 chip_smoke.py --odd-heads-alone [PORT]
+
+likewise times K1f and K1b whole, through their entry points (CUDA events),
+at the calls of phase 7 re-headed to ODD_HEAD_DIMS (Swin-T's eval calls at
+batch 4 in bf16, one of each stage case), for the port at PORT or this
+checkout's, whatever attention body that port runs there; it prints the
+card's line and then {"odd_heads_alone_ms": {"K1f d=24": ms, ...}}.
 """
 
 from __future__ import annotations
@@ -488,9 +504,9 @@ ROW_KERNEL_ENTRIES = {
 KERNELS.update(ROW_KERNEL_ENTRIES)
 # phase 2b's wide rows: (C, heads) of one K1 and one K2 call over Swin-T's
 # stage-4 rows at micro-batch 8 (8 windows of 5 x 6 x 5 tokens, clamped):
-# the stage at EMBED_DIM 192 (24 heads of 64: K1's key-tiled body; hidden
-# 6144), and a width that is not a multiple of 8 (12 heads of 25: K1's
-# whole-window body; hidden 1200)
+# the stage at EMBED_DIM 192 (24 heads of 64; hidden 6144), and a width
+# that is not a multiple of 8 (12 heads of 25, whose bf16 rows the tiled
+# body stages by plain loads; hidden 1200)
 WIDE_ROWS = ((1536, 24), (300, 12))
 WIDE_WINDOWS, WIDE_N = TRAIN_MICRO, 150
 # dw / db / dgamma of the LN backward against its plain version, relative to
@@ -591,12 +607,15 @@ VIT_CASES = {"no mask", "no bias", "N=811"}
 # K1's names for ViT's calls, and the key-tiled body's launch counters
 TILED_NAME = {"attn_half": "attn_half_tiled",
               "attn_half_bwd": "attn_half_bwd_tiled"}
-# K1's whole-window attention bodies (csrc/attn_half.cu, attn_half_bwd.cu):
-# head dims that the key-tiled body does not take, and the probes P1 / P5
-WHOLE_WINDOW = ("window_attention_kernel", "window_attention_bwd_kernel")
-# the head dim that phase 7 re-heads Swin's calls to, to drive them (not a
-# multiple of 16; divides every Swin-T stage width)
-WHOLE_WINDOW_HEAD_DIM = 24
+# The head dims that phase 7 re-heads Swin's calls to (not multiples of the
+# tiled body's mma depth of 16; they divide every Swin-T stage width; a bf16
+# row of 12 channels, 24 bytes, is staged by plain loads), and its other
+# calls' geometries (map dims, window, shift, C, heads): d = 24 at N = 450
+# (2 samples of 8 windows), and d = 40 over Swin-T's stage-1 windows (a
+# sample's 216 windows of 252 tokens; TRAIN_MICRO samples)
+ODD_HEAD_DIMS = (24, 12)
+ODD_N_GEOMETRY = ((18, 20, 10), (9, 10, 5), (4, 5, 2), 96, 4)
+ODD_WIDE = ((36, 42, 36), (6, 7, 6), (3, 3, 3), 120, 3)
 # calls a launch-alone time of phase 17 averages over (CUDA events)
 LAUNCH_REPS = 10
 KEY_TILE = 64   # keys per shared-memory tile of the tiled body (kTileK)
@@ -1344,7 +1363,7 @@ def start_ptxas():
     """``python -m vsn_tpu_torch.probes.ptxas`` on the window-attention
     source (K4, V1, V3), the GEMM source (every GEMM and weight-gradient
     instantiation of K1 / K2, tensor-core and FMA bodies, bf16 and f32),
-    K1's two sources (its tiled and whole-window launches), the stem's
+    K1's two sources (its tiled launches and the probes'), the stem's
     (K5f / K5w, tensor-core and FMA bodies), the row kernels' (the
     LN-backward body, LN's rows and the column sums in every
     instantiation) and K3's, which compiles them
@@ -1380,18 +1399,17 @@ def ptxas_phase(proc):
     tensor-core bodies (``STEM_MMA``) are not there at both x-strides, or if
     row_kernels.cu and window_relayout.cu do not compile the row bodies
     and K3's gather as ``ROW_BODIES`` counts them.
-    K1's whole-window bodies (``WHOLE_WINDOW``), off every main path, and
     K5f's f32 FMA body (``STEM_F32_FMA``), which keeps its statements and
-    registers, are logged and not held to the spill gate: they have
-    spilled since they were written."""
+    registers, is logged and not held to the spill gate: it has spilled
+    since it was written."""
     out, err = proc.communicate(timeout=900)
     if proc.returncode:
         raise AssertionError(f"ptxas report failed: {err[-2000:]}")
     rows = [line.split(None, 4) for line in out.splitlines() if line.strip()]
     for _, regs, st, ld, name in rows:
         log(f"ptxas {regs} registers, spills {st} / {ld} bytes: {name}")
-    spills = [r[4] for r in rows if (int(r[2]) or int(r[3])) and not any(
-        body in r[4] for body in (*WHOLE_WINDOW, STEM_F32_FMA))]
+    spills = [r[4] for r in rows
+              if (int(r[2]) or int(r[3])) and STEM_F32_FMA not in r[4]]
     layouts = {lay for r in rows for lay in ("Split", "MapRows")
                if lay in r[4]}
     bodies = {body for r in rows for body in ("gemm_mma_kernel",
@@ -2719,33 +2737,158 @@ def reheaded(args, head_dim):
     return tuple(args)
 
 
-def whole_window_phase(sets, gen, head_dim=WHOLE_WINDOW_HEAD_DIM):
-    """K1's whole-window bodies (``WHOLE_WINDOW``), which K1 takes at head
-    dims that the key-tiled body does not (phase 7): the calls of
-    ``swin_route_calls`` of every set re-headed to ``head_dim``
-    (``reheaded``) through K1's entry point, forward and backward against
-    the plain versions, with every launch counter at 0 before and, after,
-    only the whole-window body's launches (4 K1f and 2 K1b a call). Returns
-    {launch counter: worst max|d|}."""
+def odd_k1_call(geometry, samples, dtype, device, gen):
+    """A K1 call over the shifted windows of ``samples`` samples of one map
+    (``geometry``: map dims, window, shift, C, heads): x = z [samples nW, N,
+    C] in ``dtype``, the windows' region ids, gains 1 and placeholder
+    parameters and bias, which the parity phases seed
+    (``seeded_params``)."""
+    import torch
+    from vsn_tpu_torch.models.swin3d import shifted_window_region_ids
+
+    dims, window, shift, c, heads = geometry
+    ids = torch.from_numpy(shifted_window_region_ids(dims, window, shift)).to(
+        device)
+    nw, n = ids.shape
+    x = torch.randn(samples * nw, n, c, generator=gen).to(device, dtype)
+    ones = torch.ones(samples, device=device)
+    return (x, None, None, None, torch.empty(0),
+            torch.empty(heads, n, n, device=device), ids, None, None, ones,
+            ones, (c // heads) ** -0.5, heads)
+
+
+def odd_k4_call(k1):
+    """K4's call (qkv [BW, N, 3C] in x's dtype, bias, ids, scale, heads) on
+    the windows of K1 call ``k1``: qkv and bias placeholders, which the
+    parity phases seed (``seeded_params``)."""
+    import torch
+
+    x, bias, ids, scale, heads = k1[0], k1[5], k1[6], k1[11], k1[12]
+    bw, n, c = x.shape
+    return (torch.empty(bw, n, 3 * c, dtype=x.dtype, device=x.device), bias,
+            ids, scale, heads)
+
+
+def odd_head_dim_sets(sets, device, gen):
+    """The calls of the odd-head-dim phase: ``swin_route_calls`` of every
+    set of ``sets`` re-headed to each of ODD_HEAD_DIMS (``reheaded``); K1 at
+    ODD_N (``ODD_N_GEOMETRY``) in f32 and bf16; K1 and K4 at ODD_WIDE over
+    Swin-T's stage-1 windows of micro-batch TRAIN_MICRO in bf16."""
+    import torch
+
+    out = {f"d={d} {label}": [(name, reheaded(args, d)) for name, args in
+                              swin_route_calls(calls)]
+           for d in ODD_HEAD_DIMS for label, calls in sets.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        k1 = odd_k1_call(ODD_N_GEOMETRY, 2, dtype, device, gen)
+        out[f"d={ODD_N_GEOMETRY[3] // ODD_N_GEOMETRY[4]} N={k1[0].shape[1]} "
+            f"{str(dtype).removeprefix('torch.')}"] = [("attn_half", k1)]
+    k1 = odd_k1_call(ODD_WIDE, TRAIN_MICRO, torch.bfloat16, device, gen)
+    out[f"d={ODD_WIDE[3] // ODD_WIDE[4]} stage 1 micro {TRAIN_MICRO} "
+        "bfloat16"] = [("attn_half", k1), ("attention", odd_k4_call(k1))]
+    return out
+
+
+def odd_head_dim_phase(sets, device, gen, card):
+    """K1 and K4 at head dims that are not multiples of 16, on the key-tiled
+    body (phase 7): the calls of ``odd_head_dim_sets`` through their entry
+    points (``attn_half``, ``window_attention_qkv``), forward and every
+    gradient against the plain versions, with every launch counter at 0
+    before and, after, only the tiled body's launches (4 K1f and 2 K1b a K1
+    call: lam 0 and 1, as ``parity_phase`` and ``grad_parity_phase`` run
+    them; 2 K4f and 1 K4b a K4 call); then their launches alone beside SDPA
+    (``odd_head_times``). Returns {kernel: worst max|d|}."""
     from vsn_tpu_torch.ops import _build
 
-    route = {f"whole-window d={head_dim} {label}": [
-        (name, reheaded(args, head_dim))
-        for name, args in swin_route_calls(calls)]
-        for label, calls in sets.items()}
-    table = kernel_table()
+    route = odd_head_dim_sets(sets, device, gen)
+    table = {**kernel_table(), **attention_table()}
     _build.launches.clear()
     worst, _ = parity_phase(route, table, gen)
     bworst, _ = grad_parity_phase(route, table, gen)
     counts = {name: n for name, n in _build.launches.items() if n}
-    n_calls = sum(len(calls) for calls in route.values())
-    want = {"attn_half": 4 * n_calls, "attn_half_bwd": 2 * n_calls}
-    log(f"whole-window K1: {n_calls} Swin K1 calls at head dim {head_dim} "
-        f"through attn_half, launches {counts}")
+    n_k1 = sum(name == "attn_half" for calls in route.values()
+               for name, _ in calls)
+    n_k4 = sum(name == "attention" for calls in route.values()
+               for name, _ in calls)
+    want = {TILED_NAME["attn_half"]: 4 * n_k1,
+            TILED_NAME["attn_half_bwd"]: 2 * n_k1,
+            "attention": 2 * n_k4, "attention_bwd": n_k4}
+    dims = sorted({a[0].shape[-1] // (a[12] if n == "attn_half" else 3 * a[4])
+                   for calls in route.values() for n, a in calls})
+    log(f"odd head dims {dims}: {n_k1} K1 calls through attn_half and {n_k4} "
+        f"K4 through window_attention_qkv, launches {counts}")
     if counts != want:
-        raise AssertionError(f"whole-window launches {counts}, expected "
+        raise AssertionError(f"odd-head-dim launches {counts}, expected "
                              f"{want}")
+    odd_head_times(route, gen, card)
     return {**worst, **bworst}
+
+
+def odd_head_times(route, gen, card):
+    """The tiled body's launches alone at the odd head dims, by CUDA events
+    (``launch_ms``), for each bf16 set of ``route`` (``odd_head_dim_sets``):
+    K1f's attention launch and K1b's phases A + B
+    (``attention_tiled_launch`` and its backward on each K1 call's qkv as
+    K1's launch 1 rounds it, from the forward's kept o and statistics), K4f's
+    launch and K4b's from its kept state; beside
+    ``F.scaled_dot_product_attention`` with the float mask bias[h] +
+    mask(ids) on the same q, k, v and its backward (``sdpa_times``, a
+    yardstick the port never calls) and the bound of the attention alone
+    (K4's work on the same q, k, v: ``call_work``). Logs one line per set
+    and kernel; returns {(set, kernel): {"forward", "backward", "SDPA",
+    "SDPA backward": ms}}."""
+    import torch
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+    from vsn_tpu_torch.ops import window_attention as wa
+
+    out = {}
+    for label, calls in route.items():
+        if calls[0][1][0].dtype != torch.bfloat16:
+            continue
+        calls = [(n, seeded_params(n, a, gen)) for n, a in calls]
+        with torch.no_grad():
+            k1 = []   # (qkv, dao, o, stats, bias, ids, scale, heads)
+            for a in (a for n, a in calls if n == "attn_half"):
+                qkv, dao = tiled_launch_inputs(a, gen)
+                _, stats, o = sbk.attention_tiled_launch(qkv, a[5], a[6],
+                                                         a[11], a[12])
+                k1.append((qkv, dao, o, stats, a[5], a[6], a[11], a[12]))
+            k4 = [a for n, a in calls if n == "attention"]
+            k4b = [kept_backward_args("attention", a,
+                                      cotangent("attention", a, gen), o, st)
+                   for a in k4
+                   for _, st, o in [wa.window_attention_qkv_launch(*a)]]
+            # kernel -> (its calls as K4's (qkv, bias, ids, scale, heads),
+            # forward launches, backward launches)
+            kernels = {
+                "K1": ([(la[0], *la[4:]) for la in k1],
+                       lambda: [sbk.attention_tiled_launch(la[0], *la[4:])
+                                for la in k1],
+                       lambda: [sbk.attention_tiled_backward_launch(*la)
+                                for la in k1]),
+                "K4": (k4, lambda: [wa.window_attention_qkv_launch(*a)
+                                    for a in k4],
+                       lambda: [wa.window_attention_qkv_backward_launch(*b)
+                                for b in k4b])}
+            times = {kernel: (launch_ms(fwd), launch_ms(bwd))
+                     for kernel, (k, fwd, bwd) in kernels.items() if k}
+        for kernel, (fwd, bwd) in times.items():
+            k = kernels[kernel][0]
+            lib, lib_bwd = sdpa_times([("attention", a) for a in k])
+            bounds = [work_bound_ms(*map(sum, zip(*(call_work(name, a)
+                                                   for a in k))))
+                      for name in ("attention", "attention_bwd")]
+            out[(label, kernel)] = {"forward": fwd, "backward": bwd,
+                                    "SDPA": lib, "SDPA backward": lib_bwd}
+            log(f"[{card}] odd head dims {label} {kernel} launches alone "
+                f"(CUDA events, {len(k)} calls): forward {fwd:.3f} ms, "
+                f"backward {bwd:.3f} ms; SDPA with the float mask on the "
+                f"same q, k, v {lib:.3f} ms, its backward {lib_bwd:.3f} ms "
+                f"({_ratio(fwd, lib):.2f}x, {_ratio(bwd, lib_bwd):.2f}x); "
+                f"bound forward {bounds[0][0]:.3f} ms by {bounds[0][1]}, "
+                f"backward {bounds[1][0]:.3f} ms by {bounds[1][1]}")
+        del calls, k1, k4, k4b, kernels
+    return out
 
 
 def tiled_launch_times(calls, card):
@@ -3028,10 +3171,9 @@ def seeded_gamma(x, gen):
 def entry_name(counter, path):
     """The result line's entry that launch counter ``counter`` feeds on a
     ``path`` ("swin" or "vit"). K1's counters name its body
-    (``attn_half_tiled...`` the key-tiled one, which every preset's K1
-    takes; ``attn_half...`` the whole-window one), its entries the call
-    site: ``attn_half...`` K1 at Swin's calls, ``attn_half_tiled...`` K1 at
-    ViT's. Every other counter is its own entry."""
+    (``attn_half_tiled...``, the key-tiled one), its entries the call site:
+    ``attn_half...`` K1 at Swin's calls, ``attn_half_tiled...`` K1 at ViT's.
+    Every other counter is its own entry."""
     if path == "swin" and counter.startswith("attn_half"):
         return counter.replace("_tiled", "", 1)
     return counter
@@ -4648,9 +4790,9 @@ def main() -> int:
              f"bfloat16 B={BATCH}": eval_calls},
             torch.Generator().manual_seed(SEED + 17)).items():
         worst[name] = max(worst.get(name, 0.0), err)
-    whole_window_phase({"float32 B=2": sets["float32 B=2"],
-                        f"bfloat16 B={BATCH}": eval_calls},
-                       torch.Generator().manual_seed(SEED + 19))
+    odd_head_dim_phase({"float32 B=2": sets["float32 B=2"],
+                        f"bfloat16 B={BATCH}": eval_calls}, device,
+                       torch.Generator().manual_seed(SEED + 19), card)
 
     # 8. backward parity on training forwards -----------------------------
     gsets = {}
@@ -5038,7 +5180,52 @@ def rows_alone(port=None) -> int:
     return 0
 
 
+def odd_heads_alone(port=None) -> int:
+    """``--odd-heads-alone [PORT]`` (see the module's docstring): K1f and
+    K1b whole, through their entry points, at Swin-T's route calls
+    (``swin_route_calls`` of an eval forward at batch BATCH in bf16, seeded
+    parameters) re-headed to each of ODD_HEAD_DIMS, for the port at
+    ``port`` (put first on the import path) or this checkout's."""
+    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
+                         " is false)")
+    if port is not None:
+        sys.path.insert(0, str(Path(port).resolve()))
+    from vsn_tpu_torch.config import load_config
+    from vsn_tpu_torch.ops import swin_block_kernels as sbk
+
+    device = torch.device("cuda", 0)
+    log(card_line())
+    cfg = load_config(dict(USE_SHAKEDROP=True))
+    x = torch.randn((BATCH, *cfg.input_size, 1),
+                    generator=torch.Generator().manual_seed(SEED)).to(
+        device, torch.bfloat16)
+    calls = swin_route_calls(record_calls(seeded_model(cfg).eval(), x))
+    gen = torch.Generator().manual_seed(SEED + 33)
+    out = {}
+    for d in ODD_HEAD_DIMS:
+        k1 = [seeded_params("attn_half", reheaded(a, d), gen) for _, a in calls]
+        with torch.no_grad():
+            b_args = [(*a[:8], a[10], torch.randn(
+                a[0].shape, device=device).to(a[0].dtype), *a[11:13])
+                for a in k1]
+            kept = [k1_kept(a) for a in k1]
+            out[f"K1f d={d}"] = cuda_ms(lambda: [sbk.attn_half(*a)
+                                                 for a in k1])
+            out[f"K1b d={d}"] = cuda_ms(lambda: [
+                sbk.attn_half_backward(*a, **kk) for a, kk in zip(b_args,
+                                                                   kept)])
+        del b_args, kept
+    print(json.dumps({"odd_heads_alone_ms": out}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--odd-heads-alone"]:
+        sys.exit(odd_heads_alone(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--k3-alone"]:
         sys.exit(k3_alone(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--rows-alone"]:

@@ -139,29 +139,30 @@ def test_saturated_logits_match_jax(via, logit):
 
 def test_head_dims_up_to_128_and_the_tiled_choice():
     """The plain version takes any head dim, the wrapper's check up to 128;
-    the body choice follows the head dim: the key-tiled body wherever it
-    takes it (a multiple of 16: Swin-T's calls at d = 32, N = 252 and 150,
-    and ViT's at d = 64), the whole-window body for the other head dims up
-    to 32 whose window fits in shared memory."""
-    for n in (252, 150, 400, 37):
-        assert port.attention_tiled(n, 32)
-        assert port.attention_tiled(n, 32, backward=True)
-    assert port.attention_tiled(811, 64) and port.attention_tiled(
-        811, 64, backward=True)
-    assert port.attention_tiled(13, 64)       # d > 32: always tiled
-    assert port.attention_tiled(252, 16)
-    # head dims off the mma depth keep the whole-window body where it fits
-    for d in (8, 24):
-        assert not port.attention_tiled(252, d)
-        assert not port.attention_tiled(252, d, backward=True)
-    # d = 24 at N = 1000: whole K and V do not fit in shared memory; at 450
-    # K1b's Q, K, V and dO do not, and the call takes the tiled body
-    assert port.attention_tiled(1000, 24)
-    assert port.attention_tiled(450, 24, backward=True)
-    assert not port.attention_tiled(450, 24)
-    x = torch.zeros(1, 5, 129 * 2)
-    args = (torch.ones(258), torch.zeros(258), torch.zeros(774, 258), None,
-            None, None, torch.zeros(258, 258), torch.zeros(258),
-            torch.ones(1), torch.ones(1), 0.1, 2)
-    with pytest.raises(ValueError, match="128"):
-        port._check_attn(x, *args[:8], *args[8:10], args[11])
+    every head dim from 1 to 128 at every N takes the key-tiled body, the
+    one attention body of K1 (Swin-T's calls at d = 32, N = 252 and 150,
+    ViT's at d = 64, and every other): K1's checks and its tiled launches'
+    accept it with a bias and region ids (the body's head-dim rule,
+    ``takes_head_dim``), and refuse 129."""
+    meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
+                                                    device="meta")
+    heads = 2
+    for n in (13, 37, 150, 252, 450, 811, 1000):
+        ids = meta(1, n, dt=torch.int32)
+        for d in range(1, 130):
+            c = heads * d
+            args = (meta(c), meta(c), meta(3 * c, c), meta(3 * c),
+                    meta(heads, n, n), ids, meta(c, c), meta(c), meta(1),
+                    meta(1))
+            if d <= 128:
+                assert port.takes_head_dim(d)
+                assert port._check_attn(meta(2, n, c), *args, heads) == (1, 1)
+                assert port._check_tiled_launch(meta(2, n, 3 * c), args[4],
+                                                ids, heads) == 1
+                continue
+            assert not port.takes_head_dim(d)
+            with pytest.raises(ValueError, match="128"):
+                port._check_attn(meta(2, n, c), *args, heads)
+            with pytest.raises(ValueError, match="128"):
+                port._check_tiled_launch(meta(2, n, 3 * c), args[4], ids,
+                                         heads)

@@ -211,44 +211,47 @@ def test_probe_bounds_follow_the_shapes():
         ("attn_ablate.attn_only", args)])[1] == "bytes"
 
 
-# One-line edits of csrc/attn_half.cu's probe policies that chip_smoke.py
-# must reject on the card (exit 1, in its probe phase): name -> (line, its
-# mutant, a run whose parity fails). K1f's instantiation is untouched by
-# each (K1's softmax policy, one window per block, packed qkv).
+# One-line edits of the probes' policies and layout on the key-tiled body
+# (csrc/attn_half.cu, csrc/attn_tiled.cuh) that chip_smoke.py must reject on
+# the card (exit 1, in its probe phase): name -> (source, line, its mutant,
+# a run whose parity fails). K1f's and K4f's instantiations are untouched by
+# each (their policies and layouts; one window per block).
+CSRC = ROOT / "vsn_tpu_torch" / "csrc"
 P_SOURCE_MUTANTS = {
-    "p normalized after rounding (SM_PLAIN)": (
-        "for (int j = lane; j < n; j += 32) u[j] = round_to<T>(u[j] / sum);",
-        "for (int j = lane; j < n; j += 32) u[j] = round_to<T>(u[j]) / sum;",
+    "the second pass dropped: p rounded before normalizing (ProbeSoftmax)": (
+        "attn_half.cu", "static constexpr Probs kProbs = Probs::kNormalized;",
+        "static constexpr Probs kProbs = Probs::kOnline;",
         "attn_ablate.full2d"),
-    "nosm factor 0.01 (SM_SCALE)": (
-        "u[j] = round_to<T>(0.001f * u[j]);",
-        "u[j] = round_to<T>(0.01f * u[j]);", "attn_ablate.nosm"),
+    "nosm factor 0.01 (ProbeScaled)": (
+        "attn_half.cu", "return __fmul_rn(0.001f, s);",
+        "return __fmul_rn(0.01f, s);", "attn_ablate.nosm"),
     "window stride 1 instead of wb": (
-        "const long long bw = group * wb + slot;",
-        "const long long bw = group + slot;", "attn_slot.full.wb8"),
+        "attn_tiled.cuh", "scale, plain, lay, bw * lay.wb + slot, h, q0);",
+        "scale, plain, lay, bw + slot, h, q0);", "attn_slot.full.wb8"),
     "attn_only reads k from a neighbouring head": (
-        "const int ko = ATTN_ONLY ? 0 : c;",
-        "const int ko = ATTN_ONLY ? (h ? -d : d) : c;",
+        "attn_half.cu", "k = ATTN_ONLY ? 0 : c;", "k = ATTN_ONLY ? d : c;",
         "attn_ablate.attn_only"),
+    "attn_only's out without x (ProbeRows)": (
+        "attn_half.cu", "y[to] = from_f32<TX>(to_f32(x[to]) + o);",
+        "y[to] = from_f32<TX>(o);", "attn_ablate.attn_only"),
 }
-K1_SOURCE = ROOT / "vsn_tpu_torch" / "csrc" / "attn_half.cu"
 
 
 @pytest.mark.parametrize("mutant", sorted(P_SOURCE_MUTANTS))
 def test_probe_source_mutants_name_one_line_of_the_source(mutant):
-    line, new, key = P_SOURCE_MUTANTS[mutant]
-    assert K1_SOURCE.read_text().count(line) == 1 and new != line
+    src, line, new, key = P_SOURCE_MUTANTS[mutant]
+    assert (CSRC / src).read_text().count(line) == 1 and new != line
     assert key in chip_smoke.PROBES
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mutant", sorted(P_SOURCE_MUTANTS))
 def test_a_mutated_probe_source_makes_chip_smoke_fail(mutant, tmp_path):
-    """chip_smoke.py run from a copy whose probe policy has one line
-    mutated exits 1, failing the probe phase (the K1 phases before it
-    pass: K1f's instantiation does not reach the mutated lines)."""
-    line, new, key = P_SOURCE_MUTANTS[mutant]
-    res = _run_mutated_chip_smoke(K1_SOURCE, line, new, tmp_path)
+    """chip_smoke.py run from a copy whose probe policy or layout has one
+    line mutated exits 1, failing the probe phase (the K1 and K4 phases
+    before it pass: their instantiations do not reach the mutated lines)."""
+    src, line, new, key = P_SOURCE_MUTANTS[mutant]
+    res = _run_mutated_chip_smoke(CSRC / src, line, new, tmp_path)
     assert res.returncode == 1
     assert "probe kernels disagree with their plain versions" in res.stderr
     assert f" {key}" in res.stderr.splitlines()[-1]

@@ -541,9 +541,10 @@ def test_row_entries_sum_every_set_that_the_path_counts(
 
 def test_the_wide_rows_calls():
     """The wide-row check's calls: Swin-T's stage-4 rows at micro-batch 8
-    (8 windows of 150 tokens, 1200 rows), K1 at C = 1536 (24 heads of 64:
-    the key-tiled body) and at C = 300 (12 heads of 25: the whole-window
-    body), K2 at hidden 4C, seeded parameters and distinct gains."""
+    (8 windows of 150 tokens, 1200 rows), K1 at C = 1536 (24 heads of 64)
+    and at C = 300 (12 heads of 25, a head dim that the key-tiled body takes
+    too: its bf16 rows staged by plain loads), K2 at hidden 4C, seeded
+    parameters and distinct gains."""
     gen = torch.Generator().manual_seed(0)
     for c, heads in chip_smoke.WIDE_ROWS:
         (n1, k1), (n2, k2) = chip_smoke.wide_calls("cpu", gen, c, heads)
@@ -553,7 +554,7 @@ def test_the_wide_rows_calls():
         assert k1[6] is None and k1[12] == heads
         assert k2[0].shape == (1200, c) and k2[3].shape == (4 * c, c)
         assert k2[7].shape == (8,) and not torch.equal(k2[7], k2[8])
-        assert sbk._tiled(150, c, heads) == (c % 8 == 0)
+        assert sbk.takes_head_dim(c // heads)
     assert {c % 8 for c, _ in chip_smoke.WIDE_ROWS} == {0, 4}
 
 

@@ -167,7 +167,8 @@ def test_forced_tiled_calls_cut_a_swin_stage_call():
     x, bias, ids = small[1][0], small[1][5], small[1][6]
     assert x.shape[1] == 5 and bias.shape[1:] == (5, 5) and ids.shape[1] == 5
     assert torch.equal(x, full[1][0][:, :5])
-    assert not sbk.attention_tiled(full[1][0].shape[1], 8)
+    # the tiny Swin's head dim of 8 takes the key-tiled body, as every one
+    assert all(sbk.takes_head_dim(a[0].shape[-1] // a[12]) for _, a in route)
     # the route phase's comparisons, on the plain versions here
     worst, _ = chip_smoke.parity_phase({"route": route},
                                        chip_smoke.kernel_table(),
@@ -204,7 +205,7 @@ def test_vit_k1_bound_at_micro_24():
 
 def test_vit_k1b_tiled_bound_is_the_functions_own_work():
     """K1b's tiled body at ViT-S's call, micro 24, is counted by K1b's own
-    work, as the whole-window K1b: 22 rows C^2 GEMM FLOP and twelve
+    work: 22 rows C^2 GEMM FLOP and twelve
     attention products' 12 rows N C (s, ao, dp, dv, dq, dk), and the
     function's bytes. What K1f keeps for it (ao in bf16, the row
     statistics [24, 6, 811, 2] and the f32 o) is the port's design,
@@ -424,56 +425,97 @@ def test_swin_route_phase_on_cpu(monkeypatch):
         chip_smoke.swin_route_phase(sets, gen())
 
 
-def _counted_by_body(*args, **kw):
-    """K1's plain version counting as the card's K1 and K1b of the body
-    that the call's head dim takes."""
+def _counted_k4(body):
+    """K4's plain version counting as the card's K4f and K4b (``body``
+    "tiled") or under other counters."""
+    from vsn_tpu_torch.ops import _build
+    from vsn_tpu_torch.ops import window_attention as wa
+
+    names = (("attention", "attention_bwd") if body == "tiled"
+             else ("attention_other", "attention_other_bwd"))
+
+    def fn(*args, **kw):
+        _build.launches[names[0]] += 1
+        out = wa.window_attention_qkv_reference(*args, **kw)
+        if out.requires_grad:
+            out.register_hook(lambda g: _build.launches.update(
+                {names[1]: 1}))
+        return out
+    return fn
+
+
+def _counted_whole_window(*args, **kw):
+    """K1's plain version counting under the counters of the whole-window
+    body that the tiled body replaced (``attn_half`` / ``attn_half_bwd``)."""
     from vsn_tpu_torch.ops import _build
 
-    x, heads = args[0], args[12]
-    tiled = sbk.attention_tiled(x.shape[1], x.shape[-1] // heads, True)
-    body = "_tiled" if tiled else ""
-    _build.launches["attn_half" + body] += 1
+    _build.launches["attn_half"] += 1
     out = sbk.attn_half_reference(*args, **kw)
     if out.requires_grad:
         out.register_hook(lambda g: _build.launches.update(
-            {"attn_half_bwd" + body: 1}))
+            {"attn_half_bwd": 1}))
     return out
 
 
-@pytest.mark.parametrize("head_dim,tiled", [(4, False), (16, True)])
-def test_whole_window_phase_on_cpu(monkeypatch, head_dim, tiled):
-    """Phase 7's whole-window part on the CPU, K1's plain version counting
-    as the body the head dim takes: the Swin route's calls re-headed (the
-    tiny widths 8, 16 and 32 at d = 4: 2, 4 and 8 heads) pass at a head dim
-    that the key-tiled body does not take; at one it takes (d = 16) the
-    launch count fails, and a width that does not split raises."""
+@pytest.mark.parametrize("body", ["tiled", "whole-window"])
+def test_odd_head_dim_phase_on_cpu(monkeypatch, body):
+    """Phase 7's odd-head-dim part on the CPU at tiny geometries, K1's and
+    K4's plain versions counting as the card's launches: the Swin route's
+    calls re-headed to d = 4 (the tiny widths 8, 16 and 32: 2, 4 and 8
+    heads), K1 at N = 8 in f32 and bf16, K1 and K4 at d = 10 over 64
+    windows in bf16; the launches alone and SDPA timed with a stand-in
+    timer. It passes with the tiled body's counters and fails with any
+    other's; a width that does not split raises."""
     from tests.test_torch_chip_smoke import _record
 
     calls = _record("float32", False)
     for name, args in chip_smoke.swin_route_calls(calls):
-        x = args[0]
-        if x.shape[-1] % head_dim == 0:
-            re = chip_smoke.reheaded(args, head_dim)
-            assert re[12] == x.shape[-1] // head_dim
-            assert re[5].shape == (re[12], x.shape[1], x.shape[1])
-            assert re[11] == head_dim ** -0.5
+        re = chip_smoke.reheaded(args, 4)
+        assert re[12] == args[0].shape[-1] // 4
+        assert re[5].shape == (re[12], args[0].shape[1], args[0].shape[1])
+        assert re[11] == 4 ** -0.5
+    with pytest.raises(ValueError, match="heads of 3"):
+        chip_smoke.reheaded(next(a for n, a in calls if n == "attn_half"),
+                            3)
+    monkeypatch.setattr(chip_smoke, "ODD_HEAD_DIMS", (4,))
+    monkeypatch.setattr(chip_smoke, "ODD_N_GEOMETRY",
+                        ((4, 4, 2), (2, 2, 2), (1, 1, 1), 12, 3))
+    monkeypatch.setattr(chip_smoke, "ODD_WIDE",
+                        ((4, 6, 4), (2, 3, 2), (1, 1, 1), 20, 2))
     table = chip_smoke.kernel_table()
-    table["attn_half"] = (_counted_by_body, table["attn_half"][1])
+    atable = chip_smoke.attention_table()
+    if body == "tiled":
+        table["attn_half"] = (_counted_k1, table["attn_half"][1])
+    else:
+        table["attn_half"] = (_counted_whole_window, table["attn_half"][1])
+    atable["attention"] = (_counted_k4(body), atable["attention"][1])
     monkeypatch.setattr(chip_smoke, "kernel_table", lambda: dict(table))
+    monkeypatch.setattr(chip_smoke, "attention_table", lambda: dict(atable))
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, reps=3, queued=False: (fn(), 1.0)[1])
     gen = torch.Generator().manual_seed(8)
-    if tiled:
-        with pytest.raises(ValueError, match="heads of 16"):
-            chip_smoke.whole_window_phase({"f32": calls}, gen, head_dim)
-        widest = [c for c in calls if c[0] == "attn_half"
-                  and c[1][0].shape[-1] == 32]
-        monkeypatch.setattr(chip_smoke, "swin_route_calls",
-                            lambda calls: calls)
-        with pytest.raises(AssertionError, match="whole-window launches"):
-            chip_smoke.whole_window_phase({"f32": widest}, gen, head_dim)
+    if body != "tiled":
+        with pytest.raises(AssertionError, match="odd-head-dim launches"):
+            chip_smoke.odd_head_dim_phase({"f32": calls}, "cpu", gen, "cpu")
         return
-    worst = chip_smoke.whole_window_phase({"f32": calls}, gen, head_dim)
-    assert set(worst) == {"attn_half", "attn_half_bwd"}
+    sets = chip_smoke.odd_head_dim_sets({"f32": calls}, "cpu", gen)
+    assert {a[0].shape[-1] // (a[12] if n == "attn_half" else 3 * a[4])
+            for c in sets.values() for n, a in c} == {4, 10}
+    wide = sets["d=10 stage 1 micro 8 bfloat16"]
+    assert [n for n, _ in wide] == ["attn_half", "attention"]
+    assert wide[0][1][0].shape == (64, 12, 20)
+    assert wide[1][1][0].shape == (64, 12, 60) and wide[1][1][2].shape[0] == 8
+    worst = chip_smoke.odd_head_dim_phase({"f32": calls}, "cpu", gen, "cpu")
+    assert set(worst) == {"attn_half", "attn_half_bwd", "attention",
+                          "attention_bwd"}
     assert all(err == 0.0 for err in worst.values())
+    times = chip_smoke.odd_head_times(sets, gen, "cpu")
+    assert set(times) == {("d=4 N=8 bfloat16", "K1"),
+                          ("d=10 stage 1 micro 8 bfloat16", "K1"),
+                          ("d=10 stage 1 micro 8 bfloat16", "K4")}
+    assert all(t == dict.fromkeys(("forward", "backward", "SDPA",
+                                   "SDPA backward"), 1.0)
+               for t in times.values())
 
 
 def test_swin_attention_bound_at_micro_8():

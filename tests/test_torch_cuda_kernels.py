@@ -74,12 +74,14 @@ def _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype, seed=0):
             torch.tensor([0.4, 1.1], device=dev), (c // heads) ** -0.5, heads)
 
 
-ATTN_SHAPES = [  # the four Swin-T stage kinds, and a head dim of 8
+ATTN_SHAPES = [  # the four Swin-T stage kinds; head dims 8, 12 and 40
     ((12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 96, "shifted"),
     ((12, 14, 12), (6, 7, 6), (0, 0, 0), 3, 96, None),
     ((9, 11, 9), (6, 7, 6), (3, 3, 3), 12, 384, "padded"),
     ((5, 6, 5), (5, 6, 5), (0, 0, 0), 24, 768, None),
     ((4, 6, 4), (2, 3, 2), (1, 1, 1), 2, 16, "shifted"),
+    ((4, 6, 4), (2, 3, 2), (1, 1, 1), 3, 36, "shifted"),
+    ((12, 14, 12), (6, 7, 6), (3, 3, 3), 3, 120, "shifted"),
 ]
 
 
@@ -87,12 +89,10 @@ ATTN_SHAPES = [  # the four Swin-T stage kinds, and a head dim of 8
 @pytest.mark.parametrize("dims,window,shift,heads,c,ids_kind", ATTN_SHAPES)
 def test_attn_half_matches_plain(dev, dtype, dims, window, shift, heads, c,
                                  ids_kind):
-    """One launch of the body that the head dim takes: Swin-T's d = 32 the
-    key-tiled one, d = 8 the whole-window one."""
+    """One launch of the key-tiled body at every head dim: Swin-T's d = 32,
+    d = 8, 12 (bf16 rows staged by plain loads) and 40."""
     args = _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
-    n = window[0] * window[1] * window[2]
-    name = ("attn_half_tiled" if sbk.attention_tiled(n, c // heads, True)
-            else "attn_half")
+    name = "attn_half_tiled"
     before = _build.launches[name]
     got = sbk.attn_half(*args)
     torch.cuda.synchronize()
@@ -209,9 +209,7 @@ def test_attn_half_bwd_matches_plain(dev, dtype, dims, window, shift, heads,
     args = (*args, lam)
     dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
         2)).to(dev, dtype)
-    n = window[0] * window[1] * window[2]
-    name = ("attn_half_bwd_tiled" if sbk.attention_tiled(n, c // heads, True)
-            else "attn_half_bwd")    # the body the head dim takes
+    name = "attn_half_bwd_tiled"
     before = _build.launches[name]
     got = _grads(sbk.attn_half, args, dout, ATTN_DIFF)
     torch.cuda.synchronize()
@@ -263,16 +261,14 @@ VIT_DIFF = (0, 1, 2, 3, 7, 8)           # x, LN, qkv w, proj w/b
 @pytest.mark.parametrize("b,n,heads", TILED_SHAPES)
 def test_attn_half_tiled_matches_plain(dev, dtype, b, n, heads, lam):
     """d = 64: the key-tiled K1f and K1b (phases A and B), one launch of
-    each per call, none of the whole-window body."""
+    each per call."""
     args = _vit_args(dev, b, n, heads, dtype)
-    assert sbk.attention_tiled(n, 64)
     dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
         2)).to(dev, dtype)
     before = dict(_build.launches)
     out, got = _tiled_case(sbk.attn_half, args, lam, dout, VIT_DIFF)
     torch.cuda.synchronize()
-    for name, k in (("attn_half_tiled", 2), ("attn_half_bwd_tiled", 1),
-                    ("attn_half", 0), ("attn_half_bwd", 0)):
+    for name, k in (("attn_half_tiled", 2), ("attn_half_bwd_tiled", 1)):
         assert _build.launches[name] == before.get(name, 0) + k, name
     want_out, want = _tiled_case(sbk.attn_half_reference, args, lam, dout,
                                  VIT_DIFF)
@@ -285,23 +281,16 @@ def test_attn_half_tiled_matches_plain(dev, dtype, b, n, heads, lam):
 def test_attn_half_forced_tiled_on_swin_calls(dev, dtype, dims, window,
                                               shift, heads, c, ids_kind):
     """Swin's calls (relative-position bias, shifted and padded region ids,
-    qkv bias, head dim 32) take the key-tiled body through K1's entry
-    point, forward and backward, and none of the whole-window body; a head
-    dim of 8 (not a multiple of the tiled body's 16) takes the whole-window
-    body."""
+    qkv bias) take the key-tiled body through K1's entry point, forward and
+    backward, at every head dim: Swin-T's 32 and 8, 12 and 40."""
     args = _attn_args(dev, dims, window, shift, heads, c, ids_kind, dtype)
     dout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
         2)).to(dev, dtype)
-    tiled = (c // heads) % 16 == 0
     before = dict(_build.launches)
     out, got = _tiled_case(sbk.attn_half, args, 1.0, dout, ATTN_DIFF)
     torch.cuda.synchronize()
-    body = "_tiled" if tiled else ""
-    want = {"attn_half" + body: 2, "attn_half_bwd" + body: 1}
-    for name in ("attn_half_tiled", "attn_half_bwd_tiled", "attn_half",
-                 "attn_half_bwd"):
-        assert _build.launches[name] == before.get(name, 0) + want.get(
-            name, 0), name
+    for name, k in (("attn_half_tiled", 2), ("attn_half_bwd_tiled", 1)):
+        assert _build.launches[name] == before.get(name, 0) + k, name
     want_out, want = _tiled_case(sbk.attn_half_reference, args, 1.0, dout,
                                  ATTN_DIFF)
     _close(out, want_out, dtype)
@@ -309,11 +298,14 @@ def test_attn_half_forced_tiled_on_swin_calls(dev, dtype, dims, window,
 
 
 # (BW, N, heads, head dim, bias, ids): ViT's call; a ragged tile, bias and
-# ids at Swin's head dim; the other head dims the body takes (48: channels
-# past d staged as zeros; 128)
+# ids at Swin's head dim; other head dims (48, 24, 40, 100: channels past d
+# staged as zeros; 128; 12 and 25: bf16 rows staged by plain loads)
 LAUNCH_SHAPES = [(2, 811, 6, 64, False, False), (4, 252, 3, 32, True, True),
                  (4, 37, 3, 32, True, True), (2, 150, 2, 128, True, False),
-                 (2, 100, 2, 48, False, False), (2, 100, 2, 16, False, True)]
+                 (2, 100, 2, 48, False, False), (2, 100, 2, 16, False, True),
+                 (4, 252, 3, 24, True, True), (2, 100, 3, 12, True, True),
+                 (2, 70, 3, 40, True, False), (2, 65, 2, 25, False, True),
+                 (1, 130, 1, 100, True, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -344,8 +336,14 @@ def test_tiled_launches_match_plain(dev, dtype, bw, n, heads, hd, bias, ids):
 
 
 def test_tiled_launch_rejects_head_dims_off_the_mma_depth(dev):
+    """Head dims off the mma depth of 16 launch (d = 24: channels past d
+    staged as zeros); above 128 the wrapper rejects."""
     qkv = torch.zeros(2, 16, 3 * 2 * 24, device=dev)
-    with pytest.raises(ValueError, match="multiples of 16"):
+    ao, stats, _ = sbk.attention_tiled_launch(qkv, None, None, 0.2, 2)
+    torch.cuda.synchronize()
+    assert ao.shape == (2, 16, 48) and torch.isfinite(stats).all()
+    qkv = torch.zeros(2, 16, 3 * 2 * 129, device=dev)
+    with pytest.raises(ValueError, match="head dims up to 128"):
         sbk.attention_tiled_launch(qkv, None, None, 0.2, 2)
 
 
@@ -566,11 +564,12 @@ def test_window_attention_qkv_at_saturated_logits(dev, logit):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,d", [(2, 4), (2, 12), (3, 32), (2, 64),
-                                     (1, 128)])
+                                     (1, 128), (3, 40), (2, 24), (1, 100)])
 def test_window_attention_qkv_head_dims(dev, dtype, heads, d):
     """K4 at head dims 4 and 12 (rows of bf16 channels that are not whole
     16-byte chunks: staged by plain loads; 12 also in f32), 32, 64 and 128
-    (the tiled body's D = 64 and 128) on a shifted stage-1-like call with
+    (the tiled body's D = 64 and 128), 24, 40 and 100 (off the mma depth:
+    channels past d staged as zeros) on a shifted stage-1-like call with
     the ragged key tile (N = 70 = 64 + 6): K4f, K4b's dqkv and dbias, and
     the kept state against the plain versions."""
     from vsn_tpu_torch.models.swin3d import shifted_window_region_ids
@@ -601,9 +600,9 @@ def test_window_attention_qkv_rejects_what_the_kernels_do_not_take(dev):
         new[i] = bad
         with pytest.raises((TypeError, ValueError)):
             wa.window_attention_qkv(*new)
-    qkv = torch.zeros(args[0].shape[:2] + (3 * 2 * 40,), device=dev)
-    with pytest.raises(ValueError, match="head dims"):   # d = 40
-        wa.window_attention_qkv(qkv, args[1], args[2], 40 ** -0.5, 2)
+    qkv = torch.zeros(args[0].shape[:2] + (3 * 2 * 129,), device=dev)
+    with pytest.raises(ValueError, match="head dims"):   # d = 129
+        wa.window_attention_qkv(qkv, args[1], args[2], 129 ** -0.5, 2)
     with pytest.raises(ValueError, match="kept o"):
         wa.window_attention_qkv_backward(*args[:3], qkv[..., :16],
                                          *args[3:])
@@ -740,12 +739,12 @@ def test_v1_equals_v3_and_both_agree_with_k4(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,d", [(2, 4), (2, 12), (3, 32), (2, 64),
-                                     (1, 128)])
+                                     (1, 128), (3, 40)])
 def test_v1_and_v3_head_dims(dev, dtype, heads, d):
-    """V1 and V3 at head dims 4 and 12 (staged by plain loads), 32, 64 and
-    128 on a shifted call with the ragged key tile (N = 70 = 64 + 6): the
-    wrappers forward and backward, and the launches with their kept state,
-    against the plain versions; V1f and V3f bit-equal to K4f."""
+    """V1 and V3 at head dims 4 and 12 (staged by plain loads), 32, 64,
+    128 and 40 on a shifted call with the ragged key tile (N = 70 = 64 +
+    6): the wrappers forward and backward, and the launches with their kept
+    state, against the plain versions; V1f and V3f bit-equal to K4f."""
     from vsn_tpu_torch.models.swin3d import window_reverse
 
     g = torch.Generator().manual_seed(d)
@@ -802,7 +801,7 @@ def test_v1_and_v3_reject_what_the_kernels_do_not_take(dev):
         new[i] = bad
         with pytest.raises((TypeError, ValueError)):
             wa.window_attention_windows(*new)
-    z = torch.zeros(2, 2, 12, 40, device=dev)   # head dim 40
+    z = torch.zeros(2, 2, 12, 129, device=dev)   # head dim 129
     with pytest.raises(ValueError, match="head dim"):
         wa.window_attention(z, z, z, bias, ids, scale)
     with pytest.raises(ValueError, match="kept o"):
@@ -898,8 +897,9 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
 _CSRC = Path(__file__).resolve().parent.parent / "vsn_tpu_torch" / "csrc"
 TILED_SOURCE_MUTANTS = {
     "K1f: the ragged tile's missing keys scored 0, not -inf": (
-        "attn_tiled.cuh", "s[nt][e] = s[nt][2 + e] = -INFINITY;",
-        "s[nt][e] = s[nt][2 + e] = 0.f;"),
+        "attn_tiled.cuh",
+        "s[nt][e] = s[nt][2 + e] = P::kProbs == Probs::kScaled ? 0.f : "
+        "-INFINITY;", "s[nt][e] = s[nt][2 + e] = 0.f;"),
     "K1f: the max(rowmax, 0) clamp dropped": (
         "attn_tiled.cuh", "static constexpr float kShift0 = 0.f;",
         "static constexpr float kShift0 = -INFINITY;"),
@@ -919,18 +919,22 @@ TILED_SOURCE_MUTANTS = {
 TILED_FAILURES = ("kernels disagree with their plain versions",
                   "tiled K1 at logits")
 
-# One-line edits of K1's route at Swin's calls and of the lines of the
+# One-line edits of K1's route at Swin's calls, of the lines of the
 # key-tiled body that only Swin's calls reach (the region mask and the
-# relative-position bias: ViT's calls carry neither) that chip_smoke.py must
-# reject on the card (exit 1: in its Swin parity phases 6-8, or in phase 3,
-# whose saturated logits give ViT's call a bias, or in phase 7's launch
-# counts of the route): name -> (source under vsn_tpu_torch, line, its
-# mutant)
+# relative-position bias: ViT's calls carry neither) and of what only head
+# dims off the mma depth reach, that chip_smoke.py must reject on the card
+# (exit 1: in its Swin parity phases 6-8, or in phase 3, whose saturated
+# logits give ViT's call a bias, or in phase 7's launch counts of the
+# route, or at the first call of a head dim that is not a multiple of 16:
+# phase 2b's wide rows at d = 25, phase 7's re-headed calls): name ->
+# (source under vsn_tpu_torch, line, its mutant)
 SWIN_ROUTE_MUTANTS = {
-    "route: Swin's d = 32 sent back to the whole-window body": (
-        "ops/swin_block_kernels.py",
-        "return (d % TILED_HEAD_STEP == 0 or d > UNTILED_HEAD_DIM",
-        "return (d > UNTILED_HEAD_DIM"),
+    "route: head dims off the mma depth refused again": (
+        "ops/window_attention.py", "return 0 < d <= MAX_HEAD_DIM",
+        "return 0 < d <= MAX_HEAD_DIM and d % 16 == 0"),
+    "K1: plain loads skipped where bf16 rows are not whole 16-byte chunks": (
+        "csrc/attn_tiled.cuh", "bool plain = d % (16 / (int)sizeof(T));",
+        "bool plain = false;"),
     "K1Softmax: the region mask dropped": (
         "csrc/attn_tiled.cuh",
         "if (id_row) s = __fadd_rn(s, id_row[j] != id_i ? kNegInf : 0.f);",
@@ -940,9 +944,9 @@ SWIN_ROUTE_MUTANTS = {
         "if (bias_i) s = __fadd_rn(s, 0.f);"),
     "K1f: the tiled launch given no bias": (
         "csrc/attn_half.cu",
-        "err = tiled ? launch_attention_tiled<T>(qkv_buf, bias, ids, ids_rows,",
-        "err = tiled ? launch_attention_tiled<T>(qkv_buf, nullptr, ids, "
-        "ids_rows,"),
+        "err = launch_attention_tiled<T>(qkv_buf, bias, ids, ids_rows, ao_buf,",
+        "err = launch_attention_tiled<T>(qkv_buf, nullptr, ids, ids_rows, "
+        "ao_buf,"),
     "K1b: the tiled backward given no region ids": (
         "csrc/attn_half_bwd.cu",
         "return launch_attention_bwd_tiled<T>(qkv, dao, o, row_stats, bias, "
@@ -951,7 +955,8 @@ SWIN_ROUTE_MUTANTS = {
         "nullptr, ids_rows, s1, dqkv,"),
 }
 SWIN_ROUTE_FAILURES = ("kernels disagree with their plain versions",
-                       "tiled K1 at logits", "Swin route launches")
+                       "tiled K1 at logits", "Swin route launches",
+                       "head dims up to", "CUDA error")
 _PORT = _CSRC.parent
 
 

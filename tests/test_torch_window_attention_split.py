@@ -171,10 +171,13 @@ def test_argument_check_rejects_what_the_kernels_do_not_take():
         with pytest.raises((TypeError, ValueError)):
             port._check_split(*new)
             pytest.fail(what)
-    for d in (40, 144):  # neither up to 32 nor a multiple of 16 up to 128
+    for d in (129, 144):  # above 128, the tiled body's widest head dim
         with pytest.raises(ValueError):
             z = torch.zeros(2, 1, 16, d)
             port._check_split(z, z, z, t(bias)[:1].contiguous(), t(ids))
+    z = torch.zeros(2, 1, 16, 40)   # 40: neither up to 32 nor 16 k, taken
+    assert port._check_split(z, z, z, t(bias)[:1].contiguous(),
+                             t(ids)) == ids.shape[0]
 
 
 @pytest.mark.parametrize("d", [48, 64])

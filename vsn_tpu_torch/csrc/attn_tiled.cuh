@@ -1,12 +1,13 @@
 // The key-tiled attention body, forward and backward (phases A and B), for
-// any N: K1's (K1f's launch 2, K1b's launch 4) at every head dim d that is a
-// multiple of 16 up to 128: Swin's calls (d = 32: windows of N = 252 with
-// the relative-position bias and region ids, N = 150 at the clamped last
-// stage) and ViT's (vsn_tpu/models/vit3d.py _fused_attn_half, one window of
-// N = 811 tokens per sample at d = 64, no bias); and K4f / K4b, the unfused
-// Swin block's window attention on packed qkv, and V1 / V3, the same
-// function on split heads and on the unpartitioned map
-// (window_attention_qkv.cu), under K4's softmax policy (below).
+// any N and every head dim d from 1 to 128: the one attention body of the
+// port. K1 (K1f's launch 2, K1b's launch 4) runs it at every call: Swin's
+// (d = 32: windows of N = 252 with the relative-position bias and region
+// ids, N = 150 at the clamped last stage) and ViT's (vsn_tpu/models/vit3d.py
+// _fused_attn_half, one window of N = 811 tokens per sample at d = 64), and
+// at any other head dim; K4f / K4b, the unfused Swin block's window
+// attention on packed qkv, and V1 / V3, the same function on split heads and
+// on the unpartitioned map (window_attention_qkv.cu), under K4's softmax
+// policy; the attention probes P1 / P5 (attn_half.cu) under theirs.
 //
 // Replaces the attention chain of vsn_tpu/ops/swin_block_kernels.py
 // _heads_attention_fwd / _heads_attention_bwd (:169-226, :292-336), which the
@@ -78,33 +79,49 @@
 // Rounding follows the TPU kernels: q, k, v, dO are T; e before PV, p before
 // dv and ds before dq / dk are rounded to T; dbias takes ds unrounded.
 //
-// Head dims: the body is compiled for D = 32, 64 and 128; a head dim d < D
-// stages its channels d..D-1 as zeros, which add exactly 0 to every product.
-// K1 takes multiples of 16 up to 128.
+// Head dims: every d from 1 to 128, compiled as D = 32, 64 and 128; the
+// channels d..D-1 of a tile stage as zeros, which add exactly 0 to every
+// product. Tiles are filled by 16-byte cp.async copies wherever a head's rows
+// are whole, 16-byte aligned chunks (d a multiple of 8 in bf16, of 4 in f32,
+// every operand 16-byte aligned: ``plain_loads``), and by plain element
+// loads otherwise (bf16 d = 12: 24-byte rows at 24-byte offsets). A policy
+// whose own instantiations stage by cp.async only (K1's) takes the others
+// as ``PlainLoads<P>``, so the instantiations at the presets' head dims keep
+// their code.
 //
 // Softmax policies. The kernels are templated on a policy P that says how a
 // score is formed from its product, where the running shift starts, what the
-// row sum adds, how ds is formed, whether dbqkv's column sums are taken and
-// whether rows may be staged by plain loads. ``K1Softmax`` (here) is
-// K1's, as described above; ``K4Softmax`` (window_attention_qkv.cu) is K4's:
-// the score (dot * scale + bias) + mask, the plain row max (the shift starts
-// at -inf), no epsilon, ds = p (dp - s1), no dbqkv, any head dim up to 32,
-// whose rows are staged by plain loads where they are not whole 16-byte
-// chunks.
+// row sum adds, how the forward forms its probabilities (``Probs``), whether
+// it keeps the row statistics, how ds is formed, whether dbqkv's column sums
+// are taken and whether rows may be staged by plain loads. ``K1Softmax``
+// (here) is K1's, as described above; ``K4Softmax`` (window_attention_qkv.cu)
+// is K4's: the score (dot * scale + bias) + mask, the plain row max (the
+// shift starts at -inf), no epsilon, ds = p (dp - s1), no dbqkv. The probes'
+// (attn_half.cu, forward only, no statistics kept, head dims up to 64):
+// ``ProbeSoftmax``, p = round(exp(s - rowmax) / rowsum), normalized before
+// its rounding: a first pass over the key tiles for each row's max and sum,
+// a second for p and O += p V, O not scaled; ``ProbeScaled``, p = round(0.001
+// s) in one pass.
 //
 // Layouts. The kernels are also templated on a layout L that places a
 // (window, head)'s operands (see ``Packed`` below): ``Packed`` (K1, K4: qkv
 // [BW*N, 3C], ao [BW*N, C]); ``Split`` (V1: q, k, v, out [BW, H, N, d]) and
 // ``MapRows`` (V3: qkv and out on the unpartitioned map, a window's tokens
-// not at a fixed stride), both in window_attention_qkv.cu. The row
+// not at a fixed stride), both in window_attention_qkv.cu; ``ProbeRows``
+// (P1 / P5, attn_half.cu: qkv [BW*N, 3C], or q = k = v = y [BW*N, C] with out
+// = x + o; wb windows to a block, taken in turn, 2 blocks an SM). The row
 // statistics are [BW, H, N, 2] in every layout; o32 and o lie as out does.
 
 #pragma once
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "common.cuh"
 
 namespace {
 
+constexpr int kMaxHeadDim = 128;
 constexpr int kTile = 64;        // rows of a query tile, keys of a key tile
 constexpr int kTiledWarps = 4;   // 16 rows each
 constexpr int kTiledThreads = kTiledWarps * 32;
@@ -136,16 +153,30 @@ constexpr size_t kTileBytes = sizeof(T) * kTile * kLd<T, D>;
 // Staging
 // ---------------------------------------------------------------------------
 
+// Policy P with its rows staged by plain loads only: what the launchers run
+// where a head's rows are not whole, aligned 16-byte chunks under a policy
+// that stages by cp.async (kPlainLoads false).
+template <typename P>
+struct PlainLoads : P {
+  static constexpr bool kPlainLoads = true;
+};
+
+template <typename P>
+constexpr bool kPlainOnly = false;
+template <typename P>
+constexpr bool kPlainOnly<PlainLoads<P>> = true;
+
 // Copy rows [0, nrows) x channels [0, d) of a [rows][stride] T array into a
 // staged tile; the tile's other rows and channels (up to kTile x D) are
 // zero-filled, so they add exactly 0 to a product. By 16-byte cp.async
 // copies, or, where the policy allows and ``plain`` asks for it (a row whose
-// channels are not whole 16-byte chunks), by plain element copies.
+// channels are not whole 16-byte chunks), by plain element copies (always,
+// under PlainLoads).
 template <typename T, int D, typename P>
 __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long stride, int nrows,
                                            int d, bool plain) {
   constexpr int E = 16 / (int)sizeof(T), CPR = D / E, LD = kLd<T, D>;
-  if (P::kPlainLoads && plain) {
+  if (kPlainOnly<P> || (P::kPlainLoads && plain)) {
     for (int e = threadIdx.x; e < kTile * D; e += kTiledThreads) {
       const int r = e / D, ch = e % D;
       dst[r * LD + ch] = r < nrows && ch < d ? src[r * stride + ch] : from_f32<T>(0.f);
@@ -186,7 +217,7 @@ __device__ __forceinline__ void stage_rows(T* dst0, const T* src0, long long ld0
                                            const T* src1, long long ld1, const Rows& rows,
                                            int t0, int nrows, int d, bool plain) {
   constexpr int E = 16 / (int)sizeof(T), CPR = D / E, LD = kLd<T, D>;
-  if (P::kPlainLoads && plain) {
+  if (kPlainOnly<P> || (P::kPlainLoads && plain)) {
     for (int e = threadIdx.x; e < kTile * D; e += kTiledThreads) {
       const int r = e / D, ch = e % D;
       const bool ok = r < nrows && ch < d;
@@ -321,13 +352,23 @@ __device__ __forceinline__ void fma_nn(float (&acc)[D / 8][4], const float* sp, 
 // Scores and probabilities, the same operations in every kernel
 // ---------------------------------------------------------------------------
 
+// How the forward forms the probabilities of O += P V from a row's scores s:
+// kOnline e = exp(s - m) against the running shift m, the sum and O
+// rescaled when m grows, O / (sum + eps) at the end (K1, K4); kNormalized p
+// = exp(s - max) / sum after a first pass over the key tiles for each row's
+// max and sum, O not scaled (the probes' SM_PLAIN); kScaled p = 0.001 s (the
+// probes' SM_SCALE).
+enum class Probs { kOnline, kNormalized, kScaled };
+
 // K1's softmax policy (see the header; K4's is K4Softmax in
-// window_attention_qkv.cu).
+// window_attention_qkv.cu, the probes' in attn_half.cu).
 struct K1Softmax {
   static constexpr float kShift0 = 0.f;       // the running shift: max(rowmax, 0)
   static constexpr float kSumEps = 1e-30f;    // a fully masked row gives 0
   static constexpr bool kColumnSums = true;   // dbqkv
-  static constexpr bool kPlainLoads = false;  // rows of whole 16-byte chunks only
+  static constexpr bool kPlainLoads = false;  // others by PlainLoads<K1Softmax>
+  static constexpr Probs kProbs = Probs::kOnline;
+  static constexpr bool kKeepsStats = true;   // the row statistics, for K1b
 
   // The masked, biased, scaled score of query i, key j from its product.
   static __device__ __forceinline__ float score(float acc, float scale, const int* id_row,
@@ -342,6 +383,20 @@ struct K1Softmax {
     return __fsub_rn(__fmul_rn(p, dp), __fmul_rn(s1, p));
   }
 };
+
+template <typename P>
+constexpr int kPasses = P::kProbs == Probs::kNormalized ? 2 : 1;
+
+// Whether rows must be staged by plain loads: a head's channels that are
+// not whole 16-byte chunks, or an operand that is not 16-byte aligned. Every
+// row stride of every layout is a multiple of the head dim, so the head dim
+// and the base pointers decide.
+template <typename T>
+bool plain_loads(int d, std::initializer_list<const void*> operands) {
+  bool plain = d % (16 / (int)sizeof(T));
+  for (const void* a : operands) plain = plain || reinterpret_cast<uintptr_t>(a) % 16;
+  return plain;
+}
 
 // The ids row of window bw (row bw % ids_rows), null without ids.
 __device__ __forceinline__ const int* window_ids(const int* ids, long long bw, int ids_rows,
@@ -363,7 +418,9 @@ __device__ __forceinline__ F* bias_row(F* bias, int h, int n, int i) {
 // phase B's) and give element offsets (out: token t's channel h d in out,
 // o32 and dO; in: in q and dq; store_dkv: dk and dv). ``Packed`` is K1's
 // and K4's; ``Split`` (V1) and ``MapRows`` (V3) are in
-// window_attention_qkv.cu.
+// window_attention_qkv.cu; ``ProbeRows`` (P1 / P5, forward only) is in
+// attn_half.cu, a grouped layout (``kGrouped``) whose ``store`` writes the
+// head's output itself.
 
 // qkv [BW*N, 3C] (q, k, v at channels 0, C, 2C, head h at h d), out [BW*N,
 // C]: window bw's token t is row bw N + t of each; ids row bw % W. The
@@ -383,6 +440,17 @@ struct Packed {
 
 template <typename L>
 constexpr bool kPacked = std::is_same<L, Packed>::value;
+
+// Whether layout L takes ``lay.wb`` windows to a block, in turn, and writes
+// its own output (``Head::store``): the probes' ``ProbeRows`` (attn_half.cu).
+template <typename L>
+constexpr bool kGrouped = false;
+
+// The forward's blocks an SM on layout L: kTiledMinBlocks, but 2 for a
+// grouped layout (the probes', bf16, d <= 64), whose window loop and
+// second pass spilled at the 168 registers that 3 blocks leave.
+template <typename T, int D, typename L>
+constexpr int kFwdMinBlocks = kGrouped<L> && D <= 64 ? 2 : kTiledMinBlocks<T, D>;
 
 // p from the forward's kept row statistics (shift m, 1 / (the row sum + the
 // policy's epsilon)).
@@ -431,11 +499,13 @@ __device__ __forceinline__ void add_column_sums(float* dbqkv, int col0, int d,
 // Forward: K1f's and K4f's attention launch
 // ---------------------------------------------------------------------------
 
+// One (window bw, head h, query tile q0) of the forward.
 template <typename T, int D, typename P, typename L>
-__global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attention_tiled_mma_kernel(
+__device__ __forceinline__ void attention_tiled_fwd(
     const T* __restrict__ qkv, const float* __restrict__ bias, const int* __restrict__ ids,
     int ids_rows, T* __restrict__ ao, float* __restrict__ o32, float* __restrict__ stats,
-    int n, int c, int heads, float scale, bool plain, L lay) {
+    int n, int c, int heads, float scale, bool plain, const L& lay, long long bw, int h,
+    int q0) {
   constexpr bool TC = kTensorCores<T>, PACKED = kPacked<L>;
   constexpr int LD = kLd<T, D>, NT = kTile / 8, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -443,10 +513,6 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   T* kvs = qs + kTile * LD;                // [2 stages][K, V][kTile][LD]
   float* scratch = reinterpret_cast<float*>(kvs + 4 * kTile * LD);  // f32: [warps][16][kSp]
 
-  const int qtiles = (n + kTile - 1) / kTile;
-  const int q0 = (blockIdx.x % qtiles) * kTile;
-  const int h = (blockIdx.x / qtiles) % heads;
-  const long long bw = blockIdx.x / qtiles / heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int d = c / heads;
   const long long c3 = 3LL * c;
@@ -476,99 +542,130 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
   uint32_t qf[TC ? D / 16 : 1][4];
 
   const int ktiles = (n + kTile - 1) / kTile;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int k0 = kt * kTile, nk = min(kTile, n - k0);
-    if (kt + 1 < ktiles) {  // the next tile's copy runs under this tile's products
+  for (int pass = 0; pass < kPasses<P>; ++pass) {
+    if (pass) {  // kNormalized: 1 / the whole row sums, the key tiles again from tile 0
+      l0 = 1.f / quad_sum(l0);
+      l1 = 1.f / quad_sum(l1);
       if constexpr (PACKED)
-        stage_kv<T, D, P>(kvs, head, c3, c, n, kt + 1, d, plain);
+        stage_kv<T, D, P>(kvs, head, c3, c, n, 0, d, plain);
       else
-        at.template stage_kv<D, P>(kvs, n, kt + 1, d, plain);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+        at.template stage_kv<D, P>(kvs, n, 0, d, plain);
     }
-    __syncthreads();
-    const T* ks = kvs + (kt & 1) * 2 * kTile * LD;
-    const T* vs = ks + kTile * LD;
-
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    if constexpr (TC) {
-      if (kt == 0) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], qs, 16 * warp, 16 * kk, lane);
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t b[4];
-          load_b_nt<LD>(b, ks, 16 * np, 16 * kk, lane);
-          mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
-        }
-    } else {
-      fma_nt<NT, D>(s, qs + 16 * warp * LD, ks, lane);
-    }
-
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = 8 * nt + 2 * t + e;
-        if (j < nk) {
-          s[nt][e] = P::score(s[nt][e], scale, id_row, id0, bias0, k0 + j);
-          s[nt][2 + e] = P::score(s[nt][2 + e], scale, id_row, id1, bias1, k0 + j);
-          mx0 = fmaxf(mx0, s[nt][e]);
-          mx1 = fmaxf(mx1, s[nt][2 + e]);
-        } else {  // the ragged tile's missing keys
-          s[nt][e] = s[nt][2 + e] = -INFINITY;
-        }
-      }
-    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    // 1 while the max holds; 0 at K4's first tile (exp(-inf))
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float part0 = 0.f, part1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = expf(s[nt][e] - mn0);
-        s[nt][2 + e] = expf(s[nt][2 + e] - mn1);
-        part0 += s[nt][e];
-        part1 += s[nt][2 + e];
-      }
-    l0 = l0 * alpha0 + part0;
-    l1 = l1 * alpha1 + part1;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= alpha0;
-      o[dt][1] *= alpha0;
-      o[dt][2] *= alpha1;
-      o[dt][3] *= alpha1;
-    }
-
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {  // O += round_T(e) V, 16 keys a step
-      if constexpr (TC) {
-        uint32_t a[4];
-        a_from_acc(a, s[2 * kc], s[2 * kc + 1]);
-        mma_nn<D>(o, a, vs, 16 * kc, lane);
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int k0 = kt * kTile, nk = min(kTile, n - k0);
+      if (kt + 1 < ktiles) {  // the next tile's copy runs under this tile's products
+        if constexpr (PACKED)
+          stage_kv<T, D, P>(kvs, head, c3, c, n, kt + 1, d, plain);
+        else
+          at.template stage_kv<D, P>(kvs, n, kt + 1, d, plain);
+        cp_async_wait<1>();
       } else {
-        store_chunk(sp, s[2 * kc], s[2 * kc + 1], lane);
-        __syncwarp();
-        fma_nn<D, false>(o, sp, vs + 16 * kc * LD, lane);
-        __syncwarp();
+        cp_async_wait<0>();
       }
+      __syncthreads();
+      const T* ks = kvs + (kt & 1) * 2 * kTile * LD;
+      const T* vs = ks + kTile * LD;
+
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      if constexpr (TC) {
+        if (kt == 0) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], qs, 16 * warp, 16 * kk, lane);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t b[4];
+            load_b_nt<LD>(b, ks, 16 * np, 16 * kk, lane);
+            mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+            mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+          }
+      } else {
+        fma_nt<NT, D>(s, qs + 16 * warp * LD, ks, lane);
+      }
+
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * t + e;
+          if (j < nk) {
+            s[nt][e] = P::score(s[nt][e], scale, id_row, id0, bias0, k0 + j);
+            s[nt][2 + e] = P::score(s[nt][2 + e], scale, id_row, id1, bias1, k0 + j);
+            mx0 = fmaxf(mx0, s[nt][e]);
+            mx1 = fmaxf(mx1, s[nt][2 + e]);
+          } else {  // the ragged tile's missing keys: p = 0
+            s[nt][e] = s[nt][2 + e] = P::kProbs == Probs::kScaled ? 0.f : -INFINITY;
+          }
+        }
+      if constexpr (P::kProbs == Probs::kScaled) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = P::scaled(s[nt][e]);
+      } else if (pass == 0) {
+        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+        // 1 while the max holds; 0 at K4's first tile (exp(-inf))
+        const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        float part0 = 0.f, part1 = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[nt][e] = expf(s[nt][e] - mn0);
+            s[nt][2 + e] = expf(s[nt][2 + e] - mn1);
+            part0 += s[nt][e];
+            part1 += s[nt][2 + e];
+          }
+        l0 = l0 * alpha0 + part0;
+        l1 = l1 * alpha1 + part1;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          o[dt][0] *= alpha0;
+          o[dt][1] *= alpha0;
+          o[dt][2] *= alpha1;
+          o[dt][3] *= alpha1;
+        }
+      } else {  // kNormalized, second pass: p = exp(s - max) / sum before its
+                // rounding, as exp(s - max) times 1 / sum (within an ulp)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[nt][e] = __fmul_rn(expf(s[nt][e] - m0), l0);
+            s[nt][2 + e] = __fmul_rn(expf(s[nt][2 + e] - m1), l1);
+          }
+      }
+
+      if (pass == kPasses<P> - 1) {
+#pragma unroll
+        for (int kc = 0; kc < kTile / 16; ++kc) {  // O += round_T(e) V, 16 keys a step
+          if constexpr (TC) {
+            uint32_t a[4];
+            a_from_acc(a, s[2 * kc], s[2 * kc + 1]);
+            mma_nn<D>(o, a, vs, 16 * kc, lane);
+          } else {
+            store_chunk(sp, s[2 * kc], s[2 * kc + 1], lane);
+            __syncwarp();
+            fma_nn<D, false>(o, sp, vs + 16 * kc * LD, lane);
+            __syncwarp();
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with this stage before it is refilled
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  const float r0 = 1.f / (quad_sum(l0) + P::kSumEps), r1 = 1.f / (quad_sum(l1) + P::kSumEps);
+  // O / (sum + eps) under the online form; the probes' O unscaled
+  constexpr bool online = P::kProbs == Probs::kOnline;
+  const float r0 = online ? 1.f / (quad_sum(l0) + P::kSumEps) : 1.f;
+  const float r1 = online ? 1.f / (quad_sum(l1) + P::kSumEps) : 1.f;
   const long long base = bw * n;
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt)
@@ -582,8 +679,12 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
           to = (base + i0) * c + h * d + ch;
         else
           to = at.out(i0) + ch;
-        ao[to] = from_f32<T>(o[dt][e] * r0);
-        if (o32) o32[to] = o[dt][e] * r0;
+        if constexpr (kGrouped<L>) {
+          at.store(ao, to, o[dt][e] * r0);
+        } else {
+          ao[to] = from_f32<T>(o[dt][e] * r0);
+          if (o32) o32[to] = o[dt][e] * r0;
+        }
       }
       if (i1 < n) {
         long long to;
@@ -591,11 +692,15 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
           to = (base + i1) * c + h * d + ch;
         else
           to = at.out(i1) + ch;
-        ao[to] = from_f32<T>(o[dt][2 + e] * r1);
-        if (o32) o32[to] = o[dt][2 + e] * r1;
+        if constexpr (kGrouped<L>) {
+          at.store(ao, to, o[dt][2 + e] * r1);
+        } else {
+          ao[to] = from_f32<T>(o[dt][2 + e] * r1);
+          if (o32) o32[to] = o[dt][2 + e] * r1;
+        }
       }
     }
-  if (t == 0) {
+  if (P::kKeepsStats && t == 0) {
     float* st = stats + ((bw * heads + h) * (long long)n) * 2;
     if (i0 < n) {
       st[2 * i0] = m0;
@@ -605,6 +710,28 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks<T, D>) attentio
       st[2 * i1] = m1;
       st[2 * i1 + 1] = r1;
     }
+  }
+}
+
+template <typename T, int D, typename P, typename L>
+__global__ void __launch_bounds__(kTiledThreads, kFwdMinBlocks<T, D, L>) attention_tiled_mma_kernel(
+    const T* __restrict__ qkv, const float* __restrict__ bias, const int* __restrict__ ids,
+    int ids_rows, T* __restrict__ ao, float* __restrict__ o32, float* __restrict__ stats,
+    int n, int c, int heads, float scale, bool plain, L lay) {
+  const int qtiles = (n + kTile - 1) / kTile;
+  const int q0 = (blockIdx.x % qtiles) * kTile;
+  const int h = (blockIdx.x / qtiles) % heads;
+  const long long bw = blockIdx.x / qtiles / heads;
+  if constexpr (kGrouped<L>) {
+    // the block's (head, query tile) of windows bw wb .. bw wb + wb - 1, in
+    // turn: each window's last key tile ends on a barrier, after which its
+    // staged tiles are free
+    for (int slot = 0; slot < lay.wb; ++slot)
+      attention_tiled_fwd<T, D, P>(qkv, bias, ids, ids_rows, ao, o32, stats, n, c, heads,
+                                   scale, plain, lay, bw * lay.wb + slot, h, q0);
+  } else {
+    attention_tiled_fwd<T, D, P>(qkv, bias, ids, ids_rows, ao, o32, stats, n, c, heads, scale,
+                                 plain, lay, bw, h, q0);
   }
 }
 
@@ -1007,11 +1134,13 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Whether the policy P takes head dim d: multiples of 16 up to 128, and with
-// plain loads also any d up to 32 (all compiled as D = 32).
-template <typename P>
-constexpr bool takes_head_dim(int d) {
-  return d > 0 && d <= 128 && (d % 16 == 0 || (P::kPlainLoads && d <= 32));
+// Windows to a block: ``lay.wb`` for a grouped layout, else 1.
+template <typename L>
+int windows_per_block(const L& lay) {
+  if constexpr (kGrouped<L>)
+    return lay.wb;
+  else
+    return 1;
 }
 
 template <typename T, int D, typename P, typename L>
@@ -1023,7 +1152,7 @@ cudaError_t launch_attention_tiled_d(const T* qkv, const float* bias, const int*
   constexpr size_t smem = attention_tiled_fwd_smem<T, D>();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = bw * heads * ((n + kTile - 1) / kTile);
+  const long long blocks = bw / windows_per_block(lay) * heads * ((n + kTile - 1) / kTile);
   kernel<<<(unsigned)blocks, kTiledThreads, smem, stream>>>(qkv, bias, ids, ids_rows, ao, o32,
                                                            stats, n, c, heads, scale, plain,
                                                            lay);
@@ -1033,15 +1162,22 @@ cudaError_t launch_attention_tiled_d(const T* qkv, const float* bias, const int*
 // The key-tiled attention launch under policy P (K1f's by default) on
 // layout L (Packed by default: qkv [BW*N, 3C] -> ao [BW*N, C] (T), o32
 // [BW*N, C] (f32; may be null); other layouts take q and ao in qkv's and
-// ao's place), stats [BW, H, N, 2] (shift, 1 / (sum + P::kSumEps)).
-// ``plain`` stages rows by plain loads (a policy with kPlainLoads only).
+// ao's place), stats [BW, H, N, 2] (shift, 1 / (sum + P::kSumEps); a policy
+// that keeps them). Head dims 1 to 128. ``plain`` stages rows by plain loads
+// (``plain_loads``: required where rows are not whole, aligned 16-byte
+// chunks).
 template <typename T, typename P = K1Softmax, typename L = Packed>
 cudaError_t launch_attention_tiled(const T* qkv, const float* bias, const int* ids,
                                    int ids_rows, T* ao, float* o32, float* stats, long long bw,
                                    int n, int c, int heads, float scale, cudaStream_t stream,
                                    bool plain = false, const L& lay = L()) {
   const int d = c / heads;
-  if (!takes_head_dim<P>(d)) return cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxHeadDim) return cudaErrorInvalidValue;
+  if constexpr (!P::kPlainLoads)
+    if (plain)
+      return launch_attention_tiled<T, PlainLoads<P>, L>(qkv, bias, ids, ids_rows, ao, o32,
+                                                         stats, bw, n, c, heads, scale, stream,
+                                                         plain, lay);
   if (d <= 32)
     return launch_attention_tiled_d<T, 32, P>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n,
                                               c, heads, scale, plain, lay, stream);
@@ -1083,7 +1219,8 @@ cudaError_t launch_attention_bwd_tiled_d(const T* qkv, const T* dao, const float
 // phases A and B: from qkv, dao (T), the forward's o (f32, out's layout) and
 // stats [BW, H, N, 2], into dqkv [BW*N, 3C] (T), and added into the zeroed
 // f32 dbias [H, N, N] (may be null: no bias) and, where P takes column sums,
-// dbqkv [3C]; s1 [BW, H, N] f32 is scratch.
+// dbqkv [3C]; s1 [BW, H, N] f32 is scratch. Head dims and ``plain`` as the
+// forward's.
 template <typename T, typename P = K1Softmax, typename L = Packed>
 cudaError_t launch_attention_bwd_tiled(const T* qkv, const T* dao, const float* o,
                                        const float* stats, const float* bias, const int* ids,
@@ -1092,7 +1229,13 @@ cudaError_t launch_attention_bwd_tiled(const T* qkv, const T* dao, const float* 
                                        float scale, cudaStream_t stream, bool plain = false,
                                        const L& lay = L()) {
   const int d = c / heads;
-  if (!takes_head_dim<P>(d)) return cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxHeadDim) return cudaErrorInvalidValue;
+  if constexpr (!P::kPlainLoads)
+    if (plain)
+      return launch_attention_bwd_tiled<T, PlainLoads<P>, L>(qkv, dao, o, stats, bias, ids,
+                                                             ids_rows, s1, dqkv, dbias, dbqkv,
+                                                             bw, n, c, heads, scale, stream,
+                                                             plain, lay);
   if (d <= 32)
     return launch_attention_bwd_tiled_d<T, 32, P>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
                                                   dqkv, dbias, dbqkv, bw, n, c, heads, scale,

@@ -34,9 +34,9 @@
 // rounded to T before their products, as the TPU's MXU rounds its f32
 // operands at default precision. The mask is additive -1e9 where the region
 // ids of query and key differ (pad slots carry -1, an unshifted block
-// passes W = 1 row of zeros). Head dims: any up to 32 and multiples of 16 up
-// to 128; rows that are not whole 16-byte chunks (or an operand that is not
-// 16-byte aligned) are staged by plain loads.
+// passes W = 1 row of zeros). Head dims: every d from 1 to 128; rows that
+// are not whole 16-byte chunks (or an operand that is not 16-byte aligned)
+// are staged by plain loads.
 //
 // What bounds it: the products, 4 N^2 d per window and head forward and 10
 // N^2 d backward (above the H100's ridge: the tensor cores), against q, k,
@@ -46,9 +46,6 @@
 // tiles cross its window's row (ww) and slice (wh ww) boundaries, so its
 // rows are not at a fixed stride: each thread maps a tile row to its voxel
 // once and copies the row's q (or k and v, or q and dO) from there.
-
-#include <cstdint>
-#include <initializer_list>
 
 #include "attn_tiled.cuh"
 
@@ -60,7 +57,9 @@ struct K4Softmax {
   static constexpr float kShift0 = -INFINITY;  // the plain row max
   static constexpr float kSumEps = 0.f;        // a row always keeps its own key
   static constexpr bool kColumnSums = false;   // the qkv bias gradient is the Linear's
-  static constexpr bool kPlainLoads = true;    // any head dim up to 32
+  static constexpr bool kPlainLoads = true;    // every head dim up to 128
+  static constexpr Probs kProbs = Probs::kOnline;
+  static constexpr bool kKeepsStats = true;    // the row statistics, for K4b
 
   // (dot * scale + bias) + mask, each step rounded to nearest.
   static __device__ __forceinline__ float score(float acc, float scale, const int* id_row,
@@ -240,17 +239,6 @@ struct MapRows : WindowGrid {
   }
 };
 
-// Whether rows must be staged by plain loads: a head's channels that are
-// not whole 16-byte chunks, or an operand that is not 16-byte aligned. Every
-// row stride of every layout is a multiple of the head dim, so the head dim
-// and the base pointers decide.
-template <typename T>
-bool plain_loads(int d, std::initializer_list<const void*> operands) {
-  bool plain = d % (16 / (int)sizeof(T));
-  for (const void* a : operands) plain = plain || reinterpret_cast<uintptr_t>(a) % 16;
-  return plain;
-}
-
 template <typename T>
 int k4_fwd(const T* qkv, const float* bias, const int* ids, int ids_rows, T* out, float* o32,
            float* stats, long long bw, int n, int c, int heads, float scale,
@@ -327,8 +315,8 @@ int v3_bwd(const T* qkv, const T* dout, const float* o, const float* stats, cons
 }  // namespace
 
 // Every entry returns cudaGetLastError() of the launch (or of setting its
-// shared memory size; cudaErrorInvalidValue for a head dim the body does
-// not take), else 0. is_bf16 selects bf16 activations (q, k, v or qkv,
+// shared memory size; cudaErrorInvalidValue for a head dim above 128), else
+// 0. is_bf16 selects bf16 activations (q, k, v or qkv,
 // out, dout and their gradients), else f32; o, stats, bias and dbias are
 // f32, ids int32. dbias must be zeroed by the caller: the backward adds
 // into it.

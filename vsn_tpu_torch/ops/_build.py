@@ -12,11 +12,9 @@ checkout.
 ``launches`` counts, per kernel wrapper, the calls that launched the CUDA
 kernel. A wrapper adds one per call, however many launches the call makes;
 the CPU path, which runs the plain PyTorch version, adds nothing. K1 and
-K1b count their two attention bodies apart: ``attn_half_tiled`` /
-``attn_half_bwd_tiled`` for the key-tiled one, which every preset's calls
-take, ``attn_half`` / ``attn_half_bwd`` for the whole-window one (head
-dims that the tiled body does not take); K1 and K2 also count their
-residual modes apart (``swin_block_kernels.mode_key``: ``..._post``,
+K1b count as ``attn_half_tiled`` / ``attn_half_bwd_tiled`` (their
+attention runs the key-tiled body at every head dim); K1 and K2 also count
+their residual modes apart (``swin_block_kernels.mode_key``: ``..._post``,
 ``..._ls``, ``..._post_ls``). The key-tiled attention launches called
 alone (``swin_block_kernels.attention_tiled_launch`` and its backward,
 for the card's launch-level checks) count as ``attention_tiled_launch`` /
@@ -56,7 +54,7 @@ launches: collections.Counter = collections.Counter()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "vsn_attn_half_fwd": [_I, _I, *[_P] * 7, _I, *[_P] * 4, _I, *[_P] * 6,
+    "vsn_attn_half_fwd": [_I, *[_P] * 7, _I, *[_P] * 4, _I, *[_P] * 6,
                           _L, _I, _I, _I, _L, _F, _F, _P],
     "vsn_attention_tiled_fwd": [_I, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I,
                                 _I, _F, _P],
@@ -65,7 +63,7 @@ _SIGNATURES = {
     "vsn_ln_mlp_fwd": [_I, *[_P] * 9, _I, _P, _P, _P, _L, _I, _I, _L, _F,
                        _P],
     "vsn_window_relayout": [_P, _P, _P, _L, _I, _L, _I, _I, _P],
-    "vsn_attn_half_bwd": [_I, _I, *[_P] * 8, _I, *[_P] * 3, _I, *[_P] * 22,
+    "vsn_attn_half_bwd": [_I, *[_P] * 7, _I, *[_P] * 3, _I, *[_P] * 22,
                           _L, _L, _I, _I, _I, _L, _F, _F, _P],
     "vsn_ln_mlp_bwd": [_I, *[_P] * 8, _I, *[_P] * 16, _L, _L, _I, _I, _L,
                        _F, _P],

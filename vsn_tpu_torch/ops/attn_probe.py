@@ -13,8 +13,12 @@ against the whole says what that piece costs:
 
 On a CUDA tensor the wrappers launch hand-written kernels and never fall
 back: P1 and P5 run the three launches of K1f (``csrc/attn_half.cu``: LN +
-qkv GEMM, attention, proj + residual GEMM) as compile-time variants of
-K1f's own body, the copies ``csrc/probe_copy.cu``. On a CPU tensor they run
+qkv GEMM, attention, proj + residual GEMM), the attention on K1f's own
+key-tiled body (``csrc/attn_tiled.cuh``) under the probes' softmax policies
+and layout (``ProbeSoftmax``: p normalized before its rounding, in two
+passes over the key tiles; ``ProbeScaled``: ``nosm``; ``ProbeRows``:
+``attn_only``'s q = k = v = LN(x) and out = x + o, ``wb`` windows to a
+block), the copies ``csrc/probe_copy.cu``. On a CPU tensor they run
 the plain versions ``attn_ablate_reference``, ``attn_slot_reference`` and
 ``copy_reference``, which repeat the scripts' bodies op for op, rounding
 where they round. The probes are forward only, as the scripts are.
@@ -51,7 +55,7 @@ from vsn_tpu_torch.ops._build import (
 
 LN_EPS = 1e-5
 NOSM_FACTOR = 0.001  # the ``nosm`` probe's p = 0.001 s
-MAX_HEAD_DIM = 32    # one warp lane per head channel in the attention kernel
+MAX_HEAD_DIM = 64    # the probes' instantiations of the key-tiled body
 ABLATIONS = ("full2d", "noln", "nosm", "nobias", "linear_only", "attn_only")
 SLOT_VARIANTS = {"full": "full2d", "lin": "linear_only"}  # P5 -> P1 variant
 # csrc/attn_half.cu ``Probe``

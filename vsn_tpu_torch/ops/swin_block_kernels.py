@@ -18,7 +18,7 @@ The residual gains are per sample: ``gf`` scales the branch forward and
 ...``), the (gf, gb) form of ShakeDrop and DropPath. Gains, region ids and
 the static arguments get no gradient, as in the JAX VJP. The backward saves
 the inputs and recomputes the forward, as the TPU kernels do, but for K1's
-attention output and (tiled) its softmax statistics, which K1f hands on.
+attention output and its softmax statistics, which K1f hands on.
 
 ``attn_half_reference`` / ``ln_mlp_reference`` are the plain versions: the
 same Functions with the plain forward and the explicit plain backward
@@ -27,23 +27,18 @@ kernels do. ``attn_half_math`` / ``ln_mlp_math`` are the bare forward math,
 for autograd to differentiate as an independent check (in f32; in bf16
 autograd rounds at other points).
 
-K1's attention has two hand-written bodies, chosen by head dim
-(``attention_tiled``): a key-tiled body, FlashAttention-2 on bf16
-mma.sync (``csrc/attn_tiled.cuh``), wherever it takes the head dim, a
-multiple of 16 up to 128: every preset's calls (Swin-T's windows at
-d = 32, N = 252 and 150; ViT's one window of N = 811 tokens per sample at
-d = 64); and a whole-window body for other head dims up to 32 whose
-window fits in shared memory (the tiny test models' d = 8). A call takes
-the same body in both directions. The tiled K1f also writes each row's
-softmax statistics (shift, 1 / (sum + 1e-30)) and, for bf16, an f32 copy
-of the attention output; autograd keeps them with ao, and the tiled K1b
-reads them instead of recomputing the softmax (s1 = dO . o). The launch
-counters name the body: ``attn_half_tiled`` / ``attn_half_bwd_tiled`` and,
-for the whole-window body, ``attn_half`` / ``attn_half_bwd``. A head dim
-above 128 raises, and so does, on the card, a head dim that neither body
-takes (above 32 and not a multiple of 16). ``attention_tiled_reference`` and
+K1's attention runs one hand-written body, the key-tiled one,
+FlashAttention-2 on bf16 mma.sync (``csrc/attn_tiled.cuh``), at every head
+dim from 1 to 128 and every N: the presets' calls (Swin-T's windows at d =
+32, N = 252 and 150; ViT's one window of N = 811 tokens per sample at d =
+64) and any other (the tiny test models' d = 8); a head dim above 128
+raises. K1f also writes each row's softmax statistics (shift, 1 / (sum +
+1e-30)) and, for bf16, an f32 copy of the attention output; autograd keeps
+them with ao, and K1b reads them instead of recomputing the softmax (s1 =
+dO . o). The launch counters are ``attn_half_tiled`` /
+``attn_half_bwd_tiled``. ``attention_tiled_reference`` and
 ``attention_tiled_backward_reference`` are the plain versions of the
-tiled body's two launches alone (``attention_tiled_launch`` and
+body's two launches alone (``attention_tiled_launch`` and
 ``attention_tiled_backward_launch`` launch them).
 
 Both kernels take the TPU kernels' two residual modes in band: ``gamma``
@@ -78,41 +73,13 @@ from vsn_tpu_torch.ops._build import (
     ptr,
     stream_of,
 )
-from vsn_tpu_torch.ops.window_attention import mask_from_ids
+from vsn_tpu_torch.ops.window_attention import (
+    MAX_HEAD_DIM,
+    mask_from_ids,
+    takes_head_dim,
+)
 
 LN_EPS = 1e-5
-MAX_HEAD_DIM = 128     # the key-tiled body: head dims 16, 32, ..., 128
-TILED_HEAD_STEP = 16   # the key-tiled body's mma depth
-UNTILED_HEAD_DIM = 32  # the whole-window body: one warp lane a channel
-SMEM_PER_BLOCK = 232448  # shared memory a block may use on sm_90 (227 KB)
-
-
-def _untiled_smem_bytes(n: int, d: int, backward: bool) -> int:
-    """Shared memory of the whole-window attention body at N = n, head dim
-    d: csrc/attn_half.cu ``attention_smem_bytes`` (K, V, 8 warps' score
-    rows) and csrc/attn_half_bwd.cu ``attention_bwd_smem_bytes`` (Q, K, V,
-    dO, the row statistics, 16 warps' two row buffers)."""
-    if backward:
-        return 4 * (4 * n * (d + 1) + 3 * n + 2 * 16 * n) + 4 * n
-    return 4 * (n * (d + 1) + n * d + 8 * 32 + 8 * n) + 4 * n
-
-
-def attention_tiled(n: int, d: int, backward: bool = False) -> bool:
-    """Whether K1 (``backward``: K1b) runs the key-tiled attention body at N
-    = n and head dim d: wherever the tiled body takes the head dim (a
-    multiple of 16; every preset: Swin-T's d = 32, ViT's d = 64), and
-    wherever the whole-window body does not (a head dim above 32, or its
-    shared memory beyond what a block may use)."""
-    return (d % TILED_HEAD_STEP == 0 or d > UNTILED_HEAD_DIM
-            or _untiled_smem_bytes(n, d, backward) > SMEM_PER_BLOCK)
-
-
-def _check_tiled_head_dim(what, c, num_heads):
-    """The key-tiled CUDA body takes head dims that are multiples of 16."""
-    if (c // num_heads) % TILED_HEAD_STEP:
-        raise ValueError(f"{what}: head dim {c // num_heads}: the key-tiled "
-                         f"attention takes multiples of {TILED_HEAD_STEP} "
-                         f"up to {MAX_HEAD_DIM}")
 
 
 def _compute_dtype(x):
@@ -375,7 +342,7 @@ def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attn_half: x dtype {x.dtype} (f32 or bf16)")
     bw, n, c = x.shape
-    if c % num_heads or c // num_heads > MAX_HEAD_DIM:
+    if c % num_heads or not takes_head_dim(c // num_heads):
         raise ValueError(f"attn_half: C={c} over {num_heads} heads: the "
                          f"kernels take head dims up to {MAX_HEAD_DIM}")
     dev, f32 = x.device, torch.float32
@@ -398,16 +365,9 @@ def _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
     return ids_rows, _check_gains("attn_half", gf, gb, bw, dev)
 
 
-def _tiled(n, c, num_heads):
-    """Whether a K1 call takes the key-tiled body, forward and backward
-    alike: K1b's choice, which covers K1f's own."""
-    return attention_tiled(n, c // num_heads, backward=True)
-
-
 def _tiled_buffers(x, num_heads):
-    """K1f's tiled outputs beside ao, K1b's inputs: the row statistics [BW,
-    H, N, 2] f32 and, for bf16 x, o [BW, N, C] f32 (None for f32 x: ao is
-    o)."""
+    """K1f's outputs beside ao, K1b's inputs: the row statistics [BW, H, N,
+    2] f32 and, for bf16 x, o [BW, N, C] f32 (None for f32 x: ao is o)."""
     bw, n, c = x.shape
     stats = torch.empty((bw, num_heads, n, 2), dtype=torch.float32,
                         device=x.device)
@@ -419,21 +379,15 @@ def _tiled_buffers(x, num_heads):
 def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                       proj_b, gf, gb, scale, num_heads, lam, gamma=None,
                       post_norm=False):
-    """K1f: launch ``csrc/attn_half.cu``, with the key-tiled attention body
-    where ``_tiled`` says so. Returns (out, the attention output ao [BW, N,
-    C], the row statistics [BW, H, N, 2] and o [BW, N, C] f32 of the tiled
-    body (None untiled; o None for f32 x)): K1b's inputs, ao under post-norm
-    or tiled, the others tiled."""
+    """K1f: launch ``csrc/attn_half.cu``. Returns (out, the attention output
+    ao [BW, N, C], the row statistics [BW, H, N, 2] and o [BW, N, C] f32 (o
+    None for f32 x)): K1b's inputs."""
     ids_rows, nsamp = _check_attn(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
                                   proj_w, proj_b, gf, gb, num_heads, gamma)
     if post_norm:   # the post-norm finish reads x's rows by 16-byte vectors
         x = _aligned16(x)
     bw, n, c = x.shape
-    tiled = _tiled(n, c, num_heads)
-    stats = o32 = None
-    if tiled:
-        _check_tiled_head_dim("attn_half", c, num_heads)
-        stats, o32 = _tiled_buffers(x, num_heads)
+    stats, o32 = _tiled_buffers(x, num_heads)
     out = torch.empty_like(x)
     qkv_buf = torch.empty((bw * n, 3 * c), dtype=x.dtype, device=x.device)
     ao_buf = torch.empty_like(x)
@@ -441,7 +395,7 @@ def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
               if post_norm else None)
     with torch.cuda.device(x.device):
         err = library().vsn_attn_half_fwd(
-            int(tiled), int(x.dtype == torch.bfloat16), x.data_ptr(),
+            int(x.dtype == torch.bfloat16), x.data_ptr(),
             norm_w.data_ptr(), norm_b.data_ptr(), qkv_w.data_ptr(),
             ptr(qkv_b), ptr(bias), ptr(ids), ids_rows, proj_w.data_ptr(),
             proj_b.data_ptr(), gf.data_ptr(), ptr(gamma), int(post_norm),
@@ -449,8 +403,7 @@ def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
             ptr(branch), out.data_ptr(), bw, n, c, num_heads,
             (bw // nsamp) * n, float(scale), float(lam), stream_of(x))
     check(err, "attn_half")
-    launches[mode_key("attn_half_tiled" if tiled else "attn_half", gamma,
-                      post_norm)] += 1
+    launches[mode_key("attn_half_tiled", gamma, post_norm)] += 1
     return out, ao_buf, stats, o32
 
 
@@ -460,10 +413,10 @@ def _check_tiled_launch(qkv, bias, ids, num_heads):
         raise TypeError(f"attention_tiled: qkv dtype {qkv.dtype}")
     bw, n, c3 = qkv.shape
     c = c3 // 3
-    if c3 % 3 or c % num_heads or c // num_heads > MAX_HEAD_DIM:
+    if c3 % 3 or c % num_heads or not takes_head_dim(c // num_heads):
         raise ValueError(f"attention_tiled: qkv {tuple(qkv.shape)} over "
-                         f"{num_heads} heads")
-    _check_tiled_head_dim("attention_tiled", c, num_heads)
+                         f"{num_heads} heads: head dims up to "
+                         f"{MAX_HEAD_DIM}")
     expect(qkv, "qkv", (bw, n, c3), qkv.dtype, qkv.device)
     if bias is not None:
         expect(bias, "bias", (num_heads, n, n), torch.float32, qkv.device)
@@ -1035,12 +988,11 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                        gamma=None, post_norm=False, ao=None, stats=None,
                        o32=None):
     """VJP of ``attn_half``: K1b (``csrc/attn_half_bwd.cu``) for a CUDA
-    tensor, with the key-tiled attention backward where ``_tiled`` says so;
-    ``attn_half_backward_reference`` for a CPU one (which recomputes ao);
-    same returns. Under post-norm, and with the tiled body, K1b reads
-    ``ao``, K1f's attention output of this call, where the TPU kernel
-    recomputes it; the tiled body also reads K1f's row ``stats`` and (bf16)
-    ``o32`` (``_attn_half_kernel``'s second to fourth returns)."""
+    tensor; ``attn_half_backward_reference`` for a CPU one (which recomputes
+    ao); same returns. On the card K1b reads ``ao``, K1f's attention output
+    of this call, where the TPU kernel recomputes it, and K1f's row
+    ``stats`` and (bf16) ``o32`` (``_attn_half_kernel``'s second to fourth
+    returns)."""
     if x.device.type == "cpu":
         return attn_half_backward_reference(x, norm_w, norm_b, qkv_w, qkv_b,
                                             bias, ids, proj_w, gb, dout,
@@ -1053,20 +1005,14 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
                                   proj_w, proj_b, gb, gb, num_heads, gamma)
     expect(dout, "dout", tuple(x.shape), x.dtype, x.device)
     bw, n, c = x.shape
-    tiled = _tiled(n, c, num_heads)
-    if tiled:
-        _check_tiled_head_dim("attn_half_backward", c, num_heads)
-        if stats is None or (o32 is None) != (x.dtype == torch.float32):
-            raise ValueError("attn_half_backward: the key-tiled body needs "
-                             "K1f's row statistics (and o32 for bf16)")
-        expect(stats, "stats", (bw, num_heads, n, 2), torch.float32, x.device)
-        if o32 is not None:
-            expect(o32, "o32", tuple(x.shape), torch.float32, x.device)
-    if post_norm or tiled:
-        if ao is None:
-            raise ValueError("attn_half_backward: post-norm and the key-tiled"
-                             " body need K1f's ao")
-        expect(ao, "ao", tuple(x.shape), x.dtype, x.device)
+    if (ao is None or stats is None
+            or (o32 is None) != (x.dtype == torch.float32)):
+        raise ValueError("attn_half_backward: K1b needs K1f's ao, row "
+                         "statistics (and o32 for bf16)")
+    expect(ao, "ao", tuple(x.shape), x.dtype, x.device)
+    expect(stats, "stats", (bw, num_heads, n, 2), torch.float32, x.device)
+    if o32 is not None:
+        expect(o32, "o32", tuple(x.shape), torch.float32, x.device)
     rows, dev, dt = bw * n, x.device, x.dtype
     x, dout = _aligned16(x), _aligned16(dout)   # the LN backward's rows
     # the f32 gradients the kernels add into, zeroed in one buffer; dproj_w
@@ -1077,24 +1023,20 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
     grads = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
     (dproj_w, dln_w, dln_b, dqkv_w, dqkv_b, dbias, dproj_b,
      dgamma) = grads.split(sizes)
-    bias_t = None if bias is None else bias.transpose(1, 2).contiguous()
     y = torch.empty((rows, c), dtype=dt, device=dev)
     ln_stats = torch.empty((rows, 2), dtype=torch.float32, device=dev)
     qkv = torch.empty((rows, 3 * c), dtype=dt, device=dev)
     dao = torch.empty((rows, c), dtype=dt, device=dev)
-    if not (post_norm or tiled):   # the whole-window body writes ao here
-        ao = torch.empty((rows, c), dtype=dt, device=dev)
     dqkv = torch.empty((rows, 3 * c), dtype=dt, device=dev)
     dy = torch.empty((rows, c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    s1 = (torch.empty((bw, num_heads, n), dtype=torch.float32, device=dev)
-          if tiled else None)
+    s1 = torch.empty((bw, num_heads, n), dtype=torch.float32, device=dev)
     part, floats = _row_scratch(dev, rows, c, (c,))
     with torch.cuda.device(dev):
         err = library().vsn_attn_half_bwd(
-            int(tiled), int(dt == torch.bfloat16), x.data_ptr(),
+            int(dt == torch.bfloat16), x.data_ptr(),
             norm_w.data_ptr(), norm_b.data_ptr(), qkv_w.data_ptr(),
-            ptr(qkv_b), ptr(bias), ptr(bias_t), ptr(ids), ids_rows,
+            ptr(qkv_b), ptr(bias), ptr(ids), ids_rows,
             proj_w.data_ptr(), ptr(proj_b), ptr(gamma), int(post_norm),
             gb.data_ptr(), dout.data_ptr(), y.data_ptr(), ln_stats.data_ptr(),
             qkv.data_ptr(), dao.data_ptr(), ao.data_ptr(), dqkv.data_ptr(),
@@ -1103,13 +1045,11 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
             dbias.data_ptr() if bias is not None else None,
             dproj_w.data_ptr(), dproj_b.data_ptr(),
             dgamma.data_ptr() if gamma is not None else None,
-            ptr(o32), ptr(stats), ptr(s1), part.data_ptr(), floats, bw, n, c,
-            num_heads,
-            (bw // nsamp) * n,
-            float(scale), float(lam), stream_of(x))
+            ptr(o32), stats.data_ptr(), s1.data_ptr(), part.data_ptr(),
+            floats, bw, n, c, num_heads, (bw // nsamp) * n, float(scale),
+            float(lam), stream_of(x))
     check(err, "attn_half_bwd")
-    launches[mode_key("attn_half_bwd_tiled" if tiled else "attn_half_bwd",
-                      gamma, post_norm)] += 1
+    launches[mode_key("attn_half_bwd_tiled", gamma, post_norm)] += 1
     return (dx, dln_w, dln_b, dqkv_w.view(3 * c, c),
             dqkv_b if qkv_b is not None else None,
             dbias.view(num_heads, n, n) if bias is not None else None,
@@ -1119,8 +1059,8 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
 
 class _AttnHalf(torch.autograd.Function):
     """K1 with its VJP; ``plain`` selects the plain forward and backward. On
-    the card the forward keeps what K1b reads of it: ao under post-norm or
-    with the tiled body, and the tiled body's row statistics and f32 o."""
+    the card the forward keeps what K1b reads of it: ao, the row statistics
+    and (bf16) the f32 o."""
 
     @staticmethod
     def forward(ctx, plain, x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
@@ -1134,8 +1074,6 @@ class _AttnHalf(torch.autograd.Function):
             out, ao, stats, o32 = attn_half_math(*args), None, None, None
         else:
             out, ao, stats, o32 = _attn_half_kernel(*args)
-            if not (post_norm or stats is not None):
-                ao = None
         ctx.save_for_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids,
                               proj_w, gb, proj_b, gamma, ao, stats, o32)
         return out
@@ -1174,9 +1112,8 @@ def attn_half(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
             differ are masked with -1e9), or None for no mask.
         proj_w: [C, C] f32; proj_b: [C] f32.
         gf, gb: [B] f32 per-sample branch gains, forward and backward.
-        scale, num_heads, lam: attention scale, heads (C / heads <= 128;
-            on the card a multiple of 16, the key-tiled body's, or at most
-            32, the whole-window body's), residual x-gain.
+        scale, num_heads, lam: attention scale, heads (C / heads <= 128),
+            residual x-gain.
         gamma: [C] f32 LayerScale of the branch (before the gains), or None.
         post_norm: the LayerNorm applies to the proj output, not to x.
     Returns: [BW, N, C] in x's dtype. Differentiable in x and the

@@ -33,7 +33,7 @@ statistics (max, 1 / sum) [BW, H, N, 2] and, for bf16, the f32 output o
 in the output's layout; autograd keeps them, and the backward reads them
 (p = exp(s - max) / sum, s1 = dO . o) instead of recomputing the softmax.
 e, p and ds are rounded to the activation type before their products.
-Head dims: any up to 32 and multiples of 16 up to 128.
+Head dims: every d from 1 to 128 (above 128 the wrappers raise).
 ``window_attention_qkv_launch`` / ``window_attention_launch`` /
 ``window_attention_windows_launch`` are the forwards with their kept
 state, and ``*_backward_launch`` the backwards from it; their plain
@@ -68,9 +68,7 @@ from vsn_tpu_torch.ops._build import (
 )
 
 NEG_INF = -1e9
-SMALL_HEAD_DIM = 32    # the tiled body: any head dim up to 32 (as D = 32),
-TILED_HEAD_STEP = 16   # then multiples of 16 (its mma depth)
-MAX_HEAD_DIM = 128     # up to 128
+MAX_HEAD_DIM = 128  # the tiled body (csrc/attn_tiled.cuh kMaxHeadDim)
 
 
 def mask_from_ids(ids: torch.Tensor) -> torch.Tensor:
@@ -194,10 +192,9 @@ def window_attention_qkv_kept_backward_reference(qkv, dout, o, stats, bias,
 
 
 def takes_head_dim(d: int) -> bool:
-    """Whether the tiled CUDA body (K4, V1, V3) takes head dim ``d``: any
-    up to 32, and multiples of 16 up to 128."""
-    return 0 < d <= MAX_HEAD_DIM and (d <= SMALL_HEAD_DIM
-                                      or d % TILED_HEAD_STEP == 0)
+    """Whether the tiled CUDA body (K1, K4, V1, V3) takes head dim ``d``:
+    every d from 1 to 128."""
+    return 0 < d <= MAX_HEAD_DIM
 
 
 def _check(qkv, bias, ids, n_heads):
@@ -208,9 +205,7 @@ def _check(qkv, bias, ids, n_heads):
     bw, n, c3 = qkv.shape
     if c3 % (3 * n_heads) or not takes_head_dim(c3 // (3 * n_heads)):
         raise ValueError(f"window_attention_qkv: 3C={c3} over {n_heads} "
-                         f"heads: K4 takes head dims up to {SMALL_HEAD_DIM} "
-                         f"and multiples of {TILED_HEAD_STEP} up to "
-                         f"{MAX_HEAD_DIM}")
+                         f"heads: K4 takes head dims up to {MAX_HEAD_DIM}")
     dev = qkv.device
     expect(qkv, "qkv", (bw, n, c3), qkv.dtype, dev)
     expect(bias, "bias", (n_heads, n, n), torch.float32, dev)
@@ -427,9 +422,7 @@ def _check_split(q, k, v, bias, ids):
         raise TypeError(f"window_attention: q dtype {q.dtype} (f32 or bf16)")
     if q.dim() != 4 or not takes_head_dim(q.shape[-1]):
         raise ValueError(f"window_attention: q {tuple(q.shape)} must be [BW, "
-                         f"H, N, d] with a head dim up to {SMALL_HEAD_DIM} or "
-                         f"a multiple of {TILED_HEAD_STEP} up to "
-                         f"{MAX_HEAD_DIM}")
+                         f"H, N, d] with a head dim up to {MAX_HEAD_DIM}")
     bw, heads, n, _ = q.shape
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -670,9 +663,7 @@ def _check_windows(qkv, bias, ids, n_heads, window):
                          f"a multiple of the window {tuple(window)}")
     if c3 % (3 * n_heads) or not takes_head_dim(c3 // (3 * n_heads)):
         raise ValueError(f"window_attention_windows: 3C={c3} over {n_heads} "
-                         f"heads: the head dims are up to {SMALL_HEAD_DIM} "
-                         f"and multiples of {TILED_HEAD_STEP} up to "
-                         f"{MAX_HEAD_DIM}")
+                         f"heads: the head dims are up to {MAX_HEAD_DIM}")
     n = math.prod(window)
     dev = qkv.device
     expect(qkv, "qkv", qkv.shape, qkv.dtype, dev)
