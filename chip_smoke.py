@@ -164,17 +164,23 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    logits (bias 8 z + 45, + 200, - 200, f32) on the N = 150 call with the
    keys of its ragged last key tile (128-149) 12 higher; the tiled
    launches alone on those calls against their plain versions, dbias
-   included; then head dims that are not multiples of 16, which no
-   preset's call takes (``odd_head_dim_phase``): the same calls re-headed
-   to d = 24 and 12 (a bf16 row of 24 bytes: staged by plain loads), one K1
+   included; then head dims that are not multiples of 16 or above 128,
+   which no preset's call takes (``odd_head_dim_phase``): the same calls
+   re-headed to d = 24 and 12 (a bf16 row of 24 bytes: staged by plain
+   loads) and, where the head dim divides their width, to 192 and 768 (the
+   tiled body's slab kernels; K4 on each such call's windows too), one K1
    call at d = 24 and N = 450 in f32 and bf16, one K1 and one K4 call at d
    = 40 (C = 120, 3 heads) over Swin-T's 1728 stage-1 windows of
-   micro-batch 8 with bias and region ids in bf16, through ``attn_half``
-   and ``window_attention_qkv``, forward and every gradient against the
-   plain versions, with only the tiled body's launches after the counters'
-   reset; then their launches alone (CUDA events) beside
-   ``F.scaled_dot_product_attention`` with the float mask on the same q,
-   k, v and the bound;
+   micro-batch 8 with bias and region ids in bf16, and one K4, V1 and V3
+   call at d = 192 (2 heads) over 2 samples of Swin-T's shifted stage-2
+   map in f32 and bf16, through ``attn_half``, ``window_attention_qkv``,
+   ``window_attention`` and ``window_attention_windows``, forward and
+   every gradient against the plain versions, with only the tiled body's
+   launches after the counters' reset (its slab kernels' counters,
+   ``..._slabs``, above 128); then their launches alone (CUDA events)
+   beside ``F.scaled_dot_product_attention`` with the float mask on the
+   same q, k, v (above 128, the backend its dispatcher picks) and the
+   bound, and K1f / K1b whole above 128;
 8. backward parity: the K1/K2/K3 calls of a training forward (ShakeDrop
    draws), f32 and bf16 at batch 2 and the training path's bf16 calls at
    micro-batch 8, with the same seeded parameters and gains, lam 0 and 1.
@@ -203,7 +209,9 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    the probe path (``python -m vsn_tpu_torch.probes.attn_ablate[2]``'s
    ``main``) with every launch counter at 0 before and exactly 3 launches
    per call of a whole half-block, 2 of ``linear_only`` / ``attn_only`` /
-   ``lin``, 1 of a copy after; each run's time beside its plain version's,
+   ``lin``, 1 of a copy after (the copies P2-P4, and ``Tensor.copy_`` into
+   a preallocated tensor beside them, then timed alone by ``launch_ms`` on
+   the same x); each run's time beside its plain version's,
    its bound, ``Tensor.copy_``'s for the copies, and K1f's on the same x;
 10. K5 parity: the stem conv K5f and its weight gradient K5w against their
    plain versions (the f32 conv of dtype-rounded operands, and its VJP) in
@@ -278,12 +286,25 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 16a. the ViT stabilizer path: phases 15 and 16 for ViT-S with POST_NORM,
    LAYER_SCALE and ENABLE_STABLE (12 tiled K1f / K1b and 12 K2f / K2b in
    the "_post_ls" mode per forward or micro-batch and SAM pass);
+16b. heads above 128 (``wide_head_run``): Swin-T 5c at HEADS [1, 1, 1, 1]
+   (d = 96, 192, 384, 768) and ViT-S's widths at 2 heads of 192
+   (``wide_vit_model``: the configs fix ViT's dim_head at 64), each through
+   ``Evaluator.predict`` on 4 volumes (exactly 2 tiled and 10 slab K1f
+   launches per Swin forward, 12 slab K1f per ViT forward) against the
+   plain route's probs and logits, and 2 flagship training steps (micro 8
+   x 2, 24 x 2; the first with exact launch counts) against 2 plain-route
+   steps within TRAIN_RTOL; then K1's times per stage at the wide Swin's
+   training calls (``swin_k1_times``) and the attention launches alone at
+   the wide ViT's (``tiled_launch_times``), both beside SDPA;
 17. K3 at Swin's training calls at micro-batch 8: each mover call and its
    adjoint alone (``mover_launch_times``: CUDA events over LAUNCH_REPS calls
    queued behind a spin kernel), the bandwidth each reaches (its bytes and
    its row map's, over that time) and its share of 3.35 TB/s, summed per
    micro-batch and logged beside the K3 entries' times (through their
-   wrappers, as every block kernel's entry); K1 at Swin's training calls at micro-batch 8, per stage and summed
+   wrappers, as every block kernel's entry) and beside one
+   ``Tensor.index_select(0, index)`` over the same row map (its library
+   time, ``mover_library_times``); K1 at Swin's training calls at
+   micro-batch 8, per stage and summed
    (``swin_k1_times``): K1f and K1b whole; their attention launches alone
    (CUDA events over 10 calls queued behind a spin kernel: K1f's launch
    2, K1b's phases A and B, split by the profiler's shares) beside K4f's
@@ -422,6 +443,16 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "attention_windows_bwd": ("vsn_tpu_torch/csrc/window_attention_qkv.cu",
                               "vsn_tpu/ops/window_attention.py:528"),
 }
+# The slab kernels of the tiled body (head dims above 128), launched by the
+# same entry points and counted apart (``window_attention.body_key``,
+# ``swin_block_kernels.k1_body``), each a result-line entry: K1 on the
+# wide-head model runs, K4 / V1 / V3 on phase 7's calls
+SLAB_BASES = ("attn_half", "attn_half_bwd", "attention", "attention_bwd",
+              "attention_split", "attention_split_bwd", "attention_windows",
+              "attention_windows_bwd")
+SLAB_NAME = {base: f"{base}_slabs" for base in SLAB_BASES}
+KERNELS.update({SLAB_NAME[base]: ("vsn_tpu_torch/csrc/attn_tiled.cuh",
+                                  KERNELS[base][1]) for base in SLAB_BASES})
 # The attention probes, one entry per run of the two scripts: launch key
 # (ops/attn_probe.py launch_key) -> (the script's run name, source, TPU
 # kernel it replaces). P1 and P5 are variants of K1f's body.
@@ -607,15 +638,40 @@ VIT_CASES = {"no mask", "no bias", "N=811"}
 # K1's names for ViT's calls, and the key-tiled body's launch counters
 TILED_NAME = {"attn_half": "attn_half_tiled",
               "attn_half_bwd": "attn_half_bwd_tiled"}
-# The head dims that phase 7 re-heads Swin's calls to (not multiples of the
-# tiled body's mma depth of 16; they divide every Swin-T stage width; a bf16
-# row of 12 channels, 24 bytes, is staged by plain loads), and its other
+# The head dims that phase 7 re-heads Swin's calls to, each call whose width
+# it divides: 24 and 12, not multiples of the tiled body's mma depth of 16
+# (a bf16 row of 12 channels, 24 bytes, is staged by plain loads); 192 and
+# 768, above the body's 128, on its slab kernels (2 and 6 slabs; the padded
+# C = 384 and N = 150 C = 768 calls, and K4 on the same windows). Its other
 # calls' geometries (map dims, window, shift, C, heads): d = 24 at N = 450
-# (2 samples of 8 windows), and d = 40 over Swin-T's stage-1 windows (a
-# sample's 216 windows of 252 tokens; TRAIN_MICRO samples)
-ODD_HEAD_DIMS = (24, 12)
+# (2 samples of 8 windows), d = 40 over Swin-T's stage-1 windows (a
+# sample's 216 windows of 252 tokens; TRAIN_MICRO samples), and the V1 / V3
+# calls at WIDE_V_HEAD_DIM (K4 calls over 2 samples of Swin-T's shifted
+# stage-2 map, 8 windows of 252 tokens, 2 heads of 192)
+ODD_HEAD_DIMS = (24, 12, 192, 768)
 ODD_N_GEOMETRY = ((18, 20, 10), (9, 10, 5), (4, 5, 2), 96, 4)
 ODD_WIDE = ((36, 42, 36), (6, 7, 6), (3, 3, 3), 120, 3)
+TILED_HEAD_DIM = 128   # the tiled body's widest head; above it its slabs
+WIDE_V_HEAD_DIM = 192
+WIDE_V = ((12, 14, 12), (6, 7, 6), (3, 3, 3), 384, 2)
+# The wide-head model runs (phase 16b): Swin-T LN 5c with one head a stage
+# (d = 96, 192, 384, 768: stage 1 on the tiled body, 2-4 on its slabs) and
+# ViT-S's widths at 2 heads of 192 (ViT3D(dim_head=192): the configs fix
+# dim_head at 64, as the reference does), eval of BATCH volumes and one
+# training step each, against the plain route
+WIDE_SWIN_HEADS = [1, 1, 1, 1]
+WIDE_VIT_HEADS = (2, 192)   # heads, dim_head
+WIDE_SWIN_PER_FORWARD = {"attn_half_tiled": 2, "attn_half_slabs": 10,
+                         "ln_mlp": 12, "spatial_to_windows": 3,
+                         "windows_to_windows": 2, "windows_to_spatial": 2}
+WIDE_SWIN_PER_PASS = {**WIDE_SWIN_PER_FORWARD, "attn_half_bwd_tiled": 2,
+                      "attn_half_bwd_slabs": 10, "ln_mlp_bwd": 12,
+                      **{f"{m}_adjoint": WIDE_SWIN_PER_FORWARD[m]
+                         for m in ("spatial_to_windows", "windows_to_windows",
+                                   "windows_to_spatial")}}
+WIDE_VIT_PER_FORWARD = {"attn_half_slabs": 12, "ln_mlp": 12}
+WIDE_VIT_PER_PASS = {**WIDE_VIT_PER_FORWARD, "attn_half_bwd_slabs": 12,
+                     "ln_mlp_bwd": 12}
 # calls a launch-alone time of phase 17 averages over (CUDA events)
 LAUNCH_REPS = 10
 KEY_TILE = 64   # keys per shared-memory tile of the tiled body (kTileK)
@@ -653,7 +709,9 @@ ROW_BODIES = {"ln_bwd_rows_kernel": 52, "ln_rows_kernel": 39,
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # the forward call whose arguments set a kernel's work (bound_ms)
-FORWARD_OF = {"attn_half_bwd": "attn_half", "ln_mlp_bwd": "ln_mlp",
+FORWARD_OF = {**{f"{base}_slabs": base.removesuffix("_bwd")
+                 for base in SLAB_BASES},
+              "attn_half_bwd": "attn_half", "ln_mlp_bwd": "ln_mlp",
               "attn_half_tiled": "attn_half",
               "attn_half_bwd_tiled": "attn_half",
               "stem_im2col_dw": "stem_im2col", "attention_bwd": "attention",
@@ -1886,6 +1944,70 @@ def mover_launch_times(calls, card):
     return out
 
 
+# K3 entry -> the layouts of its move (source in windows, destination in
+# windows) and the sign of its roll against the mover call's (an adjoint is
+# the opposite move, its roll negated: ``mover_adjoints``)
+MOVER_MAPS = {
+    "spatial_to_windows": (False, True, 1),
+    "windows_to_windows": (True, True, 1),
+    "windows_to_spatial": (True, False, 1),
+    "spatial_to_windows_adjoint": (True, False, -1),
+    "windows_to_windows_adjoint": (True, True, -1),
+    "windows_to_spatial_adjoint": (False, True, -1),
+}
+
+
+def mover_gather(kname, args, src):
+    """(src's rows [R, C], the row index [R] int64 on src's device) of the
+    gather that K3 entry ``kname`` (a mover, or its adjoint with ``src`` a
+    cotangent the size of the mover's output) makes on the mover call
+    ``args``: ``relayout_map``'s host-built row map of one sample, the K3
+    kernel's own, laid over the batch. ``rows.index_select(0, index)`` is
+    the entry's output."""
+    import torch
+    from vsn_tpu_torch.ops import window_relayout as wr
+
+    name = kname.removesuffix("_adjoint")
+    x, window = args[0], tuple(int(w) for w in args[1])
+    dims = tuple(int(d) for d in (x.shape[1:4] if name == "spatial_to_windows"
+                                  else args[2]))
+    src_windows, dst_windows, sign = MOVER_MAPS[kname]
+    roll = tuple(int(sign * r) % d for r, d in zip(args[-1], dims))
+    rows = torch.from_numpy(wr.relayout_map(dims, window, roll, src_windows,
+                                            dst_windows)).long()
+    per = rows.numel()
+    flat = src.reshape(-1, src.shape[-1])
+    index = (torch.arange(flat.shape[0] // per)[:, None] * per
+             + rows[None]).flatten()
+    return flat, index.to(src.device)
+
+
+def mover_library_times(calls, card):
+    """{K3 entry: ms summed over the mover calls of ``calls``} of the
+    library's gather beside each K3 launch: one ``Tensor.index_select(0,
+    index)`` a call over the same row map (``mover_gather``), by
+    ``launch_ms``, a forward and its adjoint each; a yardstick the port
+    never calls."""
+    import torch
+
+    table = kernel_table()
+    out = collections.Counter()
+    with torch.no_grad():
+        for name, args in calls:
+            if name not in MOVERS:
+                continue
+            g = table[name][1](*args)
+            for kname, src in ((name, args[0]), (f"{name}_adjoint", g)):
+                flat, index = mover_gather(kname, args, src)
+                out[kname] += launch_ms(lambda: flat.index_select(0, index))
+                del flat, index
+            del g
+    log(f"[{card}] K3's gather as Tensor.index_select over its row map, "
+        f"summed over a micro-batch of {TRAIN_MICRO}: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
 def kernel_times(calls, backward=True):
     """Per-kernel (ms, plain ms) summed over one forward's calls and (with
     ``backward``) their backward: the forward wrappers and K1b/K2b/K4b on
@@ -1938,6 +2060,45 @@ def kernel_times(calls, backward=True):
     return ms, plain_ms
 
 
+def phase_tags(d):
+    """The kernel names of a backward's phases A and B at head dim ``d``,
+    as ``phase_shares`` finds them: the tiled body's, or its slab kernels'
+    above TILED_HEAD_DIM."""
+    if d > TILED_HEAD_DIM:
+        return ("attention_slab_rows", "attention_slab_keys")
+    return ("attention_bwd_rows", "attention_bwd_keys")
+
+
+def slab_times(calls):
+    """({slab entry: ms}, {slab entry: plain ms}, {slab entry: (bound ms,
+    by)}) of the calls of ``calls`` above TILED_HEAD_DIM, under the slab
+    kernels' entries (SLAB_NAME): ``kernel_times`` and ``bound_ms`` of each
+    entry that the calls launch, forward and backward."""
+    ms, plain = kernel_times(calls)
+    bounds = {SLAB_NAME[base]: bound_ms(SLAB_NAME[base], calls)
+              for base in ms}
+    return ({SLAB_NAME[base]: t for base, t in ms.items()},
+            {SLAB_NAME[base]: t for base, t in plain.items()}, bounds)
+
+
+def sdpa_operands(qkv, bias, ids, heads):
+    """q, k, v [BW, H, N, d] of a K4 call's packed qkv, and its additive
+    float mask bias[h] + mask(ids) [BW, H, N, N] (bias[h] alone, [1, H, N,
+    N], where ids is None) in qkv's dtype: the operands of the SDPA call
+    that stands beside the kernels."""
+    import torch
+    from vsn_tpu_torch.ops.window_attention import mask_from_ids
+
+    bw, n, c3 = qkv.shape
+    q, k, v = (t.contiguous() for t in
+               qkv.reshape(bw, n, 3, heads, -1).permute(2, 0, 3, 1, 4))
+    mask = bias[None]
+    if ids is not None:
+        rows = torch.arange(bw, device=qkv.device) % ids.shape[0]
+        mask = mask + mask_from_ids(ids)[rows][:, None]
+    return q, k, v, mask.to(qkv.dtype)
+
+
 def sdpa_times(calls):
     """(forward ms, backward ms) of the library's attention on K4's work,
     summed over the K4 calls of ``calls``: one
@@ -1948,20 +2109,12 @@ def sdpa_times(calls):
     backward to q, k, v and the mask. A yardstick the port never calls."""
     import torch
     import torch.nn.functional as F
-    from vsn_tpu_torch.ops.window_attention import mask_from_ids
 
     fwd = bwd = 0.0
     for name, (qkv, bias, ids, scale, heads) in calls:
         if name != "attention":
             continue
-        bw, n, c3 = qkv.shape
-        q, k, v = (t.contiguous() for t in
-                   qkv.reshape(bw, n, 3, heads, -1).permute(2, 0, 3, 1, 4))
-        mask = bias[None]
-        if ids is not None:
-            rows = torch.arange(bw, device=qkv.device) % ids.shape[0]
-            mask = mask + mask_from_ids(ids)[rows][:, None]
-        mask = mask.to(qkv.dtype)
+        q, k, v, mask = sdpa_operands(qkv, bias, ids, heads)
         fwd += cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale))
         leaves = [t.detach().requires_grad_() for t in (q, k, v, mask)]
@@ -2171,6 +2324,7 @@ def call_work(name, args):
         flops, nbytes = call_work(base, args)
         return flops, nbytes + 4 * x.shape[-1] * (2 if "_bwd" in base else 1)
     name = {v: k for k, v in TILED_NAME.items()}.get(name, name)
+    name = name.removesuffix("_slabs")   # the slab kernels: the same work
     if name in PROBES:
         return probe_work(name, *args)
     if name in ("attention", "attention_bwd"):
@@ -2457,6 +2611,99 @@ def model_train_path(cfg, batch, images, per_pass, passes, label, recipe,
         f"ms; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB (the kernel route's steps alone {kernel_peak / 2**30:.3f})")
     return counts
+
+
+def wide_vit_model(cfg, device=None):
+    """ViT-S of ``cfg`` at WIDE_VIT_HEADS (2 heads of 192): ``seeded_model``
+    (``build_model``) with ViT3D's dim_head set to 192, which the configs
+    fix at 64 as the reference does (vsn_tpu/models/vit3d.py:399)."""
+    import functools
+    from vsn_tpu_torch.models import vit3d
+
+    heads, dim_head = WIDE_VIT_HEADS
+    with mock.patch.object(vit3d, "ViT3D", functools.partial(
+            vit3d.ViT3D, dim_head=dim_head)):
+        return seeded_model(cfg.replace(HEADS=heads), device)
+
+
+def wide_head_run(cfg, train_cfg, build, batch, images, per_forward,
+                  per_pass, label, card):
+    """One wide-head model run (phase 16b), the model from ``build(cfg)``:
+    the eval path through ``Evaluator.predict`` on BATCH volumes, every
+    launch counter at 0 before and exactly ``per_forward`` after, probs and
+    one batch's logits against the plain route (``compare_probs``,
+    ``compare_logits``); one training step through ``make_train_step``
+    (``train_route``) on ``batch``, every counter at 0 before and exactly
+    ``per_pass`` times its passes after, then a second step, both against
+    two plain-route steps from the same state on the same draws
+    (``report_routes``: TRAIN_RTOL; the rates from each route's second
+    step, the first holding the warm-up). Then the K1 calls of one
+    training micro-batch (``record_calls``). Returns (the eval and first
+    step's launch counts summed, those calls)."""
+    import torch
+    from vsn_tpu_torch.eval.evaluate import Evaluator
+    from vsn_tpu_torch.ops import _build
+    from vsn_tpu_torch.train.step import init_train_state, make_batch_transform
+
+    sync = torch.cuda.synchronize
+    model = build(cfg)
+    evaluator = Evaluator(cfg, model, batch_size=BATCH)
+    imgs = images[:BATCH]
+    _build.launches.clear()
+    probs = evaluator.predict(imgs)
+    sync()
+    counts = collections.Counter(launch_counts())
+    log(f"{label} eval path: {BATCH} volumes, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    check_counts(counts, per_forward, 1, f"{label} eval")
+    check_probs(probs, BATCH, cfg.num_classes)
+    plain = lambda: patched_model_ops(lambda name, kernel, p: p)
+    with plain():
+        probs_plain = evaluator.predict(imgs)
+    compare_probs(f"{label} eval path", probs, probs_plain)
+    x = torch.from_numpy(imgs).to(evaluator.device)
+    compare_logits(f"{label} eval path", model, evaluator.transform(x), plain)
+    del model, evaluator, x
+
+    torch.cuda.reset_peak_memory_stats()
+    micro = train_cfg.BATCH_SIZE
+    model = build(train_cfg)
+    state = init_train_state(train_cfg, model)
+    initial = state.params.flat.clone()
+    draws = Draws(model, micro, batch["image"].device, SEED)
+    _build.launches.clear()
+    kernel, secs = train_route(model, train_cfg, state, batch, draws, 1, sync)
+    train_counts = launch_counts()
+    passes = TRAIN_ACCUM * (2 if train_cfg.USE_SAM else 1)
+    log(f"{label} train path: 1 step of {TRAIN_ACCUM} x {micro} volumes "
+        f"(SAM: 2 passes), launches "
+        f"{ {k: v for k, v in train_counts.items() if v} }")
+    check_counts(train_counts, per_pass, passes, f"{label} train")
+    more, more_secs = train_route(model, train_cfg, state, batch, draws, 1,
+                                  sync)
+    kernel += more
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        state.params.flat.copy_(initial)
+    del state
+    pstate = init_train_state(train_cfg, model)
+    with patched_model_ops(lambda name, kernel, plain: plain):
+        plain_metrics, plain_secs = train_route(model, train_cfg, pstate,
+                                                batch, draws, 2, sync)
+    report_routes(f"{label} train", kernel, plain_metrics, more_secs,
+                  plain_secs[1:], TRAIN_ACCUM * micro,
+                  "the second step, the flagship recipe", card)
+    log(f"[{card}] {label} train first steps (warm-up): kernel route "
+        f"{1e3 * secs[0]:.1f} ms, plain {1e3 * plain_secs[0]:.1f} ms")
+    log(f"[{card}] {label} train kernel route: peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    del pstate
+    micro0 = {k: v[0] for k, v in batch.items()}
+    x = make_batch_transform(train_cfg)(micro0)[0].to(model.dtype)
+    calls = record_calls(model.train(), x,
+                         generator=torch.Generator(x.device).manual_seed(6))
+    counts.update(train_counts)
+    return counts, [(n, a) for n, a in calls if n == "attn_half"]
 
 
 def seeded_model(cfg, device=None):
@@ -2760,25 +3007,69 @@ def odd_k1_call(geometry, samples, dtype, device, gen):
 def odd_k4_call(k1):
     """K4's call (qkv [BW, N, 3C] in x's dtype, bias, ids, scale, heads) on
     the windows of K1 call ``k1``: qkv and bias placeholders, which the
-    parity phases seed (``seeded_params``)."""
+    parity phases seed (``seeded_params``); one row of zero ids where K1's
+    call has none (an unshifted block's)."""
     import torch
 
     x, bias, ids, scale, heads = k1[0], k1[5], k1[6], k1[11], k1[12]
     bw, n, c = x.shape
+    if ids is None:
+        ids = torch.zeros(1, n, dtype=torch.int32, device=x.device)
     return (torch.empty(bw, n, 3 * c, dtype=x.dtype, device=x.device), bias,
             ids, scale, heads)
 
 
+def head_dim(name, args):
+    """The head dim of a call of K1 ("attn_half"), K4, V1 or V3."""
+    if name == "attn_half":
+        return args[0].shape[-1] // args[12]
+    if name == "attention_split":
+        return args[0].shape[-1]
+    return args[0].shape[-1] // (3 * args[4])
+
+
+def body_counter(name, d):
+    """The launch counter of a call of ``name`` (a forward or ``_bwd``) at
+    head dim ``d``: K1's key-tiled body's (TILED_NAME) or, above
+    TILED_HEAD_DIM, the slab kernels' (SLAB_NAME)."""
+    if d > TILED_HEAD_DIM:
+        return SLAB_NAME[name]
+    return TILED_NAME.get(name, name)
+
+
+def wide_v_calls(dtype, device, gen):
+    """K4, V1 and V3 calls at WIDE_V_HEAD_DIM: a K4 call over the shifted
+    windows of WIDE_V (2 samples; qkv and bias placeholders, which the
+    parity phases seed), the same call on split heads (V1) and on the map
+    (V3)."""
+    dims, window = WIDE_V[:2]
+    k4 = odd_k4_call(odd_k1_call(WIDE_V, 2, dtype, device, gen))
+    k4 = seeded_params("attention", k4, gen)
+    return [("attention", k4), ("attention_split", split_call(k4)),
+            ("attention_windows", windows_call(k4, window, dims))]
+
+
 def odd_head_dim_sets(sets, device, gen):
     """The calls of the odd-head-dim phase: ``swin_route_calls`` of every
-    set of ``sets`` re-headed to each of ODD_HEAD_DIMS (``reheaded``); K1 at
-    ODD_N (``ODD_N_GEOMETRY``) in f32 and bf16; K1 and K4 at ODD_WIDE over
-    Swin-T's stage-1 windows of micro-batch TRAIN_MICRO in bf16."""
+    set of ``sets`` re-headed to each of ODD_HEAD_DIMS (``reheaded``), each
+    call whose width the head dim divides, and K4 on each such call's
+    windows above TILED_HEAD_DIM; K1 at ODD_N (``ODD_N_GEOMETRY``) in f32
+    and bf16; K1 and K4 at ODD_WIDE over Swin-T's stage-1 windows of
+    micro-batch TRAIN_MICRO in bf16; where WIDE_V_HEAD_DIM is one of
+    ODD_HEAD_DIMS, K4, V1 and V3 at it in f32 and bf16
+    (``wide_v_calls``)."""
     import torch
 
-    out = {f"d={d} {label}": [(name, reheaded(args, d)) for name, args in
-                              swin_route_calls(calls)]
-           for d in ODD_HEAD_DIMS for label, calls in sets.items()}
+    out = {}
+    for d in ODD_HEAD_DIMS:
+        for label, calls in sets.items():
+            k1 = [reheaded(args, d) for _, args in swin_route_calls(calls)
+                  if args[0].shape[-1] % d == 0]
+            route = [("attn_half", a) for a in k1]
+            if d > TILED_HEAD_DIM:
+                route += [("attention", odd_k4_call(a)) for a in k1]
+            if route:
+                out[f"d={d} {label}"] = route
     for dtype in (torch.float32, torch.bfloat16):
         k1 = odd_k1_call(ODD_N_GEOMETRY, 2, dtype, device, gen)
         out[f"d={ODD_N_GEOMETRY[3] // ODD_N_GEOMETRY[4]} N={k1[0].shape[1]} "
@@ -2786,57 +3077,93 @@ def odd_head_dim_sets(sets, device, gen):
     k1 = odd_k1_call(ODD_WIDE, TRAIN_MICRO, torch.bfloat16, device, gen)
     out[f"d={ODD_WIDE[3] // ODD_WIDE[4]} stage 1 micro {TRAIN_MICRO} "
         "bfloat16"] = [("attn_half", k1), ("attention", odd_k4_call(k1))]
+    if WIDE_V_HEAD_DIM in ODD_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            out[f"d={WIDE_V_HEAD_DIM} K4 V1 V3 "
+                f"{str(dtype).removeprefix('torch.')}"] = wide_v_calls(
+                dtype, device, gen)
     return out
 
 
 def odd_head_dim_phase(sets, device, gen, card):
-    """K1 and K4 at head dims that are not multiples of 16, on the key-tiled
-    body (phase 7): the calls of ``odd_head_dim_sets`` through their entry
-    points (``attn_half``, ``window_attention_qkv``), forward and every
-    gradient against the plain versions, with every launch counter at 0
-    before and, after, only the tiled body's launches (4 K1f and 2 K1b a K1
-    call: lam 0 and 1, as ``parity_phase`` and ``grad_parity_phase`` run
-    them; 2 K4f and 1 K4b a K4 call); then their launches alone beside SDPA
-    (``odd_head_times``). Returns {kernel: worst max|d|}."""
+    """K1, K4, V1 and V3 at head dims that are not multiples of 16 or that
+    are above the tiled body's 128 (phase 7): the calls of
+    ``odd_head_dim_sets`` through their entry points (``attn_half``,
+    ``window_attention_qkv``, ``window_attention``,
+    ``window_attention_windows``), forward and every gradient against the
+    plain versions, with every launch counter at 0 before and, after, only
+    the tiled body's launches up to 128 and its slab kernels' above (4 K1f
+    and 2 K1b a K1 call: lam 0 and 1, as ``parity_phase`` and
+    ``grad_parity_phase`` run them; 2 forward and 1 backward a K4, V1 or V3
+    call); then the launches alone beside SDPA, and K1 whole above 128
+    (``odd_head_times``). Returns ({kernel: worst max|d|} up to 128,
+    {slab entry: worst max|d|} above, the launch counts, the calls)."""
     from vsn_tpu_torch.ops import _build
 
     route = odd_head_dim_sets(sets, device, gen)
-    table = {**kernel_table(), **attention_table()}
+    table = {**kernel_table(), **attention_table(), **v_table()}
+    wide = lambda calls: any(head_dim(n, a) > TILED_HEAD_DIM
+                             for n, a in calls)
     _build.launches.clear()
-    worst, _ = parity_phase(route, table, gen)
-    bworst, _ = grad_parity_phase(route, table, gen)
+    worst, slabs = {}, {}
+    for part, out in ((False, worst), (True, slabs)):
+        sub = {label: calls for label, calls in route.items()
+               if wide(calls) == part}
+        if not sub:
+            continue
+        fworst, _ = parity_phase(sub, table, gen)
+        bworst, _ = grad_parity_phase(sub, table, gen)
+        for name, err in {**fworst, **bworst}.items():
+            out[SLAB_NAME[name] if part else name] = err
     counts = {name: n for name, n in _build.launches.items() if n}
-    n_k1 = sum(name == "attn_half" for calls in route.values()
-               for name, _ in calls)
-    n_k4 = sum(name == "attention" for calls in route.values()
-               for name, _ in calls)
-    want = {TILED_NAME["attn_half"]: 4 * n_k1,
-            TILED_NAME["attn_half_bwd"]: 2 * n_k1,
-            "attention": 2 * n_k4, "attention_bwd": n_k4}
-    dims = sorted({a[0].shape[-1] // (a[12] if n == "attn_half" else 3 * a[4])
-                   for calls in route.values() for n, a in calls})
-    log(f"odd head dims {dims}: {n_k1} K1 calls through attn_half and {n_k4} "
-        f"K4 through window_attention_qkv, launches {counts}")
-    if counts != want:
+    want = collections.Counter()
+    for calls in route.values():
+        for name, args in calls:
+            d, fwd = head_dim(name, args), 4 if name == "attn_half" else 2
+            want[body_counter(name, d)] += fwd
+            want[body_counter(backward_name(name), d)] += fwd // 2
+    dims = sorted({head_dim(n, a) for calls in route.values()
+                   for n, a in calls})
+    n_calls = collections.Counter(n for calls in route.values()
+                                  for n, _ in calls)
+    log(f"odd and wide head dims {dims}: calls {dict(n_calls)} through their "
+        f"entry points, launches {counts}")
+    if counts != dict(want):
         raise AssertionError(f"odd-head-dim launches {counts}, expected "
-                             f"{want}")
+                             f"{dict(want)}")
     odd_head_times(route, gen, card)
-    return {**worst, **bworst}
+    return worst, slabs, counts, route
+
+
+def sdpa_backend(qkv, bias, ids, scale, heads):
+    """The backend that PyTorch's dispatcher picks for
+    ``F.scaled_dot_product_attention`` with the float mask on K4 call
+    (qkv, bias, ids, scale, heads)'s q, k, v (``torch._fused_sdp_choice``):
+    "flash_attention", "efficient_attention", "cudnn_attention" or
+    "math"."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    q, k, v, mask = sdpa_operands(qkv, bias, ids, heads)
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, attn_mask=mask, scale=scale)).name.lower()
 
 
 def odd_head_times(route, gen, card):
-    """The tiled body's launches alone at the odd head dims, by CUDA events
-    (``launch_ms``), for each bf16 set of ``route`` (``odd_head_dim_sets``):
-    K1f's attention launch and K1b's phases A + B
+    """The tiled body's launches alone at the odd and wide head dims, by
+    CUDA events (``launch_ms``), for each bf16 set of ``route``
+    (``odd_head_dim_sets``): K1f's attention launch and K1b's phases A + B
     (``attention_tiled_launch`` and its backward on each K1 call's qkv as
     K1's launch 1 rounds it, from the forward's kept o and statistics), K4f's
     launch and K4b's from its kept state; beside
     ``F.scaled_dot_product_attention`` with the float mask bias[h] +
     mask(ids) on the same q, k, v and its backward (``sdpa_times``, a
-    yardstick the port never calls) and the bound of the attention alone
-    (K4's work on the same q, k, v: ``call_work``). Logs one line per set
-    and kernel; returns {(set, kernel): {"forward", "backward", "SDPA",
-    "SDPA backward": ms}}."""
+    yardstick the port never calls; above TILED_HEAD_DIM the backend it
+    takes, ``sdpa_backend``), and the bound of the attention alone (K4's
+    work on the same q, k, v: ``call_work``); above TILED_HEAD_DIM K1f and
+    K1b whole too (``cuda_ms``). Logs one line per set and kernel; returns
+    {(set, kernel): {"forward", "backward", "SDPA", "SDPA backward"[,
+    "K1f whole", "K1b whole", "SDPA backend"]: ms or name}}."""
     import torch
     from vsn_tpu_torch.ops import swin_block_kernels as sbk
     from vsn_tpu_torch.ops import window_attention as wa
@@ -2846,6 +3173,7 @@ def odd_head_times(route, gen, card):
         if calls[0][1][0].dtype != torch.bfloat16:
             continue
         calls = [(n, seeded_params(n, a, gen)) for n, a in calls]
+        wide = max(head_dim(n, a) for n, a in calls) > TILED_HEAD_DIM
         with torch.no_grad():
             k1 = []   # (qkv, dao, o, stats, bias, ids, scale, heads)
             for a in (a for n, a in calls if n == "attn_half"):
@@ -2872,6 +3200,19 @@ def odd_head_times(route, gen, card):
                                 for b in k4b])}
             times = {kernel: (launch_ms(fwd), launch_ms(bwd))
                      for kernel, (k, fwd, bwd) in kernels.items() if k}
+            whole = {}
+            if wide and k1:   # K1f and K1b whole, their GEMMs and rows too
+                k1_args = [a for n, a in calls if n == "attn_half"]
+                b_args = [(*a[:8], a[10], torch.randn(
+                    a[0].shape, device=a[0].device).to(a[0].dtype),
+                    *a[11:13]) for a in k1_args]
+                kept = [k1_kept(a) for a in k1_args]
+                whole["K1f whole"] = cuda_ms(lambda: [sbk.attn_half(*a)
+                                                      for a in k1_args])
+                whole["K1b whole"] = cuda_ms(lambda: [
+                    sbk.attn_half_backward(*a, **kk)
+                    for a, kk in zip(b_args, kept)])
+                del b_args, kept
         for kernel, (fwd, bwd) in times.items():
             k = kernels[kernel][0]
             lib, lib_bwd = sdpa_times([("attention", a) for a in k])
@@ -2880,13 +3221,22 @@ def odd_head_times(route, gen, card):
                       for name in ("attention", "attention_bwd")]
             out[(label, kernel)] = {"forward": fwd, "backward": bwd,
                                     "SDPA": lib, "SDPA backward": lib_bwd}
+            extra = ""
+            if wide:
+                backend = sdpa_backend(*k[0])
+                out[(label, kernel)]["SDPA backend"] = backend
+                extra = f" (SDPA's backend: {backend})"
+                if kernel == "K1":
+                    out[(label, kernel)].update(whole)
+                    extra += (f"; K1f whole {whole['K1f whole']:.3f} ms, K1b "
+                              f"whole {whole['K1b whole']:.3f} ms")
             log(f"[{card}] odd head dims {label} {kernel} launches alone "
                 f"(CUDA events, {len(k)} calls): forward {fwd:.3f} ms, "
                 f"backward {bwd:.3f} ms; SDPA with the float mask on the "
                 f"same q, k, v {lib:.3f} ms, its backward {lib_bwd:.3f} ms "
                 f"({_ratio(fwd, lib):.2f}x, {_ratio(bwd, lib_bwd):.2f}x); "
                 f"bound forward {bounds[0][0]:.3f} ms by {bounds[0][1]}, "
-                f"backward {bounds[1][0]:.3f} ms by {bounds[1][1]}")
+                f"backward {bounds[1][0]:.3f} ms by {bounds[1][1]}{extra}")
         del calls, k1, k4, k4b, kernels
     return out
 
@@ -2919,11 +3269,10 @@ def tiled_launch_times(calls, card):
         bwd_launch = lambda: [sbk.attention_tiled_backward_launch(*la)
                               for la in launch]
         bwd = launch_ms(bwd_launch)
-        shares = phase_shares(bwd_launch, "vit_k1b", (
-            "attention_bwd_rows", "attention_bwd_keys"))
+        tags = phase_tags(head_dim("attn_half", k1[0]))
+        shares = phase_shares(bwd_launch, "vit_k1b", tags)
     del launch
-    phase_a = bwd * shares["attention_bwd_rows"]
-    phase_b = bwd * shares["attention_bwd_keys"]
+    phase_a, phase_b = (bwd * shares[tag] for tag in tags)
     lib = lib_bwd = 0.0
     for a in k1:
         parts = sbk._attention_parts(*a[:7], a[11], a[12])
@@ -3111,10 +3460,10 @@ def swin_k1_times(calls, card):
             out["K4f"] = launch_ms(lambda: [wa.window_attention_qkv_launch(*a)
                                             for a in k4])
             out["backward"] = launch_ms(bwd_launch)
-            shares = phase_shares(bwd_launch, label + "_bwd", (
-                "attention_bwd_rows", "attention_bwd_keys"))
-            out["phase A"] = out["backward"] * shares["attention_bwd_rows"]
-            out["phase B"] = out["backward"] * shares["attention_bwd_keys"]
+            tags = phase_tags(head_dim("attn_half", stage[0]))
+            shares = phase_shares(bwd_launch, label + "_bwd", tags)
+            out["phase A"], out["phase B"] = (out["backward"] * shares[tag]
+                                              for tag in tags)
         out["SDPA"], out["SDPA backward"] = sdpa_times(
             [("attention", (la[0], *la[4:])) for la in launch])
         del launch, k4
@@ -3542,16 +3891,17 @@ def k1f_stage1_args(xw, wqkv, bias, wproj, samples):
 
 
 def probe_times(runs, inputs, samples, card):
-    """({key: plain ms}, {key: library ms or None}, K1f's ms) at the
-    scripts' inputs: each run's plain version; for a copy the library's
-    ``Tensor.copy_`` into a preallocated tensor (a yardstick the port never
-    calls); K1f on the same x with the probes' parameters
-    (``k1f_stage1_args``)."""
+    """({key: plain ms}, {key: library ms or None}, K1f's ms, {copy key:
+    its kernel's ms}) at the scripts' inputs: each run's plain version; for
+    a copy (P2-P4) its kernel alone and the library's ``Tensor.copy_`` into
+    a preallocated tensor (a yardstick the port never calls), both by
+    ``launch_ms`` on the same x; K1f on the same x with the probes'
+    parameters (``k1f_stage1_args``)."""
     import torch
     from vsn_tpu_torch.ops import swin_block_kernels as sbk
 
     xw, *weights = inputs
-    plain_ms, library_ms = {}, {}
+    plain_ms, library_ms, copies = {}, {}, {}
     with torch.no_grad():
         for run in runs:
             x = run.x(xw)
@@ -3560,13 +3910,14 @@ def probe_times(runs, inputs, samples, card):
             library_ms[run.key] = None
             if run.kind == "copy_windows":
                 out = torch.empty_like(x)
-                library_ms[run.key] = cuda_ms(lambda: out.copy_(x))
+                copies[run.key] = launch_ms(lambda: run.kernel(x, *weights))
+                library_ms[run.key] = launch_ms(lambda: out.copy_(x))
             del x
         k1 = k1f_stage1_args(xw, *weights, samples)
         k1f = cuda_ms(lambda: sbk.attn_half(*k1))
     log(f"[{card}] K1f at the probes' stage-1 call (x {tuple(xw.shape)} "
         f"bf16, LN 1/0, zero biases, gains 1, no ids): {k1f:.3f} ms")
-    return plain_ms, library_ms, k1f
+    return plain_ms, library_ms, k1f, copies
 
 
 def probe_phase(device, card):
@@ -3589,7 +3940,13 @@ def probe_phase(device, card):
     del sets
     torch.cuda.empty_cache()
     counts, ms = probe_path(runs)
-    plain_ms, library_ms, k1f = probe_times(runs, inputs, MICRO, card)
+    plain_ms, library_ms, k1f, copies = probe_times(runs, inputs, MICRO,
+                                                    card)
+    for key, t in copies.items():   # the copies by launch_ms, as copy_
+        log(f"[{card}] probe copy {key}: {t:.4f} ms alone (launch_ms; the "
+            f"entry point's unqueued events {ms[key]:.4f} ms), copy_ "
+            f"{library_ms[key]:.4f} ms alone")
+        ms[key] = t
     out = {}
     for run in runs:
         bound = bound_ms(run.key, [(run.key, (run.x(inputs[0]),
@@ -4790,9 +5147,24 @@ def main() -> int:
              f"bfloat16 B={BATCH}": eval_calls},
             torch.Generator().manual_seed(SEED + 17)).items():
         worst[name] = max(worst.get(name, 0.0), err)
-    odd_head_dim_phase({"float32 B=2": sets["float32 B=2"],
-                        f"bfloat16 B={BATCH}": eval_calls}, device,
-                       torch.Generator().manual_seed(SEED + 19), card)
+    _, slab_worst, slab_counts, odd_route = odd_head_dim_phase(
+        {"float32 B=2": sets["float32 B=2"],
+         f"bfloat16 B={BATCH}": eval_calls}, device,
+        torch.Generator().manual_seed(SEED + 19), card)
+    # K4, V1 and V3 on their slab kernels: phase 7's bf16 calls, timed here
+    # (none held past the phase: the training phases' peak memory is the
+    # parent's)
+    slab_calls = [(n, a) for calls in odd_route.values() for n, a in calls
+                  if n != "attn_half" and a[0].dtype == torch.bfloat16
+                  and head_dim(n, a) > TILED_HEAD_DIM]
+    slab_ms, slab_plain, slab_bounds = slab_times(slab_calls)
+    slab_sdpa = {  # K4's calls; V1's: the K4 call of its own values
+        "attention": sdpa_times([c for c in slab_calls
+                                 if c[0] == "attention"]),
+        "attention_split": sdpa_times(odd_route.get(
+            f"d={WIDE_V_HEAD_DIM} K4 V1 V3 bfloat16", [])[:1])}
+    del odd_route, slab_calls
+    torch.cuda.empty_cache()
 
     # 8. backward parity on training forwards -----------------------------
     gsets = {}
@@ -4898,7 +5270,6 @@ def main() -> int:
         stabilizer_counts[key] = model_train_path(
             train_cfg.replace(**over), batch, images, in_mode(PER_PASS, mode),
             passes, f"{key}_train", f"{recipe}, {key_label(over)}", card)
-    del batch
     torch.cuda.empty_cache()
 
     # 15. the ViT eval path: 144x168x144 volumes resized on the card ------
@@ -4926,7 +5297,32 @@ def main() -> int:
         f"SAM + EMA + MixUp + DropPath, micro {VIT_MICRO} x {TRAIN_ACCUM}, "
         f"{key_label(over)}", card)
     path_counts.update(residual_launches(stabilizer_counts))
-    del vit_batch
+
+    # 16b. heads above 128: Swin-T with one head a stage, ViT-S at 2 heads
+    # of 192 (the tiled body's slab kernels) ------------------------------
+    counts, wide_calls = wide_head_run(
+        cfg.replace(HEADS=WIDE_SWIN_HEADS),
+        train_cfg.replace(HEADS=WIDE_SWIN_HEADS), seeded_model, batch, images,
+        WIDE_SWIN_PER_FORWARD, WIDE_SWIN_PER_PASS, "wide_swin", card)
+    # K1 on its slab kernels: the wide Swin's training calls above 128 (its
+    # stages 2-4)
+    k1_times = slab_times([(n, a) for n, a in wide_calls
+                           if head_dim(n, a) > TILED_HEAD_DIM])
+    for got, more in zip((slab_ms, slab_plain, slab_bounds), k1_times):
+        got.update(more)
+    swin_k1_times(wide_calls, card)
+    del wide_calls, k1_times
+    torch.cuda.empty_cache()
+    vit_counts, wide_vit_calls = wide_head_run(
+        vit_cfg, vit_train_cfg, wide_vit_model, vit_batch, images,
+        WIDE_VIT_PER_FORWARD, WIDE_VIT_PER_PASS, "wide_vit", card)
+    tiled_launch_times(wide_vit_calls, card)
+    counts.update(vit_counts)
+    path_counts.update({SLAB_NAME[name]: counts[SLAB_NAME[name]]
+                        for name in ("attn_half", "attn_half_bwd")})
+    path_counts.update({SLAB_NAME[name]: slab_counts[SLAB_NAME[name]]
+                        for name in SLAB_BASES[2:]})
+    del batch, vit_batch, wide_vit_calls
     torch.cuda.empty_cache()
     vms_vit, vplain_vit = kernel_times(vit_calls)
     vit_bounds = {name: bound_ms(name, vit_calls)
@@ -4953,9 +5349,12 @@ def main() -> int:
     ms, plain_ms = kernel_times(train_calls + k4_calls)
     # K3's launches alone beside its entries' times through the wrappers
     # (kernel_times' events, the yardstick of every block kernel's entry)
+    # and the library's gather over the same row map
+    k3_library = mover_library_times(train_calls, card)
     for name, t in mover_launch_times(train_calls, card).items():
         log(f"[{card}] {name}: {t:.4f} ms per micro-batch of {TRAIN_MICRO} "
-            f"alone, {ms[name]:.4f} ms through its wrapper")
+            f"alone, {ms[name]:.4f} ms through its wrapper, index_select "
+            f"{k3_library[name]:.4f} ms")
     bounds = {name: bound_ms(name, train_calls + k4_calls) for name in KERNELS
               if name not in STEM and name not in V_PER_CALL
               and name not in PROBES}
@@ -4963,6 +5362,7 @@ def main() -> int:
     plain_ms.update(vplain)
     bounds.update(vbounds)
     library_ms = dict.fromkeys(KERNELS)
+    library_ms.update(k3_library)
     library_ms["attention"], library_ms["attention_bwd"] = sdpa_times(
         k4_calls)
     k4_launch_times(k4_calls, card)
@@ -4972,6 +5372,15 @@ def main() -> int:
         tname = TILED_NAME[name]
         ms[tname], plain_ms[tname] = vms_vit[name], vplain_vit[name]
         bounds[tname] = vit_bounds[tname]
+    # the slab kernels: K1 at the wide Swin's training calls above 128 (its
+    # stages 2-4, 16b), K4 / V1 / V3 at phase 7's bf16 calls
+    ms.update(slab_ms)
+    plain_ms.update(slab_plain)
+    bounds.update(slab_bounds)
+    for base, lib in slab_sdpa.items():
+        library_ms[SLAB_NAME[base]], library_ms[SLAB_NAME[f"{base}_bwd"]] = \
+            lib
+    worst.update(slab_worst)
     for mode in ("_ls", "_post_ls"):   # the Swin stabilizer paths' modes
         mms, mplain = mode_times(train_calls, mode, "swin")
         ms.update(mms)
@@ -5095,6 +5504,10 @@ def main() -> int:
         worst[name] = max(worst.get(name, 0.0), err)
     for name in KERNELS:
         per = (f"micro-batch of {RESNET_MICRO}" if name in STEM
+               else f"wide Swin micro-batch of {TRAIN_MICRO}, stages 2-4"
+               if name in ("attn_half_slabs", "attn_half_bwd_slabs")
+               else "phase 7's bf16 calls above 128"
+               if name.endswith("_slabs")
                else f"stage-1 call (micro-batch of {TRAIN_MICRO})"
                if name in PROBES else f"micro-batch of {VIT_MICRO} (ViT)"
                if "tiled" in name

@@ -138,31 +138,31 @@ def test_saturated_logits_match_jax(via, logit):
 
 
 def test_head_dims_up_to_128_and_the_tiled_choice():
-    """The plain version takes any head dim, the wrapper's check up to 128;
+    """The plain version takes any head dim, the wrapper's check up to 8192;
     every head dim from 1 to 128 at every N takes the key-tiled body, the
     one attention body of K1 (Swin-T's calls at d = 32, N = 252 and 150,
-    ViT's at d = 64, and every other): K1's checks and its tiled launches'
-    accept it with a bias and region ids (the body's head-dim rule,
-    ``takes_head_dim``), and refuse 129."""
+    ViT's at d = 64, and every other), and 129 its slab kernels: K1's
+    checks and its tiled launches' accept it with a bias and region ids
+    (the body's head-dim rule, ``takes_head_dim``), and refuse 8193."""
     meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
                                                     device="meta")
     heads = 2
     for n in (13, 37, 150, 252, 450, 811, 1000):
         ids = meta(1, n, dt=torch.int32)
-        for d in range(1, 130):
+        for d in (*range(1, 130), 8193):
             c = heads * d
             args = (meta(c), meta(c), meta(3 * c, c), meta(3 * c),
                     meta(heads, n, n), ids, meta(c, c), meta(c), meta(1),
                     meta(1))
-            if d <= 128:
+            if d <= 8192:
                 assert port.takes_head_dim(d)
                 assert port._check_attn(meta(2, n, c), *args, heads) == (1, 1)
                 assert port._check_tiled_launch(meta(2, n, 3 * c), args[4],
                                                 ids, heads) == 1
                 continue
             assert not port.takes_head_dim(d)
-            with pytest.raises(ValueError, match="128"):
+            with pytest.raises(ValueError, match="8192"):
                 port._check_attn(meta(2, n, c), *args, heads)
-            with pytest.raises(ValueError, match="128"):
+            with pytest.raises(ValueError, match="8192"):
                 port._check_tiled_launch(meta(2, n, 3 * c), args[4], ids,
                                          heads)

@@ -3,7 +3,9 @@ the JAX package's Pallas kernels in interpret mode, forward and VJP.
 
 The key-tiled CUDA body takes every head dim from 1 to 128 (the channels
 past d staged as zeros; bf16 rows that are not whole 16-byte chunks staged
-by plain loads), as the JAX kernels put no limit on it. On CPU tensors the
+by plain loads), and above 128 its slab kernels up to 8192
+(tests/test_torch_attn_wide_heads.py), as the JAX kernels put no limit on
+it. On CPU tensors the
 port's wrappers run their plain versions, which the CUDA kernels are held
 to on the card (chip_smoke.py phase 7, ``odd_head_dim_phase``). Inputs from
 numpy seeds, f32:
@@ -20,7 +22,6 @@ numpy seeds, f32:
   24 and 40 (2 heads) on a shifted map of 2 samples of 8 windows of 12
   tokens; dqkv (dq, dk, dv) and dbias. Tolerance 1e-5 (rtol and atol), as
   tests/test_torch_window_attention_split.py.
-- The wrappers raise at d = 129.
 """
 
 import jax
@@ -190,29 +191,3 @@ def test_k4_v1_v3_match_jax_at_head_dims_off_the_mma_depth(d):
     # V3's map holds the same windows as K4's packed rows
     assert np.array_equal(window_partition(torch.from_numpy(mqkv),
                                            WINDOW).numpy(), qkv)
-
-
-def test_the_wrappers_raise_above_head_dim_128():
-    """K1, its launches, K4, V1 and V3 take head dims up to 128 and raise
-    at 129 (the tiled body's D = 128 is its widest)."""
-    d, n = 129, 5
-    c = 2 * d
-    x = torch.zeros(1, n, c)
-    k1 = (x, torch.ones(c), torch.zeros(c), torch.zeros(3 * c, c), None,
-          None, None, torch.zeros(c, c), torch.zeros(c), torch.ones(1),
-          torch.ones(1), d ** -0.5, 2)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        sbk._check_attn(*k1[:11], k1[12])
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        sbk._check_tiled_launch(torch.zeros(1, n, 3 * c), None, None, 2)
-    ids = torch.zeros(1, n, dtype=torch.int32)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        wa._check(torch.zeros(1, n, 3 * c), torch.zeros(2, n, n), ids, 2)
-    z = torch.zeros(1, 2, n, d)
-    with pytest.raises(ValueError, match="head dim up to 128"):
-        wa._check_split(z, z, z, torch.zeros(2, n, n), ids)
-    with pytest.raises(ValueError, match="head dims are up to 128"):
-        wa._check_windows(torch.zeros(1, 1, 1, n, 3 * c),
-                          torch.zeros(2, n, n), ids, 2, (1, 1, n))
-    for d in (1, 12, 40, 128):   # and take every head dim below
-        assert wa.takes_head_dim(d) and sbk.takes_head_dim(d)

@@ -46,8 +46,9 @@ def test_probes_table_lists_every_run():
     # the GEMM and weight-gradient bodies of K1 / K2 alone: 2; the LN
     # backward of K1b / K2b alone in its two modes: 2; LN's rows, the
     # column sums, the post-norm forward's finish and the LayerScale
-    # gradients of K1 / K2 alone: 4
-    assert len(chip_smoke.KERNELS) == 18 + 2 + 13 + 10 + 2 + 2 + 4
+    # gradients of K1 / K2 alone: 4; the tiled body's slab kernels (head
+    # dims above 128) under K1f / K1b, K4f / K4b, V1f / V1b, V3f / V3b: 8
+    assert len(chip_smoke.KERNELS) == 18 + 2 + 13 + 10 + 2 + 2 + 4 + 8
 
 
 def test_probe_plain_versions_pass(probe_sets):
@@ -134,7 +135,7 @@ def test_probe_path_and_times_on_cpu(probe_sets, monkeypatch):
     """The probe path's plumbing through both entry points (nothing
     launches on the CPU, so the count check fails naming the first run),
     and the time helper with a stand-in timer: plain ms for every run,
-    copy_'s for the copies only, K1f on the same x."""
+    the copies' kernels and copy_ for the copies only, K1f on the same x."""
     from vsn_tpu_torch.probes import attn_ablate, attn_ablate2
 
     runs, sets = probe_sets
@@ -147,13 +148,14 @@ def test_probe_path_and_times_on_cpu(probe_sets, monkeypatch):
                        match="probe path attn_ablate.full2d: 0 launches, "
                              "expected 24"):
         chip_smoke.probe_path(runs)
-    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=3: (
-        fn(), 1.0)[1])
-    plain, library, k1f = chip_smoke.probe_times(
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, reps=3, queued=False: (fn(), 1.0)[1])
+    plain, library, k1f, copies = chip_smoke.probe_times(
         runs, sets["scripts' inputs"], 2, "cpu")
     assert plain == dict.fromkeys(chip_smoke.PROBES, 1.0) and k1f == 1.0
-    assert {k for k, v in library.items() if v is not None} == {
-        k for k in chip_smoke.PROBES if k.startswith("copy_windows")}
+    copy_keys = {k for k in chip_smoke.PROBES if k.startswith("copy_windows")}
+    assert {k for k, v in library.items() if v is not None} == copy_keys
+    assert copies == dict.fromkeys(copy_keys, 1.0)
 
 
 def test_k1f_at_the_probes_parameters_is_k1s_function(probe_sets):

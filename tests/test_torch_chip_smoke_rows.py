@@ -350,6 +350,41 @@ def test_mover_launch_times_cover_each_call_and_its_adjoint(one_call_clock):
     assert not math.isnan(sum(out.values()))
 
 
+def test_mover_gather_is_each_k3_entrys_function():
+    """The library's gather beside K3 (``mover_gather``: one index_select
+    over relayout_map's row map laid over the batch) gives every mover's
+    and adjoint's output of a training forward's calls bit for bit."""
+    calls = _record("bfloat16", train=True)
+    table = chip_smoke.kernel_table()
+    adjoints = chip_smoke.mover_adjoints()
+    gen = torch.Generator().manual_seed(7)
+    seen = set()
+    for name, args in calls:
+        if name not in chip_smoke.MOVERS:
+            continue
+        want = table[name][1](*args)
+        g = torch.randn(want.shape, generator=gen).to(want.dtype)
+        for kname, src, ref in ((name, args[0], want),
+                                (f"{name}_adjoint", g,
+                                 adjoints[name][1](g, args))):
+            rows, index = chip_smoke.mover_gather(kname, args, src)
+            got = rows.index_select(0, index).reshape(ref.shape)
+            assert torch.equal(got, ref), kname
+        seen.add(name)
+    assert seen == set(chip_smoke.MOVERS)
+
+
+def test_mover_library_times_cover_each_k3_entry(one_call_clock):
+    """One index_select a mover call and adjoint, summed by entry."""
+    calls = _record("bfloat16", train=True)
+    out = chip_smoke.mover_library_times(calls, "cpu")
+    movers = collections.Counter(n for n, _ in calls
+                                 if n in chip_smoke.MOVERS)
+    assert set(out) == set(chip_smoke.MOVER_MAPS)
+    for name, n in movers.items():
+        assert out[name] == out[f"{name}_adjoint"] == n
+
+
 def test_k3_alone_needs_a_card(monkeypatch):
     """``chip_smoke.py --k3-alone`` exits, printing no times, without a
     card, as the whole script does."""

@@ -505,10 +505,14 @@ def test_odd_head_dim_phase_on_cpu(monkeypatch, body):
     assert [n for n, _ in wide] == ["attn_half", "attention"]
     assert wide[0][1][0].shape == (64, 12, 20)
     assert wide[1][1][0].shape == (64, 12, 60) and wide[1][1][2].shape[0] == 8
-    worst = chip_smoke.odd_head_dim_phase({"f32": calls}, "cpu", gen, "cpu")
+    worst, slabs, counts, route = chip_smoke.odd_head_dim_phase(
+        {"f32": calls}, "cpu", gen, "cpu")
     assert set(worst) == {"attn_half", "attn_half_bwd", "attention",
                           "attention_bwd"}
     assert all(err == 0.0 for err in worst.values())
+    assert slabs == {} and set(route) == set(sets)
+    assert counts["attention"] == 2 * sum(
+        n == "attention" for c in route.values() for n, _ in c)
     times = chip_smoke.odd_head_times(sets, gen, "cpu")
     assert set(times) == {("d=4 N=8 bfloat16", "K1"),
                           ("d=10 stage 1 micro 8 bfloat16", "K1"),
@@ -516,6 +520,102 @@ def test_odd_head_dim_phase_on_cpu(monkeypatch, body):
     assert all(t == dict.fromkeys(("forward", "backward", "SDPA",
                                    "SDPA backward"), 1.0)
                for t in times.values())
+
+
+def test_wide_head_dim_sets_on_cpu(monkeypatch):
+    """Phase 7's calls above the tiled body's widest head at tiny sizes (the
+    widest stood in for by 4): the route's calls re-headed to 8 where 8
+    divides their width, K4 on each one's windows (the unshifted call's
+    with one row of zero ids), and the K4 / V1 / V3 set at
+    WIDE_V_HEAD_DIM; each call's head dim and launch counter (``head_dim``,
+    ``body_counter``); the plain versions pass their parity phases
+    there."""
+    from tests.test_torch_chip_smoke import _record
+
+    calls = _record("float32", False)
+    monkeypatch.setattr(chip_smoke, "ODD_HEAD_DIMS", (8,))
+    monkeypatch.setattr(chip_smoke, "TILED_HEAD_DIM", 4)
+    monkeypatch.setattr(chip_smoke, "WIDE_V_HEAD_DIM", 8)
+    monkeypatch.setattr(chip_smoke, "WIDE_V",
+                        ((4, 6, 4), (2, 3, 2), (1, 1, 1), 16, 2))
+    monkeypatch.setattr(chip_smoke, "ODD_N_GEOMETRY",
+                        ((4, 4, 2), (2, 2, 2), (1, 1, 1), 12, 3))
+    monkeypatch.setattr(chip_smoke, "ODD_WIDE",
+                        ((4, 6, 4), (2, 3, 2), (1, 1, 1), 20, 2))
+    gen = torch.Generator().manual_seed(9)
+    sets = chip_smoke.odd_head_dim_sets({"f32": calls}, "cpu", gen)
+    route = sets["d=8 f32"]
+    k1 = [a for n, a in route if n == "attn_half"]
+    k4 = [a for n, a in route if n == "attention"]
+    assert k1 and len(k4) == len(k1) and len(route) == 2 * len(k1)
+    assert any(a[6] is None for a in k1)
+    assert all(a[2] is not None for a in k4)
+    assert all(chip_smoke.head_dim(n, a) == 8 for n, a in route)
+    v = sets["d=8 K4 V1 V3 float32"]
+    assert [n for n, _ in v] == ["attention", "attention_split",
+                                 "attention_windows"]
+    assert all(chip_smoke.head_dim(n, a) == 8 for n, a in v)
+    assert chip_smoke.body_counter("attn_half", 8) == "attn_half_slabs"
+    assert chip_smoke.body_counter("attn_half_bwd", 4) == "attn_half_bwd_tiled"
+    assert chip_smoke.body_counter("attention_bwd", 8) == \
+        "attention_bwd_slabs"
+    assert chip_smoke.body_counter("attention_split", 4) == "attention_split"
+    assert chip_smoke.sdpa_backend(*chip_smoke.seeded_params(
+        "attention", k4[0], gen)) in {"math", "flash_attention",
+                                     "efficient_attention", "cudnn_attention"}
+    table = {**chip_smoke.kernel_table(), **chip_smoke.attention_table(),
+             **chip_smoke.v_table()}
+    wide = {k: sets[k] for k in ("d=8 f32", "d=8 K4 V1 V3 float32")}
+    worst, _ = chip_smoke.parity_phase(wide, table, gen)
+    bworst, _ = chip_smoke.grad_parity_phase(wide, table, gen)
+    assert set(worst) == {"attn_half", "attention", "attention_split",
+                          "attention_windows"}
+    assert all(e == 0.0 for e in (*worst.values(), *bworst.values()))
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, reps=3, queued=False: (fn(), 1.0)[1])
+    ms, plain, bounds = chip_smoke.slab_times(v)
+    names = {chip_smoke.SLAB_NAME[n] for n in (
+        "attention", "attention_bwd", "attention_split",
+        "attention_split_bwd", "attention_windows", "attention_windows_bwd")}
+    assert set(ms) == set(plain) == set(bounds) == names
+    assert all(b[0] > 0 for b in bounds.values())
+
+
+@pytest.mark.parametrize("arch", ["swin", "vit"])
+def test_wide_head_run_on_cpu(monkeypatch, arch):
+    """Phase 16b's run at a tiny size on the CPU (no launches there: every
+    count 0), through ``Evaluator.predict`` and one ``make_train_step``
+    step against the plain route: a Swin of one head a stage, and a ViT
+    built through ``wide_vit_model`` (2 heads of 64 stood in for 2 of
+    192); the K1 calls of a training micro-batch at the new head dims."""
+    from tests.test_torch_chip_smoke import TINY
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    if arch == "swin":
+        over = dict(TINY, HEADS=[1, 1, 1], FP16=True)
+        build = lambda cfg: chip_smoke.seeded_model(cfg, "cpu")
+        dims = {8, 16, 32}
+    else:
+        over = dict(VIT_TINY, EMBED_DIM=128, HEADS=6, FP16=True)
+        monkeypatch.setattr(chip_smoke, "WIDE_VIT_HEADS", (2, 64))
+        build = lambda cfg: chip_smoke.wide_vit_model(cfg, "cpu")
+        dims = {64}
+    cfg = load_config(over)
+    train_cfg = load_config(dict(
+        over, USE_SAM=True, USE_EMA=True, USE_MIXUP=True, SEED=0,
+        BATCH_SIZE=2, EFFECTIVE_BATCH_SIZE=4, LR_WARMUP=0, WD_WARMUP=0,
+        STEPS=10))
+    batch = chip_smoke.train_batch(train_cfg, torch.device("cpu"), 5)
+    images = np.random.default_rng(1).standard_normal(
+        (chip_smoke.BATCH, *cfg.input_size, 1)).astype(np.float16)
+    counts, calls = chip_smoke.wide_head_run(
+        cfg, train_cfg, build, batch, images, {}, {}, f"tiny {arch}", "cpu")
+    assert not any(counts.values())
+    assert calls and all(n == "attn_half" for n, _ in calls)
+    assert {chip_smoke.head_dim(n, a) for n, a in calls} == dims
+    assert all(a[0].shape[0] == 2 * (a[0].shape[0] // 2) for _, a in calls)
 
 
 def test_swin_attention_bound_at_micro_8():

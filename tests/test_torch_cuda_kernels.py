@@ -299,13 +299,19 @@ def test_attn_half_forced_tiled_on_swin_calls(dev, dtype, dims, window,
 
 # (BW, N, heads, head dim, bias, ids): ViT's call; a ragged tile, bias and
 # ids at Swin's head dim; other head dims (48, 24, 40, 100: channels past d
-# staged as zeros; 128; 12 and 25: bf16 rows staged by plain loads)
+# staged as zeros; 128; 12 and 25: bf16 rows staged by plain loads); above
+# 128 the slab kernels (136, 192, 256, 384, 768, 2048: 2 to 16 slabs of 128,
+# the last one part zeros at 136; 129: plain loads, a slab of 1 channel)
 LAUNCH_SHAPES = [(2, 811, 6, 64, False, False), (4, 252, 3, 32, True, True),
                  (4, 37, 3, 32, True, True), (2, 150, 2, 128, True, False),
                  (2, 100, 2, 48, False, False), (2, 100, 2, 16, False, True),
                  (4, 252, 3, 24, True, True), (2, 100, 3, 12, True, True),
                  (2, 70, 3, 40, True, False), (2, 65, 2, 25, False, True),
-                 (1, 130, 1, 100, True, False)]
+                 (1, 130, 1, 100, True, False),
+                 (2, 100, 2, 129, False, True), (2, 65, 2, 136, True, True),
+                 (2, 150, 2, 192, True, True), (2, 70, 1, 256, True, False),
+                 (2, 150, 1, 384, True, True), (1, 130, 1, 768, True, False),
+                 (2, 37, 1, 2048, True, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -337,14 +343,16 @@ def test_tiled_launches_match_plain(dev, dtype, bw, n, heads, hd, bias, ids):
 
 def test_tiled_launch_rejects_head_dims_off_the_mma_depth(dev):
     """Head dims off the mma depth of 16 launch (d = 24: channels past d
-    staged as zeros); above 128 the wrapper rejects."""
-    qkv = torch.zeros(2, 16, 3 * 2 * 24, device=dev)
-    ao, stats, _ = sbk.attention_tiled_launch(qkv, None, None, 0.2, 2)
-    torch.cuda.synchronize()
-    assert ao.shape == (2, 16, 48) and torch.isfinite(stats).all()
-    qkv = torch.zeros(2, 16, 3 * 2 * 129, device=dev)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        sbk.attention_tiled_launch(qkv, None, None, 0.2, 2)
+    staged as zeros; d = 8192, the widest: 64 slabs); above 8192 the
+    wrapper rejects."""
+    for d in (24, 8192):
+        qkv = torch.zeros(2, 16, 3 * d, device=dev)
+        ao, stats, _ = sbk.attention_tiled_launch(qkv, None, None, 0.2, 1)
+        torch.cuda.synchronize()
+        assert ao.shape == (2, 16, d) and torch.isfinite(stats).all()
+    qkv = torch.zeros(2, 16, 3 * 8193, device=dev)
+    with pytest.raises(ValueError, match="head dims up to 8192"):
+        sbk.attention_tiled_launch(qkv, None, None, 0.2, 1)
 
 
 @pytest.mark.parametrize("logit", [45.0, 200.0, -200.0])
@@ -564,14 +572,17 @@ def test_window_attention_qkv_at_saturated_logits(dev, logit):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,d", [(2, 4), (2, 12), (3, 32), (2, 64),
-                                     (1, 128), (3, 40), (2, 24), (1, 100)])
+                                     (1, 128), (3, 40), (2, 24), (1, 100),
+                                     (2, 129), (2, 136), (2, 192), (1, 256),
+                                     (1, 384), (1, 768)])
 def test_window_attention_qkv_head_dims(dev, dtype, heads, d):
     """K4 at head dims 4 and 12 (rows of bf16 channels that are not whole
     16-byte chunks: staged by plain loads; 12 also in f32), 32, 64 and 128
     (the tiled body's D = 64 and 128), 24, 40 and 100 (off the mma depth:
-    channels past d staged as zeros) on a shifted stage-1-like call with
-    the ragged key tile (N = 70 = 64 + 6): K4f, K4b's dqkv and dbias, and
-    the kept state against the plain versions."""
+    channels past d staged as zeros), 129 to 768 (the slab kernels) on a
+    shifted stage-1-like call with the ragged key tile (N = 70 = 64 + 6):
+    K4f, K4b's dqkv and dbias, and the kept state against the plain
+    versions."""
     from vsn_tpu_torch.models.swin3d import shifted_window_region_ids
 
     g = torch.Generator().manual_seed(d)
@@ -739,12 +750,14 @@ def test_v1_equals_v3_and_both_agree_with_k4(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,d", [(2, 4), (2, 12), (3, 32), (2, 64),
-                                     (1, 128), (3, 40)])
+                                     (1, 128), (3, 40), (2, 129), (2, 136),
+                                     (2, 192), (1, 256), (1, 384), (1, 768)])
 def test_v1_and_v3_head_dims(dev, dtype, heads, d):
     """V1 and V3 at head dims 4 and 12 (staged by plain loads), 32, 64,
-    128 and 40 on a shifted call with the ragged key tile (N = 70 = 64 +
-    6): the wrappers forward and backward, and the launches with their kept
-    state, against the plain versions; V1f and V3f bit-equal to K4f."""
+    128 and 40, and above 128 on the slab kernels (counted as ``_slabs``),
+    on a shifted call with the ragged key tile (N = 70 = 64 + 6): the
+    wrappers forward and backward, and the launches with their kept state,
+    against the plain versions; V1f and V3f bit-equal to K4f."""
     from vsn_tpu_torch.models.swin3d import window_reverse
 
     g = torch.Generator().manual_seed(d)
@@ -763,7 +776,8 @@ def test_v1_and_v3_head_dims(dev, dtype, heads, d):
             ("attention_windows", v3, wa.window_attention_windows,
              wa.window_attention_windows_reference, (0, 1))):
         dout = chip_smoke.cotangent(name, args, g)
-        _v_check(fn, ref, args, diff, dout, dtype, (name, name + "_bwd"))
+        _v_check(fn, ref, args, diff, dout, dtype,
+                 (wa.body_key(name, d), wa.body_key(name + "_bwd", d)))
         rows = chip_smoke.launch_compare(name, args, dout)
         assert all(ok for *_, ok in rows), rows
     diff = chip_smoke.k4_agreement([(k4, v1, v3)], g)
@@ -890,8 +904,9 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 # One-line edits of K1's key-tiled body that chip_smoke.py must reject on
 # the card (exit 1, in its phase 3: parity on ViT's calls or the saturation
-# with the top logits in the ragged last key tile): name -> (source, line,
-# its mutant). The clamp and s1's term of ds are K1's softmax policy
+# with the top logits in the ragged last key tile; the slab kernels' in
+# phase 7, whose re-headed calls take them): name -> (source, line, its
+# mutant). The clamp and s1's term of ds are K1's softmax policy
 # (``K1Softmax``); the other lines K4's tiled kernels run too, but K1's
 # phase 3 comes first.
 _CSRC = Path(__file__).resolve().parent.parent / "vsn_tpu_torch" / "csrc"
@@ -915,6 +930,11 @@ TILED_SOURCE_MUTANTS = {
         "return __fmul_rn(p, dp);"),
     "K1b phase B: p not scaled by the kept 1 / sum": (
         "attn_tiled.cuh", "sti[0], sti[1]);", "sti[0], 1.f);"),
+    # the slab kernels' (head dims above 128; phase 7's re-headed calls)
+    "K1b phase A on slabs: dbias added by every slab's block": (
+        "attn_tiled.cuh",
+        "const bool adds_dbias = dbias && blk.so == 0;",
+        "const bool adds_dbias = dbias != nullptr;"),
 }
 TILED_FAILURES = ("kernels disagree with their plain versions",
                   "tiled K1 at logits")
@@ -989,7 +1009,8 @@ def test_tiled_source_mutants_name_one_line_of_the_source(mutant):
 @pytest.mark.parametrize("mutant", sorted(TILED_SOURCE_MUTANTS))
 def test_a_mutated_tiled_source_makes_chip_smoke_fail(dev, mutant, tmp_path):
     """chip_smoke.py run from a copy of the port whose tiled K1 kernels
-    have one line mutated exits 1 in its ViT parity phase."""
+    have one line mutated exits 1 in a parity phase (ViT's, or phase 7's
+    for the slab kernels)."""
     from test_torch_chip_smoke import _run_mutated_chip_smoke
 
     src, line, new = TILED_SOURCE_MUTANTS[mutant]

@@ -156,9 +156,11 @@ def test_argument_check_rejects_what_the_kernels_do_not_take():
     bw = a.shape[0]   # head dim 48: a multiple of 16 up to 128
     assert port._check(torch.zeros(bw, 12, 3 * 96), b, torch.from_numpy(ids),
                        2) == ids.shape[0]
-    # head dim 40: above 32, not 16 k (every head dim up to 128 is taken)
-    assert port._check(torch.zeros(bw, 12, 3 * 80), b, torch.from_numpy(ids),
-                       2) == ids.shape[0]
-    with pytest.raises(ValueError):  # head dim 129
-        port._check(torch.zeros(bw, 12, 3 * 258), b, torch.from_numpy(ids),
-                    2)
+    # head dims 40 (above 32, not 16 k) and 129 (above 128: the slab
+    # kernels): every head dim up to 8192 is taken
+    for c in (80, 258):
+        assert port._check(torch.zeros(bw, 12, 3 * c), b,
+                           torch.from_numpy(ids), 2) == ids.shape[0]
+    with pytest.raises(ValueError):  # head dim 8193
+        port._check(torch.zeros(bw, 12, 3 * 2 * 8193), b,
+                    torch.from_numpy(ids), 2)

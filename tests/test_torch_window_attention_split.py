@@ -171,13 +171,15 @@ def test_argument_check_rejects_what_the_kernels_do_not_take():
         with pytest.raises((TypeError, ValueError)):
             port._check_split(*new)
             pytest.fail(what)
-    for d in (129, 144):  # above 128, the tiled body's widest head dim
-        with pytest.raises(ValueError):
-            z = torch.zeros(2, 1, 16, d)
-            port._check_split(z, z, z, t(bias)[:1].contiguous(), t(ids))
-    z = torch.zeros(2, 1, 16, 40)   # 40: neither up to 32 nor 16 k, taken
-    assert port._check_split(z, z, z, t(bias)[:1].contiguous(),
-                             t(ids)) == ids.shape[0]
+    with pytest.raises(ValueError):  # above 8192, the slabs' widest head
+        z = torch.zeros(2, 1, 16, 8193)
+        port._check_split(z, z, z, t(bias)[:1].contiguous(), t(ids))
+    # 40: neither up to 32 nor 16 k; 129 and 144: above 128, on the slab
+    # kernels; all taken
+    for d in (40, 129, 144):
+        z = torch.zeros(2, 1, 16, d)
+        assert port._check_split(z, z, z, t(bias)[:1].contiguous(),
+                                 t(ids)) == ids.shape[0]
 
 
 @pytest.mark.parametrize("d", [48, 64])

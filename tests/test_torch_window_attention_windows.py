@@ -240,16 +240,17 @@ def test_argument_check_rejects_what_the_kernels_do_not_take():
     qkv, bias, ids, window, _ = _case("padded", 2, seed=2)
     t = torch.from_numpy
     assert port._check_windows(t(qkv), t(bias), t(ids), 2, window) == 8
-    # head dim 40: neither up to 32 nor a multiple of 16, taken
-    assert port._check_windows(torch.zeros(2, 4, 6, 4, 3 * 80), t(bias),
-                               t(ids), 2, window) == 8
+    # head dims 40 (neither up to 32 nor a multiple of 16), 129 and 144
+    # (above 128: the slab kernels), taken
+    for c, heads in ((80, 2), (258, 2), (144, 1)):
+        assert port._check_windows(torch.zeros(2, 4, 6, 4, 3 * c),
+                                   t(bias)[:heads], t(ids), heads,
+                                   window) == 8
     bad = {  # what the kernels do not take -> (qkv, bias, ids, heads, window)
         "map 4x6x4 over a 3x3x2 window": (t(qkv), t(bias), t(ids), 2,
                                           (3, 3, 2)),
-        "head dim 129": (torch.zeros(2, 4, 6, 4, 3 * 258), t(bias), t(ids), 2,
-                         window),
-        "head dim 144": (torch.zeros(2, 4, 6, 4, 3 * 144), t(bias)[:1],
-                         t(ids), 1, window),
+        "head dim 8193": (torch.zeros(2, 4, 6, 4, 3 * 8193), t(bias)[:1],
+                          t(ids), 1, window),
         "3C not divisible by 3 heads": (t(qkv), t(bias), t(ids), 3, window),
         "f16 qkv": (t(qkv).half(), t(bias), t(ids), 2, window),
         "f64 bias": (t(qkv), t(bias).double(), t(ids), 2, window),

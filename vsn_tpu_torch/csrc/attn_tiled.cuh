@@ -1,6 +1,7 @@
 // The key-tiled attention body, forward and backward (phases A and B), for
-// any N and every head dim d from 1 to 128: the one attention body of the
-// port. K1 (K1f's launch 2, K1b's launch 4) runs it at every call: Swin's
+// any N and every head dim d from 1 to 8192 (above 128 on its slab kernels,
+// below): the one attention body of the port. K1 (K1f's launch 2, K1b's
+// launch 4) runs it at every call: Swin's
 // (d = 32: windows of N = 252 with the relative-position bias and region
 // ids, N = 150 at the clamped last stage) and ViT's (vsn_tpu/models/vit3d.py
 // _fused_attn_half, one window of N = 811 tokens per sample at d = 64), and
@@ -81,7 +82,10 @@
 //
 // Head dims: every d from 1 to 128, compiled as D = 32, 64 and 128; the
 // channels d..D-1 of a tile stage as zeros, which add exactly 0 to every
-// product. Tiles are filled by 16-byte cp.async copies wherever a head's rows
+// product. Above 128, up to 8192, the slab kernels (``attention_slab_*``)
+// take the head dim in slabs of 128 channels (64 in f32), under the same
+// policies and layouts; the instantiations up to 128 keep their code.
+// Tiles are filled by 16-byte cp.async copies wherever a head's rows
 // are whole, 16-byte aligned chunks (d a multiple of 8 in bf16, of 4 in f32,
 // every operand 16-byte aligned: ``plain_loads``), and by plain element
 // loads otherwise (bf16 d = 12: 24-byte rows at 24-byte offsets). A policy
@@ -121,7 +125,8 @@
 
 namespace {
 
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 128;        // the body's widest D; above it, slabs
+constexpr int kMaxSlabHeadDim = 8192;   // the widest head a launch takes
 constexpr int kTile = 64;        // rows of a query tile, keys of a key tile
 constexpr int kTiledWarps = 4;   // 16 rows each
 constexpr int kTiledThreads = kTiledWarps * 32;
@@ -1126,6 +1131,625 @@ constexpr size_t attention_bwd_keys_smem() {
 }
 
 // ---------------------------------------------------------------------------
+// Head dims above 128: the head dim in slabs
+// ---------------------------------------------------------------------------
+//
+// Above 128 a head's accumulators (o; dq; dk and dv) no longer fit in a
+// thread's registers beside S, nor its Q, K and V tiles in shared memory. So
+// the slab kernels take the head dim in slabs of kSlab<T> channels (128 in
+// bf16, 64 in f32), one block per (window, head, tile, output slab; and in
+// phase B, dk or dv):
+//   - the sums over d (S = Q K^T, dp = dO V^T) walk every slab, slabs outer
+//     and 16-channel steps (f32: channels) inner, in one order in the
+//     forward and both phases, so phases A and B rebuild the forward's p and
+//     ds bit for bit, as the body above does;
+//   - each block writes its output slab's channels of o (dq; dk, dv) and
+//     their column sums (dbqkv);
+//   - what is once per (window, head, tile), the row statistics (forward),
+//     s1 and dbias's atomics (phase A), only slab 0's block writes.
+// Each step stages one slab of the sums' operands (Q and K; and dO and V)
+// into a ring of two stages, the next step's copy under this one's
+// products, by cp.async or, where ``plain`` asks, plain loads; the output
+// slab's tile (the forward's V, phase A's K, phase B's dO or Q) comes once
+// for the step's rows. Q (and dO) are staged again for every key step: they
+// are not held in registers or whole in shared memory. Every slab's block
+// forms S anew, ceil(d / kSlab) times the products that one block a tile
+// would form (phase B's dk and dv blocks once more): the price of d up to
+// 8192 in one body. Only the online softmax (K1's and K4's policies) runs
+// here; the probes stop at 64.
+template <typename T>
+constexpr int kSlab = kTensorCores<T> ? 128 : 64;
+// Phase A's keys and phase B's queries a step: S and dp of a whole 64-row
+// tile, held in registers beside dq (dk and dv) across the slabs, spilled
+// at 255 registers. The output slab's tile of a step's rows is staged once
+// per rows, with their second step (slabs >= 2: d > 128 >= kSlab) into one
+// buffer, so that two blocks fit an SM's shared memory in bf16.
+constexpr int kSlabStep = 32;
+
+// Phase A's keys a step on layout L: kSlabStep, but 16 where a layout's
+// phase A spills at 255 registers with 32 (``kSlabRowsSpill``, which the
+// layout sets; window_attention_qkv.cu).
+template <typename L, typename T>
+constexpr bool kSlabRowsSpill = false;
+template <typename T, typename L>
+constexpr int kSlabKeys = kSlabRowsSpill<L, T> ? 16 : kSlabStep;
+
+// Packed's head rows for the slab kernels (the other layouts' ``Head`` give
+// the same members): q_row, k_row, v_row(t) point at token t's channel 0 of
+// the head in q, k and v; out(t) is its element offset in out, o32, o and dO,
+// in(t) in dqkv (dq); store_kv writes a channel of dk or dv.
+template <typename T>
+struct PackedRows {
+  const T* head;       // q of the window's token 0, head h
+  long long c3, base;  // 3C; the window's first row
+  int c, hd;           // C; h d
+
+  __device__ __forceinline__ const T* q_row(int t) const { return head + t * c3; }
+  __device__ __forceinline__ const T* k_row(int t) const { return q_row(t) + c; }
+  __device__ __forceinline__ const T* v_row(int t) const { return q_row(t) + 2 * c; }
+  __device__ __forceinline__ long long out(int t) const { return (base + t) * c + hd; }
+  __device__ __forceinline__ long long in(int t) const { return (base + t) * c3 + hd; }
+  // channel ch of token t's dk (part 1) or dv (part 2)
+  __device__ __forceinline__ void store_kv(T* dqkv, int part, int t, int ch, T v) const {
+    dqkv[in(t) + part * c + ch] = v;
+  }
+};
+
+// The rows of (window bw, head h) on layout L.
+template <typename T, typename L>
+__device__ __forceinline__ auto slab_rows(const L& lay, const T* qkv, long long bw, int h, int n,
+                                          int c, int d, int heads) {
+  if constexpr (kPacked<L>)
+    return PackedRows<T>{qkv + bw * n * 3LL * c + h * d, 3LL * c, bw * n, c, h * d};
+  else
+    return lay.head(qkv, bw, h, n, c, d, heads);
+}
+
+// Copy channels [c0, c0 + dsl) of tokens t0 .. t0 + nrows - 1 of an operand
+// (``row(t)``: token t's channel 0) into a staged [R][SD] tile; the tile's
+// other rows and channels are zero-filled, as stage_tile fills them, by
+// 16-byte cp.async copies or by plain loads.
+template <typename T, int SD, typename P, int R = kTile, typename Row>
+__device__ __forceinline__ void stage_slab(T* dst, const Row& row, int t0, int nrows, int c0,
+                                           int dsl, bool plain) {
+  constexpr int E = 16 / (int)sizeof(T), CPR = SD / E, LD = kLd<T, SD>;
+  if (kPlainOnly<P> || (P::kPlainLoads && plain)) {
+    for (int e = threadIdx.x; e < R * SD; e += kTiledThreads) {
+      const int r = e / SD, ch = e % SD;
+      dst[r * LD + ch] = r < nrows && ch < dsl ? row(t0 + r)[c0 + ch] : from_f32<T>(0.f);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < R * CPR; e += kTiledThreads) {
+    const int r = e / CPR, cc = e % CPR;
+    const bool ok = r < nrows && cc * E < dsl;
+    cp_async16(dst + r * LD + cc * E, ok ? row(t0 + r) + c0 + cc * E : row(t0), ok);
+  }
+}
+
+// One key tile's online softmax step on S (``s``, the fragment layout of
+// rows i0 = row0 g, i1 = i0 + 8 of a warp): score, the running shift m and
+// sum l, e = exp(s - m) in place, o rescaled when m grows. As the forward
+// above forms it (``Probs::kOnline``).
+template <typename P, int NT, int DT>
+__device__ __forceinline__ void online_step(float (&s)[NT][4], float (&o)[DT][4], float& m0,
+                                            float& m1, float& l0, float& l1, int nk, int k0,
+                                            float scale, const int* id_row, int id0, int id1,
+                                            const float* bias0, const float* bias1, int t) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 8 * nt + 2 * t + e;
+      if (j < nk) {
+        s[nt][e] = P::score(s[nt][e], scale, id_row, id0, bias0, k0 + j);
+        s[nt][2 + e] = P::score(s[nt][2 + e], scale, id_row, id1, bias1, k0 + j);
+        mx0 = fmaxf(mx0, s[nt][e]);
+        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      } else {  // the ragged tile's missing keys: p = 0
+        s[nt][e] = s[nt][2 + e] = -INFINITY;
+      }
+    }
+  const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+  const float alpha0 = expf(m0 - mn0);  // 1 while the max holds
+  const float alpha1 = expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float part0 = 0.f, part1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nt][e] = expf(s[nt][e] - mn0);
+      s[nt][2 + e] = expf(s[nt][2 + e] - mn1);
+      part0 += s[nt][e];
+      part1 += s[nt][2 + e];
+    }
+  l0 = alpha0 * l0 + part0;
+  l1 = alpha1 * l1 + part1;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    o[dt][0] *= alpha0;
+    o[dt][1] *= alpha0;
+    o[dt][2] *= alpha1;
+    o[dt][3] *= alpha1;
+  }
+}
+
+// acc[NT] += X Y^T over one staged slab: X's 16 rows from row x0 of xs, Y's
+// 8 NT rows from row y0 of ys, the slab's channels in order (bf16: 16 a
+// step; f32: one FMA chain).
+template <typename T, int NT>
+__device__ __forceinline__ void slab_nt(float (&acc)[NT][4], const T* xs, int x0, const T* ys,
+                                        int y0, int lane) {
+  constexpr int SD = kSlab<T>, LD = kLd<T, SD>;
+  if constexpr (kTensorCores<T>) {
+#pragma unroll
+    for (int kk = 0; kk < SD / 16; ++kk) {
+      uint32_t a[4];
+      load_a<LD>(a, xs, x0, 16 * kk, lane);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        load_b_nt<LD>(b, ys, y0 + 16 * np, 16 * kk, lane);
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  } else {
+    fma_nt<NT, SD>(acc, xs + x0 * LD, ys + y0 * LD, lane);
+  }
+}
+
+// acc += P Y over 16 depth rows from row0 of a staged slab Y: P the [16 x 16]
+// chunk whose accumulators are v0, v1 (or its transpose, PT), rounded to T
+// (bf16: in registers; f32: through the warp's scratch sp).
+template <typename T, bool PT, int DT>
+__device__ __forceinline__ void slab_nn(float (&acc)[DT][4], const float (&v0)[4],
+                                        const float (&v1)[4], const T* ys, int row0, float* sp,
+                                        int lane) {
+  constexpr int SD = kSlab<T>;
+  if constexpr (kTensorCores<T>) {
+    uint32_t a[4];
+    if constexpr (PT)
+      a_from_acc_t(a, v0, v1);
+    else
+      a_from_acc(a, v0, v1);
+    mma_nn<SD>(acc, a, ys, row0, lane);
+  } else {
+    store_chunk(sp, v0, v1, lane);
+    __syncwarp();
+    fma_nn<SD, PT>(acc, sp, ys + row0 * kLd<T, SD>, lane);
+    __syncwarp();
+  }
+}
+
+// The block's (window, head, tile, output slab) from blockIdx.x, slabs
+// innermost: the blocks of one tile run side by side and share its rows in
+// L2.
+struct SlabBlock {
+  long long bw;
+  int h, r0, so;
+};
+
+__device__ __forceinline__ SlabBlock slab_block(int n, int heads, int slabs) {
+  const int tiles = (n + kTile - 1) / kTile;
+  const long long tile = blockIdx.x / slabs;
+  return {tile / tiles / heads, (int)(tile / tiles % heads), (int)(tile % tiles) * kTile,
+          (int)(blockIdx.x % slabs)};
+}
+
+// The forward on slabs: K1f's and K4f's attention launch at head dims above
+// 128, with ``attention_tiled_fwd``'s outputs.
+template <typename T, typename P, typename L>
+__global__ void __launch_bounds__(kTiledThreads, 1) attention_slab_fwd_kernel(
+    const T* __restrict__ qkv, const float* __restrict__ bias, const int* __restrict__ ids,
+    int ids_rows, T* __restrict__ ao, float* __restrict__ o32, float* __restrict__ stats,
+    int n, int c, int heads, float scale, bool plain, L lay) {
+  static_assert(P::kProbs == Probs::kOnline, "the slab kernels take the online softmax");
+  constexpr int SD = kSlab<T>, LD = kLd<T, SD>, NT = kTile / 8, DT = SD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);  // [2 stages][Q, K][kTile][LD], one slab
+  T* vring = ring + 4 * kTile * LD;          // [2][kTile][LD], V's output slab
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* sp = reinterpret_cast<float*>(vring + 2 * kTile * LD) + warp * 16 * kSp;  // f32
+
+  const int d = c / heads, slabs = (d + SD - 1) / SD;
+  const SlabBlock blk = slab_block(n, heads, slabs);
+  const long long bw = blk.bw;
+  const int h = blk.h, q0 = blk.r0, nq = min(kTile, n - q0);
+  const int co = blk.so * SD, dso = min(SD, d - co);  // the output slab's channels
+  const auto rows = slab_rows<T>(lay, qkv, bw, h, n, c, d, heads);
+  const auto q_row = [&](int r) { return rows.q_row(r); };
+  const auto k_row = [&](int r) { return rows.k_row(r); };
+  const auto v_row = [&](int r) { return rows.v_row(r); };
+  const int* id_row = lay.ids(ids, bw, ids_rows, n);
+  const int i0 = q0 + 16 * warp + g, i1 = i0 + 8;  // this thread's rows
+  const int id0 = id_row && i0 < n ? id_row[i0] : 0;
+  const int id1 = id_row && i1 < n ? id_row[i1] : 0;
+  const float* bias0 = bias && i0 < n ? bias_row(bias, h, n, i0) : nullptr;
+  const float* bias1 = bias && i1 < n ? bias_row(bias, h, n, i1) : nullptr;
+
+  const int steps = (n + kTile - 1) / kTile * slabs;  // (key tile, slab), slabs inner
+  const auto stage = [&](int step) {
+    const int kt = step / slabs, sl = step % slabs, k0 = kt * kTile;
+    const int nk = min(kTile, n - k0), c0 = sl * SD, dsl = min(SD, d - c0);
+    T* st = ring + (step & 1) * 2 * kTile * LD;
+    stage_slab<T, SD, P>(st, q_row, q0, nq, c0, dsl, plain);
+    stage_slab<T, SD, P>(st + kTile * LD, k_row, k0, nk, c0, dsl, plain);
+    if (sl == 0) stage_slab<T, SD, P>(vring + (kt & 1) * kTile * LD, v_row, k0, nk, co, dso, plain);
+    cp_async_commit();
+  };
+
+  float m0 = P::kShift0, m1 = P::kShift0, l0 = 0.f, l1 = 0.f;
+  float o[DT][4], s[NT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  stage(0);
+  for (int step = 0; step < steps; ++step) {
+    const int kt = step / slabs, sl = step % slabs, k0 = kt * kTile;
+    if (step + 1 < steps) {
+      stage(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (sl == 0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    }
+    const T* qs = ring + (step & 1) * 2 * kTile * LD;
+    slab_nt<T>(s, qs, 16 * warp, qs + kTile * LD, 0, lane);  // S += Q K^T, one slab
+    if (sl == slabs - 1) {
+      online_step<P>(s, o, m0, m1, l0, l1, min(kTile, n - k0), k0, scale, id_row, id0, id1,
+                     bias0, bias1, t);
+      const T* vs = vring + (kt & 1) * kTile * LD;
+#pragma unroll
+      for (int kc = 0; kc < kTile / 16; ++kc)  // O += round_T(e) V, 16 keys a step
+        slab_nn<T, false>(o, s[2 * kc], s[2 * kc + 1], vs, 16 * kc, sp, lane);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const float r0 = 1.f / (quad_sum(l0) + P::kSumEps);
+  const float r1 = 1.f / (quad_sum(l1) + P::kSumEps);
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 8 * dt + 2 * t + e;
+      if (ch >= dso) continue;
+      if (i0 < n) {
+        const long long to = rows.out(i0) + co + ch;
+        ao[to] = from_f32<T>(o[dt][e] * r0);
+        if (o32) o32[to] = o[dt][e] * r0;
+      }
+      if (i1 < n) {
+        const long long to = rows.out(i1) + co + ch;
+        ao[to] = from_f32<T>(o[dt][2 + e] * r1);
+        if (o32) o32[to] = o[dt][2 + e] * r1;
+      }
+    }
+  if (P::kKeepsStats && blk.so == 0 && t == 0) {  // once per (window, head, tile)
+    float* st = stats + ((bw * heads + h) * (long long)n) * 2;
+    if (i0 < n) {
+      st[2 * i0] = m0;
+      st[2 * i0 + 1] = r0;
+    }
+    if (i1 < n) {
+      st[2 * i1] = m1;
+      st[2 * i1 + 1] = r1;
+    }
+  }
+}
+
+template <typename T>
+constexpr size_t attention_slab_fwd_smem() {
+  return 6 * kTileBytes<T, kSlab<T>> +
+         (kTensorCores<T> ? 0 : sizeof(float) * kTiledWarps * 16 * kSp);
+}
+
+// Phase A on slabs: dq's output slab, and (slab 0's block) s1 and dbias;
+// kSlabKeys keys a step.
+template <typename T, typename P, typename L>
+__global__ void __launch_bounds__(kTiledThreads, 1) attention_slab_rows_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ dao, const float* __restrict__ o,
+    const float* __restrict__ stats, const float* __restrict__ bias,
+    const int* __restrict__ ids, int ids_rows, T* __restrict__ dqkv,
+    float* __restrict__ dbias, float* __restrict__ dbqkv, float* __restrict__ s1_out, int n,
+    int c, int heads, float scale, bool plain, L lay) {
+  constexpr int SD = kSlab<T>, LD = kLd<T, SD>, KS = kSlabKeys<T, L>, NT = KS / 8, DT = SD / 8;
+  constexpr int kStage = (2 * kTile + 2 * KS) * LD;  // Q, dO [kTile]; K, V [KS]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);  // [2 stages][kStage], one slab
+  T* ks = ring + 2 * kStage;                 // [KS][LD], K's output slab
+  float* red = reinterpret_cast<float*>(ring);  // [warps][SD] after the last step
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* sp = reinterpret_cast<float*>(ks + KS * LD) + warp * 16 * kSp;  // f32
+
+  const int d = c / heads, slabs = (d + SD - 1) / SD;
+  const SlabBlock blk = slab_block(n, heads, slabs);
+  const long long bw = blk.bw;
+  const int h = blk.h, q0 = blk.r0, nq = min(kTile, n - q0);
+  const int co = blk.so * SD, dso = min(SD, d - co);
+  const auto rows = slab_rows<T>(lay, qkv, bw, h, n, c, d, heads);
+  const auto q_row = [&](int r) { return rows.q_row(r); };
+  const auto k_row = [&](int r) { return rows.k_row(r); };
+  const auto v_row = [&](int r) { return rows.v_row(r); };
+  const auto do_row = [&](int r) { return dao + rows.out(r); };
+  const int* id_row = lay.ids(ids, bw, ids_rows, n);
+  const int i0 = q0 + 16 * warp + g, i1 = i0 + 8;
+  const bool live0 = i0 < n, live1 = i1 < n;
+  const int id0 = id_row && live0 ? id_row[i0] : 0;
+  const int id1 = id_row && live1 ? id_row[i1] : 0;
+  const float* bias0 = bias && live0 ? bias_row(bias, h, n, i0) : nullptr;
+  const float* bias1 = bias && live1 ? bias_row(bias, h, n, i1) : nullptr;
+  const bool adds_dbias = dbias && blk.so == 0;  // once per (window, head, tile), not per slab
+  float* dbias0 = adds_dbias && live0 ? bias_row(dbias, h, n, i0) : nullptr;
+  float* dbias1 = adds_dbias && live1 ? bias_row(dbias, h, n, i1) : nullptr;
+  const long long srow = (bw * heads + h) * (long long)n;
+  const float m0 = live0 ? stats[2 * (srow + i0)] : 0.f;
+  const float rinv0 = live0 ? stats[2 * (srow + i0) + 1] : 0.f;
+  const float m1 = live1 ? stats[2 * (srow + i1)] : 0.f;
+  const float rinv1 = live1 ? stats[2 * (srow + i1) + 1] : 0.f;
+
+  const int steps = (n + KS - 1) / KS * slabs;  // (KS keys, slab), slabs inner
+  const auto stage = [&](int step) {
+    const int u = step / slabs, sl = step % slabs, k0 = u * KS;
+    const int nk = min(KS, n - k0), c0 = sl * SD, dsl = min(SD, d - c0);
+    T* st = ring + (step & 1) * kStage;
+    stage_slab<T, SD, P>(st, q_row, q0, nq, c0, dsl, plain);
+    stage_slab<T, SD, P>(st + kTile * LD, do_row, q0, nq, c0, dsl, plain);
+    stage_slab<T, SD, P, KS>(st + 2 * kTile * LD, k_row, k0, nk, c0, dsl, plain);
+    stage_slab<T, SD, P, KS>(st + (2 * kTile + KS) * LD, v_row, k0, nk, c0, dsl, plain);
+    if (sl == 1) stage_slab<T, SD, P, KS>(ks, k_row, k0, nk, co, dso, plain);
+    cp_async_commit();
+  };
+  stage(0);
+
+  // s1 of rows i0, i1: dO . o over the whole head (each lane of the quad a
+  // quarter of the channels, then across the quad), in every slab's block
+  float s1_0 = 0.f, s1_1 = 0.f;
+  for (int ch = t; ch < d; ch += 4) {
+    if (live0) s1_0 = fmaf(to_f32(dao[rows.out(i0) + ch]), o[rows.out(i0) + ch], s1_0);
+    if (live1) s1_1 = fmaf(to_f32(dao[rows.out(i1) + ch]), o[rows.out(i1) + ch], s1_1);
+  }
+  s1_0 = quad_sum(s1_0);
+  s1_1 = quad_sum(s1_1);
+  if (blk.so == 0 && t == 0) {
+    if (live0) s1_out[srow + i0] = s1_0;
+    if (live1) s1_out[srow + i1] = s1_1;
+  }
+
+  float dq[DT][4], sc[NT][4], dp[NT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+  for (int step = 0; step < steps; ++step) {
+    const int u = step / slabs, sl = step % slabs, k0 = u * KS, nk = min(KS, n - k0);
+    if (step + 1 < steps) {
+      stage(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (sl == 0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+    }
+    const T* st = ring + (step & 1) * kStage;
+    slab_nt<T>(sc, st, 16 * warp, st + 2 * kTile * LD, 0, lane);                     // S
+    slab_nt<T>(dp, st + kTile * LD, 16 * warp, st + (2 * kTile + KS) * LD, 0, lane);  // dO V^T
+    if (sl == slabs - 1) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * t + e, key = k0 + j;
+          float ds0 = 0.f, ds1 = 0.f;
+          if (j < nk) {
+            if (live0) {
+              const float p = kept_p(P::score(sc[nt][e], scale, id_row, id0, bias0, key), m0,
+                                     rinv0);
+              ds0 = P::ds(p, dp[nt][e], s1_0);
+              if (dbias0) atomicAdd(&dbias0[key], ds0);
+            }
+            if (live1) {
+              const float p = kept_p(P::score(sc[nt][2 + e], scale, id_row, id1, bias1, key),
+                                     m1, rinv1);
+              ds1 = P::ds(p, dp[nt][2 + e], s1_1);
+              if (dbias1) atomicAdd(&dbias1[key], ds1);
+            }
+          }
+          sc[nt][e] = ds0;
+          sc[nt][2 + e] = ds1;
+        }
+#pragma unroll
+      for (int kc = 0; kc < KS / 16; ++kc)  // dq += round_T(ds) K, 16 keys a step
+        if (16 * kc < nk) slab_nn<T, false>(dq, sc[2 * kc], sc[2 * kc + 1], ks, 16 * kc, sp, lane);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[dt][e] = (e < 2 ? live0 : live1) ? dq[dt][e] * scale : 0.f;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 8 * dt + 2 * t + e;
+      if (ch >= dso) continue;
+      if (live0) dqkv[rows.in(i0) + co + ch] = from_f32<T>(dq[dt][e]);
+      if (live1) dqkv[rows.in(i1) + co + ch] = from_f32<T>(dq[dt][2 + e]);
+    }
+  if constexpr (P::kColumnSums)
+    add_column_sums<SD>(dbqkv, h * d + co, dso, dq, red, warp, lane);  // the unrounded dq
+}
+
+template <typename T, typename L>
+constexpr size_t attention_slab_rows_smem() {
+  return sizeof(T) * (4 * kTile + 5 * kSlabKeys<T, L>) * kLd<T, kSlab<T>> +
+         (kTensorCores<T> ? 0 : sizeof(float) * kTiledWarps * 16 * kSp);
+}
+
+// Phase B on slabs: a block per (window, head, tile of 64 keys, output
+// slab, dk or dv), kSlabStep queries a step. dv = p^T dO takes S alone;
+// dk = scale ds^T Q takes S and dp = dO V^T. One of them a block keeps 64
+// accumulators a thread where both spilled at 255 registers; the price is
+// S formed once more.
+template <typename T, typename P, typename L>
+__global__ void __launch_bounds__(kTiledThreads, 1) attention_slab_keys_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ dao, const float* __restrict__ stats,
+    const float* __restrict__ s1, const float* __restrict__ bias,
+    const int* __restrict__ ids, int ids_rows, T* __restrict__ dqkv,
+    float* __restrict__ dbqkv, int n, int c, int heads, float scale, bool plain, L lay) {
+  constexpr int SD = kSlab<T>, LD = kLd<T, SD>, DT = SD / 8, QS = kSlabStep, MI = QS / 16;
+  constexpr int kStage = (2 * QS + 2 * kTile) * LD;  // Q, dO [QS]; K, V [kTile]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);  // [2 stages][kStage], one slab
+  T* y = ring + 2 * kStage;                  // [QS][LD]: dO's (dv) or Q's (dk) output slab
+  float* sts = reinterpret_cast<float*>(y + QS * LD);  // [QS][3]: the rows' statistics, s1
+  float* red = reinterpret_cast<float*>(ring);  // [warps][SD] after the last step
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* sp = sts + QS * 3 + warp * 16 * kSp;  // f32: p or ds
+
+  const int d = c / heads, slabs = (d + SD - 1) / SD;
+  const SlabBlock blk = slab_block(n, heads, 2 * slabs);
+  const bool dk_block = blk.so & 1;  // else dv
+  const long long bw = blk.bw;
+  const int h = blk.h, k0 = blk.r0, nk = min(kTile, n - k0);
+  const int co = (blk.so >> 1) * SD, dso = min(SD, d - co);
+  const auto rows = slab_rows<T>(lay, qkv, bw, h, n, c, d, heads);
+  const auto q_row = [&](int r) { return rows.q_row(r); };
+  const auto k_row = [&](int r) { return rows.k_row(r); };
+  const auto v_row = [&](int r) { return rows.v_row(r); };
+  const auto do_row = [&](int r) { return dao + rows.out(r); };
+  const int* id_row = lay.ids(ids, bw, ids_rows, n);
+  const long long srow = (bw * heads + h) * (long long)n;
+  const int kw = 16 * warp;                 // the warp's first key in the tile
+  const int j0 = k0 + kw + g, j1 = j0 + 8;  // this thread's key rows of dk or dv
+
+  const int steps = (n + QS - 1) / QS * slabs;  // (QS queries, slab), slabs inner
+  const auto stage = [&](int step) {
+    const int u = step / slabs, sl = step % slabs, q0 = u * QS;
+    const int nq = min(QS, n - q0), c0 = sl * SD, dsl = min(SD, d - c0);
+    T* st = ring + (step & 1) * kStage;
+    stage_slab<T, SD, P, QS>(st, q_row, q0, nq, c0, dsl, plain);
+    stage_slab<T, SD, P>(st + 2 * QS * LD, k_row, k0, nk, c0, dsl, plain);
+    if (dk_block) {
+      stage_slab<T, SD, P, QS>(st + QS * LD, do_row, q0, nq, c0, dsl, plain);
+      stage_slab<T, SD, P>(st + (2 * QS + kTile) * LD, v_row, k0, nk, c0, dsl, plain);
+    }
+    if (sl == 1) {
+      if (dk_block)
+        stage_slab<T, SD, P, QS>(y, q_row, q0, nq, co, dso, plain);
+      else
+        stage_slab<T, SD, P, QS>(y, do_row, q0, nq, co, dso, plain);
+      for (int e = threadIdx.x; e < QS; e += kTiledThreads) {
+        const bool ok = e < nq;
+        sts[3 * e] = ok ? stats[2 * (srow + q0 + e)] : 0.f;
+        sts[3 * e + 1] = ok ? stats[2 * (srow + q0 + e) + 1] : 0.f;
+        sts[3 * e + 2] = ok ? s1[srow + q0 + e] : 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[DT][4], sc[MI][2][4], dp[MI][2][4];  // acc: dk or dv
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  stage(0);
+  for (int step = 0; step < steps; ++step) {
+    const int u = step / slabs, sl = step % slabs, q0 = u * QS, nq = min(QS, n - q0);
+    if (step + 1 < steps) {
+      stage(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (sl == 0) {
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[mi][0][e] = sc[mi][1][e] = dp[mi][0][e] = dp[mi][1][e] = 0.f;
+    }
+    const T* st = ring + (step & 1) * kStage;
+    // S (and, for dk, dp) of queries 16 mi.. against the warp's 16 keys, one
+    // slab: phase A's products, rows = queries
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+      if (16 * mi < nq) {
+        slab_nt<T>(sc[mi], st, 16 * mi, st + 2 * QS * LD, kw, lane);
+        if (dk_block)
+          slab_nt<T>(dp[mi], st + QS * LD, 16 * mi, st + (2 * QS + kTile) * LD, kw, lane);
+      }
+    if (sl == slabs - 1) {
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        if (16 * mi >= nq) break;  // the same for the whole block
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {  // query rows g, g + 8 of the step
+          const int il = 16 * mi + g + 8 * hr, i = q0 + il;
+          const bool live = il < nq;
+          const float* row_st = sts + 3 * il;
+          const int id_i = id_row && live ? id_row[i] : 0;
+          const float* bias_i = bias && live ? bias_row(bias, h, n, i) : nullptr;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = k0 + kw + 8 * nt + 2 * t + e;
+              float v = 0.f;  // p (dv) or ds (dk)
+              if (live && key < n) {  // p from the kept statistics
+                v = kept_p(P::score(sc[mi][nt][2 * hr + e], scale, id_row, id_i, bias_i, key),
+                           row_st[0], row_st[1]);
+                if (dk_block) v = P::ds(v, dp[mi][nt][2 * hr + e], row_st[2]);
+              }
+              sc[mi][nt][2 * hr + e] = v;
+            }
+        }
+        // dv += round_T(p)^T dO, or dk += round_T(ds)^T Q: the output slab
+        slab_nn<T, true>(acc, sc[mi][0], sc[mi][1], y, 16 * mi, sp, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const bool live0 = j0 < n, live1 = j1 < n;
+  const float k = dk_block ? scale : 1.f;  // dk = scale ds^T Q
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = (e < 2 ? live0 : live1) ? k * acc[dt][e] : 0.f;
+  const int part = dk_block ? 1 : 2;  // dk or dv in dqkv's q, k, v
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 8 * dt + 2 * t + e;
+      if (ch >= dso) continue;
+      if (live0) rows.store_kv(dqkv, part, j0, co + ch, from_f32<T>(acc[dt][e]));
+      if (live1) rows.store_kv(dqkv, part, j1, co + ch, from_f32<T>(acc[dt][2 + e]));
+    }
+  if constexpr (P::kColumnSums)  // the unrounded dk or dv
+    add_column_sums<SD>(dbqkv, part * c + h * d + co, dso, acc, red, warp, lane);
+}
+
+template <typename T>
+constexpr size_t attention_slab_keys_smem() {
+  return sizeof(T) * (4 * kTile + 5 * kSlabStep) * kLd<T, kSlab<T>> +
+         sizeof(float) * kSlabStep * 3 +
+         (kTensorCores<T> ? 0 : sizeof(float) * kTiledWarps * 16 * kSp);
+}
+
+// ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
 
@@ -1141,6 +1765,54 @@ int windows_per_block(const L& lay) {
     return lay.wb;
   else
     return 1;
+}
+
+// The slab kernels' launches (head dims above 128): a block per (window,
+// head, tile, output slab).
+template <typename T, typename P, typename L>
+cudaError_t launch_attention_slabs(const T* qkv, const float* bias, const int* ids, int ids_rows,
+                                   T* ao, float* o32, float* stats, long long bw, int n, int c,
+                                   int heads, float scale, bool plain, const L& lay,
+                                   cudaStream_t stream) {
+  static_assert(!kGrouped<L>, "a grouped layout takes head dims up to 64");
+  auto kernel = attention_slab_fwd_kernel<T, P, L>;
+  constexpr size_t smem = attention_slab_fwd_smem<T>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int slabs = (c / heads + kSlab<T> - 1) / kSlab<T>;
+  const long long blocks = bw * heads * ((n + kTile - 1) / kTile) * slabs;
+  kernel<<<(unsigned)blocks, kTiledThreads, smem, stream>>>(qkv, bias, ids, ids_rows, ao, o32,
+                                                           stats, n, c, heads, scale, plain,
+                                                           lay);
+  return cudaGetLastError();
+}
+
+template <typename T, typename P, typename L>
+cudaError_t launch_attention_bwd_slabs(const T* qkv, const T* dao, const float* o,
+                                       const float* stats, const float* bias, const int* ids,
+                                       int ids_rows, float* s1, T* dqkv, float* dbias,
+                                       float* dbqkv, long long bw, int n, int c, int heads,
+                                       float scale, bool plain, const L& lay,
+                                       cudaStream_t stream) {
+  static_assert(!kGrouped<L>, "a grouped layout takes head dims up to 64");
+  auto rows_kernel = attention_slab_rows_kernel<T, P, L>;
+  auto keys_kernel = attention_slab_keys_kernel<T, P, L>;
+  constexpr size_t rows_smem = attention_slab_rows_smem<T, L>();
+  constexpr size_t keys_smem = attention_slab_keys_smem<T>();
+  cudaError_t err = allow_smem(rows_kernel, rows_smem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(keys_kernel, keys_smem);
+  if (err != cudaSuccess) return err;
+  const int slabs = (c / heads + kSlab<T> - 1) / kSlab<T>;
+  const long long blocks = bw * heads * ((n + kTile - 1) / kTile) * slabs;
+  rows_kernel<<<(unsigned)blocks, kTiledThreads, rows_smem, stream>>>(
+      qkv, dao, o, stats, bias, ids, ids_rows, dqkv, dbias, dbqkv, s1, n, c, heads, scale,
+      plain, lay);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  keys_kernel<<<(unsigned)(2 * blocks), kTiledThreads, keys_smem, stream>>>(  // dk, dv apart
+      qkv, dao, stats, s1, bias, ids, ids_rows, dqkv, dbqkv, n, c, heads, scale, plain, lay);
+  return cudaGetLastError();
 }
 
 template <typename T, int D, typename P, typename L>
@@ -1163,21 +1835,24 @@ cudaError_t launch_attention_tiled_d(const T* qkv, const float* bias, const int*
 // layout L (Packed by default: qkv [BW*N, 3C] -> ao [BW*N, C] (T), o32
 // [BW*N, C] (f32; may be null); other layouts take q and ao in qkv's and
 // ao's place), stats [BW, H, N, 2] (shift, 1 / (sum + P::kSumEps); a policy
-// that keeps them). Head dims 1 to 128. ``plain`` stages rows by plain loads
-// (``plain_loads``: required where rows are not whole, aligned 16-byte
-// chunks).
+// that keeps them). Head dims 1 to 8192 (above 128 the slab kernels).
+// ``plain`` stages rows by plain loads (``plain_loads``: required where rows
+// are not whole, aligned 16-byte chunks).
 template <typename T, typename P = K1Softmax, typename L = Packed>
 cudaError_t launch_attention_tiled(const T* qkv, const float* bias, const int* ids,
                                    int ids_rows, T* ao, float* o32, float* stats, long long bw,
                                    int n, int c, int heads, float scale, cudaStream_t stream,
                                    bool plain = false, const L& lay = L()) {
   const int d = c / heads;
-  if (d < 1 || d > kMaxHeadDim) return cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxSlabHeadDim) return cudaErrorInvalidValue;
   if constexpr (!P::kPlainLoads)
     if (plain)
       return launch_attention_tiled<T, PlainLoads<P>, L>(qkv, bias, ids, ids_rows, ao, o32,
                                                          stats, bw, n, c, heads, scale, stream,
                                                          plain, lay);
+  if (d > kMaxHeadDim)
+    return launch_attention_slabs<T, P>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n, c,
+                                        heads, scale, plain, lay, stream);
   if (d <= 32)
     return launch_attention_tiled_d<T, 32, P>(qkv, bias, ids, ids_rows, ao, o32, stats, bw, n,
                                               c, heads, scale, plain, lay, stream);
@@ -1229,13 +1904,17 @@ cudaError_t launch_attention_bwd_tiled(const T* qkv, const T* dao, const float* 
                                        float scale, cudaStream_t stream, bool plain = false,
                                        const L& lay = L()) {
   const int d = c / heads;
-  if (d < 1 || d > kMaxHeadDim) return cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxSlabHeadDim) return cudaErrorInvalidValue;
   if constexpr (!P::kPlainLoads)
     if (plain)
       return launch_attention_bwd_tiled<T, PlainLoads<P>, L>(qkv, dao, o, stats, bias, ids,
                                                              ids_rows, s1, dqkv, dbias, dbqkv,
                                                              bw, n, c, heads, scale, stream,
                                                              plain, lay);
+  if (d > kMaxHeadDim)
+    return launch_attention_bwd_slabs<T, P>(qkv, dao, o, stats, bias, ids, ids_rows, s1, dqkv,
+                                            dbias, dbqkv, bw, n, c, heads, scale, plain, lay,
+                                            stream);
   if (d <= 32)
     return launch_attention_bwd_tiled_d<T, 32, P>(qkv, dao, o, stats, bias, ids, ids_rows, s1,
                                                   dqkv, dbias, dbqkv, bw, n, c, heads, scale,

@@ -8,23 +8,38 @@
 //
 // What bounds it: bytes only (x read once, out written once). One block per
 // group of wb windows copies the group's contiguous wb * N * C elements in
-// 16-byte vectors, neighbouring threads on neighbouring addresses. The
-// operand pointers of P3 are kernel arguments that no thread reads, as the
-// TPU kernel's unused VMEM blocks.
+// 16-byte vectors, neighbouring threads on neighbouring addresses: the TPU
+// program's granularity, which the probe measures. The HBM rate wants
+// about 2 MB in flight (3.35 TB/s at ~0.6 us), more than one 16-byte load
+// a thread of 256 gives P4's 216 blocks (under 1 MB): blocks of 1024
+// threads, each issuing kCopyInFlight independent loads before their
+// stores (P4: 28 MB in flight), plain loads and stores. The operand
+// pointers of P3 are kernel arguments that no thread reads, as the TPU
+// kernel's unused VMEM blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kCopyThreads = 256;
+constexpr int kCopyThreads = 1024;
+constexpr int kCopyInFlight = 8;  // 16-byte loads a thread before their stores
 
 __global__ void __launch_bounds__(kCopyThreads) copy_windows_kernel(
     const uint4* __restrict__ x, uint4* __restrict__ out, long long vec_per_group,
     const float* wqkv, const float* bias, const float* wproj) {
   const long long base = (long long)blockIdx.x * vec_per_group;
-  for (long long e = threadIdx.x; e < vec_per_group; e += kCopyThreads)
-    out[base + e] = x[base + e];
+  const uint4* src = x + base;
+  uint4* dst = out + base;
+  for (long long e = threadIdx.x; e < vec_per_group; e += kCopyThreads * kCopyInFlight) {
+    uint4 v[kCopyInFlight];
+#pragma unroll
+    for (int u = 0; u < kCopyInFlight; ++u)
+      if (e + u * kCopyThreads < vec_per_group) v[u] = src[e + u * kCopyThreads];
+#pragma unroll
+    for (int u = 0; u < kCopyInFlight; ++u)
+      if (e + u * kCopyThreads < vec_per_group) dst[e + u * kCopyThreads] = v[u];
+  }
 }
 
 }  // namespace

@@ -34,9 +34,9 @@
 // rounded to T before their products, as the TPU's MXU rounds its f32
 // operands at default precision. The mask is additive -1e9 where the region
 // ids of query and key differ (pad slots carry -1, an unshifted block
-// passes W = 1 row of zeros). Head dims: every d from 1 to 128; rows that
-// are not whole 16-byte chunks (or an operand that is not 16-byte aligned)
-// are staged by plain loads.
+// passes W = 1 row of zeros). Head dims: every d from 1 to 8192 (above 128
+// on the body's slab kernels); rows that are not whole 16-byte chunks (or an
+// operand that is not 16-byte aligned) are staged by plain loads.
 //
 // What bounds it: the products, 4 N^2 d per window and head forward and 10
 // N^2 d backward (above the H100's ridge: the tensor cores), against q, k,
@@ -57,7 +57,7 @@ struct K4Softmax {
   static constexpr float kShift0 = -INFINITY;  // the plain row max
   static constexpr float kSumEps = 0.f;        // a row always keeps its own key
   static constexpr bool kColumnSums = false;   // the qkv bias gradient is the Linear's
-  static constexpr bool kPlainLoads = true;    // every head dim up to 128
+  static constexpr bool kPlainLoads = true;    // every head dim
   static constexpr Probs kProbs = Probs::kOnline;
   static constexpr bool kKeepsStats = true;    // the row statistics, for K4b
 
@@ -124,6 +124,14 @@ struct Split {
     }
     __device__ __forceinline__ long long in(int t) const { return off + (long long)t * ld; }
     __device__ __forceinline__ long long out(int t) const { return in(t); }
+    // token t's channel 0 of the head in q, k, v (the slab kernels' rows)
+    __device__ __forceinline__ const T* q_row(int t) const { return q + in(t); }
+    __device__ __forceinline__ const T* k_row(int t) const { return k + in(t); }
+    __device__ __forceinline__ const T* v_row(int t) const { return v + in(t); }
+    // channel ch of token t's dk (part 1) or dv (part 2)
+    __device__ __forceinline__ void store_kv(T*, int part, int t, int ch, T x) const {
+      (part == 1 ? dk : dv)[in(t) + ch] = x;
+    }
     __device__ __forceinline__ void store_dkv(T*, int t, int ch, T dk_t, T dv_t) const {
       dk[in(t) + ch] = dk_t;
       dv[in(t) + ch] = dv_t;
@@ -220,6 +228,14 @@ struct MapRows : WindowGrid {
     }
     __device__ __forceinline__ long long out(int t) const { return (v0 + map.row(t)) * c + hd; }
     __device__ __forceinline__ long long in(int t) const { return (v0 + map.row(t)) * c3 + hd; }
+    // token t's channel 0 of the head in q, k, v (the slab kernels' rows)
+    __device__ __forceinline__ const T* q_row(int t) const { return head + map.row(t) * c3; }
+    __device__ __forceinline__ const T* k_row(int t) const { return q_row(t) + c; }
+    __device__ __forceinline__ const T* v_row(int t) const { return q_row(t) + 2 * c; }
+    // channel ch of token t's dk (part 1) or dv (part 2)
+    __device__ __forceinline__ void store_kv(T* dqkv, int part, int t, int ch, T x) const {
+      dqkv[in(t) + part * c + ch] = x;
+    }
     __device__ __forceinline__ void store_dkv(T* dqkv, int t, int ch, T dk, T dv) const {
       T* row = dqkv + in(t) + ch;
       row[c] = dk;
@@ -238,6 +254,11 @@ struct MapRows : WindowGrid {
     return ids + ids_row(bw, ids_rows) * n;
   }
 };
+
+// V3b's slab phase A in bf16 spills at 255 registers with 32 keys a step
+// (the map's row arithmetic beside dq, S and dp): 16.
+template <>
+constexpr bool kSlabRowsSpill<MapRows, __nv_bfloat16> = true;
 
 template <typename T>
 int k4_fwd(const T* qkv, const float* bias, const int* ids, int ids_rows, T* out, float* o32,
@@ -315,7 +336,7 @@ int v3_bwd(const T* qkv, const T* dout, const float* o, const float* stats, cons
 }  // namespace
 
 // Every entry returns cudaGetLastError() of the launch (or of setting its
-// shared memory size; cudaErrorInvalidValue for a head dim above 128), else
+// shared memory size; cudaErrorInvalidValue for a head dim above 8192), else
 // 0. is_bf16 selects bf16 activations (q, k, v or qkv,
 // out, dout and their gradients), else f32; o, stats, bias and dbias are
 // f32, ids int32. dbias must be zeroed by the caller: the backward adds

@@ -29,14 +29,16 @@ autograd rounds at other points).
 
 K1's attention runs one hand-written body, the key-tiled one,
 FlashAttention-2 on bf16 mma.sync (``csrc/attn_tiled.cuh``), at every head
-dim from 1 to 128 and every N: the presets' calls (Swin-T's windows at d =
+dim from 1 to 8192 and every N: the presets' calls (Swin-T's windows at d =
 32, N = 252 and 150; ViT's one window of N = 811 tokens per sample at d =
-64) and any other (the tiny test models' d = 8); a head dim above 128
-raises. K1f also writes each row's softmax statistics (shift, 1 / (sum +
-1e-30)) and, for bf16, an f32 copy of the attention output; autograd keeps
-them with ao, and K1b reads them instead of recomputing the softmax (s1 =
-dO . o). The launch counters are ``attn_half_tiled`` /
-``attn_half_bwd_tiled``. ``attention_tiled_reference`` and
+64) and any other (the tiny test models' d = 8; above 128 the body's slab
+kernels, e.g. Swin-T at HEADS [1, 1, 1, 1], d = 96 to 768); a head dim
+above 8192 raises. K1f also writes each row's softmax statistics (shift,
+1 / (sum + 1e-30)) and, for bf16, an f32 copy of the attention output;
+autograd keeps them with ao, and K1b reads them instead of recomputing the
+softmax (s1 = dO . o). The launch counters are ``attn_half_tiled`` /
+``attn_half_bwd_tiled`` (``attn_half_slabs`` / ``attn_half_bwd_slabs``
+on the slab kernels, ``k1_body``). ``attention_tiled_reference`` and
 ``attention_tiled_backward_reference`` are the plain versions of the
 body's two launches alone (``attention_tiled_launch`` and
 ``attention_tiled_backward_launch`` launch them).
@@ -75,6 +77,7 @@ from vsn_tpu_torch.ops._build import (
 )
 from vsn_tpu_torch.ops.window_attention import (
     MAX_HEAD_DIM,
+    TILED_HEAD_DIM,
     mask_from_ids,
     takes_head_dim,
 )
@@ -123,6 +126,14 @@ def _residual(x, branch, gf, gb, lam):
     b = gf.shape[0]
     return gated_residual(x.reshape(b, -1), branch.reshape(b, -1), gf, gb,
                           lam).reshape(x.shape)
+
+
+def k1_body(d, bwd=""):
+    """K1f's (``bwd="_bwd"``: K1b's) launch counter at head dim ``d``:
+    ``attn_half_tiled`` where the key-tiled body runs, ``attn_half_slabs``
+    where its slab kernels run (d above 128)."""
+    return f"attn_half{bwd}_slabs" if d > TILED_HEAD_DIM else \
+        f"attn_half{bwd}_tiled"
 
 
 def mode_key(base, gamma, post_norm):
@@ -403,7 +414,7 @@ def _attn_half_kernel(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
             ptr(branch), out.data_ptr(), bw, n, c, num_heads,
             (bw // nsamp) * n, float(scale), float(lam), stream_of(x))
     check(err, "attn_half")
-    launches[mode_key("attn_half_tiled", gamma, post_norm)] += 1
+    launches[mode_key(k1_body(c // num_heads), gamma, post_norm)] += 1
     return out, ao_buf, stats, o32
 
 
@@ -1049,7 +1060,8 @@ def attn_half_backward(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w,
             floats, bw, n, c, num_heads, (bw // nsamp) * n, float(scale),
             float(lam), stream_of(x))
     check(err, "attn_half_bwd")
-    launches[mode_key("attn_half_bwd_tiled", gamma, post_norm)] += 1
+    launches[mode_key(k1_body(c // num_heads, "_bwd"), gamma,
+                      post_norm)] += 1
     return (dx, dln_w, dln_b, dqkv_w.view(3 * c, c),
             dqkv_b if qkv_b is not None else None,
             dbias.view(num_heads, n, n) if bias is not None else None,
@@ -1112,7 +1124,7 @@ def attn_half(x, norm_w, norm_b, qkv_w, qkv_b, bias, ids, proj_w, proj_b,
             differ are masked with -1e9), or None for no mask.
         proj_w: [C, C] f32; proj_b: [C] f32.
         gf, gb: [B] f32 per-sample branch gains, forward and backward.
-        scale, num_heads, lam: attention scale, heads (C / heads <= 128),
+        scale, num_heads, lam: attention scale, heads (C / heads <= 8192),
             residual x-gain.
         gamma: [C] f32 LayerScale of the branch (before the gains), or None.
         post_norm: the LayerNorm applies to the proj output, not to x.

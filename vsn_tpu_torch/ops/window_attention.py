@@ -33,7 +33,8 @@ statistics (max, 1 / sum) [BW, H, N, 2] and, for bf16, the f32 output o
 in the output's layout; autograd keeps them, and the backward reads them
 (p = exp(s - max) / sum, s1 = dO . o) instead of recomputing the softmax.
 e, p and ds are rounded to the activation type before their products.
-Head dims: every d from 1 to 128 (above 128 the wrappers raise).
+Head dims: every d from 1 to 8192 (above 128 on the body's slab kernels,
+``kSlab`` channels at a time; above 8192 the wrappers raise).
 ``window_attention_qkv_launch`` / ``window_attention_launch`` /
 ``window_attention_windows_launch`` are the forwards with their kept
 state, and ``*_backward_launch`` the backwards from it; their plain
@@ -68,7 +69,8 @@ from vsn_tpu_torch.ops._build import (
 )
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 128  # the tiled body (csrc/attn_tiled.cuh kMaxHeadDim)
+MAX_HEAD_DIM = 8192  # the slabs' widest (csrc/attn_tiled.cuh kMaxSlabHeadDim)
+TILED_HEAD_DIM = 128  # the body's widest head (kMaxHeadDim); above, its slabs
 
 
 def mask_from_ids(ids: torch.Tensor) -> torch.Tensor:
@@ -191,9 +193,16 @@ def window_attention_qkv_kept_backward_reference(qkv, dout, o, stats, bias,
     return dqkv.to(dt), ds.sum(0)
 
 
+def body_key(name: str, d: int) -> str:
+    """The launch counter of entry ``name`` at head dim ``d``: ``name``
+    where the tiled body runs, ``name + "_slabs"`` where its slab kernels
+    run (d above TILED_HEAD_DIM)."""
+    return name + "_slabs" if d > TILED_HEAD_DIM else name
+
+
 def takes_head_dim(d: int) -> bool:
     """Whether the tiled CUDA body (K1, K4, V1, V3) takes head dim ``d``:
-    every d from 1 to 128."""
+    every d from 1 to 8192 (above 128 in slabs)."""
     return 0 < d <= MAX_HEAD_DIM
 
 
@@ -238,7 +247,7 @@ def window_attention_qkv_launch(qkv, bias, ids, scale, n_heads):
             ids.data_ptr(), w, out.data_ptr(), ptr(o32), stats.data_ptr(), bw,
             n, c3 // 3, n_heads, float(scale), stream_of(qkv))
     check(err, "window_attention_qkv")
-    launches["attention"] += 1
+    launches[body_key("attention", c3 // (3 * n_heads))] += 1
     return out, stats, out if o32 is None else o32
 
 
@@ -264,7 +273,7 @@ def _backward_kernel(qkv, bias, ids, dout, o, stats, scale, n_heads,
             w, s1.data_ptr(), dqkv.data_ptr(), ptr(dbias), bw, n, c3 // 3,
             n_heads, float(scale), stream_of(qkv))
     check(err, "window_attention_qkv_bwd")
-    launches["attention_bwd"] += 1
+    launches[body_key("attention_bwd", c3 // (3 * n_heads))] += 1
     return dqkv, dbias
 
 
@@ -331,8 +340,7 @@ def window_attention_qkv(qkv, bias, ids, scale, n_heads):
 
     Args:
         qkv: [BW, N, 3C], f32 or bf16, channels [q heads | k heads | v
-            heads], head dim C / n_heads: any up to 32, or a multiple of 16
-            up to 128.
+            heads], head dim C / n_heads: any from 1 to 8192.
         bias: [H, N, N] f32 relative-position bias.
         ids: [W, N] int32 region ids (window bw uses row bw % W; ids that
             differ are masked with -1e9, pad slots carry -1); an unshifted
@@ -457,7 +465,7 @@ def window_attention_launch(q, k, v, bias, ids, scale):
             ptr(o32), stats.data_ptr(), bw, n, d, heads, float(scale),
             stream_of(q))
     check(err, "window_attention")
-    launches["attention_split"] += 1
+    launches[body_key("attention_split", d)] += 1
     return out, stats, out if o32 is None else o32
 
 
@@ -482,7 +490,7 @@ def _split_backward_kernel(q, k, v, bias, ids, dout, o, stats, scale):
             dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), bw, n, d, heads,
             float(scale), stream_of(q))
     check(err, "window_attention_bwd")
-    launches["attention_split_bwd"] += 1
+    launches[body_key("attention_split_bwd", d)] += 1
     return dq, dk, dv, dbias
 
 
@@ -546,8 +554,8 @@ def window_attention(q, k, v, bias, ids, scale):
     """Multi-head window attention on split heads.
 
     Args:
-        q, k, v: [BW, H, N, d], one dtype (f32 or bf16); head dim d any up
-            to 32, or a multiple of 16 up to 128. Any N: padding N (to 256,
+        q, k, v: [BW, H, N, d], one dtype (f32 or bf16); head dim d any
+            from 1 to 8192. Any N: padding N (to 256,
             as the JAX caller does) is the caller's choice; pad slots then
             carry id -1.
         bias: [H, N, N] f32 relative-position bias.
@@ -710,7 +718,7 @@ def window_attention_windows_launch(qkv, bias, ids, scale, n_heads, window):
             ids.data_ptr(), w, out.data_ptr(), ptr(o32), stats.data_ptr(),
             *_geometry(qkv, window), n_heads, float(scale), stream_of(qkv))
     check(err, "window_attention_windows")
-    launches["attention_windows"] += 1
+    launches[body_key("attention_windows", qkv.shape[4] // (3 * n_heads))] += 1
     return out, stats, out if o32 is None else o32
 
 
@@ -737,7 +745,8 @@ def _windows_backward_kernel(qkv, bias, ids, dout, o, stats, scale, n_heads,
             w, s1.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
             *_geometry(qkv, window), n_heads, float(scale), stream_of(qkv))
     check(err, "window_attention_windows_bwd")
-    launches["attention_windows_bwd"] += 1
+    launches[body_key("attention_windows_bwd",
+                      qkv.shape[4] // (3 * n_heads))] += 1
     return dqkv, dbias
 
 
@@ -809,7 +818,7 @@ def window_attention_windows(qkv, bias, ids, scale, n_heads, window):
         qkv: [B, D, H, W, 3C] (the qkv Linear's output on the rolled, padded
             feature map), f32 or bf16, contiguous; D, H, W multiples of
             ``window``; channels [q heads | k heads | v heads], head dim C /
-            n_heads: any up to 32, or a multiple of 16 up to 128.
+            n_heads: any from 1 to 8192.
         bias: [H, N, N] f32 relative-position bias, N = prod(window).
         ids: [W, N] int32 region ids; window (i, j, k) of each sample, in
             row-major order, uses row flat(i, j, k) % W (any W). An
