@@ -1,5 +1,5 @@
-"""Drive the port's Swin-3D, ViT-3D and ResNet-3D training steps and
-inference paths on one NVIDIA GPU.
+"""Drive the port's Swin-3D, ViT-3D, MedViT-3D and ResNet-3D training steps
+and inference paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -339,6 +339,39 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    BatchNorm statistics moved and the EMA's apart from the live ones; the
    EMA weights and statistics through ``Evaluator``; 2 plain-stem steps
    from the same state within 2e-2 / 5e-2;
+19a. Swin-T 5c training with ATTENTION_DROPOUT 0.1 (the flagship recipe,
+   micro 8 x 2): every block unfused on the JAX package's XLA attention
+   branch (``WindowAttention3D.attention``: f32 scores, the region mask at
+   -100, dropout on the probabilities), which no kernel computes. Its
+   calls of one training forward (shifted, unshifted, padded with -1 pad
+   ids, clamped N = 150) with no keep mask, qkv and bias replaced by z,
+   against K4's launch on the same values to TOL (``branch_gate``: every
+   counter at 0 before and one K4 launch per call after); the attention
+   keep masks of one forward kept at 1 - rate within 0.1% per stage; then
+   2 steps with drawn masks (``short_train_path``: no launch, losses and
+   grad norms finite, vol/s of the second step, peak memory);
+19b. ViT-S 5c's unfused arms: NORM_LAYER DynamicTanh (eval of the 8
+   volumes: no launch; 2 steps at micro 24 x 2: none), HEADS 2 (2 x 64 !=
+   384: the unfused attention half beside K2; eval 12 K2f a forward, 2
+   steps with 12 K2f and 12 K2b a pass), LayerNorm with DROPOUT and
+   ATTENTION_DROPOUT 0.1 (2 steps, both halves unfused: no launch); then
+   the LayerNorm ViT-S's attention half unfused with no masks
+   (``fused_attn_gate`` off) against its K1 half on the same weights,
+   volumes and gains (``vit_unfused_gate``): eval probs within 1e-2, one
+   batch's logits within 2e-2 of the largest |logit|, one step's loss and
+   grad norm within TRAIN_RTOL;
+19d. the stabilizers on unfused blocks: DynamicTanh Swin-T and DynamicTanh
+   ViT-S with LAYER_SCALE, ENABLE_STABLE and POST_NORM, 2 steps each (Swin:
+   12 K4f and 12 K4b a pass, held to 2 plain-route steps within
+   TRAIN_RTOL as phase 14; ViT: no launch);
+19c. MedViT-S 5c (medvit-5c-no_seed-baseline: DEPTH [3,4,10,3], head dim
+   32, MLP 3; no kernel: its 3^3 stem takes the plain conv): eval of the 8
+   volumes in batches of 4 after a BN refresh; the card's bf16 eval against
+   its f32 eval (probs within 1e-2, logits within 2e-2); the card's f32
+   forward and one f32 training micro-step at batch 2 (TF32 off) against
+   the CPU's on the same weights, volumes and gains (``medvit_f32_gate``,
+   MEDVIT_F32); 2 steps at micro 8 x 2 with the flagship recipe (ShakeDrop
+   gains), no launch;
 20. each kernel's time beside its bound: the larger of the bytes its calls
    move (inputs read once, outputs written once) over 3.35 TB/s and the
    products they compute over 989 TFLOP/s (bf16), from this run's shapes.
@@ -627,6 +660,32 @@ V_PER_CALL = {name: 1 for v in V_KERNELS for name in (v, f"{v}_bwd")}
 PAD_N = 256
 W_NOT_DIVIDING = (2, (12, 14, 12), (6, 7, 6), 96, 3, 3)
 RESNET_PRESET, RESNET_MICRO = "resnet-5c-no_seed-baseline", 12
+# Swin-T 5c training with ATTENTION_DROPOUT: every block unfused on the XLA
+# attention branch (no kernel); its gate against K4 must see these cases
+ATTN_DROPOUT = 0.1
+SHORT_STEPS = 2   # train steps of each path of phases 19a-19d
+BRANCH_CASES = {"shifted ids", "padded ids", "no mask", "N=150"}
+KEEP_RTOL = 1e-3   # each stage's kept share within 0.1% of 1 - rate
+# ViT-S's unfused arms: overrides -> (per eval forward, per training pass)
+VIT_UNFUSED_ARMS = {
+    "vit_dyt": (dict(NORM_LAYER="DynamicTanh"), {}, {}),
+    "vit_heads2": (dict(HEADS=2), {"ln_mlp": 12},
+                   {"ln_mlp": 12, "ln_mlp_bwd": 12}),
+    "vit_ln_dropout": (dict(DROPOUT=0.1, ATTENTION_DROPOUT=0.1), None, {}),
+}
+# the stabilizers on unfused blocks: DynamicTanh with all three
+UNFUSED_STABILIZERS = dict(NORM_LAYER="DynamicTanh", LAYER_SCALE=True,
+                           ENABLE_STABLE=True, POST_NORM=True)
+# MedViT-S 5c (medvit-5c-no_seed-baseline: DEPTH [3,4,10,3], head dim 32,
+# MLP 3): no kernel; the card's f32 forward and training micro-step against
+# the CPU's at batch 2 within these limits (PERF.md gives the reasons: a
+# conv's weight gradient sums up to 1.7M voxel terms in f32, with
+# cancellation, in cuDNN's order on the card and another on the CPU: the
+# stem's gradients part by ~1.6e-3 of the largest gradient and all of them
+# together by ~7e-4, where the logits and statistics agree to ~3e-7)
+MEDVIT_PRESET, MEDVIT_MICRO = "medvit-5c-no_seed-baseline", 8
+MEDVIT_F32 = {"logits": 1e-3, "loss": 1e-4, "grads": 1e-3, "grad_max": 1e-2,
+              "stats": 1e-3}
 # ViT-S 5c (vit-5c-no_seed-baseline: 144x160x144 / 16^3 + CLS = 811 tokens,
 # 12 blocks of 384, 6 heads of 64): one K1 (its key-tiled body) and one K2
 # a block; the eval volumes (144x168x144) are resized on the card
@@ -2523,13 +2582,14 @@ def model_eval_path(cfg, model, images, per_forward, label, card):
     counter at 0 before and exactly ``per_forward`` per batch after (0 for
     every other kernel); probs checked and held to the plain route's
     (``compare_probs``), and one batch's logits (``compare_logits``); the
-    rates of both routes; a profile pass."""
+    rates of both routes and the peak memory; a profile pass."""
     import torch
     from vsn_tpu_torch.eval.evaluate import Evaluator
     from vsn_tpu_torch.ops import _build
 
     evaluator = Evaluator(cfg, model, batch_size=BATCH)
     n_batches = -(-len(images) // evaluator.batch_size)
+    torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
     t0 = time.perf_counter()
     probs = evaluator.predict(images)
@@ -2548,6 +2608,8 @@ def model_eval_path(cfg, model, images, per_forward, label, card):
     x = torch.from_numpy(images[:BATCH]).to(evaluator.device)
     compare_logits(f"{label} path", model, evaluator.transform(x), plain)
     eval_rates(evaluator, images, plain, n_batches, label, card)
+    log(f"[{card}] {label} path: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (both routes)")
     profile_phase(lambda: evaluator.predict(images), label, "forward",
                   n_batches, card)
 
@@ -2711,10 +2773,12 @@ def seeded_model(cfg, device=None):
     its architecture's ``init_weights`` at seed SEED."""
     import torch
     from vsn_tpu_torch.models import build_model
+    from vsn_tpu_torch.models.medvit3d import init_weights as medvit_init
     from vsn_tpu_torch.models.swin3d import init_weights as swin_init
     from vsn_tpu_torch.models.vit3d import init_weights as vit_init
 
-    init = vit_init if cfg.ARCHITECTURE == "ViT" else swin_init
+    init = {"ViT": vit_init, "MedViT": medvit_init}.get(cfg.ARCHITECTURE,
+                                                         swin_init)
     return init(build_model(cfg, device), torch.Generator().manual_seed(SEED))
 
 
@@ -4909,6 +4973,395 @@ def wide_row_phase(device, gen, table=None):
     return dict(worst)
 
 
+# ---------------------------------------------------------------------------
+# The paths without a kernel: Swin's attention dropout, ViT's unfused
+# halves, MedViT-3D, the stabilizers on unfused blocks (phases 19a-19d)
+# ---------------------------------------------------------------------------
+
+def branch_calls(model, images, generator):
+    """The XLA attention branch's calls of one training forward of a Swin
+    with ATTENTION_DROPOUT > 0 (models/swin3d.py WindowAttention3D.
+    attention): [(attention module, qkv, ids)] in block order. No graph is
+    kept."""
+    import torch
+    from vsn_tpu_torch.models import swin3d
+
+    calls = []
+    real = swin3d.WindowAttention3D.attention
+
+    def record(attn, qkv, ids, mask=None):
+        calls.append((attn, qkv, ids))
+        return real(attn, qkv, ids, mask)
+
+    with torch.no_grad(), mock.patch.object(swin3d.WindowAttention3D,
+                                            "attention", record):
+        model(images, generator=generator)
+    return calls
+
+
+def branch_cases(qkv, ids):
+    """A branch call's cases: its region ids (shifted, padded with -1 pad
+    ids, none) and its N."""
+    kind = ("no mask" if ids is None else "padded ids"
+            if bool((ids < 0).any()) else "shifted ids")
+    return {kind, f"N={qkv.shape[1]}"}
+
+
+def branch_gate(calls, gen, required=BRANCH_CASES):
+    """Hold the XLA attention branch with no keep mask against K4 on the
+    same values, call by call: qkv replaced by a seeded unit normal (O(1)
+    logits) and the bias by z, ``WindowAttention3D.attention`` (f32 scores
+    and softmax, the region mask at -100) against K4's launch
+    (``window_attention_qkv``, -1e9) under K4's gate: TOL of its largest
+    output in the activation type. Every launch counter at 0 before and
+    exactly one K4 launch per call after. Returns the worst error over its
+    limit; raises past 1 or where a case is missing."""
+    import torch
+    from vsn_tpu_torch.ops import _build
+    from vsn_tpu_torch.ops.window_attention import window_attention_qkv
+
+    _build.launches.clear()
+    worst, kinds = 0.0, set()
+    with torch.no_grad():
+        for attn, qkv, ids in calls:
+            q = torch.randn(qkv.shape, generator=gen).to(qkv)
+            bias = torch.randn(attn.bias().shape, generator=gen).to(
+                qkv.device)
+            with mock.patch.object(attn, "bias", lambda: bias):
+                got = attn.attention(q, ids).float()
+            k4_ids = ids if ids is not None else torch.zeros(
+                (1, q.shape[1]), dtype=torch.int32, device=q.device)
+            want = window_attention_qkv(q, bias, k4_ids, attn.scale,
+                                        attn.num_heads).float()
+            limit = TOL[str(q.dtype).removeprefix("torch.")]
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            worst = max(worst, err / limit)
+            kinds |= branch_cases(q, ids)
+            if not err <= limit:
+                raise AssertionError(
+                    f"XLA branch vs K4 on a {tuple(q.shape)} call "
+                    f"({branch_cases(q, ids)}): {err:.3e} > {limit}")
+    check_counts(launch_counts(), {"attention": 1}, len(calls),
+                 "branch gate")
+    if not required <= kinds:
+        raise AssertionError(f"branch gate lacks cases {required - kinds}")
+    return worst
+
+
+def stage_keep_shares(model, draws):
+    """The kept share of the attention keep masks of each Swin stage in
+    one forward's ``draws`` (the model's ``draw_plan`` order)."""
+    blocks, out = model.blocks(), {}
+    stage_of = {id(blk): i for i, layer in enumerate(model.backbone.layers)
+                for blk in layer.blocks}
+    for (key, _), got in zip(model.draw_plan(1), draws):
+        if key[1:] == ("attn",):
+            kept, n = out.get(stage_of[id(blocks[key[0]])], (0, 0))
+            out[stage_of[id(blocks[key[0]])]] = (
+                kept + int(got.sum().item()), n + got.numel())
+    return {stage: kept / n for stage, (kept, n) in sorted(out.items())}
+
+
+def short_train_path(cfg, batch, per_pass, label, card, plain=None,
+                     profile=False):
+    """SHORT_STEPS train steps of a model of ``cfg`` with seeded weights
+    (``seeded_model``) on ``batch`` with injected
+    ``Draws``: every launch counter at 0 before and exactly ``per_pass``
+    times the passes after (0 for a path without kernels), losses and grad
+    norms finite and nothing skipped (``check_train_metrics``); the rate
+    from the steps after the first, and the peak memory. With ``plain``, a
+    context manager, as many steps from the same initial state on the same
+    draws under it, held to TRAIN_RTOL. With ``profile``, one more step
+    under the profiler (``profile_phase``). Returns (metrics, the
+    model)."""
+    import torch
+    from vsn_tpu_torch.ops import _build
+    from vsn_tpu_torch.train.step import init_train_state
+
+    sync, steps = torch.cuda.synchronize, SHORT_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    micro = cfg.BATCH_SIZE
+    model = seeded_model(cfg)
+    state = init_train_state(cfg, model)
+    initial = state.params.flat.clone()
+    draws = Draws(model, micro, batch["image"].device, SEED)
+    _build.launches.clear()
+    metrics, secs = train_route(model, cfg, state, batch, draws, steps, sync)
+    counts = launch_counts()
+    passes = steps * TRAIN_ACCUM * (2 if cfg.USE_SAM else 1)
+    log(f"{label} path: {steps} steps of {TRAIN_ACCUM} x {micro} volumes, "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    check_counts(counts, per_pass, passes, label)
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        profile_phase(lambda: train_route(model, cfg, state, batch, draws, 1,
+                                          sync), label, "step", 1, card)
+    if plain is None:
+        check_train_metrics(metrics, [])
+    else:
+        with torch.no_grad():
+            state.params.flat.copy_(initial)
+        del state
+        pstate = init_train_state(cfg, model)
+        with plain():
+            plain_metrics, _ = train_route(model, cfg, pstate, batch, draws,
+                                           steps, sync)
+        del pstate
+        rel = check_train_metrics(metrics, plain_metrics)
+        log(f"{label} path vs plain route: worst rel loss {rel['loss']:.3e} "
+            f"(<= {TRAIN_RTOL['loss']}), grad_norm {rel['grad_norm']:.3e} "
+            f"(<= {TRAIN_RTOL['grad_norm']})")
+    vols = TRAIN_ACCUM * micro
+    for i, (m, t) in enumerate(zip(metrics, secs)):
+        log(f"{label} step {i}: loss {m['loss']:.5f}, grad_norm "
+            f"{m['grad_norm']:.5f}, {1e3 * t:.1f} ms")
+    rate = vols * (steps - 1) / sum(secs[1:])
+    log(f"[{card}] {label}: {rate:.2f} vol/s (the steps after the first, "
+        f"{vols} volumes a step, SAM: 2 passes), first step "
+        f"{1e3 * secs[0]:.1f} ms; peak memory {peak / 2**30:.3f} GiB")
+    return metrics, model
+
+
+@contextmanager
+def unfused_vit_attention():
+    """Every ViT attention half unfused (``fused_attn_gate`` false): the
+    LayerNorm model's attention on the plain branch, its MLP on K2."""
+    from vsn_tpu_torch.models import vit3d
+
+    with mock.patch.object(vit3d, "fused_attn_gate",
+                           lambda *args, **kwargs: False):
+        yield
+
+
+def vit_unfused_gate(cfg, train_cfg, images, batch, card):
+    """The LayerNorm ViT-S's attention half unfused (no masks) against its
+    fused K1 half on the same weights, volumes and gains: eval probs within
+    1e-2 (``compare_probs``), one batch's logits within TOL of the largest
+    |logit| (``compare_logits``), one training step from the same state on
+    the same draws within TRAIN_RTOL."""
+    import torch
+    from vsn_tpu_torch.eval.evaluate import Evaluator
+    from vsn_tpu_torch.train.step import init_train_state
+
+    model = seeded_model(cfg)
+    evaluator = Evaluator(cfg, model, batch_size=BATCH)
+    probs = evaluator.predict(images)
+    with unfused_vit_attention():
+        probs_unfused = evaluator.predict(images)
+    compare_probs("vit unfused attention (probs: K1's; plain: the branch)",
+                  probs, probs_unfused)
+    x = torch.from_numpy(images[:BATCH]).to(evaluator.device)
+    compare_logits("vit unfused attention", model, evaluator.transform(x),
+                   unfused_vit_attention)
+    del model, evaluator
+    model = seeded_model(train_cfg)
+    state = init_train_state(train_cfg, model)
+    initial = state.params.flat.clone()
+    draws = Draws(model, train_cfg.BATCH_SIZE, batch["image"].device, SEED)
+    fused, _ = train_route(model, train_cfg, state, batch, draws, 1,
+                           torch.cuda.synchronize)
+    with torch.no_grad():
+        state.params.flat.copy_(initial)
+    del state
+    state = init_train_state(train_cfg, model)
+    with unfused_vit_attention():
+        unfused, _ = train_route(model, train_cfg, state, batch, draws, 1,
+                                 torch.cuda.synchronize)
+    rel = check_train_metrics(fused, unfused)
+    log(f"vit unfused attention vs K1, a step: loss {unfused[0]['loss']:.5f}"
+        f" / {fused[0]['loss']:.5f} (rel {rel['loss']:.3e} <= "
+        f"{TRAIN_RTOL['loss']}), grad_norm {unfused[0]['grad_norm']:.5f} / "
+        f"{fused[0]['grad_norm']:.5f} (rel {rel['grad_norm']:.3e} <= "
+        f"{TRAIN_RTOL['grad_norm']})")
+    return rel
+
+
+def medvit_step_outputs(model, x, labels, draws):
+    """One f32 training micro-step of a MedViT: (loss, {name: gradient},
+    the updated statistics); the model's statistics are left as they
+    were."""
+    import torch
+    from vsn_tpu_torch.train.losses import label_smoothing_loss
+
+    before = {k: v.clone() for k, v in model.state_dict().items()
+              if "running" in k}
+    model.train()
+    model.zero_grad()
+    loss = label_smoothing_loss(model(x, draws=draws), labels, 0.1)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if "running" in k}
+    model.load_state_dict(before, strict=False)
+    model.eval()
+    return loss.detach(), grads, stats
+
+
+def medvit_f32_gate(card_model, cpu_model, x, labels, draws_of):
+    """A MedViT's f32 eval logits and one f32 training micro-step on the
+    card (TF32 off) against the CPU's, on the same weights, volumes and
+    draws (``draws_of(device)``): logits within MEDVIT_F32["logits"] of the
+    largest |logit|, the loss within MEDVIT_F32["loss"] (relative), all
+    gradients together within MEDVIT_F32["grads"] (the norm of the
+    difference over the norm), each element within MEDVIT_F32["grad_max"]
+    of the largest gradient, every updated statistic within
+    MEDVIT_F32["stats"] of its BatchNorm's largest (PERF.md says why).
+    Returns each error over its limit; raises past 1."""
+    import torch
+
+    dev = next(card_model.parameters()).device
+    with torch.no_grad():
+        got = card_model.eval()(x.to(dev)).cpu()
+        want = cpu_model.eval()(x.cpu())
+    errs = {"logits": (got - want).abs().max().item()
+            / want.abs().max().item()}
+    loss, grads, stats = medvit_step_outputs(card_model, x.to(dev),
+                                             labels.to(dev), draws_of(dev))
+    wloss, wgrads, wstats = medvit_step_outputs(
+        cpu_model, x.cpu(), labels.cpu(), draws_of(torch.device("cpu")))
+    errs["loss"] = abs(loss.item() - wloss.item()) / abs(wloss.item())
+    diff = {n: grads[n].cpu() - g for n, g in wgrads.items()}
+    errs["grads"] = math.sqrt(
+        sum(d.square().sum().item() for d in diff.values())
+        / sum(g.square().sum().item() for g in wgrads.values()))
+    gscale = max(g.abs().max().item() for g in wgrads.values())
+    leaf = max(diff, key=lambda n: diff[n].abs().max().item())
+    errs["grad_max"] = diff[leaf].abs().max().item() / gscale
+    errs["stats"] = max(
+        (stats[n].cpu() - w).abs().max().item()
+        / wstats[n.rsplit(".", 1)[0] + ".running_var"].max().item() ** (
+            0.5 if n.endswith("mean") else 1.0)
+        for n, w in wstats.items())
+    worst = {k: e / MEDVIT_F32[k] for k, e in errs.items()}
+    log("medvit f32 card vs CPU: " + ", ".join(
+        f"{k} {e:.3e} (<= {MEDVIT_F32[k]})" for k, e in errs.items())
+        + f"; the largest gradient difference in {leaf}")
+    if max(worst.values()) > 1:
+        raise AssertionError(f"medvit f32 card vs CPU past the limits: {errs}")
+    return worst
+
+
+def medvit_bf16_gate(model, model32, images, cfg):
+    """The card's bf16 MedViT eval against its f32 eval (same weights and
+    statistics): probs within 1e-2 (``compare_probs``), one batch's logits
+    within TOL["bfloat16"] of the largest f32 |logit|."""
+    import torch
+    from vsn_tpu_torch.eval.evaluate import Evaluator
+
+    ev, ev32 = (Evaluator(cfg, m, batch_size=BATCH) for m in (model, model32))
+    compare_probs("medvit bf16 eval (plain: the f32 eval)",
+                  ev.predict(images), ev32.predict(images))
+    x = ev.transform(torch.from_numpy(images[:BATCH]).to(ev.device))
+    with torch.inference_mode():
+        got, want = model(x).float(), model32(x).float()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    log(f"medvit bf16 eval logits vs f32: max|d| {err:.3e} of max|logit| "
+        f"{scale:.3e} (<= {TOL['bfloat16']} of it)")
+    if not err <= TOL["bfloat16"] * scale:
+        raise AssertionError(f"medvit bf16 logits differ from f32 by {err}")
+    return err / scale / TOL["bfloat16"]
+
+
+def unfused_paths(device, card, images, train_cfg, vit_cfg, vit_train_cfg):
+    """Phases 19a-19d: Swin-T training with ATTENTION_DROPOUT (the XLA
+    branch, its gate against K4, the keep masks' shares), ViT-S's unfused
+    arms and the gate of its unfused attention half against K1, the
+    stabilizers on unfused blocks, MedViT-S 5c (eval after a BN refresh,
+    the f32 gate against the CPU and the bf16 gate, training); ``images``
+    are the eval volumes, the configs the flagship Swin and ViT ones."""
+    import torch
+    from vsn_tpu_torch.config import load_config
+    from vsn_tpu_torch.eval.evaluate import Evaluator
+    from vsn_tpu_torch.models import build_model
+    from vsn_tpu_torch.train.step import make_batch_transform
+
+    # 19a. Swin-T training with ATTENTION_DROPOUT: the XLA branch ----------
+    adrop_cfg = train_cfg.replace(ATTENTION_DROPOUT=ATTN_DROPOUT)
+    batch = train_batch(train_cfg, device, SEED + 5)   # phase 12's
+    model = seeded_model(adrop_cfg).train()
+    x = make_batch_transform(adrop_cfg)(
+        {k: v[0] for k, v in batch.items()})[0].to(torch.bfloat16)
+    calls = branch_calls(model, x, torch.Generator(device).manual_seed(7))
+    branch_worst = branch_gate(calls, torch.Generator().manual_seed(SEED + 33))
+    log(f"attention-dropout branch vs K4: {len(calls)} calls of a training "
+        f"micro-batch of {TRAIN_MICRO} (no keep mask, qkv and bias z, cases "
+        f"{sorted(BRANCH_CASES)}), worst {branch_worst:.3f} of the limit")
+    shares = stage_keep_shares(model, Draws(model, TRAIN_MICRO, device,
+                                            SEED)(0, 0, 0))
+    log(f"attention-dropout keep masks of one forward, kept share by stage: "
+        f"{ {st: round(sh, 6) for st, sh in shares.items()} } (within "
+        f"{KEEP_RTOL:.0e} of {1 - ATTN_DROPOUT} relative)")
+    if any(abs(sh / (1 - ATTN_DROPOUT) - 1) > KEEP_RTOL
+           for sh in shares.values()):
+        raise AssertionError(f"attention keep shares {shares}")
+    del model, calls, x
+    torch.cuda.empty_cache()
+    short_train_path(adrop_cfg, batch, {}, "swin_attn_dropout_train", card)
+    torch.cuda.empty_cache()
+
+    # 19b. ViT-S's unfused arms, and the unfused half against K1 -----------
+    vit_batch = train_batch(vit_train_cfg, device, SEED + 14)   # phase 16's
+    for arm, (over, per_forward, per_pass) in VIT_UNFUSED_ARMS.items():
+        if per_forward is not None:
+            acfg = vit_cfg.replace(**over)
+            model_eval_path(acfg, seeded_model(acfg), images, per_forward,
+                            f"{arm}_eval", card)
+        short_train_path(vit_train_cfg.replace(**over), vit_batch, per_pass,
+                         f"{arm}_train", card)
+        torch.cuda.empty_cache()
+    vit_gate = vit_unfused_gate(vit_cfg, vit_train_cfg, images, vit_batch,
+                                card)
+    torch.cuda.empty_cache()
+
+    # 19d. the stabilizers on unfused blocks (DynamicTanh) ----------------
+    plain = lambda: patched_model_ops(lambda name, kernel, p: p)
+    short_train_path(train_cfg.replace(**UNFUSED_STABILIZERS), batch,
+                     DYT_PER_PASS, "swin_dyt_stabilizers_train", card,
+                     plain=plain)
+    short_train_path(vit_train_cfg.replace(**UNFUSED_STABILIZERS), vit_batch,
+                     {}, "vit_dyt_stabilizers_train", card)
+    del batch, vit_batch
+    torch.cuda.empty_cache()
+
+    # 19c. MedViT-S 5c: eval, the f32 and bf16 gates, training ------------
+    mcfg = load_config(preset=MEDVIT_PRESET)
+    mtrain_cfg = load_config(dict(
+        USE_SAM=True, USE_EMA=True, USE_MIXUP=True, MIXUP_PROB=0.5,
+        USE_SHAKEDROP=True, LABEL_SMOOTHING=0.1, SEED=SEED,
+        BATCH_SIZE=MEDVIT_MICRO, EFFECTIVE_BATCH_SIZE=MEDVIT_MICRO *
+        TRAIN_ACCUM), preset=MEDVIT_PRESET)
+    model = seeded_model(mcfg)
+    refresh_statistics(model, mcfg, volumes(2 * BATCH, seed=SEED + 7), BATCH)
+    model_eval_path(mcfg, model, images, {}, "medvit_eval", card)
+    cfg32 = mcfg.replace(FP16=False)
+    model32 = build_model(cfg32)
+    model32.load_state_dict(model.state_dict(), strict=True)
+    medvit_bf16 = medvit_bf16_gate(model, model32, images, mcfg)
+    del model
+    cpu32 = build_model(cfg32, device="cpu")
+    cpu32.load_state_dict(model32.state_dict(), strict=True)
+    x = Evaluator(cfg32, model32, batch_size=2).transform(
+        torch.from_numpy(images[:2]).to(device)).float()
+    labels = torch.eye(mcfg.num_classes)[[0, 1]]
+    gains = model32.draw(2, torch.device("cpu"),
+                         torch.Generator().manual_seed(SEED + 34))
+    medvit_f32 = medvit_f32_gate(
+        model32, cpu32, x, labels,
+        lambda dev: [tuple(g.to(dev) for g in pair) for pair in gains])
+    del model32, cpu32, x
+    torch.cuda.empty_cache()
+    mbatch = train_batch(mtrain_cfg, device, SEED + 35)
+    short_train_path(mtrain_cfg, mbatch, {}, "medvit_train", card,
+                     profile=True)
+    del mbatch
+    torch.cuda.empty_cache()
+    log(f"phases 19a-19d: the branch gate {branch_worst:.3f}, the ViT gate "
+        f"loss {vit_gate['loss'] / TRAIN_RTOL['loss']:.3f} / grad_norm "
+        f"{vit_gate['grad_norm'] / TRAIN_RTOL['grad_norm']:.3f}, MedViT f32 "
+        f"{max(medvit_f32.values()):.3f}, bf16 {medvit_bf16:.3f} of their "
+        "limits")
+
+
 def main() -> int:
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
@@ -5477,6 +5930,9 @@ def main() -> int:
         f"{1e3 * secs[0]:.1f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del pstate, rbatch, model, draws
+
+    # 19a-19d. the paths without a kernel --------------------------------
+    unfused_paths(device, card, images, train_cfg, vit_cfg, vit_train_cfg)
 
     # 20. per-kernel times beside their bounds ----------------------------
     for name in GEMM_KERNELS:  # the Swin training micro-batch's launches

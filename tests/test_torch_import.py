@@ -36,7 +36,8 @@ def test_port_imports_no_jax_flax_or_triton():
     assert len(modules) >= 25
     for name in ("train.losses", "train.schedules", "train.optim",
                  "train.ema", "train.step", "data.mixers", "ops.stem_im2col",
-                 "ops.conv_unfold", "models.resnet3d", "ops.window_attention",
+                 "ops.conv_unfold", "models.resnet3d", "models.medvit3d",
+                 "ops.window_attention",
                  "ops.attn_probe", "probes.__init__", "probes.attn_ablate",
                  "probes.attn_ablate2"):
         assert f"vsn_tpu_torch.{name}" in modules

@@ -125,9 +125,9 @@ def test_converter_maps_every_leaf_and_key(jax_variables):
 
 def test_training_forward_and_unported_options_raise():
     """Training runs the kernels' VJPs, with dropout the unfused blocks'
-    (K4); training with attention dropout (the JAX XLA attention, no
-    kernel) and the unported options raise; the stabilizer options build
-    and train."""
+    (K4), with attention dropout the unfused blocks' XLA branch (no kernel;
+    tests/test_torch_swin_attn_dropout.py holds it to JAX); the unported
+    options raise; the stabilizer options build and train."""
     x = torch.zeros(1, 12, 18, 12, 1)
     model = build_model(load_config(TINY), device="cpu").train()
     model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
@@ -138,8 +138,8 @@ def test_training_forward_and_unported_options_raise():
     model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
     model = build_model(load_config(dict(TINY, ATTENTION_DROPOUT=0.1)),
                         device="cpu").train()
-    with pytest.raises(NotImplementedError):
-        model(x, generator=torch.Generator())
+    assert not model.fused()
+    model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
     for key in ("POST_NORM", "LAYER_SCALE", "ENABLE_STABLE"):
         model = build_model(load_config(dict(TINY, **{key: True})),
                             device="cpu").train()
@@ -149,9 +149,11 @@ def test_training_forward_and_unported_options_raise():
     with pytest.raises(ValueError):
         build_model(load_config(dict(TINY, NORM_LAYER="GroupNorm")),
                     device="cpu")
-    with pytest.raises(NotImplementedError):   # ViT is ported, MedViT not
-        build_model(load_config(dict(TINY, ARCHITECTURE="MedViT")),
+    with pytest.raises(NotImplementedError):   # a stub in the JAX package
+        build_model(load_config(dict(TINY, ARCHITECTURE="SwinDPL")),
                     device="cpu")
+    with pytest.raises(NotImplementedError):   # the JAX CPU oracle mode
+        build_model(load_config(dict(TINY, FP64=True)), device="cpu")
 
 
 GEOMETRY = [  # (dims, window, shift): divisible, padded, clamped-like

@@ -286,8 +286,18 @@ def test_init_weights_follow_the_jax_initializers():
     (dict(HEADS=3), "dim_head"),
 ])
 def test_unported_options_raise(over, match):
-    with pytest.raises(NotImplementedError, match=match):
-        build_model(load_config(dict(TINY, **over)), device="cpu")
+    """The options the fused slice refused (``match``: a norm other than
+    LayerNorm, heads * dim_head != C) now build and run the unfused
+    attention half (tests/test_torch_vit_unfused.py holds them to JAX);
+    FP64, the JAX package's CPU oracle mode, still raises."""
+    model = build_model(load_config(dict(TINY, **over)), device="cpu")
+    assert not model.blocks()[0].fused_attn()
+    assert model.blocks()[0].fused_mlp() == (match != "NORM_LAYER")
+    with torch.no_grad():
+        out = model(torch.zeros(1, 16, 16, 16, 1))
+    assert out.shape == (1, 5) and bool(torch.isfinite(out).all())
+    with pytest.raises(NotImplementedError, match="FP64"):
+        build_model(load_config(dict(TINY, FP64=True, **over)), device="cpu")
 
 
 @pytest.mark.parametrize("key", ["POST_NORM", "LAYER_SCALE",
@@ -309,10 +319,18 @@ def test_stabilizer_options_build_and_run(key):
 
 @pytest.mark.parametrize("key", ["DROPOUT", "ATTENTION_DROPOUT"])
 def test_training_with_dropout_raises_and_eval_runs(key):
+    """Eval keeps the fused halves; a training forward takes the unfused
+    attention half (and, with DROPOUT, the unfused MLP half), runs with a
+    generator and raises without one or injected draws."""
     model = build_model(load_config(dict(TINY, **{key: 0.1})), device="cpu")
     x = torch.zeros(1, 16, 16, 16, 1)
     with torch.no_grad():
         assert model(x).shape == (1, 5)
+    assert model.blocks()[0].fused_attn() and model.blocks()[0].fused_mlp()
     model.train()
-    with pytest.raises(NotImplementedError, match="DROPOUT"):
-        model(x, generator=torch.Generator().manual_seed(0))
+    assert not model.blocks()[0].fused_attn()
+    assert model.blocks()[0].fused_mlp() == (key == "ATTENTION_DROPOUT")
+    with pytest.raises(ValueError, match="generator"):
+        model(x)
+    model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
+    assert all(p.grad is not None for p in model.parameters())

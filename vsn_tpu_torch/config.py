@@ -91,6 +91,15 @@ _VIT = {
     "BATCH_SIZE": 24,
 }
 
+_MEDVIT = {
+    "ARCHITECTURE": "MedViT",
+    "DEPTH": [3, 4, 10, 3],
+    "HEADS": 32,
+    "MLP_RATIO": 3,
+    "SEED": None,
+    "PRELOAD_DATA": False,
+}
+
 # vsn_tpu/configs/<name>.yaml, applied over DEFAULTS as the JAX load_config
 # applies them (SEED false is normalized to None there).
 PRESETS = {
@@ -113,6 +122,8 @@ PRESETS = {
     },
     "vit-5c-no_seed-baseline": dict(_VIT),
     "vit-3c-no_seed-baseline": dict(_VIT, DISEASES=["CN", "AD", "FTD"]),
+    "medvit-5c-no_seed-baseline": dict(_MEDVIT),
+    "medvit-3c-no_seed-baseline": dict(_MEDVIT, DISEASES=["CN", "AD", "FTD"]),
 }
 
 

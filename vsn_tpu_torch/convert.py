@@ -1,4 +1,5 @@
-"""JAX variables <-> the port's state_dict (Swin-3D, ViT-3D and ResNet-3D).
+"""JAX variables <-> the port's state_dict (Swin-3D, ViT-3D, MedViT-3D and
+ResNet-3D).
 
 ``state_dict_from_jax`` is the inverse of scripts/golden_parity.py
 ``port_swin``, ``port_vit`` and ``port_resnet``, with the same transposes: a Dense kernel
@@ -11,7 +12,14 @@ running_mean/running_var buffers; ViT's ``cls_token`` and
 (``res1/LayerScale_0/gamma``, ``res2/...``) becomes the block's
 ``res1.gamma`` / ``res2.gamma``, and ViT's post-norm LayerNorms
 (``attn_norm``, ``ff_norm``) keep their names under the block. A JAX ``head`` is Swin's
-``head`` or, in a tree that holds ``cls_token``, ViT's ``mlp_head.1``. Every leaf must match a rule (KeyError
+``head`` or, in a tree that holds ``cls_token``, ViT's ``mlp_head.1``.
+A tree whose blocks are named ``s{stage}_b{block}_{ecb|ltb}`` is a
+MedViT's: its f-th block in (stage, block) order is the reference's
+``features.{f}``, at any depths (the reverse map takes ``depths=``), and
+its leaves take the names scripts/golden_parity_medvit.py reads (the
+LocalityFeedForward ``lff/...`` as ``conv.conv.{0,1,3,4,6.fc.0,6.fc.2,7,
+8}``, ``mhca/group_conv`` as ``mhca.group_conv3x3``, ``e_mhsa/sr_norm`` as
+``e_mhsa.norm``). Every leaf must match a rule (KeyError
 otherwise); load the result with ``load_state_dict(strict=True)`` so that
 any model key left without a leaf errors too. The maps are linear, so they
 carry gradients and optimizer moments as well as parameters.
@@ -147,6 +155,78 @@ _VIT_RULES = (
 )
 
 
+_F = "features.{0}"
+_FJ = r"features/(\d+)"
+_BN = r"(scale|bias)"
+_STATS = r"(mean|var)"
+
+
+def _batch_norm(jax_path: str, torch_key: str):
+    """A BatchNorm's rules: scale / bias in params, mean / var in
+    batch_stats."""
+    return (("params", jax_path + "/" + _BN, torch_key + ".{leaf}", _same),
+            ("batch_stats", jax_path + "/" + _STATS, torch_key + ".{leaf}",
+             _same))
+
+
+_LFF = (("expand", "0"), ("dwconv", "3"), ("project", "7"))
+_LFF_BN = (("bn1", "1"), ("bn2", "4"), ("bn3", "8"))
+
+# MedViT-3D, on JAX paths whose block names s{stage}_b{block}_{ecb|ltb} are
+# written features/{f}, f the block's place in the model (``_medvit_in`` /
+# ``_medvit_out``), as the reference's state_dict numbers them
+_MEDVIT_RULES = (
+    ("params", r"stem(\d)/conv/kernel", "stem.{0}.conv.weight", _conv),
+    *_batch_norm(r"stem(\d)/norm", "stem.{0}.norm"),
+    ("params", _FJ + r"/(patch_embed|projection)/conv/kernel",
+     _F + ".{1}.conv.weight", _conv),
+    *_batch_norm(_FJ + r"/(patch_embed|projection)/norm", _F + ".{1}.norm"),
+    *_batch_norm(_FJ + r"/(norm1|norm2)", _F + ".{1}"),
+    ("params", _FJ + r"/mhca/group_conv/kernel",
+     _F + ".mhca.group_conv3x3.weight", _conv),
+    *_batch_norm(_FJ + r"/mhca/norm", _F + ".mhca.norm"),
+    ("params", _FJ + r"/mhca/projection/kernel", _F + ".mhca.projection.weight",
+     _conv),
+    *(("params", _FJ + f"/lff/{name}/kernel", _F + f".conv.conv.{i}.weight",
+       _conv) for name, i in _LFF),
+    *(rule for name, i in _LFF_BN
+      for rule in _batch_norm(_FJ + f"/lff/{name}", _F + f".conv.conv.{i}")),
+    *(("params", _FJ + f"/lff/se/{name}/{leaf}",
+       _F + f".conv.conv.6.fc.{i}.{torch_leaf}", fn)
+      for name, i in (("fc1", 0), ("fc2", 2))
+      for leaf, torch_leaf, fn in (("kernel", "weight", _dense),
+                                   ("bias", "bias", _same))),
+    ("params", _FJ + r"/e_mhsa/(q|k|v|proj)/kernel", _F + ".e_mhsa.{1}.weight",
+     _dense),
+    ("params", _FJ + r"/e_mhsa/(q|k|v|proj)/bias", _F + ".e_mhsa.{1}.bias",
+     _same),
+    *_batch_norm(_FJ + r"/e_mhsa/sr_norm", _F + ".e_mhsa.norm"),
+    ("params", _FJ + r"/(res1|res2|res_mhsa|res_mhca|res_ffn)/LayerScale_0/"
+     r"gamma", _F + ".{1}.gamma", _same),
+    *_batch_norm(r"norm", "norm"),
+    ("params", r"proj_head/kernel", "proj_head.0.weight", _dense),
+    ("params", r"proj_head/bias", "proj_head.0.bias", _same),
+)
+_MEDVIT_BLOCK = re.compile(r"s(\d+)_b(\d+)_(ecb|ltb)")
+
+
+def _medvit_in(tree: Mapping):
+    """JAX block name -> its place f in the model, from a MedViT tree's
+    names (None for a tree of another model)."""
+    blocks = sorted((tuple(map(int, m.groups()[:2])), k) for k in tree
+                    if (m := _MEDVIT_BLOCK.fullmatch(k)))
+    if not blocks:
+        return None
+    return {k: f for f, (_, k) in enumerate(blocks)}
+
+
+def _medvit_out(depths):
+    """f -> the JAX block name at ``depths``."""
+    from vsn_tpu_torch.models.medvit3d import block_names
+
+    return dict(enumerate(block_names(depths)))
+
+
 def _flatten(tree: Mapping, prefix: str = ""):
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else str(k)
@@ -174,11 +254,17 @@ def state_dict_from_jax(variables: Mapping,
     extra = set(variables) - {"params", "batch_stats"}
     if extra:
         raise KeyError(f"unexpected variable collections: {sorted(extra)}")
-    rules = _VIT_RULES if "cls_token" in variables.get("params", {}) \
-        else _RULES
+    params = variables.get("params", {})
+    medvit = _medvit_in({k: None for tree in variables.values() for k in tree})
+    rules = (_VIT_RULES if "cls_token" in params
+             else _MEDVIT_RULES if medvit else _RULES)
     out = {}
     for collection, tree in variables.items():
         for path, leaf in _flatten(tree):
+            if medvit:
+                head, _, rest = path.partition("/")
+                if head in medvit:
+                    path = f"features/{medvit[head]}/{rest}"
             key, fn = _translate(collection, path, rules)
             if key in out:
                 raise KeyError(f"two JAX leaves map to {key!r}")
@@ -199,7 +285,7 @@ def _template_regex(template: str, pattern: str) -> str:
 
 def _reverse(key: str):
     """torch key -> (collection, '/'-joined JAX path, inverse transform)."""
-    for coll, pattern, template, fn in _RULES + _VIT_RULES:
+    for coll, pattern, template, fn in _RULES + _VIT_RULES + _MEDVIT_RULES:
         m = re.fullmatch(_template_regex(template, pattern), key)
         if not m:
             continue
@@ -213,13 +299,21 @@ def _reverse(key: str):
     raise KeyError(f"no JAX mapping for port key {key!r}")
 
 
-def jax_params_from_state_dict(state_dict: Mapping) -> dict:
+def jax_params_from_state_dict(state_dict: Mapping, depths=None) -> dict:
     """The port's state_dict (tensors or arrays) -> ``{"params": tree}``,
     plus ``"batch_stats"`` when it holds BatchNorm statistics, with numpy
-    f32 leaves: the inverse of ``state_dict_from_jax``."""
+    f32 leaves: the inverse of ``state_dict_from_jax``. A MedViT's
+    ``features.{f}`` keys need the model's ``depths`` to name f's JAX
+    block."""
     out: dict = {}
+    names = None if depths is None else _medvit_out(depths)
     for key, value in state_dict.items():
         coll, path, fn = _reverse(key)
+        if path.startswith("features/"):
+            if names is None:
+                raise ValueError(f"{key}: a MedViT block's key needs depths")
+            _, f, rest = path.split("/", 2)
+            path = f"{names[int(f)]}/{rest}"
         arr = value.detach().cpu().numpy() if isinstance(
             value, torch.Tensor) else np.asarray(value)
         node = out.setdefault(coll, {})

@@ -1,4 +1,4 @@
-"""Model zoo of the port (torch.nn): Swin-3D, ViT-3D and ResNet-3D so far.
+"""Model zoo of the port (torch.nn): Swin-3D, ViT-3D, MedViT-3D and ResNet-3D.
 
 ``build_model(cfg)`` maps the public ARCHITECTURE config key to a model.
 """

@@ -6,11 +6,6 @@ import torch
 
 MODEL_PRESETS = ("Swin", "SwinDPL", "MedViT", "ViT", "ResNet")
 
-# ROADMAP Queue 1 items that port the other backbones
-_NOT_PORTED = {
-    "MedViT": "models/medvit3d.py (ROADMAP Queue 1, item 2)",
-}
-
 
 def model_dtype(cfg) -> torch.dtype:
     """Activation dtype: bf16 when FP16 (mixed precision) is on, else f32.
@@ -48,9 +43,10 @@ def build_model(cfg, device=None):
         from vsn_tpu_torch.models.resnet3d import resnet_from_config
 
         model = resnet_from_config(cfg, dtype=model_dtype(cfg))
-    elif arch in _NOT_PORTED:
-        raise NotImplementedError(f"ARCHITECTURE={arch!r} is not ported yet: "
-                                  f"{_NOT_PORTED[arch]}")
+    elif arch == "MedViT":
+        from vsn_tpu_torch.models.medvit3d import medvit_from_config
+
+        model = medvit_from_config(cfg, dtype=model_dtype(cfg))
     elif arch == "SwinDPL":
         raise NotImplementedError(
             "SwinDPL (Deformable Patch Location) is a private architecture; "

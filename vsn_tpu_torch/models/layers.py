@@ -3,7 +3,10 @@
 The norms (LayerNorm, RMSNorm, DynamicTanh, all with f32 statistics),
 LayerScale, the residual branch gains (eval, and the training draws of
 DropPath and ShakeDrop), the gated residual, dropout on an explicit keep
-mask and the MLP.
+mask, the MLP, the JAX package's XLA attention (``softmax_attention``:
+Swin's attention-dropout branch, ViT's unfused half, MedViT's E-MHSA) and
+the models' random draws (``RandomDraws``: drawn from a generator or
+injected, in one plan order).
 
 A residual branch takes its decorations in the JAX ``ResidualBranch``
 order (layers.py:237-275): branch -> [post-norm] -> LayerScale -> the gains
@@ -195,6 +198,20 @@ class Dropout(nn.Module):
         return dropout(x, self.rate, mask)
 
 
+def linear(x, layer: nn.Linear):
+    """A Linear in x's dtype (flax nn.Dense(dtype=...): f32 parameters cast
+    to the activation type)."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def mlp(x, fc1: nn.Linear, fc2: nn.Linear, rate: float, masks=(None, None)):
+    """fc1 -> exact-erf GELU -> dropout -> fc2 -> dropout in x's dtype
+    (layers.py:282-307); ``masks`` the two keep masks (None: none)."""
+    x = dropout(F.gelu(linear(x, fc1)), rate, masks[0])
+    return dropout(linear(x, fc2), rate, masks[1])
+
+
 class Mlp(nn.Sequential):
     """Linear -> exact-erf GELU -> Dropout -> Linear -> Dropout
     (layers.py:282-307); children 0 and 3 are the reference state_dict's
@@ -206,12 +223,103 @@ class Mlp(nn.Sequential):
                          nn.Linear(hidden, dim), Dropout(dropout))
 
     def forward(self, x, masks=(None, None)):
-        fc1, act, drop1, fc2, drop2 = self
-        dt = x.dtype
-        x = drop1(act(F.linear(x, fc1.weight.to(dt), fc1.bias.to(dt))),
-                  masks[0])
-        return drop2(F.linear(x, fc2.weight.to(dt), fc2.bias.to(dt)),
-                     masks[1])
+        return mlp(x, self[0], self[3], self[2].rate, masks)
+
+
+REGION_MASK = -100.0
+
+
+def region_mask(ids: torch.Tensor) -> torch.Tensor:
+    """[W, N] region ids -> the additive [W, N, N] f32 mask of the JAX XLA
+    attention branch: -100 where the ids differ (vsn_tpu/models/swin3d.py
+    :689-697; the kernels mask with -1e9)."""
+    diff = ids[:, :, None] != ids[:, None, :]
+    return torch.where(diff, REGION_MASK, 0.0).to(torch.float32)
+
+
+def softmax_attention(q, k, v, scale: float, bias=None, ids=None,
+                      rate: float = 0.0, mask=None):
+    """Multi-head attention as the JAX package's XLA branches compute it
+    (WindowAttention3D :677-712, ViTAttention :89-109, EMHSA): q [B, H, N,
+    d], k and v [B, H, M, d] in the activation dtype. The scores q . k,
+    formed in (at least) f32 from the operands' values and taken as f32 (the
+    einsum's preferred_element_type), times ``scale``; plus ``bias`` [H, N,
+    M] f32 and the region mask of ``ids`` [W, N] (B = b W, window w of
+    sample s at row s W + w); the softmax in f32; dropout on the
+    probabilities with the keep mask ``mask`` [B, H, N, M] at ``rate``; the
+    probabilities cast to v's dtype and their product with v taken as f32.
+    Returns [B, H, N, d] f32. Plain PyTorch: the branch has no kernel on
+    either side. In bf16 the f32 products are exact, TF32 or not (a bf16
+    value is a TF32 value)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)).float() * scale
+    if bias is not None:
+        s = s + bias.float()
+    if ids is not None:
+        shape = s.shape
+        s = (s.view(-1, ids.shape[0], *shape[1:])
+             + region_mask(ids)[None, :, None]).view(shape)
+    p = dropout(torch.softmax(s, dim=-1), rate, mask)
+    return torch.matmul(p.to(v.dtype).to(acc), v.to(acc)).float()
+
+
+class RandomDraws:
+    """The random draws of a model's training forward, drawn or injected
+    (a mixin of the models). A model names its draws in ``draw_plan(b)``:
+    [(key, shape)] in the order its forward consumes them, a bool keep
+    mask of ``shape`` or, where shape is None, a residual's (gf, gb) gain
+    pair; ``mask_rate(key)`` is a mask's dropout rate and ``draw_gains(b,
+    key, device, generator)`` draws a gain pair."""
+
+    def draw_plan(self, b: int):
+        raise NotImplementedError
+
+    def mask_rate(self, key) -> float:
+        raise NotImplementedError
+
+    def draw_gains(self, b: int, key, device, generator):
+        raise NotImplementedError
+
+    def num_draws(self) -> int:
+        """Entries of ``draw()``: keep masks and residual gain pairs."""
+        return len(self.draw_plan(1))
+
+    def draw(self, b: int, device, generator):
+        """The random draws of one training forward, in ``draw_plan`` order
+        and the form ``forward(draws=)`` takes, drawn from ``generator`` on
+        ``device``: bool keep masks (each element kept with p = 1 - its
+        rate) and gain pairs."""
+        return [self.draw_gains(b, key, device, generator) if shape is None
+                else dropout_mask(shape, self.mask_rate(key), generator,
+                                  device)
+                for key, shape in self.draw_plan(b)]
+
+    def taken_draws(self, b: int, device, generator=None, draws=None):
+        """key -> draw of one forward: nothing in eval; in training the
+        ``draws`` given (a list in ``draw_plan`` order), else drawn from
+        ``generator``."""
+        if not self.training:
+            return {}
+        plan = self.draw_plan(b)
+        if draws is None:
+            if plan and generator is None:
+                raise ValueError("a training forward with stochastic depth or "
+                                 "dropout needs a generator or injected draws")
+            draws = self.draw(b, device, generator)
+        if len(draws) != len(plan):
+            raise ValueError(f"{len(draws)} injected draws, the model draws "
+                             f"{len(plan)}")
+        for (key, shape), got in zip(plan, draws):
+            if shape is None:
+                ok, want = isinstance(got, (tuple, list)) and len(got) == 2, \
+                    "a (gf, gb) pair"
+            else:
+                ok = (isinstance(got, torch.Tensor) and got.dtype == torch.bool
+                      and tuple(got.shape) == tuple(shape))
+                want = f"a bool keep mask {tuple(shape)}"
+            if not ok:
+                raise ValueError(f"draw {key}: expected {want}")
+        return {key: got for (key, _), got in zip(plan, draws)}
 
 
 def stochastic_depth_rates(total_rate: float,

@@ -59,20 +59,22 @@ def _stat_dtype(dtype):
 
 
 class BatchNorm(nn.Module):
-    """flax BatchNorm over dim 1 of [B, C, ...] (module docstring)."""
+    """flax BatchNorm over the channel dim ``axis`` (1: [B, C, ...], as the
+    ResNet's; -1: channels last, as MedViT's) (module docstring)."""
 
-    def __init__(self, num_features: int, dtype: torch.dtype):
+    def __init__(self, num_features: int, dtype: torch.dtype, axis: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
-        self.dtype = dtype
+        self.dtype, self.axis = dtype, axis
 
     def forward(self, x):
         x32 = x.to(_stat_dtype(x.dtype))
+        axis = self.axis % x.ndim
         if self.training:
-            dims = (0, *range(2, x.ndim))
+            dims = tuple(d for d in range(x.ndim) if d != axis)
             mean = x32.mean(dims)
             var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
             with torch.no_grad():
@@ -81,7 +83,8 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        shape = (1, -1) + (1,) * (x.ndim - 2)
+        shape = [1] * x.ndim
+        shape[axis] = -1
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         y = (x32 - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype)

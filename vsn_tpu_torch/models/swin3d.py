@@ -14,12 +14,18 @@ takes one of the JAX package's two block paths, chosen per forward by
   window-to-window permutation per shifted junction, reverse once at exit,
   all through the K3 movers (``ops/window_relayout.py``);
 * unfused, with a RMSNorm or DynamicTanh NORM_LAYER, or in training with
-  DROPOUT > 0: norm1 -> roll -> window partition -> qkv Linear -> K4
-  ``window_attention_qkv`` (``ops/window_attention.py``) -> proj ->
-  dropout -> window reverse -> unroll -> gated residual -> norm2 -> Mlp
-  (dropout after GELU and after fc2) -> gated residual
-  (vsn_tpu/models/swin3d.py:788-849). Roll, partition and reverse are
-  plain PyTorch here, as they are plain XLA there.
+  DROPOUT or ATTENTION_DROPOUT > 0: norm1 -> roll -> window partition ->
+  qkv Linear -> attention -> proj -> dropout -> window reverse -> unroll ->
+  gated residual -> norm2 -> Mlp (dropout after GELU and after fc2) ->
+  gated residual (vsn_tpu/models/swin3d.py:788-849). Roll, partition and
+  reverse are plain PyTorch here, as they are plain XLA there. The
+  attention is K4 ``window_attention_qkv`` (``ops/window_attention.py``),
+  except in a training forward with ATTENTION_DROPOUT > 0: there it is the
+  JAX package's XLA branch (:677-712), which no kernel computes on either
+  side, in plain PyTorch (``layers.softmax_attention``): f32 scores from
+  the split heads, the relative-position bias, the region mask at -100
+  (not K4's -1e9), the f32 softmax, dropout on the probabilities with a
+  drawn or injected keep mask [B*nW, heads, N, N], the product with v.
 
 A stage whose grid does not divide by the window (Swin-T stage 3) is
 zero-padded to window multiples, with the pad tokens masked out of
@@ -48,9 +54,7 @@ ENABLE_STABLE (DeepScaleLM) gives every residual lam * x + beta * branch
 with (lam, beta) from the total depth and the stable inits. The fused path
 passes gamma and post-norm to K1/K2, which carry them in band, and lam, with
 beta folded into the gains; the unfused path applies them in plain
-PyTorch. Training with ATTENTION_DROPOUT > 0 raises NotImplementedError: it
-takes the JAX package's XLA attention with dropout on the probabilities,
-which has no kernel (ROADMAP).
+PyTorch.
 """
 
 from __future__ import annotations
@@ -69,11 +73,12 @@ from vsn_tpu_torch.models.layers import (
     LayerScale,
     Mlp,
     RMSNorm,
+    RandomDraws,
     dropout,
-    dropout_mask,
     gated_residual,
     make_norm,
     residual_branch_gains,
+    softmax_attention,
     stochastic_depth_rates,
     trunc_normal_,
 )
@@ -260,15 +265,17 @@ class WindowAttention3D(nn.Module):
     ``forward`` is the unfused path's attention: qkv Linear -> K4 -> proj ->
     dropout (vsn_tpu/models/swin3d.py:625-723). The TPU gates K4 on a 10 MB
     VMEM budget for bias and dbias (:656-665); the card runs K4 in every
-    block, whatever the heads and window."""
+    block, whatever the heads and window. A training forward with
+    ``attn_drop`` > 0 fails that gate's dropout clause on every platform and
+    takes the XLA branch instead (``softmax_attention``)."""
 
     def __init__(self, dim: int, num_heads: int, window, qkv_bias: bool = True,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         table = (2 * window[0] - 1) * (2 * window[1] - 1) * (2 * window[2] - 1)
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
-        self.proj_drop = proj_drop
+        self.proj_drop, self.attn_drop = proj_drop, attn_drop
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -282,17 +289,40 @@ class WindowAttention3D(nn.Module):
         return expand_bias_table(self.relative_position_bias_table,
                                  self.relative_position_index)
 
-    def forward(self, windows, ids, mask=None):
+    def xla_branch(self) -> bool:
+        """Whether ``forward`` takes the XLA branch: training with attention
+        dropout (vsn_tpu/models/swin3d.py:660-665's deterministic clause)."""
+        return self.training and self.attn_drop > 0.0
+
+    def attention(self, qkv, ids, mask=None):
+        """The XLA branch on qkv [BW, N, 3C]: ``softmax_attention`` on the
+        split heads with the bias, the region mask of ``ids`` [W, N] (None:
+        no mask) at -100 and dropout on the probabilities by ``mask`` [BW,
+        heads, N, N]; merged heads [BW, N, C] in qkv's dtype."""
+        bw, n, c3 = qkv.shape
+        q, k, v = qkv.reshape(bw, n, 3, self.num_heads,
+                              c3 // (3 * self.num_heads)).permute(2, 0, 3, 1, 4)
+        out = softmax_attention(q, k, v, self.scale, self.bias(), ids,
+                                self.attn_drop, mask)
+        return out.transpose(1, 2).reshape(bw, n, c3 // 3).to(qkv.dtype)
+
+    def forward(self, windows, ids, masks=(None, None)):
         """windows [BW, N, C] -> [BW, N, C] in their dtype; ``ids`` [W, N]
-        region ids (one row of zeros for no mask), ``mask`` the proj
-        dropout's keep mask."""
+        region ids (None: no mask), ``masks`` the keep masks of the
+        attention dropout (XLA branch) and of the proj dropout."""
         dt = windows.dtype
         qkv_b = None if self.qkv.bias is None else self.qkv.bias.to(dt)
         qkv = F.linear(windows, self.qkv.weight.to(dt), qkv_b)
-        out = window_attention_qkv(qkv, self.bias(), ids, self.scale,
-                                   self.num_heads)
+        if self.xla_branch():
+            out = self.attention(qkv, ids, masks[0])
+        else:
+            if ids is None:
+                ids = torch.zeros((1, qkv.shape[1]), dtype=torch.int32,
+                                  device=qkv.device)
+            out = window_attention_qkv(qkv, self.bias(), ids, self.scale,
+                                       self.num_heads)
         out = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt))
-        return dropout(out, self.proj_drop, mask)
+        return dropout(out, self.proj_drop, masks[1])
 
 
 class SwinBlock3D(nn.Module):
@@ -309,7 +339,8 @@ class SwinBlock3D(nn.Module):
                  dropout_rate: float = 0.0, drop_path_rate: float = 0.0,
                  norm_layer=None, post_norm: bool = False,
                  layer_scale: bool = False,
-                 layer_scale_init_value: float = 1e-5, lam: float = 1.0):
+                 layer_scale_init_value: float = 1e-5, lam: float = 1.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.window, self.shift = tuple(window), tuple(shift)
         self.num_heads = num_heads
@@ -318,7 +349,7 @@ class SwinBlock3D(nn.Module):
         self.post_norm, self.lam = post_norm, lam
         self.norm1 = make_norm(norm_layer, dim)
         self.attn = WindowAttention3D(dim, num_heads, window, qkv_bias,
-                                      dropout_rate)
+                                      dropout_rate, attention_dropout)
         self.norm2 = make_norm(norm_layer, dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout_rate)
         self.res1 = self.res2 = None
@@ -373,14 +404,15 @@ class SwinBlock3D(nn.Module):
 
     def forward_unfused(self, x, ids, gains, masks):
         """The unfused block on spatial x [B, D, H, W, C] (dims divisible by
-        the window): ``ids`` [W, N] (a row of zeros for no mask), ``masks``
-        the keep masks (proj, fc1, fc2) of its dropouts, or Nones."""
+        the window): ``ids`` [W, N] (None: no mask), ``masks`` the keep
+        masks (attn, proj, fc1, fc2) of its dropouts, or Nones."""
         b, d, h, w, c = x.shape
         gf1, gb1, gf2, gb2 = gains
-        proj_mask, fc1_mask, fc2_mask = masks
+        attn_mask, proj_mask, fc1_mask, fc2_mask = masks
         h_in = x if self.post_norm else self.norm1(x)
         h_in = roll3d(h_in, tuple(-s for s in self.shift))
-        out = self.attn(window_partition(h_in, self.window), ids, proj_mask)
+        out = self.attn(window_partition(h_in, self.window), ids,
+                        (attn_mask, proj_mask))
         out = roll3d(window_reverse(out, self.window, (d, h, w)), self.shift)
         x = self._residual(x, out, self.norm1, self.res1, gf1, gb1)
         out = self.mlp(x if self.post_norm else self.norm2(x),
@@ -430,7 +462,8 @@ class BasicLayer3D(nn.Module):
     def __init__(self, dim: int, dims, depth: int, num_heads: int, window,
                  rates: Sequence[float], downsample: bool,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 dropout_rate: float = 0.0, norm_layer=None, **residual):
+                 dropout_rate: float = 0.0, norm_layer=None,
+                 attention_dropout: float = 0.0, **residual):
         super().__init__()
         self.dim, self.hidden = dim, int(dim * mlp_ratio)
         self.dims = tuple(dims)
@@ -446,7 +479,7 @@ class BasicLayer3D(nn.Module):
             SwinBlock3D(dim, num_heads, self.window,
                         (0, 0, 0) if i % 2 == 0 else self.shift, mlp_ratio,
                         qkv_bias, dropout_rate, rates[i], norm_layer,
-                        **residual)
+                        attention_dropout=attention_dropout, **residual)
             for i in range(depth))
         self.downsample = (PatchMerging3D(dim, norm_layer) if downsample
                            else None)
@@ -462,8 +495,7 @@ class BasicLayer3D(nn.Module):
             ids_shift = shifted_window_region_ids(self.dims, self.window,
                                                   self.shift)
         for name, ids in (("ids_noshift", ids_noshift),
-                          ("ids_shift", ids_shift),
-                          ("ids_none", np.zeros((1, self.n_tokens), np.int32))):
+                          ("ids_shift", ids_shift)):
             self.register_buffer(
                 name, None if ids is None else torch.from_numpy(ids),
                 persistent=False)
@@ -473,8 +505,8 @@ class BasicLayer3D(nn.Module):
 
     def forward(self, x, gains, masks=None, fused=True):
         """x [B, D, H, W, C]; ``gains`` holds one (gf1, gb1, gf2, gb2) per
-        block, ``masks`` one (proj, fc1, fc2) keep-mask triple per block
-        (unfused path); ``fused`` picks the block path."""
+        block, ``masks`` one (attn, proj, fc1, fc2) keep-mask tuple per
+        block (unfused path); ``fused`` picks the block path."""
         b, d, h, w, c = x.shape
         if (d, h, w) != self.dims:
             raise ValueError(f"stage built for grid {self.dims}, got {(d, h, w)}")
@@ -488,10 +520,9 @@ class BasicLayer3D(nn.Module):
                 if fused:
                     x = blk(x, self._ids(i), gains[i])
                 else:
-                    ids = self._ids(i)
                     x = blk.forward_unfused(
-                        x, self.ids_none if ids is None else ids, gains[i],
-                        masks[i] if masks else (None, None, None))
+                        x, self._ids(i), gains[i],
+                        masks[i] if masks else (None,) * 4)
             x = x[:, :d, :h, :w, :]
         if self.downsample is not None:
             x = self.downsample(x)
@@ -555,7 +586,8 @@ class SwinBackbone3D(nn.Module):
 
     def __init__(self, img_size, patch_size, in_channels, embed_dim, depths,
                  num_heads, window_size, mlp_ratio, qkv_bias, dropout_rate,
-                 patch_norm, rates, norm_layer=None, **residual):
+                 patch_norm, rates, norm_layer=None, attention_dropout=0.0,
+                 **residual):
         """``residual``: the blocks' post_norm, layer_scale,
         layer_scale_init_value and lam (SwinBlock3D)."""
         super().__init__()
@@ -572,13 +604,13 @@ class SwinBackbone3D(nn.Module):
                 tuple(window_size), rates[off:off + depths[i]],
                 downsample=i < n - 1, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                 dropout_rate=dropout_rate, norm_layer=norm_layer,
-                **residual))
+                attention_dropout=attention_dropout, **residual))
         self.num_features = embed_dim * 2 ** (n - 1)
         self.norm = make_norm(norm_layer, self.num_features)
 
     def forward(self, x, gains, masks=None, embed_mask=None, fused=True):
         """``gains``: one (gf1, gb1, gf2, gb2) per block, in stage order;
-        ``masks``: one (proj, fc1, fc2) keep-mask triple per block and
+        ``masks``: one (attn, proj, fc1, fc2) keep-mask tuple per block and
         ``embed_mask`` the patch-embed dropout's (unfused path)."""
         x = dropout(self.patch_embed(x), self.dropout, embed_mask)
         off = 0
@@ -590,7 +622,7 @@ class SwinBackbone3D(nn.Module):
         return self.norm(x).mean(dim=(1, 2, 3))  # AdaptiveAvgPool3d(1)
 
 
-class SwinTransformer3D(nn.Module):
+class SwinTransformer3D(RandomDraws, nn.Module):
     """Swin-3D classifier. Input [B, D, H, W, C_in] of the size it was built
     for; output f32 logits [B, num_classes]."""
 
@@ -623,7 +655,8 @@ class SwinTransformer3D(nn.Module):
         self.backbone = SwinBackbone3D(
             img_size, patch_size, in_channels, embed_dim, depths, num_heads,
             window_size, mlp_ratio, qkv_bias, dropout, patch_norm, rates,
-            norm_layer, post_norm=post_norm, layer_scale=layer_scale,
+            norm_layer, attention_dropout, post_norm=post_norm,
+            layer_scale=layer_scale,
             layer_scale_init_value=layer_scale_init_value, lam=self.lam)
         self.head = nn.Linear(self.backbone.num_features, num_classes)
 
@@ -640,25 +673,30 @@ class SwinTransformer3D(nn.Module):
         """The random draws of one training forward at batch ``b``, in draw
         order: [(key, shape)]. First the patch-embed dropout's keep mask
         (key "embed"), then for each block i in stage order, as the block
-        runs them: (i, "proj") the proj dropout's keep mask [B*nW, N, C],
-        (i, "res1") the first residual's (gf, gb), (i, "fc1") and (i, "fc2")
-        the Mlp dropouts' keep masks [B, D, H, W, hidden] and [B, D, H, W, C]
-        on the stage's padded grid, (i, "res2"). Masks exist with DROPOUT >
-        0, gains for a block with stochastic-depth rate > 0; a gain pair's
-        shape is None."""
+        runs them: (i, "attn") the attention dropout's keep mask [B*nW,
+        heads, N, N] over the probabilities, (i, "proj") the proj dropout's
+        [B*nW, N, C], (i, "res1") the first residual's (gf, gb), (i, "fc1")
+        and (i, "fc2") the Mlp dropouts' [B, D, H, W, hidden] and [B, D, H,
+        W, C] on the stage's padded grid, (i, "res2"). The attention mask
+        exists with ATTENTION_DROPOUT > 0, the others with DROPOUT > 0, gains
+        for a block with stochastic-depth rate > 0; a gain pair's shape is
+        None."""
         plan = []
-        drop = self.dropout > 0.0
+        drop, attn = self.dropout > 0.0, self.attention_dropout > 0.0
         first = self.backbone.layers[0]
         if drop:
             plan.append(("embed", (b, *first.dims, first.dim)))
         i = 0
         for layer in self.backbone.layers:
             grid = (b, *layer.padded_dims)
+            wins = (b * layer.n_windows, layer.n_tokens)
             for blk in layer.blocks:
                 gains = blk.drop_path_rate > 0.0
+                if attn:
+                    plan.append(((i, "attn"), (wins[0], blk.num_heads,
+                                               wins[1], wins[1])))
                 if drop:
-                    plan.append(((i, "proj"), (b * layer.n_windows,
-                                               layer.n_tokens, layer.dim)))
+                    plan.append(((i, "proj"), (*wins, layer.dim)))
                 if gains:
                     plan.append(((i, "res1"), None))
                 if drop:
@@ -669,54 +707,16 @@ class SwinTransformer3D(nn.Module):
                 i += 1
         return plan
 
-    def num_draws(self) -> int:
-        """Entries of ``draw()``: keep masks and residual gain pairs."""
-        return len(self.draw_plan(1))
+    def mask_rate(self, key) -> float:
+        return (self.attention_dropout if key[1:] == ("attn",)
+                else self.dropout)
 
-    def draw(self, b: int, device, generator):
-        """The random draws of one training forward, in the form
-        ``forward(draws=)`` takes and in ``draw_plan`` order, drawn from
-        ``generator`` on ``device``: bool keep masks (each element kept with
-        p = 1 - DROPOUT) and the (gf, gb) pair of every residual that draws
-        (``residual_branch_gains``)."""
-        blocks = self.blocks()
-        out = []
-        for key, shape in self.draw_plan(b):
-            if shape is None:
-                out.append(residual_branch_gains(
-                    b, blocks[key[0]].drop_path_rate, self.use_shakedrop,
-                    self.alpha_range, False, generator, device))
-            else:
-                out.append(dropout_mask(shape, self.dropout, generator,
-                                        device))
-        return out
-
-    def taken_draws(self, b: int, device, generator=None, draws=None):
-        """key -> draw of one forward: nothing in eval; in training the
-        ``draws`` given (a list in ``draw_plan`` order), else drawn from
-        ``generator``."""
-        if not self.training:
-            return {}
-        plan = self.draw_plan(b)
-        if draws is None:
-            if plan and generator is None:
-                raise ValueError("a training forward with stochastic depth or "
-                                 "dropout needs a generator or injected draws")
-            draws = self.draw(b, device, generator)
-        if len(draws) != len(plan):
-            raise ValueError(f"{len(draws)} injected draws, the model draws "
-                             f"{len(plan)}")
-        for (key, shape), got in zip(plan, draws):
-            if shape is None:
-                ok, want = isinstance(got, (tuple, list)) and len(got) == 2, \
-                    "a (gf, gb) pair"
-            else:
-                ok = (isinstance(got, torch.Tensor) and got.dtype == torch.bool
-                      and tuple(got.shape) == shape)
-                want = f"a bool keep mask {shape}"
-            if not ok:
-                raise ValueError(f"draw {key}: expected {want}")
-        return {key: got for (key, _), got in zip(plan, draws)}
+    def draw_gains(self, b: int, key, device, generator):
+        """``residual_branch_gains`` of block key[0] (ShakeDrop or
+        DropPath)."""
+        return residual_branch_gains(
+            b, self.blocks()[key[0]].drop_path_rate, self.use_shakedrop,
+            self.alpha_range, False, generator, device)
 
     def residual_gains(self, b: int, device, generator=None, draws=None,
                        taken=None):
@@ -747,15 +747,11 @@ class SwinTransformer3D(nn.Module):
         """Logits of x. In training mode (``self.training``) the residual
         gains and dropout keep masks are drawn from ``generator`` or taken
         from ``draws`` (``draw``)."""
-        if self.training and self.attention_dropout > 0:
-            raise NotImplementedError(
-                "training with ATTENTION_DROPOUT > 0 takes the JAX package's "
-                "XLA attention with dropout on the probabilities, which has "
-                "no kernel; not ported (ROADMAP)")
         b = x.shape[0]
         taken = self.taken_draws(b, x.device, generator, draws)
         gains = self.residual_gains(b, x.device, taken=taken)
-        masks = [tuple(taken.get((i, k)) for k in ("proj", "fc1", "fc2"))
+        masks = [tuple(taken.get((i, k)) for k in ("attn", "proj", "fc1",
+                                                   "fc2"))
                  for i in range(len(gains))]
         feats = self.backbone(x.to(self.dtype), gains, masks,
                               taken.get("embed"), self.fused())
