@@ -372,7 +372,27 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
    the CPU's on the same weights, volumes and gains (``medvit_f32_gate``,
    MEDVIT_F32); 2 steps at micro 8 x 2 with the flagship recipe (ShakeDrop
    gains), no launch;
-20. each kernel's time beside its bound: the larger of the bytes its calls
+   then MedViT's stem.0 conv weight gradient in f64 on the card (cuDNN)
+   and on the CPU from that step's input and output cotangent, and the
+   card's f32 gradient's gap to it in f32 ulps (``medvit_stem_f64``: a
+   reading, logged);
+20a. the uncertainty eval chain (``eval_chain_phase``) on Swin-T 5c with
+   seeded weights: a synthetic cohort at 144x168x144 (12 subjects in 3
+   folds, split [1, 1, 1]) and an OD cohort of 8 by the port's
+   ``generate_synthetic_dataset``; a checkpoint in the JAX package's
+   format, whose loaded model's logits equal the saved model's bit for
+   bit; ``evaluate_checkpoint`` plain and with TTA (8 views; the OD cohort
+   fills one batch at the default cap of 8 volumes, 64 rows), each with
+   exactly 12 / 12 / 7 launches per batch, its peak memory, and its CSVs
+   (rows summing to 1 within 1e-4) and metrics JSON read back; one TTA
+   batch at the cap timed, with its launches and peak memory; its
+   probabilities within 1e-2 of the plain route's on the same views and
+   draws; the card's warp within 1e-4 of the CPU's; plain and TTA vol/s
+   and each stage's seconds;
+20b. Swin-T 5c eval at batch 4 with USE_PALLAS_ATTENTION off
+   (``flag_off_phase``): no launch, probs within 1e-2 and logits within
+   2e-2 of the kernel route's;
+21. each kernel's time beside its bound: the larger of the bytes its calls
    move (inputs read once, outputs written once) over 3.35 TB/s and the
    products they compute over 989 TFLOP/s (bf16), from this run's shapes.
 torch.profiler runs over one eval pass and one train step of each Swin
@@ -686,6 +706,16 @@ UNFUSED_STABILIZERS = dict(NORM_LAYER="DynamicTanh", LAYER_SCALE=True,
 MEDVIT_PRESET, MEDVIT_MICRO = "medvit-5c-no_seed-baseline", 8
 MEDVIT_F32 = {"logits": 1e-3, "loss": 1e-4, "grads": 1e-3, "grad_max": 1e-2,
               "stats": 1e-3}
+# Phase 20a, the uncertainty eval chain on Swin-T 5c: a synthetic cohort at
+# raw shape IMG_SIZE (3 folds of 4: val and test 4 volumes each) and an
+# out-of-domain cohort of 8 (one TTA batch at the Evaluator's default cap,
+# 8 volumes x 8 views = 64 rows), the checkpoint's config (KFOLD / SPLIT /
+# FOLD as the JAX trainer stores them), the bootstrap's resamples
+CHAIN_SUBJECTS, CHAIN_OD_SUBJECTS, CHAIN_BOOTSTRAP = 12, 8, 1000
+TTA_CAP = 8            # the Evaluator's TTA batch (VSN_TTA_BATCH's default)
+CHAIN_CONFIG = dict(KFOLD=3, SPLIT=[1, 1, 1], FOLD=0)
+CHAIN_SUM_TOL = 1e-4   # each CSV row's probabilities sum to 1
+WARP_TOL = 1e-4        # the card's warp against the CPU's, of |volume|
 # ViT-S 5c (vit-5c-no_seed-baseline: 144x160x144 / 16^3 + CLS = 811 tokens,
 # 12 blocks of 384, 6 heads of 64): one K1 (its key-tiled body) and one K2
 # a block; the eval volumes (144x168x144) are resized on the card
@@ -5348,6 +5378,9 @@ def unfused_paths(device, card, images, train_cfg, vit_cfg, vit_train_cfg):
     medvit_f32 = medvit_f32_gate(
         model32, cpu32, x, labels,
         lambda dev: [tuple(g.to(dev) for g in pair) for pair in gains])
+    medvit_stem_f64(model32, x, labels.to(device),
+                    [tuple(g.to(device) for g in pair) for pair in gains],
+                    card)
     del model32, cpu32, x
     torch.cuda.empty_cache()
     mbatch = train_batch(mtrain_cfg, device, SEED + 35)
@@ -5360,6 +5393,325 @@ def unfused_paths(device, card, images, train_cfg, vit_cfg, vit_train_cfg):
         f"{vit_gate['grad_norm'] / TRAIN_RTOL['grad_norm']:.3f}, MedViT f32 "
         f"{max(medvit_f32.values()):.3f}, bf16 {medvit_bf16:.3f} of their "
         "limits")
+
+
+# ---------------------------------------------------------------------------
+# The uncertainty eval chain, USE_PALLAS_ATTENTION off, MedViT's stem in f64
+# ---------------------------------------------------------------------------
+
+def chain_cohort(root, cfg, n_subjects=CHAIN_SUBJECTS,
+                 od_subjects=CHAIN_OD_SUBJECTS):
+    """The eval chain's cohorts, by the port's ``generate_synthetic_dataset``
+    at raw shape IMG_SIZE: the fold CSVs' directory, and one out-of-domain
+    CSV of a second cohort whose subjects are renamed ``od-*`` (the
+    generator names every cohort's subjects synth-NNNN, and the volume
+    cache is keyed by subject)."""
+    from vsn_tpu_torch.data.folds import read_csv, write_csv
+    from vsn_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    shape, diseases = tuple(cfg.IMG_SIZE), tuple(cfg.DISEASES)
+    _, csv_dir = generate_synthetic_dataset(
+        root / "cohort", n_subjects, shape, diseases, int(cfg.KFOLD), SEED)
+    _, od_dir = generate_synthetic_dataset(
+        root / "od_cohort", od_subjects, shape, diseases, 1, SEED + 1, "OD")
+    rows = [{**r, "Subject": "od-" + r["Subject"]}
+            for r in read_csv(od_dir / "fold_0.csv")]
+    write_csv(rows, root / "od.csv")
+    return csv_dir, root / "od.csv"
+
+
+def read_predictions(path, diseases):
+    """(rows, probs [N, K]) of a prediction CSV, its probabilities finite
+    and each row's within CHAIN_SUM_TOL of 1."""
+    from vsn_tpu_torch.data.folds import read_csv
+
+    rows = read_csv(path)
+    probs = np.array([[float(r[f"pred_{d}"]) for d in diseases]
+                      for r in rows]).reshape(len(rows), len(diseases))
+    check_probs(probs, len(rows), len(diseases))
+    err = float(np.abs(probs.sum(1) - 1).max()) if len(rows) else 0.0
+    if not len(rows) or err > CHAIN_SUM_TOL:
+        raise AssertionError(f"{path.name}: {len(rows)} rows, probabilities "
+                             f"sum to 1 within {err}")
+    return rows, probs
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def eval_chain_phase(cfg, root, card, device, per_forward=PER_FORWARD,
+                     n_bootstrap=CHAIN_BOOTSTRAP):
+    """Phase 20a: the uncertainty eval chain through its entry points on a
+    model of ``cfg`` with seeded weights. A synthetic cohort and an OD
+    cohort (``chain_cohort``); a checkpoint in the JAX package's format
+    (``save_checkpoint`` of ``jax_params_from_state_dict``) whose loaded
+    model's logits equal the saved model's bit for bit; ``evaluate_
+    checkpoint`` plain, then with TTA (its batch at the default cap of
+    TTA_CAP volumes, which the OD cohort fills), each with every counter
+    at 0 before and ``per_forward`` launches per batch after, its peak
+    memory, its prediction CSVs and metrics JSON read back; one TTA batch
+    of the OD cohort at the cap (``predict``, TTA_CAP x 8 views), timed,
+    with its launches and peak memory; its probabilities against the
+    plain route's (kernels off) on the same views and draws
+    (``compare_probs``), and the logits of its views (``compare_logits``);
+    the card's warp against the CPU's on one volume within WARP_TOL of its
+    scale; plain and TTA eval vol/s and each stage's seconds (the warp and
+    the forward of that TTA batch apart). Files under ``root``."""
+    import shutil
+
+    import torch
+    from vsn_tpu_torch.convert import jax_params_from_state_dict
+    from vsn_tpu_torch.data.augment import affine_warp_matmul
+    from vsn_tpu_torch.data.folds import get_train_val_test, read_csv
+    from vsn_tpu_torch.data.pipeline import InMemoryDataset
+    from vsn_tpu_torch.eval import evaluate as ev
+    from vsn_tpu_torch.eval.tta import make_tta_views
+    from vsn_tpu_torch.ops import _build
+    from vsn_tpu_torch.train.checkpoint import save_checkpoint
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    diseases = list(cfg.DISEASES)
+    t0 = time.perf_counter()
+    csv_dir, od_csv = chain_cohort(root, cfg)
+    cohort_s = time.perf_counter() - t0
+    model = seeded_model(cfg, device)
+    ckpt = root / "model_chip_0_best0.ckpt"
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, {"variables": jax_params_from_state_dict(
+        model.state_dict())}, {"config": dict(cfg), "fold": cfg.FOLD})
+    save_s = time.perf_counter() - t0
+    _, loaded, _, _ = ev.load_model_from_checkpoint(ckpt, device)
+    x = torch.from_numpy(volumes(2, seed=SEED + 40)).to(device)
+    x = ev.Evaluator(cfg, model).transform(x)
+    with torch.inference_mode():
+        if not torch.equal(model(x), loaded(x)):
+            raise AssertionError("eval chain: the loaded checkpoint's logits "
+                                 "differ from the saved model's")
+    log(f"eval chain: cohort of {CHAIN_SUBJECTS} + {CHAIN_OD_SUBJECTS} "
+        f"subjects at {tuple(cfg.IMG_SIZE)} in {cohort_s:.1f} s; checkpoint "
+        f"{ckpt.stat().st_size / 1e6:.1f} MB written in {save_s:.2f} s; the "
+        "loaded model's logits equal the saved model's bit for bit")
+    del loaded, x
+    n_val = len(get_train_val_test(csv_dir, cfg.FOLD, cfg.KFOLD,
+                                   tuple(cfg.SPLIT))[1])
+    cuda = torch.device(device).type == "cuda"
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    n_vols = {}
+    for label, tta in (("plain", False), ("tta", True)):
+        out = root / label
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        res = ev.evaluate_checkpoint(
+            ckpt, csv_dir, root / "cache", out, eval_csv=str(od_csv),
+            use_tta=tta, n_bootstrap=n_bootstrap, skip_if_exists=False,
+            device=device)
+        _sync(device)
+        counts = launch_counts()
+        stem = ckpt.stem
+        rows_id, _ = read_predictions(out / f"prediction_{stem}_id.csv",
+                                      diseases)
+        rows_od, _ = read_predictions(out / f"prediction_{stem}_od.csv",
+                                      diseases)
+        metrics = json.loads((out / f"metrics_{stem}.json").read_text())
+        if set(metrics) != {"checkpoint", "fold", "use_tta", "model_index",
+                            "val", "test_id", "test_od"} or (
+                metrics["use_tta"] is not tta):
+            raise AssertionError(f"eval chain {label}: metrics keys "
+                                 f"{sorted(metrics)}")
+        for split in ("val", "test_id", "test_od"):
+            ece = metrics[split]["ece"]
+            if not all(math.isfinite(ece[k]) for k in ("mean", "lower",
+                                                       "upper")):
+                raise AssertionError(f"eval chain {label}: {split} ECE {ece}")
+        sizes = [n_val, len(rows_id), len(rows_od)]
+        batch = ev.Evaluator(cfg, model, use_tta=tta).batch_size
+        if tta and (batch != TTA_CAP or len(rows_od) < batch):
+            raise AssertionError(
+                f"eval chain tta: batch {batch}, OD cohort {len(rows_od)}: "
+                f"no batch at the default cap of {TTA_CAP} volumes")
+        n_batches = sum(-(-n // max(1, min(batch, n))) for n in sizes)
+        check_counts(counts, per_forward, n_batches, f"eval chain {label}")
+        n_vols[label] = sum(sizes)
+        secs = res["seconds"]
+        log(f"[{card}] eval chain {label}: {n_vols[label]} volumes "
+            f"(val, test, OD: {sizes}) in {n_batches} batches, "
+            f"{n_vols[label] / secs['predict']:.2f} vol/s through "
+            f"evaluate_checkpoint's predict stage; stages (s): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+            + f"; launches {dict((k, v) for k, v in counts.items() if v)}; "
+            f"peak memory {peak_gib():.2f} GiB; "
+            f"test ECE {metrics['test_id']['ece']['mean']:.4f}")
+    # one TTA batch of the OD cohort at the cap, then the plain route on the
+    # same views and draws
+    images = InMemoryDataset(root / "cache", read_csv(od_csv),
+                             diseases).images[:TTA_CAP]
+    tta_ev = ev.Evaluator(cfg, model, use_tta=True, seed=SEED)
+    rows = len(images) * tta_ev.n_views
+    secs = []
+    for _ in range(3):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _sync(device)
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        probs = tta_ev.predict(images)
+        _sync(device)
+        secs.append(time.perf_counter() - t0)
+        check_counts(launch_counts(), per_forward, 1,
+                     f"eval chain TTA batch of {rows} rows")
+    log(f"[{card}] eval chain TTA batch at the cap: {len(images)} volumes x "
+        f"{tta_ev.n_views} views = {rows} rows a forward, predict "
+        + " / ".join(f"{1e3 * t:.1f}" for t in secs) + " ms, "
+        + " / ".join(f"{len(images) / t:.2f}" for t in secs)
+        + f" vol/s; peak memory {peak_gib():.2f} GiB")
+    with patched_model_ops(lambda name, kernel, plain: plain):
+        plain = tta_ev.predict(images)
+    compare_probs("eval chain TTA", probs, plain)
+    views_fn, n_views = make_tta_views()
+    x = torch.from_numpy(images).to(device)
+    flat = views_fn(x, torch.Generator().manual_seed(SEED))
+    flat = tta_ev.transform(flat.reshape(-1, *flat.shape[2:]))
+    compare_logits("eval chain TTA views", model, flat,
+                   lambda: patched_model_ops(lambda name, kernel, p: p))
+    del flat
+    # the card's warp against the CPU's on one volume
+    vol = torch.from_numpy(images[:1, ..., 0].astype(np.float32))
+    g = torch.Generator().manual_seed(SEED + 41)
+    angles = (torch.rand(1, 3, generator=g) * 2 - 1) * math.radians(3.0)
+    trans = (torch.rand(1, 3, generator=g) * 2 - 1) * 5.0
+    got = affine_warp_matmul(vol.to(device), angles, trans).cpu()
+    want = affine_warp_matmul(vol, angles, trans)
+    scale = vol.abs().max().item()
+    err = (got - want).abs().max().item()
+    log(f"eval chain warp, card vs CPU: max|d| {err:.3e} of max|volume| "
+        f"{scale:.3e} (<= {WARP_TOL} of it)")
+    if not err <= WARP_TOL * scale:
+        raise AssertionError(f"eval chain: the card's warp differs from the "
+                             f"CPU's by {err} (max|volume| {scale})")
+    # one TTA batch's warp and forward apart
+    split = {"warp": [], "forward": []}
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        views = views_fn(x, torch.Generator().manual_seed(SEED))
+        _sync(device)
+        t1 = time.perf_counter()
+        flat = views.reshape(-1, *views.shape[2:])
+        tta_ev.eval_step(tta_ev.transform(flat))
+        _sync(device)
+        split["warp"].append(t1 - t0)
+        split["forward"].append(time.perf_counter() - t1)
+    log(f"[{card}] eval chain TTA batch of {len(images)} volumes x "
+        f"{n_views} views: views (flip, {n_views - 3} warps, crop-resize) "
+        + " / ".join(f"{1e3 * t:.1f}" for t in split["warp"])
+        + " ms, transform + forward + softmax "
+        + " / ".join(f"{1e3 * t:.1f}" for t in split["forward"]) + " ms")
+    del model, tta_ev, x
+    return n_vols
+
+
+def flag_off_phase(cfg, images, card, device):
+    """Phase 20b: eval of ``images`` at batch BATCH with USE_PALLAS_ATTENTION
+    off: with every counter at 0 before, no launch after (every block on
+    the XLA branch); probs within 1e-2 of the kernel route's on the same
+    weights (``compare_probs``) and one batch's logits within TOL of its
+    largest |logit|."""
+    import torch
+    from vsn_tpu_torch.eval.evaluate import Evaluator
+    from vsn_tpu_torch.ops import _build
+
+    off_cfg = cfg.replace(USE_PALLAS_ATTENTION=False)
+    model_off, model_on = seeded_model(off_cfg, device), seeded_model(
+        cfg, device)
+    if model_off.fused() or not all(blk.attn.xla_branch()
+                                    for blk in model_off.blocks()):
+        raise AssertionError("USE_PALLAS_ATTENTION off: a block is fused")
+    ev_off = Evaluator(off_cfg, model_off, batch_size=BATCH)
+    _sync(device)
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    probs_off = ev_off.predict(images)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    check_counts(counts, {}, 1, "USE_PALLAS_ATTENTION off eval")
+    probs_on = Evaluator(cfg, model_on, batch_size=BATCH).predict(images)
+    compare_probs("USE_PALLAS_ATTENTION off eval (plain: the kernel route)",
+                  probs_off, probs_on)
+    x = ev_off.transform(torch.from_numpy(images[:BATCH]).to(device))
+    with torch.inference_mode():
+        got, want = model_off(x).float(), model_on(x).float()
+    dtype = str(model_on.dtype).removeprefix("torch.")
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    log(f"[{card}] USE_PALLAS_ATTENTION off: {len(images)} volumes, no "
+        f"launch, {len(images) / secs:.2f} vol/s (first run); logits vs the "
+        f"kernel route max|d| {err:.3e} of max|logit| {scale:.3e} (<= "
+        f"{TOL[dtype]} of it)")
+    if not err <= TOL[dtype] * scale:
+        raise AssertionError(f"USE_PALLAS_ATTENTION off: logits differ from "
+                             f"the kernel route's by {err}")
+    return err / scale / TOL[dtype]
+
+
+def medvit_stem_f64(model, x, labels, draws, card):
+    """MedViT's stem.0 conv weight gradient in f64 on the card (cuDNN) and
+    on the CPU, from the input and output cotangent of one f32 training
+    micro-step on the card (``medvit_step_outputs``): their relative gap,
+    and the card's f32 gradient against the f64 one in f32 ulps of each
+    element and in units of the summation's own scale, eps32 * sum |x dy|
+    (an f32 sum of n terms in any order stays within n - 1 such units, a
+    pairwise or blocked one within about log2 n). Logs and returns them;
+    a reading, not a gate."""
+    import torch
+
+    conv = model.stem[0].conv
+    seen = {}
+
+    def hook(mod, args, out):
+        seen["x"] = args[0].detach()
+        out.register_hook(lambda g: seen.__setitem__("dy", g.detach()))
+
+    handle = conv.register_forward_hook(hook)
+    try:
+        _, grads, _ = medvit_step_outputs(model, x, labels, draws)
+    finally:
+        handle.remove()
+    g32 = grads["stem.0.conv.weight"].double().cpu()
+    # [B, D, H, W, C] -> NCDHW, as the conv computes
+    xs = seen["x"].double().permute(0, 4, 1, 2, 3).contiguous()
+    dy = seen["dy"].double().permute(0, 4, 1, 2, 3).contiguous()
+    shape, stride, pad = tuple(conv.weight.shape), conv.stride, conv.padding
+
+    def wgrad(a, b):
+        return torch.nn.grad.conv3d_weight(a, shape, b, stride, pad)
+
+    card64 = wgrad(xs, dy).cpu()
+    cpu64 = wgrad(xs.cpu(), dy.cpu())
+    mag = wgrad(xs.abs().cpu(), dy.abs().cpu())
+    rel = ((card64 - cpu64).abs().max() / cpu64.abs().max()).item()
+    eps32 = float(np.finfo(np.float32).eps)
+    ulp = torch.from_numpy(np.spacing(cpu64.abs().float().numpy())).double()
+    ulps = ((g32 - cpu64).abs() / ulp)
+    cond = ((g32 - cpu64).abs() / (eps32 * mag)).max().item()
+    terms = seen["dy"][..., 0].numel()
+    log(f"[{card}] medvit stem.0 conv dW in f64, card (cuDNN) vs CPU: "
+        f"relative gap {rel:.3e}; the card's f32 dW vs f64: max "
+        f"{ulps.max().item():.1f} / median {ulps.median().item():.1f} f32 "
+        f"ulps of each element, max {cond:.3f} x eps32 * sum|x dy| "
+        f"({terms} terms a weight, log2 {math.log2(terms):.1f}); max|dW| "
+        f"{cpu64.abs().max().item():.3e}")
+    return {"f64_rel_gap": rel, "f32_ulps_max": ulps.max().item(),
+            "f32_ulps_median": ulps.median().item(), "f32_of_scale": cond,
+            "terms": terms}
 
 
 def main() -> int:
@@ -5463,14 +5815,14 @@ def main() -> int:
         seeded_model(vit_train_cfg).train(), vit_images,
         generator=torch.Generator(device).manual_seed(4))
     vgen = torch.Generator().manual_seed(SEED + 16)
-    vit_worst = vit_parity_phase(vit_sets, vgen)   # merged in phase 20
+    vit_worst = vit_parity_phase(vit_sets, vgen)   # merged in phase 21
     sat = tiled_saturation_phase(vit_sets["ViT float32 B=2"], vgen)
     for name, err in zip(TILED_NAME.values(), sat):
         vit_worst[name] = max(vit_worst[name], err)
     tiled_launch_parity_phase(vit_sets, torch.Generator().manual_seed(
         SEED + 20), TILED_LOGITS)
     # 3a. the same calls in K1/K2's residual modes -------------------------
-    mode_worst = residual_parity_phase(vit_sets, vgen, "vit")  # phase 20
+    mode_worst = residual_parity_phase(vit_sets, vgen, "vit")  # phase 21
     vit_calls = vit_sets.pop(vit_label)  # timed in phase 16
     del vit_sets, vit_micro0, vit_images, m, x
     torch.cuda.empty_cache()
@@ -5934,7 +6286,18 @@ def main() -> int:
     # 19a-19d. the paths without a kernel --------------------------------
     unfused_paths(device, card, images, train_cfg, vit_cfg, vit_train_cfg)
 
-    # 20. per-kernel times beside their bounds ----------------------------
+    # 20a. the uncertainty eval chain on Swin-T 5c ------------------------
+    t0 = time.perf_counter()
+    eval_chain_phase(cfg.replace(**CHAIN_CONFIG), _build.BUILD_DIR /
+                     "eval_chain", card, device)
+    torch.cuda.empty_cache()
+    log(f"phase 20a: {time.perf_counter() - t0:.1f} s")
+
+    # 20b. Swin-T 5c eval with USE_PALLAS_ATTENTION off -------------------
+    flag_off_phase(cfg, images[:BATCH], card, device)
+    torch.cuda.empty_cache()
+
+    # 21. per-kernel times beside their bounds ----------------------------
     for name in GEMM_KERNELS:  # the Swin training micro-batch's launches
         ms[name], _, plain_ms[name], bounds[name], library_ms[name] = \
             gemm_ms[swin_gemm][name]

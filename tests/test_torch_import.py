@@ -1,6 +1,7 @@
-"""The port imports no JAX, flax, PyYAML or triton, and on CPU tensors every
-kernel wrapper runs its plain version, forward and backward, without
-launching anything."""
+"""The port imports no JAX, flax, PyYAML or triton, nor pandas, msgpack or
+scikit-learn (the card's machine has none of the last three), and on CPU
+tensors every kernel wrapper runs its plain version, forward and backward,
+without launching anything."""
 
 import subprocess
 import sys
@@ -27,7 +28,7 @@ def test_port_imports_no_jax_flax_or_triton():
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton',"
-        " 'yaml', 'vsn_tpu'))\n"
+        " 'yaml', 'vsn_tpu', 'pandas', 'msgpack', 'sklearn'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -39,7 +40,11 @@ def test_port_imports_no_jax_flax_or_triton():
                  "ops.conv_unfold", "models.resnet3d", "models.medvit3d",
                  "ops.window_attention",
                  "ops.attn_probe", "probes.__init__", "probes.attn_ablate",
-                 "probes.attn_ablate2"):
+                 "probes.attn_ablate2", "train.checkpoint",
+                 "eval.bootstrap", "eval.calibration",
+                 "eval.calibrate_predictions", "eval.tta", "eval.evaluate",
+                 "utils.nifti", "data.folds", "data.preprocessing",
+                 "data.synthetic", "data.pipeline"):
         assert f"vsn_tpu_torch.{name}" in modules
 
 

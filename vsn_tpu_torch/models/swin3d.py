@@ -13,14 +13,16 @@ takes one of the JAX package's two block paths, chosen per forward by
   BasicLayer3D does on the TPU: partition once at entry, one
   window-to-window permutation per shifted junction, reverse once at exit,
   all through the K3 movers (``ops/window_relayout.py``);
-* unfused, with a RMSNorm or DynamicTanh NORM_LAYER, or in training with
-  DROPOUT or ATTENTION_DROPOUT > 0: norm1 -> roll -> window partition ->
+* unfused, with a RMSNorm or DynamicTanh NORM_LAYER, with
+  USE_PALLAS_ATTENTION off, or in training with DROPOUT or
+  ATTENTION_DROPOUT > 0: norm1 -> roll -> window partition ->
   qkv Linear -> attention -> proj -> dropout -> window reverse -> unroll ->
   gated residual -> norm2 -> Mlp (dropout after GELU and after fc2) ->
   gated residual (vsn_tpu/models/swin3d.py:788-849). Roll, partition and
   reverse are plain PyTorch here, as they are plain XLA there. The
   attention is K4 ``window_attention_qkv`` (``ops/window_attention.py``),
-  except in a training forward with ATTENTION_DROPOUT > 0: there it is the
+  except with USE_PALLAS_ATTENTION off (every forward, no kernel at all)
+  and in a training forward with ATTENTION_DROPOUT > 0: there it is the
   JAX package's XLA branch (:677-712), which no kernel computes on either
   side, in plain PyTorch (``layers.softmax_attention``): f32 scores from
   the split heads, the relative-position bias, the region mask at -100
@@ -249,13 +251,13 @@ def expand_bias_table(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def fused_block_gate(norm_layer, dropout_rate: float, attention_dropout: float,
-                     training: bool) -> bool:
+def fused_block_gate(use_pallas: bool, norm_layer, dropout_rate: float,
+                     attention_dropout: float, training: bool) -> bool:
     """Whether the blocks run the fused kernels K1/K2 (else the unfused
-    block with K4): LayerNorm, and no dropout unless in eval. The card's
-    version of vsn_tpu/models/swin3d.py fused_block_gate (:726-749), whose
-    VMEM budget and platform clauses are the TPU's."""
-    return norm_layer in LN_NAMES and (
+    block): USE_PALLAS_ATTENTION, LayerNorm, and no dropout unless in eval.
+    The card's version of vsn_tpu/models/swin3d.py fused_block_gate
+    (:726-749), whose VMEM budget and platform clauses are the TPU's."""
+    return use_pallas and norm_layer in LN_NAMES and (
         not training or (dropout_rate == 0.0 and attention_dropout == 0.0))
 
 
@@ -267,7 +269,9 @@ class WindowAttention3D(nn.Module):
     VMEM budget for bias and dbias (:656-665); the card runs K4 in every
     block, whatever the heads and window. A training forward with
     ``attn_drop`` > 0 fails that gate's dropout clause on every platform and
-    takes the XLA branch instead (``softmax_attention``)."""
+    takes the XLA branch instead (``softmax_attention``), and so does every
+    forward with ``use_pallas`` off (USE_PALLAS_ATTENTION, set by the
+    model)."""
 
     def __init__(self, dim: int, num_heads: int, window, qkv_bias: bool = True,
                  proj_drop: float = 0.0, attn_drop: float = 0.0):
@@ -276,6 +280,7 @@ class WindowAttention3D(nn.Module):
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.proj_drop, self.attn_drop = proj_drop, attn_drop
+        self.use_pallas = True
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -290,9 +295,10 @@ class WindowAttention3D(nn.Module):
                                  self.relative_position_index)
 
     def xla_branch(self) -> bool:
-        """Whether ``forward`` takes the XLA branch: training with attention
-        dropout (vsn_tpu/models/swin3d.py:660-665's deterministic clause)."""
-        return self.training and self.attn_drop > 0.0
+        """Whether ``forward`` takes the XLA branch: USE_PALLAS_ATTENTION
+        off, or training with attention dropout (vsn_tpu/models/swin3d.py
+        :660-665's use_pallas and deterministic clauses)."""
+        return not self.use_pallas or (self.training and self.attn_drop > 0.0)
 
     def attention(self, qkv, ids, mask=None):
         """The XLA branch on qkv [BW, N, 3C]: ``softmax_attention`` on the
@@ -636,7 +642,7 @@ class SwinTransformer3D(RandomDraws, nn.Module):
                  post_norm: bool = False, layer_scale: bool = False,
                  layer_scale_init_value: float = 1e-5,
                  enable_stable: bool = False, stable_k: float = 2.0,
-                 stable_alpha: float = 1.0,
+                 stable_alpha: float = 1.0, use_pallas: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -659,6 +665,11 @@ class SwinTransformer3D(RandomDraws, nn.Module):
             layer_scale=layer_scale,
             layer_scale_init_value=layer_scale_init_value, lam=self.lam)
         self.head = nn.Linear(self.backbone.num_features, num_classes)
+        # USE_PALLAS_ATTENTION (vsn_tpu/models/swin3d.py:1581): off, every
+        # block runs unfused on the XLA branch, in eval and in training
+        self.use_pallas = use_pallas
+        for blk in self.blocks():
+            blk.attn.use_pallas = use_pallas
 
     def blocks(self):
         return [blk for layer in self.backbone.layers for blk in layer.blocks]
@@ -666,8 +677,9 @@ class SwinTransformer3D(RandomDraws, nn.Module):
     def fused(self) -> bool:
         """The block path of a forward in the current mode
         (``fused_block_gate``)."""
-        return fused_block_gate(self.norm_layer, self.dropout,
-                                self.attention_dropout, self.training)
+        return fused_block_gate(self.use_pallas, self.norm_layer,
+                                self.dropout, self.attention_dropout,
+                                self.training)
 
     def draw_plan(self, b: int):
         """The random draws of one training forward at batch ``b``, in draw
@@ -832,5 +844,6 @@ def swin_from_config(cfg, dtype=torch.float32) -> SwinTransformer3D:
         enable_stable=bool(cfg.ENABLE_STABLE),
         stable_k=float(cfg.STABLE_K),
         stable_alpha=float(cfg.STABLE_ALPHA),
+        use_pallas=bool(cfg.get("USE_PALLAS_ATTENTION", True)),
         dtype=dtype,
     )

@@ -17,7 +17,8 @@ the MLP half, :305-318, less their platform and VMEM clauses):
   + softmax attention over all N tokens of a sample + proj + gated
   residual) on [B, N, C] as B windows of N tokens with no bias and no
   region mask, and K2 ``ln_mlp`` (LN + MLP + gated residual) on the flat
-  [B * N, C] rows. The attention half is fused with a LayerNorm, in eval or
+  [B * N, C] rows. Neither half is fused with USE_PALLAS_ATTENTION off.
+  The attention half is fused with a LayerNorm, in eval or
   with both dropouts 0, where heads * dim_head = C and not (heads = 1 and
   dim_head = C); the MLP half with a LayerNorm, in eval or with DROPOUT 0.
   At ViT's head dim of 64 K1 takes its key-tiled attention body. The TPU's
@@ -95,26 +96,30 @@ from vsn_tpu_torch.ops.stable_init import (
 from vsn_tpu_torch.ops.swin_block_kernels import attn_half, ln_mlp
 
 
-def fused_attn_gate(norm_layer, dropout_rate: float, attention_dropout: float,
-                    heads: int, dim_head: int, dim: int,
-                    training: bool) -> bool:
-    """Whether a block's attention half runs K1 (else unfused): a
-    LayerNorm, no dropout unless in eval, and heads * dim_head = dim with an
+def fused_attn_gate(use_pallas: bool, norm_layer, dropout_rate: float,
+                    attention_dropout: float, heads: int, dim_head: int,
+                    dim: int, training: bool) -> bool:
+    """Whether a block's attention half runs K1 (else unfused):
+    USE_PALLAS_ATTENTION, a LayerNorm, no dropout unless in eval, and
+    heads * dim_head = dim with an
     output projection. The card's version of vsn_tpu/models/vit3d.py
     ViTBlock._fused_attn_ok (:238-257), whose VMEM budget and platform
     clauses are the TPU's."""
-    return (norm_layer in LN_NAMES
+    return (use_pallas and norm_layer in LN_NAMES
             and (not training
                  or (dropout_rate == 0.0 and attention_dropout == 0.0))
             and heads * dim_head == dim
             and not (heads == 1 and dim_head == dim))
 
 
-def fused_mlp_gate(norm_layer, dropout_rate: float, training: bool) -> bool:
-    """Whether a block's MLP half runs K2 (else unfused): a LayerNorm, and
-    no dropout unless in eval (vsn_tpu/models/vit3d.py _fused_mlp_ok,
-    :305-318, less its platform clause)."""
-    return norm_layer in LN_NAMES and (not training or dropout_rate == 0.0)
+def fused_mlp_gate(use_pallas: bool, norm_layer, dropout_rate: float,
+                   training: bool) -> bool:
+    """Whether a block's MLP half runs K2 (else unfused):
+    USE_PALLAS_ATTENTION, a LayerNorm, and no dropout unless in eval
+    (vsn_tpu/models/vit3d.py _fused_mlp_ok, :305-318, less its platform
+    clause)."""
+    return use_pallas and norm_layer in LN_NAMES and (
+        not training or dropout_rate == 0.0)
 
 
 class Patchify(nn.Module):
@@ -194,6 +199,7 @@ class ViTBlock(nn.Module):
         self.post_norm, self.lam = post_norm, lam
         self.norm_layer, self.dim = norm_layer, dim
         self.dropout, self.attention_dropout = dropout, attention_dropout
+        self.use_pallas = True  # USE_PALLAS_ATTENTION, set by the model
         self.attn_norm = self.ff_norm = self.res1 = self.res2 = None
         if post_norm:
             self.attn_norm = make_norm(norm_layer, dim)
@@ -209,13 +215,15 @@ class ViTBlock(nn.Module):
     def fused_attn(self) -> bool:
         """The attention half's path in the current mode."""
         attn = self[0]
-        return fused_attn_gate(self.norm_layer, self.dropout,
-                               self.attention_dropout, attn.heads,
-                               attn.dim_head, self.dim, self.training)
+        return fused_attn_gate(self.use_pallas, self.norm_layer,
+                               self.dropout, self.attention_dropout,
+                               attn.heads, attn.dim_head, self.dim,
+                               self.training)
 
     def fused_mlp(self) -> bool:
         """The MLP half's path in the current mode."""
-        return fused_mlp_gate(self.norm_layer, self.dropout, self.training)
+        return fused_mlp_gate(self.use_pallas, self.norm_layer, self.dropout,
+                              self.training)
 
     def _residual(self, x, branch, norm, scale, gf, gb):
         """The unfused residual: branch -> [post-norm] -> [LayerScale] ->
@@ -300,6 +308,7 @@ class ViT3D(RandomDraws, nn.Module):
                  layer_scale_init_value: float = 1e-5,
                  enable_stable: bool = False, stable_k: float = 2.0,
                  stable_alpha: float = 1.0, norm_layer=None,
+                 use_pallas: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         for i, p in zip(img_size, patch_size):
@@ -336,6 +345,10 @@ class ViT3D(RandomDraws, nn.Module):
             attention_dropout=attention_dropout)
         self.mlp_head = nn.Sequential(make_norm(norm_layer, embed_dim),
                                       nn.Linear(embed_dim, num_classes))
+        # USE_PALLAS_ATTENTION (vsn_tpu/models/vit3d.py:535): off, both
+        # halves of every block run unfused, in eval and in training
+        for blk in self.blocks():
+            blk.use_pallas = use_pallas
 
     def blocks(self):
         return list(self.transformer.layers)
@@ -494,5 +507,6 @@ def vit_from_config(cfg, dtype=torch.float32) -> ViT3D:
         stable_k=float(cfg.STABLE_K),
         stable_alpha=float(cfg.STABLE_ALPHA),
         norm_layer=cfg.NORM_LAYER,
+        use_pallas=bool(cfg.get("USE_PALLAS_ATTENTION", True)),
         dtype=dtype,
     )
