@@ -392,6 +392,16 @@ one card (CUDA_VISIBLE_DEVICES defaults to 0). Models are built on the card
 20b. Swin-T 5c eval at batch 4 with USE_PALLAS_ATTENTION off
    (``flag_off_phase``): no launch, probs within 1e-2 and logits within
    2e-2 of the kernel route's;
+20c. the trainer (``trainer_phase``) through ``vsn_tpu_torch.train.cli``
+   on the flagship Swin recipe over the chain's cohort: (a) 4 steps
+   validating every 2, (b) resumed to 6 from (a)'s state bit for bit, (c)
+   the float16 device store (every step batch it gathers bit for bit the
+   host pipeline's, step 1's first-pass losses bit for bit (a)'s, rows
+   within TRAINER_RTOL), (d) WATCH_GRADIENTS with USE_CHECKPOINT (module
+   norms, a finite attn_logit_max, the forwards' kept memory below (a)'s
+   by K1f's kept state), exact launch counts per step and validation;
+   (a)'s best0 through evaluate_checkpoint, its probabilities bit for bit
+   the Validator's;
 21. each kernel's time beside its bound: the larger of the bytes its calls
    move (inputs read once, outputs written once) over 3.35 TB/s and the
    products they compute over 989 TFLOP/s (bf16), from this run's shapes.
@@ -707,13 +717,43 @@ MEDVIT_PRESET, MEDVIT_MICRO = "medvit-5c-no_seed-baseline", 8
 MEDVIT_F32 = {"logits": 1e-3, "loss": 1e-4, "grads": 1e-3, "grad_max": 1e-2,
               "stats": 1e-3}
 # Phase 20a, the uncertainty eval chain on Swin-T 5c: a synthetic cohort at
-# raw shape IMG_SIZE (3 folds of 4: val and test 4 volumes each) and an
-# out-of-domain cohort of 8 (one TTA batch at the Evaluator's default cap,
-# 8 volumes x 8 views = 64 rows), the checkpoint's config (KFOLD / SPLIT /
-# FOLD as the JAX trainer stores them), the bootstrap's resamples
-CHAIN_SUBJECTS, CHAIN_OD_SUBJECTS, CHAIN_BOOTSTRAP = 12, 8, 1000
+# raw shape IMG_SIZE (3 folds of 8: train, val and test 8 volumes each; the
+# trainer of phase 20c trains on its train fold) and an out-of-domain cohort
+# of 8 (one TTA batch at the Evaluator's default cap, 8 volumes x 8 views =
+# 64 rows), the checkpoint's config (KFOLD / SPLIT / FOLD as the JAX trainer
+# stores them), the bootstrap's resamples
+CHAIN_SUBJECTS, CHAIN_OD_SUBJECTS, CHAIN_BOOTSTRAP = 24, 8, 1000
 TTA_CAP = 8            # the Evaluator's TTA batch (VSN_TTA_BATCH's default)
 CHAIN_CONFIG = dict(KFOLD=3, SPLIT=[1, 1, 1], FOLD=0)
+# Phase 20c, the trainer (vsn_tpu_torch.train.cli) on the flagship Swin
+# recipe (its schedules at the default STEPS, the runs cut by --max-steps)
+# over the chain's cohort: run (a) TRAINER_STEPS steps validating every 2
+# and keeping 2 best, (b) resumed from (a)'s last checkpoint to
+# TRAINER_RESUMED, (c) (a)'s steps on the float16 device store, (d)
+# TRAINER_SHORT steps with WATCH_GRADIENTS and USE_CHECKPOINT; (a)'s best0
+# through evaluate_checkpoint, its validation probabilities within
+# TRAINER_PROBS_TOL of the Validator's at that step
+TRAINER_RUN = dict(VALIDATION_FREQUENCY=2, KEEP_BEST_N=2,
+                   EARLY_STOPPING_PATIENCE=False)
+TRAINER_STEPS, TRAINER_RESUMED, TRAINER_SHORT = 4, 6, 2
+# best0's probabilities through the eval path against the Validator's: the
+# same weights, kernels and batch; the train state's flat views start on
+# the boundaries a tensor of its own does (train/step.py ALIGN_BYTES), so
+# the library kernels take the same paths: bit for bit
+TRAINER_PROBS_TOL = 0.0
+# (c)'s and (d)'s rows against (a)'s: K1b's dbias / dbqkv and the weight
+# gradient's f32 atomics add in an order that varies between runs, so one
+# pass from one state gives gradients that differ in their last bits (the
+# phase logs it); AdamW's first update takes g / |g| and hides them, its
+# second does not. Two runs of (a) itself and (c) vs (a) parted by <=
+# 2.3e-4 (PERF.md); the first pass's losses, from the same weights and
+# inputs, must be equal bit for bit
+TRAINER_RTOL = {"loss": 2e-3, "grad_norm": 2e-3}
+# run (d)'s launches per micro-batch and SAM pass: under USE_CHECKPOINT the
+# backward recomputes every block's forward (K1f, K2f twice); the movers
+# run between the blocks, outside the recomputed regions
+REMAT_PER_PASS = {**PER_PASS, "attn_half_tiled": 24, "ln_mlp": 24}
+RATES = {}   # label -> the kernel route's train vol/s (report_routes)
 CHAIN_SUM_TOL = 1e-4   # each CSV row's probabilities sum to 1
 WARP_TOL = 1e-4        # the card's warp against the CPU's, of |volume|
 # ViT-S 5c (vit-5c-no_seed-baseline: 144x160x144 / 16^3 + CLS = 811 tokens,
@@ -1866,14 +1906,16 @@ def report_routes(label, kernel, plain, kernel_secs, plain_secs, vols,
         f"(<= {TRAIN_RTOL['grad_norm']})")
     for which, s in (("kernel", kernel_secs), ("plain", plain_secs)):
         mean = sum(s) / len(s)
+        if which == "kernel":
+            RATES[label] = vols / mean
         log(f"[{card}] {label} {which} route: {1e3 * mean:.1f} ms per step "
             f"of {vols} volumes ({recipe}), {vols / mean:.2f} vol/s (steps "
             f"{', '.join(f'{1e3 * t:.1f}' for t in s)} ms)")
 
 
-def check_train_metrics(kernel, plain):
+def check_train_metrics(kernel, plain, rtols=TRAIN_RTOL):
     """Finite losses and grad norms, nothing skipped, and the plain route's
-    first steps within TRAIN_RTOL of the kernel route's."""
+    first steps within ``rtols`` (TRAIN_RTOL) of the kernel route's."""
     for route, metrics in (("kernel", kernel), ("plain", plain)):
         for i, m in enumerate(metrics):
             if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
@@ -1882,7 +1924,7 @@ def check_train_metrics(kernel, plain):
                 raise AssertionError(f"{route} step {i} skipped: {m}")
     worst = {}
     for i, (k, p) in enumerate(zip(kernel, plain)):
-        for key, rtol in TRAIN_RTOL.items():
+        for key, rtol in rtols.items():
             rel = abs(k[key] - p[key]) / abs(p[key])
             worst[key] = max(worst.get(key, 0.0), rel)
             if rel > rtol:
@@ -5662,6 +5704,593 @@ def flag_off_phase(cfg, images, card, device):
     return err / scale / TOL[dtype]
 
 
+def trainer_config(train_cfg):
+    """Phase 20c's config: the flagship train recipe on the chain's fold."""
+    return train_cfg.replace(**CHAIN_CONFIG, **TRAINER_RUN)
+
+
+def k1_kept_bytes(model, micro):
+    """Bytes K1f keeps for K1b over one micro-batch's forward of a Swin
+    (``kept_bytes`` of every block's bf16 call: ao, the row statistics and
+    the f32 o)."""
+    total = 0
+    for layer in model.backbone.layers:
+        for blk in layer.blocks:
+            out = micro * layer.n_windows * layer.n_tokens * layer.dim
+            total += 8 * (out // (layer.dim // blk.num_heads)) + 6 * out
+    return total
+
+
+def _counts_diff(after, before):
+    return {k: after.get(k, 0) - before.get(k, 0)
+            for k in set(after) | set(before)}
+
+
+def _rows(history):
+    """A history's rows as dicts, without the wall times."""
+    keys = [k for k in history if k not in ("val_wall_s", "ckpt_wall_s")]
+    return [{k: history[k][i] for k in keys}
+            for i in range(len(history["step"]))]
+
+
+def first_pass_equal(label, out, accum):
+    """Run ``label``'s first optimizer step's first pass (its ``accum``
+    micro-batch losses, from the seeded weights and the same inputs) bit
+    for bit (a)'s."""
+    import torch
+
+    got, want = out[label]["losses"][:accum], out["a"]["losses"][:accum]
+    if len(got) != accum or not all(torch.equal(g, w)
+                                    for g, w in zip(got, want)):
+        raise AssertionError(f"trainer {label}: step 1's first-pass losses "
+                             f"{[float(v) for v in got]} differ from (a)'s "
+                             f"{[float(v) for v in want]}")
+
+
+def gradient_spread(cfg, batch, device):
+    """One pass over the micro-batches of ``batch`` (a host step batch)
+    twice from one state of ``cfg``'s seeded model: the two losses must be
+    equal bit for bit (the forward is deterministic). Returns how far the
+    two gradients part (K1b's dbias / dbqkv and the weight gradient's f32
+    atomics add in an order that varies between runs): the tensors that
+    differ of all, max |d|, max |d| over the largest |g| and the three
+    tensors of the largest |d|."""
+    import torch
+    from vsn_tpu_torch.data.pipeline import DeviceBatch
+    from vsn_tpu_torch.train.step import (
+        init_train_state,
+        make_batch_transform,
+        make_grad_fn,
+    )
+
+    model = seeded_model(cfg, device)
+    state = init_train_state(cfg, model)
+    accumulate = make_grad_fn(model, cfg, make_batch_transform(cfg))
+    dev_batch = DeviceBatch(batch, device).get()
+    (l0, g0), (l1, g1) = [(accumulate(state, dev_batch, 0).clone(),
+                           state.params.grad.clone()) for _ in range(2)]
+    if not torch.equal(l0, l1):
+        raise AssertionError(f"one pass twice from one state: losses "
+                             f"{float(l0)} and {float(l1)}")
+    d = (g1 - g0).abs()
+    per = sorted((float(v.max()), n) for n, v in state.params.tree(d).items()
+                 if v.numel() and float(v.max()) > 0)
+    out = dict(tensors=len(state.params.names), differ=len(per),
+               max_abs=float(d.max()),
+               max_rel=float(d.max() / g0.abs().max()),
+               top=[n for _, n in per[::-1][:3]])
+    del model, state, accumulate, dev_batch, g0, g1, d
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def pass_memory(cfg, batch, device, top=8):
+    """One pass over the micro-batches of ``batch`` (a host step batch)
+    from ``cfg``'s seeded state (after one warm pass), its allocations
+    recorded by ``torch.cuda.memory._record_memory_history`` without
+    stacks (the Python stacks' capture fails inside the recompute of
+    torch.utils.checkpoint, a SystemError from Function.apply). Replays
+    the trace: the pass's peak above its start, the size of the
+    allocation that reached it, and the allocations the pass made that
+    are live there, counted by size, the ``top`` largest totals first as
+    (bytes, count). A card-only measurement."""
+    import torch
+    from vsn_tpu_torch.data.pipeline import DeviceBatch
+    from vsn_tpu_torch.train.step import (
+        init_train_state,
+        make_batch_transform,
+        make_grad_fn,
+    )
+
+    model = seeded_model(cfg, device)
+    state = init_train_state(cfg, model)
+    accumulate = make_grad_fn(model, cfg, make_batch_transform(cfg))
+    dev_batch = DeviceBatch(batch, device).get()
+    accumulate(state, dev_batch, 0)
+    torch.cuda.synchronize(device)
+    torch.cuda.memory._record_memory_history(context=None,
+                                             max_entries=1 << 20)
+    try:
+        accumulate(state, dev_batch, 0)
+        torch.cuda.synchronize(device)
+        trace = torch.cuda.memory._snapshot()["device_traces"][
+            torch.device(device).index or 0]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    now, peak, at = 0, 0, -1
+    for i, e in enumerate(trace):
+        if e["action"] in ("alloc", "free_completed"):
+            now += e["size"] if e["action"] == "alloc" else -e["size"]
+            if now > peak:
+                peak, at = now, i
+    live = {}
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+        elif e["action"] == "free_completed":
+            live.pop(e["addr"], None)
+    sizes = {}
+    for size in live.values():
+        sizes[size] = sizes.get(size, 0) + 1
+    last = trace[at]["size"] if at >= 0 else 0
+    events = len(trace)
+    del model, state, accumulate, dev_batch, trace, live
+    torch.cuda.empty_cache()
+    return dict(peak=peak, last=last, at=at + 1, events=events,
+                sizes=sorted(sizes.items(), key=lambda kv: -kv[0] * kv[1])
+                [:top])
+
+
+def _idle_share(trace):
+    """(device busy ms, window ms, idle share) of a torch.profiler trace:
+    the union of its device activity over the span of all its events."""
+    events = json.loads(Path(trace).read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if "ts" in e and e.get("ph") == "X"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device:
+        return None
+    busy, end = 0.0, -1.0
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    return busy / 1e3, window / 1e3, 1 - busy / window
+
+
+def trainer_phase(train_cfg, csv_dir, cache_dir, root, card, device,
+                  per_pass=PER_PASS, per_forward=PER_FORWARD,
+                  remat_pass=REMAT_PER_PASS, n_bootstrap=CHAIN_BOOTSTRAP):
+    """Phase 20c: the trainer through its entry point
+    (``vsn_tpu_torch.train.cli.main``) on ``trainer_config(train_cfg)``
+    over the cohort of ``csv_dir`` (preprocessed into ``cache_dir``):
+
+    * (a) TRAINER_STEPS steps of the host pipeline, validating every 2 and
+      keeping 2 best, a torch.profiler window of its last 2 steps (the
+      device's idle share);
+    * (b) resumed from (a)'s last checkpoint to TRAINER_RESUMED: the state
+      it loads equals the one (a) saved bit for bit, its history begins
+      with (a)'s rows, its sampler restarts the epoch (a) saved;
+    * (c) PRELOAD_DEVICE float16 over (a)'s steps: the store's gathers of
+      (a)'s step batches equal the host pipeline's bit for bit, every
+      micro-batch reads the store, step 1's first-pass losses equal (a)'s
+      bit for bit, its rows within TRAINER_RTOL of (a)'s; beside it one
+      pass twice from one state (``gradient_spread``): the losses equal,
+      how far the gradients part;
+    * (d) TRAINER_SHORT steps with WATCH_GRADIENTS and USE_CHECKPOINT: the
+      per-module gradient norms and a finite attn_logit_max on its logged
+      step, step 1's first-pass losses equal (a)'s, its rows within
+      TRAINER_RTOL of (a)'s, and (on the card) the memory its forwards
+      keep for their backward (live at the loss, above the pass's start)
+      below (a)'s by at least K1f's kept state of a micro-batch;
+    * each run's launches: ``per_pass`` (``remat_pass``) per micro-batch
+      and SAM pass of its steps, ``per_forward`` per validation batch;
+    * (a)'s best0 through ``evaluate_checkpoint``, and the Evaluator's
+      validation probabilities of it within TRAINER_PROBS_TOL of the
+      Validator's at its step.
+
+    Logs train vol/s (StepTimer) beside the train path's (``RATES``),
+    each step's time, validation and checkpoint seconds per event, each
+    run's peak memory, its passes' peak, its forwards' kept memory and
+    its validations' peaks, and the idle share of a profiler window of
+    (a)'s and (c)'s last 2 steps; on the card, what is live at the peak
+    of one pass of (a)'s and of (d)'s configuration (``pass_memory``).
+    Files under ``root``. Returns {label: summary}."""
+    import shutil
+
+    import torch
+    from vsn_tpu_torch.config import save_config
+    from vsn_tpu_torch.convert import jax_train_state
+    from vsn_tpu_torch.data import resident
+    from vsn_tpu_torch.data.folds import get_train_val_test
+    from vsn_tpu_torch.data.pipeline import InMemoryDataset, TrainPipeline
+    from vsn_tpu_torch.eval import evaluate as ev
+    from vsn_tpu_torch.ops import _build
+    from vsn_tpu_torch.train import checkpoint as ckpt
+    from vsn_tpu_torch.train import cli, step, trainer
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = trainer_config(train_cfg)
+    cuda = torch.device(device).type == "cuda"
+    accum = cfg.gradient_accumulation_steps()
+    vols = accum * cfg.BATCH_SIZE
+    passes = accum * (2 if cfg.USE_SAM else 1)
+    diseases = list(cfg.DISEASES)
+    meta_train, meta_val, _, _ = get_train_val_test(
+        csv_dir, cfg.FOLD, cfg.KFOLD, tuple(cfg.SPLIT))
+    n_val = len(meta_val)
+    val_batches = -(-n_val // max(1, min(cfg.EVAL_BATCH_SIZE or
+                                         cfg.BATCH_SIZE, n_val)))
+    records, saved, loaded, gathers, losses = [], [], [], [], []
+    timers, pass_peaks, kept_mem, run_peak, pass_start = [], [], [], [0], [0]
+    val_peaks = []
+    real_call = trainer.Validator.__call__
+    real_grad_fn = step.make_grad_fn
+    real_loss = step.label_smoothing_loss
+
+    def measured_loss(*args, **kw):
+        """The loss (kept, on the device), and what the forward keeps for
+        the backward: live memory at the loss above the pass's start."""
+        if cuda:
+            kept_mem.append(torch.cuda.memory_allocated() - pass_start[0])
+        loss = real_loss(*args, **kw)
+        losses.append(loss.detach())
+        return loss
+
+    class KeptTimer(trainer.StepTimer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            timers.append(self)
+
+    def measured_grad_fn(*args, **kw):
+        """make_grad_fn whose passes record their peak memory above what
+        is live at their start (the run's peak kept in ``run_peak``)."""
+        accumulate = real_grad_fn(*args, **kw)
+        if not cuda:
+            return accumulate
+
+        def measured(state, batch, pass_idx, resident=None):
+            run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+            pass_start[0] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss = accumulate(state, batch, pass_idx, resident)
+            pass_peaks.append(torch.cuda.max_memory_allocated() -
+                              pass_start[0])
+            return loss
+
+        return measured
+
+    real_submit = ckpt.AsyncCheckpointSaver.submit
+    real_load = trainer.load_train_state
+    real_resolve = step.resolve_micro
+
+    def recording(self, variables):
+        _sync(device)
+        if cuda:
+            run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(_build.launches)
+        out = real_call(self, variables)
+        _sync(device)
+        if cuda:
+            val_peaks.append(torch.cuda.max_memory_allocated())
+        records.append((before, dict(_build.launches), out[1]))
+        return out
+
+    def submitting(self, path, payload, meta=None):
+        if Path(path).name.endswith("_last.ckpt"):
+            saved.append((meta["step"], payload))
+        return real_submit(self, path, payload, meta)
+
+    def loading(state, tree):
+        real_load(state, tree)
+        loaded.append(jax_train_state(state))
+
+    def resolving(micro, res):
+        if res is not None and "image_idx" in micro:
+            gathers.append(1)
+        return real_resolve(micro, res)
+
+    out = {}
+
+    def run(label, over, steps, args=(), pass_counts=per_pass):
+        run_cfg = cfg.replace(**over)
+        path = save_config(run_cfg, root, f"{label}.yaml")
+        argv = ["--training-csv-dir", str(csv_dir), "--save-dir",
+                str(root / label), "--intermediate-dir", str(cache_dir),
+                "--config", str(path), "--runname", label, "--device",
+                str(device), *args]
+        for kept in (records, saved, gathers, timers, pass_peaks, kept_mem,
+                     losses, val_peaks):
+            kept.clear()
+        run_peak[0] = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _sync(device)
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer.Validator, "__call__", recording), \
+                mock.patch.object(ckpt.AsyncCheckpointSaver, "submit",
+                                  submitting), \
+                mock.patch.object(trainer, "load_train_state", loading), \
+                mock.patch.object(step, "resolve_micro", resolving), \
+                mock.patch.object(step, "make_grad_fn", measured_grad_fn), \
+                mock.patch.object(step, "label_smoothing_loss",
+                                  measured_loss), \
+                mock.patch.object(trainer, "StepTimer", KeptTimer):
+            summary = cli.main(argv)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        peak = max(run_peak[0], torch.cuda.max_memory_allocated()
+                   if cuda else 0)
+        pass_peak = max(pass_peaks, default=0)
+        fwd_kept = max(kept_mem, default=0)
+        counts = launch_counts()
+        h = summary["history"]
+        step_counts = dict(counts)
+        for i, (before, after, _) in enumerate(records):
+            diff = _counts_diff(after, before)
+            check_counts(diff, per_forward, val_batches,
+                         f"trainer {label} validation {i}")
+            step_counts = _counts_diff(step_counts, diff)
+        check_counts(step_counts, pass_counts, steps * passes,
+                     f"trainer {label} steps")
+        if summary["steps"] != h["step"][-1] or summary["stopped_early"]:
+            raise AssertionError(f"trainer {label}: summary {summary}")
+        for key in ("train_loss", "grad_norm", "val_loss"):
+            if not all(math.isfinite(v) for v in h[key]):
+                raise AssertionError(f"trainer {label}: {key} {h[key]}")
+        if any(h["skipped_steps"]):
+            raise AssertionError(f"trainer {label}: skipped steps")
+        run_dir = root / label / f"run_{label}_{cfg.FOLD}"
+        rows = [json.loads(line) for line in open(run_dir / "metrics.jsonl")]
+        timing = rows[-1]["step_time"]
+        rate = vols / timing["mean_s"]
+        route = RATES.get("train")
+        log(f"[{card}] trainer {label}: {len(records)} validation(s) and "
+            f"{steps} steps of {accum} x {cfg.BATCH_SIZE} volumes in "
+            f"{secs:.1f} s through cli.main; StepTimer {timing['steps']} "
+            f"steps after warm-up: {1e3 * timing['mean_s']:.1f} ms a step, "
+            f"{rate:.2f} vol/s"
+            + (f" (the train path's kernel route {route:.2f} vol/s)"
+               if route else "")
+            + "; each step "
+            + " / ".join(f"{1e3 * t:.1f}" for t in timers[0].durations)
+            + f" ms; validation s per event {h['val_wall_s']}, checkpoint s"
+            f" {h.get('ckpt_wall_s', [])}; peak memory {peak / 2**30:.2f} "
+            f"GiB, its passes' peak above their start "
+            f"{pass_peak / 2**30:.3f} GiB, its forwards' kept memory "
+            f"{fwd_kept / 2**30:.3f} GiB, its validations' peaks "
+            f"{[round(v / 2**30, 3) for v in val_peaks]} GiB; launches per "
+            f"step "
+            f"{ {k: v // steps for k, v in step_counts.items() if v} }, per "
+            f"validation of {n_val} volumes in {val_batches} batch(es) "
+            f"{ {k: v * val_batches for k, v in per_forward.items()} }")
+        out[label] = dict(summary=summary, peak=peak, pass_peak=pass_peak,
+                          fwd_kept=fwd_kept, val_peak=max(val_peaks, default=0),
+                          losses=list(losses),
+                          rate=rate, records=list(records),
+                          saved=list(saved), secs=secs)
+        if "--profile-dir" in args:
+            idle = _idle_share(args[args.index("--profile-dir") + 1]
+                               + "/trace.json")
+            if cuda and idle is None:
+                raise AssertionError(f"trainer {label}: the profiler saw no "
+                                     "device work")
+            if idle:
+                log(f"[{card}] trainer {label} profile: device busy "
+                    f"{idle[0]:.1f} ms of {idle[1]:.1f} ms, idle share "
+                    f"{idle[2]:.3f} (its last 2 steps, host prefetch "
+                    "included; profiler on)")
+        return summary
+
+    # (a) the host pipeline, a profiler window of its last 2 steps
+    sa = run("a", {}, TRAINER_STEPS,
+             ["--max-steps", str(TRAINER_STEPS), "--profile-dir",
+              str(root / "a_profile"), "--profile-steps", "2"])
+    ha = sa["history"]
+    if ha["step"] != [2, 4]:
+        raise AssertionError(f"trainer a: validations at {ha['step']}")
+    if not all(math.isfinite(v) for v in ha["val_attn_logit_max"]):
+        raise AssertionError("trainer a: the validation probe read no "
+                             f"attention: {ha['val_attn_logit_max']}")
+    names = sorted(str(p.relative_to(root / "a"))
+                   for p in (root / "a").rglob("*"))
+    want = sorted(["model_a_0_best0.ckpt", "model_a_0_best1.ckpt",
+                   "model_a_0_last.ckpt", "run_a_0", "run_a_0/config.yaml",
+                   "run_a_0/metrics.jsonl", "run_a_0/summary.json",
+                   "summary_a_0.json"])
+    if names != want:
+        raise AssertionError(f"trainer a: files {names}")
+    # the epochs a pipeline of the fold would give
+    ds_train = InMemoryDataset(cache_dir, [r for r in meta_train if
+                                           r["Diagnosis"] in diseases],
+                               diseases)
+
+    def epoch_after(start, steps, index_mode=False):
+        pipe = TrainPipeline(ds_train, cfg, accum, cfg.BATCH_SIZE,
+                             cfg.seed_or_none, index_mode=index_mode)
+        pipe.epoch = start
+        batches = [next(pipe) for _ in range(steps)]
+        return pipe.epoch, batches
+
+    meta_a = ckpt.load_checkpoint(root / "a" / "model_a_0_last.ckpt")[1]
+    if meta_a["sampler_epoch"] != epoch_after(0, TRAINER_STEPS)[0]:
+        raise AssertionError(f"trainer a: sampler epoch "
+                             f"{meta_a['sampler_epoch']} saved")
+
+    # (b) resumed from (a)'s last checkpoint to STEPS
+    final_a = out["a"]["saved"][-1][1]["state"]
+    sb = run("b", {}, TRAINER_RESUMED - TRAINER_STEPS,
+             ["--checkpoint", str(root / "a" / "model_a_0_last.ckpt"),
+              "--max-steps", str(TRAINER_RESUMED)])
+    if len(loaded) != 1:
+        raise AssertionError("trainer b: the state was not loaded")
+    got = dict(ckpt._leaves(loaded.pop()))
+    want = dict(ckpt._leaves(final_a))
+    if set(got) != set(want) or not all(
+            np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
+            and np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError("trainer b: the loaded state differs from the "
+                             "state (a) saved")
+    rows_a, rows_b = _rows(ha), _rows(sb["history"])
+    if rows_b[:len(rows_a)] != rows_a or [r["step"] for r in rows_b] != [
+            2, 4, 6]:
+        raise AssertionError(f"trainer b: history {rows_b} does not begin "
+                             f"with (a)'s {rows_a}")
+    meta_b = ckpt.load_checkpoint(root / "b" / "model_b_0_last.ckpt")[1]
+    want_epoch = epoch_after(meta_a["sampler_epoch"],
+                             TRAINER_RESUMED - TRAINER_STEPS)[0]
+    if meta_b["sampler_epoch"] != want_epoch:
+        raise AssertionError(f"trainer b: sampler epoch "
+                             f"{meta_b['sampler_epoch']}, a resumed "
+                             f"pipeline at {meta_a['sampler_epoch']} gives "
+                             f"{want_epoch}")
+    log(f"trainer b: loaded state equals (a)'s saved state bit for bit "
+        f"({len(want)} leaves); history begins with (a)'s {len(rows_a)} "
+        f"rows; sampler epochs {meta_a['sampler_epoch']} -> "
+        f"{meta_b['sampler_epoch']}")
+
+    # (c) the float16 device store over (a)'s steps: every step batch the
+    # store gathers equals the host pipeline's bit for bit
+    _, hosts = epoch_after(0, TRAINER_STEPS)
+    _, indexes = epoch_after(0, TRAINER_STEPS, index_mode=True)
+    store = resident.build_resident(ds_train.all_volumes(), "float16",
+                                    device)
+    for i, (host, index) in enumerate(zip(hosts, indexes)):
+        for key, idx_key in (("image", "image_idx"),
+                             ("image2", "partner_idx")):
+            rows = resident.gather_volumes(store, torch.from_numpy(
+                index[idx_key].reshape(-1))).cpu().numpy()
+            if not np.array_equal(rows, host[key].reshape(rows.shape)):
+                raise AssertionError(f"trainer c: step {i + 1}: the store's "
+                                     f"{key} rows differ from the host "
+                                     "pipeline's")
+        same = set(host) - {"image", "image2"}
+        if same != set(index) - {"image_idx", "partner_idx"} or not all(
+                np.array_equal(host[k], index[k]) for k in same):
+            raise AssertionError(f"trainer c: step {i + 1}: labels or mix "
+                                 "plan differ from the host pipeline's")
+    del store, indexes
+    spread = gradient_spread(cfg, hosts[0], device)
+    memory = ({lab: pass_memory(cfg.replace(**over), hosts[0], device)
+               for lab, over in (("a", {}), ("d", dict(USE_CHECKPOINT=True)))}
+              if cuda else {})
+    del hosts
+    sc = run("c", dict(PRELOAD_DEVICE="float16"), TRAINER_STEPS,
+             ["--max-steps", str(TRAINER_STEPS), "--profile-dir",
+              str(root / "c_profile"), "--profile-steps", "2"])
+    if len(gathers) != TRAINER_STEPS * passes:
+        raise AssertionError(f"trainer c: {len(gathers)} micro-batches read "
+                             f"the store, expected {TRAINER_STEPS * passes}")
+    first_pass_equal("c", out, accum)
+    worst = check_train_metrics(
+        [dict(loss=r["train_loss"], grad_norm=r["grad_norm"],
+              skipped=r["skipped_steps"]) for r in _rows(sc["history"])],
+        [dict(loss=r["train_loss"], grad_norm=r["grad_norm"],
+              skipped=r["skipped_steps"]) for r in rows_a], TRAINER_RTOL)
+    log(f"trainer c: the store's gathers of {TRAINER_STEPS} step batches "
+        "equal the host pipeline's bit for bit; step 1's first-pass losses "
+        f"equal (a)'s bit for bit; rows vs (a) worst rel loss "
+        f"{worst['loss']:.3e}, grad_norm {worst['grad_norm']:.3e} (<= "
+        f"{TRAINER_RTOL['loss']} / {TRAINER_RTOL['grad_norm']}); one pass "
+        f"twice from one state: losses equal, gradients differ in "
+        f"{spread['differ']} of {spread['tensors']} tensors, max|d| "
+        f"{spread['max_abs']:.3e} ({spread['max_rel']:.3e} of the largest "
+        f"gradient), most in {spread['top']}")
+
+    # (d) WATCH_GRADIENTS and USE_CHECKPOINT
+    sd = run("d", dict(WATCH_GRADIENTS=True, USE_CHECKPOINT=True),
+             TRAINER_SHORT, ["--max-steps", str(TRAINER_SHORT)], remat_pass)
+    hd = sd["history"]
+    modules = sorted(k for k in hd if k.startswith("grad_norm/"))
+    top = {"grad_norm/" + n for n in ("patch_embed", "patch_embed_norm",
+                                      "norm", "head")} | {
+        f"grad_norm/layer{i}" for i in range(len(cfg.DEPTH))}
+    if set(modules) != top or not all(math.isfinite(v) for k in modules
+                                      for v in hd[k]):
+        raise AssertionError(f"trainer d: gradient norms {modules}")
+    if not all(math.isfinite(v) for v in hd.get("attn_logit_max", [])) or \
+            len(hd.get("attn_logit_max", [])) != len(hd["step"]):
+        raise AssertionError("trainer d: no finite attn_logit_max on the "
+                             f"logged step: {hd.get('attn_logit_max')}")
+    first_pass_equal("d", out, accum)
+    worst = check_train_metrics(
+        [dict(loss=r["train_loss"], grad_norm=r["grad_norm"],
+              skipped=r["skipped_steps"]) for r in _rows(hd)],
+        [dict(loss=r["train_loss"], grad_norm=r["grad_norm"],
+              skipped=r["skipped_steps"]) for r in rows_a], TRAINER_RTOL)
+    kept = 0
+    if cuda:
+        from vsn_tpu_torch.models import build_model
+
+        kept = k1_kept_bytes(build_model(cfg, device), cfg.BATCH_SIZE)
+        torch.cuda.empty_cache()
+        if not out["d"]["fwd_kept"] <= out["a"]["fwd_kept"] - kept:
+            raise AssertionError(
+                f"trainer d: its forwards keep "
+                f"{out['d']['fwd_kept'] / 2**30:.3f} GiB, (a)'s "
+                f"{out['a']['fwd_kept'] / 2**30:.3f} less K1f's kept state"
+                f" {kept / 2**30:.3f}")
+    log(f"[{card}] trainer d: attn_logit_max {hd['attn_logit_max']}, "
+        f"val_attn_logit_max {hd['val_attn_logit_max']}, {len(modules)} "
+        f"module norms; rows vs (a) worst rel loss {worst['loss']:.3e}, "
+        f"grad_norm {worst['grad_norm']:.3e}; its forwards keep "
+        f"{out['d']['fwd_kept'] / 2**30:.3f} GiB against (a)'s "
+        f"{out['a']['fwd_kept'] / 2**30:.3f} (K1f's kept state of a "
+        f"micro-batch {kept / 2**30:.3f}); passes' peaks "
+        f"{out['d']['pass_peak'] / 2**30:.3f} / "
+        f"{out['a']['pass_peak'] / 2**30:.3f}, above the kept memory "
+        f"{(out['d']['pass_peak'] - out['d']['fwd_kept']) / 2**30:.3f} / "
+        f"{(out['a']['pass_peak'] - out['a']['fwd_kept']) / 2**30:.3f} "
+        f"GiB; runs' peaks {out['d']['peak'] / 2**30:.3f} / "
+        f"{out['a']['peak'] / 2**30:.3f} GiB, their validations' "
+        f"{out['d']['val_peak'] / 2**30:.3f} / "
+        f"{out['a']['val_peak'] / 2**30:.3f}")
+    for lab, mem in memory.items():
+        log(f"[{card}] trainer {lab} pass memory (one pass of step 1's "
+            f"batch{', USE_CHECKPOINT' if lab == 'd' else ''}, recorded): "
+            f"peak {mem['peak'] / 2**30:.3f} GiB above its start, reached "
+            f"by an allocation of {mem['last'] / 1e6:.1f} MB at event "
+            f"{mem['at']} of {mem['events']}; live there, made by the pass, "
+            f"by size: "
+            + ", ".join(f"{n} x {size / 1e6:.1f} MB"
+                        for size, n in mem["sizes"]))
+
+    # (a)'s best0 through the eval path
+    best0 = root / "a" / "model_a_0_best0.ckpt"
+    step0 = ckpt.load_checkpoint(best0)[1]["step"]
+    validator_probs = out["a"]["records"][ha["step"].index(step0)][2]
+    cfg0, model0, _, _ = ev.load_model_from_checkpoint(best0, device)
+    ds_val = InMemoryDataset(cache_dir, [r for r in meta_val if
+                                         r["Diagnosis"] in diseases],
+                             diseases)
+    probs = ev.Evaluator(cfg0, model0).predict_dataset(ds_val)[0]
+    err = float(np.abs(probs - validator_probs).max())
+    res = ev.evaluate_checkpoint(best0, csv_dir, cache_dir, root / "best0",
+                                 n_bootstrap=n_bootstrap,
+                                 skip_if_exists=False, device=device)
+    read_predictions(root / "best0" / f"prediction_{best0.stem}_id.csv",
+                     diseases)
+    log(f"trainer best0 (step {step0}): the Evaluator's validation probs vs "
+        f"the Validator's max|d| {err:.3e} (<= {TRAINER_PROBS_TOL}: the "
+        f"same weights, bit for bit, at aligned addresses); "
+        f"evaluate_checkpoint stages (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items()))
+    if not err <= TRAINER_PROBS_TOL:
+        raise AssertionError(f"trainer best0: validation probs differ from "
+                             f"the Validator's by {err}")
+    del model0
+    for label in ("c", "d", "best0"):
+        shutil.rmtree(root / label, ignore_errors=True)
+    return out
+
+
 def medvit_stem_f64(model, x, labels, draws, card):
     """MedViT's stem.0 conv weight gradient in f64 on the card (cuDNN) and
     on the CPU, from the input and output cotangent of one f32 training
@@ -6296,6 +6925,14 @@ def main() -> int:
     # 20b. Swin-T 5c eval with USE_PALLAS_ATTENTION off -------------------
     flag_off_phase(cfg, images[:BATCH], card, device)
     torch.cuda.empty_cache()
+
+    # 20c. the trainer on the chain's cohort ------------------------------
+    t0 = time.perf_counter()
+    chain = _build.BUILD_DIR / "eval_chain"
+    trainer_phase(train_cfg, chain / "cohort" / "folds", chain / "cache",
+                  _build.BUILD_DIR / "trainer", card, device)
+    torch.cuda.empty_cache()
+    log(f"phase 20c: {time.perf_counter() - t0:.1f} s")
 
     # 21. per-kernel times beside their bounds ----------------------------
     for name in GEMM_KERNELS:  # the Swin training micro-batch's launches

@@ -77,6 +77,12 @@ PAYLOADS = {
     "last_state": lambda rng: {"state": _state(rng)},
     "state_and_variables": lambda rng: {"state": _state(rng),
                                         "variables": {"params": _tree(rng)}},
+    # arrays above 1 MiB, as every card checkpoint holds, beside small ones
+    "large_arrays": lambda rng: {"variables": {"params": {
+        "qkv": rng.standard_normal((768, 512)).astype(np.float32),
+        "fc": rng.standard_normal((1024, 1100)).astype(np.float16),
+        "ids": rng.integers(0, 9, (1 << 21,), dtype=np.int8),
+        **_tree(rng)}}, "step": np.int64(2500)},
 }
 META = {"config": {"ARCHITECTURE": "Swin", "IMG_SIZE": [12, 18, 12],
                    "SPLIT": [1, 1, 1], "SEED": None, "LR": 3e-4},

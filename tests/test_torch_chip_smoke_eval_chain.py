@@ -41,7 +41,7 @@ def tiny(monkeypatch):
 def test_eval_chain_phase_passes(tiny, tmp_path, capsys):
     n = chip_smoke.eval_chain_phase(tiny, tmp_path / "chain", "cpu", "cpu",
                                     per_forward={}, n_bootstrap=100)
-    assert n == {"plain": 16, "tta": 16}   # val 4, test 4, OD 8
+    assert n == {"plain": 24, "tta": 24}   # val 8, test 8, OD 8
     out = capsys.readouterr().out
     assert "TTA batch at the cap: 8 volumes x 8 views = 64 rows" in out
     assert "bit for bit" in out and "eval chain TTA vs plain path" in out

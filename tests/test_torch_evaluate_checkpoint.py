@@ -12,7 +12,8 @@ folds, split [1, 1, 1]: val and test 4 volumes each):
   CSV too;
 * a 'last' checkpoint (the train state's params) gives the plain
   results; an existing prediction CSV skips the work; the CLI (``main``)
-  writes the same files; PRELOAD_DEVICE raises.
+  writes the same files; PRELOAD_DEVICE's device stores give JAX's
+  results, and raw stores the host arrays' bit for bit.
 """
 
 import csv
@@ -187,14 +188,27 @@ def test_cli_writes_the_same_files(setup, capsys):
     _compare(root, want, out)
 
 
-def test_preload_device_raises(setup, tmp_path):
+def test_preload_device_matches_jax_and_the_host(setup, tmp_path):
+    """PRELOAD_DEVICE float16: the port's evaluate_checkpoint on its device
+    stores (pre-transformed for plain eval) against JAX's on its stores,
+    within TOL; with PRELOAD_PRETRANSFORM off (raw stores) the port's
+    predictions equal its host arrays' bit for bit."""
     root, _, _, csv_dir, _ = setup
-    cfg = dict(jax_load_config(extra_overrides=dict(
-        TINY, PRELOAD_DEVICE="f16")))
     src = jck.load_checkpoint(root / f"{STEM}.ckpt")[0]
-    path = tmp_path / "resident.ckpt"
-    jck.save_checkpoint(path, src, {"config": cfg, "fold": 1})
-    with pytest.raises(NotImplementedError, match="PRELOAD_DEVICE"):
-        tev.evaluate_checkpoint(path, csv_dir, tmp_path / "c",
-                                tmp_path / "o", device="cpu")
-    shutil.rmtree(tmp_path / "o")
+    kw = dict(n_bootstrap=N_BOOT, seed=SEED)
+    outs = {}
+    for name, over in (("host", {}), ("f16", dict(PRELOAD_DEVICE="f16")),
+                       ("raw", dict(PRELOAD_DEVICE="float16",
+                                    PRELOAD_PRETRANSFORM=False))):
+        cfg = dict(jax_load_config(extra_overrides=dict(TINY, **over)))
+        path = tmp_path / name / f"{STEM}.ckpt"
+        jck.save_checkpoint(path, src, {"config": cfg, "fold": 1})
+        outs[name] = tmp_path / f"port_{name}"
+        tev.evaluate_checkpoint(path, csv_dir, tmp_path / "c", outs[name],
+                                device="cpu", **kw)
+        if name == "f16":
+            jev.evaluate_checkpoint(path, csv_dir, tmp_path / "jc",
+                                    tmp_path / "jax_f16", **kw)
+    _compare(root, tmp_path / "jax_f16", outs["f16"])
+    assert _read(outs["raw"] / f"prediction_{STEM}_id.csv") == _read(
+        outs["host"] / f"prediction_{STEM}_id.csv")

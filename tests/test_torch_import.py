@@ -44,7 +44,10 @@ def test_port_imports_no_jax_flax_or_triton():
                  "eval.bootstrap", "eval.calibration",
                  "eval.calibrate_predictions", "eval.tta", "eval.evaluate",
                  "utils.nifti", "data.folds", "data.preprocessing",
-                 "data.synthetic", "data.pipeline"):
+                 "data.synthetic", "data.pipeline", "utils.rng",
+                 "data.sampler", "data.resident", "train.metrics",
+                 "train.trainer", "train.cli", "utils.tracking",
+                 "utils.profiling"):
         assert f"vsn_tpu_torch.{name}" in modules
 
 

@@ -208,9 +208,55 @@ def test_nan_guard_skips_the_whole_update():
     assert torch.equal(state.opt.mu, before[2])
 
 
-def test_unported_trainer_options_raise():
-    for key in ("USE_CHECKPOINT", "WATCH_GRADIENTS", "PRELOAD_DEVICE"):
-        cfg = load_config(dict(OVER, **{key: True}))
-        with pytest.raises(NotImplementedError):
-            make_train_step(build_model(cfg, device="cpu"), cfg, [0.0],
-                            [0.0])
+@pytest.mark.parametrize("key", ["USE_CHECKPOINT", "WATCH_GRADIENTS",
+                                 "PRELOAD_DEVICE"])
+def test_trainer_options_build_a_step_that_runs(key):
+    """Each of the three trainer options builds a step that runs and gives
+    the plain step's loss: USE_CHECKPOINT (blocks recomputed in the
+    backward), WATCH_GRADIENTS (the per-module gradient norms of the JAX
+    top-level names, the probe on its logged step) and PRELOAD_DEVICE (a
+    batch of row indices into a float16 store)."""
+    from vsn_tpu_torch.data.resident import build_resident
+    from vsn_tpu_torch.train.trainer import probe_twin
+
+    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    weights = build_model(load_config(OVER), device="cpu").state_dict()
+    losses = {}
+    for on in (False, True):
+        cfg = load_config(dict(OVER, VALIDATION_FREQUENCY=1,
+                               **{key: "float16" if on and key ==
+                                  "PRELOAD_DEVICE" else on}))
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(weights)
+        state = init_train_state(cfg, model)
+        lr, wd = lr_wd_schedules(cfg)
+        step = make_train_step(model, cfg, lr, wd, make_batch_transform(cfg),
+                               probe_model=probe_twin(cfg, "cpu"))
+        b, store = batch, None
+        if on and key == "PRELOAD_DEVICE":
+            vols = torch.cat([batch["image"].flatten(0, 1),
+                              batch["image2"].flatten(0, 1)]).numpy()
+            store = build_resident(vols, cfg.PRELOAD_DEVICE, "cpu")
+            b = {k: v for k, v in batch.items()
+                 if k not in ("image", "image2")}
+            b["image_idx"] = torch.arange(4, dtype=torch.int32).reshape(2, 2)
+            b["partner_idx"] = b["image_idx"] + 4
+        m = step(state, b, store)
+        losses[on] = float(m["loss"])
+        watched = sorted(k for k in m if "/" in k or k == "attn_logit_max")
+        if on and key == "WATCH_GRADIENTS":
+            assert watched == ["attn_logit_max", "grad_norm/head",
+                               "grad_norm/layer0", "grad_norm/layer1",
+                               "grad_norm/layer2", "grad_norm/norm",
+                               "grad_norm/patch_embed",
+                               "grad_norm/patch_embed_norm"]
+            assert all(np.isfinite(float(m[k])) for k in watched)
+            # the modules' norms are of the clipped gradients (clip 1.0)
+            total = np.sqrt(sum(float(m[k]) ** 2 for k in watched
+                                if k.startswith("grad_norm/")))
+            np.testing.assert_allclose(
+                total, min(float(m["grad_norm"]), cfg.GRADIENT_CLIP),
+                rtol=1e-5)
+        else:
+            assert watched == []
+    assert losses[True] == losses[False]

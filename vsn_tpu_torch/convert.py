@@ -28,6 +28,7 @@ carry gradients and optimizer moments as well as parameters.
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Mapping
 
@@ -283,8 +284,11 @@ def _template_regex(template: str, pattern: str) -> str:
                   out)
 
 
+@functools.lru_cache(maxsize=8192)
 def _reverse(key: str):
-    """torch key -> (collection, '/'-joined JAX path, inverse transform)."""
+    """torch key -> (collection, '/'-joined JAX path, inverse transform),
+    cached: a model's keys are few, and the trainer maps them at every
+    checkpoint."""
     for coll, pattern, template, fn in _RULES + _VIT_RULES + _MEDVIT_RULES:
         m = re.fullmatch(_template_regex(template, pattern), key)
         if not m:
@@ -323,3 +327,127 @@ def jax_params_from_state_dict(state_dict: Mapping, depths=None) -> dict:
         node[leaf] = np.array(fn(arr.astype(np.float32)), order="C")
     out.setdefault("params", {})
     return out
+
+
+def jax_path(key: str, depths=None) -> str:
+    """The '/'-joined JAX path of the port's parameter or statistic ``key``
+    (a MedViT's needs ``depths``)."""
+    _, path, _ = _reverse(key)
+    if path.startswith("features/"):
+        if depths is None:
+            raise ValueError(f"{key}: a MedViT block's key needs depths")
+        _, f, rest = path.split("/", 2)
+        path = f"{_medvit_out(depths)[int(f)]}/{rest}"
+    return path
+
+
+# --- the train state: the port's flat buffers <-> the JAX TrainState tree ---
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _tree(flat: np.ndarray, layouts, depths) -> dict:
+    """``jax_params_from_state_dict`` of the named views of ``flat``: the
+    flat buffers of ``layouts`` (train/step.py ``_Flat``) end to end."""
+    sd, base = {}, 0
+    for lay in layouts:
+        for name, off, shape in zip(lay.names, lay.offsets, lay.shapes):
+            start = base + off
+            sd[name] = flat[start:start + int(np.prod(shape))].reshape(shape)
+        base += lay.size
+    return jax_params_from_state_dict(sd, depths)
+
+
+def _split(tree: dict):
+    """A variables tree as (params, model_state)."""
+    return tree["params"], {k: v for k, v in tree.items() if k != "params"}
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def jax_train_state(state, depths=None) -> dict:
+    """The port's ``TrainState`` (train/step.py: flat parameter, moment,
+    statistic and EMA buffers) as the state dict of the JAX package's
+    ``TrainState`` (vsn_tpu/train/step.py:43-79): params, model_state,
+    opt {mu, nu, count} (optim.py:35), step, skipped and ema {queue,
+    count, ema} (ema.py:25: snapshots of {params, model_state}, the
+    queue's leaves stacked over its slots) or None; numpy leaves on the
+    host. Each flat buffer crosses to the host once."""
+    params, stats = state.params, state.model_state
+
+    def variables(flat):
+        return _split(_tree(flat, (params, stats), depths))
+
+    tree_params, model_state = variables(
+        np.concatenate([_host(params.flat), _host(stats.flat)]))
+    out = {
+        "params": tree_params,
+        "model_state": model_state,
+        "opt": {name: _tree(_host(getattr(state.opt, name)), (params,),
+                            depths)["params"]
+                for name in ("mu", "nu")},
+        "step": np.asarray(state.step, np.int32),
+        "skipped": _host(state.skipped),
+        "ema": None,
+    }
+    out["opt"]["count"] = _host(state.opt.count)
+    if state.ema is not None:
+        slots = [dict(zip(("params", "model_state"), variables(row)))
+                 for row in _host(state.ema.queue)]
+        ema_p, ema_ms = variables(_host(state.ema.ema))
+        out["ema"] = {"queue": _stack(slots),
+                      "count": _host(state.ema.count),
+                      "ema": {"params": ema_p, "model_state": ema_ms}}
+    return out
+
+
+def _flat(variables: dict, layouts) -> torch.Tensor:
+    """The named leaves of a JAX variables tree in the flat buffers of
+    ``layouts`` (train/step.py ``_Flat``), end to end."""
+    sd = state_dict_from_jax(variables)
+    return torch.cat([lay.pack(sd, device="cpu") for lay in layouts])
+
+
+def load_train_state(state, tree) -> None:
+    """Write a JAX-form train state (``jax_train_state``'s layout, e.g. a
+    checkpoint's ``payload["state"]``) into the port's ``TrainState`` in
+    place: every flat buffer, the step and the skipped count."""
+    layouts = (state.params, state.model_state)
+
+    def put(dst, src):
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.array(src))
+        with torch.no_grad():
+            dst.copy_(src)
+
+    def snapshot(node):
+        return _flat({"params": node["params"], **node["model_state"]},
+                     layouts)
+
+    p = state.params.size
+    flat = snapshot(tree)
+    put(state.params.flat, flat[:p])
+    put(state.model_state.flat, flat[p:])
+    for name in ("mu", "nu"):
+        put(getattr(state.opt, name),
+            _flat({"params": tree["opt"][name]}, (state.params,)))
+    put(state.opt.count, tree["opt"]["count"])
+    state.step = int(np.asarray(tree["step"]))
+    put(state.skipped, tree["skipped"])
+    if state.ema is not None:
+        ema = tree["ema"]
+        for i in range(state.ema.queue.shape[0]):
+            put(state.ema.queue[i], snapshot(_index(ema["queue"], i)))
+        put(state.ema.ema, snapshot(ema["ema"]))
+        put(state.ema.count, ema["count"])

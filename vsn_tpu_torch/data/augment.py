@@ -88,7 +88,7 @@ def build_train_augment(cfg) -> Callable[[torch.Tensor, object], torch.Tensor]:
             "USE_EXTENDED_DATA_AUGMENTATION", False):
         raise NotImplementedError(
             "the extended and dung augmentation stacks are not ported yet "
-            "(ROADMAP Queue 1, item 6)")
+            "(ROADMAP Queue 1, item 5)")
     target = cfg.input_size
 
     def fn(x, generator=None):

@@ -12,8 +12,9 @@ a log; skip work when prediction CSVs already exist (622-632).
 The checkpoints are the JAX package's files (``train/checkpoint.py`` reads
 and writes its format). The model runs on its own device: the CUDA card
 unless the caller passes ``device="cpu"``. Tables are lists of row dicts
-(``data/folds.py``). PRELOAD_DEVICE (the device-resident cohort store)
-is not ported yet and raises.
+(``data/folds.py``). With PRELOAD_DEVICE each cohort is uploaded once into
+a device store (``data/resident.py``; plain eval: pre-transformed, the
+resize + z-score baked in) and its batches are gathered on the card.
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ from vsn_tpu_torch.data.folds import (
 )
 from vsn_tpu_torch.data.pipeline import EvalPipeline, InMemoryDataset
 from vsn_tpu_torch.data.preprocessing import DataPrepa
+from vsn_tpu_torch.data.resident import (
+    ResidentVolumes,
+    build_resident,
+    gather_volumes,
+    resident_pretransform,
+)
 from vsn_tpu_torch.eval.bootstrap import compute_bootstrap_metrics
 from vsn_tpu_torch.eval.tta import make_tta_predictor
 from vsn_tpu_torch.train.step import make_eval_step
@@ -109,11 +116,18 @@ class Evaluator:
     unless ``batch_size`` is given: each volume becomes 8 views, and 8
     volumes already make 64 rows. ``tta_draws(i, v)``, when given, returns
     batch i's affine view v's (angles [B, 3], translation [B, 3]) in place
-    of draws from the batch's generator (seeded by ``seed`` and i)."""
+    of draws from the batch's generator (seeded by ``seed`` and i).
+    ``resident_pretransformed``: a device store that ``predict`` reads
+    holds volumes with the eval transform already applied (not with TTA,
+    whose views warp before the transform)."""
 
     def __init__(self, cfg, model, use_tta: bool = False, batch_size=None,
                  device=None, tta_kwargs=None, seed: int = 0,
-                 tta_draws=None):
+                 tta_draws=None, resident_pretransformed: bool = False):
+        if resident_pretransformed and use_tta:
+            raise ValueError("TTA requires a raw resident store (views warp "
+                             "before normalize)")
+        self.resident_pretransformed = resident_pretransformed
         self.batch_size = int(batch_size or cfg.get("EVAL_BATCH_SIZE", 0)
                               or cfg.BATCH_SIZE)
         if use_tta and batch_size is None:
@@ -133,20 +147,25 @@ class Evaluator:
             self._tta, self.n_views = make_tta_predictor(
                 model, eval_transform=self.transform, **(tta_kwargs or {}))
 
-    def run(self, x: torch.Tensor, i: int = 0, variables=None):
+    def run(self, x: torch.Tensor, i: int = 0, variables=None,
+            transformed: bool = False):
         """Probs [B, K] of one batch x on the device (batch index ``i``
-        picks the TTA draws)."""
+        picks the TTA draws; ``transformed``: x already went through the
+        eval transform)."""
         if not self.use_tta:
-            return self.eval_step(self.transform(x), variables)
+            return self.eval_step(x if transformed else self.transform(x),
+                                  variables)
         draws = (None if self.tta_draws is None
                  else lambda v: self.tta_draws(i, v))
         return self._tta(x, _batch_generator(self.seed, i), draws, variables)
 
-    def predict(self, images: np.ndarray, variables=None) -> np.ndarray:
-        """images [N, D, H, W, C] (e.g. the float16 cache) -> probs [N, K],
-        in eval mode (BatchNorm on its running statistics). ``variables``,
-        a state dict such as ``eval_params(state, use_ema=True)``, replaces
-        the model's parameters and statistics (the EMA's, when asked).
+    def predict(self, images, variables=None) -> np.ndarray:
+        """images [N, D, H, W, C] (the float16 cache: an array, an
+        ``InMemoryDataset`` or a device store ``ResidentVolumes``, whose
+        batches are gathered on the card) -> probs [N, K], in eval mode
+        (BatchNorm on its running statistics). ``variables``, a state dict
+        such as ``eval_params(state, use_ema=True)``, replaces the model's
+        parameters and statistics (the EMA's, when asked).
 
         One batch deep (as train.trainer.Validator): batch i is dispatched
         before the host waits for batch i-1's probabilities, whose copy to
@@ -155,9 +174,18 @@ class Evaluator:
         # Clamp to the cohort so small datasets don't pay for pad rows.
         bs = max(1, min(self.batch_size, len(images)))
         cuda = self.device.type == "cuda"
+        pipeline = EvalPipeline(images, bs)
+        resident = isinstance(images, ResidentVolumes)
+        if resident:
+            batches = ((gather_volumes(images, torch.from_numpy(pad)), valid)
+                       for pad, valid in pipeline.indices())
+        else:
+            batches = ((torch.from_numpy(x).to(self.device), valid)
+                       for x, valid in pipeline)
         probs, pending = [], None
-        for i, (x, valid) in enumerate(EvalPipeline(images, bs)):
-            dev = self.run(torch.from_numpy(x).to(self.device), i, variables)
+        for i, (x, valid) in enumerate(batches):
+            dev = self.run(x, i, variables,
+                           resident and self.resident_pretransformed)
             host = dev.to("cpu", non_blocking=cuda)
             done = torch.cuda.Event() if cuda else None
             if done is not None:
@@ -168,10 +196,13 @@ class Evaluator:
         probs.append(self._drain(pending))
         return np.concatenate(probs)
 
-    def predict_dataset(self, dataset, variables=None):
+    def predict_dataset(self, dataset, variables=None, resident=None):
         """Returns (probs [N, K], gt_onehot [N, K]) over an
-        ``InMemoryDataset`` (``predict`` of its images)."""
-        return self.predict(dataset.images, variables), dataset.labels
+        ``InMemoryDataset``: ``predict`` of its device store ``resident``
+        when given, else of its images."""
+        source = resident if resident is not None else (
+            dataset.images if dataset.images is not None else dataset)
+        return self.predict(source, variables), dataset.labels
 
     @staticmethod
     def _drain(pending) -> np.ndarray:
@@ -277,10 +308,6 @@ def _evaluate_checkpoint_inner(
     cfg, model, _, meta = load_model_from_checkpoint(checkpoint_path, device)
     stages = _Stages(next(model.parameters()).device)
     t = stages.add("load", t)
-    if cfg.get("PRELOAD_DEVICE", False):
-        raise NotImplementedError(
-            "PRELOAD_DEVICE (the device-resident cohort store) is not ported "
-            "yet (ROADMAP Queue 1, item 3)")
     diseases = list(cfg.DISEASES)
     fold = int(meta["fold"] if "fold" in meta else cfg.FOLD)
 
@@ -290,8 +317,17 @@ def _evaluate_checkpoint_inner(
     DataPrepa(meta_all, cache_dir).preprocess_data(crop=tuple(cfg.IMG_SIZE))
     t = stages.add("preprocess", t)
 
+    mode = cfg.get("PRELOAD_DEVICE", False)
+    pre = None if use_tta else resident_pretransform(cfg, train=False)
     evaluator = Evaluator(cfg, model, use_tta=use_tta, batch_size=batch_size,
-                          seed=seed, tta_draws=tta_draws)
+                          seed=seed, tta_draws=tta_draws,
+                          resident_pretransformed=pre is not None)
+
+    def store(ds):
+        """The cohort's device store (PRELOAD_DEVICE), else None."""
+        return (build_resident(ds.all_volumes(), mode, evaluator.device, pre)
+                if mode else None)
+
     results = {"checkpoint": str(checkpoint_path), "fold": fold,
                "use_tta": use_tta, "model_index": model_index}
 
@@ -306,12 +342,14 @@ def _evaluate_checkpoint_inner(
     ds_test = InMemoryDataset(cache_dir, meta_test, diseases)
     t = stages.add("load", t)
 
-    val_probs, val_gt = evaluator.predict_dataset(ds_val)
+    val_probs, val_gt = evaluator.predict_dataset(ds_val,
+                                                  resident=store(ds_val))
     t = stages.add("predict", t)
     results["val"] = _bootstrap_summary(val_probs, val_gt, n_bootstrap, seed)
     t = stages.add("bootstrap", t)
 
-    test_probs, test_gt = evaluator.predict_dataset(ds_test)
+    test_probs, test_gt = evaluator.predict_dataset(ds_test,
+                                                    resident=store(ds_test))
     t = stages.add("predict", t)
     results["test_id"] = _bootstrap_summary(test_probs, test_gt, n_bootstrap,
                                             seed)
@@ -325,7 +363,8 @@ def _evaluate_checkpoint_inner(
         meta_od_known = [row for row in meta_od if row["Diagnosis"] in diseases]
         ds_od = InMemoryDataset(cache_dir, meta_od_known, diseases)
         t = stages.add("load", t)
-        od_probs, od_gt = evaluator.predict_dataset(ds_od)
+        od_probs, od_gt = evaluator.predict_dataset(ds_od,
+                                                    resident=store(ds_od))
         t = stages.add("predict", t)
         results["test_od"] = _bootstrap_summary(od_probs, od_gt, n_bootstrap,
                                                 seed)

@@ -16,12 +16,14 @@ def model_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.get("FP16", True) else torch.float32
 
 
-def _device(device) -> torch.device:
+def card_or(device, caller: str = "build_model") -> torch.device:
+    """``device`` when the caller names one, else the CUDA card; without a
+    card and without a device it raises (``caller``: the entry point)."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
-        raise RuntimeError("build_model: no CUDA device; pass device='cpu' to "
-                           "build the model on the CPU")
+        raise RuntimeError(f"{caller}: no CUDA device; pass device='cpu' to "
+                           "run on the CPU")
     return torch.device("cuda")
 
 
@@ -29,7 +31,7 @@ def build_model(cfg, device=None):
     """The model for ``cfg`` in eval mode, with its parameters on ``device``:
     the CUDA card unless the caller names another device (``device="cpu"``).
     Without a card and without a device it raises."""
-    device = _device(device)
+    device = card_or(device)
     arch = cfg.ARCHITECTURE
     if arch == "Swin":
         from vsn_tpu_torch.models.swin3d import swin_from_config
@@ -55,3 +57,14 @@ def build_model(cfg, device=None):
         raise ValueError(f"Unknown ARCHITECTURE {arch!r}; expected one of "
                          f"{MODEL_PRESETS}")
     return model.to(device).eval()
+
+
+def init_model(model, cfg, generator: torch.Generator):
+    """``model`` with fresh weights from its architecture's initializer
+    (each model module's ``init_weights``, the JAX package's initializers'
+    distributions) drawn from ``generator``."""
+    from vsn_tpu_torch.models import medvit3d, resnet3d, swin3d, vit3d
+
+    init = {"Swin": swin3d, "ViT": vit3d, "ResNet": resnet3d,
+            "MedViT": medvit3d}[cfg.ARCHITECTURE].init_weights
+    return init(model, generator)

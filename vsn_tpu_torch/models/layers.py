@@ -18,6 +18,7 @@ fused path does (vsn_tpu/models/swin3d.py:864-891).
 
 from __future__ import annotations
 
+import contextvars
 from typing import Sequence
 
 import torch
@@ -237,8 +238,38 @@ def region_mask(ids: torch.Tensor) -> torch.Tensor:
     return torch.where(diff, REGION_MASK, 0.0).to(torch.float32)
 
 
+_ACTIVE_PROBE = contextvars.ContextVar("logit_probe", default=None)
+
+
+class LogitProbe:
+    """The attention-logit probe: while active (``with LogitProbe() as
+    probe:``), every ``softmax_attention(..., sow=True)`` call records the
+    max of its f32 scores (after the scale, the bias and the region mask),
+    and ``value()`` is their max, a 0-d f32 tensor on the scores' device
+    (-inf when nothing recorded): the JAX package's sown
+    ``attn_logit_max`` (vsn_tpu/models/swin3d.py:704, vit3d.py:101,
+    reduced by max). Recording adds no host synchronization. The active
+    probe is a context variable: a probe in one thread does not record
+    another thread's forwards."""
+
+    def __init__(self):
+        self.maxima = []
+
+    def __enter__(self):
+        self._token = _ACTIVE_PROBE.set(self)
+        return self
+
+    def __exit__(self, *exc):
+        _ACTIVE_PROBE.reset(self._token)
+
+    def value(self) -> torch.Tensor:
+        if not self.maxima:
+            return torch.tensor(float("-inf"))
+        return torch.stack(self.maxima).max()
+
+
 def softmax_attention(q, k, v, scale: float, bias=None, ids=None,
-                      rate: float = 0.0, mask=None):
+                      rate: float = 0.0, mask=None, sow: bool = False):
     """Multi-head attention as the JAX package's XLA branches compute it
     (WindowAttention3D :677-712, ViTAttention :89-109, EMHSA): q [B, H, N,
     d], k and v [B, H, M, d] in the activation dtype. The scores q . k,
@@ -250,7 +281,9 @@ def softmax_attention(q, k, v, scale: float, bias=None, ids=None,
     probabilities cast to v's dtype and their product with v taken as f32.
     Returns [B, H, N, d] f32. Plain PyTorch: the branch has no kernel on
     either side. In bf16 the f32 products are exact, TF32 or not (a bf16
-    value is a TF32 value)."""
+    value is a TF32 value). ``sow``: an active ``LogitProbe`` records the
+    scores' max before the softmax (Swin's and ViT's calls, as JAX sows
+    there; MedViT's E-MHSA does not)."""
     acc = torch.promote_types(q.dtype, torch.float32)
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)).float() * scale
     if bias is not None:
@@ -259,8 +292,27 @@ def softmax_attention(q, k, v, scale: float, bias=None, ids=None,
         shape = s.shape
         s = (s.view(-1, ids.shape[0], *shape[1:])
              + region_mask(ids)[None, :, None]).view(shape)
+    probe = _ACTIVE_PROBE.get() if sow else None
+    if probe is not None:
+        probe.maxima.append(s.detach().max())
     p = dropout(torch.softmax(s, dim=-1), rate, mask)
     return torch.matmul(p.to(v.dtype).to(acc), v.to(acc)).float()
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``; with ``enabled`` and grad mode on, its activations are
+    not kept but recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant: tensors a kernel's autograd Function saves, K1f's kept
+    state among them, are recomputed too, not kept). USE_CHECKPOINT around
+    a block, where JAX uses ``nn.remat`` (vsn_tpu/models/swin3d.py:1237,
+    vit3d.py:474). The RNG state is not stashed: the models take their
+    random draws at their entry, outside the blocks."""
+    if enabled and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 class RandomDraws:

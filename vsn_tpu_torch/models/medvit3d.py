@@ -613,7 +613,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 def medvit_from_config(cfg, dtype=torch.float32) -> MedViT3D:
     """Build from public config keys (vsn_tpu/models/medvit3d.py:531-551):
     DEPTH [3,4,10,3], HEADS -> head_dim, MLP_RATIO 3; the input size from
-    the config (for the dropouts' keep masks)."""
+    the config (for the dropouts' keep masks). USE_CHECKPOINT is not read:
+    the JAX MedViT takes it and never reads it (medvit3d.py:436, :543)."""
     return MedViT3D(
         num_classes=cfg.num_classes,
         depths=tuple(cfg.DEPTH),

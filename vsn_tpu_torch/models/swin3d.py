@@ -79,6 +79,7 @@ from vsn_tpu_torch.models.layers import (
     dropout,
     gated_residual,
     make_norm,
+    remat,
     residual_branch_gains,
     softmax_attention,
     stochastic_depth_rates,
@@ -309,7 +310,7 @@ class WindowAttention3D(nn.Module):
         q, k, v = qkv.reshape(bw, n, 3, self.num_heads,
                               c3 // (3 * self.num_heads)).permute(2, 0, 3, 1, 4)
         out = softmax_attention(q, k, v, self.scale, self.bias(), ids,
-                                self.attn_drop, mask)
+                                self.attn_drop, mask, sow=True)
         return out.transpose(1, 2).reshape(bw, n, c3 // 3).to(qkv.dtype)
 
     def forward(self, windows, ids, masks=(None, None)):
@@ -489,6 +490,7 @@ class BasicLayer3D(nn.Module):
             for i in range(depth))
         self.downsample = (PatchMerging3D(dim, norm_layer) if downsample
                            else None)
+        self.use_checkpoint = False  # USE_CHECKPOINT, set by the model
         shifted = any(self.shift)
         ids_noshift = ids_shift = None
         if any(self.pad):
@@ -524,11 +526,12 @@ class BasicLayer3D(nn.Module):
                               self.pad[0]))
             for i, blk in enumerate(self.blocks):
                 if fused:
-                    x = blk(x, self._ids(i), gains[i])
+                    x = remat(self.use_checkpoint, blk, x, self._ids(i),
+                              gains[i])
                 else:
-                    x = blk.forward_unfused(
-                        x, self._ids(i), gains[i],
-                        masks[i] if masks else (None,) * 4)
+                    x = remat(self.use_checkpoint, blk.forward_unfused, x,
+                              self._ids(i), gains[i],
+                              masks[i] if masks else (None,) * 4)
             x = x[:, :d, :h, :w, :]
         if self.downsample is not None:
             x = self.downsample(x)
@@ -548,7 +551,8 @@ class BasicLayer3D(nn.Module):
                           for ns, cs, dim in zip(blk.shift, cur, dims))
                 x = windows_to_windows(x, window, dims, tuple(-v for v in t))
                 cur = blk.shift
-            x = blk.forward_windows(x, self._ids(i), gains[i])
+            x = remat(self.use_checkpoint, blk.forward_windows, x,
+                      self._ids(i), gains[i])
         if any(cur):
             return windows_to_spatial(x, window, dims, cur)
         return window_reverse(x, window, dims)
@@ -643,6 +647,7 @@ class SwinTransformer3D(RandomDraws, nn.Module):
                  layer_scale_init_value: float = 1e-5,
                  enable_stable: bool = False, stable_k: float = 2.0,
                  stable_alpha: float = 1.0, use_pallas: bool = True,
+                 use_checkpoint: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -670,6 +675,10 @@ class SwinTransformer3D(RandomDraws, nn.Module):
         self.use_pallas = use_pallas
         for blk in self.blocks():
             blk.attn.use_pallas = use_pallas
+        # USE_CHECKPOINT (vsn_tpu/models/swin3d.py:1237-1238): every block
+        # recomputed in the backward (``layers.remat``)
+        for layer in self.backbone.layers:
+            layer.use_checkpoint = use_checkpoint
 
     def blocks(self):
         return [blk for layer in self.backbone.layers for blk in layer.blocks]
@@ -845,5 +854,6 @@ def swin_from_config(cfg, dtype=torch.float32) -> SwinTransformer3D:
         stable_k=float(cfg.STABLE_K),
         stable_alpha=float(cfg.STABLE_ALPHA),
         use_pallas=bool(cfg.get("USE_PALLAS_ATTENTION", True)),
+        use_checkpoint=bool(cfg.get("USE_CHECKPOINT", False)),
         dtype=dtype,
     )

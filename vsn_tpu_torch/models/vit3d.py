@@ -81,6 +81,7 @@ from vsn_tpu_torch.models.layers import (
     linear,
     make_norm,
     mlp,
+    remat,
     residual_branch_gains,
     softmax_attention,
     stochastic_depth_rates,
@@ -244,7 +245,8 @@ class ViTBlock(nn.Module):
         q, k, v = linear(h, attn.to_qkv).reshape(
             b, n, 3, attn.heads, attn.dim_head).permute(2, 0, 3, 1, 4)
         out = softmax_attention(q, k, v, attn.scale,
-                                rate=self.attention_dropout, mask=masks[0])
+                                rate=self.attention_dropout, mask=masks[0],
+                                sow=True)
         out = out.transpose(1, 2).reshape(b, n, -1).to(x.dtype)
         if attn.project_out:
             out = dropout(linear(out, attn.to_out[0]),
@@ -308,7 +310,7 @@ class ViT3D(RandomDraws, nn.Module):
                  layer_scale_init_value: float = 1e-5,
                  enable_stable: bool = False, stable_k: float = 2.0,
                  stable_alpha: float = 1.0, norm_layer=None,
-                 use_pallas: bool = True,
+                 use_pallas: bool = True, use_checkpoint: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         for i, p in zip(img_size, patch_size):
@@ -349,6 +351,9 @@ class ViT3D(RandomDraws, nn.Module):
         # halves of every block run unfused, in eval and in training
         for blk in self.blocks():
             blk.use_pallas = use_pallas
+        # USE_CHECKPOINT (vsn_tpu/models/vit3d.py:474-475): every block
+        # recomputed in the backward (``layers.remat``)
+        self.use_checkpoint = use_checkpoint
 
     def blocks(self):
         return list(self.transformer.layers)
@@ -426,8 +431,9 @@ class ViT3D(RandomDraws, nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(self.dtype)
         x = dropout(x, self.dropout, taken.get("embed"))
         for i, (blk, g) in enumerate(zip(self.blocks(), gains)):
-            x = blk(x, g, tuple(taken.get((i, k)) for k in
-                                ("attn", "proj", "fc1", "fc2")))
+            x = remat(self.use_checkpoint, blk, x, g,
+                      tuple(taken.get((i, k)) for k in
+                            ("attn", "proj", "fc1", "fc2")))
         x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
         norm, head = self.mlp_head
         return F.linear(norm(x).float(), head.weight, head.bias)
@@ -508,5 +514,6 @@ def vit_from_config(cfg, dtype=torch.float32) -> ViT3D:
         stable_alpha=float(cfg.STABLE_ALPHA),
         norm_layer=cfg.NORM_LAYER,
         use_pallas=bool(cfg.get("USE_PALLAS_ATTENTION", True)),
+        use_checkpoint=bool(cfg.get("USE_CHECKPOINT", False)),
         dtype=dtype,
     )

@@ -20,14 +20,21 @@ The encoder writes what flax writes for the same tree, byte for byte:
 dict keys as str in sorted order (JAX flattens dicts by sorted key),
 lists, tuples and named tuples as maps keyed by
 position or field, every number and tensor leaf as an ndarray. So a file
-written by either package loads in the other. The async saver, best-N
-rotation and ``filter_compatible`` come with the trainer.
+written by either package loads in the other.
+
+The trainer's parts (vsn_tpu/train/checkpoint.py:71-202): the background
+saver with a bounded queue (``AsyncCheckpointSaver``), the best-N rotation
+by renames (``BestNTracker``) and the shape-filtered partial load
+(``filter_compatible``), on trees of dicts with numpy leaves (the JAX
+state's form, ``convert.jax_train_state``).
 """
 
 from __future__ import annotations
 
 import json
+import queue
 import struct
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -191,11 +198,25 @@ def _pack_int(out: bytearray, v: int) -> None:
     raise OverflowError("Integer value out of range")
 
 
-def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
-    n = len(data)
-    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-    if n in fixext:
-        out.append(fixext[n])
+_FIXEXT = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+
+
+def _pack_ndarray(out: "_Chunks", code: int, arr: np.ndarray) -> None:
+    """flax's ext ``code`` of an array (EXT_NDARRAY) or a numpy scalar
+    (EXT_NPSCALAR): the ext header, then the msgpack of [shape, dtype name,
+    data], the data entering ``out`` as a view of the array's buffer."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("Object and structured dtypes not supported "
+                         "for serialization of ndarrays.")
+    data = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    head = bytearray()
+    _header(head, 3, 0x90, 15, _ARRAY)
+    _pack(head, list(arr.shape))
+    _pack(head, arr.dtype.name)
+    _header(head, data.nbytes, None, -1, _BIN)
+    n = len(head) + data.nbytes
+    if n in _FIXEXT:
+        out.append(_FIXEXT[n])
     elif n <= 0xFF:
         out += struct.pack(">BB", 0xC7, n)
     elif n <= 0xFFFF:
@@ -203,14 +224,8 @@ def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
     else:
         out += struct.pack(">BI", 0xC9, n)
     out += struct.pack(">b", code)
-    out += data
-
-
-def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
-    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
-        raise ValueError("Object and structured dtypes not supported "
-                         "for serialization of ndarrays.")
-    return packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    out += head
+    out.raw(data)
 
 
 def _pack(out: bytearray, obj) -> None:
@@ -240,20 +255,39 @@ def _pack(out: bytearray, obj) -> None:
             _pack(out, k)
             _pack(out, v)
     elif isinstance(obj, np.ndarray):
-        _pack_ext(out, EXT_NDARRAY, _ndarray_to_bytes(obj))
+        _pack_ndarray(out, EXT_NDARRAY, obj)
     elif isinstance(obj, np.generic):
-        _pack_ext(out, EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)))
+        _pack_ndarray(out, EXT_NPSCALAR, np.asarray(obj))
     else:
         raise TypeError(f"can not serialize {t.__name__!r} object")
+
+
+class _Chunks(bytearray):
+    """An encoder's output in pieces: the small parts accumulate in the
+    bytearray, and each array's data enters as a view of its own buffer
+    (``raw``), so a checkpoint's arrays reach the file without being
+    copied into one byte string."""
+
+    def __init__(self):
+        super().__init__()
+        self.chunks: list = []
+
+    def raw(self, view) -> None:
+        self.chunks.append(bytes(self))
+        self.clear()
+        self.chunks.append(view)
+
+    def pieces(self) -> list:
+        return [*self.chunks, bytes(self)]
 
 
 def packb(obj) -> bytes:
     """msgpack bytes of ``obj`` (dicts, lists, str, bytes, int, float, bool,
     None, numpy arrays and scalars), as msgpack-python's packer with flax's
     ext hook writes them."""
-    out = bytearray()
+    out = _Chunks()
     _pack(out, obj)
-    return bytes(out)
+    return b"".join(out.pieces())
 
 
 def _chunk(arr: np.ndarray) -> dict:
@@ -309,14 +343,16 @@ def save_checkpoint(path, payload: dict, meta: dict | None = None):
     temporary name and renamed into place."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    blob = msgpack_serialize(payload)
+    blob = _Chunks()
+    _pack(blob, to_state_dict(payload))
     meta_bytes = json.dumps(meta or {}).encode()
     tmp = path.with_suffix(path.suffix + ".tmp")
     with open(tmp, "wb") as f:
         f.write(_MAGIC)
         f.write(struct.pack("<q", len(meta_bytes)))
         f.write(meta_bytes)
-        f.write(blob)
+        for piece in blob.pieces():
+            f.write(piece)
     tmp.replace(path)  # atomic publish
     return path
 
@@ -331,3 +367,154 @@ def load_checkpoint(path) -> tuple[dict, dict]:
         meta = json.loads(f.read(mlen).decode())
         payload = msgpack_restore(f.read())
     return payload, meta
+
+
+# --- the trainer's parts -----------------------------------------------------
+
+def _to_host(tree):
+    """A copy of ``tree`` with every torch tensor leaf copied to a numpy
+    array on the host (leaves the caller may change in place afterwards)."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_to_host(v) for v in tree)
+    if hasattr(tree, "detach") and hasattr(tree, "numpy"):
+        return tree.detach().to("cpu", copy=True).numpy()
+    return tree
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) of a tree of dicts in sorted key order (JAX's order);
+    None is an empty subtree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _leaves(tree[k], path + (k,))
+    elif tree is not None:
+        yield path, tree
+
+
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys: ``['a']['b']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def _rebuild(tree, leaves: dict, path=()):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves, path + (k,)) for k, v in tree.items()}
+    return None if tree is None else leaves[path]
+
+
+def filter_compatible(restored, target):
+    """Keep restored leaves whose path and shape match the target tree (cast
+    to the target leaf's dtype); every other target leaf keeps the target's
+    value (the shape-filtered partial load, reference
+    train_transformer.py:379-414). Returns (merged tree of the target's
+    structure, kept count, dropped paths as ``keystr``)."""
+    flat_r = dict(_leaves(restored))
+    out, kept, dropped = {}, 0, []
+    for path, tval in _leaves(target):
+        tval = np.asarray(tval)
+        rval = flat_r.get(path)
+        if rval is not None and np.shape(rval) == tval.shape:
+            out[path] = np.asarray(rval, dtype=tval.dtype)
+            kept += 1
+        else:
+            out[path] = tval
+            dropped.append(keystr(path))
+    return _rebuild(target, out), kept, dropped
+
+
+class AsyncCheckpointSaver:
+    """Background checkpoint writer with a bounded queue and drain-on-close
+    (reference train_transformer.py:197-276)."""
+
+    def __init__(self, max_queue: int = 3):
+        self._q: queue.Queue = queue.Queue(maxsize=max_queue)
+        self._errors: list[BaseException] = []
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                item()
+            except BaseException as e:  # surfaced on close()
+                self._errors.append(e)
+            finally:
+                self._q.task_done()
+
+    def submit(self, path, payload: dict, meta: dict | None = None):
+        """The copy to the host happens here, before this returns (the
+        train step updates the state's buffers in place afterwards), then
+        the write is queued."""
+        path = Path(path)
+        payload = _to_host(payload)
+        self._q.put(lambda: save_checkpoint(path, payload, meta))
+
+    def submit_task(self, fn):
+        """Queue a filesystem task, ordered with pending writes (best-N
+        renames must not overtake queued saves)."""
+        self._q.put(fn)
+
+    def close(self):
+        self._q.join()
+        self._q.put(None)
+        self._thread.join()
+        if self._errors:
+            raise self._errors[0]
+
+
+class BestNTracker:
+    """Best-N checkpoint rotation by metric: files
+    ``model_{runid}_{fold}_best{i}.ckpt`` with best0 the best, kept sorted
+    by renames as reference save_best_n_models (823-934)."""
+
+    def __init__(self, save_dir, run_id: str, fold: int, n: int,
+                 metric_name: str = "loss"):
+        self.dir = Path(save_dir)
+        self.run_id = run_id
+        self.fold = fold
+        self.n = max(1, int(n))
+        self.metric_name = metric_name
+        self.lower_better = metric_name == "loss"
+        self.entries: list[tuple[float, int]] = []  # (metric, step), best first
+
+    def _path(self, i: int) -> Path:
+        return self.dir / f"model_{self.run_id}_{self.fold}_best{i}.ckpt"
+
+    def consider(self, metric: float, step: int):
+        """The insertion index if this metric makes the top N, else None."""
+        key = metric if self.lower_better else -metric
+        keys = [m if self.lower_better else -m for m, _ in self.entries]
+        idx = int(np.searchsorted(keys, key))
+        return None if idx >= self.n else idx
+
+    def insert(self, idx: int, metric: float, step: int, saver, payload,
+               meta):
+        """Shift best{idx..} up by one (dropping the worst) and write
+        best{idx}; the unlink and renames are queued on the saver so they
+        stay ordered with in-flight writes to the same names."""
+        n_entries = len(self.entries)
+        if n_entries >= self.n:
+            self.entries = self.entries[: self.n - 1]
+            n_entries = self.n - 1
+
+        def rotate(n_entries=n_entries, idx=idx):
+            worst = self._path(self.n - 1)
+            if worst.exists():
+                worst.unlink()
+            for i in range(n_entries - 1, idx - 1, -1):
+                src = self._path(i)
+                if src.exists():
+                    src.rename(self._path(i + 1))
+
+        saver.submit_task(rotate)
+        self.entries.insert(idx, (metric, step))
+        saver.submit(self._path(idx), payload, meta)
+
+    @property
+    def best(self):
+        return self.entries[0] if self.entries else None

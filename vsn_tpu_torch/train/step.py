@@ -19,8 +19,13 @@ optimizer update, as the JAX step does:
   * LR/WD from the precomputed tables, indexed by the host's step count.
 
 Parameters stay f32 in one flat buffer (the model's parameters are views of
-it); images are cast to bf16 when FP16 is set. USE_CHECKPOINT,
-WATCH_GRADIENTS and PRELOAD_DEVICE are trainer features not ported yet.
+it); images are cast to bf16 when FP16 is set. With a device store
+(PRELOAD_DEVICE, ``data/resident.py``) a batch carries row indices and each
+micro-batch gathers its volumes on the card. WATCH_GRADIENTS adds the
+gradient norm of each top-level module under its JAX name
+(``grad_norm/<name>``) and, with a probe model, the attention-logit probe
+(``attn_logit_max``) on logged steps (vsn_tpu/train/step.py:301-343).
+USE_CHECKPOINT lives in the models (``layers.remat`` around each block).
 
 The model state (the JAX package's ``batch_stats``: BatchNorm running
 statistics, the model's persistent buffers) is a second flat f32 buffer,
@@ -41,28 +46,56 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from vsn_tpu_torch.data.resident import resolve_micro
+from vsn_tpu_torch.models.layers import LogitProbe
 from vsn_tpu_torch.train import optim
 from vsn_tpu_torch.train.ema import EMAState, ema_init, ema_update
 from vsn_tpu_torch.train.losses import label_smoothing_loss, smoothing_from_config
 
 
+ALIGN_BYTES = 256  # where each tensor of a flat buffer starts
+
+
 class _Flat:
-    """Named tensors of fixed shapes laid end to end in one flat buffer."""
+    """Named tensors of fixed shapes in one flat buffer, each starting on an
+    ALIGN_BYTES boundary, the gaps zero. A tensor of its own starts on such
+    a boundary too, and some library kernels (PyTorch's LayerNorm, cuBLAS's
+    choice of GEMM) take another path, whose sums run in another order, on
+    a pointer that is not aligned: so a model reads the same numbers from
+    the state's views as from a checkpoint's loaded tensors."""
 
     names: list[str]
     shapes: list[tuple]
+    offsets: list[int]
+    size: int
+
+    def _layout(self, itemsize: int) -> None:
+        unit = max(1, ALIGN_BYTES // itemsize)
+        self.offsets, off = [], 0
+        for shape in self.shapes:
+            self.offsets.append(off)
+            off += -(-int(np.prod(shape)) // unit) * unit
+        self.size = off
 
     def views(self, flat: torch.Tensor) -> list[torch.Tensor]:
-        out, off = [], 0
-        for shape in self.shapes:
-            size = int(np.prod(shape))
-            out.append(flat[off:off + size].view(shape))
-            off += size
-        return out
+        return [flat[off:off + int(np.prod(shape))].view(shape)
+                for off, shape in zip(self.offsets, self.shapes)]
 
     def tree(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         """name -> view of ``flat`` (e.g. the EMA weights as a state dict)."""
         return dict(zip(self.names, self.views(flat)))
+
+    def pack(self, tensors: dict, dtype=None, device=None) -> torch.Tensor:
+        """A flat buffer of this layout holding ``tensors`` (name -> tensor
+        of its shape), the gaps zero."""
+        first = tensors[self.names[0]] if self.names else None
+        flat = torch.zeros(
+            self.size, dtype=dtype or (first.dtype if first is not None
+                                       else torch.float32),
+            device=device or (first.device if first is not None else None))
+        for view, name in zip(self.views(flat), self.names):
+            view.copy_(tensors[name])
+        return flat
 
 
 class FlatParams(_Flat):
@@ -75,17 +108,19 @@ class FlatParams(_Flat):
         named = list(model.named_parameters())
         self.names = [name for name, _ in named]
         self.shapes = [tuple(p.shape) for _, p in named]
-        self.flat = torch.cat([p.detach().reshape(-1) for _, p in named])
+        self._layout(named[0][1].element_size())
+        with torch.no_grad():
+            self.flat = self.pack({n: p.detach() for n, p in named})
         self.grad = torch.zeros_like(self.flat)
         for (_, p), v, g in zip(named, self.views(self.flat),
                                 self.views(self.grad)):
             p.data = v
             p.grad = g
         mask = optim.wd_mask(dict(zip(self.names, self.shapes)))
-        self.decay_mask = torch.cat([
-            torch.full((int(np.prod(s)),), mask[n], dtype=torch.bool,
-                       device=self.flat.device)
-            for n, s in zip(self.names, self.shapes)])
+        self.decay_mask = torch.zeros(self.size, dtype=torch.bool,
+                                      device=self.flat.device)
+        for v, n in zip(self.views(self.decay_mask), self.names):
+            v.fill_(mask[n])
 
 
 def persistent_buffers(model: torch.nn.Module):
@@ -112,9 +147,10 @@ class FlatStats(_Flat):
         self.names = [name for name, _, _ in found]
         self.shapes = [tuple(getattr(m, a).shape) for _, m, a in found]
         device = next(model.parameters()).device
-        self.flat = torch.cat(
-            [getattr(m, a).detach().reshape(-1) for _, m, a in found]
-            or [torch.zeros(0, device=device)])
+        self._layout(getattr(found[0][1], found[0][2]).element_size()
+                     if found else 4)
+        self.flat = self.pack({n: getattr(m, a).detach() for n, m, a in found},
+                              device=device)
         for (_, module, attr), v in zip(found, self.views(self.flat)):
             setattr(module, attr, v)
 
@@ -184,41 +220,28 @@ def draw_seed(seed: int, step: int, micro: int, pass_idx: int) -> int:
         [int(seed), step, micro, pass_idx]).generate_state(1)[0])
 
 
-_NOT_PORTED = {
-    "USE_CHECKPOINT": "activation checkpointing",
-    "WATCH_GRADIENTS": "gradient watching and the attn_logit_max probe",
-    "PRELOAD_DEVICE": "the device-resident volume store",
-}
-
-
-def _check_ported(cfg):
-    for key, what in _NOT_PORTED.items():
-        if cfg.get(key, False):
-            raise NotImplementedError(f"{key}: {what} is not ported yet "
-                                      "(ROADMAP Queue 1, item 4)")
-
-
 def make_grad_fn(model, cfg, batch_transform=None,
                  draws: Optional[Callable] = None):
-    """``accumulate(state, batch, pass_idx) -> mean loss``: the gradient
-    accumulation of one pass over the micro-batches of ``batch``, at the
-    parameters as they stand; their mean gradient is left in
-    ``state.params.grad`` (arguments as ``make_train_step``)."""
-    _check_ported(cfg)
+    """``accumulate(state, batch, pass_idx, resident=None) -> mean loss``:
+    the gradient accumulation of one pass over the micro-batches of
+    ``batch``, at the parameters as they stand; their mean gradient is
+    left in ``state.params.grad`` (arguments as ``make_train_step``;
+    ``resident`` the device store a batch of row indices reads)."""
     if batch_transform is None:
         batch_transform = lambda micro, gen: (micro["image"], micro["label"])
     smoothing = smoothing_from_config(cfg)
     seed = int(cfg.get("SEED") or 0)
     compute_dtype = torch.bfloat16 if cfg.get("FP16", True) else torch.float32
 
-    def accumulate(state, batch, pass_idx):
+    def accumulate(state, batch, pass_idx, resident=None):
         model.train()
         grad = state.params.grad
         grad.zero_()
         a = batch["label"].shape[0]
         total = torch.zeros((), dtype=torch.float32, device=grad.device)
         for idx in range(a):
-            micro = {k: v[idx] for k, v in batch.items()}
+            micro = resolve_micro({k: v[idx] for k, v in batch.items()},
+                                  resident)
             images, labels = batch_transform(micro, None)
             images = images.to(compute_dtype)
             if draws is not None:
@@ -237,10 +260,52 @@ def make_grad_fn(model, cfg, batch_transform=None,
     return accumulate
 
 
+def watch_groups(params: FlatParams,
+                 cfg) -> list[tuple[str, list[tuple[int, int]]]]:
+    """WATCH_GRADIENTS' groups: (JAX top-level module name, [(start, end)
+    spans of the flat parameter buffer ``params``]) in first-seen order,
+    each parameter named by ``convert.jax_path`` (the JAX package takes the
+    norm of each top-level subtree of its gradient tree); a span runs over
+    the zero gaps between neighbours of one group."""
+    from vsn_tpu_torch.convert import jax_path
+
+    depths = cfg.DEPTH if cfg.ARCHITECTURE == "MedViT" else None
+    groups: dict[str, list] = {}
+    last = None
+    for name, off, shape in zip(params.names, params.offsets, params.shapes):
+        top = jax_path(name, depths).split("/")[0]
+        spans = groups.setdefault(top, [])
+        end = off + int(np.prod(shape))
+        if top == last:
+            spans[-1] = (spans[-1][0], end)
+        else:
+            spans.append((off, end))
+        last = top
+    return list(groups.items())
+
+
+def make_probe(probe_model, compute_dtype=torch.float32):
+    """``probe(variables, images) -> attn_logit_max``: one
+    eval-mode forward of ``probe_model`` (the model built with
+    USE_PALLAS_ATTENTION off: every attention on the branch that records
+    its scores' max, ``layers.LogitProbe``) on ``variables`` (a state dict
+    of the trained model's parameters and statistics) under no_grad; a 0-d
+    f32 tensor on the card, no host synchronization."""
+
+    def probe(variables, images):
+        probe_model.eval()
+        with torch.no_grad(), LogitProbe() as rec:
+            functional_call(probe_model, variables,
+                            (images.to(compute_dtype),))
+        return rec.value()
+
+    return probe
+
+
 def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
-                    draws: Optional[Callable] = None):
-    """Build ``train_step(state, batch) -> metrics`` for ``model`` (whose
-    parameters are the views of ``state.params``).
+                    draws: Optional[Callable] = None, probe_model=None):
+    """Build ``train_step(state, batch, resident=None) -> metrics`` for
+    ``model`` (whose parameters are the views of ``state.params``).
 
     ``batch`` is a dict of device tensors with a leading micro-batch axis
     A: ``image`` [A, B, D, H, W, C] and ``label`` [A, B, K], plus image2,
@@ -251,10 +316,17 @@ def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
     to inject (the list ``model.draw`` makes: Swin's residual gain pairs
     and dropout keep masks, ViT's DropPath gain pairs, the ResNet's
     head-dropout mask); else the
-    model draws them from a generator seeded by ``draw_seed``.
+    model draws them from a generator seeded by ``draw_seed``. ``resident``
+    is the device store (``data/resident.py``) of a batch that carries
+    ``image_idx`` / ``partner_idx`` row indices.
 
     Metrics (device tensors, or floats for lr/wd): loss, grad_norm, lr, wd,
-    skipped. The state is updated in place.
+    skipped; with WATCH_GRADIENTS, ``grad_norm/<module>`` of the first
+    pass's (clipped) gradients and, with ``probe_model``, attn_logit_max:
+    the probe (``make_probe``) on micro-batch 0 at the step's starting
+    parameters and statistics on steps whose count after the step is a
+    multiple of VALIDATION_FREQUENCY (the logged ones), else -inf. The
+    state is updated in place.
     """
     accumulate = make_grad_fn(model, cfg, batch_transform, draws)
     use_sam, sam_rho = bool(cfg.USE_SAM), float(cfg.SAM_RHO)
@@ -265,26 +337,50 @@ def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
     ema_n = int(cfg.EMA_N_MODELS)
     lr_table = np.asarray(lr_table, np.float32)
     wd_table = np.asarray(wd_table, np.float32)
+    watch = bool(cfg.get("WATCH_GRADIENTS", False))
+    probe = None
+    if watch and probe_model is not None:
+        probe = make_probe(probe_model, compute_dtype=torch.bfloat16
+                           if cfg.get("FP16", True) else torch.float32)
+        transform = batch_transform or (lambda micro, gen: (micro["image"],
+                                                            micro["label"]))
+        log_every = max(1, int(cfg.get("VALIDATION_FREQUENCY", 1)))
 
-    def train_step(state: TrainState, batch) -> dict:
+    def train_step(state: TrainState, batch, resident=None) -> dict:
         flat, stats = state.params.flat, state.model_state.flat
         start_stats = stats.clone()
         lr = float(lr_table[min(state.step, len(lr_table) - 1)])
         wd = float(wd_table[min(state.step, len(wd_table) - 1)])
-        loss = accumulate(state, batch, 0)
+        logit_max = None
+        if probe is not None:
+            if (state.step + 1) % log_every == 0:
+                micro0 = resolve_micro({k: v[0] for k, v in batch.items()},
+                                       resident)
+                logit_max = probe({**state.params.tree(flat),
+                                   **state.model_state.tree(stats)},
+                                  transform(micro0, None)[0])
+            else:
+                logit_max = torch.tensor(float("-inf"))
+        loss = accumulate(state, batch, 0, resident)
         grads = state.params.grad
         finite = optim.all_finite(grads) & torch.isfinite(loss)
         if clip is not None:
             grads, grad_norm = optim.clip_by_global_norm(grads, clip)
         else:
             grad_norm = optim.global_norm(grads)
+        watched = {f"grad_norm/{name}": torch.sqrt(sum(
+            grads[a:b].float().square().sum() for a, b in spans))
+            for name, spans in (watch_groups(state.params, cfg) if watch
+                                else [])}
+        if logit_max is not None:
+            watched["attn_logit_max"] = logit_max
         if use_sam:
             e_w, _ = optim.sam_perturbation(flat, grads, sam_rho,
                                             sam_adaptive)
             original = flat.clone()
             with torch.no_grad():
                 flat.add_(e_w)
-            loss2 = accumulate(state, batch, 1)
+            loss2 = accumulate(state, batch, 1, resident)
             with torch.no_grad():
                 flat.copy_(original)
             grads = state.params.grad
@@ -309,7 +405,7 @@ def make_train_step(model, cfg, lr_table, wd_table, batch_transform=None,
         state.skipped = state.skipped + was_skipped
         state.step += 1
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr, "wd": wd,
-                "skipped": was_skipped}
+                "skipped": was_skipped, **watched}
 
     return train_step
 
@@ -331,20 +427,23 @@ def make_eval_step(model):
 
 
 def make_bn_refresh_step(model, cfg, batch_transform=None):
-    """``refresh(variables, batch) -> statistics``: re-estimate the BatchNorm
+    """``refresh(variables, batch, resident=None, index=0) -> statistics``:
+    re-estimate the BatchNorm
     running statistics of the weights in ``variables`` (a state dict such as
     ``eval_params(state, use_ema=True)``) by train-mode forwards over the
     micro-batches of ``batch`` that only update the statistics, one after
     another (vsn_tpu/train/step.py:358-387, reference EMAModel.
     update_bn_stats). Returns name -> new statistic; the model and
-    ``variables`` are left as they were. Head dropout, which follows the
-    last BatchNorm, draws from a generator seeded per micro-batch."""
+    ``variables`` are left as they were. The forwards' random draws come
+    from a generator seeded per (``index``, micro-batch), ``index`` the
+    batch's place in the refresh; a batch of row indices reads
+    ``resident``."""
     if batch_transform is None:
         batch_transform = lambda micro, gen: (micro["image"], micro["label"])
     seed = int(cfg.get("SEED") or 0)
     names = [name for name, _, _ in persistent_buffers(model)]
 
-    def refresh(variables, batch):
+    def refresh(variables, batch, resident=None, index=0):
         stats = {name: variables[name].clone() for name in names}
         merged = {**variables, **stats}
         was_training = model.training
@@ -352,10 +451,11 @@ def make_bn_refresh_step(model, cfg, batch_transform=None):
         try:
             with torch.no_grad():
                 for idx in range(batch["label"].shape[0]):
-                    micro = {k: v[idx] for k, v in batch.items()}
+                    micro = resolve_micro({k: v[idx] for k, v in
+                                           batch.items()}, resident)
                     images, _ = batch_transform(micro, None)
                     gen = torch.Generator(device=images.device)
-                    gen.manual_seed(draw_seed(seed, 0, idx, 0))
+                    gen.manual_seed(draw_seed(seed, index, idx, 0))
                     functional_call(model, merged, (images,),
                                     {"generator": gen})
         finally:
